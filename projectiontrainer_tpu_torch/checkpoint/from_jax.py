@@ -1,0 +1,100 @@
+"""Carry weights across from the JAX package.
+
+Takes a JAX parameter tree whose leaves are numpy arrays (for example
+``jax.tree.map(np.asarray, vlm.init(key, cfg))``) and returns the port's tree:
+
+- linear kernels ``[in, out]`` become torch weights ``[out, in]``;
+- the patch conv's HWIO kernel ``[p, p, C, D]`` becomes the space-to-depth matrix
+  ``[D, p*p*C]`` (rows ordered patch row, patch column, channel, as ``conv_patchify``
+  flattens them);
+- the tied embedding table becomes the LM head.
+
+Configs carry across by field name (``config_from_jax``). This module takes numpy
+arrays and imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from projectiontrainer_tpu_torch.models import decoder as dec
+from projectiontrainer_tpu_torch.models import projector as proj
+from projectiontrainer_tpu_torch.models import siglip, vlm
+
+
+def _t(x, device, dtype):
+    return torch.tensor(np.asarray(x)).to(device=device, dtype=dtype)
+
+
+def _convert(tree, device, dtype):
+    """Linear ``{'kernel' [in, out], 'bias'?}`` -> ``{'weight' [out, in], 'bias'?}``;
+    dicts and lists recursively; any other leaf as a tensor."""
+    if isinstance(tree, dict):
+        if "kernel" in tree and np.ndim(tree["kernel"]) == 2:
+            out = {"weight": _t(np.asarray(tree["kernel"]).T, device, dtype)}
+            if "bias" in tree:
+                out["bias"] = _t(tree["bias"], device, dtype)
+            return out
+        return {k: _convert(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_convert(v, device, dtype) for v in tree]
+    return _t(tree, device, dtype)
+
+
+def vision_params(tree: dict, *, device=None, dtype=None) -> dict:
+    """JAX SigLIP vision params -> the port's (the MAP head is dropped: the port's
+    tower does not run it)."""
+    rest = {k: v for k, v in tree.items() if k not in ("head", "patch_embedding")}
+    out = _convert(rest, device, dtype)
+    kernel = np.asarray(tree["patch_embedding"]["kernel"])  # HWIO
+    out["patch_embedding"] = {
+        "weight": _t(kernel.reshape(-1, kernel.shape[-1]).T, device, dtype),
+        "bias": _t(tree["patch_embedding"]["bias"], device, dtype),
+    }
+    return out
+
+
+def projector_params(tree: dict, *, device=None, dtype=None) -> dict:
+    return _convert(tree, device, dtype)
+
+
+def decoder_params(tree: dict, *, device=None, dtype=None) -> dict:
+    out = _convert(tree, device, dtype)
+    if "lm_head" not in out:  # tied head: the embedding table itself
+        out["lm_head"] = {"weight": out["embed_tokens"]["embedding"]}
+    return out
+
+
+def vlm_params(tree: dict, *, device=None, tower_dtype=None, projector_dtype=None) -> dict:
+    return {
+        "vision": vision_params(tree["vision"], device=device, dtype=tower_dtype),
+        "projector": projector_params(tree["projector"], device=device,
+                                      dtype=projector_dtype),
+        "llm": decoder_params(tree["llm"], device=device, dtype=tower_dtype),
+    }
+
+
+def _same_fields(cls, cfg):
+    names = {f.name for f in dataclasses.fields(cls)} - {"attn_impl", "norm_impl"}
+    return cls(**{n: getattr(cfg, n) for n in names if hasattr(cfg, n)})
+
+
+def config_from_jax(cfg):
+    """A JAX ``VLMConfig`` (or one of its parts) -> the port's config of the same
+    fields. Kernel choices are the port's own (``attn_impl``/``norm_impl`` default
+    to 'kernel')."""
+    if hasattr(cfg, "vision") and hasattr(cfg, "llm"):
+        return vlm.VLMConfig(
+            vision=_same_fields(siglip.VisionConfig, cfg.vision),
+            projector=_same_fields(proj.ProjectorConfig, cfg.projector),
+            llm=_same_fields(dec.DecoderConfig, cfg.llm),
+            drop_first_patch=cfg.drop_first_patch,
+        )
+    if hasattr(cfg, "vocab_size"):
+        return _same_fields(dec.DecoderConfig, cfg)
+    if hasattr(cfg, "patch_size"):
+        return _same_fields(siglip.VisionConfig, cfg)
+    return _same_fields(proj.ProjectorConfig, cfg)

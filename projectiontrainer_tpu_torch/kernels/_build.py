@@ -1,0 +1,131 @@
+"""Build and load the hand-written CUDA kernels under ``csrc/``.
+
+At first use every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into one shared
+library with a plain C interface, stored under ``build/kernels/`` and named by a hash
+of the sources (a changed source builds anew; an unchanged one loads the cached
+library). The library is loaded with ``ctypes``: pointers and the CUDA stream pass
+as ``c_void_p``, each C entry point returns ``cudaGetLastError()`` after its launch,
+and :func:`check` raises on anything but 0. A failed build raises too: there is no
+fallback to another implementation.
+
+Triton kernels are not built here; each is imported and compiled inside the function
+that launches it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+
+# C signatures of the entry points (see the ``extern "C"`` blocks of csrc/*.cu)
+SIGNATURES = {
+    # q, k, v, kv_mask, out, lse; B, T, Hq, Hkv, D;
+    # q/k/v/out strides (b, t, h) in elements; scale, causal, window; stream
+    "flash_attn_fwd_bf16": [_P] * 6 + [_I] * 5 + [_L] * 12 + [_F, _I, _I, _P],
+    # q, kp, vp, kg, vg, prefix_mask, out; B, nb, Hkv, n_rep, P, G, D;
+    # t, prefix_len, window, scale; stream
+    "decode_attn_bf16": [_P] * 7 + [_I] * 7 + [_I, _I, _I, _F, _P],
+}
+
+_lock = threading.Lock()
+_lib = None
+build_seconds: float | None = None  # wall time of the build this process did, if any
+
+
+class LaunchCounter:
+    """Plain count of a wrapper's kernel launches (thread-safe: two serving workers
+    launch kernels concurrently)."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self._n = 0
+        self._lock = threading.Lock()
+
+    def add(self) -> None:
+        with self._lock:
+            self._n += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self._n = 0
+
+    @property
+    def value(self) -> int:
+        return self._n
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels of projectiontrainer_tpu_torch "
+                       "are built from source and need the CUDA toolkit")
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256()
+    for path in sorted(CSRC.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into build/kernels/ unless the same sources were built
+    before. Returns the library's path; raises on a failed build."""
+    global build_seconds
+    out = BUILD_DIR / f"libptt_kernels_{_source_hash()}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)
+    build_seconds = time.perf_counter() - t0
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built at first use)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def check(name: str, err: int) -> None:
+    """Raise if a C entry point reported a CUDA error for its launch."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")

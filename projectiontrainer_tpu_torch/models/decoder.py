@@ -1,0 +1,351 @@
+"""GQA + RoPE causal decoder (Gemma3 family), inference paths.
+
+Counterpart of ``projectiontrainer_tpu/models/decoder.py`` for what serving runs:
+``embed``, the prefill through a monolithic cache, the split prefix / generated cache
+of the decode steps (``ops/decode_attention.py``), ``logits``. Parameters are a nested
+dict shaped like the JAX tree; linear weights are ``[out, in]``, and ``lm_head`` is
+always present (the embedding table itself when the head is tied).
+
+Not ported yet: LoRA adapters, quantized base weights, training remat.
+
+Caches are updated IN PLACE (the JAX package returns new arrays): the prefill writes
+its K/V into the monolithic cache and each decode step writes slot ``t`` of the
+generated cache. ``forward`` still returns the cache list, so callers read the same
+way as in JAX.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from projectiontrainer_tpu_torch.ops import layers as L
+from projectiontrainer_tpu_torch.ops.attention import dot_product_attention
+from projectiontrainer_tpu_torch.ops.decode_attention import (
+    decode_attention, decode_attention_reference,
+)
+from projectiontrainer_tpu_torch.ops.flash_attention import flash_attention
+
+
+@dataclasses.dataclass(frozen=True)
+class DecoderConfig:
+    vocab_size: int
+    hidden_size: int
+    intermediate_size: int
+    num_layers: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    rms_norm_eps: float = 1e-6
+    act: str = "gelu_tanh"
+    rope_theta: float = 1_000_000.0
+    rope_local_theta: Optional[float] = None     # used by sliding layers (Gemma3)
+    rope_scaling_factor: float = 1.0             # linear rope scaling on full layers
+    rope_llama3: Optional[tuple] = None          # (factor, low, high, original max)
+    layer_types: tuple = ()                      # per layer: 'full' | 'sliding'
+    sliding_window: Optional[int] = None
+    query_pre_attn_scalar: Optional[float] = None
+    qk_norm: bool = True
+    rmsnorm_zero_centered: bool = True
+    sandwich_norms: bool = True
+    embed_scale: bool = True
+    tie_embeddings: bool = True
+    attention_bias: bool = False
+    attn_impl: str = "kernel"                    # 'kernel' | 'plain'
+
+    def __post_init__(self):
+        if not self.layer_types:
+            object.__setattr__(self, "layer_types", ("full",) * self.num_layers)
+        if len(self.layer_types) != self.num_layers:
+            raise ValueError("layer_types must name every layer")
+
+    @property
+    def attn_scale(self) -> float:
+        base = (self.query_pre_attn_scalar if self.query_pre_attn_scalar is not None
+                else self.head_dim)
+        return float(base) ** -0.5
+
+
+def gemma3_config(
+    *, vocab_size=262_144, hidden_size=1152, intermediate_size=6912, num_layers=26,
+    num_heads=4, num_kv_heads=1, head_dim=256, sliding_window=512,
+    sliding_pattern=6, rope_theta=1_000_000.0, rope_local_theta=10_000.0,
+    rope_scaling_factor=1.0, query_pre_attn_scalar=256, **kw,
+) -> DecoderConfig:
+    """Gemma3 defaults (1B-shaped); one full layer per ``sliding_pattern`` layers."""
+    layer_types = tuple(
+        "full" if (i + 1) % sliding_pattern == 0 else "sliding" for i in range(num_layers)
+    )
+    return DecoderConfig(
+        vocab_size=vocab_size, hidden_size=hidden_size, intermediate_size=intermediate_size,
+        num_layers=num_layers, num_heads=num_heads, num_kv_heads=num_kv_heads,
+        head_dim=head_dim, act="gelu_tanh", rope_theta=rope_theta,
+        rope_local_theta=rope_local_theta, rope_scaling_factor=rope_scaling_factor,
+        layer_types=layer_types, sliding_window=sliding_window,
+        query_pre_attn_scalar=query_pre_attn_scalar, qk_norm=True,
+        rmsnorm_zero_centered=True, sandwich_norms=True, embed_scale=True, **kw,
+    )
+
+
+def from_hf_config(cfg: dict) -> DecoderConfig:
+    """DecoderConfig from a Gemma3 ``config.json`` dict (text-only, or the multimodal
+    wrapper's ``text_config``)."""
+    if cfg.get("model_type") == "gemma3":
+        cfg = cfg["text_config"]
+    if cfg.get("model_type") != "gemma3_text":
+        raise ValueError(f"unsupported model_type {cfg.get('model_type')!r} "
+                         "(the port reads Gemma3 decoders)")
+    n = cfg["num_hidden_layers"]
+    if cfg.get("layer_types"):
+        layer_types = tuple("sliding" if t == "sliding_attention" else "full"
+                            for t in cfg["layer_types"])
+    else:
+        pattern = cfg.get("sliding_window_pattern", 6)
+        layer_types = tuple("full" if (i + 1) % pattern == 0 else "sliding"
+                            for i in range(n))
+    factor = float((cfg.get("rope_scaling") or {}).get("factor", 1.0))
+    return DecoderConfig(
+        vocab_size=cfg["vocab_size"], hidden_size=cfg["hidden_size"],
+        intermediate_size=cfg["intermediate_size"], num_layers=n,
+        num_heads=cfg["num_attention_heads"], num_kv_heads=cfg["num_key_value_heads"],
+        head_dim=cfg.get("head_dim", 256), rms_norm_eps=cfg.get("rms_norm_eps", 1e-6),
+        act="gelu_tanh", rope_theta=cfg.get("rope_theta", 1_000_000.0),
+        rope_local_theta=cfg.get("rope_local_base_freq", 10_000.0),
+        rope_scaling_factor=factor, layer_types=layer_types,
+        sliding_window=cfg.get("sliding_window", 4096),
+        query_pre_attn_scalar=cfg.get("query_pre_attn_scalar", 256),
+        tie_embeddings=cfg.get("tie_word_embeddings", True),
+        attention_bias=cfg.get("attention_bias", False),
+    )
+
+
+# ---------------------------------------------------------------------------- init
+
+
+def init(gen: torch.Generator, cfg: DecoderConfig, dtype=torch.float32, device=None):
+    """Random decoder parameters, distributed like the JAX package's ``init``."""
+    h, q_dim = cfg.hidden_size, cfg.num_heads * cfg.head_dim
+    kv_dim = cfg.num_kv_heads * cfg.head_dim
+    zc = cfg.rmsnorm_zero_centered
+    lin = lambda i, o, bias=cfg.attention_bias: L.init_linear(gen, i, o, bias=bias,
+                                                             dtype=dtype, device=device)
+    norm = lambda d: L.init_rmsnorm(d, dtype=dtype, device=device, zero_centered=zc)
+    params = {
+        "embed_tokens": L.init_embedding(gen, cfg.vocab_size, h, dtype=dtype, device=device),
+        "final_norm": norm(h),
+        "layers": [],
+    }
+    params["lm_head"] = ({"weight": params["embed_tokens"]["embedding"]}
+                         if cfg.tie_embeddings else lin(h, cfg.vocab_size, False))
+    for _ in range(cfg.num_layers):
+        layer = {
+            "input_norm": norm(h),
+            "attn": {"q_proj": lin(h, q_dim), "k_proj": lin(h, kv_dim),
+                     "v_proj": lin(h, kv_dim), "o_proj": lin(q_dim, h)},
+            "mlp": {"gate_proj": lin(h, cfg.intermediate_size, False),
+                    "up_proj": lin(h, cfg.intermediate_size, False),
+                    "down_proj": lin(cfg.intermediate_size, h, False)},
+            "post_attn_norm": norm(h),
+        }
+        if cfg.qk_norm:
+            layer["attn"]["q_norm"] = norm(cfg.head_dim)
+            layer["attn"]["k_norm"] = norm(cfg.head_dim)
+        if cfg.sandwich_norms:
+            layer["pre_ffw_norm"] = norm(h)
+            layer["post_ffw_norm"] = norm(h)
+        params["layers"].append(layer)
+    return params
+
+
+# ---------------------------------------------------------------------------- forward
+
+
+def embed(params, cfg: DecoderConfig, input_ids: torch.Tensor) -> torch.Tensor:
+    """Token embedding, with Gemma3's ``sqrt(hidden)`` scale rounded to the table's type."""
+    x = L.embedding_lookup(params["embed_tokens"], input_ids)
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=x.dtype)
+    return x
+
+
+def _rope_for_layer(cfg: DecoderConfig, layer_type: str, positions):
+    if layer_type == "sliding" and cfg.rope_local_theta is not None:
+        return L.rope_frequencies(cfg.head_dim, positions, theta=cfg.rope_local_theta)
+    return L.rope_frequencies(cfg.head_dim, positions, theta=cfg.rope_theta,
+                              scaling_factor=cfg.rope_scaling_factor,
+                              llama3_scaling=cfg.rope_llama3)
+
+
+def _norm(p, x, cfg: DecoderConfig):
+    return L.rmsnorm(p, x, eps=cfg.rms_norm_eps, zero_centered=cfg.rmsnorm_zero_centered)
+
+
+def _attention_block(lp, cfg: DecoderConfig, x, sin, cos, *, layer_type, kv_mask,
+                     q_offset, cache=None, prefix_len=None):
+    b, t, _ = x.shape
+    q = L.linear(lp["q_proj"], x).reshape(b, t, cfg.num_heads, cfg.head_dim)
+    k = L.linear(lp["k_proj"], x).reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+    v = L.linear(lp["v_proj"], x).reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = _norm(lp["q_norm"], q, cfg)
+        k = _norm(lp["k_norm"], k, cfg)
+    q = L.apply_rope(q, sin, cos)
+    k = L.apply_rope(k, sin, cos)
+    window = cfg.sliding_window if layer_type == "sliding" else None
+
+    if cache is not None and "kp" in cache:
+        # split cache: this step's K/V goes to generated slot q_offset (the 0-based
+        # decode step); kv_mask is the [B, P] prefix mask, prefix_len the real length
+        kg, vg = cache["kg"], cache["vg"]
+        kg[:, :, q_offset] = k[:, 0].to(kg.dtype)
+        vg[:, :, q_offset] = v[:, 0].to(vg.dtype)
+        attend = decode_attention if cfg.attn_impl == "kernel" else decode_attention_reference
+        out = attend(q[:, 0].to(cache["kp"].dtype), cache["kp"], cache["vp"], kg, vg,
+                     prefix_mask=kv_mask, t=q_offset, prefix_len=prefix_len,
+                     scale=cfg.attn_scale, window=window).to(q.dtype)
+        return L.linear(lp["o_proj"], out.reshape(b, t, -1)), cache
+
+    if cache is not None:  # monolithic cache: write this call's K/V at q_offset
+        cache["k"][:, q_offset:q_offset + t] = k.to(cache["k"].dtype)
+        cache["v"][:, q_offset:q_offset + t] = v.to(cache["v"].dtype)
+        k, v = cache["k"], cache["v"]
+
+    k, v = k.to(q.dtype), v.to(q.dtype)
+    if cfg.attn_impl == "kernel" and k.shape[1] == t and q_offset == 0:
+        out = flash_attention(q, k, v, scale=cfg.attn_scale, causal=True, window=window,
+                              kv_mask=kv_mask)[0]
+    else:
+        out = dot_product_attention(q, k, v, scale=cfg.attn_scale, causal=True,
+                                    window=window, kv_mask=kv_mask, q_offset=q_offset)
+    return L.linear(lp["o_proj"], out.reshape(b, t, -1)), cache
+
+
+def _mlp_block(lp, cfg: DecoderConfig, x):
+    gate = L.ACTIVATIONS[cfg.act](L.linear(lp["gate_proj"], x))
+    return L.linear(lp["down_proj"], gate * L.linear(lp["up_proj"], x))
+
+
+@torch.no_grad()
+def forward(params, cfg: DecoderConfig, *, input_ids=None, inputs_embeds=None,
+            attention_mask=None, positions=None, cache=None, q_offset: int = 0,
+            prefix_len: Optional[int] = None):
+    """Run the decoder -> (hidden_states, cache).
+
+    Without a cache: a full-sequence forward. With a monolithic cache (``init_cache``):
+    ``q_offset`` tokens are already cached and ``attention_mask`` covers the whole
+    cache. With a split cache (``split_cache``): ``q_offset`` is the 0-based decode
+    step, ``attention_mask`` the [B, P] prefix mask, ``prefix_len`` the real prefix
+    length, and ``positions`` must be given."""
+    x = embed(params, cfg, input_ids) if inputs_embeds is None else inputs_embeds
+    b, t, _ = x.shape
+    if positions is None:
+        positions = (torch.arange(t, device=x.device)[None, :] + q_offset).expand(b, t)
+    kv_mask = None if attention_mask is None else attention_mask.bool()
+    rope = {lt: _rope_for_layer(cfg, lt, positions) for lt in set(cfg.layer_types)}
+
+    for i, lp in enumerate(params["layers"]):
+        layer_type = cfg.layer_types[i]
+        sin, cos = rope[layer_type]
+        h, _ = _attention_block(
+            lp["attn"], cfg, _norm(lp["input_norm"], x, cfg), sin, cos,
+            layer_type=layer_type, kv_mask=kv_mask, q_offset=q_offset,
+            cache=None if cache is None else cache[i], prefix_len=prefix_len,
+        )
+        if cfg.sandwich_norms:
+            x = x + _norm(lp["post_attn_norm"], h, cfg)
+            h = _mlp_block(lp["mlp"], cfg, _norm(lp["pre_ffw_norm"], x, cfg))
+            x = x + _norm(lp["post_ffw_norm"], h, cfg)
+        else:
+            x = x + h
+            x = x + _mlp_block(lp["mlp"], cfg, _norm(lp["post_attn_norm"], x, cfg))
+    return _norm(params["final_norm"], x, cfg), cache
+
+
+def logits(params, cfg: DecoderConfig, hidden: torch.Tensor) -> torch.Tensor:
+    """LM head -> fp32 logits. The product runs in the hidden states' type; with bf16
+    weights the logits are rounded to bf16 before the fp32 cast (JAX accumulates
+    straight into fp32)."""
+    w = params["lm_head"]["weight"]
+    return F.linear(hidden, w.to(hidden.dtype)).float()
+
+
+def init_cache(cfg: DecoderConfig, batch: int, max_len: int, dtype=torch.bfloat16,
+               device=None):
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return [{"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device)}
+            for _ in range(cfg.num_layers)]
+
+
+def split_cache(prefix_cache, cfg: DecoderConfig, rows: int, gen_len: int,
+                prefix_mask=None, pad_to: int = 1):
+    """Prefilled monolithic cache [B, P] -> the split decode structure: head-major
+    prefix caches [B, Hkv, P, D] and zeroed generated caches [rows, Hkv, G, D]
+    (``rows`` = B * beams, ``gen_len`` = max_new_tokens). ``pad_to`` pads P and G up,
+    with the padded prefix slots masked in the returned prefix mask.
+    Returns (cache_list, prefix_mask)."""
+    def rup(n):
+        return (n + pad_to - 1) // pad_to * pad_to
+
+    b, p = prefix_cache[0]["k"].shape[:2]
+    p_pad, g_pad = rup(p), rup(gen_len)
+    out = []
+    for layer in prefix_cache:
+        kp = layer["k"].transpose(1, 2)
+        vp = layer["v"].transpose(1, 2)
+        kp = F.pad(kp, (0, 0, 0, p_pad - p)).contiguous()
+        vp = F.pad(vp, (0, 0, 0, p_pad - p)).contiguous()
+        shape = (rows, cfg.num_kv_heads, g_pad, cfg.head_dim)
+        out.append({"kp": kp, "vp": vp,
+                    "kg": torch.zeros(shape, dtype=kp.dtype, device=kp.device),
+                    "vg": torch.zeros(shape, dtype=kp.dtype, device=kp.device)})
+    if prefix_mask is not None and p_pad != p:
+        prefix_mask = F.pad(prefix_mask.to(torch.int32), (0, p_pad - p))
+    return out, prefix_mask
+
+
+def params_from_hf_state_dict(cfg: DecoderConfig, sd: dict, *, device=None,
+                              dtype=None) -> dict:
+    """An HF Gemma3 (``Gemma3ForCausalLM`` / text model) state dict of tensors or numpy
+    arrays -> decoder params (torch layout, so linear weights pass unchanged)."""
+    def get(name):
+        for key in ("model." + name, name):
+            if key in sd:
+                return torch.as_tensor(sd[key]).to(device=device, dtype=dtype)
+        raise KeyError(name)
+
+    def lin(name):
+        p = {"weight": get(name + ".weight")}
+        if cfg.attention_bias:
+            p["bias"] = get(name + ".bias")
+        return p
+
+    table = get("embed_tokens.weight")
+    params = {"embed_tokens": {"embedding": table}, "final_norm": {"scale": get("norm.weight")},
+              "layers": []}
+    if cfg.tie_embeddings:
+        params["lm_head"] = {"weight": table}
+    else:
+        params["lm_head"] = {"weight": torch.as_tensor(sd["lm_head.weight"]).to(
+            device=device, dtype=dtype)}
+    for i in range(cfg.num_layers):
+        pre = f"layers.{i}."
+        layer = {
+            "input_norm": {"scale": get(pre + "input_layernorm.weight")},
+            "attn": {n: lin(pre + "self_attn." + n)
+                     for n in ("q_proj", "k_proj", "v_proj", "o_proj")},
+            "mlp": {n: {"weight": get(pre + f"mlp.{n}.weight")}
+                    for n in ("gate_proj", "up_proj", "down_proj")},
+            "post_attn_norm": {"scale": get(pre + "post_attention_layernorm.weight")},
+        }
+        if cfg.qk_norm:
+            layer["attn"]["q_norm"] = {"scale": get(pre + "self_attn.q_norm.weight")}
+            layer["attn"]["k_norm"] = {"scale": get(pre + "self_attn.k_norm.weight")}
+        if cfg.sandwich_norms:
+            layer["pre_ffw_norm"] = {"scale": get(pre + "pre_feedforward_layernorm.weight")}
+            layer["post_ffw_norm"] = {"scale": get(pre + "post_feedforward_layernorm.weight")}
+        params["layers"].append(layer)
+    return params

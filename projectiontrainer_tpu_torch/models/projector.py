@@ -1,0 +1,54 @@
+"""MLP projector: vision patch embeddings -> LLM embedding space.
+
+Counterpart of ``projectiontrainer_tpu/models/projector.py``: ``Linear(v, ef*v) ->
+exact GELU -> Linear(ef*v, llm)`` per patch. Its parameters stay fp32 over a bf16
+tower output: each linear computes in fp32 and casts back to the input's type, as
+JAX's dtype promotion does (``ops/layers.py:linear``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from projectiontrainer_tpu_torch.ops import layers as L
+
+
+@dataclasses.dataclass(frozen=True)
+class ProjectorConfig:
+    vision_dim: int
+    llm_dim: int
+    expansion_factor: int = 10
+
+    @property
+    def intermediate_dim(self) -> int:
+        return self.vision_dim * self.expansion_factor
+
+
+def init(gen: torch.Generator, cfg: ProjectorConfig, dtype=torch.float32, device=None):
+    return {
+        "fc1": L.init_linear(gen, cfg.vision_dim, cfg.intermediate_dim, dtype=dtype,
+                             device=device),
+        "fc2": L.init_linear(gen, cfg.intermediate_dim, cfg.llm_dim, dtype=dtype,
+                             device=device),
+    }
+
+
+def forward(params, x: torch.Tensor) -> torch.Tensor:
+    """x [B, P, vision_dim] -> [B, P, llm_dim]; GELU is exact (torch nn.GELU default)."""
+    h = L.gelu(L.linear(params["fc1"], x), approximate=False)
+    return L.linear(params["fc2"], h)
+
+
+def params_from_torch_state_dict(sd: dict, *, device=None, dtype=None) -> dict:
+    """A reference ``projector_*.bin`` state dict (``model.{0,2}.{weight,bias}``,
+    with or without the ``module.`` / ``model.`` prefixes) -> projector params."""
+    clean = {}
+    for k, v in sd.items():
+        clean[k.removeprefix("module.").removeprefix("model.")] = torch.as_tensor(v).to(
+            device=device, dtype=dtype)
+    return {
+        "fc1": {"weight": clean["0.weight"], "bias": clean["0.bias"]},
+        "fc2": {"weight": clean["2.weight"], "bias": clean["2.bias"]},
+    }

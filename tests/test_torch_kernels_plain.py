@@ -1,0 +1,120 @@
+"""The plain versions of the port's three kernels against the JAX package's Pallas
+kernels run in interpret mode on the CPU, fp32, same numpy inputs; and the wrappers'
+dispatch: a CPU tensor goes to the plain version, the kernel build raises when it
+cannot build (no fallback).
+
+The Pallas kernels are called directly: their dispatchers pick XLA whenever
+``jax.device_count() != 1``, which is the case under this suite's 8-device conftest."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from projectiontrainer_tpu.ops import decode_attention as JDA
+from projectiontrainer_tpu.ops import flash_attention as JFA
+from projectiontrainer_tpu.ops import fused_layernorm as JFLN
+from projectiontrainer_tpu_torch.kernels import _build
+from projectiontrainer_tpu_torch.ops import decode_attention as DA
+from projectiontrainer_tpu_torch.ops import flash_attention as FA
+from projectiontrainer_tpu_torch.ops import fused_layernorm as FLN
+
+torch.set_num_threads(2)
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def test_layernorm_plain_matches_pallas():
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((40, 128), dtype=np.float32) * 2 + 0.5
+    s = rng.standard_normal(128, dtype=np.float32)
+    b = rng.standard_normal(128, dtype=np.float32)
+    before = FLN.launches.value
+    ours = FLN.layernorm({"scale": torch.tensor(s), "bias": torch.tensor(b)}, torch.tensor(x))
+    assert FLN.launches.value == before  # a CPU tensor never reaches the kernel
+    theirs = JFLN._fused_ln(jnp.asarray(x), jnp.asarray(s), jnp.asarray(b), 1e-6, True)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), **TOL)
+
+
+FLASH_CASES = {
+    "tower": dict(hq=4, hkv=4, causal=False, window=None, pad=False),
+    "prefill": dict(hq=4, hkv=1, causal=True, window=None, pad=True),
+    "prefill_window": dict(hq=4, hkv=1, causal=True, window=9, pad=True),
+    "gqa_window": dict(hq=4, hkv=2, causal=True, window=16, pad=False),
+}
+
+
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_plain_matches_pallas(case):
+    c = FLASH_CASES[case]
+    rng = np.random.default_rng(1)
+    b, t, d = 2, 40, 16
+    q = rng.standard_normal((b, t, c["hq"], d), dtype=np.float32)
+    k = rng.standard_normal((b, t, c["hkv"], d), dtype=np.float32)
+    v = rng.standard_normal((b, t, c["hkv"], d), dtype=np.float32)
+    mask = None
+    if c["pad"]:
+        mask = np.ones((b, t), np.int32)
+        mask[1, :13] = 0  # left padding: rows 0..12 of batch 1 have no valid key
+    kw = dict(scale=d ** -0.5, causal=c["causal"], window=c["window"])
+    before = FA.launches.value
+    out, lse = FA.flash_attention(torch.tensor(q), torch.tensor(k), torch.tensor(v),
+                                  kv_mask=None if mask is None else torch.tensor(mask), **kw)
+    assert FA.launches.value == before
+    jmask = None if mask is None else jnp.asarray(mask)
+    theirs = JFA.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                 kv_mask=jmask, interpret=True, **kw)
+    np.testing.assert_allclose(out.numpy(), np.asarray(theirs), **TOL)
+    _, jlse = JFA._fwd(*(jnp.asarray(x).swapaxes(1, 2) for x in (q, k, v)), jmask,
+                       bq=JFA.DEFAULT_BQ, bk=JFA.DEFAULT_BK, interpret=True, **kw)
+    live = np.ones((b, c["hq"], t), bool) if mask is None else np.broadcast_to(
+        mask.astype(bool)[:, None, :], (b, c["hq"], t))
+    np.testing.assert_allclose(lse.numpy()[live], np.asarray(jlse)[:, :, 0, :][live],
+                               rtol=1e-5, atol=2e-5)
+    if mask is not None:
+        assert np.all(out.numpy()[1, :13] == 0)  # fully-masked rows are exactly zero
+
+
+@pytest.mark.parametrize("t,window", [(0, None), (5, None), (11, 20), (11, 4)])
+def test_decode_plain_matches_pallas(t, window):
+    rng = np.random.default_rng(2)
+    b, nb, hq, hkv, p, g, d = 2, 3, 4, 2, 24, 12, 16
+    q = rng.standard_normal((b * nb, hq, d), dtype=np.float32)
+    kp, vp = (rng.standard_normal((b, hkv, p, d), dtype=np.float32) for _ in range(2))
+    kg, vg = (rng.standard_normal((b * nb, hkv, g, d), dtype=np.float32) for _ in range(2))
+    pm = np.ones((b, p), np.int32)
+    pm[1, :7] = 0
+    kw = dict(t=t, prefix_len=p, scale=0.25, window=window)
+    before = DA.launches.value
+    ours = DA.decode_attention(*map(torch.tensor, (q, kp, vp, kg, vg)),
+                               prefix_mask=torch.tensor(pm), **kw)
+    assert DA.launches.value == before
+    theirs = JDA._pallas_decode_attention(
+        *map(jnp.asarray, (q, kp, vp, kg, vg)), jnp.asarray(pm), t, p, 0.25, window,
+        interpret=True)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), **TOL)
+
+
+def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
+    """No toolkit -> the build raises; nothing falls back to another implementation."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os.path, "exists", lambda path: False)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.build()
+
+
+def test_kernel_build_raises_on_compile_error(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_nvcc", lambda: "false")  # a compiler that always fails
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        _build.build()
+
+
+def test_launch_counter_counts_and_resets():
+    c = _build.LaunchCounter("x")
+    for _ in range(3):
+        c.add()
+    assert c.value == 3
+    c.reset()
+    assert c.value == 0
