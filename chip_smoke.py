@@ -6,16 +6,35 @@
 Phases, each printing one JSON line; any failure raises, so the exit code is not 0:
 
 0. device: the card's name, its ``nvidia-smi`` name and power limit; TF32 off.
-1. build: the CUDA kernels (csrc/*.cu) compiled from the checkout's sources.
+1. build: the CUDA kernels (csrc/*.cu) compiled from the checkout's sources, one
+   nvcc per source, all at once.
 2. kernels: each kernel against its plain PyTorch version on the same bf16 inputs
-   (the plain version evaluated in fp32), at the serving path's shapes, within
-   atol = rtol = 2e-2; median CUDA-event times over 20 runs of kernel and plain.
+   (the plain version evaluated in fp32), at the main paths' shapes. Attention and
+   LayerNorm forward kernels within atol = rtol = 2e-2 elementwise; the fused CE
+   forward's lse and nll within 1e-3 absolute; backward kernels (K4, K5, K7, whose
+   bf16-rounded P / dS / softmax factors feed a long fp32 sum) within
+   2e-2 x max|reference|, K7 also on its softmax part alone (dh + g * W[label]).
+   The CE's table is scaled for a peaked softmax and its upstream gradient differs
+   per row, so a kernel that loses a vocab split or a row's weight fails. Median
+   CUDA-event times over 20 runs of kernel and plain.
 3. serve: VQAService at full width (SigLIP ViT-L/16-384, 24 layers; projector
    1024 -> 10240 -> 1152; Gemma3-1B, 26 layers, vocab 262,144) from seeded random
-   weights, 16 client threads x 2 requests, batch 8, 3 beams; every kernel's launch
-   count must rise during the run.
-4. end to end: prefill logits and 4 teacher-forced decode steps of the kernel path
-   against the plain path (the same modules with the plain ops, on the card).
+   weights, 16 client threads x 2 requests, batch 8, 3 beams; K1-K3's launch counts
+   must rise during the run.
+4. end to end (serve): prefill logits and 4 teacher-forced decode steps of the
+   kernel path against the plain path (the same modules with the plain ops).
+5. train: Stage1Trainer.train() on the same full-width model (projector fp32
+   masters, bf16 compute), 32 in-memory samples (seeded pixels, 512-token captions
+   right-padded to varied lengths) at batch 4 = 8 steps of 575 + 512 = 1087 tokens,
+   4 validation samples (loss and greedy captions); every loss finite, the
+   projector moved, projector_final.bin written, K1-K7's launch counts rose. Steps
+   6-7 run under the trainer's profiler (--profile_dir): the card's kernel time of
+   each piece of the step (tower, projector, decoder, LM head + CE, optimizer;
+   forward and backward apart) comes from that trace of the real step, and the
+   images/s from steps 1-5 (the step timer leaves out profiled steps).
+6. end to end (train): one batch's loss and projector gradients through the kernel
+   path against the plain path (plain attention, plain LayerNorm, chunked CE): loss
+   within 1e-3 relative, every gradient leaf at cosine >= 0.999.
 
 The second-to-last line is {"kernels": [...]}; the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -26,17 +45,26 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
 import numpy as np
 
 ATOL = RTOL = 2e-2
+REL_BWD = 2e-2   # backward kernels: max |err| <= REL_BWD * max |reference|
+CE_ATOL = 1e-3   # fused CE lse and nll, absolute (lse ~25 at the smoke's table scale)
+LOSS_REL = 1e-3  # train end to end: the kernel path's loss against the plain path's
+COS_MIN = 0.999  # train end to end: each projector gradient leaf's cosine
+READINGS = {}    # check name -> its reading: max abs err, or err / max|ref| (compare_rel)
 SEED = 0
 MAX_NEW_TOKENS = 32  # the reference serving config decodes up to 1024; cut for run time
+DEVICE = "cuda"
 
 
 def emit(obj) -> None:
@@ -60,17 +88,30 @@ def cuda_ms(fn, iters: int = 20) -> float:
     return statistics.median(times)
 
 
-def compare(name, got, ref) -> float:
-    """Max |got - ref|; raises unless |got - ref| <= ATOL + RTOL * |ref| everywhere."""
+def compare(name, got, ref, atol=ATOL, rtol=RTOL) -> float:
+    """Max |got - ref|; raises unless |got - ref| <= atol + rtol * |ref| everywhere."""
     got, ref = got.float(), ref.float()
     if not bool(got.isfinite().all()):
         raise AssertionError(f"{name}: non-finite kernel output")
     err = (got - ref).abs()
-    bad = err > ATOL + RTOL * ref.abs()
+    READINGS[name] = max(READINGS.get(name, 0.0), float(err.max()))
+    bad = err > atol + rtol * ref.abs()
     if bool(bad.any()):
-        raise AssertionError(f"{name}: {int(bad.sum())} elements outside atol=rtol={ATOL}, "
-                             f"max abs err {float(err.max()):.4g}")
+        raise AssertionError(f"{name}: {int(bad.sum())} elements outside atol={atol} "
+                             f"rtol={rtol}, max abs err {float(err.max()):.4g}")
     return float(err.max())
+
+
+def compare_rel(name, got, ref) -> float:
+    """Max |got - ref|; raises unless it is <= REL_BWD * max |ref|."""
+    got, ref = got.float(), ref.float()
+    if not bool(got.isfinite().all()):
+        raise AssertionError(f"{name}: non-finite kernel output")
+    err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    READINGS[name] = max(READINGS.get(name, 0.0), err / scale)
+    if not err <= REL_BWD * scale:
+        raise AssertionError(f"{name}: max abs err {err:.4g} > {REL_BWD} x max|ref| {scale:.4g}")
+    return err
 
 
 # ---------------------------------------------------------------------------- phase 0
@@ -129,6 +170,37 @@ def _left_pad_mask(rng, b, t, max_pad):
     return torch.tensor(mask, device="cuda"), pads
 
 
+# name -> (route, source, the TPU kernel it replaces, the rows of phase 2 it is timed by)
+PKG = "projectiontrainer_tpu_torch"
+KERNELS = {
+    "flash_attn_fwd": ("cuda", f"{PKG}/csrc/flash_attn_fwd.cu",
+                       "projectiontrainer_tpu/ops/flash_attention.py:84"),
+    "layernorm_fwd": ("triton", f"{PKG}/ops/fused_layernorm.py",
+                      "projectiontrainer_tpu/ops/fused_layernorm.py:59"),
+    "decode_attn": ("cuda", f"{PKG}/csrc/decode_attention.cu",
+                    "projectiontrainer_tpu/ops/decode_attention.py:116"),
+    "flash_attn_bwd_dkv": ("cuda", f"{PKG}/csrc/flash_attn_bwd.cu",
+                           "projectiontrainer_tpu/ops/flash_attention.py:210"),
+    "flash_attn_bwd_dq": ("cuda", f"{PKG}/csrc/flash_attn_bwd.cu",
+                          "projectiontrainer_tpu/ops/flash_attention.py:278"),
+    "fused_ce_fwd": ("cuda", f"{PKG}/csrc/fused_ce.cu", "projectiontrainer_tpu/ops/fused_ce.py:74"),
+    "fused_ce_bwd": ("cuda", f"{PKG}/csrc/fused_ce.cu", "projectiontrainer_tpu/ops/fused_ce.py:109"),
+}
+SERVE_KERNELS = ("flash_attn_fwd", "layernorm_fwd", "decode_attn")
+
+
+def counters():
+    from projectiontrainer_tpu_torch.ops import decode_attention as DA
+    from projectiontrainer_tpu_torch.ops import flash_attention as FA
+    from projectiontrainer_tpu_torch.ops import fused_ce as CE
+    from projectiontrainer_tpu_torch.ops import fused_layernorm as FLN
+
+    found = {c.name: c for c in (FA.launches, FLN.launches, DA.launches, FA.bwd_dkv_launches,
+                                 FA.bwd_dq_launches, CE.fwd_launches, CE.bwd_launches)}
+    assert set(found) == set(KERNELS)
+    return found
+
+
 def phase_kernels():
     import torch
 
@@ -137,7 +209,7 @@ def phase_kernels():
     from projectiontrainer_tpu_torch.ops import fused_layernorm as FLN
 
     rng = np.random.default_rng(SEED)
-    results = {"layernorm_fwd": [], "flash_attn_fwd": [], "decode_attn": []}
+    results = {name: [] for name in KERNELS}
 
     def record(kernel, case, err, ms, plain_ms):
         row = {"kernel": kernel, "case": case, "max_abs_err": err, "ms": ms,
@@ -199,7 +271,76 @@ def phase_kernels():
                    compare(f"decode t={t} window={window}", got, ref),
                    cuda_ms(lambda: DA.decode_attention(qd, kp, vp, kg, vg, **kw)),
                    cuda_ms(lambda: DA.decode_attention_reference(qd, kp, vp, kg, vg, **kw)))
+
+    # K4/K5: the decoder's attention backward at the stage-1 shape, B=4, T=575+512,
+    # causal, captions right-padded to varied lengths, window 512 / none
+    b, t, n_vis = 4, 1087, 575
+    q, do = _bf16(rng, (b, t, 4, 256)), _bf16(rng, (b, t, 4, 256))
+    k, v = _bf16(rng, (b, t, 1, 256)), _bf16(rng, (b, t, 1, 256))
+    mask = torch.ones((b, t), dtype=torch.int32, device="cuda")
+    for i, n in enumerate(rng.integers(16, 513, size=b)):
+        mask[i, n_vis + n:] = 0
+    for window in (512, None):
+        kw = dict(scale=256 ** -0.5, causal=True, window=window)
+        out, lse = FA.flash_attention(q, k, v, kv_mask=mask, **kw)
+        prep = FA.prepare_bwd(q, k, v, mask, out, lse, do)
+        args = (q, k, v, prep[0], prep[1], lse, prep[2])
+        dk, dv = FA.launch_bwd_dkv(*args, **kw)
+        dq = FA.launch_bwd_dq(*args, **kw)
+        rq, rk, rv = FA.flash_attention_bwd_reference(q.float(), k.float(), v.float(), mask,
+                                                      out.float(), lse, do.float(), **kw)
+        case = f"decoder [4,1087,4|1,256] causal window={window} right-padded captions"
+        plain = cuda_ms(lambda: FA.flash_attention_bwd_reference(q, k, v, mask, out, lse, do, **kw))
+        record("flash_attn_bwd_dkv", case,
+               max(compare_rel("flash bwd dk", dk, rk), compare_rel("flash bwd dv", dv, rv)),
+               cuda_ms(lambda: FA.launch_bwd_dkv(*args, **kw)), plain)
+        record("flash_attn_bwd_dq", case, compare_rel("flash bwd dq", dq, rq),
+               cuda_ms(lambda: FA.launch_bwd_dq(*args, **kw)), plain)
+
+    check_fused_ce(rng, record)
+    emit({"phase": 2, "readings": READINGS})
     return results
+
+
+def check_fused_ce(rng, record):
+    """K6/K7 against their plain versions; record(kernel, case, err, ms, plain_ms)."""
+    import torch
+
+    from projectiontrainer_tpu_torch.ops import fused_ce as CE
+
+    # K6/K7: the stage-1 CE over 4 x 512 caption positions at Gemma3's vocab, a quarter
+    # of the positions ignored (label -100: a dummy 0 and zero upstream gradient). At a
+    # table scale of 0.15 the logits' std is ~5, so each row's softmax mass sits on a
+    # few tokens in one vocab split or another, and the upstream gradient g differs
+    # per row (mean-loss weights times a random factor, exact in bf16: the kernel's
+    # bf16 (p - onehot) * g is then exactly -g at a label of negligible p).
+    n, vocab, d = 2048, 262_144, 1152
+    h, table = _bf16(rng, (n, d)), _bf16(rng, (vocab, d), 0.15)
+    labels = rng.integers(0, vocab, size=n)
+    ignored = rng.random(n) < 0.25
+    valid = torch.tensor(~ignored, device="cuda")
+    safe = torch.tensor(np.where(ignored, 0, labels), dtype=torch.int32, device="cuda")
+    g = np.where(ignored, 0.0, rng.uniform(0.5, 1.5, size=n) / (~ignored).sum())
+    g = torch.tensor(g, dtype=torch.float32, device="cuda").to(torch.bfloat16).float()
+    case = "[2048,1152] x [262144,1152] scale 0.15, 25% ignored, g per row"
+    lse, nll = CE.fused_ce_fwd(h, table, safe)
+    rlse, rnll = CE.fused_ce_reference(h.float(), table.float(), safe)
+    err = max(compare("fused ce lse", lse, rlse, atol=CE_ATOL, rtol=0),
+              compare("fused ce nll", nll[valid], rnll[valid], atol=CE_ATOL, rtol=0))
+    record("fused_ce_fwd", case, err, cuda_ms(lambda: CE.fused_ce_fwd(h, table, safe)),
+           cuda_ms(lambda: CE.fused_ce_reference(h, table, safe)))
+    dh = CE.fused_ce_bwd(h, table, safe, lse, g)
+    rdh = CE.fused_ce_bwd_reference(h.float(), table.float(), safe, rlse, g)
+    # the softmax part g * sum_v p_v W_v on its own: the one-hot term -g * W[label]
+    # is exact in both, and would otherwise set the bound's scale
+    onehot = g[:, None] * table[safe.long()].float()
+    err = max(compare_rel("fused ce dh", dh, rdh),
+              compare_rel("fused ce dh softmax part", dh + onehot, rdh + onehot))
+    if bool(dh[~valid].ne(0).any()):
+        raise AssertionError("fused ce dh: an ignored position got a gradient")
+    record("fused_ce_bwd", case, err,
+           cuda_ms(lambda: CE.fused_ce_bwd(h, table, safe, lse, g)),
+           cuda_ms(lambda: CE.fused_ce_bwd_reference(h, table, safe, lse, g)))
 
 
 # ---------------------------------------------------------------------------- phase 3
@@ -340,34 +481,177 @@ def phase_end_to_end(cfg, params):
     emit({"phase": 4, "logits": rows})
 
 
+# ---------------------------------------------------------------------------- phase 5
+
+
+class CaptionDataset:
+    """In-memory stage-1 samples: seeded pixels in [-1, 1] and 512-token captions
+    right-padded (pad id 0) to varied lengths; no image files, no tokenizer."""
+
+    def __init__(self, n, seed, *, size, vocab, max_len=512):
+        rng = np.random.default_rng(seed)
+        self.lengths = rng.integers(32, max_len + 1, size=n)
+        self.lengths[0] = max_len
+        self.seeds = rng.integers(0, 2 ** 31, size=n)
+        self.size, self.vocab, self.max_len = size, vocab, max_len
+
+    def __len__(self):
+        return len(self.seeds)
+
+    def __getitem__(self, i):
+        rng = np.random.default_rng(int(self.seeds[i]))
+        pixels = np.clip(rng.standard_normal((self.size, self.size, 3), dtype=np.float32), -1, 1)
+        caption = np.zeros(self.max_len, np.int32)
+        caption[:self.lengths[i]] = rng.integers(2, self.vocab, size=self.lengths[i])
+        return {"pixel_values": pixels, "caption_ids": caption}
+
+
+def _projector_leaves(params):
+    from projectiontrainer_tpu_torch.core.pytree import leaves_with_paths
+
+    return list(leaves_with_paths(params["projector"]))
+
+
+def phase_train(cfg, params, kernel_counters):
+    import torch
+
+    from projectiontrainer_tpu_torch.core.config import Stage1Config
+    from projectiontrainer_tpu_torch.train.trainer_stage1 import Stage1Trainer
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        tcfg = Stage1Config(output_dir=out_dir, batch_size=4, num_epochs=1, logging_steps=1,
+                            num_workers=2, device=DEVICE, learning_rate=1e-4,
+                            save_every_n_epochs=0, disable_wandb=True, seed=SEED,
+                            img_size=cfg.vision.image_size, max_caption_len=512,
+                            profile_dir=os.path.join(out_dir, "profile"),
+                            profile_start_step=6, profile_num_steps=2)
+        data = dict(size=cfg.vision.image_size, vocab=cfg.llm.vocab_size)
+        trainer = Stage1Trainer(tcfg, vlm_cfg=cfg, params=params, tokenizer=StubTokenizer(),
+                                train_dataset=CaptionDataset(32, SEED + 3, **data),
+                                val_dataset=CaptionDataset(4, SEED + 4, **data))
+        before = {p: x.detach().clone() for p, x in _projector_leaves(params)}
+        for c in kernel_counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        result = trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: c.value for name, c in kernel_counters.items()}
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        exported = os.path.exists(os.path.join(out_dir, "projector_final.bin"))
+        traced = os.listdir(os.path.join(out_dir, "profile"))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    losses = [r["train/batch_loss"] for r in rows if "train/batch_loss" in r]
+    moved = max(float((x.detach() - before[p]).abs().max()) for p, x in _projector_leaves(params))
+    if len(losses) != 8 or not np.isfinite(losses).all():
+        raise AssertionError(f"train: expected 8 finite losses, got {losses}")
+    if not moved > 0:
+        raise AssertionError("train: the projector did not change")
+    if not exported:
+        raise AssertionError("train: projector_final.bin was not written")
+    if not all(launches.values()):
+        raise AssertionError(f"train: a kernel of the path never launched: {launches}")
+    stats = {"images_per_sec": result.get("images_per_sec"),
+             "step_time_ms": result.get("step_time_ms")}
+    if not all(stats.values()):
+        raise AssertionError(f"train: no throughput measured: {result}")
+    split = {k[len("profile/"):]: v for r in rows for k, v in r.items()
+             if k.startswith("profile/")}
+    pieces = ("tower_fwd", "projector_fwd", "projector_bwd", "decoder_fwd", "decoder_bwd",
+              "lm_head_ce_fwd", "lm_head_ce_bwd", "optimizer_fwd")
+    if traced != ["trace_step6.json"] or not all(split.get(f"{p}_ms", 0) > 0 for p in pieces):
+        raise AssertionError(f"train: no kernel time traced for a piece of the step: {split}")
+    idle = 1 - split["total_ms"] / stats["step_time_ms"]
+    print(f"train: {stats['images_per_sec']:.3f} images/s, {stats['step_time_ms']:.1f} ms/step "
+          f"at batch 4 x 1087 tokens; kernel time {split['total_ms']:.1f} ms/step "
+          f"(device idle {idle:.1%})", flush=True)
+    emit({"phase": 5, "steps": len(losses), "losses": losses, **stats, "wall_s": wall,
+          "val_loss": result.get("best_val_loss"), "projector_max_change": moved,
+          "launches": launches, "batch_size": 4, "tokens_per_row": 1087,
+          "kernel_ms_per_step": split, "device_idle_share": idle,
+          "timed_steps": "1-5 (0 warms up, 6-7 profiled)",
+          "cut": "8 steps of random data (a real epoch is the whole caption corpus)"})
+    return launches
+
+
+# ---------------------------------------------------------------------------- phase 6
+
+
+def _train_batch(cfg, n=4):
+    import torch
+
+    ds = CaptionDataset(n, SEED + 5, size=cfg.vision.image_size, vocab=cfg.llm.vocab_size)
+    rows = [ds[i] for i in range(n)]
+    return {k: torch.tensor(np.stack([r[k] for r in rows]), device=DEVICE) for k in rows[0]}
+
+
+def phase_train_end_to_end(cfg, params, kernel_counters):
+    import torch
+    import torch.nn.functional as F
+
+    from projectiontrainer_tpu_torch.train import steps
+
+    plain = dataclasses.replace(
+        cfg, vision=dataclasses.replace(cfg.vision, attn_impl="plain", norm_impl="plain"),
+        llm=dataclasses.replace(cfg.llm, attn_impl="plain"))
+    batch = _train_batch(cfg)
+    leaves = [x for _, x in _projector_leaves(params)]
+    for x in leaves:
+        x.requires_grad_(True)
+
+    def run(c, ce_impl):
+        for counter in kernel_counters.values():
+            counter.reset()
+        loss_fn = steps.stage1_loss(c, 0, logits_chunk=128, ce_impl=ce_impl,
+                                    compute_dtype=torch.bfloat16)
+        loss, _ = loss_fn(params, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        return float(loss.detach()), grads, {n: k.value for n, k in kernel_counters.items()}
+
+    loss_k, grads_k, launches_k = run(cfg, "auto")
+    loss_p, grads_p, launches_p = run(plain, "chunked")
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    cos = [float(F.cosine_similarity(a.flatten().float(), b.flatten().float(), dim=0))
+           for a, b in zip(grads_k, grads_p)]
+    emit({"phase": 6, "loss_kernel": loss_k, "loss_plain": loss_p, "loss_rel_diff": rel,
+          "grad_cosine": dict(zip([n for n, _ in _projector_leaves(params)], cos)),
+          "launches_kernel_path": launches_k})
+    step_kernels = {n: v for n, v in launches_k.items() if n != "decode_attn"}
+    if not all(step_kernels.values()) or any(launches_p.values()):
+        raise AssertionError(f"train end to end: kernel path {launches_k}, plain {launches_p}")
+    if not rel <= LOSS_REL:
+        raise AssertionError(f"train end to end: loss {loss_k} vs plain {loss_p}")
+    if not min(cos) >= COS_MIN:
+        raise AssertionError(f"train end to end: projector gradient cosine {min(cos):.5f} "
+                             f"< {COS_MIN}")
+
+
 def main() -> int:
     device = phase_device()
     phase_build()
     results = phase_kernels()
 
-    from projectiontrainer_tpu_torch.ops import decode_attention as DA
-    from projectiontrainer_tpu_torch.ops import flash_attention as FA
-    from projectiontrainer_tpu_torch.ops import fused_layernorm as FLN
-
+    kernel_counters = counters()
     cfg, params = full_width_model()
-    launches = phase_serve(cfg, params, [FA.launches, FLN.launches, DA.launches])
+    serve_launches = phase_serve(cfg, params, [kernel_counters[n] for n in SERVE_KERNELS])
     phase_end_to_end(cfg, params)
+    train_launches = phase_train(cfg, params, kernel_counters)
+    phase_train_end_to_end(cfg, params, kernel_counters)
 
-    pkg = "projectiontrainer_tpu_torch"
-    meta = {
-        "flash_attn_fwd": ("cuda", f"{pkg}/csrc/flash_attn_fwd.cu",
-                           "projectiontrainer_tpu/ops/flash_attention.py:84"),
-        "layernorm_fwd": ("triton", f"{pkg}/ops/fused_layernorm.py",
-                          "projectiontrainer_tpu/ops/fused_layernorm.py:59"),
-        "decode_attn": ("cuda", f"{pkg}/csrc/decode_attention.cu",
-                        "projectiontrainer_tpu/ops/decode_attention.py:116"),
-    }
     kernels = []
-    for name, (route, source, replaces) in meta.items():
+    for name, (route, source, replaces) in KERNELS.items():
         rows = results[name]
         main_row = rows[-1] if name == "decode_attn" else rows[0]
+        by_path = {"train": train_launches[name]}
+        if name in serve_launches:
+            by_path["serve"] = serve_launches[name]
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
-                        "launches": launches[name],
+                        "launches": by_path.get("serve", by_path["train"]),
+                        "launches_by_path": by_path,
                         "max_abs_err": max(r["max_abs_err"] for r in rows),
                         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
                         "timed_case": main_row["case"]})

@@ -7,10 +7,15 @@ Takes a JAX parameter tree whose leaves are numpy arrays (for example
 - the patch conv's HWIO kernel ``[p, p, C, D]`` becomes the space-to-depth matrix
   ``[D, p*p*C]`` (rows ordered patch row, patch column, channel, as ``conv_patchify``
   flattens them);
-- the tied embedding table becomes the LM head.
+- the tied embedding table becomes the LM head;
+- a stage-1 train state (``steps.init_state`` plus the optax state of
+  ``optim.single_group_optimizer``) becomes the port's: fp32 projector masters and
+  the ``MaskedAdamW`` state (Adam count and moments, ``MultiSteps`` mini-step and
+  accumulator), keyed by parameter path (``stage1_train_state``).
 
 Configs carry across by field name (``config_from_jax``). This module takes numpy
-arrays and imports nothing of JAX.
+arrays (optax's named tuples survive ``jax.tree.map(np.asarray, ...)``) and imports
+nothing of JAX or optax.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from projectiontrainer_tpu_torch.core.pytree import leaves_with_paths
 from projectiontrainer_tpu_torch.models import decoder as dec
 from projectiontrainer_tpu_torch.models import projector as proj
 from projectiontrainer_tpu_torch.models import siglip, vlm
@@ -98,3 +104,46 @@ def config_from_jax(cfg):
     if hasattr(cfg, "patch_size"):
         return _same_fields(siglip.VisionConfig, cfg)
     return _same_fields(proj.ProjectorConfig, cfg)
+
+
+def _find(node, fields):
+    """The first node (depth first) carrying every attribute in ``fields``."""
+    if all(hasattr(node, f) for f in fields):
+        return node
+    children = node.values() if isinstance(node, dict) else (
+        node if isinstance(node, (list, tuple)) else ())
+    for child in children:
+        found = _find(child, fields)
+        if found is not None:
+            return found
+    return None
+
+
+def stage1_opt_state(opt_state, *, device=None) -> dict:
+    """The optax state of a JAX stage-1 optimizer (numpy leaves) -> the port's
+    ``MaskedAdamW`` state. Only the projector carries state (the frozen leaves are
+    optax ``MaskedNode``s or, in the accumulator, zeros)."""
+    adam = _find(opt_state, ("count", "mu", "nu"))
+    multi = _find(opt_state, ("mini_step", "acc_grads"))
+    if adam is None:
+        raise ValueError("no Adam state (count, mu, nu) in the given optax state")
+
+    def projector(tree):
+        conv = projector_params(tree["projector"], device=device, dtype=torch.float32)
+        return {f"projector/{p}": x for p, x in leaves_with_paths(conv)}
+
+    out = {"count": int(np.asarray(adam.count)),
+           "mini_step": 0 if multi is None else int(np.asarray(multi.mini_step)),
+           "mu": projector(adam.mu), "nu": projector(adam.nu)}
+    if multi is not None:
+        out["acc"] = projector(multi.acc_grads)
+    return out
+
+
+def stage1_train_state(state: dict, *, device=None, tower_dtype=None) -> dict:
+    """A JAX stage-1 train state ``{'params', 'opt_state', 'step'}`` (numpy leaves)
+    -> the port's, with fp32 projector masters and towers in ``tower_dtype``."""
+    return {"params": vlm_params(state["params"], device=device, tower_dtype=tower_dtype,
+                                 projector_dtype=torch.float32),
+            "opt_state": stage1_opt_state(state["opt_state"], device=device),
+            "step": int(np.asarray(state["step"]))}

@@ -1,0 +1,115 @@
+"""Train-state checkpoints with ``torch.save``: epoch, best, final and step_K.
+
+Counterpart of ``projectiontrainer_tpu/checkpoint/manager.py`` (Orbax) for what stage 1
+needs: ``--resume`` restores the trainable params, the optimizer state and the step
+count of the newest epoch or step checkpoint. A checkpoint holds only the trainable
+leaves (the paths the optimizer state carries), never the frozen towers, which come
+from the model snapshots. Files: ``<dir>/<name>.pt`` with name ``epoch_N``, ``best``,
+``final`` or ``step_K`` (only the newest ``step_K`` is kept); ``manager.json`` records
+the best metric.
+"""
+
+from __future__ import annotations
+
+import glob
+import json
+import os
+import re
+from typing import Optional
+
+import torch
+
+from projectiontrainer_tpu_torch.core.pytree import leaves_with_paths
+
+
+def _cpu(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu()
+    if isinstance(x, dict):
+        return {k: _cpu(v) for k, v in x.items()}
+    return x
+
+
+class CheckpointManager:
+    def __init__(self, directory: str, *, save_every_n_epochs: int = 1, best_mode: str = "min"):
+        self.directory = directory
+        self.save_every_n_epochs = save_every_n_epochs
+        self.best_mode = best_mode
+        os.makedirs(directory, exist_ok=True)
+        self._best_metric = None
+        meta = os.path.join(directory, "manager.json")
+        if os.path.exists(meta):
+            with open(meta) as f:
+                self._best_metric = json.load(f).get("best_metric")
+
+    def _path(self, name: str) -> str:
+        return os.path.join(self.directory, f"{name}.pt")
+
+    def _save(self, name: str, state: dict, metadata: Optional[dict] = None):
+        trainable = set(state["opt_state"]["mu"])
+        params = {p: x for p, x in leaves_with_paths(state["params"]) if p in trainable}
+        payload = {"params": _cpu(params), "opt_state": _cpu(state["opt_state"]),
+                   "step": int(state["step"]), "metadata": dict(metadata or {})}
+        tmp = self._path(name) + ".tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, self._path(name))
+
+    def save_periodic(self, epoch: int, state: dict, metadata: Optional[dict] = None) -> bool:
+        if (epoch + 1) % self.save_every_n_epochs:
+            return False
+        self._save(f"epoch_{epoch}", state, metadata)
+        return True
+
+    def save_best(self, metric: float, state: dict, metadata: Optional[dict] = None) -> bool:
+        metric = float(metric)
+        better = (self._best_metric is None
+                  or (self.best_mode == "min" and metric < self._best_metric)
+                  or (self.best_mode == "max" and metric > self._best_metric))
+        if not better:
+            return False
+        self._best_metric = metric
+        self._save("best", state, {**(metadata or {}), "best_metric": metric})
+        with open(os.path.join(self.directory, "manager.json"), "w") as f:
+            json.dump({"best_metric": metric}, f)
+        return True
+
+    def save_final(self, state: dict, metadata: Optional[dict] = None):
+        self._save("final", state, metadata)
+
+    def save_step(self, step: int, state: dict, metadata: Optional[dict] = None):
+        old = self.latest_step()
+        self._save(f"step_{step}", state, metadata)
+        if old is not None and old != step:
+            os.remove(self._path(f"step_{old}"))
+
+    def _numbered(self, prefix: str) -> Optional[int]:
+        found = [int(m.group(1)) for f in glob.glob(os.path.join(self.directory, prefix + "_*.pt"))
+                 if (m := re.fullmatch(prefix + r"_(\d+)\.pt", os.path.basename(f)))]
+        return max(found) if found else None
+
+    def latest_epoch(self) -> Optional[int]:
+        return self._numbered("epoch")
+
+    def latest_step(self) -> Optional[int]:
+        return self._numbered("step")
+
+    def has(self, name: str) -> bool:
+        return os.path.exists(self._path(name))
+
+    def restore(self, name: str, state: dict) -> dict:
+        """Copy checkpoint ``name`` into ``state`` in place (params onto their devices
+        and types, optimizer tensors onto the params' device); returns ``state``."""
+        payload = torch.load(self._path(name), map_location="cpu", weights_only=True)
+        leaves = dict(leaves_with_paths(state["params"]))
+        with torch.no_grad():
+            for p, x in payload["params"].items():
+                leaves[p].copy_(x)
+        opt = state["opt_state"]
+        for key, value in payload["opt_state"].items():
+            if isinstance(value, dict):
+                for p, x in value.items():
+                    opt[key][p].copy_(x)
+            else:
+                opt[key] = value
+        state["step"] = payload["step"]
+        return state

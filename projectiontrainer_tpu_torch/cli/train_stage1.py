@@ -1,0 +1,66 @@
+"""Stage 1 entry: projector alignment training on one device.
+
+Counterpart of ``projectiontrainer_tpu/cli/train_stage1.py`` with the same flags
+(reference: Stage1/train_projection_stage1.py:136-408), plus ``--device``:
+
+    python -m projectiontrainer_tpu_torch.cli.train_stage1 --image_root ... \\
+        --train_json ... --vision_model_name <local dir> --llm_name <local dir>
+
+Not ported yet, and refused: ``--enable_qlora`` (quantized base LLM),
+``--mesh_data``/``--mesh_model`` above 1 and ``--fsdp`` (multi-device runs).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from projectiontrainer_tpu.data import datasets
+from projectiontrainer_tpu_torch.core.config import Stage1Config, from_args, parser_for
+from projectiontrainer_tpu_torch.train import setup
+from projectiontrainer_tpu_torch.train.trainer_stage1 import Stage1Trainer
+from projectiontrainer_tpu_torch.utils.logging import setup_logging
+
+
+def check_supported(cfg) -> None:
+    if cfg.enable_qlora:
+        raise NotImplementedError("--enable_qlora: quantized base weights are not ported")
+    if cfg.mesh_data > 1 or cfg.mesh_model > 1 or cfg.fsdp:
+        raise NotImplementedError("--mesh_data/--mesh_model above 1 and --fsdp: "
+                                  "multi-device training is not ported")
+
+
+def main(argv=None):
+    cfg = from_args(Stage1Config, parser_for(Stage1Config, __doc__).parse_args(argv))
+    check_supported(cfg)
+    logger = setup_logging()
+    device = torch.device(cfg.device)
+    vlm_cfg, params = setup.build_vlm(cfg.vision_model_name, cfg.llm_name, device=device,
+                                      expansion_factor=cfg.expansion_factor, seed=cfg.seed)
+    tokenizer = setup.load_tokenizer(cfg.llm_name)
+
+    samples = datasets.load_manifest(cfg.train_json)
+    if cfg.val_json:
+        train_samples, val_samples = samples, datasets.load_manifest(cfg.val_json)
+    elif cfg.train_val_split > 0:
+        train_samples, val_samples = datasets.train_val_split(samples, cfg.train_val_split,
+                                                              seed=cfg.seed)
+    else:
+        train_samples, val_samples = samples, []
+
+    def make(s):
+        return datasets.Stage1PairDataset(
+            s, image_root=cfg.image_root, tokenizer=tokenizer, image_size=cfg.img_size,
+            max_length=cfg.max_caption_len, image_root_2=cfg.image_root_2)
+
+    trainer = Stage1Trainer(cfg, vlm_cfg=vlm_cfg, params=params, tokenizer=tokenizer,
+                            train_dataset=make(train_samples),
+                            val_dataset=make(val_samples) if val_samples else None)
+    logger.info("starting stage-1 training: %d train / %d val samples on %s",
+                len(train_samples), len(val_samples), device)
+    result = trainer.train()
+    logger.info("done: %s", result)
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,130 @@
+"""Host-side input pipeline: thread pool -> fixed batcher -> device prefetch.
+
+Counterpart of ``projectiontrainer_tpu/data/pipeline.py`` (which imports jax):
+
+- ``host_shard_indices``: the per-epoch seeded shuffle and round-robin process shard
+  of ``DistributedSampler.set_epoch``, the rank from ``torch.distributed`` when it is
+  initialised (one process otherwise);
+- ``map_samples``: ``dataset[i]`` on a thread pool, in order;
+- ``epoch_batches``: shard -> decode -> ``fixed_batcher`` (the JAX package's own,
+  jax-free ``data/bucketing.py``: a straggler batch is filled by repeating samples,
+  with ``sample_weight`` 0 on the filler rows) -> ``device_prefetch``;
+- ``device_prefetch`` replaces ``jax.device_put`` double buffering: a feeder thread
+  copies each batch into pinned host memory and on to the card on a side CUDA
+  stream, ``size`` batches ahead; the consumer's stream waits on the copy's event.
+"""
+
+from __future__ import annotations
+
+import collections
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterable, Iterator, Optional
+
+import numpy as np
+import torch
+
+from projectiontrainer_tpu.data.bucketing import fixed_batcher
+
+
+def process_index_count() -> tuple[int, int]:
+    if torch.distributed.is_available() and torch.distributed.is_initialized():
+        return torch.distributed.get_rank(), torch.distributed.get_world_size()
+    return 0, 1
+
+
+def host_shard_indices(n: int, *, epoch: int, seed: int = 0, shuffle: bool = True,
+                       process_index: Optional[int] = None,
+                       process_count: Optional[int] = None) -> np.ndarray:
+    """Deterministic per-epoch shuffle + round-robin process shard, padded so every
+    process sees the same number of samples."""
+    pi, pc = process_index_count()
+    pi = pi if process_index is None else process_index
+    pc = pc if process_count is None else process_count
+    order = np.arange(n)
+    if shuffle:
+        order = np.random.default_rng(seed + epoch).permutation(n)
+    pad = (-n) % pc
+    if pad:
+        order = np.concatenate([order, order[:pad]])
+    return order[pi::pc]
+
+
+def map_samples(dataset, indices, *, num_workers: int = 8) -> Iterator[dict]:
+    """Fetch dataset[i] for i in indices with a thread pool, preserving order."""
+    if num_workers <= 1:
+        for i in indices:
+            yield dataset[int(i)]
+        return
+    with ThreadPoolExecutor(max_workers=num_workers) as pool:
+        window = collections.deque()
+        it = iter(indices)
+        for i in it:
+            window.append(pool.submit(dataset.__getitem__, int(i)))
+            if len(window) >= num_workers * 2:
+                break
+        while window:
+            yield window.popleft().result()
+            nxt = next(it, None)
+            if nxt is not None:
+                window.append(pool.submit(dataset.__getitem__, int(nxt)))
+
+
+def _to_tensors(batch: dict) -> dict:
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
+
+
+def device_prefetch(batches: Iterable[dict], *, device, size: int = 2) -> Iterator[dict]:
+    """Batches of numpy arrays -> batches of tensors on ``device``, prepared ``size``
+    steps ahead on a feeder thread. On a CUDA device the copies go through pinned
+    memory on a side stream; a failure on the feeder thread is raised to the
+    consumer (an epoch must never end early in silence)."""
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    stream = torch.cuda.Stream(device) if cuda else None
+    q: queue.Queue = queue.Queue(maxsize=size)
+    end = object()
+
+    def feeder():
+        try:
+            for b in batches:
+                b = _to_tensors(b)
+                event = None
+                if cuda:
+                    with torch.cuda.stream(stream):
+                        b = {k: v.pin_memory().to(device, non_blocking=True)
+                             for k, v in b.items()}
+                        event = torch.cuda.Event()
+                        event.record(stream)
+                elif device.type != "cpu":
+                    b = {k: v.to(device) for k, v in b.items()}
+                q.put((b, event))
+            q.put(end)
+        except BaseException as e:  # noqa: BLE001 - handed to the consumer below
+            q.put(e)
+
+    threading.Thread(target=feeder, daemon=True).start()
+    while True:
+        item = q.get()
+        if item is end:
+            return
+        if isinstance(item, BaseException):
+            raise item
+        b, event = item
+        if event is not None:
+            current = torch.cuda.current_stream(device)
+            current.wait_event(event)
+            for v in b.values():
+                v.record_stream(current)
+        yield b
+
+
+def epoch_batches(dataset, *, batch_size: int, epoch: int, device, seed: int = 0,
+                  shuffle: bool = True, num_workers: int = 8,
+                  prefetch: int = 2) -> Iterator[dict]:
+    """The standard per-epoch pipeline: shard -> decode -> batch -> prefetch."""
+    indices = host_shard_indices(len(dataset), epoch=epoch, seed=seed, shuffle=shuffle)
+    samples = map_samples(dataset, indices, num_workers=num_workers)
+    yield from device_prefetch(fixed_batcher(samples, batch_size), device=device,
+                               size=prefetch)

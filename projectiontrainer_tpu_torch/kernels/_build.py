@@ -1,9 +1,9 @@
 """Build and load the hand-written CUDA kernels under ``csrc/``.
 
-At first use every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, stored under ``build/kernels/`` and named by a hash
-of the sources (a changed source builds anew; an unchanged one loads the cached
-library). The library is loaded with ``ctypes``: pointers and the CUDA stream pass
+At first use every ``csrc/*.cu`` is compiled by its own ``nvcc`` for ``sm_90a`` (all
+started together), and the objects are linked into one shared library with a plain C
+interface, stored under ``build/kernels/`` and named by a hash of the sources (a
+changed source builds anew; an unchanged one loads the cached library). The library is loaded with ``ctypes``: pointers and the CUDA stream pass
 as ``c_void_p``, each C entry point returns ``cudaGetLastError()`` after its launch,
 and :func:`check` raises on anything but 0. A failed build raises too: there is no
 fallback to another implementation.
@@ -21,12 +21,13 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-Xcompiler", "-fPIC", "-lineinfo")
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
@@ -38,6 +39,19 @@ SIGNATURES = {
     # q, kp, vp, kg, vg, prefix_mask, out; B, nb, Hkv, n_rep, P, G, D;
     # t, prefix_len, window, scale; stream
     "decode_attn_bf16": [_P] * 7 + [_I] * 7 + [_I, _I, _I, _F, _P],
+    # q, k, v, kv_mask, dout, lse, delta, dk, dv; B, T, Hq, Hkv, D;
+    # strides (long long[18]: q, k, v, dout, dk, dv, each (b, t, h)); scale, causal,
+    # window; stream
+    "flash_attn_bwd_dkv_bf16": [_P] * 9 + [_I] * 5 + [_P, _F, _I, _I, _P],
+    # q, k, v, kv_mask, dout, lse, delta, dq; B, T, Hq, Hkv, D;
+    # strides (long long[15]: q, k, v, dout, dq); scale, causal, window; stream
+    "flash_attn_bwd_dq_bf16": [_P] * 8 + [_I] * 5 + [_P, _F, _I, _I, _P],
+    # hidden, table, labels, part, lse, nll; N, V, D, splits, tiles_per_split; scale;
+    # stream
+    "fused_ce_fwd_bf16": [_P] * 6 + [_I] * 5 + [_F, _P],
+    # hidden, table, labels, lse, g, part, dh; N, V, D, splits, tiles_per_split; scale;
+    # stream
+    "fused_ce_bwd_bf16": [_P] * 7 + [_I] * 5 + [_F, _P],
 }
 
 _lock = threading.Lock()
@@ -91,22 +105,34 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmd: list[str]) -> None:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+
+
 def build() -> Path:
     """Compile csrc/*.cu into build/kernels/ unless the same sources were built
-    before. Returns the library's path; raises on a failed build."""
+    before: one nvcc per source, all at once, then one link. Returns the library's
+    path; raises on a failed build."""
     global build_seconds
     out = BUILD_DIR / f"libptt_kernels_{_source_hash()}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
+    with ThreadPoolExecutor(max_workers=len(objs)) as pool:
+        list(pool.map(_run, [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                             for src, obj in zip(sources(), objs)]))
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    _run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)])
     os.replace(tmp, out)
+    for obj in objs:
+        obj.unlink()
     build_seconds = time.perf_counter() - t0
     return out
 

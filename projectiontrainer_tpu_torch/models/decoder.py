@@ -1,12 +1,15 @@
-"""GQA + RoPE causal decoder (Gemma3 family), inference paths.
+"""GQA + RoPE causal decoder (Gemma3 family): the training forward and the inference
+paths.
 
-Counterpart of ``projectiontrainer_tpu/models/decoder.py`` for what serving runs:
-``embed``, the prefill through a monolithic cache, the split prefix / generated cache
-of the decode steps (``ops/decode_attention.py``), ``logits``. Parameters are a nested
-dict shaped like the JAX tree; linear weights are ``[out, in]``, and ``lm_head`` is
-always present (the embedding table itself when the head is tied).
+Counterpart of ``projectiontrainer_tpu/models/decoder.py``: ``embed``, the full-sequence
+forward (differentiable; per-layer remat through ``torch.utils.checkpoint``), the
+prefill through a monolithic cache, the split prefix / generated cache of the decode
+steps (``ops/decode_attention.py``), ``logits`` and ``lm_head_table``. Parameters are a
+nested dict shaped like the JAX tree; linear weights are ``[out, in]``, and ``lm_head``
+is always present (the embedding table itself when the head is tied). Serving calls
+the forward under ``torch.no_grad`` (``generate/decode.py``).
 
-Not ported yet: LoRA adapters, quantized base weights, training remat.
+Not ported yet: LoRA adapters, quantized base weights, ``remat='dots'``.
 
 Caches are updated IN PLACE (the JAX package returns new arrays): the prefill writes
 its K/V into the monolithic cache and each decode step writes slot ``t`` of the
@@ -17,10 +20,12 @@ way as in JAX.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import functools
+from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from projectiontrainer_tpu_torch.ops import layers as L
 from projectiontrainer_tpu_torch.ops.attention import dot_product_attention
@@ -228,17 +233,38 @@ def _mlp_block(lp, cfg: DecoderConfig, x):
     return L.linear(lp["down_proj"], gate * L.linear(lp["up_proj"], x))
 
 
-@torch.no_grad()
+def _layer(lp, cfg: DecoderConfig, x, sin, cos, *, layer_type, kv_mask, q_offset,
+           cache, prefix_len):
+    h, _ = _attention_block(
+        lp["attn"], cfg, _norm(lp["input_norm"], x, cfg), sin, cos,
+        layer_type=layer_type, kv_mask=kv_mask, q_offset=q_offset, cache=cache,
+        prefix_len=prefix_len,
+    )
+    if cfg.sandwich_norms:
+        x = x + _norm(lp["post_attn_norm"], h, cfg)
+        h = _mlp_block(lp["mlp"], cfg, _norm(lp["pre_ffw_norm"], x, cfg))
+        return x + _norm(lp["post_ffw_norm"], h, cfg)
+    x = x + h
+    return x + _mlp_block(lp["mlp"], cfg, _norm(lp["post_attn_norm"], x, cfg))
+
+
 def forward(params, cfg: DecoderConfig, *, input_ids=None, inputs_embeds=None,
             attention_mask=None, positions=None, cache=None, q_offset: int = 0,
-            prefix_len: Optional[int] = None):
+            prefix_len: Optional[int] = None, remat: Union[bool, int, str] = False):
     """Run the decoder -> (hidden_states, cache).
 
-    Without a cache: a full-sequence forward. With a monolithic cache (``init_cache``):
-    ``q_offset`` tokens are already cached and ``attention_mask`` covers the whole
-    cache. With a split cache (``split_cache``): ``q_offset`` is the 0-based decode
-    step, ``attention_mask`` the [B, P] prefix mask, ``prefix_len`` the real prefix
-    length, and ``positions`` must be given."""
+    Without a cache: a full-sequence forward, differentiable with respect to
+    ``inputs_embeds`` and any parameter that requires grad. ``remat=True``
+    recomputes every layer's activations in the backward (``torch.utils.checkpoint``,
+    non-reentrant), an int N only the first N layers', as ``decoder.py:431-447`` of
+    the JAX package does; ``'dots'`` (save only matmul outputs) is not ported and
+    raises. With a monolithic cache (``init_cache``): ``q_offset`` tokens are already
+    cached and ``attention_mask`` covers the whole cache. With a split cache
+    (``split_cache``): ``q_offset`` is the 0-based decode step, ``attention_mask`` the
+    [B, P] prefix mask, ``prefix_len`` the real prefix length, and ``positions`` must
+    be given. Cache paths do not remat."""
+    if remat == "dots":
+        raise NotImplementedError("remat='dots' is not ported; use True, False or an int")
     x = embed(params, cfg, input_ids) if inputs_embeds is None else inputs_embeds
     b, t, _ = x.shape
     if positions is None:
@@ -249,19 +275,23 @@ def forward(params, cfg: DecoderConfig, *, input_ids=None, inputs_embeds=None,
     for i, lp in enumerate(params["layers"]):
         layer_type = cfg.layer_types[i]
         sin, cos = rope[layer_type]
-        h, _ = _attention_block(
-            lp["attn"], cfg, _norm(lp["input_norm"], x, cfg), sin, cos,
-            layer_type=layer_type, kv_mask=kv_mask, q_offset=q_offset,
-            cache=None if cache is None else cache[i], prefix_len=prefix_len,
-        )
-        if cfg.sandwich_norms:
-            x = x + _norm(lp["post_attn_norm"], h, cfg)
-            h = _mlp_block(lp["mlp"], cfg, _norm(lp["pre_ffw_norm"], x, cfg))
-            x = x + _norm(lp["post_ffw_norm"], h, cfg)
+        fn = functools.partial(_layer, lp, cfg, layer_type=layer_type, kv_mask=kv_mask,
+                               q_offset=q_offset, cache=None if cache is None else cache[i],
+                               prefix_len=prefix_len)
+        # True == 1 in Python: test for bool before the int (partial remat) branch
+        layer_remat = remat if isinstance(remat, bool) else i < int(remat)
+        if layer_remat and cache is None and torch.is_grad_enabled():
+            x = checkpoint(fn, x, sin, cos, use_reentrant=False)
         else:
-            x = x + h
-            x = x + _mlp_block(lp["mlp"], cfg, _norm(lp["post_attn_norm"], x, cfg))
+            x = fn(x, sin, cos)
     return _norm(params["final_norm"], x, cfg), cache
+
+
+def lm_head_table(params, cfg: DecoderConfig) -> torch.Tensor:
+    """The [V, D] output-projection table (the tied embedding or the separate head):
+    what the chunked and fused CLM losses read instead of full logits."""
+    del cfg  # the port always carries ``lm_head`` (the embedding itself when tied)
+    return params["lm_head"]["weight"]
 
 
 def logits(params, cfg: DecoderConfig, hidden: torch.Tensor) -> torch.Tensor:

@@ -52,3 +52,22 @@ def params_from_torch_state_dict(sd: dict, *, device=None, dtype=None) -> dict:
         "fc1": {"weight": clean["0.weight"], "bias": clean["0.bias"]},
         "fc2": {"weight": clean["2.weight"], "bias": clean["2.bias"]},
     }
+
+
+def to_torch_state_dict(params) -> dict:
+    """The reference's ``model.{0,2}.{weight,bias}`` layout (CPU fp32 tensors)."""
+    return {
+        f"model.{i}.{k}": params[name][k].detach().float().cpu().contiguous()
+        for i, name in ((0, "fc1"), (2, "fc2")) for k in ("weight", "bias")
+    }
+
+
+def config_dict(cfg: ProjectorConfig) -> dict:
+    """The ``projector_config.json`` payload (reference: Stage1/projector_trainer.py:488-505)."""
+    return {
+        "vision_dim": cfg.vision_dim,
+        "llm_dim": cfg.llm_dim,
+        "intermediate_dim": cfg.intermediate_dim,
+        "expansion_factor": cfg.expansion_factor,
+        "projector_type": "mlp_2layer_gelu",
+    }

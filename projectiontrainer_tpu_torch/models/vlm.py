@@ -1,8 +1,11 @@
-"""VLM assembly for generation: vision tower -> projector -> decoder prefix.
+"""VLM assembly: vision tower -> projector -> decoder inputs, for training and for
+generation.
 
 Counterpart of ``projectiontrainer_tpu/models/vlm.py``. The visual tokens are the
 tower's last hidden state with patch 0 dropped (the reference's "discard CLS" quirk,
-kept on purpose), projected into the decoder's embedding space.
+kept on purpose), projected into the decoder's embedding space. Stage 1's sequence is
+[visual; caption], labels -100 on the visual tokens and on caption padding, the
+attention mask ones on the visual tokens and ``caption != pad`` after them.
 """
 
 from __future__ import annotations
@@ -11,9 +14,13 @@ import dataclasses
 
 import torch
 
+from projectiontrainer_tpu_torch.core.pytree import leaves_with_paths
 from projectiontrainer_tpu_torch.models import decoder as dec
 from projectiontrainer_tpu_torch.models import projector as proj
 from projectiontrainer_tpu_torch.models import siglip
+from projectiontrainer_tpu_torch.utils.timing import span
+
+IGNORE_INDEX = -100
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,15 +48,54 @@ def init(gen: torch.Generator, cfg: VLMConfig, *, device=None,
     }
 
 
-@torch.no_grad()
 def visual_embeds(params, cfg: VLMConfig, pixel_values: torch.Tensor) -> torch.Tensor:
-    """[B, H, W, C] pixels -> projected visual embeddings [B, V, llm_dim]. The tower
-    runs in its stored type: pixels are cast to it."""
+    """[B, H, W, C] pixels -> projected visual embeddings [B, V, llm_dim].
+
+    The tower is frozen: it runs under ``torch.no_grad`` in its stored type (pixels
+    are cast to it), so only the projector is differentiable here. A tower parameter
+    that requires grad raises: training the tower needs the LayerNorm backward
+    kernel, which is not ported yet."""
+    if any(x.requires_grad for _, x in leaves_with_paths(params["vision"])):
+        raise NotImplementedError("training the vision tower is not ported")
     w = params["vision"]["patch_embedding"]["weight"]
-    hidden = siglip.vision_forward(params["vision"], cfg.vision, pixel_values.to(w.dtype))
+    with torch.no_grad(), span("tower"):
+        hidden = siglip.vision_forward(params["vision"], cfg.vision, pixel_values.to(w.dtype))
     if cfg.drop_first_patch:
         hidden = hidden[:, 1:, :]
-    return proj.forward(params["projector"], hidden)
+    with span("projector"):
+        return proj.forward(params["projector"], hidden)
+
+
+@torch.no_grad()
+def visual_prefix(params, cfg: VLMConfig, pixel_values: torch.Tensor):
+    """Visual-only generation prefix -> (embeds [B, V, D], all-ones mask [B, V] int32):
+    stage 1 generates captions from the visual tokens alone."""
+    visual = visual_embeds(params, cfg, pixel_values)
+    return visual, torch.ones(visual.shape[:2], dtype=torch.int32, device=visual.device)
+
+
+def build_sequence(params, cfg: VLMConfig, visual: torch.Tensor, *, pad_token_id: int,
+                   caption_ids=None, question_ids=None, answer_ids=None):
+    """Concatenated embeds, attention mask and labels for the CLM loss ->
+    (inputs_embeds [B, T, D], attention_mask [B, T] int32, labels [B, T] int64).
+
+    Text segments go through the decoder's (scaled) embedding table in the visual
+    embeddings' type. Captions and answers are supervised (pad -> -100); questions
+    are not (all -100)."""
+    b, v, _ = visual.shape
+    dev = visual.device
+    embeds = [visual]
+    masks = [torch.ones((b, v), dtype=torch.int32, device=dev)]
+    labels = [torch.full((b, v), IGNORE_INDEX, dtype=torch.int64, device=dev)]
+    for ids, supervised in ((caption_ids, True), (question_ids, False), (answer_ids, True)):
+        if ids is None:
+            continue
+        ids = ids.to(device=dev, dtype=torch.int64)
+        embeds.append(dec.embed(params["llm"], cfg.llm, ids).to(visual.dtype))
+        masks.append((ids != pad_token_id).to(torch.int32))
+        labels.append(torch.where(ids == pad_token_id, IGNORE_INDEX, ids) if supervised
+                      else torch.full_like(ids, IGNORE_INDEX))
+    return torch.cat(embeds, dim=1), torch.cat(masks, dim=1), torch.cat(labels, dim=1)
 
 
 @torch.no_grad()

@@ -1,33 +1,42 @@
-"""Flash-attention forward: the CUDA kernel ``csrc/flash_attn_fwd.cu`` for CUDA
-tensors, its plain version for CPU ones.
+"""Flash attention, forward and backward: the CUDA kernels ``csrc/flash_attn_fwd.cu``
+(forward) and ``csrc/flash_attn_bwd.cu`` (dK/dV and dQ) for CUDA tensors, their plain
+versions for CPU ones.
 
-Counterpart of ``projectiontrainer_tpu/ops/flash_attention.py`` (``_fwd`` /
-``_fwd_kernel``). It returns ``(out, lse)`` like ``_fwd`` does, so the backward can
-reuse the forward's per-row log-sum-exp: ``out`` [B, T, Hq, D] in q's dtype and ``lse``
-[B, Hq, T] fp32 in natural-log units. The lse of a row with no valid key is not
-defined beyond being very negative; such rows output 0.
+Counterpart of ``projectiontrainer_tpu/ops/flash_attention.py`` (``_flash`` with its
+custom VJP: ``_fwd``/``_fwd_kernel`` and ``_bwd``/``_bwd_dkv_kernel``/``_bwd_dq_kernel``).
+``flash_attention`` returns ``(out, lse)`` like ``_fwd`` does: ``out`` [B, T, Hq, D] in
+q's dtype and ``lse`` [B, Hq, T] fp32 in natural-log units. The lse of a row with no
+valid key is not defined beyond being very negative; such rows output 0 and get zero
+gradients. ``out`` is differentiable with respect to q, k and v (a
+``torch.autograd.Function``: the forward saves ``out`` and ``lse``, the backward
+computes ``delta = rowsum(dO * O)`` in plain torch, as JAX does outside its kernels,
+then runs the two backward kernels, or on the CPU the FlashAttention-2 formulas of
+``flash_attention_bwd_reference``). ``lse`` is not differentiable.
 
-Self-attention shapes only (``Tq == Tk``): the tower (non-causal) and the decoder's
-prefill (causal, sliding window, left-padding mask, GQA). Head dims 64, 128 and 256.
+Self-attention shapes only (``Tq == Tk``): the tower (non-causal) and the decoder
+(causal, sliding window, padding mask, GQA). Head dims 64, 128 and 256.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
 
 from projectiontrainer_tpu_torch.kernels import _build
-from projectiontrainer_tpu_torch.ops.attention import attention_probs, dot_product_attention
+from projectiontrainer_tpu_torch.ops.attention import attention_probs, dot_product_attention, repeat_kv
 
 launches = _build.LaunchCounter("flash_attn_fwd")
+bwd_dkv_launches = _build.LaunchCounter("flash_attn_bwd_dkv")
+bwd_dq_launches = _build.LaunchCounter("flash_attn_bwd_dq")
 HEAD_DIMS = (64, 128, 256)
 
 
 def flash_attention_reference(q, k, v, *, scale: Optional[float] = None,
                               causal: bool = False, window: Optional[int] = None,
                               kv_mask=None):
-    """The plain version: ``attention.dot_product_attention`` plus the fp32 lse."""
+    """The plain forward: ``attention.dot_product_attention`` plus the fp32 lse."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     out = dot_product_attention(q, k, v, scale=scale, causal=causal, window=window,
@@ -35,6 +44,37 @@ def flash_attention_reference(q, k, v, *, scale: Optional[float] = None,
     logits, _ = attention_probs(q, k, scale=scale, causal=causal, window=window,
                                 kv_mask=kv_mask)
     return out, torch.logsumexp(logits, dim=-1)
+
+
+def flash_attention_bwd_reference(q, k, v, kv_mask, out, lse, do, *,
+                                  scale: Optional[float] = None, causal: bool = False,
+                                  window: Optional[int] = None):
+    """The plain backward, FlashAttention-2's formulas written out in fp32:
+
+        P = exp(S - lse) on valid (query, key) pairs, 0 elsewhere;
+        dV = P^T dO;  dP = dO V^T;  dS = P * (dP - delta),  delta = rowsum(dO * O);
+        dQ = scale * dS K;  dK = scale * dS^T Q;
+
+    under GQA, dK and dV are summed over the query heads that share a KV head.
+    Returns (dq, dk, dv) in the dtypes of q, k and v."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    b, t, hq, d = q.shape
+    hkv = k.shape[2]
+    n_rep = hq // hkv
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    delta = (dof * out.float()).sum(-1).transpose(1, 2)  # [B, Hq, T]
+    logits, valid = attention_probs(qf, kf, scale=scale, causal=causal, window=window,
+                                    kv_mask=kv_mask)
+    p = torch.where(valid, torch.exp(logits - lse.float()[..., None]), 0.0)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, repeat_kv(vf, n_rep))
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, repeat_kv(kf, n_rep)) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    dk = dk.reshape(b, t, hkv, n_rep, d).sum(3)
+    dv = dv.reshape(b, t, hkv, n_rep, d).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check(name, x, ndim):
@@ -48,7 +88,7 @@ def _check(name, x, ndim):
         raise ValueError(f"flash_attention: {name} rows must be 16-byte aligned")
 
 
-def _launch(q, k, v, *, scale, causal, window, kv_mask):
+def _check_shapes(q, k, v):
     b, t, hq, d = q.shape
     hkv = k.shape[2]
     for name, x in (("q", q), ("k", k), ("v", v)):
@@ -59,11 +99,22 @@ def _launch(q, k, v, *, scale, causal, window, kv_mask):
     if d not in HEAD_DIMS or hq % hkv:
         raise ValueError(f"flash_attention: head_dim {d} (takes {HEAD_DIMS}) or GQA "
                          f"{hq}/{hkv} not supported")
-    mask = None
-    if kv_mask is not None:
-        mask = kv_mask.to(device=q.device, dtype=torch.int32).contiguous()
-        if mask.shape != (b, t):
-            raise ValueError(f"flash_attention: kv_mask must be [B, T], got {tuple(mask.shape)}")
+
+
+def _mask_arg(kv_mask, q):
+    if kv_mask is None:
+        return None
+    mask = kv_mask.to(device=q.device, dtype=torch.int32).contiguous()
+    if mask.shape != q.shape[:2]:
+        raise ValueError(f"flash_attention: kv_mask must be [B, T], got {tuple(mask.shape)}")
+    return mask
+
+
+def _launch(q, k, v, *, scale, causal, window, kv_mask):
+    b, t, hq, d = q.shape
+    hkv = k.shape[2]
+    _check_shapes(q, k, v)
+    mask = _mask_arg(kv_mask, q)
     lib = _build.library()
     out = torch.empty((b, t, hq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, hq, t), dtype=torch.float32, device=q.device)
@@ -79,16 +130,104 @@ def _launch(q, k, v, *, scale, causal, window, kv_mask):
     return out, lse
 
 
+def prepare_bwd(q, k, v, kv_mask, out, lse, do):
+    """Check the backward's CUDA inputs -> (int32 mask or None, contiguous dO, delta):
+    ``delta = rowsum(dO * O)`` [B, Hq, T] fp32, computed in plain torch as the JAX
+    package does outside its kernels."""
+    b, t, hq, _ = q.shape
+    do = do.contiguous()
+    _check_shapes(q, k, v)
+    _check("dout", do, 4)
+    if do.shape != q.shape or out.shape != q.shape:
+        raise ValueError(f"flash_attention: out/dout must be {tuple(q.shape)}")
+    if lse.shape != (b, hq, t) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError("flash_attention: lse must be contiguous fp32 [B, Hq, T]")
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    return _mask_arg(kv_mask, q), do, delta
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def launch_bwd_dkv(q, k, v, mask, do, lse, delta, *, scale, causal, window):
+    """K4 on prepared inputs (``prepare_bwd``) -> (dk, dv)."""
+    b, t, hq, d = q.shape
+    hkv = k.shape[2]
+    dk = torch.empty((b, t, hkv, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, t, hkv, d), dtype=v.dtype, device=q.device)
+    strides = (ctypes.c_longlong * 18)(*(s for x in (q, k, v, do, dk, dv) for s in x.stride()[:3]))
+    err = _build.library().flash_attn_bwd_dkv_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t, hq, hkv, d, strides,
+        float(scale), int(causal), int(window or 0),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check("flash_attn_bwd_dkv_bf16", err)
+    bwd_dkv_launches.add()
+    return dk, dv
+
+
+def launch_bwd_dq(q, k, v, mask, do, lse, delta, *, scale, causal, window):
+    """K5 on prepared inputs (``prepare_bwd``) -> dq."""
+    b, t, hq, d = q.shape
+    dq = torch.empty((b, t, hq, d), dtype=q.dtype, device=q.device)
+    strides = (ctypes.c_longlong * 15)(*(s for x in (q, k, v, do, dq) for s in x.stride()[:3]))
+    err = _build.library().flash_attn_bwd_dq_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), b, t, hq, k.shape[2], d, strides,
+        float(scale), int(causal), int(window or 0),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check("flash_attn_bwd_dq_bf16", err)
+    bwd_dq_launches.add()
+    return dq
+
+
+def flash_attention_bwd(q, k, v, kv_mask, out, lse, do, *, scale: Optional[float] = None,
+                        causal: bool = False, window: Optional[int] = None):
+    """(dq, dk, dv): the two backward kernels on CUDA tensors (dK/dV, then dQ), the
+    plain version on CPU tensors."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    kw = dict(scale=scale, causal=causal, window=window)
+    if not q.is_cuda:
+        if q.device.type != "cpu":
+            raise RuntimeError(f"flash_attention: no kernel for device {q.device}")
+        return flash_attention_bwd_reference(q, k, v, kv_mask, out, lse, do, **kw)
+    mask, do, delta = prepare_bwd(q, k, v, kv_mask, out, lse, do)
+    dk, dv = launch_bwd_dkv(q, k, v, mask, do, lse, delta, **kw)
+    return launch_bwd_dq(q, k, v, mask, do, lse, delta, **kw), dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, scale, causal, window):
+        if q.is_cuda:
+            out, lse = _launch(q, k, v, scale=scale, causal=causal, window=window,
+                               kv_mask=kv_mask)
+        elif q.device.type == "cpu":
+            out, lse = flash_attention_reference(q, k, v, scale=scale, causal=causal,
+                                                 window=window, kv_mask=kv_mask)
+        else:
+            raise RuntimeError(f"flash_attention: no kernel for device {q.device}")
+        ctx.save_for_backward(q, k, v, kv_mask, out, lse)
+        ctx.mark_non_differentiable(lse)
+        ctx.opts = dict(scale=scale, causal=causal, window=window)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, kv_mask, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, kv_mask, out, lse, dout, **ctx.opts)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(q, k, v, *, scale: Optional[float] = None, causal: bool = False,
                     window: Optional[int] = None, kv_mask=None):
     """q [B, T, Hq, D], k/v [B, T, Hkv, D] -> (out [B, T, Hq, D], lse [B, Hq, T]).
 
-    The kernel on CUDA tensors, the plain version on CPU tensors."""
+    The kernels on CUDA tensors, the plain versions on CPU tensors; differentiable
+    in ``out`` with respect to q, k and v."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if q.is_cuda:
-        return _launch(q, k, v, scale=scale, causal=causal, window=window, kv_mask=kv_mask)
-    if q.device.type != "cpu":
-        raise RuntimeError(f"flash_attention: no kernel for device {q.device}")
-    return flash_attention_reference(q, k, v, scale=scale, causal=causal, window=window,
-                                     kv_mask=kv_mask)
+    return _FlashAttention.apply(q, k, v, kv_mask, float(scale), bool(causal), window)

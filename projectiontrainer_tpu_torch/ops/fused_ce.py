@@ -1,0 +1,166 @@
+"""Fused linear + cross-entropy for huge-vocab CLM losses: the CUDA kernels
+``csrc/fused_ce.cu`` for CUDA tensors, their plain versions for CPU ones.
+
+Counterpart of ``projectiontrainer_tpu/ops/fused_ce.py`` (``fused_clm_token_nll`` with
+its custom VJP: ``_fwd_call``/``_fwd_kernel`` and ``_bwd_call``/``_bwd_kernel``):
+
+    nll[t] = logsumexp_v(h[t] . W[v] * scale) - h[t] . W[label[t]] * scale
+    dh[t]  = g[t] * scale * sum_v (softmax[t, v] - onehot[t, v]) * W[v]
+
+with the [tokens, vocab] logits never stored. The gradient goes to ``hidden`` only:
+the table's gradient is zero BY CONTRACT (a frozen vocab table; computing dW would
+bring back the logits buffer the kernel exists to avoid). ``train/steps.py`` raises
+when a run that trains the table asks for this path. Ignored positions pass a dummy
+label 0 and are masked by the caller (``train/losses.py``).
+
+The kernels take bf16 hidden states [N, D] and table [V, D] with D a multiple of 64
+up to 1216 (the hidden tile stays in shared memory); the plain versions take any
+shape and type. The vocab-parallel variant of the JAX package (``_make_vp_nll``) is
+multi-device and not ported.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from projectiontrainer_tpu_torch.kernels import _build
+
+fwd_launches = _build.LaunchCounter("fused_ce_fwd")
+bwd_launches = _build.LaunchCounter("fused_ce_bwd")
+BN, BV, MAX_D = 64, 128, 1216   # token tile, vocab tile, largest hidden size (csrc)
+_CHUNK = 256  # tokens per step of the plain versions ([256, V] fp32 logits at a time)
+
+
+def _logits(h, table, scale):
+    """fp32 logits of a token chunk; the product runs in the inputs' type."""
+    return torch.matmul(h, table.to(h.dtype).t()).float() * scale
+
+
+def fused_ce_reference(hidden, table, labels, scale: float = 1.0):
+    """The plain forward -> (lse [N] fp32, nll [N] fp32), token chunk by chunk."""
+    lse, nll = [], []
+    for s in range(0, hidden.shape[0], _CHUNK):
+        logits = _logits(hidden[s:s + _CHUNK], table, scale)
+        chunk_lse = torch.logsumexp(logits, dim=-1)
+        picked = logits.gather(1, labels[s:s + _CHUNK, None].long())[:, 0]
+        lse.append(chunk_lse)
+        nll.append(chunk_lse - picked)
+    return torch.cat(lse), torch.cat(nll)
+
+
+def fused_ce_bwd_reference(hidden, table, labels, lse, g, scale: float = 1.0):
+    """The plain backward -> dh [N, D] fp32 BEFORE the ``* scale``:
+    sum_v (softmax - onehot) * g * W[v], with the (softmax - onehot) * g factor rounded
+    to the hidden states' type before its product, as the kernels do."""
+    out = []
+    for s in range(0, hidden.shape[0], _CHUNK):
+        h = hidden[s:s + _CHUNK]
+        p = torch.exp(_logits(h, table, scale) - lse[s:s + _CHUNK, None])
+        rows = torch.arange(h.shape[0], device=h.device)
+        p[rows, labels[s:s + _CHUNK].long()] -= 1.0
+        q = (p * g[s:s + _CHUNK, None].float()).to(h.dtype)
+        out.append(torch.matmul(q, table.to(h.dtype)).float())
+    return torch.cat(out)
+
+
+def _check(hidden, table, labels):
+    for name, x in (("hidden", hidden), ("table", table)):
+        if not x.is_cuda:
+            raise ValueError(f"fused_ce: {name} is not on the card")
+        if x.dtype != torch.bfloat16:
+            raise TypeError(f"fused_ce: {name} must be bf16 on the card, got {x.dtype}")
+        if x.dim() != 2 or not x.is_contiguous():
+            raise ValueError(f"fused_ce: {name} must be a contiguous 2-D tensor")
+    n, d = hidden.shape
+    if table.shape[1] != d or d % 64 or d > MAX_D:
+        raise ValueError(f"fused_ce: hidden size {d} (table {tuple(table.shape)}) not "
+                         f"supported: the kernels take a multiple of 64 up to {MAX_D}")
+    if labels.shape != (n,) or labels.dtype != torch.int32 or not labels.is_contiguous():
+        raise ValueError("fused_ce: labels must be contiguous int32 [N]")
+
+
+def _plan(n: int, v: int, device) -> tuple[int, int, int]:
+    """(n_pad, splits, vocab tiles per split): enough vocab splits that the
+    (token tile, split) grid covers the card's SMs once."""
+    n_tiles, n_vt = math.ceil(n / BN), math.ceil(v / BV)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    want = max(1, min(n_vt, sms // n_tiles))
+    per = math.ceil(n_vt / want)
+    return n_tiles * BN, math.ceil(n_vt / per), per
+
+
+def fused_ce_fwd(hidden, table, labels, scale: float = 1.0):
+    """-> (lse [N], nll [N]) fp32: the forward kernel on CUDA tensors, the plain
+    version on CPU tensors."""
+    if not hidden.is_cuda:
+        if hidden.device.type != "cpu":
+            raise RuntimeError(f"fused_ce: no kernel for device {hidden.device}")
+        return fused_ce_reference(hidden, table, labels, scale)
+    _check(hidden, table, labels)
+    n, d = hidden.shape
+    n_pad, splits, per = _plan(n, table.shape[0], hidden.device)
+    part = torch.empty((3, splits, n_pad), dtype=torch.float32, device=hidden.device)
+    lse = torch.empty((n,), dtype=torch.float32, device=hidden.device)
+    nll = torch.empty_like(lse)
+    err = _build.library().fused_ce_fwd_bf16(
+        hidden.data_ptr(), table.data_ptr(), labels.data_ptr(), part.data_ptr(),
+        lse.data_ptr(), nll.data_ptr(), n, table.shape[0], d, splits, per, float(scale),
+        torch.cuda.current_stream(hidden.device).cuda_stream)
+    _build.check("fused_ce_fwd_bf16", err)
+    fwd_launches.add()
+    return lse, nll
+
+
+def fused_ce_bwd(hidden, table, labels, lse, g, scale: float = 1.0):
+    """-> dh [N, D] fp32 before the ``* scale``: the backward kernel on CUDA tensors,
+    the plain version on CPU tensors."""
+    if not hidden.is_cuda:
+        if hidden.device.type != "cpu":
+            raise RuntimeError(f"fused_ce: no kernel for device {hidden.device}")
+        return fused_ce_bwd_reference(hidden, table, labels, lse, g, scale)
+    _check(hidden, table, labels)
+    n, d = hidden.shape
+    lse, g = lse.float().contiguous(), g.float().contiguous()
+    if lse.shape != (n,) or g.shape != (n,):
+        raise ValueError("fused_ce: lse and g must be [N]")
+    n_pad, splits, per = _plan(n, table.shape[0], hidden.device)
+    part = torch.empty((splits, n_pad, d), dtype=torch.float32, device=hidden.device)
+    dh = torch.empty((n, d), dtype=torch.float32, device=hidden.device)
+    err = _build.library().fused_ce_bwd_bf16(
+        hidden.data_ptr(), table.data_ptr(), labels.data_ptr(), lse.data_ptr(), g.data_ptr(),
+        part.data_ptr(), dh.data_ptr(), n, table.shape[0], d, splits, per, float(scale),
+        torch.cuda.current_stream(hidden.device).cuda_stream)
+    _build.check("fused_ce_bwd_bf16", err)
+    bwd_launches.add()
+    return dh
+
+
+class _FusedNLL(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, hidden, table, labels, scale):
+        lse, nll = fused_ce_fwd(hidden, table, labels, scale)
+        ctx.save_for_backward(hidden, table, labels, lse)
+        ctx.scale = scale
+        return nll
+
+    @staticmethod
+    def backward(ctx, g):
+        hidden, table, labels, lse = ctx.saved_tensors
+        dh = fused_ce_bwd(hidden, table, labels, lse, g, ctx.scale)
+        # scale and downcast outside the kernel, as in JAX; the table's gradient is
+        # zero by contract (module docstring)
+        dh = (dh * ctx.scale).to(hidden.dtype)
+        dtable = torch.zeros_like(table) if ctx.needs_input_grad[1] else None
+        return dh, dtable, None, None
+
+
+def fused_clm_token_nll(hidden, table, labels, scale: float = 1.0):
+    """Per-token NLL ``lse - logit[label]`` for flattened tokens.
+
+    hidden [N, D]; table [V, D]; labels [N] int in [0, V) (ignored positions pass a
+    dummy 0, masked outside). Returns fp32 [N]. Differentiable with respect to
+    ``hidden`` only; the table's gradient is zero by contract."""
+    return _FusedNLL.apply(hidden, table, labels.to(torch.int32).contiguous(), float(scale))

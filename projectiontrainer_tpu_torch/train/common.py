@@ -1,0 +1,66 @@
+"""Shared trainer plumbing: step accounting, batch feeding, host readback.
+
+Counterpart of ``projectiontrainer_tpu/train/common.py``. The port runs one process
+on one device; a data-parallel world (``torch.distributed``) enters only through the
+process shard of ``data/pipeline.py`` and the batch arithmetic below, which count
+processes the way the JAX package counts hosts.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Iterator
+
+import numpy as np
+import torch
+
+from projectiontrainer_tpu_torch.core.config import CommonConfig
+from projectiontrainer_tpu_torch.data import pipeline as pipe
+
+
+def global_batch_size(cfg: CommonConfig) -> int:
+    """``batch_size`` is per device (reference semantics): batch x world."""
+    return cfg.batch_size * pipe.process_index_count()[1]
+
+
+def steps_per_epoch(n_samples: int, global_batch: int, *, process_count: int = None) -> int:
+    """Batches each epoch yields, counted as the feed produces them: every process
+    iterates its padded 1/pc index shard in chunks of global_batch / pc."""
+    pc = pipe.process_index_count()[1] if process_count is None else process_count
+    if global_batch % pc:
+        raise ValueError(f"global batch {global_batch} not divisible by process count {pc}")
+    return math.ceil(math.ceil(n_samples / pc) / (global_batch // pc))
+
+
+def update_steps(n_samples: int, global_batch: int, accum: int, epochs: int,
+                 *, process_count: int = None) -> int:
+    per_epoch = math.ceil(steps_per_epoch(n_samples, global_batch,
+                                          process_count=process_count) / accum)
+    return per_epoch * epochs
+
+
+def feed(dataset, cfg: CommonConfig, *, epoch: int, shuffle: bool = True) -> Iterator[dict]:
+    """Per-epoch batches on ``cfg.device``."""
+    yield from pipe.epoch_batches(dataset, batch_size=cfg.batch_size, epoch=epoch,
+                                  device=cfg.device, seed=cfg.seed, shuffle=shuffle,
+                                  num_workers=cfg.num_workers)
+
+
+def to_host(x) -> np.ndarray:
+    """A tensor (any device) as a numpy array."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach()
+        if x.dtype == torch.bfloat16:
+            x = x.float()
+        return x.cpu().numpy()
+    return np.asarray(x)
+
+
+def real_rows(batch) -> np.ndarray:
+    """Boolean [B] mask of non-filler rows (``sample_weight > 0``; all true when the
+    batch carries no weights): host-side eval metrics exclude straggler fillers."""
+    w = batch.get("sample_weight")
+    if w is None:
+        first = next(iter(batch.values()))
+        return np.ones((first.shape[0],), bool)
+    return to_host(w) > 0

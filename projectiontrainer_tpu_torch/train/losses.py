@@ -1,0 +1,84 @@
+"""Causal-LM losses with the reference's semantics, computed in fp32.
+
+Counterpart of ``projectiontrainer_tpu/train/losses.py`` (``shifted_clm_loss``,
+``chunked_shifted_clm_loss``, ``fused_shifted_clm_loss``): tokens < n predict token n,
+labels -100 are ignored, the mean runs over the non-ignored targets, and optional
+per-sample weights (0 for a straggler batch's filler rows) weight both the sum and the
+count. Each returns ``(loss, count)``: the fp32 scalar loss and the (weighted) number
+of targets as an integer tensor.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from projectiontrainer_tpu_torch.ops.fused_ce import fused_clm_token_nll
+
+IGNORE_INDEX = -100
+
+
+def _reduce(token_loss, valid, sample_weights):
+    valid_f = valid.float()
+    if sample_weights is not None:
+        w = sample_weights.float()[:, None]
+        token_loss = token_loss * w
+        valid_f = valid_f * w
+    count = valid_f.sum()
+    return token_loss.sum() / count.clamp_min(1e-9), count.to(torch.int32)
+
+
+def shifted_clm_loss(logits, labels, sample_weights=None):
+    """logits [B, T, V]; labels [B, T] with -100 at ignored positions."""
+    logits = logits[:, :-1].float()
+    labels = labels[:, 1:]
+    valid = labels != IGNORE_INDEX
+    safe = torch.where(valid, labels, 0).long()
+    logprobs = torch.log_softmax(logits, dim=-1)
+    token_ll = logprobs.gather(-1, safe[..., None])[..., 0]
+    token_loss = torch.where(valid, -token_ll, 0.0)
+    if sample_weights is None:
+        return token_loss.sum() / valid.sum().clamp_min(1), valid.sum().to(torch.int32)
+    return _reduce(token_loss, valid, sample_weights)
+
+
+def _chunk_nll(h, table, safe, scale):
+    logits = torch.matmul(h, table.to(h.dtype).t()).float() * scale
+    picked = logits.gather(-1, safe[..., None])[..., 0]
+    return torch.logsumexp(logits, dim=-1) - picked
+
+
+def chunked_shifted_clm_loss(hidden, embed_table, labels, *, chunk_size: int = 128,
+                             logits_scale: float = 1.0, sample_weights=None):
+    """The same loss from hidden states [B, T, D] and the [V, D] head table, over
+    ``chunk_size`` positions at a time; each chunk's logits are recomputed in the
+    backward (``torch.utils.checkpoint``, as ``jax.checkpoint`` in the JAX package),
+    so at most one chunk's [B, chunk, V] fp32 logits are alive. The product runs in
+    the hidden states' type (bf16 in training), its result is read in fp32."""
+    hidden = hidden[:, :-1]
+    labels = labels[:, 1:]
+    valid = labels != IGNORE_INDEX
+    safe = torch.where(valid, labels, 0).long()
+    nll = []
+    for s in range(0, hidden.shape[1], chunk_size):
+        args = (hidden[:, s:s + chunk_size], embed_table, safe[:, s:s + chunk_size],
+                logits_scale)
+        nll.append(checkpoint(_chunk_nll, *args, use_reentrant=False)
+                   if torch.is_grad_enabled() else _chunk_nll(*args))
+    token_loss = torch.where(valid, torch.cat(nll, dim=1), 0.0)
+    return _reduce(token_loss, valid, sample_weights)
+
+
+def fused_shifted_clm_loss(hidden, embed_table, labels, *, logits_scale: float = 1.0,
+                           sample_weights=None):
+    """The same loss through the fused linear + CE kernels (``ops/fused_ce.py``): the
+    [tokens, V] logits never exist. REQUIRES a frozen ``embed_table``: its gradient
+    is zero by the kernels' contract."""
+    b, t, d = hidden.shape
+    labels = labels[:, 1:]
+    valid = labels != IGNORE_INDEX
+    safe = torch.where(valid, labels, 0)
+    flat = hidden[:, :-1].reshape(b * (t - 1), d)
+    nll = fused_clm_token_nll(flat, embed_table, safe.reshape(-1), logits_scale)
+    token_loss = torch.where(valid, nll.reshape(b, t - 1), 0.0)
+    return _reduce(token_loss, valid, sample_weights)

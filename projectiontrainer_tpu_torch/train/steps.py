@@ -1,0 +1,160 @@
+"""Train and eval steps for stage 1.
+
+Counterpart of ``projectiontrainer_tpu/train/steps.py``: ``stage1_loss`` rebuilds the
+reference's [visual; caption] CLM loss, ``make_train_step`` differentiates it with
+respect to the trainable leaves only and applies the masked AdamW update, and
+``make_eval_step`` runs the loss without gradients. Where JAX returns a new state,
+the port updates the params and optimizer state in place and returns the same dict.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from projectiontrainer_tpu_torch.core import dtypes
+from projectiontrainer_tpu_torch.core.pytree import leaves_with_paths
+from projectiontrainer_tpu_torch.models import decoder as dec
+from projectiontrainer_tpu_torch.models import vlm
+from projectiontrainer_tpu_torch.train import losses
+from projectiontrainer_tpu_torch.train.optim import global_norm
+from projectiontrainer_tpu_torch.utils.timing import span
+
+
+def init_state(params, tx) -> dict:
+    return {"params": params, "opt_state": tx.init(params), "step": 0}
+
+
+def make_train_step(loss_fn: Callable, tx, *, trainable_mask=None,
+                    watch_subtree: Optional[str] = None):
+    """loss_fn(params, batch, rng) -> (loss, aux). Returns
+    step(state, batch, rng=None) -> (state, loss, aux).
+
+    Only the leaves that ``trainable_mask`` marks True (every floating leaf when it is
+    None) get ``requires_grad``: the backward computes no weight gradient for a frozen
+    leaf, while gradients still flow through frozen activations to the projector.
+    ``aux['grad_norm']`` is the global norm of the raw gradients of the trainable
+    leaves; ``watch_subtree`` (a top-level key such as ``'projector'``) adds that
+    subtree's gradients, keyed by their paths inside it, as ``aux['watched_grads']``."""
+    mask = None if trainable_mask is None else dict(leaves_with_paths(trainable_mask))
+
+    def step(state, batch, rng=None):
+        params = state["params"]
+        train = []
+        for path, x in leaves_with_paths(params):
+            on = x.is_floating_point() if mask is None else bool(mask[path])
+            x.requires_grad_(on)
+            if on:
+                train.append((path, x))
+        loss, aux = loss_fn(params, batch, rng)
+        grads = torch.autograd.grad(loss, [x for _, x in train], allow_unused=True)
+        grads = {p: torch.zeros_like(x) if g is None else g
+                 for (p, x), g in zip(train, grads)}
+        with span("optimizer"):
+            tx.update(grads, state["opt_state"], params)
+            state["step"] += 1
+            aux = {**aux, "grad_norm": global_norm(grads.values())}
+        if watch_subtree is not None:
+            prefix = watch_subtree + "/"
+            aux["watched_grads"] = {p[len(prefix):]: g for p, g in grads.items()
+                                    if p.startswith(prefix)}
+        return state, loss.detach(), aux
+
+    return step
+
+
+def make_eval_step(loss_fn: Callable):
+    def step(params, batch):
+        with torch.no_grad():
+            return loss_fn(params, batch, None)
+
+    return step
+
+
+# ---------------------------------------------------------------------------- stage 1
+
+
+def _resolve_ce_impl(ce_impl: str, table_frozen: bool, hidden_size: Optional[int] = None,
+                     on_card: bool = False) -> str:
+    """'auto' picks the fused linear + CE kernels (``ops/fused_ce.py``) when the
+    tensors are on the card and their contract holds: a frozen vocab table and a
+    hidden size that is a multiple of 128. Anything else gets 'chunked'. An explicit
+    'fused' overrides the device choice (on the CPU it runs the kernels' plain
+    versions) but not the contract: the kernels return a zero table gradient, so
+    forcing them on a run that trains the embedding raises."""
+    if ce_impl == "fused":
+        if not table_frozen:
+            raise ValueError(
+                "ce_impl='fused' requires a frozen vocab table (the fused kernels' table "
+                "gradient is zero); use 'chunked' when training the embedding/lm-head")
+        if hidden_size is not None and hidden_size % 128 != 0:
+            raise ValueError(
+                f"ce_impl='fused' requires hidden_size % 128 == 0 (got {hidden_size})")
+        return ce_impl
+    if ce_impl != "auto":
+        return ce_impl
+    if not on_card or not table_frozen:
+        return "chunked"
+    if hidden_size is not None and hidden_size % 128 != 0:
+        return "chunked"
+    return "fused"
+
+
+def _clm_loss_from_embeds(params, cfg: vlm.VLMConfig, embeds, mask, labels, *, remat,
+                          logits_chunk: Optional[int], sample_weights=None,
+                          ce_impl: str = "chunked", loss_prefix: int = 0):
+    """``loss_prefix``: the number of leading positions whose labels are statically
+    -100 (the visual prefix in stage 1). Only pairs (hidden[i], labels[i + 1]) with
+    i >= loss_prefix - 1 contribute, so the decoder output is cropped to that suffix
+    before the head: the same loss and gradients at about half the head's work."""
+    with span("decoder"):
+        hidden, _ = dec.forward(params["llm"], cfg.llm, inputs_embeds=embeds,
+                                attention_mask=mask, remat=remat)
+    if loss_prefix > 1:
+        hidden = hidden[:, loss_prefix - 1:]
+        labels = labels[:, loss_prefix - 1:]
+    with span("lm_head_ce"):
+        if logits_chunk and ce_impl == "fused":
+            return losses.fused_shifted_clm_loss(
+                hidden, dec.lm_head_table(params["llm"], cfg.llm), labels,
+                sample_weights=sample_weights)
+        if logits_chunk:
+            return losses.chunked_shifted_clm_loss(
+                hidden, dec.lm_head_table(params["llm"], cfg.llm), labels,
+                chunk_size=logits_chunk, sample_weights=sample_weights)
+        return losses.shifted_clm_loss(dec.logits(params["llm"], cfg.llm, hidden), labels,
+                                       sample_weights=sample_weights)
+
+
+def stage1_loss(cfg: vlm.VLMConfig, pad_token_id: int, *, remat=True,
+                logits_chunk: Optional[int] = None, ce_impl: str = "auto",
+                compute_dtype=None):
+    """[visual; caption] CLM loss (reference: Stage1/projector_trainer.py:160-233).
+    batch: {'pixel_values' [B, H, W, C], 'caption_ids' [B, Tc], 'sample_weight'?}.
+
+    ``logits_chunk`` switches to the chunked CE (large vocabularies); ``ce_impl``
+    'auto' upgrades it to the fused kernels when the tensors are on the card (the
+    stage-1 LLM, its table included, is always frozen). ``compute_dtype`` (bf16 from
+    ``--mixed_precision``) casts the params inside the loss: fp32 masters, bf16
+    compute. None computes in the params' own types."""
+    _resolve_ce_impl(ce_impl, table_frozen=True, hidden_size=cfg.llm.hidden_size)
+
+    def loss_fn(params, batch, rng=None):
+        del rng
+        if compute_dtype is not None:
+            params = dtypes.cast_compute_params(params, compute_dtype)
+        visual = vlm.visual_embeds(params, cfg, batch["pixel_values"])
+        embeds, mask, labels = vlm.build_sequence(params, cfg, visual,
+                                                  pad_token_id=pad_token_id,
+                                                  caption_ids=batch["caption_ids"])
+        impl = _resolve_ce_impl(ce_impl, table_frozen=True, hidden_size=cfg.llm.hidden_size,
+                                on_card=embeds.is_cuda)
+        loss, n_tok = _clm_loss_from_embeds(
+            params, cfg, embeds, mask, labels, remat=remat, logits_chunk=logits_chunk,
+            sample_weights=batch.get("sample_weight"), ce_impl=impl,
+            loss_prefix=visual.shape[1],  # visual labels are statically -100
+        )
+        return loss, {"tokens": n_tok}
+
+    return loss_fn

@@ -1,0 +1,149 @@
+"""The plain backward of the port's flash attention and its fused linear + CE against
+the JAX package's Pallas kernels (interpret mode on the CPU), fp32, same numpy inputs.
+
+- Flash attention: ``jax.vjp`` of ``flash_attention(..., interpret=True)`` (the custom
+  VJP runs ``_bwd_dkv_kernel`` and ``_bwd_dq_kernel``) against ``torch.autograd`` of
+  the port's ``flash_attention``, which on CPU tensors runs the FlashAttention-2
+  formulas of ``flash_attention_bwd_reference``. Tolerance 1e-4 of the reference's
+  largest magnitude (fp32 sums in another order).
+- Fused CE: ``fused_clm_token_nll(..., interpret=True)`` and its VJP against the
+  port's, with a vocab that is not a multiple of the kernels' tile (a ragged tail);
+  the table's gradient is zero by contract. Tolerance 1e-5 relative.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from projectiontrainer_tpu.ops import flash_attention as JFA
+from projectiontrainer_tpu.ops import fused_ce as JCE
+from projectiontrainer_tpu_torch.ops import flash_attention as FA
+from projectiontrainer_tpu_torch.ops import fused_ce as CE
+from projectiontrainer_tpu_torch.train import steps
+
+torch.set_num_threads(2)
+
+
+def rel_close(ours, theirs, tol):
+    ours = ours.detach().numpy()
+    theirs = np.asarray(theirs, np.float32)
+    assert ours.shape == theirs.shape
+    err = np.abs(ours - theirs).max()
+    assert err <= tol * max(np.abs(theirs).max(), 1e-30), f"max err {err}"
+
+
+BWD_CASES = {
+    "gqa_causal_right_pad": dict(hq=4, hkv=1, causal=True, window=None, pad="right"),
+    "gqa_window_left_pad": dict(hq=4, hkv=2, causal=True, window=9, pad="left"),
+    "mha_tower": dict(hq=2, hkv=2, causal=False, window=None, pad=None),
+    "window_no_mask": dict(hq=2, hkv=1, causal=True, window=16, pad=None),
+}
+
+
+@pytest.mark.parametrize("case", list(BWD_CASES))
+def test_flash_backward_plain_matches_pallas_vjp(case):
+    c = BWD_CASES[case]
+    rng = np.random.default_rng(3)
+    b, t, d = 2, 40, 16
+    q = rng.standard_normal((b, t, c["hq"], d), dtype=np.float32)
+    k = rng.standard_normal((b, t, c["hkv"], d), dtype=np.float32)
+    v = rng.standard_normal((b, t, c["hkv"], d), dtype=np.float32)
+    g = rng.standard_normal((b, t, c["hq"], d), dtype=np.float32)
+    mask = None
+    if c["pad"] == "right":
+        mask = np.ones((b, t), np.int32)
+        mask[1, 29:] = 0
+    elif c["pad"] == "left":
+        mask = np.ones((b, t), np.int32)
+        mask[1, :13] = 0  # rows 0..12 of batch 1 see no valid key: fully masked
+    kw = dict(scale=d ** -0.5, causal=c["causal"], window=c["window"])
+
+    jmask = None if mask is None else jnp.asarray(mask)
+    _, vjp = jax.vjp(lambda q_, k_, v_: JFA.flash_attention(
+        q_, k_, v_, kv_mask=jmask, interpret=True, **kw), *map(jnp.asarray, (q, k, v)))
+    jdq, jdk, jdv = vjp(jnp.asarray(g))
+
+    tq, tk, tv = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
+    before = (FA.launches.value, FA.bwd_dkv_launches.value, FA.bwd_dq_launches.value)
+    out, _ = FA.flash_attention(tq, tk, tv, kv_mask=None if mask is None else torch.tensor(mask),
+                                **kw)
+    out.backward(torch.tensor(g))
+    assert (FA.launches.value, FA.bwd_dkv_launches.value, FA.bwd_dq_launches.value) == before
+    for ours, theirs in ((tq.grad, jdq), (tk.grad, jdk), (tv.grad, jdv)):
+        rel_close(ours, theirs, 1e-4)
+    if c["pad"] == "left":
+        assert torch.all(tq.grad[1, :13] == 0)  # fully masked rows get no gradient
+
+
+def test_flash_backward_reference_matches_autograd_of_plain_attention():
+    """The written-out FA-2 formulas against torch autograd through the plain
+    attention (the oracle both share), GQA and a window."""
+    from projectiontrainer_tpu_torch.ops.attention import dot_product_attention
+
+    rng = np.random.default_rng(4)
+    q, k, v, g = (torch.tensor(rng.standard_normal(s, dtype=np.float32), requires_grad=True)
+                  for s in ((2, 24, 4, 8), (2, 24, 2, 8), (2, 24, 2, 8), (2, 24, 4, 8)))
+    mask = torch.ones((2, 24), dtype=torch.int32)
+    mask[0, 20:] = 0
+    kw = dict(scale=0.3, causal=True, window=7)
+    out = dot_product_attention(q, k, v, kv_mask=mask, **kw)
+    out.backward(g.detach())
+    _, lse = FA.flash_attention_reference(q.detach(), k.detach(), v.detach(), kv_mask=mask, **kw)
+    ours = FA.flash_attention_bwd_reference(q.detach(), k.detach(), v.detach(), mask,
+                                            out.detach(), lse, g.detach(), **kw)
+    for mine, ref in zip(ours, (q.grad, k.grad, v.grad)):
+        torch.testing.assert_close(mine, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("scale", [1.0, 0.5])
+def test_fused_ce_plain_matches_pallas(scale):
+    rng = np.random.default_rng(5)
+    n, d, v = 37, 128, 300  # v is not a multiple of any vocab tile: a ragged tail
+    h = rng.standard_normal((n, d), dtype=np.float32)
+    w = rng.standard_normal((v, d), dtype=np.float32) * 0.1
+    labels = rng.integers(0, v, size=n).astype(np.int32)
+    labels[v % n] = v - 1  # a label in the ragged tail
+    g = rng.standard_normal(n, dtype=np.float32)
+
+    jnll, vjp = jax.vjp(lambda h_, w_: JCE.fused_clm_token_nll(
+        h_, w_, jnp.asarray(labels), scale, True), jnp.asarray(h), jnp.asarray(w))
+    jdh, jdw = vjp(jnp.asarray(g))
+
+    th, tw = torch.tensor(h, requires_grad=True), torch.tensor(w, requires_grad=True)
+    before = (CE.fwd_launches.value, CE.bwd_launches.value)
+    nll = CE.fused_clm_token_nll(th, tw, torch.tensor(labels), scale)
+    nll.backward(torch.tensor(g))
+    assert (CE.fwd_launches.value, CE.bwd_launches.value) == before
+    rel_close(nll, jnll, 1e-5)
+    rel_close(th.grad, jdh, 1e-5)
+    assert not np.asarray(jdw).any() and not tw.grad.any()  # zero by contract
+
+
+def test_fused_ce_reference_pair_matches_autograd():
+    """The plain forward/backward pair against torch autograd of log-softmax CE."""
+    rng = np.random.default_rng(6)
+    h = torch.tensor(rng.standard_normal((300, 16), dtype=np.float32), requires_grad=True)
+    w = torch.tensor(rng.standard_normal((50, 16), dtype=np.float32))
+    labels = torch.tensor(rng.integers(0, 50, size=300), dtype=torch.int32)
+    g = torch.tensor(rng.standard_normal(300, dtype=np.float32))
+    logits = (h @ w.t()) * 0.7
+    nll = torch.logsumexp(logits, -1) - logits.gather(1, labels[:, None].long())[:, 0]
+    nll.backward(g)
+    lse, ours = CE.fused_ce_reference(h.detach(), w, labels, 0.7)
+    torch.testing.assert_close(ours, nll.detach(), rtol=1e-5, atol=1e-5)
+    dh = CE.fused_ce_bwd_reference(h.detach(), w, labels, lse, g, 0.7) * 0.7
+    torch.testing.assert_close(dh, h.grad, rtol=1e-5, atol=1e-5)
+
+
+def test_resolve_ce_impl_contract():
+    with pytest.raises(ValueError, match="frozen vocab table"):
+        steps._resolve_ce_impl("fused", table_frozen=False, hidden_size=128)
+    with pytest.raises(ValueError, match="128"):
+        steps._resolve_ce_impl("fused", table_frozen=True, hidden_size=48)
+    assert steps._resolve_ce_impl("auto", True, 1152, on_card=True) == "fused"
+    assert steps._resolve_ce_impl("auto", True, 1152, on_card=False) == "chunked"
+    assert steps._resolve_ce_impl("auto", False, 1152, on_card=True) == "chunked"
+    assert steps._resolve_ce_impl("auto", True, 48, on_card=True) == "chunked"
+    assert steps._resolve_ce_impl("fused", True, 1152) == "fused"

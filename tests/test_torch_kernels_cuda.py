@@ -4,7 +4,7 @@ These need an NVIDIA GPU, ``nvcc`` and ``triton`` and skip elsewhere; on a machi
 with a card run them with ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda``.
 Inputs are bf16; the reference is the plain version evaluated in fp32 on the same
 inputs; tolerance atol = rtol = 2e-2 (bf16 output rounding plus fp32 sums taken in
-another order)."""
+another order) for the forward kernels, 2e-2 x max |reference| for the backward ones."""
 
 import numpy as np
 import pytest
@@ -12,6 +12,7 @@ import torch
 
 from projectiontrainer_tpu_torch.ops import decode_attention as DA
 from projectiontrainer_tpu_torch.ops import flash_attention as FA
+from projectiontrainer_tpu_torch.ops import fused_ce as CE
 from projectiontrainer_tpu_torch.ops import fused_layernorm as FLN
 
 pytestmark = pytest.mark.cuda
@@ -88,3 +89,101 @@ def test_decode_kernel(card, t, window):
     got = DA.decode_attention(q, kp, vp, kg, vg, **kw)
     ref = DA.decode_attention_reference(*(x.float() for x in (q, kp, vp, kg, vg)), **kw)
     torch.testing.assert_close(got.float(), ref, **TOL)
+
+
+def _rel_close(got, ref, rel=2e-2):
+    """Backward kernels: max |err| <= rel * max |ref| (bf16-rounded P / dS / softmax
+    factors feed long fp32 sums, so elementwise bounds do not fit small entries)."""
+    got, ref = got.float(), ref.float()
+    assert bool(got.isfinite().all())
+    err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    assert err <= rel * scale, f"max err {err} vs max |ref| {scale}"
+
+
+@pytest.mark.parametrize("b,t,hq,hkv,d,causal,window,pad", [
+    (2, 150, 4, 2, 128, True, None, "right"),
+    (2, 150, 4, 4, 64, False, None, None),
+    (2, 150, 4, 1, 256, True, 37, "left"),      # left padding: fully masked query rows
+    (4, 1087, 4, 1, 256, True, 512, "right"),   # the stage-1 decoder's shape
+])
+def test_flash_backward_kernels(card, b, t, hq, hkv, d, causal, window, pad):
+    rng = np.random.default_rng(4)
+    q, do = _bf16(rng, (b, t, hq, d), card), _bf16(rng, (b, t, hq, d), card)
+    k, v = _bf16(rng, (b, t, hkv, d), card), _bf16(rng, (b, t, hkv, d), card)
+    mask = None
+    if pad:
+        mask = torch.ones((b, t), dtype=torch.int32, device=card)
+        if pad == "right":
+            mask[1, t - 60:] = 0
+        else:
+            mask[1, :70] = 0
+    kw = dict(causal=causal, window=window)
+    out, lse = FA.flash_attention(q, k, v, kv_mask=mask, **kw)
+    before = (FA.bwd_dkv_launches.value, FA.bwd_dq_launches.value)
+    dq, dk, dv = FA.flash_attention_bwd(q, k, v, mask, out, lse, do, **kw)
+    assert (FA.bwd_dkv_launches.value, FA.bwd_dq_launches.value) == (before[0] + 1, before[1] + 1)
+    refs = FA.flash_attention_bwd_reference(q.float(), k.float(), v.float(), mask, out.float(),
+                                            lse, do.float(), **kw)
+    for got, ref in zip((dq, dk, dv), refs):
+        _rel_close(got, ref)
+    if pad == "left":
+        assert torch.all(dq[1, :70] == 0)
+
+
+def test_flash_autograd_runs_the_backward_kernels(card):
+    rng = np.random.default_rng(5)
+    q, k, v = (_bf16(rng, (2, 96, 2, 128), card).requires_grad_(True) for _ in range(3))
+    before = FA.bwd_dq_launches.value
+    out, _ = FA.flash_attention(q, k, v, causal=True)
+    out.float().square().sum().backward()
+    assert FA.bwd_dq_launches.value == before + 1
+    assert all(bool(x.grad.isfinite().all()) for x in (q, k, v))
+
+
+def test_flash_backward_rejects_unsupported(card):
+    q = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16, device=card)
+    out, lse = FA.flash_attention(q, q, q)
+    with pytest.raises(TypeError):
+        FA.flash_attention_bwd(q, q, q, None, out, lse, q.float())
+    with pytest.raises(ValueError):
+        FA.flash_attention_bwd(q, q, q, None, out, lse[:, :1], q)
+
+
+@pytest.mark.parametrize("n,v,d", [(100, 1000, 128), (300, 5000, 256), (2048, 262144, 1152)])
+def test_fused_ce_kernels(card, n, v, d):
+    """lse and nll within 1e-3 absolute; dh, and its softmax part dh + g * W[label]
+    alone, within 2e-2 x max |reference|. The table's scale gives logits of std 5 (a
+    peaked softmax, so a lost vocab split moves lse and the softmax part), and g
+    differs per row and is exact in bf16 (so the kernel's bf16 (p - onehot) * g is
+    exactly -g at a label of negligible p)."""
+    rng = np.random.default_rng(6)
+    h = _bf16(rng, (n, d), card)
+    w = (_bf16(rng, (v, d), card) * (5 / d ** 0.5)).contiguous()
+    labels = torch.tensor(rng.integers(0, v, size=n), dtype=torch.int32, device=card)
+    labels[0] = v - 1  # the ragged vocab tail
+    g = torch.tensor(rng.uniform(0.5, 1.5, size=n).astype(np.float32) / n,
+                     device=card).to(torch.bfloat16).float()
+    before = (CE.fwd_launches.value, CE.bwd_launches.value)
+    lse, nll = CE.fused_ce_fwd(h, w, labels)
+    dh = CE.fused_ce_bwd(h, w, labels, lse, g)
+    assert (CE.fwd_launches.value, CE.bwd_launches.value) == (before[0] + 1, before[1] + 1)
+    rlse, rnll = CE.fused_ce_reference(h.float(), w.float(), labels)
+    torch.testing.assert_close(lse, rlse, atol=1e-3, rtol=0)
+    torch.testing.assert_close(nll, rnll, atol=1e-3, rtol=0)
+    rdh = CE.fused_ce_bwd_reference(h.float(), w.float(), labels, rlse, g)
+    onehot = g[:, None] * w[labels.long()].float()
+    _rel_close(dh, rdh)
+    _rel_close(dh + onehot, rdh + onehot)
+
+
+def test_fused_ce_rejects_unsupported(card):
+    h = torch.zeros((8, 1280), dtype=torch.bfloat16, device=card)  # hidden above 1216
+    labels = torch.zeros(8, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError):
+        CE.fused_ce_fwd(h, h, labels)
+    with pytest.raises(ValueError):
+        CE.fused_ce_fwd(h[:, :96].contiguous(), h[:, :96].contiguous(), labels)  # not /64
+    with pytest.raises(TypeError):
+        CE.fused_ce_fwd(h[:, :128].float(), h[:, :128].float(), labels)
+    with pytest.raises(ValueError):
+        CE.fused_ce_fwd(h[:, :128].contiguous(), h[:, :128].contiguous(), labels.long())
