@@ -11,9 +11,16 @@ Phases, each printing one JSON line; any failure raises, so the exit code is not
 2. kernels: each kernel against its plain PyTorch version on the same bf16 inputs
    (the plain version evaluated in fp32), at the main paths' shapes. Attention and
    LayerNorm forward kernels within atol = rtol = 2e-2 elementwise; the fused CE
-   forward's lse and nll within 1e-3 absolute; backward kernels (K4, K5, K7, whose
-   bf16-rounded P / dS / softmax factors feed a long fp32 sum) within
-   2e-2 x max|reference|, K7 also on its softmax part alone (dh + g * W[label]).
+   forward's lse and nll within 1e-3 absolute; backward kernels (K4, K5, K7, K8, whose
+   bf16-rounded P / dS / softmax factors or bf16 inputs feed a long fp32 sum) within
+   2e-2 x max|reference|, K7 also on its softmax part alone (dh + g * W[label]), K8
+   on dx, dscale and dbias each. The stage-0 shapes: K1 at head dim 72 over the
+   so400m tower ([16,1024,16,72]) and text tower ([16,64,16,72]), K4/K5 over the
+   tower, K1/K4/K5 through autograd there on nearly alike tokens (each gradient's
+   cosine to fp32 within 0.001 of plain bf16 attention's), K2 and K8 over its rows ([16384,1152]; K8 also at 1000 rows, and at 16383,
+   1001 and 529, which leave its last program's block part-empty, checked); and
+   the TPU's merged-lane layout (kernel rows 4-6): K1/K4/K5 on head-merged
+   [2,1024,8*128] tensors through ``flash_attention_merged``, MHA and GQA 8/2.
    The CE's table is scaled for a peaked softmax and its upstream gradient differs
    per row, so a kernel that loses a vocab split or a row's weight fails. Median
    CUDA-event times over 20 runs of kernel and plain.
@@ -35,6 +42,20 @@ Phases, each printing one JSON line; any failure raises, so the exit code is not
 6. end to end (train): one batch's loss and projector gradients through the kernel
    path against the plain path (plain attention, plain LayerNorm, chunked CE): loss
    within 1e-3 relative, every gradient leaf at cosine >= 0.999.
+7. stage-0 train: the stage-1 model is freed; Stage0Trainer.train() on the full-width
+   so400m-patch16-512 dual tower (vision 27 x 1152, 16 heads of 72, 1024 patches, MAP
+   head, fp32 masters and bf16 compute; text 27 x 1152, vocab 256,000, bf16, frozen)
+   from seeded random weights, 128 in-memory samples (seeded 512 x 512 pixels, 64
+   token ids) of 4 classes at batch 16 = 8 steps, zero-shot validation on 16 samples
+   with a stub tokenizer; every loss finite, the vision tower moved, the HF export
+   written, K1/K2/K4/K5/K8 launched. Steps 6-7 are profiled: the kernel time of the
+   vision forward and backward, text, loss and optimizer spans; images/s and ms/step
+   from steps 1-5.
+8. end to end (stage 0), batch 4: the loss and the gradient of every trainable leaf
+   through the kernel path against the plain path (plain attention and LayerNorm):
+   loss within 1e-3 relative, cosine >= 0.999 per leaf, except the key-projection
+   biases, whose gradient is zero in exact arithmetic: there the kernel path's largest
+   gradient norm (rounding noise) must stay within 3x the plain path's.
 
 The second-to-last line is {"kernels": [...]}; the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -61,6 +82,8 @@ REL_BWD = 2e-2   # backward kernels: max |err| <= REL_BWD * max |reference|
 CE_ATOL = 1e-3   # fused CE lse and nll, absolute (lse ~25 at the smoke's table scale)
 LOSS_REL = 1e-3  # train end to end: the kernel path's loss against the plain path's
 COS_MIN = 0.999  # train end to end: each projector gradient leaf's cosine
+KEY_BIAS_NOISE = 3.0  # stage-0 end to end: key-bias gradient (zero if exact) vs plain's
+NEAR_COS_GAP = 1e-3   # attention gradients on nearly alike tokens: cosine vs plain bf16's
 READINGS = {}    # check name -> its reading: max abs err, or err / max|ref| (compare_rel)
 SEED = 0
 MAX_NEW_TOKENS = 32  # the reference serving config decodes up to 1024; cut for run time
@@ -170,23 +193,30 @@ def _left_pad_mask(rng, b, t, max_pad):
     return torch.tensor(mask, device="cuda"), pads
 
 
-# name -> (route, source, the TPU kernel it replaces, the rows of phase 2 it is timed by)
+# name -> (route, source, the TPU kernels it replaces); K1/K4/K5 also serve the TPU's
+# merged-lane kernels (rows 4-6 of PERF.md's table), whose layout they read as a view
 PKG = "projectiontrainer_tpu_torch"
+FA_TPU = "projectiontrainer_tpu/ops/flash_attention.py"
 KERNELS = {
-    "flash_attn_fwd": ("cuda", f"{PKG}/csrc/flash_attn_fwd.cu",
-                       "projectiontrainer_tpu/ops/flash_attention.py:84"),
+    "flash_attn_fwd": ("cuda", f"{PKG}/csrc/flash_attn_fwd.cu", [f"{FA_TPU}:84", f"{FA_TPU}:463"]),
     "layernorm_fwd": ("triton", f"{PKG}/ops/fused_layernorm.py",
                       "projectiontrainer_tpu/ops/fused_layernorm.py:59"),
     "decode_attn": ("cuda", f"{PKG}/csrc/decode_attention.cu",
                     "projectiontrainer_tpu/ops/decode_attention.py:116"),
     "flash_attn_bwd_dkv": ("cuda", f"{PKG}/csrc/flash_attn_bwd.cu",
-                           "projectiontrainer_tpu/ops/flash_attention.py:210"),
+                           [f"{FA_TPU}:210", f"{FA_TPU}:501"]),
     "flash_attn_bwd_dq": ("cuda", f"{PKG}/csrc/flash_attn_bwd.cu",
-                          "projectiontrainer_tpu/ops/flash_attention.py:278"),
+                          [f"{FA_TPU}:278", f"{FA_TPU}:544"]),
     "fused_ce_fwd": ("cuda", f"{PKG}/csrc/fused_ce.cu", "projectiontrainer_tpu/ops/fused_ce.py:74"),
     "fused_ce_bwd": ("cuda", f"{PKG}/csrc/fused_ce.cu", "projectiontrainer_tpu/ops/fused_ce.py:109"),
+    "layernorm_bwd": ("triton", f"{PKG}/ops/fused_layernorm.py",
+                      "projectiontrainer_tpu/ops/fused_layernorm.py:91"),
 }
 SERVE_KERNELS = ("flash_attn_fwd", "layernorm_fwd", "decode_attn")
+STAGE1_KERNELS = ("flash_attn_fwd", "layernorm_fwd", "decode_attn", "flash_attn_bwd_dkv",
+                  "flash_attn_bwd_dq", "fused_ce_fwd", "fused_ce_bwd")
+STAGE0_KERNELS = ("flash_attn_fwd", "layernorm_fwd", "flash_attn_bwd_dkv", "flash_attn_bwd_dq",
+                  "layernorm_bwd")
 
 
 def counters():
@@ -196,7 +226,8 @@ def counters():
     from projectiontrainer_tpu_torch.ops import fused_layernorm as FLN
 
     found = {c.name: c for c in (FA.launches, FLN.launches, DA.launches, FA.bwd_dkv_launches,
-                                 FA.bwd_dq_launches, CE.fwd_launches, CE.bwd_launches)}
+                                 FA.bwd_dq_launches, CE.fwd_launches, CE.bwd_launches,
+                                 FLN.bwd_launches)}
     assert set(found) == set(KERNELS)
     return found
 
@@ -298,8 +329,132 @@ def phase_kernels():
                cuda_ms(lambda: FA.launch_bwd_dq(*args, **kw)), plain)
 
     check_fused_ce(rng, record)
+    check_stage0_kernels(rng, record)
     emit({"phase": 2, "readings": READINGS})
     return results
+
+
+def check_stage0_kernels(rng, record):
+    """The stage-0 shapes (so400m: head dim 72, 1152-wide rows) and the merged-lane
+    layout; record(kernel, case, err, ms, plain_ms)."""
+    import torch
+
+    from projectiontrainer_tpu_torch.ops import flash_attention as FA
+    from projectiontrainer_tpu_torch.ops import fused_layernorm as FLN
+
+    # K1 at head dim 72: the vision tower (1024 patches) and the text tower (64 tokens)
+    for name, t in (("vision", 1024), ("text", 64)):
+        q, k, v = (_bf16(rng, (16, t, 16, 72)) for _ in range(3))
+        out, lse = FA.flash_attention(q, k, v)
+        ref, ref_lse = FA.flash_attention_reference(q.float(), k.float(), v.float())
+        err = compare(f"flash {name} d72 out", out, ref)
+        compare(f"flash {name} d72 lse", lse, ref_lse)
+        record("flash_attn_fwd", f"{name} [16,{t},16,72]", err,
+               cuda_ms(lambda: FA.flash_attention(q, k, v)),
+               cuda_ms(lambda: FA.flash_attention_reference(q, k, v)))
+
+    # K4/K5 at head dim 72 over the vision tower
+    q, k, v, do = (_bf16(rng, (16, 1024, 16, 72)) for _ in range(4))
+    kw = dict(scale=72 ** -0.5, causal=False, window=None)
+    out, lse = FA.flash_attention(q, k, v)
+    mask, do, delta = FA.prepare_bwd(q, k, v, None, out, lse, do)
+    args = (q, k, v, mask, do, lse, delta)
+    dk, dv = FA.launch_bwd_dkv(*args, **kw)
+    dq = FA.launch_bwd_dq(*args, **kw)
+    rq, rk, rv = FA.flash_attention_bwd_reference(q.float(), k.float(), v.float(), None,
+                                                  out.float(), lse, do.float(), **kw)
+    plain = cuda_ms(lambda: FA.flash_attention_bwd_reference(q, k, v, None, out, lse, do, **kw))
+    case = "vision [16,1024,16,72] non-causal"
+    record("flash_attn_bwd_dkv", case,
+           max(compare_rel("flash d72 bwd dk", dk, rk), compare_rel("flash d72 bwd dv", dv, rv)),
+           cuda_ms(lambda: FA.launch_bwd_dkv(*args, **kw)), plain)
+    record("flash_attn_bwd_dq", case, compare_rel("flash d72 bwd dq", dq, rq),
+           cuda_ms(lambda: FA.launch_bwd_dq(*args, **kw)), plain)
+    del q, k, v, do, out, lse, delta, dq, dk, dv, rq, rk, rv
+    check_nearly_alike_tokens(rng)
+
+    # K2 and K8 over the vision tower's rows; K8 also at a ragged row count
+    x = _bf16(rng, (16384, 1152))
+    p = {"scale": _bf16(rng, (1152,), 0.5) + 1, "bias": _bf16(rng, (1152,), 0.1)}
+    got = FLN.layernorm(p, x)
+    ref = FLN.layernorm_reference({k: v.float() for k, v in p.items()}, x.float())
+    record("layernorm_fwd", "vision rows [16384,1152]", compare("layernorm 1152", got, ref),
+           cuda_ms(lambda: FLN.layernorm(p, x)), cuda_ms(lambda: FLN.layernorm_reference(p, x)))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for n, want_ragged in ((16384, False), (16383, True), (1001, True), (1000, False),
+                           (529, True)):
+        rows, programs = FLN.bwd_grid(n, sms)
+        ragged = rows * programs > n
+        if want_ragged and not ragged:
+            raise AssertionError(f"layernorm bwd: {n} rows fill every program ({rows} x "
+                                 f"{programs} on {sms} SMs); the ragged case is not exercised")
+        x2, dy = x[:n], _bf16(rng, (n, 1152))
+        got = FLN.layernorm_bwd(x2, dy, p["scale"], 1e-6)
+        ref = FLN.layernorm_bwd_reference(x2.float(), dy.float(), p["scale"].float(), 1e-6)
+        err = max(compare_rel(f"layernorm bwd {part} [{n},1152]", a, b)
+                  for part, a, b in zip(("dx", "dscale", "dbias"), got, ref))
+        case = f"[{n},1152]" + (f" ragged: last of {programs} programs holds "
+                                f"{n - rows * (programs - 1)} of {rows} rows" if ragged else "")
+        record("layernorm_bwd", case, err,
+               cuda_ms(lambda: FLN.layernorm_bwd(x2, dy, p["scale"], 1e-6)),
+               cuda_ms(lambda: FLN.layernorm_bwd_reference(x2, dy, p["scale"], 1e-6)))
+
+    # rows 4-6: the merged-lane layout [B, T, H*D] through the same kernels, as views
+    from projectiontrainer_tpu_torch.ops.attention import dot_product_attention
+
+    for hkv in (8, 2):
+        qm = _bf16(rng, (2, 1024, 8 * 128)).requires_grad_(True)
+        km, vm = (_bf16(rng, (2, 1024, hkv * 128)).requires_grad_(True) for _ in range(2))
+        g = _bf16(rng, (2, 1024, 8 * 128))
+        out = FA.flash_attention_merged(qm, km, vm, heads=8, kv_heads=hkv)
+        grads = torch.autograd.grad(out, (qm, km, vm), g)
+        views = [x.detach().float().view(2, 1024, -1, 128).requires_grad_(True)
+                 for x in (qm, km, vm)]
+        ref = dot_product_attention(*views).reshape(out.shape)
+        refs = torch.autograd.grad(ref, views, g.float())
+        case = f"merged [2,1024,8*128] kv heads {hkv}"
+        record("flash_attn_fwd", case, compare(f"flash merged kv={hkv} out", out, ref),
+               cuda_ms(lambda: FA.flash_attention_merged(qm, km, vm, heads=8, kv_heads=hkv)),
+               cuda_ms(lambda: dot_product_attention(*(x.view(2, 1024, -1, 128)
+                                                       for x in (qm, km, vm)))))
+        errs = [compare_rel(f"flash merged kv={hkv} d{n}", a.reshape(b.shape), b)
+                for n, a, b in zip("qkv", grads, refs)]
+        record("flash_attn_bwd_dq", case, errs[0], None, None)
+        record("flash_attn_bwd_dkv", case, max(errs[1:]), None, None)
+
+
+def check_nearly_alike_tokens(rng):
+    """K1/K4/K5 through autograd at the vision tower's shape on tokens whose q, k and v
+    share a common part 15x their spread (a trained tower's last layers), where the
+    backward's delta and dS's rounding show along the common component: each gradient's
+    cosine to fp32 attention within NEAR_COS_GAP of plain bf16 attention's."""
+    import torch
+    import torch.nn.functional as F
+
+    from projectiontrainer_tpu_torch.ops import flash_attention as FA
+    from projectiontrainer_tpu_torch.ops.attention import dot_product_attention
+
+    shape = (16, 1024, 16, 72)
+    common = 3 * rng.standard_normal((1, 1, 16, 72)).astype(np.float32)
+    base = [torch.tensor(common + 0.2 * rng.standard_normal(shape, dtype=np.float32),
+                         device="cuda").to(torch.bfloat16) for _ in range(3)]
+    g = _bf16(rng, shape)
+    grads = {}
+    for path, fn, dtype in (("kernel", lambda *x: FA.flash_attention(*x)[0], torch.bfloat16),
+                            ("plain", dot_product_attention, torch.bfloat16),
+                            ("fp32", dot_product_attention, torch.float32)):
+        inputs = [x.detach().to(dtype).requires_grad_(True) for x in base]
+        grads[path] = torch.autograd.grad(fn(*inputs), inputs, g.to(dtype))
+        torch.cuda.empty_cache()
+    cos = {path: [float(F.cosine_similarity(a.float().flatten(), b.flatten(), dim=0))
+                  for a, b in zip(grads[path], grads["fp32"])] for path in ("kernel", "plain")}
+    READINGS["flash d72 nearly alike tokens cosine dq/dk/dv"] = cos
+    emit({"phase": 2, "check": "nearly alike tokens [16,1024,16,72], common x3, spread 0.2",
+          "cosine_to_fp32": cos})
+    for name, a, b in zip(("dq", "dk", "dv"), cos["kernel"], cos["plain"]):
+        if not a >= b - NEAR_COS_GAP:
+            raise AssertionError(f"flash nearly alike tokens: {name} cosine {a:.5f} vs plain "
+                                 f"bf16 {b:.5f}")
 
 
 def check_fused_ce(rng, record):
@@ -354,6 +509,11 @@ class StubTokenizer:
 
     def decode(self, ids, skip_special_tokens=True):
         return " ".join(f"t{int(i)}" for i in ids if not (skip_special_tokens and i in (0, 1)))
+
+    def __call__(self, texts, padding="max_length", truncation=True, max_length=16):
+        """Each character's code point + 2 as a token id, padded with 0 to max_length."""
+        ids = [[2 + ord(c) for c in t][:max_length] for t in texts]
+        return {"input_ids": [row + [0] * (max_length - len(row)) for row in ids]}
 
 
 def full_width_model():
@@ -552,7 +712,7 @@ def phase_train(cfg, params, kernel_counters):
         raise AssertionError("train: the projector did not change")
     if not exported:
         raise AssertionError("train: projector_final.bin was not written")
-    if not all(launches.values()):
+    if not all(launches[n] for n in STAGE1_KERNELS):
         raise AssertionError(f"train: a kernel of the path never launched: {launches}")
     stats = {"images_per_sec": result.get("images_per_sec"),
              "step_time_ms": result.get("step_time_ms")}
@@ -620,7 +780,7 @@ def phase_train_end_to_end(cfg, params, kernel_counters):
     emit({"phase": 6, "loss_kernel": loss_k, "loss_plain": loss_p, "loss_rel_diff": rel,
           "grad_cosine": dict(zip([n for n, _ in _projector_leaves(params)], cos)),
           "launches_kernel_path": launches_k})
-    step_kernels = {n: v for n, v in launches_k.items() if n != "decode_attn"}
+    step_kernels = {n: launches_k[n] for n in STAGE1_KERNELS if n != "decode_attn"}
     if not all(step_kernels.values()) or any(launches_p.values()):
         raise AssertionError(f"train end to end: kernel path {launches_k}, plain {launches_p}")
     if not rel <= LOSS_REL:
@@ -630,7 +790,184 @@ def phase_train_end_to_end(cfg, params, kernel_counters):
                              f"< {COS_MIN}")
 
 
+# ---------------------------------------------------------------------------- phase 7
+
+
+class ContrastiveSamples:
+    """In-memory stage-0 samples: seeded pixels in [-1, 1] (made once, in bulk), 64
+    token ids each and one of ``n_classes`` classes; no image files, no tokenizer."""
+
+    def __init__(self, n, seed, *, size, vocab, n_classes=4, text_len=64):
+        rng = np.random.default_rng(seed)
+        self.pixels = np.clip(rng.standard_normal((n, size, size, 3), dtype=np.float32), -1, 1)
+        self.ids = rng.integers(2, vocab, size=(n, text_len)).astype(np.int32)
+        self.classes = rng.integers(0, n_classes, size=n).astype(np.int32)
+
+    def __len__(self):
+        return len(self.classes)
+
+    def __getitem__(self, i):
+        return {"pixel_values": self.pixels[i], "input_ids": self.ids[i],
+                "class_idx": self.classes[i], "valid": np.bool_(True)}
+
+
+def stage0_model():
+    import torch
+
+    from projectiontrainer_tpu_torch.models import siglip
+
+    cfg = siglip.SiglipConfig(vision=siglip.so400m_16_512(), text=siglip.so400m_text())
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    return cfg, siglip.init(gen, cfg, device="cuda", vision_dtype=torch.float32,
+                            text_dtype=torch.bfloat16)
+
+
+def _watched_leaves(params):
+    v = params["vision"]
+    return {"vision/patch_embedding/weight": v["patch_embedding"]["weight"],
+            "vision/layers/13/attn/q_proj/weight": v["layers"][13]["attn"]["q_proj"]["weight"],
+            "vision/layers/26/ln2/scale": v["layers"][26]["ln2"]["scale"],
+            "vision/head/probe": v["head"]["probe"], "logit_bias": params["logit_bias"]}
+
+
+def phase_stage0_train(cfg, params, kernel_counters):
+    import torch
+
+    from projectiontrainer_tpu_torch.core.config import Stage0Config
+    from projectiontrainer_tpu_torch.train.trainer_stage0 import Stage0Trainer
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_stage0_")
+    size, vocab = cfg.vision.image_size, cfg.text.vocab_size
+    try:
+        tcfg = Stage0Config(output_dir=out_dir, batch_size=16, num_epochs=1, logging_steps=1,
+                            num_workers=2, device=DEVICE, disable_wandb=True, seed=SEED,
+                            img_size=size, max_text_len=cfg.text.max_position_embeddings,
+                            profile_dir=os.path.join(out_dir, "profile"),
+                            profile_start_step=6, profile_num_steps=2)
+        trainer = Stage0Trainer(tcfg, model_cfg=cfg, params=params, tokenizer=StubTokenizer(),
+                                train_dataset=ContrastiveSamples(128, SEED + 6, size=size,
+                                                                 vocab=vocab),
+                                val_dataset=ContrastiveSamples(16, SEED + 7, size=size,
+                                                               vocab=vocab),
+                                class_names=["pneumonia", "edema", "cardiomegaly", "no finding"])
+        before = {p: x.detach().clone() for p, x in _watched_leaves(params).items()}
+        for c in kernel_counters.values():
+            c.reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: c.value for name, c in kernel_counters.items()}
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        exported = sorted(os.listdir(os.path.join(out_dir, "best_model")))
+        traced = os.listdir(os.path.join(out_dir, "profile"))
+        del trainer
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [r["train/batch_loss"] for r in rows if "train/batch_loss" in r]
+    moved = {p: float((x.detach().float() - before[p].float()).abs().max())
+             for p, x in _watched_leaves(params).items()}
+    zero_shot = {k[len("zero_shot/"):]: v for r in rows for k, v in r.items()
+                 if k.startswith("zero_shot/")}
+    if len(losses) != 8 or not np.isfinite(losses).all():
+        raise AssertionError(f"stage 0: expected 8 finite losses, got {losses}")
+    if not all(m > 0 for m in moved.values()):
+        raise AssertionError(f"stage 0: a trainable leaf did not change: {moved}")
+    if "accuracy" not in zero_shot:
+        raise AssertionError("stage 0: no zero-shot validation")
+    if exported != ["config.json", "model.safetensors"]:
+        raise AssertionError(f"stage 0: the HF export holds {exported}")
+    if not all(launches[n] for n in STAGE0_KERNELS):
+        raise AssertionError(f"stage 0: a kernel of the path never launched: {launches}")
+    stats = {"images_per_sec": result.get("images_per_sec"),
+             "step_time_ms": result.get("step_time_ms")}
+    if not all(stats.values()):
+        raise AssertionError(f"stage 0: no throughput measured: {result}")
+    split = {k[len("profile/"):]: v for r in rows for k, v in r.items()
+             if k.startswith("profile/")}
+    pieces = ("vision_fwd", "vision_bwd", "text_fwd", "loss_fwd", "optimizer_fwd")
+    if traced != ["trace_step6.json"] or not all(split.get(f"{p}_ms", 0) > 0 for p in pieces):
+        raise AssertionError(f"stage 0: no kernel time traced for a piece of the step: {split}")
+    if "text_bwd_ms" in split:
+        raise AssertionError(f"stage 0: the frozen text tower ran a backward: {split}")
+    idle = 1 - split["total_ms"] / stats["step_time_ms"]
+    print(f"stage 0: {stats['images_per_sec']:.3f} images/s, {stats['step_time_ms']:.1f} ms/step "
+          f"at batch 16 x 512 px (so400m); kernel time {split['total_ms']:.1f} ms/step "
+          f"(device idle {idle:.1%})", flush=True)
+    emit({"phase": 7, "steps": len(losses), "losses": losses, **stats, "wall_s": wall,
+          "zero_shot": zero_shot, "leaf_max_change": moved, "launches": launches,
+          "batch_size": 16, "image_size": size, "peak_memory_gib": peak_gb,
+          "kernel_ms_per_step": split, "device_idle_share": idle, "export": exported,
+          "timed_steps": "1-5 (0 warms up, 6-7 profiled)",
+          "cut": "8 steps of random weights and data, 16 validation samples (a real run: "
+                 "the caption corpus, many epochs)"})
+    return launches
+
+
+# ---------------------------------------------------------------------------- phase 8
+
+
+def phase_stage0_end_to_end(cfg, params, kernel_counters):
+    import torch
+    import torch.nn.functional as F
+
+    from projectiontrainer_tpu_torch.core.pytree import leaves_with_paths
+    from projectiontrainer_tpu_torch.train import masks, steps
+
+    plain_tower = dict(attn_impl="plain", norm_impl="plain")
+    plain = dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, **plain_tower),
+                                text=dataclasses.replace(cfg.text, **plain_tower))
+    data = ContrastiveSamples(4, SEED + 8, size=cfg.vision.image_size, vocab=cfg.text.vocab_size)
+    batch = {k: torch.tensor(np.stack([data[i][k] for i in range(4)]), device=DEVICE)
+             for k in ("pixel_values", "input_ids")}
+    mask = dict(leaves_with_paths(masks.bool_mask(masks.stage0_labels(params))))
+    train = [(p, x) for p, x in leaves_with_paths(params) if mask[p]]
+    for p, x in leaves_with_paths(params):
+        x.requires_grad_(mask[p])
+
+    def run(c):
+        for counter in kernel_counters.values():
+            counter.reset()
+        loss, _ = steps.stage0_loss(c, compute_dtype=torch.bfloat16)(params, batch)
+        grads = torch.autograd.grad(loss, [x for _, x in train])
+        torch.cuda.synchronize()
+        return float(loss.detach()), grads, {n: k.value for n, k in kernel_counters.items()}
+
+    loss_k, grads_k, launches_k = run(cfg)
+    loss_p, grads_p, launches_p = run(plain)
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    cos, key_bias = {}, [0.0, 0.0]
+    for (path, _), a, b in zip(train, grads_k, grads_p):
+        if path.endswith("k_proj/bias"):  # zero in exact arithmetic: both sides are noise
+            key_bias = [max(key_bias[0], float(a.float().norm())),
+                        max(key_bias[1], float(b.float().norm()))]
+        else:
+            cos[path] = float(F.cosine_similarity(a.flatten().float(), b.flatten().float(), dim=0))
+    worst = min(cos, key=cos.get)
+    emit({"phase": 8, "batch_size": 4, "loss_kernel": loss_k, "loss_plain": loss_p,
+          "loss_rel_diff": rel, "leaves_compared": len(cos), "min_grad_cosine": cos[worst],
+          "min_grad_cosine_leaf": worst, "key_bias_grad_norm_max_kernel_plain": key_bias,
+          "launches_kernel_path": launches_k})
+    if not all(launches_k[n] for n in STAGE0_KERNELS) or any(launches_p.values()):
+        raise AssertionError(f"stage 0 end to end: kernel path {launches_k}, plain {launches_p}")
+    if not rel <= LOSS_REL:
+        raise AssertionError(f"stage 0 end to end: loss {loss_k} vs plain {loss_p}")
+    if not cos[worst] >= COS_MIN:
+        raise AssertionError(f"stage 0 end to end: gradient cosine {cos[worst]:.5f} of {worst} "
+                             f"< {COS_MIN}")
+    if not key_bias[0] <= KEY_BIAS_NOISE * key_bias[1]:
+        raise AssertionError(f"stage 0 end to end: key-projection bias gradient norm "
+                             f"{key_bias[0]:.4g} > {KEY_BIAS_NOISE} x plain {key_bias[1]:.4g}")
+
+
 def main() -> int:
+    import gc
+
+    import torch
+
     device = phase_device()
     phase_build()
     results = phase_kernels()
@@ -641,17 +978,28 @@ def main() -> int:
     phase_end_to_end(cfg, params)
     train_launches = phase_train(cfg, params, kernel_counters)
     phase_train_end_to_end(cfg, params, kernel_counters)
+    del cfg, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg, params = stage0_model()
+    stage0_launches = phase_stage0_train(cfg, params, kernel_counters)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_stage0_end_to_end(cfg, params, kernel_counters)
 
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         rows = results[name]
         main_row = rows[-1] if name == "decode_attn" else rows[0]
-        by_path = {"train": train_launches[name]}
+        by_path = {"stage0": stage0_launches[name]} if name in STAGE0_KERNELS else {}
+        if name in STAGE1_KERNELS:
+            by_path["train"] = train_launches[name]
         if name in serve_launches:
             by_path["serve"] = serve_launches[name]
+        main_path = next(p for p in ("serve", "train", "stage0") if p in by_path)
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
-                        "launches": by_path.get("serve", by_path["train"]),
-                        "launches_by_path": by_path,
+                        "launches": by_path[main_path], "launches_by_path": by_path,
                         "max_abs_err": max(r["max_abs_err"] for r in rows),
                         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
                         "timed_case": main_row["case"]})

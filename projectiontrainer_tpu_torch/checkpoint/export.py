@@ -1,19 +1,33 @@
-"""Projector export in the reference format.
+"""Exports in the reference's formats.
 
-Counterpart of ``projectiontrainer_tpu/checkpoint/export.py:save_projector``:
-``projector_{tag}.bin`` (a torch state dict ``model.{0,2}.{weight,bias}``) plus
-``projector_config.json``, readable by the reference, by the JAX package's
-``load_projector`` and by ``checkpoint/hf_import.load_projector``.
+Counterpart of ``projectiontrainer_tpu/checkpoint/export.py``:
+
+- ``save_projector``: ``projector_{tag}.bin`` (a torch state dict
+  ``model.{0,2}.{weight,bias}``) plus ``projector_config.json``, readable by the
+  reference, by the JAX package's ``load_projector`` and by
+  ``checkpoint/hf_import.load_projector``;
+- ``save_siglip_hf``: the SigLIP dual tower as an HF snapshot (``config.json`` plus
+  fp32 ``model.safetensors`` under HF ``SiglipModel`` keys), what the reference's stage
+  0 writes with ``save_pretrained`` and its downstream stages load; readable by
+  ``hf_import.load_siglip``, the JAX package's ``hf_import.load_siglip`` and
+  transformers. ``safetensors`` is imported only inside it.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
+from typing import Optional
 
 import torch
 
 from projectiontrainer_tpu_torch.models import projector as proj
+from projectiontrainer_tpu_torch.models import siglip
+
+# processor and tokenizer files copied from the source snapshot beside an export
+_SNAPSHOT_FILES = ("preprocessor_config.json", "tokenizer_config.json", "tokenizer.json",
+                   "special_tokens_map.json", "spiece.model", "vocab.txt")
 
 
 def save_projector(params, cfg: proj.ProjectorConfig, out_dir: str, *, tag: str = "final") -> str:
@@ -23,3 +37,100 @@ def save_projector(params, cfg: proj.ProjectorConfig, out_dir: str, *, tag: str 
     with open(os.path.join(out_dir, "projector_config.json"), "w") as f:
         json.dump(proj.config_dict(cfg), f, indent=2)
     return path
+
+
+def _siglip_state_dict(params, cfg: siglip.SiglipConfig) -> dict[str, torch.Tensor]:
+    """The port's dual-tower params -> an HF ``SiglipModel`` state dict of contiguous
+    fp32 CPU tensors (the patch matrix back to an OIHW conv weight, the MAP head's
+    q/k/v packed into ``in_proj``)."""
+    sd: dict[str, torch.Tensor] = {}
+
+    def put(name, x):
+        sd[name] = x.detach().to(device="cpu", dtype=torch.float32).contiguous()
+
+    def put_lin(name, p):
+        put(name + ".weight", p["weight"])
+        put(name + ".bias", p["bias"])
+
+    def put_ln(name, p):
+        put(name + ".weight", p["scale"])
+        put(name + ".bias", p["bias"])
+
+    def put_encoder(prefix, layers):
+        for i, lp in enumerate(layers):
+            pre = f"{prefix}.layers.{i}."
+            put_ln(pre + "layer_norm1", lp["ln1"])
+            for k in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                put_lin(pre + f"self_attn.{k}", lp["attn"][k])
+            put_ln(pre + "layer_norm2", lp["ln2"])
+            put_lin(pre + "mlp.fc1", lp["mlp"]["fc1"])
+            put_lin(pre + "mlp.fc2", lp["mlp"]["fc2"])
+
+    v, vc = params["vision"], cfg.vision
+    w = v["patch_embedding"]["weight"]  # [D, p*p*C], rows (patch row, patch column, channel)
+    put("vision_model.embeddings.patch_embedding.weight",
+        w.reshape(w.shape[0], vc.patch_size, vc.patch_size, vc.num_channels).permute(0, 3, 1, 2))
+    put("vision_model.embeddings.patch_embedding.bias", v["patch_embedding"]["bias"])
+    put("vision_model.embeddings.position_embedding.weight", v["position_embedding"]["embedding"])
+    put_encoder("vision_model.encoder", v["layers"])
+    put_ln("vision_model.post_layernorm", v["post_layernorm"])
+    if "head" in v:
+        h = v["head"]
+        qkv = [h["attention"][k] for k in ("q_proj", "k_proj", "v_proj")]
+        put("vision_model.head.probe", h["probe"])
+        put("vision_model.head.attention.in_proj_weight", torch.cat([p["weight"] for p in qkv]))
+        put("vision_model.head.attention.in_proj_bias", torch.cat([p["bias"] for p in qkv]))
+        put_lin("vision_model.head.attention.out_proj", h["attention"]["out_proj"])
+        put_ln("vision_model.head.layernorm", h["layernorm"])
+        put_lin("vision_model.head.mlp.fc1", h["mlp"]["fc1"])
+        put_lin("vision_model.head.mlp.fc2", h["mlp"]["fc2"])
+
+    t = params["text"]
+    put("text_model.embeddings.token_embedding.weight", t["token_embedding"]["embedding"])
+    put("text_model.embeddings.position_embedding.weight", t["position_embedding"]["embedding"])
+    put_encoder("text_model.encoder", t["layers"])
+    put_ln("text_model.final_layer_norm", t["final_layer_norm"])
+    put_lin("text_model.head", t["head"])
+    put("logit_scale", params["logit_scale"].reshape(1))
+    put("logit_bias", params["logit_bias"].reshape(1))
+    return sd
+
+
+def save_siglip_hf(params, cfg: siglip.SiglipConfig, out_dir: str, *,
+                   src_dir: Optional[str] = None) -> str:
+    """Write the dual tower as an HF snapshot under ``out_dir``. ``config.json`` starts
+    from ``src_dir``'s (the snapshot the run began from) when there is one, so fields
+    the port does not model survive, and its processor and tokenizer files are
+    copied beside the weights."""
+    from safetensors.torch import save_file
+
+    os.makedirs(out_dir, exist_ok=True)
+    save_file(_siglip_state_dict(params, cfg), os.path.join(out_dir, "model.safetensors"))
+    src_config = os.path.join(src_dir, "config.json") if src_dir else None
+    if src_config and os.path.exists(src_config):
+        with open(src_config) as f:
+            hf = json.load(f)
+    else:
+        hf = {"model_type": "siglip", "vision_config": {}, "text_config": {}}
+    vc, tc = cfg.vision, cfg.text
+    hf.setdefault("vision_config", {}).update({
+        "model_type": "siglip_vision_model", "hidden_size": vc.hidden_size,
+        "intermediate_size": vc.intermediate_size, "num_hidden_layers": vc.num_layers,
+        "num_attention_heads": vc.num_heads, "layer_norm_eps": vc.layer_norm_eps,
+        "image_size": vc.image_size, "patch_size": vc.patch_size,
+        "num_channels": vc.num_channels,
+    })
+    hf.setdefault("text_config", {}).update({
+        "model_type": "siglip_text_model", "hidden_size": tc.hidden_size,
+        "intermediate_size": tc.intermediate_size, "num_hidden_layers": tc.num_layers,
+        "num_attention_heads": tc.num_heads, "layer_norm_eps": tc.layer_norm_eps,
+        "vocab_size": tc.vocab_size, "max_position_embeddings": tc.max_position_embeddings,
+        "projection_size": tc.projection_size or tc.hidden_size,
+    })
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump(hf, f, indent=2)
+    for name in _SNAPSHOT_FILES if src_dir else ():
+        src = os.path.join(src_dir, name)
+        if os.path.exists(src):
+            shutil.copy(src, os.path.join(out_dir, name))
+    return out_dir

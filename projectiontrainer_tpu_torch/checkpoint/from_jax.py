@@ -8,6 +8,8 @@ Takes a JAX parameter tree whose leaves are numpy arrays (for example
   ``[D, p*p*C]`` (rows ordered patch row, patch column, channel, as ``conv_patchify``
   flattens them);
 - the tied embedding table becomes the LM head;
+- the SigLIP dual tower (``siglip_params``) keeps the MAP head, whose probe is a plain
+  tensor, and the logit scale and bias as fp32 [1] tensors;
 - a stage-1 train state (``steps.init_state`` plus the optax state of
   ``optim.single_group_optimizer``) becomes the port's: fp32 projector masters and
   the ``MaskedAdamW`` state (Adam count and moments, ``MultiSteps`` mini-step and
@@ -50,10 +52,11 @@ def _convert(tree, device, dtype):
     return _t(tree, device, dtype)
 
 
-def vision_params(tree: dict, *, device=None, dtype=None) -> dict:
-    """JAX SigLIP vision params -> the port's (the MAP head is dropped: the port's
-    tower does not run it)."""
-    rest = {k: v for k, v in tree.items() if k not in ("head", "patch_embedding")}
+def vision_params(tree: dict, *, device=None, dtype=None, head: bool = False) -> dict:
+    """JAX SigLIP vision params -> the port's. The MAP head is dropped unless ``head``
+    (the VLM path does not run it)."""
+    drop = ("patch_embedding",) if head else ("head", "patch_embedding")
+    rest = {k: v for k, v in tree.items() if k not in drop}
     out = _convert(rest, device, dtype)
     kernel = np.asarray(tree["patch_embedding"]["kernel"])  # HWIO
     out["patch_embedding"] = {
@@ -61,6 +64,17 @@ def vision_params(tree: dict, *, device=None, dtype=None) -> dict:
         "bias": _t(tree["patch_embedding"]["bias"], device, dtype),
     }
     return out
+
+
+def siglip_params(tree: dict, *, device=None, vision_dtype=None, text_dtype=None) -> dict:
+    """JAX SigLIP dual-tower params (``siglip.init``) -> the port's: the vision tower
+    with its MAP head, the text tower, fp32 logit scale and bias."""
+    return {
+        "vision": vision_params(tree["vision"], device=device, dtype=vision_dtype, head=True),
+        "text": _convert(tree["text"], device, text_dtype),
+        "logit_scale": _t(tree["logit_scale"], device, torch.float32).reshape(1),
+        "logit_bias": _t(tree["logit_bias"], device, torch.float32).reshape(1),
+    }
 
 
 def projector_params(tree: dict, *, device=None, dtype=None) -> dict:
@@ -89,9 +103,14 @@ def _same_fields(cls, cfg):
 
 
 def config_from_jax(cfg):
-    """A JAX ``VLMConfig`` (or one of its parts) -> the port's config of the same
-    fields. Kernel choices are the port's own (``attn_impl``/``norm_impl`` default
-    to 'kernel')."""
+    """A JAX ``VLMConfig`` or ``SiglipConfig`` (or one of their parts) -> the port's
+    config of the same fields. Kernel choices are the port's own
+    (``attn_impl``/``norm_impl`` default to 'kernel')."""
+    if hasattr(cfg, "vision") and hasattr(cfg, "text"):
+        return siglip.SiglipConfig(vision=_same_fields(siglip.VisionConfig, cfg.vision),
+                                   text=_same_fields(siglip.TextConfig, cfg.text))
+    if hasattr(cfg, "projection_size"):
+        return _same_fields(siglip.TextConfig, cfg)
     if hasattr(cfg, "vision") and hasattr(cfg, "llm"):
         return vlm.VLMConfig(
             vision=_same_fields(siglip.VisionConfig, cfg.vision),

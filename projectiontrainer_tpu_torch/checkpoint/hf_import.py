@@ -49,9 +49,18 @@ def load_config(model_dir: str) -> dict:
 
 def load_siglip_vision(model_dir: str, *, device=None, dtype=None):
     """Local SigLIP snapshot -> (VisionConfig, vision tower params)."""
-    cfg = siglip.from_hf_config(load_config(model_dir))
+    cfg = siglip.vision_from_hf_config(load_config(model_dir))
     return cfg, siglip.vision_params(load_state_dict(model_dir), cfg, device=device,
                                      dtype=dtype)
+
+
+def load_siglip(model_dir: str, *, device=None, vision_dtype=None, text_dtype=None):
+    """Local SigLIP snapshot -> (SiglipConfig, dual-tower params: vision tower with
+    its MAP head, text tower, fp32 logit scale and bias)."""
+    cfg = siglip.from_hf_config(load_config(model_dir))
+    return cfg, siglip.params_from_hf_state_dict(cfg, load_state_dict(model_dir),
+                                                 device=device, vision_dtype=vision_dtype,
+                                                 text_dtype=text_dtype)
 
 
 def load_decoder(model_dir: str, *, device=None, dtype=None):

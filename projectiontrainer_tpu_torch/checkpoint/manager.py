@@ -1,12 +1,13 @@
 """Train-state checkpoints with ``torch.save``: epoch, best, final and step_K.
 
-Counterpart of ``projectiontrainer_tpu/checkpoint/manager.py`` (Orbax) for what stage 1
-needs: ``--resume`` restores the trainable params, the optimizer state and the step
+Counterpart of ``projectiontrainer_tpu/checkpoint/manager.py`` (Orbax) for what stages
+0 and 1 need: ``--resume`` restores the trainable params, the optimizer state and the step
 count of the newest epoch or step checkpoint. A checkpoint holds only the trainable
 leaves (the paths the optimizer state carries), never the frozen towers, which come
 from the model snapshots. Files: ``<dir>/<name>.pt`` with name ``epoch_N``, ``best``,
 ``final`` or ``step_K`` (only the newest ``step_K`` is kept); ``manager.json`` records
-the best metric.
+the best metric. ``save_periodic`` saves epoch N when N + 1 is a multiple of
+``save_every_n_epochs`` and N >= ``min_save_epoch``.
 """
 
 from __future__ import annotations
@@ -31,9 +32,11 @@ def _cpu(x):
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, *, save_every_n_epochs: int = 1, best_mode: str = "min"):
+    def __init__(self, directory: str, *, save_every_n_epochs: int = 1,
+                 min_save_epoch: int = 0, best_mode: str = "min"):
         self.directory = directory
         self.save_every_n_epochs = save_every_n_epochs
+        self.min_save_epoch = min_save_epoch
         self.best_mode = best_mode
         os.makedirs(directory, exist_ok=True)
         self._best_metric = None
@@ -55,7 +58,7 @@ class CheckpointManager:
         os.replace(tmp, self._path(name))
 
     def save_periodic(self, epoch: int, state: dict, metadata: Optional[dict] = None) -> bool:
-        if (epoch + 1) % self.save_every_n_epochs:
+        if epoch < self.min_save_epoch or (epoch + 1) % self.save_every_n_epochs:
             return False
         self._save(f"epoch_{epoch}", state, metadata)
         return True

@@ -1,0 +1,69 @@
+"""Stage 0 entry: SigLIP contrastive vision-encoder fine-tuning on one device.
+
+Counterpart of ``projectiontrainer_tpu/cli/train_stage0.py`` with the same flags
+(reference: Stage0/train_vision_encoder_stage0.py:845-897), plus ``--device``:
+
+    python -m projectiontrainer_tpu_torch.cli.train_stage0 --image_root ... \\
+        --train_json ... --model_name <local SigLIP snapshot with its tokenizer>
+
+The vision tower, its MAP head and ``logit_bias`` train in fp32 masters with bf16
+compute (``--mixed_precision``); the text tower is stored in the compute type when
+it is frozen (``--freeze_text_encoder``, the default).
+
+Not ported yet, and refused: ``--mesh_data``/``--mesh_model`` above 1 and ``--fsdp``
+(multi-device runs).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from projectiontrainer_tpu.data import datasets
+from projectiontrainer_tpu_torch.checkpoint import hf_import
+from projectiontrainer_tpu_torch.core import dtypes
+from projectiontrainer_tpu_torch.core.config import Stage0Config, from_args, parser_for
+from projectiontrainer_tpu_torch.train import setup
+from projectiontrainer_tpu_torch.train.trainer_stage0 import Stage0Trainer
+from projectiontrainer_tpu_torch.utils.logging import setup_logging
+
+
+def check_supported(cfg) -> None:
+    if cfg.mesh_data > 1 or cfg.mesh_model > 1 or cfg.fsdp:
+        raise NotImplementedError("--mesh_data/--mesh_model above 1 and --fsdp: "
+                                  "multi-device training is not ported")
+
+
+def main(argv=None):
+    cfg = from_args(Stage0Config, parser_for(Stage0Config, __doc__).parse_args(argv))
+    check_supported(cfg)
+    logger = setup_logging()
+    device = torch.device(cfg.device)
+    text_dtype = dtypes.compute_dtype(cfg.mixed_precision) if cfg.freeze_text_encoder else None
+    model_cfg, params = hf_import.load_siglip(cfg.model_name, device=device,
+                                              vision_dtype=torch.float32,
+                                              text_dtype=text_dtype or torch.float32)
+    tokenizer = setup.load_tokenizer(cfg.model_name)
+
+    samples = datasets.load_manifest(cfg.train_json)
+    train_samples, val_samples = datasets.train_val_split(samples, cfg.val_split, seed=cfg.seed)
+
+    def make(s, augment):
+        return datasets.ContrastiveDataset(
+            s, image_root=cfg.image_root, tokenizer=tokenizer, image_size=cfg.img_size,
+            max_text_len=cfg.max_text_len, image_root_2=cfg.image_root_2, augment=augment,
+            seed=cfg.seed)
+
+    train_ds = make(train_samples, cfg.use_online_augmentation)
+    trainer = Stage0Trainer(cfg, model_cfg=model_cfg, params=params, tokenizer=tokenizer,
+                            train_dataset=train_ds,
+                            val_dataset=make(val_samples, False) if val_samples else None,
+                            class_names=train_ds.class_names)
+    logger.info("starting stage-0 training: %d train / %d val samples on %s",
+                len(train_samples), len(val_samples), device)
+    result = trainer.train()
+    logger.info("done: %s", result)
+    return result
+
+
+if __name__ == "__main__":
+    main()

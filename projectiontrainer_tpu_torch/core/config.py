@@ -1,10 +1,10 @@
 """Config dataclasses with the reference's argparse flag names.
 
-Counterpart of ``projectiontrainer_tpu/core/config.py`` for the stage-1 path
-(``CommonConfig``, ``Stage1Config``, ``parser_for``, ``from_args``): the same fields,
-flag names and defaults, plus the port's ``--device``. Flags whose machinery is not
-ported yet (``--enable_qlora``, ``--mesh_data``/``--mesh_model`` above 1, ``--fsdp``)
-parse as in JAX; ``cli/train_stage1.py`` raises on them.
+Counterpart of ``projectiontrainer_tpu/core/config.py`` for the stage-0 and stage-1
+paths (``CommonConfig``, ``Stage0Config``, ``Stage1Config``, ``parser_for``,
+``from_args``): the same fields, flag names and defaults, plus the port's ``--device``.
+Flags whose machinery is not ported yet (``--enable_qlora``, ``--mesh_data``/
+``--mesh_model`` above 1, ``--fsdp``) parse as in JAX; the CLIs raise on them.
 """
 
 from __future__ import annotations
@@ -83,6 +83,26 @@ class Stage1Config(CommonConfig):
     grad_clip: float = 5.0
     learning_rate: float = 1e-4
     num_epochs: int = 10
+
+
+@dataclasses.dataclass
+class Stage0Config(CommonConfig):
+    """SigLIP contrastive fine-tuning (reference flags: Stage0:867-894)."""
+
+    model_name: str = ""
+    max_text_len: int = 77
+    freeze_layers_ratio: float = 0.0
+    freeze_text_encoder: bool = True
+    freeze_logit_scale: bool = True
+    save_every_n_epochs: int = 1
+    min_save_epoch: int = 1
+    use_online_augmentation: bool = False
+    val_split: float = 0.05
+    learning_rate: float = 1e-5
+    warmup_ratio: float = 0.1
+    # True = per-data-shard pairwise negatives (the reference's DDP semantics);
+    # False = global negatives across the whole batch. One process: the same.
+    local_negatives: bool = True
 
 
 def _add_dataclass_args(parser: argparse.ArgumentParser, cls, *, skip=()):

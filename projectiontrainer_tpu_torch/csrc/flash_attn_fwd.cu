@@ -23,8 +23,28 @@
 // explicitly and the output divided by max(l, 1e-30), so left-padded query rows
 // come out as 0 and not as a uniform average.
 //
+// For training, the kernel can also write O in fp32 (``out_f32``, dense [B, T, Hq, D];
+// null skips it): the backward's delta = rowsum(dO * O) must equal sum_j P_ij dP_ij,
+// whose rows of dS then sum to zero. From the bf16 output, delta is off by a per-row
+// constant of ~2^-9 |dO| |O|, which dQ and dK take on along the keys' and queries'
+// common component; on a trained tower whose tokens are nearly alike that error
+// dominated the last layers' q/k gradients (measured on the card). For the same
+// reason O is divided by the sum of the bf16-rounded weights the PV product applied
+// (u), not by the fp32 sum of the unrounded ones (l): O's weights then sum to 1, so
+// V's common part passes through exactly. With l they summed to 1 +- ~2^-9 / sqrt(T),
+// and that error in delta still cost dq a cosine of 0.94 of fp32 on tokens whose
+// common part is 15x their spread (plain bf16 attention: 0.9997). The lse stays
+// m + log(l), so the backward's exp(S - lse) sums to 1.
+//
+// Head dims that are not a multiple of 16 (so400m's D = 72) are padded INSIDE the
+// kernel to DP, the next multiple of 16 (WMMA's k and n): the shared tiles are
+// [rows][DP], their columns D..DP-1 are zeroed once and never loaded, and only the D
+// real columns are written back. The scale is the caller's (72^-0.5, not 80^-0.5); the
+// zero columns add nothing to Q K^T and produce zero output columns, which are dropped.
+// Nothing is padded on the host.
+//
 // Left for later PRs: wgmma with the output kept in registers, TMA loads of K/V
-// into a multi-stage ring, a warp-specialised producer, and the backward.
+// into a multi-stage ring, a warp-specialised producer.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -44,28 +64,48 @@ constexpr int ROWS_PER_WARP = BQ / WARPS;  // 16: one WMMA row block per warp
 constexpr float NEG_INF = -2.3819763e38f;
 constexpr float LOG2E = 1.4426950408889634f;
 
+// the shared tiles' row length: D rounded up to a multiple of 16
+template <int D>
+__host__ __device__ constexpr int padded() { return (D + 15) / 16 * 16; }
+
 template <int D>
 constexpr size_t smem_bytes() {
-  return (size_t)BQ * D * 2          // sQ  bf16 [BQ][D]
-         + (size_t)BK * D * 2 * 2    // sK, sV bf16 [BK][D]
-         + (size_t)BQ * BK * 4       // sS  fp32 [BQ][BK]
-         + (size_t)BQ * BK * 2       // sP  bf16 [BQ][BK]
-         + (size_t)BQ * D * 4        // sO  fp32 [BQ][D]
-         + (size_t)BQ * 4;           // sCorr fp32 [BQ]
+  constexpr int DP = padded<D>();
+  return (size_t)BQ * DP * 2          // sQ  bf16 [BQ][DP]
+         + (size_t)BK * DP * 2 * 2    // sK, sV bf16 [BK][DP]
+         + (size_t)BQ * BK * 4        // sS  fp32 [BQ][BK]
+         + (size_t)BQ * BK * 2        // sP  bf16 [BQ][BK]
+         + (size_t)BQ * DP * 4        // sO  fp32 [BQ][DP]
+         + (size_t)BQ * 4;            // sCorr fp32 [BQ]
 }
 
-// copy `rows` rows (row r at src + r * row_stride, D contiguous bf16) into a dense
-// [n_rows][D] shared tile, zero-filling rows >= valid
+// copy `n_rows` rows (row r at src + r * row_stride, D contiguous bf16) into columns
+// 0..D-1 of a [n_rows][DP] shared tile, zero-filling rows >= valid
 template <int D>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long row_stride,
                                           int valid, int n_rows) {
   constexpr int VEC = 8;  // 16 bytes
   constexpr int PER_ROW = D / VEC;
+  constexpr int DP = padded<D>();
   for (int i = threadIdx.x; i < n_rows * PER_ROW; i += THREADS) {
     int r = i / PER_ROW, c = (i % PER_ROW) * VEC;
     uint4 val = make_uint4(0, 0, 0, 0);
     if (r < valid) val = *reinterpret_cast<const uint4*>(src + r * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * D + c) = val;
+    *reinterpret_cast<uint4*>(dst + r * DP + c) = val;
+  }
+}
+
+// zero the pad columns D..DP-1 of a [n_rows][DP] shared tile (once: loads never
+// write them)
+template <int D>
+__device__ __forceinline__ void zero_pad_cols(bf16* dst, int n_rows) {
+  constexpr int DP = padded<D>();
+  constexpr int PAD = (DP - D) / 8;  // 16-byte chunks a row
+  if constexpr (PAD > 0) {
+    for (int i = threadIdx.x; i < n_rows * PAD; i += THREADS) {
+      int r = i / PAD, c = D + (i % PAD) * 8;
+      *reinterpret_cast<uint4*>(dst + r * DP + c) = make_uint4(0, 0, 0, 0);
+    }
   }
 }
 
@@ -74,20 +114,21 @@ __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const int* __restrict__ kv_mask,
                  bf16* __restrict__ out, float* __restrict__ lse,
-                 int T, int Hq, int Hkv,
+                 float* __restrict__ out_f32, int T, int Hq, int Hkv,
                  long long sqb, long long sqt, long long sqh,
                  long long skb, long long skt, long long skh,
                  long long svb, long long svt, long long svh,
                  long long sob, long long sot, long long soh,
                  float scale, int causal, int window) {
+  constexpr int DP = padded<D>();
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + BQ * D;
-  bf16* sV = sK + BK * D;
-  float* sS = reinterpret_cast<float*>(sV + BK * D);
+  bf16* sK = sQ + BQ * DP;
+  bf16* sV = sK + BK * DP;
+  float* sS = reinterpret_cast<float*>(sV + BK * DP);
   bf16* sP = reinterpret_cast<bf16*>(sS + BQ * BK);
   float* sO = reinterpret_cast<float*>(sP + BQ * BK);
-  float* sCorr = sO + BQ * D;
+  float* sCorr = sO + BQ * DP;
 
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
@@ -103,15 +144,21 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vb = v + b * svb + hk * svh;
   const int* mb = kv_mask ? kv_mask + (long long)b * T : nullptr;
 
+  zero_pad_cols<D>(sQ, BQ);
+  zero_pad_cols<D>(sK, BK);
+  zero_pad_cols<D>(sV, BK);
   load_tile<D>(sQ, qb + q0 * sqt, sqt, min(BQ, T - q0), BQ);
-  for (int i = threadIdx.x; i < BQ * D; i += THREADS) sO[i] = 0.f;
+  for (int i = threadIdx.x; i < BQ * DP; i += THREADS) sO[i] = 0.f;
 
-  // per-row running max (log2 domain) and sum, kept by every lane of the owning warp
-  float m_run[ROWS_PER_WARP], l_run[ROWS_PER_WARP];
+  // per-row running max (log2 domain), sum of the fp32 probabilities (for lse) and sum
+  // of their bf16 roundings (the weights the PV product applies, for O's
+  // normalisation), kept by every lane of the owning warp
+  float m_run[ROWS_PER_WARP], l_run[ROWS_PER_WARP], u_run[ROWS_PER_WARP];
 #pragma unroll
   for (int r = 0; r < ROWS_PER_WARP; ++r) {
     m_run[r] = NEG_INF;
     l_run[r] = 0.f;
+    u_run[r] = 0.f;
   }
 
   int kt_end = (T + BK - 1) / BK;
@@ -131,14 +178,14 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[BK / 16];
 #pragma unroll
       for (int n = 0; n < BK / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
-      for (int kd = 0; kd < D / 16; ++kd) {
+      for (int kd = 0; kd < DP / 16; ++kd) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, sQ + row0 * D + kd * 16, D);
+        wmma::load_matrix_sync(a, sQ + row0 * DP + kd * 16, DP);
 #pragma unroll
         for (int n = 0; n < BK / 16; ++n) {
-          // K stored [BK][D] row-major is K^T [D][BK] column-major
+          // K stored [BK][DP] row-major is K^T [DP][BK] column-major
           wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bt;
-          wmma::load_matrix_sync(bt, sK + n * 16 * D + kd * 16, D);
+          wmma::load_matrix_sync(bt, sK + n * 16 * DP + kd * 16, DP);
           wmma::mma_sync(acc[n], a, bt, acc[n]);
         }
       }
@@ -171,61 +218,72 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       const float m_new = fmaxf(m_run[r], mx);
-      float sum = 0.f;
+      float sum = 0.f, used = 0.f;
 #pragma unroll
       for (int j = 0; j < BK / 32; ++j) {
         const float p = ok[j] ? exp2f(s[j] - m_new) : 0.f;  // explicit zero: see header
+        const bf16 pb = __float2bfloat16(p);
         sum += p;
-        sP[row * BK + lane + 32 * j] = __float2bfloat16(p);
+        used += __bfloat162float(pb);
+        sP[row * BK + lane + 32 * j] = pb;
       }
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      for (int off = 16; off > 0; off >>= 1) {
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+        used += __shfl_xor_sync(0xffffffffu, used, off);
+      }
       const float corr = exp2f(m_run[r] - m_new);
       l_run[r] = l_run[r] * corr + sum;
+      u_run[r] = u_run[r] * corr + used;
       m_run[r] = m_new;
       if (lane == 0) sCorr[row] = corr;
     }
     __syncwarp();
 
     // O[rows] *= corr, then O[rows] += P V
-    for (int i = lane; i < ROWS_PER_WARP * D; i += 32) {
-      const int row = row0 + i / D;
-      sO[row * D + i % D] *= sCorr[row];
+    for (int i = lane; i < ROWS_PER_WARP * DP; i += 32) {
+      const int row = row0 + i / DP;
+      sO[row * DP + i % DP] *= sCorr[row];
     }
     __syncwarp();
-    for (int n = 0; n < D / 16; ++n) {
+    for (int n = 0; n < DP / 16; ++n) {
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> o;
-      wmma::load_matrix_sync(o, sO + row0 * D + n * 16, D, wmma::mem_row_major);
+      wmma::load_matrix_sync(o, sO + row0 * DP + n * 16, DP, wmma::mem_row_major);
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
         wmma::load_matrix_sync(a, sP + row0 * BK + kk * 16, BK);
-        wmma::load_matrix_sync(bv, sV + kk * 16 * D + n * 16, D);
+        wmma::load_matrix_sync(bv, sV + kk * 16 * DP + n * 16, DP);
         wmma::mma_sync(o, a, bv, o);
       }
-      wmma::store_matrix_sync(sO + row0 * D + n * 16, o, D, wmma::mem_row_major);
+      wmma::store_matrix_sync(sO + row0 * DP + n * 16, o, DP, wmma::mem_row_major);
     }
   }
   __syncwarp();
 
-  // epilogue: out = O / max(l, 1e-30); lse in natural-log units
+  // epilogue: out = O / max(u, 1e-30); lse = m + log(l) in natural-log units (see
+  // the header)
 #pragma unroll
   for (int r = 0; r < ROWS_PER_WARP; ++r) {
     const int row = row0 + r;
     const int t = q0 + row;
     if (t >= T) continue;
     const float l_safe = fmaxf(l_run[r], 1e-30f);
-    const float inv = 1.f / l_safe;
+    const float inv = 1.f / fmaxf(u_run[r], 1e-30f);
     bf16* ob = out + b * sob + t * sot + h * soh;
-    for (int c = lane; c < D; c += 32) ob[c] = __float2bfloat16(sO[row * D + c] * inv);
+    for (int c = lane; c < D; c += 32) ob[c] = __float2bfloat16(sO[row * DP + c] * inv);
+    if (out_f32) {
+      float* of = out_f32 + (((long long)b * T + t) * Hq + h) * D;
+      for (int c = lane; c < D; c += 32) of[c] = sO[row * DP + c] * inv;
+    }
     if (lane == 0) lse[((long long)b * Hq + h) * T + t] = m_run[r] / LOG2E + logf(l_safe);
   }
 }
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* kv_mask,
-                   void* out, void* lse, int B, int T, int Hq, int Hkv,
+                   void* out, void* lse, void* out_f32, int B, int T, int Hq, int Hkv,
                    long long sqb, long long sqt, long long sqh,
                    long long skb, long long skt, long long skh,
                    long long svb, long long svt, long long svh,
@@ -240,7 +298,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* kv_m
   flash_fwd_kernel<D><<<grid, THREADS, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const int*>(kv_mask), static_cast<bf16*>(out), static_cast<float*>(lse),
-      T, Hq, Hkv, sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sob, sot, soh,
+      static_cast<float*>(out_f32), T, Hq, Hkv, sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sob, sot, soh,
       scale, causal, window);
   return cudaGetLastError();
 }
@@ -248,7 +306,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* kv_m
 }  // namespace
 
 extern "C" int flash_attn_fwd_bf16(const void* q, const void* k, const void* v,
-                                   const void* kv_mask, void* out, void* lse,
+                                   const void* kv_mask, void* out, void* lse, void* out_f32,
                                    int B, int T, int Hq, int Hkv, int D,
                                    long long sqb, long long sqt, long long sqh,
                                    long long skb, long long skt, long long skh,
@@ -258,11 +316,12 @@ extern "C" int flash_attn_fwd_bf16(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define PTT_FLASH_CASE(DIM)                                                              \
   case DIM:                                                                              \
-    return (int)launch<DIM>(q, k, v, kv_mask, out, lse, B, T, Hq, Hkv, sqb, sqt, sqh,    \
-                            skb, skt, skh, svb, svt, svh, sob, sot, soh, scale, causal,  \
-                            window, s);
+    return (int)launch<DIM>(q, k, v, kv_mask, out, lse, out_f32, B, T, Hq, Hkv, sqb, sqt, \
+                            sqh, skb, skt, skh, svb, svt, svh, sob, sot, soh, scale,     \
+                            causal, window, s);
   switch (D) {
     PTT_FLASH_CASE(64)
+    PTT_FLASH_CASE(72)
     PTT_FLASH_CASE(128)
     PTT_FLASH_CASE(256)
     default:

@@ -33,9 +33,9 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 
 # C signatures of the entry points (see the ``extern "C"`` blocks of csrc/*.cu)
 SIGNATURES = {
-    # q, k, v, kv_mask, out, lse; B, T, Hq, Hkv, D;
+    # q, k, v, kv_mask, out, lse, out_f32 (or null); B, T, Hq, Hkv, D;
     # q/k/v/out strides (b, t, h) in elements; scale, causal, window; stream
-    "flash_attn_fwd_bf16": [_P] * 6 + [_I] * 5 + [_L] * 12 + [_F, _I, _I, _P],
+    "flash_attn_fwd_bf16": [_P] * 7 + [_I] * 5 + [_L] * 12 + [_F, _I, _I, _P],
     # q, kp, vp, kg, vg, prefix_mask, out; B, nb, Hkv, n_rep, P, G, D;
     # t, prefix_len, window, scale; stream
     "decode_attn_bf16": [_P] * 7 + [_I] * 7 + [_I, _I, _I, _F, _P],

@@ -53,13 +53,14 @@ def visual_embeds(params, cfg: VLMConfig, pixel_values: torch.Tensor) -> torch.T
 
     The tower is frozen: it runs under ``torch.no_grad`` in its stored type (pixels
     are cast to it), so only the projector is differentiable here. A tower parameter
-    that requires grad raises: training the tower needs the LayerNorm backward
-    kernel, which is not ported yet."""
+    that requires grad raises: the stages that train the tower inside the VLM (stage
+    2's ``--train_ve_first_epoch``) are not ported."""
     if any(x.requires_grad for _, x in leaves_with_paths(params["vision"])):
-        raise NotImplementedError("training the vision tower is not ported")
+        raise NotImplementedError("training the vision tower inside the VLM is not ported")
     w = params["vision"]["patch_embedding"]["weight"]
     with torch.no_grad(), span("tower"):
-        hidden = siglip.vision_forward(params["vision"], cfg.vision, pixel_values.to(w.dtype))
+        hidden, _ = siglip.vision_forward(params["vision"], cfg.vision,
+                                          pixel_values.to(w.dtype))
     if cfg.drop_first_patch:
         hidden = hidden[:, 1:, :]
     with span("projector"):

@@ -11,10 +11,19 @@ gradients. ``out`` is differentiable with respect to q, k and v (a
 ``torch.autograd.Function``: the forward saves ``out`` and ``lse``, the backward
 computes ``delta = rowsum(dO * O)`` in plain torch, as JAX does outside its kernels,
 then runs the two backward kernels, or on the CPU the FlashAttention-2 formulas of
-``flash_attention_bwd_reference``). ``lse`` is not differentiable.
+``flash_attention_bwd_reference``). ``lse`` is not differentiable. When a backward
+will follow, the forward kernel also writes O in fp32 and the backward takes delta
+from that copy, not from the bf16 output (see ``csrc/flash_attn_fwd.cu``).
 
-Self-attention shapes only (``Tq == Tk``): the tower (non-causal) and the decoder
-(causal, sliding window, padding mask, GQA). Head dims 64, 128 and 256.
+Self-attention shapes only (``Tq == Tk``): the towers (non-causal) and the decoder
+(causal, sliding window, padding mask, GQA). Head dims 64, 72 (so400m; the kernels pad
+it to 80 in shared memory, nothing is padded here), 128 and 256.
+
+``flash_attention_merged`` is the counterpart of the TPU's merged-lane kernels
+(``_fwd_lanes_kernel``, ``_bwd_dkv_lanes_kernel``, ``_bwd_dq_lanes_kernel`` via
+``_flash_lanes``): the same math on head-merged ``[B, T, H*D]`` tensors. The TPU needs
+a second set of kernels for that layout; these kernels read any ``[B, T, H, D]`` strides,
+so the merged tensor is passed as a view and the same three kernels serve it.
 """
 
 from __future__ import annotations
@@ -30,7 +39,7 @@ from projectiontrainer_tpu_torch.ops.attention import attention_probs, dot_produ
 launches = _build.LaunchCounter("flash_attn_fwd")
 bwd_dkv_launches = _build.LaunchCounter("flash_attn_bwd_dkv")
 bwd_dq_launches = _build.LaunchCounter("flash_attn_bwd_dq")
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 72, 128, 256)
 
 
 def flash_attention_reference(q, k, v, *, scale: Optional[float] = None,
@@ -110,7 +119,8 @@ def _mask_arg(kv_mask, q):
     return mask
 
 
-def _launch(q, k, v, *, scale, causal, window, kv_mask):
+def _launch(q, k, v, *, scale, causal, window, kv_mask, out_f32: bool = False):
+    """K1 -> (out, lse, fp32 copy of out or None)."""
     b, t, hq, d = q.shape
     hkv = k.shape[2]
     _check_shapes(q, k, v)
@@ -118,22 +128,24 @@ def _launch(q, k, v, *, scale, causal, window, kv_mask):
     lib = _build.library()
     out = torch.empty((b, t, hq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, hq, t), dtype=torch.float32, device=q.device)
+    out32 = torch.empty((b, t, hq, d), dtype=torch.float32, device=q.device) if out_f32 else None
     err = lib.flash_attn_fwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None if mask is None else mask.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), b, t, hq, hkv, d,
+        out.data_ptr(), lse.data_ptr(), None if out32 is None else out32.data_ptr(),
+        b, t, hq, hkv, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         float(scale), int(causal), int(window or 0),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check("flash_attn_fwd_bf16", err)
     launches.add()
-    return out, lse
+    return out, lse, out32
 
 
 def prepare_bwd(q, k, v, kv_mask, out, lse, do):
     """Check the backward's CUDA inputs -> (int32 mask or None, contiguous dO, delta):
     ``delta = rowsum(dO * O)`` [B, Hq, T] fp32, computed in plain torch as the JAX
-    package does outside its kernels."""
+    package does outside its kernels. ``out`` may be the forward's fp32 copy of O."""
     b, t, hq, _ = q.shape
     do = do.contiguous()
     _check_shapes(q, k, v)
@@ -203,14 +215,16 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, scale, causal, window):
         if q.is_cuda:
-            out, lse = _launch(q, k, v, scale=scale, causal=causal, window=window,
-                               kv_mask=kv_mask)
+            out, lse, out32 = _launch(q, k, v, scale=scale, causal=causal, window=window,
+                                      kv_mask=kv_mask, out_f32=any(ctx.needs_input_grad[:3]))
         elif q.device.type == "cpu":
             out, lse = flash_attention_reference(q, k, v, scale=scale, causal=causal,
                                                  window=window, kv_mask=kv_mask)
+            out32 = None
         else:
             raise RuntimeError(f"flash_attention: no kernel for device {q.device}")
-        ctx.save_for_backward(q, k, v, kv_mask, out, lse)
+        # delta = rowsum(dO * O) is taken from the fp32 copy where there is one
+        ctx.save_for_backward(q, k, v, kv_mask, out if out32 is None else out32, lse)
         ctx.mark_non_differentiable(lse)
         ctx.opts = dict(scale=scale, causal=causal, window=window)
         return out, lse
@@ -231,3 +245,26 @@ def flash_attention(q, k, v, *, scale: Optional[float] = None, causal: bool = Fa
     if scale is None:
         scale = q.shape[-1] ** -0.5
     return _FlashAttention.apply(q, k, v, kv_mask, float(scale), bool(causal), window)
+
+
+def _split_heads(x, heads: int):
+    """[B, T, H*D] -> a [B, T, H, D] view of the same storage (no copy)."""
+    b, t, hd = x.shape
+    if hd % heads:
+        raise ValueError(f"flash_attention_merged: last axis {hd} is not {heads} heads")
+    view = x.view(b, t, heads, hd // heads)
+    assert view.untyped_storage().data_ptr() == x.untyped_storage().data_ptr()
+    return view
+
+
+def flash_attention_merged(qm, km, vm, *, heads: int, kv_heads: int,
+                           scale: Optional[float] = None):
+    """Non-causal, unmasked attention on head-merged tensors: qm [B, T, Hq*D], km/vm
+    [B, T, Hkv*D] -> [B, T, Hq*D], differentiable in qm, km and vm.
+
+    The counterpart of the JAX package's ``_flash_lanes``: the inputs are viewed as
+    [B, T, H, D] without a copy and run through ``flash_attention`` (the K1 forward and
+    K4/K5 backward kernels on CUDA tensors), so there is no gate and no pad."""
+    q, k, v = _split_heads(qm, heads), _split_heads(km, kv_heads), _split_heads(vm, kv_heads)
+    out, _ = flash_attention(q, k, v, scale=scale)
+    return out.reshape(qm.shape)

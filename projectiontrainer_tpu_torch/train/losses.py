@@ -1,6 +1,7 @@
-"""Causal-LM losses with the reference's semantics, computed in fp32.
+"""Training losses with the reference's semantics, computed in fp32.
 
-Counterpart of ``projectiontrainer_tpu/train/losses.py`` (``shifted_clm_loss``,
+Counterpart of ``projectiontrainer_tpu/train/losses.py``: the stage-0 contrastive loss
+(``siglip_pairwise_loss``) and the causal-LM losses (``shifted_clm_loss``,
 ``chunked_shifted_clm_loss``, ``fused_shifted_clm_loss``): tokens < n predict token n,
 labels -100 are ignored, the mean runs over the non-ignored targets, and optional
 per-sample weights (0 for a straggler batch's filler rows) weight both the sum and the
@@ -82,3 +83,29 @@ def fused_shifted_clm_loss(hidden, embed_table, labels, *, logits_scale: float =
     nll = fused_clm_token_nll(flat, embed_table, safe.reshape(-1), logits_scale)
     token_loss = torch.where(valid, nll.reshape(b, t - 1), 0.0)
     return _reduce(token_loss, valid, sample_weights)
+
+
+def siglip_pairwise_loss(image_features, text_features, logit_scale, logit_bias=None,
+                         sample_weight=None):
+    """The reference's stage-0 loss (Stage0/train_vision_encoder_stage0.py:260-269):
+    L2-normalised towers, pairwise logits ``img @ txt.T * exp(logit_scale)`` (+ bias),
+    binary cross entropy against the identity matrix, summed and divided by n.
+
+    ``sample_weight`` (0/1 a row) masks a straggler batch's filler rows in both the
+    rows and the columns of the pairwise matrix and divides by the number of real
+    rows. (The reference's BCE against an identity matrix, not canonical SigLIP's
+    +-1 log-sigmoid, replicated on purpose.)"""
+    img = image_features.float()
+    txt = text_features.float()
+    img = img / torch.linalg.vector_norm(img, dim=-1, keepdim=True)
+    txt = txt / torch.linalg.vector_norm(txt, dim=-1, keepdim=True)
+    logits = img @ txt.t() * torch.exp(logit_scale.float().reshape(()))
+    if logit_bias is not None:
+        logits = logits + logit_bias.float().reshape(())
+    n = logits.shape[0]
+    labels = torch.eye(n, dtype=torch.float32, device=logits.device)
+    per = logits.clamp_min(0.0) - logits * labels + torch.log1p(torch.exp(-logits.abs()))
+    if sample_weight is None:
+        return per.sum() / n
+    w = sample_weight.float()
+    return (per * (w[:, None] * w[None, :])).sum() / w.sum().clamp_min(1.0)

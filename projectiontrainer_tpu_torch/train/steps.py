@@ -1,7 +1,8 @@
-"""Train and eval steps for stage 1.
+"""Train and eval steps for stages 0 and 1.
 
 Counterpart of ``projectiontrainer_tpu/train/steps.py``: ``stage1_loss`` rebuilds the
-reference's [visual; caption] CLM loss, ``make_train_step`` differentiates it with
+reference's [visual; caption] CLM loss, ``stage0_loss`` the SigLIP pairwise loss over
+the dual tower, ``make_train_step`` differentiates either with
 respect to the trainable leaves only and applies the masked AdamW update, and
 ``make_eval_step`` runs the loss without gradients. Where JAX returns a new state,
 the port updates the params and optimizer state in place and returns the same dict.
@@ -16,7 +17,7 @@ import torch
 from projectiontrainer_tpu_torch.core import dtypes
 from projectiontrainer_tpu_torch.core.pytree import leaves_with_paths
 from projectiontrainer_tpu_torch.models import decoder as dec
-from projectiontrainer_tpu_torch.models import vlm
+from projectiontrainer_tpu_torch.models import siglip, vlm
 from projectiontrainer_tpu_torch.train import losses
 from projectiontrainer_tpu_torch.train.optim import global_norm
 from projectiontrainer_tpu_torch.utils.timing import span
@@ -156,5 +157,55 @@ def stage1_loss(cfg: vlm.VLMConfig, pad_token_id: int, *, remat=True,
             loss_prefix=visual.shape[1],  # visual labels are statically -100
         )
         return loss, {"tokens": n_tok}
+
+    return loss_fn
+
+
+# ---------------------------------------------------------------------------- stage 0
+
+
+def stage0_loss(cfg: siglip.SiglipConfig, *, remat=False, local_negatives_shards: int = 1,
+                compute_dtype=None):
+    """SigLIP pairwise loss on the dual tower (reference:
+    Stage0/train_vision_encoder_stage0.py:661-689). batch: {'pixel_values' [B, H, W, C],
+    'input_ids' [B, T], 'sample_weight'?, 'valid'?}.
+
+    ``sample_weight`` (0 on a straggler batch's filler rows) times ``valid`` (0 on a
+    missing image's placeholder) masks rows and columns of the pairwise matrix.
+    ``local_negatives_shards=N`` splits the batch into N groups with their own
+    negatives (the reference's per-rank loss under DDP) and averages the losses of
+    the groups that hold a real row. Pixels are cast to the vision tower's compute
+    type. The spans ``vision``, ``text`` (``forward_contrastive``) and ``loss`` split
+    a profiled step; a frozen text tower runs without autograd."""
+
+    def loss_fn(params, batch, rng=None):
+        del rng
+        if compute_dtype is not None:
+            params = dtypes.cast_compute_params(params, compute_dtype)
+        pixels = batch["pixel_values"].to(params["vision"]["patch_embedding"]["weight"].dtype)
+        img, txt, scale, bias = siglip.forward_contrastive(params, cfg, pixels,
+                                                           batch["input_ids"], remat=remat)
+        with span("loss"):
+            w = batch.get("sample_weight")
+            valid = batch.get("valid")
+            if valid is not None:
+                vf = valid.float()
+                w = vf if w is None else w.float() * vf
+            if local_negatives_shards <= 1:
+                return losses.siglip_pairwise_loss(img, txt, scale[0], bias[0],
+                                                   sample_weight=w), {}
+            n = local_negatives_shards
+            per = img.shape[0] // n
+            w_s = (torch.ones((n, per), device=img.device) if w is None
+                   else w.float().reshape(n, per))
+            shard = torch.stack([
+                losses.siglip_pairwise_loss(img[i * per:(i + 1) * per],
+                                            txt[i * per:(i + 1) * per], scale[0], bias[0],
+                                            sample_weight=w_s[i])
+                for i in range(n)])
+            # a straggler batch can leave whole shards without a real row (loss 0):
+            # average over the shards that have one
+            nonempty = (w_s.sum(1) > 0).float()
+            return (shard * nonempty).sum() / nonempty.sum().clamp_min(1.0), {}
 
     return loss_fn

@@ -6,6 +6,14 @@ the JAX package's Pallas kernels (interpret mode on the CPU), fp32, same numpy i
   the port's ``flash_attention``, which on CPU tensors runs the FlashAttention-2
   formulas of ``flash_attention_bwd_reference``. Tolerance 1e-4 of the reference's
   largest magnitude (fp32 sums in another order).
+- Head dim 72 (so400m): the same, non-causal and unmasked as the towers run it.
+- ``flash_attention_merged`` on head-merged [B, T, H*D] tensors against the merged-lane
+  kernels' ``_flash_lanes`` (interpret mode), D = 128 and D = 72 (its zero-pad branch),
+  forward and gradients. Tolerance 1e-4 of the reference's largest magnitude.
+- LayerNorm backward: ``layernorm_bwd_reference`` against ``_bwd(..., interpret=True)``
+  and the port's autograd function against ``jax.grad`` of ``_fused_ln``, at a row
+  count that leaves the JAX kernel's last row block ragged (its block cut to 16 rows).
+  Tolerance 1e-5 relative.
 - Fused CE: ``fused_clm_token_nll(..., interpret=True)`` and its VJP against the
   port's, with a vocab that is not a multiple of the kernels' tile (a ragged tail);
   the table's gradient is zero by contract. Tolerance 1e-5 relative.
@@ -19,8 +27,10 @@ import torch
 
 from projectiontrainer_tpu.ops import flash_attention as JFA
 from projectiontrainer_tpu.ops import fused_ce as JCE
+from projectiontrainer_tpu.ops import fused_layernorm as JFLN
 from projectiontrainer_tpu_torch.ops import flash_attention as FA
 from projectiontrainer_tpu_torch.ops import fused_ce as CE
+from projectiontrainer_tpu_torch.ops import fused_layernorm as FLN
 from projectiontrainer_tpu_torch.train import steps
 
 torch.set_num_threads(2)
@@ -95,6 +105,99 @@ def test_flash_backward_reference_matches_autograd_of_plain_attention():
                                             out.detach(), lse, g.detach(), **kw)
     for mine, ref in zip(ours, (q.grad, k.grad, v.grad)):
         torch.testing.assert_close(mine, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("t", [96, 64])
+def test_flash_head_dim_72_plain_matches_pallas_vjp(t):
+    """so400m's head dim (the Pallas kernel fills Mosaic's lanes with zeros; the CUDA
+    kernels pad to 80 in shared memory), non-causal and unmasked as in the towers."""
+    rng = np.random.default_rng(7)
+    q, k, v, g = (rng.standard_normal((2, t, 4, 72), dtype=np.float32) for _ in range(4))
+    jout, vjp = jax.vjp(lambda q_, k_, v_: JFA.flash_attention(
+        q_, k_, v_, bq=32, bk=32, interpret=True), *map(jnp.asarray, (q, k, v)))
+    jgrads = vjp(jnp.asarray(g))
+    tq, tk, tv = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
+    out, _ = FA.flash_attention(tq, tk, tv)
+    out.backward(torch.tensor(g))
+    rel_close(out, jout, 1e-4)
+    for ours, theirs in zip((tq.grad, tk.grad, tv.grad), jgrads):
+        rel_close(ours, theirs, 1e-4)
+
+
+@pytest.mark.parametrize("hq,hkv,d", [(4, 4, 128), (4, 2, 128), (4, 4, 72)])
+def test_flash_merged_matches_jax_lanes(hq, hkv, d):
+    """The merged-lane kernels' math (rows 4-6 of the kernel table) through the port's
+    ``flash_attention_merged``: [B, T, H*D] in, views of the same storage inside."""
+    rng = np.random.default_rng(8)
+    b, t = 2, 128
+    q = rng.standard_normal((b, t, hq, d), dtype=np.float32)
+    k, v = (rng.standard_normal((b, t, hkv, d), dtype=np.float32) for _ in range(2))
+    g = rng.standard_normal((b, t, hq, d), dtype=np.float32)
+    jout, vjp = jax.vjp(lambda q_, k_, v_: JFA._flash_lanes(q_, k_, v_, d ** -0.5, 64, 64, True),
+                        *map(jnp.asarray, (q, k, v)))
+    jgrads = vjp(jnp.asarray(g))
+    qm, km, vm = (torch.tensor(x.reshape(b, t, -1), requires_grad=True) for x in (q, k, v))
+    out = FA.flash_attention_merged(qm, km, vm, heads=hq, kv_heads=hkv)
+    assert out.shape == (b, t, hq * d)
+    out.backward(torch.tensor(g.reshape(b, t, -1)))
+    rel_close(out.reshape(b, t, hq, d), jout, 1e-4)
+    for ours, theirs in zip((qm.grad, km.grad, vm.grad), jgrads):
+        rel_close(ours.reshape(theirs.shape), theirs, 1e-4)
+    with pytest.raises(ValueError, match="heads"):
+        FA.flash_attention_merged(qm[..., :-1], km, vm, heads=hq, kv_heads=hkv)
+
+
+def _ln_case(rows, d, seed):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((rows, d)) * 2.0 + 0.3).astype(np.float32)
+    scale = (rng.standard_normal(d) * 0.5 + 1.0).astype(np.float32)
+    bias = (rng.standard_normal(d) * 0.1).astype(np.float32)
+    dy = rng.standard_normal((rows, d)).astype(np.float32)
+    return x, scale, bias, dy
+
+
+@pytest.mark.parametrize("rows", [40, 48])
+def test_layernorm_bwd_reference_matches_pallas(monkeypatch, rows):
+    """40 rows leave the JAX kernel's last 16-row block ragged (its masked products)."""
+    monkeypatch.setattr(JFLN, "_BLOCK_ROWS", 16)
+    x, scale, _, dy = _ln_case(rows, 128, 9)
+    jdx, jds, jdb = JFLN._bwd(jnp.asarray(x), jnp.asarray(dy), jnp.asarray(scale), eps=1e-6,
+                              interpret=True)
+    dx, ds, db = FLN.layernorm_bwd_reference(torch.tensor(x), torch.tensor(dy),
+                                             torch.tensor(scale), 1e-6)
+    for ours, theirs in ((dx, jdx), (ds, jds), (db, jdb)):
+        rel_close(ours, theirs, 1e-5)
+
+
+def test_layernorm_autograd_matches_jax_grad(monkeypatch):
+    """The port's LayerNorm (plain forward and backward on the CPU, inside the same
+    ``torch.autograd.Function`` the kernels use) against ``jax.grad`` of the Pallas
+    custom VJP."""
+    monkeypatch.setattr(JFLN, "_BLOCK_ROWS", 16)
+    x, scale, bias, dy = _ln_case(40, 128, 10)
+    x3 = x.reshape(2, 20, 128)
+
+    def jloss(x_, s_, b_):
+        return jnp.sum(JFLN._fused_ln(x_.reshape(40, 128), s_, b_, 1e-6, True) * dy)
+
+    jgrads = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (x3, scale, bias)))
+    tx, ts, tb = (torch.tensor(a, requires_grad=True) for a in (x3, scale, bias))
+    before = (FLN.launches.value, FLN.bwd_launches.value)
+    out = FLN.layernorm({"scale": ts, "bias": tb}, tx, eps=1e-6)
+    (out.reshape(40, 128) * torch.tensor(dy)).sum().backward()
+    assert (FLN.launches.value, FLN.bwd_launches.value) == before  # CPU: plain versions
+    for ours, theirs in zip((tx.grad, ts.grad, tb.grad), jgrads):
+        rel_close(ours, theirs, 1e-5)
+
+
+@pytest.mark.parametrize("n,ragged", [(16, False), (1000, False), (16384, False),
+                                       (529, True), (1001, True), (16383, True)])
+def test_layernorm_bwd_grid(n, ragged):
+    """K8's grid on a 132-SM H100: every row is covered by about four programs an SM,
+    and the row counts the card checks as ragged leave the last block part-empty."""
+    rows, programs = FLN.bwd_grid(n, 132)
+    assert rows & (rows - 1) == 0 and rows * (programs - 1) < n <= rows * programs
+    assert programs <= 4 * 132 and (rows * programs > n) == ragged
 
 
 @pytest.mark.parametrize("scale", [1.0, 0.5])

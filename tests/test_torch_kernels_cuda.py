@@ -45,6 +45,8 @@ def test_layernorm_kernel(card, d):
 
 @pytest.mark.parametrize("d,hq,hkv,causal,window,pad", [
     (64, 4, 4, False, None, False),
+    (72, 4, 4, False, None, False),     # so400m's head dim, padded to 80 in the kernel
+    (72, 4, 2, True, 37, True),
     (128, 4, 2, True, None, True),
     (256, 4, 1, True, 37, True),
 ])
@@ -69,7 +71,7 @@ def test_flash_kernel(card, d, hq, hkv, causal, window, pad):
 
 
 def test_flash_kernel_rejects_unsupported(card):
-    q = torch.zeros((1, 8, 2, 72), dtype=torch.bfloat16, device=card)
+    q = torch.zeros((1, 8, 2, 96), dtype=torch.bfloat16, device=card)
     with pytest.raises(ValueError):
         FA.flash_attention(q, q, q)
     with pytest.raises(TypeError):
@@ -105,6 +107,9 @@ def _rel_close(got, ref, rel=2e-2):
     (2, 150, 4, 4, 64, False, None, None),
     (2, 150, 4, 1, 256, True, 37, "left"),      # left padding: fully masked query rows
     (4, 1087, 4, 1, 256, True, 512, "right"),   # the stage-1 decoder's shape
+    (2, 150, 4, 4, 72, False, None, None),      # so400m's head dim
+    (2, 150, 4, 2, 72, True, 37, "left"),
+    (2, 1024, 16, 16, 72, False, None, None),   # the stage-0 tower's T and heads
 ])
 def test_flash_backward_kernels(card, b, t, hq, hkv, d, causal, window, pad):
     rng = np.random.default_rng(4)
@@ -130,6 +135,71 @@ def test_flash_backward_kernels(card, b, t, hq, hkv, d, causal, window, pad):
         assert torch.all(dq[1, :70] == 0)
 
 
+@pytest.mark.parametrize("hq,hkv,d", [(8, 8, 128), (8, 2, 128), (16, 16, 72)])
+def test_flash_merged_layout(card, hq, hkv, d):
+    """Head-merged [B, T, H*D] tensors run through the same kernels as views; forward
+    and gradients against the plain attention of the [B, T, H, D] views."""
+    from projectiontrainer_tpu_torch.ops.attention import dot_product_attention
+
+    rng = np.random.default_rng(7)
+    b, t = 2, 1024
+    qm = _bf16(rng, (b, t, hq * d), card).requires_grad_(True)
+    km, vm = (_bf16(rng, (b, t, hkv * d), card).requires_grad_(True) for _ in range(2))
+    g = _bf16(rng, (b, t, hq * d), card)
+    before = (FA.launches.value, FA.bwd_dkv_launches.value, FA.bwd_dq_launches.value)
+    out = FA.flash_attention_merged(qm, km, vm, heads=hq, kv_heads=hkv)
+    out.backward(g)
+    assert (FA.launches.value, FA.bwd_dkv_launches.value, FA.bwd_dq_launches.value) == tuple(
+        n + 1 for n in before)
+    q, k, v = (x.detach().float().view(b, t, -1, d).requires_grad_(True) for x in (qm, km, vm))
+    ref = dot_product_attention(q, k, v).reshape(b, t, hq * d)
+    ref.backward(g.float())
+    torch.testing.assert_close(out.float(), ref, **TOL)
+    for got, want in ((qm.grad, q.grad), (km.grad, k.grad), (vm.grad, v.grad)):
+        _rel_close(got.reshape(want.shape), want)
+
+
+@pytest.mark.parametrize("spread,floor", [(0.2, 0.999), (0.05, None)])
+def test_flash_autograd_gradients_on_nearly_equal_tokens(card, spread, floor):
+    """Tokens whose q, k and v share a common part (x3) 15x / 60x their spread (a
+    trained tower's last layers): dQ lives in the small remainder of K, and |O| is
+    large. The backward's delta = rowsum(dO * O) must agree with the kernels' own
+    sum_j P dP (the forward's fp32 O, normalised by the sum of the bf16 weights its PV
+    product applied), and a row of the dS that enters the dK/dQ products must sum to
+    zero far below bf16's rounding (dS as bf16 hi + lo): see csrc/flash_attn_*.cu.
+    dq, dk and dv within 0.001 of plain bf16 attention's cosine to fp32, and at
+    `floor` or above where plain bf16 reads >= 0.999 too; the sum over tokens of dk
+    (zero in exact arithmetic) no noisier than 3x plain bf16's. On the H100, with
+    delta from the fp32 O normalised by the fp32 sum: dq 0.943 at spread 0.2, 0.174 at
+    0.05; with O normalised by the bf16 sum but dS a single bf16: 0.9994 and 0.991;
+    plain bf16: 0.9997 and 0.9955."""
+    from projectiontrainer_tpu_torch.ops.attention import dot_product_attention
+
+    rng = np.random.default_rng(10)
+    b, t, h, d = 2, 512, 4, 72
+    common = 3 * rng.standard_normal((1, 1, h, d)).astype(np.float32)
+    q, k, v = (torch.tensor(common + spread * rng.standard_normal((b, t, h, d), dtype=np.float32),
+                            device=card).to(torch.bfloat16) for _ in range(3))
+    g = _bf16(rng, (b, t, h, d), card)
+    kernel_in = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    plain_in = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    ref_in = [x.float().requires_grad_(True) for x in (q, k, v)]
+    FA.flash_attention(*kernel_in)[0].backward(g)
+    dot_product_attention(*plain_in).backward(g)
+    dot_product_attention(*ref_in).backward(g.float())
+
+    def cos(a, b):
+        return float(torch.nn.functional.cosine_similarity(a.float().flatten(), b.flatten(), dim=0))
+
+    for kern, plain, ref in zip(kernel_in, plain_in, ref_in):
+        c_kernel, c_plain = cos(kern.grad, ref.grad), cos(plain.grad, ref.grad)
+        assert c_kernel >= c_plain - 1e-3, (c_kernel, c_plain)
+        if floor is not None:
+            assert min(c_kernel, c_plain) >= floor, (c_kernel, c_plain)
+    noise = [float(x[1].grad.float().sum(1).norm()) for x in (kernel_in, plain_in)]
+    assert noise[0] <= 3 * noise[1], noise
+
+
 def test_flash_autograd_runs_the_backward_kernels(card):
     rng = np.random.default_rng(5)
     q, k, v = (_bf16(rng, (2, 96, 2, 128), card).requires_grad_(True) for _ in range(3))
@@ -147,6 +217,44 @@ def test_flash_backward_rejects_unsupported(card):
         FA.flash_attention_bwd(q, q, q, None, out, lse, q.float())
     with pytest.raises(ValueError):
         FA.flash_attention_bwd(q, q, q, None, out, lse[:, :1], q)
+
+
+@pytest.mark.parametrize("n,d,ragged", [
+    (300, 64, False), (16, 1152, False), (1000, 1152, False), (16384, 1152, False),
+    (529, 1152, True), (1001, 1152, True), (16383, 1152, True),
+])
+def test_layernorm_backward_kernel(card, n, d, ragged):
+    """K8's dx, dscale and dbias against the plain backward, each within 2e-2 x
+    max |reference|. The ragged row counts leave the last program's block part-empty
+    on a 132-SM H100 (checked): its rows past the end must add nothing to the sums."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    rows, programs = FLN.bwd_grid(n, sms)
+    if sms == 132:
+        assert (rows * programs > n) == ragged, (rows, programs)
+    rng = np.random.default_rng(8)
+    x, dy = _bf16(rng, (n, d), card), _bf16(rng, (n, d), card)
+    scale = _bf16(rng, (d,), card) * 0.5 + 1
+    before = FLN.bwd_launches.value
+    got = FLN.layernorm_bwd(x, dy, scale, 1e-6)
+    assert FLN.bwd_launches.value == before + 1
+    ref = FLN.layernorm_bwd_reference(x.float(), dy.float(), scale.float(), 1e-6)
+    for a, b in zip(got, ref):
+        _rel_close(a, b)
+    # the partial sums are added in a fixed order: a second run gives the same bits
+    again = FLN.layernorm_bwd(x, dy, scale, 1e-6)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_layernorm_autograd_runs_both_kernels(card):
+    rng = np.random.default_rng(9)
+    x = _bf16(rng, (4, 100, 1152), card).requires_grad_(True)
+    p = {"scale": (_bf16(rng, (1152,), card) * 0.5 + 1).requires_grad_(True),
+         "bias": _bf16(rng, (1152,), card).requires_grad_(True)}
+    before = (FLN.launches.value, FLN.bwd_launches.value)
+    FLN.layernorm(p, x).float().square().sum().backward()
+    assert (FLN.launches.value, FLN.bwd_launches.value) == (before[0] + 1, before[1] + 1)
+    assert x.grad.dtype == torch.bfloat16 and p["scale"].grad.dtype == torch.bfloat16
+    assert all(bool(t.grad.isfinite().all()) for t in (x, p["scale"], p["bias"]))
 
 
 @pytest.mark.parametrize("n,v,d", [(100, 1000, 128), (300, 5000, 256), (2048, 262144, 1152)])

@@ -63,7 +63,7 @@ def test_vision_tower(models):
     jcfg, jp, cfg, p = models
     pixels, _ = _prefix_inputs()
     theirs, _ = JSIG.vision_forward(jp["vision"], jcfg.vision, jnp.asarray(pixels))
-    rel_close(siglip.vision_forward(p["vision"], cfg.vision, torch.tensor(pixels)), theirs)
+    rel_close(siglip.vision_forward(p["vision"], cfg.vision, torch.tensor(pixels))[0], theirs)
 
 
 def test_projector_exact_gelu(models):
@@ -172,7 +172,7 @@ def test_hf_snapshot_import(tmp_path):
     jvcfg, jvparams = JHF.load_siglip(str(tmp_path / "vis"), attn_impl="xla", norm_impl="xla")
     pixels, q_ids = _prefix_inputs(seed=6, vocab=64)
     theirs, _ = JSIG.vision_forward(jvparams["vision"], jvcfg.vision, jnp.asarray(pixels))
-    rel_close(siglip.vision_forward(vparams, vcfg, torch.tensor(pixels)), theirs)
+    rel_close(siglip.vision_forward(vparams, vcfg, torch.tensor(pixels))[0], theirs)
 
     lcfg, lparams = hf_import.load_decoder(str(tmp_path / "llm"))
     jlcfg, jlparams = JHF.load_decoder(str(tmp_path / "llm"), attn_impl="xla")

@@ -191,6 +191,10 @@ def test_step_time_includes_a_stalled_feed(tmp_path):
     trainer = Stage1Trainer(cfg, vlm_cfg=from_jax.config_from_jax(jcfg),
                             params=from_jax.vlm_params(jparams), tokenizer=tok,
                             train_dataset=_StalledCaptions(8, 0.15))
+    # a first step pays one-time costs (lazy imports inside torch: seconds on a busy
+    # host); paid here, they cannot let the prefetching feed run ahead of the timed steps
+    trainer.train_step(trainer.state, {"pixel_values": torch.zeros((2, 32, 32, 3)),
+                                       "caption_ids": torch.ones((2, 12), dtype=torch.int32)})
     result = trainer.train()
     assert trainer.timer.measured_steps == 3  # 4 steps, the first one warms up
     assert result["step_time_ms"] >= 0.9 * 2 * 150
