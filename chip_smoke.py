@@ -23,7 +23,14 @@ Phases, each printing one JSON line; any failure raises, so the exit code is not
    [2,1024,8*128] tensors through ``flash_attention_merged``, MHA and GQA 8/2.
    The CE's table is scaled for a peaked softmax and its upstream gradient differs
    per row, so a kernel that loses a vocab split or a row's weight fails. Median
-   CUDA-event times over 20 runs of kernel and plain.
+   CUDA-event times over 20 runs of kernel and plain; beside them each timed case's
+   bound (the larger of its bf16 operations over 989 TFLOP/s and its bytes, inputs read
+   once and outputs written once, over 3.35 TB/s, the H100 SXM's published peaks;
+   masked (query, key) pairs are not counted) and the time of the one PyTorch call that
+   computes the same function (scaled_dot_product_attention and its autograd
+   backward, with the backend that ran; F.layer_norm and its backward; F.linear +
+   F.cross_entropy and its backward to the hidden states), a yardstick the port never
+   calls.
 3. serve: VQAService at full width (SigLIP ViT-L/16-384, 24 layers; projector
    1024 -> 10240 -> 1152; Gemma3-1B, 26 layers, vocab 262,144) from seeded random
    weights, 16 client threads x 2 requests, batch 8, 3 beams; K1-K3's launch counts
@@ -57,7 +64,8 @@ Phases, each printing one JSON line; any failure raises, so the exit code is not
    biases, whose gradient is zero in exact arithmetic: there the kernel path's largest
    gradient norm (rounding noise) must stay within 3x the plain path's.
 
-The second-to-last line is {"kernels": [...]}; the last is
+The second-to-last line is {"kernels": [...]} (name, route, source, replaces, launches
+on the main path, max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms); the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Needs no network and no model snapshot; imports nothing of JAX.
 """
@@ -135,6 +143,132 @@ def compare_rel(name, got, ref) -> float:
     if not err <= REL_BWD * scale:
         raise AssertionError(f"{name}: max abs err {err:.4g} > {REL_BWD} x max|ref| {scale:.4g}")
     return err
+
+
+# ------------------------------------------------------------- bounds and library calls
+
+PEAK_BF16_OPS = 989e12  # NVIDIA H100 SXM data sheet: dense bf16 tensor-core operations / s
+PEAK_BYTES = 3.35e12    # and bytes / s of its device memory
+
+
+def bound(ops: float, nbytes: float):
+    """(bound_ms, bound_by): the least time the card could take for `ops` bf16
+    tensor-core operations on `nbytes` of inputs read once and outputs written once."""
+    by_ops, by_bytes = ops / PEAK_BF16_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+
+
+def _attn_bytes(b, t, hq, hkv, d, q_like: int, kv_like: int, rows_f32: int):
+    """bf16 tensors shaped like q (q_like of them) and like k (kv_like), fp32 [B, Hq, T]
+    row statistics (rows_f32)."""
+    return 2 * b * t * d * (q_like * hq + kv_like * hkv) + 4 * b * hq * t * rows_f32
+
+
+def bound_flash_fwd(b, t, hq, hkv, d, pairs=None):
+    """K1: S = Q K^T and O = P V, 2 products of 2 * pairs * D operations a head; `pairs`
+    counts the unmasked (query, key) pairs over the batch (default: all B * T * T)."""
+    pairs = b * t * t if pairs is None else pairs
+    return bound(4 * hq * pairs * d, _attn_bytes(b, t, hq, hkv, d, 2, 2, 1))
+
+
+def bound_flash_bwd_dkv(b, t, hq, hkv, d, pairs=None):
+    """K4: S again, dP = dO V^T, dV = P^T dO, dK = dS^T Q: 4 products. Reads q, dO, k, v,
+    lse, delta; writes dk, dv."""
+    pairs = b * t * t if pairs is None else pairs
+    return bound(8 * hq * pairs * d, _attn_bytes(b, t, hq, hkv, d, 2, 4, 2))
+
+
+def bound_flash_bwd_dq(b, t, hq, hkv, d, pairs=None):
+    """K5: S again, dP, dQ = dS K: 3 products. Reads q, dO, k, v, lse, delta; writes dq."""
+    pairs = b * t * t if pairs is None else pairs
+    return bound(6 * hq * pairs * d, _attn_bytes(b, t, hq, hkv, d, 3, 2, 2))
+
+
+def bound_layernorm_fwd(n, d):
+    """K2: x read, y written (bf16), scale and bias read."""
+    return bound(0, 2 * (2 * n * d + 2 * d))
+
+
+def bound_layernorm_bwd(n, d):
+    """K8: x and dy read, dx written (bf16), scale read, dscale and dbias written."""
+    return bound(0, 2 * (3 * n * d + 3 * d))
+
+
+def bound_decode_attn(b, nb, hq, hkv, p, g, d, live_keys=None):
+    """K3: one query row a beam over [prefix; generated]: both caches read once, q read,
+    out written; 2 products over the live keys of each row."""
+    rows = b * nb
+    live = rows * (p + g) if live_keys is None else live_keys
+    nbytes = 2 * (2 * b * hkv * p * d + 2 * rows * hkv * g * d + 2 * rows * hq * d) + 4 * b * p
+    return bound(4 * hq * live * d, nbytes)
+
+
+def bound_fused_ce_fwd(n, v, d):
+    """K6: the logits product, 2 N V D operations; hidden, table, labels read, lse and
+    nll written."""
+    return bound(2 * n * v * d, 2 * (n + v) * d + 4 * n * 3)
+
+
+def bound_fused_ce_bwd(n, v, d):
+    """K7: the logits again and dh = Q W, 4 N V D operations; hidden, table, labels, lse
+    and g read, dh written in fp32."""
+    return bound(4 * n * v * d, 2 * (n + v) * d + 4 * n * 3 + 4 * n * d)
+
+
+def attention_mask(t, *, causal, window, kv_mask):
+    """The attention kernels' masks as one bool [B, 1, T, T] tensor (true = the query
+    sees the key): what the library call is given, and what live_pairs counts."""
+    import torch
+
+    i = torch.arange(t, device="cuda")
+    ok = torch.ones((t, t), dtype=torch.bool, device="cuda")
+    if causal:
+        ok &= i[None, :] <= i[:, None]
+    if window is not None:
+        ok &= i[:, None] - i[None, :] < window
+    return (ok[None] & kv_mask.bool()[:, None, :])[:, None]
+
+
+def live_pairs(mask) -> int:
+    """Unmasked (query, key) pairs over the batch."""
+    return int(mask.sum())
+
+
+def sdpa_library(q, k, v, *, scale, causal=False, mask=None):
+    """F.scaled_dot_product_attention on [B, T, H, D] tensors (a yardstick only: the
+    port never calls it) -> (fn, name of the backend that ran): the fused backends
+    are tried in turn, the math backend last."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    gqa = q.shape[2] != k.shape[2]
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.MATH):
+        def fn(backend=backend):
+            with sdpa_kernel(backend):
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+                    scale=scale, enable_gqa=gqa)
+        try:
+            fn()
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        return fn, backend.name
+    raise AssertionError("no scaled_dot_product_attention backend took these inputs")
+
+
+def sdpa_library_bwd(q, k, v, do, **kw):
+    """The autograd backward of that call (dq, dk, dv together) -> (fn, backend)."""
+    import torch
+
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    fwd, name = sdpa_library(*leaves, **kw)
+    out = fwd()
+    dout = do.transpose(1, 2)
+    return (lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)), name
 
 
 # ---------------------------------------------------------------------------- phase 0
@@ -234,6 +368,7 @@ def counters():
 
 def phase_kernels():
     import torch
+    import torch.nn.functional as F
 
     from projectiontrainer_tpu_torch.ops import decode_attention as DA
     from projectiontrainer_tpu_torch.ops import flash_attention as FA
@@ -242,9 +377,11 @@ def phase_kernels():
     rng = np.random.default_rng(SEED)
     results = {name: [] for name in KERNELS}
 
-    def record(kernel, case, err, ms, plain_ms):
+    def record(kernel, case, err, ms, plain_ms, bound=(None, None), library_ms=None,
+               library=None):
         row = {"kernel": kernel, "case": case, "max_abs_err": err, "ms": ms,
-               "plain_ms": plain_ms}
+               "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+               "library_ms": library_ms, "library": library}
         results[kernel].append(row)
         emit({"phase": 2, **row})
 
@@ -255,7 +392,9 @@ def phase_kernels():
     ref = FLN.layernorm_reference({k: v.float() for k, v in p.items()}, x.float())
     record("layernorm_fwd", "[4608,1024]", compare("layernorm", got, ref),
            cuda_ms(lambda: FLN.layernorm(p, x)),
-           cuda_ms(lambda: FLN.layernorm_reference(p, x)))
+           cuda_ms(lambda: FLN.layernorm_reference(p, x)), bound_layernorm_fwd(4608, 1024),
+           cuda_ms(lambda: F.layer_norm(x, (1024,), p["scale"], p["bias"], 1e-6)),
+           "F.layer_norm")
 
     # K1: tower shape, non-causal, unmasked
     q, k, v = (_bf16(rng, (8, 576, 16, 64)) for _ in range(3))
@@ -263,9 +402,11 @@ def phase_kernels():
     ref, ref_lse = FA.flash_attention_reference(q.float(), k.float(), v.float())
     err = compare("flash tower out", out, ref)
     compare("flash tower lse", lse, ref_lse)
+    lib, backend = sdpa_library(q, k, v, scale=64 ** -0.5)
     record("flash_attn_fwd", "tower [8,576,16,64]", err,
            cuda_ms(lambda: FA.flash_attention(q, k, v)),
-           cuda_ms(lambda: FA.flash_attention_reference(q, k, v)))
+           cuda_ms(lambda: FA.flash_attention_reference(q, k, v)),
+           bound_flash_fwd(8, 576, 16, 16, 64), cuda_ms(lib), f"SDPA {backend}")
 
     # K1: Gemma prefill shape, causal, GQA 4/1, ragged left padding, window 512 / none
     q = _bf16(rng, (8, 831, 4, 256))
@@ -281,9 +422,13 @@ def phase_kernels():
         for i, n in enumerate(pads):
             if n and bool(out[i, :n].ne(0).any()):
                 raise AssertionError(f"flash prefill: left-pad rows of batch {i} are not 0")
+        seen = attention_mask(831, causal=True, window=window, kv_mask=mask)
+        lib, backend = sdpa_library(q, k, v, scale=kw["scale"], mask=seen)
         record("flash_attn_fwd", f"prefill [8,831,4|1,256] causal window={window}", err,
                cuda_ms(lambda: FA.flash_attention(q, k, v, **kw)),
-               cuda_ms(lambda: FA.flash_attention_reference(q, k, v, **kw)))
+               cuda_ms(lambda: FA.flash_attention_reference(q, k, v, **kw)),
+               bound_flash_fwd(8, 831, 4, 1, 256, live_pairs(seen)),
+               cuda_ms(lib), f"SDPA {backend}, explicit mask")
 
     # K3: split-cache decode, B=8, 3 beams, P=831, G=32
     b, nb, p_len, g = 8, 3, 831, 32
@@ -298,10 +443,24 @@ def phase_kernels():
             got = DA.decode_attention(qd, kp, vp, kg, vg, **kw)
             ref = DA.decode_attention_reference(*(x.float() for x in (qd, kp, vp, kg, vg)),
                                                 **kw)
+            # the library call: SDPA over the concatenated caches (the prefix repeated
+            # per beam, outside the timed call) with the same masks as one bool tensor
+            live = pmask.bool().repeat_interleave(nb, 0)
+            gen = torch.arange(g, device="cuda") <= t
+            if window is not None:
+                live = live & (torch.arange(p_len, device="cuda") > p_len + t - window)
+                gen = gen & (torch.arange(g, device="cuda") > t - window)
+            live = torch.cat([live, gen[None].expand(b * nb, g)], dim=1)
+            k_cat = torch.cat([kp.repeat_interleave(nb, 0), kg], dim=2).transpose(1, 2)
+            v_cat = torch.cat([vp.repeat_interleave(nb, 0), vg], dim=2).transpose(1, 2)
+            lib, backend = sdpa_library(qd[:, None], k_cat, v_cat, scale=kw["scale"],
+                                        mask=live[:, None, None, :])
             record("decode_attn", f"B=8 nb=3 P=831 G=32 t={t} window={window}",
                    compare(f"decode t={t} window={window}", got, ref),
                    cuda_ms(lambda: DA.decode_attention(qd, kp, vp, kg, vg, **kw)),
-                   cuda_ms(lambda: DA.decode_attention_reference(qd, kp, vp, kg, vg, **kw)))
+                   cuda_ms(lambda: DA.decode_attention_reference(qd, kp, vp, kg, vg, **kw)),
+                   bound_decode_attn(b, nb, 4, 1, p_len, g, 256, int(live.sum())),
+                   cuda_ms(lib), f"SDPA {backend} over concatenated caches, explicit mask")
 
     # K4/K5: the decoder's attention backward at the stage-1 shape, B=4, T=575+512,
     # causal, captions right-padded to varied lengths, window 512 / none
@@ -322,11 +481,17 @@ def phase_kernels():
                                                       out.float(), lse, do.float(), **kw)
         case = f"decoder [4,1087,4|1,256] causal window={window} right-padded captions"
         plain = cuda_ms(lambda: FA.flash_attention_bwd_reference(q, k, v, mask, out, lse, do, **kw))
+        seen = attention_mask(t, causal=True, window=window, kv_mask=mask)
+        pairs = live_pairs(seen)
+        lib, backend = sdpa_library_bwd(q, k, v, do, scale=kw["scale"], mask=seen)
+        library = (cuda_ms(lib), f"SDPA {backend} backward (dq, dk, dv together), explicit mask")
         record("flash_attn_bwd_dkv", case,
                max(compare_rel("flash bwd dk", dk, rk), compare_rel("flash bwd dv", dv, rv)),
-               cuda_ms(lambda: FA.launch_bwd_dkv(*args, **kw)), plain)
+               cuda_ms(lambda: FA.launch_bwd_dkv(*args, **kw)), plain,
+               bound_flash_bwd_dkv(b, t, 4, 1, 256, pairs), *library)
         record("flash_attn_bwd_dq", case, compare_rel("flash bwd dq", dq, rq),
-               cuda_ms(lambda: FA.launch_bwd_dq(*args, **kw)), plain)
+               cuda_ms(lambda: FA.launch_bwd_dq(*args, **kw)), plain,
+               bound_flash_bwd_dq(b, t, 4, 1, 256, pairs), *library)
 
     check_fused_ce(rng, record)
     check_stage0_kernels(rng, record)
@@ -336,8 +501,9 @@ def phase_kernels():
 
 def check_stage0_kernels(rng, record):
     """The stage-0 shapes (so400m: head dim 72, 1152-wide rows) and the merged-lane
-    layout; record(kernel, case, err, ms, plain_ms)."""
+    layout; record(kernel, case, err, ms, plain_ms, bound, library_ms, library)."""
     import torch
+    import torch.nn.functional as F
 
     from projectiontrainer_tpu_torch.ops import flash_attention as FA
     from projectiontrainer_tpu_torch.ops import fused_layernorm as FLN
@@ -349,9 +515,11 @@ def check_stage0_kernels(rng, record):
         ref, ref_lse = FA.flash_attention_reference(q.float(), k.float(), v.float())
         err = compare(f"flash {name} d72 out", out, ref)
         compare(f"flash {name} d72 lse", lse, ref_lse)
+        lib, backend = sdpa_library(q, k, v, scale=72 ** -0.5)
         record("flash_attn_fwd", f"{name} [16,{t},16,72]", err,
                cuda_ms(lambda: FA.flash_attention(q, k, v)),
-               cuda_ms(lambda: FA.flash_attention_reference(q, k, v)))
+               cuda_ms(lambda: FA.flash_attention_reference(q, k, v)),
+               bound_flash_fwd(16, t, 16, 16, 72), cuda_ms(lib), f"SDPA {backend}")
 
     # K4/K5 at head dim 72 over the vision tower
     q, k, v, do = (_bf16(rng, (16, 1024, 16, 72)) for _ in range(4))
@@ -365,12 +533,16 @@ def check_stage0_kernels(rng, record):
                                                   out.float(), lse, do.float(), **kw)
     plain = cuda_ms(lambda: FA.flash_attention_bwd_reference(q, k, v, None, out, lse, do, **kw))
     case = "vision [16,1024,16,72] non-causal"
+    lib, backend = sdpa_library_bwd(q, k, v, do, scale=kw["scale"])
+    library = (cuda_ms(lib), f"SDPA {backend} backward (dq, dk, dv together)")
     record("flash_attn_bwd_dkv", case,
            max(compare_rel("flash d72 bwd dk", dk, rk), compare_rel("flash d72 bwd dv", dv, rv)),
-           cuda_ms(lambda: FA.launch_bwd_dkv(*args, **kw)), plain)
+           cuda_ms(lambda: FA.launch_bwd_dkv(*args, **kw)), plain,
+           bound_flash_bwd_dkv(16, 1024, 16, 16, 72), *library)
     record("flash_attn_bwd_dq", case, compare_rel("flash d72 bwd dq", dq, rq),
-           cuda_ms(lambda: FA.launch_bwd_dq(*args, **kw)), plain)
-    del q, k, v, do, out, lse, delta, dq, dk, dv, rq, rk, rv
+           cuda_ms(lambda: FA.launch_bwd_dq(*args, **kw)), plain,
+           bound_flash_bwd_dq(16, 1024, 16, 16, 72), *library)
+    del q, k, v, do, out, lse, delta, dq, dk, dv, rq, rk, rv, lib
     check_nearly_alike_tokens(rng)
 
     # K2 and K8 over the vision tower's rows; K8 also at a ragged row count
@@ -379,7 +551,9 @@ def check_stage0_kernels(rng, record):
     got = FLN.layernorm(p, x)
     ref = FLN.layernorm_reference({k: v.float() for k, v in p.items()}, x.float())
     record("layernorm_fwd", "vision rows [16384,1152]", compare("layernorm 1152", got, ref),
-           cuda_ms(lambda: FLN.layernorm(p, x)), cuda_ms(lambda: FLN.layernorm_reference(p, x)))
+           cuda_ms(lambda: FLN.layernorm(p, x)), cuda_ms(lambda: FLN.layernorm_reference(p, x)),
+           bound_layernorm_fwd(16384, 1152),
+           cuda_ms(lambda: F.layer_norm(x, (1152,), p["scale"], p["bias"], 1e-6)), "F.layer_norm")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for n, want_ragged in ((16384, False), (16383, True), (1001, True), (1000, False),
                            (529, True)):
@@ -395,9 +569,15 @@ def check_stage0_kernels(rng, record):
                   for part, a, b in zip(("dx", "dscale", "dbias"), got, ref))
         case = f"[{n},1152]" + (f" ragged: last of {programs} programs holds "
                                 f"{n - rows * (programs - 1)} of {rows} rows" if ragged else "")
+        leaves = [x2.detach().requires_grad_(True), p["scale"].detach().requires_grad_(True),
+                  p["bias"].detach().requires_grad_(True)]
+        y = F.layer_norm(leaves[0], (1152,), leaves[1], leaves[2], 1e-6)
         record("layernorm_bwd", case, err,
                cuda_ms(lambda: FLN.layernorm_bwd(x2, dy, p["scale"], 1e-6)),
-               cuda_ms(lambda: FLN.layernorm_bwd_reference(x2, dy, p["scale"], 1e-6)))
+               cuda_ms(lambda: FLN.layernorm_bwd_reference(x2, dy, p["scale"], 1e-6)),
+               bound_layernorm_bwd(n, 1152),
+               cuda_ms(lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True)),
+               "F.layer_norm backward (dx, dscale, dbias)")
 
     # rows 4-6: the merged-lane layout [B, T, H*D] through the same kernels, as views
     from projectiontrainer_tpu_torch.ops.attention import dot_product_attention
@@ -413,10 +593,13 @@ def check_stage0_kernels(rng, record):
         ref = dot_product_attention(*views).reshape(out.shape)
         refs = torch.autograd.grad(ref, views, g.float())
         case = f"merged [2,1024,8*128] kv heads {hkv}"
+        lib, backend = sdpa_library(*(x.detach().view(2, 1024, -1, 128) for x in (qm, km, vm)),
+                                    scale=128 ** -0.5)
         record("flash_attn_fwd", case, compare(f"flash merged kv={hkv} out", out, ref),
                cuda_ms(lambda: FA.flash_attention_merged(qm, km, vm, heads=8, kv_heads=hkv)),
                cuda_ms(lambda: dot_product_attention(*(x.view(2, 1024, -1, 128)
-                                                       for x in (qm, km, vm)))))
+                                                       for x in (qm, km, vm)))),
+               bound_flash_fwd(2, 1024, 8, hkv, 128), cuda_ms(lib), f"SDPA {backend}")
         errs = [compare_rel(f"flash merged kv={hkv} d{n}", a.reshape(b.shape), b)
                 for n, a, b in zip("qkv", grads, refs)]
         record("flash_attn_bwd_dq", case, errs[0], None, None)
@@ -458,8 +641,11 @@ def check_nearly_alike_tokens(rng):
 
 
 def check_fused_ce(rng, record):
-    """K6/K7 against their plain versions; record(kernel, case, err, ms, plain_ms)."""
+    """K6/K7 against their plain versions and beside the library call (F.linear +
+    F.cross_entropy on bf16 logits, and its autograd backward to the hidden states);
+    record(kernel, case, err, ms, plain_ms, bound, library_ms, library)."""
     import torch
+    import torch.nn.functional as F
 
     from projectiontrainer_tpu_torch.ops import fused_ce as CE
 
@@ -482,8 +668,11 @@ def check_fused_ce(rng, record):
     rlse, rnll = CE.fused_ce_reference(h.float(), table.float(), safe)
     err = max(compare("fused ce lse", lse, rlse, atol=CE_ATOL, rtol=0),
               compare("fused ce nll", nll[valid], rnll[valid], atol=CE_ATOL, rtol=0))
+    long_labels = safe.long()
     record("fused_ce_fwd", case, err, cuda_ms(lambda: CE.fused_ce_fwd(h, table, safe)),
-           cuda_ms(lambda: CE.fused_ce_reference(h, table, safe)))
+           cuda_ms(lambda: CE.fused_ce_reference(h, table, safe)), bound_fused_ce_fwd(n, vocab, d),
+           cuda_ms(lambda: F.cross_entropy(F.linear(h, table), long_labels, reduction="none")),
+           "F.linear + F.cross_entropy(reduction='none'), bf16 logits")
     dh = CE.fused_ce_bwd(h, table, safe, lse, g)
     rdh = CE.fused_ce_bwd_reference(h.float(), table.float(), safe, rlse, g)
     # the softmax part g * sum_v p_v W_v on its own: the one-hot term -g * W[label]
@@ -493,9 +682,15 @@ def check_fused_ce(rng, record):
               compare_rel("fused ce dh softmax part", dh + onehot, rdh + onehot))
     if bool(dh[~valid].ne(0).any()):
         raise AssertionError("fused ce dh: an ignored position got a gradient")
+    hg = h.detach().requires_grad_(True)
+    lib_nll = F.cross_entropy(F.linear(hg, table), long_labels, reduction="none")
+    lib_g = g.to(lib_nll.dtype)
     record("fused_ce_bwd", case, err,
            cuda_ms(lambda: CE.fused_ce_bwd(h, table, safe, lse, g)),
-           cuda_ms(lambda: CE.fused_ce_bwd_reference(h, table, safe, lse, g)))
+           cuda_ms(lambda: CE.fused_ce_bwd_reference(h, table, safe, lse, g)),
+           bound_fused_ce_bwd(n, vocab, d),
+           cuda_ms(lambda: torch.autograd.grad(lib_nll, hg, lib_g, retain_graph=True)),
+           "autograd backward of F.linear + F.cross_entropy to the hidden states")
 
 
 # ---------------------------------------------------------------------------- phase 3
@@ -1002,6 +1197,8 @@ def main() -> int:
                         "launches": by_path[main_path], "launches_by_path": by_path,
                         "max_abs_err": max(r["max_abs_err"] for r in rows),
                         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+                        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+                        "library_ms": main_row["library_ms"], "library": main_row["library"],
                         "timed_case": main_row["case"]})
     emit({"kernels": kernels})
     emit({"ok": True, "device": device})

@@ -18,7 +18,7 @@ import time
 import numpy as np
 import torch
 
-from projectiontrainer_tpu.data.bucketing import DEFAULT_Q_BUCKETS, bucket_for, buckets_covering
+from projectiontrainer_tpu_torch.data.bucketing import DEFAULT_Q_BUCKETS, bucket_for, buckets_covering
 from projectiontrainer_tpu_torch.generate import GenerationConfig, generate
 from projectiontrainer_tpu_torch.models import vlm
 from projectiontrainer_tpu_torch.train import setup
@@ -115,7 +115,7 @@ def generate_answers(pixels, q_tok, vlm_cfg, params, tokenizer, *, max_q_len, ge
 def answer_batch(samples, vlm_cfg, params, tokenizer, *, image_root, image_root_2,
                  img_size, max_q_len, gen_cfg):
     """samples: list of {'image', 'problem'} -> generated answer strings."""
-    from projectiontrainer_tpu.data import image as I  # PIL: image intake only
+    from projectiontrainer_tpu_torch.data import image as I  # PIL: image intake only
 
     pixels = np.stack([
         I.preprocess(I.load_image(I.resolve_image_path(s["image"], image_root,

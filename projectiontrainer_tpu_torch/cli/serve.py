@@ -35,8 +35,8 @@ from collections import deque
 import numpy as np
 import torch
 
-from projectiontrainer_tpu.data.bucketing import DEFAULT_Q_BUCKETS, buckets_covering
 from projectiontrainer_tpu_torch.cli import infer_vqa_stage2 as vqa
+from projectiontrainer_tpu_torch.data.bucketing import DEFAULT_Q_BUCKETS, buckets_covering
 from projectiontrainer_tpu_torch.utils.logging import setup_logging
 
 
@@ -122,7 +122,7 @@ class VQAService:
     # ---------------------------------------------------------------- request prep
 
     def preprocess(self, body: dict) -> Request:
-        from projectiontrainer_tpu.data import image as I  # PIL: image intake only
+        from projectiontrainer_tpu_torch.data import image as I  # PIL: image intake only
 
         if "image" in body:
             from PIL import Image

@@ -11,14 +11,14 @@ compute (``--mixed_precision``); the text tower is stored in the compute type wh
 it is frozen (``--freeze_text_encoder``, the default).
 
 Not ported yet, and refused: ``--mesh_data``/``--mesh_model`` above 1 and ``--fsdp``
-(multi-device runs).
+(multi-device runs), and ``--use_online_augmentation``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from projectiontrainer_tpu.data import datasets
+from projectiontrainer_tpu_torch.data import datasets
 from projectiontrainer_tpu_torch.checkpoint import hf_import
 from projectiontrainer_tpu_torch.core import dtypes
 from projectiontrainer_tpu_torch.core.config import Stage0Config, from_args, parser_for
@@ -31,6 +31,9 @@ def check_supported(cfg) -> None:
     if cfg.mesh_data > 1 or cfg.mesh_model > 1 or cfg.fsdp:
         raise NotImplementedError("--mesh_data/--mesh_model above 1 and --fsdp: "
                                   "multi-device training is not ported")
+    if cfg.use_online_augmentation:
+        raise NotImplementedError("--use_online_augmentation: the JAX package's native "
+                                  "augmentation pass is not ported")
 
 
 def main(argv=None):

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from projectiontrainer_tpu.data import datasets
+from projectiontrainer_tpu_torch.data import datasets
 from projectiontrainer_tpu_torch.core.config import Stage1Config, from_args, parser_for
 from projectiontrainer_tpu_torch.train import setup
 from projectiontrainer_tpu_torch.train.trainer_stage1 import Stage1Trainer

@@ -6,219 +6,282 @@
 //   forward   lse[t] = logsumexp_v(h[t] . W[v] * scale) (online over vocab tiles),
 //             picked[t] = h[t] . W[label[t]] * scale, nll = lse - picked;
 //   backward  dh[t] = sum_v (softmax[t, v] - onehot[t, v]) * g[t] * W[v], fp32, the
-//             (softmax - onehot) * g factor rounded to the input type before its
-//             product, as the TPU kernel does; `* scale` and the downcast stay outside.
-// The padded vocab tail is masked (logit NEG_INF, probability 0) and its table rows are
-// zero-filled on load, so no garbage reaches an accumulator (the TPU kernel masks them
-// because 0 * NaN would poison its sum). Ignored labels arrive as a dummy 0 and are
-// masked by the caller.
+//             (softmax - onehot) * g factor rounded to bf16 before its product, as the
+//             TPU kernel does; `* scale` and the downcast stay outside.
+// The vocab tail past V is masked (probability 0) and its table rows are zero-filled by
+// the TMA unit, as are the token rows past N, so nothing out of bounds reaches a sum.
+// Ignored labels arrive as a dummy 0 with g = 0. Deterministic: every sum has a fixed
+// order (each scratch element is owned by one thread; splits are combined in order).
 //
-// What bounds it on the H100: 2 * N * D * V flops per pass (1.24 TFLOP forward at
-// N = 2048, D = 1152, V = 262,144; the backward does it twice), against one sweep of
-// the 604 MB bf16 table per 64-token tile: compute-bound when the token tiles that
-// sweep the same vocab range hit the table in L2 together.
+// What bounds it on the H100: the tensor cores. 2 * N * D * V operations forward
+// (1.24e12 at N = 2048, D = 1152, V = 262,144: 1.25 ms at 989 TFLOP/s) and twice that
+// backward (the logits again, then dh = Q . W: 2.50 ms), against 0.18 ms for one read
+// of the 604 MB table. What the design has to watch is the traffic from L2 to the SMs,
+// since every token tile sweeps the whole table.
 //
-// Design:
-// - One CTA of 8 warps per (64-token tile, vocab split). The 64 x D bf16 hidden tile
-//   stays in shared memory for the whole sweep (148 KB at D = 1152, rows padded by 8
-//   elements against bank conflicts); the table streams through a two-buffer ring of
-//   [128 vocab, 64 d] chunks filled by cp.async, so the copy of the next chunk runs
-//   under the tensor-core work on the current one (one barrier per chunk). Each
-//   64 x 128 logit tile is accumulated in WMMA fragments over the D chunks, then
-//   spilled once to shared memory for the row-wise work.
-// - Occupancy: 2048 tokens are 32 token tiles for 132 SMs, so the vocab is split
-//   across CTAs (the wrapper picks the split count from the SM count). Split CTAs of
-//   one vocab range are launched next to each other (token tile is the fastest grid
-//   dimension), so they read the same table chunks at nearly the same time.
-// - Forward: each CTA keeps a running (max, sum-exp, picked) per row in registers and
-//   writes it per split; a second small kernel combines the splits into lse and nll.
-// - Backward: dh is 64 x D fp32 per token tile (295 KB at D = 1152), which fits
-//   neither shared memory nor the registers of one CTA. Each CTA therefore keeps its
-//   (split, token tile) slab of dh in device memory, L2-resident (37.7 MB at the
-//   slice's shape with 4 splits), and after each vocab tile's logits sweeps the same
-//   table chunks a second time, adding (P - onehot) * g @ W into the slab chunk by
-//   chunk in fragments (one warp owns each 16 x 16 tile, so no atomics; the
-//   fragments' loads start before the barrier that waits for the chunk). A
-//   second small kernel sums the splits. The choice trades dh traffic through L2 for
-//   no logit recomputation (the other option, splitting D across CTAs, recomputes
-//   every logit once per D part).
+// Design (both kernels): a grid of (token tile of 128, vocab split) CTAs, one per SM,
+// token tile fastest so that the CTAs of one vocab range run together and find the
+// table in L2. A CTA is one producer warp and two consumer warpgroups of 64 token rows
+// each (setmaxnreg moves the producer's registers to the consumers). One producer
+// thread keeps TMA loads (128-byte swizzle) in flight into a ring of shared-memory
+// stages; each stage has a "full" mbarrier that the TMA unit completes and an "empty"
+// one on which the consumer warps arrive once their wgmma reads of it have finished.
+// There is no block-wide barrier after the set-up. The consumers run
+// wgmma.mma_async (bf16 in, fp32 accumulators in registers) and do the row-wise work
+// on the accumulators in registers: a row lives in the 4 lanes of a quad, so its max
+// and sum are two shuffles.
 //
-// Left for later PRs: TMA and wgmma, a deeper ring, and hidden sizes above 1216 (the
-// resident hidden tile bounds D by shared memory).
+// Forward: tiles of 128 tokens x 256 vocab; a stage is one 64-wide slice of D (hidden
+// [128 x 64] + table [256 x 64], 48 KB, 4 stages). The hidden tile no longer stays in
+// shared memory, so D is bounded only by being a multiple of 64. Each thread keeps the
+// running (max, sum-exp, picked) of its two rows; a second small kernel combines the
+// splits into lse and nll. L2 -> SM traffic a pass: 16 token tiles x (604 MB of table
+// + 302 MB of hidden slices) = 14.5 GB (the WMMA version it replaces: 19.3 GB).
+//
+// Backward, per vocab range of 512 rows, in two phases over one ring of 32 KB stages (3):
+//   1. logits: four sub-tiles of 128 vocab rows, each a sweep over D as in the forward
+//      (stage: hidden [128 x 64] + table [128 x 64]); Q = (softmax - onehot) * g goes
+//      from the accumulators to shared memory as bf16, in the swizzled K-major layout
+//      wgmma reads as its A operand ([128 tokens x 512 vocab], 128 KB; each warpgroup
+//      writes and reads only its own 64 rows).
+//   2. dh: for each 128-wide slice of D, acc[64 x 128] = Q . W over the range's 512
+//      vocab rows (stage: table [128 vocab x 128 d] as two TMA boxes; the same swizzled
+//      tile read as an MN-major B operand, wgmma's transposed-B form, so no transposed
+//      copy of the table exists), then added into the CTA's own fp32 slab of dh in
+//      device memory with red.global.add: no read latency on the path, and still
+//      deterministic, since every slab element is touched by one thread in program
+//      order. A second small kernel sums the splits' slabs in order.
+//   dh for 128 tokens x D is 590 KB of fp32 and fits neither registers (64K a SM) nor
+//   shared memory, hence the slab; building Q for 512 vocab rows before touching it
+//   cuts its traffic to one pass per 512 rows: 512 ranges x 2048 x D x 4 B = 4.8 GB of
+//   reductions a pass (the version it replaces: 38.7 GB of reads and writes, once per
+//   128 rows). L2 -> SM traffic a pass: table 2 x 9.7 GB (once per phase), hidden slices
+//   9.7 GB, slab 4.8 GB: 33.8 GB (the version it replaces: 38.6 GB of table + 38.7 GB
+//   of slab).
+//   What bounds the backward now is that slab: the 128 CTAs' slabs are 75 MB, more than
+//   the 50 MB of L2, so each reduction misses and the 4.8 GB go to device memory and
+//   back (9.7 GB, 2.9 ms at 3.35 TB/s), and that time adds to the products' instead of
+//   hiding under them (with the slab updates left out the kernel takes 4.3 ms, with
+//   them 7.1-7.5 ms; at D = 576 and 384, where the slabs are 38 and 25 MB, the backward
+//   takes 2.9 and 2.1 times the forward's time, against 4.2 times at D = 1152). Tried
+//   on the card and taken out again: a range of 640 to 1024 with the extra sub-tiles
+//   of Q kept in registers as wgmma's A operand (6.4 ms at 768 and 8.2 ms at 1024, with
+//   spills and wgmma serialized for lack of registers, and wrong numbers at 640 that
+//   were not traced), and, none of them faster, L2 eviction hints on the slab,
+//   odd splits shifted by half a range, the slab updates placed between the next
+//   slice's stages, a read-modify-write with the loads started before the products, and
+//   clusters of 2 or 4 CTAs that share a token tile, pass Q to each other through
+//   distributed shared memory and keep 1/2 or 1/4 of dh each (right at every shape,
+//   8.2-8.7 and 16.7 ms: two cluster-wide waits a range and 64-wide products cost more
+//   than the smaller slabs save). A range of 1024 in shared memory needs 256 KB for Q
+//   at 128 tokens, or 64-token tiles, which double the table's traffic.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+#include <dlfcn.h>
 #include <stdint.h>
 
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include "wgmma_sm90.cuh"
+
+using namespace sm90;
 
 namespace {
 
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int BN = 64;           // tokens per CTA
-constexpr int BV = 128;          // vocab rows per tile
-constexpr int DK = 64;           // hidden columns per table chunk
-constexpr int LDW = DK + 8;      // padded row of a table chunk
-constexpr int LDQ = BV + 8;      // padded row of the bf16 (P - onehot) * g tile
-constexpr int ROWS_PER_WARP = BN / WARPS;  // 8
+constexpr int BM = 128;          // tokens per CTA: two consumer warpgroups of 64 rows
+constexpr int DK = 64;           // columns of D per stage of a logits sweep (128-byte rows)
+constexpr int BOX = 128;         // rows of every TMA box (both tensor maps: [128 rows x 64 cols])
+constexpr int BOX_BYTES = BOX * DK * 2;  // 16 KB
+constexpr int FWD_BV = 256;      // forward: vocab rows per tile
+constexpr int BWD_BV = 128;      // backward: vocab rows per logits sub-tile
+constexpr int SUBS = 4;          // backward: logits sub-tiles per vocab range
+constexpr int VW = SUBS * BWD_BV;  // backward: vocab rows per range (Q's width), 512
+constexpr int DN = 128;          // backward: columns of D per dh accumulator
+constexpr int THREADS = 384;     // warpgroups 0, 1: consumers; warpgroup 2: the producer warp
+constexpr int FWD_STAGES = 4, FWD_STAGE_BYTES = 3 * BOX_BYTES;
+constexpr int BWD_STAGE_BYTES = 2 * BOX_BYTES;
+constexpr int BWD_STAGES = 3;
+constexpr int Q_WG_BYTES = 64 * VW * 2;  // one warpgroup's Q: 8 blocks of [64 x 64] bf16
+constexpr int EMPTY_ARRIVALS = 8;        // lane 0 of each consumer warp
+constexpr size_t FWD_SMEM = FWD_STAGES * FWD_STAGE_BYTES + 1024 + 16 * FWD_STAGES;
+constexpr size_t BWD_SMEM = BWD_STAGES * BWD_STAGE_BYTES + 2 * Q_WG_BYTES + 1024 + 16 * BWD_STAGES;
+constexpr float NEG_BIG = -1e30f;
 constexpr float NEG_INF = -2.3819763e38f;
+constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
 
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
+static_assert(BWD_SMEM <= 232448 && FWD_SMEM <= 232448, "shared memory of one SM");
 
-size_t smem_bytes(int D) {
-  return (size_t)BN * (D + 8) * 2    // sH bf16 [BN][D + 8]
-         + (size_t)2 * BV * LDW * 2  // table ring bf16 2 x [BV][LDW]
-         + (size_t)BN * BV * 4       // sS fp32 [BN][BV]; the backward's sQ aliases it
-         + (size_t)BN * 4 * 3;       // labels, lse, g
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = pred ? 16 : 0;  // 0 source bytes: the 16 destination bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::);
-}
-
-// rows [n0, n0 + BN) of the [N, D] hidden states into sH (row stride D + 8), zero past N
-__device__ __forceinline__ void load_hidden(bf16* sH, const bf16* h, int n0, int N, int D) {
-  const int per_row = D / 8;
-  for (int i = threadIdx.x; i < BN * per_row; i += THREADS) {
-    const int r = i / per_row, c = (i % per_row) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (n0 + r < N) val = *reinterpret_cast<const uint4*>(h + (long long)(n0 + r) * D + c);
-    *reinterpret_cast<uint4*>(sH + r * (D + 8) + c) = val;
-  }
-}
-
-// start copying table rows [v0, v0 + BV), columns [c0, c0 + DK) into buf [BV][LDW];
-// rows past V are zero-filled
-__device__ __forceinline__ void start_table_chunk(bf16* buf, const bf16* w, int v0, int c0,
-                                                  int V, int D) {
-  constexpr int PER_ROW = DK / 8;
-  for (int i = threadIdx.x; i < BV * PER_ROW; i += THREADS) {
-    const int r = i / PER_ROW, c = (i % PER_ROW) * 8;
-    const bool live = v0 + r < V;
-    cp_async16(buf + r * LDW + c, live ? w + (long long)(v0 + r) * D + c0 + c : w, live);
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// acc[j] += sH[row : row + 16, c0 : c0 + DK] @ buf[col + 16 j : col + 16 j + 16, :]^T
-__device__ __forceinline__ void logits_chunk(Acc* acc, const bf16* sH, int ldh, const bf16* buf,
-                                             int c0, int row, int col) {
-#pragma unroll
-  for (int kk = 0; kk < DK / 16; ++kk) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-    wmma::load_matrix_sync(a, sH + row * ldh + c0 + kk * 16, ldh);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      // a chunk stored [BV][LDW] row-major is W^T [DK][BV] column-major
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bt;
-      wmma::load_matrix_sync(bt, buf + (col + 16 * j) * LDW + kk * 16, LDW);
-      wmma::mma_sync(acc[j], a, bt, acc[j]);
+// position in the ring: stage index and the parity of its current use
+struct Ring {
+  int stage = 0;
+  uint32_t phase = 0;
+  template <int STAGES>
+  __device__ __forceinline__ void advance() {
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1;
     }
   }
+};
+
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
 }
 
-__global__ void __launch_bounds__(THREADS)
-fused_ce_fwd_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
-                    const int* __restrict__ labels, float* __restrict__ part, int N, int V,
-                    int D, int n_pad, int tiles_per_split, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int ldh = D + 8;
-  bf16* sH = reinterpret_cast<bf16*>(smem);
-  bf16* ring = sH + BN * ldh;
-  float* sS = reinterpret_cast<float*>(ring + 2 * BV * LDW);
-  int* sLbl = reinterpret_cast<int*>(sS + BN * BV);
+template <int STAGES>
+__device__ __forceinline__ void init_ring(uint32_t full, uint32_t empty) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, EMPTY_ARRIVALS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+}
 
-  const int n0 = blockIdx.x * BN;
+// A consumer warpgroup's side of a sweep over stages: after the wgmmas of stage i are
+// committed, stage i - 1's have finished (one group stays in flight), so its buffer is
+// handed back to the producer; finish() drains and hands back the last.
+struct Release {
+  uint32_t pending = 0;  // "empty" barrier of the stage whose wgmmas are still running
+  __device__ __forceinline__ void committed(uint32_t empty_bar) {
+    if (pending) {
+      wgmma_wait<1>();
+      if (threadIdx.x % 32 == 0) mbar_arrive(pending);
+    }
+    pending = empty_bar;
+  }
+  __device__ __forceinline__ void finish() {
+    wgmma_wait<0>();
+    if (pending && threadIdx.x % 32 == 0) mbar_arrive(pending);
+    pending = 0;
+  }
+};
+
+// ------------------------------------------------------------------------ forward
+
+__global__ void __launch_bounds__(THREADS, 1)
+fused_ce_fwd_kernel(const __grid_constant__ CUtensorMap map_h,
+                    const __grid_constant__ CUtensorMap map_w, const int* __restrict__ labels,
+                    float* __restrict__ part, int N, int V, int D, int n_pad,
+                    int tiles_per_split, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  const uint32_t ring = smem_addr(smem);
+  const uint32_t full = ring + FWD_STAGES * FWD_STAGE_BYTES, empty = full + 8 * FWD_STAGES;
+  init_ring<FWD_STAGES>(full, empty);
+
+  const int n0 = blockIdx.x * BM;
   const int split = blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n_vtiles = (V + BV - 1) / BV;
+  const int n_vtiles = (V + FWD_BV - 1) / FWD_BV;
   const int vt_begin = split * tiles_per_split;
   const int vt_end = min(n_vtiles, vt_begin + tiles_per_split);
   const int n_chunks = D / DK;
-  const int total = (vt_end - vt_begin) * n_chunks;
-  const int row = 16 * (warp % 4), col = 64 * (warp / 4);  // this warp's logit tiles
+  const int wg = threadIdx.x / 128;
 
-  start_table_chunk(ring, w, vt_begin * BV, 0, V, D);
-  load_hidden(sH, h, n0, N, D);
-  for (int i = threadIdx.x; i < BN; i += THREADS) sLbl[i] = n0 + i < N ? labels[n0 + i] : -1;
-
-  // running max / sum-exp per row (every lane holds the row's value) and this lane's
-  // share of the picked logit
-  float m_run[ROWS_PER_WARP], l_run[ROWS_PER_WARP], pick[ROWS_PER_WARP];
-#pragma unroll
-  for (int r = 0; r < ROWS_PER_WARP; ++r) {
-    m_run[r] = NEG_INF;
-    l_run[r] = 0.f;
-    pick[r] = 0.f;
+  if (wg == 2) {
+    reg_dealloc<40>();
+    if (threadIdx.x != 256) return;
+    Ring r;
+    for (int vt = vt_begin; vt < vt_end; ++vt) {
+      const int v0 = vt * FWD_BV;
+      const bool two = v0 + BOX < V;  // else the second box lies wholly past V: not loaded
+      for (int c = 0; c < n_chunks; ++c) {
+        const uint32_t st = ring + r.stage * FWD_STAGE_BYTES, bar = full + 8 * r.stage;
+        mbar_wait(empty + 8 * r.stage, r.phase ^ 1);
+        mbar_expect_tx(bar, two ? 3 * BOX_BYTES : 2 * BOX_BYTES);
+        tma_load_2d(st, &map_h, bar, c * DK, n0);
+        tma_load_2d(st + BOX_BYTES, &map_w, bar, c * DK, v0);
+        if (two) tma_load_2d(st + 2 * BOX_BYTES, &map_w, bar, c * DK, v0 + BOX);
+        r.advance<FWD_STAGES>();
+      }
+    }
+    return;
   }
 
-  Acc acc[4];
-  for (int it = 0; it < total; ++it) {
-    const int c = it % n_chunks;
-    const int v0 = (vt_begin + it / n_chunks) * BV;
-    cp_async_wait_all();
-    __syncthreads();  // chunk `it` visible; every warp is done with chunk it - 1
-    if (it + 1 < total)
-      start_table_chunk(ring + ((it + 1) & 1) * BV * LDW, w,
-                        (vt_begin + (it + 1) / n_chunks) * BV, ((it + 1) % n_chunks) * DK, V, D);
-    if (c == 0) {
+  reg_alloc<232>();
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  const int row = n0 + wg * 64 + 16 * warp + lane / 4;  // this thread's rows: row, row + 8
+  const int col0 = 2 * (lane % 4);
+  const float sl2 = scale * LOG2E;  // logits in units of log2: exp(x) = exp2(x * log2 e)
+  int lbl[2];
+  float m_run[2], l_run[2], pick[2];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.f);
-    }
-    logits_chunk(acc, sH, ldh, ring + (it & 1) * BV * LDW, c * DK, row, col);
-    if (c < n_chunks - 1) continue;
+  for (int h = 0; h < 2; ++h) {
+    lbl[h] = row + 8 * h < N ? labels[row + 8 * h] : -1;
+    m_run[h] = NEG_BIG;
+    l_run[h] = 0.f;
+    pick[h] = 0.f;
+  }
 
+  Ring r;
+  Release rel;
+  float acc[FWD_BV / 2];
+  for (int vt = vt_begin; vt < vt_end; ++vt) {
+    for (int c = 0; c < n_chunks; ++c) {
+      const uint32_t st = ring + r.stage * FWD_STAGE_BYTES;
+      mbar_wait(full + 8 * r.stage, r.phase);
+      fence_regs(acc);
+      wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(sS + row * BV + col + 16 * j, acc[j], BV, wmma::mem_row_major);
-    __syncthreads();
+      for (int k = 0; k < DK / 16; ++k)
+        wgmma_m64n256k16<0>(acc, smem_desc(st + wg * 8192 + 32 * k, 16, 1024),
+                            smem_desc(st + BOX_BYTES + 32 * k, 16, 1024), (c | k) != 0);
+      wgmma_commit();
+      rel.committed(empty + 8 * r.stage);
+      r.advance<FWD_STAGES>();
+    }
+    rel.finish();
+    fence_regs(acc);
+
+    // online logsumexp over this tile; columns past V (garbage where the second box
+    // was not loaded) are replaced before any arithmetic touches them
+    const int v0 = vt * FWD_BV;
+    const int v_lim = V - v0;
 #pragma unroll
-    for (int r = 0; r < ROWS_PER_WARP; ++r) {
-      const int srow = warp * ROWS_PER_WARP + r;
-      const int lbl = sLbl[srow];
-      float x[BV / 32];
-      float mx = NEG_INF;
+    for (int h = 0; h < 2; ++h) {
+      const int want = lbl[h] - v0 - col0;  // the label's column, relative to this lane
+      float mx = NEG_BIG;
 #pragma unroll
-      for (int j = 0; j < BV / 32; ++j) {
-        const int vv = v0 + lane + 32 * j;
-        x[j] = vv < V ? sS[srow * BV + lane + 32 * j] * scale : NEG_INF;  // vocab tail
-        if (vv == lbl) pick[r] += x[j];
-        mx = fmaxf(mx, x[j]);
+      for (int j = 0; j < FWD_BV / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * h + e, c = 8 * j + e;  // column = col0 + c
+          if (c == want) pick[h] = acc[i];
+          const float x = col0 + c < v_lim ? acc[i] * sl2 : NEG_BIG;
+          acc[i] = x;
+          mx = fmaxf(mx, x);
+        }
       }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_run[r], mx);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_run[h], mx);
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < BV / 32; ++j) sum += v0 + lane + 32 * j < V ? expf(x[j] - m_new) : 0.f;
+      for (int j = 0; j < FWD_BV / 8; ++j) {
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l_run[r] = l_run[r] * expf(m_run[r] - m_new) + sum;
-      m_run[r] = m_new;
+        for (int e = 0; e < 2; ++e) sum += exp2f(acc[4 * j + 2 * h + e] - m_new);
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l_run[h] = l_run[h] * exp2f(m_run[h] - m_new) + sum;
+      m_run[h] = m_new;
     }
   }
 
   // this split's (max, sum-exp, picked) of each row: part [3][splits][n_pad]
   const long long plane = (long long)gridDim.y * n_pad;
 #pragma unroll
-  for (int r = 0; r < ROWS_PER_WARP; ++r) {
-    float p = pick[r];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) p += __shfl_xor_sync(0xffffffffu, p, off);
-    if (lane == 0) {
-      const long long i = (long long)split * n_pad + n0 + warp * ROWS_PER_WARP + r;
-      part[i] = m_run[r];
-      part[plane + i] = l_run[r];
-      part[2 * plane + i] = p;
+  for (int h = 0; h < 2; ++h) {
+    float p = pick[h];  // found by at most one lane of the quad
+    p += __shfl_xor_sync(0xffffffffu, p, 1);
+    p += __shfl_xor_sync(0xffffffffu, p, 2);
+    if (lane % 4 == 0) {
+      const long long i = (long long)split * n_pad + row + 8 * h;
+      part[i] = m_run[h] * LN2;
+      part[plane + i] = l_run[h];
+      part[2 * plane + i] = p * scale;
     }
   }
 }
@@ -241,116 +304,174 @@ __global__ void fused_ce_fwd_combine(const float* __restrict__ part, float* __re
   nll[n] = out - picked;
 }
 
-__global__ void __launch_bounds__(THREADS)
-fused_ce_bwd_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
-                    const int* __restrict__ labels, const float* __restrict__ lse,
-                    const float* __restrict__ g, float* __restrict__ part, int N, int V, int D,
-                    int n_pad, int tiles_per_split, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int ldh = D + 8;
-  bf16* sH = reinterpret_cast<bf16*>(smem);
-  bf16* ring = sH + BN * ldh;
-  float* sS = reinterpret_cast<float*>(ring + 2 * BV * LDW);
-  bf16* sQ = reinterpret_cast<bf16*>(sS);  // [BN][LDQ], written once sS has been read
-  int* sLbl = reinterpret_cast<int*>(sS + BN * BV);
-  float* sLse = reinterpret_cast<float*>(sLbl + BN);
-  float* sG = sLse + BN;
+// ----------------------------------------------------------------------- backward
 
-  const int n0 = blockIdx.x * BN;
-  const int split = blockIdx.y;
-  const int warp = threadIdx.x / 32;
-  const int n_vtiles = (V + BV - 1) / BV;
-  const int vt_begin = split * tiles_per_split;
-  const int vt_end = min(n_vtiles, vt_begin + tiles_per_split);
-  const int n_chunks = D / DK;
-  const int steps = 2 * n_chunks;  // per vocab tile: the logits sweep, then the dh sweep
-  const int total = (vt_end - vt_begin) * steps;
-  const int row = 16 * (warp % 4);
-  const int col = 64 * (warp / 4);   // logit tiles (4 of 16 columns)
-  const int dcol = 32 * (warp / 4);  // dh tiles of a chunk (2 of 16 columns)
-  float* slab = part + ((long long)split * n_pad + n0) * D;
-
-  start_table_chunk(ring, w, vt_begin * BV, 0, V, D);
-  load_hidden(sH, h, n0, N, D);
-  for (int i = threadIdx.x; i < BN; i += THREADS) {
-    const bool live = n0 + i < N;
-    sLbl[i] = live ? labels[n0 + i] : -1;
-    sLse[i] = live ? lse[n0 + i] : 0.f;
-    sG[i] = live ? g[n0 + i] : 0.f;  // rows past N contribute nothing
+// slab[0..1] (+)= (a, b): a plain store on the first range, a reduction afterwards
+__device__ __forceinline__ void slab_update(float* p, float a, float b, bool first) {
+  if (first) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  } else {
+    asm volatile("red.global.add.v2.f32 [%0], {%1, %2};\n" ::"l"(p), "f"(a), "f"(b) : "memory");
   }
+}
 
-  Acc acc[4], dacc[2];
-  for (int it = 0; it < total; ++it) {
-    const int s = it % steps, c = s % n_chunks;
-    const bool dh_pass = s >= n_chunks;
-    const bool first_tile = it < steps;
-    const int v0 = (vt_begin + it / steps) * BV;
-    if (dh_pass) {  // start the slab's loads before waiting for the chunk
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        if (first_tile)
-          wmma::fill_fragment(dacc[j], 0.f);
-        else
-          wmma::load_matrix_sync(dacc[j], slab + (long long)row * D + c * DK + dcol + 16 * j,
-                                 D, wmma::mem_row_major);
-      }
-    }
-    cp_async_wait_all();
-    __syncthreads();  // chunk `it` visible; every warp is done with chunk it - 1
-    if (it + 1 < total)
-      start_table_chunk(ring + ((it + 1) & 1) * BV * LDW, w,
-                        (vt_begin + (it + 1) / steps) * BV, ((it + 1) % n_chunks) * DK, V, D);
-    const bf16* buf = ring + (it & 1) * BV * LDW;
+__global__ void __launch_bounds__(THREADS, 1)
+fused_ce_bwd_kernel(const __grid_constant__ CUtensorMap map_h,
+                    const __grid_constant__ CUtensorMap map_w, const int* __restrict__ labels,
+                    const float* __restrict__ lse, const float* __restrict__ g,
+                    float* __restrict__ part, int N, int V, int D, int n_pad,
+                    int ranges_per_split, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  const uint32_t ring = smem_addr(smem);
+  const uint32_t q_base = ring + BWD_STAGES * BWD_STAGE_BYTES;
+  const uint32_t full = q_base + 2 * Q_WG_BYTES, empty = full + 8 * BWD_STAGES;
+  init_ring<BWD_STAGES>(full, empty);
 
-    if (dh_pass) {  // dh[:, c-chunk] += Q @ W[v0 : v0 + BV, c-chunk]
-#pragma unroll
-      for (int kk = 0; kk < BV / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, sQ + row * LDQ + kk * 16, LDQ);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bm;
-          wmma::load_matrix_sync(bm, buf + kk * 16 * LDW + dcol + 16 * j, LDW);
-          wmma::mma_sync(dacc[j], a, bm, dacc[j]);
+  const int n0 = blockIdx.x * BM;
+  const int split = blockIdx.y;
+  // this split's vocab rows, walked in ranges of VW
+  const int v_begin = split * ranges_per_split * VW;
+  const int v_end = min(V, v_begin + ranges_per_split * VW);
+  const int n_chunks = D / DK;           // stages of a logits sweep
+  const int n_slices = (D + DN - 1) / DN;  // dh accumulators across D
+  const int wg = threadIdx.x / 128;
+
+  if (wg == 2) {
+    reg_dealloc<40>();
+    if (threadIdx.x != 256) return;
+    Ring r;
+    for (int v_r = v_begin; v_r < v_end; v_r += VW) {
+      const int n_sub = (min(VW, v_end - v_r) + BWD_BV - 1) / BWD_BV;
+      for (int sub = 0; sub < n_sub; ++sub) {
+        for (int c = 0; c < n_chunks; ++c) {
+          const uint32_t st = ring + r.stage * BWD_STAGE_BYTES, bar = full + 8 * r.stage;
+          mbar_wait(empty + 8 * r.stage, r.phase ^ 1);
+          mbar_expect_tx(bar, 2 * BOX_BYTES);
+          tma_load_2d(st, &map_h, bar, c * DK, n0);
+          tma_load_2d(st + BOX_BYTES, &map_w, bar, c * DK, v_r + sub * BWD_BV);
+          r.advance<BWD_STAGES>();
         }
       }
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(slab + (long long)row * D + c * DK + dcol + 16 * j, dacc[j], D,
-                                wmma::mem_row_major);
-      continue;
+      for (int sl = 0; sl < n_slices; ++sl) {
+        const bool two = sl * DN + DK < D;  // else D ends after the slice's first 64 columns
+        for (int kb = 0; kb < n_sub; ++kb) {
+          const uint32_t st = ring + r.stage * BWD_STAGE_BYTES, bar = full + 8 * r.stage;
+          mbar_wait(empty + 8 * r.stage, r.phase ^ 1);
+          mbar_expect_tx(bar, two ? 2 * BOX_BYTES : BOX_BYTES);
+          tma_load_2d(st, &map_w, bar, sl * DN, v_r + kb * BOX);
+          if (two) tma_load_2d(st + BOX_BYTES, &map_w, bar, sl * DN + DK, v_r + kb * BOX);
+          r.advance<BWD_STAGES>();
+        }
+      }
     }
+    return;
+  }
 
-    if (c == 0) {
+  reg_alloc<232>();
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  const int rr = 16 * warp + lane / 4;  // this thread's rows of the warpgroup: rr, rr + 8
+  const int row = n0 + wg * 64 + rr;
+  const int col0 = 2 * (lane % 4);
+  const float sl2 = scale * LOG2E;
+  const uint32_t q_wg = q_base + wg * Q_WG_BYTES;
+  float* slab = part + ((long long)split * n_pad + row) * D + col0;
+  int lbl[2];
+  float lse2[2], gr[2];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.f);
-    }
-    logits_chunk(acc, sH, ldh, buf, c * DK, row, col);
-    if (c < n_chunks - 1) continue;
+  for (int h = 0; h < 2; ++h) {
+    const bool live = row + 8 * h < N;
+    lbl[h] = live ? labels[row + 8 * h] : -1;
+    lse2[h] = live ? lse[row + 8 * h] * LOG2E : 0.f;
+    gr[h] = live ? g[row + 8 * h] : 0.f;  // rows past N contribute nothing
+  }
 
+  Ring r;
+  Release rel;
+  for (int v_r = v_begin; v_r < v_end; v_r += VW) {
+    const int n_sub = (min(VW, v_end - v_r) + BWD_BV - 1) / BWD_BV;
+
+    // phase 1: Q = (softmax - onehot) * g of this range, sub-tile by sub-tile
+    for (int sub = 0; sub < n_sub; ++sub) {
+      float s[BWD_BV / 2];
+      for (int c = 0; c < n_chunks; ++c) {
+        const uint32_t st = ring + r.stage * BWD_STAGE_BYTES;
+        mbar_wait(full + 8 * r.stage, r.phase);
+        fence_regs(s);
+        wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(sS + row * BV + col + 16 * j, acc[j], BV, wmma::mem_row_major);
-    __syncthreads();
-    // Q = (softmax - onehot) * g, rounded to bf16, 0 on the vocab tail; read every
-    // logit first, then overwrite sS with Q (it aliases sS)
-    constexpr int PER_THREAD = BN * BV / THREADS;
-    float q[PER_THREAD];
+        for (int k = 0; k < DK / 16; ++k)
+          wgmma_m64n128k16<0>(s, smem_desc(st + wg * 8192 + 32 * k, 16, 1024),
+                              smem_desc(st + BOX_BYTES + 32 * k, 16, 1024), (c | k) != 0);
+        wgmma_commit();
+        rel.committed(empty + 8 * r.stage);
+        r.advance<BWD_STAGES>();
+      }
+      rel.finish();
+      fence_regs(s);
+
+      const int v0 = v_r + sub * BWD_BV;
+      const int v_lim = V - v0;
 #pragma unroll
-    for (int k = 0; k < PER_THREAD; ++k) {
-      const int e = threadIdx.x + k * THREADS;
-      const int r = e / BV, vv = v0 + e % BV;
-      float p = vv < V ? expf(sS[e] * scale - sLse[r]) : 0.f;
-      if (vv == sLbl[r]) p -= 1.f;
-      q[k] = p * sG[r];
+      for (int h = 0; h < 2; ++h) {
+        const int want = lbl[h] - v0 - col0;
+        // byte offset of (row rr + 8 h, column col0) inside a [64 x 64] block: rows of
+        // 128 bytes, 16-byte groups XOR-ed with row % 8 (= lane / 4 for both rows)
+        const uint32_t row_off = q_wg + (rr + 8 * h) * 128 + 2 * col0;
+#pragma unroll
+        for (int j = 0; j < BWD_BV / 8; ++j) {
+          float q[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 8 * j + e;  // column = col0 + c
+            float p = exp2f(s[4 * j + 2 * h + e] * sl2 - lse2[h]);
+            if (c == want) p -= 1.f;
+            q[e] = col0 + c < v_lim ? p * gr[h] : 0.f;
+          }
+          const __nv_bfloat162 packed = __floats2bfloat162_rn(q[0], q[1]);
+          const int block = sub * (BWD_BV / 64) + j / 8;  // 64-column block of Q
+          const int group = (j % 8) ^ (lane / 4);         // swizzled 16-byte group
+          const uint32_t addr = row_off + block * 8192 + group * 16;
+          asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr),
+                       "r"(*reinterpret_cast<const uint32_t*>(&packed))
+                       : "memory");
+        }
+      }
     }
-    __syncthreads();
+    fence_proxy_async();
+    named_barrier_sync<128>(1 + wg);  // the warpgroup's Q is written before any wgmma reads it
+
+    // phase 2: dh[:, slice] += Q . W[range, slice], slice by slice
+    const bool first = v_r == v_begin;
+    for (int sl = 0; sl < n_slices; ++sl) {
+      float acc[DN / 2];
+      for (int kb = 0; kb < n_sub; ++kb) {
+        const uint32_t st = ring + r.stage * BWD_STAGE_BYTES;
+        mbar_wait(full + 8 * r.stage, r.phase);
+        fence_regs(acc);
+        wgmma_fence();
 #pragma unroll
-    for (int k = 0; k < PER_THREAD; ++k) {
-      const int e = threadIdx.x + k * THREADS;
-      sQ[(e / BV) * LDQ + e % BV] = __float2bfloat16(q[k]);
+        for (int k = 0; k < BOX / 16; ++k)
+          wgmma_m64n128k16<1>(
+              acc, smem_desc(q_wg + (kb * 2 + k / 4) * 8192 + 32 * (k % 4), 16, 1024),
+              smem_desc(st + 2048 * k, BOX_BYTES, 1024), (kb | k) != 0);
+        wgmma_commit();
+        rel.committed(empty + 8 * r.stage);
+        r.advance<BWD_STAGES>();
+      }
+      rel.finish();
+      fence_regs(acc);
+
+      const int d_lim = D - sl * DN - col0;  // columns of this slice inside D
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float* out = slab + (long long)(8 * h) * D + sl * DN;
+#pragma unroll
+        for (int j = 0; j < DN / 8; ++j)
+          if (8 * j < d_lim)
+            slab_update(out + 8 * j, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1], first);
+      }
     }
-    // the next iteration's barrier makes sQ visible before the dh sweep reads it
   }
 }
 
@@ -366,28 +487,60 @@ __global__ void fused_ce_bwd_combine(const float* __restrict__ part, float* __re
   }
 }
 
-bool supported(int D) {
-  return D % DK == 0 && D > 0 && smem_bytes(D) <= 232448;
+// -------------------------------------------------------------------------- host
+
+bool supported(int D) { return D > 0 && D % DK == 0; }
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, which the process has loaded already (the
+// kernels' library is linked against the runtime only)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
+    return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
+  }();
+  return fn;
+}
+
+// tensor map of a row-major bf16 [rows, cols] matrix cut into boxes of [BOX rows x 64
+// columns], written to shared memory with the 128-byte swizzle
+bool make_map(CUtensorMap* map, const void* base, int rows, int cols) {
+  EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {DK, BOX};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace
 
 // hidden [N, D] bf16, table [V, D] bf16, labels [N] int32 -> lse [N], nll [N] fp32.
-// part: fp32 scratch [3][splits][n_pad], n_pad = N rounded up to 64.
+// part: fp32 scratch [3][splits][n_pad], n_pad = N rounded up to 128; a split is
+// tiles_per_split vocab tiles of 256 rows.
 extern "C" int fused_ce_fwd_bf16(const void* hidden, const void* table, const void* labels,
                                  void* part, void* lse, void* nll, int N, int V, int D,
                                  int splits, int tiles_per_split, float scale, void* stream) {
   if (!supported(D)) return (int)cudaErrorInvalidValue;
+  CUtensorMap map_h, map_w;
+  if (!make_map(&map_h, hidden, N, D) || !make_map(&map_w, table, V, D))
+    return (int)cudaErrorNotSupported;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t bytes = smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(fused_ce_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FWD_SMEM);
   if (err != cudaSuccess) return (int)err;
-  const int n_tiles = (N + BN - 1) / BN;
-  const int n_pad = n_tiles * BN;
-  fused_ce_fwd_kernel<<<dim3(n_tiles, splits), THREADS, bytes, st>>>(
-      static_cast<const bf16*>(hidden), static_cast<const bf16*>(table),
-      static_cast<const int*>(labels), static_cast<float*>(part), N, V, D, n_pad,
+  const int n_tiles = (N + BM - 1) / BM;
+  const int n_pad = n_tiles * BM;
+  fused_ce_fwd_kernel<<<dim3(n_tiles, splits), THREADS, FWD_SMEM, st>>>(
+      map_h, map_w, static_cast<const int*>(labels), static_cast<float*>(part), N, V, D, n_pad,
       tiles_per_split, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -398,24 +551,26 @@ extern "C" int fused_ce_fwd_bf16(const void* hidden, const void* table, const vo
 }
 
 // hidden, table, labels as above; lse [N], g [N] fp32 -> dh [N, D] fp32 (unscaled).
-// part: fp32 scratch [splits][n_pad][D].
+// part: fp32 scratch [splits][n_pad][D]; a split is ranges_per_split vocab ranges of
+// 512 rows.
 extern "C" int fused_ce_bwd_bf16(const void* hidden, const void* table, const void* labels,
                                  const void* lse, const void* g, void* part, void* dh, int N,
-                                 int V, int D, int splits, int tiles_per_split, float scale,
+                                 int V, int D, int splits, int ranges_per_split, float scale,
                                  void* stream) {
   if (!supported(D)) return (int)cudaErrorInvalidValue;
+  CUtensorMap map_h, map_w;
+  if (!make_map(&map_h, hidden, N, D) || !make_map(&map_w, table, V, D))
+    return (int)cudaErrorNotSupported;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t bytes = smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(fused_ce_bwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)BWD_SMEM);
   if (err != cudaSuccess) return (int)err;
-  const int n_tiles = (N + BN - 1) / BN;
-  const int n_pad = n_tiles * BN;
-  fused_ce_bwd_kernel<<<dim3(n_tiles, splits), THREADS, bytes, st>>>(
-      static_cast<const bf16*>(hidden), static_cast<const bf16*>(table),
-      static_cast<const int*>(labels), static_cast<const float*>(lse),
-      static_cast<const float*>(g), static_cast<float*>(part), N, V, D, n_pad,
-      tiles_per_split, scale);
+  const int n_tiles = (N + BM - 1) / BM;
+  const int n_pad = n_tiles * BM;
+  fused_ce_bwd_kernel<<<dim3(n_tiles, splits), THREADS, BWD_SMEM, st>>>(
+      map_h, map_w, static_cast<const int*>(labels), static_cast<const float*>(lse),
+      static_cast<const float*>(g), static_cast<float*>(part), N, V, D, n_pad, ranges_per_split,
+      scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   fused_ce_bwd_combine<<<264, 256, 0, st>>>(static_cast<const float*>(part),

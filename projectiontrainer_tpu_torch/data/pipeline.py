@@ -6,8 +6,7 @@ Counterpart of ``projectiontrainer_tpu/data/pipeline.py`` (which imports jax):
   of ``DistributedSampler.set_epoch``, the rank from ``torch.distributed`` when it is
   initialised (one process otherwise);
 - ``map_samples``: ``dataset[i]`` on a thread pool, in order;
-- ``epoch_batches``: shard -> decode -> ``fixed_batcher`` (the JAX package's own,
-  jax-free ``data/bucketing.py``: a straggler batch is filled by repeating samples,
+- ``epoch_batches``: shard -> decode -> ``fixed_batcher`` (``data/bucketing.py``: a straggler batch is filled by repeating samples,
   with ``sample_weight`` 0 on the filler rows) -> ``device_prefetch``;
 - ``device_prefetch`` replaces ``jax.device_put`` double buffering: a feeder thread
   copies each batch into pinned host memory and on to the card on a side CUDA
@@ -25,7 +24,7 @@ from typing import Iterable, Iterator, Optional
 import numpy as np
 import torch
 
-from projectiontrainer_tpu.data.bucketing import fixed_batcher
+from projectiontrainer_tpu_torch.data.bucketing import fixed_batcher
 
 
 def process_index_count() -> tuple[int, int]:

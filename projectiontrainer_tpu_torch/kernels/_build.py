@@ -49,7 +49,7 @@ SIGNATURES = {
     # hidden, table, labels, part, lse, nll; N, V, D, splits, tiles_per_split; scale;
     # stream
     "fused_ce_fwd_bf16": [_P] * 6 + [_I] * 5 + [_F, _P],
-    # hidden, table, labels, lse, g, part, dh; N, V, D, splits, tiles_per_split; scale;
+    # hidden, table, labels, lse, g, part, dh; N, V, D, splits, ranges_per_split; scale;
     # stream
     "fused_ce_bwd_bf16": [_P] * 7 + [_I] * 5 + [_F, _P],
 }

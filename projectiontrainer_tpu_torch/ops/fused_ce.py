@@ -14,8 +14,8 @@ when a run that trains the table asks for this path. Ignored positions pass a du
 label 0 and are masked by the caller (``train/losses.py``).
 
 The kernels take bf16 hidden states [N, D] and table [V, D] with D a multiple of 64
-up to 1216 (the hidden tile stays in shared memory); the plain versions take any
-shape and type. The vocab-parallel variant of the JAX package (``_make_vp_nll``) is
+(the width of the TMA boxes that stream both through shared memory; no upper limit);
+the plain versions take any shape and type. The vocab-parallel variant of the JAX package (``_make_vp_nll``) is
 multi-device and not ported.
 """
 
@@ -29,7 +29,9 @@ from projectiontrainer_tpu_torch.kernels import _build
 
 fwd_launches = _build.LaunchCounter("fused_ce_fwd")
 bwd_launches = _build.LaunchCounter("fused_ce_bwd")
-BN, BV, MAX_D = 64, 128, 1216   # token tile, vocab tile, largest hidden size (csrc)
+BM = 128      # tokens per CTA (csrc/fused_ce.cu)
+FWD_BV = 256  # vocab rows per tile of the forward kernel
+BWD_VW = 512  # vocab rows per range of the backward kernel
 _CHUNK = 256  # tokens per step of the plain versions ([256, V] fp32 logits at a time)
 
 
@@ -74,21 +76,27 @@ def _check(hidden, table, labels):
         if x.dim() != 2 or not x.is_contiguous():
             raise ValueError(f"fused_ce: {name} must be a contiguous 2-D tensor")
     n, d = hidden.shape
-    if table.shape[1] != d or d % 64 or d > MAX_D:
+    if table.shape[1] != d or d == 0 or d % 64:
         raise ValueError(f"fused_ce: hidden size {d} (table {tuple(table.shape)}) not "
-                         f"supported: the kernels take a multiple of 64 up to {MAX_D}")
+                         f"supported: the kernels take a multiple of 64")
     if labels.shape != (n,) or labels.dtype != torch.int32 or not labels.is_contiguous():
         raise ValueError("fused_ce: labels must be contiguous int32 [N]")
 
 
-def _plan(n: int, v: int, device) -> tuple[int, int, int]:
-    """(n_pad, splits, vocab tiles per split): enough vocab splits that the
-    (token tile, split) grid covers the card's SMs once."""
-    n_tiles, n_vt = math.ceil(n / BN), math.ceil(v / BV)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+def _plan(n: int, v: int, vocab_tile: int, sms: int) -> tuple[int, int, int]:
+    """(n_pad, splits, vocab tiles per split) of the grid (token tiles of BM, splits):
+    as many vocab splits as fill the card's ``sms`` SMs once (one CTA per SM), each of
+    whole vocab tiles of ``vocab_tile`` rows (FWD_BV forward, BWD_VW backward). Split s
+    walks tiles [s * per, min((s + 1) * per, tiles)): no split is empty. The forward's
+    scratch is [3, splits, n_pad], the backward's [splits, n_pad, D]."""
+    n_tiles, n_vt = math.ceil(n / BM), math.ceil(v / vocab_tile)
     want = max(1, min(n_vt, sms // n_tiles))
     per = math.ceil(n_vt / want)
-    return n_tiles * BN, math.ceil(n_vt / per), per
+    return n_tiles * BM, math.ceil(n_vt / per), per
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def fused_ce_fwd(hidden, table, labels, scale: float = 1.0):
@@ -100,7 +108,7 @@ def fused_ce_fwd(hidden, table, labels, scale: float = 1.0):
         return fused_ce_reference(hidden, table, labels, scale)
     _check(hidden, table, labels)
     n, d = hidden.shape
-    n_pad, splits, per = _plan(n, table.shape[0], hidden.device)
+    n_pad, splits, per = _plan(n, table.shape[0], FWD_BV, _sms(hidden.device))
     part = torch.empty((3, splits, n_pad), dtype=torch.float32, device=hidden.device)
     lse = torch.empty((n,), dtype=torch.float32, device=hidden.device)
     nll = torch.empty_like(lse)
@@ -125,7 +133,7 @@ def fused_ce_bwd(hidden, table, labels, lse, g, scale: float = 1.0):
     lse, g = lse.float().contiguous(), g.float().contiguous()
     if lse.shape != (n,) or g.shape != (n,):
         raise ValueError("fused_ce: lse and g must be [N]")
-    n_pad, splits, per = _plan(n, table.shape[0], hidden.device)
+    n_pad, splits, per = _plan(n, table.shape[0], BWD_VW, _sms(hidden.device))
     part = torch.empty((splits, n_pad, d), dtype=torch.float32, device=hidden.device)
     dh = torch.empty((n, d), dtype=torch.float32, device=hidden.device)
     err = _build.library().fused_ce_bwd_bf16(

@@ -18,8 +18,7 @@ Stage0/train_vision_encoder_stage0.py:451-842), on one device:
 
 Any dataset with ``__len__`` and ``__getitem__`` returning ``{'pixel_values' [H, W, C]
 float32, 'input_ids' [T] int, 'class_idx' int, 'valid' bool}`` serves (the CLI's is
-the JAX package's jax-free ``ContrastiveDataset``; this module does not import it,
-since its image decoding needs PIL).
+``data/datasets.py``'s ``ContrastiveDataset``, whose image decoding needs PIL).
 """
 
 from __future__ import annotations

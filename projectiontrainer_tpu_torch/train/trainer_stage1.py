@@ -11,8 +11,8 @@ Stage1/projector_trainer.py:18-521):
   ``projector_config.json``, and ``torch.save`` train state for ``--resume``.
 
 Any dataset object with ``__len__`` and ``__getitem__`` returning ``{'pixel_values'
-[H, W, C] float32, 'caption_ids' [Tc] int}`` serves (the CLI's is the JAX package's
-jax-free ``Stage1PairDataset``).
+[H, W, C] float32, 'caption_ids' [Tc] int}`` serves (the CLI's is
+``data/datasets.py``'s ``Stage1PairDataset``).
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from projectiontrainer_tpu.eval import metrics as M
+from projectiontrainer_tpu_torch.eval import metrics as M
 from projectiontrainer_tpu_torch.checkpoint import export
 from projectiontrainer_tpu_torch.checkpoint.manager import CheckpointManager
 from projectiontrainer_tpu_torch.core import dtypes

@@ -257,7 +257,9 @@ def test_layernorm_autograd_runs_both_kernels(card):
     assert all(bool(t.grad.isfinite().all()) for t in (x, p["scale"], p["bias"]))
 
 
-@pytest.mark.parametrize("n,v,d", [(100, 1000, 128), (300, 5000, 256), (2048, 262144, 1152)])
+@pytest.mark.parametrize("n,v,d", [(100, 1000, 128), (300, 5000, 256), (2048, 262144, 1152),
+                                   (1, 128, 64), (257, 1025, 1152), (1000, 5001, 1152),
+                                   (64, 2000, 2560)])
 def test_fused_ce_kernels(card, n, v, d):
     """lse and nll within 1e-3 absolute; dh, and its softmax part dh + g * W[label]
     alone, within 2e-2 x max |reference|. The table's scale gives logits of std 5 (a
@@ -284,14 +286,34 @@ def test_fused_ce_kernels(card, n, v, d):
     _rel_close(dh + onehot, rdh + onehot)
 
 
+@pytest.mark.parametrize("n,v,d", [(300, 5000, 256), (2048, 262144, 1152)])
+def test_fused_ce_reruns_are_bit_equal(card, n, v, d):
+    """No sum of either kernel changes its order from run to run: each scratch element
+    is owned by one thread, and the vocab splits are combined in a fixed order."""
+    rng = np.random.default_rng(7)
+    h = _bf16(rng, (n, d), card)
+    w = (_bf16(rng, (v, d), card) * (5 / d ** 0.5)).contiguous()
+    labels = torch.tensor(rng.integers(0, v, size=n), dtype=torch.int32, device=card)
+    g = torch.tensor(rng.uniform(0.5, 1.5, size=n).astype(np.float32) / n, device=card)
+    lse, nll = CE.fused_ce_fwd(h, w, labels)
+    dh = CE.fused_ce_bwd(h, w, labels, lse, g)
+    for _ in range(2):
+        lse2, nll2 = CE.fused_ce_fwd(h, w, labels)
+        assert torch.equal(lse, lse2) and torch.equal(nll, nll2)
+        assert torch.equal(dh, CE.fused_ce_bwd(h, w, labels, lse, g))
+
+
 def test_fused_ce_rejects_unsupported(card):
-    h = torch.zeros((8, 1280), dtype=torch.bfloat16, device=card)  # hidden above 1216
+    h = torch.zeros((8, 1280), dtype=torch.bfloat16, device=card)
     labels = torch.zeros(8, dtype=torch.int32, device=card)
+    CE.fused_ce_fwd(h, h, labels)  # hidden sizes above 1216 are taken since the TMA ring
     with pytest.raises(ValueError):
-        CE.fused_ce_fwd(h, h, labels)
+        CE.fused_ce_fwd(h, h[:, :1216].contiguous(), labels)  # table of another width
     with pytest.raises(ValueError):
         CE.fused_ce_fwd(h[:, :96].contiguous(), h[:, :96].contiguous(), labels)  # not /64
     with pytest.raises(TypeError):
         CE.fused_ce_fwd(h[:, :128].float(), h[:, :128].float(), labels)
     with pytest.raises(ValueError):
         CE.fused_ce_fwd(h[:, :128].contiguous(), h[:, :128].contiguous(), labels.long())
+    with pytest.raises(ValueError):
+        CE.fused_ce_fwd(h.t(), h.t(), labels)  # not contiguous

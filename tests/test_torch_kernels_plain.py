@@ -18,6 +18,7 @@ from projectiontrainer_tpu.ops import fused_layernorm as JFLN
 from projectiontrainer_tpu_torch.kernels import _build
 from projectiontrainer_tpu_torch.ops import decode_attention as DA
 from projectiontrainer_tpu_torch.ops import flash_attention as FA
+from projectiontrainer_tpu_torch.ops import fused_ce as CE
 from projectiontrainer_tpu_torch.ops import fused_layernorm as FLN
 
 torch.set_num_threads(2)
@@ -118,3 +119,62 @@ def test_launch_counter_counts_and_resets():
     assert c.value == 3
     c.reset()
     assert c.value == 0
+
+
+# ---- what Python decides about the fused CE kernels: the grid plan and the bounds
+
+
+@pytest.mark.parametrize("vocab_tile", [CE.FWD_BV, CE.BWD_VW])
+@pytest.mark.parametrize("v", [128, 262144, 262145])
+@pytest.mark.parametrize("n", [1, 127, 2048, 2049])
+def test_fused_ce_plan_covers_every_tile_once(n, v, vocab_tile):
+    """The grid (token tiles of BM, splits) walks every (token tile, vocab tile) exactly
+    once, as csrc/fused_ce.cu cuts it: split s takes vocab tiles [s * per, min((s + 1) *
+    per, tiles)), none empty, and the scratch is indexed within [splits, n_pad]."""
+    n_pad, splits, per = CE._plan(n, v, vocab_tile, sms=132)
+    n_tiles, n_vt = -(-n // CE.BM), -(-v // vocab_tile)
+    assert n_pad == n_tiles * CE.BM and n_pad >= n > n_pad - CE.BM
+    seen = np.zeros((n_tiles, n_vt), np.int32)
+    for tile in range(n_tiles):          # blockIdx.x
+        for s in range(splits):          # blockIdx.y
+            begin, end = s * per, min(n_vt, (s + 1) * per)
+            assert begin < end, "an empty split"
+            seen[tile, begin:end] += 1
+            rows = tile * CE.BM + np.arange(CE.BM)
+            assert (s * n_pad + rows < splits * n_pad).all()  # part[.., split, row]
+    assert (seen == 1).all()
+    assert n_tiles * splits <= max(132, n_tiles)  # one CTA per SM where the tokens allow it
+
+
+def test_fused_ce_plan_fills_the_card_at_the_stage1_shape():
+    assert CE._plan(2048, 262144, CE.FWD_BV, sms=132) == (2048, 8, 128)
+    assert CE._plan(2048, 262144, CE.BWD_VW, sms=132) == (2048, 8, 64)
+
+
+@pytest.mark.parametrize("name,args,want_ms,by", [
+    ("bound_fused_ce_fwd", (2048, 262144, 1152), 1.25, "operations"),
+    ("bound_fused_ce_bwd", (2048, 262144, 1152), 2.50, "operations"),
+    ("bound_flash_fwd", (16, 1024, 16, 16, 72), 0.078, "operations"),
+    ("bound_flash_bwd_dkv", (16, 1024, 16, 16, 72), 0.156, "operations"),
+    ("bound_flash_bwd_dq", (16, 1024, 16, 16, 72), 0.117, "operations"),
+    ("bound_layernorm_fwd", (16384, 1152), 0.0225, "bytes"),
+    ("bound_layernorm_bwd", (16384, 1152), 0.0338, "bytes"),
+    ("bound_decode_attn", (8, 3, 4, 1, 831, 32, 256), 0.0023, "bytes"),
+])
+def test_chip_smoke_bounds(name, args, want_ms, by):
+    """The bound calculators of chip_smoke.py (operations over 989 TFLOP/s, bytes over
+    3.35 TB/s, the larger) at the main paths' shapes, within 2% of the hand-computed
+    values (which are rounded to two or three digits)."""
+    import chip_smoke
+
+    ms, bound_by = getattr(chip_smoke, name)(*args)
+    assert bound_by == by
+    assert abs(ms - want_ms) <= 0.02 * want_ms
+
+
+def test_chip_smoke_bound_takes_the_larger():
+    import chip_smoke
+
+    assert chip_smoke.bound(989e12, 0) == (1000.0, "operations")
+    assert chip_smoke.bound(0, 3.35e12) == (1000.0, "bytes")
+    assert chip_smoke.bound(989e9, 3.35e12)[1] == "bytes"
