@@ -17,13 +17,17 @@ Phases, each printing one JSON line; any failure raises, so the exit code is not
    on dx, dscale and dbias each. The stage-0 shapes: K1 at head dim 72 over the
    so400m tower ([16,1024,16,72]) and text tower ([16,64,16,72]), K4/K5 over the
    tower, K1/K4/K5 through autograd there on nearly alike tokens (each gradient's
-   cosine to fp32 within 0.001 of plain bf16 attention's), K2 and K8 over its rows ([16384,1152]; K8 also at 1000 rows, and at 16383,
+   cosine to fp32 within 0.001 of plain bf16 attention's), K1 and K4 at a T no tile
+   divides ([16,1000,16,72]) with K1's fp32 copy of O held against its bf16 O and reruns
+   of K1 and K4 held bit-equal (there and at the decoder's masked GQA shape), K2 and K8 over its rows ([16384,1152]; K8 also at 1000 rows, and at 16383,
    1001 and 529, which leave its last program's block part-empty, checked); and
    the TPU's merged-lane layout (kernel rows 4-6): K1/K4/K5 on head-merged
    [2,1024,8*128] tensors through ``flash_attention_merged``, MHA and GQA 8/2.
    The CE's table is scaled for a peaked softmax and its upstream gradient differs
-   per row, so a kernel that loses a vocab split or a row's weight fails. Median
-   CUDA-event times over 20 runs of kernel and plain; beside them each timed case's
+   per row, so a kernel that loses a vocab split or a row's weight fails. Device
+   times of kernel and plain (CUDA events around 10 launches queued behind a spinning
+   kernel, the median of 3 such groups: the host's launch time is not in them); beside
+   them each timed case's
    bound (the larger of its bf16 operations over 989 TFLOP/s and its bytes, inputs read
    once and outputs written once, over 3.35 TB/s, the H100 SXM's published peaks;
    masked (query, key) pairs are not counted) and the time of the one PyTorch call that
@@ -76,7 +80,6 @@ import dataclasses
 import json
 import os
 import shutil
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -102,21 +105,12 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn, iters: int = 20) -> float:
-    """Median CUDA-event time of fn() over `iters` runs, after one warm-up run."""
-    import torch
+def cuda_ms(fn) -> float:
+    """Device time of fn() in ms: ``utils/timing.py:device_ms`` (3 groups of 10 launches
+    queued behind a spinning kernel, so the host's launch time is not in it)."""
+    from projectiontrainer_tpu_torch.utils.timing import device_ms
 
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return device_ms(fn)
 
 
 def compare(name, got, ref, atol=ATOL, rtol=RTOL) -> float:
@@ -495,6 +489,7 @@ def phase_kernels():
 
     check_fused_ce(rng, record)
     check_stage0_kernels(rng, record)
+    check_flash_reruns(rng, record)
     emit({"phase": 2, "readings": READINGS})
     return results
 
@@ -604,6 +599,69 @@ def check_stage0_kernels(rng, record):
                 for n, a, b in zip("qkv", grads, refs)]
         record("flash_attn_bwd_dq", case, errs[0], None, None)
         record("flash_attn_bwd_dkv", case, max(errs[1:]), None, None)
+
+
+def check_flash_reruns(rng, record):
+    """K1 and K4 at a T that no tile divides ([16,1000,16,72]; the text tower's T = 64 is
+    among the stage-0 shapes), K1's fp32 copy of O against its bf16 O, and a rerun of
+    each kernel held bit-equal, there and at the decoder's masked GQA shape;
+    record(kernel, case, err, ms, plain_ms, bound, library_ms, library)."""
+    import torch
+
+    from projectiontrainer_tpu_torch.ops import flash_attention as FA
+
+    q, k, v, do = (_bf16(rng, (16, 1000, 16, 72)) for _ in range(4))
+    kw = dict(scale=72 ** -0.5, causal=False, window=None)
+    out, lse, out32 = FA._launch(q, k, v, kv_mask=None, out_f32=True, **kw)
+    ref, ref_lse = FA.flash_attention_reference(q.float(), k.float(), v.float())
+    err = compare("flash ragged d72 out", out, ref)
+    compare("flash ragged d72 lse", lse, ref_lse)
+    if not torch.equal(out32.to(torch.bfloat16), out):
+        raise AssertionError("flash forward: the fp32 copy of O does not round to its bf16 O")
+    case = "ragged [16,1000,16,72] non-causal"
+    lib, backend = sdpa_library(q, k, v, scale=kw["scale"])
+    record("flash_attn_fwd", case, err, cuda_ms(lambda: FA.flash_attention(q, k, v)),
+           cuda_ms(lambda: FA.flash_attention_reference(q, k, v)),
+           bound_flash_fwd(16, 1000, 16, 16, 72), cuda_ms(lib), f"SDPA {backend}")
+    mask, do, delta = FA.prepare_bwd(q, k, v, None, out32, lse, do)
+    args = (q, k, v, mask, do, lse, delta)
+    dk, dv = FA.launch_bwd_dkv(*args, **kw)
+    _, rk, rv = FA.flash_attention_bwd_reference(q.float(), k.float(), v.float(), None, out32,
+                                                 lse, do.float(), **kw)
+    lib, backend = sdpa_library_bwd(q, k, v, do, scale=kw["scale"])
+    record("flash_attn_bwd_dkv", case,
+           max(compare_rel("flash ragged d72 dk", dk, rk), compare_rel("flash ragged d72 dv", dv, rv)),
+           cuda_ms(lambda: FA.launch_bwd_dkv(*args, **kw)),
+           cuda_ms(lambda: FA.flash_attention_bwd_reference(q, k, v, None, out32, lse, do, **kw)),
+           bound_flash_bwd_dkv(16, 1000, 16, 16, 72), cuda_ms(lib),
+           f"SDPA {backend} backward (dq, dk, dv together)")
+
+    def rerun(name, first, fn):
+        for _ in range(2):
+            if not all(torch.equal(a, b) for a, b in zip(first, fn())):
+                raise AssertionError(f"{name}: a rerun on the same inputs gave other bits")
+
+    rerun("flash forward d72", (out, lse, out32),
+          lambda: FA._launch(q, k, v, kv_mask=None, out_f32=True, **kw))
+    rerun("flash dkv d72", (dk, dv), lambda: FA.launch_bwd_dkv(*args, **kw))
+    del q, k, v, do, out, lse, out32, delta, dk, dv, rk, rv, ref, ref_lse, lib
+
+    # the decoder's shape: causal, window 512, GQA 4/1, right-padded captions
+    b, t = 4, 1087
+    q, do = _bf16(rng, (b, t, 4, 256)), _bf16(rng, (b, t, 4, 256))
+    k, v = _bf16(rng, (b, t, 1, 256)), _bf16(rng, (b, t, 1, 256))
+    mask = torch.ones((b, t), dtype=torch.int32, device="cuda")
+    for i, n in enumerate(rng.integers(16, 513, size=b)):
+        mask[i, 575 + n:] = 0
+    kw = dict(scale=256 ** -0.5, causal=True, window=512)
+    first = FA._launch(q, k, v, kv_mask=mask, out_f32=True, **kw)
+    rerun("flash forward d256", first,
+          lambda: FA._launch(q, k, v, kv_mask=mask, out_f32=True, **kw))
+    prep = FA.prepare_bwd(q, k, v, mask, first[2], first[1], do)
+    args = (q, k, v, prep[0], prep[1], first[1], prep[2])
+    rerun("flash dkv d256", FA.launch_bwd_dkv(*args, **kw), lambda: FA.launch_bwd_dkv(*args, **kw))
+    emit({"phase": 2, "check": "K1 fp32 O rounds to its bf16 O; K1 and K4 reruns bit-equal at "
+                               "[16,1000,16,72] and [4,1087,4|1,256] causal window 512"})
 
 
 def check_nearly_alike_tokens(rng):

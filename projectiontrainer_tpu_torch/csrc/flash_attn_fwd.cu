@@ -1,331 +1,453 @@
 // Flash-attention forward for Hopper (sm_90a), bf16 in, bf16 out + fp32 log-sum-exp.
 //
 // Replaces the TPU kernel projectiontrainer_tpu/ops/flash_attention.py:_fwd_kernel
-// (launched from _fwd). Same contract: online softmax in the exp2 domain, fp32
+// (launched from _fwd) and, through a strided [B, T, H, D] view of the head-merged
+// tensors, :_fwd_lanes_kernel. Same contract: online softmax in the exp2 domain, fp32
 // running max / sum / output accumulator, causal (tiles above the diagonal are
 // skipped), sliding window (tiles below it are skipped), per-batch key padding mask,
 // GQA (query head h reads kv head h / n_rep), and rows with no valid key give 0.
 //
-// What bounds it on the H100: at the prefill and tower shapes the score and PV
-// products dominate (~4*B*H*T^2*D flops against ~2*B*T*H*D*2 bytes), so it is
-// compute-bound; the tensor cores are reached through WMMA (mma.sync, 16x16x16 bf16,
-// fp32 accumulate).
+// What bounds it on the H100: the two products, 4 * pairs * D operations a head against
+// one read of q, k, v and one write of o, so the tensor cores from T ~ 300 up; and next
+// to them the softmax's exponentials on the SM's 16-a-clock special-function unit, which
+// at D = 64 take as many clocks as both products of a tile together. At the main paths'
+// shapes the kernel runs at 3.5 (D = 72, T = 1024) to 5.5 (D = 64, T = 576) times its
+// bound: a warpgroup's own softmax and products do not overlap, and a CTA of five to
+// eight K/V tiles pays its prologue (tensor maps, Q, the first stage) and epilogue alone
+// on its SM.
 //
-// Design, simple first: one CTA of 4 warps per (64-row query tile, query head,
-// batch). Q, the current 64-row K and V tiles, the fp32 scores, the bf16
-// probabilities and the fp32 output accumulator all live in shared memory (188 KB at
-// D=256, 66 KB at D=64); warp w owns query rows 16w..16w+15 of every tile, so only
-// the K/V tile loads need a block barrier. Inputs are read in their [B, T, H, D]
-// layout through strides (unit stride on D), with no transposes.
+// Design. A CTA owns 128 query rows of one (batch, query head): two consumer
+// warpgroups of 64 rows each and one producer thread (setmaxnreg moves the producer
+// warpgroup's registers to the consumers: 40 / 232). The producer keeps TMA loads of K
+// and V tiles (128 keys; 64 at D = 256) in flight into a ring of shared-memory stages
+// (4 at D = 64, 3 at 72 and 128, 2 at 256: what 227 KB hold), each with a "full"
+// mbarrier that the TMA unit completes and an "empty" one on which every consumer warp
+// arrives when its wgmma reads of the stage are done; every wait traps after ~2 s, so a
+// ring fault is a CUDA error and not a hang. There is no block-wide barrier after the
+// set-up. Both products are wgmma.mma_async with fp32 accumulators in registers:
+//   S = Q K^T   A = the Q tile, B = the K tile, both K-major in the 128-byte-swizzled
+//               layout the TMA unit writes (blocks of [rows x 64 columns]);
+//   softmax     on S in registers: a row lives in the 4 lanes of a quad, so its max is
+//               two shuffles; the sums stay per thread until the epilogue;
+//   O += P V    P rounded to bf16 in registers is the A operand (an accumulator's
+//               registers are already in A's places); the V tile is read as an MN-major B
+//               operand, wgmma's transposed form, so V is never transposed.
+// No score, no P and no O passes through shared memory; O is scaled and written from
+// the registers. The two warpgroups are not synchronised with each other, so one's
+// softmax runs under the other's products. Each (128-row tile, query head, batch) is a
+// CTA of its own, the last tiles first; the query heads of one KV head are neighbours in
+// the grid, so their K/V reads meet in L2, and they are not packed into one CTA's rows.
 //
-// The trap the design handles: NEG_INF is finite, so for a row with no valid key
-// m = NEG_INF and exp2(s - m) = 1. Invalid probabilities are therefore set to 0
-// explicitly and the output divided by max(l, 1e-30), so left-padded query rows
-// come out as 0 and not as a uniform average.
+// The tensors are read as they lie, [B, T, H, D] with any (16-byte aligned) strides,
+// through one 4-D tensor map each, dims (D, T, H, B): a box that runs past T or past D
+// is zero-filled by the TMA unit and never reaches the next head's or batch's rows.
+// That is also what serves D = 72 (so400m): the second 64-column box of a row holds
+// columns 64..71 and zeros, so the fifth k-step of Q K^T (columns 64..79) adds zeros,
+// and O's width is wgmma's n = 72. The scale stays the caller's (72^-0.5) and nothing is
+// padded on the host.
 //
-// For training, the kernel can also write O in fp32 (``out_f32``, dense [B, T, Hq, D];
-// null skips it): the backward's delta = rowsum(dO * O) must equal sum_j P_ij dP_ij,
-// whose rows of dS then sum to zero. From the bf16 output, delta is off by a per-row
-// constant of ~2^-9 |dO| |O|, which dQ and dK take on along the keys' and queries'
-// common component; on a trained tower whose tokens are nearly alike that error
-// dominated the last layers' q/k gradients (measured on the card). For the same
-// reason O is divided by the sum of the bf16-rounded weights the PV product applied
-// (u), not by the fp32 sum of the unrounded ones (l): O's weights then sum to 1, so
-// V's common part passes through exactly. With l they summed to 1 +- ~2^-9 / sqrt(T),
-// and that error in delta still cost dq a cosine of 0.94 of fp32 on tokens whose
-// common part is 15x their spread (plain bf16 attention: 0.9997). The lse stays
-// m + log(l), so the backward's exp(S - lse) sums to 1.
+// Masks. NEG_INF is finite, so for a row with no valid key m = NEG_INF and
+// exp2(s - m) = 1: invalid probabilities are set to 0 explicitly and the output is
+// divided by max(u, 1e-30), so left-padded query rows come out as exactly 0. A warp
+// learns which keys of a tile are inside T and unpadded from one coalesced read of the
+// mask and a ballot (32 keys a word); only a tile with a masked key, or one that crosses
+// the diagonal or the window's edge for this warpgroup's rows, takes the per-element
+// path. A warpgroup skips the tiles that lie wholly outside its own rows' range.
 //
-// Head dims that are not a multiple of 16 (so400m's D = 72) are padded INSIDE the
-// kernel to DP, the next multiple of 16 (WMMA's k and n): the shared tiles are
-// [rows][DP], their columns D..DP-1 are zeroed once and never loaded, and only the D
-// real columns are written back. The scale is the caller's (72^-0.5, not 80^-0.5); the
-// zero columns add nothing to Q K^T and produce zero output columns, which are dropped.
-// Nothing is padded on the host.
+// The three rules of precision (found on the card, on tokens that are nearly alike):
+// O is divided by the sum of the bf16-rounded weights that the PV product applied (u),
+// so its weights sum to 1 and V's common part passes through exactly; lse = m + log(l)
+// with l the fp32 sum of the unrounded weights, so the backward's exp(S - lse) sums to
+// 1; and in training the kernel also writes O in fp32 (out_f32, dense [B, T, Hq, D];
+// null skips it), from which the backward takes delta = rowsum(dO * O).
 //
-// Left for later PRs: wgmma with the output kept in registers, TMA loads of K/V
-// into a multi-stage ring, a warp-specialised producer.
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W with kernels/check_flash_attn.py --time
+// (ms a launch, launches queued so that the host's share is out; the variants on builds
+// that were not kept), at [16,1024,16,72] / [8,576,16,64] / the left-padded prefill
+// [8,831,4|1,256], causal, no window:
+//   this kernel                                            0.275 / 0.061 / 0.055
+//   the WMMA kernel it replaces (one 64-row CTA of 4 warps, S, P and O through shared
+//   memory, one K/V tile, no copy in flight), timed a launch at a time
+//                                          2.975 / 0.643 / 0.939 (with a window of 512)
+//   scaled_dot_product_attention's flash backend           0.362 / 0.058 / refused
+// Tried and taken out:
+//   - a warpgroup's softmax of tile i + 1 under its own O += P V of tile i (S of the next
+//     tile started before the product, FlashAttention-3's second overlap): 0.308 / 0.068 /
+//     0.071, and 40 bytes of spills at D = 128;
+//   - the same with the two warpgroups taking turns at the tensor cores through two
+//     named barriers (its first overlap): 0.309 / 0.067 / 0.071;
+//   - two stages instead of three at D = 72 and 128: 0.317 against 0.309 at D = 72, both
+//     timed a launch at a time.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "tensor_map.cuh"
+#include "wgmma_sm90.cuh"
+
+using namespace sm90;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int ROWS_PER_WARP = BQ / WARPS;  // 16: one WMMA row block per warp
+constexpr int BQ = 128;       // query rows a CTA: two consumer warpgroups of 64
+constexpr int THREADS = 384;  // warpgroups 0, 1: consumers; warpgroup 2: the producer thread
 constexpr float NEG_INF = -2.3819763e38f;
-constexpr float LOG2E = 1.4426950408889634f;
-
-// the shared tiles' row length: D rounded up to a multiple of 16
-template <int D>
-__host__ __device__ constexpr int padded() { return (D + 15) / 16 * 16; }
+constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
 
 template <int D>
-constexpr size_t smem_bytes() {
-  constexpr int DP = padded<D>();
-  return (size_t)BQ * DP * 2          // sQ  bf16 [BQ][DP]
-         + (size_t)BK * DP * 2 * 2    // sK, sV bf16 [BK][DP]
-         + (size_t)BQ * BK * 4        // sS  fp32 [BQ][BK]
-         + (size_t)BQ * BK * 2        // sP  bf16 [BQ][BK]
-         + (size_t)BQ * DP * 4        // sO  fp32 [BQ][DP]
-         + (size_t)BQ * 4;            // sCorr fp32 [BQ]
+struct Cfg {
+  static constexpr int NB = (D + 63) / 64;       // 64-column blocks (TMA boxes) of a row
+  static constexpr int KSTEPS = (D + 15) / 16;   // k-steps of Q K^T (zero columns past D)
+  static constexpr int BK = D > 128 ? 64 : 128;  // keys a stage
+  static constexpr int STAGES = D <= 64 ? 4 : (D <= 128 ? 3 : 2);
+  static constexpr int Q_BLOCK = BQ * 128;       // bytes of one 64-column block of the Q tile
+  static constexpr int KV_BLOCK = BK * 128;      // ... of a K or V tile
+  static constexpr int Q_BYTES = NB * Q_BLOCK;
+  static constexpr int TILE_BYTES = NB * KV_BLOCK;
+  static constexpr int STAGE_BYTES = 2 * TILE_BYTES;  // K, then V
+  static constexpr size_t SMEM = Q_BYTES + STAGES * STAGE_BYTES + 1024 + 8 * (2 * STAGES + 1);
+  static_assert(SMEM <= 232448, "shared memory of one SM");
+};
+
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
 }
 
-// copy `n_rows` rows (row r at src + r * row_stride, D contiguous bf16) into columns
-// 0..D-1 of a [n_rows][DP] shared tile, zero-filling rows >= valid
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long row_stride,
-                                          int valid, int n_rows) {
-  constexpr int VEC = 8;  // 16 bytes
-  constexpr int PER_ROW = D / VEC;
-  constexpr int DP = padded<D>();
-  for (int i = threadIdx.x; i < n_rows * PER_ROW; i += THREADS) {
-    int r = i / PER_ROW, c = (i % PER_ROW) * VEC;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r < valid) val = *reinterpret_cast<const uint4*>(src + r * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * DP + c) = val;
-  }
-}
+// The thread's scores of row r of its warp's 16 (r = 0: row l / 4, r = 1: that + 8) are
+// s[4 j + 2 r + e], column 8 j + 2 (l % 4) + e of the tile.
 
-// zero the pad columns D..DP-1 of a [n_rows][DP] shared tile (once: loads never
-// write them)
-template <int D>
-__device__ __forceinline__ void zero_pad_cols(bf16* dst, int n_rows) {
-  constexpr int DP = padded<D>();
-  constexpr int PAD = (DP - D) / 8;  // 16-byte chunks a row
-  if constexpr (PAD > 0) {
-    for (int i = threadIdx.x; i < n_rows * PAD; i += THREADS) {
-      int r = i / PAD, c = D + (i % PAD) * 8;
-      *reinterpret_cast<uint4*>(dst + r * DP + c) = make_uint4(0, 0, 0, 0);
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const int* __restrict__ kv_mask,
-                 bf16* __restrict__ out, float* __restrict__ lse,
-                 float* __restrict__ out_f32, int T, int Hq, int Hkv,
-                 long long sqb, long long sqt, long long sqh,
-                 long long skb, long long skt, long long skh,
-                 long long svb, long long svt, long long svh,
-                 long long sob, long long sot, long long soh,
-                 float scale, int causal, int window) {
-  constexpr int DP = padded<D>();
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + BQ * DP;
-  bf16* sV = sK + BK * DP;
-  float* sS = reinterpret_cast<float*>(sV + BK * DP);
-  bf16* sP = reinterpret_cast<bf16*>(sS + BQ * BK);
-  float* sO = reinterpret_cast<float*>(sP + BQ * BK);
-  float* sCorr = sO + BQ * DP;
-
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int row0 = warp * ROWS_PER_WARP;
-  const float qk_scale = scale * LOG2E;  // exp2 domain
-
-  const bf16* qb = q + b * sqb + h * sqh;
-  const bf16* kb = k + b * skb + hk * skh;
-  const bf16* vb = v + b * svb + hk * svh;
-  const int* mb = kv_mask ? kv_mask + (long long)b * T : nullptr;
-
-  zero_pad_cols<D>(sQ, BQ);
-  zero_pad_cols<D>(sK, BK);
-  zero_pad_cols<D>(sV, BK);
-  load_tile<D>(sQ, qb + q0 * sqt, sqt, min(BQ, T - q0), BQ);
-  for (int i = threadIdx.x; i < BQ * DP; i += THREADS) sO[i] = 0.f;
-
-  // per-row running max (log2 domain), sum of the fp32 probabilities (for lse) and sum
-  // of their bf16 roundings (the weights the PV product applies, for O's
-  // normalisation), kept by every lane of the owning warp
-  float m_run[ROWS_PER_WARP], l_run[ROWS_PER_WARP], u_run[ROWS_PER_WARP];
+// The tile's scores of one warpgroup, in place: s -> P (fp32, unnormalised), with the
+// running max, the thread's part of the running fp32 sum and corr, the factor by which
+// the older sums and O shrink. Bit 2 j + e of valid[r] says whether that pair may be
+// used (MASKED tiles only).
+template <int BK, bool MASKED>
+__device__ __forceinline__ void exp_tile(float (&s)[BK / 2], float (&m_run)[2], float (&l_run)[2],
+                                         float (&corr)[2], const uint32_t (&valid)[2],
+                                         float qk_scale) {
 #pragma unroll
-  for (int r = 0; r < ROWS_PER_WARP; ++r) {
-    m_run[r] = NEG_INF;
-    l_run[r] = 0.f;
-    u_run[r] = 0.f;
+  for (int r = 0; r < 2; ++r) {
+    float mx = NEG_INF;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * j + 2 * r + e;
+        if (MASKED) s[i] = (valid[r] >> (2 * j + e)) & 1 ? s[i] * qk_scale : NEG_INF;
+        mx = fmaxf(mx, s[i]);
+      }
+    }
+    if (!MASKED) mx *= qk_scale;  // qk_scale > 0: the max of the scaled scores
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m_run[r], mx);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * j + 2 * r + e;
+        if (MASKED) {
+          // explicit zero: with m_new = NEG_INF the exponent of a masked pair is 0
+          s[i] = (valid[r] >> (2 * j + e)) & 1 ? ex2(s[i] - m_new) : 0.f;
+        } else {
+          s[i] = ex2(fmaf(s[i], qk_scale, -m_new));
+        }
+        sum += s[i];
+      }
+    }
+    corr[r] = ex2(m_run[r] - m_new);
+    l_run[r] = l_run[r] * corr[r] + sum;
+    m_run[r] = m_new;
   }
+}
 
+// P rounded to bf16 into wgmma's A-operand places, and the thread's part of the running
+// sum of the rounded weights (what the PV product applies)
+template <int BK>
+__device__ __forceinline__ void pack_tile(const float (&p)[BK / 2], uint32_t (&pa)[BK / 16][4],
+                                          float (&u_run)[2], const float (&corr)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float used = 0.f;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const uint32_t packed = pack_bf16(p[4 * j + 2 * r], p[4 * j + 2 * r + 1]);
+      used += bf16_lo(packed) + bf16_hi(packed);
+      pa[j / 2][(j % 2) * 2 + r] = packed;
+    }
+    u_run[r] = u_run[r] * corr[r] + used;
+  }
+}
+
+// exp_tile on the tile at k0 for the warpgroup's rows wg_lo .. wg_hi: the per-element path
+// only where a key is masked or the tile crosses the diagonal or the window's edge.
+// key_ok: this lane's key of each 32 of the tile (inside T and unpadded).
+template <int BK>
+__device__ __forceinline__ void score_tile(float (&s)[BK / 2], float (&m_run)[2],
+                                           float (&l_run)[2], float (&corr)[2],
+                                           const int (&key_ok)[BK / 32], int k0, int row, int tq,
+                                           int wg_lo, int wg_hi, int causal, int window,
+                                           float qk_scale) {
+  uint32_t words[BK / 32];
+  bool masked = (causal && k0 + BK - 1 > wg_lo) || (window > 0 && k0 <= wg_hi - window);
+#pragma unroll
+  for (int w = 0; w < BK / 32; ++w) {
+    words[w] = __ballot_sync(0xffffffffu, key_ok[w] != 0);
+    masked = masked || words[w] != 0xffffffffu;
+  }
+  uint32_t valid[2] = {0, 0};
+  if (!masked) {
+    exp_tile<BK, false>(s, m_run, l_run, corr, valid, qk_scale);
+    return;
+  }
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int q_pos = row + 8 * rr;
+    // the thread's keys relative to k0 that this row may see: [lo, hi]
+    const int hi = causal ? q_pos - k0 : BK;
+    const int lo = window > 0 ? q_pos - window + 1 - k0 : 0;
+    uint32_t bits = 0;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + 2 * tq + e;
+        const uint32_t ok = (words[j / 4] >> (8 * (j % 4) + 2 * tq + e)) & (c <= hi) & (c >= lo);
+        bits |= ok << (2 * j + e);
+      }
+    }
+    valid[rr] = bits;
+  }
+  exp_tile<BK, true>(s, m_run, l_run, corr, valid, qk_scale);
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
+                 const __grid_constant__ CUtensorMap map_k,
+                 const __grid_constant__ CUtensorMap map_v, const int* __restrict__ kv_mask,
+                 bf16* __restrict__ out, float* __restrict__ lse, float* __restrict__ out_f32,
+                 int T, int Hq, int Hkv, long long sob, long long sot, long long soh,
+                 float scale, int causal, int window) {
+  using C = Cfg<D>;
+  constexpr int BK = C::BK, STAGES = C::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sq = smem_addr(align_1024(smem_raw));
+  const uint32_t ring = sq + C::Q_BYTES;
+  const uint32_t full = ring + STAGES * C::STAGE_BYTES, empty = full + 8 * STAGES;
+  const uint32_t q_full = empty + 8 * STAGES;
+
+  // the last query tiles first: under a causal mask they hold the most work
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const int active_wgs = q0 + 64 < T ? 2 : 1;  // a warpgroup whose rows all lie past T leaves
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * active_wgs);  // lane 0 of each consumer warp
+    }
+    mbar_init(q_full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // the K/V tiles this CTA's rows can see (ops/flash_attention.py:kv_tile_range)
   int kt_end = (T + BK - 1) / BK;
   if (causal) kt_end = min(kt_end, (q0 + BQ - 1) / BK + 1);
-  int kt_begin = 0;
-  if (window > 0) kt_begin = max(0, q0 - window + 1) / BK;
+  const int kt_begin = window > 0 ? max(0, q0 - window + 1) / BK : 0;
+  const int wg = threadIdx.x / 128;
 
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<D>(sK, kb + k0 * skt, skt, min(BK, T - k0), BK);
-    load_tile<D>(sV, vb + k0 * svt, svt, min(BK, T - k0), BK);
-    __syncthreads();
-
-    // S[row0:row0+16, 0:BK] = Q K^T for this warp's rows
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[BK / 16];
+  if (wg == 2) {
+    reg_dealloc<40>();
+    if (threadIdx.x != 256) return;
+    mbar_expect_tx(q_full, C::Q_BYTES);
 #pragma unroll
-      for (int n = 0; n < BK / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
-      for (int kd = 0; kd < DP / 16; ++kd) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, sQ + row0 * DP + kd * 16, DP);
+    for (int kb = 0; kb < C::NB; ++kb)
+      tma_load_4d(sq + kb * C::Q_BLOCK, &map_q, q_full, 64 * kb, q0, h, b);
+    RingPos r;
+    for (int kt = kt_begin; kt < kt_end; ++kt) {
+      const uint32_t st = ring + r.stage * C::STAGE_BYTES, bar = full + 8 * r.stage;
+      mbar_wait(empty + 8 * r.stage, r.phase ^ 1);
+      mbar_expect_tx(bar, C::STAGE_BYTES);
 #pragma unroll
-        for (int n = 0; n < BK / 16; ++n) {
-          // K stored [BK][DP] row-major is K^T [DP][BK] column-major
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bt;
-          wmma::load_matrix_sync(bt, sK + n * 16 * DP + kd * 16, DP);
-          wmma::mma_sync(acc[n], a, bt, acc[n]);
-        }
+      for (int kb = 0; kb < C::NB; ++kb) {
+        tma_load_4d(st + kb * C::KV_BLOCK, &map_k, bar, 64 * kb, kt * BK, hk, b);
+        tma_load_4d(st + C::TILE_BYTES + kb * C::KV_BLOCK, &map_v, bar, 64 * kb, kt * BK, hk, b);
       }
-#pragma unroll
-      for (int n = 0; n < BK / 16; ++n)
-        wmma::store_matrix_sync(sS + row0 * BK + n * 16, acc[n], BK, wmma::mem_row_major);
+      r.advance<STAGES>();
     }
-    __syncwarp();
-
-    // online softmax over this tile, one row at a time; lane owns columns lane, lane+32
-#pragma unroll
-    for (int r = 0; r < ROWS_PER_WARP; ++r) {
-      const int row = row0 + r;
-      const int q_pos = q0 + row;
-      float s[BK / 32];
-      bool ok[BK / 32];
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < BK / 32; ++j) {
-        const int col = lane + 32 * j;
-        const int k_pos = k0 + col;
-        bool valid = k_pos < T;
-        if (causal) valid = valid && k_pos <= q_pos;
-        if (window > 0) valid = valid && k_pos > q_pos - window;
-        if (mb) valid = valid && k_pos < T && mb[min(k_pos, T - 1)] != 0;
-        ok[j] = valid;
-        s[j] = valid ? sS[row * BK + col] * qk_scale : NEG_INF;
-        mx = fmaxf(mx, s[j]);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_run[r], mx);
-      float sum = 0.f, used = 0.f;
-#pragma unroll
-      for (int j = 0; j < BK / 32; ++j) {
-        const float p = ok[j] ? exp2f(s[j] - m_new) : 0.f;  // explicit zero: see header
-        const bf16 pb = __float2bfloat16(p);
-        sum += p;
-        used += __bfloat162float(pb);
-        sP[row * BK + lane + 32 * j] = pb;
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-        used += __shfl_xor_sync(0xffffffffu, used, off);
-      }
-      const float corr = exp2f(m_run[r] - m_new);
-      l_run[r] = l_run[r] * corr + sum;
-      u_run[r] = u_run[r] * corr + used;
-      m_run[r] = m_new;
-      if (lane == 0) sCorr[row] = corr;
-    }
-    __syncwarp();
-
-    // O[rows] *= corr, then O[rows] += P V
-    for (int i = lane; i < ROWS_PER_WARP * DP; i += 32) {
-      const int row = row0 + i / DP;
-      sO[row * DP + i % DP] *= sCorr[row];
-    }
-    __syncwarp();
-    for (int n = 0; n < DP / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> o;
-      wmma::load_matrix_sync(o, sO + row0 * DP + n * 16, DP, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
-        wmma::load_matrix_sync(a, sP + row0 * BK + kk * 16, BK);
-        wmma::load_matrix_sync(bv, sV + kk * 16 * DP + n * 16, DP);
-        wmma::mma_sync(o, a, bv, o);
-      }
-      wmma::store_matrix_sync(sO + row0 * DP + n * 16, o, DP, wmma::mem_row_major);
-    }
+    return;
   }
-  __syncwarp();
 
-  // epilogue: out = O / max(u, 1e-30); lse = m + log(l) in natural-log units (see
-  // the header)
+  reg_alloc<232>();
+  if (wg >= active_wgs) return;
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  const int tq = lane % 4;
+  const int wg_lo = q0 + 64 * wg, wg_hi = wg_lo + 63;  // this warpgroup's rows
+  const int row = wg_lo + 16 * warp + lane / 4;         // this thread's rows: row, row + 8
+  const float qk_scale = scale * LOG2E;                 // exp2 domain
+  const int* mb = kv_mask ? kv_mask + (long long)b * T : nullptr;
+
+  float o[D / 2];
 #pragma unroll
-  for (int r = 0; r < ROWS_PER_WARP; ++r) {
-    const int row = row0 + r;
-    const int t = q0 + row;
-    if (t >= T) continue;
-    const float l_safe = fmaxf(l_run[r], 1e-30f);
-    const float inv = 1.f / fmaxf(u_run[r], 1e-30f);
-    bf16* ob = out + b * sob + t * sot + h * soh;
-    for (int c = lane; c < D; c += 32) ob[c] = __float2bfloat16(sO[row * DP + c] * inv);
-    if (out_f32) {
-      float* of = out_f32 + (((long long)b * T + t) * Hq + h) * D;
-      for (int c = lane; c < D; c += 32) of[c] = sO[row * DP + c] * inv;
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  // per row: running max (log2 domain), this thread's part of the fp32 sum of the
+  // weights (for lse) and of the sum of their bf16 roundings (what PV applies, for O)
+  float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f}, u_run[2] = {0.f, 0.f};
+
+  // this lane's key of each 32 of the tile at kt: inside T and unpadded
+  auto load_key_ok = [&](int (&key_ok)[BK / 32], int kt) {
+#pragma unroll
+    for (int w = 0; w < BK / 32; ++w) {
+      const int kp = kt * BK + 32 * w + lane;
+      key_ok[w] = kp < T ? (mb ? mb[kp] : 1) : 0;
     }
-    if (lane == 0) lse[((long long)b * Hq + h) * T + t] = m_run[r] / LOG2E + logf(l_safe);
+  };
+  // S = Q K^T on the stage at rp, one group
+  auto start_scores = [&](float (&s)[BK / 2], const RingPos& rp) {
+    const uint32_t st = ring + rp.stage * C::STAGE_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kd = 0; kd < C::KSTEPS; ++kd)
+      WgmmaSS<BK, 0>::run(
+          s, smem_desc(sq + (kd / 4) * C::Q_BLOCK + wg * 8192 + 32 * (kd % 4), 16, 1024),
+          smem_desc(st + (kd / 4) * C::KV_BLOCK + 32 * (kd % 4), 16, 1024), kd != 0);
+    wgmma_commit();
+  };
+  // a tile that lies wholly outside this warpgroup's rows' range is only handed back
+  auto pass = [&](RingPos& rp) {
+    mbar_wait(full + 8 * rp.stage, rp.phase);
+    if (lane == 0) mbar_arrive(empty + 8 * rp.stage);
+    rp.advance<STAGES>();
+  };
+
+  // the tiles that this warpgroup's own rows can see
+  const int wg_begin = window > 0 ? max(kt_begin, max(0, wg_lo - window + 1) / BK) : kt_begin;
+  const int wg_end = causal ? min(kt_end, wg_hi / BK + 1) : kt_end;
+
+  mbar_wait(q_full, 0);
+  RingPos r;
+  for (int kt = kt_begin; kt < wg_begin; ++kt) pass(r);
+
+  for (int kt = wg_begin; kt < wg_end; ++kt) {
+    float s[BK / 2], corr[2];
+    uint32_t pa[BK / 16][4];
+    int key_ok[BK / 32];
+    load_key_ok(key_ok, kt);
+    mbar_wait(full + 8 * r.stage, r.phase);
+    start_scores(s, r);
+    wgmma_wait<0>();
+    fence_regs(s);
+    score_tile<BK>(s, m_run, l_run, corr, key_ok, kt * BK, row, tq, wg_lo, wg_hi, causal, window,
+                   qk_scale);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i / 2) % 2];
+    pack_tile<BK>(s, pa, u_run, corr);
+    const uint32_t st = ring + r.stage * C::STAGE_BYTES;
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      WgmmaRS<D, 1>::run(o, pa[kk], smem_desc(st + C::TILE_BYTES + 2048 * kk, C::KV_BLOCK, 1024),
+                         1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    keep_regs(pa);
+    if (lane == 0) mbar_arrive(empty + 8 * r.stage);
+    r.advance<STAGES>();
+  }
+  for (int kt = wg_end; kt < kt_end; ++kt) pass(r);
+
+  // epilogue: out = O / max(u, 1e-30); lse = m + log(l) in natural-log units
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    float l = l_run[rr], u = u_run[rr];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    u += __shfl_xor_sync(0xffffffffu, u, 1);
+    u += __shfl_xor_sync(0xffffffffu, u, 2);
+    const int q_pos = row + 8 * rr;
+    if (q_pos >= T) continue;
+    const float inv = 1.f / fmaxf(u, 1e-30f);
+    bf16* ob = out + b * sob + q_pos * sot + h * soh + 2 * tq;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(ob + 8 * j) =
+          pack_bf16(o[4 * j + 2 * rr] * inv, o[4 * j + 2 * rr + 1] * inv);
+    if (out_f32) {
+      float* of = out_f32 + (((long long)b * T + q_pos) * Hq + h) * D + 2 * tq;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(of + 8 * j) =
+            make_float2(o[4 * j + 2 * rr] * inv, o[4 * j + 2 * rr + 1] * inv);
+    }
+    if (tq == 0)
+      lse[((long long)b * Hq + h) * T + q_pos] = m_run[rr] * LN2 + logf(fmaxf(l, 1e-30f));
   }
 }
 
+struct Args {
+  const void *q, *k, *v, *kv_mask;
+  void *out, *lse, *out_f32;
+  int B, T, Hq, Hkv;
+  const long long* maps;  // q, k, v: 11 numbers each (tensor_map.cuh:make_map_4d)
+  int bq, bk;
+  long long sob, sot, soh;
+  float scale;
+  int causal, window;
+  cudaStream_t stream;
+};
+
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* kv_mask,
-                   void* out, void* lse, void* out_f32, int B, int T, int Hq, int Hkv,
-                   long long sqb, long long sqt, long long sqh,
-                   long long skb, long long skt, long long skh,
-                   long long svb, long long svt, long long svh,
-                   long long sob, long long sot, long long soh,
-                   float scale, int causal, int window, cudaStream_t stream) {
-  constexpr size_t bytes = smem_bytes<D>();
+cudaError_t launch(const Args& a) {
+  using C = Cfg<D>;
+  if (a.bq != BQ || a.bk != C::BK) return cudaErrorInvalidValue;  // the wrapper's plan is another
+  CUtensorMap map_q, map_k, map_v;
+  if (!tmap::make_map_4d(&map_q, a.q, a.maps) || !tmap::make_map_4d(&map_k, a.k, a.maps + 11) ||
+      !tmap::make_map_4d(&map_v, a.v, a.maps + 22))
+    return cudaErrorNotSupported;
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)bytes);
+                                         (int)C::SMEM);
   if (err != cudaSuccess) return err;
-  dim3 grid((T + BQ - 1) / BQ, Hq, B);
-  flash_fwd_kernel<D><<<grid, THREADS, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const int*>(kv_mask), static_cast<bf16*>(out), static_cast<float*>(lse),
-      static_cast<float*>(out_f32), T, Hq, Hkv, sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sob, sot, soh,
-      scale, causal, window);
+  dim3 grid((a.T + BQ - 1) / BQ, a.Hq, a.B);
+  flash_fwd_kernel<D><<<grid, THREADS, C::SMEM, a.stream>>>(
+      map_q, map_k, map_v, static_cast<const int*>(a.kv_mask), static_cast<bf16*>(a.out),
+      static_cast<float*>(a.lse), static_cast<float*>(a.out_f32), a.T, a.Hq, a.Hkv, a.sob, a.sot,
+      a.soh, a.scale, a.causal, a.window);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// q [B, T, Hq, D], k and v [B, T, Hkv, D] bf16 with any 16-byte aligned strides, described
+// by `maps` (3 x 11 numbers: dims, byte strides and box of each tensor's 4-D tensor map,
+// planned by ops/flash_attention.py:tensor_map_plan for tiles of bq query rows and bk
+// keys); kv_mask [B, T] int32 or null -> out [B, T, Hq, D] bf16 (strides sob, sot, soh in
+// elements), lse [B, Hq, T] fp32, out_f32 dense [B, T, Hq, D] fp32 or null.
 extern "C" int flash_attn_fwd_bf16(const void* q, const void* k, const void* v,
                                    const void* kv_mask, void* out, void* lse, void* out_f32,
-                                   int B, int T, int Hq, int Hkv, int D,
-                                   long long sqb, long long sqt, long long sqh,
-                                   long long skb, long long skt, long long skh,
-                                   long long svb, long long svt, long long svh,
-                                   long long sob, long long sot, long long soh,
+                                   int B, int T, int Hq, int Hkv, int D, const long long* maps,
+                                   int bq, int bk, long long sob, long long sot, long long soh,
                                    float scale, int causal, int window, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PTT_FLASH_CASE(DIM)                                                              \
-  case DIM:                                                                              \
-    return (int)launch<DIM>(q, k, v, kv_mask, out, lse, out_f32, B, T, Hq, Hkv, sqb, sqt, \
-                            sqh, skb, skt, skh, svb, svt, svh, sob, sot, soh, scale,     \
-                            causal, window, s);
+  if (!(scale > 0.f)) return (int)cudaErrorInvalidValue;
+  const Args a{q, k, v, kv_mask, out, lse, out_f32, B, T, Hq, Hkv, maps, bq, bk,
+               sob, sot, soh, scale, causal, window, static_cast<cudaStream_t>(stream)};
   switch (D) {
-    PTT_FLASH_CASE(64)
-    PTT_FLASH_CASE(72)
-    PTT_FLASH_CASE(128)
-    PTT_FLASH_CASE(256)
+    case 64:
+      return (int)launch<64>(a);
+    case 72:
+      return (int)launch<72>(a);
+    case 128:
+      return (int)launch<128>(a);
+    case 256:
+      return (int)launch<256>(a);
     default:
       return (int)cudaErrorInvalidValue;
   }
-#undef PTT_FLASH_CASE
 }

@@ -79,9 +79,9 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <dlfcn.h>
 #include <stdint.h>
 
+#include "tensor_map.cuh"
 #include "wgmma_sm90.cuh"
 
 using namespace sm90;
@@ -491,34 +491,13 @@ __global__ void fused_ce_bwd_combine(const float* __restrict__ part, float* __re
 
 bool supported(int D) { return D > 0 && D % DK == 0; }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from libcuda, which the process has loaded already (the
-// kernels' library is linked against the runtime only)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
-    return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
-  }();
-  return fn;
-}
-
 // tensor map of a row-major bf16 [rows, cols] matrix cut into boxes of [BOX rows x 64
 // columns], written to shared memory with the 128-byte swizzle
 bool make_map(CUtensorMap* map, const void* base, int rows, int cols) {
-  EncodeTiled encode = encode_tiled();
-  if (!encode) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
   const cuuint32_t box[2] = {DK, BOX};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return tmap::make_map(map, base, 2, dims, strides, box);
 }
 
 }  // namespace

@@ -33,16 +33,17 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 
 # C signatures of the entry points (see the ``extern "C"`` blocks of csrc/*.cu)
 SIGNATURES = {
-    # q, k, v, kv_mask, out, lse, out_f32 (or null); B, T, Hq, Hkv, D;
-    # q/k/v/out strides (b, t, h) in elements; scale, causal, window; stream
-    "flash_attn_fwd_bf16": [_P] * 7 + [_I] * 5 + [_L] * 12 + [_F, _I, _I, _P],
+    # q, k, v, kv_mask, out, lse, out_f32 (or null); B, T, Hq, Hkv, D; tensor maps of
+    # q, k, v (long long[33]); bq, bk; out strides (b, t, h) in elements; scale, causal,
+    # window; stream
+    "flash_attn_fwd_bf16": [_P] * 7 + [_I] * 5 + [_P, _I, _I] + [_L] * 3 + [_F, _I, _I, _P],
     # q, kp, vp, kg, vg, prefix_mask, out; B, nb, Hkv, n_rep, P, G, D;
     # t, prefix_len, window, scale; stream
     "decode_attn_bf16": [_P] * 7 + [_I] * 7 + [_I, _I, _I, _F, _P],
     # q, k, v, kv_mask, dout, lse, delta, dk, dv; B, T, Hq, Hkv, D;
-    # strides (long long[18]: q, k, v, dout, dk, dv, each (b, t, h)); scale, causal,
-    # window; stream
-    "flash_attn_bwd_dkv_bf16": [_P] * 9 + [_I] * 5 + [_P, _F, _I, _I, _P],
+    # strides (long long[18]: q, k, v, dout, dk, dv, each (b, t, h)); tensor maps of q, k,
+    # v, dout (long long[44]); bk, bq; scale, causal, window; stream
+    "flash_attn_bwd_dkv_bf16": [_P] * 9 + [_I] * 5 + [_P, _P, _I, _I, _F, _I, _I, _P],
     # q, k, v, kv_mask, dout, lse, delta, dq; B, T, Hq, Hkv, D;
     # strides (long long[15]: q, k, v, dout, dq); scale, causal, window; stream
     "flash_attn_bwd_dq_bf16": [_P] * 8 + [_I] * 5 + [_P, _F, _I, _I, _P],

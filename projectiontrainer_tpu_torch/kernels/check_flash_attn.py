@@ -1,0 +1,244 @@
+"""Build, check and time the flash-attention forward (K1) and dK/dV backward (K4) on the
+card, without the rest of the smoke run.
+
+    python -m projectiontrainer_tpu_torch.kernels.check_flash_attn [--ptxas] [--time]
+
+Needs an NVIDIA GPU and ``nvcc``. Prints one JSON line per step:
+
+- ``--ptxas``: what ``nvcc -Xptxas -v`` says of ``csrc/flash_attn_fwd.cu`` and
+  ``csrc/flash_attn_bwd.cu`` (registers, spills, shared memory of each kernel, warnings);
+- always: K1's out and lse and K4's dk and dv against the plain versions at the main
+  paths' shapes and at ragged ones (T = 1, 63, 64, one off a tile, windows smaller than a
+  tile, padding that masks whole tiles, GQA, q/k/v sliced out of one fused tensor), with
+  the tolerances of ``chip_smoke.py`` (out and lse: atol = rtol = 2e-2; dk, dv: 2e-2 x
+  max |reference|); fully masked rows must be exactly 0, K1's fp32 copy of O must round to
+  its bf16 O, and a rerun of either kernel must give the same bits. Every case is run
+  before a failure is reported;
+- ``--time``: device times (``utils/timing.py:device_ms``: launches queued behind a
+  spinning kernel, so the host's launch time is not in them) of kernel, plain version and
+  the library call (``scaled_dot_product_attention`` and its autograd backward, a
+  yardstick the port never calls), in turns, at the shapes of PERF.md's table; and for
+  the forward the CUDA-event time of one launch at a time, which holds the host's share.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import statistics
+import subprocess
+import sys
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from projectiontrainer_tpu_torch.kernels import _build
+from projectiontrainer_tpu_torch.ops import flash_attention as FA
+from projectiontrainer_tpu_torch.utils.timing import device_ms
+
+TOL = 2e-2
+# b, t, hq, hkv, d, causal, window, padding (None, "left", "right"), q/k/v sliced of one tensor
+CASES = [
+    (8, 576, 16, 16, 64, False, None, None, False),     # ViT-L tower
+    (16, 1024, 16, 16, 72, False, None, None, False),   # so400m vision tower
+    (16, 64, 16, 16, 72, False, None, None, False),     # so400m text tower
+    (2, 1024, 8, 8, 128, False, None, None, True),      # merged rows, MHA
+    (2, 1024, 8, 2, 128, False, None, None, True),      # merged rows, GQA 8/2
+    (8, 831, 4, 1, 256, True, 512, "left", False),      # Gemma3 prefill
+    (8, 831, 4, 1, 256, True, None, "left", False),
+    (4, 1087, 4, 1, 256, True, 512, "right", False),    # stage-1 decoder
+    (2, 1, 2, 2, 64, False, None, None, False),
+    (2, 63, 4, 4, 72, True, None, None, False),
+    (2, 129, 4, 2, 128, True, 37, "left", False),       # a window smaller than a tile
+    (2, 127, 4, 4, 64, True, None, "right", True),
+    (2, 150, 4, 1, 256, True, 37, "left", False),
+    (2, 300, 4, 2, 72, True, 37, "left", True),         # left padding masks whole tiles
+    (2, 257, 8, 2, 128, False, None, "right", False),
+]
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def ptxas_report() -> None:
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    for source in ("flash_attn_fwd.cu", "flash_attn_bwd.cu"):
+        proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+                               str(_build.BUILD_DIR / "ptxas_report.o"),
+                               str(_build.CSRC / source)], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed:\n{proc.stdout}\n{proc.stderr}")
+        name = None
+        for line in proc.stderr.splitlines():
+            found = re.search(r"Compiling entry function '(\w+)'", line)
+            if found:
+                name = found.group(1)
+            elif "registers" in line or "spill" in line or "warning" in line.lower():
+                emit({"ptxas": name, "line": line.strip()})
+
+
+def one_at_a_time_ms(fn, iters: int = 20) -> float:
+    """Median CUDA-event time around single calls: the card waits for the host to launch
+    each, so for a kernel of tens of microseconds this reads the wrapper's host time."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def inputs(b, t, hq, hkv, d, pad, sliced, seed=11):
+    """q, k, v, dO (bf16) and the padding mask; `sliced`: q, k and v are views into one
+    [B, T, (Hq + 2 Hkv) * D] tensor, as a fused projection would leave them."""
+    rng = np.random.default_rng(seed)
+
+    def bf16(shape):
+        return torch.tensor(rng.standard_normal(shape, dtype=np.float32),
+                            device="cuda").to(torch.bfloat16)
+
+    if sliced:
+        fused = bf16((b, t, (hq + 2 * hkv) * d))
+        q, k, v = (x.view(b, t, -1, d) for x in fused.split([hq * d, hkv * d, hkv * d], dim=-1))
+    else:
+        q, k, v = bf16((b, t, hq, d)), bf16((b, t, hkv, d)), bf16((b, t, hkv, d))
+    mask = None
+    if pad:
+        mask = torch.ones((b, t), dtype=torch.int32, device="cuda")
+        n = max(1, min(t - 1, int(0.47 * t)))
+        if pad == "left":
+            mask[1, :n] = 0
+        else:
+            mask[1, t - n:] = 0
+    return q, k, v, bf16((b, t, hq, d)), mask
+
+
+def rel_err(got, ref) -> float:
+    """max |got - ref| over max |ref| (at T = 1 dk is zero in exact arithmetic: the scale
+    is then held at 1e-3)."""
+    return float((got.float() - ref).abs().max() / ref.abs().max().clamp_min(1e-3))
+
+
+def check(b, t, hq, hkv, d, causal, window, pad, sliced) -> bool:
+    q, k, v, do, mask = inputs(b, t, hq, hkv, d, pad, sliced)
+    kw = dict(scale=d ** -0.5, causal=causal, window=window)
+    out, lse, out32 = FA._launch(q, k, v, kv_mask=mask, out_f32=True, **kw)
+    torch.cuda.synchronize()
+    ref, ref_lse = FA.flash_attention_reference(q.float(), k.float(), v.float(), kv_mask=mask, **kw)
+    live = torch.ones_like(lse, dtype=torch.bool)
+    dead_rows_zero = True
+    if pad == "left":  # rows with no valid key: exactly 0, lse undefined
+        live = mask.bool()[:, None, :].expand_as(lse)
+        dead_rows_zero = bool(out[~mask.bool()].eq(0).all())
+    err = (out.float() - ref).abs()
+    lse_err = (lse - ref_lse)[live].abs()
+    lse_tol = TOL + TOL * ref_lse[live].abs()
+    again = FA._launch(q, k, v, kv_mask=mask, out_f32=True, **kw)
+    row = {"case": [b, t, hq, hkv, d, causal, window, pad, sliced],
+           "out_err": float(err.max()), "lse_err": float(lse_err.max()),
+           "out_ok": bool((err <= TOL + TOL * ref.abs()).all() and out.isfinite().all()),
+           "lse_ok": bool((lse_err <= lse_tol).all()),
+           "dead_rows_zero": dead_rows_zero,
+           "f32_rounds_to_bf16": bool(torch.equal(out32.to(torch.bfloat16), out)),
+           "fwd_bit_equal": bool(torch.equal(out, again[0]) and torch.equal(lse[live], again[1][live])
+                                 and torch.equal(out32, again[2]))}
+    prep = FA.prepare_bwd(q, k, v, mask, out32, lse, do)
+    args = (q, k, v, prep[0], prep[1], lse, prep[2])
+    dk, dv = FA.launch_bwd_dkv(*args, **kw)
+    torch.cuda.synchronize()
+    _, rk, rv = FA.flash_attention_bwd_reference(q.float(), k.float(), v.float(), mask, out32, lse,
+                                                 do.float(), **kw)
+    dk2, dv2 = FA.launch_bwd_dkv(*args, **kw)
+    row.update({"dk_rel": rel_err(dk, rk), "dv_rel": rel_err(dv, rv),
+                "dkv_finite": bool(dk.isfinite().all() and dv.isfinite().all()),
+                "dkv_bit_equal": bool(torch.equal(dk, dk2) and torch.equal(dv, dv2))})
+    row["ok"] = bool(row["out_ok"] and row["lse_ok"] and dead_rows_zero
+                     and row["f32_rounds_to_bf16"] and row["fwd_bit_equal"] and row["dkv_finite"]
+                     and row["dk_rel"] <= TOL and row["dv_rel"] <= TOL and row["dkv_bit_equal"])
+    emit(row)
+    return row["ok"]
+
+
+def sdpa(q, k, v, mask, scale, causal):
+    """F.scaled_dot_product_attention on [B, T, H, D] tensors -> (fn, backend that ran)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        def fn(backend=backend):
+            with sdpa_kernel(backend):
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None, scale=scale,
+                    enable_gqa=q.shape[2] != k.shape[2])
+        try:
+            fn()
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        return fn, backend.name
+    raise RuntimeError("no scaled_dot_product_attention backend took these inputs")
+
+
+def time_case(b, t, hq, hkv, d, causal, window, pad, sliced) -> None:
+    from projectiontrainer_tpu_torch.ops.attention import attention_probs
+
+    q, k, v, do, mask = inputs(b, t, hq, hkv, d, pad, sliced)
+    kw = dict(scale=d ** -0.5, causal=causal, window=window)
+    out, lse, _ = FA._launch(q, k, v, kv_mask=mask, **kw)
+    prep = FA.prepare_bwd(q, k, v, mask, out, lse, do)
+    args = (q, k, v, prep[0], prep[1], lse, prep[2])
+    seen = None
+    if mask is not None or window is not None:  # the library call takes one explicit mask
+        seen = attention_probs(q[:, :, :1], k[:, :, :1], kv_mask=mask, **kw)[1]
+    lib, backend = sdpa(q, k, v, seen, kw["scale"], causal)
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    lib_out = sdpa(*leaves, seen, kw["scale"], causal)[0]()
+    dout = do.transpose(1, 2)
+    rows = {}
+    for _ in range(2):  # in turns
+        for name, fn in (
+                ("fwd_plain", lambda: FA.flash_attention_reference(q, k, v, kv_mask=mask, **kw)),
+                ("fwd_kernel", lambda: FA._launch(q, k, v, kv_mask=mask, **kw)),
+                ("fwd_library", lib),
+                ("dkv_kernel", lambda: FA.launch_bwd_dkv(*args, **kw)),
+                ("dq_kernel", lambda: FA.launch_bwd_dq(*args, **kw)),
+                ("bwd_library_dq_dk_dv",
+                 lambda: torch.autograd.grad(lib_out, leaves, dout, retain_graph=True))):
+            rows.setdefault(name, []).append(device_ms(fn))
+    rows["fwd_kernel_one_at_a_time"] = one_at_a_time_ms(
+        lambda: FA._launch(q, k, v, kv_mask=mask, **kw))
+    rows["fwd_library_one_at_a_time"] = one_at_a_time_ms(lib)
+    emit({"case": [b, t, hq, hkv, d, causal, window, pad, sliced], "library": backend, "ms": rows})
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--ptxas", action="store_true")
+    ap.add_argument("--time", action="store_true")
+    ap.add_argument("--cases", type=int, default=len(CASES), help="check the first K cases")
+    args = ap.parse_args()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    emit({"card": smi, "python": sys.version.split()[0], "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+    if args.ptxas:
+        ptxas_report()
+    _build.library()
+    emit({"build_s": _build.build_seconds})
+    ok = [check(*case) for case in CASES[:args.cases]]
+    if args.time:
+        for case in CASES[:8]:
+            time_case(*case)
+    return 0 if all(ok) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -20,7 +20,6 @@ from __future__ import annotations
 import argparse
 import json
 import re
-import statistics
 import subprocess
 import sys
 
@@ -30,6 +29,7 @@ import torch.nn.functional as F
 
 from projectiontrainer_tpu_torch.kernels import _build
 from projectiontrainer_tpu_torch.ops import fused_ce as CE
+from projectiontrainer_tpu_torch.utils.timing import device_ms
 
 SHAPES = [(100, 1000, 128), (300, 5000, 256), (1, 128, 64), (127, 513, 192), (257, 1025, 1152),
           (64, 2000, 2560), (2048, 262144, 1152)]
@@ -53,20 +53,6 @@ def ptxas_report() -> None:
             name = found.group(1)
         elif "registers" in line or "spill" in line or "warning" in line.lower():
             emit({"ptxas": name, "line": line.strip()})
-
-
-def cuda_ms(fn, iters: int = 10) -> float:
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def inputs(n, v, d, seed=6):
@@ -130,7 +116,7 @@ def time_main_shape() -> None:
                          ("plain_bwd", lambda: CE.fused_ce_bwd_reference(h, w, labels, lse, g)),
                          ("kernel_bwd", lambda: CE.fused_ce_bwd(h, w, labels, lse, g)),
                          ("library_fwd_bwd", library_fwd_bwd)):
-            rows.setdefault(name, []).append(cuda_ms(fn))
+            rows.setdefault(name, []).append(device_ms(fn))
     emit({"shape": [n, v, d], "ms": rows})
 
 

@@ -16,8 +16,15 @@ will follow, the forward kernel also writes O in fp32 and the backward takes del
 from that copy, not from the bf16 output (see ``csrc/flash_attn_fwd.cu``).
 
 Self-attention shapes only (``Tq == Tk``): the towers (non-causal) and the decoder
-(causal, sliding window, padding mask, GQA). Head dims 64, 72 (so400m; the kernels pad
-it to 80 in shared memory, nothing is padded here), 128 and 256.
+(causal, sliding window, padding mask, GQA). Head dims 64, 72 (so400m; the kernels fill
+its rows up with zeros on the chip, nothing is padded here), 128 and 256.
+
+What a launch decides on the host is in plain functions here, which the CPU tests
+reach: the tiles of each kernel by head dim (``forward_plan``, ``dkv_plan``), the K/V
+tiles a query tile visits and the query tiles a key tile visits under the causal mask
+and the window (``kv_tile_range``, ``q_tile_range``; the kernels compute the same
+bounds), and the 4-D tensor map of a strided ``[B, T, H, D]`` tensor
+(``tensor_map_plan``), through which the TMA unit reads q, k and v as they lie.
 
 ``flash_attention_merged`` is the counterpart of the TPU's merged-lane kernels
 (``_fwd_lanes_kernel``, ``_bwd_dkv_lanes_kernel``, ``_bwd_dq_lanes_kernel`` via
@@ -40,6 +47,59 @@ launches = _build.LaunchCounter("flash_attn_fwd")
 bwd_dkv_launches = _build.LaunchCounter("flash_attn_bwd_dkv")
 bwd_dq_launches = _build.LaunchCounter("flash_attn_bwd_dq")
 HEAD_DIMS = (64, 72, 128, 256)
+TMA_COLUMNS = 64  # bf16 columns of a 128-byte-swizzled TMA box
+
+
+def forward_plan(d: int) -> dict:
+    """K1's tiles at head dim d: ``bq`` query rows a CTA (two warpgroups of 64) and
+    ``bk`` keys a ring stage (64 at d = 256, where O alone is 128 registers a thread)."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {d} not supported (takes {HEAD_DIMS})")
+    return {"bq": 128, "bk": 64 if d > 128 else 128}
+
+
+def dkv_plan(d: int) -> dict:
+    """K4's tiles at head dim d: ``bk`` keys a CTA and ``bq`` queries a ring stage. 128
+    keys (two warpgroups of 64) and 64 queries at 64 and 72; 32 queries at 128, where dK
+    and dV are 128 registers a thread; at 256 the two warpgroups share 64 keys and split
+    the columns of dK and dV, again 128 registers a thread and 32 queries."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {d} not supported (takes {HEAD_DIMS})")
+    return {"bk": 64 if d > 128 else 128, "bq": 64 if d <= 72 else 32}
+
+
+def kv_tile_range(q0: int, bq: int, bk: int, t: int, causal: bool, window: Optional[int]):
+    """[begin, end) of the K/V tiles of ``bk`` keys that the query rows q0 .. q0 + bq - 1
+    of a length-t sequence visit: tiles wholly above the diagonal (causal) or wholly
+    below the window are left out."""
+    end = -(-t // bk)
+    if causal:
+        end = min(end, (q0 + bq - 1) // bk + 1)
+    begin = max(0, q0 - window + 1) // bk if window else 0
+    return begin, end
+
+
+def q_tile_range(k0: int, bk: int, bq: int, t: int, causal: bool, window: Optional[int]):
+    """[begin, end) of the query tiles of ``bq`` rows that can see a key of k0 ..
+    k0 + bk - 1: K4's loop for one key tile."""
+    lo = k0 if causal else 0
+    hi = min(t, k0 + bk - 1 + window) if window else t
+    return lo // bq, -(-hi // bq)
+
+
+def tensor_map_plan(x, box_rows: int) -> list:
+    """The 4-D tensor map of a [B, T, H, D] bf16 tensor with unit stride on D, as 11
+    numbers: dims (D, T, H, B), byte strides of (T, H, B), box (columns, rows, 1, 1).
+    D is a dimension of its own, so a 64-column box that runs past D (head dim 72) is
+    zero-filled instead of reading the next head, and so is a box that runs past T. A
+    merged or sliced view differs only in its strides; an axis of size 1 gets a dense
+    stride, whatever the tensor says of it."""
+    b, t, h, d = x.shape
+    sb, st, sh, _ = x.stride()
+    sh = sh if h > 1 else d
+    st = st if t > 1 else h * sh
+    sb = sb if b > 1 else t * st
+    return [d, t, h, b, 2 * st, 2 * sh, 2 * sb, min(TMA_COLUMNS, d), box_rows, 1, 1]
 
 
 def flash_attention_reference(q, k, v, *, scale: Optional[float] = None,
@@ -119,21 +179,29 @@ def _mask_arg(kv_mask, q):
     return mask
 
 
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
 def _launch(q, k, v, *, scale, causal, window, kv_mask, out_f32: bool = False):
     """K1 -> (out, lse, fp32 copy of out or None)."""
     b, t, hq, d = q.shape
     hkv = k.shape[2]
     _check_shapes(q, k, v)
+    if not scale > 0:
+        raise ValueError(f"flash_attention: scale must be positive, got {scale}")
     mask = _mask_arg(kv_mask, q)
+    plan = forward_plan(d)
+    maps = (ctypes.c_longlong * 33)(*tensor_map_plan(q, plan["bq"]),
+                                    *tensor_map_plan(k, plan["bk"]),
+                                    *tensor_map_plan(v, plan["bk"]))
     lib = _build.library()
     out = torch.empty((b, t, hq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, hq, t), dtype=torch.float32, device=q.device)
     out32 = torch.empty((b, t, hq, d), dtype=torch.float32, device=q.device) if out_f32 else None
     err = lib.flash_attn_fwd_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), None if mask is None else mask.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), None if out32 is None else out32.data_ptr(),
-        b, t, hq, hkv, d,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), out.data_ptr(), lse.data_ptr(),
+        _ptr(out32), b, t, hq, hkv, d, maps, plan["bq"], plan["bk"], *out.stride()[:3],
         float(scale), int(causal), int(window or 0),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -158,21 +226,20 @@ def prepare_bwd(q, k, v, kv_mask, out, lse, do):
     return _mask_arg(kv_mask, q), do, delta
 
 
-def _ptr(x):
-    return None if x is None else x.data_ptr()
-
-
 def launch_bwd_dkv(q, k, v, mask, do, lse, delta, *, scale, causal, window):
     """K4 on prepared inputs (``prepare_bwd``) -> (dk, dv)."""
     b, t, hq, d = q.shape
     hkv = k.shape[2]
+    plan = dkv_plan(d)
     dk = torch.empty((b, t, hkv, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, t, hkv, d), dtype=v.dtype, device=q.device)
     strides = (ctypes.c_longlong * 18)(*(s for x in (q, k, v, do, dk, dv) for s in x.stride()[:3]))
+    maps = (ctypes.c_longlong * 44)(*tensor_map_plan(q, plan["bq"]), *tensor_map_plan(k, plan["bk"]),
+                                    *tensor_map_plan(v, plan["bk"]), *tensor_map_plan(do, plan["bq"]))
     err = _build.library().flash_attn_bwd_dkv_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t, hq, hkv, d, strides,
-        float(scale), int(causal), int(window or 0),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t, hq, hkv, d, strides, maps,
+        plan["bk"], plan["bq"], float(scale), int(causal), int(window or 0),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("flash_attn_bwd_dkv_bf16", err)
     bwd_dkv_launches.add()

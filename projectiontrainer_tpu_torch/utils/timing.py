@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import bisect
 import os
+import statistics
 import time
 from collections import defaultdict
 from typing import Optional
@@ -32,30 +33,26 @@ def span(name: str):
     return torch.profiler.record_function(SPAN + name)
 
 
-def span_times(events, *, device: bool, steps: int = 1) -> dict:
-    """Per-step milliseconds of each ``span`` in a profile's events: ``<name>_fwd_ms``
-    for the ops inside the span, ``<name>_bwd_ms`` for the backward ops that
-    differentiate them (matched by autograd sequence number, so a remat recompute
-    counts to its layer's backward), ``other_ms`` for the rest and ``total_ms``.
-    ``device``: kernel time on the card (``device_time_total``), else host time."""
-    attr = "device_time_total" if device else "cpu_time_total"
-    cpu = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+def _outer(e):
+    """(the span around e or None, e's outermost ancestor)"""
+    name = None
+    while True:
+        if name is None and e.name.startswith(SPAN):
+            name = e.name[len(SPAN):]
+        if e.cpu_parent is None:
+            return name, e
+        e = e.cpu_parent
 
+
+def _root_labels(cpu) -> dict:
+    """id of each outermost CPU event -> ``<span>_fwd`` for a span, ``<span>_bwd`` for a
+    backward node that differentiates ops of that span (matched by autograd sequence
+    number, so a remat recompute counts to its layer's backward), ``other`` for the rest."""
     backward = "autograd::engine::evaluate_function"
-
-    def outer(e):  # (the span around e or None, e's outermost ancestor)
-        name = None
-        while True:
-            if name is None and e.name.startswith(SPAN):
-                name = e.name[len(SPAN):]
-            if e.cpu_parent is None:
-                return name, e
-            e = e.cpu_parent
-
     fwd = defaultdict(list)  # forward thread -> [(sequence number, span or None)]
     for e in cpu:
         if e.sequence_nr >= 0 and not e.fwd_thread:
-            name, root = outer(e)
+            name, root = _outer(e)
             if not root.name.startswith(backward):  # not a remat recompute
                 fwd[e.thread].append((e.sequence_nr, name))
     seqs = {}
@@ -63,22 +60,96 @@ def span_times(events, *, device: bool, steps: int = 1) -> dict:
         ops.sort(key=lambda x: x[0])
         seqs[thread] = [s for s, _ in ops]
 
+    labels = {}
+    for e in cpu:
+        if e.cpu_parent is not None:
+            continue
+        label = "other"
+        if e.name.startswith(SPAN):
+            label = f"{e.name[len(SPAN):]}_fwd"
+        elif e.name.startswith(backward) and e.fwd_thread in fwd:
+            i = bisect.bisect_right(seqs[e.fwd_thread], e.sequence_nr) - 1
+            name = fwd[e.fwd_thread][i][1] if i >= 0 else None
+            label = f"{name}_bwd" if name else "other"
+        labels[e.id] = label
+    return labels
+
+
+def span_times(events, *, device: bool, steps: int = 1) -> dict:
+    """Per-step milliseconds of each ``span`` in a profile's events: ``<name>_fwd_ms``
+    for the ops inside the span, ``<name>_bwd_ms`` for the backward ops that
+    differentiate them, ``other_ms`` for the rest and ``total_ms``.
+    ``device``: kernel time on the card (``device_time_total``), else host time."""
+    attr = "device_time_total" if device else "cpu_time_total"
+    cpu = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+    labels = _root_labels(cpu)
     out, total = defaultdict(float), 0.0
     for e in cpu:
         if e.cpu_parent is not None:
             continue
         t = getattr(e, attr) / 1e3
         total += t
-        if e.name.startswith(SPAN):
-            out[f"{e.name[len(SPAN):]}_fwd_ms"] += t
-        elif e.name.startswith(backward) and e.fwd_thread in fwd:
-            i = bisect.bisect_right(seqs[e.fwd_thread], e.sequence_nr) - 1
-            name = fwd[e.fwd_thread][i][1] if i >= 0 else None
-            out[f"{name}_bwd_ms" if name else "other_ms"] += t
-        else:
-            out["other_ms"] += t
+        out[f"{labels[e.id]}_ms"] += t
     out["total_ms"] = total
     return {k: v / steps for k, v in sorted(out.items())}
+
+
+# kernel family -> fragments of the names of its kernels (the first family that matches)
+KERNEL_FAMILIES = (
+    ("attention", ("flash_fwd", "flash_bwd", "decode_attn")),
+    ("fused_ce", ("fused_ce",)),
+    ("layernorm", ("layernorm", "layer_norm")),
+    ("matmul", ("gemm", "gemv", "cutlass", "xmma", "cublas", "nvjet", "splitk", "wgmma")),
+    ("reduce", ("reduce",)),
+    ("copy", ("memcpy", "memset", "copy", "catarray")),
+)
+
+
+def kernel_family(name: str) -> str:
+    """attention, fused_ce, layernorm (the port's own kernels), matmul (the library's
+    matrix products), reduce (sums, means and norms in plain torch), copy, or
+    elementwise for everything else."""
+    low = name.lower()
+    for family, fragments in KERNEL_FAMILIES:
+        if any(f in low for f in fragments):
+            return family
+    return "elementwise"
+
+
+def kernel_families(events, *, steps: int = 1) -> dict:
+    """Per-step milliseconds of the card's kernels by span and family:
+    ``kernels/<span>_<fwd|bwd>/<family>_ms``, the spans as in ``span_times``."""
+    cpu = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+    labels = _root_labels(cpu)
+    out = defaultdict(float)
+    for e in cpu:
+        if e.kernels and not getattr(e, "is_legacy", False):
+            label = labels[_outer(e)[1].id]
+            for k in e.kernels:
+                out[f"kernels/{label}/{kernel_family(k.name)}_ms"] += k.duration / 1e3
+    return {k: v / steps for k, v in sorted(out.items())}
+
+
+def device_ms(fn, *, launches: int = 10, groups: int = 3, hold_cycles: int = 40_000_000) -> float:
+    """Milliseconds one ``fn()`` keeps the card busy: the median over ``groups`` of the
+    CUDA-event time of ``launches`` calls divided by their number. Each group is queued
+    behind a kernel that only spins for ``hold_cycles`` clocks (~20 ms), so the calls
+    run back to back when it ends and the host's time to launch them (tens of
+    microseconds a call from Python, more than a small kernel takes) is not in the
+    reading. One warm-up call comes first."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(groups):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(hold_cycles)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return statistics.median(times)
 
 
 class StepTimer:
@@ -153,7 +224,7 @@ class StepProfiler:
     activity, and the card's kernels when CUDA is available; written to
     ``log_dir/trace_step{start}.json`` (Chrome trace format) on process 0 only. After
     the window, ``breakdown`` holds its ``span_times`` (kernel time on the card, host
-    time without one)."""
+    time without one) and, on the card, its ``kernel_families``."""
 
     def __init__(self, log_dir: Optional[str], *, start_step: int = 10, num_steps: int = 5,
                  rank: int = 0):
@@ -193,7 +264,9 @@ class StepProfiler:
         self._prof.__exit__(None, None, None)
         os.makedirs(self.log_dir, exist_ok=True)
         self._prof.export_chrome_trace(os.path.join(self.log_dir, self._name))
-        self.breakdown = span_times(self._prof.events(), device=torch.cuda.is_available(),
-                                    steps=max(1, self._steps))
+        events, steps = self._prof.events(), max(1, self._steps)
+        self.breakdown = span_times(events, device=torch.cuda.is_available(), steps=steps)
+        if torch.cuda.is_available():
+            self.breakdown.update(kernel_families(events, steps=steps))
         self._prof = None
         self._done = True

@@ -43,39 +43,94 @@ def test_layernorm_kernel(card, d):
     torch.testing.assert_close(got.float(), ref, **TOL)
 
 
-@pytest.mark.parametrize("d,hq,hkv,causal,window,pad", [
-    (64, 4, 4, False, None, False),
-    (72, 4, 4, False, None, False),     # so400m's head dim, padded to 80 in the kernel
-    (72, 4, 2, True, 37, True),
-    (128, 4, 2, True, None, True),
-    (256, 4, 1, True, 37, True),
+def _qkv(rng, b, t, hq, hkv, d, card, sliced=False):
+    """q, k, v; `sliced`: views into one [B, T, (Hq + 2 Hkv) * D] tensor (a fused
+    projection's output split and viewed by head: non-contiguous, strided over T)."""
+    if not sliced:
+        return (_bf16(rng, (b, t, hq, d), card), _bf16(rng, (b, t, hkv, d), card),
+                _bf16(rng, (b, t, hkv, d), card))
+    fused = _bf16(rng, (b, t, (hq + 2 * hkv) * d), card)
+    return tuple(x.view(b, t, -1, d) for x in fused.split([hq * d, hkv * d, hkv * d], dim=-1))
+
+
+def _pad_mask(b, t, pad, n, card):
+    if not pad:
+        return None
+    mask = torch.ones((b, t), dtype=torch.int32, device=card)
+    if pad == "left":
+        mask[1, :n] = 0
+    else:
+        mask[1, t - n:] = 0
+    return mask
+
+
+# K1's tiles: 128 query rows a CTA (two warpgroups of 64), 128 keys a stage (64 at D = 256)
+@pytest.mark.parametrize("t,d,hq,hkv,causal,window,pad,sliced", [
+    (150, 64, 4, 4, False, None, None, False),
+    (150, 72, 4, 4, False, None, None, False),     # so400m's head dim: zero-filled to 80 / 128
+    (150, 72, 4, 2, True, 37, "left", False),      # a window smaller than one tile
+    (150, 128, 4, 2, True, None, "left", False),
+    (150, 256, 4, 1, True, 37, "left", False),     # GQA 4/1 at D = 256
+    (64, 72, 4, 4, False, None, None, False),      # the text tower's T: one warpgroup leaves
+    (1, 64, 2, 2, True, None, None, False),
+    (127, 128, 8, 2, True, None, "right", False),  # one below a tile; GQA 8/2 at D = 128
+    (129, 128, 8, 2, False, None, None, True),     # one above a tile, sliced q/k/v
+    (63, 256, 4, 1, True, None, None, False),      # one below / above the 64-key tile
+    (65, 256, 4, 1, True, 37, "left", True),
+    (300, 64, 4, 4, True, None, "left", True),     # left padding masks a whole query tile
+    (300, 72, 4, 2, True, 37, "left", False),
 ])
-def test_flash_kernel(card, d, hq, hkv, causal, window, pad):
+def test_flash_kernel(card, t, d, hq, hkv, causal, window, pad, sliced):
     rng = np.random.default_rng(1)
-    b, t = 2, 150
-    q = _bf16(rng, (b, t, hq, d), card)
-    k, v = _bf16(rng, (b, t, hkv, d), card), _bf16(rng, (b, t, hkv, d), card)
-    mask = None
-    if pad:
-        mask = torch.ones((b, t), dtype=torch.int32, device=card)
-        mask[1, :70] = 0
+    b = 2
+    q, k, v = _qkv(rng, b, t, hq, hkv, d, card, sliced)
+    n_pad = min(t - 1, 140 if t >= 300 else 70)
+    mask = _pad_mask(b, t, pad, n_pad, card)
     kw = dict(causal=causal, window=window, kv_mask=mask)
+    before = FA.launches.value
     out, lse = FA.flash_attention(q, k, v, **kw)
+    assert FA.launches.value == before + 1
     ref, ref_lse = FA.flash_attention_reference(q.float(), k.float(), v.float(), **kw)
     torch.testing.assert_close(out.float(), ref, **TOL)
-    if pad:
-        assert torch.all(out[1, :70] == 0)
+    if pad == "left":
+        assert torch.all(out[1, :n_pad] == 0)
         torch.testing.assert_close(lse[0], ref_lse[0], **TOL)
+        torch.testing.assert_close(lse[1, :, n_pad:], ref_lse[1, :, n_pad:], **TOL)
     else:
         torch.testing.assert_close(lse, ref_lse, **TOL)
+
+
+@pytest.mark.parametrize("t,d,hq,hkv,causal", [(150, 64, 4, 4, False), (1024, 72, 4, 4, False),
+                                               (300, 128, 4, 2, True), (300, 256, 4, 1, True)])
+def test_flash_forward_fp32_copy_and_reruns(card, t, d, hq, hkv, causal):
+    """The fp32 copy of O that the forward writes for the backward's delta rounds to the
+    bf16 O of the same launch, and a rerun gives the same bits (no sum of the kernel
+    changes its order from run to run)."""
+    rng = np.random.default_rng(11)
+    q, k, v = _qkv(rng, 2, t, hq, hkv, d, card)
+    kw = dict(scale=d ** -0.5, causal=causal, window=None, kv_mask=None)
+    out, lse, out32 = FA._launch(q, k, v, out_f32=True, **kw)
+    assert out32.dtype == torch.float32
+    assert torch.equal(out32.to(torch.bfloat16), out)
+    for _ in range(2):
+        again = FA._launch(q, k, v, out_f32=True, **kw)
+        assert all(torch.equal(a, b) for a, b in zip((out, lse, out32), again))
 
 
 def test_flash_kernel_rejects_unsupported(card):
     q = torch.zeros((1, 8, 2, 96), dtype=torch.bfloat16, device=card)
     with pytest.raises(ValueError):
-        FA.flash_attention(q, q, q)
+        FA.flash_attention(q, q, q)  # head dim 96
     with pytest.raises(TypeError):
         FA.flash_attention(q.float()[..., :64], q.float()[..., :64], q.float()[..., :64])
+    q = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16, device=card)
+    with pytest.raises(ValueError):
+        FA.flash_attention(q, q, q, scale=-0.125)  # the softmax's max assumes scale > 0
+    with pytest.raises(ValueError):
+        FA.flash_attention(q, q[:, :4], q[:, :4])  # self-attention shapes only
+    odd = torch.zeros((1, 8, 2, 68), dtype=torch.bfloat16, device=card)[..., 4:]
+    with pytest.raises(ValueError):
+        FA.flash_attention(odd, odd, odd)  # rows not 16-byte aligned: no tensor map
 
 
 @pytest.mark.parametrize("t,window", [(0, None), (9, 16), (40, None)])
@@ -102,26 +157,32 @@ def _rel_close(got, ref, rel=2e-2):
     assert err <= rel * scale, f"max err {err} vs max |ref| {scale}"
 
 
-@pytest.mark.parametrize("b,t,hq,hkv,d,causal,window,pad", [
-    (2, 150, 4, 2, 128, True, None, "right"),
-    (2, 150, 4, 4, 64, False, None, None),
-    (2, 150, 4, 1, 256, True, 37, "left"),      # left padding: fully masked query rows
-    (4, 1087, 4, 1, 256, True, 512, "right"),   # the stage-1 decoder's shape
-    (2, 150, 4, 4, 72, False, None, None),      # so400m's head dim
-    (2, 150, 4, 2, 72, True, 37, "left"),
-    (2, 1024, 16, 16, 72, False, None, None),   # the stage-0 tower's T and heads
+# K4's tiles: 128 keys a CTA and 64 queries a stage (32 queries at D = 128; 64 keys and
+# 32 queries at D = 256)
+@pytest.mark.parametrize("b,t,hq,hkv,d,causal,window,pad,sliced", [
+    (2, 150, 4, 2, 128, True, None, "right", False),
+    (2, 150, 4, 4, 64, False, None, None, False),
+    (2, 150, 4, 1, 256, True, 37, "left", False),      # left padding: fully masked query rows
+    (4, 1087, 4, 1, 256, True, 512, "right", False),   # the stage-1 decoder's shape
+    (2, 150, 4, 4, 72, False, None, None, False),      # so400m's head dim
+    (2, 150, 4, 2, 72, True, 37, "left", False),       # a window smaller than one tile
+    (2, 1024, 16, 16, 72, False, None, None, False),   # the stage-0 tower's T and heads
+    (2, 64, 4, 4, 72, False, None, None, False),       # one warpgroup of keys leaves
+    (2, 1, 2, 2, 64, True, None, None, False),
+    (2, 127, 8, 2, 128, True, None, "right", False),   # one below a tile; GQA 8/2 at D = 128
+    (2, 129, 8, 2, 128, False, None, None, True),      # one above a tile, sliced q/k/v
+    (2, 63, 4, 4, 64, True, 37, None, True),
+    (2, 65, 4, 1, 256, True, None, "left", False),     # one above K4's 64 keys at D = 256
+    (2, 127, 4, 1, 256, True, 37, "right", True),
+    (2, 300, 4, 4, 64, True, None, "left", True),      # left padding masks whole tiles
+    (2, 300, 4, 2, 72, True, 37, "left", False),
 ])
-def test_flash_backward_kernels(card, b, t, hq, hkv, d, causal, window, pad):
+def test_flash_backward_kernels(card, b, t, hq, hkv, d, causal, window, pad, sliced):
     rng = np.random.default_rng(4)
-    q, do = _bf16(rng, (b, t, hq, d), card), _bf16(rng, (b, t, hq, d), card)
-    k, v = _bf16(rng, (b, t, hkv, d), card), _bf16(rng, (b, t, hkv, d), card)
-    mask = None
-    if pad:
-        mask = torch.ones((b, t), dtype=torch.int32, device=card)
-        if pad == "right":
-            mask[1, t - 60:] = 0
-        else:
-            mask[1, :70] = 0
+    q, k, v = _qkv(rng, b, t, hq, hkv, d, card, sliced)
+    do = _bf16(rng, (b, t, hq, d), card)
+    n_pad = min(t - 1, 140 if t >= 300 else (60 if pad == "right" else 70))
+    mask = _pad_mask(b, t, pad, n_pad, card)
     kw = dict(causal=causal, window=window)
     out, lse = FA.flash_attention(q, k, v, kv_mask=mask, **kw)
     before = (FA.bwd_dkv_launches.value, FA.bwd_dq_launches.value)
@@ -129,10 +190,34 @@ def test_flash_backward_kernels(card, b, t, hq, hkv, d, causal, window, pad):
     assert (FA.bwd_dkv_launches.value, FA.bwd_dq_launches.value) == (before[0] + 1, before[1] + 1)
     refs = FA.flash_attention_bwd_reference(q.float(), k.float(), v.float(), mask, out.float(),
                                             lse, do.float(), **kw)
-    for got, ref in zip((dq, dk, dv), refs):
-        _rel_close(got, ref)
+    if t == 1:  # one key: dS, so dq and dk, are zero in exact arithmetic
+        assert float(dq.float().abs().max()) <= 1e-5 and float(dk.float().abs().max()) <= 1e-5
+        _rel_close(dv, refs[2])
+    else:
+        for got, ref in zip((dq, dk, dv), refs):
+            _rel_close(got, ref)
     if pad == "left":
-        assert torch.all(dq[1, :70] == 0)
+        assert torch.all(dq[1, :n_pad] == 0)
+        assert torch.all(dk[1, :n_pad] == 0) and torch.all(dv[1, :n_pad] == 0)
+
+
+@pytest.mark.parametrize("t,d,hq,hkv,causal,window", [(300, 64, 4, 4, False, None),
+                                                      (1024, 72, 4, 4, False, None),
+                                                      (300, 128, 8, 2, True, 37),
+                                                      (300, 256, 4, 1, True, None)])
+def test_flash_dkv_reruns_are_bit_equal(card, t, d, hq, hkv, causal, window):
+    """Each element of dK and dV is summed by one thread in program order (the query
+    heads of a KV head inside the CTA too): a rerun gives the same bits."""
+    rng = np.random.default_rng(12)
+    q, k, v = _qkv(rng, 2, t, hq, hkv, d, card)
+    do = _bf16(rng, (2, t, hq, d), card)
+    kw = dict(scale=d ** -0.5, causal=causal, window=window)
+    out, lse = FA.flash_attention(q, k, v, **kw)
+    mask, do, delta = FA.prepare_bwd(q, k, v, None, out, lse, do)
+    dk, dv = FA.launch_bwd_dkv(q, k, v, mask, do, lse, delta, **kw)
+    for _ in range(2):
+        dk2, dv2 = FA.launch_bwd_dkv(q, k, v, mask, do, lse, delta, **kw)
+        assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
 
 
 @pytest.mark.parametrize("hq,hkv,d", [(8, 8, 128), (8, 2, 128), (16, 16, 72)])
@@ -217,6 +302,8 @@ def test_flash_backward_rejects_unsupported(card):
         FA.flash_attention_bwd(q, q, q, None, out, lse, q.float())
     with pytest.raises(ValueError):
         FA.flash_attention_bwd(q, q, q, None, out, lse[:, :1], q)
+    with pytest.raises(ValueError):
+        FA.flash_attention_bwd(q, q, q, None, out[:, :4], lse, q)  # out of another shape
 
 
 @pytest.mark.parametrize("n,d,ragged", [
@@ -317,3 +404,15 @@ def test_fused_ce_rejects_unsupported(card):
         CE.fused_ce_fwd(h[:, :128].contiguous(), h[:, :128].contiguous(), labels.long())
     with pytest.raises(ValueError):
         CE.fused_ce_fwd(h.t(), h.t(), labels)  # not contiguous
+
+
+def test_device_ms_leaves_the_host_out(card):
+    """``device_ms`` queues its launches behind a spinning kernel, so a kernel of a few
+    microseconds reads as such, not as the tens of microseconds the host takes to launch
+    it; a product of known size reads no less than the card's peak allows."""
+    from projectiontrainer_tpu_torch.utils.timing import device_ms
+
+    x = torch.zeros(1024, device=card)
+    assert device_ms(lambda: x.add_(1.0)) < 0.02
+    a = torch.zeros((4096, 4096), dtype=torch.bfloat16, device=card)
+    assert device_ms(lambda: a @ a) >= 2 * 4096 ** 3 / 989e12 * 1e3

@@ -145,3 +145,25 @@ def test_step_profiler_writes_a_trace_of_its_window(tmp_path):
     prof.close()
     assert os.listdir(tmp_path) == ["trace_step1.json"]
     assert StepProfiler(str(tmp_path / "x"), rank=1).log_dir is None  # rank 0 only
+
+
+@pytest.mark.parametrize("name,family", [
+    ("void (anonymous namespace)::flash_fwd_kernel<72>(CUtensorMap_st, ...)", "attention"),
+    ("void (anonymous namespace)::dkv::flash_bwd_dkv_wgmma_kernel<256>(...)", "attention"),
+    ("void (anonymous namespace)::flash_bwd_dq_kernel<64>(...)", "attention"),
+    ("void (anonymous namespace)::decode_attn_kernel<256>(...)", "attention"),
+    ("void (anonymous namespace)::fused_ce_bwd_kernel(...)", "fused_ce"),
+    ("_layernorm_bwd_kernel", "layernorm"),
+    ("nvjet_tst_128x256_64x4_1x2_h_bz_coopA_NTN", "matmul"),
+    ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64", "matmul"),
+    ("void at::native::reduce_kernel<512, 1, at::native::ReduceOp<float, ...>>", "reduce"),
+    ("Memcpy DtoD (Device -> Device)", "copy"),
+    ("void at::native::(anonymous namespace)::CatArrayBatchedCopy<...>", "copy"),
+    ("void at::native::_scatter_gather_elementwise_kernel<128, 8, ...>", "elementwise"),
+    ("void at::native::vectorized_elementwise_kernel<4, at::native::GeluCUDAKernelImpl...>",
+     "elementwise"),
+])
+def test_kernel_family_of_a_trace_name(name, family):
+    from projectiontrainer_tpu_torch.utils.timing import kernel_family
+
+    assert kernel_family(name) == family
