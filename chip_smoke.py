@@ -17,12 +17,16 @@ Phases, each printing one JSON line; any failure raises, so the exit code is not
    on dx, dscale and dbias each. The stage-0 shapes: K1 at head dim 72 over the
    so400m tower ([16,1024,16,72]) and text tower ([16,64,16,72]), K4/K5 over the
    tower, K1/K4/K5 through autograd there on nearly alike tokens (each gradient's
-   cosine to fp32 within 0.001 of plain bf16 attention's), K1 and K4 at a T no tile
-   divides ([16,1000,16,72]) with K1's fp32 copy of O held against its bf16 O and reruns
-   of K1 and K4 held bit-equal (there and at the decoder's masked GQA shape), K2 and K8 over its rows ([16384,1152]; K8 also at 1000 rows, and at 16383,
+   cosine to fp32 within 0.001 of plain bf16 attention's), K1, K4 and K5 at a T no
+   tile divides ([16,1000,16,72]) with K1's fp32 copy of O held against its bf16 O and
+   reruns of K1, K4 and K5 held bit-equal (there and at the decoder's masked GQA
+   shape), K2 and K8 over its rows ([16384,1152]; K8 also at 1000 rows, and at 16383,
    1001 and 529, which leave its last program's block part-empty, checked); and
    the TPU's merged-lane layout (kernel rows 4-6): K1/K4/K5 on head-merged
-   [2,1024,8*128] tensors through ``flash_attention_merged``, MHA and GQA 8/2.
+   [2,1024,8*128] tensors through ``flash_attention_merged``, MHA and GQA 8/2. K3 at
+   the served shape (batch 8, 3 beams, P = 831, G = 32), at one request (batch 1) and at
+   the reference's 1024 generated slots (t = 1000), window 512 and none, each rerun
+   held bit-equal and its plan held to more CTAs than (batch, KV head) pairs.
    The CE's table is scaled for a peaked softmax and its upstream gradient differs
    per row, so a kernel that loses a vocab split or a row's weight fails. Device
    times of kernel and plain (CUDA events around 10 launches queued behind a spinning
@@ -40,7 +44,10 @@ Phases, each printing one JSON line; any failure raises, so the exit code is not
    weights, 16 client threads x 2 requests, batch 8, 3 beams; K1-K3's launch counts
    must rise during the run.
 4. end to end (serve): prefill logits and 4 teacher-forced decode steps of the
-   kernel path against the plain path (the same modules with the plain ops).
+   kernel path against the plain path (the same modules with the plain ops); then one
+   batch of the kernel path split into its pieces (``serve_split``): the card's kernel
+   time of the prefix, the prefill and a decode step (and K3's share of it) from
+   profiler traces, and a decode step on the host clock.
 5. train: Stage1Trainer.train() on the same full-width model (projector fp32
    masters, bf16 compute), 32 in-memory samples (seeded pixels, 512-token captions
    right-padded to varied lengths) at batch 4 = 8 steps of 575 + 512 = 1087 tokens,
@@ -340,6 +347,9 @@ KERNELS = {
     "layernorm_bwd": ("triton", f"{PKG}/ops/fused_layernorm.py",
                       "projectiontrainer_tpu/ops/fused_layernorm.py:91"),
 }
+# the timed case that a kernel's entry of the {"kernels": ...} line reports: its first,
+# or the one named here
+MAIN_CASE = {"decode_attn": "B=8 nb=3 P=831 G=32 t=31 window=None"}
 SERVE_KERNELS = ("flash_attn_fwd", "layernorm_fwd", "decode_attn")
 STAGE1_KERNELS = ("flash_attn_fwd", "layernorm_fwd", "decode_attn", "flash_attn_bwd_dkv",
                   "flash_attn_bwd_dq", "fused_ce_fwd", "fused_ce_bwd")
@@ -424,37 +434,11 @@ def phase_kernels():
                bound_flash_fwd(8, 831, 4, 1, 256, live_pairs(seen)),
                cuda_ms(lib), f"SDPA {backend}, explicit mask")
 
-    # K3: split-cache decode, B=8, 3 beams, P=831, G=32
-    b, nb, p_len, g = 8, 3, 831, 32
-    qd = _bf16(rng, (b * nb, 4, 256))
-    kp, vp = _bf16(rng, (b, 1, p_len, 256)), _bf16(rng, (b, 1, p_len, 256))
-    kg, vg = _bf16(rng, (b * nb, 1, g, 256)), _bf16(rng, (b * nb, 1, g, 256))
-    pmask, _ = _left_pad_mask(rng, b, p_len, 224)
-    for t in (0, 17, 31):
-        for window in (512, None):
-            kw = dict(prefix_mask=pmask, t=t, prefix_len=p_len, scale=256 ** -0.5,
-                      window=window)
-            got = DA.decode_attention(qd, kp, vp, kg, vg, **kw)
-            ref = DA.decode_attention_reference(*(x.float() for x in (qd, kp, vp, kg, vg)),
-                                                **kw)
-            # the library call: SDPA over the concatenated caches (the prefix repeated
-            # per beam, outside the timed call) with the same masks as one bool tensor
-            live = pmask.bool().repeat_interleave(nb, 0)
-            gen = torch.arange(g, device="cuda") <= t
-            if window is not None:
-                live = live & (torch.arange(p_len, device="cuda") > p_len + t - window)
-                gen = gen & (torch.arange(g, device="cuda") > t - window)
-            live = torch.cat([live, gen[None].expand(b * nb, g)], dim=1)
-            k_cat = torch.cat([kp.repeat_interleave(nb, 0), kg], dim=2).transpose(1, 2)
-            v_cat = torch.cat([vp.repeat_interleave(nb, 0), vg], dim=2).transpose(1, 2)
-            lib, backend = sdpa_library(qd[:, None], k_cat, v_cat, scale=kw["scale"],
-                                        mask=live[:, None, None, :])
-            record("decode_attn", f"B=8 nb=3 P=831 G=32 t={t} window={window}",
-                   compare(f"decode t={t} window={window}", got, ref),
-                   cuda_ms(lambda: DA.decode_attention(qd, kp, vp, kg, vg, **kw)),
-                   cuda_ms(lambda: DA.decode_attention_reference(qd, kp, vp, kg, vg, **kw)),
-                   bound_decode_attn(b, nb, 4, 1, p_len, g, 256, int(live.sum())),
-                   cuda_ms(lib), f"SDPA {backend} over concatenated caches, explicit mask")
+    # K3: split-cache decode, B=8, 3 beams, P=831, G=32; then one request (B=1) and the
+    # reference's max_new_tokens (G=1024, t=1000); each against its plain version, a
+    # rerun held bit-equal
+    for b, g, steps in ((8, 32, (0, 17, 31)), (1, 32, (31,)), (8, 1024, (1000,))):
+        check_decode(rng, record, b, 3, 831, g, steps)
 
     # K4/K5: the decoder's attention backward at the stage-1 shape, B=4, T=575+512,
     # causal, captions right-padded to varied lengths, window 512 / none
@@ -492,6 +476,43 @@ def phase_kernels():
     check_flash_reruns(rng, record)
     emit({"phase": 2, "readings": READINGS})
     return results
+
+
+def check_decode(rng, record, b, nb, p_len, g, steps):
+    """K3 at batch b, nb beams, GQA 4/1 at head dim 256, a prefix of p_len slots with
+    ragged left padding and g generated slots, at each step t of `steps`, window 512 and
+    none; record(kernel, case, err, ms, plain_ms, bound, library_ms, library)."""
+    import torch
+
+    from projectiontrainer_tpu_torch.kernels.check_decode_attn import library_call
+    from projectiontrainer_tpu_torch.ops import decode_attention as DA
+
+    qd = _bf16(rng, (b * nb, 4, 256))
+    kp, vp = _bf16(rng, (b, 1, p_len, 256)), _bf16(rng, (b, 1, p_len, 256))
+    kg, vg = _bf16(rng, (b * nb, 1, g, 256)), _bf16(rng, (b * nb, 1, g, 256))
+    pmask, _ = _left_pad_mask(rng, b, p_len, 224)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for t in steps:
+        for window in (512, None):
+            kw = dict(prefix_mask=pmask, t=t, prefix_len=p_len, scale=256 ** -0.5,
+                      window=window)
+            got = DA.decode_attention(qd, kp, vp, kg, vg, **kw)
+            ref = DA.decode_attention_reference(*(x.float() for x in (qd, kp, vp, kg, vg)),
+                                                **kw)
+            case = f"B={b} nb={nb} P={p_len} G={g} t={t} window={window}"
+            for _ in range(2):
+                if not torch.equal(got, DA.decode_attention(qd, kp, vp, kg, vg, **kw)):
+                    raise AssertionError(f"decode {case}: a rerun gave other bits")
+            plan = DA.decode_plan(b, nb, 1, p_len, g, t, p_len, window, sms)
+            if not plan["ctas"] > b:
+                raise AssertionError(f"decode {case}: {plan['ctas']} CTAs for {b} KV heads")
+            lib, backend, live = library_call(qd, kp, vp, kg, vg, **kw)
+            record("decode_attn", f"{case} ({plan['ctas']} CTAs)",
+                   compare(f"decode {case}", got, ref),
+                   cuda_ms(lambda: DA.decode_attention(qd, kp, vp, kg, vg, **kw)),
+                   cuda_ms(lambda: DA.decode_attention_reference(qd, kp, vp, kg, vg, **kw)),
+                   bound_decode_attn(b, nb, 4, 1, p_len, g, 256, live),
+                   cuda_ms(lib), f"SDPA {backend} over concatenated caches, explicit mask")
 
 
 def check_stage0_kernels(rng, record):
@@ -602,8 +623,8 @@ def check_stage0_kernels(rng, record):
 
 
 def check_flash_reruns(rng, record):
-    """K1 and K4 at a T that no tile divides ([16,1000,16,72]; the text tower's T = 64 is
-    among the stage-0 shapes), K1's fp32 copy of O against its bf16 O, and a rerun of
+    """K1, K4 and K5 at a T that no tile divides ([16,1000,16,72]; the text tower's T = 64
+    is among the stage-0 shapes), K1's fp32 copy of O against its bf16 O, and a rerun of
     each kernel held bit-equal, there and at the decoder's masked GQA shape;
     record(kernel, case, err, ms, plain_ms, bound, library_ms, library)."""
     import torch
@@ -641,10 +662,20 @@ def check_flash_reruns(rng, record):
             if not all(torch.equal(a, b) for a, b in zip(first, fn())):
                 raise AssertionError(f"{name}: a rerun on the same inputs gave other bits")
 
+    dq = FA.launch_bwd_dq(*args, **kw)
+    rq = FA.flash_attention_bwd_reference(q.float(), k.float(), v.float(), None, out32, lse,
+                                          do.float(), **kw)[0]
+    record("flash_attn_bwd_dq", case, compare_rel("flash ragged d72 dq", dq, rq),
+           cuda_ms(lambda: FA.launch_bwd_dq(*args, **kw)),
+           cuda_ms(lambda: FA.flash_attention_bwd_reference(q, k, v, None, out32, lse, do, **kw)),
+           bound_flash_bwd_dq(16, 1000, 16, 16, 72), cuda_ms(lib),
+           f"SDPA {backend} backward (dq, dk, dv together)")
+
     rerun("flash forward d72", (out, lse, out32),
           lambda: FA._launch(q, k, v, kv_mask=None, out_f32=True, **kw))
     rerun("flash dkv d72", (dk, dv), lambda: FA.launch_bwd_dkv(*args, **kw))
-    del q, k, v, do, out, lse, out32, delta, dk, dv, rk, rv, ref, ref_lse, lib
+    rerun("flash dq d72", (dq,), lambda: (FA.launch_bwd_dq(*args, **kw),))
+    del q, k, v, do, out, lse, out32, delta, dk, dv, dq, rk, rv, rq, ref, ref_lse, lib
 
     # the decoder's shape: causal, window 512, GQA 4/1, right-padded captions
     b, t = 4, 1087
@@ -660,8 +691,10 @@ def check_flash_reruns(rng, record):
     prep = FA.prepare_bwd(q, k, v, mask, first[2], first[1], do)
     args = (q, k, v, prep[0], prep[1], first[1], prep[2])
     rerun("flash dkv d256", FA.launch_bwd_dkv(*args, **kw), lambda: FA.launch_bwd_dkv(*args, **kw))
-    emit({"phase": 2, "check": "K1 fp32 O rounds to its bf16 O; K1 and K4 reruns bit-equal at "
-                               "[16,1000,16,72] and [4,1087,4|1,256] causal window 512"})
+    rerun("flash dq d256", (FA.launch_bwd_dq(*args, **kw),),
+          lambda: (FA.launch_bwd_dq(*args, **kw),))
+    emit({"phase": 2, "check": "K1 fp32 O rounds to its bf16 O; K1, K4 and K5 reruns bit-equal "
+                               "at [16,1000,16,72] and [4,1087,4|1,256] causal window 512"})
 
 
 def check_nearly_alike_tokens(rng):
@@ -891,7 +924,81 @@ def phase_end_to_end(cfg, params):
                      "top1_agreement": top1})
         if not cos >= 0.99:
             raise AssertionError(f"end to end: {rows[-1]['step']} cosine {cos:.5f} < 0.99")
-    emit({"phase": 4, "logits": rows})
+    split = serve_split(cfg, params, pixels, q_tok, nb)
+    print(f"serve: a decode step of {8 * nb} rows {split['decode_step_host_ms']:.1f} ms on the "
+          f"host clock, {split['decode_step_kernel_ms']:.1f} ms of kernel time", flush=True)
+    emit({"phase": 4, "logits": rows, "serve_split": split})
+
+
+def serve_split(cfg, params, pixels, q_tok, nb):
+    """One served batch of the kernel path split into its pieces: the prefix of 8 images
+    and questions (tower, projector, embedding), the prefill, and MAX_NEW_TOKENS
+    teacher-forced decode steps of 8 * nb rows. Each piece's kernel time on the card from
+    a torch.profiler trace of it alone (every kernel counts, also those the port launches
+    through ctypes, which no torch operator encloses), the decode step's attention
+    kernels (K3) apart; and a decode step on the host clock, synchronised, without the
+    profiler."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from projectiontrainer_tpu_torch.cli import infer_vqa_stage2 as vqa
+    from projectiontrainer_tpu_torch.generate import decode as D
+    from projectiontrainer_tpu_torch.models import decoder as dec
+    from projectiontrainer_tpu_torch.utils import timing
+
+    llm = params["llm"]
+    rng = np.random.default_rng(SEED + 9)
+    tokens = torch.tensor(rng.integers(2, cfg.llm.vocab_size, size=(MAX_NEW_TOKENS, 8 * nb)),
+                          device=DEVICE)
+
+    def kernel_ms(fn):
+        """(all kernels, attention kernels) in ms while fn() runs."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [(timing.kernel_family(e.name), e.time_range.elapsed_us() / 1e3)
+                   for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        return sum(t for _, t in kernels), sum(t for f, t in kernels if f == "attention")
+
+    def prefix():
+        return vqa.build_prefix(pixels, q_tok, cfg, params, StubTokenizer(), max_q_len=256)
+
+    def prefill(embeds, mask):
+        cache, _, last_pos, _ = D._prefill(llm, cfg.llm, embeds, mask, embeds.shape[1])
+        cache, pmask = dec.split_cache(cache, cfg.llm, 8 * nb, MAX_NEW_TOKENS, prefix_mask=mask)
+        return cache, pmask, last_pos.repeat_interleave(nb)
+
+    def decode(embeds, cache, pmask, last_pos, host=None):
+        for t in range(MAX_NEW_TOKENS):
+            t0 = time.perf_counter()
+            _, cache = D._step(llm, cfg.llm, tokens[t], last_pos, t, pmask, cache,
+                               embeds.shape[1], embeds.dtype)
+            if host is not None:
+                torch.cuda.synchronize()
+                host.append(time.perf_counter() - t0)
+
+    with torch.no_grad():
+        embeds, mask = prefix()  # the first calls' costs
+        state = prefill(embeds, mask)
+        decode(embeds, *state)
+        host = []
+        torch.cuda.synchronize()
+        decode(embeds, *prefill(embeds, mask), host=host)
+        prefix_ms, _ = kernel_ms(prefix)
+        prefill_ms, _ = kernel_ms(lambda: prefill(embeds, mask))
+        state = prefill(embeds, mask)
+        decode_ms, attention_ms = kernel_ms(lambda: decode(embeds, *state))
+    split = {"prefix_kernel_ms": prefix_ms, "prefill_kernel_ms": prefill_ms,
+             "decode_step_kernel_ms": decode_ms / MAX_NEW_TOKENS,
+             "decode_step_attention_ms": attention_ms / MAX_NEW_TOKENS,
+             "decode_step_host_ms": statistics.median(host) * 1e3,
+             "decode_steps": MAX_NEW_TOKENS, "rows": 8 * nb}
+    if not all(v > 0 for v in split.values()):
+        raise AssertionError(f"serve split: a piece has no kernel time: {split}")
+    return split
 
 
 # ---------------------------------------------------------------------------- phase 5
@@ -1244,7 +1351,7 @@ def main() -> int:
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         rows = results[name]
-        main_row = rows[-1] if name == "decode_attn" else rows[0]
+        main_row = next((r for r in rows if r["case"].startswith(MAIN_CASE.get(name, ""))))
         by_path = {"stage0": stage0_launches[name]} if name in STAGE0_KERNELS else {}
         if name in STAGE1_KERNELS:
             by_path["train"] = train_launches[name]

@@ -11,7 +11,8 @@ compute (``--mixed_precision``); the text tower is stored in the compute type wh
 it is frozen (``--freeze_text_encoder``, the default).
 
 Not ported yet, and refused: ``--mesh_data``/``--mesh_model`` above 1 and ``--fsdp``
-(multi-device runs), and ``--use_online_augmentation``.
+(multi-device runs), ``--use_online_augmentation``, and ``--num_loader_procs`` above 0
+(the multi-process feeder).
 """
 
 from __future__ import annotations
@@ -31,6 +32,8 @@ def check_supported(cfg) -> None:
     if cfg.mesh_data > 1 or cfg.mesh_model > 1 or cfg.fsdp:
         raise NotImplementedError("--mesh_data/--mesh_model above 1 and --fsdp: "
                                   "multi-device training is not ported")
+    if cfg.num_loader_procs > 0:
+        raise NotImplementedError("--num_loader_procs: the multi-process feeder is not ported")
     if cfg.use_online_augmentation:
         raise NotImplementedError("--use_online_augmentation: the JAX package's native "
                                   "augmentation pass is not ported")

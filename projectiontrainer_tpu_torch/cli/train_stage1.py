@@ -7,7 +7,8 @@ Counterpart of ``projectiontrainer_tpu/cli/train_stage1.py`` with the same flags
         --train_json ... --vision_model_name <local dir> --llm_name <local dir>
 
 Not ported yet, and refused: ``--enable_qlora`` (quantized base LLM),
-``--mesh_data``/``--mesh_model`` above 1 and ``--fsdp`` (multi-device runs).
+``--mesh_data``/``--mesh_model`` above 1 and ``--fsdp`` (multi-device runs), and
+``--num_loader_procs`` above 0 (the multi-process feeder).
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ def check_supported(cfg) -> None:
     if cfg.mesh_data > 1 or cfg.mesh_model > 1 or cfg.fsdp:
         raise NotImplementedError("--mesh_data/--mesh_model above 1 and --fsdp: "
                                   "multi-device training is not ported")
+    if cfg.num_loader_procs > 0:
+        raise NotImplementedError("--num_loader_procs: the multi-process feeder is not ported")
 
 
 def main(argv=None):

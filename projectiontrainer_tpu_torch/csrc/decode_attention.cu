@@ -10,16 +10,38 @@
 //
 // What bounds it on the H100: bytes. Each step reads the whole live cache once for
 // ~4 flops per byte, far below the ~295 flops per byte where the tensor cores would
-// become the limit. The design keeps the property the split cache exists for: one
-// CTA per (batch, kv head) holds ALL nb * n_rep query rows of that kv head (12 at 3
-// beams x 4 heads) and streams the shared prefix once for all of them, then each
-// beam's own generated rows, with an online softmax in fp32 across both. Keys below
-// the sliding window and generated slots after t are never read. P and G may be any
-// length: the kernel masks its own edges, so the caches need no padding.
+// become the limit; and at the served shape (batch 8, one KV head) there are only 8
+// (batch, KV head) pairs for 132 SMs.
 //
-// Left for later PRs: with B * Hkv = 8 CTAs at batch 8 the card is mostly idle, so
-// the next step is to split P across CTAs (split-K, a second pass combining the
-// partial softmaxes), then cp.async / TMA double buffering of the K/V tiles.
+// Design: the live keys of each (batch, KV head) are cut into splits of `chunk` keys
+// (ops/decode_attention.py:decode_plan sizes them so that the grid fills the card),
+// one CTA each: grid (splits, Hkv, B). A split of the shared prefix serves ALL
+// nb * n_rep query rows of its (batch, KV head) (12 at 3 beams x 4 heads), so each
+// prefix key is still read once for all beams, as the split cache intends; a split of
+// one beam's generated slots serves that beam's n_rep rows. Inside a split, tiles of 32
+// keys are loaded with 16-byte cp.async copies, the next tile in flight while the
+// current one is computed on CUDA cores (scores with a warp a key, an online softmax
+// with a warp a row, then P V with a thread a column pair and group of rows). Keys
+// below the sliding window and generated slots after t belong to no split; padded
+// prefix keys are masked inside their split. Each split writes its partial (row max m,
+// sum l, unnormalised O) in fp32; the CTA that arrives last at its (batch, KV head)'s
+// counter combines the partials in split order (so a rerun gives the same bits), writes
+// the output and sets the counter back to 0, so one launch does everything and nothing
+// is cleared between launches. A split whose keys are all padded leaves m = NEG_INF, l = 0, O = 0 and
+// weighs exactly 0 in the combine. P stays fp32 up to the final division (the TPU
+// kernel rounds the normalised P to bf16 before its P V product; a split cannot
+// normalise before the combine). P and G may be any length: the kernel masks its own
+// edges, so the caches need no padding.
+//
+// Measured (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py phase 2 and
+// kernels/check_decode_attn.py --time, device ms; the kernel it replaced, one CTA a
+// (batch, KV head), / the plain version / the library call beside it): batch 8, 3 beams,
+// P = 831, G = 32, 128 CTAs: 0.039 (0.415 / 0.106 / 0.333); window 512, 144-152 CTAs:
+// 0.043-0.045 (0.252 / 0.116 / 0.334); batch 1, 18-29 CTAs: 0.032-0.041 (plain
+// 0.093-0.103, library 0.090-0.091); G = 1024 at t = 1000: 0.116, window 512 0.035 (plain
+// 0.205 / 0.218, library 0.632 / 0.637). The bound at the served shape is 0.0023 (bytes):
+// what is left is the splits' latency (load, scores with shuffle reductions, softmax,
+// P V, partial written) and the serial combine of ~14 partials in one CTA.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -36,67 +58,93 @@ constexpr float NEG_INF = -2.3819763e38f;
 
 template <int D>
 size_t smem_bytes(int M) {
-  return (size_t)M * D * 4        // sQ fp32 [M][D]
-         + (size_t)TK * D * 2 * 2 // sK, sV bf16 [TK][D]
-         + (size_t)M * TK * 4     // sS fp32 [M][TK]: scores, then probabilities
-         + (size_t)M * D * 4      // sO fp32 [M][D]
-         + (size_t)M * 4 * 3;     // sM, sL, sCorr fp32 [M]
+  return (size_t)2 * TK * D * 2 * 2  // sK, sV bf16 [2][TK][D]: two tiles in flight
+         + (size_t)M * D * 4 * 2     // sQ, sO fp32 [M][D]
+         + (size_t)M * TK * 4        // sS fp32 [M][TK]: scores, then probabilities
+         + (size_t)M * 4 * 3;        // sM, sL, sCorr fp32 [M]
 }
 
 struct Shared {
-  float* q;
-  bf16* k;
+  bf16* k;  // [2][TK][D]
   bf16* v;
-  float* s;
+  float* q;
   float* o;
+  float* s;
   float* m;
   float* l;
   float* corr;
 };
 
-// One tile of up to TK keys, rows [row_lo, row_hi) of the M query rows taking part.
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// until at most N committed groups of this thread are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// start copying n <= TK key and value rows (row r at base + r * D) into a tile buffer
+template <int D>
+__device__ __forceinline__ void load_tile(bf16* sk, bf16* sv, const bf16* kbase,
+                                          const bf16* vbase, int n) {
+  for (int i = threadIdx.x; i < n * (D / 8); i += THREADS) {
+    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
+    cp_async_16(sk + r * D + c, kbase + (long long)r * D + c);
+    cp_async_16(sv + r * D + c, vbase + (long long)r * D + c);
+  }
+  cp_async_commit();
+}
+
+// One tile of n <= TK keys in shared memory against the nr query rows of the split.
 // key_valid(j) says whether tile key j (0-based inside the tile) is attended.
 template <int D, typename KeyValid>
-__device__ void attend_tile(const Shared& sh, const bf16* kbase, const bf16* vbase, int n,
-                            int M, int row_lo, int row_hi, float scale, KeyValid key_valid) {
+__device__ void attend_tile(const Shared& sh, const bf16* sk, const bf16* sv, int n, int nr,
+                            float scale, KeyValid key_valid) {
   constexpr int E = D / 32;  // elements of a key row per lane
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  __syncthreads();  // the previous tile's K/V/S are no longer read
-  for (int i = threadIdx.x; i < n * (D / 8); i += THREADS) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-    *reinterpret_cast<uint4*>(sh.k + r * D + c) =
-        *reinterpret_cast<const uint4*>(kbase + (long long)r * D + c);
-    *reinterpret_cast<uint4*>(sh.v + r * D + c) =
-        *reinterpret_cast<const uint4*>(vbase + (long long)r * D + c);
-  }
-  __syncthreads();
-
-  // scores: warp w takes keys w, w + 8, ...; lanes split D, then a shuffle reduction
+  // scores: warp w takes keys w, w + 8, ...; lanes split D, then shuffle reductions of
+  // four rows at a time, interleaved
   for (int kk = warp; kk < TK; kk += WARPS) {
-    const bool live = kk < n && key_valid(kk);
-    float kr[E];
-    if (live) {
-#pragma unroll
-      for (int e = 0; e < E; ++e) kr[e] = __bfloat162float(sh.k[kk * D + lane * E + e]);
+    if (!(kk < n && key_valid(kk))) {  // the same for the whole warp
+      for (int r = lane; r < nr; r += 32) sh.s[r * TK + kk] = NEG_INF;
+      continue;
     }
-    for (int r = 0; r < M; ++r) {
-      float s = NEG_INF;
-      if (live && r >= row_lo && r < row_hi) {
-        float part = 0.f;
+    float kr[E];
 #pragma unroll
-        for (int e = 0; e < E; ++e) part += sh.q[r * D + lane * E + e] * kr[e];
+    for (int e = 0; e < E; ++e) kr[e] = __bfloat162float(sk[kk * D + lane * E + e]);
+    for (int r0 = 0; r0 < nr; r0 += 4) {
+      float part[4];
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
-        s = part * scale;
+      for (int j = 0; j < 4; ++j) {
+        const float* qr = sh.q + min(r0 + j, nr - 1) * D + lane * E;  // past nr: not stored
+        part[j] = 0.f;
+#pragma unroll
+        for (int e = 0; e < E; ++e) part[j] += qr[e] * kr[e];
       }
-      if (lane == 0) sh.s[r * TK + kk] = s;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) part[j] += __shfl_xor_sync(0xffffffffu, part[j], off);
+      }
+      if (lane == 0) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (r0 + j < nr) sh.s[(r0 + j) * TK + kk] = part[j] * scale;
+      }
     }
   }
   __syncthreads();
 
   // online softmax: warp per row, lane per key
-  for (int r = warp; r < M; r += WARPS) {
+  for (int r = warp; r < nr; r += WARPS) {
     const float s = sh.s[r * TK + lane];
     const bool ok = s > 0.5f * NEG_INF;
     float mx = s;
@@ -119,14 +167,37 @@ __device__ void attend_tile(const Shared& sh, const bf16* kbase, const bf16* vba
   }
   __syncthreads();
 
-  // O = O * corr + P V; thread per (row, column), columns adjacent across threads
-  for (int i = threadIdx.x; i < M * D; i += THREADS) {
-    const int r = i / D, d = i % D;
-    if (r < row_lo || r >= row_hi) continue;
-    float acc = sh.o[i] * sh.corr[r];
-    for (int kk = 0; kk < n; ++kk) acc += sh.s[r * TK + kk] * __bfloat162float(sh.v[kk * D + d]);
-    sh.o[i] = acc;
+  // O = O * corr + P V: a thread per column pair and group of rows, with the tile's values
+  // of its two columns in registers (zero past n, where P is 0 too)
+  constexpr int CP = D / 2;           // column pairs
+  constexpr int RG = THREADS / CP;    // row groups: 2 at D = 256, 4 at 128, 8 at 64
+  const int cp = threadIdx.x % CP, rg = threadIdx.x / CP;
+  float2 vr[TK];
+#pragma unroll
+  for (int kk = 0; kk < TK; ++kk)
+    vr[kk] = kk < n ? __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(sv + kk * D)[cp])
+                    : make_float2(0.f, 0.f);
+  for (int r = rg; r < nr; r += RG) {
+    float2* o = reinterpret_cast<float2*>(sh.o + r * D) + cp;
+    const float corr = sh.corr[r];
+    float2 acc = make_float2(o->x * corr, o->y * corr);
+    const float4* pr = reinterpret_cast<const float4*>(sh.s + r * TK);
+#pragma unroll
+    for (int k4 = 0; k4 < TK / 4; ++k4) {
+      const float4 p = pr[k4];
+      acc.x += p.x * vr[4 * k4].x + p.y * vr[4 * k4 + 1].x + p.z * vr[4 * k4 + 2].x +
+               p.w * vr[4 * k4 + 3].x;
+      acc.y += p.x * vr[4 * k4].y + p.y * vr[4 * k4 + 1].y + p.z * vr[4 * k4 + 2].y +
+               p.w * vr[4 * k4 + 3].y;
+    }
+    *o = acc;
   }
+}
+
+// the u-th split that holds keys of a row of `beam`: every prefix split, then the beam's
+// own generated ones, in split order
+__device__ __forceinline__ int covering_split(int u, int beam, int p_splits, int g_splits) {
+  return u < p_splits ? u : p_splits + beam * g_splits + (u - p_splits);
 }
 
 template <int D>
@@ -134,108 +205,218 @@ __global__ void __launch_bounds__(THREADS)
 decode_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
                    const bf16* __restrict__ vp, const bf16* __restrict__ kg,
                    const bf16* __restrict__ vg, const int* __restrict__ prefix_mask,
-                   bf16* __restrict__ out, int nb, int Hkv, int n_rep, int P, int G,
-                   int t, int prefix_len, int window, float scale) {
+                   bf16* __restrict__ out, float* __restrict__ o_part, float* __restrict__ ml_part,
+                   int* __restrict__ counter, int nb, int Hkv, int n_rep, int P, int G,
+                   int p_begin, int p_splits, int g_begin, int g_end, int g_splits, int chunk,
+                   float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int is_last;
   const int M = nb * n_rep;
   Shared sh;
-  sh.q = reinterpret_cast<float*>(smem);
-  sh.k = reinterpret_cast<bf16*>(sh.q + M * D);
-  sh.v = sh.k + TK * D;
-  sh.s = reinterpret_cast<float*>(sh.v + TK * D);
-  sh.o = sh.s + M * TK;
-  sh.m = sh.o + M * D;
+  sh.k = reinterpret_cast<bf16*>(smem);
+  sh.v = sh.k + 2 * TK * D;
+  sh.q = reinterpret_cast<float*>(sh.v + 2 * TK * D);
+  sh.o = sh.q + M * D;
+  sh.s = sh.o + M * D;
+  sh.m = sh.s + M * TK;
   sh.l = sh.m + M;
   sh.corr = sh.l + M;
 
-  const int h = blockIdx.x, b = blockIdx.y;
+  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int Hq = Hkv * n_rep;
+  const int bh = b * Hkv + h;
+  const int S = p_splits + nb * g_splits;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  // this split's keys [k_begin, k_end) and query rows [row0, row0 + nr)
+  const bool in_prefix = split < p_splits;
+  int row0, nr, k_begin, k_end;
+  const bf16 *kbase, *vbase;
+  if (in_prefix) {
+    row0 = 0;
+    nr = M;
+    k_begin = p_begin + split * chunk;
+    k_end = min(P, k_begin + chunk);
+    kbase = kp + (long long)bh * P * D;
+    vbase = vp + (long long)bh * P * D;
+  } else {
+    const int gs = split - p_splits, beam = gs / g_splits;
+    row0 = beam * n_rep;
+    nr = n_rep;
+    k_begin = g_begin + (gs % g_splits) * chunk;
+    k_end = min(g_end, k_begin + chunk);
+    const long long row = (long long)(b * nb + beam) * Hkv + h;
+    kbase = kg + row * G * D;
+    vbase = vg + row * G * D;
+  }
+  const int* pm = prefix_mask + (long long)b * P;
+  const int n_tiles = (k_end - k_begin + TK - 1) / TK;
+  if (n_tiles > 0)
+    load_tile<D>(sh.k, sh.v, kbase + (long long)k_begin * D, vbase + (long long)k_begin * D,
+                 min(TK, k_end - k_begin));
 
   // query rows r = beam * n_rep + rep: row (b * nb + beam) of q, head h * n_rep + rep
-  for (int i = threadIdx.x; i < M * D; i += THREADS) {
-    const int r = i / D, d = i % D;
+  for (int i = threadIdx.x; i < nr * D; i += THREADS) {
+    const int r = row0 + i / D, d = i % D;
     const int beam = r / n_rep, rep = r % n_rep;
     sh.q[i] = __bfloat162float(q[((long long)(b * nb + beam) * Hq + h * n_rep + rep) * D + d]);
     sh.o[i] = 0.f;
   }
-  for (int r = threadIdx.x; r < M; r += THREADS) {
+  for (int r = threadIdx.x; r < nr; r += THREADS) {
     sh.m[r] = NEG_INF;
     sh.l[r] = 0.f;
   }
 
-  // shared prefix, read once for all beams
-  const int q_slot = prefix_len + t;
-  const int p_begin = window > 0 ? max(0, q_slot - window + 1) : 0;
-  const bf16* kpb = kp + ((long long)b * Hkv + h) * P * D;
-  const bf16* vpb = vp + ((long long)b * Hkv + h) * P * D;
-  const int* pm = prefix_mask + (long long)b * P;
-  for (int j0 = p_begin; j0 < P; j0 += TK) {
-    const int n = min(TK, P - j0);
-    attend_tile<D>(sh, kpb + (long long)j0 * D, vpb + (long long)j0 * D, n, M, 0, M, scale,
-                   [&](int kk) { return pm[j0 + kk] != 0; });
+  for (int it = 0; it < n_tiles; ++it) {
+    const int j0 = k_begin + it * TK, n = min(TK, k_end - j0);
+    const int buf = it & 1;
+    if (it + 1 < n_tiles) {  // the next tile into the other buffer, then wait for this one
+      const int j1 = j0 + TK;
+      load_tile<D>(sh.k + (buf ^ 1) * TK * D, sh.v + (buf ^ 1) * TK * D,
+                   kbase + (long long)j1 * D, vbase + (long long)j1 * D, min(TK, k_end - j1));
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // the tile (and, at the first, the query rows) in place for all
+    const bf16* sk = sh.k + buf * TK * D;
+    const bf16* sv = sh.v + buf * TK * D;
+    if (in_prefix)
+      attend_tile<D>(sh, sk, sv, n, nr, scale, [&](int kk) { return pm[j0 + kk] != 0; });
+    else
+      attend_tile<D>(sh, sk, sv, n, nr, scale, [](int) { return true; });
+    __syncthreads();  // every thread is done with the buffer before it is refilled
   }
 
-  // each beam's own generated slots j <= t (and inside the window)
-  const int g_end = min(t + 1, G);
-  const int g_begin = window > 0 ? max(0, t - window + 1) : 0;
-  for (int beam = 0; beam < nb; ++beam) {
-    const long long row = (long long)(b * nb + beam) * Hkv + h;
-    const bf16* kgb = kg + row * G * D;
-    const bf16* vgb = vg + row * G * D;
-    for (int j0 = g_begin; j0 < g_end; j0 += TK) {
-      const int n = min(TK, g_end - j0);
-      attend_tile<D>(sh, kgb + (long long)j0 * D, vgb + (long long)j0 * D, n, M,
-                     beam * n_rep, (beam + 1) * n_rep, scale, [](int) { return true; });
+  // this split's partial: unnormalised O, row max m and sum l, fp32 [B * Hkv, S, M, ...]
+  const long long part = (long long)bh * S + split;
+  for (int i = threadIdx.x; i < nr * D; i += THREADS) o_part[(part * M + row0) * D + i] = sh.o[i];
+  for (int r = threadIdx.x; r < nr; r += THREADS) {
+    ml_part[(part * M + row0 + r) * 2] = sh.m[r];
+    ml_part[(part * M + row0 + r) * 2 + 1] = sh.l[r];
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) is_last = atomicAdd(counter + bh, 1) == S - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+
+  // the last CTA of the (batch, KV head): combine the partials of each row in split
+  // order; every row has a live key (its own slot t), so its total sum is positive.
+  // A warp a row finds its max and sum, the lanes taking the splits (a fixed order of
+  // sums); then the weighted partials are summed into sO, in split order.
+  const int n_cover = p_splits + g_splits;
+  const float* ml = ml_part + (long long)bh * S * M * 2;
+  const float* op = o_part + (long long)bh * S * M * D;
+  for (int r = warp; r < M; r += WARPS) {
+    const int beam = r / n_rep;
+    float mt = NEG_INF;
+    for (int u = lane; u < n_cover; u += 32) {
+      const long long sp = covering_split(u, beam, p_splits, g_splits);
+      mt = fmaxf(mt, __ldcg(ml + (sp * M + r) * 2));
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
+    float lt = 0.f;
+    for (int u = lane; u < n_cover; u += 32) {
+      const long long sp = covering_split(u, beam, p_splits, g_splits);
+      lt += __ldcg(ml + (sp * M + r) * 2 + 1) * __expf(__ldcg(ml + (sp * M + r) * 2) - mt);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) lt += __shfl_xor_sync(0xffffffffu, lt, off);
+    if (lane == 0) {
+      sh.m[r] = mt;
+      sh.l[r] = lt;
     }
   }
-  __syncthreads();
-
+  // the partials go through the K/V buffers (free now), `per` of the row blocks [M][D]
+  // that the rows' u-th covering splits hold at a time, by 16-byte cp.async copies; their
+  // weights exp(m - max) go to sS
+  float* stage = reinterpret_cast<float*>(sh.k);
+  const int per = max(1, min(TK, 2 * TK / M));  // [M][D] fp32 blocks in 4 * TK * D bf16,
+                                                // their weights in sS [M][TK]
+  for (int i = threadIdx.x; i < M * D; i += THREADS) sh.o[i] = 0.f;
+  for (int u0 = 0; u0 < n_cover; u0 += per) {
+    const int nu = min(per, n_cover - u0);
+    __syncthreads();  // the row statistics, or the previous round's last reads
+    for (int i = threadIdx.x; i < nu * M * (D / 4); i += THREADS) {
+      const int uu = i / (M * (D / 4)), r = (i / (D / 4)) % M, c = (i % (D / 4)) * 4;
+      const long long sp = covering_split(u0 + uu, r / n_rep, p_splits, g_splits);
+      cp_async_16(stage + ((long long)uu * M + r) * D + c, op + (sp * M + r) * D + c);
+    }
+    cp_async_commit();
+    for (int i = threadIdx.x; i < M * nu; i += THREADS) {
+      const int r = i / nu, uu = i % nu;
+      const long long sp = covering_split(u0 + uu, r / n_rep, p_splits, g_splits);
+      sh.s[r * TK + uu] = __expf(__ldcg(ml + (sp * M + r) * 2) - sh.m[r]);
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int i = threadIdx.x; i < M * D; i += THREADS) {
+      const int r = i / D;
+      float acc = sh.o[i];
+      for (int uu = 0; uu < nu; ++uu) acc += sh.s[r * TK + uu] * stage[uu * M * D + i];
+      sh.o[i] = acc;
+    }
+  }
   for (int i = threadIdx.x; i < M * D; i += THREADS) {
     const int r = i / D, d = i % D;
     const int beam = r / n_rep, rep = r % n_rep;
-    const float inv = 1.f / fmaxf(sh.l[r], 1e-30f);
     out[((long long)(b * nb + beam) * Hq + h * n_rep + rep) * D + d] =
-        __float2bfloat16(sh.o[i] * inv);
+        __float2bfloat16(sh.o[i] / sh.l[r]);
   }
+  if (threadIdx.x == 0) counter[bh] = 0;  // ready for the next launch
 }
 
 template <int D>
 cudaError_t launch(const void* q, const void* kp, const void* vp, const void* kg,
-                   const void* vg, const void* prefix_mask, void* out, int B, int nb,
-                   int Hkv, int n_rep, int P, int G, int t, int prefix_len, int window,
+                   const void* vg, const void* prefix_mask, void* out, void* o_part,
+                   void* ml_part, void* counter, int B, int nb, int Hkv, int n_rep, int P, int G,
+                   int p_begin, int p_splits, int g_begin, int g_end, int g_splits, int chunk,
                    float scale, cudaStream_t stream) {
+  if (chunk <= 0 || chunk % TK || g_splits <= 0 || p_splits < 0)
+    return cudaErrorInvalidValue;  // not a plan of ops/decode_attention.py:decode_plan
   const size_t bytes = smem_bytes<D>(nb * n_rep);
   cudaError_t err = cudaFuncSetAttribute(decode_attn_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);
   if (err != cudaSuccess) return err;
-  dim3 grid(Hkv, B);
+  dim3 grid(p_splits + nb * g_splits, Hkv, B);
   decode_attn_kernel<D><<<grid, THREADS, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(kp), static_cast<const bf16*>(vp),
       static_cast<const bf16*>(kg), static_cast<const bf16*>(vg),
-      static_cast<const int*>(prefix_mask), static_cast<bf16*>(out), nb, Hkv, n_rep, P, G,
-      t, prefix_len, window, scale);
+      static_cast<const int*>(prefix_mask), static_cast<bf16*>(out),
+      static_cast<float*>(o_part), static_cast<float*>(ml_part), static_cast<int*>(counter), nb,
+      Hkv, n_rep, P, G, p_begin, p_splits, g_begin, g_end, g_splits, chunk, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// o_part, ml_part: fp32 scratch of B * Hkv * splits * nb * n_rep * D and * 2 floats;
+// counter: B * Hkv ints, 0 before the launch and 0 after it; p_begin .. chunk: the plan
+// of ops/decode_attention.py:decode_plan
 extern "C" int decode_attn_bf16(const void* q, const void* kp, const void* vp,
                                 const void* kg, const void* vg, const void* prefix_mask,
-                                void* out, int B, int nb, int Hkv, int n_rep, int P, int G,
-                                int D, int t, int prefix_len, int window, float scale,
-                                void* stream) {
+                                void* out, void* o_part, void* ml_part, void* counter, int B,
+                                int nb, int Hkv, int n_rep, int P, int G, int D, int p_begin,
+                                int p_splits, int g_begin, int g_end, int g_splits, int chunk,
+                                float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return (int)launch<64>(q, kp, vp, kg, vg, prefix_mask, out, B, nb, Hkv, n_rep, P, G,
-                             t, prefix_len, window, scale, s);
+      return (int)launch<64>(q, kp, vp, kg, vg, prefix_mask, out, o_part, ml_part, counter, B,
+                             nb, Hkv, n_rep, P, G, p_begin, p_splits, g_begin, g_end, g_splits,
+                             chunk, scale, s);
     case 128:
-      return (int)launch<128>(q, kp, vp, kg, vg, prefix_mask, out, B, nb, Hkv, n_rep, P, G,
-                              t, prefix_len, window, scale, s);
+      return (int)launch<128>(q, kp, vp, kg, vg, prefix_mask, out, o_part, ml_part, counter, B,
+                              nb, Hkv, n_rep, P, G, p_begin, p_splits, g_begin, g_end, g_splits,
+                              chunk, scale, s);
     case 256:
-      return (int)launch<256>(q, kp, vp, kg, vg, prefix_mask, out, B, nb, Hkv, n_rep, P, G,
-                              t, prefix_len, window, scale, s);
+      return (int)launch<256>(q, kp, vp, kg, vg, prefix_mask, out, o_part, ml_part, counter, B,
+                              nb, Hkv, n_rep, P, G, p_begin, p_splits, g_begin, g_end, g_splits,
+                              chunk, scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -17,36 +17,39 @@
 // [16, 1024, 16, 72]. Causal, sliding window, per-batch key padding mask and GQA.
 //
 // What bounds it on the H100: the tile products (dK/dV: S^T, dP^T, dV and two terms of
-// dK, ~10 * B * Hq * T^2 * D operations before causal/window skipping; dQ: ~8) against
-// ~B * T * (Hq + Hkv) * D * 2 * 4 bytes of operands: the tensor cores. The dK/dV kernel
-// runs at 3.2 times its bound at [16, 1024, 16, 72] and at 9 times at the decoder's
-// [4, 1087, 4|1, 256] (68 CTAs for 132 SMs, and S^T and dP^T computed twice); the WMMA dQ
-// kernel at 24-55.
+// dK, ~10 * B * Hq * T^2 * D operations before causal/window skipping; dQ: S, dP and two
+// terms of dQ, ~8) against ~B * T * (Hq + Hkv) * D * 2 * 4 bytes of operands: the tensor
+// cores. The dK/dV kernel runs at 3.2 times its bound at [16, 1024, 16, 72] and at 9
+// times at the decoder's [4, 1087, 4|1, 256] (68 CTAs for 132 SMs, and S^T and dP^T
+// computed twice); the dQ kernel at 4.0 and 6 times (144 CTAs for 132 SMs there, and
+// n = 32 products for S and dP).
 //
-// Design:
-// - dK/dV (namespace dkv, wgmma; it replaces a WMMA kernel of 32-key CTAs that passed S,
-//   dP, P and dS through shared memory). One CTA owns 128 keys of one (batch, KV head):
-//   two consumer warpgroups of 64 keys and one producer warp (setmaxnreg 232 / 40). K and
-//   V are loaded once by TMA and stay in shared memory; the Q and dO tiles of 64 queries
-//   (32 from D = 128 up) stream through a ring of 3 (4) stages that the producer warp
-//   fills by TMA, writing the tile's lse (in log2 units) and delta rows beside them;
-//   full / empty mbarriers, every wait traps after ~2 s. The tiles are computed
-//   transposed, so nothing is transposed in shared memory: S^T = K Q^T and
-//   dP^T = V dO^T (A = K or V, B = Q or dO, all K-major in the TMA unit's
-//   128-byte-swizzled layout), then P^T and dS^T are formed on the accumulators in
-//   registers, rounded to bf16 in wgmma's A-operand places, and feed dV += P^T dO and
-//   dK += dS_hi^T Q + dS_lo^T Q with the same dO and Q boxes read as MN-major B
-//   operands. dK and dV stay in registers ([64, D] fp32 each a warpgroup, 64 + 64
-//   registers a thread at D = 128) until the epilogue writes them as bf16. A sum is made
-//   by one thread in program order, so a rerun gives the same bits.
+// Both kernels have one shape: a CTA of two consumer warpgroups and one producer warp
+// (setmaxnreg 232 / 40). The operand the CTA owns is loaded once by TMA and stays in
+// shared memory; the other streams through a ring of stages that the producer warp fills
+// by TMA; full / empty mbarriers, and every wait traps after ~2 s. All operands are read
+// in the TMA unit's 128-byte-swizzled layout, as K-major A and B operands of the first
+// two products and as MN-major B operands of the last ones, so nothing is transposed in
+// shared memory. P and dS are formed on the accumulators in registers, rounded to bf16
+// in wgmma's A-operand places, and fed to the next products from there. The results
+// stay in registers until the epilogue writes them as bf16; each element is summed by
+// one thread in program order, so a rerun gives the same bits.
+// The 4-D tensor maps (D, T, H, B) over the strided tensors zero-fill past T and past D:
+// head dim 72 takes five k-steps over a zero-filled second box and wgmma's n = 72.
+//
+// - dK/dV (namespace dkv). One CTA owns 128 keys of one (batch, KV head), 64 a
+//   warpgroup; K and V stay in shared memory; the Q and dO tiles of 64 queries (32 from
+//   D = 128 up) stream through a ring of 3 (4) stages, with the tile's lse (in log2
+//   units) and delta rows that the producer warp writes beside them. The tiles are
+//   computed transposed: S^T = K Q^T and dP^T = V dO^T (A = K or V, B = Q or dO), then
+//   dV += P^T dO and dK += dS_hi^T Q + dS_lo^T Q. dK and dV are [64, D] fp32 each a
+//   warpgroup, 64 + 64 registers a thread at D = 128.
 //   At D = 256 dK and dV of 64 keys would be 256 registers a thread: there the CTA owns
 //   64 keys, both warpgroups compute S^T and dP^T of all of them (two of the five
 //   products done twice) and each keeps one half of the columns of dK and dV, reading
 //   its half of the dO and Q boxes. No warpgroup waits for the other.
-//   The 4-D tensor maps (D, T, H, B) over the strided tensors zero-fill past T and past
-//   D: head dim 72 takes five k-steps over a zero-filled second box and wgmma's n = 72.
 //   Measured (NVIDIA H100 80GB HBM3, 700 W; kernels/check_flash_attn.py --time, ms a
-//   launch with the host's share out; the WMMA kernel before it / the library's whole
+//   launch with the host's share out; the kernel it replaced / the library's whole
 //   backward, dq, dk and dv together, beside it): [16, 1024, 16, 72] 0.502 (4.300 timed
 //   a launch at a time / 1.139); decoder [4, 1087, 4|1, 256] causal, window 512,
 //   right-padded 0.121 (0.696 / 1.358, its math backend); prefill shape [8, 831, 4|1,
@@ -55,293 +58,56 @@
 //   at 240 registers; 0.077 against 0.085 ms at the merged shape, timed a launch at a
 //   time); 240 / 24 registers (4-12 bytes of spills at every head dim: the producer
 //   warp's address arithmetic does not fit 24; same times).
-// - GQA: the CTA loops over the n_rep query heads that read its KV head and
+// - GQA in dK/dV: the CTA loops over the n_rep query heads that read its KV head and
 //   accumulates all of them into the same accumulators: no fp32 per-query-head buffer
 //   and no reduction afterwards (JAX writes fp32 dK/dV per query head and sums them
 //   outside its kernel). At 8 query heads on 2 KV heads and B * T = 2048 that is 32 CTAs
 //   for 132 SMs (0.171 ms against 0.054 with 8 KV heads).
-// - dQ (WMMA, all four head dims): one CTA of 8 warps per (64-query tile, query head,
-//   batch); 64-key K/V tiles stream through shared memory (181 KB at D = 256), S and dP
-//   pass through fp32 shared memory, and the [64, D] dQ accumulator lives in fragments
-//   (each warp: 16 rows x D/2 columns).
+// - dQ (namespace dq). One CTA owns 128 queries of one (batch, query head), 64 a
+//   warpgroup; Q and dO stay in shared memory, and each thread keeps the lse (in log2
+//   units) and delta of its two query rows in registers; the K and V tiles of the key
+//   range the CTA's queries see (ops/flash_attention.py:kv_tile_range) stream through a
+//   ring of 3 stages, 64 keys each (32 at D = 256), with the tile's key-mask bits that
+//   the producer warp writes beside them. S = Q K^T and dP = dO V^T (A = Q or dO, B = K
+//   or V), then dQ += dS_hi K + dS_lo K with the same K box read as the MN-major B
+//   operand. dQ is [64, D] fp32 a warpgroup: D / 2 registers a thread, 128 at D = 256,
+//   where S and dP of 64 keys would not fit beside it: hence the 32-key stages there. GQA:
+//   query head h reads KV head h / n_rep; each dQ row belongs to one CTA.
+//   Measured (NVIDIA H100 80GB HBM3, 700 W; kernels/check_flash_attn.py --time and
+//   chip_smoke.py phase 2, device ms; the kernel it replaced, whose S and dP went through
+//   fp32 shared memory, / the library's whole backward beside it): [16, 1024, 16, 72]
+//   0.465 (2.809 / 1.139); decoder [4, 1087, 4|1, 256] causal, right-padded, window 512
+//   0.059-0.061 (0.542 / 1.367), no window 0.082-0.085 (0.891 / 1.368); prefill shape
+//   [8, 831, 4|1, 256] left-padded, window 512 0.086, none 0.099 (library 1.484); merged
+//   [2, 1024, 8 * 128] 0.043 (0.489 / 0.091). ptxas: 168 registers at launch, 0 bytes of
+//   spills at all four head dims.
 // - Masking: the lse of a query row with no valid key is only "very negative" (the
 //   finite NEG_INF of the forward), so exp2(s - lse) would overflow there. P is set
-//   to 0 explicitly wherever the (query, key) pair is invalid (the dK/dV kernel: only in
-//   tiles that hold such a pair). Query tiles wholly above the diagonal (causal) or
-//   below the window are skipped, as are key tiles outside them in the dQ kernel. Rows
-//   past T are zero-filled on load and never written.
-// - Head dim 72 in the dQ kernel: the shared tiles are [rows][DP], DP = D rounded up to
-//   16 (WMMA's k and n); their columns D..DP-1 are zeroed once and never loaded, so
-//   they add nothing to S or dP and give zero dQ columns, which are never written back.
-//   The scale is the caller's (72^-0.5), and delta stays the caller's sum over the D
-//   real columns.
-//
-// Left for a later PR: dQ on wgmma.
+//   to 0 explicitly wherever the (query, key) pair is invalid, on the per-element path
+//   that only tiles holding such a pair take (one ballot of the key mask a tile, and the
+//   tile's place against the diagonal, the window's edge and T). Tiles outside the
+//   causal / window range of a warpgroup's queries are skipped by it; rows past T are
+//   zero-filled on load and never written.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "tensor_map.cuh"
 #include "wgmma_sm90.cuh"
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
 constexpr float LOG2E = 1.4426950408889634f;
 
-constexpr int Q_BQ = 64;   // queries per dQ CTA
-constexpr int Q_BK = 64;   // keys per step of the dQ CTA
-
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
-
-// the shared tiles' row length: D rounded up to a multiple of 16
-template <int D>
-__host__ __device__ constexpr int padded() { return (D + 15) / 16 * 16; }
-
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  constexpr int DP = padded<D>();
-  return (size_t)Q_BQ * DP * 2 * 2       // sQ, sdO
-         + (size_t)Q_BK * DP * 2 * 2     // sK, sV
-         + (size_t)Q_BQ * Q_BK * 4 * 2  // sS, sdP fp32
-         + (size_t)Q_BQ * Q_BK * 2 * 2  // sdS (hi), sdS_lo bf16
-         + (size_t)Q_BQ * 4 * 2;        // sLse, sDelta
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
 }
 
-// copy `n_rows` rows (row r at src + r * row_stride, D contiguous bf16) into columns
-// 0..D-1 of a [n_rows][DP] shared tile, zero-filling rows >= valid
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long row_stride,
-                                          int valid, int n_rows) {
-  constexpr int VEC = 8;  // 16 bytes
-  constexpr int PER_ROW = D / VEC;
-  constexpr int DP = padded<D>();
-  for (int i = threadIdx.x; i < n_rows * PER_ROW; i += THREADS) {
-    int r = i / PER_ROW, c = (i % PER_ROW) * VEC;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r < valid) val = *reinterpret_cast<const uint4*>(src + r * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * DP + c) = val;
-  }
-}
-
-// zero the pad columns D..DP-1 of a [n_rows][DP] shared tile (once: loads never
-// write them)
-template <int D>
-__device__ __forceinline__ void zero_pad_cols(bf16* dst, int n_rows) {
-  constexpr int DP = padded<D>();
-  constexpr int PAD = (DP - D) / 8;  // 16-byte chunks a row
-  if constexpr (PAD > 0) {
-    for (int i = threadIdx.x; i < n_rows * PAD; i += THREADS) {
-      int r = i / PAD, c = D + (i % PAD) * 8;
-      *reinterpret_cast<uint4*>(dst + r * DP + c) = make_uint4(0, 0, 0, 0);
-    }
-  }
-}
-
-// lse (natural log, scaled to log2) and delta of `n` query rows from q0; 0 past T
-__device__ __forceinline__ void load_rows(float* sLse, float* sDelta, const float* lse,
-                                          const float* delta, int q0, int n, int T) {
-  for (int i = threadIdx.x; i < n; i += THREADS) {
-    const int t = q0 + i;
-    sLse[i] = t < T ? lse[t] * LOG2E : 0.f;
-    sDelta[i] = t < T ? delta[t] : 0.f;
-  }
-}
-
-__device__ __forceinline__ bool attends(int q_pos, int k_pos, int T, int causal, int window,
-                                        const int* mb) {
-  if (q_pos >= T || k_pos >= T) return false;
-  if (causal && k_pos > q_pos) return false;
-  if (window > 0 && k_pos <= q_pos - window) return false;
-  return mb == nullptr || mb[k_pos] != 0;
-}
-
-// dS (as bf16 hi + lo) of one warp's 16x16 tile at (row0, col0) of [rows][LD] score
-// tiles
-template <int LD>
-__device__ __forceinline__ void probs_tile(const float* sS, const float* sdP,
-                                           bf16* sdS, bf16* sdS_lo, const float* sLse,
-                                           const float* sDelta,
-                                           int row0, int col0, int q0, int k0, int T,
-                                           int causal, int window, const int* mb,
-                                           float qk_scale, int lane) {
-  for (int e = lane; e < 256; e += 32) {
-    const int r = row0 + e / 16, c = col0 + e % 16;
-    float p = 0.f;  // explicit zero for invalid pairs: see the header
-    if (attends(q0 + r, k0 + c, T, causal, window, mb))
-      p = exp2f(sS[r * LD + c] * qk_scale - sLse[r]);
-    const float ds = p * (sdP[r * LD + c] - sDelta[r]);
-    const bf16 hi = __float2bfloat16(ds);
-    sdS[r * LD + c] = hi;
-    sdS_lo[r * LD + c] = __float2bfloat16(ds - __bfloat162float(hi));
-  }
-}
-
-// write one accumulator fragment (times `mul`) as bf16 rows [row0, row0+16) x
-// [col0, col0+16) of out (row t at out + t * row_stride), rows < T and columns < D only
-__device__ __forceinline__ void store_frag(Acc& frag, float mul, float* stage, bf16* out,
-                                           long long row_stride, int row0, int col0, int T,
-                                           int D, int lane) {
-  for (int i = 0; i < frag.num_elements; ++i) frag.x[i] *= mul;
-  wmma::store_matrix_sync(stage, frag, 16, wmma::mem_row_major);
-  __syncwarp();
-  for (int e = lane; e < 256; e += 32) {
-    const int t = row0 + e / 16, c = col0 + e % 16;
-    if (t < T && c < D) out[t * row_stride + c] = __float2bfloat16(stage[e]);
-  }
-  __syncwarp();
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const int* __restrict__ kv_mask,
-                    const bf16* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, bf16* __restrict__ dq,
-                    int T, int Hq, int Hkv,
-                    long long sqb, long long sqt, long long sqh,
-                    long long skb, long long skt, long long skh,
-                    long long svb, long long svt, long long svh,
-                    long long sob, long long sot, long long soh,
-                    long long sdqb, long long sdqt, long long sdqh,
-                    float scale, int causal, int window) {
-  constexpr int DP = padded<D>();
-  constexpr int NT = DP / 16;       // d tiles of dQ
-  constexpr int NF = (NT + 1) / 2;  // ... per warp (2 column groups); tiles past NT skipped
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sdO = sQ + Q_BQ * DP;
-  bf16* sK = sdO + Q_BQ * DP;
-  bf16* sV = sK + Q_BK * DP;
-  float* sS = reinterpret_cast<float*>(sV + Q_BK * DP);
-  float* sdP = sS + Q_BQ * Q_BK;
-  bf16* sdS = reinterpret_cast<bf16*>(sdP + Q_BQ * Q_BK);
-  bf16* sdS_lo = sdS + Q_BQ * Q_BK;
-  float* sLse = reinterpret_cast<float*>(sdS_lo + Q_BQ * Q_BK);
-  float* sDelta = sLse + Q_BQ;
-
-  const int q0 = blockIdx.x * Q_BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const float qk_scale = scale * LOG2E;
-  const int* mb = kv_mask ? kv_mask + (long long)b * T : nullptr;
-  const long long row_off = ((long long)b * Hq + h) * T;
-
-  zero_pad_cols<D>(sQ, Q_BQ);
-  zero_pad_cols<D>(sdO, Q_BQ);
-  zero_pad_cols<D>(sK, Q_BK);
-  zero_pad_cols<D>(sV, Q_BK);
-  load_tile<D>(sQ, q + b * sqb + h * sqh + q0 * sqt, sqt, min(Q_BQ, T - q0), Q_BQ);
-  load_tile<D>(sdO, dout + b * sob + h * soh + q0 * sot, sot, min(Q_BQ, T - q0), Q_BQ);
-  load_rows(sLse, sDelta, lse + row_off, delta + row_off, q0, Q_BQ, T);
-
-  // this warp's score tiles: query rows s_row.., key columns s_col and s_col + 16;
-  // its dQ tiles: the same rows, d columns d0 .. d0 + 16 * NF
-  const int s_row = 16 * (warp % 4), s_col = 32 * (warp / 4);
-  const int d0 = (warp / 4) * NF * 16;
-  Acc acc_dq[NF];
-#pragma unroll
-  for (int f = 0; f < NF; ++f) wmma::fill_fragment(acc_dq[f], 0.f);
-
-  int kt_end = (T + Q_BK - 1) / Q_BK;
-  if (causal) kt_end = min(kt_end, (q0 + Q_BQ - 1) / Q_BK + 1);
-  const int kt_begin = window > 0 ? max(0, q0 - window + 1) / Q_BK : 0;
-
-  const bf16* kb = k + b * skb + hk * skh;
-  const bf16* vb = v + b * svb + hk * svh;
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * Q_BK;
-    __syncthreads();  // every warp is done with the previous K/V/dS tiles
-    load_tile<D>(sK, kb + k0 * skt, skt, min(Q_BK, T - k0), Q_BK);
-    load_tile<D>(sV, vb + k0 * svt, svt, min(Q_BK, T - k0), Q_BK);
-    __syncthreads();
-
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {  // S = Q K^T and dP = dO V^T on this warp's tiles
-      const int col = s_col + 16 * j;
-      Acc s_acc, dp_acc;
-      wmma::fill_fragment(s_acc, 0.f);
-      wmma::fill_fragment(dp_acc, 0.f);
-#pragma unroll 4
-      for (int kd = 0; kd < DP / 16; ++kd) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bt;
-        wmma::load_matrix_sync(a, sQ + s_row * DP + kd * 16, DP);
-        wmma::load_matrix_sync(bt, sK + col * DP + kd * 16, DP);
-        wmma::mma_sync(s_acc, a, bt, s_acc);
-        wmma::load_matrix_sync(a, sdO + s_row * DP + kd * 16, DP);
-        wmma::load_matrix_sync(bt, sV + col * DP + kd * 16, DP);
-        wmma::mma_sync(dp_acc, a, bt, dp_acc);
-      }
-      wmma::store_matrix_sync(sS + s_row * Q_BK + col, s_acc, Q_BK, wmma::mem_row_major);
-      wmma::store_matrix_sync(sdP + s_row * Q_BK + col, dp_acc, Q_BK, wmma::mem_row_major);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      probs_tile<Q_BK>(sS, sdP, sdS, sdS_lo, sLse, sDelta, s_row, s_col + 16 * j,
-                       q0, k0, T, causal, window, mb, qk_scale, lane);
-    __syncthreads();
-
-    // dQ += (dS_hi + dS_lo) K over the tile's 64 keys
-#pragma unroll
-    for (int kk = 0; kk < Q_BK / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a, a_lo;
-      wmma::load_matrix_sync(a, sdS + s_row * Q_BK + kk * 16, Q_BK);
-      wmma::load_matrix_sync(a_lo, sdS_lo + s_row * Q_BK + kk * 16, Q_BK);
-#pragma unroll
-      for (int f = 0; f < NF; ++f) {
-        if (NT % 2 != 0 && d0 + f * 16 >= DP) break;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bm;
-        wmma::load_matrix_sync(bm, sK + kk * 16 * DP + d0 + f * 16, DP);
-        wmma::mma_sync(acc_dq[f], a, bm, acc_dq[f]);
-        wmma::mma_sync(acc_dq[f], a_lo, bm, acc_dq[f]);
-      }
-    }
-  }
-
-  __syncthreads();  // sS becomes per-warp staging for the epilogue
-  float* stage = sS + warp * 256;
-  bf16* dqb = dq + b * sdqb + h * sdqh + q0 * sdqt;
-#pragma unroll
-  for (int f = 0; f < NF; ++f) {
-    if (NT % 2 != 0 && d0 + f * 16 >= DP) break;
-    store_frag(acc_dq[f], scale, stage, dqb, sdqt, s_row, d0 + f * 16, T - q0, D, lane);
-  }
-}
-
-template <int D>
-cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* kv_mask,
-                      const void* dout, const void* lse, const void* delta, void* dq,
-                      int B, int T, int Hq, int Hkv, const long long* s, float scale,
-                      int causal, int window, cudaStream_t stream) {
-  constexpr size_t bytes = dq_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  dim3 grid((T + Q_BQ - 1) / Q_BQ, Hq, B);
-  flash_bwd_dq_kernel<D><<<grid, THREADS, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const int*>(kv_mask), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dq), T, Hq, Hkv,
-      s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11],
-      s[12], s[13], s[14], scale, causal, window);
-  return cudaGetLastError();
-}
-
-
-// ------------------------------------------------- dK/dV on wgmma (head dims 64, 72, 128)
+// -------------------------------------------------- dK/dV on wgmma (head dims 64, 72, 128, 256)
 
 namespace dkv {
 
@@ -373,10 +139,6 @@ struct Cfg {
                                  8 * (2 * STAGES + 1);
   static_assert(SMEM <= 232448, "shared memory of one SM");
 };
-
-__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
-  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
-}
 
 template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -631,6 +393,262 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* kv_m
 
 }  // namespace dkv
 
+// ---------------------------------------------------- dQ on wgmma (head dims 64, 72, 128, 256)
+
+namespace dq {
+
+using namespace sm90;
+
+constexpr int THREADS = 384;  // warpgroups 0, 1: consumers; warp 8: the producer
+
+template <int D>
+struct Cfg {
+  static constexpr int BQ = 128;  // queries a CTA: 64 a warpgroup
+  // keys a ring stage: dQ is D / 2 registers a thread, S and dP BK / 2 each
+  static constexpr int BK = D > 128 ? 32 : 64;
+  static constexpr int STAGES = 3;
+  static constexpr int NB = (D + 63) / 64;      // 64-column blocks (TMA boxes) of a row
+  static constexpr int KSTEPS = (D + 15) / 16;  // k-steps over D (zero columns past D)
+  static constexpr int Q_BLOCK = BQ * 128;      // bytes of one 64-column block of Q or dO
+  static constexpr int KV_BLOCK = BK * 128;     // ... of a K or V tile
+  static constexpr int Q_BYTES = NB * Q_BLOCK;
+  static constexpr int KV_BYTES = NB * KV_BLOCK;
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES;  // K, then V
+  static constexpr int MASK_WORDS = BK / 32;        // key-mask bits of a tile, 2 words a stage
+  static constexpr size_t SMEM = 2 * Q_BYTES + STAGES * (STAGE_BYTES + 8) + 1024 +
+                                 8 * (2 * STAGES + 1);
+  static_assert(SMEM <= 232448, "shared memory of one SM");
+};
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v,
+                          const __grid_constant__ CUtensorMap map_do,
+                          const int* __restrict__ kv_mask, const float* __restrict__ lse,
+                          const float* __restrict__ delta, bf16* __restrict__ dq,
+                          int T, int Hq, int Hkv, long long sdqb, long long sdqt, long long sdqh,
+                          float scale, int causal, int window) {
+  using C = Cfg<D>;
+  constexpr int BQ = C::BQ, BK = C::BK, STAGES = C::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  const uint32_t sq = smem_addr(smem), sdo = sq + C::Q_BYTES, ring = sdo + C::Q_BYTES;
+  uint32_t* key_bits = reinterpret_cast<uint32_t*>(smem + 2 * C::Q_BYTES + STAGES * C::STAGE_BYTES);
+  const uint32_t full = ring + STAGES * (C::STAGE_BYTES + 8);
+  const uint32_t empty = full + 8 * STAGES, q_full = empty + 8 * STAGES;
+
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  // a warpgroup whose queries all lie past T leaves
+  const int active_wgs = q0 + 64 < T ? 2 : 1;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * active_wgs);  // lane 0 of each consumer warp
+    }
+    mbar_init(q_full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // the K/V tiles that a query of this CTA can see (ops/flash_attention.py:kv_tile_range)
+  int kt_end = (T + BK - 1) / BK;
+  if (causal) kt_end = min(kt_end, (q0 + BQ - 1) / BK + 1);
+  const int kt_begin = window > 0 ? max(0, q0 - window + 1) / BK : 0;
+  const int wg = threadIdx.x / 128;
+
+  if (wg == 2) {
+    reg_dealloc<40>();
+    if (threadIdx.x >= 288) return;  // one producer warp
+    const int lane = threadIdx.x % 32;
+    const int* mb = kv_mask ? kv_mask + (long long)b * T : nullptr;
+    if (lane == 0) {
+      mbar_expect_tx(q_full, 2 * C::Q_BYTES);
+#pragma unroll
+      for (int kb = 0; kb < C::NB; ++kb) {
+        tma_load_4d(sq + kb * C::Q_BLOCK, &map_q, q_full, 64 * kb, q0, h, b);
+        tma_load_4d(sdo + kb * C::Q_BLOCK, &map_do, q_full, 64 * kb, q0, h, b);
+      }
+    }
+    RingPos r;
+    for (int kt = kt_begin; kt < kt_end; ++kt) {
+      const int k0 = kt * BK;
+      const uint32_t st = ring + r.stage * C::STAGE_BYTES, bar = full + 8 * r.stage;
+      mbar_wait(empty + 8 * r.stage, r.phase ^ 1);
+      // one bit a key of the tile: inside T and not padded; lane 0 writes them and its
+      // arrival below releases them to the consumers with the TMA's bytes
+      uint32_t bits[C::MASK_WORDS];
+#pragma unroll
+      for (int w = 0; w < C::MASK_WORDS; ++w) {
+        const int key = k0 + 32 * w + lane;
+        bits[w] = __ballot_sync(0xffffffffu, key < T && (mb == nullptr || mb[key] != 0));
+      }
+      if (lane == 0) {
+#pragma unroll
+        for (int w = 0; w < C::MASK_WORDS; ++w) key_bits[2 * r.stage + w] = bits[w];
+        mbar_expect_tx(bar, C::STAGE_BYTES);
+#pragma unroll
+        for (int kb = 0; kb < C::NB; ++kb) {
+          tma_load_4d(st + kb * C::KV_BLOCK, &map_k, bar, 64 * kb, k0, hk, b);
+          tma_load_4d(st + C::KV_BYTES + kb * C::KV_BLOCK, &map_v, bar, 64 * kb, k0, hk, b);
+        }
+      }
+      r.advance<STAGES>();
+    }
+    return;
+  }
+
+  reg_alloc<232>();
+  if (wg >= active_wgs) return;
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  const int tq = lane % 4;
+  const int wg_lo = q0 + 64 * wg;          // this warpgroup's 64 queries
+  const int warp_lo = wg_lo + 16 * warp;   // this warp's 16
+  const int row = warp_lo + lane / 4;      // this thread's queries: row, row + 8
+  const float qk_scale = scale * LOG2E;
+  const long long row_off = ((long long)b * Hq + h) * T;
+  float lse2[2], dl[2];  // lse in log2 units and delta of the thread's rows, 0 past T
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int qp = row + 8 * rr;
+    lse2[rr] = qp < T ? lse[row_off + qp] * LOG2E : 0.f;
+    dl[rr] = qp < T ? delta[row_off + qp] : 0.f;
+  }
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  mbar_wait(q_full, 0);
+  RingPos r;
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int k0 = kt * BK;
+    const uint32_t st = ring + r.stage * C::STAGE_BYTES;
+    mbar_wait(full + 8 * r.stage, r.phase);
+    // no key of the tile is seen by a query of this warpgroup
+    const bool outside =
+        (causal && k0 > wg_lo + 63) || (window > 0 && k0 + BK - 1 <= wg_lo - window);
+    if (!outside) {
+      // S = Q K^T and dP = dO V^T: [64 queries x BK keys] each
+      float s[BK / 2], dp[BK / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kd = 0; kd < C::KSTEPS; ++kd) {
+        const uint32_t a_off = (kd / 4) * C::Q_BLOCK + wg * 8192 + 32 * (kd % 4);
+        const uint32_t b_off = (kd / 4) * C::KV_BLOCK + 32 * (kd % 4);
+        WgmmaSS<BK, 0>::run(s, smem_desc(sq + a_off, 16, 1024), smem_desc(st + b_off, 16, 1024),
+                            kd != 0);
+        WgmmaSS<BK, 0>::run(dp, smem_desc(sdo + a_off, 16, 1024),
+                            smem_desc(st + C::KV_BYTES + b_off, 16, 1024), kd != 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+
+      // P = exp2(S - lse) on valid pairs (0 elsewhere, set explicitly: the lse of a query
+      // with no valid key is only "very negative"), dS = P (dP - delta), rounded to bf16
+      // as hi + lo in wgmma's A-operand places. The thread's keys of the tile are columns
+      // 8 j + 2 tq + e.
+      uint32_t bits[C::MASK_WORDS];
+      bool keys_all_ok = true;
+#pragma unroll
+      for (int w = 0; w < C::MASK_WORDS; ++w) {
+        bits[w] = key_bits[2 * r.stage + w];
+        keys_all_ok = keys_all_ok && bits[w] == 0xffffffffu;
+      }
+      const bool masked = !keys_all_ok || (causal && k0 + BK - 1 > warp_lo) ||
+                          (window > 0 && k0 <= warp_lo + 15 - window);
+      // the columns (keys relative to k0) that each of the thread's queries may pair with
+      int c_lo[2], c_hi[2];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int qp = row + 8 * rr;
+        c_lo[rr] = window > 0 ? qp - window + 1 - k0 : 0;
+        c_hi[rr] = causal ? qp - k0 : BK - 1;
+      }
+      uint32_t ds_hi[BK / 16][4], ds_lo[BK / 16][4];
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          float ds[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * j + 2 * rr + e, c = 8 * j + 2 * tq + e;
+            float p = ex2(fmaf(s[i], qk_scale, -lse2[rr]));
+            if (masked)
+              p = (c >= c_lo[rr]) & (c <= c_hi[rr]) & ((bits[j / 4] >> (c % 32)) & 1u) ? p : 0.f;
+            ds[e] = p * (dp[i] - dl[rr]);
+          }
+          const int slot = (j % 2) * 2 + rr;
+          const uint32_t hi = pack_bf16(ds[0], ds[1]);
+          ds_hi[j / 2][slot] = hi;
+          ds_lo[j / 2][slot] = pack_bf16(ds[0] - bf16_lo(hi), ds[1] - bf16_hi(hi));
+        }
+      }
+
+      // dQ += (dS_hi + dS_lo) K; K is read from the same box as an MN-major B operand
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t b_k = smem_desc(st + 2048 * kk, C::KV_BLOCK, 1024);
+        WgmmaRS<D, 1>::run(acc, ds_hi[kk], b_k, 1);
+        WgmmaRS<D, 1>::run(acc, ds_lo[kk], b_k, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      keep_regs(ds_hi);
+      keep_regs(ds_lo);
+    }
+    if (lane == 0) mbar_arrive(empty + 8 * r.stage);
+    r.advance<STAGES>();
+  }
+
+  // epilogue: dQ = scale * acc as bf16, the thread's two rows
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int qp = row + 8 * rr;
+    if (qp >= T) continue;
+    bf16* out = dq + b * sdqb + qp * sdqt + h * sdqh + 2 * tq;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(out + 8 * j) =
+          pack_bf16(acc[4 * j + 2 * rr] * scale, acc[4 * j + 2 * rr + 1] * scale);
+  }
+}
+
+// maps: q, k, v, dout, 11 numbers each (tensor_map.cuh:make_map_4d); s: the 15 strides of
+// the entry point, of which dq's are used
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* kv_mask,
+                   const void* dout, const void* lse, const void* delta, void* dq_out, int B,
+                   int T, int Hq, int Hkv, const long long* s, const long long* maps, int bq,
+                   int bk, float scale, int causal, int window, cudaStream_t stream) {
+  using C = Cfg<D>;
+  if (bq != C::BQ || bk != C::BK) return cudaErrorInvalidValue;  // the wrapper's plan is another
+  CUtensorMap map_q, map_k, map_v, map_do;
+  if (!tmap::make_map_4d(&map_q, q, maps) || !tmap::make_map_4d(&map_k, k, maps + 11) ||
+      !tmap::make_map_4d(&map_v, v, maps + 22) || !tmap::make_map_4d(&map_do, dout, maps + 33))
+    return cudaErrorNotSupported;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)C::SMEM);
+  if (err != cudaSuccess) return err;
+  dim3 grid((T + C::BQ - 1) / C::BQ, Hq, B);
+  flash_bwd_dq_wgmma_kernel<D><<<grid, THREADS, C::SMEM, stream>>>(
+      map_q, map_k, map_v, map_do, static_cast<const int*>(kv_mask),
+      static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<bf16*>(dq_out),
+      T, Hq, Hkv, s[12], s[13], s[14], scale, causal, window);
+  return cudaGetLastError();
+}
+
+}  // namespace dq
+
 }  // namespace
 
 // strides: (b, t, h) in elements for q, k, v, dout, dk, dv (18 values); maps: the 4-D
@@ -662,27 +680,30 @@ extern "C" int flash_attn_bwd_dkv_bf16(const void* q, const void* k, const void*
   }
 }
 
-// strides: (b, t, h) in elements for q, k, v, dout, dq (15 values)
+// strides: (b, t, h) in elements for q, k, v, dout, dq (15 values, of which dq's are
+// used); maps: the 4-D tensor maps of q, k, v, dout (4 x 11 numbers) for tiles of bq
+// queries and bk keys (ops/flash_attention.py:dq_plan)
 extern "C" int flash_attn_bwd_dq_bf16(const void* q, const void* k, const void* v,
                                       const void* kv_mask, const void* dout, const void* lse,
-                                      const void* delta, void* dq,
+                                      const void* delta, void* dq_out,
                                       int B, int T, int Hq, int Hkv, int D,
-                                      const long long* strides, float scale, int causal,
-                                      int window, void* stream) {
+                                      const long long* strides, const long long* maps, int bq,
+                                      int bk, float scale, int causal, int window,
+                                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return (int)launch_dq<64>(q, k, v, kv_mask, dout, lse, delta, dq, B, T, Hq, Hkv,
-                                strides, scale, causal, window, st);
+      return (int)dq::launch<64>(q, k, v, kv_mask, dout, lse, delta, dq_out, B, T, Hq, Hkv,
+                                 strides, maps, bq, bk, scale, causal, window, st);
     case 72:
-      return (int)launch_dq<72>(q, k, v, kv_mask, dout, lse, delta, dq, B, T, Hq, Hkv,
-                                strides, scale, causal, window, st);
+      return (int)dq::launch<72>(q, k, v, kv_mask, dout, lse, delta, dq_out, B, T, Hq, Hkv,
+                                 strides, maps, bq, bk, scale, causal, window, st);
     case 128:
-      return (int)launch_dq<128>(q, k, v, kv_mask, dout, lse, delta, dq, B, T, Hq, Hkv,
-                                 strides, scale, causal, window, st);
+      return (int)dq::launch<128>(q, k, v, kv_mask, dout, lse, delta, dq_out, B, T, Hq, Hkv,
+                                  strides, maps, bq, bk, scale, causal, window, st);
     case 256:
-      return (int)launch_dq<256>(q, k, v, kv_mask, dout, lse, delta, dq, B, T, Hq, Hkv,
-                                 strides, scale, causal, window, st);
+      return (int)dq::launch<256>(q, k, v, kv_mask, dout, lse, delta, dq_out, B, T, Hq, Hkv,
+                                  strides, maps, bq, bk, scale, causal, window, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -37,16 +37,17 @@ SIGNATURES = {
     # q, k, v (long long[33]); bq, bk; out strides (b, t, h) in elements; scale, causal,
     # window; stream
     "flash_attn_fwd_bf16": [_P] * 7 + [_I] * 5 + [_P, _I, _I] + [_L] * 3 + [_F, _I, _I, _P],
-    # q, kp, vp, kg, vg, prefix_mask, out; B, nb, Hkv, n_rep, P, G, D;
-    # t, prefix_len, window, scale; stream
-    "decode_attn_bf16": [_P] * 7 + [_I] * 7 + [_I, _I, _I, _F, _P],
+    # q, kp, vp, kg, vg, prefix_mask, out, o_part, ml_part, counter; B, nb, Hkv, n_rep, P,
+    # G, D; p_begin, p_splits, g_begin, g_end, g_splits, chunk; scale; stream
+    "decode_attn_bf16": [_P] * 10 + [_I] * 7 + [_I] * 6 + [_F, _P],
     # q, k, v, kv_mask, dout, lse, delta, dk, dv; B, T, Hq, Hkv, D;
     # strides (long long[18]: q, k, v, dout, dk, dv, each (b, t, h)); tensor maps of q, k,
     # v, dout (long long[44]); bk, bq; scale, causal, window; stream
     "flash_attn_bwd_dkv_bf16": [_P] * 9 + [_I] * 5 + [_P, _P, _I, _I, _F, _I, _I, _P],
     # q, k, v, kv_mask, dout, lse, delta, dq; B, T, Hq, Hkv, D;
-    # strides (long long[15]: q, k, v, dout, dq); scale, causal, window; stream
-    "flash_attn_bwd_dq_bf16": [_P] * 8 + [_I] * 5 + [_P, _F, _I, _I, _P],
+    # strides (long long[15]: q, k, v, dout, dq); tensor maps of q, k, v, dout
+    # (long long[44]); bq, bk; scale, causal, window; stream
+    "flash_attn_bwd_dq_bf16": [_P] * 8 + [_I] * 5 + [_P, _P, _I, _I, _F, _I, _I, _P],
     # hidden, table, labels, part, lse, nll; N, V, D, splits, tiles_per_split; scale;
     # stream
     "fused_ce_fwd_bf16": [_P] * 6 + [_I] * 5 + [_F, _P],

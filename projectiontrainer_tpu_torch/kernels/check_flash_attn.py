@@ -1,5 +1,5 @@
-"""Build, check and time the flash-attention forward (K1) and dK/dV backward (K4) on the
-card, without the rest of the smoke run.
+"""Build, check and time the flash-attention forward (K1) and its dK/dV (K4) and dQ (K5)
+backward on the card, without the rest of the smoke run.
 
     python -m projectiontrainer_tpu_torch.kernels.check_flash_attn [--ptxas] [--time]
 
@@ -7,13 +7,13 @@ Needs an NVIDIA GPU and ``nvcc``. Prints one JSON line per step:
 
 - ``--ptxas``: what ``nvcc -Xptxas -v`` says of ``csrc/flash_attn_fwd.cu`` and
   ``csrc/flash_attn_bwd.cu`` (registers, spills, shared memory of each kernel, warnings);
-- always: K1's out and lse and K4's dk and dv against the plain versions at the main
+- always: K1's out and lse, K4's dk and dv and K5's dq against the plain versions at the main
   paths' shapes and at ragged ones (T = 1, 63, 64, one off a tile, windows smaller than a
   tile, padding that masks whole tiles, GQA, q/k/v sliced out of one fused tensor), with
-  the tolerances of ``chip_smoke.py`` (out and lse: atol = rtol = 2e-2; dk, dv: 2e-2 x
-  max |reference|); fully masked rows must be exactly 0, K1's fp32 copy of O must round to
-  its bf16 O, and a rerun of either kernel must give the same bits. Every case is run
-  before a failure is reported;
+  the tolerances of ``chip_smoke.py`` (out and lse: atol = rtol = 2e-2; dk, dv, dq: 2e-2
+  x max |reference|); fully masked rows must be exactly 0 (out and dq), K1's fp32 copy of
+  O must round to its bf16 O, and a rerun of each kernel must give the same bits. Every
+  case is run before a failure is reported;
 - ``--time``: device times (``utils/timing.py:device_ms``: launches queued behind a
   spinning kernel, so the host's launch time is not in them) of kernel, plain version and
   the library call (``scaled_dot_product_attention`` and its autograd backward, a
@@ -39,6 +39,7 @@ from projectiontrainer_tpu_torch.ops import flash_attention as FA
 from projectiontrainer_tpu_torch.utils.timing import device_ms
 
 TOL = 2e-2
+TIMED = 9  # the first cases: the main paths' shapes
 # b, t, hq, hkv, d, causal, window, padding (None, "left", "right"), q/k/v sliced of one tensor
 CASES = [
     (8, 576, 16, 16, 64, False, None, None, False),     # ViT-L tower
@@ -49,6 +50,7 @@ CASES = [
     (8, 831, 4, 1, 256, True, 512, "left", False),      # Gemma3 prefill
     (8, 831, 4, 1, 256, True, None, "left", False),
     (4, 1087, 4, 1, 256, True, 512, "right", False),    # stage-1 decoder
+    (4, 1087, 4, 1, 256, True, None, "right", False),   # its global layers
     (2, 1, 2, 2, 64, False, None, None, False),
     (2, 63, 4, 4, 72, True, None, None, False),
     (2, 129, 4, 2, 128, True, 37, "left", False),       # a window smaller than a tile
@@ -63,9 +65,9 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def ptxas_report() -> None:
+def ptxas_report(sources=("flash_attn_fwd.cu", "flash_attn_bwd.cu")) -> None:
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    for source in ("flash_attn_fwd.cu", "flash_attn_bwd.cu"):
+    for source in sources:
         proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
                                str(_build.BUILD_DIR / "ptxas_report.o"),
                                str(_build.CSRC / source)], capture_output=True, text=True)
@@ -122,8 +124,8 @@ def inputs(b, t, hq, hkv, d, pad, sliced, seed=11):
 
 
 def rel_err(got, ref) -> float:
-    """max |got - ref| over max |ref| (at T = 1 dk is zero in exact arithmetic: the scale
-    is then held at 1e-3)."""
+    """max |got - ref| over max |ref| (at T = 1 dk and dq are zero in exact arithmetic: the
+    scale is then held at 1e-3)."""
     return float((got.float() - ref).abs().max() / ref.abs().max().clamp_min(1e-3))
 
 
@@ -157,12 +159,22 @@ def check(b, t, hq, hkv, d, causal, window, pad, sliced) -> bool:
     _, rk, rv = FA.flash_attention_bwd_reference(q.float(), k.float(), v.float(), mask, out32, lse,
                                                  do.float(), **kw)
     dk2, dv2 = FA.launch_bwd_dkv(*args, **kw)
+    dq = FA.launch_bwd_dq(*args, **kw)
+    torch.cuda.synchronize()
+    rq = FA.flash_attention_bwd_reference(q.float(), k.float(), v.float(), mask, out32, lse,
+                                          do.float(), **kw)[0]
+    dq2 = FA.launch_bwd_dq(*args, **kw)
     row.update({"dk_rel": rel_err(dk, rk), "dv_rel": rel_err(dv, rv),
                 "dkv_finite": bool(dk.isfinite().all() and dv.isfinite().all()),
-                "dkv_bit_equal": bool(torch.equal(dk, dk2) and torch.equal(dv, dv2))})
+                "dkv_bit_equal": bool(torch.equal(dk, dk2) and torch.equal(dv, dv2)),
+                "dq_rel": rel_err(dq, rq), "dq_finite": bool(dq.isfinite().all()),
+                "dq_bit_equal": bool(torch.equal(dq, dq2)),
+                "dq_dead_rows_zero": pad != "left" or bool(dq[~mask.bool()].eq(0).all())})
     row["ok"] = bool(row["out_ok"] and row["lse_ok"] and dead_rows_zero
                      and row["f32_rounds_to_bf16"] and row["fwd_bit_equal"] and row["dkv_finite"]
-                     and row["dk_rel"] <= TOL and row["dv_rel"] <= TOL and row["dkv_bit_equal"])
+                     and row["dk_rel"] <= TOL and row["dv_rel"] <= TOL and row["dkv_bit_equal"]
+                     and row["dq_finite"] and row["dq_rel"] <= TOL and row["dq_bit_equal"]
+                     and row["dq_dead_rows_zero"])
     emit(row)
     return row["ok"]
 
@@ -235,7 +247,7 @@ def main() -> int:
     emit({"build_s": _build.build_seconds})
     ok = [check(*case) for case in CASES[:args.cases]]
     if args.time:
-        for case in CASES[:8]:
+        for case in CASES[:TIMED]:
             time_case(*case)
     return 0 if all(ok) else 1
 

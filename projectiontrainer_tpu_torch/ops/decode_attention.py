@@ -9,11 +9,17 @@ generated ones by ``j <= t``, and a sliding window counts cache slots with the q
 at ``prefix_len + t``.
 
 Unlike the TPU kernel, the CUDA kernel masks its own edges, so P and G need no
-padding to a multiple of 128 (``generate/decode.py:_cache_pad`` is 1).
+padding to a multiple of 128 (``generate/decode.py:_cache_pad`` is 1). It cuts the
+live keys of each (batch, KV head) into splits, one CTA each, so that a served batch
+fills the card: ``decode_plan`` decides the cut on the host, and the CPU tests hold it.
+Each split leaves a partial softmax in fp32 scratch (from the caching allocator) and
+the last split of a (batch, KV head) to finish combines them; a per-stream counter
+tells it that it is the last, and it sets the counter back to 0 for the next launch.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import torch
@@ -24,6 +30,45 @@ from projectiontrainer_tpu_torch.ops.attention import NEG_INF
 launches = _build.LaunchCounter("decode_attn")
 HEAD_DIMS = (64, 128, 256)
 MAX_ROWS = 64  # nb * n_rep query rows one CTA holds in shared memory
+TILE_KEYS = 32  # keys a tile inside a split (csrc/decode_attention.cu:TK)
+_counters: dict = {}  # (device index, stream) -> int32 [>= B * Hkv], zero between launches
+_counters_lock = threading.Lock()
+
+
+def decode_plan(b: int, nb: int, hkv: int, p: int, g: int, t: int, prefix_len: int,
+                window: Optional[int], sms: int = 132) -> dict:
+    """How K3 cuts the live keys of each (batch, KV head) over CTAs at step t.
+
+    Live are the prefix slots [p_begin, p) (the padding mask removes more inside the
+    kernel) and each beam's generated slots [g_begin, g_end) = j <= t, both inside the
+    window (cache slots, the query at prefix_len + t). They are cut into splits of
+    ``chunk`` keys, a multiple of the kernel's 32-key tile, sized so that
+    b * hkv * splits comes near ``sms`` CTAs (rounded to the nearest tile, at least one):
+    ``p_splits`` splits of the prefix, each for all nb * n_rep rows, then ``g_splits``
+    a beam of its generated slots, each for that beam's rows. No split is empty of
+    slots; a split may be empty of live keys (padding)."""
+    q_slot = prefix_len + t
+    p_begin = min(p, max(0, q_slot - window + 1)) if window else 0
+    g_begin, g_end = (max(0, t - window + 1) if window else 0), min(t + 1, g)
+    live_p, live_g = p - p_begin, g_end - g_begin
+    keys = b * hkv * (live_p + nb * live_g)
+    tiles = max(1, (keys + sms * TILE_KEYS // 2) // (sms * TILE_KEYS))
+    chunk = tiles * TILE_KEYS
+    p_splits, g_splits = -(-live_p // chunk), -(-live_g // chunk)
+    splits = p_splits + nb * g_splits
+    return {"p_begin": p_begin, "p_splits": p_splits, "g_begin": g_begin, "g_end": g_end,
+            "g_splits": g_splits, "chunk": chunk, "splits": splits, "ctas": b * hkv * splits}
+
+
+def _counter(device, stream: int, n: int):
+    """The zeroed arrival counters of one stream (launches on one stream run in order,
+    so they share them; each launch leaves them 0)."""
+    key = (device.index, stream)
+    with _counters_lock:
+        c = _counters.get(key)
+        if c is None or c.numel() < n:
+            c = _counters[key] = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+        return c
 
 
 def _shapes(q, kp, kg):
@@ -81,13 +126,20 @@ def _launch(q, kp, vp, kg, vg, *, prefix_mask, t, prefix_len, scale, window):
     mask = prefix_mask.to(device=q.device, dtype=torch.int32).contiguous()
     if mask.shape != (b, p):
         raise ValueError(f"decode_attention: prefix_mask must be [B, P], got {tuple(mask.shape)}")
+    plan = decode_plan(b, nb, hkv, p, g, t, prefix_len, window,
+                       torch.cuda.get_device_properties(q.device).multi_processor_count)
+    rows = b * hkv * plan["splits"] * nb * n_rep
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     lib = _build.library()
     out = torch.empty_like(q)
+    o_part = torch.empty(rows * d, dtype=torch.float32, device=q.device)
+    ml_part = torch.empty(rows * 2, dtype=torch.float32, device=q.device)
     err = lib.decode_attn_bf16(
         q.data_ptr(), kp.data_ptr(), vp.data_ptr(), kg.data_ptr(), vg.data_ptr(),
-        mask.data_ptr(), out.data_ptr(), b, nb, hkv, n_rep, p, g, d,
-        int(t), int(prefix_len), int(window or 0), float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        mask.data_ptr(), out.data_ptr(), o_part.data_ptr(), ml_part.data_ptr(),
+        _counter(q.device, stream, b * hkv).data_ptr(), b, nb, hkv, n_rep, p, g, d,
+        plan["p_begin"], plan["p_splits"], plan["g_begin"], plan["g_end"], plan["g_splits"],
+        plan["chunk"], float(scale), stream,
     )
     _build.check("decode_attn_bf16", err)
     launches.add()

@@ -20,11 +20,12 @@ Self-attention shapes only (``Tq == Tk``): the towers (non-causal) and the decod
 its rows up with zeros on the chip, nothing is padded here), 128 and 256.
 
 What a launch decides on the host is in plain functions here, which the CPU tests
-reach: the tiles of each kernel by head dim (``forward_plan``, ``dkv_plan``), the K/V
-tiles a query tile visits and the query tiles a key tile visits under the causal mask
-and the window (``kv_tile_range``, ``q_tile_range``; the kernels compute the same
-bounds), and the 4-D tensor map of a strided ``[B, T, H, D]`` tensor
-(``tensor_map_plan``), through which the TMA unit reads q, k and v as they lie.
+reach: the tiles of each kernel by head dim (``forward_plan``, ``dkv_plan``,
+``dq_plan``), the K/V tiles a query tile visits (K1, K5) and the query tiles a key
+tile visits (K4) under the causal mask and the window (``kv_tile_range``,
+``q_tile_range``; the kernels compute the same bounds), and the 4-D tensor map of a
+strided ``[B, T, H, D]`` tensor (``tensor_map_plan``), through which the TMA unit reads
+q, k, v and dO as they lie.
 
 ``flash_attention_merged`` is the counterpart of the TPU's merged-lane kernels
 (``_fwd_lanes_kernel``, ``_bwd_dkv_lanes_kernel``, ``_bwd_dq_lanes_kernel`` via
@@ -66,6 +67,15 @@ def dkv_plan(d: int) -> dict:
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {d} not supported (takes {HEAD_DIMS})")
     return {"bk": 64 if d > 128 else 128, "bq": 64 if d <= 72 else 32}
+
+
+def dq_plan(d: int) -> dict:
+    """K5's tiles at head dim d: ``bq`` queries a CTA (two warpgroups of 64) and ``bk``
+    keys a ring stage: 64, and 32 at d = 256, where dQ alone is 128 registers a thread
+    and S and dP of 64 keys would not fit beside it."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {d} not supported (takes {HEAD_DIMS})")
+    return {"bq": 128, "bk": 32 if d > 128 else 64}
 
 
 def kv_tile_range(q0: int, bq: int, bk: int, t: int, causal: bool, window: Optional[int]):
@@ -249,12 +259,15 @@ def launch_bwd_dkv(q, k, v, mask, do, lse, delta, *, scale, causal, window):
 def launch_bwd_dq(q, k, v, mask, do, lse, delta, *, scale, causal, window):
     """K5 on prepared inputs (``prepare_bwd``) -> dq."""
     b, t, hq, d = q.shape
+    plan = dq_plan(d)
     dq = torch.empty((b, t, hq, d), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 15)(*(s for x in (q, k, v, do, dq) for s in x.stride()[:3]))
+    maps = (ctypes.c_longlong * 44)(*tensor_map_plan(q, plan["bq"]), *tensor_map_plan(k, plan["bk"]),
+                                    *tensor_map_plan(v, plan["bk"]), *tensor_map_plan(do, plan["bq"]))
     err = _build.library().flash_attn_bwd_dq_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), b, t, hq, k.shape[2], d, strides,
-        float(scale), int(causal), int(window or 0),
+        delta.data_ptr(), dq.data_ptr(), b, t, hq, k.shape[2], d, strides, maps,
+        plan["bq"], plan["bk"], float(scale), int(causal), int(window or 0),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("flash_attn_bwd_dq_bf16", err)
     bwd_dq_launches.add()

@@ -46,6 +46,32 @@ def test_kv_tile_range_holds_every_live_pair(t, window, causal, bk):
         assert _tile_has_pair(valid, q0, bq, (end - 1) * bk, bk)
 
 
+@pytest.mark.parametrize("d", [64, 256])  # K5's tiles: 128 queries, stages of 64 keys (32 at 256)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("window", WINDOWS)
+@pytest.mark.parametrize("t", LENGTHS)
+def test_kv_tile_range_holds_every_live_pair_at_dq_tiles(t, window, causal, d):
+    valid = _valid(t, causal, window)
+    bq, bk = FA.dq_plan(d)["bq"], FA.dq_plan(d)["bk"]
+    n_kv_tiles = -(-t // bk)
+    for q0 in range(0, t, bq):
+        begin, end = FA.kv_tile_range(q0, bq, bk, t, causal, window)
+        assert 0 <= begin < end <= n_kv_tiles
+        for kt in range(n_kv_tiles):
+            if not begin <= kt < end:
+                assert not _tile_has_pair(valid, q0, bq, kt * bk, bk), (q0, kt)
+        assert _tile_has_pair(valid, q0, bq, begin * bk, bk)
+        assert _tile_has_pair(valid, q0, bq, (end - 1) * bk, bk)
+        # each warpgroup's 64 queries: the tiles it skips inside the range hold no pair
+        for wq0 in range(q0, min(t, q0 + bq), 64):
+            for kt in range(begin, end):
+                k0 = kt * bk
+                outside = (causal and k0 > wq0 + 63) or (
+                    window is not None and k0 + bk - 1 <= wq0 - window)
+                if outside:
+                    assert not _tile_has_pair(valid, wq0, 64, k0, bk), (wq0, kt)
+
+
 # K4's tiles at D <= 72, at D = 128 and at D = 256
 @pytest.mark.parametrize("bk,bq", [(128, 64), (128, 32), (64, 32)])
 @pytest.mark.parametrize("causal", [False, True])
@@ -64,15 +90,16 @@ def test_q_tile_range_holds_every_live_pair(t, window, causal, bk, bq):
         assert _tile_has_pair(valid, (end - 1) * bq, bq, k0, bk)
 
 
-@pytest.mark.parametrize("d,fwd,dkv", [
-    (64, {"bq": 128, "bk": 128}, {"bk": 128, "bq": 64}),
-    (72, {"bq": 128, "bk": 128}, {"bk": 128, "bq": 64}),
-    (128, {"bq": 128, "bk": 128}, {"bk": 128, "bq": 32}),
-    (256, {"bq": 128, "bk": 64}, {"bk": 64, "bq": 32}),
+@pytest.mark.parametrize("d,fwd,dkv,dq", [
+    (64, {"bq": 128, "bk": 128}, {"bk": 128, "bq": 64}, {"bq": 128, "bk": 64}),
+    (72, {"bq": 128, "bk": 128}, {"bk": 128, "bq": 64}, {"bq": 128, "bk": 64}),
+    (128, {"bq": 128, "bk": 128}, {"bk": 128, "bq": 32}, {"bq": 128, "bk": 64}),
+    (256, {"bq": 128, "bk": 64}, {"bk": 64, "bq": 32}, {"bq": 128, "bk": 32}),
 ])
-def test_kernel_and_tiles_by_head_dim(d, fwd, dkv):
+def test_kernel_and_tiles_by_head_dim(d, fwd, dkv, dq):
     assert FA.forward_plan(d) == fwd
     assert FA.dkv_plan(d) == dkv
+    assert FA.dq_plan(d) == dq
 
 
 @pytest.mark.parametrize("d", [0, 32, 80, 96, 512])
@@ -81,6 +108,8 @@ def test_plans_refuse_other_head_dims(d):
         FA.forward_plan(d)
     with pytest.raises(ValueError):
         FA.dkv_plan(d)
+    with pytest.raises(ValueError):
+        FA.dq_plan(d)
 
 
 def _read_through_plan(x, plan):

@@ -133,19 +133,42 @@ def test_flash_kernel_rejects_unsupported(card):
         FA.flash_attention(odd, odd, odd)  # rows not 16-byte aligned: no tensor map
 
 
-@pytest.mark.parametrize("t,window", [(0, None), (9, 16), (40, None)])
-def test_decode_kernel(card, t, window):
+# K3 splits the live keys of each (batch, KV head) over CTAs (ops/decode_attention.py:
+# decode_plan): b, nb, hq, hkv, p, g, d, t, window, pad ("left": sample 2 padded over
+# its first 30 slots; "splits": over its first 300, whole splits without a live key)
+@pytest.mark.parametrize("b,nb,hq,hkv,p,g,d,t,window,pad", [
+    (3, 3, 4, 2, 77, 41, 128, 0, None, "left"),
+    (3, 3, 4, 2, 77, 41, 128, 9, 16, "left"),
+    (3, 3, 4, 2, 77, 41, 128, 40, None, "left"),
+    (8, 3, 4, 1, 831, 32, 256, 31, None, "left"),      # the served shape
+    (8, 3, 4, 1, 831, 32, 256, 31, 512, "left"),       # the window starts inside a split
+    (1, 3, 4, 1, 831, 32, 256, 31, None, None),        # one request
+    (3, 3, 4, 1, 831, 32, 256, 17, None, "splits"),
+    (3, 3, 4, 1, 831, 32, 256, 17, 600, "splits"),
+    (8, 3, 4, 1, 831, 1024, 256, 1000, None, "left"),  # max_new_tokens 1024
+    (8, 3, 4, 1, 831, 1024, 256, 1000, 512, "left"),
+    (2, 2, 8, 2, 150, 20, 64, 19, 64, "left"),
+])
+def test_decode_kernel(card, b, nb, hq, hkv, p, g, d, t, window, pad):
+    """Within atol = rtol = 2e-2 of the plain version in fp32, a rerun bit-equal (the
+    partials are combined in split order), and more CTAs than (batch, KV head) pairs."""
     rng = np.random.default_rng(2)
-    b, nb, hq, hkv, p, g, d = 3, 3, 4, 2, 77, 41, 128
     q = _bf16(rng, (b * nb, hq, d), card)
     kp, vp = _bf16(rng, (b, hkv, p, d), card), _bf16(rng, (b, hkv, p, d), card)
     kg, vg = _bf16(rng, (b * nb, hkv, g, d), card), _bf16(rng, (b * nb, hkv, g, d), card)
     pm = torch.ones((b, p), dtype=torch.int32, device=card)
-    pm[2, :30] = 0
+    if pad:
+        pm[min(2, b - 1), :30 if pad == "left" else 300] = 0
     kw = dict(prefix_mask=pm, t=t, prefix_len=p, scale=d ** -0.5, window=window)
+    before = DA.launches.value
     got = DA.decode_attention(q, kp, vp, kg, vg, **kw)
+    assert DA.launches.value == before + 1
     ref = DA.decode_attention_reference(*(x.float() for x in (q, kp, vp, kg, vg)), **kw)
     torch.testing.assert_close(got.float(), ref, **TOL)
+    for _ in range(2):
+        assert torch.equal(got, DA.decode_attention(q, kp, vp, kg, vg, **kw))
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert DA.decode_plan(b, nb, hkv, p, g, t, p, window, sms)["ctas"] > b * hkv
 
 
 def _rel_close(got, ref, rel=2e-2):
@@ -158,7 +181,7 @@ def _rel_close(got, ref, rel=2e-2):
 
 
 # K4's tiles: 128 keys a CTA and 64 queries a stage (32 queries at D = 128; 64 keys and
-# 32 queries at D = 256)
+# 32 queries at D = 256); K5's: 128 queries a CTA and 64 keys a stage (32 at D = 256)
 @pytest.mark.parametrize("b,t,hq,hkv,d,causal,window,pad,sliced", [
     (2, 150, 4, 2, 128, True, None, "right", False),
     (2, 150, 4, 4, 64, False, None, None, False),
@@ -206,7 +229,7 @@ def test_flash_backward_kernels(card, b, t, hq, hkv, d, causal, window, pad, sli
                                                       (300, 128, 8, 2, True, 37),
                                                       (300, 256, 4, 1, True, None)])
 def test_flash_dkv_reruns_are_bit_equal(card, t, d, hq, hkv, causal, window):
-    """Each element of dK and dV is summed by one thread in program order (the query
+    """Each element of dK, dV and dQ is summed by one thread in program order (the query
     heads of a KV head inside the CTA too): a rerun gives the same bits."""
     rng = np.random.default_rng(12)
     q, k, v = _qkv(rng, 2, t, hq, hkv, d, card)
@@ -215,9 +238,11 @@ def test_flash_dkv_reruns_are_bit_equal(card, t, d, hq, hkv, causal, window):
     out, lse = FA.flash_attention(q, k, v, **kw)
     mask, do, delta = FA.prepare_bwd(q, k, v, None, out, lse, do)
     dk, dv = FA.launch_bwd_dkv(q, k, v, mask, do, lse, delta, **kw)
+    dq = FA.launch_bwd_dq(q, k, v, mask, do, lse, delta, **kw)
     for _ in range(2):
         dk2, dv2 = FA.launch_bwd_dkv(q, k, v, mask, do, lse, delta, **kw)
         assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+        assert torch.equal(dq, FA.launch_bwd_dq(q, k, v, mask, do, lse, delta, **kw))
 
 
 @pytest.mark.parametrize("hq,hkv,d", [(8, 8, 128), (8, 2, 128), (16, 16, 72)])

@@ -321,7 +321,8 @@ def test_cli_trains_exports_and_resumes(snapshot, tmp_path):
                                   batch[3:])
 
 
-@pytest.mark.parametrize("flag", [["--mesh_data", "2"], ["--mesh_model", "2"], ["--fsdp"]])
+@pytest.mark.parametrize("flag", [["--mesh_data", "2"], ["--mesh_model", "2"], ["--fsdp"],
+                                  ["--num_loader_procs", "2"]])
 def test_cli_refuses_what_is_not_ported(snapshot, tmp_path, flag):
     with pytest.raises(NotImplementedError, match="not ported"):
         train_stage0.main(_argv(snapshot, str(tmp_path / "x"), *flag))

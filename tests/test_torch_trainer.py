@@ -123,7 +123,7 @@ def test_cli_trains_exports_and_resumes(snapshots, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--enable_qlora"], ["--mesh_data", "2"],
-                                  ["--mesh_model", "2"], ["--fsdp"]])
+                                  ["--mesh_model", "2"], ["--fsdp"], ["--num_loader_procs", "2"]])
 def test_cli_refuses_what_is_not_ported(snapshots, tmp_path, flag):
     with pytest.raises(NotImplementedError, match="not ported"):
         train_stage1.main(_argv(snapshots, str(tmp_path / "x"), *flag))
