@@ -20,8 +20,10 @@ Phases, each printing one JSON line; any failure raises, so the exit code is not
    cosine to fp32 within 0.001 of plain bf16 attention's), K1, K4 and K5 at a T no
    tile divides ([16,1000,16,72]) with K1's fp32 copy of O held against its bf16 O and
    reruns of K1, K4 and K5 held bit-equal (there and at the decoder's masked GQA
-   shape), K2 and K8 over its rows ([16384,1152]; K8 also at 1000 rows, and at 16383,
-   1001 and 529, which leave its last program's block part-empty, checked); and
+   shape), K2 and K8 over its rows ([16384,1152]; K8 also at 1000 rows, at 16383,
+   1001 and 529, whose bands end part-way through a ring stage (checked, as is 16384's),
+   at the MAP head's 16 rows and at the ViT-L tower's [4608,1024], each rerun held
+   bit-equal); and
    the TPU's merged-lane layout (kernel rows 4-6): K1/K4/K5 on head-merged
    [2,1024,8*128] tensors through ``flash_attention_merged``, MHA and GQA 8/2. K3 at
    the served shape (batch 8, 3 beams, P = 831, G = 32), at one request (batch 1) and at
@@ -344,7 +346,7 @@ KERNELS = {
                           [f"{FA_TPU}:278", f"{FA_TPU}:544"]),
     "fused_ce_fwd": ("cuda", f"{PKG}/csrc/fused_ce.cu", "projectiontrainer_tpu/ops/fused_ce.py:74"),
     "fused_ce_bwd": ("cuda", f"{PKG}/csrc/fused_ce.cu", "projectiontrainer_tpu/ops/fused_ce.py:109"),
-    "layernorm_bwd": ("triton", f"{PKG}/ops/fused_layernorm.py",
+    "layernorm_bwd": ("cuda", f"{PKG}/csrc/layernorm_bwd.cu",
                       "projectiontrainer_tpu/ops/fused_layernorm.py:91"),
 }
 # the timed case that a kernel's entry of the {"kernels": ...} line reports: its first,
@@ -561,7 +563,7 @@ def check_stage0_kernels(rng, record):
     del q, k, v, do, out, lse, delta, dq, dk, dv, rq, rk, rv, lib
     check_nearly_alike_tokens(rng)
 
-    # K2 and K8 over the vision tower's rows; K8 also at a ragged row count
+    # K2 and K8 over the vision tower's rows; K8 also at fewer rows
     x = _bf16(rng, (16384, 1152))
     p = {"scale": _bf16(rng, (1152,), 0.5) + 1, "bias": _bf16(rng, (1152,), 0.1)}
     got = FLN.layernorm(p, x)
@@ -570,30 +572,12 @@ def check_stage0_kernels(rng, record):
            cuda_ms(lambda: FLN.layernorm(p, x)), cuda_ms(lambda: FLN.layernorm_reference(p, x)),
            bound_layernorm_fwd(16384, 1152),
            cuda_ms(lambda: F.layer_norm(x, (1152,), p["scale"], p["bias"], 1e-6)), "F.layer_norm")
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for n, want_ragged in ((16384, False), (16383, True), (1001, True), (1000, False),
-                           (529, True)):
-        rows, programs = FLN.bwd_grid(n, sms)
-        ragged = rows * programs > n
-        if want_ragged and not ragged:
-            raise AssertionError(f"layernorm bwd: {n} rows fill every program ({rows} x "
-                                 f"{programs} on {sms} SMs); the ragged case is not exercised")
-        x2, dy = x[:n], _bf16(rng, (n, 1152))
-        got = FLN.layernorm_bwd(x2, dy, p["scale"], 1e-6)
-        ref = FLN.layernorm_bwd_reference(x2.float(), dy.float(), p["scale"].float(), 1e-6)
-        err = max(compare_rel(f"layernorm bwd {part} [{n},1152]", a, b)
-                  for part, a, b in zip(("dx", "dscale", "dbias"), got, ref))
-        case = f"[{n},1152]" + (f" ragged: last of {programs} programs holds "
-                                f"{n - rows * (programs - 1)} of {rows} rows" if ragged else "")
-        leaves = [x2.detach().requires_grad_(True), p["scale"].detach().requires_grad_(True),
-                  p["bias"].detach().requires_grad_(True)]
-        y = F.layer_norm(leaves[0], (1152,), leaves[1], leaves[2], 1e-6)
-        record("layernorm_bwd", case, err,
-               cuda_ms(lambda: FLN.layernorm_bwd(x2, dy, p["scale"], 1e-6)),
-               cuda_ms(lambda: FLN.layernorm_bwd_reference(x2, dy, p["scale"], 1e-6)),
-               bound_layernorm_bwd(n, 1152),
-               cuda_ms(lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True)),
-               "F.layer_norm backward (dx, dscale, dbias)")
+    check_layernorm_bwd(rng, record, x, p)
+    del x, p
+    # the ViT-L tower's rows (stage 2 trains it): [B * 576, 1024]
+    x = _bf16(rng, (8 * 576, 1024))
+    check_layernorm_bwd(rng, record, x, {"scale": _bf16(rng, (1024,), 0.5) + 1},
+                        cases=((4608, True),))
 
     # rows 4-6: the merged-lane layout [B, T, H*D] through the same kernels, as views
     from projectiontrainer_tpu_torch.ops.attention import dot_product_attention
@@ -620,6 +604,51 @@ def check_stage0_kernels(rng, record):
                 for n, a, b in zip("qkv", grads, refs)]
         record("flash_attn_bwd_dq", case, errs[0], None, None)
         record("flash_attn_bwd_dkv", case, max(errs[1:]), None, None)
+
+
+def check_layernorm_bwd(rng, record, x, p, cases=((16384, True), (16383, True), (1001, True),
+                                                 (1000, False), (529, True), (16, False))):
+    """K8 over the first n rows of x for each (n, ragged) of `cases`: dx, dscale and dbias
+    against the plain backward (each within REL_BWD x max|reference|), a rerun held
+    bit-equal, and the plan (ops/fused_layernorm.py:bwd_plan) held to its raggedness (a
+    CTA's last ring stage part-filled); kernel, plain and library times beside the bound.
+    The default cases: the stage-0 tower's rows (16384), row counts whose bands end
+    part-way through a stage (16383, 1001, 529) or fill whole stages (1000), and the MAP
+    head's 16 rows (one CTA, no grid barrier)."""
+    import torch
+    import torch.nn.functional as F
+
+    from projectiontrainer_tpu_torch.ops import fused_layernorm as FLN
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    d = x.shape[1]
+    for n, want_ragged in cases:
+        plan = FLN.bwd_plan(n, d, sms)
+        ragged = FLN.bwd_ragged(n, plan)
+        if sms == 132 and ragged != want_ragged:
+            raise AssertionError(f"layernorm bwd: {n} rows on {sms} SMs, plan {plan}: "
+                                 f"ragged {ragged}, expected {want_ragged}")
+        x2, dy = x[:n], _bf16(rng, (n, d))
+        got = FLN.layernorm_bwd(x2, dy, p["scale"], 1e-6)
+        ref = FLN.layernorm_bwd_reference(x2.float(), dy.float(), p["scale"].float(), 1e-6)
+        err = max(compare_rel(f"layernorm bwd {part} [{n},{d}]", a, b)
+                  for part, a, b in zip(("dx", "dscale", "dbias"), got, ref))
+        for _ in range(2):
+            if not all(torch.equal(a, b) for a, b in
+                       zip(got, FLN.layernorm_bwd(x2, dy, p["scale"], 1e-6))):
+                raise AssertionError(f"layernorm bwd [{n},{d}]: a rerun gave other bits")
+        counts = sorted({c for _, c in FLN.bwd_bands(n, plan["ctas"])})
+        case = (f"[{n},{d}] {plan['ctas']} CTAs, bands of {counts} rows, "
+                f"{plan['stages']} stages of {plan['rows']} rows" + (" (ragged)" if ragged else ""))
+        leaves = [x2.detach().requires_grad_(True), p["scale"].detach().requires_grad_(True),
+                  torch.zeros(d, dtype=x.dtype, device="cuda", requires_grad=True)]
+        y = F.layer_norm(leaves[0], (d,), leaves[1], leaves[2], 1e-6)
+        record("layernorm_bwd", case, err,
+               cuda_ms(lambda: FLN.layernorm_bwd(x2, dy, p["scale"], 1e-6)),
+               cuda_ms(lambda: FLN.layernorm_bwd_reference(x2, dy, p["scale"], 1e-6)),
+               bound_layernorm_bwd(n, d),
+               cuda_ms(lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True)),
+               "F.layer_norm backward (dx, dscale, dbias)")
 
 
 def check_flash_reruns(rng, record):

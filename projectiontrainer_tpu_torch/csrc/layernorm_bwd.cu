@@ -1,0 +1,432 @@
+// LayerNorm backward for Hopper (sm_90a): dx, dscale and dbias of rows [N, D] in one
+// persistent launch, bf16 or fp32 rows, fp32 math and fp32 parameter gradients.
+//
+// Replaces the TPU kernel projectiontrainer_tpu/ops/fused_layernorm.py:_bwd_kernel
+// (launched from _bwd). Same function: the row statistics are recomputed from x in fp32
+// (eps inside the rsqrt), dx = rstd * (g - mean(g) - xhat * mean(g * xhat)) with
+// g = dy * scale, written in x's type, and dscale = sum over rows of dy * xhat,
+// dbias = sum over rows of dy, in fp32. The TPU carries the two column sums across
+// its sequential grid; CTAs on the card run in no order, so each CTA sums its own rows
+// and a grid-wide combine adds the CTAs' partials in CTA order (deterministic: a rerun
+// gives the same bits; no float atomics).
+//
+// What bounds it on the H100: bytes. x and dy are read once and dx written once
+// (113 MB at the stage-0 tower's [16384, 1152] bf16: 0.034 ms at 3.35 TB/s) for ~20
+// flops an element. Hiding the device memory's latency at that rate needs tens of KB
+// in flight on every SM, and the combine of the column sums must not add a serial
+// tail.
+//
+// Design (ops/fused_layernorm.py:bwd_plan sizes it on the host):
+// - One CTA an SM, persistent, launched cooperatively (all CTAs resident). CTA c owns a
+//   contiguous band of rows; band sizes differ by at most 1.
+// - One producer thread copies each row of x and of dy whole into a ring of stages in
+//   shared memory with 1-D bulk copies (cp.async.bulk), reported to the stage's "full"
+//   mbarrier; a stage holds R rows (8 at D <= 2048 in bf16: 4 stages, 147 KB at
+//   D = 1152, of which three are in flight while one is read). Rows past the band's end
+//   are never copied and never read: a part-filled stage adds nothing to any sum.
+// - Eight row warps, a row each, no block barrier: the lanes read the row from shared
+//   memory in 16-byte vectors; mean in one pass, then the centred sum of squares, sum(g)
+//   and sum(g * (x - mean)) in a second (three interleaved shuffle reductions); a third
+//   pass writes dx with 16-byte stores. Each warp leaves its rows' mean and rstd in
+//   shared memory and arrives on the stage's "ready" mbarrier.
+// - Four column warps, a stage behind: column thread t owns the 16-byte column vectors
+//   t, t + 128, ... and adds dy * xhat and dy of the stage's rows, in row order, into
+//   fp32 registers (64 a thread: D <= 4096). Row and column warps both arrive on the
+//   stage's "empty" mbarrier, which frees it for the producer. On warps of their own the
+//   two passes overlap, where one set of warps would wait at a barrier between them.
+// - The CTA writes its two partial rows to a [C, 2, D] fp32 scratch, all CTAs cross one
+//   grid barrier (a counter whose top bit flips once a barrier, so it is never reset),
+//   and CTA c then sums its slice of the 2D columns over all C partials in CTA order,
+//   16 loads in flight a thread: the combine is spread over every SM instead of one CTA
+//   reading all the partials. A grid of one CTA writes its sums directly.
+// Every mbarrier wait and the grid barrier trap after ~2 s, so a fault is a CUDA error
+// and not a hang.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "wgmma_sm90.cuh"
+
+typedef __nv_bfloat16 bf16;
+
+namespace {
+
+constexpr int ROW_WARPS = 8;              // a row each
+constexpr int COL_WARPS = 4;              // the column sums
+constexpr int ROW_THREADS = ROW_WARPS * 32, COL_THREADS = COL_WARPS * 32;
+constexpr int PRODUCER = ROW_WARPS + COL_WARPS;  // the producer's warp
+constexpr int THREADS = (PRODUCER + 1) * 32;
+constexpr int MAX_STAGES = 8;
+constexpr int MAX_D = 4096;               // COL_THREADS threads x 32 columns each
+constexpr int COMBINE_BATCH = 16;         // partials a thread loads at once in the combine
+constexpr int SMEM_LIMIT = 232448;        // dynamic shared memory a block may opt into
+
+// 16 bytes of T <-> fp32
+template <typename T>
+struct Vec;
+
+template <>
+struct Vec<bf16> {
+  static constexpr int N = 8;
+  __device__ __forceinline__ static void load(const bf16* p, float* f) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 t = __bfloat1622float2(h[i]);
+      f[2 * i] = t.x;
+      f[2 * i + 1] = t.y;
+    }
+  }
+  __device__ __forceinline__ static void store(bf16* p, const float* f) {
+    uint4 u;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+    *reinterpret_cast<uint4*>(p) = u;
+  }
+};
+
+template <>
+struct Vec<float> {
+  static constexpr int N = 4;
+  __device__ __forceinline__ static void load(const float* p, float* f) {
+    const float4 u = *reinterpret_cast<const float4*>(p);
+    f[0] = u.x;
+    f[1] = u.y;
+    f[2] = u.z;
+    f[3] = u.w;
+  }
+  __device__ __forceinline__ static void store(float* p, const float* f) {
+    *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
+  }
+};
+
+__device__ __forceinline__ void load_f32x8(const float* p, float* f) {
+  Vec<float>::load(p, f);
+  Vec<float>::load(p + 4, f + 4);
+}
+
+// shared-memory layout:
+// [ring | scale fp32 [D] | stats fp32 [S][R][2] | full[S], empty[S], stats_ready[S]];
+// after the ring has drained its first bytes hold the combine's sums
+template <typename T>
+__host__ __device__ __forceinline__ size_t ring_bytes(int d, int rows, int stages) {
+  return (size_t)stages * rows * 2 * d * sizeof(T);
+}
+
+__host__ __device__ __forceinline__ size_t combine_bytes(int d) {
+  return (size_t)4 * (2 * d > THREADS ? 2 * d : THREADS);
+}
+
+template <typename T>
+size_t smem_bytes(int d, int rows, int stages) {
+  const size_t ring = ring_bytes<T>(d, rows, stages);
+  const size_t region = ring > combine_bytes(d) ? ring : combine_bytes(d);
+  return region + (size_t)4 * d + (size_t)8 * stages * rows + (size_t)24 * stages;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;  // the same bits in every lane: each step adds the same pair in every lane
+}
+
+__device__ __forceinline__ unsigned int ld_acquire(const unsigned int* p) {
+  unsigned int v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// Every CTA of the grid (all resident: a cooperative launch) arrives before any goes on.
+// CTA 0 adds 2^31 - (C - 1), the others 1: the counter's top bit flips when the last one
+// arrives, and the counter moves by exactly 2^31 a barrier, so it is never reset.
+__device__ __forceinline__ void grid_barrier(unsigned int* counter) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned int add = blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1) : 1u;
+    __threadfence();
+    const unsigned int old = atomicAdd(counter, add);
+    const long long t0 = clock64();
+    while (((old ^ ld_acquire(counter)) & 0x80000000u) == 0) {
+      if (clock64() - t0 > 4000000000ll) __trap();
+      __nanosleep(64);
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+layernorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                     const void* __restrict__ scale, T* __restrict__ dx,
+                     float* __restrict__ part, float* __restrict__ sums,
+                     unsigned int* __restrict__ counter, int n, int d, long long x_stride,
+                     long long dy_stride, int rows, int stages, int scale_f32, float eps) {
+  constexpr int VEC = Vec<T>::N;
+  constexpr int CV = MAX_D / VEC / COL_THREADS;  // column vectors a column thread owns
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int row_bytes = d * (int)sizeof(T);
+  const int nv = d / VEC;  // 16-byte vectors in a row
+  const size_t ring = ring_bytes<T>(d, rows, stages);
+  float* s_scale = reinterpret_cast<float*>(smem + (ring > combine_bytes(d) ? ring : combine_bytes(d)));
+  float* s_stats = s_scale + d;  // [S][R] x (mean, rstd)
+  uint64_t* bars = reinterpret_cast<uint64_t*>(s_stats + 2 * stages * rows);
+  const uint32_t full0 = sm90::smem_addr(bars), empty0 = full0 + 8 * stages,
+                 ready0 = empty0 + 8 * stages;
+
+  // this CTA's band: rows [row0, row0 + band)
+  const int C = gridDim.x, c = blockIdx.x;
+  const int q = n / C, extra = n % C;
+  const int row0 = c * q + min(c, extra), band = q + (c < extra ? 1 : 0);
+  const int chunks = (band + rows - 1) / rows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      sm90::mbar_init(full0 + 8 * s, 1);
+      sm90::mbar_init(empty0 + 8 * s, ROW_WARPS + COL_WARPS);
+      sm90::mbar_init(ready0 + 8 * s, ROW_WARPS);
+    }
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == PRODUCER) {
+    if (lane == 0) {
+      for (int i = 0; i < chunks; ++i) {
+        const int s = i % stages;
+        const uint32_t full = full0 + 8 * s;
+        sm90::mbar_wait(empty0 + 8 * s, ((i / stages) & 1) ^ 1);
+        const int r0 = row0 + i * rows, nr = min(rows, row0 + band - r0);
+        sm90::mbar_expect_tx(full, 2 * nr * row_bytes);
+        const uint32_t stage = sm90::smem_addr(smem) + s * rows * 2 * row_bytes;
+        for (int r = 0; r < nr; ++r) {
+          sm90::bulk_load_1d(stage + r * row_bytes, x + (r0 + r) * x_stride, row_bytes, full);
+          sm90::bulk_load_1d(stage + (rows + r) * row_bytes, dy + (r0 + r) * dy_stride,
+                             row_bytes, full);
+        }
+      }
+    }
+  } else if (warp < ROW_WARPS) {
+    // row warps: dx and each row's (mean, rstd); warp w takes rows w, w + ROW_WARPS, ...
+    const float inv_d = 1.f / d;
+    // the scale in fp32, while the first stages are in flight
+    for (int i = threadIdx.x; i < d; i += ROW_THREADS)
+      s_scale[i] = scale_f32 ? static_cast<const float*>(scale)[i]
+                             : __bfloat162float(static_cast<const bf16*>(scale)[i]);
+    sm90::named_barrier_sync<ROW_THREADS>(1);
+
+    for (int i = 0; i < chunks; ++i) {
+      const int s = i % stages;
+      const int r0 = row0 + i * rows, nr = min(rows, row0 + band - r0);
+      const T* sx = reinterpret_cast<const T*>(smem + (size_t)s * rows * 2 * row_bytes);
+      const T* sg = sx + (size_t)rows * d;
+      float* st = s_stats + 2 * s * rows;
+      sm90::mbar_wait(full0 + 8 * s, (i / stages) & 1);
+      for (int r = warp; r < nr; r += ROW_WARPS) {
+        const T* xr = sx + (size_t)r * d;
+        const T* gr = sg + (size_t)r * d;
+        float sum = 0.f;
+#pragma unroll 4
+        for (int v = lane; v < nv; v += 32) {
+          float f[VEC];
+          Vec<T>::load(xr + v * VEC, f);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) sum += f[e];
+        }
+        const float mean = warp_sum(sum) * inv_d;
+        float sq = 0.f, sgs = 0.f, sgx = 0.f;
+#pragma unroll 2
+        for (int v = lane; v < nv; v += 32) {
+          float f[VEC], g[VEC], w[VEC];
+          Vec<T>::load(xr + v * VEC, f);
+          Vec<T>::load(gr + v * VEC, g);
+          if constexpr (VEC == 8) load_f32x8(s_scale + v * VEC, w);
+          else Vec<float>::load(s_scale + v * VEC, w);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) {
+            const float xc = f[e] - mean, gg = g[e] * w[e];
+            sq += xc * xc;
+            sgs += gg;
+            sgx += gg * xc;
+          }
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          sq += __shfl_xor_sync(0xffffffffu, sq, off);
+          sgs += __shfl_xor_sync(0xffffffffu, sgs, off);
+          sgx += __shfl_xor_sync(0xffffffffu, sgx, off);
+        }
+        const float rstd = rsqrtf(sq * inv_d + eps);
+        const float gm = sgs * inv_d, gxm = rstd * sgx * inv_d;  // mean(g), mean(g * xhat)
+        T* out = dx + (size_t)(r0 + r) * d;
+#pragma unroll 2
+        for (int v = lane; v < nv; v += 32) {
+          float f[VEC], g[VEC], w[VEC];
+          Vec<T>::load(xr + v * VEC, f);
+          Vec<T>::load(gr + v * VEC, g);
+          if constexpr (VEC == 8) load_f32x8(s_scale + v * VEC, w);
+          else Vec<float>::load(s_scale + v * VEC, w);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) f[e] = rstd * (g[e] * w[e] - gm - (f[e] - mean) * rstd * gxm);
+          Vec<T>::store(out + v * VEC, f);
+        }
+        if (lane == 0) {
+          st[2 * r] = mean;
+          st[2 * r + 1] = rstd;
+        }
+      }
+      __syncwarp();
+      if (lane == 0) {
+        sm90::mbar_arrive(ready0 + 8 * s);  // this warp's rows' statistics are in place
+        sm90::mbar_arrive(empty0 + 8 * s);
+      }
+    }
+  } else {
+    // column warps: thread t owns the column vectors t, t + COL_THREADS, ... and adds
+    // dy * xhat and dy of the band's rows, in row order, into fp32 registers, a stage
+    // behind the row warps
+    const int t = threadIdx.x - ROW_THREADS;
+    float acc_s[CV][VEC], acc_b[CV][VEC];
+#pragma unroll
+    for (int j = 0; j < CV; ++j)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc_s[j][e] = acc_b[j][e] = 0.f;
+
+    for (int i = 0; i < chunks; ++i) {
+      const int s = i % stages;
+      const int r0 = row0 + i * rows, nr = min(rows, row0 + band - r0);
+      const T* sx = reinterpret_cast<const T*>(smem + (size_t)s * rows * 2 * row_bytes);
+      const T* sg = sx + (size_t)rows * d;
+      const float* st = s_stats + 2 * s * rows;
+      sm90::mbar_wait(full0 + 8 * s, (i / stages) & 1);   // the stage's bytes
+      sm90::mbar_wait(ready0 + 8 * s, (i / stages) & 1);  // its rows' statistics
+#pragma unroll
+      for (int j = 0; j < CV; ++j) {
+        const int v = t + j * COL_THREADS;
+        if (v < nv) {
+          for (int r = 0; r < nr; ++r) {
+            float f[VEC], g[VEC];
+            Vec<T>::load(sx + (size_t)r * d + v * VEC, f);
+            Vec<T>::load(sg + (size_t)r * d + v * VEC, g);
+            const float mean = st[2 * r], rstd = st[2 * r + 1];
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) {
+              acc_s[j][e] += g[e] * ((f[e] - mean) * rstd);
+              acc_b[j][e] += g[e];
+            }
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive(empty0 + 8 * s);
+    }
+
+    // this CTA's partial rows, [0] = dscale, [1] = dbias: the sums themselves if the grid
+    // is one CTA
+    float* ps = C == 1 ? sums : part + (size_t)c * 2 * d;
+#pragma unroll
+    for (int j = 0; j < CV; ++j) {
+      const int v = t + j * COL_THREADS;
+      if (v < nv) {
+#pragma unroll
+        for (int e = 0; e < VEC; e += 4) {
+          *reinterpret_cast<float4*>(ps + v * VEC + e) =
+              make_float4(acc_s[j][e], acc_s[j][e + 1], acc_s[j][e + 2], acc_s[j][e + 3]);
+          *reinterpret_cast<float4*>(ps + d + v * VEC + e) =
+              make_float4(acc_b[j][e], acc_b[j][e + 1], acc_b[j][e + 2], acc_b[j][e + 3]);
+        }
+      }
+    }
+  }
+  if (C == 1) return;
+
+  grid_barrier(counter);
+
+  // combine: CTA c sums columns [c0, c1) of the 2D over all C partials in CTA order;
+  // `groups` threads share a column (partials g, g + groups, ...; COMBINE_BATCH of them
+  // loaded at once), then their sums are added in group order. The drained ring holds
+  // the group sums.
+  const int width = 2 * d, cols = (width + C - 1) / C;
+  const int c0 = c * cols, c1 = min(width, c0 + cols);
+  if (c0 >= c1) return;
+  const int ncol = c1 - c0, groups = max(1, THREADS / ncol);
+  float* red = reinterpret_cast<float*>(smem);
+  for (int j = threadIdx.x; j < ncol * groups; j += THREADS) {
+    const float* col = part + c0 + j % ncol;
+    float acc = 0.f;
+    for (int p0 = j / ncol; p0 < C; p0 += COMBINE_BATCH * groups) {
+      float v[COMBINE_BATCH];
+#pragma unroll
+      for (int k = 0; k < COMBINE_BATCH; ++k) {
+        const int p = p0 + k * groups;
+        v[k] = p < C ? __ldcg(col + (size_t)p * width) : 0.f;
+      }
+#pragma unroll
+      for (int k = 0; k < COMBINE_BATCH; ++k) acc += v[k];
+    }
+    red[j] = acc;
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < ncol; j += THREADS) {
+    float acc = 0.f;
+    for (int g = 0; g < groups; ++g) acc += red[g * ncol + j];
+    sums[c0 + j] = acc;
+  }
+}
+
+template <typename T>
+cudaError_t launch(const void* x, const void* dy, const void* scale, void* dx, void* part,
+                   void* sums, void* counter, int n, int d, long long x_stride,
+                   long long dy_stride, int rows, int stages, int ctas, int scale_f32, float eps,
+                   cudaStream_t stream) {
+  if (d % 8 || d < 8 || d > MAX_D || rows < 1 || stages < 1 || stages > MAX_STAGES ||
+      ctas < 1 || ctas > n || (x_stride * (long long)sizeof(T)) % 16 ||
+      (dy_stride * (long long)sizeof(T)) % 16)
+    return cudaErrorInvalidValue;  // not a plan of ops/fused_layernorm.py:bwd_plan
+  const size_t bytes = smem_bytes<T>(d, rows, stages);
+  if (bytes > (size_t)SMEM_LIMIT) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(layernorm_bwd_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  const T* xp = static_cast<const T*>(x);
+  const T* dyp = static_cast<const T*>(dy);
+  T* dxp = static_cast<T*>(dx);
+  float* partp = static_cast<float*>(part);
+  float* sumsp = static_cast<float*>(sums);
+  unsigned int* counterp = static_cast<unsigned int*>(counter);
+  void* args[] = {(void*)&xp,       (void*)&dyp,  (void*)&scale,     (void*)&dxp,
+                  (void*)&partp,    (void*)&sumsp, (void*)&counterp, (void*)&n,
+                  (void*)&d,        (void*)&x_stride, (void*)&dy_stride, (void*)&rows,
+                  (void*)&stages,   (void*)&scale_f32, (void*)&eps};
+  err = cudaLaunchCooperativeKernel((const void*)layernorm_bwd_kernel<T>, dim3(ctas),
+                                    dim3(THREADS), args, bytes, stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// x, dy: [n, d] rows with the given row strides (elements), 16-byte aligned; scale [d]
+// (fp32 if scale_f32, else bf16); dx [n, d] contiguous in x's type; part: fp32 scratch
+// of ctas * 2 * d; sums: fp32 [2, d] (dscale, dbias); counter: one uint32, 0 before the
+// first launch on a stream and left for the next; rows .. ctas: the plan of
+// ops/fused_layernorm.py:bwd_plan
+extern "C" int layernorm_bwd_bf16(const void* x, const void* dy, const void* scale, void* dx,
+                                  void* part, void* sums, void* counter, int n, int d,
+                                  long long x_stride, long long dy_stride, int rows, int stages,
+                                  int ctas, int scale_f32, float eps, void* stream) {
+  return (int)launch<bf16>(x, dy, scale, dx, part, sums, counter, n, d, x_stride, dy_stride,
+                           rows, stages, ctas, scale_f32, eps, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int layernorm_bwd_f32(const void* x, const void* dy, const void* scale, void* dx,
+                                 void* part, void* sums, void* counter, int n, int d,
+                                 long long x_stride, long long dy_stride, int rows, int stages,
+                                 int ctas, int scale_f32, float eps, void* stream) {
+  return (int)launch<float>(x, dy, scale, dx, part, sums, counter, n, d, x_stride, dy_stride,
+                            rows, stages, ctas, scale_f32, eps, static_cast<cudaStream_t>(stream));
+}

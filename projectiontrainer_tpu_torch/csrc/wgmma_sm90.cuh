@@ -82,6 +82,17 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map, uint3
       : "memory");
 }
 
+// `bytes` contiguous bytes from global `src` into shared memory at `dst` (both 16-byte
+// aligned, `bytes` a multiple of 16), reported to `bar` like a tensor-map copy
+__device__ __forceinline__ void bulk_load_1d(uint32_t dst, const void* src, uint32_t bytes,
+                                             uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // generic-proxy writes to shared memory (st.shared) made visible to the async proxy
 // (wgmma's and TMA's reads)
 __device__ __forceinline__ void fence_proxy_async() {

@@ -8,8 +8,8 @@ as ``c_void_p``, each C entry point returns ``cudaGetLastError()`` after its lau
 and :func:`check` raises on anything but 0. A failed build raises too: there is no
 fallback to another implementation.
 
-Triton kernels are not built here; each is imported and compiled inside the function
-that launches it.
+The Triton kernel (the LayerNorm forward) is not built here; it is imported and
+compiled inside the function that launches it.
 """
 
 from __future__ import annotations
@@ -54,6 +54,10 @@ SIGNATURES = {
     # hidden, table, labels, lse, g, part, dh; N, V, D, splits, ranges_per_split; scale;
     # stream
     "fused_ce_bwd_bf16": [_P] * 7 + [_I] * 5 + [_F, _P],
+    # x, dy, scale, dx, part, sums, counter; N, D; x and dy row strides (elements); rows,
+    # stages, ctas, scale_f32; eps; stream
+    "layernorm_bwd_bf16": [_P] * 7 + [_I] * 2 + [_L] * 2 + [_I] * 4 + [_F, _P],
+    "layernorm_bwd_f32": [_P] * 7 + [_I] * 2 + [_L] * 2 + [_I] * 4 + [_F, _P],
 }
 
 _lock = threading.Lock()

@@ -1,5 +1,5 @@
-"""LayerNorm forward and backward: Triton kernels for CUDA tensors, their plain
-versions for CPU ones.
+"""LayerNorm forward and backward: a Triton kernel (K2) and a CUDA kernel (K8) for CUDA
+tensors, their plain versions for CPU ones.
 
 Replaces the TPU kernels ``projectiontrainer_tpu/ops/fused_layernorm.py:_fwd_kernel``
 (K2, called from ``_fwd``) and ``:_bwd_kernel`` (K8, called from ``_bwd``), which the
@@ -11,38 +11,45 @@ Both are bound on the H100 by bytes, with no matrix product: the forward reads t
 bf16 rows once and writes the output once (~8 flops an element); the backward reads x
 and dy and writes dx (~113 MB at the stage-0 tower's [16384, 1152] bf16).
 
-- K2 (forward) does a whole row in one pass held in registers: one program per row,
-  ``BLOCK_D = next_pow2(D)`` wide and masked at the edge, mean and variance in fp32,
-  the output in the input's type.
-- K8 (backward): dx = rstd * (g - mean(g) - xhat * mean(g * xhat)), g = dy * scale,
-  per row in registers, like K2. The parameter gradients dscale = sum(dy * xhat) and
-  dbias = sum(dy) are column sums over all rows: the TPU accumulates them across its
-  sequential grid, but blocks on the card run in no order. So each program takes a
-  block of rows, keeps its two fp32 column sums in registers, and writes them to its
-  row of a ``[n_programs, 2, D]`` buffer; a second small kernel sums the buffer's rows
-  in a fixed order (deterministic: no atomics). Rows past the end of the last block
-  are masked in the products, not only in dy. The number of programs is about four
-  per SM (rows a program rounded to a power of two), so the buffer stays a few
-  percent of the traffic at the tower's shape and short inputs (the MAP head's 16
-  rows, the text tower's 1024) still spread over the card.
+- K2 (forward, Triton) does a whole row in one pass held in registers: one program per
+  row, ``BLOCK_D = next_pow2(D)`` wide and masked at the edge, mean and variance in
+  fp32, the output in the input's type.
+- K8 (backward, ``csrc/layernorm_bwd.cu``): dx = rstd * (g - mean(g) - xhat *
+  mean(g * xhat)), g = dy * scale, and the column sums dscale = sum(dy * xhat),
+  dbias = sum(dy), in one persistent cooperative launch: one CTA an SM, each over a
+  contiguous band of rows (``bwd_plan``), whose rows of x and dy a producer thread
+  copies whole into a ring of shared-memory stages; a warp a row computes dx with
+  shuffle reductions, and four column-sum warps fold each stage's rows into fp32
+  registers. The CTAs' partial sums meet in a ``[C, 2, D]`` fp32 scratch; after one
+  grid barrier each CTA adds its slice of the columns over all partials in CTA order
+  (deterministic: no atomics). Rows past a band's end are never loaded, so a
+  part-filled stage adds nothing. bf16 or fp32 rows, D a multiple of 8 up to
+  ``BWD_MAX_D``, 16-byte aligned rows.
 """
 
 from __future__ import annotations
 
 import functools
+import threading
 
 import torch
 
-from projectiontrainer_tpu_torch.kernels._build import LaunchCounter
+from projectiontrainer_tpu_torch.kernels import _build
 from projectiontrainer_tpu_torch.ops import layers as L
 
-launches = LaunchCounter("layernorm_fwd")
-bwd_launches = LaunchCounter("layernorm_bwd")
-_PROGRAMS_PER_SM = 4
+launches = _build.LaunchCounter("layernorm_fwd")
+bwd_launches = _build.LaunchCounter("layernorm_bwd")
+# K8's launch (csrc/layernorm_bwd.cu): 8 row warps, 4 column-sum warps, 1 producer warp
+BWD_MAX_D = 4096         # MAX_D: 128 column-sum threads x 32 columns each
+BWD_THREADS = 416        # THREADS
+BWD_MAX_STAGES = 4       # ring stages the plan uses (the kernel takes up to 8)
+SMEM_LIMIT = 232_448     # dynamic shared memory a block may opt into on the H100
+_barriers: dict = {}     # (device index, stream) -> the grid barrier's uint32 counter
+_barriers_lock = threading.Lock()
 
 
 @functools.cache
-def _kernels():
+def _fwd_kernel():
     import triton
     import triton.language as tl
 
@@ -62,51 +69,7 @@ def _kernels():
         y = xc * rstd * w + b
         tl.store(out_ptr + row * d + cols, y.to(out_ptr.dtype.element_ty), mask=live)
 
-    @triton.jit
-    def layernorm_bwd(x_ptr, dy_ptr, scale_ptr, dx_ptr, part_ptr, n_rows, x_stride,
-                      dy_stride, d, eps, ROWS: tl.constexpr, BLOCK_D: tl.constexpr):
-        pid = tl.program_id(0)
-        cols = tl.arange(0, BLOCK_D)
-        live = cols < d
-        w = tl.load(scale_ptr + cols, mask=live, other=0.0).to(tl.float32)
-        acc_dscale = tl.zeros([BLOCK_D], dtype=tl.float32)
-        acc_dbias = tl.zeros([BLOCK_D], dtype=tl.float32)
-        for r in range(ROWS):
-            row = pid.to(tl.int64) * ROWS + r
-            m = live & (row < n_rows)
-            x = tl.load(x_ptr + row * x_stride + cols, mask=m, other=0.0).to(tl.float32)
-            dy = tl.load(dy_ptr + row * dy_stride + cols, mask=m, other=0.0).to(tl.float32)
-            mean = tl.sum(x, axis=0) / d
-            xc = tl.where(live, x - mean, 0.0)
-            rstd = 1.0 / tl.sqrt(tl.sum(xc * xc, axis=0) / d + eps)
-            xhat = xc * rstd
-            g = dy * w
-            g_mean = tl.sum(g, axis=0) / d
-            gx_mean = tl.sum(g * xhat, axis=0) / d
-            dx = rstd * (g - g_mean - xhat * gx_mean)
-            tl.store(dx_ptr + row * d + cols, dx.to(dx_ptr.dtype.element_ty), mask=m)
-            # a row past the end must add nothing: mask the products themselves
-            acc_dscale += tl.where(m, dy * xhat, 0.0)
-            acc_dbias += tl.where(m, dy, 0.0)
-        base = part_ptr + pid.to(tl.int64) * 2 * d
-        tl.store(base + cols, acc_dscale, mask=live)
-        tl.store(base + d + cols, acc_dbias, mask=live)
-
-    @triton.jit
-    def layernorm_bwd_sum(part_ptr, out_ptr, n_parts, width,
-                          BLOCK_P: tl.constexpr, BLOCK_C: tl.constexpr):
-        cols = tl.program_id(0) * BLOCK_C + tl.arange(0, BLOCK_C)
-        live = cols < width
-        acc = tl.zeros([BLOCK_C], dtype=tl.float32)
-        for p0 in range(0, n_parts, BLOCK_P):
-            parts = p0 + tl.arange(0, BLOCK_P)
-            m = (parts[:, None] < n_parts) & live[None, :]
-            tile = tl.load(part_ptr + parts[:, None].to(tl.int64) * width + cols[None, :],
-                           mask=m, other=0.0)
-            acc += tl.sum(tile, axis=0)
-        tl.store(out_ptr + cols, acc, mask=live)
-
-    return triton, layernorm_fwd, layernorm_bwd, layernorm_bwd_sum
+    return triton, layernorm_fwd
 
 
 # ---------------------------------------------------------------------------- plain
@@ -153,7 +116,7 @@ def layernorm_fwd(x: torch.Tensor, scale, bias, eps: float) -> torch.Tensor:
     x2 = x.reshape(-1, d)
     _check_rows("x", x2)
     _check_params(d, scale, bias)
-    triton, kernel, _, _ = _kernels()
+    triton, kernel = _fwd_kernel()
     out = torch.empty((x2.shape[0], d), dtype=x.dtype, device=x.device)
     block = triton.next_power_of_2(d)
     kernel[(x2.shape[0],)](x2, scale.contiguous(), bias.contiguous(), out,
@@ -163,35 +126,97 @@ def layernorm_fwd(x: torch.Tensor, scale, bias, eps: float) -> torch.Tensor:
     return out.reshape(shape)
 
 
-def bwd_grid(n: int, sms: int) -> tuple[int, int]:
-    """K8's (rows a program, programs) for n rows on a card of `sms` SMs: about four
-    programs an SM, rows a program rounded up to a power of two, so the last
-    program's block is part-empty unless it divides n."""
-    rows = 1 << (max(1, -(-n // (_PROGRAMS_PER_SM * sms))) - 1).bit_length()
-    return rows, -(-n // rows)
+def bwd_smem_bytes(d: int, itemsize: int, rows: int, stages: int) -> int:
+    """K8's dynamic shared memory (csrc/layernorm_bwd.cu:smem_bytes): the ring of
+    ``stages`` x ``rows`` rows of x and dy (its first bytes hold the combine's sums once
+    it has drained), the scale in fp32, each slot's (mean, rstd), three mbarriers a
+    stage."""
+    ring = stages * rows * 2 * d * itemsize
+    return max(ring, 4 * max(2 * d, BWD_THREADS)) + 4 * d + 8 * stages * rows + 24 * stages
 
 
-def layernorm_bwd(x2: torch.Tensor, dy2: torch.Tensor, scale, eps: float):
-    """K8 on CUDA rows x2, dy2 [N, D] -> (dx [N, D] in x's type, dscale fp32 [D],
-    dbias fp32 [D])."""
+def bwd_plan(n: int, d: int, sms: int, itemsize: int = 2) -> dict:
+    """How K8 lays n rows of width d (``itemsize`` bytes an element) over a card of
+    ``sms`` SMs: ``rows`` a ring stage (8, or fewer where three stages of 8 would not fit
+    in shared memory), ``stages`` (at most ``BWD_MAX_STAGES``), and
+    ``ctas`` = min(sms, ceil(n / rows)), one an SM, CTA c over the contiguous band
+    ``bwd_bands`` gives it; one CTA for up to 2 x rows rows. Raises for a d the kernel
+    does not take."""
+    if d % 8 or not 8 <= d <= BWD_MAX_D:
+        raise ValueError(f"layernorm backward kernel: D = {d} must be a multiple of 8 in "
+                         f"[8, {BWD_MAX_D}] (16-byte bulk copies; 32 column sums a thread)")
+    if n < 1:
+        raise ValueError("layernorm backward kernel: no rows")
+    for rows in (8, 4, 2, 1):
+        stages = BWD_MAX_STAGES
+        while stages > 1 and bwd_smem_bytes(d, itemsize, rows, stages) > SMEM_LIMIT:
+            stages -= 1
+        if stages >= 3:
+            break
+    # up to two stages of rows, one CTA without the grid barrier and the combine is the
+    # quicker (kernels/check_layernorm.py --time times both)
+    ctas = 1 if n <= 2 * rows else min(sms, -(-n // rows))
+    return {"ctas": ctas, "rows": rows, "stages": stages,
+            "smem_bytes": bwd_smem_bytes(d, itemsize, rows, stages)}
+
+
+def bwd_bands(n: int, ctas: int) -> list[tuple[int, int]]:
+    """(first row, row count) of each CTA's band, as the kernel computes them: the first
+    n % ctas bands hold one row more."""
+    q, extra = divmod(n, ctas)
+    return [(c * q + min(c, extra), q + (c < extra)) for c in range(ctas)]
+
+
+def bwd_ragged(n: int, plan: dict) -> bool:
+    """Whether some band ends in a part-filled stage (its slots past the band's end are
+    never loaded and must add nothing to the column sums)."""
+    return any(count % plan["rows"] for _, count in bwd_bands(n, plan["ctas"]))
+
+
+def _grid_barrier(device, stream: int):
+    """The grid barrier's counter for one stream (launches on one stream run in order,
+    so they share it; it starts at 0 and each launch moves it by 2^31)."""
+    key = (device.index, stream)
+    with _barriers_lock:
+        c = _barriers.get(key)
+        if c is None:
+            c = _barriers[key] = torch.zeros(1, dtype=torch.int32, device=device)
+        return c
+
+
+def layernorm_bwd(x2: torch.Tensor, dy2: torch.Tensor, scale, eps: float,
+                  plan: dict | None = None):
+    """K8 on CUDA rows x2, dy2 [N, D] (bf16 or fp32, 16-byte aligned rows) -> (dx [N, D]
+    in x's type, dscale fp32 [D], dbias fp32 [D]). One launch; raises for what the
+    kernel does not take. ``plan``: another ``bwd_plan`` to launch (for timing its
+    alternatives), else ``bwd_plan``'s own."""
     n, d = x2.shape
     _check_rows("x", x2)
     _check_rows("dy", dy2)
     _check_params(d, scale)
-    if dy2.shape != x2.shape:
-        raise ValueError(f"layernorm backward: dy {tuple(dy2.shape)} is not x {tuple(x2.shape)}")
-    triton, _, kernel, sum_kernel = _kernels()
-    rows, programs = bwd_grid(n, torch.cuda.get_device_properties(x2.device).multi_processor_count)
-    block = triton.next_power_of_2(d)
+    if dy2.shape != x2.shape or dy2.dtype != x2.dtype:
+        raise ValueError(f"layernorm backward: dy {tuple(dy2.shape)} {dy2.dtype} is not x "
+                         f"{tuple(x2.shape)} {x2.dtype}")
+    for name, t in (("x", x2), ("dy", dy2)):
+        if t.data_ptr() % 16 or t.stride(0) * t.element_size() % 16:
+            raise ValueError(f"layernorm backward kernel: {name} rows must be 16-byte aligned")
+    if scale.dtype not in (torch.bfloat16, torch.float32) or scale.stride(0) != 1:
+        raise TypeError(f"layernorm backward kernel: scale must be contiguous bf16 or fp32, "
+                        f"got {scale.dtype}")
+    if plan is None:
+        plan = bwd_plan(n, d, torch.cuda.get_device_properties(x2.device).multi_processor_count,
+                        x2.element_size())
     dx = torch.empty((n, d), dtype=x2.dtype, device=x2.device)
-    parts = torch.empty((programs, 2, d), dtype=torch.float32, device=x2.device)
-    kernel[(programs,)](x2, dy2, scale.contiguous(), dx, parts, n, x2.stride(0),
-                        dy2.stride(0), d, eps, ROWS=rows, BLOCK_D=block,
-                        num_warps=4 if block <= 2048 else 8)
+    part = torch.empty((plan["ctas"], 2, d), dtype=torch.float32, device=x2.device)
     sums = torch.empty((2, d), dtype=torch.float32, device=x2.device)
-    block_c = 128
-    sum_kernel[(triton.cdiv(2 * d, block_c),)](parts, sums, programs, 2 * d,
-                                                BLOCK_P=32, BLOCK_C=block_c, num_warps=4)
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    name = "layernorm_bwd_bf16" if x2.dtype == torch.bfloat16 else "layernorm_bwd_f32"
+    err = getattr(_build.library(), name)(
+        x2.data_ptr(), dy2.data_ptr(), scale.data_ptr(), dx.data_ptr(), part.data_ptr(),
+        sums.data_ptr(), _grid_barrier(x2.device, stream).data_ptr(), n, d, x2.stride(0),
+        dy2.stride(0), plan["rows"], plan["stages"], plan["ctas"],
+        int(scale.dtype == torch.float32), float(eps), stream)
+    _build.check(name, err)
     bwd_launches.add()
     return dx, sums[0], sums[1]
 

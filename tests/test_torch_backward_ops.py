@@ -190,14 +190,49 @@ def test_layernorm_autograd_matches_jax_grad(monkeypatch):
         rel_close(ours, theirs, 1e-5)
 
 
-@pytest.mark.parametrize("n,ragged", [(16, False), (1000, False), (16384, False),
-                                       (529, True), (1001, True), (16383, True)])
-def test_layernorm_bwd_grid(n, ragged):
-    """K8's grid on a 132-SM H100: every row is covered by about four programs an SM,
-    and the row counts the card checks as ragged leave the last block part-empty."""
-    rows, programs = FLN.bwd_grid(n, 132)
-    assert rows & (rows - 1) == 0 and rows * (programs - 1) < n <= rows * programs
-    assert programs <= 4 * 132 and (rows * programs > n) == ragged
+# (n, d, bytes an element, ragged) on a 132-SM H100: the row counts the card checks
+# (the stage-0 tower's 16384, the MAP head's 16, the ViT-L tower's 4608 at D = 1024),
+# fp32 rows and the widest D the kernel takes
+@pytest.mark.parametrize("n,d,itemsize,ragged", [
+    (16, 1152, 2, False), (529, 1152, 2, True), (1000, 1152, 2, False), (1001, 1152, 2, True),
+    (16383, 1152, 2, True), (16384, 1152, 2, True), (4608, 1024, 2, True), (300, 64, 2, True),
+    (1001, 1152, 4, True), (16384, 4096, 2, True), (16384, 4096, 4, True), (1, 8, 4, True),
+])
+def test_layernorm_bwd_plan(n, d, itemsize, ragged):
+    """K8's plan: every row in exactly one CTA's band, bands that differ by at most one
+    row, at most one CTA an SM (fewer at few rows, one for up to two stages of rows), the
+    ring within the 227 KB a block may use, and part-filled last stages where the card's
+    ragged cases need them."""
+    plan = FLN.bwd_plan(n, d, 132, itemsize)
+    bands = FLN.bwd_bands(n, plan["ctas"])
+    covered = np.zeros(n, np.int64)
+    for start, count in bands:
+        covered[start:start + count] += 1
+    assert (covered == 1).all()
+    counts = [count for _, count in bands]
+    assert min(counts) >= 1 and max(counts) - min(counts) <= 1
+    assert plan["ctas"] == (1 if n <= 2 * plan["rows"] else min(132, -(-n // plan["rows"])))
+    assert plan["smem_bytes"] == FLN.bwd_smem_bytes(d, itemsize, plan["rows"], plan["stages"])
+    assert plan["smem_bytes"] <= FLN.SMEM_LIMIT and plan["stages"] >= 3
+    assert FLN.bwd_ragged(n, plan) == ragged
+
+
+@pytest.mark.parametrize("d", [1024, 1152])
+def test_layernorm_bwd_plan_keeps_loads_in_flight(d):
+    """At the towers' widths in bf16, 8 rows a stage and 4 stages: while one stage is
+    read, three (>= 64 KB of x and dy) are in flight on each SM."""
+    plan = FLN.bwd_plan(16384, d, 132)
+    assert (plan["rows"], plan["stages"]) == (8, 4)
+    assert (plan["stages"] - 1) * plan["rows"] * 2 * d * 2 >= 64 * 1024
+
+
+@pytest.mark.parametrize("n,d", [(16, 1156), (16, 4100), (16, 4104), (16, 8192), (16, 0),
+                                 (0, 1152)])
+def test_layernorm_bwd_plan_refuses(n, d):
+    """D must be a multiple of 8 (16-byte bulk copies of bf16 rows) and at most 4096 (32
+    column sums for each of 128 threads); there must be rows."""
+    with pytest.raises(ValueError):
+        FLN.bwd_plan(n, d, 132)
 
 
 @pytest.mark.parametrize("scale", [1.0, 0.5])

@@ -331,30 +331,71 @@ def test_flash_backward_rejects_unsupported(card):
         FA.flash_attention_bwd(q, q, q, None, out[:, :4], lse, q)  # out of another shape
 
 
-@pytest.mark.parametrize("n,d,ragged", [
-    (300, 64, False), (16, 1152, False), (1000, 1152, False), (16384, 1152, False),
-    (529, 1152, True), (1001, 1152, True), (16383, 1152, True),
+@pytest.mark.parametrize("n,d,dtype,ragged", [
+    (300, 64, torch.bfloat16, True), (16, 1152, torch.bfloat16, False),
+    (1000, 1152, torch.bfloat16, False), (16384, 1152, torch.bfloat16, True),
+    (529, 1152, torch.bfloat16, True), (1001, 1152, torch.bfloat16, True),
+    (16383, 1152, torch.bfloat16, True), (4608, 1024, torch.bfloat16, True),
+    (1001, 1152, torch.float32, True), (4608, 4096, torch.bfloat16, True),
 ])
-def test_layernorm_backward_kernel(card, n, d, ragged):
+def test_layernorm_backward_kernel(card, n, d, dtype, ragged):
     """K8's dx, dscale and dbias against the plain backward, each within 2e-2 x
-    max |reference|. The ragged row counts leave the last program's block part-empty
-    on a 132-SM H100 (checked): its rows past the end must add nothing to the sums."""
+    max |reference|, in one launch. On a 132-SM H100 the ragged row counts leave some
+    CTA's last ring stage part-filled (checked): its slots past the band's end are never
+    loaded and must add nothing to the sums."""
     sms = torch.cuda.get_device_properties(card).multi_processor_count
-    rows, programs = FLN.bwd_grid(n, sms)
+    plan = FLN.bwd_plan(n, d, sms, torch.empty((), dtype=dtype).element_size())
     if sms == 132:
-        assert (rows * programs > n) == ragged, (rows, programs)
+        assert FLN.bwd_ragged(n, plan) == ragged, plan
     rng = np.random.default_rng(8)
-    x, dy = _bf16(rng, (n, d), card), _bf16(rng, (n, d), card)
+    x, dy = _bf16(rng, (n, d), card).to(dtype), _bf16(rng, (n, d), card).to(dtype)
     scale = _bf16(rng, (d,), card) * 0.5 + 1
     before = FLN.bwd_launches.value
     got = FLN.layernorm_bwd(x, dy, scale, 1e-6)
+    torch.cuda.synchronize()
     assert FLN.bwd_launches.value == before + 1
+    assert got[0].dtype == dtype and got[1].dtype == got[2].dtype == torch.float32
     ref = FLN.layernorm_bwd_reference(x.float(), dy.float(), scale.float(), 1e-6)
     for a, b in zip(got, ref):
         _rel_close(a, b)
     # the partial sums are added in a fixed order: a second run gives the same bits
     again = FLN.layernorm_bwd(x, dy, scale, 1e-6)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_layernorm_backward_kernel_strided_rows_and_fp32_scale(card):
+    """Rows read through a row stride (a slice of wider rows) and an fp32 scale: the
+    same numbers as the plain backward."""
+    rng = np.random.default_rng(10)
+    wide = _bf16(rng, (700, 1280), card)
+    x, dy = wide[:, :1152], _bf16(rng, (700, 1152), card)
+    scale = (_bf16(rng, (1152,), card) * 0.5 + 1).float()
+    got = FLN.layernorm_bwd(x, dy, scale, 1e-6)
+    ref = FLN.layernorm_bwd_reference(x.float(), dy.float(), scale, 1e-6)
+    for a, b in zip(got, ref):
+        _rel_close(a, b)
+
+
+def test_layernorm_backward_kernel_refuses(card):
+    """Rows not 16-byte aligned, a D the plan does not hold, another dtype or dy of
+    another shape raise: there is no fallback."""
+    x = torch.zeros((64, 1160), dtype=torch.bfloat16, device=card)
+    scale = torch.ones(1152, dtype=torch.bfloat16, device=card)
+    with pytest.raises(ValueError, match="16-byte"):
+        FLN.layernorm_bwd(x[:, 4:1156], x[:, :1152], scale, 1e-6)  # base 8 bytes off
+    with pytest.raises(ValueError, match="16-byte"):
+        rows = x.view(-1)[:63 * 1156].view(63, 1156)[:, :1152]  # row stride 2312 bytes
+        FLN.layernorm_bwd(rows, rows, scale, 1e-6)
+    with pytest.raises(ValueError):
+        FLN.layernorm_bwd(x[:, :1156], x[:, :1156], torch.ones(1156, device=card), 1e-6)
+    with pytest.raises(ValueError):
+        big = torch.zeros((4, 4104), dtype=torch.bfloat16, device=card)
+        FLN.layernorm_bwd(big, big, torch.ones(4104, device=card), 1e-6)
+    with pytest.raises(TypeError):
+        h = x[:, :1152].half()
+        FLN.layernorm_bwd(h, h, scale, 1e-6)
+    with pytest.raises(ValueError):
+        FLN.layernorm_bwd(x[:, :1152], x[:32, :1152], scale, 1e-6)
 
 
 def test_layernorm_autograd_runs_both_kernels(card):

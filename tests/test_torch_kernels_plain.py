@@ -112,6 +112,31 @@ def test_kernel_build_raises_on_compile_error(monkeypatch, tmp_path):
         _build.build()
 
 
+def _c_signatures() -> dict:
+    """name -> ctypes argument types of each ``extern "C"`` entry point in csrc/*.cu."""
+    import ctypes
+    import re
+
+    def ctype(param):
+        if "*" in param:
+            return ctypes.c_void_p
+        return {"int": ctypes.c_int, "long long": ctypes.c_longlong,
+                "float": ctypes.c_float}[param.rsplit(" ", 1)[0].strip()]
+
+    found = {}
+    for src in _build.sources():
+        for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src.read_text()):
+            found[name] = [ctype(" ".join(p.split())) for p in params.split(",")]
+    return found
+
+
+def test_build_signatures_match_the_c_entry_points():
+    """Every C entry point has its ctypes signature, argument for argument (a pointer
+    passed as a 32-bit int would be cut), among them K8's two."""
+    assert {"layernorm_bwd_bf16", "layernorm_bwd_f32"} <= set(_build.SIGNATURES)
+    assert _c_signatures() == _build.SIGNATURES
+
+
 def test_launch_counter_counts_and_resets():
     c = _build.LaunchCounter("x")
     for _ in range(3):

@@ -154,6 +154,9 @@ def test_step_profiler_writes_a_trace_of_its_window(tmp_path):
     ("void (anonymous namespace)::decode_attn_kernel<256>(...)", "attention"),
     ("void (anonymous namespace)::fused_ce_bwd_kernel(...)", "fused_ce"),
     ("_layernorm_bwd_kernel", "layernorm"),
+    ("void (anonymous namespace)::layernorm_bwd_kernel<__nv_bfloat16>(...)", "layernorm"),
+    ("void (anonymous namespace)::layernorm_bwd_kernel<float>(...)", "layernorm"),
+    ("layernorm_fwd", "layernorm"),
     ("nvjet_tst_128x256_64x4_1x2_h_bz_coopA_NTN", "matmul"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64", "matmul"),
     ("void at::native::reduce_kernel<512, 1, at::native::ReduceOp<float, ...>>", "reduce"),

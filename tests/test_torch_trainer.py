@@ -151,10 +151,12 @@ def test_cli_profiles_a_window_and_splits_it_by_span(snapshots, tmp_path):
 
 
 class _StalledCaptions:
-    """Tiny stage-1 samples that each take ``delay`` seconds to load."""
+    """Tiny stage-1 samples: the first ``free`` load at once (the warm-up batch), every
+    later one waits until ``release`` is set and then takes ``delay`` seconds."""
 
-    def __init__(self, n, delay):
-        self.n, self.delay = n, delay
+    def __init__(self, n, delay, *, free, release):
+        self.n, self.delay, self.free, self.release = n, delay, free, release
+        self.calls = 0
 
     def __len__(self):
         return self.n
@@ -162,7 +164,11 @@ class _StalledCaptions:
     def __getitem__(self, i):
         import time
 
-        time.sleep(self.delay)
+        self.calls += 1  # one loader thread: the calls come one at a time
+        if self.calls > self.free:
+            if not self.release.wait(120):
+                raise TimeoutError("the step timer never closed its first window")
+            time.sleep(self.delay)
         rng = np.random.default_rng(i)
         caption = np.zeros(12, np.int32)
         caption[:6] = rng.integers(2, 128, size=6)
@@ -171,9 +177,13 @@ class _StalledCaptions:
 
 
 def test_step_time_includes_a_stalled_feed(tmp_path):
-    """The step timer's window opens before the trainer asks the feed for a batch: two
-    samples of 0.15 s each on one loader thread make every step at least ~0.3 s,
-    however fast the tiny model's step itself is."""
+    """The step timer's window opens before the trainer asks the feed for a batch. The
+    warm-up batch loads at once; the timed batches load only after the timer has closed
+    its first window, two samples of 0.15 s each on one loader thread, so the prefetching
+    feed cannot run ahead of the timed steps and each of them waits ~0.3 s for its batch,
+    whatever the warm-up step costs and however fast the tiny model's step is."""
+    import threading
+
     import jax
 
     from projectiontrainer_tpu.models import vlm as JVLM
@@ -188,13 +198,18 @@ def test_step_time_includes_a_stalled_feed(tmp_path):
     cfg = Stage1Config(output_dir=str(tmp_path), batch_size=2, num_epochs=1, logging_steps=1,
                        num_workers=1, device="cpu", save_every_n_epochs=0, disable_wandb=True,
                        img_size=32, max_caption_len=12, seed=0)
+    release = threading.Event()
     trainer = Stage1Trainer(cfg, vlm_cfg=from_jax.config_from_jax(jcfg),
                             params=from_jax.vlm_params(jparams), tokenizer=tok,
-                            train_dataset=_StalledCaptions(8, 0.15))
-    # a first step pays one-time costs (lazy imports inside torch: seconds on a busy
-    # host); paid here, they cannot let the prefetching feed run ahead of the timed steps
-    trainer.train_step(trainer.state, {"pixel_values": torch.zeros((2, 32, 32, 3)),
-                                       "caption_ids": torch.ones((2, 12), dtype=torch.int32)})
+                            train_dataset=_StalledCaptions(8, 0.15, free=2, release=release))
+    window_end = trainer.timer.window_end
+
+    def window_end_then_release():
+        window_end()
+        release.set()
+
+    trainer.timer.window_end = window_end_then_release
     result = trainer.train()
     assert trainer.timer.measured_steps == 3  # 4 steps, the first one warms up
+    # the three timed windows hold the 0.9 s of loading, less the gaps between them
     assert result["step_time_ms"] >= 0.9 * 2 * 150
