@@ -29,6 +29,10 @@ Phases, each printing one JSON line; any failure raises, so the exit code is not
    the served shape (batch 8, 3 beams, P = 831, G = 32), at one request (batch 1) and at
    the reference's 1024 generated slots (t = 1000), window 512 and none, each rerun
    held bit-equal and its plan held to more CTAs than (batch, KV head) pairs.
+   Stage 2's shapes (batch 1): K4/K5 over the trained ViT-L tower ([1,576,16,64]),
+   K1/K4/K5 over the decoder's longest bucket ([1,1215,4|1,256], causal, window 512,
+   the question's and the answer's padding masked) and K8 over the tower's rows
+   ([576,1024]).
    The CE's table is scaled for a peaked softmax and its upstream gradient differs
    per row, so a kernel that loses a vocab split or a row's weight fails. Device
    times of kernel and plain (CUDA events around 10 launches queued behind a spinning
@@ -76,9 +80,28 @@ Phases, each printing one JSON line; any failure raises, so the exit code is not
    loss within 1e-3 relative, cosine >= 0.999 per leaf, except the key-projection
    biases, whose gradient is zero in exact arithmetic: there the kernel path's largest
    gradient norm (rounding noise) must stay within 3x the plain path's.
+9. stage-2 train: the stage-0 model is freed; Stage2Trainer.train() full-joint
+   (--unfreeze_llm --unfreeze_projection_layer --train_ve_first_epoch) on the
+   full-width VLM of phase 3 from seeded random weights, fp32 masters and bf16
+   compute, per-layer remat, batch 1, accumulation 8, lr 1e-5, per-module clip 1.0,
+   2 epochs of 16 in-memory samples (questions of 8-128 tokens, answers of 32-512:
+   buckets up to 575 + 128 + 512 = 1215 tokens), validation on 2 samples with 3-beam
+   sampling and 16 new tokens. One train-state file is kept on disk at a time (~21 GB
+   each; each save's bytes and seconds printed). Every loss finite; the tower moved in
+   epoch 0 and not in epoch 1; the LLM, its tied table and the projector moved in
+   both; checkpoint-epoch_1/ and the examples written; K1, K2, K3, K4, K5 and K8
+   launched. Micro-steps 6-7 are profiled (the card's kernel time by span, forward and
+   backward apart); images/s and ms a micro-step from steps 1-5.
+10. end to end (stage 2), batch 1 at the longest bucket: the loss and the gradient of
+   every trainable leaf (tower, projector, LLM with its tied table) through the kernel
+   path against the plain path: loss within 1e-3 relative, cosine >= 0.999 per leaf,
+   the key-projection biases by their noise (at most 3x plain's), and the decoder's q/k
+   RMSNorm scales, whose bf16 gradient is mostly rounding at random weights, by their
+   distance to the plain path's fp32 gradient: at most 1.5x plain bf16's.
 
 The second-to-last line is {"kernels": [...]} (name, route, source, replaces, launches
-on the main path, max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms); the last is
+on the main path, max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms, and the
+launches of one epoch-0 stage-2 micro-step at the longest bucket, phase 9's); the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Needs no network and no model snapshot; imports nothing of JAX.
 """
@@ -103,6 +126,12 @@ CE_ATOL = 1e-3   # fused CE lse and nll, absolute (lse ~25 at the smoke's table 
 LOSS_REL = 1e-3  # train end to end: the kernel path's loss against the plain path's
 COS_MIN = 0.999  # train end to end: each projector gradient leaf's cosine
 KEY_BIAS_NOISE = 3.0  # stage-0 end to end: key-bias gradient (zero if exact) vs plain's
+# stage-2 end to end: the decoder's q/k RMSNorm scales, whose bf16 gradient is mostly
+# rounding at random weights (kernel and plain paths alike read cosine 0.1-0.44 to
+# fp32), are held by the kernel path's distance to the plain fp32 gradient over plain
+# bf16's
+ROUNDING_LEAVES = ("attn/q_norm/scale", "attn/k_norm/scale")
+ROUNDING_GAP = 1.5
 NEAR_COS_GAP = 1e-3   # attention gradients on nearly alike tokens: cosine vs plain bf16's
 READINGS = {}    # check name -> its reading: max abs err, or err / max|ref| (compare_rel)
 SEED = 0
@@ -357,6 +386,9 @@ STAGE1_KERNELS = ("flash_attn_fwd", "layernorm_fwd", "decode_attn", "flash_attn_
                   "flash_attn_bwd_dq", "fused_ce_fwd", "fused_ce_bwd")
 STAGE0_KERNELS = ("flash_attn_fwd", "layernorm_fwd", "flash_attn_bwd_dkv", "flash_attn_bwd_dq",
                   "layernorm_bwd")
+# stage 2 trains the table: the fused CE kernels (K6/K7) are refused there
+STAGE2_KERNELS = ("flash_attn_fwd", "layernorm_fwd", "decode_attn", "flash_attn_bwd_dkv",
+                  "flash_attn_bwd_dq", "layernorm_bwd")
 
 
 def counters():
@@ -476,6 +508,7 @@ def phase_kernels():
     check_fused_ce(rng, record)
     check_stage0_kernels(rng, record)
     check_flash_reruns(rng, record)
+    check_stage2_kernels(rng, record)
     emit({"phase": 2, "readings": READINGS})
     return results
 
@@ -604,6 +637,67 @@ def check_stage0_kernels(rng, record):
                 for n, a, b in zip("qkv", grads, refs)]
         record("flash_attn_bwd_dq", case, errs[0], None, None)
         record("flash_attn_bwd_dkv", case, max(errs[1:]), None, None)
+
+
+def check_stage2_kernels(rng, record):
+    """The shapes stage 2 adds (batch 1): K4/K5 over the trained ViT-L tower
+    ([1,576,16,64], non-causal), K1/K4/K5 over the decoder's longest bucket (575 visual
+    + 128 question + 512 answer = 1215 tokens, GQA 4/1, causal, window 512, the
+    question's and the answer's padding masked) and K8 over the tower's rows
+    ([576,1024]); record(kernel, case, err, ms, plain_ms, bound, library_ms, library)."""
+    import torch
+
+    from projectiontrainer_tpu_torch.ops import flash_attention as FA
+    from projectiontrainer_tpu_torch.ops import fused_layernorm as FLN
+
+    def backward(case, b, t, hq, hkv, d, mask, **kw):
+        q, do = _bf16(rng, (b, t, hq, d)), _bf16(rng, (b, t, hq, d))
+        k, v = _bf16(rng, (b, t, hkv, d)), _bf16(rng, (b, t, hkv, d))
+        out, lse = FA.flash_attention(q, k, v, kv_mask=mask, **kw)
+        seen = (attention_mask(t, causal=kw["causal"], window=kw["window"], kv_mask=mask)
+                if mask is not None or kw["causal"] else None)
+        pairs = None if seen is None else live_pairs(seen)
+        if mask is not None:  # K1 at this shape: the forward of the same layer
+            ref, ref_lse = FA.flash_attention_reference(q.float(), k.float(), v.float(),
+                                                        kv_mask=mask, **kw)
+            err = compare(f"flash {case} out", out, ref)
+            compare(f"flash {case} lse", lse[mask.bool()[:, None, :].expand_as(lse)],
+                    ref_lse[mask.bool()[:, None, :].expand_as(lse)])
+            lib, backend = sdpa_library(q, k, v, scale=kw["scale"], mask=seen)
+            record("flash_attn_fwd", case, err,
+                   cuda_ms(lambda: FA.flash_attention(q, k, v, kv_mask=mask, **kw)),
+                   cuda_ms(lambda: FA.flash_attention_reference(q, k, v, kv_mask=mask, **kw)),
+                   bound_flash_fwd(b, t, hq, hkv, d, pairs), cuda_ms(lib),
+                   f"SDPA {backend}, explicit mask")
+        prep = FA.prepare_bwd(q, k, v, mask, out, lse, do)
+        args = (q, k, v, prep[0], prep[1], lse, prep[2])
+        dk, dv = FA.launch_bwd_dkv(*args, **kw)
+        dq = FA.launch_bwd_dq(*args, **kw)
+        rq, rk, rv = FA.flash_attention_bwd_reference(q.float(), k.float(), v.float(), mask,
+                                                      out.float(), lse, do.float(), **kw)
+        plain = cuda_ms(lambda: FA.flash_attention_bwd_reference(q, k, v, mask, out, lse, do,
+                                                                 **kw))
+        lib, backend = sdpa_library_bwd(q, k, v, do, scale=kw["scale"], mask=seen)
+        library = (cuda_ms(lib), f"SDPA {backend} backward (dq, dk, dv together)"
+                   + (", explicit mask" if seen is not None else ""))
+        record("flash_attn_bwd_dkv", case,
+               max(compare_rel(f"flash {case} dk", dk, rk), compare_rel(f"flash {case} dv", dv, rv)),
+               cuda_ms(lambda: FA.launch_bwd_dkv(*args, **kw)), plain,
+               bound_flash_bwd_dkv(b, t, hq, hkv, d, pairs), *library)
+        record("flash_attn_bwd_dq", case, compare_rel(f"flash {case} dq", dq, rq),
+               cuda_ms(lambda: FA.launch_bwd_dq(*args, **kw)), plain,
+               bound_flash_bwd_dq(b, t, hq, hkv, d, pairs), *library)
+
+    backward("stage-2 tower [1,576,16,64] non-causal", 1, 576, 16, 16, 64, None,
+             scale=64 ** -0.5, causal=False, window=None)
+    mask = torch.zeros((1, 1215), dtype=torch.int32, device="cuda")
+    mask[0, :575 + 40] = 1             # visual tokens, a question of 40 tokens
+    mask[0, 575 + 128:575 + 128 + 300] = 1  # an answer of 300 tokens
+    backward("stage-2 decoder [1,1215,4|1,256] causal window=512, padded question and answer",
+             1, 1215, 4, 1, 256, mask, scale=256 ** -0.5, causal=True, window=512)
+    x = _bf16(rng, (576, 1024))
+    check_layernorm_bwd(rng, record, x, {"scale": _bf16(rng, (1024,), 0.5) + 1},
+                        cases=((576, False),))
 
 
 def check_layernorm_bwd(rng, record, x, p, cases=((16384, True), (16383, True), (1001, True),
@@ -1352,6 +1446,289 @@ def phase_stage0_end_to_end(cfg, params, kernel_counters):
                              f"{key_bias[0]:.4g} > {KEY_BIAS_NOISE} x plain {key_bias[1]:.4g}")
 
 
+# ---------------------------------------------------------------------------- phase 9
+
+
+class VQASamples:
+    """In-memory stage-2 samples: seeded pixels in [-1, 1] (made once, in bulk),
+    questions of 8-128 token ids and answers of 32-512 (the first sample at both
+    maxima: the longest bucket, 575 + 128 + 512 = 1215 tokens) and their lengths for
+    the bucket plan; no image files, no tokenizer."""
+
+    def __init__(self, n, seed, *, size, vocab):
+        rng = np.random.default_rng(seed)
+        self.pixels = np.clip(rng.standard_normal((n, size, size, 3), dtype=np.float32), -1, 1)
+        self.q_lens = rng.integers(8, 129, size=n).astype(np.int32)
+        self.a_lens = rng.integers(32, 513, size=n).astype(np.int32)
+        self.q_lens[0], self.a_lens[0] = 128, 512
+        self.questions = [rng.integers(2, vocab, size=n_q).astype(np.int32) for n_q in self.q_lens]
+        self.answers = [rng.integers(2, vocab, size=n_a).astype(np.int32) for n_a in self.a_lens]
+
+    def __len__(self):
+        return len(self.q_lens)
+
+    def token_lengths(self):
+        return self.q_lens, self.a_lens
+
+    def __getitem__(self, i):
+        return {"pixel_values": self.pixels[i], "question_ids": self.questions[i],
+                "answer_ids": self.answers[i]}
+
+
+def _stage2_watched(params):
+    """Slices of the leaves whose moves phase 9 checks (the table's first rows only:
+    all of it is 1.2 GB in fp32)."""
+    v, llm = params["vision"], params["llm"]
+    mid = len(v["layers"]) // 2
+    return {"vision/patch_embedding/weight": v["patch_embedding"]["weight"],
+            f"vision/layers/{mid}/attn/q_proj/weight": v["layers"][mid]["attn"]["q_proj"]["weight"],
+            "vision/layers/-1/ln2/scale": v["layers"][-1]["ln2"]["scale"],
+            "projector/fc1/weight": params["projector"]["fc1"]["weight"],
+            "llm/embed_tokens/embedding[:4096]": llm["embed_tokens"]["embedding"][:4096],
+            "llm/layers/-1/mlp/down_proj/weight": llm["layers"][-1]["mlp"]["down_proj"]["weight"]}
+
+
+def phase_stage2_train(cfg, params, kernel_counters):
+    """Stage2Trainer.train() at full width, the full-joint recipe; returns (launches,
+    the launches of one epoch-0 micro-step at the longest bucket, the trained params)."""
+    import torch
+
+    from projectiontrainer_tpu_torch.checkpoint.manager import CheckpointManager
+    from projectiontrainer_tpu_torch.core.config import Stage2Config
+    from projectiontrainer_tpu_torch.train.trainer_stage2 import Stage2Trainer
+
+    class OneCheckpointOnDisk(CheckpointManager):
+        """Keeps one train-state file at a time (~21 GB each at this width) and records
+        each save's name, bytes and seconds."""
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.saves = []
+
+        def _save(self, name, state, metadata=None):
+            for f in os.listdir(self.directory):
+                if f.endswith(".pt"):
+                    os.remove(os.path.join(self.directory, f))
+            t0 = time.perf_counter()
+            super()._save(name, state, metadata)
+            self.saves.append({"name": name, "bytes": os.path.getsize(self._path(name)),
+                               "seconds": time.perf_counter() - t0})
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_stage2_")
+    size, vocab = cfg.vision.image_size, cfg.llm.vocab_size
+    try:
+        free_gb = shutil.disk_usage(out_dir).free / 1e9
+        tcfg = Stage2Config(
+            output_dir=out_dir, batch_size=1, gradient_accumulation_steps=8, num_epochs=2,
+            learning_rate=1e-5, grad_clip=1.0, master_dtype="fp32", remat="full",
+            mixed_precision="bf16", unfreeze_llm=True, unfreeze_projection_layer=True,
+            train_ve_first_epoch=True, max_q_len=128, max_a_len=512, img_size=size,
+            eval_max_new_tokens=16, eval_num_beams=3, eval_do_sample=True, logging_steps=1,
+            num_workers=2, device=DEVICE, disable_wandb=True, seed=SEED,
+            profile_dir=os.path.join(out_dir, "profile"), profile_start_step=6,
+            profile_num_steps=2)
+        trainer = Stage2Trainer(tcfg, vlm_cfg=cfg, params=params, tokenizer=StubTokenizer(),
+                                train_dataset=VQASamples(16, SEED + 9, size=size, vocab=vocab),
+                                val_dataset=VQASamples(2, SEED + 10, size=size, vocab=vocab))
+        del params  # the trainer holds the fp32 masters now
+        trainer.ckpt = OneCheckpointOnDisk(trainer.ckpt.directory, best_mode="min",
+                                           save_paths=trainer.ckpt.save_paths)
+        state_params = trainer.state["params"]
+        seen = [{p: x.detach().clone() for p, x in _stage2_watched(state_params).items()}]
+        save_checkpoint = trainer.save_checkpoint
+
+        def save_and_watch(epoch):
+            seen.append({p: x.detach().clone() for p, x in _stage2_watched(state_params).items()})
+            save_checkpoint(epoch)
+
+        trainer.save_checkpoint = save_and_watch
+        # the first epoch-0 micro-step at the longest bucket runs with the counts set to
+        # 0 and is read just after it; the counts before it go into the run's total
+        longest = max(pb.q_bucket + pb.a_bucket for pb in trainer._train_plans[0])
+        step_fn, tx, schedule = trainer._steps[True]
+        before, one_step = {}, {}
+
+        def counted_step(state, batch):
+            if one_step or batch["question_ids"].shape[1] + batch["answer_ids"].shape[1] < longest:
+                return step_fn(state, batch)
+            before.update({n: c.value for n, c in kernel_counters.items()})
+            for c in kernel_counters.values():
+                c.reset()
+            out = step_fn(state, batch)
+            one_step.update({n: c.value for n, c in kernel_counters.items()})
+            return out
+
+        trainer._steps[True] = (counted_step, tx, schedule)
+        for c in kernel_counters.values():
+            c.reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: before.get(name, 0) + c.value for name, c in kernel_counters.items()}
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        exported = sorted(os.listdir(os.path.join(out_dir, "checkpoint-epoch_1")))
+        llm_bytes = os.path.getsize(os.path.join(out_dir, "checkpoint-epoch_1", "language_model",
+                                                 "model.safetensors"))
+        examples = sorted(os.listdir(os.path.join(out_dir, "validation_examples")))
+        traced = os.listdir(os.path.join(out_dir, "profile"))
+        saves = trainer.ckpt.saves
+        trained = trainer.state["params"]
+        del trainer
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [r["train/step_loss"] for r in rows if "train/step_loss" in r]
+    moved = [{p: float((b[p].float() - a[p].float()).abs().max()) for p in a}
+             for a, b in zip(seen, seen[1:])]
+    if len(losses) != 32 or not np.isfinite(losses).all():
+        raise AssertionError(f"stage 2: expected 32 finite losses, got {losses}")
+    if len(moved) != 2 or not all(m > 0 for m in moved[0].values()):
+        raise AssertionError(f"stage 2: a leaf did not move in epoch 0: {moved}")
+    if any(m != 0 for p, m in moved[1].items() if p.startswith("vision/")):
+        raise AssertionError(f"stage 2: the tower moved in epoch 1: {moved[1]}")
+    if not all(m > 0 for p, m in moved[1].items() if not p.startswith("vision/")):
+        raise AssertionError(f"stage 2: the LLM, table or projector did not move in epoch 1: "
+                             f"{moved[1]}")
+    if exported != ["language_model", "metadata.json", "projection_layer"]:
+        raise AssertionError(f"stage 2: checkpoint-epoch_1/ holds {exported}")
+    if examples != ["epoch_0_examples.txt", "epoch_1_examples.txt"]:
+        raise AssertionError(f"stage 2: validation examples {examples}")
+    if not all(launches[n] for n in STAGE2_KERNELS):
+        raise AssertionError(f"stage 2: a kernel of the path never launched: {launches}")
+    if not all(one_step.get(n) for n in STAGE2_KERNELS if n != "decode_attn"):
+        raise AssertionError(f"stage 2: an epoch-0 micro-step of {575 + longest} tokens "
+                             f"launched {one_step}")
+    # the row logged after step 6 sums the timed windows so far: steps 1-5
+    step6 = next((r for r in rows if r.get("step") == 6 and "step_time_ms" in r), {})
+    stats = {"images_per_sec": step6.get("images_per_sec"),
+             "micro_step_ms": step6.get("step_time_ms")}
+    if not all(stats.values()):
+        raise AssertionError(f"stage 2: no throughput measured for steps 1-5: {rows[:8]}")
+    split = {k[len("profile/"):]: v for r in rows for k, v in r.items()
+             if k.startswith("profile/")}
+    pieces = ("tower_fwd", "tower_bwd", "projector_fwd", "projector_bwd", "decoder_fwd",
+              "decoder_bwd", "lm_head_ce_fwd", "lm_head_ce_bwd", "optimizer_fwd")
+    if traced != ["trace_step6.json"] or not all(split.get(f"{p}_ms", 0) > 0 for p in pieces):
+        raise AssertionError(f"stage 2: no kernel time traced for a piece of the step: {split}")
+    idle = 1 - split["total_ms"] / stats["micro_step_ms"]
+    print(f"stage 2: {stats['images_per_sec']:.3f} images/s, {stats['micro_step_ms']:.1f} ms a "
+          f"micro-step (steps 1-5, batch 1, up to 1215 tokens); kernel time "
+          f"{split['total_ms']:.1f} ms a micro-step in steps 6-7 (device idle {idle:.1%}); "
+          f"checkpoints {[(c['name'], round(c['bytes'] / 1e9, 2), round(c['seconds'], 1)) for c in saves]} "
+          f"(GB, s; {free_gb:.0f} GB free)", flush=True)
+    emit({"phase": 9, "micro_steps": len(losses), "losses": losses, **stats,
+          "train_result": result, "wall_s": wall, "leaf_max_change_by_epoch": moved,
+          "launches": launches, "launches_one_epoch0_micro_step": one_step,
+          "launches_one_epoch0_micro_step_tokens": 575 + longest,
+          "batch_size": 1, "accumulation": 8, "peak_memory_gib": peak_gb,
+          "kernel_ms_per_micro_step": split, "device_idle_share_steps_6_7": idle,
+          "checkpoint_saves": saves, "language_model_bytes": llm_bytes, "disk_free_gb": free_gb,
+          "timed_steps": "1-5 (0 warms up, 6-7 profiled)",
+          "cut": "2 epochs of 16 random samples, 2 validation samples, 16 new tokens (a real "
+                 "run: the VQA corpus, 5 epochs, 128 new tokens)"})
+    return launches, one_step, trained
+
+
+# ---------------------------------------------------------------------------- phase 10
+
+
+def phase_stage2_end_to_end(cfg, params, kernel_counters):
+    """One batch-1 stage-2 loss at the longest bucket and the gradient of every trainable
+    leaf (tower, projector, LLM with its tied table) through the kernel path and the
+    plain path, each bf16 gradient also against the plain path in fp32."""
+    import torch
+    import torch.nn.functional as F
+
+    from projectiontrainer_tpu_torch.core.pytree import unique_leaves_with_paths
+    from projectiontrainer_tpu_torch.train import steps
+
+    plain = dataclasses.replace(
+        cfg, vision=dataclasses.replace(cfg.vision, attn_impl="plain", norm_impl="plain"),
+        llm=dataclasses.replace(cfg.llm, attn_impl="plain"))
+    data = VQASamples(1, SEED + 11, size=cfg.vision.image_size, vocab=cfg.llm.vocab_size)
+    batch = {"pixel_values": torch.tensor(data.pixels[:1], device=DEVICE),
+             "question_ids": torch.tensor(data.questions[0][None], device=DEVICE),
+             "answer_ids": torch.tensor(data.answers[0][None], device=DEVICE)}
+    train = list(unique_leaves_with_paths(params))
+    for _, x in train:
+        x.requires_grad_(True)
+
+    def run(c, compute_dtype=torch.bfloat16):
+        for counter in kernel_counters.values():
+            counter.reset()
+        loss_fn = steps.stage2_loss(c, 0, logits_chunk=128, table_frozen=False,
+                                    compute_dtype=compute_dtype, remat=True)
+        loss, _ = loss_fn(params, batch)
+        grads = torch.autograd.grad(loss, [x for _, x in train])
+        torch.cuda.synchronize()
+        return float(loss.detach()), grads, {n: k.value for n, k in kernel_counters.items()}
+
+    def cosine(a, b):
+        return float(F.cosine_similarity(a.flatten().float(), b.flatten().float(), dim=0))
+
+    loss_k, grads_k, launches_k = run(cfg)
+    loss_p, grads_p, launches_p = run(plain)
+    _, grads_f, _ = run(plain, None)
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    cos, rounding, plain_to_fp32, key_bias = {}, {}, {}, [0.0, 0.0]
+    for (path, _), a, b, f in zip(train, grads_k, grads_p, grads_f):
+        a, b, f = a.float(), b.float(), f.float()
+        if path.endswith("k_proj/bias"):  # zero in exact arithmetic: both sides are noise
+            key_bias = [max(key_bias[0], float(a.norm())), max(key_bias[1], float(b.norm()))]
+            continue
+        gap = float((b - f).norm())
+        # (cosine, whether plain bf16's distance to fp32 exceeds the gradient's norm)
+        plain_to_fp32[path] = (cosine(b, f), gap > float(f.norm()))
+        if path.startswith("llm/") and path.endswith(ROUNDING_LEAVES):
+            rounding[path] = {"plain_cos_to_fp32": plain_to_fp32[path][0],
+                              "kernel_cos_to_fp32": cosine(a, f),
+                              "gap_ratio": float((a - f).norm()) / gap}
+        else:
+            cos[path] = cosine(a, b)
+    del grads_k, grads_p, grads_f, a, b, f
+    worst = min(cos, key=cos.get, default=None)
+    worst_gap = max(rounding, key=lambda p: rounding[p]["gap_ratio"], default=None)
+    lowest = sorted(rounding, key=lambda p: rounding[p]["plain_cos_to_fp32"])[:5]
+    groups = ("vision", "projector", "llm")
+    emit({"phase": 10, "batch_size": 1, "tokens": 575 + 128 + 512, "loss_kernel": loss_k,
+          "loss_plain": loss_p, "loss_rel_diff": rel, "leaves_compared": len(cos),
+          "min_grad_cosine": cos.get(worst), "min_grad_cosine_leaf": worst,
+          "min_grad_cosine_by_group": {
+              g: min((v for p, v in cos.items() if p.startswith(g + "/")), default=None)
+              for g in groups},
+          "lowest_grad_cosines": {p: cos[p] for p in sorted(cos, key=cos.get)[:5]},
+          "plain_bf16_cos_to_fp32_quantiles_0_10_50_90": [
+              float(np.quantile([c for c, _ in plain_to_fp32.values()], q))
+              for q in (0, 0.1, 0.5, 0.9)],
+          "plain_bf16_error_above_fp32_norm_by_group": {
+              g: sum(p.startswith(g + "/") and over for p, (_, over) in plain_to_fp32.items())
+              for g in groups},
+          "rounding_leaves": len(rounding),
+          "max_gap_ratio_to_fp32": rounding[worst_gap]["gap_ratio"] if rounding else None,
+          "max_gap_ratio_leaf": worst_gap,
+          "rounding_leaves_lowest_plain_cos_to_fp32": {p: rounding[p] for p in lowest},
+          "table_grad_cosine": cos.get("llm/embed_tokens/embedding"),
+          "key_bias_grad_norm_max_kernel_plain": key_bias, "launches_kernel_path": launches_k})
+    step_kernels = [n for n in STAGE2_KERNELS if n != "decode_attn"]
+    if not all(launches_k[n] for n in step_kernels) or any(launches_p.values()):
+        raise AssertionError(f"stage 2 end to end: kernel path {launches_k}, plain {launches_p}")
+    if not rel <= LOSS_REL:
+        raise AssertionError(f"stage 2 end to end: loss {loss_k} vs plain {loss_p}")
+    if worst is None or not cos[worst] >= COS_MIN:
+        raise AssertionError(f"stage 2 end to end: gradient cosine {cos.get(worst)} of {worst} "
+                             f"< {COS_MIN}")
+    if rounding and not rounding[worst_gap]["gap_ratio"] <= ROUNDING_GAP:
+        raise AssertionError(f"stage 2 end to end: {worst_gap}'s distance to fp32 is "
+                             f"{rounding[worst_gap]['gap_ratio']:.4g} x plain bf16's "
+                             f"> {ROUNDING_GAP}")
+    if not key_bias[0] <= KEY_BIAS_NOISE * key_bias[1]:
+        raise AssertionError(f"stage 2 end to end: key-projection bias gradient norm "
+                             f"{key_bias[0]:.4g} > {KEY_BIAS_NOISE} x plain {key_bias[1]:.4g}")
+
+
 def main() -> int:
     import gc
 
@@ -1376,6 +1753,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_stage0_end_to_end(cfg, params, kernel_counters)
+    del cfg, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg, params = full_width_model()
+    stage2_launches, stage2_step, params = phase_stage2_train(cfg, params, kernel_counters)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_stage2_end_to_end(cfg, params, kernel_counters)
 
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
@@ -1386,9 +1772,12 @@ def main() -> int:
             by_path["train"] = train_launches[name]
         if name in serve_launches:
             by_path["serve"] = serve_launches[name]
+        if name in STAGE2_KERNELS:
+            by_path["stage2"] = stage2_launches[name]
         main_path = next(p for p in ("serve", "train", "stage0") if p in by_path)
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
                         "launches": by_path[main_path], "launches_by_path": by_path,
+                        "launches_per_stage2_micro_step": stage2_step[name],
                         "max_abs_err": max(r["max_abs_err"] for r in rows),
                         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
                         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],

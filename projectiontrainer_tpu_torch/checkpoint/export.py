@@ -10,7 +10,13 @@ Counterpart of ``projectiontrainer_tpu/checkpoint/export.py``:
   fp32 ``model.safetensors`` under HF ``SiglipModel`` keys), what the reference's stage
   0 writes with ``save_pretrained`` and its downstream stages load; readable by
   ``hf_import.load_siglip``, the JAX package's ``hf_import.load_siglip`` and
-  transformers. ``safetensors`` is imported only inside it.
+  transformers;
+- ``save_stage2_checkpoint``: the reference's ``checkpoint-epoch_N/`` directory
+  (``projection_layer/``, ``language_model/model.safetensors``, ``metadata.json``;
+  Stage2/trainer.py:710-769), the LLM under the JAX package's flat ``path_str`` keys
+  and layout, so its ``load_flat_safetensors`` reads it.
+
+``safetensors`` is imported only inside the functions that write it.
 """
 
 from __future__ import annotations
@@ -22,6 +28,8 @@ from typing import Optional
 
 import torch
 
+from projectiontrainer_tpu_torch.checkpoint.from_jax import decoder_params_to_jax
+from projectiontrainer_tpu_torch.core.pytree import leaves_with_paths
 from projectiontrainer_tpu_torch.models import projector as proj
 from projectiontrainer_tpu_torch.models import siglip
 
@@ -134,3 +142,27 @@ def save_siglip_hf(params, cfg: siglip.SiglipConfig, out_dir: str, *,
         if os.path.exists(src):
             shutil.copy(src, os.path.join(out_dir, name))
     return out_dir
+
+
+def save_stage2_checkpoint(out_dir: str, epoch: int, *, projector_params, projector_cfg,
+                           llm_params=None, metadata: Optional[dict] = None) -> str:
+    """Write ``out_dir/checkpoint-epoch_N/``: the projector under
+    ``projection_layer/`` (``projector_best.bin``), the full LLM (when given) as
+    ``language_model/model.safetensors`` with the JAX package's keys
+    (``layers/0/attn/q_proj/kernel``, kernels ``[in, out]``, a tied table only as
+    ``embed_tokens/embedding``) in the leaves' own types, and ``metadata.json``.
+    LoRA adapters are not ported."""
+    ckpt_dir = os.path.join(out_dir, f"checkpoint-epoch_{epoch}")
+    save_projector(projector_params, projector_cfg, os.path.join(ckpt_dir, "projection_layer"),
+                   tag="best")
+    lm_dir = os.path.join(ckpt_dir, "language_model")
+    os.makedirs(lm_dir, exist_ok=True)
+    if llm_params is not None:
+        from safetensors.torch import save_file
+
+        flat = dict(leaves_with_paths(decoder_params_to_jax(llm_params)))
+        save_file(flat, os.path.join(lm_dir, "model.safetensors"))
+    if metadata is not None:
+        with open(os.path.join(ckpt_dir, "metadata.json"), "w") as f:
+            json.dump(metadata, f, indent=2, default=str)
+    return ckpt_dir

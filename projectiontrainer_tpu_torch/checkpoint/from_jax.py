@@ -10,10 +10,14 @@ Takes a JAX parameter tree whose leaves are numpy arrays (for example
 - the tied embedding table becomes the LM head;
 - the SigLIP dual tower (``siglip_params``) keeps the MAP head, whose probe is a plain
   tensor, and the logit scale and bias as fp32 [1] tensors;
-- a stage-1 train state (``steps.init_state`` plus the optax state of
-  ``optim.single_group_optimizer``) becomes the port's: fp32 projector masters and
-  the ``MaskedAdamW`` state (Adam count and moments, ``MultiSteps`` mini-step and
-  accumulator), keyed by parameter path (``stage1_train_state``).
+- a stage-1 or stage-2 train state (``steps.init_state`` plus the optax state of
+  ``optim.single_group_optimizer``: ``MultiSteps(multi_transform(clip, adamw))``)
+  becomes the port's: the params in their own types (fp32 masters stay fp32) and the
+  ``MaskedAdamW`` state (Adam count and moments, ``MultiSteps`` mini-step and
+  accumulator) of the groups that train, keyed by parameter path
+  (``stage1_train_state``, ``stage2_train_state``);
+- ``decoder_params_to_jax`` is the inverse of ``decoder_params``, for exports that the
+  JAX package reads.
 
 Configs carry across by field name (``config_from_jax``). This module takes numpy
 arrays (optax's named tuples survive ``jax.tree.map(np.asarray, ...)``) and imports
@@ -27,14 +31,17 @@ import dataclasses
 import numpy as np
 import torch
 
-from projectiontrainer_tpu_torch.core.pytree import leaves_with_paths
+from projectiontrainer_tpu_torch.core.pytree import unique_leaves_with_paths
 from projectiontrainer_tpu_torch.models import decoder as dec
 from projectiontrainer_tpu_torch.models import projector as proj
 from projectiontrainer_tpu_torch.models import siglip, vlm
 
 
 def _t(x, device, dtype):
-    return torch.tensor(np.asarray(x)).to(device=device, dtype=dtype)
+    x = np.asarray(x)
+    if x.dtype.name == "bfloat16":  # ml_dtypes' type: torch reads it through fp32
+        return torch.tensor(x.astype(np.float32)).to(device=device, dtype=dtype or torch.bfloat16)
+    return torch.tensor(x).to(device=device, dtype=dtype)
 
 
 def _convert(tree, device, dtype):
@@ -88,6 +95,28 @@ def decoder_params(tree: dict, *, device=None, dtype=None) -> dict:
     return out
 
 
+def decoder_params_to_jax(params: dict) -> dict:
+    """The port's decoder params -> the JAX package's layout, as contiguous CPU tensors
+    in their own types: linear weights ``[out, in]`` become kernels ``[in, out]``, and a
+    tied head is left out (the JAX tree holds the table once, as
+    ``embed_tokens/embedding``)."""
+    tied = params["lm_head"]["weight"] is params["embed_tokens"]["embedding"]
+
+    def conv(tree):
+        if isinstance(tree, dict):
+            if "weight" in tree and tree["weight"].dim() == 2:
+                out = {"kernel": tree["weight"].detach().t()}
+                if "bias" in tree:
+                    out["bias"] = tree["bias"].detach()
+                return {k: v.cpu().contiguous() for k, v in out.items()}
+            return {k: conv(v) for k, v in tree.items() if not (tied and k == "lm_head")}
+        if isinstance(tree, (list, tuple)):
+            return [conv(v) for v in tree]
+        return tree.detach().cpu().contiguous()
+
+    return conv(params)
+
+
 def vlm_params(tree: dict, *, device=None, tower_dtype=None, projector_dtype=None) -> dict:
     return {
         "vision": vision_params(tree["vision"], device=device, dtype=tower_dtype),
@@ -138,24 +167,47 @@ def _find(node, fields):
     return None
 
 
-def stage1_opt_state(opt_state, *, device=None) -> dict:
-    """The optax state of a JAX stage-1 optimizer (numpy leaves) -> the port's
-    ``MaskedAdamW`` state. Only the projector carries state (the frozen leaves are
-    optax ``MaskedNode``s or, in the accumulator, zeros)."""
-    adam = _find(opt_state, ("count", "mu", "nu"))
-    multi = _find(opt_state, ("mini_step", "acc_grads"))
+def _has_array(node) -> bool:
+    """Whether an optax state subtree holds an array (optax's ``MaskedNode``, an empty
+    tuple, stands where a leaf does not train)."""
+    if isinstance(node, dict):
+        return any(_has_array(v) for v in node.values())
+    if isinstance(node, (list, tuple)):
+        return any(_has_array(v) for v in node)
+    return node is not None
+
+
+_GROUPS = {"vision": vision_params, "projector": projector_params, "llm": decoder_params}
+
+
+def _per_leaf(tree, device) -> dict:
+    """A per-leaf optax state tree over a VLM's params -> {port path: tensor} for the
+    groups that hold arrays (each of vision, projector, llm trains whole or not at all;
+    the tower's MAP head, which the VLM path does not run, is left out)."""
+    out = {}
+    for group, sub in tree.items():
+        if group in _GROUPS and _has_array(sub):
+            port = _GROUPS[group](sub, device=device, dtype=None)
+            out.update({f"{group}/{p}": x for p, x in unique_leaves_with_paths(port)})
+    return out
+
+
+def opt_state(state, *, device=None) -> dict:
+    """The optax state of a JAX ``single_group_optimizer`` (numpy leaves) -> the port's
+    ``MaskedAdamW`` state: the Adam count, mu and nu of the trainable leaves, and the
+    ``MultiSteps`` mini-step and accumulator (the JAX accumulator also holds zeros for
+    the frozen leaves; the port's holds the trainable ones)."""
+    adam = _find(state, ("count", "mu", "nu"))
+    multi = _find(state, ("mini_step", "acc_grads"))
     if adam is None:
         raise ValueError("no Adam state (count, mu, nu) in the given optax state")
-
-    def projector(tree):
-        conv = projector_params(tree["projector"], device=device, dtype=torch.float32)
-        return {f"projector/{p}": x for p, x in leaves_with_paths(conv)}
-
+    mu = _per_leaf(adam.mu, device)
     out = {"count": int(np.asarray(adam.count)),
            "mini_step": 0 if multi is None else int(np.asarray(multi.mini_step)),
-           "mu": projector(adam.mu), "nu": projector(adam.nu)}
+           "mu": mu, "nu": _per_leaf(adam.nu, device)}
     if multi is not None:
-        out["acc"] = projector(multi.acc_grads)
+        acc = _per_leaf(multi.acc_grads, device)
+        out["acc"] = {p: acc[p] for p in mu}
     return out
 
 
@@ -164,5 +216,14 @@ def stage1_train_state(state: dict, *, device=None, tower_dtype=None) -> dict:
     -> the port's, with fp32 projector masters and towers in ``tower_dtype``."""
     return {"params": vlm_params(state["params"], device=device, tower_dtype=tower_dtype,
                                  projector_dtype=torch.float32),
-            "opt_state": stage1_opt_state(state["opt_state"], device=device),
+            "opt_state": opt_state(state["opt_state"], device=device),
+            "step": int(np.asarray(state["step"]))}
+
+
+def stage2_train_state(state: dict, *, device=None) -> dict:
+    """A JAX stage-2 train state (numpy leaves), also one saved in the middle of an
+    accumulation or after ``--train_ve_first_epoch``'s swap -> the port's, every leaf
+    in its own type (fp32 masters stay fp32; the tied table stays one tensor)."""
+    return {"params": vlm_params(state["params"], device=device),
+            "opt_state": opt_state(state["opt_state"], device=device),
             "step": int(np.asarray(state["step"]))}

@@ -1,12 +1,14 @@
 """Train-state checkpoints with ``torch.save``: epoch, best, final and step_K.
 
 Counterpart of ``projectiontrainer_tpu/checkpoint/manager.py`` (Orbax) for what stages
-0 and 1 need: ``--resume`` restores the trainable params, the optimizer state and the step
-count of the newest epoch or step checkpoint. A checkpoint holds only the trainable
-leaves (the paths the optimizer state carries), never the frozen towers, which come
-from the model snapshots. Files: ``<dir>/<name>.pt`` with name ``epoch_N``, ``best``,
-``final`` or ``step_K`` (only the newest ``step_K`` is kept); ``manager.json`` records
-the best metric. ``save_periodic`` saves epoch N when N + 1 is a multiple of
+0-2 need: ``--resume`` restores the trained params, the optimizer state and the step
+count of the newest epoch or step checkpoint. A checkpoint holds the leaves named by
+``save_paths``, by default the ones the optimizer state carries; the leaves that never
+train come from the model snapshots. Stage 2 names every leaf that trains at any point
+of the run: after ``--train_ve_first_epoch``'s swap the tower has no optimizer state,
+yet epoch 0 changed it. A tied tensor is saved once, under its first path. Files:
+``<dir>/<name>.pt`` with name ``epoch_N``, ``best``, ``final`` or ``step_K`` (only the
+newest ``step_K`` is kept); ``manager.json`` records the best metric. ``save_periodic`` saves epoch N when N + 1 is a multiple of
 ``save_every_n_epochs`` and N >= ``min_save_epoch``.
 """
 
@@ -16,11 +18,11 @@ import glob
 import json
 import os
 import re
-from typing import Optional
+from typing import Iterable, Optional
 
 import torch
 
-from projectiontrainer_tpu_torch.core.pytree import leaves_with_paths
+from projectiontrainer_tpu_torch.core.pytree import leaves_with_paths, unique_leaves_with_paths
 
 
 def _cpu(x):
@@ -33,8 +35,10 @@ def _cpu(x):
 
 class CheckpointManager:
     def __init__(self, directory: str, *, save_every_n_epochs: int = 1,
-                 min_save_epoch: int = 0, best_mode: str = "min"):
+                 min_save_epoch: int = 0, best_mode: str = "min",
+                 save_paths: Optional[Iterable[str]] = None):
         self.directory = directory
+        self.save_paths = None if save_paths is None else frozenset(save_paths)
         self.save_every_n_epochs = save_every_n_epochs
         self.min_save_epoch = min_save_epoch
         self.best_mode = best_mode
@@ -49,8 +53,8 @@ class CheckpointManager:
         return os.path.join(self.directory, f"{name}.pt")
 
     def _save(self, name: str, state: dict, metadata: Optional[dict] = None):
-        trainable = set(state["opt_state"]["mu"])
-        params = {p: x for p, x in leaves_with_paths(state["params"]) if p in trainable}
+        keep = self.save_paths if self.save_paths is not None else set(state["opt_state"]["mu"])
+        params = {p: x for p, x in unique_leaves_with_paths(state["params"]) if p in keep}
         payload = {"params": _cpu(params), "opt_state": _cpu(state["opt_state"]),
                    "step": int(state["step"]), "metadata": dict(metadata or {})}
         tmp = self._path(name) + ".tmp"

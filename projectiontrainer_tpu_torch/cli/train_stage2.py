@@ -1,0 +1,68 @@
+"""Stage 2 entry: VQA instruction fine-tuning on one device.
+
+Counterpart of ``projectiontrainer_tpu/cli/train_stage2.py`` with the same flags
+(reference: Stage2/train_vqa_stage2.py:82-352), plus ``--device``. The full-joint
+recipe:
+
+    python -m projectiontrainer_tpu_torch.cli.train_stage2 --image_root ... \\
+        --train_json ... --vision_model_name <local dir> --llm_name <local dir> \\
+        --unfreeze_llm --unfreeze_projection_layer --train_ve_first_epoch
+
+Not ported yet, and refused: ``--enable_qlora`` and ``--resume_qlora_adapter_path``
+(LoRA adapters and quantized weights), ``--remat dots``, ``--mesh_data``/
+``--mesh_model`` above 1 and ``--fsdp`` (multi-device runs), and ``--num_loader_procs``
+above 0 (the multi-process feeder).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from projectiontrainer_tpu_torch.core.config import Stage2Config, from_args, parser_for
+from projectiontrainer_tpu_torch.data import datasets
+from projectiontrainer_tpu_torch.train import setup
+from projectiontrainer_tpu_torch.train.trainer_stage2 import Stage2Trainer
+from projectiontrainer_tpu_torch.utils.logging import setup_logging
+
+
+def check_supported(cfg) -> None:
+    if cfg.enable_qlora or cfg.resume_qlora_adapter_path:
+        raise NotImplementedError("--enable_qlora/--resume_qlora_adapter_path: LoRA adapters "
+                                  "and quantized weights are not ported")
+    if cfg.remat == "dots":
+        raise NotImplementedError("--remat dots (save the matmul outputs) is not ported")
+    if cfg.mesh_data > 1 or cfg.mesh_model > 1 or cfg.fsdp:
+        raise NotImplementedError("--mesh_data/--mesh_model above 1 and --fsdp: "
+                                  "multi-device training is not ported")
+    if cfg.num_loader_procs > 0:
+        raise NotImplementedError("--num_loader_procs: the multi-process feeder is not ported")
+
+
+def main(argv=None):
+    cfg = from_args(Stage2Config, parser_for(Stage2Config, __doc__).parse_args(argv))
+    check_supported(cfg)
+    logger = setup_logging()
+    device = torch.device(cfg.device)
+    vlm_cfg, params = setup.build_vlm(cfg.vision_model_name, cfg.llm_name, device=device,
+                                      stage1_projector_path=cfg.stage1_projector_path or None,
+                                      seed=cfg.seed)
+    tokenizer = setup.load_tokenizer(cfg.llm_name)
+
+    def make(path):
+        return datasets.Stage2VQADataset.from_json(
+            path, image_root=cfg.image_root, tokenizer=tokenizer, image_size=cfg.img_size,
+            max_q_len=cfg.max_q_len, max_a_len=cfg.max_a_len, image_root_2=cfg.image_root_2)
+
+    train_data = make(cfg.train_json)
+    val_data = make(cfg.val_json) if cfg.val_json else None
+    trainer = Stage2Trainer(cfg, vlm_cfg=vlm_cfg, params=params, tokenizer=tokenizer,
+                            train_dataset=train_data, val_dataset=val_data)
+    logger.info("starting stage-2 training: %d train / %d val samples on %s", len(train_data),
+                len(val_data) if val_data is not None else 0, device)
+    result = trainer.train()
+    logger.info("done: %s", result)
+    return result
+
+
+if __name__ == "__main__":
+    main()

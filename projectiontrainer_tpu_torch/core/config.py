@@ -1,10 +1,11 @@
 """Config dataclasses with the reference's argparse flag names.
 
-Counterpart of ``projectiontrainer_tpu/core/config.py`` for the stage-0 and stage-1
-paths (``CommonConfig``, ``Stage0Config``, ``Stage1Config``, ``parser_for``,
-``from_args``): the same fields, flag names and defaults, plus the port's ``--device``.
-Flags whose machinery is not ported yet (``--enable_qlora``, ``--mesh_data``/
-``--mesh_model`` above 1, ``--fsdp``) parse as in JAX; the CLIs raise on them.
+Counterpart of ``projectiontrainer_tpu/core/config.py`` for the stage-0, stage-1 and
+stage-2 paths (``CommonConfig``, ``Stage0Config``, ``Stage1Config``, ``Stage2Config``,
+``parser_for``, ``from_args``): the same fields, flag names and defaults, plus the
+port's ``--device``. Flags whose machinery is not ported yet (``--enable_qlora``,
+``--resume_qlora_adapter_path``, ``--remat dots``, ``--mesh_data``/``--mesh_model``
+above 1, ``--fsdp``) parse as in JAX; the CLIs raise on them.
 """
 
 from __future__ import annotations
@@ -83,6 +84,61 @@ class Stage1Config(CommonConfig):
     grad_clip: float = 5.0
     learning_rate: float = 1e-4
     num_epochs: int = 10
+
+
+@dataclasses.dataclass
+class Stage2Config(CommonConfig):
+    """VQA instruction fine-tuning (reference flags: Stage2/train_vqa_stage2.py:83-118)."""
+
+    vision_model_name: str = ""
+    llm_name: str = ""
+    stage1_projector_path: str = ""
+    max_q_len: int = 128
+    max_a_len: int = 512
+    enable_qlora: bool = False       # quantized base LLM + LoRA adapters (not ported)
+    quant_method: str = "nf4-mirror"
+    unfreeze_projection_layer: bool = False
+    unfreeze_llm: bool = False
+    # the vision tower trains in epoch 0 and is frozen from epoch 1 on
+    train_ve_first_epoch: bool = False
+    resume_qlora_adapter_path: Optional[str] = None  # not ported
+    lora_r: int = 16
+    lora_alpha: int = 32
+    lora_dropout: float = 0.05
+    grad_clip: float = 1.0
+    # storage type of the full-joint trainables (the LLM, and the tower under
+    # --train_ve_first_epoch) and so of their Adam moments: 'fp32' masters (the
+    # reference's fidelity) or 'bf16' (half the memory)
+    master_dtype: str = "fp32"
+    # activation recompute in the backward: 'full' (the reference's gradient
+    # checkpointing), 'none', an integer N (the first N decoder layers; the tower
+    # recomputes all of its layers) or 'dots' (not ported)
+    remat: str = "full"
+    num_epochs: int = 5
+    batch_size: int = 1
+    warmup_ratio: float = 0.05
+    gradient_accumulation_steps: int = 8
+    # generation eval: the reference's beam-multinomial sampling (do_sample, 3 beams,
+    # top_p 0.9, top_k 50; Stage2/trainer.py:604-614), max_new lowered for eval time
+    eval_max_new_tokens: int = 128
+    eval_num_beams: int = 3
+    eval_do_sample: bool = True
+    eval_top_p: float = 0.9
+    eval_top_k: int = 50
+    # None: examples for the whole eval set (the reference's behaviour); an int caps the
+    # number of generation batches
+    eval_example_batches: Optional[int] = None
+
+    def freeze_policy(self):
+        """Derived policy (reference: Stage2/train_vqa_stage2.py:121-134)."""
+        from projectiontrainer_tpu_torch.train.masks import Stage2Freeze
+
+        return Stage2Freeze(
+            train_llm=self.unfreeze_llm and not self.enable_qlora,
+            use_lora=self.enable_qlora,
+            train_projector=self.unfreeze_projection_layer,
+            train_vision=self.train_ve_first_epoch,
+        )
 
 
 @dataclasses.dataclass

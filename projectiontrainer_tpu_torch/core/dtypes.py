@@ -17,12 +17,20 @@ def cast_compute_params(tree, compute_dtype):
     """Cast the floating leaves of a params tree to ``compute_dtype``, leaving
     quantized scale tensors and integer storage as they are. The cast is
     differentiable: gradients flow back through it into the fp32 master leaves. A
-    leaf already of ``compute_dtype`` is returned as is (no copy)."""
+    leaf already of ``compute_dtype`` is returned as is (no copy).
+
+    Ties survive: a tensor held under two paths (the tied LM head) is cast once and
+    the copy is held under both, so its two uses add their gradients into the one
+    master and the tree stays tied (``core/pytree.py``)."""
+    done = {}
+
     def cast(path, x):
         if path.rsplit("/", 1)[-1] in _KEEP_F32_KEYS:
             return x
         if isinstance(x, torch.Tensor) and x.is_floating_point():
-            return x.to(compute_dtype)
+            if id(x) not in done:
+                done[id(x)] = (x, x.to(compute_dtype))  # x kept: its id stays unique
+            return done[id(x)][1]
         return x
 
     return map_with_path(cast, tree)

@@ -3,6 +3,12 @@
 Counterpart of ``projectiontrainer_tpu/core/pytree.py:path_str`` for the port's trees
 (``projector/fc1/weight``, ``llm/layers/3/attn/q_proj/weight``): the freezing masks,
 the optimizer state and the checkpoints key their leaves by these paths.
+
+A tree may hold one tensor under two paths: a decoder with a tied head carries
+``llm/lm_head/weight`` as the very tensor of ``llm/embed_tokens/embedding`` (the JAX
+tree has no ``lm_head`` then). ``unique_leaves_with_paths`` yields such a tensor once,
+under its first path (the embedding's, which is also its JAX path), so it gets one
+gradient, one optimizer state and one share of every norm.
 """
 
 from __future__ import annotations
@@ -32,3 +38,13 @@ def map_with_path(fn: Callable[[str, object], object], tree, prefix: str = ""):
         return [map_with_path(fn, v, f"{prefix}/{i}" if prefix else str(i))
                 for i, v in enumerate(tree)]
     return fn(prefix, tree)
+
+
+def unique_leaves_with_paths(tree) -> Iterator[tuple[str, object]]:
+    """``leaves_with_paths`` with each object once, under the first path holding it."""
+    seen = set()
+    for path, leaf in leaves_with_paths(tree):
+        if id(leaf) not in seen:
+            seen.add(id(leaf))
+            yield path, leaf
+

@@ -8,6 +8,9 @@ Counterpart of ``projectiontrainer_tpu/data/pipeline.py`` (which imports jax):
 - ``map_samples``: ``dataset[i]`` on a thread pool, in order;
 - ``epoch_batches``: shard -> decode -> ``fixed_batcher`` (``data/bucketing.py``: a straggler batch is filled by repeating samples,
   with ``sample_weight`` 0 on the filler rows) -> ``device_prefetch``;
+- ``planned_epoch_batches``: stage 2's global bucket plan (``bucketing.global_bucket_plan``)
+  -> this process's slice of each planned batch, questions and answers padded to the
+  batch's buckets, ``sample_weight`` 0 on the plan's filler rows -> ``device_prefetch``;
 - ``device_prefetch`` replaces ``jax.device_put`` double buffering: a feeder thread
   copies each batch into pinned host memory and on to the card on a side CUDA
   stream, ``size`` batches ahead; the consumer's stream waits on the copy's event.
@@ -24,7 +27,7 @@ from typing import Iterable, Iterator, Optional
 import numpy as np
 import torch
 
-from projectiontrainer_tpu_torch.data.bucketing import fixed_batcher
+from projectiontrainer_tpu_torch.data.bucketing import fixed_batcher, pad_to
 
 
 def process_index_count() -> tuple[int, int]:
@@ -127,3 +130,38 @@ def epoch_batches(dataset, *, batch_size: int, epoch: int, device, seed: int = 0
     samples = map_samples(dataset, indices, num_workers=num_workers)
     yield from device_prefetch(fixed_batcher(samples, batch_size), device=device,
                                size=prefetch)
+
+
+def planned_epoch_batches(dataset, plan, *, pad_id: int, device, num_workers: int = 8,
+                          prefetch: int = 2) -> Iterator[dict]:
+    """Execute a global bucket plan (a list of ``bucketing.PlannedBatch``, the same in
+    every process): this process fetches its contiguous ``1/process_count`` slice of
+    each planned batch, right-pads questions and answers to the batch's buckets and
+    weights the plan's filler rows 0; the batches go to ``device`` through
+    ``device_prefetch``."""
+    pi, pc = process_index_count()
+
+    def local_batches():
+        slices = []
+        for pb in plan:
+            if len(pb.indices) % pc:
+                raise ValueError(f"planned global batch {len(pb.indices)} not divisible by "
+                                 f"process count {pc}")
+            lbs = len(pb.indices) // pc
+            slices.append((pb, pb.indices[pi * lbs:(pi + 1) * lbs], lbs))
+        flat = np.concatenate([idx for _, idx, _ in slices]) if slices else np.zeros(0, int)
+        samples = map_samples(dataset, flat, num_workers=num_workers)
+        for pb, _, lbs in slices:
+            rows = [next(samples) for _ in range(lbs)]
+            # global row j is real iff j < n_real; this process holds rows pi*lbs + k
+            weight = (pi * lbs + np.arange(lbs) < pb.n_real).astype(np.float32)
+            yield {
+                "pixel_values": np.stack([r["pixel_values"] for r in rows]),
+                "question_ids": np.stack([pad_to(r["question_ids"], pb.q_bucket, pad_id)
+                                             for r in rows]),
+                "answer_ids": np.stack([pad_to(r["answer_ids"], pb.a_bucket, pad_id)
+                                           for r in rows]),
+                "sample_weight": weight,
+            }
+
+    yield from device_prefetch(local_batches(), device=device, size=prefetch)

@@ -3,7 +3,8 @@ generation.
 
 Counterpart of ``projectiontrainer_tpu/models/vlm.py``. The visual tokens are the
 tower's last hidden state with patch 0 dropped (the reference's "discard CLS" quirk,
-kept on purpose), projected into the decoder's embedding space. Stage 1's sequence is
+kept on purpose), projected into the decoder's embedding space; the tower trains when
+any of its leaves requires grad (stage 2's epoch 0). Stage 1's sequence is
 [visual; caption], labels -100 on the visual tokens and on caption padding, the
 attention mask ones on the visual tokens and ``caption != pad`` after them.
 """
@@ -11,6 +12,7 @@ attention mask ones on the visual tokens and ``caption != pad`` after them.
 from __future__ import annotations
 
 import dataclasses
+from typing import Union
 
 import torch
 
@@ -48,19 +50,19 @@ def init(gen: torch.Generator, cfg: VLMConfig, *, device=None,
     }
 
 
-def visual_embeds(params, cfg: VLMConfig, pixel_values: torch.Tensor) -> torch.Tensor:
+def visual_embeds(params, cfg: VLMConfig, pixel_values: torch.Tensor, *,
+                  remat: Union[bool, int] = False) -> torch.Tensor:
     """[B, H, W, C] pixels -> projected visual embeddings [B, V, llm_dim].
 
-    The tower is frozen: it runs under ``torch.no_grad`` in its stored type (pixels
-    are cast to it), so only the projector is differentiable here. A tower parameter
-    that requires grad raises: the stages that train the tower inside the VLM (stage
-    2's ``--train_ve_first_epoch``) are not ported."""
-    if any(x.requires_grad for _, x in leaves_with_paths(params["vision"])):
-        raise NotImplementedError("training the vision tower inside the VLM is not ported")
+    The tower runs in its stored type (pixels are cast to it). A frozen tower runs
+    under ``torch.no_grad``; when any tower leaf requires grad (stage 2's
+    ``--train_ve_first_epoch``, epoch 0) it runs with autograd, ``remat`` recomputing
+    its layers in the backward (``siglip.vision_forward``)."""
+    trains = any(x.requires_grad for _, x in leaves_with_paths(params["vision"]))
     w = params["vision"]["patch_embedding"]["weight"]
-    with torch.no_grad(), span("tower"):
+    with torch.set_grad_enabled(trains and torch.is_grad_enabled()), span("tower"):
         hidden, _ = siglip.vision_forward(params["vision"], cfg.vision,
-                                          pixel_values.to(w.dtype))
+                                          pixel_values.to(w.dtype), remat=remat)
     if cfg.drop_first_patch:
         hidden = hidden[:, 1:, :]
     with span("projector"):
@@ -97,6 +99,14 @@ def build_sequence(params, cfg: VLMConfig, visual: torch.Tensor, *, pad_token_id
         labels.append(torch.where(ids == pad_token_id, IGNORE_INDEX, ids) if supervised
                       else torch.full_like(ids, IGNORE_INDEX))
     return torch.cat(embeds, dim=1), torch.cat(masks, dim=1), torch.cat(labels, dim=1)
+
+
+def forward_logits(params, cfg: VLMConfig, inputs_embeds, attention_mask, *,
+                   remat: Union[bool, int] = False) -> torch.Tensor:
+    """The decoder over a built sequence -> fp32 logits [B, T, V]."""
+    hidden, _ = dec.forward(params["llm"], cfg.llm, inputs_embeds=inputs_embeds,
+                            attention_mask=attention_mask, remat=remat)
+    return dec.logits(params["llm"], cfg.llm, hidden)
 
 
 @torch.no_grad()

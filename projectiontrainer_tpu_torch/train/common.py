@@ -46,6 +46,16 @@ def feed(dataset, cfg: CommonConfig, *, epoch: int, shuffle: bool = True) -> Ite
                                   num_workers=cfg.num_workers)
 
 
+def left_align_padding(ids, pad_id: int) -> np.ndarray:
+    """Each row reordered so its pad tokens come first (left padding), the tokens'
+    order kept: a generation prefix must end on a real token, because decoding reads
+    the next token's logits at the last slot (the reference forces
+    ``padding_side='left'`` for generation, Stage2/trainer.py:499-505)."""
+    ids = np.asarray(ids)
+    order = np.argsort(ids != pad_id, axis=1, kind="stable")
+    return np.take_along_axis(ids, order, axis=1)
+
+
 def to_host(x) -> np.ndarray:
     """A tensor (any device) as a numpy array."""
     if isinstance(x, torch.Tensor):

@@ -1,7 +1,9 @@
 """Freezing policies as label trees over the params.
 
-Counterpart of ``projectiontrainer_tpu/train/masks.py`` for stages 0 and 1:
+Counterpart of ``projectiontrainer_tpu/train/masks.py`` for stages 0, 1 and 2:
 ``stage1_labels`` (train the projector, freeze the vision tower and the LLM),
+``Stage2Freeze`` and ``stage2_labels`` (any subset of LLM or LoRA, projector and
+tower; ``--train_ve_first_epoch`` swaps two label trees at the epoch-0 boundary),
 ``stage0_labels`` (train the dual tower but for the frozen text tower, logit scale and
 first vision layers) and ``bool_mask``. The train step turns the mask into
 ``requires_grad`` flags: only trainable leaves get gradients and optimizer state.
@@ -9,6 +11,7 @@ first vision layers) and ``bool_mask``. The train step turns the mask into
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Mapping, Optional
 
 from projectiontrainer_tpu_torch.core.pytree import map_with_path
@@ -21,6 +24,31 @@ def stage1_labels(params) -> Mapping:
     """Train the projector; freeze the vision tower and the LLM."""
     return map_with_path(lambda p, _: TRAINABLE if p.startswith("projector/") else FROZEN,
                          params)
+
+
+@dataclasses.dataclass(frozen=True)
+class Stage2Freeze:
+    """Derived freeze policy (reference: Stage2/train_vqa_stage2.py:121-134)."""
+
+    train_llm: bool = True          # full LLM fine-tune (ignored when use_lora)
+    use_lora: bool = False          # LoRA adapters are the only trainable LLM params
+    train_projector: bool = False   # --unfreeze_projection_layer
+    train_vision: bool = False      # epoch-0 state of --train_ve_first_epoch
+
+
+def stage2_labels(params, policy: Stage2Freeze) -> Mapping:
+    def label(p: str, _) -> str:
+        if p.startswith("projector/"):
+            return TRAINABLE if policy.train_projector else FROZEN
+        if p.startswith("vision/"):
+            return TRAINABLE if policy.train_vision else FROZEN
+        if "/lora/" in p or p.startswith("lora/"):
+            return TRAINABLE if policy.use_lora else FROZEN
+        if p.startswith("llm/"):
+            return TRAINABLE if (policy.train_llm and not policy.use_lora) else FROZEN
+        return FROZEN
+
+    return map_with_path(label, params)
 
 
 def stage0_labels(params, *, freeze_text: bool = True, freeze_logit_scale: bool = True,

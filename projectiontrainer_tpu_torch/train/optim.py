@@ -1,6 +1,6 @@
 """The reference's training recipe with optax's exact formulas, for PyTorch tensors.
 
-Counterpart of ``projectiontrainer_tpu/train/optim.py`` for stage 1:
+Counterpart of ``projectiontrainer_tpu/train/optim.py`` for stages 0-2:
 
 - ``cosine_schedule_with_warmup``: HF ``get_cosine_schedule_with_warmup`` semantics,
   warmup steps ``ceil(warmup_ratio * total_steps)`` (``floor`` on request);
@@ -10,6 +10,8 @@ Counterpart of ``projectiontrainer_tpu/train/optim.py`` for stage 1:
 - global-norm clipping over the trainable leaves with optax's
   ``clip_by_global_norm`` formula: unchanged when ``norm < max_norm``, else
   ``g / norm * max_norm`` (not ``torch.nn.utils.clip_grad_norm_``'s ``+ 1e-6``);
+  or stage 2's per-module clipping (``clip_per_module``), whose factor is
+  ``min(1, max_norm / (norm + 1e-6))``;
 - gradient accumulation as ``optax.MultiSteps``: a running mean of the micro-batch
   gradients, one update every ``accum_steps`` calls, nothing in between;
 - frozen leaves (label ``frozen``) get no state and never change.
@@ -26,7 +28,7 @@ from typing import Callable, Mapping, Optional
 
 import torch
 
-from projectiontrainer_tpu_torch.core.pytree import leaves_with_paths
+from projectiontrainer_tpu_torch.core.pytree import leaves_with_paths, unique_leaves_with_paths
 from projectiontrainer_tpu_torch.train import masks as M
 
 
@@ -52,76 +54,135 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 class MaskedAdamW:
-    """optax ``multi_transform({trainable: chain(clip_by_global_norm, adamw),
-    frozen: set_to_zero})``, wrapped in ``MultiSteps`` when ``accum_steps > 1``."""
+    """optax ``multi_transform({trainable: chain(clip, adamw), frozen: set_to_zero})``,
+    wrapped in ``MultiSteps`` when ``accum_steps > 1``. The clip is optax's
+    ``clip_by_global_norm`` or, with ``clip_per_module``, the JAX package's
+    ``clip_by_module_norm`` (each group of leaves under one first path segment,
+    ``vision``, ``projector``, ``llm``, scaled by ``min(1, max_norm / (norm + 1e-6))``).
+
+    Moments and the accumulator take each leaf's type, as optax's ``zeros_like`` does
+    (fp32 masters: fp32 state; bf16 leaves: bf16 state), and each of optax's
+    operations rounds to that type, as in JAX. A leaf held under two paths (the tied LM
+    head) has one state, under its first path (``core/pytree.py``)."""
 
     def __init__(self, labels: Mapping, schedule: Callable[[int], float], *,
                  weight_decay: float = 0.01, clip_norm: Optional[float] = None,
-                 accum_steps: int = 1, b1: float = 0.9, b2: float = 0.999,
-                 eps: float = 1e-8):
+                 clip_per_module: bool = False, accum_steps: int = 1, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8):
         self.trainable = [p for p, label in leaves_with_paths(labels) if label != M.FROZEN]
         self.schedule = schedule
         self.weight_decay = weight_decay
         self.clip_norm = clip_norm
+        self.clip_per_module = clip_per_module
         self.accum_steps = accum_steps
         self.b1, self.b2, self.eps = b1, b2, eps
 
-    def init(self, params) -> dict:
+    def init(self, params, carry: Optional[dict] = None) -> dict:
+        """Zero state for the trainable leaves. ``carry`` (another ``MaskedAdamW``'s
+        state) hands over its count and mini-step and each tensor whose path, shape and
+        type are unchanged (``steps.swap_optimizer``)."""
+        unique = {p for p, _ in unique_leaves_with_paths(params)}
+        trainable = [p for p in self.trainable if p in unique]
         leaves = dict(leaves_with_paths(params))
-        zeros = lambda: {p: torch.zeros_like(leaves[p], dtype=torch.float32)  # noqa: E731
-                         for p in self.trainable}
-        state = {"count": 0, "mini_step": 0, "mu": zeros(), "nu": zeros()}
+        carry = carry or {}
+
+        def slots(key):
+            old = carry.get(key, {})
+            out = {}
+            for p in trainable:
+                x, o = leaves[p], old.get(p)
+                keep = o is not None and o.shape == x.shape and o.dtype == x.dtype
+                out[p] = o if keep else torch.zeros_like(x)
+            return out
+
+        state = {"count": carry.get("count", 0), "mini_step": carry.get("mini_step", 0),
+                 "mu": slots("mu"), "nu": slots("nu")}
         if self.accum_steps > 1:
-            state["acc"] = zeros()
+            state["acc"] = slots("acc")
         return state
 
     @torch.no_grad()
     def update(self, grads: Mapping[str, torch.Tensor], state: dict, params) -> bool:
-        """Apply one micro-step's gradients (keyed by path, trainable leaves only);
-        returns whether the params changed (False between accumulation boundaries)."""
+        """Apply one micro-step's gradients (keyed by path; those of the leaves the
+        state holds are read); returns whether the params changed (False between
+        accumulation boundaries)."""
+        trainable = list(state["mu"])
         if self.accum_steps > 1:
             n = state["mini_step"]
-            for p in self.trainable:
+            for p in trainable:
                 acc = state["acc"][p]
-                acc.add_((grads[p].float() - acc) / (n + 1))
+                acc.add_((grads[p].to(acc.dtype) - acc).div_(n + 1))
             if n < self.accum_steps - 1:
                 state["mini_step"] = n + 1
                 return False
             state["mini_step"] = 0
-            grads = {p: state["acc"][p].clone() for p in self.trainable}
+            grads = {p: state["acc"][p].clone() for p in trainable}
             for acc in state["acc"].values():
                 acc.zero_()
-        self._apply({p: grads[p].float() for p in self.trainable}, state, params)
+        self._apply({p: grads[p] for p in trainable}, state, params)
         return True
 
-    def _apply(self, grads: dict, state: dict, params) -> None:
-        if self.clip_norm is not None:  # selected on the device: no host sync
+    def _clip(self, grads: dict) -> dict:
+        """Selected on the device: no host sync."""
+        if not self.clip_per_module:
             norm = global_norm(grads.values())
             keep = norm < self.clip_norm
-            grads = {p: torch.where(keep, g, g / norm * self.clip_norm)
-                     for p, g in grads.items()}
+            return {p: torch.where(keep, g.float(), g.float() / norm * self.clip_norm)
+                    for p, g in grads.items()}
+        groups: dict = {}
+        for p, g in grads.items():
+            groups.setdefault(p.split("/", 1)[0], []).append(g)
+        factor = {k: torch.clamp(self.clip_norm / (global_norm(gs) + 1e-6), max=1.0)
+                  for k, gs in groups.items()}
+        return {p: (g.float() * factor[p.split("/", 1)[0]]).to(g.dtype)
+                for p, g in grads.items()}
+
+    def _apply(self, grads: dict, state: dict, params) -> None:
+        if self.clip_norm is not None:
+            grads = self._clip(grads)
         lr = self.schedule(state["count"])
         state["count"] += 1
         t = state["count"]
         leaves = dict(leaves_with_paths(params))
+        consts = {}
         for p, g in grads.items():
             mu, nu, x = state["mu"][p], state["nu"][p], leaves[p]
-            mu.mul_(self.b1).add_(g, alpha=1 - self.b1)
-            nu.mul_(self.b2).addcmul_(g, g, value=1 - self.b2)
-            mu_hat = mu / (1 - self.b1 ** t)
-            nu_hat = nu / (1 - self.b2 ** t)
-            u = mu_hat / (nu_hat.sqrt() + self.eps) + self.weight_decay * x.float()
-            x.copy_((x.float() - lr * u).to(x.dtype))
+            if mu.dtype not in consts:
+                consts[mu.dtype] = _constants(
+                    mu.dtype, b1=self.b1, omb1=1 - self.b1, b2=self.b2, omb2=1 - self.b2,
+                    c1=1 - self.b1 ** t, c2=1 - self.b2 ** t, eps=self.eps,
+                    wd=self.weight_decay, neg_lr=-lr)
+            k = consts[mu.dtype]
+            g = g.to(mu.dtype)
+            if mu.dtype == torch.float32:  # fused forms: fewer passes, fp32 all the same
+                mu.mul_(k["b1"]).add_(g, alpha=k["omb1"])
+                nu.mul_(k["b2"]).addcmul_(g, g, value=k["omb2"])
+            else:  # optax rounds each product and the sum to the leaf's type
+                mu.mul_(k["b1"]).add_(k["omb1"] * g)
+                nu.mul_(k["b2"]).add_(k["omb2"] * (g * g))
+            u = (mu / k["c1"]).div_((nu / k["c2"]).sqrt_().add_(k["eps"]))
+            u.add_(k["wd"] * x)
+            x.add_(u.mul_(k["neg_lr"]))
+
+
+def _constants(dtype, **values) -> dict:
+    """optax's scalars as they meet a leaf of ``dtype``: JAX rounds a Python float to
+    the array's type before the operation (0.1 becomes 0.10009765625 in bf16), so for
+    a reduced-precision leaf they are 0-dim tensors of that type; in fp32 the floats
+    themselves, which torch also applies in fp32."""
+    if dtype == torch.float32:
+        return values
+    return {k: torch.tensor(v, dtype=torch.float32).to(dtype) for k, v in values.items()}
 
 
 def single_group_optimizer(labels: Mapping, lr: float, *, total_steps: int,
                            warmup_ratio: float = 0.0, weight_decay: float = 0.01,
-                           clip_norm: Optional[float] = None, accum_steps: int = 1,
-                           warmup_rounding: str = "ceil"):
+                           clip_norm: Optional[float] = None, clip_per_module: bool = False,
+                           accum_steps: int = 1, warmup_rounding: str = "ceil"):
     """One trainable group + frozen rest -> (tx, schedule)."""
     schedule = cosine_schedule_with_warmup(lr, warmup_ratio=warmup_ratio,
                                            total_steps=total_steps,
                                            warmup_rounding=warmup_rounding)
     tx = MaskedAdamW(labels, schedule, weight_decay=weight_decay, clip_norm=clip_norm,
-                     accum_steps=accum_steps)
+                     clip_per_module=clip_per_module, accum_steps=accum_steps)
     return tx, schedule

@@ -1,11 +1,13 @@
-"""Train and eval steps for stages 0 and 1.
+"""Train and eval steps for stages 0, 1 and 2.
 
 Counterpart of ``projectiontrainer_tpu/train/steps.py``: ``stage1_loss`` rebuilds the
-reference's [visual; caption] CLM loss, ``stage0_loss`` the SigLIP pairwise loss over
-the dual tower, ``make_train_step`` differentiates either with
-respect to the trainable leaves only and applies the masked AdamW update, and
-``make_eval_step`` runs the loss without gradients. Where JAX returns a new state,
-the port updates the params and optimizer state in place and returns the same dict.
+reference's [visual; caption] CLM loss, ``stage2_loss`` the [visual; question; answer]
+answer-only CLM loss, ``stage0_loss`` the SigLIP pairwise loss over the dual tower,
+``make_train_step`` differentiates any of them with respect to the trainable leaves
+only and applies the masked AdamW update, ``swap_optimizer`` rebuilds the optimizer
+state at a freeze-mask swap keeping what survives, and ``make_eval_step`` runs the
+loss without gradients. Where JAX returns a new state, the port updates the params
+and optimizer state in place and returns the same dict.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from typing import Callable, Optional
 import torch
 
 from projectiontrainer_tpu_torch.core import dtypes
-from projectiontrainer_tpu_torch.core.pytree import leaves_with_paths
+from projectiontrainer_tpu_torch.core.pytree import leaves_with_paths, unique_leaves_with_paths
 from projectiontrainer_tpu_torch.models import decoder as dec
 from projectiontrainer_tpu_torch.models import siglip, vlm
 from projectiontrainer_tpu_torch.train import losses
@@ -27,6 +29,18 @@ def init_state(params, tx) -> dict:
     return {"params": params, "opt_state": tx.init(params), "step": 0}
 
 
+def swap_optimizer(state: dict, new_tx) -> dict:
+    """The optimizer state for ``new_tx`` (the next freeze mask), carrying the Adam
+    count, the accumulation mini-step and every moment and accumulator slot whose path,
+    shape and type are unchanged: the groups that still train keep their moments and
+    bias correction (the reference keeps one AdamW across the ``requires_grad`` flip,
+    Stage2/trainer.py:267-289), also when the swap falls inside an accumulation; the
+    newly frozen leaves' state is dropped."""
+    return {"params": state["params"],
+            "opt_state": new_tx.init(state["params"], carry=state["opt_state"]),
+            "step": state["step"]}
+
+
 def make_train_step(loss_fn: Callable, tx, *, trainable_mask=None,
                     watch_subtree: Optional[str] = None):
     """loss_fn(params, batch, rng) -> (loss, aux). Returns
@@ -34,7 +48,9 @@ def make_train_step(loss_fn: Callable, tx, *, trainable_mask=None,
 
     Only the leaves that ``trainable_mask`` marks True (every floating leaf when it is
     None) get ``requires_grad``: the backward computes no weight gradient for a frozen
-    leaf, while gradients still flow through frozen activations to the projector.
+    leaf, while gradients still flow through frozen activations to the projector. A
+    tensor held under two paths (the tied LM head) is one trainable leaf, under its
+    first path: one gradient, the sum of both uses.
     ``aux['grad_norm']`` is the global norm of the raw gradients of the trainable
     leaves; ``watch_subtree`` (a top-level key such as ``'projector'``) adds that
     subtree's gradients, keyed by their paths inside it, as ``aux['watched_grads']``."""
@@ -43,7 +59,7 @@ def make_train_step(loss_fn: Callable, tx, *, trainable_mask=None,
     def step(state, batch, rng=None):
         params = state["params"]
         train = []
-        for path, x in leaves_with_paths(params):
+        for path, x in unique_leaves_with_paths(params):
             on = x.is_floating_point() if mask is None else bool(mask[path])
             x.requires_grad_(on)
             if on:
@@ -155,6 +171,51 @@ def stage1_loss(cfg: vlm.VLMConfig, pad_token_id: int, *, remat=True,
             params, cfg, embeds, mask, labels, remat=remat, logits_chunk=logits_chunk,
             sample_weights=batch.get("sample_weight"), ce_impl=impl,
             loss_prefix=visual.shape[1],  # visual labels are statically -100
+        )
+        return loss, {"tokens": n_tok}
+
+    return loss_fn
+
+
+# ---------------------------------------------------------------------------- stage 2
+
+
+def _vis_remat(remat):
+    """An integer (partial) remat names decoder layers; the tower then recomputes all
+    of its layers (``train/steps.py:_vis_remat`` of the JAX package)."""
+    return True if isinstance(remat, int) and not isinstance(remat, bool) else remat
+
+
+def stage2_loss(cfg: vlm.VLMConfig, pad_token_id: int, *, remat=True,
+                logits_chunk: Optional[int] = None, ce_impl: str = "auto",
+                table_frozen: bool = False, compute_dtype=None):
+    """[visual; question; answer] answer-masked CLM loss (reference:
+    Stage2/trainer.py:306-418). batch: {'pixel_values' [B, H, W, C], 'question_ids'
+    [B, Tq], 'answer_ids' [B, Ta], 'sample_weight'?}, questions and answers
+    right-padded to their buckets.
+
+    Only answer tokens are supervised, so the head and CE run on the answer region
+    alone (``loss_prefix`` = visual + question tokens). ``table_frozen`` says whether
+    the vocab table is frozen: a training table gets the chunked CE under 'auto', and
+    'fused' raises. The tower runs with autograd when any of its leaves requires grad
+    (``--train_ve_first_epoch``'s epoch 0). LoRA is not ported."""
+    _resolve_ce_impl(ce_impl, table_frozen=table_frozen, hidden_size=cfg.llm.hidden_size)
+
+    def loss_fn(params, batch, rng=None):
+        del rng  # drives LoRA dropout in the JAX package
+        if compute_dtype is not None:
+            params = dtypes.cast_compute_params(params, compute_dtype)
+        visual = vlm.visual_embeds(params, cfg, batch["pixel_values"], remat=_vis_remat(remat))
+        embeds, mask, labels = vlm.build_sequence(
+            params, cfg, visual, pad_token_id=pad_token_id,
+            question_ids=batch["question_ids"], answer_ids=batch["answer_ids"])
+        impl = _resolve_ce_impl(ce_impl, table_frozen=table_frozen,
+                                hidden_size=cfg.llm.hidden_size, on_card=embeds.is_cuda)
+        loss, n_tok = _clm_loss_from_embeds(
+            params, cfg, embeds, mask, labels, remat=remat, logits_chunk=logits_chunk,
+            sample_weights=batch.get("sample_weight"), ce_impl=impl,
+            # visual and question labels are statically -100
+            loss_prefix=visual.shape[1] + batch["question_ids"].shape[1],
         )
         return loss, {"tokens": n_tok}
 

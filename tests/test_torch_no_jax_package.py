@@ -46,8 +46,9 @@ def test_entry_points_load_nothing_of_the_jax_package():
     code = (
         "import sys\n"
         "from projectiontrainer_tpu_torch.cli import (infer_vqa_stage2, serve, train_stage0,\n"
-        "                                             train_stage1)\n"
-        "from projectiontrainer_tpu_torch.train import trainer_stage0, trainer_stage1\n"
+        "                                             train_stage1, train_stage2)\n"
+        "from projectiontrainer_tpu_torch.train import (trainer_stage0, trainer_stage1,\n"
+        "                                               trainer_stage2)\n"
         "from projectiontrainer_tpu_torch.data import pipeline\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"

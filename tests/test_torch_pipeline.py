@@ -170,3 +170,50 @@ def test_kernel_family_of_a_trace_name(name, family):
     from projectiontrainer_tpu_torch.utils.timing import kernel_family
 
     assert kernel_family(name) == family
+
+
+class QADataset:
+    """Stage-2 samples whose question and answer lengths vary with i and carry i."""
+
+    def __init__(self, n):
+        self.q_lens = np.array([3 + i % 5 for i in range(n)])
+        self.a_lens = np.array([2 + (7 * i) % 11 for i in range(n)])
+
+    def __len__(self):
+        return len(self.q_lens)
+
+    def token_lengths(self):
+        return self.q_lens, self.a_lens
+
+    def __getitem__(self, i):
+        return {"pixel_values": np.full((2, 2, 3), i, np.float32),
+                "question_ids": np.full(self.q_lens[i], i + 1, np.int32),
+                "answer_ids": np.full(self.a_lens[i], i + 2, np.int32)}
+
+
+@pytest.mark.parametrize("n,batch,workers", [(11, 3, 1), (16, 4, 2), (5, 8, 2)])
+def test_planned_epoch_batches_match_jax(n, batch, workers):
+    """Stage 2's bucket plan run by both pipelines: the same batches, padded to the same
+    buckets, with the same filler weights (exact)."""
+    from projectiontrainer_tpu_torch.data import bucketing
+
+    data = QADataset(n)
+    plan = bucketing.global_bucket_plan(*data.token_lengths(), batch_size=batch, epoch=1,
+                                        seed=3, q_buckets=(4, 8), a_buckets=(4, 8, 16))
+    ours = list(P.planned_epoch_batches(data, plan, pad_id=0, device="cpu",
+                                        num_workers=workers))
+    theirs = list(JP.planned_epoch_batches(data, plan, pad_id=0, num_workers=workers,
+                                           transform=lambda b: b))
+    assert len(ours) == len(theirs) == len(plan)
+    for a, b in zip(ours, theirs):
+        assert set(a) == set(b) == {"pixel_values", "question_ids", "answer_ids", "sample_weight"}
+        for k in a:
+            np.testing.assert_array_equal(a[k].numpy(), np.asarray(b[k]))
+
+
+def test_left_align_padding_matches_jax():
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, 4, size=(6, 9)).astype(np.int32)
+    left = common.left_align_padding(ids, 0)
+    np.testing.assert_array_equal(left, JC.left_align_padding(ids, 0))
+    assert (left[(ids != 0).any(1), -1] != 0).all()  # a row with a token ends on one
