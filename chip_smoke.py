@@ -33,6 +33,10 @@ Phases, each printing one JSON line; any failure raises, so the exit code is not
    K1/K4/K5 over the decoder's longest bucket ([1,1215,4|1,256], causal, window 512,
    the question's and the answer's padding masked) and K8 over the tower's rows
    ([576,1024]).
+   Qwen3-8B's shapes (the QLoRA path of phases 11-13): K1/K4/K5 at [4,1855,32|8,128]
+   (575 visual + 256 question + 1024 answer tokens, causal, each row's question and
+   answer right-padded), K3 at head dim 128 with GQA 32/8 (batch 8 and 1, 3 beams,
+   P = 831, G = 32, no window), K6/K7 at [4096,4096] x [151936,4096].
    The CE's table is scaled for a peaked softmax and its upstream gradient differs
    per row, so a kernel that loses a vocab split or a row's weight fails. Device
    times of kernel and plain (CUDA events around 10 launches queued behind a spinning
@@ -98,9 +102,36 @@ Phases, each printing one JSON line; any failure raises, so the exit code is not
    the key-projection biases by their noise (at most 3x plain's), and the decoder's q/k
    RMSNorm scales, whose bf16 gradient is mostly rounding at random weights, by their
    distance to the plain path's fp32 gradient: at most 1.5x plain bf16's.
+11. stage-2 QLoRA train: phase 10's model is freed; the full-width ViT-L/16-384 +
+   projector 1024 -> 10240 -> 4096 + Qwen3-8B (36 layers, hidden 4096, 32/8 heads of
+   128, vocab 151,936, untied head) from seeded random weights, the decoder built and
+   quantized (nf4 -> nf4-mirror) one layer at a time; Stage2Trainer.train() with the
+   reference's recipe (--enable_qlora --quant_method nf4-mirror --lora_r 16
+   --lora_alpha 32 --lora_dropout 0.05, lr 1e-5, warmup 0.05), per-layer remat, bf16
+   compute, batch 4, accumulation 2, 32 in-memory samples in 8 bucket groups (questions
+   of 8-256 ids, answers of 32-1024: up to 575 + 256 + 1024 = 1855 tokens) = 8
+   micro-steps, validation on 2 samples (3 beams, 16 new tokens, the adapters merged).
+   Every loss finite; every LoRA B off zero; every frozen leaf (quantized codes and
+   scales, table, head, norms, tower, projector) bit-equal to before (a position-
+   weighted byte sum); K1-K7 launched; checkpoint-epoch_0/language_model/ holds the
+   PEFT adapter. Micro-steps 6-7 profiled (the span split, with ``decoder/dequant``);
+   images/s and ms a micro-step from steps 1-5; peak memory; the adapter's bytes.
+12. end to end (QLoRA), batch 1 at 1855 tokens, dropout off, an adapter whose B is
+   drawn at std 0.02 over phase 11's quantized base: the loss (within 1e-3 relative)
+   and every LoRA leaf's gradient (cosine >= 0.999) through the kernel path against
+   the plain path in bf16; a leaf below 0.999 (the two bf16 paths are each ~0.9995
+   from the plain path in fp32 at random weights, some A gradients 0.998) is held by
+   its distance to the fp32 gradient instead: at most 1.5x plain bf16's. Then the
+   decoder merged (``lora.merge_into_decoder``, the base dequantized to bf16) against
+   the unmerged forward: each row's prefill-logit cosine >= 0.99.
+13. serve with the adapter: the training model is freed; VQAService with
+   --adapter_path (phase 11's adapter) over the dense bf16 Qwen3-8B VLM of the same
+   seed, 8 client threads x 2 requests, batch 8, 3 beams, 32 new tokens; every request
+   answered, K1-K3's launch counts rise; p50, p95 and req/s on the host clock.
 
 The second-to-last line is {"kernels": [...]} (name, route, source, replaces, launches
-on the main path, max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms, and the
+on the main path, launches_by_path (serve, train, stage0, stage2, stage2_qlora,
+serve_qwen3_adapter), max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms, and the
 launches of one epoch-0 stage-2 micro-step at the longest bucket, phase 9's); the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Needs no network and no model snapshot; imports nothing of JAX.
@@ -389,6 +420,9 @@ STAGE0_KERNELS = ("flash_attn_fwd", "layernorm_fwd", "flash_attn_bwd_dkv", "flas
 # stage 2 trains the table: the fused CE kernels (K6/K7) are refused there
 STAGE2_KERNELS = ("flash_attn_fwd", "layernorm_fwd", "decode_attn", "flash_attn_bwd_dkv",
                   "flash_attn_bwd_dq", "layernorm_bwd")
+# stage 2 QLoRA: the table is frozen (K6/K7 run), the tower too (no K8)
+STAGE2_QLORA_KERNELS = ("flash_attn_fwd", "layernorm_fwd", "decode_attn", "flash_attn_bwd_dkv",
+                        "flash_attn_bwd_dq", "fused_ce_fwd", "fused_ce_bwd")
 
 
 def counters():
@@ -509,44 +543,48 @@ def phase_kernels():
     check_stage0_kernels(rng, record)
     check_flash_reruns(rng, record)
     check_stage2_kernels(rng, record)
+    check_qwen3_kernels(rng, record)
     emit({"phase": 2, "readings": READINGS})
     return results
 
 
-def check_decode(rng, record, b, nb, p_len, g, steps):
-    """K3 at batch b, nb beams, GQA 4/1 at head dim 256, a prefix of p_len slots with
-    ragged left padding and g generated slots, at each step t of `steps`, window 512 and
-    none; record(kernel, case, err, ms, plain_ms, bound, library_ms, library)."""
+def check_decode(rng, record, b, nb, p_len, g, steps, *, hq=4, hkv=1, d=256,
+                 windows=(512, None), label=""):
+    """K3 at batch b, nb beams, GQA hq/hkv at head dim d (Gemma3-1B's 4/1 at 256 by
+    default), a prefix of p_len slots with ragged left padding and g generated slots, at
+    each step t of `steps` and each window of `windows`; record(kernel, case, err, ms,
+    plain_ms, bound, library_ms, library)."""
     import torch
 
     from projectiontrainer_tpu_torch.kernels.check_decode_attn import library_call
     from projectiontrainer_tpu_torch.ops import decode_attention as DA
 
-    qd = _bf16(rng, (b * nb, 4, 256))
-    kp, vp = _bf16(rng, (b, 1, p_len, 256)), _bf16(rng, (b, 1, p_len, 256))
-    kg, vg = _bf16(rng, (b * nb, 1, g, 256)), _bf16(rng, (b * nb, 1, g, 256))
+    qd = _bf16(rng, (b * nb, hq, d))
+    kp, vp = _bf16(rng, (b, hkv, p_len, d)), _bf16(rng, (b, hkv, p_len, d))
+    kg, vg = _bf16(rng, (b * nb, hkv, g, d)), _bf16(rng, (b * nb, hkv, g, d))
     pmask, _ = _left_pad_mask(rng, b, p_len, 224)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for t in steps:
-        for window in (512, None):
-            kw = dict(prefix_mask=pmask, t=t, prefix_len=p_len, scale=256 ** -0.5,
+        for window in windows:
+            kw = dict(prefix_mask=pmask, t=t, prefix_len=p_len, scale=d ** -0.5,
                       window=window)
             got = DA.decode_attention(qd, kp, vp, kg, vg, **kw)
             ref = DA.decode_attention_reference(*(x.float() for x in (qd, kp, vp, kg, vg)),
                                                 **kw)
-            case = f"B={b} nb={nb} P={p_len} G={g} t={t} window={window}"
+            case = f"{label}B={b} nb={nb} P={p_len} G={g} t={t} window={window}"
             for _ in range(2):
                 if not torch.equal(got, DA.decode_attention(qd, kp, vp, kg, vg, **kw)):
                     raise AssertionError(f"decode {case}: a rerun gave other bits")
-            plan = DA.decode_plan(b, nb, 1, p_len, g, t, p_len, window, sms)
-            if not plan["ctas"] > b:
-                raise AssertionError(f"decode {case}: {plan['ctas']} CTAs for {b} KV heads")
+            plan = DA.decode_plan(b, nb, hkv, p_len, g, t, p_len, window, sms)
+            if not plan["ctas"] > b * hkv:
+                raise AssertionError(f"decode {case}: {plan['ctas']} CTAs for {b * hkv} "
+                                     "(batch, KV head) pairs")
             lib, backend, live = library_call(qd, kp, vp, kg, vg, **kw)
             record("decode_attn", f"{case} ({plan['ctas']} CTAs)",
                    compare(f"decode {case}", got, ref),
                    cuda_ms(lambda: DA.decode_attention(qd, kp, vp, kg, vg, **kw)),
                    cuda_ms(lambda: DA.decode_attention_reference(qd, kp, vp, kg, vg, **kw)),
-                   bound_decode_attn(b, nb, 4, 1, p_len, g, 256, live),
+                   bound_decode_attn(b, nb, hq, hkv, p_len, g, d, live),
                    cuda_ms(lib), f"SDPA {backend} over concatenated caches, explicit mask")
 
 
@@ -639,6 +677,50 @@ def check_stage0_kernels(rng, record):
         record("flash_attn_bwd_dkv", case, max(errs[1:]), None, None)
 
 
+def check_attention_layer(rng, record, case, b, t, hq, hkv, d, mask, **kw):
+    """K1 (when ``mask`` is given: the forward of the same layer), K4 and K5 at one
+    decoder or tower shape against their plain versions, each beside its bound and the
+    library call; record(kernel, case, err, ms, plain_ms, bound, library_ms, library)."""
+    from projectiontrainer_tpu_torch.ops import flash_attention as FA
+
+    q, do = _bf16(rng, (b, t, hq, d)), _bf16(rng, (b, t, hq, d))
+    k, v = _bf16(rng, (b, t, hkv, d)), _bf16(rng, (b, t, hkv, d))
+    out, lse = FA.flash_attention(q, k, v, kv_mask=mask, **kw)
+    seen = (attention_mask(t, causal=kw["causal"], window=kw["window"], kv_mask=mask)
+            if mask is not None or kw["causal"] else None)
+    pairs = None if seen is None else live_pairs(seen)
+    if mask is not None:  # K1 at this shape: the forward of the same layer
+        ref, ref_lse = FA.flash_attention_reference(q.float(), k.float(), v.float(),
+                                                    kv_mask=mask, **kw)
+        err = compare(f"flash {case} out", out, ref)
+        compare(f"flash {case} lse", lse[mask.bool()[:, None, :].expand_as(lse)],
+                ref_lse[mask.bool()[:, None, :].expand_as(lse)])
+        del ref, ref_lse
+        lib, backend = sdpa_library(q, k, v, scale=kw["scale"], mask=seen)
+        record("flash_attn_fwd", case, err,
+               cuda_ms(lambda: FA.flash_attention(q, k, v, kv_mask=mask, **kw)),
+               cuda_ms(lambda: FA.flash_attention_reference(q, k, v, kv_mask=mask, **kw)),
+               bound_flash_fwd(b, t, hq, hkv, d, pairs), cuda_ms(lib),
+               f"SDPA {backend}, explicit mask")
+    prep = FA.prepare_bwd(q, k, v, mask, out, lse, do)
+    args = (q, k, v, prep[0], prep[1], lse, prep[2])
+    dk, dv = FA.launch_bwd_dkv(*args, **kw)
+    dq = FA.launch_bwd_dq(*args, **kw)
+    rq, rk, rv = FA.flash_attention_bwd_reference(q.float(), k.float(), v.float(), mask,
+                                                  out.float(), lse, do.float(), **kw)
+    err_kv = max(compare_rel(f"flash {case} dk", dk, rk), compare_rel(f"flash {case} dv", dv, rv))
+    err_q = compare_rel(f"flash {case} dq", dq, rq)
+    del rq, rk, rv
+    plain = cuda_ms(lambda: FA.flash_attention_bwd_reference(q, k, v, mask, out, lse, do, **kw))
+    lib, backend = sdpa_library_bwd(q, k, v, do, scale=kw["scale"], mask=seen)
+    library = (cuda_ms(lib), f"SDPA {backend} backward (dq, dk, dv together)"
+               + (", explicit mask" if seen is not None else ""))
+    record("flash_attn_bwd_dkv", case, err_kv, cuda_ms(lambda: FA.launch_bwd_dkv(*args, **kw)),
+           plain, bound_flash_bwd_dkv(b, t, hq, hkv, d, pairs), *library)
+    record("flash_attn_bwd_dq", case, err_q, cuda_ms(lambda: FA.launch_bwd_dq(*args, **kw)),
+           plain, bound_flash_bwd_dq(b, t, hq, hkv, d, pairs), *library)
+
+
 def check_stage2_kernels(rng, record):
     """The shapes stage 2 adds (batch 1): K4/K5 over the trained ViT-L tower
     ([1,576,16,64], non-causal), K1/K4/K5 over the decoder's longest bucket (575 visual
@@ -647,57 +729,43 @@ def check_stage2_kernels(rng, record):
     ([576,1024]); record(kernel, case, err, ms, plain_ms, bound, library_ms, library)."""
     import torch
 
-    from projectiontrainer_tpu_torch.ops import flash_attention as FA
-    from projectiontrainer_tpu_torch.ops import fused_layernorm as FLN
-
-    def backward(case, b, t, hq, hkv, d, mask, **kw):
-        q, do = _bf16(rng, (b, t, hq, d)), _bf16(rng, (b, t, hq, d))
-        k, v = _bf16(rng, (b, t, hkv, d)), _bf16(rng, (b, t, hkv, d))
-        out, lse = FA.flash_attention(q, k, v, kv_mask=mask, **kw)
-        seen = (attention_mask(t, causal=kw["causal"], window=kw["window"], kv_mask=mask)
-                if mask is not None or kw["causal"] else None)
-        pairs = None if seen is None else live_pairs(seen)
-        if mask is not None:  # K1 at this shape: the forward of the same layer
-            ref, ref_lse = FA.flash_attention_reference(q.float(), k.float(), v.float(),
-                                                        kv_mask=mask, **kw)
-            err = compare(f"flash {case} out", out, ref)
-            compare(f"flash {case} lse", lse[mask.bool()[:, None, :].expand_as(lse)],
-                    ref_lse[mask.bool()[:, None, :].expand_as(lse)])
-            lib, backend = sdpa_library(q, k, v, scale=kw["scale"], mask=seen)
-            record("flash_attn_fwd", case, err,
-                   cuda_ms(lambda: FA.flash_attention(q, k, v, kv_mask=mask, **kw)),
-                   cuda_ms(lambda: FA.flash_attention_reference(q, k, v, kv_mask=mask, **kw)),
-                   bound_flash_fwd(b, t, hq, hkv, d, pairs), cuda_ms(lib),
-                   f"SDPA {backend}, explicit mask")
-        prep = FA.prepare_bwd(q, k, v, mask, out, lse, do)
-        args = (q, k, v, prep[0], prep[1], lse, prep[2])
-        dk, dv = FA.launch_bwd_dkv(*args, **kw)
-        dq = FA.launch_bwd_dq(*args, **kw)
-        rq, rk, rv = FA.flash_attention_bwd_reference(q.float(), k.float(), v.float(), mask,
-                                                      out.float(), lse, do.float(), **kw)
-        plain = cuda_ms(lambda: FA.flash_attention_bwd_reference(q, k, v, mask, out, lse, do,
-                                                                 **kw))
-        lib, backend = sdpa_library_bwd(q, k, v, do, scale=kw["scale"], mask=seen)
-        library = (cuda_ms(lib), f"SDPA {backend} backward (dq, dk, dv together)"
-                   + (", explicit mask" if seen is not None else ""))
-        record("flash_attn_bwd_dkv", case,
-               max(compare_rel(f"flash {case} dk", dk, rk), compare_rel(f"flash {case} dv", dv, rv)),
-               cuda_ms(lambda: FA.launch_bwd_dkv(*args, **kw)), plain,
-               bound_flash_bwd_dkv(b, t, hq, hkv, d, pairs), *library)
-        record("flash_attn_bwd_dq", case, compare_rel(f"flash {case} dq", dq, rq),
-               cuda_ms(lambda: FA.launch_bwd_dq(*args, **kw)), plain,
-               bound_flash_bwd_dq(b, t, hq, hkv, d, pairs), *library)
-
-    backward("stage-2 tower [1,576,16,64] non-causal", 1, 576, 16, 16, 64, None,
-             scale=64 ** -0.5, causal=False, window=None)
+    check_attention_layer(rng, record, "stage-2 tower [1,576,16,64] non-causal", 1, 576, 16,
+                          16, 64, None, scale=64 ** -0.5, causal=False, window=None)
     mask = torch.zeros((1, 1215), dtype=torch.int32, device="cuda")
     mask[0, :575 + 40] = 1             # visual tokens, a question of 40 tokens
     mask[0, 575 + 128:575 + 128 + 300] = 1  # an answer of 300 tokens
-    backward("stage-2 decoder [1,1215,4|1,256] causal window=512, padded question and answer",
-             1, 1215, 4, 1, 256, mask, scale=256 ** -0.5, causal=True, window=512)
+    check_attention_layer(
+        rng, record, "stage-2 decoder [1,1215,4|1,256] causal window=512, padded question and "
+        "answer", 1, 1215, 4, 1, 256, mask, scale=256 ** -0.5, causal=True, window=512)
     x = _bf16(rng, (576, 1024))
     check_layernorm_bwd(rng, record, x, {"scale": _bf16(rng, (1024,), 0.5) + 1},
                         cases=((576, False),))
+
+
+def check_qwen3_kernels(rng, record):
+    """The shapes of Qwen3-8B's QLoRA path (phases 11-13): K1/K4/K5 at the longest
+    stage-2 bucket at batch 4 ([4,1855,32|8,128]: 575 visual + 256 question + 1024
+    answer tokens, causal, no window, each row's question and answer right-padded to
+    its own length), K3 at head dim 128 with GQA 32/8 (the served batch and one
+    request, no window), and K6/K7 over the answer positions of a batch of 4 at
+    Qwen3's untied head ([4096,4096] x [151936,4096]);
+    record(kernel, case, err, ms, plain_ms, bound, library_ms, library)."""
+    import torch
+
+    b, t = 4, 575 + 256 + 1024
+    mask = torch.zeros((b, t), dtype=torch.int32, device="cuda")
+    q_lens, a_lens = rng.integers(8, 257, size=b), rng.integers(32, 1025, size=b)
+    q_lens[0], a_lens[0] = 256, 1024
+    for i in range(b):
+        mask[i, :575 + q_lens[i]] = 1
+        mask[i, 575 + 256:575 + 256 + a_lens[i]] = 1
+    check_attention_layer(
+        rng, record, "Qwen3 decoder [4,1855,32|8,128] causal, padded questions and answers",
+        b, t, 32, 8, 128, mask, scale=128 ** -0.5, causal=True, window=None)
+    for bb in (8, 1):
+        check_decode(rng, record, bb, 3, 575 + 256, 32, (31,), hq=32, hkv=8, d=128,
+                     windows=(None,), label="Qwen3 ")
+    check_fused_ce(rng, record, n=4 * 1024, vocab=151_936, d=4096, label="Qwen3 ")
 
 
 def check_layernorm_bwd(rng, record, x, p, cases=((16384, True), (16383, True), (1001, True),
@@ -854,34 +922,35 @@ def check_nearly_alike_tokens(rng):
                                  f"bf16 {b:.5f}")
 
 
-def check_fused_ce(rng, record):
+def check_fused_ce(rng, record, n=2048, vocab=262_144, d=1152, label=""):
     """K6/K7 against their plain versions and beside the library call (F.linear +
     F.cross_entropy on bf16 logits, and its autograd backward to the hidden states);
-    record(kernel, case, err, ms, plain_ms, bound, library_ms, library)."""
+    record(kernel, case, err, ms, plain_ms, bound, library_ms, library). The default
+    shape is stage 1's: 4 x 512 caption positions at Gemma3's vocab."""
     import torch
     import torch.nn.functional as F
 
     from projectiontrainer_tpu_torch.ops import fused_ce as CE
 
-    # K6/K7: the stage-1 CE over 4 x 512 caption positions at Gemma3's vocab, a quarter
-    # of the positions ignored (label -100: a dummy 0 and zero upstream gradient). At a
-    # table scale of 0.15 the logits' std is ~5, so each row's softmax mass sits on a
-    # few tokens in one vocab split or another, and the upstream gradient g differs
-    # per row (mean-loss weights times a random factor, exact in bf16: the kernel's
-    # bf16 (p - onehot) * g is then exactly -g at a label of negligible p).
-    n, vocab, d = 2048, 262_144, 1152
-    h, table = _bf16(rng, (n, d)), _bf16(rng, (vocab, d), 0.15)
+    # A quarter of the positions ignored (label -100: a dummy 0 and zero upstream
+    # gradient). The table's scale puts the logits' std at ~5 (0.15 at D = 1152), so
+    # each row's softmax mass sits on a few tokens in one vocab split or another, and
+    # the upstream gradient g differs per row (mean-loss weights times a random factor,
+    # exact in bf16: the kernel's bf16 (p - onehot) * g is then exactly -g at a label of
+    # negligible p).
+    scale = 0.15 * (1152 / d) ** 0.5
+    h, table = _bf16(rng, (n, d)), _bf16(rng, (vocab, d), scale)
     labels = rng.integers(0, vocab, size=n)
     ignored = rng.random(n) < 0.25
     valid = torch.tensor(~ignored, device="cuda")
     safe = torch.tensor(np.where(ignored, 0, labels), dtype=torch.int32, device="cuda")
     g = np.where(ignored, 0.0, rng.uniform(0.5, 1.5, size=n) / (~ignored).sum())
     g = torch.tensor(g, dtype=torch.float32, device="cuda").to(torch.bfloat16).float()
-    case = "[2048,1152] x [262144,1152] scale 0.15, 25% ignored, g per row"
+    case = f"{label}[{n},{d}] x [{vocab},{d}] scale {scale:.3g}, 25% ignored, g per row"
     lse, nll = CE.fused_ce_fwd(h, table, safe)
     rlse, rnll = CE.fused_ce_reference(h.float(), table.float(), safe)
-    err = max(compare("fused ce lse", lse, rlse, atol=CE_ATOL, rtol=0),
-              compare("fused ce nll", nll[valid], rnll[valid], atol=CE_ATOL, rtol=0))
+    err = max(compare(f"{label}fused ce lse", lse, rlse, atol=CE_ATOL, rtol=0),
+              compare(f"{label}fused ce nll", nll[valid], rnll[valid], atol=CE_ATOL, rtol=0))
     long_labels = safe.long()
     record("fused_ce_fwd", case, err, cuda_ms(lambda: CE.fused_ce_fwd(h, table, safe)),
            cuda_ms(lambda: CE.fused_ce_reference(h, table, safe)), bound_fused_ce_fwd(n, vocab, d),
@@ -892,10 +961,10 @@ def check_fused_ce(rng, record):
     # the softmax part g * sum_v p_v W_v on its own: the one-hot term -g * W[label]
     # is exact in both, and would otherwise set the bound's scale
     onehot = g[:, None] * table[safe.long()].float()
-    err = max(compare_rel("fused ce dh", dh, rdh),
-              compare_rel("fused ce dh softmax part", dh + onehot, rdh + onehot))
+    err = max(compare_rel(f"{label}fused ce dh", dh, rdh),
+              compare_rel(f"{label}fused ce dh softmax part", dh + onehot, rdh + onehot))
     if bool(dh[~valid].ne(0).any()):
-        raise AssertionError("fused ce dh: an ignored position got a gradient")
+        raise AssertionError(f"{label}fused ce dh: an ignored position got a gradient")
     hg = h.detach().requires_grad_(True)
     lib_nll = F.cross_entropy(F.linear(hg, table), long_labels, reduction="none")
     lib_g = g.to(lib_nll.dtype)
@@ -941,7 +1010,10 @@ def full_width_model():
     return cfg, params
 
 
-def phase_serve(cfg, params, counters):
+def phase_serve(cfg, params, counters, *, clients=16, adapter_path=None, phase=3):
+    """VQAService over the in-memory model: ``clients`` threads of 2 requests each,
+    batch 8, 3 beams, MAX_NEW_TOKENS; ``adapter_path`` merges a LoRA adapter first.
+    The service holds the params from here on (drop the caller's reference)."""
     import logging
 
     from projectiontrainer_tpu_torch.cli import serve
@@ -952,9 +1024,13 @@ def phase_serve(cfg, params, counters):
         "--img_size", str(size), "--batch_size", "8", "--num_beams", "3",
         "--repetition_penalty", "1.8", "--length_penalty", "1.2", "--max_q_len", "256",
         "--max_new_tokens", str(MAX_NEW_TOKENS), "--max_wait_ms", "20",
+        *(["--adapter_path", adapter_path] if adapter_path else []),
     ])
+    t0 = time.perf_counter()
     service = serve.VQAService(args, logging.getLogger("chip_smoke"),
                                model=(cfg, params, StubTokenizer()))
+    del params
+    build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     service.warmup()  # one batch per question bucket: first-call costs stay out of the stats
     warmup_s = time.perf_counter() - t0
@@ -963,7 +1039,7 @@ def phase_serve(cfg, params, counters):
     requests = [
         serve.Request(np.clip(rng.standard_normal((size, size, 3), dtype=np.float32), -1, 1),
                       rng.integers(2, cfg.llm.vocab_size, size=int(rng.integers(8, 201))).tolist())
-        for _ in range(32)
+        for _ in range(2 * clients)
     ]
     answers: list = [None] * len(requests)
     errors: list = []
@@ -978,7 +1054,7 @@ def phase_serve(cfg, params, counters):
     for c in counters:
         c.reset()
     t0 = time.perf_counter()
-    threads = [threading.Thread(target=client, args=(i,)) for i in range(16)]
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(clients)]
     for th in threads:
         th.start()
     for th in threads:
@@ -993,10 +1069,17 @@ def phase_serve(cfg, params, counters):
     if not all(launches.values()):
         raise AssertionError(f"serve: a kernel of the path never launched: {launches}")
     stats = service.stats()
-    emit({"phase": 3, "requests": len(answers), "answered": sum(a is not None for a in answers),
+    if phase == 13:
+        print(f"serve (Qwen3-8B + adapter): {len(answers) / wall:.3f} req/s, p50 "
+              f"{stats['p50_latency_s']:.3f} s, p95 {stats['p95_latency_s']:.3f} s "
+              f"({clients} clients x 2 requests, batch 8, 3 beams, {MAX_NEW_TOKENS} new tokens)",
+              flush=True)
+    emit({"phase": phase, "requests": len(answers),
+          "answered": sum(a is not None for a in answers),
           "req_per_s": len(answers) / wall, "wall_s": wall, "warmup_s": warmup_s,
+          "service_build_s": build_s, "adapter_path": adapter_path,
           "stats": stats, "launches": launches, "batch_size": 8, "num_beams": 3,
-          "max_new_tokens": MAX_NEW_TOKENS,
+          "clients": clients, "max_new_tokens": MAX_NEW_TOKENS,
           "cut": "max_new_tokens 32 (reference serving config: 1024), for run time"})
     return launches
 
@@ -1452,15 +1535,19 @@ def phase_stage0_end_to_end(cfg, params, kernel_counters):
 class VQASamples:
     """In-memory stage-2 samples: seeded pixels in [-1, 1] (made once, in bulk),
     questions of 8-128 token ids and answers of 32-512 (the first sample at both
-    maxima: the longest bucket, 575 + 128 + 512 = 1215 tokens) and their lengths for
-    the bucket plan; no image files, no tokenizer."""
+    maxima: the longest bucket, 575 + 128 + 512 = 1215 tokens), or the given
+    ``lengths`` (question, answer), and their lengths for the bucket plan; no image
+    files, no tokenizer."""
 
-    def __init__(self, n, seed, *, size, vocab):
+    def __init__(self, n, seed, *, size, vocab, lengths=None):
         rng = np.random.default_rng(seed)
         self.pixels = np.clip(rng.standard_normal((n, size, size, 3), dtype=np.float32), -1, 1)
-        self.q_lens = rng.integers(8, 129, size=n).astype(np.int32)
-        self.a_lens = rng.integers(32, 513, size=n).astype(np.int32)
-        self.q_lens[0], self.a_lens[0] = 128, 512
+        if lengths is None:
+            self.q_lens = rng.integers(8, 129, size=n).astype(np.int32)
+            self.a_lens = rng.integers(32, 513, size=n).astype(np.int32)
+            self.q_lens[0], self.a_lens[0] = 128, 512
+        else:
+            self.q_lens, self.a_lens = (np.asarray(x, np.int32) for x in lengths)
         self.questions = [rng.integers(2, vocab, size=n_q).astype(np.int32) for n_q in self.q_lens]
         self.answers = [rng.integers(2, vocab, size=n_a).astype(np.int32) for n_a in self.a_lens]
 
@@ -1548,13 +1635,13 @@ def phase_stage2_train(cfg, params, kernel_counters):
         step_fn, tx, schedule = trainer._steps[True]
         before, one_step = {}, {}
 
-        def counted_step(state, batch):
+        def counted_step(state, batch, rng=None):
             if one_step or batch["question_ids"].shape[1] + batch["answer_ids"].shape[1] < longest:
-                return step_fn(state, batch)
+                return step_fn(state, batch, rng)
             before.update({n: c.value for n, c in kernel_counters.items()})
             for c in kernel_counters.values():
                 c.reset()
-            out = step_fn(state, batch)
+            out = step_fn(state, batch, rng)
             one_step.update({n: c.value for n, c in kernel_counters.items()})
             return out
 
@@ -1729,6 +1816,291 @@ def phase_stage2_end_to_end(cfg, params, kernel_counters):
                              f"{key_bias[0]:.4g} > {KEY_BIAS_NOISE} x plain {key_bias[1]:.4g}")
 
 
+# ---------------------------------------------------------------------------- phase 11
+
+# (question bucket, answer bucket) of each group of 4 phase-11 samples: the plan batches
+# by bucket, so 32 samples make 8 full micro-steps; the first group is the longest
+# bucket, 575 + 256 + 1024 = 1855 tokens
+QLORA_GROUPS = ((256, 1024), (32, 128), (64, 256), (128, 512), (256, 512), (32, 1024),
+                (128, 128), (64, 1024))
+_Q_FLOOR = {32: 8, 64: 33, 128: 65, 256: 129}
+_A_FLOOR = {128: 32, 256: 129, 512: 257, 1024: 513}
+
+
+def qlora_lengths(seed, groups=QLORA_GROUPS, per=4):
+    """(question lengths, answer lengths): `per` samples inside each bucket pair of
+    `groups` (questions of 8-256 ids, answers of 32-1024), the first at both maxima."""
+    rng = np.random.default_rng(seed)
+    q = np.concatenate([rng.integers(_Q_FLOOR[qb], qb + 1, size=per) for qb, _ in groups])
+    a = np.concatenate([rng.integers(_A_FLOOR[ab], ab + 1, size=per) for _, ab in groups])
+    q[0], a[0] = groups[0]
+    return q, a
+
+
+def qwen3_model(quant_method=None):
+    """The stage-2 QLoRA VLM at full width from seeded random weights: SigLIP
+    ViT-L/16-384 (bf16), projector 1024 -> 10240 -> 4096 (fp32), Qwen3-8B (36 layers,
+    hidden 4096, MLP 12288, 32/8 heads of 128, vocab 151,936, untied head; bf16). The
+    decoder is built one layer at a time and, with ``quant_method``, each layer is
+    quantized before the next is drawn, so the dense 16 GB of projections is never
+    resident whole. The same seed draws the same dense weights either way."""
+    import torch
+
+    from projectiontrainer_tpu_torch.models import decoder as dec
+    from projectiontrainer_tpu_torch.models import projector as proj
+    from projectiontrainer_tpu_torch.models import siglip, vlm
+    from projectiontrainer_tpu_torch.ops import quant
+
+    vision, llm_cfg = siglip.vit_l_16_384(), dec.qwen3_config()
+    cfg = vlm.VLMConfig(vision=vision, llm=llm_cfg, projector=proj.ProjectorConfig(
+        vision_dim=vision.hidden_size, llm_dim=llm_cfg.hidden_size))
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    params = {"vision": siglip.init_vision(gen, cfg.vision, torch.bfloat16, DEVICE),
+              "projector": proj.init(gen, cfg.projector, torch.float32, DEVICE)}
+    llm = dec.init(gen, dataclasses.replace(cfg.llm, num_layers=0, layer_types=()),
+                   torch.bfloat16, DEVICE)
+    for _ in range(cfg.llm.num_layers):
+        layer = dec.init_layer(gen, cfg.llm, torch.bfloat16, DEVICE)
+        llm["layers"].append(layer if quant_method is None
+                             else quant.quantize_layer(layer, method=quant_method))
+    params["llm"] = llm
+    return cfg, params
+
+
+def fingerprint(x) -> int:
+    """A position-weighted sum of a tensor's bytes (64-bit, on the card, in chunks):
+    a change of any byte changes it."""
+    import torch
+
+    b = x.detach().contiguous().reshape(-1).view(torch.uint8)
+    total, chunk = 0, 1 << 26
+    for s in range(0, b.numel(), chunk):
+        c = b[s:s + chunk].to(torch.int64)
+        w = torch.arange(s, s + c.numel(), device=c.device, dtype=torch.int64) % 65521 + 1
+        total += int((c * w).sum())
+    return total
+
+
+def _frozen_fingerprints(params):
+    from projectiontrainer_tpu_torch.core.pytree import unique_leaves_with_paths
+
+    return {p: fingerprint(x) for p, x in unique_leaves_with_paths(params)
+            if not p.startswith("lora/")}
+
+
+def phase_qlora_train(cfg, params, kernel_counters):
+    """Stage2Trainer.train() with the reference's QLoRA recipe over Qwen3-8B; returns
+    (launches, the trained params, a directory holding a copy of the adapter)."""
+    import torch
+
+    from projectiontrainer_tpu_torch.core.config import Stage2Config
+    from projectiontrainer_tpu_torch.train.trainer_stage2 import Stage2Trainer
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_qlora_")
+    adapter_dir = tempfile.mkdtemp(prefix="chip_smoke_adapter_")
+    size, vocab = cfg.vision.image_size, cfg.llm.vocab_size
+    try:
+        tcfg = Stage2Config(
+            output_dir=out_dir, batch_size=4, gradient_accumulation_steps=2, num_epochs=1,
+            learning_rate=1e-5, warmup_ratio=0.05, grad_clip=1.0, remat="full",
+            mixed_precision="bf16", enable_qlora=True, quant_method="nf4-mirror", lora_r=16,
+            lora_alpha=32, lora_dropout=0.05, max_q_len=256, max_a_len=1024, img_size=size,
+            eval_max_new_tokens=16, eval_num_beams=3, eval_do_sample=True, logging_steps=1,
+            num_workers=2, device=DEVICE, disable_wandb=True, seed=SEED,
+            profile_dir=os.path.join(out_dir, "profile"), profile_start_step=6,
+            profile_num_steps=2)
+        train_data = VQASamples(32, SEED + 12, size=size, vocab=vocab,
+                                lengths=qlora_lengths(SEED + 12))
+        val_data = VQASamples(2, SEED + 13, size=size, vocab=vocab,
+                              lengths=([40, 60], [200, 240]))
+        frozen = _frozen_fingerprints(params)
+        trainer = Stage2Trainer(tcfg, vlm_cfg=cfg, params=params, tokenizer=StubTokenizer(),
+                                train_dataset=train_data, val_dataset=val_data)
+        del params
+        if len(trainer._train_plans[0]) != 8:
+            raise AssertionError(f"QLoRA: {len(trainer._train_plans[0])} micro-steps planned")
+        for c in kernel_counters.values():
+            c.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches = {name: c.value for name, c in kernel_counters.items()}
+        trained = trainer.state["params"]
+        del trainer
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        lm = os.path.join(out_dir, "checkpoint-epoch_0", "language_model")
+        written = sorted(os.listdir(lm))
+        shutil.copytree(lm, adapter_dir, dirs_exist_ok=True)
+        adapter_bytes = os.path.getsize(os.path.join(lm, "adapter_model.safetensors"))
+        examples = os.listdir(os.path.join(out_dir, "validation_examples"))
+        traced = os.listdir(os.path.join(out_dir, "profile"))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    losses = [r["train/step_loss"] for r in rows if "train/step_loss" in r]
+    if len(losses) != 8 or not np.isfinite(losses).all():
+        raise AssertionError(f"QLoRA: expected 8 finite losses, got {losses}")
+    b_still_zero = [f"{i}/{t}" for i, layer in enumerate(trained["lora"]["layers"])
+                    for t, p in layer.items() if not bool(p["b"].ne(0).any())]
+    if b_still_zero:
+        raise AssertionError(f"QLoRA: lora B still zero at {b_still_zero[:5]}")
+    changed = [p for p, h in _frozen_fingerprints(trained).items() if frozen[p] != h]
+    if changed or set(frozen) != set(_frozen_fingerprints(trained)):
+        raise AssertionError(f"QLoRA: frozen leaves changed: {changed[:5]}")
+    if not all(launches[n] for n in STAGE2_QLORA_KERNELS):
+        raise AssertionError(f"QLoRA: a kernel of the path never launched: {launches}")
+    if written != ["adapter_config.json", "adapter_model.safetensors"]:
+        raise AssertionError(f"QLoRA: language_model/ holds {written}")
+    if examples != ["epoch_0_examples.txt"]:
+        raise AssertionError(f"QLoRA: validation examples {examples}")
+    step6 = next((r for r in rows if r.get("step") == 6 and "step_time_ms" in r), {})
+    stats = {"images_per_sec": step6.get("images_per_sec"),
+             "micro_step_ms": step6.get("step_time_ms")}
+    if not all(stats.values()):
+        raise AssertionError(f"QLoRA: no throughput measured for steps 1-5: {rows[:8]}")
+    split = {k[len("profile/"):]: v for r in rows for k, v in r.items()
+             if k.startswith("profile/")}
+    pieces = ("tower_fwd", "projector_fwd", "decoder_fwd", "decoder_bwd", "lm_head_ce_fwd",
+              "lm_head_ce_bwd", "optimizer_fwd", "decoder/dequant_fwd", "decoder/dequant_bwd")
+    if traced != ["trace_step6.json"] or not all(split.get(f"{p}_ms", 0) > 0 for p in pieces):
+        raise AssertionError(f"QLoRA: no kernel time traced for a piece of the step: {split}")
+    dequant = split["decoder/dequant_fwd_ms"] + split["decoder/dequant_bwd_ms"]
+    idle = 1 - split["total_ms"] / stats["micro_step_ms"]
+    print(f"stage 2 QLoRA (Qwen3-8B, nf4-mirror): {stats['images_per_sec']:.3f} images/s, "
+          f"{stats['micro_step_ms']:.1f} ms a micro-step (steps 1-5, batch 4, up to 1855 "
+          f"tokens); kernel time {split['total_ms']:.1f} ms a micro-step in steps 6-7, "
+          f"dequant {dequant:.1f} ms ({dequant / split['total_ms']:.1%}), device idle "
+          f"{idle:.1%}; peak {peak_gb:.1f} GiB; adapter {adapter_bytes / 1e6:.1f} MB", flush=True)
+    emit({"phase": 11, "micro_steps": len(losses), "losses": losses, **stats,
+          "train_result": result, "wall_s": wall, "launches": launches, "batch_size": 4,
+          "accumulation": 2, "peak_memory_gib": peak_gb, "kernel_ms_per_micro_step": split,
+          "dequant_ms_per_micro_step": dequant, "dequant_share": dequant / split["total_ms"],
+          "device_idle_share_steps_6_7": idle, "adapter_bytes": adapter_bytes,
+          "frozen_leaves_checked": len(frozen), "timed_steps": "1-5 (0 warms up, 6-7 profiled)",
+          "cut": "8 micro-steps of 32 random samples, 2 validation samples, 16 new tokens (a "
+                 "real run: the VQA corpus, 3 epochs, accumulation 8)"})
+    return launches, trained, adapter_dir
+
+
+# ---------------------------------------------------------------------------- phase 12
+
+
+def phase_qlora_end_to_end(cfg, params, kernel_counters):
+    """Batch 1 at the longest bucket (1855 tokens), dropout off, an adapter whose B is
+    drawn at std 0.02 over phase 11's quantized base: the loss and every LoRA leaf's
+    gradient through the kernel path against the plain path (plain attention and
+    LayerNorm, chunked CE); then the merged decoder against the unmerged forward."""
+    import torch
+    import torch.nn.functional as F
+
+    from projectiontrainer_tpu_torch.core import dtypes
+    from projectiontrainer_tpu_torch.core.pytree import leaves_with_paths
+    from projectiontrainer_tpu_torch.models import vlm
+    from projectiontrainer_tpu_torch.train import lora, steps
+
+    plain = dataclasses.replace(
+        cfg, vision=dataclasses.replace(cfg.vision, attn_impl="plain", norm_impl="plain"),
+        llm=dataclasses.replace(cfg.llm, attn_impl="plain"))
+    lcfg = lora.LoraConfig(r=16, alpha=32, dropout=0.0)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 14)
+    adapters = lora.init(gen, cfg.llm, lcfg, device=DEVICE)
+    for layer in adapters["layers"]:
+        for p in layer.values():
+            p["b"].normal_(0.0, 0.02, generator=gen)  # B = 0 would zero every A gradient
+    params = {**params, "lora": adapters}
+    data = VQASamples(1, SEED + 15, size=cfg.vision.image_size, vocab=cfg.llm.vocab_size,
+                      lengths=([256], [1024]))
+    batch = {"pixel_values": torch.tensor(data.pixels[:1], device=DEVICE),
+             "question_ids": torch.tensor(data.questions[0][None], device=DEVICE),
+             "answer_ids": torch.tensor(data.answers[0][None], device=DEVICE)}
+    train = list(leaves_with_paths(adapters))
+    for _, x in train:
+        x.requires_grad_(True)
+
+    def run(c, ce_impl, compute_dtype=torch.bfloat16):
+        for counter in kernel_counters.values():
+            counter.reset()
+        loss_fn = steps.stage2_loss(c, 0, lora_cfg=lcfg, logits_chunk=128, ce_impl=ce_impl,
+                                    compute_dtype=compute_dtype, remat=True)
+        loss, _ = loss_fn(params, batch)
+        grads = torch.autograd.grad(loss, [x for _, x in train])
+        torch.cuda.synchronize()
+        return (float(loss.detach()), [g.float() for g in grads],
+                {n: k.value for n, k in kernel_counters.items()})
+
+    def cosine(a, b):
+        return float(F.cosine_similarity(a.flatten(), b.flatten(), dim=0))
+
+    loss_k, grads_k, launches_k = run(cfg, "auto")
+    loss_p, grads_p, launches_p = run(plain, "chunked")
+    _, grads_f, _ = run(plain, "chunked", torch.float32)
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    # each leaf against plain bf16; where the two bf16 paths differ by more than 0.001
+    # (each is ~0.9995 from fp32 at random weights, the A gradients down to 0.998: a sum
+    # over 1855 tokens of nearly cancelling terms), the kernel path's distance to the
+    # plain fp32 gradient over plain bf16's (ROUNDING_GAP, PR 8's rule)
+    cos, gap, plain_to_fp32 = {}, {}, {}
+    for (p, _), a, b, f in zip(train, grads_k, grads_p, grads_f):
+        cos[p] = cosine(a, b)
+        plain_to_fp32[p] = cosine(b, f)
+        gap[p] = float((a - f).norm() / (b - f).norm())
+    del grads_k, grads_p, grads_f
+    for _, x in train:
+        x.requires_grad_(False)
+    by_gap = [p for p in cos if cos[p] < COS_MIN]
+
+    # the merged decoder (the quantized base dequantized to bf16 + B A) against the
+    # unmerged forward, at the last position of a [visual; question] prefix of 4 rows
+    rng = np.random.default_rng(SEED + 16)
+    size = cfg.vision.image_size
+    pixels = torch.tensor(np.clip(rng.standard_normal((4, size, size, 3), dtype=np.float32),
+                                  -1, 1), device=DEVICE)
+    q_ids = np.zeros((4, 256), np.int64)
+    for i, n in enumerate((256, 200, 90, 17)):  # left-padded
+        q_ids[i, 256 - n:] = rng.integers(2, cfg.llm.vocab_size, size=n)
+    with torch.no_grad():
+        compute = dtypes.cast_compute_params(params, torch.bfloat16)
+        embeds, mask = vlm.question_prefix(compute, cfg, pixels, torch.tensor(q_ids, device=DEVICE),
+                                           pad_token_id=0)
+        unmerged = vlm.forward_logits(compute, cfg, embeds, mask, lora_cfg=lcfg)[:, -1]
+        merged_llm = lora.merge_into_decoder(compute["llm"], adapters, lcfg)
+        merged = vlm.forward_logits({**compute, "llm": merged_llm}, cfg, embeds, mask)[:, -1]
+        del merged_llm, compute
+        row_cos = F.cosine_similarity(merged.float(), unmerged.float(), dim=-1).tolist()
+        top1 = (merged.argmax(-1) == unmerged.argmax(-1)).float().mean().item()
+    worst = min(cos, key=cos.get)
+    worst_gap = max(by_gap, key=gap.get, default=None)
+    emit({"phase": 12, "batch_size": 1, "tokens": 575 + 256 + 1024, "loss_kernel": loss_k,
+          "loss_plain": loss_p, "loss_rel_diff": rel, "leaves_compared": len(cos),
+          "min_grad_cosine": cos[worst], "min_grad_cosine_leaf": worst,
+          "lowest_grad_cosines": {p: cos[p] for p in sorted(cos, key=cos.get)[:5]},
+          "plain_bf16_cos_to_fp32_quantiles_0_10_50": [
+              float(np.quantile(list(plain_to_fp32.values()), q)) for q in (0, 0.1, 0.5)],
+          "leaves_held_by_gap": len(by_gap),
+          "max_gap_ratio_to_fp32": None if worst_gap is None else gap[worst_gap],
+          "max_gap_ratio_leaf": worst_gap,
+          "held_by_gap": {p: {"cos_plain_bf16": cos[p], "plain_cos_to_fp32": plain_to_fp32[p],
+                              "gap_ratio": gap[p]} for p in sorted(by_gap, key=cos.get)[:8]},
+          "merged_vs_unmerged_row_cosine": row_cos, "merged_vs_unmerged_top1": top1,
+          "launches_kernel_path": launches_k})
+    step_kernels = [n for n in STAGE2_QLORA_KERNELS if n != "decode_attn"]
+    if not all(launches_k[n] for n in step_kernels) or any(launches_p.values()):
+        raise AssertionError(f"QLoRA end to end: kernel path {launches_k}, plain {launches_p}")
+    if not rel <= LOSS_REL:
+        raise AssertionError(f"QLoRA end to end: loss {loss_k} vs plain {loss_p}")
+    if worst_gap is not None and not gap[worst_gap] <= ROUNDING_GAP:
+        raise AssertionError(f"QLoRA end to end: {worst_gap}'s gradient cosine {cos[worst_gap]} "
+                             f"< {COS_MIN} and its distance to fp32 {gap[worst_gap]:.4g} x "
+                             f"plain bf16's > {ROUNDING_GAP}")
+    if not min(row_cos) >= 0.99:
+        raise AssertionError(f"QLoRA end to end: merged against unmerged logits, row cosines "
+                             f"{row_cos} (< 0.99)")
+
+
 def main() -> int:
     import gc
 
@@ -1762,6 +2134,25 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_stage2_end_to_end(cfg, params, kernel_counters)
+    del cfg, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg, params = qwen3_model("nf4-mirror")
+    qlora_launches, params, adapter_dir = phase_qlora_train(cfg, params, kernel_counters)
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        phase_qlora_end_to_end(cfg, params, kernel_counters)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg, params = qwen3_model()  # dense bf16, the same seed
+        qlora_serve = phase_serve(cfg, params, [kernel_counters[n] for n in SERVE_KERNELS],
+                                  clients=8, adapter_path=adapter_dir, phase=13)
+        del params
+    finally:
+        shutil.rmtree(adapter_dir, ignore_errors=True)
 
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
@@ -1774,6 +2165,10 @@ def main() -> int:
             by_path["serve"] = serve_launches[name]
         if name in STAGE2_KERNELS:
             by_path["stage2"] = stage2_launches[name]
+        if name in STAGE2_QLORA_KERNELS:
+            by_path["stage2_qlora"] = qlora_launches[name]
+        if name in qlora_serve:
+            by_path["serve_qwen3_adapter"] = qlora_serve[name]
         main_path = next(p for p in ("serve", "train", "stage0") if p in by_path)
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
                         "launches": by_path[main_path], "launches_by_path": by_path,

@@ -12,9 +12,17 @@ Counterpart of ``projectiontrainer_tpu/checkpoint/export.py``:
   ``hf_import.load_siglip``, the JAX package's ``hf_import.load_siglip`` and
   transformers;
 - ``save_stage2_checkpoint``: the reference's ``checkpoint-epoch_N/`` directory
-  (``projection_layer/``, ``language_model/model.safetensors``, ``metadata.json``;
-  Stage2/trainer.py:710-769), the LLM under the JAX package's flat ``path_str`` keys
-  and layout, so its ``load_flat_safetensors`` reads it.
+  (``projection_layer/``, ``language_model/``, ``metadata.json``;
+  Stage2/trainer.py:710-769): a full LLM as ``model.safetensors`` under the JAX
+  package's flat ``path_str`` keys and layout, so its ``load_flat_safetensors`` reads
+  it; LoRA adapters as an HF-PEFT adapter directory;
+- ``save_peft_adapter`` / ``load_peft_adapter`` / ``load_adapter``: the PEFT adapter
+  format (``adapter_model.safetensors`` keyed
+  ``base_model.model.model.layers.N.{self_attn|mlp}.{target}.lora_{A,B}.weight``,
+  A ``[r, in]`` and B ``[out, r]`` in fp32, plus ``adapter_config.json``), what the
+  reference's PEFT ``save_pretrained`` writes, ``PeftModel.from_pretrained`` and the
+  JAX package's ``load_adapter`` read; ``load_adapter`` also reads the JAX package's
+  legacy flat format (``layers/N/target/{a,b}``, A ``[in, r]``, B ``[r, out]``).
 
 ``safetensors`` is imported only inside the functions that write it.
 """
@@ -23,15 +31,17 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 from typing import Optional
 
 import torch
 
-from projectiontrainer_tpu_torch.checkpoint.from_jax import decoder_params_to_jax
+from projectiontrainer_tpu_torch.checkpoint.from_jax import decoder_params_to_jax, lora_params
 from projectiontrainer_tpu_torch.core.pytree import leaves_with_paths
 from projectiontrainer_tpu_torch.models import projector as proj
 from projectiontrainer_tpu_torch.models import siglip
+from projectiontrainer_tpu_torch.train.lora import ATTN_TARGETS, LoraConfig
 
 # processor and tokenizer files copied from the source snapshot beside an export
 _SNAPSHOT_FILES = ("preprocessor_config.json", "tokenizer_config.json", "tokenizer.json",
@@ -145,18 +155,23 @@ def save_siglip_hf(params, cfg: siglip.SiglipConfig, out_dir: str, *,
 
 
 def save_stage2_checkpoint(out_dir: str, epoch: int, *, projector_params, projector_cfg,
-                           llm_params=None, metadata: Optional[dict] = None) -> str:
+                           llm_params=None, lora_params=None, lora_cfg=None,
+                           base_model_name: Optional[str] = None,
+                           metadata: Optional[dict] = None) -> str:
     """Write ``out_dir/checkpoint-epoch_N/``: the projector under
-    ``projection_layer/`` (``projector_best.bin``), the full LLM (when given) as
-    ``language_model/model.safetensors`` with the JAX package's keys
+    ``projection_layer/`` (``projector_best.bin``); under ``language_model/`` the full
+    LLM (when given) as ``model.safetensors`` with the JAX package's keys
     (``layers/0/attn/q_proj/kernel``, kernels ``[in, out]``, a tied table only as
-    ``embed_tokens/embedding``) in the leaves' own types, and ``metadata.json``.
-    LoRA adapters are not ported."""
+    ``embed_tokens/embedding``) in the leaves' own types, or the LoRA adapters (when
+    given, with their ``lora_cfg``) as a PEFT adapter directory naming
+    ``base_model_name``; and ``metadata.json``."""
     ckpt_dir = os.path.join(out_dir, f"checkpoint-epoch_{epoch}")
     save_projector(projector_params, projector_cfg, os.path.join(ckpt_dir, "projection_layer"),
                    tag="best")
     lm_dir = os.path.join(ckpt_dir, "language_model")
     os.makedirs(lm_dir, exist_ok=True)
+    if lora_params is not None:
+        save_peft_adapter(lora_params, lora_cfg, lm_dir, base_model_name_or_path=base_model_name)
     if llm_params is not None:
         from safetensors.torch import save_file
 
@@ -166,3 +181,95 @@ def save_stage2_checkpoint(out_dir: str, epoch: int, *, projector_params, projec
         with open(os.path.join(ckpt_dir, "metadata.json"), "w") as f:
             json.dump(metadata, f, indent=2, default=str)
     return ckpt_dir
+
+
+# ------------------------------------------------------------------ PEFT adapters
+
+ADAPTER_FILE = "adapter_model.safetensors"
+ADAPTER_CONFIG = "adapter_config.json"
+_PEFT_KEY = re.compile(r"layers\.(\d+)\.(?:self_attn|mlp)\.([A-Za-z0-9_]+)\.lora_(A|B)\.weight$")
+_FLAT_KEY = re.compile(r"layers/(\d+)/([A-Za-z0-9_]+)/(a|b)$")
+
+
+def peft_key(layer: int, target: str, ab: str) -> str:
+    """PEFT's state-dict key of one adapter matrix over an HF ``*ForCausalLM`` base."""
+    parent = "self_attn" if target in ATTN_TARGETS else "mlp"
+    return f"base_model.model.model.layers.{layer}.{parent}.{target}.lora_{ab}.weight"
+
+
+def save_peft_adapter(lora: dict, cfg: LoraConfig, out_dir: str, *,
+                      base_model_name_or_path: Optional[str] = None) -> str:
+    """The port's adapters (``a`` [r, in], ``b`` [out, r]) -> an HF-PEFT adapter
+    directory: fp32 tensors under ``peft_key`` and the JAX package's
+    ``adapter_config.json`` fields."""
+    from safetensors.torch import save_file
+
+    os.makedirs(out_dir, exist_ok=True)
+    sd = {}
+    for i, layer in enumerate(lora["layers"]):
+        for target, p in layer.items():
+            for ab, key in (("A", "a"), ("B", "b")):
+                sd[peft_key(i, target, ab)] = p[key].detach().to("cpu", torch.float32).contiguous()
+    save_file(sd, os.path.join(out_dir, ADAPTER_FILE))
+    config = {
+        "peft_type": "LORA", "task_type": "CAUSAL_LM", "r": int(cfg.r),
+        "lora_alpha": int(cfg.alpha), "lora_dropout": float(cfg.dropout),
+        "target_modules": sorted(cfg.targets), "bias": "none", "fan_in_fan_out": False,
+        "inference_mode": True, "base_model_name_or_path": base_model_name_or_path,
+    }
+    with open(os.path.join(out_dir, ADAPTER_CONFIG), "w") as f:
+        json.dump(config, f, indent=2)
+    return out_dir
+
+
+def _layers_from(entries: dict, where: str) -> list:
+    """{(layer, target): {'a', 'b'}} -> the adapters' layer list; raises on a missing
+    half of a pair or no tensors at all."""
+    if not entries:
+        raise ValueError(f"no LoRA tensors found in {where}")
+    layers = [{} for _ in range(max(i for i, _ in entries) + 1)]
+    for (i, target), entry in sorted(entries.items()):
+        if set(entry) != {"a", "b"}:
+            raise ValueError(f"layer {i} target {target}: missing lora_"
+                             f"{({'a', 'b'} - set(entry)).pop()}")
+        layers[i][target] = entry
+    return layers
+
+
+def load_peft_adapter(adapter_dir: str, *, device=None):
+    """An HF-PEFT LoRA adapter directory (PEFT's own or ``save_peft_adapter``'s) ->
+    (adapters in fp32, LoraConfig). Any wrapper depth before ``layers.N.`` matches."""
+    from safetensors.torch import load_file
+
+    with open(os.path.join(adapter_dir, ADAPTER_CONFIG)) as f:
+        cfg_json = json.load(f)
+    entries: dict = {}
+    for key, val in load_file(os.path.join(adapter_dir, ADAPTER_FILE)).items():
+        m = _PEFT_KEY.search(key)
+        if m is None:
+            raise ValueError(f"unrecognized PEFT adapter key: {key}")
+        entry = entries.setdefault((int(m.group(1)), m.group(2)), {})
+        entry["a" if m.group(3) == "A" else "b"] = val.to(device=device, dtype=torch.float32)
+    layers = _layers_from(entries, adapter_dir)
+    cfg = LoraConfig(r=int(cfg_json.get("r", 16)), alpha=int(cfg_json.get("lora_alpha", 32)),
+                     dropout=float(cfg_json.get("lora_dropout", 0.0)),
+                     targets=tuple(sorted({t for layer in layers for t in layer})))
+    return {"layers": layers}, cfg
+
+
+def load_adapter(adapter_dir: str, *, device=None):
+    """A LoRA adapter directory in either format -> (adapters, LoraConfig or None): PEFT
+    when ``adapter_config.json`` is there, else the JAX package's legacy flat
+    safetensors (``layers/N/target/{a,b}``), which carries no config."""
+    if os.path.exists(os.path.join(adapter_dir, ADAPTER_CONFIG)):
+        return load_peft_adapter(adapter_dir, device=device)
+    from safetensors.numpy import load_file
+
+    entries: dict = {}
+    for key, val in load_file(os.path.join(adapter_dir, ADAPTER_FILE)).items():
+        m = _FLAT_KEY.fullmatch(key)
+        if m is None:
+            raise ValueError(f"unrecognized flat adapter key: {key}")
+        entries.setdefault((int(m.group(1)), m.group(2)), {})[m.group(3)] = val
+    jax_layout = {"layers": _layers_from(entries, adapter_dir)}
+    return lora_params(jax_layout, device=device, dtype=torch.float32), None

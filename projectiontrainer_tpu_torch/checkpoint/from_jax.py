@@ -8,6 +8,12 @@ Takes a JAX parameter tree whose leaves are numpy arrays (for example
   ``[D, p*p*C]`` (rows ordered patch row, patch column, channel, as ``conv_patchify``
   flattens them);
 - the tied embedding table becomes the LM head;
+- quantized linears (``ops/quant.py``) keep their bytes, transposed to ``[out, ...]``:
+  ``qvalues`` / ``qvalues_block`` ``[in, out]`` -> ``[out, in]``, ``packed_nf4``
+  ``[in/2, out]`` -> ``[out, in/2]``, ``block_scales`` ``[in/64, out]`` -> ``[out,
+  in/64]``; codes stay integer and scales fp32 whatever ``dtype`` asks;
+- LoRA adapters (``params['lora']``) become ``a`` ``[r, in]`` and ``b`` ``[out, r]``
+  (``lora_params``; ``lora_params_to_jax`` is the inverse);
 - the SigLIP dual tower (``siglip_params``) keeps the MAP head, whose probe is a plain
   tensor, and the logit scale and bias as fp32 [1] tensors;
 - a stage-1 or stage-2 train state (``steps.init_state`` plus the optax state of
@@ -44,10 +50,29 @@ def _t(x, device, dtype):
     return torch.tensor(x).to(device=device, dtype=dtype)
 
 
+_QUANT_KEYS = ("qvalues", "packed_nf4", "qvalues_block")
+
+
+def _quantized(tree: dict, device, dtype) -> dict:
+    """A JAX quantized linear -> the port's: 2-D leaves transposed, the same bytes;
+    only a bias takes ``dtype``."""
+    out = {}
+    for k, v in tree.items():
+        v = np.asarray(v)
+        if k == "bias":
+            out[k] = _t(v, device, dtype)
+        else:
+            out[k] = torch.tensor(np.ascontiguousarray(v.T if v.ndim == 2 else v)).to(device)
+    return out
+
+
 def _convert(tree, device, dtype):
     """Linear ``{'kernel' [in, out], 'bias'?}`` -> ``{'weight' [out, in], 'bias'?}``;
-    dicts and lists recursively; any other leaf as a tensor."""
+    a quantized linear as ``_quantized``; dicts and lists recursively; any other leaf
+    as a tensor."""
     if isinstance(tree, dict):
+        if any(k in tree for k in _QUANT_KEYS):
+            return _quantized(tree, device, dtype)
         if "kernel" in tree and np.ndim(tree["kernel"]) == 2:
             out = {"weight": _t(np.asarray(tree["kernel"]).T, device, dtype)}
             if "bias" in tree:
@@ -117,13 +142,31 @@ def decoder_params_to_jax(params: dict) -> dict:
     return conv(params)
 
 
+def lora_params(tree: dict, *, device=None, dtype=None) -> dict:
+    """JAX LoRA adapters ``{'layers': [{target: {'a' [in, r], 'b' [r, out]}}]}`` -> the
+    port's ``a`` [r, in], ``b`` [out, r]."""
+    return {"layers": [{t: {k: _t(np.asarray(x).T, device, dtype) for k, x in p.items()}
+                        for t, p in layer.items()} for layer in tree["layers"]]}
+
+
+def lora_params_to_jax(params: dict) -> dict:
+    """The port's LoRA adapters -> the JAX package's layout, contiguous CPU tensors."""
+    return {"layers": [{t: {k: x.detach().t().cpu().contiguous() for k, x in p.items()}
+                        for t, p in layer.items()} for layer in params["layers"]]}
+
+
 def vlm_params(tree: dict, *, device=None, tower_dtype=None, projector_dtype=None) -> dict:
-    return {
+    """A JAX VLM tree -> the port's; its ``lora`` subtree, when present, in the adapters'
+    own type."""
+    out = {
         "vision": vision_params(tree["vision"], device=device, dtype=tower_dtype),
         "projector": projector_params(tree["projector"], device=device,
                                       dtype=projector_dtype),
         "llm": decoder_params(tree["llm"], device=device, dtype=tower_dtype),
     }
+    if "lora" in tree:
+        out["lora"] = lora_params(tree["lora"], device=device)
+    return out
 
 
 def _same_fields(cls, cfg):
@@ -177,12 +220,13 @@ def _has_array(node) -> bool:
     return node is not None
 
 
-_GROUPS = {"vision": vision_params, "projector": projector_params, "llm": decoder_params}
+_GROUPS = {"vision": vision_params, "projector": projector_params, "llm": decoder_params,
+           "lora": lora_params}
 
 
 def _per_leaf(tree, device) -> dict:
     """A per-leaf optax state tree over a VLM's params -> {port path: tensor} for the
-    groups that hold arrays (each of vision, projector, llm trains whole or not at all;
+    groups that hold arrays (each of vision, projector, llm, lora trains whole or not at all;
     the tower's MAP head, which the VLM path does not run, is left out)."""
     out = {}
     for group, sub in tree.items():

@@ -10,6 +10,12 @@ yet epoch 0 changed it. A tied tensor is saved once, under its first path. Files
 ``<dir>/<name>.pt`` with name ``epoch_N``, ``best``, ``final`` or ``step_K`` (only the
 newest ``step_K`` is kept); ``manager.json`` records the best metric. ``save_periodic`` saves epoch N when N + 1 is a multiple of
 ``save_every_n_epochs`` and N >= ``min_save_epoch``.
+
+A QLoRA checkpoint holds no quantized leaf (they never train), so ``--resume``
+quantizes the base again from the snapshot: ``detect_quant_method`` reads the method
+from the newest checkpoint's metadata (the JAX package reads it from the stored
+tree's leaf names), and the CLIs let it override ``--quant_method``. Quantization is
+deterministic, so the resumed base is the saved run's bit for bit.
 """
 
 from __future__ import annotations
@@ -99,6 +105,25 @@ class CheckpointManager:
 
     def latest_step(self) -> Optional[int]:
         return self._numbered("step")
+
+    def _newest(self) -> Optional[str]:
+        """The checkpoint ``--resume`` reads first: the newest ``step_K``, else the
+        newest ``epoch_N``."""
+        if self.latest_step() is not None:
+            return f"step_{self.latest_step()}"
+        if self.latest_epoch() is not None:
+            return f"epoch_{self.latest_epoch()}"
+        return None
+
+    def detect_quant_method(self) -> Optional[str]:
+        """The ``quant_method`` the newest checkpoint's run quantized its base with, or
+        None (no checkpoint, or a dense base). The file is memory-mapped: no tensor is
+        read."""
+        name = self._newest()
+        if name is None:
+            return None
+        payload = torch.load(self._path(name), map_location="cpu", weights_only=True, mmap=True)
+        return payload.get("metadata", {}).get("quant_method")
 
     def has(self, name: str) -> bool:
         return os.path.exists(self._path(name))

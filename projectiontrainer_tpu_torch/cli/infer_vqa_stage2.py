@@ -3,9 +3,11 @@
 Counterpart of ``projectiontrainer_tpu/cli/infer_vqa_stage2.py``, with the same flags
 plus ``--device``. Per batch: bucket and left-pad the questions, run the
 [visual; question] prefix (tower -> projector -> embeds), beam decode, detokenize.
+``--adapter_path`` merges a LoRA adapter (PEFT, or the legacy flat format with the
+``--lora_r``/``--lora_alpha`` flags) into the dense base before the first batch.
 
-Not ported yet: ``--adapter_path`` (LoRA merge) raises; ``--approx_topk`` raises
-inside ``generate`` (the JAX package's TPU-only approximate top-k).
+Not ported: ``--approx_topk`` raises inside ``generate`` (the JAX package's TPU-only
+approximate top-k).
 """
 
 from __future__ import annotations
@@ -18,10 +20,11 @@ import time
 import numpy as np
 import torch
 
+from projectiontrainer_tpu_torch.checkpoint import export
 from projectiontrainer_tpu_torch.data.bucketing import DEFAULT_Q_BUCKETS, bucket_for, buckets_covering
 from projectiontrainer_tpu_torch.generate import GenerationConfig, generate
 from projectiontrainer_tpu_torch.models import vlm
-from projectiontrainer_tpu_torch.train import setup
+from projectiontrainer_tpu_torch.train import lora as lora_mod, setup
 from projectiontrainer_tpu_torch.utils.logging import setup_logging
 
 
@@ -39,7 +42,7 @@ def build_parser():
     p.add_argument("--llm_name", "--base_llm_name", dest="llm_name", type=str,
                    required=True)
     p.add_argument("--adapter_path", type=str, default=None,
-                   help="LoRA adapter directory (not ported yet: raises)")
+                   help="Directory containing adapter_model.safetensors (LoRA)")
     p.add_argument("--projector_path", type=str, required=True)
     p.add_argument("--img_size", type=int, default=384)
     p.add_argument("--batch_size", type=int, default=8)
@@ -60,9 +63,24 @@ def build_parser():
     return p
 
 
-def check_unported(args) -> None:
-    if args.adapter_path:
-        raise NotImplementedError("--adapter_path: LoRA merge not ported yet")
+def check_adapter(args) -> None:
+    """Fail before any model is built when ``--adapter_path`` names no directory."""
+    if args.adapter_path and not os.path.isdir(args.adapter_path):
+        raise FileNotFoundError(f"--adapter_path {args.adapter_path!r} is not a directory")
+
+
+def merge_adapter(args, params, logger) -> None:
+    """``--adapter_path``: merge the adapter into ``params['llm']`` (in place of the
+    tree's decoder; the JAX package's ``infer_vqa_stage2.py:139-147``). A legacy flat
+    adapter carries no config: ``--lora_r``/``--lora_alpha`` give its scaling."""
+    if not args.adapter_path:
+        return
+    device = params["llm"]["embed_tokens"]["embedding"].device
+    lora, lcfg = export.load_adapter(args.adapter_path, device=device)
+    if lcfg is None:
+        lcfg = lora_mod.LoraConfig(r=args.lora_r, alpha=args.lora_alpha)
+    params["llm"] = lora_mod.merge_into_decoder(params["llm"], lora, lcfg)
+    logger.info("merged LoRA adapters from %s", args.adapter_path)
 
 
 def generation_config(args, tokenizer) -> GenerationConfig:
@@ -130,12 +148,13 @@ def answer_batch(samples, vlm_cfg, params, tokenizer, *, image_root, image_root_
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    check_unported(args)
+    check_adapter(args)
     logger = setup_logging()
     vlm_cfg, params = setup.build_vlm(args.vision_model_name, args.llm_name,
                                       device=torch.device(args.device),
                                       stage1_projector_path=args.projector_path)
     tokenizer = setup.load_tokenizer(args.llm_name)
+    merge_adapter(args, params, logger)
     gen_cfg = generation_config(args, tokenizer)
 
     if args.image_path:

@@ -12,7 +12,8 @@ Counterpart of ``projectiontrainer_tpu/cli/serve.py``:
 Both workers enqueue on the default CUDA stream, so the card runs their work in
 enqueue order and no events are needed; overlapping them on side streams is later
 work. The service can be built from snapshot paths (``args``) or from a model
-already in memory (``model=(vlm_cfg, params, tokenizer)``).
+already in memory (``model=(vlm_cfg, params, tokenizer)``); either way
+``--adapter_path`` merges a LoRA adapter into the decoder first.
 
 Endpoints:
   POST /v1/vqa   {"image": <base64 jpeg/png> | "image_path": <server path>,
@@ -91,8 +92,9 @@ class VQAService:
 
     def __init__(self, args, logger, model=None):
         """``model``: an already built ``(vlm_cfg, params, tokenizer)``; None builds it
-        from ``args`` (snapshot paths, ``--device``)."""
-        vqa.check_unported(args)
+        from ``args`` (snapshot paths, ``--device``). ``--adapter_path`` merges into a
+        copy of the model's decoder tree (the given params are not changed)."""
+        vqa.check_adapter(args)
         self.args = args
         self.logger = logger
         if model is None:
@@ -102,7 +104,9 @@ class VQAService:
                 args.vision_model_name, args.llm_name, device=torch.device(args.device),
                 stage1_projector_path=args.projector_path)
             model = (vlm_cfg, params, setup.load_tokenizer(args.llm_name))
-        self.vlm_cfg, self.params, tokenizer = model
+        self.vlm_cfg, params, tokenizer = model
+        self.params = dict(params)
+        vqa.merge_adapter(args, self.params, logger)
         self.device = self.params["llm"]["embed_tokens"]["embedding"].device
         self.tokenizer = _LockedTokenizer(tokenizer)
         self.gen_cfg = vqa.generation_config(args, self.tokenizer)

@@ -6,25 +6,28 @@ Counterpart of ``projectiontrainer_tpu/cli/train_stage1.py`` with the same flags
     python -m projectiontrainer_tpu_torch.cli.train_stage1 --image_root ... \\
         --train_json ... --vision_model_name <local dir> --llm_name <local dir>
 
-Not ported yet, and refused: ``--enable_qlora`` (quantized base LLM),
-``--mesh_data``/``--mesh_model`` above 1 and ``--fsdp`` (multi-device runs), and
-``--num_loader_procs`` above 0 (the multi-process feeder).
+``--enable_qlora`` stores the frozen base LLM quantized by ``--quant_method``
+(nf4-mirror, nf4 or int8; no adapters in stage 1); with ``--resume`` the method the
+checkpoint was saved with wins.
+
+Not ported yet, and refused: ``--mesh_data``/``--mesh_model`` above 1 and ``--fsdp``
+(multi-device runs), and ``--num_loader_procs`` above 0 (the multi-process feeder).
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
 from projectiontrainer_tpu_torch.data import datasets
 from projectiontrainer_tpu_torch.core.config import Stage1Config, from_args, parser_for
-from projectiontrainer_tpu_torch.train import setup
+from projectiontrainer_tpu_torch.train import common, setup
 from projectiontrainer_tpu_torch.train.trainer_stage1 import Stage1Trainer
 from projectiontrainer_tpu_torch.utils.logging import setup_logging
 
 
 def check_supported(cfg) -> None:
-    if cfg.enable_qlora:
-        raise NotImplementedError("--enable_qlora: quantized base weights are not ported")
     if cfg.mesh_data > 1 or cfg.mesh_model > 1 or cfg.fsdp:
         raise NotImplementedError("--mesh_data/--mesh_model above 1 and --fsdp: "
                                   "multi-device training is not ported")
@@ -37,8 +40,11 @@ def main(argv=None):
     check_supported(cfg)
     logger = setup_logging()
     device = torch.device(cfg.device)
+    common.resume_quant_method(cfg, os.path.join(cfg.output_dir, "checkpoints"), logger)
     vlm_cfg, params = setup.build_vlm(cfg.vision_model_name, cfg.llm_name, device=device,
-                                      expansion_factor=cfg.expansion_factor, seed=cfg.seed)
+                                      expansion_factor=cfg.expansion_factor, seed=cfg.seed,
+                                      quantize_llm=cfg.enable_qlora,
+                                      quant_method=cfg.quant_method)
     tokenizer = setup.load_tokenizer(cfg.llm_name)
 
     samples = datasets.load_manifest(cfg.train_json)

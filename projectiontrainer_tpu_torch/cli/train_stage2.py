@@ -8,27 +8,36 @@ recipe:
         --train_json ... --vision_model_name <local dir> --llm_name <local dir> \\
         --unfreeze_llm --unfreeze_projection_layer --train_ve_first_epoch
 
-Not ported yet, and refused: ``--enable_qlora`` and ``--resume_qlora_adapter_path``
-(LoRA adapters and quantized weights), ``--remat dots``, ``--mesh_data``/
-``--mesh_model`` above 1 and ``--fsdp`` (multi-device runs), and ``--num_loader_procs``
-above 0 (the multi-process feeder).
+and the QLoRA recipe of the reference's launcher (LoRA r16/alpha32/dropout 0.05 on
+q/k/v/o/gate/up/down over a base quantized by ``--quant_method``):
+
+    python -m projectiontrainer_tpu_torch.cli.train_stage2 ... --enable_qlora \
+        --quant_method nf4-mirror --lora_r 16 --lora_alpha 32 --lora_dropout 0.05
+
+``--resume_qlora_adapter_path`` starts from a saved adapter (PEFT or the legacy flat
+format); ``--resume`` with ``--enable_qlora`` quantizes the base by the method the
+checkpoint was saved with.
+
+Not ported yet, and refused: ``--remat dots``, ``--mesh_data``/``--mesh_model`` above
+1 and ``--fsdp`` (multi-device runs), and ``--num_loader_procs`` above 0 (the
+multi-process feeder).
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 
+from projectiontrainer_tpu_torch.checkpoint import export
 from projectiontrainer_tpu_torch.core.config import Stage2Config, from_args, parser_for
 from projectiontrainer_tpu_torch.data import datasets
-from projectiontrainer_tpu_torch.train import setup
+from projectiontrainer_tpu_torch.train import common, setup
 from projectiontrainer_tpu_torch.train.trainer_stage2 import Stage2Trainer
 from projectiontrainer_tpu_torch.utils.logging import setup_logging
 
 
 def check_supported(cfg) -> None:
-    if cfg.enable_qlora or cfg.resume_qlora_adapter_path:
-        raise NotImplementedError("--enable_qlora/--resume_qlora_adapter_path: LoRA adapters "
-                                  "and quantized weights are not ported")
     if cfg.remat == "dots":
         raise NotImplementedError("--remat dots (save the matmul outputs) is not ported")
     if cfg.mesh_data > 1 or cfg.mesh_model > 1 or cfg.fsdp:
@@ -43,10 +52,21 @@ def main(argv=None):
     check_supported(cfg)
     logger = setup_logging()
     device = torch.device(cfg.device)
+    common.resume_quant_method(cfg, os.path.join(cfg.output_dir, "checkpoints"), logger)
     vlm_cfg, params = setup.build_vlm(cfg.vision_model_name, cfg.llm_name, device=device,
                                       stage1_projector_path=cfg.stage1_projector_path or None,
-                                      seed=cfg.seed)
+                                      seed=cfg.seed, quantize_llm=cfg.enable_qlora,
+                                      quant_method=cfg.quant_method)
     tokenizer = setup.load_tokenizer(cfg.llm_name)
+    if cfg.resume_qlora_adapter_path:
+        # a reference run's language_model/ (PEFT) or an adapter of either package
+        params["lora"], loaded = export.load_adapter(cfg.resume_qlora_adapter_path,
+                                                     device=device)
+        if loaded is not None and (loaded.r != cfg.lora_r or loaded.alpha != cfg.lora_alpha):
+            logger.warning("adapter_config.json says r=%d alpha=%d but the flags ask r=%d "
+                           "alpha=%d: the flags win (alpha/r scales the adapter)",
+                           loaded.r, loaded.alpha, cfg.lora_r, cfg.lora_alpha)
+        logger.info("resumed LoRA adapters from %s", cfg.resume_qlora_adapter_path)
 
     def make(path):
         return datasets.Stage2VQADataset.from_json(

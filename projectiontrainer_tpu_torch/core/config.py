@@ -3,9 +3,9 @@
 Counterpart of ``projectiontrainer_tpu/core/config.py`` for the stage-0, stage-1 and
 stage-2 paths (``CommonConfig``, ``Stage0Config``, ``Stage1Config``, ``Stage2Config``,
 ``parser_for``, ``from_args``): the same fields, flag names and defaults, plus the
-port's ``--device``. Flags whose machinery is not ported yet (``--enable_qlora``,
-``--resume_qlora_adapter_path``, ``--remat dots``, ``--mesh_data``/``--mesh_model``
-above 1, ``--fsdp``) parse as in JAX; the CLIs raise on them.
+port's ``--device``. Flags whose machinery is not ported yet (``--remat dots``,
+``--mesh_data``/``--mesh_model`` above 1, ``--fsdp``) parse as in JAX; the CLIs raise
+on them.
 """
 
 from __future__ import annotations
@@ -73,8 +73,8 @@ class Stage1Config(CommonConfig):
     train_val_split: float = 0.0
     max_caption_len: int = 512
     save_every_n_epochs: int = 2
-    enable_qlora: bool = False       # quantized base LLM (not ported)
-    quant_method: str = "nf4-mirror"
+    enable_qlora: bool = False       # quantized frozen base LLM (ops/quant.py)
+    quant_method: str = "nf4-mirror"  # nf4-mirror | nf4 | int8
     expansion_factor: int = 10
     # wandb.watch equivalent: per-parameter projector gradient norms + histograms
     # every watch_log_freq steps (reference: train_projection_stage1.py:359-370,
@@ -95,13 +95,14 @@ class Stage2Config(CommonConfig):
     stage1_projector_path: str = ""
     max_q_len: int = 128
     max_a_len: int = 512
-    enable_qlora: bool = False       # quantized base LLM + LoRA adapters (not ported)
-    quant_method: str = "nf4-mirror"
+    enable_qlora: bool = False       # quantized base LLM + LoRA adapters
+    quant_method: str = "nf4-mirror"  # nf4-mirror | nf4 | int8
     unfreeze_projection_layer: bool = False
     unfreeze_llm: bool = False
     # the vision tower trains in epoch 0 and is frozen from epoch 1 on
     train_ve_first_epoch: bool = False
-    resume_qlora_adapter_path: Optional[str] = None  # not ported
+    # start from a saved adapter (PEFT directory or the legacy flat format)
+    resume_qlora_adapter_path: Optional[str] = None
     lora_r: int = 16
     lora_alpha: int = 32
     lora_dropout: float = 0.05

@@ -1,5 +1,5 @@
-"""GQA + RoPE causal decoder (Gemma3 family): the training forward and the inference
-paths.
+"""GQA + RoPE causal decoder (Gemma3 and Qwen3 families): the training forward and the
+inference paths.
 
 Counterpart of ``projectiontrainer_tpu/models/decoder.py``: ``embed``, the full-sequence
 forward (differentiable; per-layer remat through ``torch.utils.checkpoint``), the
@@ -9,7 +9,11 @@ nested dict shaped like the JAX tree; linear weights are ``[out, in]``, and ``lm
 is always present (the embedding table itself when the head is tied). Serving calls
 the forward under ``torch.no_grad`` (``generate/decode.py``).
 
-Not ported yet: LoRA adapters, quantized base weights, ``remat='dots'``.
+A projection goes through ``_proj``, the hook of the JAX package's ``decoder.py:264``:
+a quantized leaf (``ops/quant.py``) is dequantized into its product, and a layer with
+LoRA adapters (``train/lora.py``) adds their delta, with a dropout mask seeded by
+(``lora_seed``, layer, target) so that a remat recompute draws the forward's bits.
+Not ported yet: ``remat='dots'``.
 
 Caches are updated IN PLACE (the JAX package returns new arrays): the prefill writes
 its K/V into the monolithic cache and each decode step writes slot ``t`` of the
@@ -33,6 +37,8 @@ from projectiontrainer_tpu_torch.ops.decode_attention import (
     decode_attention, decode_attention_reference,
 )
 from projectiontrainer_tpu_torch.ops.flash_attention import flash_attention
+from projectiontrainer_tpu_torch.ops import quant
+from projectiontrainer_tpu_torch.train import lora as lora_mod
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,14 +101,45 @@ def gemma3_config(
     )
 
 
+def qwen3_config(
+    *, vocab_size=151_936, hidden_size=4096, intermediate_size=12_288, num_layers=36,
+    num_heads=32, num_kv_heads=8, head_dim=128, rope_theta=1_000_000.0,
+    tie_embeddings=False, **kw,
+) -> DecoderConfig:
+    """Qwen3 defaults (8B-shaped): pre-LN plain RMSNorm, SiLU, q/k norms, one rope
+    theta, no embedding scale, an untied head."""
+    return DecoderConfig(
+        vocab_size=vocab_size, hidden_size=hidden_size, intermediate_size=intermediate_size,
+        num_layers=num_layers, num_heads=num_heads, num_kv_heads=num_kv_heads,
+        head_dim=head_dim, act="silu", rope_theta=rope_theta,
+        layer_types=("full",) * num_layers, sliding_window=None,
+        query_pre_attn_scalar=None, qk_norm=True, rmsnorm_zero_centered=False,
+        sandwich_norms=False, embed_scale=False, tie_embeddings=tie_embeddings, **kw,
+    )
+
+
 def from_hf_config(cfg: dict) -> DecoderConfig:
     """DecoderConfig from a Gemma3 ``config.json`` dict (text-only, or the multimodal
-    wrapper's ``text_config``)."""
+    wrapper's ``text_config``) or a Qwen3 one."""
     if cfg.get("model_type") == "gemma3":
         cfg = cfg["text_config"]
+    if cfg.get("model_type") == "qwen3":
+        n = cfg["num_hidden_layers"]
+        return DecoderConfig(
+            vocab_size=cfg["vocab_size"], hidden_size=cfg["hidden_size"],
+            intermediate_size=cfg["intermediate_size"], num_layers=n,
+            num_heads=cfg["num_attention_heads"], num_kv_heads=cfg["num_key_value_heads"],
+            head_dim=cfg.get("head_dim") or cfg["hidden_size"] // cfg["num_attention_heads"],
+            rms_norm_eps=cfg.get("rms_norm_eps", 1e-6), act="silu",
+            rope_theta=cfg.get("rope_theta", 1_000_000.0), layer_types=("full",) * n,
+            sliding_window=None, query_pre_attn_scalar=None, qk_norm=True,
+            rmsnorm_zero_centered=False, sandwich_norms=False, embed_scale=False,
+            tie_embeddings=cfg.get("tie_word_embeddings", False),
+            attention_bias=cfg.get("attention_bias", False),
+        )
     if cfg.get("model_type") != "gemma3_text":
         raise ValueError(f"unsupported model_type {cfg.get('model_type')!r} "
-                         "(the port reads Gemma3 decoders)")
+                         "(the port reads Gemma3 and Qwen3 decoders)")
     n = cfg["num_hidden_layers"]
     if cfg.get("layer_types"):
         layer_types = tuple("sliding" if t == "sliding_attention" else "full"
@@ -132,37 +169,47 @@ def from_hf_config(cfg: dict) -> DecoderConfig:
 
 def init(gen: torch.Generator, cfg: DecoderConfig, dtype=torch.float32, device=None):
     """Random decoder parameters, distributed like the JAX package's ``init``."""
-    h, q_dim = cfg.hidden_size, cfg.num_heads * cfg.head_dim
-    kv_dim = cfg.num_kv_heads * cfg.head_dim
-    zc = cfg.rmsnorm_zero_centered
-    lin = lambda i, o, bias=cfg.attention_bias: L.init_linear(gen, i, o, bias=bias,
-                                                             dtype=dtype, device=device)
-    norm = lambda d: L.init_rmsnorm(d, dtype=dtype, device=device, zero_centered=zc)
+    h = cfg.hidden_size
     params = {
         "embed_tokens": L.init_embedding(gen, cfg.vocab_size, h, dtype=dtype, device=device),
-        "final_norm": norm(h),
+        "final_norm": L.init_rmsnorm(h, dtype=dtype, device=device,
+                                     zero_centered=cfg.rmsnorm_zero_centered),
         "layers": [],
     }
-    params["lm_head"] = ({"weight": params["embed_tokens"]["embedding"]}
-                         if cfg.tie_embeddings else lin(h, cfg.vocab_size, False))
+    params["lm_head"] = ({"weight": params["embed_tokens"]["embedding"]} if cfg.tie_embeddings
+                         else L.init_linear(gen, h, cfg.vocab_size, bias=False, dtype=dtype,
+                                            device=device))
     for _ in range(cfg.num_layers):
-        layer = {
-            "input_norm": norm(h),
-            "attn": {"q_proj": lin(h, q_dim), "k_proj": lin(h, kv_dim),
-                     "v_proj": lin(h, kv_dim), "o_proj": lin(q_dim, h)},
-            "mlp": {"gate_proj": lin(h, cfg.intermediate_size, False),
-                    "up_proj": lin(h, cfg.intermediate_size, False),
-                    "down_proj": lin(cfg.intermediate_size, h, False)},
-            "post_attn_norm": norm(h),
-        }
-        if cfg.qk_norm:
-            layer["attn"]["q_norm"] = norm(cfg.head_dim)
-            layer["attn"]["k_norm"] = norm(cfg.head_dim)
-        if cfg.sandwich_norms:
-            layer["pre_ffw_norm"] = norm(h)
-            layer["post_ffw_norm"] = norm(h)
-        params["layers"].append(layer)
+        params["layers"].append(init_layer(gen, cfg, dtype, device))
     return params
+
+
+def init_layer(gen: torch.Generator, cfg: DecoderConfig, dtype=torch.float32, device=None):
+    """One layer's random parameters (``init`` draws them layer after layer from
+    ``gen``, so a caller may build a decoder one layer at a time, quantizing each as it
+    comes, and draw the same weights)."""
+    h, q_dim = cfg.hidden_size, cfg.num_heads * cfg.head_dim
+    kv_dim = cfg.num_kv_heads * cfg.head_dim
+    lin = lambda i, o, bias=cfg.attention_bias: L.init_linear(gen, i, o, bias=bias,
+                                                             dtype=dtype, device=device)
+    norm = lambda d: L.init_rmsnorm(d, dtype=dtype, device=device,
+                                    zero_centered=cfg.rmsnorm_zero_centered)
+    layer = {
+        "input_norm": norm(h),
+        "attn": {"q_proj": lin(h, q_dim), "k_proj": lin(h, kv_dim),
+                 "v_proj": lin(h, kv_dim), "o_proj": lin(q_dim, h)},
+        "mlp": {"gate_proj": lin(h, cfg.intermediate_size, False),
+                "up_proj": lin(h, cfg.intermediate_size, False),
+                "down_proj": lin(cfg.intermediate_size, h, False)},
+        "post_attn_norm": norm(h),
+    }
+    if cfg.qk_norm:
+        layer["attn"]["q_norm"] = norm(cfg.head_dim)
+        layer["attn"]["k_norm"] = norm(cfg.head_dim)
+    if cfg.sandwich_norms:
+        layer["pre_ffw_norm"] = norm(h)
+        layer["post_ffw_norm"] = norm(h)
+    return layer
 
 
 # ---------------------------------------------------------------------------- forward
@@ -188,12 +235,25 @@ def _norm(p, x, cfg: DecoderConfig):
     return L.rmsnorm(p, x, eps=cfg.rms_norm_eps, zero_centered=cfg.rmsnorm_zero_centered)
 
 
+def _proj(lp, name, x, lora):
+    """One projection: a quantized leaf through ``quant.quantized_matmul``, a dense one
+    through ``L.linear``; plus the layer's LoRA delta when ``lora`` = (its adapters,
+    LoraConfig, {target: dropout seed} or None) holds one for ``name``."""
+    p = lp[name]
+    y = quant.quantized_matmul(p, x) if quant.is_quantized(p) else L.linear(p, x)
+    if lora is None:
+        return y
+    layer, cfg, seeds = lora
+    return lora_mod.apply_delta(layer, name, cfg, x, y,
+                                seed=None if seeds is None else seeds[name])
+
+
 def _attention_block(lp, cfg: DecoderConfig, x, sin, cos, *, layer_type, kv_mask,
-                     q_offset, cache=None, prefix_len=None):
+                     q_offset, cache=None, prefix_len=None, lora=None):
     b, t, _ = x.shape
-    q = L.linear(lp["q_proj"], x).reshape(b, t, cfg.num_heads, cfg.head_dim)
-    k = L.linear(lp["k_proj"], x).reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
-    v = L.linear(lp["v_proj"], x).reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+    q = _proj(lp, "q_proj", x, lora).reshape(b, t, cfg.num_heads, cfg.head_dim)
+    k = _proj(lp, "k_proj", x, lora).reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+    v = _proj(lp, "v_proj", x, lora).reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = _norm(lp["q_norm"], q, cfg)
         k = _norm(lp["k_norm"], k, cfg)
@@ -211,7 +271,7 @@ def _attention_block(lp, cfg: DecoderConfig, x, sin, cos, *, layer_type, kv_mask
         out = attend(q[:, 0].to(cache["kp"].dtype), cache["kp"], cache["vp"], kg, vg,
                      prefix_mask=kv_mask, t=q_offset, prefix_len=prefix_len,
                      scale=cfg.attn_scale, window=window).to(q.dtype)
-        return L.linear(lp["o_proj"], out.reshape(b, t, -1)), cache
+        return _proj(lp, "o_proj", out.reshape(b, t, -1), lora), cache
 
     if cache is not None:  # monolithic cache: write this call's K/V at q_offset
         cache["k"][:, q_offset:q_offset + t] = k.to(cache["k"].dtype)
@@ -225,32 +285,33 @@ def _attention_block(lp, cfg: DecoderConfig, x, sin, cos, *, layer_type, kv_mask
     else:
         out = dot_product_attention(q, k, v, scale=cfg.attn_scale, causal=True,
                                     window=window, kv_mask=kv_mask, q_offset=q_offset)
-    return L.linear(lp["o_proj"], out.reshape(b, t, -1)), cache
+    return _proj(lp, "o_proj", out.reshape(b, t, -1), lora), cache
 
 
-def _mlp_block(lp, cfg: DecoderConfig, x):
-    gate = L.ACTIVATIONS[cfg.act](L.linear(lp["gate_proj"], x))
-    return L.linear(lp["down_proj"], gate * L.linear(lp["up_proj"], x))
+def _mlp_block(lp, cfg: DecoderConfig, x, lora=None):
+    gate = L.ACTIVATIONS[cfg.act](_proj(lp, "gate_proj", x, lora))
+    return _proj(lp, "down_proj", gate * _proj(lp, "up_proj", x, lora), lora)
 
 
 def _layer(lp, cfg: DecoderConfig, x, sin, cos, *, layer_type, kv_mask, q_offset,
-           cache, prefix_len):
+           cache, prefix_len, lora=None):
     h, _ = _attention_block(
         lp["attn"], cfg, _norm(lp["input_norm"], x, cfg), sin, cos,
         layer_type=layer_type, kv_mask=kv_mask, q_offset=q_offset, cache=cache,
-        prefix_len=prefix_len,
+        prefix_len=prefix_len, lora=lora,
     )
     if cfg.sandwich_norms:
         x = x + _norm(lp["post_attn_norm"], h, cfg)
-        h = _mlp_block(lp["mlp"], cfg, _norm(lp["pre_ffw_norm"], x, cfg))
+        h = _mlp_block(lp["mlp"], cfg, _norm(lp["pre_ffw_norm"], x, cfg), lora)
         return x + _norm(lp["post_ffw_norm"], h, cfg)
     x = x + h
-    return x + _mlp_block(lp["mlp"], cfg, _norm(lp["post_attn_norm"], x, cfg))
+    return x + _mlp_block(lp["mlp"], cfg, _norm(lp["post_attn_norm"], x, cfg), lora)
 
 
 def forward(params, cfg: DecoderConfig, *, input_ids=None, inputs_embeds=None,
             attention_mask=None, positions=None, cache=None, q_offset: int = 0,
-            prefix_len: Optional[int] = None, remat: Union[bool, int, str] = False):
+            prefix_len: Optional[int] = None, remat: Union[bool, int, str] = False,
+            lora: Optional[dict] = None, lora_cfg=None, lora_seed: Optional[int] = None):
     """Run the decoder -> (hidden_states, cache).
 
     Without a cache: a full-sequence forward, differentiable with respect to
@@ -262,7 +323,12 @@ def forward(params, cfg: DecoderConfig, *, input_ids=None, inputs_embeds=None,
     cached and ``attention_mask`` covers the whole cache. With a split cache
     (``split_cache``): ``q_offset`` is the 0-based decode step, ``attention_mask`` the
     [B, P] prefix mask, ``prefix_len`` the real prefix length, and ``positions`` must
-    be given. Cache paths do not remat."""
+    be given. Cache paths do not remat.
+
+    ``lora`` (``{'layers': [...]}``, ``train/lora.py``) with ``lora_cfg`` adds the
+    adapters' deltas to every adapted projection; ``lora_seed`` (an int, the train
+    step's) turns on their dropout when ``lora_cfg.dropout > 0``: layer i, target t
+    draws its mask from ``lora.dropout_seed(lora_seed, i, t)``. None is no dropout."""
     if remat == "dots":
         raise NotImplementedError("remat='dots' is not ported; use True, False or an int")
     x = embed(params, cfg, input_ids) if inputs_embeds is None else inputs_embeds
@@ -272,12 +338,18 @@ def forward(params, cfg: DecoderConfig, *, input_ids=None, inputs_embeds=None,
     kv_mask = None if attention_mask is None else attention_mask.bool()
     rope = {lt: _rope_for_layer(cfg, lt, positions) for lt in set(cfg.layer_types)}
 
+    dropout = lora is not None and lora_seed is not None and lora_cfg.dropout > 0.0
     for i, lp in enumerate(params["layers"]):
         layer_type = cfg.layer_types[i]
         sin, cos = rope[layer_type]
+        layer_lora = None
+        if lora is not None:
+            seeds = ({t: lora_mod.dropout_seed(lora_seed, i, t) for t in lora_mod.TARGETS}
+                     if dropout else None)
+            layer_lora = (lora["layers"][i], lora_cfg, seeds)
         fn = functools.partial(_layer, lp, cfg, layer_type=layer_type, kv_mask=kv_mask,
                                q_offset=q_offset, cache=None if cache is None else cache[i],
-                               prefix_len=prefix_len)
+                               prefix_len=prefix_len, lora=layer_lora)
         # True == 1 in Python: test for bool before the int (partial remat) branch
         layer_remat = remat if isinstance(remat, bool) else i < int(remat)
         if layer_remat and cache is None and torch.is_grad_enabled():
@@ -339,8 +411,10 @@ def split_cache(prefix_cache, cfg: DecoderConfig, rows: int, gen_len: int,
 
 def params_from_hf_state_dict(cfg: DecoderConfig, sd: dict, *, device=None,
                               dtype=None) -> dict:
-    """An HF Gemma3 (``Gemma3ForCausalLM`` / text model) state dict of tensors or numpy
-    arrays -> decoder params (torch layout, so linear weights pass unchanged)."""
+    """An HF Gemma3 or Qwen3 (``*ForCausalLM`` / text model) state dict of tensors or
+    numpy arrays -> decoder params (torch layout, so linear weights pass unchanged). An
+    untied head missing from the state dict (a bare text model) starts as a copy of the
+    embedding table, as in the JAX package."""
     def get(name):
         for key in ("model." + name, name):
             if key in sd:
@@ -358,9 +432,11 @@ def params_from_hf_state_dict(cfg: DecoderConfig, sd: dict, *, device=None,
               "layers": []}
     if cfg.tie_embeddings:
         params["lm_head"] = {"weight": table}
-    else:
+    elif "lm_head.weight" in sd:
         params["lm_head"] = {"weight": torch.as_tensor(sd["lm_head.weight"]).to(
             device=device, dtype=dtype)}
+    else:
+        params["lm_head"] = {"weight": table.clone()}
     for i in range(cfg.num_layers):
         pre = f"layers.{i}."
         layer = {

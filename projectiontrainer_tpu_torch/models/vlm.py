@@ -102,10 +102,13 @@ def build_sequence(params, cfg: VLMConfig, visual: torch.Tensor, *, pad_token_id
 
 
 def forward_logits(params, cfg: VLMConfig, inputs_embeds, attention_mask, *,
-                   remat: Union[bool, int] = False) -> torch.Tensor:
-    """The decoder over a built sequence -> fp32 logits [B, T, V]."""
+                   remat: Union[bool, int] = False, lora_cfg=None) -> torch.Tensor:
+    """The decoder over a built sequence -> fp32 logits [B, T, V]; with ``lora_cfg``,
+    through the adapters at ``params['lora']`` (unmerged, no dropout)."""
+    lora = params.get("lora") if lora_cfg is not None else None
     hidden, _ = dec.forward(params["llm"], cfg.llm, inputs_embeds=inputs_embeds,
-                            attention_mask=attention_mask, remat=remat)
+                            attention_mask=attention_mask, remat=remat, lora=lora,
+                            lora_cfg=lora_cfg)
     return dec.logits(params["llm"], cfg.llm, hidden)
 
 
@@ -113,7 +116,9 @@ def forward_logits(params, cfg: VLMConfig, inputs_embeds, attention_mask, *,
 def question_prefix(params, cfg: VLMConfig, pixel_values: torch.Tensor,
                     question_ids: torch.Tensor, pad_token_id: int):
     """[visual; question] generation prefix -> (embeds [B, P, D], mask [B, P] int32).
-    ``question_ids`` must be LEFT-padded, so the last slot is the last real token."""
+    ``question_ids`` must be LEFT-padded, so the last slot is the last real token. The
+    decoder does not run here (the embedding table only), so LoRA adapters, merged or
+    not, play no part in the prefix."""
     visual = visual_embeds(params, cfg, pixel_values)
     q_emb = dec.embed(params["llm"], cfg.llm, question_ids).to(visual.dtype)
     embeds = torch.cat([visual, q_emb], dim=1)

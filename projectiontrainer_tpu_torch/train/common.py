@@ -9,11 +9,13 @@ processes the way the JAX package counts hosts.
 from __future__ import annotations
 
 import math
+import os
 from typing import Iterator
 
 import numpy as np
 import torch
 
+from projectiontrainer_tpu_torch.checkpoint.manager import CheckpointManager
 from projectiontrainer_tpu_torch.core.config import CommonConfig
 from projectiontrainer_tpu_torch.data import pipeline as pipe
 
@@ -74,3 +76,17 @@ def real_rows(batch) -> np.ndarray:
         first = next(iter(batch.values()))
         return np.ones((first.shape[0],), bool)
     return to_host(w) > 0
+
+
+def resume_quant_method(cfg, ckpt_dir: str, logger) -> None:
+    """Under ``--resume --enable_qlora``, set ``cfg.quant_method`` to the method the
+    newest checkpoint in ``ckpt_dir`` was saved with (the JAX package's
+    ``cli/train_stage{1,2}.py``): the base is quantized again from the snapshot and
+    must be the one the saved adapters trained over."""
+    if not (cfg.resume and cfg.enable_qlora and os.path.isdir(ckpt_dir)):
+        return
+    saved = CheckpointManager(ckpt_dir).detect_quant_method()
+    if saved is not None and saved != cfg.quant_method:
+        logger.warning("the checkpoint in %s was saved with quant_method=%s; overriding the "
+                       "configured %s", ckpt_dir, saved, cfg.quant_method)
+        cfg.quant_method = saved

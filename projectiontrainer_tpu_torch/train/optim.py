@@ -14,7 +14,8 @@ Counterpart of ``projectiontrainer_tpu/train/optim.py`` for stages 0-2:
   ``min(1, max_norm / (norm + 1e-6))``;
 - gradient accumulation as ``optax.MultiSteps``: a running mean of the micro-batch
   gradients, one update every ``accum_steps`` calls, nothing in between;
-- frozen leaves (label ``frozen``) get no state and never change.
+- frozen leaves (label ``frozen``) and integer leaves (a quantized base's codes) get
+  no state and never change.
 
 ``MaskedAdamW.update`` updates the params IN PLACE (optax returns new arrays). Its
 state is a plain dict of tensors keyed by parameter path, so ``torch.save`` stores
@@ -82,8 +83,10 @@ class MaskedAdamW:
         state) hands over its count and mini-step and each tensor whose path, shape and
         type are unchanged (``steps.swap_optimizer``)."""
         unique = {p for p, _ in unique_leaves_with_paths(params)}
-        trainable = [p for p in self.trainable if p in unique]
         leaves = dict(leaves_with_paths(params))
+        # integer leaves (quantized codes) never train: no moments, no accumulator (the
+        # JAX package's float-safe MultiSteps keeps fp32 zeros for them instead)
+        trainable = [p for p in self.trainable if p in unique and leaves[p].is_floating_point()]
         carry = carry or {}
 
         def slots(key):

@@ -44,10 +44,11 @@ def swap_optimizer(state: dict, new_tx) -> dict:
 def make_train_step(loss_fn: Callable, tx, *, trainable_mask=None,
                     watch_subtree: Optional[str] = None):
     """loss_fn(params, batch, rng) -> (loss, aux). Returns
-    step(state, batch, rng=None) -> (state, loss, aux).
+    step(state, batch, rng=None) -> (state, loss, aux); ``rng`` (an int, the step's
+    seed) reaches the loss, where it seeds the LoRA dropout.
 
-    Only the leaves that ``trainable_mask`` marks True (every floating leaf when it is
-    None) get ``requires_grad``: the backward computes no weight gradient for a frozen
+    Only the floating leaves that ``trainable_mask`` marks True (every floating leaf
+    when it is None) get ``requires_grad``; integer leaves (quantized codes) never do: the backward computes no weight gradient for a frozen
     leaf, while gradients still flow through frozen activations to the projector. A
     tensor held under two paths (the tied LM head) is one trainable leaf, under its
     first path: one gradient, the sum of both uses.
@@ -60,7 +61,7 @@ def make_train_step(loss_fn: Callable, tx, *, trainable_mask=None,
         params = state["params"]
         train = []
         for path, x in unique_leaves_with_paths(params):
-            on = x.is_floating_point() if mask is None else bool(mask[path])
+            on = x.is_floating_point() and (mask is None or bool(mask[path]))
             x.requires_grad_(on)
             if on:
                 train.append((path, x))
@@ -120,14 +121,17 @@ def _resolve_ce_impl(ce_impl: str, table_frozen: bool, hidden_size: Optional[int
 
 def _clm_loss_from_embeds(params, cfg: vlm.VLMConfig, embeds, mask, labels, *, remat,
                           logits_chunk: Optional[int], sample_weights=None,
-                          ce_impl: str = "chunked", loss_prefix: int = 0):
+                          ce_impl: str = "chunked", loss_prefix: int = 0, lora=None,
+                          lora_cfg=None, lora_seed: Optional[int] = None):
     """``loss_prefix``: the number of leading positions whose labels are statically
     -100 (the visual prefix in stage 1). Only pairs (hidden[i], labels[i + 1]) with
     i >= loss_prefix - 1 contribute, so the decoder output is cropped to that suffix
-    before the head: the same loss and gradients at about half the head's work."""
+    before the head: the same loss and gradients at about half the head's work.
+    ``lora``/``lora_cfg``/``lora_seed`` go to the decoder (``decoder.forward``)."""
     with span("decoder"):
         hidden, _ = dec.forward(params["llm"], cfg.llm, inputs_embeds=embeds,
-                                attention_mask=mask, remat=remat)
+                                attention_mask=mask, remat=remat, lora=lora,
+                                lora_cfg=lora_cfg, lora_seed=lora_seed)
     if loss_prefix > 1:
         hidden = hidden[:, loss_prefix - 1:]
         labels = labels[:, loss_prefix - 1:]
@@ -186,9 +190,9 @@ def _vis_remat(remat):
     return True if isinstance(remat, int) and not isinstance(remat, bool) else remat
 
 
-def stage2_loss(cfg: vlm.VLMConfig, pad_token_id: int, *, remat=True,
+def stage2_loss(cfg: vlm.VLMConfig, pad_token_id: int, *, lora_cfg=None, remat=True,
                 logits_chunk: Optional[int] = None, ce_impl: str = "auto",
-                table_frozen: bool = False, compute_dtype=None):
+                table_frozen: Optional[bool] = None, compute_dtype=None):
     """[visual; question; answer] answer-masked CLM loss (reference:
     Stage2/trainer.py:306-418). batch: {'pixel_values' [B, H, W, C], 'question_ids'
     [B, Tq], 'answer_ids' [B, Ta], 'sample_weight'?}, questions and answers
@@ -197,14 +201,22 @@ def stage2_loss(cfg: vlm.VLMConfig, pad_token_id: int, *, remat=True,
     Only answer tokens are supervised, so the head and CE run on the answer region
     alone (``loss_prefix`` = visual + question tokens). ``table_frozen`` says whether
     the vocab table is frozen: a training table gets the chunked CE under 'auto', and
-    'fused' raises. The tower runs with autograd when any of its leaves requires grad
-    (``--train_ve_first_epoch``'s epoch 0). LoRA is not ported."""
+    'fused' raises; it defaults to ``lora_cfg is not None`` (LoRA never trains the
+    table, JAX ``train/steps.py:306-307``), so the QLoRA recipe takes the fused CE
+    kernels on the card. The tower runs with autograd when any of its leaves requires
+    grad (``--train_ve_first_epoch``'s epoch 0).
+
+    ``lora_cfg`` runs the adapters at ``params['lora']``; the step's ``rng`` (an int;
+    the trainer passes the global step, as JAX's ``key(global_step)``) seeds their
+    dropout, and None (evaluation) turns it off."""
+    if table_frozen is None:
+        table_frozen = lora_cfg is not None
     _resolve_ce_impl(ce_impl, table_frozen=table_frozen, hidden_size=cfg.llm.hidden_size)
 
     def loss_fn(params, batch, rng=None):
-        del rng  # drives LoRA dropout in the JAX package
         if compute_dtype is not None:
             params = dtypes.cast_compute_params(params, compute_dtype)
+        lora = params.get("lora") if lora_cfg is not None else None
         visual = vlm.visual_embeds(params, cfg, batch["pixel_values"], remat=_vis_remat(remat))
         embeds, mask, labels = vlm.build_sequence(
             params, cfg, visual, pad_token_id=pad_token_id,
@@ -216,6 +228,7 @@ def stage2_loss(cfg: vlm.VLMConfig, pad_token_id: int, *, remat=True,
             sample_weights=batch.get("sample_weight"), ce_impl=impl,
             # visual and question labels are statically -100
             loss_prefix=visual.shape[1] + batch["question_ids"].shape[1],
+            lora=lora, lora_cfg=lora_cfg, lora_seed=None if lora is None else rng,
         )
         return loss, {"tokens": n_tok}
 

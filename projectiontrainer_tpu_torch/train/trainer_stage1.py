@@ -8,7 +8,9 @@ Stage1/projector_trainer.py:18-521):
 - per-epoch validation: loss, plus greedy captions generated from the visual tokens
   alone and their last-word accuracy (reference :291-448);
 - exports: reference-format ``projector_{best|epoch_N|final}.bin`` plus
-  ``projector_config.json``, and ``torch.save`` train state for ``--resume``.
+  ``projector_config.json``, and ``torch.save`` train state for ``--resume`` (its
+  metadata names the ``--quant_method`` of an ``--enable_qlora`` run, whose frozen
+  base ``train/setup.py`` quantized).
 
 Any dataset object with ``__len__`` and ``__getitem__`` returning ``{'pixel_values'
 [H, W, C] float32, 'caption_ids' [Tc] int}`` serves (the CLI's is
@@ -137,7 +139,7 @@ class Stage1Trainer:
                 loss_sum = loss if loss_sum is None else loss_sum + loss
                 n_losses += 1
                 if cfg.save_steps and self.global_step % cfg.save_steps == 0:
-                    self.ckpt.save_step(self.global_step, self.state, {"epoch": epoch})
+                    self.ckpt.save_step(self.global_step, self.state, self._meta(epoch))
                 if self.global_step % cfg.logging_steps == 0:
                     loss_f = float(loss)  # host-device sync point
                     self.timer.window_end()
@@ -156,18 +158,18 @@ class Stage1Trainer:
 
             if self.val_dataset is not None and len(self.val_dataset):
                 val = self.evaluate(epoch)
-                if self.ckpt.save_best(val["val/loss"], self.state, {"epoch": epoch}):
+                if self.ckpt.save_best(val["val/loss"], self.state, self._meta(epoch)):
                     best_val = val["val/loss"]
                     self._export_projector("best")
             if cfg.save_every_n_epochs and (epoch + 1) % cfg.save_every_n_epochs == 0:
-                self.ckpt.save_periodic(epoch, self.state, {"epoch": epoch})
+                self.ckpt.save_periodic(epoch, self.state, self._meta(epoch))
                 self._export_projector(f"epoch_{epoch}")
 
         self.profiler.close()
         if self.profiler.breakdown:
             self.logger.log({f"profile/{k}": v for k, v in self.profiler.breakdown.items()},
                             step=self.global_step)
-        self.ckpt.save_final(self.state)
+        self.ckpt.save_final(self.state, self._meta(cfg.num_epochs - 1))
         self._export_projector("final")
         return {"train/epoch_loss": epoch_loss, "best_val_loss": best_val,
                 **self.timer.summary()}
@@ -206,6 +208,11 @@ class Stage1Trainer:
                 for row in common.to_host(ids)]
 
     # ------------------------------------------------------------------ save
+
+    def _meta(self, epoch: int) -> dict:
+        """A train state's metadata: its epoch and the base's quant method (or None)."""
+        return {"epoch": epoch,
+                "quant_method": self.cfg.quant_method if self.cfg.enable_qlora else None}
 
     def _export_projector(self, tag: str):
         if process_index_count()[0] != 0:

@@ -1,11 +1,16 @@
-"""Stage 2 trainer: VQA instruction fine-tuning of the LLM, the projector and, under
-``--train_ve_first_epoch``, the vision tower in epoch 0.
+"""Stage 2 trainer: VQA instruction fine-tuning of the LLM (full, or LoRA adapters over
+a quantized base), the projector and, under ``--train_ve_first_epoch``, the vision
+tower in epoch 0.
 
 Counterpart of ``projectiontrainer_tpu/train/trainer_stage2.py`` (reference:
-Stage2/trainer.py:63-769) on one device; LoRA and quantized weights are not ported:
+Stage2/trainer.py:63-769) on one device:
 
 - the full-joint trainables are stored in ``--master_dtype`` (fp32 masters by
   default, bf16 compute from ``--mixed_precision``);
+- ``--enable_qlora``: the base (quantized by ``train/setup.py``) stays frozen and
+  fp32 LoRA adapters (``train/lora.py``, initialised from ``--seed`` when ``params``
+  has none) train, their dropout seeded by the global step; the vocab table is frozen,
+  so the fused CE kernels run on the card;
 - per-epoch global bucket plans (``data/bucketing.py``): batches padded to static
   (question, answer) buckets, ``sample_weight`` 0 on a plan's filler rows;
 - two step variants under ``--train_ve_first_epoch`` (the tower trainable in epoch
@@ -14,10 +19,13 @@ Stage2/trainer.py:63-769) on one device; LoRA and quantized weights are not port
 - per-module gradient clipping (1.0), AdamW + cosine warmup, accumulation;
 - per-epoch evaluation: the loss, and answers generated from [visual; question]
   (beam-multinomial sampling by default) written to
-  ``validation_examples/epoch_N_examples.txt``;
-- ``checkpoint-epoch_N/`` in the reference's layout and ``torch.save`` train states
-  (every leaf that trains at any point of the run) for ``--resume``, also mid-epoch
-  from ``--save_steps``.
+  ``validation_examples/epoch_N_examples.txt``; under LoRA the adapters are merged
+  into a dense copy of the decoder once per evaluation, and only when a batch
+  generates (the merged 8B decoder is 16 GB);
+- ``checkpoint-epoch_N/`` in the reference's layout (the adapters as a PEFT
+  directory) and ``torch.save`` train states (every leaf that trains at any point of
+  the run, and the ``quant_method`` in their metadata) for ``--resume``, also
+  mid-epoch from ``--save_steps``.
 
 Any dataset object with ``__len__``, ``__getitem__`` returning ``{'pixel_values'
 [H, W, C] float32, 'question_ids' [Tq] int, 'answer_ids' [Ta] int}`` and
@@ -43,7 +51,7 @@ from projectiontrainer_tpu_torch.data import bucketing
 from projectiontrainer_tpu_torch.data import pipeline as pipe
 from projectiontrainer_tpu_torch.generate import GenerationConfig, generate
 from projectiontrainer_tpu_torch.models import vlm
-from projectiontrainer_tpu_torch.train import common, masks, optim, steps
+from projectiontrainer_tpu_torch.train import common, lora as lora_mod, masks, optim, steps
 from projectiontrainer_tpu_torch.utils.logging import MetricLogger
 from projectiontrainer_tpu_torch.utils.timing import StepProfiler, StepTimer
 
@@ -65,9 +73,6 @@ def parse_remat(arg: str):
 class Stage2Trainer:
     def __init__(self, cfg: Stage2Config, *, vlm_cfg: vlm.VLMConfig, params, tokenizer,
                  train_dataset, val_dataset=None, logger: Optional[MetricLogger] = None):
-        if cfg.enable_qlora:
-            raise NotImplementedError("--enable_qlora: LoRA adapters and quantized weights "
-                                      "are not ported")
         if cfg.master_dtype not in ("fp32", "bf16"):
             raise ValueError(f"--master_dtype must be fp32|bf16, got {cfg.master_dtype!r}")
         self.cfg = cfg
@@ -84,6 +89,15 @@ class Stage2Trainer:
                                      num_steps=cfg.profile_num_steps,
                                      rank=pipe.process_index_count()[0])
         self.pad_id = tokenizer.pad_token_id if tokenizer.pad_token_id is not None else 0
+
+        self.lora_cfg = None
+        if cfg.enable_qlora:
+            self.lora_cfg = lora_mod.LoraConfig(r=cfg.lora_r, alpha=cfg.lora_alpha,
+                                                dropout=cfg.lora_dropout)
+            if "lora" not in params:
+                device = params["llm"]["embed_tokens"]["embedding"].device
+                gen = torch.Generator(device=device).manual_seed(cfg.seed)
+                params["lora"] = lora_mod.init(gen, vlm_cfg.llm, self.lora_cfg, device=device)
 
         self.base_policy = cfg.freeze_policy()
         # full-parameter fine-tunes store their trainables in --master_dtype, and so
@@ -119,8 +133,8 @@ class Stage2Trainer:
         # the vocab table trains under a full-LLM fine-tune: the chunked CE then
         table_frozen = not self.base_policy.train_llm
         self.compute_dtype = dtypes.compute_dtype(cfg.mixed_precision)
-        loss_fn = steps.stage2_loss(vlm_cfg, self.pad_id, logits_chunk=logits_chunk,
-                                    table_frozen=table_frozen,
+        loss_fn = steps.stage2_loss(vlm_cfg, self.pad_id, lora_cfg=self.lora_cfg,
+                                    logits_chunk=logits_chunk, table_frozen=table_frozen,
                                     compute_dtype=self.compute_dtype,
                                     remat=parse_remat(cfg.remat))
         # two step variants when the tower trains only in epoch 0
@@ -141,8 +155,9 @@ class Stage2Trainer:
         _, self.tx, self.schedule = self._steps[cfg.train_ve_first_epoch]
         self.state = steps.init_state(params, self.tx)
         self.eval_step = steps.make_eval_step(
-            steps.stage2_loss(vlm_cfg, self.pad_id, remat=False, logits_chunk=logits_chunk,
-                              table_frozen=table_frozen, compute_dtype=self.compute_dtype))
+            steps.stage2_loss(vlm_cfg, self.pad_id, lora_cfg=self.lora_cfg, remat=False,
+                              logits_chunk=logits_chunk, table_frozen=table_frozen,
+                              compute_dtype=self.compute_dtype))
 
         # every leaf that trains at any point of the run: the tower that epoch 0
         # changed has no optimizer state after the swap, yet a resume needs it
@@ -232,7 +247,8 @@ class Stage2Trainer:
                     break
                 b, q_len = batch["question_ids"].shape
                 a_len = batch["answer_ids"].shape[1]
-                self.state, loss, aux = step_fn(self.state, batch)
+                # the global step seeds the LoRA dropout (JAX: key(global_step))
+                self.state, loss, aux = step_fn(self.state, batch, self.global_step)
                 # processed (padded) tokens, from the shapes: no device sync
                 self.timer.count(images=b, tokens=b * (visual_tokens + q_len + a_len),
                                  discard=profiled)
@@ -240,7 +256,7 @@ class Stage2Trainer:
                 loss_sum = loss if loss_sum is None else loss_sum + loss
                 n_losses += 1
                 if cfg.save_steps and self.global_step % cfg.save_steps == 0:
-                    self.ckpt.save_step(self.global_step, self.state, {"epoch": epoch})
+                    self.ckpt.save_step(self.global_step, self.state, self._meta(epoch))
                 if self.global_step % cfg.logging_steps == 0:
                     loss_f = float(loss)  # host-device sync point
                     self.timer.window_end()
@@ -256,7 +272,7 @@ class Stage2Trainer:
 
             if self.val_dataset is not None and len(self.val_dataset):
                 val = self.evaluate(epoch)
-                self.ckpt.save_best(val["val/loss"], self.state, {"epoch": epoch})
+                self.ckpt.save_best(val["val/loss"], self.state, self._meta(epoch))
             self.save_checkpoint(epoch)
         self.profiler.close()
         if self.profiler.breakdown:
@@ -269,7 +285,8 @@ class Stage2Trainer:
     def evaluate(self, epoch: int) -> dict:
         """The validation loss, and generated answers for the whole validation set
         (the reference's behaviour, Stage2/trainer.py:596-700) or for its first
-        ``cfg.eval_example_batches`` batches."""
+        ``cfg.eval_example_batches`` batches. The generation params (LoRA merged) are
+        built at the first batch that generates and dropped after the last one."""
         cfg = self.cfg
         losses, examples = [], []
         gen_params = None
@@ -280,6 +297,8 @@ class Stage2Trainer:
                 if gen_params is None:
                     gen_params = self.generation_params()
                 examples += self._generate_examples(batch, gen_params)
+            else:
+                gen_params = None  # free the dense merge for the remaining batches
         out = {"val/loss": float(np.mean(losses)) if losses else float("nan")}
         self.logger.log({**out, "epoch": epoch}, step=self.global_step)
         if examples and pipe.process_index_count()[0] == 0:
@@ -292,11 +311,18 @@ class Stage2Trainer:
 
     def generation_params(self):
         """The params generation runs on: cast to the compute type (ties kept), as the
-        loss computes (fp32 masters would put fp32 tensors before the kernels)."""
+        loss computes (fp32 masters would put fp32 tensors before the kernels), with
+        the LoRA adapters (fp32 masters) merged into a dense decoder
+        (``lora.merge_into_decoder``; a quantized base is dequantized to bf16)."""
         params = self.state["params"]
-        if self.compute_dtype is None:
-            return params
-        return dtypes.cast_compute_params(params, self.compute_dtype)
+        if self.compute_dtype is not None:
+            params = dtypes.cast_compute_params(params, self.compute_dtype)
+        if self.lora_cfg is not None:
+            merged = lora_mod.merge_into_decoder(params["llm"], self.state["params"]["lora"],
+                                                 self.lora_cfg)
+            params = {k: v for k, v in params.items() if k != "lora"}
+            params["llm"] = merged
+        return params
 
     def _decode(self, ids) -> str:
         return self.tokenizer.decode([int(t) for t in np.asarray(ids) if t != self.pad_id],
@@ -337,8 +363,14 @@ class Stage2Trainer:
 
     # ------------------------------------------------------------------ save
 
+    def _meta(self, epoch: int) -> dict:
+        """A train state's metadata: its epoch, and the method its base was quantized
+        with (None for a dense base), which ``--resume`` quantizes the base by again."""
+        return {"epoch": epoch,
+                "quant_method": self.cfg.quant_method if self.cfg.enable_qlora else None}
+
     def save_checkpoint(self, epoch: int):
-        self.ckpt.save_periodic(epoch, self.state, {"epoch": epoch})
+        self.ckpt.save_periodic(epoch, self.state, self._meta(epoch))
         if pipe.process_index_count()[0] != 0:
             return
         params = self.state["params"]
@@ -346,4 +378,6 @@ class Stage2Trainer:
             self.cfg.output_dir, epoch, projector_params=params["projector"],
             projector_cfg=self.vlm_cfg.projector,
             llm_params=params["llm"] if self.base_policy.train_llm else None,
-            metadata={"epoch": epoch, "config": self.cfg.to_json()})
+            lora_params=params.get("lora"), lora_cfg=self.lora_cfg,
+            base_model_name=self.cfg.llm_name or None,
+            metadata={**self._meta(epoch), "config": self.cfg.to_json()})

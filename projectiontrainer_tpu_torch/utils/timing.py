@@ -78,16 +78,24 @@ def _root_labels(cpu) -> dict:
 def span_times(events, *, device: bool, steps: int = 1) -> dict:
     """Per-step milliseconds of each ``span`` in a profile's events: ``<name>_fwd_ms``
     for the ops inside the span, ``<name>_bwd_ms`` for the backward ops that
-    differentiate them, ``other_ms`` for the rest and ``total_ms``.
+    differentiate them, ``other_ms`` for the rest and ``total_ms`` (their sum). A span
+    inside another (``dequant`` inside ``decoder``) is reported apart as
+    ``<outer>/<inner>_<fwd|bwd>_ms``, a part of ``<outer>_<fwd|bwd>_ms`` and not added
+    to ``total_ms`` again (a remat recompute counts to the backward).
     ``device``: kernel time on the card (``device_time_total``), else host time."""
     attr = "device_time_total" if device else "cpu_time_total"
     cpu = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
     labels = _root_labels(cpu)
     out, total = defaultdict(float), 0.0
     for e in cpu:
-        if e.cpu_parent is not None:
-            continue
         t = getattr(e, attr) / 1e3
+        if e.cpu_parent is not None:
+            if e.name.startswith(SPAN):
+                label = labels[_outer(e)[1].id]
+                if label != "other":
+                    outer, where = label.rsplit("_", 1)
+                    out[f"{outer}/{e.name[len(SPAN):]}_{where}_ms"] += t
+            continue
         total += t
         out[f"{labels[e.id]}_ms"] += t
     out["total_ms"] = total

@@ -180,3 +180,84 @@ def test_hf_snapshot_import(tmp_path):
     jh, _ = JDEC.forward(jlparams, jlcfg, input_ids=jnp.asarray(q_ids))
     th, _ = dec.forward(lparams, lcfg, input_ids=torch.tensor(q_ids))
     rel_close(dec.logits(lparams, lcfg, th), JDEC.logits(jlparams, jlcfg, jh))
+
+
+# ------------------------------------------------------------------ Qwen3
+
+
+def _jax_qwen3_vlm():
+    llm = JDEC.qwen3_config(vocab_size=128, hidden_size=64, intermediate_size=128,
+                            num_layers=2, num_heads=4, num_kv_heads=2, head_dim=16)
+    vis = T.tiny_vision_cfg()
+    return JVLM.VLMConfig(vision=vis, llm=llm, projector=JPROJ.ProjectorConfig(
+        vision_dim=vis.hidden_size, llm_dim=64, expansion_factor=2))
+
+
+def test_qwen3_config_matches_jax():
+    ours, theirs = dec.qwen3_config(), JDEC.qwen3_config()
+    for f in dataclasses.fields(dec.DecoderConfig):
+        if f.name != "attn_impl":
+            assert getattr(ours, f.name) == getattr(theirs, f.name), f.name
+    assert ours.attn_scale == theirs.attn_scale and not ours.tie_embeddings
+
+
+@pytest.mark.parametrize("nb", [1, 3])
+def test_qwen3_prefill_and_split_cache_decode_logits(nb):
+    """The serving path over a Qwen3 decoder (GQA 4/2, untied head): the prefill's
+    logits and two split-cache decode steps equal the JAX package's."""
+    jcfg = _jax_qwen3_vlm()
+    jp = jax.tree.map(np.asarray, JVLM.init(jax.random.key(1), jcfg))
+    cfg, p = from_jax.config_from_jax(jcfg), from_jax.vlm_params(jp)
+    assert "lm_head" in jp["llm"] and p["llm"]["lm_head"]["weight"] is not (
+        p["llm"]["embed_tokens"]["embedding"])
+    pixels, q_ids = _prefix_inputs(seed=7)
+    je, jm = JVLM.question_prefix(jp, jcfg, jnp.asarray(pixels), jnp.asarray(q_ids),
+                                  pad_token_id=0)
+    te, tm = vlm.question_prefix(p, cfg, torch.tensor(pixels), torch.tensor(q_ids), 0)
+    b, plen = te.shape[:2]
+    jcache, jlog, jlast, _ = JD._prefill(jp["llm"], jcfg.llm, je, jm, plen)
+    tcache, tlog, tlast, _ = D._prefill(p["llm"], cfg.llm, te, tm, plen)
+    rel_close(tlog, jlog)
+    jcache, jpm = JDEC.split_cache(jcache, jcfg.llm, b * nb, 3, prefix_mask=jm)
+    tcache, tpm = dec.split_cache(tcache, cfg.llm, b * nb, 3, prefix_mask=tm)
+    tokens = np.random.default_rng(8).integers(0, 128, size=(2, b * nb))
+    jlast, tlast = jnp.repeat(jlast, nb), tlast.repeat_interleave(nb)
+    for t in range(2):
+        jemb = JDEC.embed(jp["llm"], jcfg.llm, jnp.asarray(tokens[t])[:, None])
+        jh, jcache = JDEC.forward(jp["llm"], jcfg.llm, inputs_embeds=jemb, attention_mask=jpm,
+                                  positions=(jlast + 1 + t)[:, None], cache=jcache,
+                                  q_offset=t, prefix_len=plen)
+        tl, tcache = D._step(p["llm"], cfg.llm, torch.tensor(tokens[t]), tlast, t, tpm,
+                             tcache, plen, te.dtype)
+        rel_close(tl, JDEC.logits(jp["llm"], jcfg.llm, jh)[:, 0])
+
+
+def test_qwen3_snapshot_against_jax_and_hf(tmp_path):
+    """A tiny HF ``Qwen3ForCausalLM`` snapshot (the pattern of
+    tests/test_decoder_parity.py): the port's import gives HF's hidden states and
+    logits, and the JAX package's, within 1e-4."""
+    from transformers import Qwen3Config
+    from transformers.models.qwen3.modeling_qwen3 import Qwen3ForCausalLM
+
+    from projectiontrainer_tpu.checkpoint import hf_import as JHF
+
+    torch.manual_seed(1)
+    hf = Qwen3ForCausalLM(Qwen3Config(
+        vocab_size=96, hidden_size=64, intermediate_size=128, num_hidden_layers=3,
+        num_attention_heads=4, num_key_value_heads=2, head_dim=16, rope_theta=1_000_000.0,
+        max_position_embeddings=128, attn_implementation="eager")).eval()
+    hf.save_pretrained(tmp_path / "qwen3")
+    cfg, params = hf_import.load_decoder(str(tmp_path / "qwen3"))
+    jcfg, jparams = JHF.load_decoder(str(tmp_path / "qwen3"), attn_impl="xla")
+    for f in dataclasses.fields(dec.DecoderConfig):
+        if f.name != "attn_impl":
+            assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
+    ids = np.random.default_rng(9).integers(0, 96, size=(2, 11))
+    with torch.no_grad():
+        out = hf(input_ids=torch.tensor(ids), output_hidden_states=True)
+        th, _ = dec.forward(params, cfg, input_ids=torch.tensor(ids))
+        ours = dec.logits(params, cfg, th)
+    rel_close(th, out.hidden_states[-1].numpy())
+    rel_close(ours, out.logits.numpy())
+    jh, _ = JDEC.forward(jparams, jcfg, input_ids=jnp.asarray(ids))
+    rel_close(ours, JDEC.logits(jparams, jcfg, jh))

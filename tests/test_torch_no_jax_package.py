@@ -1,7 +1,9 @@
 """The port imports neither jax nor any module of the JAX package, and its own copies
 of the JAX package's numpy-only modules (data/bucketing, data/image, data/datasets,
 eval/metrics) give the same results as the originals on seeded inputs (exact equality:
-the copies repeat the same numpy arithmetic)."""
+the copies repeat the same numpy arithmetic), and its copies of the quantization
+constants (NF4_CODE, NF4_BLOCK, QUANT_TARGETS, QUANT_KEYS), the LoRA targets and the
+PEFT key scheme equal the originals."""
 
 import ast
 import os
@@ -176,3 +178,30 @@ def test_metrics_copy(name):
     else:
         pytest.importorskip("sklearn")
         assert metrics.zero_shot_prf(pred, target) == jax_metrics.zero_shot_prf(pred, target)
+
+
+@pytest.mark.parametrize("name", ["NF4_CODE", "NF4_BLOCK", "QUANT_TARGETS", "QUANT_KEYS",
+                                  "LORA_TARGETS", "PEFT_KEYS"])
+def test_quant_and_lora_copies(name):
+    """The port's copies of the JAX package's quantization constants, LoRA targets and
+    PEFT key scheme."""
+    from projectiontrainer_tpu.checkpoint import export as jax_export
+    from projectiontrainer_tpu.ops import quant as jax_quant
+    from projectiontrainer_tpu.train import lora as jax_lora
+    from projectiontrainer_tpu_torch.checkpoint import export
+    from projectiontrainer_tpu_torch.ops import quant
+    from projectiontrainer_tpu_torch.train import lora
+
+    if name == "NF4_CODE":
+        assert quant.NF4_CODE.dtype == jax_quant.NF4_CODE.dtype
+        np.testing.assert_array_equal(quant.NF4_CODE, jax_quant.NF4_CODE)
+    elif name == "LORA_TARGETS":
+        assert lora.TARGETS == jax_lora.TARGETS
+    elif name == "PEFT_KEYS":
+        for layer in (0, 35):
+            for target in lora.TARGETS:
+                for ab in ("A", "B"):
+                    assert export.peft_key(layer, target, ab) == jax_export._peft_key(
+                        layer, target, ab)
+    else:
+        assert getattr(quant, name) == getattr(jax_quant, name)

@@ -107,10 +107,13 @@ def test_http_health_and_base64_image(service):
 
 
 def test_adapter_path_raises(model):
+    """--adapter_path merges an adapter since the QLoRA port
+    (tests/test_torch_qlora_adapters.py); one that names no directory raises before
+    any model is built, in the service and in the batch CLI."""
     args = serve.build_parser().parse_args(ARGS + ["--adapter_path", "some/adapter"])
-    with pytest.raises(NotImplementedError, match="LoRA merge not ported yet"):
+    with pytest.raises(FileNotFoundError, match="some/adapter"):
         serve.VQAService(args, logging.getLogger("serve-test"), model=model)
-    with pytest.raises(NotImplementedError, match="LoRA merge not ported yet"):
+    with pytest.raises(FileNotFoundError, match="some/adapter"):
         vqa.main(["--vision_model_name", "x", "--llm_name", "y", "--projector_path", "",
                   "--adapter_path", "some/adapter"])
 
