@@ -129,9 +129,33 @@ Phases, each printing one JSON line; any failure raises, so the exit code is not
    seed, 8 client threads x 2 requests, batch 8, 3 beams, 32 new tokens; every request
    answered, K1-K3's launch counts rise; p50, p95 and req/s on the host clock.
 
+14. cls train: the Qwen3 model is freed; ClsTrainer.train() (the cls_evaluate probe) over
+   the full-width XraySigLIP__vit-l-16-siglip-384__webli tower (ViT-L/16-384, its MAP
+   head kept) + the 4-class attention-probe head of the default grid's EXP1 (No
+   Finding, Atelectasis, Cardiomegaly, Effusion) from seeded random weights, fp32
+   masters and bf16 compute, batch 32, --freeze_mode 1EpochUnfreeze (lr 1e-4, bb_lr
+   1e-5, dropout 0.1), 2 epochs of 6 steps on in-memory 384 px samples, validation on
+   32. Every loss finite; every tower leaf with a nonzero exact gradient moved in epoch
+   0 and every tower leaf bit-equal through epoch 1; the head moved in both epochs;
+   results.tsv has 2 rows; the best checkpoint (every leaf, tower included), rebuilt
+   and evaluated alone as cli/cls_test does, gives the trainer's own validation
+   accuracy and AUROC (and its loss within 1e-6 relative); K1, K2, K4, K5 and K8
+   launched. Steps 3-4 of epoch 0 profiled (the vision forward and backward, head,
+   loss and optimizer spans); images/s and ms/step of each epoch (epoch 0 steps 1, 2,
+   5; epoch 1 steps 1-5); the checkpoints' bytes.
+15. end to end (cls), batch 8: the loss and the gradient of every trainable leaf
+   (tower and head; the unused MAP head gets none) through the kernel path against the
+   plain path in bf16: loss within 1e-3 relative, cosine >= 0.999 per leaf, a leaf
+   below held by PR 8's rule (its distance to the plain fp32 gradient at most 1.5x
+   plain bf16's); the key-projection biases and the class-shared biases (the tower's
+   last LayerNorm bias, the probe's value and output biases, the scoring bias), zero
+   in exact arithmetic, by their noise (at most 3x plain's).
+   Phase 2 adds the cls shapes: K1, K4 and K5 at [32,576,16,64] and K2 and K8 at
+   [18432,1024], each rerun held bit-equal.
+
 The second-to-last line is {"kernels": [...]} (name, route, source, replaces, launches
 on the main path, launches_by_path (serve, train, stage0, stage2, stage2_qlora,
-serve_qwen3_adapter), max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms, and the
+serve_qwen3_adapter, cls), max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms, and the
 launches of one epoch-0 stage-2 micro-step at the longest bucket, phase 9's); the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Needs no network and no model snapshot; imports nothing of JAX.
@@ -544,6 +568,7 @@ def phase_kernels():
     check_flash_reruns(rng, record)
     check_stage2_kernels(rng, record)
     check_qwen3_kernels(rng, record)
+    check_cls_kernels(rng, record)
     emit({"phase": 2, "readings": READINGS})
     return results
 
@@ -677,10 +702,13 @@ def check_stage0_kernels(rng, record):
         record("flash_attn_bwd_dkv", case, max(errs[1:]), None, None)
 
 
-def check_attention_layer(rng, record, case, b, t, hq, hkv, d, mask, **kw):
+def check_attention_layer(rng, record, case, b, t, hq, hkv, d, mask, rerun=False, **kw):
     """K1 (when ``mask`` is given: the forward of the same layer), K4 and K5 at one
     decoder or tower shape against their plain versions, each beside its bound and the
-    library call; record(kernel, case, err, ms, plain_ms, bound, library_ms, library)."""
+    library call, and with ``rerun`` a second launch of K4 and K5 held bit-equal;
+    record(kernel, case, err, ms, plain_ms, bound, library_ms, library)."""
+    import torch
+
     from projectiontrainer_tpu_torch.ops import flash_attention as FA
 
     q, do = _bf16(rng, (b, t, hq, d)), _bf16(rng, (b, t, hq, d))
@@ -706,6 +734,11 @@ def check_attention_layer(rng, record, case, b, t, hq, hkv, d, mask, **kw):
     args = (q, k, v, prep[0], prep[1], lse, prep[2])
     dk, dv = FA.launch_bwd_dkv(*args, **kw)
     dq = FA.launch_bwd_dq(*args, **kw)
+    if rerun:
+        again = (*FA.launch_bwd_dkv(*args, **kw), FA.launch_bwd_dq(*args, **kw))
+        if not all(torch.equal(x, y) for x, y in zip((dk, dv, dq), again)):
+            raise AssertionError(f"flash {case}: a rerun of K4 or K5 gave other bits")
+        del again
     rq, rk, rv = FA.flash_attention_bwd_reference(q.float(), k.float(), v.float(), mask,
                                                   out.float(), lse, do.float(), **kw)
     err_kv = max(compare_rel(f"flash {case} dk", dk, rk), compare_rel(f"flash {case} dv", dv, rv))
@@ -766,6 +799,48 @@ def check_qwen3_kernels(rng, record):
         check_decode(rng, record, bb, 3, 575 + 256, 32, (31,), hq=32, hkv=8, d=128,
                      windows=(None,), label="Qwen3 ")
     check_fused_ce(rng, record, n=4 * 1024, vocab=151_936, d=4096, label="Qwen3 ")
+
+
+def check_cls_kernels(rng, record):
+    """The cls probe's shapes (phases 14-15: ViT-L/16-384 at batch 32): K1 forward, K4
+    and K5 at [32,576,16,64] non-causal, K2 and K8 over the tower's [18432,1024] rows;
+    each against its plain version, a rerun held bit-equal, timed beside its bound and
+    the library call; record(kernel, case, err, ms, plain_ms, bound, library_ms, library)."""
+    import torch
+    import torch.nn.functional as F
+
+    from projectiontrainer_tpu_torch.ops import flash_attention as FA
+    from projectiontrainer_tpu_torch.ops import fused_layernorm as FLN
+
+    q, k, v = (_bf16(rng, (32, 576, 16, 64)) for _ in range(3))
+    out, lse = FA.flash_attention(q, k, v)
+    ref, ref_lse = FA.flash_attention_reference(q.float(), k.float(), v.float())
+    err = compare("flash cls tower out", out, ref)
+    compare("flash cls tower lse", lse, ref_lse)
+    if not all(torch.equal(x, y) for x, y in zip((out, lse), FA.flash_attention(q, k, v))):
+        raise AssertionError("flash cls tower: a rerun of K1 gave other bits")
+    del ref, ref_lse
+    lib, backend = sdpa_library(q, k, v, scale=64 ** -0.5)
+    record("flash_attn_fwd", "cls tower [32,576,16,64]", err,
+           cuda_ms(lambda: FA.flash_attention(q, k, v)),
+           cuda_ms(lambda: FA.flash_attention_reference(q, k, v)),
+           bound_flash_fwd(32, 576, 16, 16, 64), cuda_ms(lib), f"SDPA {backend}")
+    del q, k, v, out, lse, lib
+    check_attention_layer(rng, record, "cls tower [32,576,16,64] non-causal", 32, 576, 16, 16,
+                          64, None, rerun=True, scale=64 ** -0.5, causal=False, window=None)
+
+    x = _bf16(rng, (32 * 576, 1024))
+    p = {"scale": _bf16(rng, (1024,), 0.5) + 1, "bias": _bf16(rng, (1024,), 0.1)}
+    got = FLN.layernorm(p, x)
+    ref = FLN.layernorm_reference({k: v.float() for k, v in p.items()}, x.float())
+    err = compare("layernorm cls rows", got, ref)
+    if not torch.equal(got, FLN.layernorm(p, x)):
+        raise AssertionError("layernorm cls rows: a rerun of K2 gave other bits")
+    record("layernorm_fwd", "cls rows [18432,1024]", err,
+           cuda_ms(lambda: FLN.layernorm(p, x)), cuda_ms(lambda: FLN.layernorm_reference(p, x)),
+           bound_layernorm_fwd(18432, 1024),
+           cuda_ms(lambda: F.layer_norm(x, (1024,), p["scale"], p["bias"], 1e-6)), "F.layer_norm")
+    check_layernorm_bwd(rng, record, x, p, cases=((18432, True),))
 
 
 def check_layernorm_bwd(rng, record, x, p, cases=((16384, True), (16383, True), (1001, True),
@@ -2101,6 +2176,268 @@ def phase_qlora_end_to_end(cfg, params, kernel_counters):
                              f"{row_cos} (< 0.99)")
 
 
+# ---------------------------------------------------------------------------- phase 14
+
+CLS_KERNELS = ("flash_attn_fwd", "layernorm_fwd", "flash_attn_bwd_dkv", "flash_attn_bwd_dq",
+               "layernorm_bwd")
+# the default grid's EXP1 (eval/sweep.py:DEFAULT_EXPERIMENT_GRID)
+CLS_CLASSES = "No Finding,Atelectasis,Cardiomegaly,Effusion"
+# the class-shared biases move every class's logit alike: their gradient is zero in
+# exact arithmetic (the CE's gradient over the classes sums to 0), as a key bias's is
+CLS_ZERO_SUM = ("vision/post_layernorm/bias", "mha/v_proj/bias", "mha/out_proj/bias",
+                "head/bias")
+
+
+class ClsSamples:
+    """In-memory cls samples: seeded pixels in [-1, 1] (made once, in bulk) and a class
+    index each; no image files."""
+
+    def __init__(self, n, seed, *, size, n_classes):
+        rng = np.random.default_rng(seed)
+        self.pixels = np.clip(rng.standard_normal((n, size, size, 3), dtype=np.float32), -1, 1)
+        self.targets = rng.integers(0, n_classes, size=n).astype(np.int32)
+
+    def __len__(self):
+        return len(self.targets)
+
+    def __getitem__(self, i):
+        return {"pixel_values": self.pixels[i], "target_indices": self.targets[i]}
+
+
+def cls_model():
+    """The probe over XraySigLIP__vit-l-16-siglip-384__webli's tower (ViT-L/16-384, its
+    MAP head kept as a snapshot carries it) and EXP1's 4 classes; fp32 masters."""
+    import torch
+
+    from projectiontrainer_tpu_torch.models import classifier, siglip
+
+    cfg = classifier.ClassifierConfig(vision=siglip.vit_l_16_384(),
+                                      num_classes=len(CLS_CLASSES.split(",")))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    return cfg, classifier.init(gen, cfg, device="cuda")
+
+
+def _cls_fingerprints(params):
+    """Fingerprints of every leaf but the tower's unused MAP head (decay alone moves
+    it, by a few ulps)."""
+    from projectiontrainer_tpu_torch.core.pytree import leaves_with_paths
+
+    return {p: fingerprint(x) for p, x in leaves_with_paths(params)
+            if not p.startswith("vision/head/")}
+
+
+def _zero_sum(path) -> bool:
+    """A leaf whose gradient is zero in exact arithmetic: a zero-initialised one may
+    never move, so moves are required of the others only."""
+    return path.endswith("k_proj/bias") or path in CLS_ZERO_SUM
+
+
+def phase_cls_train(cfg, params, kernel_counters):
+    import torch
+
+    from projectiontrainer_tpu_torch.core import dtypes
+    from projectiontrainer_tpu_torch.core.config import ClsConfig
+    from projectiontrainer_tpu_torch.train import trainer_cls
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_cls_")
+    size, n_cls = cfg.vision.image_size, cfg.num_classes
+    try:
+        tcfg = ClsConfig(exp_id="EXP1", class_names=CLS_CLASSES, freeze_mode="1EpochUnfreeze",
+                         output_base_dir=out_dir, batch_size=32, epochs=2, logging_steps=1,
+                         num_workers=4, device=DEVICE, seed=SEED, img_size=size,
+                         profile_dir=os.path.join(out_dir, "profile"), profile_start_step=3,
+                         profile_num_steps=2)
+        val = ClsSamples(32, SEED + 10, size=size, n_classes=n_cls)
+        trainer = trainer_cls.ClsTrainer(
+            tcfg, model_cfg=cfg, params=params, val_dataset=val,
+            train_dataset=ClsSamples(6 * 32, SEED + 9, size=size, n_classes=n_cls))
+        prints = [_cls_fingerprints(params)]
+        step_fn, tx, schedule = trainer._steps[True]  # the frozen-tower variant, epoch 1
+
+        def first_frozen_step(state, batch, rng):
+            if len(prints) == 1:  # the params as epoch 0 left them
+                prints.append(_cls_fingerprints(state["params"]))
+            return step_fn(state, batch, rng)
+
+        trainer._steps[True] = (first_frozen_step, tx, schedule)
+        for c in kernel_counters.values():
+            c.reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: c.value for name, c in kernel_counters.items()}
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        prints.append(_cls_fingerprints(params))
+        exp_dir = trainer.exp_dir
+        with open(os.path.join(exp_dir, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        with open(trainer.results_tsv) as f:
+            tsv = f.read().strip().splitlines()
+        ckpt_dir = os.path.join(exp_dir, "checkpoints")
+        ckpt_bytes = {n: os.path.getsize(os.path.join(ckpt_dir, n))
+                      for n in sorted(os.listdir(ckpt_dir)) if n.endswith(".pt")}
+        traced = os.listdir(os.path.join(out_dir, "profile"))
+        best_epoch = trainer.ckpt.metadata("best")["epoch"]
+        del trainer
+        gc_cuda()
+        # cls_test's evaluation: the classifier rebuilt from the best checkpoint alone
+        t1 = time.perf_counter()
+        ccfg, model_cfg, restored = trainer_cls.load_classifier(exp_dir, "best", device=DEVICE)
+        logits, targets = trainer_cls.predict(
+            restored, model_cfg, val, batch_size=32, device=DEVICE,
+            compute_dtype=dtypes.compute_dtype(ccfg.mixed_precision))
+        restored_metrics = trainer_cls.classification_metrics(logits, targets)
+        restore_s = time.perf_counter() - t1
+        del restored
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    losses = [r["train/batch_loss"] for r in rows if "train/batch_loss" in r]
+    epochs = {int(r["epoch"]): r for r in rows if "train/epoch_loss" in r}
+    start, at_swap, end = prints
+    tower = [p for p in start if p.startswith("vision/")]
+    head = [p for p in start if not p.startswith("vision/") and not _zero_sum(p)]
+    must_move = [p for p in tower if not _zero_sum(p)]
+    tower_moved_e0 = sum(start[p] != at_swap[p] for p in must_move)
+    tower_moved_e1 = sum(at_swap[p] != end[p] for p in tower)
+    head_moved = [sum(a[p] != b[p] for p in head) for a, b in ((start, at_swap), (at_swap, end))]
+    trained = tuple(epochs[best_epoch][k] for k in ("val/loss", "val/accuracy", "val/auc"))
+    if len(losses) != 12 or not np.isfinite(losses).all():
+        raise AssertionError(f"cls: expected 12 finite losses, got {losses}")
+    if tower_moved_e0 != len(must_move) or tower_moved_e1:
+        raise AssertionError(f"cls: tower leaves moved {tower_moved_e0} of {len(must_move)} in "
+                             f"epoch 0 (all expected), {tower_moved_e1} of {len(tower)} in "
+                             f"epoch 1 (none expected)")
+    if head_moved != [len(head)] * 2:
+        raise AssertionError(f"cls: head leaves moved {head_moved} of {len(head)} per epoch")
+    if len(tsv) != 3 or not tsv[0].startswith("Epoch\tTrain Loss"):
+        raise AssertionError(f"cls: results.tsv holds {tsv}")
+    if not all(launches[n] for n in CLS_KERNELS):
+        raise AssertionError(f"cls: a kernel of the path never launched: {launches}")
+    if (restored_metrics[1:] != trained[1:]
+            or not abs(restored_metrics[0] - trained[0]) <= 1e-6 * abs(trained[0])):
+        raise AssertionError(f"cls: the best checkpoint evaluated alone gives (loss, acc, auc) "
+                             f"{restored_metrics}, the trainer logged {trained}")
+    per_epoch = result["epochs"]
+    if not all(e.get("images_per_sec") for e in per_epoch):
+        raise AssertionError(f"cls: no throughput measured: {per_epoch}")
+    split = {k[len("profile/"):]: v for r in rows for k, v in r.items()
+             if k.startswith("profile/")}
+    pieces = ("vision_fwd", "vision_bwd", "head_fwd", "head_bwd", "loss_fwd", "optimizer_fwd")
+    if traced != ["trace_step3.json"] or not all(split.get(f"{p}_ms", 0) > 0 for p in pieces):
+        raise AssertionError(f"cls: no kernel time traced for a piece of the step: {split}")
+    idle = 1 - split["total_ms"] / per_epoch[0]["step_time_ms"]
+    print(f"cls: epoch 0 (tower trained) {per_epoch[0]['images_per_sec']:.2f} images/s, "
+          f"{per_epoch[0]['step_time_ms']:.1f} ms/step; epoch 1 (tower frozen) "
+          f"{per_epoch[1]['images_per_sec']:.2f} images/s, {per_epoch[1]['step_time_ms']:.1f} "
+          f"ms/step at batch 32 x {size} px; epoch-0 kernel time "
+          f"{split['total_ms']:.1f} ms/step (device idle {idle:.1%})", flush=True)
+    emit({"phase": 14, "steps": len(losses), "losses": losses, "per_epoch": per_epoch,
+          "wall_s": wall, "launches": launches, "batch_size": 32, "image_size": size,
+          "peak_memory_gib": peak_gb, "kernel_ms_per_step_epoch0": split,
+          "device_idle_share_epoch0": idle, "results_tsv": tsv,
+          "tower_leaves_moved_epoch0_of": [tower_moved_e0, len(must_move)],
+          "tower_leaves_moved_epoch1_of": [tower_moved_e1, len(tower)],
+          "head_leaves_moved_per_epoch_of": [*head_moved, len(head)],
+          "checkpoint_bytes": ckpt_bytes, "best_epoch": best_epoch,
+          "val_trainer_loss_acc_auc": trained, "val_restored_loss_acc_auc": restored_metrics,
+          "restore_and_eval_s": restore_s,
+          "timed_steps": "epoch 0: 1, 2, 5 (0 warms up, 3-4 profiled); epoch 1: 1-5",
+          "cut": "2 epochs of 6 steps on random weights and data, 32 validation samples "
+                 "(a real run: the labelled corpus, 10 epochs)"})
+    return launches
+
+
+def gc_cuda():
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------- phase 15
+
+
+def phase_cls_end_to_end(cfg, params, kernel_counters):
+    """One batch-8 loss and the gradient of every trainable leaf (tower and head; the
+    unused MAP head has none) through the kernel path against the plain path in bf16,
+    and the plain path in fp32 for the leaves below COS_MIN (PR 8's distance rule)."""
+    import torch
+    import torch.nn.functional as F
+
+    from projectiontrainer_tpu_torch.core.pytree import leaves_with_paths
+    from projectiontrainer_tpu_torch.train import masks, steps
+
+    plain = dataclasses.replace(cfg, vision=dataclasses.replace(
+        cfg.vision, attn_impl="plain", norm_impl="plain"))
+    data = ClsSamples(8, SEED + 11, size=cfg.vision.image_size, n_classes=cfg.num_classes)
+    batch = {"pixel_values": torch.tensor(data.pixels, device=DEVICE),
+             "target_indices": torch.tensor(data.targets, device=DEVICE)}
+    train = [(p, x) for p, x in leaves_with_paths(params) if not p.startswith("vision/head/")]
+    for p, x in leaves_with_paths(params):
+        x.requires_grad_(not p.startswith("vision/head/"))
+
+    def run(c, dtype):
+        for counter in kernel_counters.values():
+            counter.reset()
+        loss, _ = steps.classifier_loss(c, compute_dtype=dtype)(params, batch)
+        grads = torch.autograd.grad(loss, [x for _, x in train])
+        torch.cuda.synchronize()
+        return float(loss.detach()), grads, {n: k.value for n, k in kernel_counters.items()}
+
+    loss_k, grads_k, launches_k = run(cfg, torch.bfloat16)
+    loss_p, grads_p, launches_p = run(plain, torch.bfloat16)
+    _, grads_f, _ = run(plain, None)  # fp32 masters, computed in fp32
+    for _, x in leaves_with_paths(params):
+        x.requires_grad_(False)
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    def cosine(a, b):
+        return float(F.cosine_similarity(a.flatten().float(), b.flatten().float(), dim=0))
+
+    # at random weights the probe's gradients are sums of nearly cancelling terms (the
+    # classes' attended queries differ little, and the CE's gradient over the classes
+    # sums to 0), so each bf16 path's own rounding shows: both paths' cosines to fp32
+    # are printed beside the cosine between them
+    cos, gap, to_fp32, noise = {}, {}, {"kernel": [], "plain": []}, [0.0, 0.0]
+    for (path, _), a, b, f in zip(train, grads_k, grads_p, grads_f):
+        if _zero_sum(path):
+            noise = [max(noise[0], float(a.float().norm())), max(noise[1], float(b.float().norm()))]
+            continue
+        cos[path] = cosine(a, b)
+        to_fp32["kernel"].append(cosine(a, f))
+        to_fp32["plain"].append(cosine(b, f))
+        if cos[path] < COS_MIN:
+            gap[path] = float((a.float() - f).norm() / (b.float() - f).norm())
+    del grads_k, grads_p, grads_f
+    worst = min(cos, key=cos.get)
+    worst_gap = max(gap, key=gap.get, default=None)
+    emit({"phase": 15, "batch_size": 8, "loss_kernel": loss_k, "loss_plain": loss_p,
+          "loss_rel_diff": rel, "leaves_compared": len(cos), "min_grad_cosine": cos[worst],
+          "min_grad_cosine_leaf": worst,
+          "lowest_grad_cosines": {p: cos[p] for p in sorted(cos, key=cos.get)[:5]},
+          "cos_to_fp32_quantiles_0_10_50": {
+              k: [float(np.quantile(v, q)) for q in (0, 0.1, 0.5)] for k, v in to_fp32.items()},
+          "leaves_held_by_gap": len(gap),
+          "gap_ratio_quantiles_50_90_100": [float(np.quantile(list(gap.values()), q))
+                                            for q in (0.5, 0.9, 1.0)] if gap else None,
+          "max_gap_ratio_leaf": worst_gap,
+          "zero_sum_grad_norm_max_kernel_plain": noise, "launches_kernel_path": launches_k})
+    if not all(launches_k[n] for n in CLS_KERNELS) or any(launches_p.values()):
+        raise AssertionError(f"cls end to end: kernel path {launches_k}, plain {launches_p}")
+    if not rel <= LOSS_REL:
+        raise AssertionError(f"cls end to end: loss {loss_k} vs plain {loss_p}")
+    if worst_gap is not None and not gap[worst_gap] <= ROUNDING_GAP:
+        raise AssertionError(f"cls end to end: {worst_gap}'s gradient cosine {cos[worst_gap]} < "
+                             f"{COS_MIN} and its distance to fp32 {gap[worst_gap]:.4g} x plain "
+                             f"bf16's > {ROUNDING_GAP}")
+    if not noise[0] <= KEY_BIAS_NOISE * noise[1]:
+        raise AssertionError(f"cls end to end: zero-sum bias gradient norm {noise[0]:.4g} > "
+                             f"{KEY_BIAS_NOISE} x plain {noise[1]:.4g}")
+
+
 def main() -> int:
     import gc
 
@@ -2153,6 +2490,14 @@ def main() -> int:
         del params
     finally:
         shutil.rmtree(adapter_dir, ignore_errors=True)
+    gc_cuda()
+
+    cfg, params = cls_model()
+    cls_launches = phase_cls_train(cfg, params, kernel_counters)
+    gc_cuda()
+    phase_cls_end_to_end(cfg, params, kernel_counters)
+    del cfg, params
+    gc_cuda()
 
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
@@ -2169,6 +2514,8 @@ def main() -> int:
             by_path["stage2_qlora"] = qlora_launches[name]
         if name in qlora_serve:
             by_path["serve_qwen3_adapter"] = qlora_serve[name]
+        if name in CLS_KERNELS:
+            by_path["cls"] = cls_launches[name]
         main_path = next(p for p in ("serve", "train", "stage0") if p in by_path)
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
                         "launches": by_path[main_path], "launches_by_path": by_path,

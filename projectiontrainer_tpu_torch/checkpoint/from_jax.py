@@ -16,6 +16,8 @@ Takes a JAX parameter tree whose leaves are numpy arrays (for example
   (``lora_params``; ``lora_params_to_jax`` is the inverse);
 - the SigLIP dual tower (``siglip_params``) keeps the MAP head, whose probe is a plain
   tensor, and the logit scale and bias as fp32 [1] tensors;
+- the cls probe's classifier (``classifier_params``) keeps its tower's MAP head and its
+  per-class queries as they are;
 - a stage-1 or stage-2 train state (``steps.init_state`` plus the optax state of
   ``optim.single_group_optimizer``: ``MultiSteps(multi_transform(clip, adamw))``)
   becomes the port's: the params in their own types (fp32 masters stay fp32) and the
@@ -107,6 +109,15 @@ def siglip_params(tree: dict, *, device=None, vision_dtype=None, text_dtype=None
         "logit_scale": _t(tree["logit_scale"], device, torch.float32).reshape(1),
         "logit_bias": _t(tree["logit_bias"], device, torch.float32).reshape(1),
     }
+
+
+def classifier_params(tree: dict, *, device=None, dtype=None) -> dict:
+    """JAX classifier params (``models/classifier.init``) -> the port's: the tower with
+    its MAP head when it has one, the [1, C, D] queries, the MHA's four linears and
+    the ``Linear(d, 1)`` head."""
+    rest = _convert({k: v for k, v in tree.items() if k != "vision"}, device, dtype)
+    return {"vision": vision_params(tree["vision"], device=device, dtype=dtype, head=True),
+            **rest}
 
 
 def projector_params(tree: dict, *, device=None, dtype=None) -> dict:

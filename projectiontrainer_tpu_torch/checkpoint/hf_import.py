@@ -47,11 +47,12 @@ def load_config(model_dir: str) -> dict:
         return json.load(f)
 
 
-def load_siglip_vision(model_dir: str, *, device=None, dtype=None):
-    """Local SigLIP snapshot -> (VisionConfig, vision tower params)."""
+def load_siglip_vision(model_dir: str, *, device=None, dtype=None, head: bool = False):
+    """Local SigLIP snapshot -> (VisionConfig, vision tower params); ``head`` keeps the
+    snapshot's MAP head (the cls probe saves and trains it as the JAX package does)."""
     cfg = siglip.vision_from_hf_config(load_config(model_dir))
     return cfg, siglip.vision_params(load_state_dict(model_dir), cfg, device=device,
-                                     dtype=dtype)
+                                     dtype=dtype, head=head)
 
 
 def load_siglip(model_dir: str, *, device=None, vision_dtype=None, text_dtype=None):

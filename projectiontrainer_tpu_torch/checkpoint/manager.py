@@ -11,6 +11,10 @@ yet epoch 0 changed it. A tied tensor is saved once, under its first path. Files
 newest ``step_K`` is kept); ``manager.json`` records the best metric. ``save_periodic`` saves epoch N when N + 1 is a multiple of
 ``save_every_n_epochs`` and N >= ``min_save_epoch``.
 
+The cls probe names every leaf of its classifier (the JAX package saves the whole
+state): its evaluators rebuild the model from a checkpoint alone (``restore_params``,
+the architecture from ``metadata``).
+
 A QLoRA checkpoint holds no quantized leaf (they never train), so ``--resume``
 quantizes the base again from the snapshot: ``detect_quant_method`` reads the method
 from the newest checkpoint's metadata (the JAX package reads it from the stored
@@ -115,15 +119,31 @@ class CheckpointManager:
             return f"epoch_{self.latest_epoch()}"
         return None
 
+    def metadata(self, name: str) -> dict:
+        """Checkpoint ``name``'s metadata; the file is memory-mapped: no tensor is read."""
+        payload = torch.load(self._path(name), map_location="cpu", weights_only=True, mmap=True)
+        return payload.get("metadata", {})
+
+    def restore_params(self, name: str, params) -> dict:
+        """Copy the params of checkpoint ``name`` into ``params`` in place and return it:
+        an evaluator's restore, without the optimizer state a trainer holds. Every leaf
+        of ``params`` must be in the checkpoint."""
+        saved = torch.load(self._path(name), map_location="cpu", weights_only=True)["params"]
+        leaves = dict(unique_leaves_with_paths(params))
+        missing = sorted(set(leaves) - set(saved))
+        if missing:
+            raise KeyError(f"checkpoint {name} lacks {len(missing)} leaves, e.g. {missing[:3]}")
+        with torch.no_grad():
+            for p, x in leaves.items():
+                x.copy_(saved[p])
+        return params
+
     def detect_quant_method(self) -> Optional[str]:
         """The ``quant_method`` the newest checkpoint's run quantized its base with, or
         None (no checkpoint, or a dense base). The file is memory-mapped: no tensor is
         read."""
         name = self._newest()
-        if name is None:
-            return None
-        payload = torch.load(self._path(name), map_location="cpu", weights_only=True, mmap=True)
-        return payload.get("metadata", {}).get("quant_method")
+        return None if name is None else self.metadata(name).get("quant_method")
 
     def has(self, name: str) -> bool:
         return os.path.exists(self._path(name))

@@ -1,11 +1,11 @@
 """Config dataclasses with the reference's argparse flag names.
 
 Counterpart of ``projectiontrainer_tpu/core/config.py`` for the stage-0, stage-1 and
-stage-2 paths (``CommonConfig``, ``Stage0Config``, ``Stage1Config``, ``Stage2Config``,
-``parser_for``, ``from_args``): the same fields, flag names and defaults, plus the
-port's ``--device``. Flags whose machinery is not ported yet (``--remat dots``,
-``--mesh_data``/``--mesh_model`` above 1, ``--fsdp``) parse as in JAX; the CLIs raise
-on them.
+stage-2 paths and the cls probe (``CommonConfig``, ``Stage0Config``, ``Stage1Config``,
+``Stage2Config``, ``ClsConfig``, ``parser_for``, ``from_args``): the same fields, flag
+names and defaults, plus the port's ``--device``. Flags whose machinery is not ported
+yet (``--remat dots``, ``--mesh_data``/``--mesh_model`` above 1, ``--fsdp``) parse as in
+JAX; the CLIs raise on them.
 """
 
 from __future__ import annotations
@@ -160,6 +160,45 @@ class Stage0Config(CommonConfig):
     # True = per-data-shard pairwise negatives (the reference's DDP semantics);
     # False = global negatives across the whole batch. One process: the same.
     local_negatives: bool = True
+
+
+@dataclasses.dataclass
+class ClsConfig(CommonConfig):
+    """cls_evaluate probe (reference flags: cls_evaluate/train.py:53-110)."""
+
+    exp_id: str = "EXP"
+    class_names: str = ""            # comma-separated, like the reference
+    freeze_mode: str = "Freeze"      # Freeze | Unfreeze | 1EpochUnfreeze
+    handle_abnormal: bool = False
+    filter_no_finding: bool = False
+    vision_model_name: str = ""
+    data_json: str = ""
+    output_base_dir: str = "./cls_experiments"
+    lr: float = 1e-4
+    bb_lr: float = 1e-5
+    epochs: int = 10
+    dropout_rate: float = 0.1
+    batch_size: int = 32
+    multilabel_two_way: bool = False
+
+    def effective_class_names(self) -> list[str]:
+        """Abnormal mapping / No-Finding filtering (reference: cls_evaluate/train.py:86-109)."""
+        names = [c.strip() for c in self.class_names.split(",") if c.strip()]
+        if self.handle_abnormal:
+            abnormal_sources = [c for c in names if c != "No Finding"]
+            names = ["Abnormal"] + (["No Finding"] if "No Finding" in names else [])
+            self._abnormal_sources = abnormal_sources
+        else:
+            self._abnormal_sources = []
+        if self.filter_no_finding:
+            names = [c for c in names if c != "No Finding"]
+        return names
+
+    @property
+    def abnormal_source_classes(self) -> list[str]:
+        if not hasattr(self, "_abnormal_sources"):
+            self.effective_class_names()
+        return self._abnormal_sources
 
 
 def _add_dataclass_args(parser: argparse.ArgumentParser, cls, *, skip=()):

@@ -1,6 +1,7 @@
 """Evaluation metrics replicating the reference's definitions (the port's own copy of
-the JAX package's ``eval/metrics.py``: numpy only, sklearn inside the two functions
-that need it).
+the JAX package's ``eval/metrics.py``: numpy only; sklearn inside ``zero_shot_prf``
+alone, since the card's machine has no sklearn: the AUROC repeats sklearn's
+``roc_auc_score`` arithmetic in numpy, ``binary_auroc``).
 
 - last-word accuracy: Stage-1 validation metric — the final whitespace token of the
   generated caption vs the target's (reference: Stage1/projector_trainer.py:386-407).
@@ -58,12 +59,26 @@ def accuracy(pred: np.ndarray, target: np.ndarray) -> float:
     return float((np.asarray(pred) == np.asarray(target)).mean())
 
 
+def binary_auroc(y_true: np.ndarray, score: np.ndarray) -> float:
+    """ROC-AUC of 0/1 labels against scores: sklearn's ``roc_auc_score`` step for
+    step (the ROC points at each distinct score, collinear points dropped, the
+    trapezoid rule), so it returns the same bits."""
+    order = np.argsort(-np.asarray(score), kind="stable")
+    s, y = np.asarray(score)[order], np.asarray(y_true)[order].astype(np.float64)
+    idx = np.r_[np.nonzero(np.diff(s))[0], len(s) - 1]
+    tps = np.cumsum(y, dtype=np.float64)[idx]
+    fps = 1 + idx.astype(np.float64) - tps
+    if fps.shape[0] > 2:
+        keep = np.r_[True, np.logical_or(np.diff(fps, 2), np.diff(tps, 2)), True]
+        fps, tps = fps[keep], tps[keep]
+    fpr, tpr = np.r_[0.0, fps] / fps[-1], np.r_[0.0, tps] / tps[-1]
+    return float(np.add.reduce(np.diff(fpr) * (tpr[1:] + tpr[:-1]) / 2.0))
+
+
 def macro_ovr_auroc(probs: np.ndarray, targets: np.ndarray,
                     num_classes: Optional[int] = None) -> float:
     """Macro-averaged one-vs-rest ROC-AUC over classes present in targets (sklearn
     semantics as used by the reference; classes absent from targets are skipped)."""
-    from sklearn.metrics import roc_auc_score
-
     probs = np.asarray(probs)
     targets = np.asarray(targets)
     num_classes = num_classes or probs.shape[1]
@@ -72,7 +87,7 @@ def macro_ovr_auroc(probs: np.ndarray, targets: np.ndarray,
         mask = targets == c
         if mask.all() or not mask.any():
             continue
-        aucs.append(roc_auc_score(mask.astype(int), probs[:, c]))
+        aucs.append(binary_auroc(mask.astype(int), probs[:, c]))
     return float(np.mean(aucs)) if aucs else float("nan")
 
 

@@ -1,7 +1,8 @@
 """Training losses with the reference's semantics, computed in fp32.
 
 Counterpart of ``projectiontrainer_tpu/train/losses.py``: the stage-0 contrastive loss
-(``siglip_pairwise_loss``) and the causal-LM losses (``shifted_clm_loss``,
+(``siglip_pairwise_loss``), the cls probe's losses (``softmax_ce_loss``,
+``two_way_multilabel_loss``) and the causal-LM losses (``shifted_clm_loss``,
 ``chunked_shifted_clm_loss``, ``fused_shifted_clm_loss``): tokens < n predict token n,
 labels -100 are ignored, the mean runs over the non-ignored targets, and optional
 per-sample weights (0 for a straggler batch's filler rows) weight both the sum and the
@@ -109,3 +110,57 @@ def siglip_pairwise_loss(image_features, text_features, logit_scale, logit_bias=
         return per.sum() / n
     w = sample_weight.float()
     return (per * (w[:, None] * w[None, :])).sum() / w.sum().clamp_min(1.0)
+
+
+def _masked_logsumexp(x, mask, temperature):
+    """T * logsumexp(x / T) over the masked elements of the last axis; a row with none
+    gives a finite value that the caller discards."""
+    x = x / temperature
+    neg = torch.finfo(torch.float32).min
+    xm = torch.where(mask, x, neg)
+    m = xm.max(dim=-1, keepdim=True).values.clamp_min(neg)
+    s = torch.where(mask, torch.exp(xm - m), 0.0).sum(-1)
+    return temperature * (m[..., 0] + torch.log(s.clamp_min(1e-38)))
+
+
+def two_way_multilabel_loss(logits, targets, *, t_p: float = 4.0, t_n: float = 1.0,
+                            sample_weights=None):
+    """Kobayashi CVPR'23 two-way multi-label loss (the reference's
+    ``TwoWayMultiLabelLoss``, cls_evaluate/train_twoway_loss.py:166-286): a sample-wise
+    term (over classes, per sample) and a class-wise term (over the batch, per class),
+    each ``softplus(T_n * LSE(x_neg / T_n) + T_p * LSE(-x_pos / T_p))``, zero for a row
+    or column without positives or without negatives; (mean_sample + mean_class) / 2.
+
+    ``sample_weights`` (0/1 a row) excludes a straggler batch's filler rows from both
+    directions and from the sample mean's count."""
+    logits = logits.float()
+    pos, neg = targets == 1, targets == 0
+    if sample_weights is not None:
+        real = (sample_weights > 0)[:, None]
+        pos, neg = pos & real, neg & real
+        n_samples = real.sum().float().clamp_min(1.0)
+    else:
+        n_samples = float(targets.shape[0])
+
+    def direction(dim, denom):
+        p, n, x = (t.movedim(dim, -1) for t in (pos, neg, logits))
+        has_both = p.any(-1) & n.any(-1)
+        loss = torch.nn.functional.softplus(_masked_logsumexp(x, n, t_n)
+                                            + _masked_logsumexp(-x, p, t_p))
+        return torch.where(has_both, loss, 0.0).sum() / denom
+
+    sample_loss = direction(1, n_samples)                 # over classes, each real sample
+    class_loss = direction(0, float(targets.shape[1]))    # over real rows, each class
+    return (sample_loss + class_loss) / 2.0
+
+
+def softmax_ce_loss(logits, target_indices, sample_weights=None):
+    """Single-label cross entropy over the class logits (the reference's
+    ``nn.CrossEntropyLoss``, cls_evaluate/train_utils.py); ``sample_weights`` exclude
+    a straggler batch's filler rows from the mean."""
+    logprobs = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logprobs.gather(-1, target_indices.long()[:, None])[:, 0]
+    if sample_weights is None:
+        return nll.mean()
+    w = sample_weights.float()
+    return (nll * w).sum() / w.sum().clamp_min(1e-9)

@@ -5,8 +5,10 @@ Counterpart of ``projectiontrainer_tpu/train/masks.py`` for stages 0, 1 and 2:
 ``Stage2Freeze`` and ``stage2_labels`` (any subset of LLM or LoRA, projector and
 tower; ``--train_ve_first_epoch`` swaps two label trees at the epoch-0 boundary),
 ``stage0_labels`` (train the dual tower but for the frozen text tower, logit scale and
-first vision layers) and ``bool_mask``. The train step turns the mask into
-``requires_grad`` flags: only trainable leaves get gradients and optimizer state.
+first vision layers), ``classifier_labels`` (the cls probe: ``head`` and ``backbone``
+at their own learning rates, or the tower ``frozen``) and ``bool_mask``. The train step
+turns the mask into ``requires_grad`` flags: only trainable leaves get gradients and
+optimizer state.
 """
 
 from __future__ import annotations
@@ -71,6 +73,18 @@ def stage0_labels(params, *, freeze_text: bool = True, freeze_logit_scale: bool 
         return TRAINABLE
 
     return map_with_path(label, params)
+
+
+HEAD = "head"
+BACKBONE = "backbone"
+
+
+def classifier_labels(params, *, freeze_vision: bool) -> Mapping:
+    """Labels {head, backbone, frozen}: the head trains at ``lr``, the tower at
+    ``bb_lr`` (discriminative learning rates) or not at all."""
+    return map_with_path(
+        lambda p, _: (FROZEN if freeze_vision else BACKBONE) if p.startswith("vision/") else HEAD,
+        params)
 
 
 def bool_mask(labels) -> Mapping:

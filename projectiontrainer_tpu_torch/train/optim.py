@@ -15,7 +15,10 @@ Counterpart of ``projectiontrainer_tpu/train/optim.py`` for stages 0-2:
 - gradient accumulation as ``optax.MultiSteps``: a running mean of the micro-batch
   gradients, one update every ``accum_steps`` calls, nothing in between;
 - frozen leaves (label ``frozen``) and integer leaves (a quantized base's codes) get
-  no state and never change.
+  no state and never change;
+- a learning-rate schedule per label where JAX's ``masked_optimizer`` gives each
+  label its own ``adamw`` (``discriminative_optimizer``: the cls probe's head and
+  backbone at constant rates of their own).
 
 ``MaskedAdamW.update`` updates the params IN PLACE (optax returns new arrays). Its
 state is a plain dict of tensors keyed by parameter path, so ``torch.save`` stores
@@ -25,7 +28,7 @@ it and ``checkpoint/from_jax.py`` fills it from an optax state.
 from __future__ import annotations
 
 import math
-from typing import Callable, Mapping, Optional
+from typing import Callable, Mapping, Optional, Union
 
 import torch
 
@@ -56,7 +59,10 @@ def global_norm(tensors) -> torch.Tensor:
 
 class MaskedAdamW:
     """optax ``multi_transform({trainable: chain(clip, adamw), frozen: set_to_zero})``,
-    wrapped in ``MultiSteps`` when ``accum_steps > 1``. The clip is optax's
+    wrapped in ``MultiSteps`` when ``accum_steps > 1``. ``schedule`` is one schedule
+    for every trainable leaf, or a mapping label -> schedule (``multi_transform`` over
+    one ``adamw`` a label, each at its own rate; every label trains at every update,
+    so one Adam count serves them all). The clip is optax's
     ``clip_by_global_norm`` or, with ``clip_per_module``, the JAX package's
     ``clip_by_module_norm`` (each group of leaves under one first path segment,
     ``vision``, ``projector``, ``llm``, scaled by ``min(1, max_norm / (norm + 1e-6))``).
@@ -66,11 +72,14 @@ class MaskedAdamW:
     operations rounds to that type, as in JAX. A leaf held under two paths (the tied LM
     head) has one state, under its first path (``core/pytree.py``)."""
 
-    def __init__(self, labels: Mapping, schedule: Callable[[int], float], *,
-                 weight_decay: float = 0.01, clip_norm: Optional[float] = None,
+    def __init__(self, labels: Mapping,
+                 schedule: Union[Callable[[int], float], Mapping[str, Callable[[int], float]]],
+                 *, weight_decay: float = 0.01, clip_norm: Optional[float] = None,
                  clip_per_module: bool = False, accum_steps: int = 1, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8):
-        self.trainable = [p for p, label in leaves_with_paths(labels) if label != M.FROZEN]
+        self.label_of = {p: label for p, label in leaves_with_paths(labels)
+                         if label != M.FROZEN}
+        self.trainable = list(self.label_of)
         self.schedule = schedule
         self.weight_decay = weight_decay
         self.clip_norm = clip_norm
@@ -143,19 +152,22 @@ class MaskedAdamW:
     def _apply(self, grads: dict, state: dict, params) -> None:
         if self.clip_norm is not None:
             grads = self._clip(grads)
-        lr = self.schedule(state["count"])
+        per_label = isinstance(self.schedule, Mapping)
+        lrs = ({label: s(state["count"]) for label, s in self.schedule.items()} if per_label
+               else {None: self.schedule(state["count"])})
         state["count"] += 1
         t = state["count"]
         leaves = dict(leaves_with_paths(params))
         consts = {}
         for p, g in grads.items():
             mu, nu, x = state["mu"][p], state["nu"][p], leaves[p]
-            if mu.dtype not in consts:
-                consts[mu.dtype] = _constants(
+            key = (mu.dtype, self.label_of[p] if per_label else None)
+            if key not in consts:
+                consts[key] = _constants(
                     mu.dtype, b1=self.b1, omb1=1 - self.b1, b2=self.b2, omb2=1 - self.b2,
                     c1=1 - self.b1 ** t, c2=1 - self.b2 ** t, eps=self.eps,
-                    wd=self.weight_decay, neg_lr=-lr)
-            k = consts[mu.dtype]
+                    wd=self.weight_decay, neg_lr=-lrs[key[1]])
+            k = consts[key]
             g = g.to(mu.dtype)
             if mu.dtype == torch.float32:  # fused forms: fewer passes, fp32 all the same
                 mu.mul_(k["b1"]).add_(g, alpha=k["omb1"])
@@ -189,3 +201,15 @@ def single_group_optimizer(labels: Mapping, lr: float, *, total_steps: int,
     tx = MaskedAdamW(labels, schedule, weight_decay=weight_decay, clip_norm=clip_norm,
                      clip_per_module=clip_per_module, accum_steps=accum_steps)
     return tx, schedule
+
+
+def discriminative_optimizer(labels: Mapping, *, head_lr: float, backbone_lr: float,
+                             weight_decay: float = 0.01, accum_steps: int = 1):
+    """cls_evaluate's discriminative-LR AdamW: the ``head`` label at ``head_lr``, the
+    ``backbone`` label at ``backbone_lr`` (reference: cls_evaluate/train_utils.py:219-259).
+    Both rates are CONSTANT: the reference builds AdamW with no scheduler and never
+    steps one (:257-261), so there is no horizon (JAX's ``total_steps``) to give.
+    Returns (tx, the head's schedule)."""
+    schedules = {M.HEAD: lambda step: head_lr, M.BACKBONE: lambda step: backbone_lr}
+    tx = MaskedAdamW(labels, schedules, weight_decay=weight_decay, accum_steps=accum_steps)
+    return tx, schedules[M.HEAD]

@@ -3,6 +3,7 @@
 Counterpart of ``projectiontrainer_tpu/train/steps.py``: ``stage1_loss`` rebuilds the
 reference's [visual; caption] CLM loss, ``stage2_loss`` the [visual; question; answer]
 answer-only CLM loss, ``stage0_loss`` the SigLIP pairwise loss over the dual tower,
+``classifier_loss`` the cls probe's cross entropy or two-way multi-label loss,
 ``make_train_step`` differentiates any of them with respect to the trainable leaves
 only and applies the masked AdamW update, ``swap_optimizer`` rebuilds the optimizer
 state at a freeze-mask swap keeping what survives, and ``make_eval_step`` runs the
@@ -18,6 +19,7 @@ import torch
 
 from projectiontrainer_tpu_torch.core import dtypes
 from projectiontrainer_tpu_torch.core.pytree import leaves_with_paths, unique_leaves_with_paths
+from projectiontrainer_tpu_torch.models import classifier as cls_model
 from projectiontrainer_tpu_torch.models import decoder as dec
 from projectiontrainer_tpu_torch.models import siglip, vlm
 from projectiontrainer_tpu_torch.train import losses
@@ -281,5 +283,39 @@ def stage0_loss(cfg: siglip.SiglipConfig, *, remat=False, local_negatives_shards
             # average over the shards that have one
             nonempty = (w_s.sum(1) > 0).float()
             return (shard * nonempty).sum() / nonempty.sum().clamp_min(1.0), {}
+
+    return loss_fn
+
+
+# ---------------------------------------------------------------------------- classifier
+
+
+def classifier_loss(cfg: cls_model.ClassifierConfig, *, multilabel: bool = False,
+                    t_p: float = 4.0, t_n: float = 1.0, compute_dtype=None):
+    """cls_evaluate probe loss: softmax CE (train_utils) or the two-way multi-label
+    loss (train_twoway_loss). batch: {'pixel_values' [B, H, W, C], 'target_indices' [B]
+    | 'targets' [B, C], 'sample_weight'?}. ``compute_dtype`` (bf16 from
+    ``--mixed_precision``) casts the params inside the loss: fp32 masters, bf16
+    compute. The step's ``rng`` (an int; the trainer passes the global step, as JAX's
+    ``key(global_step)``) seeds the head's dropout; None (evaluation) turns it off.
+    The tower runs with autograd only when one of its leaves requires grad."""
+
+    def loss_fn(params, batch, rng=None):
+        if compute_dtype is not None:
+            params = dtypes.cast_compute_params(params, compute_dtype)
+        pixels = batch["pixel_values"]
+        gen = None
+        if rng is not None:
+            gen = torch.Generator(device=pixels.device).manual_seed(int(rng))
+        logits = cls_model.forward(params, cfg, pixels, dropout_gen=gen)
+        with span("loss"):
+            w = batch.get("sample_weight")
+            if multilabel:
+                loss = losses.two_way_multilabel_loss(logits, batch["targets"], t_p=t_p,
+                                                      t_n=t_n, sample_weights=w)
+            else:
+                loss = losses.softmax_ce_loss(logits, batch["target_indices"],
+                                              sample_weights=w)
+        return loss, {"logits": logits}
 
     return loss_fn

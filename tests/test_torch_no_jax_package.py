@@ -49,8 +49,12 @@ def test_entry_points_load_nothing_of_the_jax_package():
         "import sys\n"
         "from projectiontrainer_tpu_torch.cli import (infer_vqa_stage2, serve, train_stage0,\n"
         "                                             train_stage1, train_stage2)\n"
-        "from projectiontrainer_tpu_torch.train import (trainer_stage0, trainer_stage1,\n"
-        "                                               trainer_stage2)\n"
+        "from projectiontrainer_tpu_torch.cli import (balanced_sample, cls_evaluate_experiment,\n"
+        "                                             cls_test, cls_train, run_experiments)\n"
+        "from projectiontrainer_tpu_torch.train import (trainer_cls, trainer_stage0,\n"
+        "                                               trainer_stage1, trainer_stage2)\n"
+        "from projectiontrainer_tpu_torch.eval import sweep\n"
+        "from projectiontrainer_tpu_torch.models import classifier\n"
         "from projectiontrainer_tpu_torch.data import pipeline\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
