@@ -152,10 +152,26 @@ Phases, each printing one JSON line; any failure raises, so the exit code is not
    in exact arithmetic, by their noise (at most 3x plain's).
    Phase 2 adds the cls shapes: K1, K4 and K5 at [32,576,16,64] and K2 and K8 at
    [18432,1024], each rerun held bit-equal.
+16. the input feed from files, run after phase 8 on phase 7's so400m model: one line
+   of the environment (Pillow, cv2, scipy found; g++'s version; the CPUs this process
+   may use; /dev/shm's free bytes); 256 seeded 1024 x 1024 and 32 2048 x 2048 CXR-like
+   gray JPEGs (stored as RGB, 4 caption classes) written to a temp dir; (a) the feed
+   alone: images/s of ``epoch_batches`` (batch 16, onto the card) over 128 of them at
+   512 px on 8 threads and on the process feeder at N = 1, 4 and every CPU, augmentation
+   off and on (on: the workers at OMP_NUM_THREADS 1 and at OpenMP's default), then at
+   384 px (threads and the best N) and from the 2048 px files, each beside the demand
+   (stage 0: 63-104 images/s; the cls frozen epoch: 606-735); (b) Stage0Trainer.train()
+   as phase 7 runs it but fed from 128 of the files with --use_online_augmentation and
+   --num_loader_procs at the best N (8 steps at batch 16, zero-shot validation on 16
+   files; steps 6-7 profiled): images/s, ms/step and the card's idle share beside phase
+   7's in-memory step; every loss finite, the tower moved, no invalid sample, K1, K2, K4,
+   K5 and K8 launched, no worker in ``nvidia-smi --query-compute-apps`` (at most the one
+   training process there) nor with libcuda mapped; the pools closed and their shared
+   memory unlinked.
 
 The second-to-last line is {"kernels": [...]} (name, route, source, replaces, launches
-on the main path, launches_by_path (serve, train, stage0, stage2, stage2_qlora,
-serve_qwen3_adapter, cls), max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms, and the
+on the main path, launches_by_path (serve, train, stage0, stage0_files, stage2,
+stage2_qlora, serve_qwen3_adapter, cls), max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms, and the
 launches of one epoch-0 stage-2 micro-step at the longest bucket, phase 9's); the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Needs no network and no model snapshot; imports nothing of JAX.
@@ -1545,7 +1561,7 @@ def phase_stage0_train(cfg, params, kernel_counters):
           "timed_steps": "1-5 (0 warms up, 6-7 profiled)",
           "cut": "8 steps of random weights and data, 16 validation samples (a real run: "
                  "the caption corpus, many epochs)"})
-    return launches
+    return launches, {**stats, "device_idle_share": idle}
 
 
 # ---------------------------------------------------------------------------- phase 8
@@ -2438,6 +2454,295 @@ def phase_cls_end_to_end(cfg, params, kernel_counters):
                              f"{KEY_BIAS_NOISE} x plain {noise[1]:.4g}")
 
 
+# ---------------------------------------------------------------------------- phase 16
+
+FEED_SOURCES = 256        # seeded 1024 x 1024 CXR-like JPEG files
+FEED_SOURCES_2048 = 32    # and 2048 x 2048 ones, for one row
+FEED_ROW_IMAGES = 128     # images each feed-alone row reads (8 batches of 16)
+FEED_ROW_REPEATS = 3      # times each row is timed; its median and its spread are kept
+FEED_CLASSES = ("pneumonia", "edema", "cardiomegaly", "no finding")
+# what the feed must deliver (PERF.md section 5, NVIDIA H100 80GB HBM3 at 700 W): stage 0
+# at batch 16 asks 63 images/s at its host step (253.0 ms) and 104 at its kernel time
+# (153.82 ms); the cls probe's frozen epoch read 606-735 images/s
+STAGE0_DEMAND = (63, 104)
+CLS_FROZEN_DEMAND = (606, 735)
+
+
+class FileTokenizer(StubTokenizer):
+    """The stub tokenizer, also for one caption string (the datasets' call)."""
+
+    def __call__(self, texts, **kw):
+        if isinstance(texts, str):
+            return {"input_ids": super().__call__([texts], **kw)["input_ids"][0]}
+        return super().__call__(texts, **kw)
+
+
+def write_cxr_sources(directory, n, size, seed):
+    """``n`` seeded CXR-like gray JPEGs of ``size`` x ``size`` stored as RGB (a bright
+    body ellipse, two dark lung fields, ribs, per-image noise and offset) and a
+    manifest of FEED_CLASSES captions; returns the manifest's samples."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    y, x = np.mgrid[0:size, 0:size].astype(np.float32) / size
+    body = np.exp(-(((y - 0.5) / 0.48) ** 2 + ((x - 0.5) / 0.42) ** 2) ** 2)
+    lungs = sum(np.exp(-(((y - 0.45) / 0.25) ** 2 + ((x - side) / 0.12) ** 2))
+                for side in (0.33, 0.67))
+    base = 40 + 170 * body - 90 * lungs + 2.0 * np.sin(y * 60.0 + np.sin(x * 3.0)) * body
+
+    def one(i):
+        rng = np.random.default_rng(seed + i)
+        img = np.roll(base, tuple(rng.integers(-size // 16, size // 16, 2)), axis=(0, 1))
+        img = img + rng.normal(0, 6, (size, size)).astype(np.float32)
+        gray = np.clip(img, 0, 255).astype(np.uint8)
+        name = f"cxr_{size}_{i}.jpg"
+        Image.fromarray(gray).convert("RGB").save(os.path.join(directory, name), quality=90)
+        return {"image": name, "normal_caption": FEED_CLASSES[i % len(FEED_CLASSES)]}
+
+    with ThreadPoolExecutor(max_workers=len(os.sched_getaffinity(0))) as pool:
+        return list(pool.map(one, range(n)))
+
+
+def feed_environment():
+    import importlib.util
+
+    from projectiontrainer_tpu_torch.data import feeder
+
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True, timeout=60)
+    siblings = "/sys/devices/system/cpu/cpu0/topology/thread_siblings_list"
+    try:
+        with open(siblings) as f:  # "0,4" or "0-1": two hardware threads share a core
+            threads_per_core = sum(len(range(int(a), int(b) + 1)) if b else 1 for a, _, b in
+                                   (part.partition("-") for part in f.read().strip().split(",")))
+    except OSError:
+        threads_per_core = None
+    return {"threads_per_core": threads_per_core,"PIL": importlib.util.find_spec("PIL") is not None,
+            "cv2": importlib.util.find_spec("cv2") is not None,
+            "scipy": importlib.util.find_spec("scipy") is not None,
+            "gxx": gxx.stdout.splitlines()[0] if gxx.returncode == 0 else None,
+            "cpus": len(os.sched_getaffinity(0)), "shm_free_bytes": feeder.shm_free_bytes()}
+
+
+def compute_apps() -> list:
+    """The processes ``nvidia-smi`` lists on the card."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout
+    return [line.strip() for line in out.splitlines() if line.strip()]
+
+
+def maps_libcuda(pid) -> bool:
+    with open(f"/proc/{pid}/maps") as f:
+        return "libcuda" in f.read()
+
+
+def feed_row(make, samples, *, size, augment, threads=0, procs=0, omp_threads=None):
+    """images/s of ``epoch_batches`` (batch 16, onto the card) over ``samples``, timed
+    FEED_ROW_REPEATS times in a row: the thread feed on ``threads`` threads, or the
+    process feeder on ``procs`` workers at OMP_NUM_THREADS ``omp_threads`` (None:
+    OpenMP's default; set through ``feeder.WORKER_OMP_THREADS``), its pool made and
+    warmed on 2 x procs samples first (spawning is not timed)."""
+    import torch
+
+    from projectiontrainer_tpu_torch.data import feeder, pipeline
+
+    saved = feeder.WORKER_OMP_THREADS
+    feeder.WORKER_OMP_THREADS = omp_threads
+    try:
+        if procs:
+            warm = samples[:2 * procs]
+            list(feeder.map_samples_processes(make(warm, size, augment), range(len(warm)),
+                                              feeder.get_pool(size, procs)))
+        rates = []
+        for _ in range(FEED_ROW_REPEATS):
+            ds = make(samples, size, augment)
+            n = 0
+            t0 = time.perf_counter()
+            for batch in pipeline.epoch_batches(ds, batch_size=16, epoch=0, device=DEVICE,
+                                                seed=SEED, num_workers=threads,
+                                                num_procs=procs):
+                n += batch["pixel_values"].shape[0]
+            torch.cuda.synchronize()
+            rates.append(n / (time.perf_counter() - t0))
+            if ds.n_invalid:
+                raise AssertionError(f"feed: {ds.n_invalid} invalid samples from generated "
+                                     "files")
+    finally:
+        feeder.WORKER_OMP_THREADS = saved
+    return {"path": f"procs {procs}" if procs else f"threads {threads}", "size": size,
+            "augment": augment, "omp_threads": omp_threads if procs else None,
+            "images": n, "images_per_sec": float(np.median(rates)),
+            "images_per_sec_runs": rates}
+
+
+def phase_feed(cfg, params, kernel_counters, stage0_stats):
+    """Phase 16: the input feed from JPEG files, alone and under stage-0 training."""
+    from projectiontrainer_tpu_torch.core.pytree import leaves_with_paths
+    from projectiontrainer_tpu_torch.data import datasets, feeder
+
+    for _, x in leaves_with_paths(params):  # as phase 7 found them (phase 8 set some)
+        x.requires_grad_(False)
+    env = feed_environment()
+    emit({"phase": 16, "environment": env})
+    if not env["PIL"]:
+        raise RuntimeError("phase 16: no Pillow on this machine, so no JPEG can be written "
+                           "or decoded")
+    root = tempfile.mkdtemp(prefix="chip_smoke_feed_")
+
+    class Counting(datasets.ContrastiveDataset):
+        """The stage-0 dataset, counting the invalid placeholders it hands out."""
+
+        n_invalid = 0
+
+        def _invalid(self):
+            self.n_invalid += 1
+            return super()._invalid()
+
+    def make(samples, size, augment):
+        return Counting(samples, image_root=root, tokenizer=FileTokenizer(), image_size=size,
+                        max_text_len=cfg.text.max_position_embeddings, augment=augment,
+                        seed=SEED)
+
+    try:
+        t0 = time.perf_counter()
+        samples = write_cxr_sources(root, FEED_SOURCES, 1024, SEED)
+        big = write_cxr_sources(root, FEED_SOURCES_2048, 2048, SEED + 1000)
+        write_s = time.perf_counter() - t0
+        rows_in = samples[:FEED_ROW_IMAGES]
+        cpus = env["cpus"]
+        ns = sorted({1, 4, cpus})
+        rows = [feed_row(make, rows_in, size=512, augment=a, threads=8) for a in (False, True)]
+        for n in ns:
+            for augment in (False, True):
+                rows.append(feed_row(make, rows_in, size=512, augment=augment, procs=n))
+            rows.append(feed_row(make, rows_in, size=512, augment=True, procs=n, omp_threads=1))
+            feeder.close_pools()
+        aug_rows = [r for r in rows if r["augment"] and r["path"].startswith("procs")]
+        best = max(aug_rows, key=lambda r: r["images_per_sec"])
+        best_n = int(best["path"].split()[1])
+        omp_faster = {n: max((r for r in aug_rows if r["path"] == f"procs {n}"),
+                             key=lambda r: r["images_per_sec"])["omp_threads"] for n in ns}
+        rows.append(feed_row(make, rows_in, size=384, augment=False, threads=8))
+        rows.append(feed_row(make, rows_in, size=384, augment=False, procs=best_n,
+                             omp_threads=best["omp_threads"]))
+        rows.append(feed_row(make, big, size=512, augment=True, procs=best_n,
+                             omp_threads=best["omp_threads"]))
+        rows[-1]["source_px"] = 2048
+        feeder.close_pools()
+        for r in rows:
+            demand = CLS_FROZEN_DEMAND if r["size"] == 384 else STAGE0_DEMAND
+            print(f"feed {r['path']:>10} {r['size']} px from {r.get('source_px', 1024)} px, "
+                  f"augment {'on ' if r['augment'] else 'off'}, OMP threads "
+                  f"{r['omp_threads'] or 'default'}: {r['images_per_sec']:8.1f} images/s, "
+                  f"median of {min(r['images_per_sec_runs']):.1f}-"
+                  f"{max(r['images_per_sec_runs']):.1f} (demand {demand[0]}-{demand[1]})",
+                  flush=True)
+        emit({"phase": 16, "feed_rows": rows, "sources_written_s": write_s,
+              "best_procs": best_n, "faster_omp_threads_by_procs": omp_faster,
+              "omp_default_in_feeder": feeder.WORKER_OMP_THREADS})
+
+        # (b) stage-0 training from the files, augmentation on: the process feeder at the
+        # best N (the feeder's OpenMP setting) is the path whose launches count; then
+        # the thread feed for comparison
+        for c in kernel_counters.values():
+            c.reset()
+        procs_run = train_from_files(cfg, params, make, samples, procs=best_n,
+                                     out_dir=os.path.join(root, "procs"))
+        launches = {name: c.value for name, c in kernel_counters.items()}
+        threads_run = train_from_files(cfg, params, make, samples, procs=0,
+                                       out_dir=os.path.join(root, "threads"))
+    finally:
+        feeder.close_pools()
+        shutil.rmtree(root, ignore_errors=True)
+    if not all(launches[n] for n in STAGE0_KERNELS):
+        raise AssertionError(f"stage 0 from files: a kernel of the path never launched: "
+                             f"{launches}")
+    ref = stage0_stats or {}
+    for run in (procs_run, threads_run):
+        print(f"stage 0 from files ({run['feed']}): {run['images_per_sec']:.3f} images/s, "
+              f"{run['step_time_ms']:.1f} ms/step, kernel time {run['kernel_ms']:.1f} ms/step "
+              f"(device idle {run['device_idle_share']:.1%}); in memory (phase 7): "
+              f"{ref.get('images_per_sec')} images/s, {ref.get('step_time_ms')} ms/step, "
+              f"idle {ref.get('device_idle_share')}", flush=True)
+    emit({"phase": 16, **procs_run, "launches": launches, "thread_feed": threads_run,
+          "in_memory_phase7": ref, "timed_steps": "1-5 (0 warms up, 6-7 profiled)",
+          "cut": "8 steps of 128 generated files, validation on 16 (a real run: the caption "
+                 "corpus, many epochs)"})
+    return launches
+
+
+def train_from_files(cfg, params, make, samples, *, procs, out_dir):
+    """Stage0Trainer.train() as phase 7 runs it, fed from 128 of the files with online
+    augmentation on ``procs`` feeder workers (0: 8 threads), validated on 16 others;
+    checks it and returns its numbers."""
+    import torch
+
+    from projectiontrainer_tpu_torch.core.config import Stage0Config
+    from projectiontrainer_tpu_torch.data import feeder
+    from projectiontrainer_tpu_torch.train.trainer_stage0 import Stage0Trainer
+
+    train_ds = make(samples[:128], 512, True)
+    val_ds = make(samples[128:144], 512, False)
+    tcfg = Stage0Config(output_dir=out_dir, batch_size=16, num_epochs=1, logging_steps=1,
+                        num_workers=8, num_loader_procs=procs, use_online_augmentation=True,
+                        device=DEVICE, disable_wandb=True, seed=SEED, img_size=512,
+                        max_text_len=cfg.text.max_position_embeddings,
+                        profile_dir=os.path.join(out_dir, "profile"), profile_start_step=6,
+                        profile_num_steps=2)
+    trainer = Stage0Trainer(tcfg, model_cfg=cfg, params=params, tokenizer=FileTokenizer(),
+                            train_dataset=train_ds, val_dataset=val_ds,
+                            class_names=list(FEED_CLASSES))
+    before = {p: x.detach().clone() for p, x in _watched_leaves(params).items()}
+    result = trainer.train()
+    torch.cuda.synchronize()
+    # the card's processes, read after the steps with the workers still alive: a worker
+    # that had made a CUDA context would hold it, and be listed, until it exits
+    listed = compute_apps()
+    pools = list(feeder._pools.values())
+    worker_pids = [pid for p in pools for pid in p.pids]
+    cuda_in_workers = [pid for pid in worker_pids if maps_libcuda(pid)]
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        metrics = [json.loads(line) for line in f]
+    del trainer
+    shm_names = [p._shm.name for p in pools]
+    feeder.close_pools()
+    leaked = [n for n in shm_names if os.path.exists(os.path.join(feeder.SHM_DIR, n))]
+    losses = [r["train/batch_loss"] for r in metrics if "train/batch_loss" in r]
+    moved = {p: float((x.detach().float() - before[p].float()).abs().max())
+             for p, x in _watched_leaves(params).items()}
+    split = {k[len("profile/"):]: v for r in metrics for k, v in r.items()
+             if k.startswith("profile/")}
+    stats = {"images_per_sec": result.get("images_per_sec"),
+             "step_time_ms": result.get("step_time_ms")}
+    listed_pids = {int(line.split(",")[0]) for line in listed}
+    feed = f"{procs} feeder processes" if procs else "8 threads"
+    if len(losses) != 8 or not np.isfinite(losses).all():
+        raise AssertionError(f"stage 0 from files ({feed}): expected 8 finite losses, got "
+                             f"{losses}")
+    if not all(m > 0 for m in moved.values()):
+        raise AssertionError(f"stage 0 from files ({feed}): a trainable leaf did not change: "
+                             f"{moved}")
+    if train_ds.n_invalid or val_ds.n_invalid:
+        raise AssertionError(f"stage 0 from files ({feed}): {train_ds.n_invalid} + "
+                             f"{val_ds.n_invalid} invalid samples")
+    if [p.num_workers for p in pools] != ([procs] if procs else []):
+        raise AssertionError(f"stage 0 from files ({feed}): the feed ran on {pools}")
+    if cuda_in_workers or listed_pids & set(worker_pids) or len(listed) > 1:
+        raise AssertionError(f"stage 0 from files ({feed}): the card's processes {listed}; "
+                             f"workers {worker_pids}, with libcuda mapped {cuda_in_workers}")
+    if leaked:
+        raise AssertionError(f"feeder: shared memory left behind: {leaked}")
+    if not all(stats.values()) or "total_ms" not in split:
+        raise AssertionError(f"stage 0 from files ({feed}): no throughput or trace: {result}")
+    return {"feed": feed, "steps": len(losses), "losses": losses, **stats,
+            "kernel_ms": split["total_ms"], "kernel_ms_per_step": split,
+            "device_idle_share": 1 - split["total_ms"] / stats["step_time_ms"],
+            "num_loader_procs": procs, "omp_threads": pools[0].omp_threads if pools else None,
+            "invalid_samples": 0, "leaf_max_change": moved, "compute_apps": listed,
+            "worker_pids": worker_pids}
+
+
 def main() -> int:
     import gc
 
@@ -2458,10 +2763,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     cfg, params = stage0_model()
-    stage0_launches = phase_stage0_train(cfg, params, kernel_counters)
+    stage0_launches, stage0_stats = phase_stage0_train(cfg, params, kernel_counters)
     gc.collect()
     torch.cuda.empty_cache()
     phase_stage0_end_to_end(cfg, params, kernel_counters)
+    gc.collect()
+    torch.cuda.empty_cache()
+    files_launches = phase_feed(cfg, params, kernel_counters, stage0_stats)
     del cfg, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2503,7 +2811,8 @@ def main() -> int:
     for name, (route, source, replaces) in KERNELS.items():
         rows = results[name]
         main_row = next((r for r in rows if r["case"].startswith(MAIN_CASE.get(name, ""))))
-        by_path = {"stage0": stage0_launches[name]} if name in STAGE0_KERNELS else {}
+        by_path = ({"stage0": stage0_launches[name], "stage0_files": files_launches[name]}
+                   if name in STAGE0_KERNELS else {})
         if name in STAGE1_KERNELS:
             by_path["train"] = train_launches[name]
         if name in serve_launches:

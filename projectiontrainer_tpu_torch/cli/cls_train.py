@@ -12,8 +12,11 @@ Counterpart of ``projectiontrainer_tpu/cli/cls_train.py`` with the same flags
 
 The tower (with its MAP head when the snapshot has one) and the head train in fp32
 masters with bf16 compute (``--mixed_precision``). ``--multilabel_two_way`` reads
-multi-hot targets (``MultiLabelClassificationDataset``). Refused, not ported:
-``--mesh_data``/``--mesh_model`` above 1, ``--fsdp`` and ``--num_loader_procs`` above 0.
+multi-hot targets (``MultiLabelClassificationDataset``). Images are read on
+``--num_workers`` threads: the classification datasets lack the process feeder's
+protocol, so ``--num_loader_procs`` has no effect (said once in the log), as in the JAX
+package. Refused, not ported: ``--mesh_data``/``--mesh_model`` above 1, or -1 with more
+than one GPU visible, and ``--fsdp``.
 """
 
 from __future__ import annotations
@@ -24,24 +27,19 @@ from projectiontrainer_tpu_torch.checkpoint import hf_import
 from projectiontrainer_tpu_torch.core.config import ClsConfig, from_args, parser_for
 from projectiontrainer_tpu_torch.data import datasets
 from projectiontrainer_tpu_torch.models import classifier as cls_model
+from projectiontrainer_tpu_torch.train import common
 from projectiontrainer_tpu_torch.train.trainer_cls import ClsTrainer
 from projectiontrainer_tpu_torch.utils.logging import setup_logging
-
-
-def check_supported(cfg: ClsConfig) -> None:
-    if cfg.mesh_data > 1 or cfg.mesh_model > 1 or cfg.fsdp:
-        raise NotImplementedError("--mesh_data/--mesh_model above 1 and --fsdp: "
-                                  "multi-device training is not ported")
-    if cfg.num_loader_procs > 0:
-        raise NotImplementedError("--num_loader_procs: the multi-process feeder is not ported")
 
 
 def build_trainer(cfg: ClsConfig, *, vision_cfg=None, vision_params=None) -> ClsTrainer:
     """The trainer over ``cfg.data_json``'s stratified 90/10 split; the tower from the
     snapshot ``cfg.vision_model_name`` unless ``vision_cfg``/``vision_params`` are given
     (``vision_params`` None then: a random tower from ``cfg.seed``)."""
-    check_supported(cfg)
+    common.check_one_device(cfg)
     logger = setup_logging()
+    common.log_thread_feed(cfg, logger, "the classification datasets lack the process "
+                           "feeder's protocol")
     names = cfg.effective_class_names()
     device = torch.device(cfg.device)
     if vision_cfg is None:

@@ -10,9 +10,12 @@ The vision tower, its MAP head and ``logit_bias`` train in fp32 masters with bf1
 compute (``--mixed_precision``); the text tower is stored in the compute type when
 it is frozen (``--freeze_text_encoder``, the default).
 
-Not ported yet, and refused: ``--mesh_data``/``--mesh_model`` above 1 and ``--fsdp``
-(multi-device runs), ``--use_online_augmentation``, and ``--num_loader_procs`` above 0
-(the multi-process feeder).
+``--use_online_augmentation`` augments every training image (``data/augmentation.py``,
+the C++ pipeline of ``runtime/``); ``--num_loader_procs N`` decodes and augments on N
+worker processes (``data/feeder.py``) instead of ``--num_workers`` threads.
+
+Not ported yet, and refused: ``--mesh_data``/``--mesh_model`` above 1, or -1 with more
+than one GPU visible, and ``--fsdp`` (multi-device runs).
 """
 
 from __future__ import annotations
@@ -23,25 +26,14 @@ from projectiontrainer_tpu_torch.data import datasets
 from projectiontrainer_tpu_torch.checkpoint import hf_import
 from projectiontrainer_tpu_torch.core import dtypes
 from projectiontrainer_tpu_torch.core.config import Stage0Config, from_args, parser_for
-from projectiontrainer_tpu_torch.train import setup
+from projectiontrainer_tpu_torch.train import common, setup
 from projectiontrainer_tpu_torch.train.trainer_stage0 import Stage0Trainer
 from projectiontrainer_tpu_torch.utils.logging import setup_logging
 
 
-def check_supported(cfg) -> None:
-    if cfg.mesh_data > 1 or cfg.mesh_model > 1 or cfg.fsdp:
-        raise NotImplementedError("--mesh_data/--mesh_model above 1 and --fsdp: "
-                                  "multi-device training is not ported")
-    if cfg.num_loader_procs > 0:
-        raise NotImplementedError("--num_loader_procs: the multi-process feeder is not ported")
-    if cfg.use_online_augmentation:
-        raise NotImplementedError("--use_online_augmentation: the JAX package's native "
-                                  "augmentation pass is not ported")
-
-
 def main(argv=None):
     cfg = from_args(Stage0Config, parser_for(Stage0Config, __doc__).parse_args(argv))
-    check_supported(cfg)
+    common.check_one_device(cfg)
     logger = setup_logging()
     device = torch.device(cfg.device)
     text_dtype = dtypes.compute_dtype(cfg.mixed_precision) if cfg.freeze_text_encoder else None

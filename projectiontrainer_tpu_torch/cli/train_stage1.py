@@ -10,8 +10,11 @@ Counterpart of ``projectiontrainer_tpu/cli/train_stage1.py`` with the same flags
 (nf4-mirror, nf4 or int8; no adapters in stage 1); with ``--resume`` the method the
 checkpoint was saved with wins.
 
-Not ported yet, and refused: ``--mesh_data``/``--mesh_model`` above 1 and ``--fsdp``
-(multi-device runs), and ``--num_loader_procs`` above 0 (the multi-process feeder).
+``--num_loader_procs N`` decodes the images on N worker processes (``data/feeder.py``)
+instead of ``--num_workers`` threads.
+
+Not ported yet, and refused: ``--mesh_data``/``--mesh_model`` above 1, or -1 with more
+than one GPU visible, and ``--fsdp`` (multi-device runs).
 """
 
 from __future__ import annotations
@@ -27,17 +30,9 @@ from projectiontrainer_tpu_torch.train.trainer_stage1 import Stage1Trainer
 from projectiontrainer_tpu_torch.utils.logging import setup_logging
 
 
-def check_supported(cfg) -> None:
-    if cfg.mesh_data > 1 or cfg.mesh_model > 1 or cfg.fsdp:
-        raise NotImplementedError("--mesh_data/--mesh_model above 1 and --fsdp: "
-                                  "multi-device training is not ported")
-    if cfg.num_loader_procs > 0:
-        raise NotImplementedError("--num_loader_procs: the multi-process feeder is not ported")
-
-
 def main(argv=None):
     cfg = from_args(Stage1Config, parser_for(Stage1Config, __doc__).parse_args(argv))
-    check_supported(cfg)
+    common.check_one_device(cfg)
     logger = setup_logging()
     device = torch.device(cfg.device)
     common.resume_quant_method(cfg, os.path.join(cfg.output_dir, "checkpoints"), logger)

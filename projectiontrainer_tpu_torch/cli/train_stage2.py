@@ -18,9 +18,11 @@ q/k/v/o/gate/up/down over a base quantized by ``--quant_method``):
 format); ``--resume`` with ``--enable_qlora`` quantizes the base by the method the
 checkpoint was saved with.
 
+Images are read on ``--num_workers`` threads, as the JAX package's stage 2 reads them:
+``--num_loader_procs`` has no effect here (said once in the log).
+
 Not ported yet, and refused: ``--remat dots``, ``--mesh_data``/``--mesh_model`` above
-1 and ``--fsdp`` (multi-device runs), and ``--num_loader_procs`` above 0 (the
-multi-process feeder).
+1, or -1 with more than one GPU visible, and ``--fsdp`` (multi-device runs).
 """
 
 from __future__ import annotations
@@ -40,17 +42,14 @@ from projectiontrainer_tpu_torch.utils.logging import setup_logging
 def check_supported(cfg) -> None:
     if cfg.remat == "dots":
         raise NotImplementedError("--remat dots (save the matmul outputs) is not ported")
-    if cfg.mesh_data > 1 or cfg.mesh_model > 1 or cfg.fsdp:
-        raise NotImplementedError("--mesh_data/--mesh_model above 1 and --fsdp: "
-                                  "multi-device training is not ported")
-    if cfg.num_loader_procs > 0:
-        raise NotImplementedError("--num_loader_procs: the multi-process feeder is not ported")
+    common.check_one_device(cfg)
 
 
 def main(argv=None):
     cfg = from_args(Stage2Config, parser_for(Stage2Config, __doc__).parse_args(argv))
     check_supported(cfg)
     logger = setup_logging()
+    common.log_thread_feed(cfg, logger, "stage 2 executes a bucket plan")
     device = torch.device(cfg.device)
     common.resume_quant_method(cfg, os.path.join(cfg.output_dir, "checkpoints"), logger)
     vlm_cfg, params = setup.build_vlm(cfg.vision_model_name, cfg.llm_name, device=device,

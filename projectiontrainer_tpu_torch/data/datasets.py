@@ -1,6 +1,10 @@
 """JSON-manifest datasets for every stage, producing numpy samples (the port's own copy
-of the JAX package's ``data/datasets.py``; online augmentation, which there runs
-through a native extension, is not ported and raises).
+of the JAX package's ``data/datasets.py``).
+
+Stage 0's online augmentation draws one seed per sample from the dataset's generator
+in ``pixel_job`` and augments with ``default_rng(seed)`` (:func:`job_pixels`); the
+thread feed draws the jobs in index order as the process feeder does, so both give the
+same pixels. (The JAX package's thread path shares one generator across its threads.)
 
 Manifest field names match the reference exactly so its data files work unchanged:
 
@@ -198,6 +202,34 @@ class Stage2VQADataset:
         return q_lens, a_lens
 
 
+def job_pixels(path: str, aug_seed: Optional[int], size: int) -> np.ndarray:
+    """The pixels of one ``pixel_job``: decode, then the SigLIP preprocess, or with a
+    seed the sampled augmentation from ``default_rng(aug_seed)``. The process feeder's
+    workers (``data/feeder.py``) and the thread feed (``pipeline.map_samples``) both run
+    this, so the two give the same pixels."""
+    from projectiontrainer_tpu_torch.data.augmentation import augment_and_preprocess_fast
+
+    img = I.load_image(path)
+    if aug_seed is None:
+        return I.preprocess(img, size)
+    return augment_and_preprocess_fast(np.asarray(img), size,
+                                       rng=np.random.default_rng(aug_seed))
+
+
+def sample_from_job(dataset, idx: int, job: tuple) -> dict:
+    """``dataset``'s sample ``idx`` from its drawn ``pixel_job``, in this process: what a
+    feeder worker computes, finished by ``finish_pixels`` (None pixels on an IO
+    failure)."""
+    path, aug_seed = job
+    pixels = None
+    if path is not None:
+        try:
+            pixels = job_pixels(path, aug_seed, dataset.image_size)
+        except OSError:
+            pixels = None
+    return dataset.finish_pixels(idx, pixels)
+
+
 class ContrastiveDataset:
     """Stage-0 image-caption pairs with class indices for zero-shot validation. Invalid
     samples return ``valid=False`` placeholders, filtered at batch time (the reference's
@@ -205,8 +237,6 @@ class ContrastiveDataset:
 
     def __init__(self, samples, image_root, tokenizer, image_size, *, max_text_len=64,
                  image_root_2=None, augment: bool = False, seed: int = 0):
-        if augment:
-            raise NotImplementedError("online augmentation is not ported")
         samples = [
             s for s in samples if str(s.get("normal_caption", "")).strip()
         ]
@@ -237,15 +267,9 @@ class ContrastiveDataset:
         }
 
     def __getitem__(self, idx) -> dict:
-        sample = self.samples[idx]
-        caption = str(sample["normal_caption"])
-        try:
-            pixels = I.load_and_preprocess(
-                sample["image"], self.image_size, self.image_root, self.image_root_2
-            )
-        except (FileNotFoundError, OSError):
-            return self._invalid()
-        return self.finish_pixels(idx, pixels)
+        """The sample, augmented with a seed drawn here when ``augment`` is on; an
+        unreadable image gives the invalid placeholder."""
+        return sample_from_job(self, idx, self.pixel_job(idx))
 
     # ------------------------------------------------- process-feed protocol
 

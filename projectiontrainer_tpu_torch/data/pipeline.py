@@ -5,8 +5,12 @@ Counterpart of ``projectiontrainer_tpu/data/pipeline.py`` (which imports jax):
 - ``host_shard_indices``: the per-epoch seeded shuffle and round-robin process shard
   of ``DistributedSampler.set_epoch``, the rank from ``torch.distributed`` when it is
   initialised (one process otherwise);
-- ``map_samples``: ``dataset[i]`` on a thread pool, in order;
-- ``epoch_batches``: shard -> decode -> ``fixed_batcher`` (``data/bucketing.py``: a straggler batch is filled by repeating samples,
+- ``map_samples``: ``dataset[i]`` on a thread pool, in order (a dataset with the
+  process-feed protocol job by job: ``pixel_job`` drawn in index order here, the
+  job's pixels on the pool through ``datasets.sample_from_job``, as ``data/feeder.py``'s
+  workers compute them);
+- ``epoch_batches``: shard -> decode (threads, or with ``num_procs`` the process
+  feeder for datasets with its protocol) -> ``fixed_batcher`` (``data/bucketing.py``: a straggler batch is filled by repeating samples,
   with ``sample_weight`` 0 on the filler rows) -> ``device_prefetch``;
 - ``planned_epoch_batches``: stage 2's global bucket plan (``bucketing.global_bucket_plan``)
   -> this process's slice of each planned batch, questions and answers padded to the
@@ -19,6 +23,7 @@ Counterpart of ``projectiontrainer_tpu/data/pipeline.py`` (which imports jax):
 from __future__ import annotations
 
 import collections
+import functools
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -27,6 +32,7 @@ from typing import Iterable, Iterator, Optional
 import numpy as np
 import torch
 
+from projectiontrainer_tpu_torch.data import datasets, feeder
 from projectiontrainer_tpu_torch.data.bucketing import fixed_batcher, pad_to
 
 
@@ -54,23 +60,32 @@ def host_shard_indices(n: int, *, epoch: int, seed: int = 0, shuffle: bool = Tru
 
 
 def map_samples(dataset, indices, *, num_workers: int = 8) -> Iterator[dict]:
-    """Fetch dataset[i] for i in indices with a thread pool, preserving order."""
+    """Fetch dataset[i] for i in indices with a thread pool, preserving order. For a
+    dataset with the process-feed protocol, each ``pixel_job`` (which may draw an
+    augmentation seed) is drawn here, in index order, so the samples do not depend on
+    the threads' timing and equal the process feeder's."""
+    if feeder.supports_process_feed(dataset):
+        def fetch(i):
+            return functools.partial(datasets.sample_from_job, dataset, i, dataset.pixel_job(i))
+    else:
+        def fetch(i):
+            return functools.partial(dataset.__getitem__, i)
     if num_workers <= 1:
         for i in indices:
-            yield dataset[int(i)]
+            yield fetch(int(i))()
         return
     with ThreadPoolExecutor(max_workers=num_workers) as pool:
         window = collections.deque()
         it = iter(indices)
         for i in it:
-            window.append(pool.submit(dataset.__getitem__, int(i)))
+            window.append(pool.submit(fetch(int(i))))
             if len(window) >= num_workers * 2:
                 break
         while window:
             yield window.popleft().result()
             nxt = next(it, None)
             if nxt is not None:
-                window.append(pool.submit(dataset.__getitem__, int(nxt)))
+                window.append(pool.submit(fetch(int(nxt))))
 
 
 def _to_tensors(batch: dict) -> dict:
@@ -123,11 +138,19 @@ def device_prefetch(batches: Iterable[dict], *, device, size: int = 2) -> Iterat
 
 
 def epoch_batches(dataset, *, batch_size: int, epoch: int, device, seed: int = 0,
-                  shuffle: bool = True, num_workers: int = 8,
+                  shuffle: bool = True, num_workers: int = 8, num_procs: int = 0,
                   prefetch: int = 2) -> Iterator[dict]:
-    """The standard per-epoch pipeline: shard -> decode -> batch -> prefetch."""
+    """The standard per-epoch pipeline: shard -> decode -> batch -> prefetch.
+
+    ``num_procs > 0`` moves decode+augment onto worker PROCESSES with shared-memory
+    pixel handoff (``data/feeder.py``) for datasets with the pixel_job/finish_pixels
+    protocol; other datasets stay on the thread pool."""
     indices = host_shard_indices(len(dataset), epoch=epoch, seed=seed, shuffle=shuffle)
-    samples = map_samples(dataset, indices, num_workers=num_workers)
+    if num_procs > 0 and feeder.supports_process_feed(dataset):
+        pool = feeder.get_pool(dataset.image_size, num_procs)
+        samples = feeder.map_samples_processes(dataset, indices, pool)
+    else:
+        samples = map_samples(dataset, indices, num_workers=num_workers)
     yield from device_prefetch(fixed_batcher(samples, batch_size), device=device,
                                size=prefetch)
 

@@ -20,6 +20,30 @@ from projectiontrainer_tpu_torch.core.config import CommonConfig
 from projectiontrainer_tpu_torch.data import pipeline as pipe
 
 
+def check_one_device(cfg: CommonConfig) -> None:
+    """Refuse what would need more than one device: multi-device training is not
+    ported. ``--mesh_data``/``--mesh_model`` -1 mean every visible device (the JAX
+    package's ``core/mesh.py``), so they are refused too when more than one GPU is
+    visible."""
+    if cfg.mesh_data > 1 or cfg.mesh_model > 1 or cfg.fsdp:
+        raise NotImplementedError("--mesh_data/--mesh_model above 1 and --fsdp: "
+                                  "multi-device training is not ported")
+    if (-1 in (cfg.mesh_data, cfg.mesh_model) and torch.device(cfg.device).type == "cuda"
+            and torch.cuda.device_count() > 1):
+        raise NotImplementedError(
+            f"--mesh_data {cfg.mesh_data} --mesh_model {cfg.mesh_model}: -1 means every "
+            f"visible GPU ({torch.cuda.device_count()} here), and multi-device training is "
+            "not ported: pass --mesh_data 1 --mesh_model 1, or narrow CUDA_VISIBLE_DEVICES "
+            "to one card")
+
+
+def log_thread_feed(cfg: CommonConfig, logger, why: str) -> None:
+    """Say once that ``--num_loader_procs`` has no effect on this path."""
+    if cfg.num_loader_procs > 0:
+        logger.info("--num_loader_procs %d has no effect here: %s, so images are read on "
+                    "%d threads (--num_workers)", cfg.num_loader_procs, why, cfg.num_workers)
+
+
 def global_batch_size(cfg: CommonConfig) -> int:
     """``batch_size`` is per device (reference semantics): batch x world."""
     return cfg.batch_size * pipe.process_index_count()[1]
@@ -42,10 +66,13 @@ def update_steps(n_samples: int, global_batch: int, accum: int, epochs: int,
 
 
 def feed(dataset, cfg: CommonConfig, *, epoch: int, shuffle: bool = True) -> Iterator[dict]:
-    """Per-epoch batches on ``cfg.device``."""
+    """Per-epoch batches on ``cfg.device``; images decoded on ``cfg.num_workers``
+    threads, or on ``cfg.num_loader_procs`` processes for a dataset with the
+    process-feed protocol."""
     yield from pipe.epoch_batches(dataset, batch_size=cfg.batch_size, epoch=epoch,
                                   device=cfg.device, seed=cfg.seed, shuffle=shuffle,
-                                  num_workers=cfg.num_workers)
+                                  num_workers=cfg.num_workers,
+                                  num_procs=cfg.num_loader_procs)
 
 
 def left_align_padding(ids, pad_id: int) -> np.ndarray:

@@ -312,7 +312,29 @@ def test_balanced_sample_matches_jax_cli(tmp_path, labels, size, seed):
     assert got == ref and len(got) > 0
 
 
-@pytest.mark.parametrize("flag", [["--mesh_data", "2"], ["--fsdp"], ["--num_loader_procs", "2"]])
-def test_cli_refuses_what_is_not_ported(snapshot, tmp_path, flag):
+# --num_loader_procs runs since the feeder port, on threads here
+# (test_cli_num_loader_procs_falls_back_to_threads below); -1 (every device) is refused
+# where more than one GPU is visible
+@pytest.mark.parametrize("flag", [["--mesh_data", "2"], ["--fsdp"],
+                                  ["--mesh_data", "-1", "--device", "cuda"]])
+def test_cli_refuses_what_is_not_ported(snapshot, tmp_path, monkeypatch, flag):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     with pytest.raises(NotImplementedError, match="not ported"):
         cls_train.main(_train_argv(snapshot, str(tmp_path / "x"), *flag))
+
+
+def test_cli_num_loader_procs_falls_back_to_threads(snapshot, tmp_path, caplog):
+    """ClassificationDataset lacks the process feeder's protocol, so --num_loader_procs
+    reads on threads, as the JAX package's supports_process_feed decides: said once in
+    the log, no pool made, the losses those of a run without the flag."""
+    from projectiontrainer_tpu_torch.data import feeder
+
+    caplog.set_level("INFO", logger="projectiontrainer_tpu_torch")
+    cls_train.main(_train_argv(snapshot, str(tmp_path / "procs"), "--freeze_mode", "Freeze",
+                               "--epochs", "1", "--num_loader_procs", "2"))
+    said = [r.getMessage() for r in caplog.records if "--num_loader_procs" in r.getMessage()]
+    assert len(said) == 1 and "threads" in said[0] and not feeder._pools
+    cls_train.main(_train_argv(snapshot, str(tmp_path / "threads"), "--freeze_mode", "Freeze",
+                               "--epochs", "1"))
+    got, ref = (_batch_losses(os.path.join(tmp_path, d, "EXPT")) for d in ("procs", "threads"))
+    assert len(got) == 2 and got == ref

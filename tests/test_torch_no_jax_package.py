@@ -15,11 +15,12 @@ import numpy as np
 import pytest
 
 from projectiontrainer_tpu import testing as T
+from projectiontrainer_tpu.data import augmentation as jax_augmentation
 from projectiontrainer_tpu.data import bucketing as jax_bucketing
 from projectiontrainer_tpu.data import datasets as jax_datasets
 from projectiontrainer_tpu.data import image as jax_image
 from projectiontrainer_tpu.eval import metrics as jax_metrics
-from projectiontrainer_tpu_torch.data import bucketing, datasets, image
+from projectiontrainer_tpu_torch.data import augmentation, bucketing, datasets, image
 from projectiontrainer_tpu_torch.eval import metrics
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -55,12 +56,14 @@ def test_entry_points_load_nothing_of_the_jax_package():
         "                                               trainer_stage1, trainer_stage2)\n"
         "from projectiontrainer_tpu_torch.eval import sweep\n"
         "from projectiontrainer_tpu_torch.models import classifier\n"
-        "from projectiontrainer_tpu_torch.data import pipeline\n"
+        "from projectiontrainer_tpu_torch.data import augmentation, feeder, pipeline\n"
+        "from projectiontrainer_tpu_torch.runtime import native\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'projectiontrainer_tpu' or m.startswith('projectiontrainer_tpu.')]\n"
         "assert not bad, bad\n"
-        "assert 'PIL' not in sys.modules and 'sklearn' not in sys.modules\n"
+        "lazy = [m for m in ('PIL', 'sklearn', 'cv2', 'scipy') if m in sys.modules]\n"
+        "assert not lazy, lazy\n"
         "print('ok')\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -142,8 +145,16 @@ def test_datasets_copy(tmp_path, kind):
         got, ref = datasets.ContrastiveDataset(samples, **kw), jax_datasets.ContrastiveDataset(
             samples, **kw)
         assert got.class_names == ref.class_names
-        with pytest.raises(NotImplementedError):  # online augmentation is not ported
-            datasets.ContrastiveDataset(samples, augment=True, **kw)
+        # online augmentation: the seed pixel_job draws, through the JAX package's
+        # augment_and_preprocess_fast, gives the port's augmented sample
+        aug = datasets.ContrastiveDataset(samples, augment=True, seed=5, **kw)
+        seeds = jax_datasets.ContrastiveDataset(samples, augment=True, seed=5, **kw)
+        for i in (0, 5, 5):
+            path, seed = seeds.pixel_job(i)
+            assert seed is not None
+            want = jax_augmentation.augment_and_preprocess_fast(
+                np.asarray(jax_image.load_image(path)), 16, rng=np.random.default_rng(seed))
+            np.testing.assert_array_equal(aug[i]["pixel_values"], want)
     assert len(got) == len(ref) == 6
     for i in (0, 5):
         a, b = got[i], ref[i]
@@ -209,3 +220,26 @@ def test_quant_and_lora_copies(name):
                         layer, target, ab)
     else:
         assert getattr(quant, name) == getattr(jax_quant, name)
+
+
+def test_augmentation_constants_copy():
+    for name in ("SHIFT_MIN", "SHIFT_MAX", "SCALE_MIN", "SCALE_MAX", "CONTRAST_MIN",
+                 "CONTRAST_MAX", "ELASTIC_ALPHA", "ELASTIC_SIGMA", "DEFAULT_PIPELINE"):
+        assert getattr(augmentation, name) == getattr(jax_augmentation, name), name
+
+
+def test_native_source_copy():
+    """The port's pipeline.cpp is the original's code with one function added (the
+    Gaussian blur of the elastic fields); only the header comment differs."""
+    def code(path, drop_blur):
+        text = path.read_text()
+        text = text[text.index("#include <algorithm>"):]
+        if drop_blur:
+            start = text.index("// ---------------------------------------------------------"
+                               "------------- blur")
+            text = text[:start] + text[text.index("// Batch: each image has its own"):]
+        return text
+
+    csrc = "runtime/csrc/pipeline.cpp"
+    assert (code(REPO / "projectiontrainer_tpu_torch" / csrc, True)
+            == code(REPO / "projectiontrainer_tpu" / csrc, False))

@@ -321,11 +321,91 @@ def test_cli_trains_exports_and_resumes(snapshot, tmp_path):
                                   batch[3:])
 
 
+# --num_loader_procs runs since the feeder port (test_cli_trains_on_the_process_feeder
+# below); -1 (every device) is refused where more than one GPU is visible
 @pytest.mark.parametrize("flag", [["--mesh_data", "2"], ["--mesh_model", "2"], ["--fsdp"],
-                                  ["--num_loader_procs", "2"]])
-def test_cli_refuses_what_is_not_ported(snapshot, tmp_path, flag):
+                                  ["--mesh_data", "-1", "--device", "cuda"],
+                                  ["--mesh_model", "-1", "--device", "cuda"]])
+def test_cli_refuses_what_is_not_ported(snapshot, tmp_path, monkeypatch, flag):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     with pytest.raises(NotImplementedError, match="not ported"):
         train_stage0.main(_argv(snapshot, str(tmp_path / "x"), *flag))
+
+
+def test_cli_trains_on_the_process_feeder_with_online_augmentation(snapshot, tmp_path):
+    """--use_online_augmentation --num_loader_procs 2: the training images are decoded
+    and augmented on two worker processes; the run trains and exports."""
+    from projectiontrainer_tpu_torch.data import feeder
+
+    out = str(tmp_path / "aug")
+    try:
+        result = train_stage0.main(_argv(snapshot, out, "--num_epochs", "2",
+                                         "--use_online_augmentation", "--num_loader_procs", "2"))
+        pools = list(feeder._pools.values())
+        assert [p.num_workers for p in pools] == [2]
+    finally:
+        feeder.close_pools()
+    batch = [r["train/batch_loss"] for r in _metrics(out) if "train/batch_loss" in r]
+    assert len(batch) == 6 and np.isfinite(batch).all()
+    assert result["best_zero_shot_accuracy"] is not None
+    for tag in ("best_model", "epoch_1", "epoch_2"):
+        assert os.path.exists(os.path.join(out, tag, "model.safetensors")), tag
+    # the augmentation changed what the tower saw: the loss curve is not the plain one
+    plain = str(tmp_path / "plain")
+    train_stage0.main(_argv(snapshot, plain, "--num_epochs", "2"))
+    assert batch != [r["train/batch_loss"] for r in _metrics(plain) if "train/batch_loss" in r]
+
+
+def test_trainer_with_augmentation_and_process_feeder_matches_jax_trainer(snapshot, tmp_path):
+    """Both trainers from the same weights, with use_online_augmentation and
+    num_loader_procs=2 and the same seed: the per-step losses within 1e-4 relative
+    (the workers draw the same per-sample seeds; the augmented pixels agree)."""
+    from projectiontrainer_tpu.core.config import Stage0Config as JStage0Config
+    from projectiontrainer_tpu.data import datasets as jdatasets
+    from projectiontrainer_tpu.data import feeder as jfeeder
+    from projectiontrainer_tpu.train.trainer_stage0 import Stage0Trainer as JStage0Trainer
+    from projectiontrainer_tpu_torch.core.config import Stage0Config
+    from projectiontrainer_tpu_torch.data import datasets, feeder
+    from projectiontrainer_tpu_torch.train.trainer_stage0 import Stage0Trainer
+
+    _, root, manifest = snapshot
+    tok = T.word_tokenizer()
+    jcfg, _ = _jax_model()
+    jcfg = JSIG.SiglipConfig(vision=jcfg.vision,
+                             text=JSIG.TextConfig(**{**jcfg.text.__dict__,
+                                                     "vocab_size": len(tok.get_vocab())}))
+    jp = jax.tree.map(np.asarray, JSIG.init(jax.random.key(2), jcfg))
+    common = dict(batch_size=4, num_epochs=2, max_text_len=16, mixed_precision="no",
+                  learning_rate=1e-3, warmup_ratio=0.0, disable_wandb=True, seed=0,
+                  logging_steps=1, save_every_n_epochs=0, use_online_augmentation=True,
+                  num_loader_procs=2)
+    data = dict(image_root=root, tokenizer=tok, image_size=32, max_text_len=16, augment=True,
+                seed=0)
+    try:
+        jtrainer = JStage0Trainer(
+            JStage0Config(output_dir=str(tmp_path / "j"), mesh_data=1, **common),
+            model_cfg=jcfg, params=jax.tree.map(jnp.asarray, jp), tokenizer=tok,
+            train_dataset=jdatasets.ContrastiveDataset.from_json(manifest, **data),
+            val_dataset=None, class_names=[])
+        jtrainer.train()
+    finally:
+        jfeeder._close_pools()
+    try:
+        trainer = Stage0Trainer(
+            Stage0Config(output_dir=str(tmp_path / "t"), device="cpu", **common),
+            model_cfg=from_jax.config_from_jax(jcfg), params=from_jax.siglip_params(jp),
+            tokenizer=tok, train_dataset=datasets.ContrastiveDataset.from_json(manifest, **data),
+            val_dataset=None, class_names=[])
+        trainer.train()
+        assert list(feeder._pools) == [(32, 2, feeder.WORKER_OMP_THREADS)]
+    finally:
+        feeder.close_pools()
+    theirs = [r["train/batch_loss"] for r in _metrics(str(tmp_path / "j"))
+              if "train/batch_loss" in r]
+    ours = [r["train/batch_loss"] for r in _metrics(str(tmp_path / "t"))
+            if "train/batch_loss" in r]
+    assert len(ours) == len(theirs) == 6
+    np.testing.assert_allclose(ours, theirs, rtol=1e-4, atol=0)
 
 
 def test_zero_shot_validation_matches_jax_trainer(snapshot, tmp_path):

@@ -124,11 +124,34 @@ def test_cli_trains_exports_and_resumes(snapshots, tmp_path):
 
 # --enable_qlora runs since the QLoRA port (tests/test_torch_qlora_cli.py); with a flag
 # that is still not ported it raises all the same
+# --num_loader_procs runs since the feeder port (test_cli_num_loader_procs_feeds_from_processes
+# below); -1 (every device) is refused where more than one GPU is visible
 @pytest.mark.parametrize("flag", [["--enable_qlora", "--mesh_data", "2"], ["--mesh_data", "2"],
-                                  ["--mesh_model", "2"], ["--fsdp"], ["--num_loader_procs", "2"]])
-def test_cli_refuses_what_is_not_ported(snapshots, tmp_path, flag):
+                                  ["--mesh_model", "2"], ["--fsdp"],
+                                  ["--mesh_data", "-1", "--device", "cuda"],
+                                  ["--mesh_model", "-1", "--device", "cuda"]])
+def test_cli_refuses_what_is_not_ported(snapshots, tmp_path, monkeypatch, flag):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     with pytest.raises(NotImplementedError, match="not ported"):
         train_stage1.main(_argv(snapshots, str(tmp_path / "x"), *flag))
+
+
+def test_cli_num_loader_procs_feeds_from_processes(snapshots, tmp_path):
+    """--num_loader_procs 2 decodes the training and validation images on two worker
+    processes (Stage1PairDataset has the feeder's protocol): the same pixels as the
+    thread feed, so the same losses, bit for bit."""
+    from projectiontrainer_tpu_torch.data import feeder
+
+    procs, threads = str(tmp_path / "procs"), str(tmp_path / "threads")
+    try:
+        train_stage1.main(_argv(snapshots, procs, "--num_epochs", "1", "--num_loader_procs", "2"))
+        assert [p.num_workers for p in feeder._pools.values()] == [2]
+    finally:
+        feeder.close_pools()
+    train_stage1.main(_argv(snapshots, threads, "--num_epochs", "1"))
+    got, ref = ([(r.get("train/batch_loss"), r.get("val/loss")) for r in _metrics(out)
+                 if "train/batch_loss" in r or "val/loss" in r] for out in (procs, threads))
+    assert len(got) >= 3 and got == ref
 
 
 def test_cli_profiles_a_window_and_splits_it_by_span(snapshots, tmp_path):

@@ -259,11 +259,30 @@ def test_cli_profiles_the_tower_backward_in_epoch0(snapshots, tmp_path):
 
 
 # --enable_qlora and --resume_qlora_adapter_path run since the QLoRA port
-# (tests/test_torch_qlora_cli.py); beside a flag that is still not ported they raise
+# (tests/test_torch_qlora_cli.py); beside a flag that is still not ported they raise.
+# --num_loader_procs runs since the feeder port, on threads here
+# (test_cli_num_loader_procs_reads_on_threads below); -1 (every device) is refused where
+# more than one GPU is visible
 @pytest.mark.parametrize("flag", [["--enable_qlora", "--fsdp"],
-                                  ["--resume_qlora_adapter_path", "x", "--num_loader_procs", "1"],
+                                  ["--resume_qlora_adapter_path", "x", "--mesh_model", "2"],
                                   ["--remat", "dots"], ["--mesh_data", "2"],
-                                  ["--mesh_model", "2"], ["--fsdp"], ["--num_loader_procs", "2"]])
-def test_cli_refuses_what_is_not_ported(snapshots, tmp_path, flag):
+                                  ["--mesh_model", "2"], ["--fsdp"],
+                                  ["--mesh_data", "-1", "--device", "cuda"]])
+def test_cli_refuses_what_is_not_ported(snapshots, tmp_path, monkeypatch, flag):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     with pytest.raises(NotImplementedError, match="not ported"):
         train_stage2.main(_argv(snapshots, str(tmp_path / "x"), *flag))
+
+
+def test_cli_num_loader_procs_reads_on_threads(snapshots, full_run, tmp_path, caplog):
+    """Stage 2 reads images on threads, as the JAX package's bucket-planned feed does:
+    --num_loader_procs is said once in the log, makes no pool, and the run repeats the
+    losses of the run without it."""
+    from projectiontrainer_tpu_torch.data import feeder
+
+    caplog.set_level("INFO", logger="projectiontrainer_tpu_torch")
+    out = str(tmp_path / "procs")
+    train_stage2.main(_argv(snapshots, out, "--save_steps", "3", "--num_loader_procs", "2"))
+    said = [r.getMessage() for r in caplog.records if "--num_loader_procs" in r.getMessage()]
+    assert len(said) == 1 and "threads" in said[0] and not feeder._pools
+    assert _losses(_metrics(out)) == _losses(_metrics(full_run[0]))
