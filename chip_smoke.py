@@ -58,8 +58,10 @@ Phases, each printing one JSON line; any failure raises, so the exit code is not
    batch of the kernel path split into its pieces (``serve_split``): the card's kernel
    time of the prefix, the prefill and a decode step (and K3's share of it) from
    profiler traces, and a decode step on the host clock.
-5. train: Stage1Trainer.train() on the same full-width model (projector fp32
-   masters, bf16 compute), 32 in-memory samples (seeded pixels, 512-token captions
+5. train: first the profile splits of ``utils/timing.py`` checked on the card
+   (``check_profiler_spans``: two spans of matmuls, each split's reading equal to the
+   kernels' own time); then Stage1Trainer.train() on the same full-width model
+   (projector fp32 masters, bf16 compute), 32 in-memory samples (seeded pixels, 512-token captions
    right-padded to varied lengths) at batch 4 = 8 steps of 575 + 512 = 1087 tokens,
    4 validation samples (loss and greedy captions); every loss finite, the
    projector moved, projector_final.bin written, K1-K7's launch counts rose. Steps
@@ -169,9 +171,49 @@ Phases, each printing one JSON line; any failure raises, so the exit code is not
    training process there) nor with libcuda mapped; the pools closed and their shared
    memory unlinked.
 
+17. caption: the cls model is freed; the full-width ViT-L/16-384 + projector 1024 ->
+   10240 -> 2048 + Llama-3.2-1B (16 layers, hidden 2048, 32/8 heads of 64, vocab 128,256,
+   tied table, rope theta 500,000 with llama3 scaling; ``decoder.from_hf_config`` of its
+   published config.json) from seeded random weights; ``infer_stage1.caption_image`` on
+   an in-memory CXR-like image (1024 px, to 384 px by ``I.preprocess``), greedy and 3
+   beams, 128 new tokens (the CLI's default); each caption repeated and held equal;
+   K1, K2 and K3 launched; the prefill logits and 4 teacher-forced 3-beam decode steps
+   of the kernel path against the plain path (every row's cosine >= 0.99); the kernel
+   time of the prefix, the prefill and a 3-beam decode step (the mean of MAX_NEW_TOKENS
+   steps) from profiler traces (``serve_split``) beside the captions' host time.
+18. generation evaluation: ``infer_generation.generate_results`` + ``display_summary``
+   over 16 seeded 1024 px CXR-like JPEG files with a manifest of 4 labels, on phase 17's
+   model: batch 8, 3 beams, max_q_len 256 and the question buckets of the CLI,
+   MAX_NEW_TOKENS; 16 results, the per-label counts adding up to 16; samples/s on the
+   host clock, the median of 3 passes after the counted one (each giving the same
+   answers); then the first batch's prefix (its 8 files and the diagnostic prompt,
+   through ``build_prefix``: [8,703], the prompt left-padded to its bucket, as phase 2's
+   ``generation_eval_mask``) through the prefill and 4 teacher-forced 3-beam decode
+   steps of the kernel path against the plain path (every row's cosine >= 0.99): K1 at
+   the left-padded GQA 32/8 head-dim-64 prefill and K3 at head dim 64 held at the
+   evaluation's own shapes.
+19. zero-shot and t-SNE: phase 17's model is freed; the full-width
+   XraySigLIP__vit-l-16-siglip-384__webli dual tower (vision 24 x 1024 with its MAP
+   head; text 24 x 1024, vocab 32,000, 64 positions; bf16) from seeded random weights;
+   ``ZeroShotClassifier`` over the 14 CheXpert labels (the prompts encoded once: K1 at
+   [14,64,16,64]) and ``predict`` at batch 32 (probabilities within atol = rtol = 2e-2
+   of the plain path's, the text embeddings at cosine >= 0.99); ``tsne.
+   compute_image_embeddings`` at batch 32, pooled and through a projector 1024 -> 10240
+   -> 2048 (every row's cosine to the plain path >= 0.99); K1 and K2 launched; images/s
+   on the host clock and a zero-shot batch's kernel time from a profiler trace. The
+   card's machine has no sklearn: ``tsne_2d`` and ``plot_tsne`` are held by the CPU tests.
+   Phase 2 adds this slice's shapes: K1 at the Llama-3.2-1B prefill ([1,575,32|8,64]
+   causal; [8,831,32|8,64] causal with each row's question left-padded; phase 18's
+   [8,703,32|8,64] with its own prefix mask), at the ViT-L
+   text tower ([14,64,16,64]) and at Mistral-7B-v0.1's window ([1,4608,32|8,128],
+   causal, window 4096); K3 at head dim 64 with GQA 32/8 (8 x 3 beams at P = 831, G =
+   32, and at phase 18's P = 703 with its prefix mask; one caption of 3 beams at P =
+   575, G = 128); each rerun held bit-equal.
+
 The second-to-last line is {"kernels": [...]} (name, route, source, replaces, launches
 on the main path, launches_by_path (serve, train, stage0, stage0_files, stage2,
-stage2_qlora, serve_qwen3_adapter, cls), max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms, and the
+stage2_qlora, serve_qwen3_adapter, cls, caption_llama, generation_eval, zero_shot,
+tsne), max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms, and the
 launches of one epoch-0 stage-2 micro-step at the longest bucket, phase 9's); the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Needs no network and no model snapshot; imports nothing of JAX.
@@ -585,14 +627,16 @@ def phase_kernels():
     check_stage2_kernels(rng, record)
     check_qwen3_kernels(rng, record)
     check_cls_kernels(rng, record)
+    check_llama_kernels(rng, record)
     emit({"phase": 2, "readings": READINGS})
     return results
 
 
 def check_decode(rng, record, b, nb, p_len, g, steps, *, hq=4, hkv=1, d=256,
-                 windows=(512, None), label=""):
+                 windows=(512, None), label="", pmask=None):
     """K3 at batch b, nb beams, GQA hq/hkv at head dim d (Gemma3-1B's 4/1 at 256 by
-    default), a prefix of p_len slots with ragged left padding and g generated slots, at
+    default), a prefix of p_len slots with ragged left padding (or the [b, p_len] mask
+    ``pmask``) and g generated slots, at
     each step t of `steps` and each window of `windows`; record(kernel, case, err, ms,
     plain_ms, bound, library_ms, library)."""
     import torch
@@ -603,7 +647,8 @@ def check_decode(rng, record, b, nb, p_len, g, steps, *, hq=4, hkv=1, d=256,
     qd = _bf16(rng, (b * nb, hq, d))
     kp, vp = _bf16(rng, (b, hkv, p_len, d)), _bf16(rng, (b, hkv, p_len, d))
     kg, vg = _bf16(rng, (b * nb, hkv, g, d)), _bf16(rng, (b * nb, hkv, g, d))
-    pmask, _ = _left_pad_mask(rng, b, p_len, 224)
+    if pmask is None:
+        pmask, _ = _left_pad_mask(rng, b, p_len, 224)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for t in steps:
         for window in windows:
@@ -857,6 +902,94 @@ def check_cls_kernels(rng, record):
            bound_layernorm_fwd(18432, 1024),
            cuda_ms(lambda: F.layer_norm(x, (1024,), p["scale"], p["bias"], 1e-6)), "F.layer_norm")
     check_layernorm_bwd(rng, record, x, p, cases=((18432, True),))
+
+
+def check_flash_forward(rng, record, case, b, t, hq, hkv, d, mask, **kw):
+    """K1 alone at one shape (``mask``: the [B, T] key padding or None): out and lse
+    against the plain version, a rerun held bit-equal, timed beside its bound and the
+    library call; record(kernel, case, err, ms, plain_ms, bound, library_ms, library)."""
+    import torch
+
+    from projectiontrainer_tpu_torch.ops import flash_attention as FA
+
+    q, k, v = _bf16(rng, (b, t, hq, d)), _bf16(rng, (b, t, hkv, d)), _bf16(rng, (b, t, hkv, d))
+    out, lse = FA.flash_attention(q, k, v, kv_mask=mask, **kw)
+    ref, ref_lse = FA.flash_attention_reference(q.float(), k.float(), v.float(), kv_mask=mask,
+                                                **kw)
+    err = compare(f"flash {case} out", out, ref)
+    live = (torch.ones_like(lse, dtype=torch.bool) if mask is None
+            else mask.bool()[:, None, :].expand_as(lse))
+    compare(f"flash {case} lse", lse[live], ref_lse[live])
+    del ref, ref_lse
+    again, again_lse = FA.flash_attention(q, k, v, kv_mask=mask, **kw)
+    if not (torch.equal(out, again) and torch.equal(lse[live], again_lse[live])):
+        raise AssertionError(f"flash {case}: a rerun gave other bits")
+    keys = torch.ones((b, t), dtype=torch.int32, device="cuda") if mask is None else mask
+    seen = attention_mask(t, causal=kw["causal"], window=kw["window"], kv_mask=keys)
+    explicit = mask is not None or kw["window"] is not None
+    lib, backend = sdpa_library(q, k, v, scale=kw["scale"], causal=kw["causal"],
+                                mask=seen if explicit else None)
+    record("flash_attn_fwd", case, err,
+           cuda_ms(lambda: FA.flash_attention(q, k, v, kv_mask=mask, **kw)),
+           cuda_ms(lambda: FA.flash_attention_reference(q, k, v, kv_mask=mask, **kw)),
+           bound_flash_fwd(b, t, hq, hkv, d, live_pairs(seen)), cuda_ms(lib),
+           f"SDPA {backend}" + (", explicit mask" if explicit else ""))
+
+
+def check_llama_kernels(rng, record):
+    """The shapes of the inference and analysis slice (phases 17-19): K1 at the
+    Llama-3.2-1B prefill (32/8 heads of 64, causal): the caption's [1,575] and the
+    largest question bucket's [8,831] with each row's question left-padded after the
+    visual tokens, and the generation evaluation's own prefix (phase 18: the diagnostic
+    prompt left-padded to its bucket, ``generation_eval_mask``); K1 at the ViT-L text tower ([14,64,16,64], non-causal, unmasked:
+    14 class prompts); K1 at Mistral-7B-v0.1's every-layer window ([1,4608,32|8,128],
+    causal, window 4096: the window binds past 4096 tokens); K3 at head dim 64 with GQA
+    32/8: the served batch (8 x 3 beams, P = 831, G = 32), one caption (1 x 3 beams,
+    P = 575, G = 128) and the generation evaluation's batch over its own prefix mask,
+    no window; each against its plain version, a rerun held
+    bit-equal; record(kernel, case, err, ms, plain_ms, bound, library_ms, library)."""
+    import torch
+
+    llama = dict(scale=64 ** -0.5, causal=True, window=None)
+    check_flash_forward(rng, record, "Llama prefill [1,575,32|8,64] causal", 1, 575, 32, 8, 64,
+                        None, **llama)
+    mask = torch.ones((8, 831), dtype=torch.int32, device="cuda")
+    for i, n in enumerate(rng.integers(0, 249, size=8)):
+        mask[i, 575:575 + n] = 0  # the question's left padding
+    check_flash_forward(rng, record, "Llama prefill [8,831,32|8,64] causal, left-padded "
+                        "questions", 8, 831, 32, 8, 64, mask, **llama)
+    check_flash_forward(rng, record, "ViT-L text tower [14,64,16,64]", 14, 64, 16, 16, 64, None,
+                        scale=64 ** -0.5, causal=False, window=None)
+    check_flash_forward(rng, record, "Mistral-7B [1,4608,32|8,128] causal window=4096", 1, 4608,
+                        32, 8, 128, None, scale=128 ** -0.5, causal=True, window=4096)
+    check_decode(rng, record, 8, 3, 831, 32, (0, 17, 31), hq=32, hkv=8, d=64, windows=(None,),
+                 label="Llama ")
+    check_decode(rng, record, 1, 3, 575, 128, (0, 127), hq=32, hkv=8, d=64, windows=(None,),
+                 label="Llama caption ")
+    mask = generation_eval_mask()
+    p_len = mask.shape[1]
+    check_flash_forward(rng, record, f"Llama generation eval [8,{p_len},32|8,64] causal, the "
+                        "prompt left-padded", 8, p_len, 32, 8, 64, mask, **llama)
+    check_decode(rng, record, 8, 3, p_len, 32, (0, 17, 31), hq=32, hkv=8, d=64,
+                 windows=(None,), label="Llama generation eval ", pmask=mask)
+
+
+def generation_eval_mask(b=8, n_visual=575):
+    """The key mask of phase 18's prefix, as ``infer_vqa_stage2.build_prefix`` builds it:
+    n_visual visual tokens, then DIAGNOSTIC_PROMPT's stub ids left-padded to their
+    question bucket (max_q_len GENERATION_MAX_Q_LEN), alike in every row."""
+    import torch
+
+    from projectiontrainer_tpu_torch.cli import infer_generation as ig
+    from projectiontrainer_tpu_torch.data.bucketing import (DEFAULT_Q_BUCKETS, bucket_for,
+                                                           buckets_covering)
+
+    n = len(PromptTokenizer()(ig.DIAGNOSTIC_PROMPT, max_length=GENERATION_MAX_Q_LEN)["input_ids"])
+    q_len = min(bucket_for(n, buckets_covering(GENERATION_MAX_Q_LEN, DEFAULT_Q_BUCKETS)),
+                GENERATION_MAX_Q_LEN)
+    mask = torch.ones((b, n_visual + q_len), dtype=torch.int32, device="cuda")
+    mask[:, n_visual:n_visual + q_len - n] = 0
+    return mask
 
 
 def check_layernorm_bwd(rng, record, x, p, cases=((16384, True), (16383, True), (1001, True),
@@ -1178,17 +1311,61 @@ def phase_serve(cfg, params, counters, *, clients=16, adapter_path=None, phase=3
 # ---------------------------------------------------------------------------- phase 4
 
 
-def phase_end_to_end(cfg, params):
-    import torch
-    import torch.nn.functional as F
+def plain_config(cfg):
+    """The same VLM or dual-tower config with the plain attention and LayerNorm in every
+    tower and the decoder."""
+    tower = dict(attn_impl="plain", norm_impl="plain")
+    parts = {"vision": tower, "text": tower, "llm": {"attn_impl": "plain"}}
+    return dataclasses.replace(cfg, **{name: dataclasses.replace(getattr(cfg, name), **kw)
+                                       for name, kw in parts.items() if hasattr(cfg, name)})
 
-    from projectiontrainer_tpu_torch.cli import infer_vqa_stage2 as vqa
+
+def teacher_forced(cfg, params, prefix, nb, teacher):
+    """The prefill logits and len(teacher) decode steps of ``nb`` beams a sample through
+    the split cache, fed the rows of ``teacher`` [steps, B * nb]; ``prefix(cfg)`` builds
+    the (embeds, mask) prefix."""
+    import torch
+
     from projectiontrainer_tpu_torch.generate import decode as D
     from projectiontrainer_tpu_torch.models import decoder as dec
 
-    plain = dataclasses.replace(
-        cfg, vision=dataclasses.replace(cfg.vision, attn_impl="plain", norm_impl="plain"),
-        llm=dataclasses.replace(cfg.llm, attn_impl="plain"))
+    with torch.no_grad():
+        embeds, mask = prefix(cfg)
+        b, p = embeds.shape[:2]
+        cache, logits, last_pos, _ = D._prefill(params["llm"], cfg.llm, embeds, mask, p)
+        cache, pmask = dec.split_cache(cache, cfg.llm, b * nb, len(teacher), prefix_mask=mask)
+        out = [logits]
+        last_pos = last_pos.repeat_interleave(nb)
+        for t in range(len(teacher)):
+            logits, cache = D._step(params["llm"], cfg.llm, teacher[t], last_pos, t, pmask,
+                                    cache, p, embeds.dtype)
+            out.append(logits)
+    return out
+
+
+def hold_logits(label, kernel_path, plain_path) -> list:
+    """Each step's logits of the kernel path against the plain path's: every row's
+    cosine >= 0.99 (the argmax agreement reported)."""
+    import torch.nn.functional as F
+
+    rows = []
+    for i, (a, b) in enumerate(zip(kernel_path, plain_path)):
+        if not bool(a.isfinite().all()):
+            raise AssertionError(f"{label}: non-finite logits")
+        cos = float(F.cosine_similarity(a.float(), b.float(), dim=-1).min())
+        top1 = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+        rows.append({"step": "prefill" if i == 0 else f"decode {i - 1}", "min_cosine": cos,
+                     "top1_agreement": top1})
+        if not cos >= 0.99:
+            raise AssertionError(f"{label}: {rows[-1]['step']} cosine {cos:.5f} < 0.99")
+    return rows
+
+
+def phase_end_to_end(cfg, params):
+    import torch
+
+    from projectiontrainer_tpu_torch.cli import infer_vqa_stage2 as vqa
+
     rng = np.random.default_rng(SEED + 2)
     size = cfg.vision.image_size
     pixels = np.clip(rng.standard_normal((8, size, size, 3), dtype=np.float32), -1, 1)
@@ -1199,38 +1376,21 @@ def phase_end_to_end(cfg, params):
     teacher = torch.tensor(rng.integers(2, cfg.llm.vocab_size, size=(4, 8 * nb)),
                            device=params["llm"]["embed_tokens"]["embedding"].device)
 
-    def run(c):
-        embeds, mask = vqa.build_prefix(pixels, q_tok, c, params, tok, max_q_len=256)
-        p = embeds.shape[1]
-        cache, logits, last_pos, _ = D._prefill(params["llm"], c.llm, embeds, mask, p)
-        cache, pmask = dec.split_cache(cache, c.llm, 8 * nb, 4, prefix_mask=mask)
-        out = [logits]
-        last_pos = last_pos.repeat_interleave(nb)
-        for t in range(4):
-            logits, cache = D._step(params["llm"], c.llm, teacher[t], last_pos, t, pmask,
-                                    cache, p, embeds.dtype)
-            out.append(logits)
-        return out
+    def prefix(c):
+        return vqa.build_prefix(pixels, q_tok, c, params, tok, max_q_len=256)
 
-    kernel_path, plain_path = run(cfg), run(plain)
-    rows = []
-    for i, (a, b) in enumerate(zip(kernel_path, plain_path)):
-        cos = float(F.cosine_similarity(a.float(), b.float(), dim=-1).min())
-        top1 = float((a.argmax(-1) == b.argmax(-1)).float().mean())
-        rows.append({"step": "prefill" if i == 0 else f"decode {i - 1}", "min_cosine": cos,
-                     "top1_agreement": top1})
-        if not cos >= 0.99:
-            raise AssertionError(f"end to end: {rows[-1]['step']} cosine {cos:.5f} < 0.99")
-    split = serve_split(cfg, params, pixels, q_tok, nb)
+    rows = hold_logits("end to end", teacher_forced(cfg, params, prefix, nb, teacher),
+                       teacher_forced(plain_config(cfg), params, prefix, nb, teacher))
+    split = serve_split(cfg, params, lambda: prefix(cfg), nb)
     print(f"serve: a decode step of {8 * nb} rows {split['decode_step_host_ms']:.1f} ms on the "
           f"host clock, {split['decode_step_kernel_ms']:.1f} ms of kernel time", flush=True)
     emit({"phase": 4, "logits": rows, "serve_split": split})
 
 
-def serve_split(cfg, params, pixels, q_tok, nb):
-    """One served batch of the kernel path split into its pieces: the prefix of 8 images
-    and questions (tower, projector, embedding), the prefill, and MAX_NEW_TOKENS
-    teacher-forced decode steps of 8 * nb rows. Each piece's kernel time on the card from
+def serve_split(cfg, params, prefix, nb, steps=MAX_NEW_TOKENS):
+    """One batch of the kernel path split into its pieces: the prefix (``prefix()`` ->
+    (embeds, mask): tower, projector, embedding), the prefill, and ``steps``
+    teacher-forced decode steps of B * nb rows. Each piece's kernel time on the card from
     a torch.profiler trace of it alone (every kernel counts, also those the port launches
     through ctypes, which no torch operator encloses), the decode step's attention
     kernels (K3) apart; and a decode step on the host clock, synchronised, without the
@@ -1240,15 +1400,11 @@ def serve_split(cfg, params, pixels, q_tok, nb):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from projectiontrainer_tpu_torch.cli import infer_vqa_stage2 as vqa
     from projectiontrainer_tpu_torch.generate import decode as D
     from projectiontrainer_tpu_torch.models import decoder as dec
     from projectiontrainer_tpu_torch.utils import timing
 
     llm = params["llm"]
-    rng = np.random.default_rng(SEED + 9)
-    tokens = torch.tensor(rng.integers(2, cfg.llm.vocab_size, size=(MAX_NEW_TOKENS, 8 * nb)),
-                          device=DEVICE)
 
     def kernel_ms(fn):
         """(all kernels, attention kernels) in ms while fn() runs."""
@@ -1256,20 +1412,17 @@ def serve_split(cfg, params, pixels, q_tok, nb):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        kernels = [(timing.kernel_family(e.name), e.time_range.elapsed_us() / 1e3)
-                   for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernels = [(timing.kernel_family(name), ms) for name, ms in timing.device_kernels(prof.events())]
         return sum(t for _, t in kernels), sum(t for f, t in kernels if f == "attention")
-
-    def prefix():
-        return vqa.build_prefix(pixels, q_tok, cfg, params, StubTokenizer(), max_q_len=256)
 
     def prefill(embeds, mask):
         cache, _, last_pos, _ = D._prefill(llm, cfg.llm, embeds, mask, embeds.shape[1])
-        cache, pmask = dec.split_cache(cache, cfg.llm, 8 * nb, MAX_NEW_TOKENS, prefix_mask=mask)
+        cache, pmask = dec.split_cache(cache, cfg.llm, embeds.shape[0] * nb, steps,
+                                       prefix_mask=mask)
         return cache, pmask, last_pos.repeat_interleave(nb)
 
     def decode(embeds, cache, pmask, last_pos, host=None):
-        for t in range(MAX_NEW_TOKENS):
+        for t in range(steps):
             t0 = time.perf_counter()
             _, cache = D._step(llm, cfg.llm, tokens[t], last_pos, t, pmask, cache,
                                embeds.shape[1], embeds.dtype)
@@ -1279,6 +1432,10 @@ def serve_split(cfg, params, pixels, q_tok, nb):
 
     with torch.no_grad():
         embeds, mask = prefix()  # the first calls' costs
+        rows = embeds.shape[0] * nb
+        rng = np.random.default_rng(SEED + 9)
+        tokens = torch.tensor(rng.integers(2, cfg.llm.vocab_size, size=(steps, rows)),
+                              device=DEVICE)
         state = prefill(embeds, mask)
         decode(embeds, *state)
         host = []
@@ -1289,16 +1446,59 @@ def serve_split(cfg, params, pixels, q_tok, nb):
         state = prefill(embeds, mask)
         decode_ms, attention_ms = kernel_ms(lambda: decode(embeds, *state))
     split = {"prefix_kernel_ms": prefix_ms, "prefill_kernel_ms": prefill_ms,
-             "decode_step_kernel_ms": decode_ms / MAX_NEW_TOKENS,
-             "decode_step_attention_ms": attention_ms / MAX_NEW_TOKENS,
+             "decode_step_kernel_ms": decode_ms / steps,
+             "decode_step_attention_ms": attention_ms / steps,
              "decode_step_host_ms": statistics.median(host) * 1e3,
-             "decode_steps": MAX_NEW_TOKENS, "rows": 8 * nb}
+             "decode_steps": steps, "rows": rows, "prefix_len": embeds.shape[1]}
     if not all(v > 0 for v in split.values()):
         raise AssertionError(f"serve split: a piece has no kernel time: {split}")
     return split
 
 
 # ---------------------------------------------------------------------------- phase 5
+
+
+def check_profiler_spans():
+    """The profile splits of ``utils/timing.py`` on the card, before the train phases
+    read them: two ``span``s of matmuls with host sleeps between their launches (each
+    range's user annotation on the card's timeline spans far more than its kernels).
+    ``span_times``, ``kernel_families`` and ``device_kernels`` must each read the
+    kernels' own time. Beside them: the spans' ``device_time_total`` (the profiler's own
+    sum) and the CPU events that share an earlier event's id (the profiler's "Activity
+    Buffer Request", whose linked kernels that sum counts twice)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from projectiontrainer_tpu_torch.utils import timing
+
+    a = torch.randn(2048, 2048, device=DEVICE, dtype=torch.bfloat16)
+    a @ a
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for name in ("first", "second"):
+            with timing.span(name):
+                for _ in range(4):
+                    a @ a
+                    torch.cuda.synchronize()
+                    time.sleep(0.002)
+        torch.cuda.synchronize()
+    events = prof.events()
+    kernels = sum(ms for _, ms in timing.device_kernels(events))
+    reads = {"span_times": timing.span_times(events, device=True)["total_ms"],
+             "kernel_families": sum(timing.kernel_families(events).values())}
+    cpu = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+    ids, shared = set(), []
+    for e in cpu:
+        if e.id in ids:
+            shared.append(e.name)
+        ids.add(e.id)
+    row = {"kernel_ms": kernels, **{f"{k}_ms": v for k, v in reads.items()},
+           "device_time_total_ms": sum(e.device_time_total for e in cpu
+                                       if e.name.startswith(timing.SPAN)) / 1e3,
+           "events_sharing_an_id": shared}
+    emit({"phase": 5, "profiler_spans": row})
+    if not kernels > 0 or any(abs(v - kernels) > 1e-3 * kernels for v in reads.values()):
+        raise AssertionError(f"profile splits: {row}")
 
 
 class CaptionDataset:
@@ -1411,9 +1611,7 @@ def phase_train_end_to_end(cfg, params, kernel_counters):
 
     from projectiontrainer_tpu_torch.train import steps
 
-    plain = dataclasses.replace(
-        cfg, vision=dataclasses.replace(cfg.vision, attn_impl="plain", norm_impl="plain"),
-        llm=dataclasses.replace(cfg.llm, attn_impl="plain"))
+    plain = plain_config(cfg)
     batch = _train_batch(cfg)
     leaves = [x for _, x in _projector_leaves(params)]
     for x in leaves:
@@ -1574,9 +1772,7 @@ def phase_stage0_end_to_end(cfg, params, kernel_counters):
     from projectiontrainer_tpu_torch.core.pytree import leaves_with_paths
     from projectiontrainer_tpu_torch.train import masks, steps
 
-    plain_tower = dict(attn_impl="plain", norm_impl="plain")
-    plain = dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, **plain_tower),
-                                text=dataclasses.replace(cfg.text, **plain_tower))
+    plain = plain_config(cfg)
     data = ContrastiveSamples(4, SEED + 8, size=cfg.vision.image_size, vocab=cfg.text.vocab_size)
     batch = {k: torch.tensor(np.stack([data[i][k] for i in range(4)]), device=DEVICE)
              for k in ("pixel_values", "input_ids")}
@@ -1823,9 +2019,7 @@ def phase_stage2_end_to_end(cfg, params, kernel_counters):
     from projectiontrainer_tpu_torch.core.pytree import unique_leaves_with_paths
     from projectiontrainer_tpu_torch.train import steps
 
-    plain = dataclasses.replace(
-        cfg, vision=dataclasses.replace(cfg.vision, attn_impl="plain", norm_impl="plain"),
-        llm=dataclasses.replace(cfg.llm, attn_impl="plain"))
+    plain = plain_config(cfg)
     data = VQASamples(1, SEED + 11, size=cfg.vision.image_size, vocab=cfg.llm.vocab_size)
     batch = {"pixel_values": torch.tensor(data.pixels[:1], device=DEVICE),
              "question_ids": torch.tensor(data.questions[0][None], device=DEVICE),
@@ -2093,9 +2287,7 @@ def phase_qlora_end_to_end(cfg, params, kernel_counters):
     from projectiontrainer_tpu_torch.models import vlm
     from projectiontrainer_tpu_torch.train import lora, steps
 
-    plain = dataclasses.replace(
-        cfg, vision=dataclasses.replace(cfg.vision, attn_impl="plain", norm_impl="plain"),
-        llm=dataclasses.replace(cfg.llm, attn_impl="plain"))
+    plain = plain_config(cfg)
     lcfg = lora.LoraConfig(r=16, alpha=32, dropout=0.0)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 14)
     adapters = lora.init(gen, cfg.llm, lcfg, device=DEVICE)
@@ -2387,8 +2579,7 @@ def phase_cls_end_to_end(cfg, params, kernel_counters):
     from projectiontrainer_tpu_torch.core.pytree import leaves_with_paths
     from projectiontrainer_tpu_torch.train import masks, steps
 
-    plain = dataclasses.replace(cfg, vision=dataclasses.replace(
-        cfg.vision, attn_impl="plain", norm_impl="plain"))
+    plain = plain_config(cfg)
     data = ClsSamples(8, SEED + 11, size=cfg.vision.image_size, n_classes=cfg.num_classes)
     batch = {"pixel_values": torch.tensor(data.pixels, device=DEVICE),
              "target_indices": torch.tensor(data.targets, device=DEVICE)}
@@ -2477,6 +2668,25 @@ class FileTokenizer(StubTokenizer):
         return super().__call__(texts, **kw)
 
 
+def cxr_base(size):
+    """The shared picture of the CXR-like images: a bright body ellipse, two dark lung
+    fields and ribs, [size, size] fp32 gray levels."""
+    y, x = np.mgrid[0:size, 0:size].astype(np.float32) / size
+    body = np.exp(-(((y - 0.5) / 0.48) ** 2 + ((x - 0.5) / 0.42) ** 2) ** 2)
+    lungs = sum(np.exp(-(((y - 0.45) / 0.25) ** 2 + ((x - side) / 0.12) ** 2))
+                for side in (0.33, 0.67))
+    return 40 + 170 * body - 90 * lungs + 2.0 * np.sin(y * 60.0 + np.sin(x * 3.0)) * body
+
+
+def cxr_gray(base, seed):
+    """One seeded CXR-like uint8 gray image: ``base`` shifted, plus noise."""
+    size = base.shape[0]
+    rng = np.random.default_rng(seed)
+    img = np.roll(base, tuple(rng.integers(-size // 16, size // 16, 2)), axis=(0, 1))
+    img = img + rng.normal(0, 6, (size, size)).astype(np.float32)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
 def write_cxr_sources(directory, n, size, seed):
     """``n`` seeded CXR-like gray JPEGs of ``size`` x ``size`` stored as RGB (a bright
     body ellipse, two dark lung fields, ribs, per-image noise and offset) and a
@@ -2485,19 +2695,12 @@ def write_cxr_sources(directory, n, size, seed):
 
     from PIL import Image
 
-    y, x = np.mgrid[0:size, 0:size].astype(np.float32) / size
-    body = np.exp(-(((y - 0.5) / 0.48) ** 2 + ((x - 0.5) / 0.42) ** 2) ** 2)
-    lungs = sum(np.exp(-(((y - 0.45) / 0.25) ** 2 + ((x - side) / 0.12) ** 2))
-                for side in (0.33, 0.67))
-    base = 40 + 170 * body - 90 * lungs + 2.0 * np.sin(y * 60.0 + np.sin(x * 3.0)) * body
+    base = cxr_base(size)
 
     def one(i):
-        rng = np.random.default_rng(seed + i)
-        img = np.roll(base, tuple(rng.integers(-size // 16, size // 16, 2)), axis=(0, 1))
-        img = img + rng.normal(0, 6, (size, size)).astype(np.float32)
-        gray = np.clip(img, 0, 255).astype(np.uint8)
         name = f"cxr_{size}_{i}.jpg"
-        Image.fromarray(gray).convert("RGB").save(os.path.join(directory, name), quality=90)
+        Image.fromarray(cxr_gray(base, seed + i)).convert("RGB").save(
+            os.path.join(directory, name), quality=90)
         return {"image": name, "normal_caption": FEED_CLASSES[i % len(FEED_CLASSES)]}
 
     with ThreadPoolExecutor(max_workers=len(os.sched_getaffinity(0))) as pool:
@@ -2743,6 +2946,334 @@ def train_from_files(cfg, params, make, samples, *, procs, out_dir):
             "worker_pids": worker_pids}
 
 
+# ------------------------------------------------------------------- phases 17-19
+
+# meta-llama/Llama-3.2-1B config.json: the fields the decoder reads
+LLAMA_3_2_1B = {
+    "model_type": "llama", "vocab_size": 128_256, "hidden_size": 2048,
+    "intermediate_size": 8192, "num_hidden_layers": 16, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "head_dim": 64, "rms_norm_eps": 1e-5, "rope_theta": 500_000.0,
+    "rope_scaling": {"factor": 32.0, "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+                     "original_max_position_embeddings": 8192, "rope_type": "llama3"},
+    "tie_word_embeddings": True, "attention_bias": False, "max_position_embeddings": 131_072,
+}
+CAPTION_NEW_TOKENS = 128  # the stage-1 caption CLI's default --max_new_tokens
+CAPTION_REPEATS = 2       # timed captions a decoding mode, after the counted one
+GENERATION_SAMPLES = 16
+GENERATION_MAX_Q_LEN = 256  # infer_generation's default --max_q_len
+GENERATION_PASSES = 3       # timed passes of phase 18's loop, after the counted one
+# the CheXpert labels: the zero-shot classes
+CHEXPERT = ("No Finding", "Enlarged Cardiomediastinum", "Cardiomegaly", "Lung Opacity",
+            "Lung Lesion", "Edema", "Consolidation", "Pneumonia", "Atelectasis",
+            "Pneumothorax", "Pleural Effusion", "Pleural Other", "Fracture", "Support Devices")
+ZERO_SHOT_BATCH = 32
+SLICE_KERNELS = ("flash_attn_fwd", "layernorm_fwd", "decode_attn")
+
+
+class PromptTokenizer(StubTokenizer):
+    """The stub tokenizer, also for one prompt string (the inference CLIs' call): its
+    ids unpadded, cut to ``max_length``."""
+
+    def __call__(self, texts, padding="max_length", truncation=True, max_length=16,
+                 add_special_tokens=True):
+        if isinstance(texts, str):
+            return {"input_ids": [2 + ord(c) for c in texts][:max_length]}
+        return super().__call__(texts, padding=padding, truncation=truncation,
+                                max_length=max_length)
+
+
+def llama_vlm():
+    """ViT-L/16-384 + projector 1024 -> 10240 -> 2048 + Llama-3.2-1B, seeded random: the
+    towers in bf16, the projector in fp32."""
+    import torch
+
+    from projectiontrainer_tpu_torch.models import decoder as dec
+    from projectiontrainer_tpu_torch.models import projector as proj
+    from projectiontrainer_tpu_torch.models import siglip, vlm
+
+    cfg = vlm.VLMConfig(vision=siglip.vit_l_16_384(),
+                        projector=proj.ProjectorConfig(vision_dim=1024, llm_dim=2048),
+                        llm=dec.from_hf_config(LLAMA_3_2_1B))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    return cfg, vlm.init(gen, cfg, device="cuda", tower_dtype=torch.bfloat16,
+                         projector_dtype=torch.float32)
+
+
+def _counted(kernel_counters, names, fn):
+    """(fn()'s result, {kernel: launches during it}); every one of ``names`` must launch."""
+    for name in names:
+        kernel_counters[name].reset()
+    out = fn()
+    launches = {name: kernel_counters[name].value for name in names}
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel of the path never launched: {launches}")
+    return out, launches
+
+
+def phase_caption(cfg, params, kernel_counters):
+    """Phase 17: ``infer_stage1.caption_image`` at full width from an in-memory image."""
+    import statistics
+
+    import torch
+
+    from projectiontrainer_tpu_torch.cli import infer_stage1
+    from projectiontrainer_tpu_torch.data import image as I
+    from projectiontrainer_tpu_torch.generate import GenerationConfig
+    from projectiontrainer_tpu_torch.models import vlm
+
+    size = cfg.vision.image_size
+    image = np.repeat(cxr_gray(cxr_base(1024), SEED + 17)[..., None], 3, axis=-1)
+    tok = PromptTokenizer()
+    modes = {"greedy": 1, "beams3": 3}
+    gen = {mode: GenerationConfig(max_new_tokens=CAPTION_NEW_TOKENS, num_beams=nb,
+                                  eos_token_id=tok.eos_token_id, pad_token_id=tok.pad_token_id)
+           for mode, nb in modes.items()}
+
+    def caption(mode):
+        return infer_stage1.caption_image(image, cfg, params, tok, img_size=size,
+                                          gen_cfg=gen[mode])
+
+    captions, launches = _counted(kernel_counters, SLICE_KERNELS,
+                                  lambda: {mode: caption(mode) for mode in modes})
+    host = {}
+    for mode in modes:
+        times = []
+        for _ in range(CAPTION_REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again = caption(mode)
+            times.append(time.perf_counter() - t0)
+            if again != captions[mode]:
+                raise AssertionError(f"caption {mode}: a rerun gave another caption")
+        host[mode] = statistics.median(times)
+    for mode, text in captions.items():
+        if not text.strip():
+            raise AssertionError(f"caption {mode}: empty")
+
+    pixels = torch.as_tensor(I.preprocess(image, size)[None], device=DEVICE)
+    rng = np.random.default_rng(SEED + 17)
+    nb = 3
+    teacher = torch.tensor(rng.integers(2, cfg.llm.vocab_size, size=(4, nb)), device=DEVICE)
+
+    def prefix(c):
+        return vlm.visual_prefix(params, c, pixels)
+
+    rows = hold_logits("caption", teacher_forced(cfg, params, prefix, nb, teacher),
+                       teacher_forced(plain_config(cfg), params, prefix, nb, teacher))
+    split = serve_split(cfg, params, lambda: prefix(cfg), nb)
+    print(f"caption (Llama-3.2-1B, {CAPTION_NEW_TOKENS} new tokens): greedy "
+          f"{host['greedy']:.3f} s, 3 beams {host['beams3']:.3f} s on the host clock; kernel "
+          f"time: prefix {split['prefix_kernel_ms']:.2f} ms, prefill "
+          f"{split['prefill_kernel_ms']:.2f} ms, a 3-beam decode step "
+          f"{split['decode_step_kernel_ms']:.3f} ms (host {split['decode_step_host_ms']:.2f} ms)",
+          flush=True)
+    emit({"phase": 17, "caption_words": {m: len(c.split()) for m, c in captions.items()},
+          "caption_host_s": host, "max_new_tokens": CAPTION_NEW_TOKENS, "logits": rows,
+          "split": split, "launches": launches,
+          "model": "ViT-L/16-384 + projector 1024->10240->2048 + Llama-3.2-1B, random"})
+    return launches
+
+
+def phase_generation_eval(cfg, params, kernel_counters):
+    """Phase 18: ``infer_generation``'s loop over GENERATION_SAMPLES JPEG files, counted
+    once (its shapes' first calls), then timed over GENERATION_PASSES passes that must
+    give the same answers; then the first batch's prefix, built from its files and the
+    prompt as the loop builds it, through the prefill and 4 teacher-forced decode steps
+    against the plain path: K1 and K3 held at the evaluation's own shapes."""
+    import logging
+    import statistics
+
+    import torch
+
+    from projectiontrainer_tpu_torch.cli import infer_generation as ig
+    from projectiontrainer_tpu_torch.cli import infer_vqa_stage2 as vqa
+    from projectiontrainer_tpu_torch.data import image as I
+    from projectiontrainer_tpu_torch.eval import metrics as M
+
+    batch, nb = 8, 3
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_generation_")
+    try:
+        samples = write_cxr_sources(tmp, GENERATION_SAMPLES, 1024, SEED + 18)
+        with open(os.path.join(tmp, "data.json"), "w") as f:
+            json.dump(samples, f)
+        args = ig.build_parser().parse_args([
+            "--input_json", os.path.join(tmp, "data.json"), "--image_root", tmp,
+            "--vision_model_name", "in-memory", "--llm_name", "in-memory",
+            "--projector_path", "", "--img_size", str(cfg.vision.image_size),
+            "--batch_size", str(batch), "--num_beams", str(nb),
+            "--max_q_len", str(GENERATION_MAX_Q_LEN), "--max_new_tokens", str(MAX_NEW_TOKENS),
+            "--candidate_labels", ",".join(FEED_CLASSES)])
+        tok = PromptTokenizer()
+        logger = logging.getLogger("chip_smoke")
+        gen_cfg = vqa.generation_config(args, tok)
+
+        def run():
+            return ig.generate_results(samples, args, cfg, params, tok, gen_cfg, logger)
+
+        results, launches = _counted(kernel_counters, SLICE_KERNELS, run)
+        walls = []
+        for _ in range(GENERATION_PASSES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again = run()
+            walls.append(time.perf_counter() - t0)
+            if again != results:
+                raise AssertionError("generation eval: a timed pass gave other answers")
+        accuracy = ig.display_summary(results, logger, list(FEED_CLASSES))
+        pixels = np.stack([I.preprocess(I.load_image(I.resolve_image_path(s["image"], tmp, None)),
+                                        args.img_size) for s in samples[:batch]])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    per_label = M.per_label_substring_accuracy([r["generated_answer"] for r in results],
+                                               [r["normal_caption"] for r in results])
+    counted = sum(n for _, n in per_label.values())
+    if len(results) != GENERATION_SAMPLES or counted != GENERATION_SAMPLES:
+        raise AssertionError(f"generation eval: {len(results)} results, {counted} counted")
+
+    q_tok = [tok(args.prompt, max_length=args.max_q_len, truncation=True,
+                 add_special_tokens=False)["input_ids"]] * batch
+
+    def prefix(c):
+        return vqa.build_prefix(pixels, q_tok, c, params, tok, max_q_len=args.max_q_len)
+
+    with torch.no_grad():
+        embeds, mask = prefix(cfg)
+    want = generation_eval_mask(batch)
+    llm = cfg.llm
+    if (not torch.equal(mask, want) or bool(mask.all())
+            or (llm.num_heads, llm.num_kv_heads, llm.head_dim) != (32, 8, 64)):
+        raise AssertionError(f"generation eval: prefix {tuple(mask.shape)} with "
+                             f"{int((mask == 0).sum(1)[0])} pad slots a row is not phase 2's "
+                             f"{tuple(want.shape)}, or the heads are not 32/8 of 64")
+    rng = np.random.default_rng(SEED + 18)
+    teacher = torch.tensor(rng.integers(2, llm.vocab_size, size=(4, batch * nb)), device=DEVICE)
+    rows = hold_logits("generation eval", teacher_forced(cfg, params, prefix, nb, teacher),
+                       teacher_forced(plain_config(cfg), params, prefix, nb, teacher))
+    rate = GENERATION_SAMPLES / statistics.median(walls)
+    print(f"generation eval: {GENERATION_SAMPLES} files, {rate:.2f} samples/s (median of "
+          f"{GENERATION_PASSES} passes after a counted one; batch {batch}, {nb} beams, "
+          f"{MAX_NEW_TOKENS} new tokens: a smoke reading, the CLI decodes up to 1024); prefix "
+          f"{tuple(mask.shape)} held against plain", flush=True)
+    emit({"phase": 18, "samples": len(results), "accuracy": accuracy,
+          "per_label": {k: list(v) for k, v in per_label.items()}, "walls_s": walls,
+          "samples_per_s": rate, "launches": launches, "logits": rows,
+          "prefix": list(mask.shape), "prompt_pad_slots": int((mask == 0).sum(1)[0]),
+          "batch_size": batch, "num_beams": nb, "max_new_tokens": MAX_NEW_TOKENS,
+          "cut": f"{GENERATION_SAMPLES} files (a test manifest: thousands), max_new_tokens "
+                 f"{MAX_NEW_TOKENS} (the CLI's default: 1024)"})
+    return launches
+
+
+def dual_tower_vit_l():
+    """The XraySigLIP__vit-l-16-siglip-384__webli dual tower (google/siglip-large-patch16-384
+    layout: vision 24 x 1024 with its MAP head, text 24 x 1024, vocab 32,000, 64
+    positions), seeded random, bf16."""
+    import torch
+
+    from projectiontrainer_tpu_torch.models import siglip
+
+    cfg = siglip.SiglipConfig(
+        vision=siglip.vit_l_16_384(),
+        text=siglip.TextConfig(hidden_size=1024, intermediate_size=4096, num_layers=24,
+                               num_heads=16, vocab_size=32_000, max_position_embeddings=64))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    return cfg, siglip.init(gen, cfg, device="cuda", vision_dtype=torch.bfloat16,
+                            text_dtype=torch.bfloat16)
+
+
+def _median_s(fn, repeats=3) -> float:
+    import statistics
+
+    import torch
+
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def phase_zero_shot_tsne(kernel_counters):
+    """Phase 19: ``ZeroShotClassifier.predict`` and ``tsne.compute_image_embeddings`` at
+    batch ZERO_SHOT_BATCH over the full-width ViT-L dual tower, each against the plain
+    path."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from projectiontrainer_tpu_torch.data import image as I
+    from projectiontrainer_tpu_torch.eval import tsne, zero_shot
+    from projectiontrainer_tpu_torch.models import projector as proj
+    from projectiontrainer_tpu_torch.utils import timing
+
+    cfg, params = dual_tower_vit_l()
+    plain = plain_config(cfg)
+    size = cfg.vision.image_size
+    base = cxr_base(size)
+    pixels = np.stack([I.preprocess(np.repeat(cxr_gray(base, SEED + 19 + i)[..., None], 3, -1),
+                                    size) for i in range(ZERO_SHOT_BATCH)])
+    tok = PromptTokenizer()
+
+    def classify(c):
+        clf = zero_shot.ZeroShotClassifier(c, params, tok, CHEXPERT, max_text_len=64)
+        return clf, clf.predict(pixels)
+
+    (clf, (probs, _)), zs_launches = _counted(kernel_counters, ("flash_attn_fwd", "layernorm_fwd"),
+                                              lambda: classify(cfg))
+    plain_clf, (plain_probs, _) = classify(plain)
+    err = compare("zero-shot probabilities", torch.tensor(probs), torch.tensor(plain_probs))
+    txt_cos = float(F.cosine_similarity(clf.text_embeds.float(),
+                                        plain_clf.text_embeds.float(), dim=-1).min())
+    if not txt_cos >= 0.99:
+        raise AssertionError(f"zero-shot: text embeddings' cosine {txt_cos:.5f} < 0.99")
+    zs_s = _median_s(lambda: clf.predict(pixels))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        clf.predict(pixels)
+        torch.cuda.synchronize()
+    zs_kernel_ms = sum(ms for _, ms in timing.device_kernels(prof.events()))
+
+    pcfg = proj.ProjectorConfig(vision_dim=cfg.vision.hidden_size, llm_dim=2048)
+    projector = proj.init(torch.Generator(device=DEVICE).manual_seed(SEED + 19), pcfg,
+                          torch.float32, DEVICE)
+    embeds, emb_cos, tsne_launches = {}, {}, {}
+    for name, pp in (("pooled", None), ("projector", projector)):
+        def run(c, pp=pp):
+            return tsne.compute_image_embeddings(params["vision"], c.vision, [pixels],
+                                                 projector_params=pp)
+        embeds[name], tsne_launches[name] = _counted(
+            kernel_counters, ("flash_attn_fwd", "layernorm_fwd"), lambda: run(cfg))
+        want = run(plain)
+        if embeds[name].shape != (ZERO_SHOT_BATCH, pcfg.vision_dim if pp is None
+                                  else pcfg.llm_dim):
+            raise AssertionError(f"t-SNE {name}: shape {embeds[name].shape}")
+        emb_cos[name] = float(F.cosine_similarity(torch.tensor(embeds[name]),
+                                                  torch.tensor(want), dim=-1).min())
+        if not (np.isfinite(embeds[name]).all() and emb_cos[name] >= 0.99):
+            raise AssertionError(f"t-SNE {name}: cosine to plain {emb_cos[name]:.5f} < 0.99")
+    tsne_s = _median_s(lambda: tsne.compute_image_embeddings(params["vision"], cfg.vision,
+                                                             [pixels]))
+    launches = {"zero_shot": zs_launches,
+                "tsne": {k: sum(v[k] for v in tsne_launches.values())
+                         for k in ("flash_attn_fwd", "layernorm_fwd")}}
+    print(f"zero-shot (ViT-L/16-384 dual tower, {len(CHEXPERT)} classes): batch "
+          f"{ZERO_SHOT_BATCH} in {zs_s * 1e3:.1f} ms on the host clock "
+          f"({ZERO_SHOT_BATCH / zs_s:.1f} images/s), {zs_kernel_ms:.2f} ms of kernels; t-SNE "
+          f"embeddings {ZERO_SHOT_BATCH / tsne_s:.1f} images/s", flush=True)
+    emit({"phase": 19, "zero_shot": {"max_abs_err_probs": err, "text_min_cosine": txt_cos,
+                                     "batch_ms_host": zs_s * 1e3, "images_per_s": ZERO_SHOT_BATCH / zs_s,
+                                     "batch_kernel_ms": zs_kernel_ms, "classes": len(CHEXPERT),
+                                     "top1_agreement": float((probs.argmax(-1)
+                                                              == plain_probs.argmax(-1)).mean())},
+          "tsne": {"min_cosine": emb_cos, "images_per_s": ZERO_SHOT_BATCH / tsne_s},
+          "launches": launches})
+    del clf, plain_clf, params
+    return launches
+
+
 def main() -> int:
     import gc
 
@@ -2756,6 +3287,7 @@ def main() -> int:
     cfg, params = full_width_model()
     serve_launches = phase_serve(cfg, params, [kernel_counters[n] for n in SERVE_KERNELS])
     phase_end_to_end(cfg, params)
+    check_profiler_spans()
     train_launches = phase_train(cfg, params, kernel_counters)
     phase_train_end_to_end(cfg, params, kernel_counters)
     del cfg, params
@@ -2807,6 +3339,14 @@ def main() -> int:
     del cfg, params
     gc_cuda()
 
+    cfg, params = llama_vlm()
+    slice_launches = {"caption_llama": phase_caption(cfg, params, kernel_counters),
+                      "generation_eval": phase_generation_eval(cfg, params, kernel_counters)}
+    del cfg, params
+    gc_cuda()
+    slice_launches.update(phase_zero_shot_tsne(kernel_counters))
+    gc_cuda()
+
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         rows = results[name]
@@ -2825,6 +3365,9 @@ def main() -> int:
             by_path["serve_qwen3_adapter"] = qlora_serve[name]
         if name in CLS_KERNELS:
             by_path["cls"] = cls_launches[name]
+        for path, counted in slice_launches.items():
+            if name in counted:
+                by_path[path] = counted[name]
         main_path = next(p for p in ("serve", "train", "stage0") if p in by_path)
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
                         "launches": by_path[main_path], "launches_by_path": by_path,

@@ -65,8 +65,10 @@ def load_siglip(model_dir: str, *, device=None, vision_dtype=None, text_dtype=No
 
 
 def load_decoder(model_dir: str, *, device=None, dtype=None):
-    """Local Gemma3 snapshot -> (DecoderConfig, params). Multimodal Gemma3 snapshots
-    keep their language model under ``language_model.``."""
+    """Local Gemma3, Qwen3, Llama or Mistral snapshot -> (DecoderConfig, params).
+    Multimodal Gemma3 snapshots keep their language model under ``language_model.``;
+    the others' layers sit under ``model.`` (``*ForCausalLM``) or at the top (a bare
+    text model)."""
     cfg = decoder.from_hf_config(load_config(model_dir))
     sd = {k.removeprefix("language_model."): v for k, v in load_state_dict(model_dir).items()
           if not k.startswith(("vision_tower.", "multi_modal_projector."))}

@@ -12,13 +12,16 @@ Needs an NVIDIA GPU and ``nvcc``. Prints one JSON line per step:
   shape (batch 8, 3 beams, Gemma3-1B's 4/1 heads of 256, a prefix of 831 slots with
   ragged left padding, 32 generated slots), at batch 1, with left padding that masks
   whole splits, with a window that starts inside a split, at 1024 generated slots with
-  t = 1000, and at the other head dims and GQA ratios; a rerun must give the same bits,
-  and the plan (``ops/decode_attention.py:decode_plan``) must put more CTAs on the card
-  than there are (batch, KV head) pairs. Every case is run before a failure is reported;
+  t = 1000, at Llama-3.2-1B's 32/8 heads of 64 (the served batch at P = 831 and at the
+  generation evaluation's P = 703, and one caption of 3 beams at P = 575, G = 128), and
+  at the other head dims and GQA ratios; a rerun must give the same bits, and the plan
+  (``ops/decode_attention.py:decode_plan``) must put more CTAs on the card than there
+  are (batch, KV head) pairs. Every case is run before a failure is reported;
 - ``--time``: device times (``utils/timing.py:device_ms``) of kernel, plain version and
   the library call (``scaled_dot_product_attention`` over the concatenated caches, the
   prefix repeated per beam outside the timed call, with the masks as one explicit bool
-  mask: a yardstick the port never calls), in turns, at the served shape.
+  mask: a yardstick the port never calls), in turns, at the served shapes (Gemma3-1B's
+  and Llama-3.2-1B's) and one caption's.
 """
 
 from __future__ import annotations
@@ -45,6 +48,10 @@ CASES = [
     (8, 3, 4, 1, 256, 831, 32, 31, None, "ragged"),
     (8, 3, 4, 1, 256, 831, 32, 17, 512, "ragged"),     # the window starts inside a split
     (8, 3, 4, 1, 256, 831, 32, 31, 512, "ragged"),
+    (8, 3, 32, 8, 64, 831, 32, 31, None, "ragged"),    # Llama-3.2-1B served batch
+    (8, 3, 32, 8, 64, 831, 32, 0, None, "ragged"),
+    (8, 3, 32, 8, 64, 703, 32, 31, None, "ragged"),    # the generation evaluation's prefix
+    (1, 3, 32, 8, 64, 575, 128, 127, None, None),      # one Llama caption, 3 beams
     (1, 3, 4, 1, 256, 831, 32, 31, None, "ragged"),    # one request
     (1, 3, 4, 1, 256, 831, 32, 5, 512, None),
     (8, 3, 4, 1, 256, 831, 1024, 1000, None, "ragged"),  # max_new_tokens 1024
@@ -56,7 +63,7 @@ CASES = [
     (2, 1, 1, 1, 64, 5, 3, 0, None, None),
     (4, 4, 16, 1, 64, 300, 64, 63, 100, "ragged"),      # 64 rows a KV head: MAX_ROWS
 ]
-TIMED = CASES[:4]
+TIMED = CASES[:8]
 
 
 def emit(obj) -> None:

@@ -8,7 +8,9 @@ Needs an NVIDIA GPU and ``nvcc``. Prints one JSON line per step:
 - ``--ptxas``: what ``nvcc -Xptxas -v`` says of ``csrc/flash_attn_fwd.cu`` and
   ``csrc/flash_attn_bwd.cu`` (registers, spills, shared memory of each kernel, warnings);
 - always: K1's out and lse, K4's dk and dv and K5's dq against the plain versions at the main
-  paths' shapes and at ragged ones (T = 1, 63, 64, one off a tile, windows smaller than a
+  paths' shapes (Llama-3.2-1B's prefill at 32/8 heads of 64, causal, whole tiles
+  left-padded, at P = 831 and the generation evaluation's 703; the ViT-L text tower; Mistral-7B's window of 4096 over 4608 tokens among
+  them) and at ragged ones (T = 1, 63, 64, one off a tile, windows smaller than a
   tile, padding that masks whole tiles, GQA, q/k/v sliced out of one fused tensor), with
   the tolerances of ``chip_smoke.py`` (out and lse: atol = rtol = 2e-2; dk, dv, dq: 2e-2
   x max |reference|); fully masked rows must be exactly 0 (out and dq), K1's fp32 copy of
@@ -39,7 +41,7 @@ from projectiontrainer_tpu_torch.ops import flash_attention as FA
 from projectiontrainer_tpu_torch.utils.timing import device_ms
 
 TOL = 2e-2
-TIMED = 9  # the first cases: the main paths' shapes
+TIMED = 14  # the first cases: the main paths' shapes
 # b, t, hq, hkv, d, causal, window, padding (None, "left", "right"), q/k/v sliced of one tensor
 CASES = [
     (8, 576, 16, 16, 64, False, None, None, False),     # ViT-L tower
@@ -51,6 +53,11 @@ CASES = [
     (8, 831, 4, 1, 256, True, None, "left", False),
     (4, 1087, 4, 1, 256, True, 512, "right", False),    # stage-1 decoder
     (4, 1087, 4, 1, 256, True, None, "right", False),   # its global layers
+    (1, 575, 32, 8, 64, True, None, None, False),       # Llama-3.2-1B caption prefill
+    (8, 831, 32, 8, 64, True, None, "left", False),     # its served prefill: whole tiles padded
+    (8, 703, 32, 8, 64, True, None, "left", False),     # the generation evaluation's prefix
+    (14, 64, 16, 16, 64, False, None, None, False),     # ViT-L text tower, 14 class prompts
+    (1, 4608, 32, 8, 128, True, 4096, None, False),     # Mistral-7B: the window binds
     (2, 1, 2, 2, 64, False, None, None, False),
     (2, 63, 4, 4, 72, True, None, None, False),
     (2, 129, 4, 2, 128, True, 37, "left", False),       # a window smaller than a tile

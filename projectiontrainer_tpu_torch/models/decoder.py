@@ -1,5 +1,5 @@
-"""GQA + RoPE causal decoder (Gemma3 and Qwen3 families): the training forward and the
-inference paths.
+"""GQA + RoPE causal decoder (Gemma3, Qwen3, Llama and Mistral families): the training
+forward and the inference paths.
 
 Counterpart of ``projectiontrainer_tpu/models/decoder.py``: ``embed``, the full-sequence
 forward (differentiable; per-layer remat through ``torch.utils.checkpoint``), the
@@ -118,11 +118,51 @@ def qwen3_config(
     )
 
 
+def _llama_rope_scaling(cfg: dict):
+    """A Llama/Mistral ``rope_scaling`` -> (linear factor, llama3 tuple or None); a type
+    other than default, linear or llama3 raises."""
+    rs = cfg.get("rope_scaling")
+    if not rs:
+        return 1.0, None
+    rtype = rs.get("rope_type", rs.get("type", "default"))
+    if rtype == "linear":
+        return float(rs.get("factor", 1.0)), None
+    if rtype == "llama3":
+        return 1.0, (float(rs["factor"]), float(rs["low_freq_factor"]),
+                     float(rs["high_freq_factor"]),
+                     float(rs["original_max_position_embeddings"]))
+    if rtype != "default":
+        raise ValueError(f"unsupported rope_scaling type: {rtype!r}")
+    return 1.0, None
+
+
 def from_hf_config(cfg: dict) -> DecoderConfig:
     """DecoderConfig from a Gemma3 ``config.json`` dict (text-only, or the multimodal
-    wrapper's ``text_config``) or a Qwen3 one."""
+    wrapper's ``text_config``), a Qwen3, a Llama or a Mistral one.
+
+    Llama and Mistral: pre-LN, SiLU, plain RMSNorm, no q/k norms, no embedding scale.
+    Mistral (v0.1) slides every layer with the one global theta (``rope_local_theta``
+    stays None, so no sliding layer takes another theta); Llama-3 checkpoints carry
+    frequency-dependent rope scaling (``rope_llama3``)."""
     if cfg.get("model_type") == "gemma3":
         cfg = cfg["text_config"]
+    if cfg.get("model_type") in ("llama", "mistral"):
+        n = cfg["num_hidden_layers"]
+        factor, llama3 = _llama_rope_scaling(cfg)
+        sliding = cfg.get("sliding_window")
+        return DecoderConfig(
+            vocab_size=cfg["vocab_size"], hidden_size=cfg["hidden_size"],
+            intermediate_size=cfg["intermediate_size"], num_layers=n,
+            num_heads=cfg["num_attention_heads"], num_kv_heads=cfg["num_key_value_heads"],
+            head_dim=cfg.get("head_dim") or cfg["hidden_size"] // cfg["num_attention_heads"],
+            rms_norm_eps=cfg.get("rms_norm_eps", 1e-6), act="silu",
+            rope_theta=cfg.get("rope_theta", 10_000.0), rope_scaling_factor=factor,
+            rope_llama3=llama3, layer_types=("sliding" if sliding else "full",) * n,
+            sliding_window=sliding, query_pre_attn_scalar=None, qk_norm=False,
+            rmsnorm_zero_centered=False, sandwich_norms=False, embed_scale=False,
+            tie_embeddings=cfg.get("tie_word_embeddings", False),
+            attention_bias=cfg.get("attention_bias", False),
+        )
     if cfg.get("model_type") == "qwen3":
         n = cfg["num_hidden_layers"]
         return DecoderConfig(
@@ -139,7 +179,7 @@ def from_hf_config(cfg: dict) -> DecoderConfig:
         )
     if cfg.get("model_type") != "gemma3_text":
         raise ValueError(f"unsupported model_type {cfg.get('model_type')!r} "
-                         "(the port reads Gemma3 and Qwen3 decoders)")
+                         "(the port reads Gemma3, Qwen3, Llama and Mistral decoders)")
     n = cfg["num_hidden_layers"]
     if cfg.get("layer_types"):
         layer_types = tuple("sliding" if t == "sliding_attention" else "full"
@@ -411,10 +451,11 @@ def split_cache(prefix_cache, cfg: DecoderConfig, rows: int, gen_len: int,
 
 def params_from_hf_state_dict(cfg: DecoderConfig, sd: dict, *, device=None,
                               dtype=None) -> dict:
-    """An HF Gemma3 or Qwen3 (``*ForCausalLM`` / text model) state dict of tensors or
-    numpy arrays -> decoder params (torch layout, so linear weights pass unchanged). An
-    untied head missing from the state dict (a bare text model) starts as a copy of the
-    embedding table, as in the JAX package."""
+    """An HF Gemma3, Qwen3, Llama or Mistral (``*ForCausalLM`` / text model) state dict
+    of tensors or numpy arrays -> decoder params (torch layout, so linear weights pass
+    unchanged). q/k norm keys are read only for a config with ``qk_norm``; a tied head
+    reads no ``lm_head.weight``. An untied head missing from the state dict (a bare text
+    model) starts as a copy of the embedding table, as in the JAX package."""
     def get(name):
         for key in ("model." + name, name):
             if key in sd:

@@ -264,6 +264,15 @@ def vision_forward(params, cfg: VisionConfig, pixel_values: torch.Tensor, *,
     return x, pooled
 
 
+def vision_patch_embeddings(params, cfg: VisionConfig, pixel_values: torch.Tensor, *,
+                            remat: Union[bool, int] = False) -> torch.Tensor:
+    """The VLM's visual tokens: the last hidden state with patch 0 dropped (the
+    reference's "discard CLS" slice, although SigLIP has no CLS token): 576 patches ->
+    575 tokens at ViT-L/16-384. ``models/vlm.py`` slices it itself."""
+    hidden, _ = vision_forward(params, cfg, pixel_values, remat=remat)
+    return hidden[:, 1:, :]
+
+
 def text_forward(params, cfg: TextConfig, input_ids: torch.Tensor):
     """input_ids [B, T] -> (last_hidden_state [B, T, D], pooled [B, projection]).
     No attention mask (the processor pads to ``max_length`` and the model attends to

@@ -75,6 +75,36 @@ def _root_labels(cpu) -> dict:
     return labels
 
 
+def _owners(cpu) -> set:
+    """The CPU events (by ``id()``) that own the card's work linked to their event id.
+    The profiler links each kernel to every CPU event of its correlation id, and its own
+    "Activity Buffer Request" event can carry the id of the op it interrupts (torch 2.11
+    on an H100: the first op of a trace), which would count that op's kernels twice.
+    The first event of an id, the op, keeps them (events come in order of start)."""
+    seen, owners = set(), set()
+    for e in cpu:
+        if e.id not in seen:
+            seen.add(e.id)
+            owners.add(id(e))
+    return owners
+
+
+def _device_us(e, owners) -> float:
+    """Kernel time of CPU event e and of every event inside it, in microseconds."""
+    own = sum(k.duration for k in e.kernels) if id(e) in owners else 0.0
+    return own + sum(_device_us(c, owners) for c in e.cpu_children)
+
+
+def device_kernels(events) -> list:
+    """(name, ms) of every kernel, copy and memset on the card's timeline of a profile's
+    events, also those that no torch operator encloses (the port's kernels launched
+    through ctypes outside a span). The ranges of ``record_function`` (a ``span``, the
+    optimizer's step) appear there too, as user annotations that span the gaps between
+    their kernels: they are left out."""
+    return [(e.name, e.time_range.elapsed_us() / 1e3) for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+
+
 def span_times(events, *, device: bool, steps: int = 1) -> dict:
     """Per-step milliseconds of each ``span`` in a profile's events: ``<name>_fwd_ms``
     for the ops inside the span, ``<name>_bwd_ms`` for the backward ops that
@@ -82,20 +112,25 @@ def span_times(events, *, device: bool, steps: int = 1) -> dict:
     inside another (``dequant`` inside ``decoder``) is reported apart as
     ``<outer>/<inner>_<fwd|bwd>_ms``, a part of ``<outer>_<fwd|bwd>_ms`` and not added
     to ``total_ms`` again (a remat recompute counts to the backward).
-    ``device``: kernel time on the card (``device_time_total``), else host time."""
-    attr = "device_time_total" if device else "cpu_time_total"
+    ``device``: kernel time on the card (each kernel counted once: ``_owners``), else
+    host time."""
     cpu = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
     labels = _root_labels(cpu)
+    owners = _owners(cpu) if device else set()
     out, total = defaultdict(float), 0.0
+
+    def ms(e):
+        return (_device_us(e, owners) if device else e.cpu_time_total) / 1e3
+
     for e in cpu:
-        t = getattr(e, attr) / 1e3
         if e.cpu_parent is not None:
             if e.name.startswith(SPAN):
                 label = labels[_outer(e)[1].id]
                 if label != "other":
                     outer, where = label.rsplit("_", 1)
-                    out[f"{outer}/{e.name[len(SPAN):]}_{where}_ms"] += t
+                    out[f"{outer}/{e.name[len(SPAN):]}_{where}_ms"] += ms(e)
             continue
+        t = ms(e)
         total += t
         out[f"{labels[e.id]}_ms"] += t
     out["total_ms"] = total
@@ -126,12 +161,14 @@ def kernel_family(name: str) -> str:
 
 def kernel_families(events, *, steps: int = 1) -> dict:
     """Per-step milliseconds of the card's kernels by span and family:
-    ``kernels/<span>_<fwd|bwd>/<family>_ms``, the spans as in ``span_times``."""
+    ``kernels/<span>_<fwd|bwd>/<family>_ms``, the spans as in ``span_times``, each
+    kernel counted once (``_owners``)."""
     cpu = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
     labels = _root_labels(cpu)
+    owners = _owners(cpu)
     out = defaultdict(float)
     for e in cpu:
-        if e.kernels and not getattr(e, "is_legacy", False):
+        if e.kernels and id(e) in owners and not getattr(e, "is_legacy", False):
             label = labels[_outer(e)[1].id]
             for k in e.kernels:
                 out[f"kernels/{label}/{kernel_family(k.name)}_ms"] += k.duration / 1e3

@@ -34,6 +34,10 @@ PLAN_CASES = [
     (3, 1, 1, 5, 3, 0, None),
     (4, 4, 1, 300, 64, 63, 100),
     (64, 3, 8, 831, 32, 31, None),     # more (batch, KV head) pairs than SMs
+    (8, 3, 8, 831, 32, 0, None),       # Llama-3.2-1B served batch: 8 KV heads
+    (8, 3, 8, 831, 32, 31, None),
+    (1, 3, 8, 575, 128, 0, None),      # one Llama caption, 3 beams
+    (1, 3, 8, 575, 128, 127, None),
 ]
 
 

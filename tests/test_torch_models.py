@@ -66,6 +66,16 @@ def test_vision_tower(models):
     rel_close(siglip.vision_forward(p["vision"], cfg.vision, torch.tensor(pixels))[0], theirs)
 
 
+def test_vision_patch_embeddings(models):
+    """The VLM's visual tokens: the last hidden state without patch 0."""
+    jcfg, jp, cfg, p = models
+    pixels, _ = _prefix_inputs()
+    theirs = JSIG.vision_patch_embeddings(jp["vision"], jcfg.vision, jnp.asarray(pixels))
+    ours = siglip.vision_patch_embeddings(p["vision"], cfg.vision, torch.tensor(pixels))
+    assert ours.shape[1] == vlm.num_visual_tokens(cfg)
+    rel_close(ours, theirs)
+
+
 def test_projector_exact_gelu(models):
     jcfg, jp, cfg, p = models
     x = np.random.default_rng(1).standard_normal((2, 5, 32), dtype=np.float32)

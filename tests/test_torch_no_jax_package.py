@@ -3,7 +3,8 @@ of the JAX package's numpy-only modules (data/bucketing, data/image, data/datase
 eval/metrics) give the same results as the originals on seeded inputs (exact equality:
 the copies repeat the same numpy arithmetic), and its copies of the quantization
 constants (NF4_CODE, NF4_BLOCK, QUANT_TARGETS, QUANT_KEYS), the LoRA targets and the
-PEFT key scheme equal the originals."""
+PEFT key scheme equal the originals, as do its copies of the zero-shot prompt templates
+and the diagnostic prompt of the generation evaluation."""
 
 import ast
 import os
@@ -52,6 +53,9 @@ def test_entry_points_load_nothing_of_the_jax_package():
         "                                             train_stage1, train_stage2)\n"
         "from projectiontrainer_tpu_torch.cli import (balanced_sample, cls_evaluate_experiment,\n"
         "                                             cls_test, cls_train, run_experiments)\n"
+        "from projectiontrainer_tpu_torch.cli import (_scripts, infer_generation, infer_stage1,\n"
+        "                                             tsne_analysis, zero_shot_classify)\n"
+        "from projectiontrainer_tpu_torch.eval import tsne, zero_shot\n"
         "from projectiontrainer_tpu_torch.train import (trainer_cls, trainer_stage0,\n"
         "                                               trainer_stage1, trainer_stage2)\n"
         "from projectiontrainer_tpu_torch.eval import sweep\n"
@@ -243,3 +247,19 @@ def test_native_source_copy():
     csrc = "runtime/csrc/pipeline.cpp"
     assert (code(REPO / "projectiontrainer_tpu_torch" / csrc, True)
             == code(REPO / "projectiontrainer_tpu" / csrc, False))
+
+
+@pytest.mark.parametrize("name", ["PROMPT_TEMPLATES", "DIAGNOSTIC_PROMPT"])
+def test_prompt_copies(name):
+    """The port's copies of the zero-shot prompt templates and the generation
+    evaluation's diagnostic prompt."""
+    if name == "PROMPT_TEMPLATES":
+        from projectiontrainer_tpu.eval import zero_shot as jax_zero_shot
+        from projectiontrainer_tpu_torch.eval import zero_shot
+
+        assert zero_shot.PROMPT_TEMPLATES == jax_zero_shot.PROMPT_TEMPLATES
+    else:
+        from projectiontrainer_tpu.cli import infer_generation as jax_infer_generation
+        from projectiontrainer_tpu_torch.cli import infer_generation
+
+        assert infer_generation.DIAGNOSTIC_PROMPT == jax_infer_generation.DIAGNOSTIC_PROMPT

@@ -172,6 +172,47 @@ def test_kernel_family_of_a_trace_name(name, family):
     assert kernel_family(name) == family
 
 
+def test_profile_splits_count_each_kernel_once():
+    """The profiler links a kernel to every CPU event of its correlation id, and its own
+    "Activity Buffer Request" event can share the id of the op it interrupts: the op's
+    kernels count once. The ``record_function`` ranges on the card's timeline (user
+    annotations) are no kernels."""
+    from types import SimpleNamespace as NS
+
+    from projectiontrainer_tpu_torch.utils import timing
+
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+
+    def op(i, name, kernels, parent=None):
+        e = NS(id=i, name=name, device_type=cpu, cpu_parent=parent, cpu_children=[],
+               kernels=[NS(name=n, device=0, duration=us) for n, us in kernels],
+               sequence_nr=-1, fwd_thread=0, thread=1, is_legacy=False, cpu_time_total=0)
+        if parent is not None:
+            parent.cpu_children.append(e)
+        return e
+
+    decoder = op(0, "span/decoder", [])
+    mm = op(3, "aten::mm", [("nvjet_tst_256x128", 30.0)], decoder)
+    op(3, "Activity Buffer Request", [("nvjet_tst_256x128", 30.0)], mm)
+    dequant = op(5, "span/dequant", [], decoder)
+    op(6, "aten::add", [("vectorized_elementwise_kernel", 20.0)], dequant)
+    on_card = [NS(name=n, device_type=cuda, is_user_annotation=a,
+                  time_range=NS(elapsed_us=lambda us=us: us))
+               for n, us, a in (("span/decoder", 1000.0, True), ("span/dequant", 400.0, True),
+                                ("nvjet_tst_256x128", 30.0, False),
+                                ("vectorized_elementwise_kernel", 20.0, False))]
+    cpu_events = [decoder, mm, *mm.cpu_children, dequant, *dequant.cpu_children]
+    events = cpu_events + on_card
+
+    split = timing.span_times(events, device=True)
+    assert split == pytest.approx({"decoder_fwd_ms": 0.05, "decoder/dequant_fwd_ms": 0.02,
+                                   "total_ms": 0.05})
+    assert timing.kernel_families(events) == pytest.approx(
+        {"kernels/decoder_fwd/matmul_ms": 0.03, "kernels/decoder_fwd/elementwise_ms": 0.02})
+    assert timing.device_kernels(events) == [("nvjet_tst_256x128", 0.03),
+                                             ("vectorized_elementwise_kernel", 0.02)]
+
+
 class QADataset:
     """Stage-2 samples whose question and answer lengths vary with i and carry i."""
 
