@@ -210,11 +210,35 @@ Phases, each printing one JSON line; any failure raises, so the exit code is not
    32, and at phase 18's P = 703 with its prefix mask; one caption of 3 beams at P =
    575, G = 128); each rerun held bit-equal.
 
+20. data parallel: (a) the world: ``torch.cuda.device_count()``, ``nvidia-smi -L`` and the
+   compute mode; 2 NCCL ranks on 2 cards or more, 2 gloo ranks sharing one card (said
+   so), 1 NCCL rank where the card admits one process only (Exclusive_Process; the
+   2-rank checks are then not run, and not reported as passed). (b) ``cli/launch.py``
+   spawns the ranks (``--entry chip_smoke:dp_stage1_rank``), each running
+   ``cli/train_stage1.main`` with phase 5's full-width model built in the rank from the
+   seed (the snapshot and tokenizer loaders replaced: no transformers on the card's
+   host) over 64 + 8 seeded 1024 px CXR-like JPEG files with captions of 32-512 stub
+   tokens: per-rank batch 4 (global 8), 8 steps, fused CE, validation on 8, steps 6-7
+   profiled on rank 0. Every rank logs the same 8 finite losses; the trained projectors
+   hash equal; projector_final.bin written once; K1-K7 launched on every rank; then,
+   in this process, one step of the 1-process trainer at batch 8 on the same first 8
+   samples: the first loss within 1e-3 relative, every projector gradient leaf (the
+   all-reduced one) at cosine >= 0.999, the projector's update (all its leaves) at
+   cosine >= 0.999 (each leaf's printed too: Adam's first update is about lr x
+   sign(gradient), so a near-zero gradient element flips on bf16 rounding). Images/s per
+   rank and the span ``grad_allreduce`` (kernel time from rank 0's trace, the host time
+   of the all-reduce per rank). (c) the same launcher runs ``cli/train_stage0.main``
+   with --local_negatives on the so400m dual tower cut to 4 layers a tower (run time)
+   from the seed, over 64 + 16 JPEG files, 2 ranks x 8 rows, 4 steps: every loss
+   finite and the same on every rank, the trained leaves bit-equal across the ranks,
+   K1/K2/K4/K5/K8 launched on every rank. A rank that fails fails the phase.
+
 The second-to-last line is {"kernels": [...]} (name, route, source, replaces, launches
 on the main path, launches_by_path (serve, train, stage0, stage0_files, stage2,
 stage2_qlora, serve_qwen3_adapter, cls, caption_llama, generation_eval, zero_shot,
-tsne), max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms, and the
-launches of one epoch-0 stage-2 micro-step at the longest bucket, phase 9's); the last is
+tsne, stage1_dp_rank0, stage0_dp_rank0), max_abs_err, ms, plain_ms, bound_ms, bound_by,
+library_ms, and the launches of one epoch-0 stage-2 micro-step at the longest bucket,
+phase 9's); the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Needs no network and no model snapshot; imports nothing of JAX.
 """
@@ -3274,6 +3298,393 @@ def phase_zero_shot_tsne(kernel_counters):
     return launches
 
 
+# ---------------------------------------------------------------------------- phase 20
+
+DP_RANKS = 2
+DP_BATCH = 4          # per rank: a global batch of 8
+DP_STEPS = 8
+DP_STAGE0_BATCH = 8   # per rank
+DP_STAGE0_STEPS = 4
+DP_STAGE0_LAYERS = 4  # the so400m towers cut from 27 layers each: run time
+DP_TIMEOUT_S = 420    # the launcher's run, kernels loaded and models built in each rank
+
+
+def _dp_world():
+    """(ranks, backend, why, sharing) for phase 20 on this machine: 2 NCCL ranks on 2
+    cards; 2 gloo ranks sharing one card; 1 NCCL rank where the card's compute mode
+    admits one process only."""
+    import torch
+
+    n = torch.cuda.device_count()
+    listed = subprocess.run(["nvidia-smi", "-L"], capture_output=True, text=True,
+                            timeout=60).stdout.strip()
+    modes = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                           capture_output=True, text=True, timeout=60).stdout.split()
+    print(f"data parallel: torch.cuda.device_count() = {n}\n{listed}\ncompute modes {modes}",
+          flush=True)
+    if n >= DP_RANKS:
+        return DP_RANKS, "nccl", f"{n} cards: one NCCL rank on each of 2", False
+    if modes and modes[0] == "Exclusive_Process":
+        return 1, "nccl", ("the card is in Exclusive_Process mode: two processes cannot "
+                           "share it, so one NCCL rank runs and the 2-rank checks are left "
+                           "to a machine that allows them"), False
+    return DP_RANKS, "gloo", ("one card: 2 ranks share it over gloo (NCCL refuses two "
+                              "ranks on one GPU)"), True
+
+
+def _dp_captions(n, seed):
+    """``n`` seeded captions of 32-512 stub tokens (a token a character)."""
+    rng = np.random.default_rng(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz     "))
+    return ["".join(rng.choice(letters, size=int(k))) for k in rng.integers(32, 513, size=n)]
+
+
+def _dp_launch(entry, dump, flags, ranks, backend):
+    """The launcher module spawns the ranks; returns its exit code and output."""
+    cmd = [sys.executable, "-m", "projectiontrainer_tpu_torch.cli.launch",
+           "--nproc_per_node", str(ranks), "--backend", backend, "--timeout", "300",
+           "--feeder_procs", "0", "--log_dir", os.path.join(dump, "logs"),
+           "--entry", f"chip_smoke:{entry}", "--", "--dump", dump, *flags]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__)) + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=DP_TIMEOUT_S, env=env)
+    return proc.returncode, proc.stdout + proc.stderr, time.perf_counter() - t0
+
+
+def _rank_entry(argv):
+    """(the dump directory, the CLI's flags, this rank) for a rank of phase 20."""
+    import argparse
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--dump", required=True)
+    args, rest = parser.parse_known_args(argv)
+    return args.dump, rest, int(os.environ["RANK"])
+
+
+def _record_steps(steps_mod, record):
+    """Wrap ``steps.make_train_step`` so the rank records each step's loss (the global
+    one) and the host time of its gradient all-reduce."""
+    from projectiontrainer_tpu_torch.parallel import distributed
+
+    make, reduce = steps_mod.make_train_step, distributed.all_reduce_grads
+
+    def timed_reduce(grads):
+        t0 = time.perf_counter()
+        reduce(grads)
+        record["allreduce_host_ms"].append((time.perf_counter() - t0) * 1e3)
+
+    def recording(*a, **kw):
+        step = make(*a, **kw)
+
+        def wrapped(state, batch, rng=None):
+            out = step(state, batch, rng)
+            record["losses"].append(float(out[1]))
+            if record.get("after_first") is None and "projector" in state["params"]:
+                record["after_first"] = {p: x.detach().cpu().clone()
+                                         for p, x in _projector_leaves(state["params"])}
+                record["first_grads"] = {p: g.detach().cpu().clone()
+                                         for p, g in out[2]["watched_grads"].items()}
+            return out
+
+        return wrapped
+
+    steps_mod.make_train_step = recording
+    distributed.all_reduce_grads = timed_reduce
+
+
+def _sha(leaves) -> str:
+    """sha256 of the leaves' bytes, in path order: replicas bit-equal or not."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for _, x in sorted(leaves, key=lambda px: px[0]):
+        h.update(x.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_stage1_rank(argv):
+    """A rank of phase 20 (b): ``cli/train_stage1.main`` over the JPEG files, the model
+    of phase 5 built in the rank from the seed (``setup.build_vlm`` and
+    ``setup.load_tokenizer`` replaced: no snapshot, no transformers); dumps the rank's
+    losses, launches, projector hash and first update to ``<dump>/rank<r>.pt``."""
+    import torch
+
+    from projectiontrainer_tpu_torch.cli import train_stage1
+    from projectiontrainer_tpu_torch.train import setup, steps
+
+    dump, flags, rank = _rank_entry(argv)
+    built = {}
+
+    def build_vlm(*_, device, **__):
+        built["cfg"], built["params"] = full_width_model()
+        return built["cfg"], built["params"]
+
+    setup.build_vlm = build_vlm
+    setup.load_tokenizer = lambda _: FileTokenizer()
+    record = {"losses": [], "allreduce_host_ms": [], "after_first": None, "first_grads": None}
+    _record_steps(steps, record)
+    kernel_counters = counters()
+    for c in kernel_counters.values():
+        c.reset()
+    result = train_stage1.main(flags)
+    torch.cuda.synchronize()
+    torch.save({"rank": rank, "losses": record["losses"], "result": result,
+                "launches": {n: c.value for n, c in kernel_counters.items()},
+                "allreduce_host_ms": record["allreduce_host_ms"],
+                "projector_sha256": _sha(_projector_leaves(built["params"])),
+                "after_first": record["after_first"] if rank == 0 else None,
+                "first_grads": record["first_grads"] if rank == 0 else None},
+               os.path.join(dump, f"rank{rank}.pt"))
+    return result
+
+
+def _stage0_dp_model():
+    import torch
+
+    from projectiontrainer_tpu_torch.models import siglip
+
+    cfg = siglip.SiglipConfig(
+        vision=dataclasses.replace(siglip.so400m_16_512(), num_layers=DP_STAGE0_LAYERS),
+        text=dataclasses.replace(siglip.so400m_text(), num_layers=DP_STAGE0_LAYERS))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    return cfg, siglip.init(gen, cfg, device="cuda", vision_dtype=torch.float32,
+                            text_dtype=torch.bfloat16)
+
+
+def dp_stage0_rank(argv):
+    """A rank of phase 20 (c): ``cli/train_stage0.main`` with --local_negatives over the
+    JPEG files, the so400m dual tower cut to DP_STAGE0_LAYERS layers built in the rank
+    from the seed; dumps the losses, launches and the trained leaves' hash."""
+    import torch
+
+    from projectiontrainer_tpu_torch.cli import train_stage0
+    from projectiontrainer_tpu_torch.core.pytree import unique_leaves_with_paths
+    from projectiontrainer_tpu_torch.train import setup, steps
+
+    dump, flags, rank = _rank_entry(argv)
+    built = {}
+
+    def load_siglip(*_, **__):
+        built["cfg"], built["params"] = _stage0_dp_model()
+        return built["cfg"], built["params"]
+
+    train_stage0.hf_import.load_siglip = load_siglip
+    setup.load_tokenizer = lambda _: FileTokenizer()
+    record = {"losses": [], "allreduce_host_ms": []}
+    _record_steps(steps, record)
+    kernel_counters = counters()
+    for c in kernel_counters.values():
+        c.reset()
+    result = train_stage0.main(flags)
+    torch.cuda.synchronize()
+    trained = [(p, x) for p, x in unique_leaves_with_paths(built["params"])
+               if not p.startswith("text/")]
+    torch.save({"rank": rank, "losses": record["losses"], "result": result,
+                "launches": {n: c.value for n, c in kernel_counters.items()},
+                "allreduce_host_ms": record["allreduce_host_ms"],
+                "trained_sha256": _sha(trained)}, os.path.join(dump, f"rank{rank}.pt"))
+    return result
+
+
+def _dp_one_process_step(root, samples, flags_cfg):
+    """One train step of the 1-process trainer (global batch 8, the same optimizer) on
+    the first global batch of the 2-rank run: (loss, projector gradient, projector
+    after, projector before)."""
+    import torch
+
+    from projectiontrainer_tpu_torch.core.config import Stage1Config
+    from projectiontrainer_tpu_torch.data import datasets, pipeline
+    from projectiontrainer_tpu_torch.train.trainer_stage1 import Stage1Trainer
+
+    cfg, params = full_width_model()
+    before = {p: x.detach().cpu().clone() for p, x in _projector_leaves(params)}
+    ds = datasets.Stage1PairDataset(samples, image_root=root, tokenizer=FileTokenizer(),
+                                    image_size=cfg.vision.image_size, max_length=512)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dp_one_")
+    try:
+        tcfg = Stage1Config(**{**flags_cfg, "output_dir": out_dir,
+                               "batch_size": DP_BATCH * DP_RANKS})
+        trainer = Stage1Trainer(tcfg, vlm_cfg=cfg, params=params, tokenizer=FileTokenizer(),
+                                train_dataset=ds, val_dataset=None)
+        # the 2-rank run's first global batch: rank r's first DP_BATCH samples of its
+        # round-robin shard
+        order = np.concatenate([
+            pipeline.host_shard_indices(len(ds), epoch=0, seed=tcfg.seed, process_index=r,
+                                        process_count=DP_RANKS)[:DP_BATCH]
+            for r in range(DP_RANKS)])
+        rows = [ds[int(i)] for i in order]
+        batch = {k: torch.tensor(np.stack([r[k] for r in rows]), device=DEVICE)
+                 for k in rows[0]}
+        _, loss, aux = trainer.train_step(trainer.state, batch)
+        torch.cuda.synchronize()
+        grads = {p: g.detach().cpu().clone() for p, g in aux["watched_grads"].items()}
+        after = {p: x.detach().cpu().clone() for p, x in _projector_leaves(params)}
+        del trainer
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return float(loss), grads, after, before
+
+
+def phase_data_parallel():
+    """Phase 20: stage-1 training at full width across ranks through the launcher, then
+    stage 0 across ranks; see the module's docstring."""
+    import torch
+    import torch.nn.functional as F
+
+    ranks, backend, why, sharing = _dp_world()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    smi = smi.splitlines()[0]
+    label = ("ranks sharing one card, not a scaling figure" if sharing
+             else f"{ranks} rank(s), one card each")
+    print(f"data parallel: {ranks} rank(s) over {backend}: {why} ({smi})", flush=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        n_train = DP_BATCH * ranks * DP_STEPS
+        images = write_cxr_sources(root, n_train + 8, 1024, SEED + 2000)
+        samples = [{"image": s["image"], "normal_caption": c}
+                   for s, c in zip(images, _dp_captions(len(images), SEED + 2001))]
+        for name, part in (("train.json", samples[:n_train]), ("val.json", samples[n_train:])):
+            with open(os.path.join(root, name), "w") as f:
+                json.dump(part, f)
+        flags_cfg = dict(image_root=root, train_json=os.path.join(root, "train.json"),
+                         val_json=os.path.join(root, "val.json"), batch_size=DP_BATCH,
+                         num_epochs=1, logging_steps=1, num_workers=4, learning_rate=1e-4,
+                         save_every_n_epochs=0, disable_wandb=True, seed=SEED, img_size=384,
+                         max_caption_len=512, profile_start_step=6, profile_num_steps=2,
+                         watch_gradients=True)
+        out = os.path.join(root, "stage1")
+        flags = [f"--{k}={v}" for k, v in flags_cfg.items() if not isinstance(v, bool)]
+        flags += ["--disable_wandb", "--watch_gradients", "--output_dir", out,
+                  "--vision_model_name", "seeded",
+                  "--llm_name", "seeded", "--profile_dir", os.path.join(out, "profile"),
+                  "--mesh_data", "-1"]
+        gc_cuda()
+        rc, logs, wall = _dp_launch("dp_stage1_rank", root, flags, ranks, backend)
+        if rc != 0:
+            raise AssertionError(f"data parallel: the stage-1 launch exited {rc}:\n"
+                                 f"{logs[-6000:]}")
+        dumps = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+                 for r in range(ranks)]
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        split = {k[len("profile/"):]: v for r in rows for k, v in r.items()
+                 if k.startswith("profile/")}
+        for d in dumps:
+            if len(d["losses"]) != DP_STEPS or not np.isfinite(d["losses"]).all():
+                raise AssertionError(f"data parallel: rank {d['rank']} losses {d['losses']}")
+            if not all(d["launches"][n] for n in STAGE1_KERNELS):
+                raise AssertionError(f"data parallel: rank {d['rank']} never launched a kernel "
+                                     f"of the path: {d['launches']}")
+        if any(d["losses"] != dumps[0]["losses"] for d in dumps):
+            raise AssertionError(f"data parallel: the ranks logged different losses: "
+                                 f"{[d['losses'] for d in dumps]}")
+        if len({d["projector_sha256"] for d in dumps}) != 1:
+            raise AssertionError("data parallel: the trained projectors differ across ranks")
+        if not os.path.exists(os.path.join(out, "projector_final.bin")):
+            raise AssertionError("data parallel: projector_final.bin was not written")
+        checks = {"ranks": ranks, "backend": backend, "losses_equal_across_ranks": True,
+                  "projector_bit_equal_across_ranks": True}
+        if ranks > 1:
+            gc_cuda()
+            loss_one, grads_one, after_one, before = _dp_one_process_step(
+                root, samples[:n_train], flags_cfg)
+
+            def cosine(a, b):  # in fp64: an fp32 sum over 11M products reads ~1e-3 off
+                return float(F.cosine_similarity(a.flatten().double(), b.flatten().double(),
+                                                 dim=0))
+
+            def update(after):
+                return torch.cat([(after[p] - before[p]).flatten() for p in sorted(before)])
+
+            rel = abs(dumps[0]["losses"][0] - loss_one) / abs(loss_one)
+            grad_cos = {p: cosine(dumps[0]["first_grads"][p], grads_one[p]) for p in grads_one}
+            update_cos = cosine(update(dumps[0]["after_first"]), update(after_one))
+            # a reading, not a check: Adam's first update is about lr * sign(gradient),
+            # so an element whose gradient is near 0 flips on bf16 rounding (fc2's bias:
+            # one element of 1152 costs 0.0017)
+            leaf_cos = {p: cosine(dumps[0]["after_first"][p] - before[p],
+                                  after_one[p] - before[p]) for p in before}
+            checks.update(first_loss_ranks=dumps[0]["losses"][0],
+                          first_loss_one_process=loss_one, first_loss_rel_diff=rel,
+                          grad_cosine=grad_cos,
+                          update_cosine=update_cos, update_cosine_by_leaf=leaf_cos)
+            if not rel <= LOSS_REL:
+                raise AssertionError(f"data parallel: first loss {dumps[0]['losses'][0]} vs one "
+                                     f"process {loss_one}")
+            if not min(grad_cos.values()) >= COS_MIN:
+                raise AssertionError(f"data parallel: projector gradient cosine {grad_cos}")
+            if not update_cos >= COS_MIN:
+                raise AssertionError(f"data parallel: projector update cosine {update_cos} "
+                                     f"(by leaf {leaf_cos})")
+        rates = [d["result"].get("images_per_sec") for d in dumps]
+        reduce_ms = [float(np.median(d["allreduce_host_ms"])) if d["allreduce_host_ms"]
+                     else None for d in dumps]
+        print(f"data parallel stage 1 ({label}; {smi}): images/s per rank {rates}; "
+              f"grad_allreduce span {split.get('grad_allreduce_fwd_ms')} ms of kernel time a "
+              f"step (rank 0's trace), host time of the all-reduce (median) {reduce_ms} ms",
+              flush=True)
+        emit({"phase": 20, "part": "stage1", "world": {"ranks": ranks, "backend": backend,
+                                                       "why": why, "sharing_one_card": sharing},
+              "label": label, "nvidia_smi": smi, "launch_wall_s": wall,
+              "losses": dumps[0]["losses"], "images_per_sec_per_rank": rates,
+              "step_time_ms_per_rank": [d["result"].get("step_time_ms") for d in dumps],
+              "grad_allreduce_kernel_ms_per_step": split.get("grad_allreduce_fwd_ms"),
+              "grad_allreduce_host_ms_median": reduce_ms,
+              "kernel_ms_per_step": split,
+              "launches_per_rank": [d["launches"] for d in dumps], **checks,
+              "cut": f"{DP_STEPS} steps of random weights, {n_train} + 8 seeded JPEG files"})
+
+        # (c) stage 0 across ranks, the so400m towers cut to DP_STAGE0_LAYERS layers
+        n0 = DP_STAGE0_BATCH * ranks * DP_STAGE0_STEPS
+        feed = write_cxr_sources(root, n0 + 16, 1024, SEED + 3000)
+        with open(os.path.join(root, "stage0.json"), "w") as f:
+            json.dump(feed, f)
+        out0 = os.path.join(root, "stage0")
+        flags0 = ["--image_root", root, "--train_json", os.path.join(root, "stage0.json"),
+                  "--output_dir", out0, "--model_name", "seeded", "--img_size", "512",
+                  "--batch_size", str(DP_STAGE0_BATCH), "--num_epochs", "1",
+                  "--val_split", str(16 / (n0 + 16)), "--max_text_len", "64",
+                  "--logging_steps", "1", "--num_workers", "4", "--disable_wandb",
+                  "--seed", str(SEED), "--min_save_epoch", "0", "--local_negatives",
+                  "--mesh_data", "-1"]
+        gc_cuda()
+        rc, logs, wall0 = _dp_launch("dp_stage0_rank", root, flags0, ranks, backend)
+        if rc != 0:
+            raise AssertionError(f"data parallel: the stage-0 launch exited {rc}:\n"
+                                 f"{logs[-6000:]}")
+        dumps0 = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+                  for r in range(ranks)]
+        for d in dumps0:
+            if len(d["losses"]) != DP_STAGE0_STEPS or not np.isfinite(d["losses"]).all():
+                raise AssertionError(f"data parallel stage 0: rank {d['rank']} losses "
+                                     f"{d['losses']}")
+            if not all(d["launches"][n] for n in STAGE0_KERNELS):
+                raise AssertionError(f"data parallel stage 0: rank {d['rank']} never launched "
+                                     f"a kernel of the path: {d['launches']}")
+        if any(d["losses"] != dumps0[0]["losses"] for d in dumps0):
+            raise AssertionError(f"data parallel stage 0: the ranks logged different losses: "
+                                 f"{[d['losses'] for d in dumps0]}")
+        if len({d["trained_sha256"] for d in dumps0}) != 1:
+            raise AssertionError("data parallel stage 0: the replicas differ after the run")
+        rates0 = [d["result"].get("images_per_sec") for d in dumps0]
+        print(f"data parallel stage 0 ({label}; {smi}): images/s per rank {rates0}", flush=True)
+        emit({"phase": 20, "part": "stage0", "label": label, "nvidia_smi": smi,
+              "launch_wall_s": wall0, "losses": dumps0[0]["losses"],
+              "images_per_sec_per_rank": rates0,
+              "launches_per_rank": [d["launches"] for d in dumps0],
+              "replicas_bit_equal": True,
+              "cut": f"so400m towers cut to {DP_STAGE0_LAYERS} of 27 layers each (run time), "
+                     f"{DP_STAGE0_STEPS} steps at {DP_STAGE0_BATCH} a rank"})
+        return {"stage1_dp": dumps[0]["launches"], "stage0_dp": dumps0[0]["launches"]}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import gc
 
@@ -3346,6 +3757,10 @@ def main() -> int:
     gc_cuda()
     slice_launches.update(phase_zero_shot_tsne(kernel_counters))
     gc_cuda()
+
+    dp = phase_data_parallel()  # the ranks count their own launches
+    slice_launches["stage1_dp_rank0"] = {n: dp["stage1_dp"][n] for n in STAGE1_KERNELS}
+    slice_launches["stage0_dp_rank0"] = {n: dp["stage0_dp"][n] for n in STAGE0_KERNELS}
 
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():

@@ -11,6 +11,10 @@ yet epoch 0 changed it. A tied tensor is saved once, under its first path. Files
 newest ``step_K`` is kept); ``manager.json`` records the best metric. ``save_periodic`` saves epoch N when N + 1 is a multiple of
 ``save_every_n_epochs`` and N >= ``min_save_epoch``.
 
+In a data-parallel world every rank holds the same state: rank 0 writes each file and
+the others wait at a barrier (the JAX package's collective save); the best-save
+decision takes rank 0's metric everywhere; ``--resume`` reads on every rank.
+
 The cls probe names every leaf of its classifier (the JAX package saves the whole
 state): its evaluators rebuild the model from a checkpoint alone (``restore_params``,
 the architecture from ``metadata``).
@@ -33,6 +37,7 @@ from typing import Iterable, Optional
 import torch
 
 from projectiontrainer_tpu_torch.core.pytree import leaves_with_paths, unique_leaves_with_paths
+from projectiontrainer_tpu_torch.parallel import distributed
 
 
 def _cpu(x):
@@ -63,13 +68,17 @@ class CheckpointManager:
         return os.path.join(self.directory, f"{name}.pt")
 
     def _save(self, name: str, state: dict, metadata: Optional[dict] = None):
-        keep = self.save_paths if self.save_paths is not None else set(state["opt_state"]["mu"])
-        params = {p: x for p, x in unique_leaves_with_paths(state["params"]) if p in keep}
-        payload = {"params": _cpu(params), "opt_state": _cpu(state["opt_state"]),
-                   "step": int(state["step"]), "metadata": dict(metadata or {})}
-        tmp = self._path(name) + ".tmp"
-        torch.save(payload, tmp)
-        os.replace(tmp, self._path(name))
+        """Rank 0 writes (tmp + rename); every rank returns once the file is there."""
+        if distributed.is_main():
+            keep = (self.save_paths if self.save_paths is not None
+                    else set(state["opt_state"]["mu"]))
+            params = {p: x for p, x in unique_leaves_with_paths(state["params"]) if p in keep}
+            payload = {"params": _cpu(params), "opt_state": _cpu(state["opt_state"]),
+                       "step": int(state["step"]), "metadata": dict(metadata or {})}
+            tmp = self._path(name) + ".tmp"
+            torch.save(payload, tmp)
+            os.replace(tmp, self._path(name))
+        distributed.barrier()
 
     def save_periodic(self, epoch: int, state: dict, metadata: Optional[dict] = None) -> bool:
         if epoch < self.min_save_epoch or (epoch + 1) % self.save_every_n_epochs:
@@ -78,7 +87,8 @@ class CheckpointManager:
         return True
 
     def save_best(self, metric: float, state: dict, metadata: Optional[dict] = None) -> bool:
-        metric = float(metric)
+        # the decision gates a save every rank enters: take rank 0's metric everywhere
+        metric = distributed.broadcast_value(metric)
         better = (self._best_metric is None
                   or (self.best_mode == "min" and metric < self._best_metric)
                   or (self.best_mode == "max" and metric > self._best_metric))
@@ -86,8 +96,9 @@ class CheckpointManager:
             return False
         self._best_metric = metric
         self._save("best", state, {**(metadata or {}), "best_metric": metric})
-        with open(os.path.join(self.directory, "manager.json"), "w") as f:
-            json.dump({"best_metric": metric}, f)
+        if distributed.is_main():
+            with open(os.path.join(self.directory, "manager.json"), "w") as f:
+                json.dump({"best_metric": metric}, f)
         return True
 
     def save_final(self, state: dict, metadata: Optional[dict] = None):
@@ -96,7 +107,7 @@ class CheckpointManager:
     def save_step(self, step: int, state: dict, metadata: Optional[dict] = None):
         old = self.latest_step()
         self._save(f"step_{step}", state, metadata)
-        if old is not None and old != step:
+        if old is not None and old != step and distributed.is_main():
             os.remove(self._path(f"step_{old}"))
 
     def _numbered(self, prefix: str) -> Optional[int]:

@@ -71,3 +71,8 @@ def run_experiments():
 
 def serve():
     _run("serve")
+
+
+def launch():
+    # a failed rank raises SystemExit with its exit code inside the launcher's main
+    _run("launch")

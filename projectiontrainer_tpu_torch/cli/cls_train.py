@@ -1,4 +1,4 @@
-"""cls_evaluate training entry: attention-probe classifier experiments on one device.
+"""cls_evaluate training entry: attention-probe classifier experiments, data parallel.
 
 Counterpart of ``projectiontrainer_tpu/cli/cls_train.py`` with the same flags
 (reference: cls_evaluate/train.py:53-143: ``--exp_id``, ``--class_names``,
@@ -15,8 +15,11 @@ masters with bf16 compute (``--mixed_precision``). ``--multilabel_two_way`` read
 multi-hot targets (``MultiLabelClassificationDataset``). Images are read on
 ``--num_workers`` threads: the classification datasets lack the process feeder's
 protocol, so ``--num_loader_procs`` has no effect (said once in the log), as in the JAX
-package. Refused, not ported: ``--mesh_data``/``--mesh_model`` above 1, or -1 with more
-than one GPU visible, and ``--fsdp``.
+package. Data parallel over N GPUs: ``projectiontrainer-torch-launch --nproc_per_node N cls --
+<these flags>`` (or ``torchrun``) starts one process per GPU; ``--mesh_data`` N or -1 (every
+rank). Not ported yet, and refused: ``--mesh_model`` above 1 (tensor parallelism) and
+``--fsdp``; ``--mesh_data -1`` with more than one GPU visible in a process no launcher
+started raises too.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ def build_trainer(cfg: ClsConfig, *, vision_cfg=None, vision_params=None) -> Cls
     """The trainer over ``cfg.data_json``'s stratified 90/10 split; the tower from the
     snapshot ``cfg.vision_model_name`` unless ``vision_cfg``/``vision_params`` are given
     (``vision_params`` None then: a random tower from ``cfg.seed``)."""
-    common.check_one_device(cfg)
+    common.init_world(cfg)
     logger = setup_logging()
     common.log_thread_feed(cfg, logger, "the classification datasets lack the process "
                            "feeder's protocol")

@@ -1,4 +1,4 @@
-"""Stage 0 entry: SigLIP contrastive vision-encoder fine-tuning on one device.
+"""Stage 0 entry: SigLIP contrastive vision-encoder fine-tuning, data parallel.
 
 Counterpart of ``projectiontrainer_tpu/cli/train_stage0.py`` with the same flags
 (reference: Stage0/train_vision_encoder_stage0.py:845-897), plus ``--device``:
@@ -14,8 +14,11 @@ it is frozen (``--freeze_text_encoder``, the default).
 the C++ pipeline of ``runtime/``); ``--num_loader_procs N`` decodes and augments on N
 worker processes (``data/feeder.py``) instead of ``--num_workers`` threads.
 
-Not ported yet, and refused: ``--mesh_data``/``--mesh_model`` above 1, or -1 with more
-than one GPU visible, and ``--fsdp`` (multi-device runs).
+Data parallel over N GPUs: ``projectiontrainer-torch-launch --nproc_per_node N stage0 --
+<these flags>`` (or ``torchrun``) starts one process per GPU; ``--mesh_data`` N or -1 (every
+rank). Not ported yet, and refused: ``--mesh_model`` above 1 (tensor parallelism) and
+``--fsdp``; ``--mesh_data -1`` with more than one GPU visible in a process no launcher
+started raises too.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ from projectiontrainer_tpu_torch.utils.logging import setup_logging
 
 def main(argv=None):
     cfg = from_args(Stage0Config, parser_for(Stage0Config, __doc__).parse_args(argv))
-    common.check_one_device(cfg)
+    common.init_world(cfg)
     logger = setup_logging()
     device = torch.device(cfg.device)
     text_dtype = dtypes.compute_dtype(cfg.mixed_precision) if cfg.freeze_text_encoder else None

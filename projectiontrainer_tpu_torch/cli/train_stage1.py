@@ -1,4 +1,4 @@
-"""Stage 1 entry: projector alignment training on one device.
+"""Stage 1 entry: projector alignment training, on one device or data parallel.
 
 Counterpart of ``projectiontrainer_tpu/cli/train_stage1.py`` with the same flags
 (reference: Stage1/train_projection_stage1.py:136-408), plus ``--device``:
@@ -13,8 +13,11 @@ checkpoint was saved with wins.
 ``--num_loader_procs N`` decodes the images on N worker processes (``data/feeder.py``)
 instead of ``--num_workers`` threads.
 
-Not ported yet, and refused: ``--mesh_data``/``--mesh_model`` above 1, or -1 with more
-than one GPU visible, and ``--fsdp`` (multi-device runs).
+Data parallel over N GPUs: ``projectiontrainer-torch-launch --nproc_per_node N stage1 --
+<these flags>`` (or ``torchrun``) starts one process per GPU; ``--mesh_data`` N or -1 (every
+rank). Not ported yet, and refused: ``--mesh_model`` above 1 (tensor parallelism) and
+``--fsdp``; ``--mesh_data -1`` with more than one GPU visible in a process no launcher
+started raises too.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from projectiontrainer_tpu_torch.utils.logging import setup_logging
 
 def main(argv=None):
     cfg = from_args(Stage1Config, parser_for(Stage1Config, __doc__).parse_args(argv))
-    common.check_one_device(cfg)
+    common.init_world(cfg)
     logger = setup_logging()
     device = torch.device(cfg.device)
     common.resume_quant_method(cfg, os.path.join(cfg.output_dir, "checkpoints"), logger)

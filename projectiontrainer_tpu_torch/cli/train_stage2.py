@@ -1,4 +1,4 @@
-"""Stage 2 entry: VQA instruction fine-tuning on one device.
+"""Stage 2 entry: VQA instruction fine-tuning, on one device or data parallel.
 
 Counterpart of ``projectiontrainer_tpu/cli/train_stage2.py`` with the same flags
 (reference: Stage2/train_vqa_stage2.py:82-352), plus ``--device``. The full-joint
@@ -21,8 +21,11 @@ checkpoint was saved with.
 Images are read on ``--num_workers`` threads, as the JAX package's stage 2 reads them:
 ``--num_loader_procs`` has no effect here (said once in the log).
 
-Not ported yet, and refused: ``--remat dots``, ``--mesh_data``/``--mesh_model`` above
-1, or -1 with more than one GPU visible, and ``--fsdp`` (multi-device runs).
+Data parallel over N GPUs: ``projectiontrainer-torch-launch --nproc_per_node N stage2 --
+<these flags>`` (or ``torchrun``) starts one process per GPU; ``--mesh_data`` N or -1 (every
+rank). Not ported yet, and refused: ``--remat dots``, ``--mesh_model`` above 1 (tensor
+parallelism) and ``--fsdp``; ``--mesh_data -1`` with more than one GPU visible in a
+process no launcher started raises too.
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ from projectiontrainer_tpu_torch.utils.logging import setup_logging
 def check_supported(cfg) -> None:
     if cfg.remat == "dots":
         raise NotImplementedError("--remat dots (save the matmul outputs) is not ported")
-    common.check_one_device(cfg)
+    common.init_world(cfg)
 
 
 def main(argv=None):

@@ -1,0 +1,320 @@
+"""Multi-process runtime: the process group, host-side gathers and the collectives of
+a data-parallel train step.
+
+Counterpart of ``projectiontrainer_tpu/parallel/distributed.py``. The JAX package runs
+one process per host and lets XLA insert the gradient psum; the port runs one process
+per GPU (``cli/launch.py`` or ``torchrun`` starts them) and issues its collectives
+itself:
+
+- :func:`initialize` joins the process group from the launcher's ``RANK`` /
+  ``WORLD_SIZE`` / ``LOCAL_RANK`` / ``MASTER_ADDR`` / ``MASTER_PORT``, with an explicit
+  timeout (a rank that never arrives fails the run in minutes) and, on the card, the
+  rank's GPU pinned;
+- :func:`gather_objects` and :func:`gather_ragged` keep the JAX package's semantics:
+  exchange the sizes, pad to the largest, gather, trim;
+- :func:`all_reduce_grads` sums gradients over the ranks in a few flat buckets (one
+  collective per leaf would be hundreds of collectives a step in stage 2);
+- :func:`all_gather_with_grad` concatenates a tensor over the ranks; its backward sums
+  the incoming gradient over the ranks and keeps the rank's own slice (gloo has no
+  reduce-scatter).
+
+Backends: ``nccl`` for ranks on their own GPUs, ``gloo`` for the CPU, or for ranks that
+share a GPU (NCCL refuses two ranks on one device). Gloo runs its collectives on the
+host: a CUDA tensor is copied to the CPU for them (fp16/bf16 as fp32) and back.
+
+Every function here is a no-op, or the identity, in a world of one process.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import pickle
+from collections import defaultdict
+from typing import Any, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+DEFAULT_TIMEOUT_S = 600.0
+# the gradient all-reduce's flat buckets: large enough for few collectives, small
+# enough that the flat copy is a small part of the card's memory
+BUCKET_BYTES = 256 << 20
+
+
+def is_initialized() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def rank() -> int:
+    return dist.get_rank() if is_initialized() else 0
+
+
+def world_size() -> int:
+    return dist.get_world_size() if is_initialized() else 1
+
+
+def local_rank() -> int:
+    """This process's index among the ranks of its host (``LOCAL_RANK``; 0 alone)."""
+    return int(os.environ.get("LOCAL_RANK", "0"))
+
+
+def local_world_size() -> int:
+    """The number of ranks on this host (``LOCAL_WORLD_SIZE``; 1 alone)."""
+    return int(os.environ.get("LOCAL_WORLD_SIZE", "1"))
+
+
+def launched() -> bool:
+    """Whether a launcher started this process as one rank of a world."""
+    return "RANK" in os.environ and "WORLD_SIZE" in os.environ
+
+
+def is_main() -> bool:
+    return rank() == 0
+
+
+def rank_seed(seed: int) -> int:
+    """``seed`` on rank 0, and a seed of its own for every other rank (splitmix64's
+    finaliser of the seed and the rank): dropout masks that differ across the ranks,
+    as they differ across the rows of the JAX package's global batch."""
+    r = rank()
+    if r == 0:
+        return int(seed)
+    z = (int(seed) * 0x9E3779B97F4A7C15 + r) & ((1 << 64) - 1)
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & ((1 << 64) - 1)
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & ((1 << 64) - 1)
+    return (z ^ (z >> 31)) & ((1 << 63) - 1)
+
+
+def default_backend(device_type: str) -> str:
+    """The backend a launcher named (``PTT_DIST_BACKEND``), else ``nccl`` on the card
+    and ``gloo`` on the CPU."""
+    return os.environ.get("PTT_DIST_BACKEND") or ("nccl" if device_type == "cuda" else "gloo")
+
+
+def check_backend(backend: str, device_type: str, ranks_per_host: int) -> None:
+    """Raise for a backend that cannot carry this world: NCCL needs CUDA tensors and a
+    GPU of its own for each rank of the host."""
+    if backend not in ("nccl", "gloo"):
+        raise ValueError(f"backend must be nccl or gloo, got {backend!r}")
+    if backend != "nccl":
+        return
+    if device_type != "cuda":
+        raise ValueError("the nccl backend carries CUDA tensors only: use gloo on the CPU")
+    n_gpus = torch.cuda.device_count()
+    if ranks_per_host > n_gpus:
+        raise ValueError(
+            f"{ranks_per_host} ranks on a host with {n_gpus} visible GPU(s): NCCL refuses two "
+            "ranks on one GPU; pass --backend gloo for ranks that share a card")
+
+
+def initialize(device_type: str = "cuda", backend: Optional[str] = None,
+               timeout_s: Optional[float] = None) -> tuple[int, int]:
+    """Join the process group when a launcher started this process in a world of more
+    than one; returns (rank, world size). On the card the rank's GPU is
+    ``LOCAL_RANK`` modulo the visible GPUs (ranks share cards only under gloo). The
+    timeout is ``timeout_s``, else ``PTT_DIST_TIMEOUT_S``, else 600 s. Safe to call
+    again, and in a single process (no-op)."""
+    if is_initialized():
+        return rank(), world_size()
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world <= 1:
+        return 0, 1
+    backend = backend or default_backend(device_type)
+    check_backend(backend, device_type, local_world_size())
+    if device_type == "cuda":
+        torch.cuda.set_device(local_rank() % torch.cuda.device_count())
+    timeout = float(timeout_s or os.environ.get("PTT_DIST_TIMEOUT_S", DEFAULT_TIMEOUT_S))
+    dist.init_process_group(backend, init_method="env://", rank=int(os.environ["RANK"]),
+                            world_size=world, timeout=datetime.timedelta(seconds=timeout))
+    return rank(), world_size()
+
+
+def shutdown() -> None:
+    if is_initialized():
+        dist.destroy_process_group()
+
+
+def barrier() -> None:
+    """Cross-rank sync point (the reference fences validation and saving with
+    ``dist.barrier``, Stage0:321,357,428,795-798)."""
+    if world_size() == 1:
+        return
+    if dist.get_backend() == "nccl":
+        dist.barrier(device_ids=[torch.cuda.current_device()])
+    else:
+        dist.barrier()
+
+
+# ------------------------------------------------------------------------ tensors
+
+
+def _staged(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the process group carries it: itself under nccl; under gloo a CPU
+    tensor, fp16/bf16 widened to fp32 (gloo sums on the host)."""
+    if dist.get_backend() != "gloo":
+        return t
+    if t.dtype in (torch.float16, torch.bfloat16):
+        return t.to("cpu", torch.float32)
+    return t.cpu()
+
+
+def all_reduce_sum_(t: torch.Tensor) -> torch.Tensor:
+    """Sum ``t`` over the ranks, in place; returns ``t``."""
+    if world_size() == 1:
+        return t
+    c = _staged(t)
+    dist.all_reduce(c)
+    if c is not t:
+        t.copy_(c)
+    return t
+
+
+def sum_over_ranks(x: torch.Tensor) -> torch.Tensor:
+    """A new tensor: ``x`` (detached) summed over the ranks; ``x`` itself alone."""
+    if world_size() == 1:
+        return x
+    return all_reduce_sum_(x.detach().clone())
+
+
+def all_gather(x: torch.Tensor) -> torch.Tensor:
+    """Every rank's ``x`` (the same shape on each) concatenated along dim 0, in rank order."""
+    if world_size() == 1:
+        return x
+    c = _staged(x.detach().contiguous())
+    out = [torch.empty_like(c) for _ in range(world_size())]
+    dist.all_gather(out, c)
+    return torch.cat(out).to(x.device, x.dtype)
+
+
+class _AllGatherWithGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.rows = x.shape[0]
+        return all_gather(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = all_reduce_sum_(grad.contiguous().clone())
+        r = rank()
+        return grad[r * ctx.rows:(r + 1) * ctx.rows]
+
+
+def all_gather_with_grad(x: torch.Tensor) -> torch.Tensor:
+    """:func:`all_gather` that autograd differentiates: the gradient of the rank's rows
+    is the sum over the ranks of the gradients of those rows of the concatenation
+    (each rank's loss reads every rank's rows)."""
+    if world_size() == 1:
+        return x
+    return _AllGatherWithGrad.apply(x)
+
+
+def _buckets(tensors: Sequence[torch.Tensor]):
+    """``tensors`` grouped by device and type, in order, into lists of at most about
+    ``BUCKET_BYTES``: the same grouping on every rank that passes the same leaves."""
+    groups = defaultdict(list)
+    for t in tensors:
+        groups[(t.device, t.dtype)].append(t)
+    for ts in groups.values():
+        bucket, size = [], 0
+        for t in ts:
+            bucket.append(t)
+            size += t.numel() * t.element_size()
+            if size >= BUCKET_BYTES:
+                yield bucket
+                bucket, size = [], 0
+        if bucket:
+            yield bucket
+
+
+@torch.no_grad()
+def _coalesced(tensors: Sequence[torch.Tensor], collective) -> None:
+    for bucket in _buckets(tensors):
+        flat = torch.cat([t.reshape(-1) for t in bucket])
+        collective(flat)
+        offset = 0
+        for t in bucket:
+            t.copy_(flat[offset:offset + t.numel()].view_as(t))
+            offset += t.numel()
+
+
+def all_reduce_grads(grads: Sequence[torch.Tensor]) -> None:
+    """Sum every gradient over the ranks, in place: one collective for each flat bucket
+    of one device and type (:func:`_buckets`)."""
+    if world_size() > 1:
+        _coalesced(grads, all_reduce_sum_)
+
+
+def broadcast_(tensors: Sequence[torch.Tensor], src: int = 0) -> None:
+    """Overwrite every tensor with rank ``src``'s, in place, bucketed as the gradients:
+    the replicas start equal."""
+    if world_size() == 1:
+        return
+
+    def bcast(flat):
+        c = _staged(flat)
+        dist.broadcast(c, src)
+        if c is not flat:
+            flat.copy_(c)
+
+    _coalesced(tensors, bcast)
+
+
+# --------------------------------------------------------------------------- host
+
+
+def _host_device() -> torch.device:
+    """Where a host value travels: the rank's GPU under nccl, the CPU under gloo."""
+    if dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def broadcast_value(value: float, src: int = 0) -> float:
+    """Rank ``src``'s ``value`` on every rank (a decision that gates a collective must
+    be the same everywhere)."""
+    if world_size() == 1:
+        return float(value)
+    t = torch.tensor([float(value)], dtype=torch.float64, device=_host_device())
+    dist.broadcast(t, src)
+    return float(t.item())
+
+
+def _gather_padded(rows: np.ndarray) -> list[np.ndarray]:
+    """Each rank's ``rows`` ([n_r, row_bytes] uint8, n_r free per rank): the sizes
+    exchanged, every block padded to the largest, gathered and trimmed, in rank order."""
+    device = _host_device()
+    sizes = all_gather(torch.tensor([rows.shape[0]], dtype=torch.int64, device=device))
+    sizes = sizes.cpu().tolist()
+    padded = np.zeros((max(sizes), rows.shape[1]), np.uint8)
+    padded[:rows.shape[0]] = rows
+    gathered = all_gather(torch.from_numpy(padded).to(device)).cpu().numpy()
+    blocks = gathered.reshape(len(sizes), max(sizes), rows.shape[1])
+    return [block[:n] for block, n in zip(blocks, sizes)]
+
+
+def gather_ragged(local) -> np.ndarray:
+    """Every rank's array (leading dims free per rank; the same type and trailing dims
+    on each) concatenated in rank order: the Stage-0 padded all-gather
+    (reference :362-411)."""
+    local = np.asarray(local)
+    if world_size() == 1:
+        return local
+    row_bytes = int(np.prod(local.shape[1:], dtype=np.int64)) * local.dtype.itemsize
+    rows = np.frombuffer(np.ascontiguousarray(local).tobytes(), np.uint8)
+    blocks = _gather_padded(rows.reshape(local.shape[0], row_bytes))
+    flat = np.concatenate(blocks).tobytes()
+    return np.frombuffer(flat, local.dtype).reshape((-1,) + local.shape[1:]).copy()
+
+
+def gather_objects(local: Sequence[Any]) -> list[Any]:
+    """Every rank's picklable objects (validation example strings) in one list, in rank
+    order; only this program's own ranks' bytes are unpickled."""
+    if world_size() == 1:
+        return list(local)
+    payload = np.frombuffer(pickle.dumps(list(local)), np.uint8)
+    out = []
+    for block in _gather_padded(payload.reshape(-1, 1)):
+        out.extend(pickle.loads(block.tobytes()))
+    return out

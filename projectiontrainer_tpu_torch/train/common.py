@@ -1,9 +1,10 @@
 """Shared trainer plumbing: step accounting, batch feeding, host readback.
 
 Counterpart of ``projectiontrainer_tpu/train/common.py``. The port runs one process
-on one device; a data-parallel world (``torch.distributed``) enters only through the
-process shard of ``data/pipeline.py`` and the batch arithmetic below, which count
-processes the way the JAX package counts hosts.
+per device; ``init_world`` joins the data-parallel world (``parallel/distributed.py``),
+which enters the feed through the process shard of ``data/pipeline.py``, the batch
+arithmetic below (processes counted as the JAX package counts hosts) and
+``gather_rows`` (an evaluation's rows from every rank).
 """
 
 from __future__ import annotations
@@ -16,25 +17,47 @@ import numpy as np
 import torch
 
 from projectiontrainer_tpu_torch.checkpoint.manager import CheckpointManager
+from projectiontrainer_tpu_torch.core import mesh
 from projectiontrainer_tpu_torch.core.config import CommonConfig
+from projectiontrainer_tpu_torch.core.pytree import unique_leaves_with_paths
 from projectiontrainer_tpu_torch.data import pipeline as pipe
+from projectiontrainer_tpu_torch.parallel import distributed
 
 
-def check_one_device(cfg: CommonConfig) -> None:
-    """Refuse what would need more than one device: multi-device training is not
-    ported. ``--mesh_data``/``--mesh_model`` -1 mean every visible device (the JAX
-    package's ``core/mesh.py``), so they are refused too when more than one GPU is
-    visible."""
-    if cfg.mesh_data > 1 or cfg.mesh_model > 1 or cfg.fsdp:
-        raise NotImplementedError("--mesh_data/--mesh_model above 1 and --fsdp: "
-                                  "multi-device training is not ported")
-    if (-1 in (cfg.mesh_data, cfg.mesh_model) and torch.device(cfg.device).type == "cuda"
-            and torch.cuda.device_count() > 1):
+def init_world(cfg: CommonConfig) -> mesh.Mesh:
+    """Join the data-parallel world and resolve the mesh over it; ``cfg.device`` becomes
+    the rank's card (``cuda:<local rank>``) and ``cfg.num_loader_procs`` its share of
+    the host's feeder workers (the host's count over its ranks).
+
+    A process that a launcher started (``RANK``/``WORLD_SIZE`` set: ``cli/launch.py``
+    or ``torchrun``) joins the process group (``parallel/distributed.py``); the mesh
+    is then ``--mesh_data`` ranks (-1: every rank). ``--mesh_model`` above 1 and
+    ``--fsdp`` raise: tensor parallelism and sharded parameters are not ported yet. A
+    process that no launcher started is a world of one, so ``--mesh_data`` -1 with
+    several GPUs visible raises there: every GPU needs a process of its own."""
+    if cfg.fsdp:
         raise NotImplementedError(
-            f"--mesh_data {cfg.mesh_data} --mesh_model {cfg.mesh_model}: -1 means every "
-            f"visible GPU ({torch.cuda.device_count()} here), and multi-device training is "
-            "not ported: pass --mesh_data 1 --mesh_model 1, or narrow CUDA_VISIBLE_DEVICES "
-            "to one card")
+            "--fsdp: sharded parameters and optimizer state are not ported yet (they come "
+            "with Gemma3-4B, after the tensor-parallel slice); data parallelism replicates "
+            "the model on every rank")
+    device = torch.device(cfg.device)
+    if not distributed.launched():
+        if (-1 in (cfg.mesh_data, cfg.mesh_model) and device.type == "cuda"
+                and torch.cuda.device_count() > 1):
+            raise ValueError(
+                f"--mesh_data {cfg.mesh_data} --mesh_model {cfg.mesh_model}: -1 means every "
+                f"visible GPU ({torch.cuda.device_count()} here), and each needs a process of "
+                "its own: start the run with projectiontrainer-torch-launch --nproc_per_node "
+                "N (or torchrun), or pass --mesh_data 1 / narrow CUDA_VISIBLE_DEVICES")
+        return mesh.build_mesh(mesh.MeshConfig(cfg.mesh_data, cfg.mesh_model), 1)
+    distributed.initialize(device.type)
+    world = mesh.build_mesh(mesh.MeshConfig(cfg.mesh_data, cfg.mesh_model),
+                            distributed.world_size())
+    if device.type == "cuda" and device.index is None:
+        cfg.device = f"cuda:{torch.cuda.current_device()}"
+    if cfg.num_loader_procs > 0:
+        cfg.num_loader_procs = max(1, cfg.num_loader_procs // distributed.local_world_size())
+    return world
 
 
 def log_thread_feed(cfg: CommonConfig, logger, why: str) -> None:
@@ -93,6 +116,18 @@ def to_host(x) -> np.ndarray:
             x = x.float()
         return x.cpu().numpy()
     return np.asarray(x)
+
+
+def sync_replicas(params, paths) -> None:
+    """Overwrite the leaves of ``params`` at ``paths`` (the leaves that train) with rank
+    0's: the data-parallel replicas start equal, whatever each rank built or restored."""
+    distributed.broadcast_([x for p, x in unique_leaves_with_paths(params) if p in paths])
+
+
+def gather_rows(x) -> np.ndarray:
+    """Every rank's rows of ``x`` (a tensor or array) on the host, in rank order: what
+    the JAX package's ``to_host`` reads from a global array under a data mesh."""
+    return distributed.gather_ragged(to_host(x))
 
 
 def real_rows(batch) -> np.ndarray:

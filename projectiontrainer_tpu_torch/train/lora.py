@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from projectiontrainer_tpu_torch.ops import quant
+from projectiontrainer_tpu_torch.parallel import distributed
 
 TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
 ATTN_TARGETS = frozenset({"q_proj", "k_proj", "v_proj", "o_proj"})
@@ -91,9 +92,11 @@ def _mix(z: int) -> int:
 
 
 def dropout_seed(seed: int, layer: int, target: str) -> int:
-    """The seed of one mask: fixed by (the step's seed, layer, target), so the mask of
-    a layer recomputed under remat is the forward's."""
-    return _mix(_mix(_mix(int(seed)) ^ layer) ^ TARGET_INDEX[target])
+    """The seed of one mask: fixed by (the step's seed folded with the data-parallel
+    rank, layer, target), so the mask of a layer recomputed under remat is the
+    forward's and each rank's rows draw masks of their own (the JAX package draws one
+    mask over the global batch)."""
+    return _mix(_mix(_mix(distributed.rank_seed(int(seed))) ^ layer) ^ TARGET_INDEX[target])
 
 
 def dropout_threshold(p: float) -> int:

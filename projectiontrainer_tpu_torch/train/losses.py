@@ -8,6 +8,14 @@ labels -100 are ignored, the mean runs over the non-ignored targets, and optiona
 per-sample weights (0 for a straggler batch's filler rows) weight both the sum and the
 count. Each returns ``(loss, count)``: the fp32 scalar loss and the (weighted) number
 of targets as an integer tensor.
+
+``over_ranks=True`` (the train and eval steps pass it) makes a loss this rank's share
+of the loss over the whole data-parallel batch: the rank's own sum over the count
+summed over the ranks (``parallel/distributed.py``), so the shares add up to the JAX
+package's global mean under a data mesh, and the gradients summed over the ranks are
+its gradients. A mean of per-rank means would weigh a rank's token by the rank's own
+count. The count returned is then the global one. In a single process it changes
+nothing.
 """
 
 from __future__ import annotations
@@ -16,21 +24,26 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from projectiontrainer_tpu_torch.ops.fused_ce import fused_clm_token_nll
+from projectiontrainer_tpu_torch.parallel import distributed
 
 IGNORE_INDEX = -100
 
 
-def _reduce(token_loss, valid, sample_weights):
+def _count(count, over_ranks: bool):
+    return distributed.sum_over_ranks(count) if over_ranks else count
+
+
+def _reduce(token_loss, valid, sample_weights, over_ranks=False):
     valid_f = valid.float()
     if sample_weights is not None:
         w = sample_weights.float()[:, None]
         token_loss = token_loss * w
         valid_f = valid_f * w
-    count = valid_f.sum()
+    count = _count(valid_f.sum(), over_ranks)
     return token_loss.sum() / count.clamp_min(1e-9), count.to(torch.int32)
 
 
-def shifted_clm_loss(logits, labels, sample_weights=None):
+def shifted_clm_loss(logits, labels, sample_weights=None, over_ranks=False):
     """logits [B, T, V]; labels [B, T] with -100 at ignored positions."""
     logits = logits[:, :-1].float()
     labels = labels[:, 1:]
@@ -40,8 +53,9 @@ def shifted_clm_loss(logits, labels, sample_weights=None):
     token_ll = logprobs.gather(-1, safe[..., None])[..., 0]
     token_loss = torch.where(valid, -token_ll, 0.0)
     if sample_weights is None:
-        return token_loss.sum() / valid.sum().clamp_min(1), valid.sum().to(torch.int32)
-    return _reduce(token_loss, valid, sample_weights)
+        count = _count(valid.sum(), over_ranks)
+        return token_loss.sum() / count.clamp_min(1), count.to(torch.int32)
+    return _reduce(token_loss, valid, sample_weights, over_ranks)
 
 
 def _chunk_nll(h, table, safe, scale):
@@ -51,7 +65,8 @@ def _chunk_nll(h, table, safe, scale):
 
 
 def chunked_shifted_clm_loss(hidden, embed_table, labels, *, chunk_size: int = 128,
-                             logits_scale: float = 1.0, sample_weights=None):
+                             logits_scale: float = 1.0, sample_weights=None,
+                             over_ranks=False):
     """The same loss from hidden states [B, T, D] and the [V, D] head table, over
     ``chunk_size`` positions at a time; each chunk's logits are recomputed in the
     backward (``torch.utils.checkpoint``, as ``jax.checkpoint`` in the JAX package),
@@ -68,11 +83,11 @@ def chunked_shifted_clm_loss(hidden, embed_table, labels, *, chunk_size: int = 1
         nll.append(checkpoint(_chunk_nll, *args, use_reentrant=False)
                    if torch.is_grad_enabled() else _chunk_nll(*args))
     token_loss = torch.where(valid, torch.cat(nll, dim=1), 0.0)
-    return _reduce(token_loss, valid, sample_weights)
+    return _reduce(token_loss, valid, sample_weights, over_ranks)
 
 
 def fused_shifted_clm_loss(hidden, embed_table, labels, *, logits_scale: float = 1.0,
-                           sample_weights=None):
+                           sample_weights=None, over_ranks=False):
     """The same loss through the fused linear + CE kernels (``ops/fused_ce.py``): the
     [tokens, V] logits never exist. REQUIRES a frozen ``embed_table``: its gradient
     is zero by the kernels' contract."""
@@ -83,7 +98,24 @@ def fused_shifted_clm_loss(hidden, embed_table, labels, *, logits_scale: float =
     flat = hidden[:, :-1].reshape(b * (t - 1), d)
     nll = fused_clm_token_nll(flat, embed_table, safe.reshape(-1), logits_scale)
     token_loss = torch.where(valid, nll.reshape(b, t - 1), 0.0)
-    return _reduce(token_loss, valid, sample_weights)
+    return _reduce(token_loss, valid, sample_weights, over_ranks)
+
+
+def _pairwise_bce(image_features, text_features, logit_scale, logit_bias, offset=0):
+    """[rows, columns] binary cross entropy of the pairwise logits of L2-normalised
+    towers, ``img @ txt.T * exp(logit_scale)`` (+ bias), against the identity: row i's
+    positive is column ``offset + i``."""
+    img = image_features.float()
+    txt = text_features.float()
+    img = img / torch.linalg.vector_norm(img, dim=-1, keepdim=True)
+    txt = txt / torch.linalg.vector_norm(txt, dim=-1, keepdim=True)
+    logits = img @ txt.t() * torch.exp(logit_scale.float().reshape(()))
+    if logit_bias is not None:
+        logits = logits + logit_bias.float().reshape(())
+    rows = torch.arange(logits.shape[0], device=logits.device) + offset
+    labels = (torch.arange(logits.shape[1], device=logits.device)[None, :]
+              == rows[:, None]).float()
+    return logits.clamp_min(0.0) - logits * labels + torch.log1p(torch.exp(-logits.abs()))
 
 
 def siglip_pairwise_loss(image_features, text_features, logit_scale, logit_bias=None,
@@ -96,20 +128,33 @@ def siglip_pairwise_loss(image_features, text_features, logit_scale, logit_bias=
     rows and the columns of the pairwise matrix and divides by the number of real
     rows. (The reference's BCE against an identity matrix, not canonical SigLIP's
     +-1 log-sigmoid, replicated on purpose.)"""
-    img = image_features.float()
-    txt = text_features.float()
-    img = img / torch.linalg.vector_norm(img, dim=-1, keepdim=True)
-    txt = txt / torch.linalg.vector_norm(txt, dim=-1, keepdim=True)
-    logits = img @ txt.t() * torch.exp(logit_scale.float().reshape(()))
-    if logit_bias is not None:
-        logits = logits + logit_bias.float().reshape(())
-    n = logits.shape[0]
-    labels = torch.eye(n, dtype=torch.float32, device=logits.device)
-    per = logits.clamp_min(0.0) - logits * labels + torch.log1p(torch.exp(-logits.abs()))
+    per = _pairwise_bce(image_features, text_features, logit_scale, logit_bias)
     if sample_weight is None:
-        return per.sum() / n
+        return per.sum() / per.shape[0]
     w = sample_weight.float()
     return (per * (w[:, None] * w[None, :])).sum() / w.sum().clamp_min(1.0)
+
+
+def siglip_pairwise_loss_over_ranks(image_features, text_features, logit_scale,
+                                    logit_bias=None, sample_weight=None):
+    """``siglip_pairwise_loss`` with global negatives across the data-parallel world,
+    this rank's share of it: every rank's text features (and weights) are gathered,
+    the text features with their gradient (``all_gather_with_grad``); the rank scores
+    its own images' rows of the global pairwise matrix against all the texts and
+    divides by the global count. The shares add up to the loss over the whole batch,
+    and no rank computes the whole matrix. ``siglip_pairwise_loss`` in a single
+    process."""
+    if distributed.world_size() == 1:
+        return siglip_pairwise_loss(image_features, text_features, logit_scale, logit_bias,
+                                    sample_weight)
+    n = image_features.shape[0]
+    w = (torch.ones((n,), dtype=torch.float32, device=image_features.device)
+         if sample_weight is None else sample_weight.float())
+    per = _pairwise_bce(image_features, distributed.all_gather_with_grad(text_features),
+                        logit_scale, logit_bias, offset=distributed.rank() * n)
+    w_cols = distributed.all_gather(w)
+    return ((per * (w[:, None] * w_cols[None, :])).sum()
+            / distributed.sum_over_ranks(w.sum()).clamp_min(1.0))
 
 
 def _masked_logsumexp(x, mask, temperature):
@@ -124,7 +169,7 @@ def _masked_logsumexp(x, mask, temperature):
 
 
 def two_way_multilabel_loss(logits, targets, *, t_p: float = 4.0, t_n: float = 1.0,
-                            sample_weights=None):
+                            sample_weights=None, over_ranks=False):
     """Kobayashi CVPR'23 two-way multi-label loss (the reference's
     ``TwoWayMultiLabelLoss``, cls_evaluate/train_twoway_loss.py:166-286): a sample-wise
     term (over classes, per sample) and a class-wise term (over the batch, per class),
@@ -132,7 +177,16 @@ def two_way_multilabel_loss(logits, targets, *, t_p: float = 4.0, t_n: float = 1
     or column without positives or without negatives; (mean_sample + mean_class) / 2.
 
     ``sample_weights`` (0/1 a row) excludes a straggler batch's filler rows from both
-    directions and from the sample mean's count."""
+    directions and from the sample mean's count. The class-wise term runs over the
+    whole batch, so ``over_ranks`` gathers every rank's logits (with their gradient),
+    targets and weights and takes 1/world of the global loss."""
+    if over_ranks and distributed.world_size() > 1:
+        return two_way_multilabel_loss(
+            distributed.all_gather_with_grad(logits), distributed.all_gather(targets),
+            t_p=t_p, t_n=t_n,
+            sample_weights=(None if sample_weights is None
+                            else distributed.all_gather(sample_weights))
+        ) / distributed.world_size()
     logits = logits.float()
     pos, neg = targets == 1, targets == 0
     if sample_weights is not None:
@@ -154,13 +208,16 @@ def two_way_multilabel_loss(logits, targets, *, t_p: float = 4.0, t_n: float = 1
     return (sample_loss + class_loss) / 2.0
 
 
-def softmax_ce_loss(logits, target_indices, sample_weights=None):
+def softmax_ce_loss(logits, target_indices, sample_weights=None, over_ranks=False):
     """Single-label cross entropy over the class logits (the reference's
     ``nn.CrossEntropyLoss``, cls_evaluate/train_utils.py); ``sample_weights`` exclude
     a straggler batch's filler rows from the mean."""
     logprobs = torch.log_softmax(logits.float(), dim=-1)
     nll = -logprobs.gather(-1, target_indices.long()[:, None])[:, 0]
     if sample_weights is None:
-        return nll.mean()
+        if not over_ranks:
+            return nll.mean()
+        n = torch.tensor(float(nll.shape[0]), device=nll.device)
+        return nll.sum() / _count(n, over_ranks)
     w = sample_weights.float()
-    return (nll * w).sum() / w.sum().clamp_min(1e-9)
+    return (nll * w).sum() / _count(w.sum(), over_ranks).clamp_min(1e-9)

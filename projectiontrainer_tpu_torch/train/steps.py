@@ -9,6 +9,12 @@ only and applies the masked AdamW update, ``swap_optimizer`` rebuilds the optimi
 state at a freeze-mask swap keeping what survives, and ``make_eval_step`` runs the
 loss without gradients. Where JAX returns a new state, the port updates the params
 and optimizer state in place and returns the same dict.
+
+Data parallelism (``parallel/distributed.py``): each loss is this rank's share of the
+loss over the whole data-parallel batch (the losses' ``over_ranks``), so the train
+step sums the gradients over the ranks (span ``grad_allreduce``) right after the
+backward, before the optimizer, and the reported loss is the sum of the shares: the
+JAX package's global mean under its data mesh. In a single process nothing changes.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from projectiontrainer_tpu_torch.core.pytree import leaves_with_paths, unique_le
 from projectiontrainer_tpu_torch.models import classifier as cls_model
 from projectiontrainer_tpu_torch.models import decoder as dec
 from projectiontrainer_tpu_torch.models import siglip, vlm
+from projectiontrainer_tpu_torch.parallel import distributed
 from projectiontrainer_tpu_torch.train import losses
 from projectiontrainer_tpu_torch.train.optim import global_norm
 from projectiontrainer_tpu_torch.utils.timing import span
@@ -54,6 +61,9 @@ def make_train_step(loss_fn: Callable, tx, *, trainable_mask=None,
     leaf, while gradients still flow through frozen activations to the projector. A
     tensor held under two paths (the tied LM head) is one trainable leaf, under its
     first path: one gradient, the sum of both uses.
+    The gradients are summed over the data-parallel ranks before the update (the
+    accumulation and clipping of the optimizer see the global gradients, as optax does
+    under a data mesh) and the loss returned is the global one.
     ``aux['grad_norm']`` is the global norm of the raw gradients of the trainable
     leaves; ``watch_subtree`` (a top-level key such as ``'projector'``) adds that
     subtree's gradients, keyed by their paths inside it, as ``aux['watched_grads']``."""
@@ -71,6 +81,9 @@ def make_train_step(loss_fn: Callable, tx, *, trainable_mask=None,
         grads = torch.autograd.grad(loss, [x for _, x in train], allow_unused=True)
         grads = {p: torch.zeros_like(x) if g is None else g
                  for (p, x), g in zip(train, grads)}
+        with span("grad_allreduce"):
+            distributed.all_reduce_grads(list(grads.values()))
+            loss = distributed.sum_over_ranks(loss.detach())
         with span("optimizer"):
             tx.update(grads, state["opt_state"], params)
             state["step"] += 1
@@ -85,9 +98,12 @@ def make_train_step(loss_fn: Callable, tx, *, trainable_mask=None,
 
 
 def make_eval_step(loss_fn: Callable):
+    """step(params, batch) -> (loss, aux) without gradients; the loss summed over the
+    data-parallel ranks (every rank must run the same number of eval batches)."""
     def step(params, batch):
         with torch.no_grad():
-            return loss_fn(params, batch, None)
+            loss, aux = loss_fn(params, batch, None)
+            return distributed.sum_over_ranks(loss), aux
 
     return step
 
@@ -141,13 +157,13 @@ def _clm_loss_from_embeds(params, cfg: vlm.VLMConfig, embeds, mask, labels, *, r
         if logits_chunk and ce_impl == "fused":
             return losses.fused_shifted_clm_loss(
                 hidden, dec.lm_head_table(params["llm"], cfg.llm), labels,
-                sample_weights=sample_weights)
+                sample_weights=sample_weights, over_ranks=True)
         if logits_chunk:
             return losses.chunked_shifted_clm_loss(
                 hidden, dec.lm_head_table(params["llm"], cfg.llm), labels,
-                chunk_size=logits_chunk, sample_weights=sample_weights)
+                chunk_size=logits_chunk, sample_weights=sample_weights, over_ranks=True)
         return losses.shifted_clm_loss(dec.logits(params["llm"], cfg.llm, hidden), labels,
-                                       sample_weights=sample_weights)
+                                       sample_weights=sample_weights, over_ranks=True)
 
 
 def stage1_loss(cfg: vlm.VLMConfig, pad_token_id: int, *, remat=True,
@@ -248,11 +264,15 @@ def stage0_loss(cfg: siglip.SiglipConfig, *, remat=False, local_negatives_shards
 
     ``sample_weight`` (0 on a straggler batch's filler rows) times ``valid`` (0 on a
     missing image's placeholder) masks rows and columns of the pairwise matrix.
-    ``local_negatives_shards=N`` splits the batch into N groups with their own
-    negatives (the reference's per-rank loss under DDP) and averages the losses of
-    the groups that hold a real row. Pixels are cast to the vision tower's compute
-    type. The spans ``vision``, ``text`` (``forward_contrastive``) and ``loss`` split
-    a profiled step; a frozen text tower runs without autograd."""
+    ``local_negatives_shards=N`` splits the data-parallel batch into N groups with
+    their own negatives (the reference's per-rank loss under DDP; N a multiple of the
+    world size: each rank splits its rows into N / world groups) and averages the
+    losses of the groups that hold a real row, on every rank (a straggler batch can
+    leave a rank without one). N = 1 gives global negatives: every rank's images
+    against every rank's texts (``siglip_pairwise_loss_over_ranks``). Pixels are cast
+    to the vision tower's compute type. The spans ``vision``, ``text``
+    (``forward_contrastive``) and ``loss`` split a profiled step; a frozen text tower
+    runs without autograd."""
 
     def loss_fn(params, batch, rng=None):
         del rng
@@ -268,9 +288,12 @@ def stage0_loss(cfg: siglip.SiglipConfig, *, remat=False, local_negatives_shards
                 vf = valid.float()
                 w = vf if w is None else w.float() * vf
             if local_negatives_shards <= 1:
-                return losses.siglip_pairwise_loss(img, txt, scale[0], bias[0],
-                                                   sample_weight=w), {}
-            n = local_negatives_shards
+                return losses.siglip_pairwise_loss_over_ranks(img, txt, scale[0], bias[0],
+                                                              sample_weight=w), {}
+            if local_negatives_shards % distributed.world_size():
+                raise ValueError(f"local_negatives_shards={local_negatives_shards} is not a "
+                                 f"multiple of the world size {distributed.world_size()}")
+            n = local_negatives_shards // distributed.world_size()
             per = img.shape[0] // n
             w_s = (torch.ones((n, per), device=img.device) if w is None
                    else w.float().reshape(n, per))
@@ -280,9 +303,10 @@ def stage0_loss(cfg: siglip.SiglipConfig, *, remat=False, local_negatives_shards
                                             sample_weight=w_s[i])
                 for i in range(n)])
             # a straggler batch can leave whole shards without a real row (loss 0):
-            # average over the shards that have one
+            # average over the shards, of every rank, that have one
             nonempty = (w_s.sum(1) > 0).float()
-            return (shard * nonempty).sum() / nonempty.sum().clamp_min(1.0), {}
+            count = distributed.sum_over_ranks(nonempty.sum())
+            return (shard * nonempty).sum() / count.clamp_min(1.0), {}
 
     return loss_fn
 
@@ -297,7 +321,9 @@ def classifier_loss(cfg: cls_model.ClassifierConfig, *, multilabel: bool = False
     | 'targets' [B, C], 'sample_weight'?}. ``compute_dtype`` (bf16 from
     ``--mixed_precision``) casts the params inside the loss: fp32 masters, bf16
     compute. The step's ``rng`` (an int; the trainer passes the global step, as JAX's
-    ``key(global_step)``) seeds the head's dropout; None (evaluation) turns it off.
+    ``key(global_step)``) seeds the head's dropout, folded with the rank
+    (``distributed.rank_seed``: each rank's rows draw their own masks); None
+    (evaluation) turns it off.
     The tower runs with autograd only when one of its leaves requires grad."""
 
     def loss_fn(params, batch, rng=None):
@@ -306,16 +332,18 @@ def classifier_loss(cfg: cls_model.ClassifierConfig, *, multilabel: bool = False
         pixels = batch["pixel_values"]
         gen = None
         if rng is not None:
-            gen = torch.Generator(device=pixels.device).manual_seed(int(rng))
+            gen = torch.Generator(device=pixels.device).manual_seed(
+                distributed.rank_seed(int(rng)))
         logits = cls_model.forward(params, cfg, pixels, dropout_gen=gen)
         with span("loss"):
             w = batch.get("sample_weight")
             if multilabel:
                 loss = losses.two_way_multilabel_loss(logits, batch["targets"], t_p=t_p,
-                                                      t_n=t_n, sample_weights=w)
+                                                      t_n=t_n, sample_weights=w,
+                                                      over_ranks=True)
             else:
                 loss = losses.softmax_ce_loss(logits, batch["target_indices"],
-                                              sample_weights=w)
+                                              sample_weights=w, over_ranks=True)
         return loss, {"logits": logits}
 
     return loss_fn

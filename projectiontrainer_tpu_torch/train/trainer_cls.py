@@ -1,7 +1,9 @@
 """cls_evaluate trainer: the attention-probe classifier over the SigLIP tower.
 
 Counterpart of ``projectiontrainer_tpu/train/trainer_cls.py`` (reference:
-cls_evaluate/train_utils.py:261-398), on one device:
+cls_evaluate/train_utils.py:261-398), on each rank of the data-parallel world (one
+device alone; rank 0 logs and writes, fenced by barriers; the evaluation reads every
+rank's rows):
 
 - freeze modes {Freeze, Unfreeze, 1EpochUnfreeze} -> label trees
   (``masks.classifier_labels``); 1EpochUnfreeze trains the tower in epoch 0 only and
@@ -44,11 +46,11 @@ import torch
 from projectiontrainer_tpu_torch.checkpoint.manager import CheckpointManager
 from projectiontrainer_tpu_torch.core import dtypes
 from projectiontrainer_tpu_torch.core.config import ClsConfig
-from projectiontrainer_tpu_torch.core.pytree import unique_leaves_with_paths
-from projectiontrainer_tpu_torch.data.pipeline import process_index_count
+from projectiontrainer_tpu_torch.core.pytree import leaves_with_paths, unique_leaves_with_paths
 from projectiontrainer_tpu_torch.eval import metrics as M
 from projectiontrainer_tpu_torch.models import classifier as cls_model
 from projectiontrainer_tpu_torch.models import siglip
+from projectiontrainer_tpu_torch.parallel import distributed
 from projectiontrainer_tpu_torch.train import common, losses, masks, optim, steps
 from projectiontrainer_tpu_torch.utils.logging import MetricLogger
 from projectiontrainer_tpu_torch.utils.timing import StepProfiler, StepTimer
@@ -135,7 +137,7 @@ class ClsTrainer:
         self.timer = StepTimer()
         self.profiler = StepProfiler(cfg.profile_dir, start_step=cfg.profile_start_step,
                                      num_steps=cfg.profile_num_steps,
-                                     rank=process_index_count()[0])
+                                     rank=distributed.rank())
 
         self.compute_dtype = dtypes.compute_dtype(cfg.mixed_precision)
         loss_fn = steps.classifier_loss(self.model_cfg, multilabel=cfg.multilabel_two_way,
@@ -144,8 +146,10 @@ class ClsTrainer:
         variants = ((False, True) if cfg.freeze_mode == "1EpochUnfreeze"
                     else (cfg.freeze_mode == "Freeze",))
         self._steps = {}
+        trained = set()
         for frozen in variants:
             labels = masks.classifier_labels(params, freeze_vision=frozen)
+            trained |= {p for p, on in leaves_with_paths(masks.bool_mask(labels)) if on}
             tx, schedule = optim.discriminative_optimizer(
                 labels, head_lr=cfg.lr, backbone_lr=cfg.bb_lr, weight_decay=cfg.weight_decay,
                 accum_steps=cfg.gradient_accumulation_steps)
@@ -162,8 +166,9 @@ class ClsTrainer:
         self.start_epoch = 0
         if cfg.resume:
             self.resume_latest()
+        common.sync_replicas(self.state["params"], trained)
         self.results_tsv = os.path.join(self.exp_dir, "results.tsv")
-        if process_index_count()[0] == 0 and not os.path.exists(self.results_tsv):
+        if distributed.is_main() and not os.path.exists(self.results_tsv):
             with open(self.results_tsv, "w") as f:
                 f.write(RESULTS_HEADER)
 
@@ -253,7 +258,7 @@ class ClsTrainer:
                  "epoch": epoch, "tower_frozen": float(frozen),
                  **{f"epoch/{k}": v for k, v in throughput.items()}},
                 step=self.global_step)
-            if process_index_count()[0] == 0:
+            if distributed.is_main():
                 with open(self.results_tsv, "a") as f:
                     f.write(f"{epoch}\t{train_loss:.6f}\t{val_loss:.6f}\t{val_acc:.6f}\t"
                             f"{val_auc:.6f}\n")
@@ -276,5 +281,7 @@ class ClsTrainer:
             all_logits.append(classifier_logits(self.state["params"], self.model_cfg,
                                                 batch["pixel_values"], self.compute_dtype)[keep])
             all_targets.append(common.to_host(batch[target_key])[keep])
-        return classification_metrics(np.concatenate(all_logits), np.concatenate(all_targets),
-                                      multilabel=self.cfg.multilabel_two_way)
+        return classification_metrics(
+            common.gather_rows(np.concatenate(all_logits)),
+            common.gather_rows(np.concatenate(all_targets)),
+            multilabel=self.cfg.multilabel_two_way)

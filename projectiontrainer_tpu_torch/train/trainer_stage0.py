@@ -1,14 +1,19 @@
 """Stage 0 trainer: SigLIP contrastive fine-tuning with zero-shot validation.
 
 Counterpart of ``projectiontrainer_tpu/train/trainer_stage0.py`` (reference:
-Stage0/train_vision_encoder_stage0.py:451-842), on one device:
+Stage0/train_vision_encoder_stage0.py:451-842), on each rank of the data-parallel
+world (one device alone; rank 0 logs and writes, fenced by barriers):
 
 - the sigmoid pairwise loss over the dual tower, with the text tower, ``logit_scale``
   and the first vision layers frozen (``masks.stage0_labels``); AdamW with the cosine
   schedule whose warmup rounds DOWN (``int(ratio * steps)``, Stage0:598), no clipping;
   no remat (the reference checkpoints activations in stages 1/2 only);
+- ``--local_negatives`` (the default): each rank's pairwise loss over its own rows,
+  averaged over the ranks that hold a real row; ``--no-local_negatives``: global
+  negatives, every rank's images against every rank's texts;
 - per-epoch zero-shot validation: the class names tokenised once, argmax over
-  ``logits_per_image``, accuracy and macro precision / recall / F1;
+  ``logits_per_image``, accuracy and macro precision / recall / F1 over every rank's
+  rows;
 - checkpoints: best by accuracy, periodic ones gated by ``save_every_n_epochs`` and
   ``min_save_epoch``, final; each best or periodic one also exported as an HF snapshot
   (``best_model/``, ``epoch_{N+1}/``), what the downstream stages load;
@@ -33,8 +38,8 @@ from projectiontrainer_tpu_torch.checkpoint import export
 from projectiontrainer_tpu_torch.checkpoint.manager import CheckpointManager
 from projectiontrainer_tpu_torch.core import dtypes
 from projectiontrainer_tpu_torch.core.config import Stage0Config
-from projectiontrainer_tpu_torch.data.pipeline import process_index_count
 from projectiontrainer_tpu_torch.models import siglip
+from projectiontrainer_tpu_torch.parallel import distributed
 from projectiontrainer_tpu_torch.train import common, masks, optim, steps
 from projectiontrainer_tpu_torch.utils.logging import MetricLogger
 from projectiontrainer_tpu_torch.utils.timing import StepProfiler, StepTimer
@@ -75,7 +80,7 @@ class Stage0Trainer:
         self.timer = StepTimer()
         self.profiler = StepProfiler(cfg.profile_dir, start_step=cfg.profile_start_step,
                                      num_steps=cfg.profile_num_steps,
-                                     rank=process_index_count()[0])
+                                     rank=distributed.rank())
 
         self.max_train_steps = common.update_steps(
             len(train_dataset), common.global_batch_size(cfg), cfg.gradient_accumulation_steps,
@@ -90,9 +95,11 @@ class Stage0Trainer:
             warmup_ratio=cfg.warmup_ratio, weight_decay=cfg.weight_decay,
             accum_steps=cfg.gradient_accumulation_steps, warmup_rounding="floor")
         self.compute_dtype = dtypes.compute_dtype(cfg.mixed_precision)
-        # one process: the per-shard negatives of --local_negatives are the whole batch
+        # --local_negatives: one group of negatives a rank (the JAX package's data-axis
+        # shards); else one group over the whole batch
+        shards = distributed.world_size() if cfg.local_negatives else 1
         self.train_step = steps.make_train_step(
-            steps.stage0_loss(model_cfg, remat=False, local_negatives_shards=1,
+            steps.stage0_loss(model_cfg, remat=False, local_negatives_shards=shards,
                               compute_dtype=self.compute_dtype),
             self.tx, trainable_mask=masks.bool_mask(labels))
         self.state = steps.init_state(params, self.tx)
@@ -104,6 +111,7 @@ class Stage0Trainer:
         self.start_epoch = 0
         if cfg.resume:
             self.resume_latest()
+        common.sync_replicas(self.state["params"], set(self.state["opt_state"]["mu"]))
 
     def resume_latest(self) -> int:
         """Restore the trainable params, optimizer state and step from the newest epoch
@@ -195,8 +203,10 @@ class Stage0Trainer:
                                               params["logit_bias"])
             preds.append(common.to_host(logits.argmax(-1))[keep])
             targets.append(common.to_host(batch["class_idx"])[keep])
-        preds = np.concatenate(preds) if preds else np.zeros((0,), np.int64)
-        targets = np.concatenate(targets) if targets else np.zeros((0,), np.int64)
+        preds = common.gather_rows(
+            np.concatenate(preds) if preds else np.zeros((0,), np.int64))
+        targets = common.gather_rows(
+            np.concatenate(targets) if targets else np.zeros((0,), np.int64))
         out = zero_shot_prf(preds, targets) if len(preds) else {"accuracy": 0.0}
         self.logger.log({f"zero_shot/{k}": v for k, v in out.items()} | {"epoch": epoch},
                         step=self.global_step)
@@ -207,8 +217,8 @@ class Stage0Trainer:
     def _export_hf(self, tag: str):
         """HF snapshot under output_dir/<tag>, what the reference's downstream stages
         load with ``from_pretrained`` (Stage0:800-835)."""
-        if process_index_count()[0] != 0:
-            return
-        src = self.cfg.model_name if os.path.isdir(self.cfg.model_name or "") else None
-        export.save_siglip_hf(self.state["params"], self.model_cfg,
-                              os.path.join(self.cfg.output_dir, tag), src_dir=src)
+        if distributed.is_main():
+            src = self.cfg.model_name if os.path.isdir(self.cfg.model_name or "") else None
+            export.save_siglip_hf(self.state["params"], self.model_cfg,
+                                  os.path.join(self.cfg.output_dir, tag), src_dir=src)
+        distributed.barrier()

@@ -4,9 +4,11 @@ Counterpart of ``projectiontrainer_tpu/train/trainer_stage1.py`` (reference:
 Stage1/projector_trainer.py:18-521):
 
 - one train step (projector-only mask, AdamW + cosine + clip 5.0, gradient
-  accumulation) on one device;
+  accumulation) on each rank of the data-parallel world (one device alone), the
+  projector broadcast from rank 0 once built or restored;
 - per-epoch validation: loss, plus greedy captions generated from the visual tokens
-  alone and their last-word accuracy (reference :291-448);
+  alone and their last-word accuracy (reference :291-448), over every rank's rows;
+- rank 0 logs and writes the checkpoints and exports, fenced by barriers;
 - exports: reference-format ``projector_{best|epoch_N|final}.bin`` plus
   ``projector_config.json``, and ``torch.save`` train state for ``--resume`` (its
   metadata names the ``--quant_method`` of an ``--enable_qlora`` run, whose frozen
@@ -31,9 +33,9 @@ from projectiontrainer_tpu_torch.checkpoint import export
 from projectiontrainer_tpu_torch.checkpoint.manager import CheckpointManager
 from projectiontrainer_tpu_torch.core import dtypes
 from projectiontrainer_tpu_torch.core.config import Stage1Config
-from projectiontrainer_tpu_torch.data.pipeline import process_index_count
 from projectiontrainer_tpu_torch.generate import GenerationConfig, generate
 from projectiontrainer_tpu_torch.models import vlm
+from projectiontrainer_tpu_torch.parallel import distributed
 from projectiontrainer_tpu_torch.train import common, masks, optim, steps
 from projectiontrainer_tpu_torch.utils.logging import MetricLogger
 from projectiontrainer_tpu_torch.utils.timing import StepProfiler, StepTimer
@@ -54,7 +56,7 @@ class Stage1Trainer:
         self.timer = StepTimer()
         self.profiler = StepProfiler(cfg.profile_dir, start_step=cfg.profile_start_step,
                                      num_steps=cfg.profile_num_steps,
-                                     rank=process_index_count()[0])
+                                     rank=distributed.rank())
 
         gbs = common.global_batch_size(cfg)
         self.max_train_steps = common.update_steps(
@@ -87,6 +89,7 @@ class Stage1Trainer:
         self._skip_batches = 0
         if cfg.resume:
             self.resume_latest()
+        common.sync_replicas(self.state["params"], set(self.state["opt_state"]["mu"]))
 
     def resume_latest(self) -> int:
         """Restore trainable params, optimizer state and step from the newest epoch
@@ -177,22 +180,25 @@ class Stage1Trainer:
     # ------------------------------------------------------------------ eval
 
     def evaluate(self, epoch: int, *, max_generate_batches: int = 2) -> dict:
+        """The validation loss of each global batch (every rank's rows), and the
+        captions of the first ``max_generate_batches`` batches of every rank."""
         cfg = self.cfg
-        losses, generated, targets = [], [], []
+        losses, pairs = [], []
         for n, batch in enumerate(common.feed(self.val_dataset, cfg, epoch=0, shuffle=False)):
             loss, _ = self.eval_step(self.state["params"], batch)
             losses.append(float(loss))
             if n < max_generate_batches:
                 keep = common.real_rows(batch)  # skip straggler filler rows
-                generated += [g for g, k in zip(self._generate_captions(batch), keep) if k]
-                targets += [
-                    self.tokenizer.decode([t for t in ids if t != self.pad_id],
-                                          skip_special_tokens=True)
-                    for ids, k in zip(common.to_host(batch["caption_ids"]), keep) if k
-                ]
+                targets = [self.tokenizer.decode([t for t in ids if t != self.pad_id],
+                                                 skip_special_tokens=True)
+                           for ids in common.to_host(batch["caption_ids"])]
+                pairs += [(g, t) for g, t, k in
+                          zip(self._generate_captions(batch), targets, keep) if k]
+        pairs = distributed.gather_objects(pairs)
         out = {"val/loss": float(np.mean(losses)) if losses else float("nan")}
-        if generated:
-            out["validation/last_word_accuracy"] = M.last_word_accuracy(generated, targets)
+        if pairs:
+            out["validation/last_word_accuracy"] = M.last_word_accuracy(
+                [g for g, _ in pairs], [t for _, t in pairs])
         self.logger.log({**out, "epoch": epoch}, step=self.global_step)
         return out
 
@@ -215,7 +221,7 @@ class Stage1Trainer:
                 "quant_method": self.cfg.quant_method if self.cfg.enable_qlora else None}
 
     def _export_projector(self, tag: str):
-        if process_index_count()[0] != 0:
-            return
-        export.save_projector(self.state["params"]["projector"], self.vlm_cfg.projector,
-                              self.cfg.output_dir, tag=tag)
+        if distributed.is_main():
+            export.save_projector(self.state["params"]["projector"], self.vlm_cfg.projector,
+                                  self.cfg.output_dir, tag=tag)
+        distributed.barrier()

@@ -3,7 +3,9 @@ a quantized base), the projector and, under ``--train_ve_first_epoch``, the visi
 tower in epoch 0.
 
 Counterpart of ``projectiontrainer_tpu/train/trainer_stage2.py`` (reference:
-Stage2/trainer.py:63-769) on one device:
+Stage2/trainer.py:63-769) on each rank of the data-parallel world (one device alone;
+every leaf that trains broadcast from rank 0 once built or restored; rank 0 logs and
+writes, fenced by barriers):
 
 - the full-joint trainables are stored in ``--master_dtype`` (fp32 masters by
   default, bf16 compute from ``--mixed_precision``);
@@ -51,6 +53,7 @@ from projectiontrainer_tpu_torch.data import bucketing
 from projectiontrainer_tpu_torch.data import pipeline as pipe
 from projectiontrainer_tpu_torch.generate import GenerationConfig, generate
 from projectiontrainer_tpu_torch.models import vlm
+from projectiontrainer_tpu_torch.parallel import distributed
 from projectiontrainer_tpu_torch.train import common, lora as lora_mod, masks, optim, steps
 from projectiontrainer_tpu_torch.utils.logging import MetricLogger
 from projectiontrainer_tpu_torch.utils.timing import StepProfiler, StepTimer
@@ -87,7 +90,7 @@ class Stage2Trainer:
         self.timer = StepTimer()
         self.profiler = StepProfiler(cfg.profile_dir, start_step=cfg.profile_start_step,
                                      num_steps=cfg.profile_num_steps,
-                                     rank=pipe.process_index_count()[0])
+                                     rank=distributed.rank())
         self.pad_id = tokenizer.pad_token_id if tokenizer.pad_token_id is not None else 0
 
         self.lora_cfg = None
@@ -168,6 +171,7 @@ class Stage2Trainer:
         self._skip_batches = 0
         if cfg.resume:
             self.resume_latest()
+        common.sync_replicas(self.state["params"], trained)
 
     # ------------------------------------------------------------------ resume
 
@@ -301,7 +305,9 @@ class Stage2Trainer:
                 gen_params = None  # free the dense merge for the remaining batches
         out = {"val/loss": float(np.mean(losses)) if losses else float("nan")}
         self.logger.log({**out, "epoch": epoch}, step=self.global_step)
-        if examples and pipe.process_index_count()[0] == 0:
+        # every rank's examples (the reference's gather_object, Stage2/trainer.py:654)
+        examples = distributed.gather_objects(examples)
+        if examples and distributed.is_main():
             ex_dir = os.path.join(cfg.output_dir, "validation_examples")
             os.makedirs(ex_dir, exist_ok=True)
             with open(os.path.join(ex_dir, f"epoch_{epoch}_examples.txt"), "w") as f:
@@ -371,13 +377,13 @@ class Stage2Trainer:
 
     def save_checkpoint(self, epoch: int):
         self.ckpt.save_periodic(epoch, self.state, self._meta(epoch))
-        if pipe.process_index_count()[0] != 0:
-            return
-        params = self.state["params"]
-        export.save_stage2_checkpoint(
-            self.cfg.output_dir, epoch, projector_params=params["projector"],
-            projector_cfg=self.vlm_cfg.projector,
-            llm_params=params["llm"] if self.base_policy.train_llm else None,
-            lora_params=params.get("lora"), lora_cfg=self.lora_cfg,
-            base_model_name=self.cfg.llm_name or None,
-            metadata={**self._meta(epoch), "config": self.cfg.to_json()})
+        if distributed.is_main():
+            params = self.state["params"]
+            export.save_stage2_checkpoint(
+                self.cfg.output_dir, epoch, projector_params=params["projector"],
+                projector_cfg=self.vlm_cfg.projector,
+                llm_params=params["llm"] if self.base_policy.train_llm else None,
+                lora_params=params.get("lora"), lora_cfg=self.lora_cfg,
+                base_model_name=self.cfg.llm_name or None,
+                metadata={**self._meta(epoch), "config": self.cfg.to_json()})
+        distributed.barrier()

@@ -4,8 +4,8 @@ Counterpart of ``projectiontrainer_tpu/utils/logging.py`` (``setup_logging``,
 ``MetricLogger``). Metric names match the reference (train/batch_loss,
 train/epoch_loss, learning_rate, val/loss, ...); every metric is also appended to
 ``metrics.jsonl`` in the output directory. W&B attaches only if the package is
-importable and not disabled. The rank is the ``RANK`` environment variable torchrun
-sets; a single process is rank 0.
+importable and not disabled. Only rank 0 writes: the rank is the process group's once
+one is joined, before that the ``RANK`` a launcher sets; a single process is rank 0.
 """
 
 from __future__ import annotations
@@ -18,6 +18,10 @@ from typing import Mapping, Optional
 
 
 def rank() -> int:
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
     return int(os.environ.get("RANK", "0"))
 
 

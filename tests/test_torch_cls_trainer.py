@@ -313,13 +313,26 @@ def test_balanced_sample_matches_jax_cli(tmp_path, labels, size, seed):
 
 
 # --num_loader_procs runs since the feeder port, on threads here
-# (test_cli_num_loader_procs_falls_back_to_threads below); -1 (every device) is refused
-# where more than one GPU is visible
-@pytest.mark.parametrize("flag", [["--mesh_data", "2"], ["--fsdp"],
-                                  ["--mesh_data", "-1", "--device", "cuda"]])
+# (test_cli_num_loader_procs_falls_back_to_threads below), --mesh_data since the
+# data-parallel port (below); the model axis and --fsdp are refused
+@pytest.mark.parametrize("flag", [["--fsdp"], ["--mesh_model", "2"]])
 def test_cli_refuses_what_is_not_ported(snapshot, tmp_path, monkeypatch, flag):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     with pytest.raises(NotImplementedError, match="not ported"):
+        cls_train.main(_train_argv(snapshot, str(tmp_path / "x"), *flag))
+
+
+# --mesh_data resolves over the world of processes (core/mesh.py): one process that no
+# launcher started is a world of one, and -1 with several GPUs visible needs a process
+# for each; under the launcher it trains data parallel (tests/test_torch_launch.py,
+# tests/test_torch_dp.py)
+@pytest.mark.parametrize("flag,match", [
+    (["--mesh_data", "2"], "projectiontrainer-torch-launch"),
+    (["--mesh_data", "-1", "--device", "cuda"], "projectiontrainer-torch-launch"),
+    (["--mesh_model", "-1"], "at most one mesh axis may be -1")])
+def test_cli_mesh_data_resolves_over_the_world(snapshot, tmp_path, monkeypatch, flag, match):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(ValueError, match=match):
         cls_train.main(_train_argv(snapshot, str(tmp_path / "x"), *flag))
 
 

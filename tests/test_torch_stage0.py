@@ -322,13 +322,28 @@ def test_cli_trains_exports_and_resumes(snapshot, tmp_path):
 
 
 # --num_loader_procs runs since the feeder port (test_cli_trains_on_the_process_feeder
-# below); -1 (every device) is refused where more than one GPU is visible
-@pytest.mark.parametrize("flag", [["--mesh_data", "2"], ["--mesh_model", "2"], ["--fsdp"],
-                                  ["--mesh_data", "-1", "--device", "cuda"],
-                                  ["--mesh_model", "-1", "--device", "cuda"]])
+# below), --mesh_data since the data-parallel port (below); the model axis and --fsdp
+# are refused
+@pytest.mark.parametrize("flag", [["--mesh_model", "2"], ["--fsdp"],
+                                  ["--mesh_data", "1", "--mesh_model", "2"],
+                                  ["--mesh_data", "-1", "--fsdp"]])
 def test_cli_refuses_what_is_not_ported(snapshot, tmp_path, monkeypatch, flag):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     with pytest.raises(NotImplementedError, match="not ported"):
+        train_stage0.main(_argv(snapshot, str(tmp_path / "x"), *flag))
+
+
+# --mesh_data resolves over the world of processes (core/mesh.py): one process that no
+# launcher started is a world of one, and -1 with several GPUs visible needs a process
+# for each; under the launcher it trains data parallel (tests/test_torch_launch.py,
+# tests/test_torch_dp.py)
+@pytest.mark.parametrize("flag,match", [
+    (["--mesh_data", "2"], "projectiontrainer-torch-launch"),
+    (["--mesh_data", "-1", "--device", "cuda"], "projectiontrainer-torch-launch"),
+    (["--mesh_model", "-1"], "at most one mesh axis may be -1")])
+def test_cli_mesh_data_resolves_over_the_world(snapshot, tmp_path, monkeypatch, flag, match):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(ValueError, match=match):
         train_stage0.main(_argv(snapshot, str(tmp_path / "x"), *flag))
 
 
