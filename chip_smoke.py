@@ -37,6 +37,12 @@ Phases, each printing one JSON line; any failure raises, so the exit code is not
    (575 visual + 256 question + 1024 answer tokens, causal, each row's question and
    answer right-padded), K3 at head dim 128 with GQA 32/8 (batch 8 and 1, 3 beams,
    P = 831, G = 32, no window), K6/K7 at [4096,4096] x [151936,4096].
+   Tensor parallelism's per-rank shapes (phase 21, 2 model ranks): K1/K4/K5 on a rank's
+   heads, Qwen3's [2,1855,16|4,128] (causal, padded questions and answers) and
+   Gemma3's [4,1087,2|1,256] (window 512, the one KV head replicated); K6/K7 on a rank's
+   vocab slice with about half the supervised labels -1 (outside the slice: no column
+   matches, the nll is the lse), Qwen3's [2048,4096] x [75968,4096] and Gemma3's
+   [2048,1152] x [131072,1152]; K3 on a rank's 16|4 heads of 128.
    The CE's table is scaled for a peaked softmax and its upstream gradient differs
    per row, so a kernel that loses a vocab split or a row's weight fails. Device
    times of kernel and plain (CUDA events around 10 launches queued behind a spinning
@@ -103,7 +109,10 @@ Phases, each printing one JSON line; any failure raises, so the exit code is not
    path against the plain path: loss within 1e-3 relative, cosine >= 0.999 per leaf,
    the key-projection biases by their noise (at most 3x plain's), and the decoder's q/k
    RMSNorm scales, whose bf16 gradient is mostly rounding at random weights, by their
-   distance to the plain path's fp32 gradient: at most 1.5x plain bf16's.
+   distance to the plain path's fp32 gradient: at most 1.5x plain bf16's. Then (b) the
+   same micro-step on the kernel path under --remat dots against --remat full: the loss
+   bit-equal, every gradient leaf at cosine >= 0.99999; peak memory above the model and
+   ms of the micro-step for each.
 11. stage-2 QLoRA train: phase 10's model is freed; the full-width ViT-L/16-384 +
    projector 1024 -> 10240 -> 4096 + Qwen3-8B (36 layers, hidden 4096, 32/8 heads of
    128, vocab 151,936, untied head) from seeded random weights, the decoder built and
@@ -232,11 +241,32 @@ Phases, each printing one JSON line; any failure raises, so the exit code is not
    from the seed, over 64 + 16 JPEG files, 2 ranks x 8 rows, 4 steps: every loss
    finite and the same on every rank, the trained leaves bit-equal across the ranks,
    K1/K2/K4/K5/K8 launched on every rank. A rank that fails fails the phase.
+21. tensor parallel: (a) the world, as in phase 20: 2 model ranks share one card over
+   gloo (said so: a sharing figure, not a scaling one), one NCCL rank a card on 2 cards
+   or more; where the card admits one process the phase prints that it did not run and
+   why, and reports no pass. (b) ``cli/launch.py`` runs ``cli/train_stage2.main``
+   (``--entry chip_smoke:tp_stage2_rank``) at --mesh_data 1 --mesh_model 2 with phase
+   11's model and recipe: each rank builds each whole layer from the seed, quantizes it
+   and keeps its slice (the shards of phase 11's model), LoRA B drawn at std 0.02;
+   batch 2, accumulation 2, 4 micro-steps up to 1855 tokens, validation on 2 samples
+   (3 beams, 16 new tokens), step 2 profiled. The ranks log bit-equal losses, every
+   replicated trained leaf is bit-equal across them after training, the gathered PEFT
+   adapter loads in this process whole, K1-K7 launch on every rank; then this process
+   runs the 1-process trainer's first micro-step on the same samples: the loss within
+   1e-3 relative, each gathered LoRA gradient at cosine >= 0.999, or, below that, at
+   >= 0.99 with its group (every A, every B) at >= 0.999. Per rank: images/s, the host
+   time of the model-axis all-reduces and their kernel time in rank 0's trace, and the
+   collectives of a micro-step (forward, backward, recompute and the partial-gradient
+   sum apart). (c) ``cli/train_stage1.main`` at phase 5's Gemma3-1B width with
+   --mesh_model 2 (one KV head, replicated; the vocab-parallel K6/K7 over the tied
+   table), 4 steps at batch 4, validation on 4: the same checks against the 1-process
+   step, projector_final.bin written whole.
 
 The second-to-last line is {"kernels": [...]} (name, route, source, replaces, launches
 on the main path, launches_by_path (serve, train, stage0, stage0_files, stage2,
 stage2_qlora, serve_qwen3_adapter, cls, caption_llama, generation_eval, zero_shot,
-tsne, stage1_dp_rank0, stage0_dp_rank0), max_abs_err, ms, plain_ms, bound_ms, bound_by,
+tsne, stage1_dp_rank0, stage0_dp_rank0, stage2_qlora_tp_rank0, stage1_tp_rank0), max_abs_err,
+ms, plain_ms, bound_ms, bound_by,
 library_ms, and the launches of one epoch-0 stage-2 micro-step at the longest bucket,
 phase 9's); the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -270,6 +300,7 @@ KEY_BIAS_NOISE = 3.0  # stage-0 end to end: key-bias gradient (zero if exact) vs
 ROUNDING_LEAVES = ("attn/q_norm/scale", "attn/k_norm/scale")
 ROUNDING_GAP = 1.5
 NEAR_COS_GAP = 1e-3   # attention gradients on nearly alike tokens: cosine vs plain bf16's
+DOTS_COS = 0.99999    # remat dots against full remat: each gradient leaf's cosine
 READINGS = {}    # check name -> its reading: max abs err, or err / max|ref| (compare_rel)
 SEED = 0
 MAX_NEW_TOKENS = 32  # the reference serving config decodes up to 1024; cut for run time
@@ -652,6 +683,7 @@ def phase_kernels():
     check_qwen3_kernels(rng, record)
     check_cls_kernels(rng, record)
     check_llama_kernels(rng, record)
+    check_tp_kernels(rng, record)
     emit({"phase": 2, "readings": READINGS})
     return results
 
@@ -884,6 +916,41 @@ def check_qwen3_kernels(rng, record):
         check_decode(rng, record, bb, 3, 575 + 256, 32, (31,), hq=32, hkv=8, d=128,
                      windows=(None,), label="Qwen3 ")
     check_fused_ce(rng, record, n=4 * 1024, vocab=151_936, d=4096, label="Qwen3 ")
+
+
+def check_tp_kernels(rng, record):
+    """The per-rank shapes of tensor parallelism over 2 model ranks (phase 21): K1/K4/K5
+    on a rank's heads of Qwen3-8B ([2,1855,16|4,128], causal, padded questions and
+    answers: phase 21's batch of 2) and of Gemma3-1B ([4,1087,2|1,256], window 512, the
+    one KV head replicated: stage 1 at batch 4), K6/K7 on a rank's vocab slice with
+    about half the labels -1 (Qwen3's [2048,4096] x [75968,4096]; Gemma3's [2048,1152] x
+    [131072,1152]) and K3 on a rank's 16|4 heads of 128 (phase 21's validation, 3 beams);
+    record(kernel, case, err, ms, plain_ms, bound, library_ms, library)."""
+    import torch
+
+    b, t = 2, 575 + 256 + 1024
+    mask = torch.zeros((b, t), dtype=torch.int32, device="cuda")
+    q_lens, a_lens = rng.integers(8, 257, size=b), rng.integers(32, 1025, size=b)
+    q_lens[0], a_lens[0] = 256, 1024
+    for i in range(b):
+        mask[i, :575 + q_lens[i]] = 1
+        mask[i, 575 + 256:575 + 256 + a_lens[i]] = 1
+    check_attention_layer(
+        rng, record, "TP rank: Qwen3 decoder [2,1855,16|4,128] causal, padded questions and "
+        "answers", b, t, 16, 4, 128, mask, scale=128 ** -0.5, causal=True, window=None)
+    b, t = 4, 1087
+    mask = torch.ones((b, t), dtype=torch.int32, device="cuda")
+    for i, n in enumerate(rng.integers(16, 513, size=b)):
+        mask[i, 575 + n:] = 0
+    check_attention_layer(
+        rng, record, "TP rank: Gemma3 decoder [4,1087,2|1,256] causal window=512, right-padded "
+        "captions", b, t, 2, 1, 256, mask, scale=256 ** -0.5, causal=True, window=512)
+    check_fused_ce(rng, record, n=2048, vocab=151_936 // 2, d=4096, label="TP rank: Qwen3 ",
+                   out_of_slice=0.5)
+    check_fused_ce(rng, record, n=2048, vocab=262_144 // 2, d=1152, label="TP rank: Gemma3 ",
+                   out_of_slice=0.5)
+    check_decode(rng, record, 2, 3, 575 + 256, 16, (15,), hq=16, hkv=4, d=128,
+                 windows=(None,), label="TP rank: Qwen3 ")
 
 
 def check_cls_kernels(rng, record):
@@ -1170,11 +1237,14 @@ def check_nearly_alike_tokens(rng):
                                  f"bf16 {b:.5f}")
 
 
-def check_fused_ce(rng, record, n=2048, vocab=262_144, d=1152, label=""):
+def check_fused_ce(rng, record, n=2048, vocab=262_144, d=1152, label="", out_of_slice=0.0):
     """K6/K7 against their plain versions and beside the library call (F.linear +
     F.cross_entropy on bf16 logits, and its autograd backward to the hidden states);
     record(kernel, case, err, ms, plain_ms, bound, library_ms, library). The default
-    shape is stage 1's: 4 x 512 caption positions at Gemma3's vocab."""
+    shape is stage 1's: 4 x 512 caption positions at Gemma3's vocab. ``out_of_slice``:
+    the share of labels that are -1, as a model rank's vocab slice sees the labels of
+    the other ranks' slices under tensor parallelism (no column matches; the library
+    call ignores them, ``ignore_index=-1``)."""
     import torch
     import torch.nn.functional as F
 
@@ -1191,30 +1261,39 @@ def check_fused_ce(rng, record, n=2048, vocab=262_144, d=1152, label=""):
     labels = rng.integers(0, vocab, size=n)
     ignored = rng.random(n) < 0.25
     valid = torch.tensor(~ignored, device="cuda")
-    safe = torch.tensor(np.where(ignored, 0, labels), dtype=torch.int32, device="cuda")
+    outside = ~ignored & (rng.random(n) < out_of_slice)
+    safe = torch.tensor(np.where(ignored, 0, np.where(outside, -1, labels)), dtype=torch.int32,
+                        device="cuda")
     g = np.where(ignored, 0.0, rng.uniform(0.5, 1.5, size=n) / (~ignored).sum())
     g = torch.tensor(g, dtype=torch.float32, device="cuda").to(torch.bfloat16).float()
     case = f"{label}[{n},{d}] x [{vocab},{d}] scale {scale:.3g}, 25% ignored, g per row"
+    if out_of_slice:
+        case += (f", {outside.sum() / (~ignored).sum():.0%} of the supervised labels -1 "
+                 "(outside the rank's slice)")
     lse, nll = CE.fused_ce_fwd(h, table, safe)
     rlse, rnll = CE.fused_ce_reference(h.float(), table.float(), safe)
     err = max(compare(f"{label}fused ce lse", lse, rlse, atol=CE_ATOL, rtol=0),
               compare(f"{label}fused ce nll", nll[valid], rnll[valid], atol=CE_ATOL, rtol=0))
+    if out_of_slice and not torch.equal(nll[safe < 0], lse[safe < 0]):
+        raise AssertionError(f"{label}fused ce: a -1 label picked a column")
     long_labels = safe.long()
     record("fused_ce_fwd", case, err, cuda_ms(lambda: CE.fused_ce_fwd(h, table, safe)),
            cuda_ms(lambda: CE.fused_ce_reference(h, table, safe)), bound_fused_ce_fwd(n, vocab, d),
-           cuda_ms(lambda: F.cross_entropy(F.linear(h, table), long_labels, reduction="none")),
+           cuda_ms(lambda: F.cross_entropy(F.linear(h, table), long_labels, reduction="none",
+                                           ignore_index=-1)),
            "F.linear + F.cross_entropy(reduction='none'), bf16 logits")
     dh = CE.fused_ce_bwd(h, table, safe, lse, g)
     rdh = CE.fused_ce_bwd_reference(h.float(), table.float(), safe, rlse, g)
     # the softmax part g * sum_v p_v W_v on its own: the one-hot term -g * W[label]
     # is exact in both, and would otherwise set the bound's scale
-    onehot = g[:, None] * table[safe.long()].float()
+    onehot = (g * (safe >= 0))[:, None] * table[safe.long().clamp(min=0)].float()
     err = max(compare_rel(f"{label}fused ce dh", dh, rdh),
               compare_rel(f"{label}fused ce dh softmax part", dh + onehot, rdh + onehot))
     if bool(dh[~valid].ne(0).any()):
         raise AssertionError(f"{label}fused ce dh: an ignored position got a gradient")
     hg = h.detach().requires_grad_(True)
-    lib_nll = F.cross_entropy(F.linear(hg, table), long_labels, reduction="none")
+    lib_nll = F.cross_entropy(F.linear(hg, table), long_labels, reduction="none",
+                              ignore_index=-1)
     lib_g = g.to(lib_nll.dtype)
     record("fused_ce_bwd", case, err,
            cuda_ms(lambda: CE.fused_ce_bwd(h, table, safe, lse, g)),
@@ -2123,6 +2202,57 @@ def phase_stage2_end_to_end(cfg, params, kernel_counters):
     if not key_bias[0] <= KEY_BIAS_NOISE * key_bias[1]:
         raise AssertionError(f"stage 2 end to end: key-projection bias gradient norm "
                              f"{key_bias[0]:.4g} > {KEY_BIAS_NOISE} x plain {key_bias[1]:.4g}")
+    check_remat_dots(cfg, params, batch, train)
+
+
+def check_remat_dots(cfg, params, batch, train):
+    """Phase 10 (b): the same batch-1 micro-step on the kernel path (bf16 compute) under
+    --remat dots against --remat full: the loss bit-equal, every gradient leaf at cosine
+    >= DOTS_COS; the peak memory above the model and the micro-step's ms for each (the
+    second of two runs of each)."""
+    import torch
+    import torch.nn.functional as F
+
+    from projectiontrainer_tpu_torch.train import steps
+
+    runs = {}
+    for mode, remat in (("full", True), ("dots", "dots")):
+        loss_fn = steps.stage2_loss(cfg, 0, logits_chunk=128, table_frozen=False,
+                                    compute_dtype=torch.bfloat16, remat=remat)
+        for _ in range(2):
+            gc_cuda()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss, _ = loss_fn(params, batch)
+            grads = torch.autograd.grad(loss, [x for _, x in train])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        runs[mode] = {"loss": loss.detach(), "grads": grads, "ms": ms, "peak_gib": peak}
+        del loss, grads
+    cos = {p: float(F.cosine_similarity(a.flatten().double(), b.flatten().double(), dim=0))
+           for (p, _), a, b in zip(train, runs["dots"]["grads"], runs["full"]["grads"])
+           if bool(b.ne(0).any())}
+    bit_equal_grads = sum(torch.equal(a, b) for a, b in zip(runs["dots"]["grads"],
+                                                            runs["full"]["grads"]))
+    worst = min(cos, key=cos.get)
+    row = {"loss_full": float(runs["full"]["loss"]), "loss_dots": float(runs["dots"]["loss"]),
+           "loss_bit_equal": bool(torch.equal(runs["full"]["loss"], runs["dots"]["loss"])),
+           "leaves": len(train), "grad_leaves_bit_equal": bit_equal_grads,
+           "min_grad_cosine": cos[worst], "min_grad_cosine_leaf": worst,
+           "micro_step_ms": {m: r["ms"] for m, r in runs.items()},
+           "peak_gib_above_model": {m: r["peak_gib"] for m, r in runs.items()}}
+    del runs
+    gc_cuda()
+    print(f"stage 2 remat dots vs full (batch 1, 1215 tokens): {row['micro_step_ms']} ms, "
+          f"peak {row['peak_gib_above_model']} GiB above the model; loss bit-equal "
+          f"{row['loss_bit_equal']}, min gradient cosine {cos[worst]:.7f}", flush=True)
+    emit({"phase": 10, "remat_dots": row})
+    if not row["loss_bit_equal"]:
+        raise AssertionError(f"remat dots: loss {row['loss_dots']} vs full {row['loss_full']}")
+    if not cos[worst] >= DOTS_COS:
+        raise AssertionError(f"remat dots: gradient cosine {cos[worst]} of {worst} < {DOTS_COS}")
 
 
 # ---------------------------------------------------------------------------- phase 11
@@ -2146,19 +2276,22 @@ def qlora_lengths(seed, groups=QLORA_GROUPS, per=4):
     return q, a
 
 
-def qwen3_model(quant_method=None):
+def qwen3_model(quant_method=None, shard=False):
     """The stage-2 QLoRA VLM at full width from seeded random weights: SigLIP
     ViT-L/16-384 (bf16), projector 1024 -> 10240 -> 4096 (fp32), Qwen3-8B (36 layers,
     hidden 4096, MLP 12288, 32/8 heads of 128, vocab 151,936, untied head; bf16). The
     decoder is built one layer at a time and, with ``quant_method``, each layer is
     quantized before the next is drawn, so the dense 16 GB of projections is never
-    resident whole. The same seed draws the same dense weights either way."""
+    resident whole. The same seed draws the same dense weights either way. ``shard``
+    (a rank of phase 21): each whole layer, once quantized, is sliced to this model
+    rank's shard, and so is the rest (``train/setup.py``): the shards of the same model."""
     import torch
 
     from projectiontrainer_tpu_torch.models import decoder as dec
     from projectiontrainer_tpu_torch.models import projector as proj
     from projectiontrainer_tpu_torch.models import siglip, vlm
     from projectiontrainer_tpu_torch.ops import quant
+    from projectiontrainer_tpu_torch.train import setup
 
     vision, llm_cfg = siglip.vit_l_16_384(), dec.qwen3_config()
     cfg = vlm.VLMConfig(vision=vision, llm=llm_cfg, projector=proj.ProjectorConfig(
@@ -2168,12 +2301,13 @@ def qwen3_model(quant_method=None):
               "projector": proj.init(gen, cfg.projector, torch.float32, DEVICE)}
     llm = dec.init(gen, dataclasses.replace(cfg.llm, num_layers=0, layer_types=()),
                    torch.bfloat16, DEVICE)
-    for _ in range(cfg.llm.num_layers):
+    for i in range(cfg.llm.num_layers):
         layer = dec.init_layer(gen, cfg.llm, torch.bfloat16, DEVICE)
-        llm["layers"].append(layer if quant_method is None
-                             else quant.quantize_layer(layer, method=quant_method))
+        if quant_method is not None:
+            layer = quant.quantize_layer(layer, method=quant_method)
+        llm["layers"].append(setup.shard_layer(layer, i, cfg.llm) if shard else layer)
     params["llm"] = llm
-    return cfg, params
+    return cfg, setup.shard_model(params, cfg) if shard else params
 
 
 def fingerprint(x) -> int:
@@ -2674,7 +2808,7 @@ def phase_cls_end_to_end(cfg, params, kernel_counters):
 FEED_SOURCES = 256        # seeded 1024 x 1024 CXR-like JPEG files
 FEED_SOURCES_2048 = 32    # and 2048 x 2048 ones, for one row
 FEED_ROW_IMAGES = 128     # images each feed-alone row reads (8 batches of 16)
-FEED_ROW_REPEATS = 3      # times each row is timed; its median and its spread are kept
+FEED_ROW_REPEATS = 2      # times each row is timed; its median and its spread are kept
 FEED_CLASSES = ("pneumonia", "edema", "cardiomegaly", "no finding")
 # what the feed must deliver (PERF.md section 5, NVIDIA H100 80GB HBM3 at 700 W): stage 0
 # at batch 16 asks 63 images/s at its host step (253.0 ms) and 104 at its kernel time
@@ -3309,9 +3443,9 @@ DP_STAGE0_LAYERS = 4  # the so400m towers cut from 27 layers each: run time
 DP_TIMEOUT_S = 420    # the launcher's run, kernels loaded and models built in each rank
 
 
-def _dp_world():
-    """(ranks, backend, why, sharing) for phase 20 on this machine: 2 NCCL ranks on 2
-    cards; 2 gloo ranks sharing one card; 1 NCCL rank where the card's compute mode
+def _dp_world(label="data parallel"):
+    """(ranks, backend, why, sharing) for phases 20 and 21 on this machine: 2 NCCL ranks
+    on 2 cards; 2 gloo ranks sharing one card; 1 NCCL rank where the card's compute mode
     admits one process only."""
     import torch
 
@@ -3320,7 +3454,7 @@ def _dp_world():
                             timeout=60).stdout.strip()
     modes = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
                            capture_output=True, text=True, timeout=60).stdout.split()
-    print(f"data parallel: torch.cuda.device_count() = {n}\n{listed}\ncompute modes {modes}",
+    print(f"{label}: torch.cuda.device_count() = {n}\n{listed}\ncompute modes {modes}",
           flush=True)
     if n >= DP_RANKS:
         return DP_RANKS, "nccl", f"{n} cards: one NCCL rank on each of 2", False
@@ -3339,7 +3473,7 @@ def _dp_captions(n, seed):
     return ["".join(rng.choice(letters, size=int(k))) for k in rng.integers(32, 513, size=n)]
 
 
-def _dp_launch(entry, dump, flags, ranks, backend):
+def _dp_launch(entry, dump, flags, ranks, backend, timeout=None):
     """The launcher module spawns the ranks; returns its exit code and output."""
     cmd = [sys.executable, "-m", "projectiontrainer_tpu_torch.cli.launch",
            "--nproc_per_node", str(ranks), "--backend", backend, "--timeout", "300",
@@ -3349,7 +3483,8 @@ def _dp_launch(entry, dump, flags, ranks, backend):
     env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__)) + os.pathsep + env.get(
         "PYTHONPATH", "")
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=DP_TIMEOUT_S, env=env)
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout or DP_TIMEOUT_S,
+                          env=env)
     return proc.returncode, proc.stdout + proc.stderr, time.perf_counter() - t0
 
 
@@ -3685,6 +3820,498 @@ def phase_data_parallel():
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------- phase 21
+
+TP_RANKS = 2
+TP_BATCH = 2               # per replica
+TP_GROUPS = QLORA_GROUPS[:4]  # 4 micro-steps; the first at 575 + 256 + 1024 = 1855 tokens
+TP_STAGE1_BATCH = 4
+TP_STAGE1_STEPS = 4
+TP_TIMEOUT_S = 600         # each launch: kernels loaded and models built in each rank
+TP_LORA_B_STD = 0.02       # B drawn off zero (as phase 12): the A gradients are nonzero too
+TP_LEAF_COS_FLOOR = 0.99   # a LoRA leaf below COS_MIN: a missed model-axis sum reads ~0.7
+
+
+def tp_lora(cfg, shard):
+    """The QLoRA recipe's adapters (r 16, alpha 32) from the seed, B at std
+    TP_LORA_B_STD; with ``shard``, this model rank's shards of the same draw."""
+    import torch
+
+    from projectiontrainer_tpu_torch.parallel import sharding
+    from projectiontrainer_tpu_torch.train import lora
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 14)
+    full = lora.init(gen, cfg.llm, lora.LoraConfig(r=16, alpha=32, dropout=0.05),
+                     device=DEVICE)
+    for layer in full["layers"]:
+        for p in layer.values():
+            p["b"].normal_(0.0, TP_LORA_B_STD, generator=gen)
+    if not shard:
+        return full
+    return sharding.shard_params(full, sharding.plan_for(full, cfg, prefix="lora"),
+                                 prefix="lora")
+
+
+def tp_vqa_data(cfg):
+    """(train, val): phase 11's samples, TP_BATCH of each of the TP_GROUPS buckets, and
+    its 2 validation samples."""
+    size, vocab = cfg.vision.image_size, cfg.llm.vocab_size
+    train = VQASamples(TP_BATCH * len(TP_GROUPS), SEED + 12, size=size, vocab=vocab,
+                       lengths=qlora_lengths(SEED + 12, TP_GROUPS, per=TP_BATCH))
+    val = VQASamples(2, SEED + 13, size=size, vocab=vocab, lengths=([40, 60], [200, 240]))
+    return train, val
+
+
+def tp_stage2_flags(root, out):
+    """The stage-2 CLI flags of phase 21 (b): phase 11's recipe at batch TP_BATCH,
+    accumulation 2, one epoch; validation with 3 sampled beams of 16 tokens; step 2
+    profiled."""
+    return ["--image_root", root, "--train_json", os.path.join(root, "train.json"),
+            "--val_json", os.path.join(root, "val.json"), "--output_dir", out,
+            "--vision_model_name", "seeded", "--llm_name", "seeded", "--img_size", "384",
+            "--batch_size", str(TP_BATCH), "--gradient_accumulation_steps", "2",
+            "--num_epochs", "1", "--learning_rate", "1e-5", "--warmup_ratio", "0.05",
+            "--max_q_len", "256", "--max_a_len", "1024", "--enable_qlora",
+            "--quant_method", "nf4-mirror", "--lora_r", "16", "--lora_alpha", "32",
+            "--lora_dropout", "0.05", "--remat", "full", "--mixed_precision", "bf16",
+            "--eval_max_new_tokens", "16", "--eval_num_beams", "3", "--logging_steps", "1",
+            "--num_workers", "2", "--disable_wandb", "--seed", str(SEED),
+            "--profile_dir", os.path.join(out, "profile"), "--profile_start_step", "2",
+            "--profile_num_steps", "1"]
+
+
+def tp_stage1_flags(root, out):
+    """The stage-1 CLI flags of phase 21 (c): phase 5's recipe, TP_STAGE1_STEPS steps at
+    batch TP_STAGE1_BATCH, validation on 4 samples; step 2 profiled."""
+    return ["--image_root", root, "--train_json", os.path.join(root, "s1train.json"),
+            "--val_json", os.path.join(root, "s1val.json"), "--output_dir", out,
+            "--vision_model_name", "seeded", "--llm_name", "seeded", "--img_size", "384",
+            "--batch_size", str(TP_STAGE1_BATCH), "--num_epochs", "1", "--learning_rate",
+            "1e-4", "--max_caption_len", "512", "--save_every_n_epochs", "0",
+            "--logging_steps", "1", "--num_workers", "2", "--disable_wandb", "--seed",
+            str(SEED), "--profile_dir", os.path.join(out, "profile"), "--profile_start_step",
+            "2", "--profile_num_steps", "1"]
+
+
+def _tp_whole(path, g, cfg):
+    """A gradient at ``path`` whole: its model rank's shard gathered over the model axis
+    (every model rank enters), or itself."""
+    from projectiontrainer_tpu_torch.parallel import distributed, sharding
+
+    dim = sharding.sharded_dim(path, sharding.rules_for(cfg)[0])
+    if dim is None or distributed.model_size() == 1:
+        return g
+    return distributed.all_gather_dim(g, dim, distributed.MODEL_AXIS)
+
+
+def _tp_record(record, cfg_of):
+    """Wrap the train step, the optimizer's update and the model-axis all-reduce: each
+    micro-step's loss, the collectives of the first micro-step by phase and their host
+    time, and the first micro-step's LoRA and projector gradients whole (after the
+    model-axis sum of the partial ones)."""
+    import torch
+
+    from projectiontrainer_tpu_torch.parallel import tensor_parallel as tp
+    from projectiontrainer_tpu_torch.train import optim, steps
+
+    make, update, reduce = steps.make_train_step, optim.MaskedAdamW.update, tp.all_reduce
+
+    def recording(*a, **kw):
+        step = make(*a, **kw)
+
+        def wrapped(state, batch, rng=None):
+            before = dict(tp.COUNTS)
+            record["in_first"] = record["counts_first"] is None
+            out = step(state, batch, rng)
+            record["losses"].append(float(out[1]))
+            if record["in_first"]:
+                record["counts_first"] = {k: tp.COUNTS[k] - before[k] for k in before}
+            record["in_first"] = False
+            return out
+
+        return wrapped
+
+    def capturing(self, grads, state, params):
+        if record["first_grads"] is None:
+            record["first_grads"] = {
+                p: _tp_whole(p, g, cfg_of()).float().cpu() for p, g in grads.items()
+                if p.startswith(("lora/", "projector/"))}
+        return update(self, grads, state, params)
+
+    def timed(x, phase, op=None):
+        t0 = time.perf_counter()
+        out = reduce(x, phase, op)
+        ms = (time.perf_counter() - t0) * 1e3
+        record["allreduce_host_ms"].append(ms)
+        if record.get("in_first"):
+            record["allreduce_host_ms_first"].append(ms)
+        return out
+
+    steps.make_train_step = recording
+    optim.MaskedAdamW.update = capturing
+    tp.all_reduce = timed
+
+
+def _tp_new_record():
+    return {"losses": [], "counts_first": None, "first_grads": None, "allreduce_host_ms": [],
+            "allreduce_host_ms_first": [], "in_first": False}
+
+
+def _tp_dump(dump, rank, record, result, kernel_counters, cfg, params, trained_prefix):
+    """Write a rank's record: losses, launches, collectives, host times, the hash of the
+    trained leaves the rules replicate, the first gradients (rank 0)."""
+    import torch
+
+    from projectiontrainer_tpu_torch.core.pytree import unique_leaves_with_paths
+    from projectiontrainer_tpu_torch.parallel import sharding
+    from projectiontrainer_tpu_torch.parallel import tensor_parallel as tp
+
+    torch.cuda.synchronize()
+    plan = sharding.plan_for(params, cfg)
+    replicated = [(p, x) for p, x in unique_leaves_with_paths(params)
+                  if p.startswith(trained_prefix) and p not in plan.dims]
+    torch.save({"rank": rank, "losses": record["losses"], "result": result,
+                "launches": {n: c.value for n, c in kernel_counters.items()},
+                "counts_first": record["counts_first"], "counts_total": dict(tp.COUNTS),
+                "allreduce_host_ms": record["allreduce_host_ms"],
+                "allreduce_host_ms_first": record["allreduce_host_ms_first"],
+                "replicated_leaves": len(replicated), "replicated_sha256": _sha(replicated),
+                "first_grads": record["first_grads"] if rank == 0 else None},
+               os.path.join(dump, f"rank{rank}.pt"))
+
+
+def tp_stage2_rank(argv):
+    """A rank of phase 21 (b): ``cli/train_stage2.main`` with --mesh_model 2 over phase
+    11's model, each whole layer built from the seed, quantized and sliced to the rank's
+    shard (``setup.build_vlm``, ``setup.load_tokenizer`` and the dataset's ``from_json``
+    replaced: no snapshot, no transformers, in-memory samples)."""
+    from projectiontrainer_tpu_torch.cli import train_stage2
+    from projectiontrainer_tpu_torch.parallel import tensor_parallel as tp
+    from projectiontrainer_tpu_torch.train import setup
+
+    dump, flags, rank = _rank_entry(argv)
+    built, data = {}, {}
+
+    def build_vlm(*_, device, **__):
+        cfg, params = qwen3_model("nf4-mirror", shard=True)
+        params["lora"] = tp_lora(cfg, shard=True)
+        built["cfg"], built["params"] = cfg, params
+        data["train"], data["val"] = tp_vqa_data(cfg)
+        return cfg, params
+
+    setup.build_vlm = build_vlm
+    setup.load_tokenizer = lambda _: StubTokenizer()
+    train_stage2.datasets.Stage2VQADataset.from_json = staticmethod(
+        lambda path, **_: data["train" if path.endswith("train.json") else "val"])
+    record = _tp_new_record()
+    _tp_record(record, lambda: built["cfg"])
+    kernel_counters = counters()
+    for c in kernel_counters.values():
+        c.reset()
+    tp.reset_counts()
+    result = train_stage2.main(flags)
+    _tp_dump(dump, rank, record, result, kernel_counters, built["cfg"], built["params"],
+             "lora/")
+    return result
+
+
+def tp_stage1_rank(argv):
+    """A rank of phase 21 (c): ``cli/train_stage1.main`` with --mesh_model 2 over phase
+    5's model (Gemma3-1B: one KV head, the tied table) sliced to the rank's shards, on
+    in-memory captions (the manifest reader and the dataset replaced)."""
+    from projectiontrainer_tpu_torch.cli import train_stage1
+    from projectiontrainer_tpu_torch.parallel import tensor_parallel as tp
+    from projectiontrainer_tpu_torch.train import setup
+
+    dump, flags, rank = _rank_entry(argv)
+    built = {}
+
+    def build_vlm(*_, device, **__):
+        cfg, params = full_width_model()
+        layers = params["llm"]["layers"]
+        for i, layer in enumerate(layers):
+            layers[i] = setup.shard_layer(layer, i, cfg.llm)
+        built["cfg"], built["params"] = cfg, setup.shard_model(params, cfg)
+        return cfg, built["params"]
+
+    setup.build_vlm = build_vlm
+    setup.load_tokenizer = lambda _: StubTokenizer()
+    _tp_stage1_data(train_stage1.datasets)
+    record = _tp_new_record()
+    _tp_record(record, lambda: built["cfg"])
+    kernel_counters = counters()
+    for c in kernel_counters.values():
+        c.reset()
+    tp.reset_counts()
+    result = train_stage1.main(flags)
+    _tp_dump(dump, rank, record, result, kernel_counters, built["cfg"], built["params"],
+             "projector/")
+    return result
+
+
+def _tp_stage1_data(datasets_mod):
+    """Stage 1's manifests and dataset as in-memory captions: TP_STAGE1_BATCH x
+    TP_STAGE1_STEPS training samples and 4 validation ones."""
+    n = {"s1train.json": TP_STAGE1_BATCH * TP_STAGE1_STEPS, "s1val.json": 4}
+    datasets_mod.load_manifest = lambda path: [{"i": i} for i in range(
+        n[os.path.basename(path)])]
+    datasets_mod.Stage1PairDataset = lambda samples, **_: CaptionDataset(
+        len(samples), SEED + 30 + len(samples), size=384, vocab=262_144)
+
+
+def _tp_check(label, dumps, kernels):
+    """The checks every rank's record must pass: finite losses, bit-equal across the
+    ranks; the replicated trained leaves bit-equal; each kernel of the path launched."""
+    for d in dumps:
+        if not d["losses"] or not np.isfinite(d["losses"]).all():
+            raise AssertionError(f"tensor parallel {label}: rank {d['rank']} losses "
+                                 f"{d['losses']}")
+        if not all(d["launches"][n] for n in kernels):
+            raise AssertionError(f"tensor parallel {label}: rank {d['rank']} never launched "
+                                 f"a kernel of the path: {d['launches']}")
+    if any(d["losses"] != dumps[0]["losses"] for d in dumps):
+        raise AssertionError(f"tensor parallel {label}: the ranks logged different losses: "
+                             f"{[d['losses'] for d in dumps]}")
+    if len({d["replicated_sha256"] for d in dumps}) != 1 or not dumps[0]["replicated_leaves"]:
+        raise AssertionError(f"tensor parallel {label}: the replicated trained leaves differ "
+                             "across the ranks")
+
+
+def _tp_against_one_process(label, first_loss, grads_tp, loss_one, grads_one):
+    """The first micro-step of the ranks against one process: the loss within LOSS_REL,
+    every gradient leaf at cosine >= COS_MIN (a leaf below it held to TP_LEAF_COS_FLOOR
+    and its group's concatenation to COS_MIN); returns the readings."""
+    import torch
+    import torch.nn.functional as F
+
+    def cosine(a, b):
+        return float(F.cosine_similarity(a.flatten().double(), b.flatten().double(), dim=0))
+
+    rel = abs(first_loss - loss_one) / abs(loss_one)
+    if grads_tp.keys() != grads_one.keys():
+        raise AssertionError(f"tensor parallel {label}: gradient leaves differ")
+    cos = {p: cosine(grads_tp[p], grads_one[p]) for p in sorted(grads_one)}
+    groups = {}
+    for p in cos:
+        groups.setdefault(p.rsplit("/", 1)[-1], []).append(p)
+    group_cos = {k: cosine(torch.cat([grads_tp[p].flatten() for p in ps]),
+                           torch.cat([grads_one[p].flatten() for p in ps]))
+                 for k, ps in groups.items()}
+    below = {p: c for p, c in cos.items() if not c >= COS_MIN}
+    row = {"first_loss_ranks": first_loss, "first_loss_one_process": loss_one,
+           "first_loss_rel_diff": rel, "grad_leaves": len(cos),
+           "min_grad_cosine": min(cos.values()), "min_grad_cosine_leaf": min(cos, key=cos.get),
+           "group_grad_cosine": group_cos, "leaves_below_cos_min": below}
+    if not rel <= LOSS_REL:
+        raise AssertionError(f"tensor parallel {label}: first loss {first_loss} vs one "
+                             f"process {loss_one}")
+    if below and not (min(below.values()) >= TP_LEAF_COS_FLOOR
+                      and min(group_cos.values()) >= COS_MIN):
+        raise AssertionError(f"tensor parallel {label}: gradient cosines {below}, by group "
+                             f"{group_cos}")
+    return row
+
+
+def _tp_one_process_stage2(root):
+    """Phase 21 (b)'s first micro-step in one process (the trainer of phase 11 on the
+    whole model): (loss, the LoRA gradients)."""
+    import torch
+
+    from projectiontrainer_tpu_torch.core.config import Stage2Config, from_args, parser_for
+    from projectiontrainer_tpu_torch.train.trainer_stage2 import Stage2Trainer
+
+    cfg, params = qwen3_model("nf4-mirror")
+    params["lora"] = tp_lora(cfg, shard=False)
+    train, val = tp_vqa_data(cfg)
+    out = tempfile.mkdtemp(prefix="chip_smoke_tp_one_")
+    record = _tp_new_record()
+    try:
+        tcfg = from_args(Stage2Config, parser_for(Stage2Config, "").parse_args(
+            tp_stage2_flags(root, out)[:-6]))
+        tcfg.device = DEVICE
+        trainer = Stage2Trainer(tcfg, vlm_cfg=cfg, params=params, tokenizer=StubTokenizer(),
+                                train_dataset=train, val_dataset=None)
+        batch = next(iter(trainer._feed(train, trainer._train_plans[0])))
+        _tp_record(record, lambda: cfg)
+        _, loss, _ = trainer._steps[False][0](trainer.state, batch, 0)
+        torch.cuda.synchronize()
+        del trainer
+    finally:
+        _tp_unrecord()
+        shutil.rmtree(out, ignore_errors=True)
+    return float(loss), record["first_grads"]
+
+
+def _tp_one_process_stage1(root):
+    """Phase 21 (c)'s first step in one process: (loss, the projector gradients)."""
+    import torch
+
+    from projectiontrainer_tpu_torch.core.config import Stage1Config, from_args, parser_for
+    from projectiontrainer_tpu_torch.data import datasets
+    from projectiontrainer_tpu_torch.train import common
+    from projectiontrainer_tpu_torch.train.trainer_stage1 import Stage1Trainer
+
+    cfg, params = full_width_model()
+    out = tempfile.mkdtemp(prefix="chip_smoke_tp_one_s1_")
+    saved = datasets.load_manifest, datasets.Stage1PairDataset
+    _tp_stage1_data(datasets)
+    record = _tp_new_record()
+    try:
+        tcfg = from_args(Stage1Config, parser_for(Stage1Config, "").parse_args(
+            tp_stage1_flags(root, out)[:-6]))
+        tcfg.device = DEVICE
+        train = datasets.Stage1PairDataset(datasets.load_manifest("s1train.json"))
+        trainer = Stage1Trainer(tcfg, vlm_cfg=cfg, params=params, tokenizer=StubTokenizer(),
+                                train_dataset=train, val_dataset=None)
+        batch = next(iter(common.feed(train, tcfg, epoch=0)))
+        _tp_record(record, lambda: cfg)
+        _, loss, _ = trainer.train_step(trainer.state, batch)
+        torch.cuda.synchronize()
+        del trainer
+    finally:
+        _tp_unrecord()
+        datasets.load_manifest, datasets.Stage1PairDataset = saved
+        shutil.rmtree(out, ignore_errors=True)
+    return float(loss), record["first_grads"]
+
+
+_TP_ORIGINALS = {}
+
+
+def _tp_unrecord():
+    """Undo ``_tp_record`` in this process."""
+    from projectiontrainer_tpu_torch.parallel import tensor_parallel as tp
+    from projectiontrainer_tpu_torch.train import optim, steps
+
+    optim.MaskedAdamW.update = _TP_ORIGINALS["update"]
+    tp.all_reduce = _TP_ORIGINALS["all_reduce"]
+    steps.make_train_step = _TP_ORIGINALS["make_train_step"]
+
+
+def _tp_split(out):
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    return {k[len("profile/"):]: v for r in rows for k, v in r.items()
+            if k.startswith("profile/")}
+
+
+def _tp_report(label, dumps, split, wall, smi, world, extra):
+    reduce_kernel = {k: v for k, v in split.items() if "tp_allreduce" in k}
+    row = {"phase": 21, "part": label, "world": world, "nvidia_smi": smi,
+           "launch_wall_s": wall, "losses": dumps[0]["losses"],
+           "images_per_sec_per_rank": [d["result"].get("images_per_sec") for d in dumps],
+           "step_time_ms_per_rank": [d["result"].get("step_time_ms") for d in dumps],
+           "model_axis_collectives_first_micro_step": dumps[0]["counts_first"],
+           "model_axis_collectives_whole_run": dumps[0]["counts_total"],
+           "tp_allreduce_host_ms_median_per_rank": [
+               float(np.median(d["allreduce_host_ms"])) for d in dumps],
+           "tp_allreduce_host_ms_first_micro_step_per_rank": [
+               float(np.sum(d["allreduce_host_ms_first"])) for d in dumps],
+           "tp_allreduce_kernel_ms_step2_rank0": reduce_kernel,
+           "kernel_ms_step2_rank0": split, "launches_per_rank": [d["launches"] for d in dumps],
+           "replicated_leaves_bit_equal": dumps[0]["replicated_leaves"], **extra}
+    print(f"tensor parallel {label} ({world['why']}; {smi}): images/s per rank "
+          f"{row['images_per_sec_per_rank']}; model-axis collectives in the first micro-step "
+          f"{row['model_axis_collectives_first_micro_step']}; tp_allreduce host ms "
+          f"{row['tp_allreduce_host_ms_first_micro_step_per_rank']} in it (median "
+          f"{row['tp_allreduce_host_ms_median_per_rank']} a call); kernel ms in step 2 "
+          f"{reduce_kernel}", flush=True)
+    emit(row)
+
+
+def phase_tensor_parallel():
+    """Phase 21: stage-2 QLoRA over Qwen3-8B and stage 1 over Gemma3-1B with
+    --mesh_model 2 through the launcher; see the module's docstring."""
+    import torch
+
+    from projectiontrainer_tpu_torch.checkpoint import export
+    from projectiontrainer_tpu_torch.parallel import tensor_parallel as tp
+    from projectiontrainer_tpu_torch.train import optim, steps
+
+    _TP_ORIGINALS.update(update=optim.MaskedAdamW.update, all_reduce=tp.all_reduce,
+                         make_train_step=steps.make_train_step)
+    ranks, backend, why, sharing = _dp_world("tensor parallel")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+    world = {"ranks": ranks, "backend": backend, "why": why, "sharing_one_card": sharing}
+    if ranks < TP_RANKS:
+        print(f"tensor parallel: NOT RUN: {why}", flush=True)
+        emit({"phase": 21, "ran": False, "why": why, "nvidia_smi": smi})
+        return {}
+    print(f"tensor parallel: {ranks} model ranks over {backend}: {why} ({smi})", flush=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    try:
+        # (b) stage-2 QLoRA over Qwen3-8B, 1 x 2
+        out = os.path.join(root, "stage2")
+        flags = tp_stage2_flags(root, out) + ["--mesh_data", "1", "--mesh_model", "2"]
+        gc_cuda()
+        rc, logs, wall = _dp_launch("tp_stage2_rank", root, flags, ranks, backend,
+                                    TP_TIMEOUT_S)
+        if rc != 0:
+            raise AssertionError(f"tensor parallel: the stage-2 launch exited {rc}:\n"
+                                 f"{logs[-6000:]}")
+        dumps = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+                 for r in range(ranks)]
+        _tp_check("stage 2", dumps, STAGE2_QLORA_KERNELS)
+        if len(dumps[0]["losses"]) != len(TP_GROUPS):
+            raise AssertionError(f"tensor parallel stage 2: {dumps[0]['losses']}")
+        lm = os.path.join(out, "checkpoint-epoch_0", "language_model")
+        lora_loaded, lcfg = export.load_adapter(lm)
+        q_b = lora_loaded["layers"][0]["q_proj"]["b"]
+        if tuple(q_b.shape) != (4096, 16) or lcfg.r != 16:
+            raise AssertionError(f"tensor parallel: the adapter's q_proj B is {q_b.shape}")
+        examples = os.listdir(os.path.join(out, "validation_examples"))
+        split = _tp_split(out)
+        grads_tp = dumps[0]["first_grads"]
+        gc_cuda()
+        loss_one, grads_one = _tp_one_process_stage2(root)
+        versus = _tp_against_one_process("stage 2", dumps[0]["losses"][0], grads_tp, loss_one,
+                                         grads_one)
+        del grads_tp, grads_one
+        gc_cuda()
+        _tp_report("stage2_qlora", dumps, split, wall, smi, world, {
+            "adapter_loads_in_one_process": True, "validation_examples": examples, **versus,
+            "cut": f"{len(TP_GROUPS)} micro-steps of {TP_BATCH} samples (accumulation 2) up "
+                   "to 1855 tokens, 2 validation samples with 3 beams of 16 tokens (a real "
+                   "run: 4 x 2 ranks, the VQA corpus, 3 epochs, accumulation 8)"})
+        launches = {"stage2_qlora_tp_rank0": dumps[0]["launches"]}
+
+        # (c) stage 1 over Gemma3-1B, 1 x 2
+        out = os.path.join(root, "stage1")
+        flags = tp_stage1_flags(root, out) + ["--mesh_data", "1", "--mesh_model", "2"]
+        rc, logs, wall = _dp_launch("tp_stage1_rank", root, flags, ranks, backend,
+                                    TP_TIMEOUT_S)
+        if rc != 0:
+            raise AssertionError(f"tensor parallel: the stage-1 launch exited {rc}:\n"
+                                 f"{logs[-6000:]}")
+        dumps = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+                 for r in range(ranks)]
+        _tp_check("stage 1", dumps, STAGE1_KERNELS)
+        if len(dumps[0]["losses"]) != TP_STAGE1_STEPS:
+            raise AssertionError(f"tensor parallel stage 1: {dumps[0]['losses']}")
+        if not os.path.exists(os.path.join(out, "projector_final.bin")):
+            raise AssertionError("tensor parallel stage 1: projector_final.bin not written")
+        exported = torch.load(os.path.join(out, "projector_final.bin"), weights_only=True)
+        if tuple(exported["model.0.weight"].shape) != (10240, 1024):
+            raise AssertionError(f"tensor parallel stage 1: exported fc1 "
+                                 f"{exported['model.0.weight'].shape}")
+        split = _tp_split(out)
+        grads_tp = dumps[0]["first_grads"]
+        gc_cuda()
+        loss_one, grads_one = _tp_one_process_stage1(root)
+        versus = _tp_against_one_process("stage 1", dumps[0]["losses"][0], grads_tp, loss_one,
+                                         grads_one)
+        gc_cuda()
+        _tp_report("stage1", dumps, split, wall, smi, world, {
+            "projector_exported_whole": True, **versus,
+            "cut": f"{TP_STAGE1_STEPS} steps at batch {TP_STAGE1_BATCH}, 4 validation "
+                   "samples (a real run: the caption corpus, many epochs)"})
+        launches["stage1_tp_rank0"] = dumps[0]["launches"]
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import gc
 
@@ -3761,6 +4388,11 @@ def main() -> int:
     dp = phase_data_parallel()  # the ranks count their own launches
     slice_launches["stage1_dp_rank0"] = {n: dp["stage1_dp"][n] for n in STAGE1_KERNELS}
     slice_launches["stage0_dp_rank0"] = {n: dp["stage0_dp"][n] for n in STAGE0_KERNELS}
+    tp_runs = phase_tensor_parallel()
+    for path, kernels in (("stage2_qlora_tp_rank0", STAGE2_QLORA_KERNELS),
+                          ("stage1_tp_rank0", STAGE1_KERNELS)):
+        if path in tp_runs:
+            slice_launches[path] = {n: tp_runs[path][n] for n in kernels}
 
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():

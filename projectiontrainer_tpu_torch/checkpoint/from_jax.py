@@ -27,6 +27,10 @@ Takes a JAX parameter tree whose leaves are numpy arrays (for example
 - ``decoder_params_to_jax`` is the inverse of ``decoder_params``, for exports that the
   JAX package reads.
 
+The trees are whole: under tensor parallelism ``parallel/sharding.shard_params`` then
+slices one to a model rank's shards (``tests/test_torch_tp.py`` builds its ranks' params
+this way).
+
 Configs carry across by field name (``config_from_jax``). This module takes numpy
 arrays (optax's named tuples survive ``jax.tree.map(np.asarray, ...)``) and imports
 nothing of JAX or optax.

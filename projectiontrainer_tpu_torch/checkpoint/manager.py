@@ -13,7 +13,11 @@ newest ``step_K`` is kept); ``manager.json`` records the best metric. ``save_per
 
 In a data-parallel world every rank holds the same state: rank 0 writes each file and
 the others wait at a barrier (the JAX package's collective save); the best-save
-decision takes rank 0's metric everywhere; ``--resume`` reads on every rank.
+decision takes rank 0's metric everywhere; ``--resume`` reads on every rank. Under
+tensor parallelism (``plan``, a ``parallel/sharding.ShardPlan``) each model rank holds
+shards: every rank enters the gathers of the sharded params and optimizer slots, rank 0
+writes the whole leaves (the file is the one a single process writes), and a restore
+slices each leaf to the rank's shard again.
 
 The cls probe names every leaf of its classifier (the JAX package saves the whole
 state): its evaluators rebuild the model from a checkpoint alone (``restore_params``,
@@ -51,8 +55,9 @@ def _cpu(x):
 class CheckpointManager:
     def __init__(self, directory: str, *, save_every_n_epochs: int = 1,
                  min_save_epoch: int = 0, best_mode: str = "min",
-                 save_paths: Optional[Iterable[str]] = None):
+                 save_paths: Optional[Iterable[str]] = None, plan=None):
         self.directory = directory
+        self.plan = plan
         self.save_paths = None if save_paths is None else frozenset(save_paths)
         self.save_every_n_epochs = save_every_n_epochs
         self.min_save_epoch = min_save_epoch
@@ -67,13 +72,22 @@ class CheckpointManager:
     def _path(self, name: str) -> str:
         return os.path.join(self.directory, f"{name}.pt")
 
+    def _whole(self, tree: dict) -> dict:
+        """{path: leaf} with each sharded leaf gathered whole (every model rank enters)."""
+        if self.plan is None:
+            return tree
+        return {p: self.plan.gather(p, x) for p, x in tree.items()}
+
     def _save(self, name: str, state: dict, metadata: Optional[dict] = None):
         """Rank 0 writes (tmp + rename); every rank returns once the file is there."""
+        keep = (self.save_paths if self.save_paths is not None
+                else set(state["opt_state"]["mu"]))
+        params = self._whole({p: x for p, x in unique_leaves_with_paths(state["params"])
+                              if p in keep})
+        opt = {k: self._whole(v) if isinstance(v, dict) else v
+               for k, v in state["opt_state"].items()}
         if distributed.is_main():
-            keep = (self.save_paths if self.save_paths is not None
-                    else set(state["opt_state"]["mu"]))
-            params = {p: x for p, x in unique_leaves_with_paths(state["params"]) if p in keep}
-            payload = {"params": _cpu(params), "opt_state": _cpu(state["opt_state"]),
+            payload = {"params": _cpu(params), "opt_state": _cpu(opt),
                        "step": int(state["step"]), "metadata": dict(metadata or {})}
             tmp = self._path(name) + ".tmp"
             torch.save(payload, tmp)
@@ -135,6 +149,9 @@ class CheckpointManager:
         payload = torch.load(self._path(name), map_location="cpu", weights_only=True, mmap=True)
         return payload.get("metadata", {})
 
+    def _local(self, path: str, x: torch.Tensor) -> torch.Tensor:
+        return x if self.plan is None else self.plan.shard(path, x)
+
     def restore_params(self, name: str, params) -> dict:
         """Copy the params of checkpoint ``name`` into ``params`` in place and return it:
         an evaluator's restore, without the optimizer state a trainer holds. Every leaf
@@ -146,7 +163,7 @@ class CheckpointManager:
             raise KeyError(f"checkpoint {name} lacks {len(missing)} leaves, e.g. {missing[:3]}")
         with torch.no_grad():
             for p, x in leaves.items():
-                x.copy_(saved[p])
+                x.copy_(self._local(p, saved[p]))
         return params
 
     def detect_quant_method(self) -> Optional[str]:
@@ -166,12 +183,12 @@ class CheckpointManager:
         leaves = dict(leaves_with_paths(state["params"]))
         with torch.no_grad():
             for p, x in payload["params"].items():
-                leaves[p].copy_(x)
+                leaves[p].copy_(self._local(p, x))
         opt = state["opt_state"]
         for key, value in payload["opt_state"].items():
             if isinstance(value, dict):
                 for p, x in value.items():
-                    opt[key][p].copy_(x)
+                    opt[key][p].copy_(self._local(p, x))
             else:
                 opt[key] = value
         state["step"] = payload["step"]

@@ -15,9 +15,11 @@ instead of ``--num_workers`` threads.
 
 Data parallel over N GPUs: ``projectiontrainer-torch-launch --nproc_per_node N stage1 --
 <these flags>`` (or ``torchrun``) starts one process per GPU; ``--mesh_data`` N or -1 (every
-rank). Not ported yet, and refused: ``--mesh_model`` above 1 (tensor parallelism) and
-``--fsdp``; ``--mesh_data -1`` with more than one GPU visible in a process no launcher
-started raises too.
+rank). Tensor parallelism: ``--mesh_model`` M splits each replica over M ranks (rank r
+at (r // M, r % M); heads, hidden columns and the vocab sharded, ``parallel/sharding.py``);
+a model the M ranks do not divide raises. Not ported yet, and refused: ``--fsdp``;
+``--mesh_data -1`` with more than one GPU visible in a process no launcher started
+raises too.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from projectiontrainer_tpu_torch.utils.logging import setup_logging
 
 def main(argv=None):
     cfg = from_args(Stage1Config, parser_for(Stage1Config, __doc__).parse_args(argv))
-    common.init_world(cfg)
+    common.init_world(cfg, tensor_parallel=True)
     logger = setup_logging()
     device = torch.device(cfg.device)
     common.resume_quant_method(cfg, os.path.join(cfg.output_dir, "checkpoints"), logger)

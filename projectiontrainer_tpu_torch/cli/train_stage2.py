@@ -23,9 +23,12 @@ Images are read on ``--num_workers`` threads, as the JAX package's stage 2 reads
 
 Data parallel over N GPUs: ``projectiontrainer-torch-launch --nproc_per_node N stage2 --
 <these flags>`` (or ``torchrun``) starts one process per GPU; ``--mesh_data`` N or -1 (every
-rank). Not ported yet, and refused: ``--remat dots``, ``--mesh_model`` above 1 (tensor
-parallelism) and ``--fsdp``; ``--mesh_data -1`` with more than one GPU visible in a
-process no launcher started raises too.
+rank). Tensor parallelism: ``--mesh_model`` M splits each replica over M ranks (rank r
+at (r // M, r % M); heads, hidden columns and the vocab sharded, ``parallel/sharding.py``;
+``launchers/run_stage2_h100.sh`` runs the stage-2 QLoRA recipe at 4 x 2); a model the M
+ranks do not divide raises. ``--remat dots`` saves the products' outputs and recomputes
+the rest (``core/remat.py``). Not ported yet, and refused: ``--fsdp``; ``--mesh_data
+-1`` with more than one GPU visible in a process no launcher started raises too.
 """
 
 from __future__ import annotations
@@ -37,15 +40,14 @@ import torch
 from projectiontrainer_tpu_torch.checkpoint import export
 from projectiontrainer_tpu_torch.core.config import Stage2Config, from_args, parser_for
 from projectiontrainer_tpu_torch.data import datasets
+from projectiontrainer_tpu_torch.parallel import sharding
 from projectiontrainer_tpu_torch.train import common, setup
 from projectiontrainer_tpu_torch.train.trainer_stage2 import Stage2Trainer
 from projectiontrainer_tpu_torch.utils.logging import setup_logging
 
 
 def check_supported(cfg) -> None:
-    if cfg.remat == "dots":
-        raise NotImplementedError("--remat dots (save the matmul outputs) is not ported")
-    common.init_world(cfg)
+    common.init_world(cfg, tensor_parallel=True)
 
 
 def main(argv=None):
@@ -62,8 +64,9 @@ def main(argv=None):
     tokenizer = setup.load_tokenizer(cfg.llm_name)
     if cfg.resume_qlora_adapter_path:
         # a reference run's language_model/ (PEFT) or an adapter of either package
-        params["lora"], loaded = export.load_adapter(cfg.resume_qlora_adapter_path,
-                                                     device=device)
+        full, loaded = export.load_adapter(cfg.resume_qlora_adapter_path, device=device)
+        params["lora"] = sharding.shard_params(
+            full, sharding.plan_for(full, vlm_cfg, prefix="lora"), prefix="lora")
         if loaded is not None and (loaded.r != cfg.lora_r or loaded.alpha != cfg.lora_alpha):
             logger.warning("adapter_config.json says r=%d alpha=%d but the flags ask r=%d "
                            "alpha=%d: the flags win (alpha/r scales the adapter)",

@@ -4,7 +4,7 @@ Counterpart of ``projectiontrainer_tpu/core/config.py`` for the stage-0, stage-1
 stage-2 paths and the cls probe (``CommonConfig``, ``Stage0Config``, ``Stage1Config``,
 ``Stage2Config``, ``ClsConfig``, ``parser_for``, ``from_args``): the same fields, flag
 names and defaults, plus the port's ``--device``. Flags whose machinery is not ported
-yet (``--remat dots``, ``--mesh_data``/``--mesh_model`` above 1, ``--fsdp``) parse as in
+yet (``--fsdp``; ``--mesh_model`` above 1 in stage 0 and the cls probe) parse as in
 JAX; the CLIs raise on them.
 """
 
@@ -113,7 +113,8 @@ class Stage2Config(CommonConfig):
     master_dtype: str = "fp32"
     # activation recompute in the backward: 'full' (the reference's gradient
     # checkpointing), 'none', an integer N (the first N decoder layers; the tower
-    # recomputes all of its layers) or 'dots' (not ported)
+    # recomputes all of its layers) or 'dots' (save the products' outputs, recompute
+    # the rest)
     remat: str = "full"
     num_epochs: int = 5
     batch_size: int = 1

@@ -3,8 +3,9 @@
 Counterpart of ``projectiontrainer_tpu/data/pipeline.py`` (which imports jax):
 
 - ``host_shard_indices``: the per-epoch seeded shuffle and round-robin process shard
-  of ``DistributedSampler.set_epoch``, the rank from ``torch.distributed`` when it is
-  initialised (one process otherwise);
+  of ``DistributedSampler.set_epoch``, the data rank of ``parallel/distributed.py``
+  when the process group is initialised (one process otherwise; the model ranks of one
+  replica read the same rows);
 - ``map_samples``: ``dataset[i]`` on a thread pool, in order (a dataset with the
   process-feed protocol job by job: ``pixel_job`` drawn in index order here, the
   job's pixels on the pool through ``datasets.sample_from_job``, as ``data/feeder.py``'s
@@ -34,12 +35,12 @@ import torch
 
 from projectiontrainer_tpu_torch.data import datasets, feeder
 from projectiontrainer_tpu_torch.data.bucketing import fixed_batcher, pad_to
+from projectiontrainer_tpu_torch.parallel import distributed
 
 
 def process_index_count() -> tuple[int, int]:
-    if torch.distributed.is_available() and torch.distributed.is_initialized():
-        return torch.distributed.get_rank(), torch.distributed.get_world_size()
-    return 0, 1
+    """(data rank, data ranks): the model ranks of one replica read the same rows."""
+    return distributed.data_rank(), distributed.data_size()
 
 
 def host_shard_indices(n: int, *, epoch: int, seed: int = 0, shuffle: bool = True,

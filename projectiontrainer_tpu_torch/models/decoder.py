@@ -13,7 +13,20 @@ A projection goes through ``_proj``, the hook of the JAX package's ``decoder.py:
 a quantized leaf (``ops/quant.py``) is dequantized into its product, and a layer with
 LoRA adapters (``train/lora.py``) adds their delta, with a dropout mask seeded by
 (``lora_seed``, layer, target) so that a remat recompute draws the forward's bits.
-Not ported yet: ``remat='dots'``.
+``remat`` takes the JAX package's values (True, False, an int N, ``'dots'``;
+``core/remat.py`` says what each recomputes).
+
+Tensor parallelism (``parallel/tensor_parallel.py``, the model axis of the mesh): the
+params may be one model rank's shard (``parallel/sharding.py``). q/k/v and gate/up are
+column-parallel (the rank's heads and hidden columns; their input enters through
+``copy_to_model``), o/down row-parallel (all-reduced on exit, any bias added once
+after), so each block makes one all-reduce in the forward and one in the backward.
+Head counts are read from the weights' shapes: the rotary embedding, the q/k RMSNorm
+and the flash kernels act on the rank's heads (``flash_attention.sharded_flash_plan``;
+a single KV head is replicated). The embedding table and the LM head are vocab-sharded:
+``embed`` looks up the rank's rows and all-reduces them (Gemma's ``sqrt(D)`` scale
+after the sum), ``logits`` all-gathers the rank's columns for generation, and the
+caches hold the rank's KV heads. Without a model axis nothing changes.
 
 Caches are updated IN PLACE (the JAX package returns new arrays): the prefill writes
 its K/V into the monolithic cache and each decode step writes slot ``t`` of the
@@ -29,15 +42,18 @@ from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
+from projectiontrainer_tpu_torch.core import remat as remat_mod
 from projectiontrainer_tpu_torch.ops import layers as L
 from projectiontrainer_tpu_torch.ops.attention import dot_product_attention
 from projectiontrainer_tpu_torch.ops.decode_attention import (
     decode_attention, decode_attention_reference,
 )
-from projectiontrainer_tpu_torch.ops.flash_attention import flash_attention
+from projectiontrainer_tpu_torch.ops.flash_attention import (
+    sharded_flash_attention, sharded_flash_plan,
+)
 from projectiontrainer_tpu_torch.ops import quant
+from projectiontrainer_tpu_torch.parallel import tensor_parallel as tp
 from projectiontrainer_tpu_torch.train import lora as lora_mod
 
 
@@ -255,9 +271,15 @@ def init_layer(gen: torch.Generator, cfg: DecoderConfig, dtype=torch.float32, de
 # ---------------------------------------------------------------------------- forward
 
 
+def local_heads(cfg: DecoderConfig) -> tuple[int, int]:
+    """(query heads, KV heads) this model rank holds (all of them without a model axis)."""
+    return sharded_flash_plan(cfg.num_heads, cfg.num_kv_heads, tp.size())
+
+
 def embed(params, cfg: DecoderConfig, input_ids: torch.Tensor) -> torch.Tensor:
-    """Token embedding, with Gemma3's ``sqrt(hidden)`` scale rounded to the table's type."""
-    x = L.embedding_lookup(params["embed_tokens"], input_ids)
+    """Token embedding, with Gemma3's ``sqrt(hidden)`` scale rounded to the table's type
+    (after the sum over the model axis of a vocab-sharded table)."""
+    x = tp.vocab_embedding(params["embed_tokens"]["embedding"], input_ids)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=x.dtype)
     return x
@@ -275,25 +297,41 @@ def _norm(p, x, cfg: DecoderConfig):
     return L.rmsnorm(p, x, eps=cfg.rms_norm_eps, zero_centered=cfg.rmsnorm_zero_centered)
 
 
+ROW_PARALLEL = frozenset({"o_proj", "down_proj"})
+
+
 def _proj(lp, name, x, lora):
     """One projection: a quantized leaf through ``quant.quantized_matmul``, a dense one
     through ``L.linear``; plus the layer's LoRA delta when ``lora`` = (its adapters,
-    LoraConfig, {target: dropout seed} or None) holds one for ``name``."""
+    LoraConfig, {target: dropout seed} or None) holds one for ``name``. Under tensor
+    parallelism o/down are row-parallel: the partial product (LoRA delta included) is
+    all-reduced, then the bias added; a column-parallel bias is the rank's block."""
     p = lp[name]
+    bias = None
+    if tp.size() > 1 and "bias" in p:
+        bias, p = p["bias"], {k: v for k, v in p.items() if k != "bias"}
     y = quant.quantized_matmul(p, x) if quant.is_quantized(p) else L.linear(p, x)
-    if lora is None:
+    if lora is not None:
+        layer, cfg, seeds = lora
+        y = lora_mod.apply_delta(layer, name, cfg, x, y,
+                                 seed=None if seeds is None else seeds[name],
+                                 row_parallel=name in ROW_PARALLEL)
+    if tp.size() == 1:
         return y
-    layer, cfg, seeds = lora
-    return lora_mod.apply_delta(layer, name, cfg, x, y,
-                                seed=None if seeds is None else seeds[name])
+    if name in ROW_PARALLEL:
+        y = tp.reduce_from_model(y)
+    elif bias is not None:
+        bias = tp.local_block(bias, 0, y.shape[-1])
+    return y if bias is None else y + bias.to(y.dtype)
 
 
 def _attention_block(lp, cfg: DecoderConfig, x, sin, cos, *, layer_type, kv_mask,
                      q_offset, cache=None, prefix_len=None, lora=None):
     b, t, _ = x.shape
-    q = _proj(lp, "q_proj", x, lora).reshape(b, t, cfg.num_heads, cfg.head_dim)
-    k = _proj(lp, "k_proj", x, lora).reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
-    v = _proj(lp, "v_proj", x, lora).reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+    x = tp.copy_to_model(x)
+    q = _proj(lp, "q_proj", x, lora).reshape(b, t, -1, cfg.head_dim)
+    k = _proj(lp, "k_proj", x, lora).reshape(b, t, -1, cfg.head_dim)
+    v = _proj(lp, "v_proj", x, lora).reshape(b, t, -1, cfg.head_dim)
     if cfg.qk_norm:
         q = _norm(lp["q_norm"], q, cfg)
         k = _norm(lp["k_norm"], k, cfg)
@@ -320,8 +358,9 @@ def _attention_block(lp, cfg: DecoderConfig, x, sin, cos, *, layer_type, kv_mask
 
     k, v = k.to(q.dtype), v.to(q.dtype)
     if cfg.attn_impl == "kernel" and k.shape[1] == t and q_offset == 0:
-        out = flash_attention(q, k, v, scale=cfg.attn_scale, causal=True, window=window,
-                              kv_mask=kv_mask)[0]
+        out = sharded_flash_attention(q, k, v, heads=(cfg.num_heads, cfg.num_kv_heads),
+                                      model=tp.size(), scale=cfg.attn_scale, causal=True,
+                                      window=window, kv_mask=kv_mask)[0]
     else:
         out = dot_product_attention(q, k, v, scale=cfg.attn_scale, causal=True,
                                     window=window, kv_mask=kv_mask, q_offset=q_offset)
@@ -329,6 +368,7 @@ def _attention_block(lp, cfg: DecoderConfig, x, sin, cos, *, layer_type, kv_mask
 
 
 def _mlp_block(lp, cfg: DecoderConfig, x, lora=None):
+    x = tp.copy_to_model(x)
     gate = L.ACTIVATIONS[cfg.act](_proj(lp, "gate_proj", x, lora))
     return _proj(lp, "down_proj", gate * _proj(lp, "up_proj", x, lora), lora)
 
@@ -357,9 +397,9 @@ def forward(params, cfg: DecoderConfig, *, input_ids=None, inputs_embeds=None,
     Without a cache: a full-sequence forward, differentiable with respect to
     ``inputs_embeds`` and any parameter that requires grad. ``remat=True``
     recomputes every layer's activations in the backward (``torch.utils.checkpoint``,
-    non-reentrant), an int N only the first N layers', as ``decoder.py:431-447`` of
-    the JAX package does; ``'dots'`` (save only matmul outputs) is not ported and
-    raises. With a monolithic cache (``init_cache``): ``q_offset`` tokens are already
+    non-reentrant), an int N only the first N layers', ``'dots'`` every layer's but
+    its products' outputs (``core/remat.py``), as ``decoder.py:431-447`` of the JAX
+    package does. With a monolithic cache (``init_cache``): ``q_offset`` tokens are already
     cached and ``attention_mask`` covers the whole cache. With a split cache
     (``split_cache``): ``q_offset`` is the 0-based decode step, ``attention_mask`` the
     [B, P] prefix mask, ``prefix_len`` the real prefix length, and ``positions`` must
@@ -369,8 +409,7 @@ def forward(params, cfg: DecoderConfig, *, input_ids=None, inputs_embeds=None,
     adapters' deltas to every adapted projection; ``lora_seed`` (an int, the train
     step's) turns on their dropout when ``lora_cfg.dropout > 0``: layer i, target t
     draws its mask from ``lora.dropout_seed(lora_seed, i, t)``. None is no dropout."""
-    if remat == "dots":
-        raise NotImplementedError("remat='dots' is not ported; use True, False or an int")
+    remat_mod.check(remat)
     x = embed(params, cfg, input_ids) if inputs_embeds is None else inputs_embeds
     b, t, _ = x.shape
     if positions is None:
@@ -390,12 +429,8 @@ def forward(params, cfg: DecoderConfig, *, input_ids=None, inputs_embeds=None,
         fn = functools.partial(_layer, lp, cfg, layer_type=layer_type, kv_mask=kv_mask,
                                q_offset=q_offset, cache=None if cache is None else cache[i],
                                prefix_len=prefix_len, lora=layer_lora)
-        # True == 1 in Python: test for bool before the int (partial remat) branch
-        layer_remat = remat if isinstance(remat, bool) else i < int(remat)
-        if layer_remat and cache is None and torch.is_grad_enabled():
-            x = checkpoint(fn, x, sin, cos, use_reentrant=False)
-        else:
-            x = fn(x, sin, cos)
+        policy = remat_mod.layer_remat(remat, i) if cache is None else False
+        x = remat_mod.run(fn, policy, x, sin, cos)
     return _norm(params["final_norm"], x, cfg), cache
 
 
@@ -407,16 +442,17 @@ def lm_head_table(params, cfg: DecoderConfig) -> torch.Tensor:
 
 
 def logits(params, cfg: DecoderConfig, hidden: torch.Tensor) -> torch.Tensor:
-    """LM head -> fp32 logits. The product runs in the hidden states' type; with bf16
-    weights the logits are rounded to bf16 before the fp32 cast (JAX accumulates
+    """LM head -> fp32 logits over the whole vocab (a vocab-sharded head's columns
+    gathered over the model axis). The product runs in the hidden states' type; with
+    bf16 weights the logits are rounded to bf16 before the fp32 cast (JAX accumulates
     straight into fp32)."""
-    w = params["lm_head"]["weight"]
-    return F.linear(hidden, w.to(hidden.dtype)).float()
+    return tp.vocab_logits(hidden, params["lm_head"]["weight"]).float()
 
 
 def init_cache(cfg: DecoderConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                device=None):
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    """The monolithic cache of the KV heads this rank holds."""
+    shape = (batch, max_len, local_heads(cfg)[1], cfg.head_dim)
     return [{"k": torch.zeros(shape, dtype=dtype, device=device),
              "v": torch.zeros(shape, dtype=dtype, device=device)}
             for _ in range(cfg.num_layers)]
@@ -425,7 +461,8 @@ def init_cache(cfg: DecoderConfig, batch: int, max_len: int, dtype=torch.bfloat1
 def split_cache(prefix_cache, cfg: DecoderConfig, rows: int, gen_len: int,
                 prefix_mask=None, pad_to: int = 1):
     """Prefilled monolithic cache [B, P] -> the split decode structure: head-major
-    prefix caches [B, Hkv, P, D] and zeroed generated caches [rows, Hkv, G, D]
+    prefix caches [B, Hkv, P, D] and zeroed generated caches [rows, Hkv, G, D] (Hkv the
+    rank's KV heads)
     (``rows`` = B * beams, ``gen_len`` = max_new_tokens). ``pad_to`` pads P and G up,
     with the padded prefix slots masked in the returned prefix mask.
     Returns (cache_list, prefix_mask)."""
@@ -440,7 +477,7 @@ def split_cache(prefix_cache, cfg: DecoderConfig, rows: int, gen_len: int,
         vp = layer["v"].transpose(1, 2)
         kp = F.pad(kp, (0, 0, 0, p_pad - p)).contiguous()
         vp = F.pad(vp, (0, 0, 0, p_pad - p)).contiguous()
-        shape = (rows, cfg.num_kv_heads, g_pad, cfg.head_dim)
+        shape = (rows, kp.shape[1], g_pad, cfg.head_dim)
         out.append({"kp": kp, "vp": vp,
                     "kg": torch.zeros(shape, dtype=kp.dtype, device=kp.device),
                     "vg": torch.zeros(shape, dtype=kp.dtype, device=kp.device)})

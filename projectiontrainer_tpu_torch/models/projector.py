@@ -3,7 +3,10 @@
 Counterpart of ``projectiontrainer_tpu/models/projector.py``: ``Linear(v, ef*v) ->
 exact GELU -> Linear(ef*v, llm)`` per patch. Its parameters stay fp32 over a bf16
 tower output: each linear computes in fp32 and casts back to the input's type, as
-JAX's dtype promotion does (``ops/layers.py:linear``).
+JAX's dtype promotion does (``ops/layers.py:linear``). Under tensor parallelism
+(``parallel/tensor_parallel.py``) fc1 is column-parallel (the rank's hidden columns)
+and fc2 row-parallel (all-reduced on exit, its bias added once after), as the JAX
+rules shard them (``parallel/sharding.py:46-53`` there).
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import dataclasses
 import torch
 
 from projectiontrainer_tpu_torch.ops import layers as L
+from projectiontrainer_tpu_torch.parallel import tensor_parallel as tp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +41,9 @@ def init(gen: torch.Generator, cfg: ProjectorConfig, dtype=torch.float32, device
 
 def forward(params, x: torch.Tensor) -> torch.Tensor:
     """x [B, P, vision_dim] -> [B, P, llm_dim]; GELU is exact (torch nn.GELU default)."""
+    if tp.size() > 1:
+        h = L.gelu(tp.column_linear(params["fc1"], tp.copy_to_model(x)), approximate=False)
+        return tp.row_linear(params["fc2"], h)
     h = L.gelu(L.linear(params["fc1"], x), approximate=False)
     return L.linear(params["fc2"], h)
 

@@ -16,22 +16,30 @@ plain functions on any device ("plain"), which the end-to-end checks on the card
 compare the kernel path against. The MAP head's attention (one query against every
 patch) is always the plain one: the flash kernels take self-attention shapes only, as
 the JAX package's gate does (``flash_attention_supported``).
+
+Tensor parallelism (stages 1 and 2's vision tower; ``parallel/tensor_parallel.py``):
+with a model axis the encoder layers hold one rank's shard (``parallel/sharding.py``):
+q/k/v and fc1 column-parallel, out_proj and fc2 row-parallel (all-reduced on exit, the
+bias added once after), the heads read from the weights' shapes; the LayerNorms (K2,
+K8) run row-local on the replicated residual stream.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional, Union
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
+from projectiontrainer_tpu_torch.core import remat as remat_mod
 from projectiontrainer_tpu_torch.core.pytree import leaves_with_paths
 from projectiontrainer_tpu_torch.ops import fused_layernorm as FLN
 from projectiontrainer_tpu_torch.ops import layers as L
 from projectiontrainer_tpu_torch.ops.attention import dot_product_attention
 from projectiontrainer_tpu_torch.ops.flash_attention import flash_attention
+from projectiontrainer_tpu_torch.parallel import tensor_parallel as tp
 from projectiontrainer_tpu_torch.utils.timing import span
 
 
@@ -209,16 +217,18 @@ def _attention(cfg: TowerConfig, q, k, v):
 
 
 def _encoder_layer(p, cfg: TowerConfig, x):
-    b, t, d = x.shape
-    h = _ln(p["ln1"], cfg, x)
-    shape = (b, t, cfg.num_heads, cfg.head_dim)
-    q = L.linear(p["attn"]["q_proj"], h).reshape(shape)
-    k = L.linear(p["attn"]["k_proj"], h).reshape(shape)
-    v = L.linear(p["attn"]["v_proj"], h).reshape(shape)
-    h = L.linear(p["attn"]["out_proj"], _attention(cfg, q, k, v).reshape(b, t, d))
+    b, t, _ = x.shape
+    col, row = ((L.linear, L.linear) if tp.size() == 1
+                else (tp.column_linear, tp.row_linear))
+    h = tp.copy_to_model(_ln(p["ln1"], cfg, x))
+    shape = (b, t, -1, cfg.head_dim)  # the rank's heads
+    q = col(p["attn"]["q_proj"], h).reshape(shape)
+    k = col(p["attn"]["k_proj"], h).reshape(shape)
+    v = col(p["attn"]["v_proj"], h).reshape(shape)
+    h = row(p["attn"]["out_proj"], _attention(cfg, q, k, v).reshape(b, t, -1))
     x = x + h
-    h = _ln(p["ln2"], cfg, x)
-    h = L.linear(p["mlp"]["fc2"], L.gelu(L.linear(p["mlp"]["fc1"], h), approximate=True))
+    h = tp.copy_to_model(_ln(p["ln2"], cfg, x))
+    h = row(p["mlp"]["fc2"], L.gelu(col(p["mlp"]["fc1"], h), approximate=True))
     return x + h
 
 
@@ -237,19 +247,14 @@ def _map_head(p, cfg: VisionConfig, x):
     return (residual + h)[:, 0]
 
 
-def _encoder(layers, cfg: TowerConfig, x, remat: Union[bool, int]):
+def _encoder(layers, cfg: TowerConfig, x, remat: Union[bool, int, str]):
     """The encoder blocks; ``remat`` True recomputes every layer in the backward
-    (``torch.utils.checkpoint``), an int N the first N only; 'dots' (save the matmul
-    outputs) is not ported."""
-    if remat == "dots":
-        raise NotImplementedError("remat='dots' is not ported; use True, False or an int")
+    (``torch.utils.checkpoint``), an int N the first N only, 'dots' every layer but its
+    products' outputs (``core/remat.py``)."""
+    remat_mod.check(remat)
     for i, lp in enumerate(layers):
-        # True == 1 in Python: test for bool before the int (partial remat) branch
-        layer_remat = remat if isinstance(remat, bool) else i < int(remat)
-        if layer_remat and torch.is_grad_enabled():
-            x = checkpoint(_encoder_layer, lp, cfg, x, use_reentrant=False)
-        else:
-            x = _encoder_layer(lp, cfg, x)
+        x = remat_mod.run(functools.partial(_encoder_layer, lp, cfg),
+                          remat_mod.layer_remat(remat, i), x)
     return x
 
 

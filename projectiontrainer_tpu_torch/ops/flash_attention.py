@@ -27,6 +27,14 @@ tile visits (K4) under the causal mask and the window (``kv_tile_range``,
 strided ``[B, T, H, D]`` tensor (``tensor_map_plan``), through which the TMA unit reads
 q, k, v and dO as they lie.
 
+``sharded_flash_plan`` and ``sharded_flash_attention`` are the counterparts of the JAX
+package's heads-over-model ``shard_map`` (``ops/flash_attention.py:864-933`` there):
+under tensor parallelism each model rank runs the same kernels on its ``hq / m`` query
+heads and ``hkv / m`` KV heads (one KV head replicated); attention is independent per
+(batch, head), so no collective is needed. Where the JAX plan returns None and JAX
+falls back to XLA attention, the plan raises here (``parallel/sharding.py`` calls it
+when the model is sharded, before any step).
+
 ``flash_attention_merged`` is the counterpart of the TPU's merged-lane kernels
 (``_fwd_lanes_kernel``, ``_bwd_dkv_lanes_kernel``, ``_bwd_dq_lanes_kernel`` via
 ``_flash_lanes``): the same math on head-merged ``[B, T, H*D]`` tensors. The TPU needs
@@ -325,6 +333,37 @@ def flash_attention(q, k, v, *, scale: Optional[float] = None, causal: bool = Fa
     if scale is None:
         scale = q.shape[-1] ** -0.5
     return _FlashAttention.apply(q, k, v, kv_mask, float(scale), bool(causal), window)
+
+
+def sharded_flash_plan(hq: int, hkv: int, model: int) -> tuple[int, int]:
+    """(query heads, KV heads) of each of ``model`` ranks: the query heads split over
+    the ranks, the KV heads too, or replicated when there is one. Raises where the JAX
+    plan returns None: heads the model axis does not divide (a replicated multi-head KV
+    would pair rank s's query heads with the wrong KV group)."""
+    if model == 1:
+        return hq, hkv
+    if hq % model:
+        raise ValueError(f"tensor parallel: {hq} query heads do not divide over {model} "
+                         "model ranks")
+    if hkv != 1 and hkv % model:
+        raise ValueError(f"tensor parallel: {hkv} KV heads neither divide over {model} "
+                         "model ranks nor are one replicated head")
+    hq_l, hkv_l = hq // model, 1 if hkv == 1 else hkv // model
+    if hq_l % hkv_l:
+        raise ValueError(f"tensor parallel: {hq_l} query heads a rank is not a multiple "
+                         f"of {hkv_l} KV heads")
+    return hq_l, hkv_l
+
+
+def sharded_flash_attention(q, k, v, *, heads: tuple[int, int], model: int, **kw):
+    """``flash_attention`` on one model rank's heads: q [B, T, hq / m, D], k/v [B, T,
+    hkv / m (or 1), D] of a model with ``heads`` = (hq, hkv) over ``model`` ranks; the
+    shapes are held to :func:`sharded_flash_plan`."""
+    hq_l, hkv_l = sharded_flash_plan(*heads, model)
+    if q.shape[2] != hq_l or k.shape[2] != hkv_l or v.shape[2] != hkv_l:
+        raise ValueError(f"sharded flash attention: heads {q.shape[2]}/{k.shape[2]} on a "
+                         f"rank, the plan of {heads} over {model} says {hq_l}/{hkv_l}")
+    return flash_attention(q, k, v, **kw)
 
 
 def _split_heads(x, heads: int):

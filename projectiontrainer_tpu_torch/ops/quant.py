@@ -32,6 +32,12 @@ nf4-mirror    ``qvalues_block`` int8 [out, in],       ``qvalues_block`` [in, out
 product to XLA outside any Pallas kernel, so the library's product is the port's too
 (a fused dequant-GEMM is ROADMAP item B7). ``quantize_decoder`` quantizes the seven
 projections of every layer and leaves embeddings, norms and ``lm_head`` as they are.
+
+Under tensor parallelism a layer is quantized whole and its leaves then sliced to a
+model rank's shard (``train/setup.py``, ``parallel/sharding.py``): int8's scale of an
+output channel spans the whole input, so quantizing a row-parallel shard alone would
+change the codes of o_proj and down_proj; NF4 blocks of 64 along the input stay whole
+on a rank because its input share is a multiple of 64.
 """
 
 from __future__ import annotations

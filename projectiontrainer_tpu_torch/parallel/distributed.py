@@ -1,5 +1,5 @@
-"""Multi-process runtime: the process group, host-side gathers and the collectives of
-a data-parallel train step.
+"""Multi-process runtime: the process group, the data x model mesh's groups, host-side
+gathers and the collectives of a train step.
 
 Counterpart of ``projectiontrainer_tpu/parallel/distributed.py``. The JAX package runs
 one process per host and lets XLA insert the gradient psum; the port runs one process
@@ -16,7 +16,16 @@ itself:
   collective per leaf would be hundreds of collectives a step in stage 2);
 - :func:`all_gather_with_grad` concatenates a tensor over the ranks; its backward sums
   the incoming gradient over the ranks and keeps the rank's own slice (gloo has no
-  reduce-scatter).
+  reduce-scatter);
+- :func:`setup_mesh` lays the world out as the JAX package's ``data`` x ``model`` mesh
+  (rank r at ``(r // model, r % model)``, ``np.reshape(devices, (data, model))``) and
+  creates one process group per row and per column, in the same order on every rank.
+
+Every helper above works over the **data** axis: the ranks that hold different rows. A
+model axis of size m makes m ranks hold one replica's rows together (tensor
+parallelism, ``parallel/tensor_parallel.py``), so the losses' global counts, the
+gradient all-reduce, the evaluation gathers and the dropout seeds go over the data group
+only; :func:`all_reduce_` and :func:`all_gather_dim` take the axis explicitly.
 
 Backends: ``nccl`` for ranks on their own GPUs, ``gloo`` for the CPU, or for ranks that
 share a GPU (NCCL refuses two ranks on one device). Gloo runs its collectives on the
@@ -41,6 +50,10 @@ DEFAULT_TIMEOUT_S = 600.0
 # the gradient all-reduce's flat buckets: large enough for few collectives, small
 # enough that the flat copy is a small part of the card's memory
 BUCKET_BYTES = 256 << 20
+DATA_AXIS = "data"
+MODEL_AXIS = "model"
+# the resolved mesh of this process (setup_mesh): axis sizes and this rank's groups
+_MESH = {"data": 1, "model": 1, "groups": {}}
 
 
 def is_initialized() -> bool:
@@ -75,10 +88,11 @@ def is_main() -> bool:
 
 
 def rank_seed(seed: int) -> int:
-    """``seed`` on rank 0, and a seed of its own for every other rank (splitmix64's
-    finaliser of the seed and the rank): dropout masks that differ across the ranks,
-    as they differ across the rows of the JAX package's global batch."""
-    r = rank()
+    """``seed`` on data rank 0, and a seed of its own for every other data rank
+    (splitmix64's finaliser of the seed and the data rank): dropout masks that differ
+    across the rows of the global batch, as in the JAX package, and the same masks on
+    the model ranks that hold the same rows."""
+    r = data_rank()
     if r == 0:
         return int(seed)
     z = (int(seed) * 0x9E3779B97F4A7C15 + r) & ((1 << 64) - 1)
@@ -134,6 +148,54 @@ def initialize(device_type: str = "cuda", backend: Optional[str] = None,
 def shutdown() -> None:
     if is_initialized():
         dist.destroy_process_group()
+    _MESH.update({"data": 1, "model": 1, "groups": {}})
+
+
+def setup_mesh(data: int, model: int) -> None:
+    """Lay the world out as a ``data`` x ``model`` mesh: rank r at (r // model, r % model).
+    Every rank creates every group, columns (the data groups: the ranks of one model
+    index) then rows (the model groups: the ranks of one replica), in the same order."""
+    if data * model != world_size():
+        raise ValueError(f"mesh {data}x{model} over a world of {world_size()}")
+    _MESH.update({"data": data, "model": model, "groups": {}})
+    if model == 1 or world_size() == 1:
+        return  # the data group is the world; no model group
+    r = rank()
+    for j in range(model):
+        g = dist.new_group([d * model + j for d in range(data)])
+        if r % model == j:
+            _MESH["groups"][DATA_AXIS] = g
+    for d in range(data):
+        g = dist.new_group([d * model + j for j in range(model)])
+        if r // model == d:
+            _MESH["groups"][MODEL_AXIS] = g
+
+
+def data_size() -> int:
+    """Ranks that hold different rows (the data axis); the world without a model axis."""
+    return world_size() // _MESH["model"]
+
+
+def data_rank() -> int:
+    return rank() // _MESH["model"]
+
+
+def model_size() -> int:
+    """Ranks that share one replica's rows (the model axis; 1 without tensor parallelism)."""
+    return _MESH["model"]
+
+
+def model_rank() -> int:
+    return rank() % _MESH["model"]
+
+
+def axis_size(axis: str) -> int:
+    return data_size() if axis == DATA_AXIS else model_size()
+
+
+def _group(axis: str):
+    """The process group of this rank's ``axis`` (None: the world)."""
+    return _MESH["groups"].get(axis)
 
 
 def barrier() -> None:
@@ -160,32 +222,44 @@ def _staged(t: torch.Tensor) -> torch.Tensor:
     return t.cpu()
 
 
-def all_reduce_sum_(t: torch.Tensor) -> torch.Tensor:
-    """Sum ``t`` over the ranks, in place; returns ``t``."""
-    if world_size() == 1:
+def all_reduce_(t: torch.Tensor, axis: str = DATA_AXIS, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Reduce ``t`` (sum, or ``op``) over the ranks of ``axis``, in place; returns ``t``."""
+    if axis_size(axis) == 1:
         return t
     c = _staged(t)
-    dist.all_reduce(c)
+    dist.all_reduce(c, op=op, group=_group(axis))
     if c is not t:
         t.copy_(c)
     return t
 
 
+def all_reduce_sum_(t: torch.Tensor) -> torch.Tensor:
+    """Sum ``t`` over the data ranks, in place; returns ``t``."""
+    return all_reduce_(t, DATA_AXIS)
+
+
 def sum_over_ranks(x: torch.Tensor) -> torch.Tensor:
-    """A new tensor: ``x`` (detached) summed over the ranks; ``x`` itself alone."""
-    if world_size() == 1:
+    """A new tensor: ``x`` (detached) summed over the data ranks; ``x`` itself alone."""
+    if data_size() == 1:
         return x
     return all_reduce_sum_(x.detach().clone())
 
 
-def all_gather(x: torch.Tensor) -> torch.Tensor:
-    """Every rank's ``x`` (the same shape on each) concatenated along dim 0, in rank order."""
-    if world_size() == 1:
+def all_gather_dim(x: torch.Tensor, dim: int, axis: str = DATA_AXIS) -> torch.Tensor:
+    """Every rank's ``x`` of ``axis`` (the same shape on each) concatenated along
+    ``dim``, in rank order; not differentiable."""
+    if axis_size(axis) == 1:
         return x
     c = _staged(x.detach().contiguous())
-    out = [torch.empty_like(c) for _ in range(world_size())]
-    dist.all_gather(out, c)
-    return torch.cat(out).to(x.device, x.dtype)
+    out = [torch.empty_like(c) for _ in range(axis_size(axis))]
+    dist.all_gather(out, c, group=_group(axis))
+    return torch.cat(out, dim=dim).to(x.device, x.dtype)
+
+
+def all_gather(x: torch.Tensor) -> torch.Tensor:
+    """Every data rank's ``x`` (the same shape on each) concatenated along dim 0, in
+    rank order."""
+    return all_gather_dim(x, 0, DATA_AXIS)
 
 
 class _AllGatherWithGrad(torch.autograd.Function):
@@ -197,15 +271,15 @@ class _AllGatherWithGrad(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         grad = all_reduce_sum_(grad.contiguous().clone())
-        r = rank()
+        r = data_rank()
         return grad[r * ctx.rows:(r + 1) * ctx.rows]
 
 
 def all_gather_with_grad(x: torch.Tensor) -> torch.Tensor:
     """:func:`all_gather` that autograd differentiates: the gradient of the rank's rows
-    is the sum over the ranks of the gradients of those rows of the concatenation
+    is the sum over the data ranks of the gradients of those rows of the concatenation
     (each rank's loss reads every rank's rows)."""
-    if world_size() == 1:
+    if data_size() == 1:
         return x
     return _AllGatherWithGrad.apply(x)
 
@@ -239,22 +313,24 @@ def _coalesced(tensors: Sequence[torch.Tensor], collective) -> None:
             offset += t.numel()
 
 
-def all_reduce_grads(grads: Sequence[torch.Tensor]) -> None:
-    """Sum every gradient over the ranks, in place: one collective for each flat bucket
-    of one device and type (:func:`_buckets`)."""
-    if world_size() > 1:
-        _coalesced(grads, all_reduce_sum_)
+def all_reduce_grads(grads: Sequence[torch.Tensor], axis: str = DATA_AXIS) -> None:
+    """Sum every gradient over the ranks of ``axis`` (the data ranks by default), in
+    place: one collective for each flat bucket of one device and type (:func:`_buckets`)."""
+    if axis_size(axis) > 1:
+        _coalesced(grads, lambda flat: all_reduce_(flat, axis))
 
 
-def broadcast_(tensors: Sequence[torch.Tensor], src: int = 0) -> None:
-    """Overwrite every tensor with rank ``src``'s, in place, bucketed as the gradients:
+def broadcast_(tensors: Sequence[torch.Tensor]) -> None:
+    """Overwrite every tensor with data rank 0's of this rank's data group (the rank of
+    the same model index in the first replica), in place, bucketed as the gradients:
     the replicas start equal."""
-    if world_size() == 1:
+    if data_size() == 1:
         return
+    src = model_rank()  # global rank of (0, model index)
 
     def bcast(flat):
         c = _staged(flat)
-        dist.broadcast(c, src)
+        dist.broadcast(c, src, group=_group(DATA_AXIS))
         if c is not flat:
             flat.copy_(c)
 
@@ -282,7 +358,7 @@ def broadcast_value(value: float, src: int = 0) -> float:
 
 
 def _gather_padded(rows: np.ndarray) -> list[np.ndarray]:
-    """Each rank's ``rows`` ([n_r, row_bytes] uint8, n_r free per rank): the sizes
+    """Each data rank's ``rows`` ([n_r, row_bytes] uint8, n_r free per rank): the sizes
     exchanged, every block padded to the largest, gathered and trimmed, in rank order."""
     device = _host_device()
     sizes = all_gather(torch.tensor([rows.shape[0]], dtype=torch.int64, device=device))
@@ -295,11 +371,11 @@ def _gather_padded(rows: np.ndarray) -> list[np.ndarray]:
 
 
 def gather_ragged(local) -> np.ndarray:
-    """Every rank's array (leading dims free per rank; the same type and trailing dims
-    on each) concatenated in rank order: the Stage-0 padded all-gather
+    """Every data rank's array (leading dims free per rank; the same type and trailing
+    dims on each) concatenated in rank order: the Stage-0 padded all-gather
     (reference :362-411)."""
     local = np.asarray(local)
-    if world_size() == 1:
+    if data_size() == 1:
         return local
     row_bytes = int(np.prod(local.shape[1:], dtype=np.int64)) * local.dtype.itemsize
     rows = np.frombuffer(np.ascontiguousarray(local).tobytes(), np.uint8)
@@ -309,9 +385,9 @@ def gather_ragged(local) -> np.ndarray:
 
 
 def gather_objects(local: Sequence[Any]) -> list[Any]:
-    """Every rank's picklable objects (validation example strings) in one list, in rank
-    order; only this program's own ranks' bytes are unpickled."""
-    if world_size() == 1:
+    """Every data rank's picklable objects (validation example strings) in one list, in
+    rank order; only this program's own ranks' bytes are unpickled."""
+    if data_size() == 1:
         return list(local)
     payload = np.frombuffer(pickle.dumps(list(local)), np.uint8)
     out = []

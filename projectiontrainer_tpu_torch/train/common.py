@@ -24,17 +24,23 @@ from projectiontrainer_tpu_torch.data import pipeline as pipe
 from projectiontrainer_tpu_torch.parallel import distributed
 
 
-def init_world(cfg: CommonConfig) -> mesh.Mesh:
-    """Join the data-parallel world and resolve the mesh over it; ``cfg.device`` becomes
+def init_world(cfg: CommonConfig, *, tensor_parallel: bool = False) -> mesh.Mesh:
+    """Join the world and resolve the data x model mesh over it; ``cfg.device`` becomes
     the rank's card (``cuda:<local rank>``) and ``cfg.num_loader_procs`` its share of
     the host's feeder workers (the host's count over its ranks).
 
     A process that a launcher started (``RANK``/``WORLD_SIZE`` set: ``cli/launch.py``
     or ``torchrun``) joins the process group (``parallel/distributed.py``); the mesh
-    is then ``--mesh_data`` ranks (-1: every rank). ``--mesh_model`` above 1 and
-    ``--fsdp`` raise: tensor parallelism and sharded parameters are not ported yet. A
-    process that no launcher started is a world of one, so ``--mesh_data`` -1 with
-    several GPUs visible raises there: every GPU needs a process of its own."""
+    is then ``--mesh_data`` x ``--mesh_model`` ranks (-1: the rest of the world), and
+    the mesh's groups are created. ``--mesh_model`` above 1 is tensor parallelism,
+    which stages 1 and 2 pass ``tensor_parallel`` for; stage 0 and the cls probe raise
+    for it. ``--fsdp`` raises: sharded optimizer state is not ported yet. A process
+    that no launcher started is a world of one, so ``--mesh_data`` -1 with several GPUs
+    visible raises there: every GPU needs a process of its own."""
+    if cfg.mesh_model > 1 and not tensor_parallel:
+        raise NotImplementedError(
+            f"--mesh_model {cfg.mesh_model}: tensor parallelism is not ported for this stage "
+            "yet (stages 1 and 2 have it); run data parallel with --mesh_model 1")
     if cfg.fsdp:
         raise NotImplementedError(
             "--fsdp: sharded parameters and optimizer state are not ported yet (they come "
@@ -53,6 +59,7 @@ def init_world(cfg: CommonConfig) -> mesh.Mesh:
     distributed.initialize(device.type)
     world = mesh.build_mesh(mesh.MeshConfig(cfg.mesh_data, cfg.mesh_model),
                             distributed.world_size())
+    distributed.setup_mesh(world.data, world.model)
     if device.type == "cuda" and device.index is None:
         cfg.device = f"cuda:{torch.cuda.current_device()}"
     if cfg.num_loader_procs > 0:
@@ -119,13 +126,14 @@ def to_host(x) -> np.ndarray:
 
 
 def sync_replicas(params, paths) -> None:
-    """Overwrite the leaves of ``params`` at ``paths`` (the leaves that train) with rank
-    0's: the data-parallel replicas start equal, whatever each rank built or restored."""
+    """Overwrite the leaves of ``params`` at ``paths`` (the leaves that train) with data
+    rank 0's (the same model index's shard): the data-parallel replicas start equal,
+    whatever each rank built or restored."""
     distributed.broadcast_([x for p, x in unique_leaves_with_paths(params) if p in paths])
 
 
 def gather_rows(x) -> np.ndarray:
-    """Every rank's rows of ``x`` (a tensor or array) on the host, in rank order: what
+    """Every data rank's rows of ``x`` (a tensor or array) on the host, in rank order: what
     the JAX package's ``to_host`` reads from a global array under a data mesh."""
     return distributed.gather_ragged(to_host(x))
 

@@ -18,6 +18,14 @@ min(round((1 - p) * 65536), 65535)``, keep ``bits < thresh``, the scale times
 (``seed``, layer, target) (``dropout_seed``), not from JAX's ``rbg`` stream: the masks
 differ from JAX's draw for draw, their distribution does not. A fresh generator per
 mask makes a remat recompute draw the same bits as the forward it repeats.
+
+Tensor parallelism (``parallel/sharding.py``): the adapters follow the base's sharding.
+A column target's ``b`` holds the rank's output rows and its ``a`` is replicated; a row
+target's ``a`` holds the rank's input columns and its ``b`` is replicated, so a row
+target's delta is partial, like the base product it joins before the all-reduce. A row
+target's dropout mask is the rank's slice of the full mask along the input, drawn whole
+and sliced; a column target's mask is the full one on every model rank (their dropout
+seeds come from the data rank). ``merge_into_decoder`` merges shard by shard.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ import torch.nn.functional as F
 
 from projectiontrainer_tpu_torch.ops import quant
 from projectiontrainer_tpu_torch.parallel import distributed
+from projectiontrainer_tpu_torch.parallel import tensor_parallel as tp
 
 TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
 ATTN_TARGETS = frozenset({"q_proj", "k_proj", "v_proj", "o_proj"})
@@ -112,17 +121,25 @@ def dropout_mask(shape, seed: int, p: float, device) -> torch.Tensor:
 
 
 def apply_delta(lora_layer: Optional[dict], target: str, cfg: LoraConfig, x: torch.Tensor,
-                y: torch.Tensor, seed: Optional[int] = None) -> torch.Tensor:
+                y: torch.Tensor, seed: Optional[int] = None,
+                row_parallel: bool = False) -> torch.Tensor:
     """y + scaling * (dropout(x) A^T) B^T for one projection; y itself when the target
     is not adapted. ``seed`` (a mask seed, ``dropout_seed``) turns on the dropout when
-    ``cfg.dropout > 0``; None (evaluation) is the identity."""
+    ``cfg.dropout > 0``; None (evaluation) is the identity. ``row_parallel``: under a
+    model axis, x holds the rank's input columns, and the mask is the rank's slice of the
+    whole input's mask."""
     if lora_layer is None or target not in lora_layer:
         return y
     p = lora_layer[target]
     a, b = p["a"].to(x.dtype), p["b"].to(x.dtype)
     scale = cfg.scaling
     if seed is not None and cfg.dropout > 0.0:
-        keep = dropout_mask(x.shape, seed, cfg.dropout, x.device)
+        if row_parallel and tp.size() > 1:
+            n = x.shape[-1]
+            keep = dropout_mask(x.shape[:-1] + (n * tp.size(),), seed, cfg.dropout,
+                                x.device).narrow(-1, tp.rank() * n, n)
+        else:
+            keep = dropout_mask(x.shape, seed, cfg.dropout, x.device)
         x = torch.where(keep, x, torch.zeros((), dtype=x.dtype, device=x.device))
         scale = scale * (65536.0 / dropout_threshold(cfg.dropout))
     delta = F.linear(F.linear(x, a), b)
@@ -133,7 +150,8 @@ def merge_into_decoder(dec_params: dict, lora_params: dict, cfg: LoraConfig) -> 
     """A plain decoder tree with W + scaling * B A in place of each adapted projection
     (export, generation). A quantized base is dequantized to bf16 first; the sum is
     taken in fp32 and stored in the weight's type. Tensors not adapted are shared with
-    ``dec_params``."""
+    ``dec_params``. On a model rank's shards it merges the rank's shard: B's rows (a
+    column target) or A's columns (a row target) are the rank's, the other factor whole."""
     merged = {k: v for k, v in dec_params.items() if k != "layers"}
     merged["layers"] = [dict(layer, attn=dict(layer["attn"]), mlp=dict(layer["mlp"]))
                         for layer in dec_params["layers"]]

@@ -20,6 +20,11 @@ Counterpart of ``projectiontrainer_tpu/train/optim.py`` for stages 0-2:
   label its own ``adamw`` (``discriminative_optimizer``: the cls probe's head and
   backbone at constant rates of their own).
 
+Under tensor parallelism (``parallel/sharding.py``) each model rank holds a shard of
+some leaves: the norms of the clip (``global_norm`` ``:55``, ``_clip`` ``:137`` of the
+JAX package) sum a sharded leaf's squares over the model axis and count a replicated
+leaf's once (``sharded_paths``), so every model rank clips by the same factor.
+
 ``MaskedAdamW.update`` updates the params IN PLACE (optax returns new arrays). Its
 state is a plain dict of tensors keyed by parameter path, so ``torch.save`` stores
 it and ``checkpoint/from_jax.py`` fills it from an optax state.
@@ -33,6 +38,7 @@ from typing import Callable, Mapping, Optional, Union
 import torch
 
 from projectiontrainer_tpu_torch.core.pytree import leaves_with_paths, unique_leaves_with_paths
+from projectiontrainer_tpu_torch.parallel import tensor_parallel as tp
 from projectiontrainer_tpu_torch.train import masks as M
 
 
@@ -57,6 +63,25 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(t.float().square().sum() for t in tensors))
 
 
+def sharded_global_norms(groups: Mapping[str, Mapping[str, torch.Tensor]],
+                         sharded=frozenset()) -> dict:
+    """{group: global norm} of groups of gradients keyed by path, the leaves at
+    ``sharded`` paths holding one model rank's shard: their squares summed over the
+    model axis (one all-reduce for every group), the replicated leaves' counted once.
+    Without a model axis, ``global_norm`` of each group."""
+    if tp.size() == 1 or not sharded:
+        return {k: global_norm(g.values()) for k, g in groups.items()}
+    rep, part = [], []
+    for g in groups.values():
+        zero = torch.zeros((), dtype=torch.float32, device=next(iter(g.values())).device)
+        rep.append(sum((x.float().square().sum() for p, x in g.items() if p not in sharded),
+                       zero))
+        part.append(sum((x.float().square().sum() for p, x in g.items() if p in sharded),
+                        zero))
+    part = tp.all_reduce(torch.stack(part), "grads")
+    return {k: torch.sqrt(r + s) for k, r, s in zip(groups, rep, part)}
+
+
 class MaskedAdamW:
     """optax ``multi_transform({trainable: chain(clip, adamw), frozen: set_to_zero})``,
     wrapped in ``MultiSteps`` when ``accum_steps > 1``. ``schedule`` is one schedule
@@ -70,13 +95,15 @@ class MaskedAdamW:
     Moments and the accumulator take each leaf's type, as optax's ``zeros_like`` does
     (fp32 masters: fp32 state; bf16 leaves: bf16 state), and each of optax's
     operations rounds to that type, as in JAX. A leaf held under two paths (the tied LM
-    head) has one state, under its first path (``core/pytree.py``)."""
+    head) has one state, under its first path (``core/pytree.py``). ``sharded_paths``:
+    the leaves that hold a model rank's shard (tensor parallelism), for the clip's
+    norms."""
 
     def __init__(self, labels: Mapping,
                  schedule: Union[Callable[[int], float], Mapping[str, Callable[[int], float]]],
                  *, weight_decay: float = 0.01, clip_norm: Optional[float] = None,
                  clip_per_module: bool = False, accum_steps: int = 1, b1: float = 0.9,
-                 b2: float = 0.999, eps: float = 1e-8):
+                 b2: float = 0.999, eps: float = 1e-8, sharded_paths=frozenset()):
         self.label_of = {p: label for p, label in leaves_with_paths(labels)
                          if label != M.FROZEN}
         self.trainable = list(self.label_of)
@@ -86,6 +113,7 @@ class MaskedAdamW:
         self.clip_per_module = clip_per_module
         self.accum_steps = accum_steps
         self.b1, self.b2, self.eps = b1, b2, eps
+        self.sharded_paths = frozenset(sharded_paths)
 
     def init(self, params, carry: Optional[dict] = None) -> dict:
         """Zero state for the trainable leaves. ``carry`` (another ``MaskedAdamW``'s
@@ -137,15 +165,15 @@ class MaskedAdamW:
     def _clip(self, grads: dict) -> dict:
         """Selected on the device: no host sync."""
         if not self.clip_per_module:
-            norm = global_norm(grads.values())
+            norm = sharded_global_norms({"all": grads}, self.sharded_paths)["all"]
             keep = norm < self.clip_norm
             return {p: torch.where(keep, g.float(), g.float() / norm * self.clip_norm)
                     for p, g in grads.items()}
         groups: dict = {}
         for p, g in grads.items():
-            groups.setdefault(p.split("/", 1)[0], []).append(g)
-        factor = {k: torch.clamp(self.clip_norm / (global_norm(gs) + 1e-6), max=1.0)
-                  for k, gs in groups.items()}
+            groups.setdefault(p.split("/", 1)[0], {})[p] = g
+        factor = {k: torch.clamp(self.clip_norm / (norm + 1e-6), max=1.0)
+                  for k, norm in sharded_global_norms(groups, self.sharded_paths).items()}
         return {p: (g.float() * factor[p.split("/", 1)[0]]).to(g.dtype)
                 for p, g in grads.items()}
 
@@ -193,13 +221,15 @@ def _constants(dtype, **values) -> dict:
 def single_group_optimizer(labels: Mapping, lr: float, *, total_steps: int,
                            warmup_ratio: float = 0.0, weight_decay: float = 0.01,
                            clip_norm: Optional[float] = None, clip_per_module: bool = False,
-                           accum_steps: int = 1, warmup_rounding: str = "ceil"):
+                           accum_steps: int = 1, warmup_rounding: str = "ceil",
+                           sharded_paths=frozenset()):
     """One trainable group + frozen rest -> (tx, schedule)."""
     schedule = cosine_schedule_with_warmup(lr, warmup_ratio=warmup_ratio,
                                            total_steps=total_steps,
                                            warmup_rounding=warmup_rounding)
     tx = MaskedAdamW(labels, schedule, weight_decay=weight_decay, clip_norm=clip_norm,
-                     clip_per_module=clip_per_module, accum_steps=accum_steps)
+                     clip_per_module=clip_per_module, accum_steps=accum_steps,
+                     sharded_paths=sharded_paths)
     return tx, schedule
 
 

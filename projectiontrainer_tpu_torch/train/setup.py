@@ -4,7 +4,9 @@ Counterpart of ``projectiontrainer_tpu/train/setup.py``: the pretrained towers a
 stored in bf16 (``frozen_dtype``) and the projector in fp32 (``param_dtype``); the
 projector comes from a stage-1 directory or is initialised from ``seed``; under
 ``--enable_qlora`` the decoder's projections are quantized on the device
-(``ops/quant.py``), layer by layer.
+(``ops/quant.py``), layer by layer. Under tensor parallelism (a model axis,
+``parallel/sharding.py``) each layer is quantized whole and then sliced to the rank's
+shard as it comes, so a rank never holds more than one whole layer beside its shards.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from projectiontrainer_tpu_torch.checkpoint import hf_import
 from projectiontrainer_tpu_torch.models import projector as proj
 from projectiontrainer_tpu_torch.models import vlm
 from projectiontrainer_tpu_torch.ops import quant
+from projectiontrainer_tpu_torch.parallel import distributed, sharding
 
 
 def load_tokenizer(name_or_path: str):
@@ -37,7 +40,8 @@ def build_vlm(vision_model_name: str, llm_name: str, *, device,
     ``quantize_llm`` stores the decoder's projections quantized by ``quant_method``
     ('nf4-mirror', the reference's NF4 value grid with int8 compute; 'nf4', exact; or
     'int8'), each quantized from its ``frozen_dtype`` weight, as the JAX package does;
-    each layer's dense weights are released once it is quantized."""
+    each layer's dense weights are released once it is quantized. With a model axis
+    the params returned are this model rank's shards (:func:`shard_model`)."""
     for path in (vision_model_name, llm_name):
         if not os.path.isdir(path):
             raise FileNotFoundError(f"{path!r} is not a local model directory: download "
@@ -45,10 +49,11 @@ def build_vlm(vision_model_name: str, llm_name: str, *, device,
     vis_cfg, vis_params = hf_import.load_siglip_vision(vision_model_name, device=device,
                                                        dtype=frozen_dtype)
     llm_cfg, llm_params = hf_import.load_decoder(llm_name, device=device, dtype=frozen_dtype)
-    if quantize_llm:
-        layers = llm_params["layers"]
-        for i, layer in enumerate(layers):
-            layers[i] = quant.quantize_layer(layer, method=quant_method)
+    layers = llm_params["layers"]
+    for i, layer in enumerate(layers):
+        if quantize_llm:
+            layer = quant.quantize_layer(layer, method=quant_method)
+        layers[i] = shard_layer(layer, i, llm_cfg)
     if stage1_projector_path:
         proj_cfg, proj_params = hf_import.load_projector(stage1_projector_path, device=device,
                                                          dtype=param_dtype)
@@ -59,4 +64,31 @@ def build_vlm(vision_model_name: str, llm_name: str, *, device,
         gen = torch.Generator(device=device).manual_seed(seed)
         proj_params = proj.init(gen, proj_cfg, param_dtype, device)
     cfg = vlm.VLMConfig(vision=vis_cfg, projector=proj_cfg, llm=llm_cfg)
-    return cfg, {"vision": vis_params, "projector": proj_params, "llm": llm_params}
+    return cfg, shard_model({"vision": vis_params, "projector": proj_params,
+                             "llm": llm_params}, cfg)
+
+
+def shard_layer(layer: dict, i: int, llm_cfg) -> dict:
+    """Decoder layer ``i`` (whole, quantized or not) sliced to this model rank's shard;
+    the layer itself without a model axis."""
+    if distributed.model_size() == 1:
+        return layer
+    prefix = f"llm/layers/{i}"
+    return sharding.shard_params(layer, sharding.plan_for(layer, llm_cfg, prefix=prefix),
+                                 prefix=prefix)
+
+
+def shard_model(params: dict, cfg) -> dict:
+    """A VLM tree whose decoder layers may already be shards (:func:`shard_layer`) with
+    every other leaf sliced to this model rank's shard; the tree itself without a model
+    axis. Raises for a model the model axis does not divide."""
+    if distributed.model_size() == 1:
+        return params
+    sharding.check_config(cfg, distributed.model_size())
+    out = {}
+    for k, v in params.items():
+        rest = {n: x for n, x in v.items() if n != "layers"} if k == "llm" else v
+        rest = sharding.shard_params(rest, sharding.plan_for(rest, cfg, prefix=k), prefix=k)
+        out[k] = ({n: (v["layers"] if n == "layers" else rest[n]) for n in v} if k == "llm"
+                  else rest)
+    return out

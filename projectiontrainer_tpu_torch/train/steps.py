@@ -15,6 +15,13 @@ loss over the whole data-parallel batch (the losses' ``over_ranks``), so the tra
 step sums the gradients over the ranks (span ``grad_allreduce``) right after the
 backward, before the optimizer, and the reported loss is the sum of the shares: the
 JAX package's global mean under its data mesh. In a single process nothing changes.
+
+Tensor parallelism (a model axis; ``parallel/sharding.py``): the params are a model
+rank's shards and the loss is the same on every model rank. The train step takes the
+plan of the shards: it sums the partial gradients of the replicated leaves that act on
+sharded activations over the model axis (one bucketed all-reduce, span
+``tp_allreduce``) before the data all-reduce, and its ``grad_norm`` counts a sharded
+leaf's squares over the model axis.
 """
 
 from __future__ import annotations
@@ -29,8 +36,9 @@ from projectiontrainer_tpu_torch.models import classifier as cls_model
 from projectiontrainer_tpu_torch.models import decoder as dec
 from projectiontrainer_tpu_torch.models import siglip, vlm
 from projectiontrainer_tpu_torch.parallel import distributed
+from projectiontrainer_tpu_torch.parallel import tensor_parallel as tp
 from projectiontrainer_tpu_torch.train import losses
-from projectiontrainer_tpu_torch.train.optim import global_norm
+from projectiontrainer_tpu_torch.train.optim import sharded_global_norms
 from projectiontrainer_tpu_torch.utils.timing import span
 
 
@@ -51,7 +59,7 @@ def swap_optimizer(state: dict, new_tx) -> dict:
 
 
 def make_train_step(loss_fn: Callable, tx, *, trainable_mask=None,
-                    watch_subtree: Optional[str] = None):
+                    watch_subtree: Optional[str] = None, plan=None):
     """loss_fn(params, batch, rng) -> (loss, aux). Returns
     step(state, batch, rng=None) -> (state, loss, aux); ``rng`` (an int, the step's
     seed) reaches the loss, where it seeds the LoRA dropout.
@@ -66,8 +74,13 @@ def make_train_step(loss_fn: Callable, tx, *, trainable_mask=None,
     under a data mesh) and the loss returned is the global one.
     ``aux['grad_norm']`` is the global norm of the raw gradients of the trainable
     leaves; ``watch_subtree`` (a top-level key such as ``'projector'``) adds that
-    subtree's gradients, keyed by their paths inside it, as ``aux['watched_grads']``."""
+    subtree's gradients, keyed by their paths inside it, as ``aux['watched_grads']``.
+    ``plan`` (a ``sharding.ShardPlan``; required with a model axis) names the sharded
+    leaves and those whose gradients are partial on each model rank."""
     mask = None if trainable_mask is None else dict(leaves_with_paths(trainable_mask))
+    if tp.size() > 1 and plan is None:
+        raise ValueError("a train step under tensor parallelism needs the params' shard plan")
+    sharded = plan.sharded if plan is not None else frozenset()
 
     def step(state, batch, rng=None):
         params = state["params"]
@@ -81,13 +94,19 @@ def make_train_step(loss_fn: Callable, tx, *, trainable_mask=None,
         grads = torch.autograd.grad(loss, [x for _, x in train], allow_unused=True)
         grads = {p: torch.zeros_like(x) if g is None else g
                  for (p, x), g in zip(train, grads)}
+        if tp.size() > 1:
+            partial = [g for p, g in grads.items() if p in plan.partial]
+            if partial:
+                with span("tp_allreduce"):
+                    tp.COUNTS["grads"] += 1
+                    distributed.all_reduce_grads(partial, distributed.MODEL_AXIS)
         with span("grad_allreduce"):
             distributed.all_reduce_grads(list(grads.values()))
             loss = distributed.sum_over_ranks(loss.detach())
         with span("optimizer"):
             tx.update(grads, state["opt_state"], params)
             state["step"] += 1
-            aux = {**aux, "grad_norm": global_norm(grads.values())}
+            aux = {**aux, "grad_norm": sharded_global_norms({"all": grads}, sharded)["all"]}
         if watch_subtree is not None:
             prefix = watch_subtree + "/"
             aux["watched_grads"] = {p[len(prefix):]: g for p, g in grads.items()
@@ -112,13 +131,15 @@ def make_eval_step(loss_fn: Callable):
 
 
 def _resolve_ce_impl(ce_impl: str, table_frozen: bool, hidden_size: Optional[int] = None,
-                     on_card: bool = False) -> str:
+                     on_card: bool = False, vocab_size: Optional[int] = None) -> str:
     """'auto' picks the fused linear + CE kernels (``ops/fused_ce.py``) when the
     tensors are on the card and their contract holds: a frozen vocab table and a
-    hidden size that is a multiple of 128. Anything else gets 'chunked'. An explicit
-    'fused' overrides the device choice (on the CPU it runs the kernels' plain
-    versions) but not the contract: the kernels return a zero table gradient, so
-    forcing them on a run that trains the embedding raises."""
+    hidden size that is a multiple of 128; with a model axis (tensor parallelism) also
+    a vocab the model ranks divide (the vocab-parallel kernels; ``train/steps.py:174-216``
+    of the JAX package). Anything else gets 'chunked'. An explicit 'fused' overrides
+    the device choice (on the CPU it runs the kernels' plain versions) but not the
+    contract: the kernels return a zero table gradient, so forcing them on a run that
+    trains the embedding raises."""
     if ce_impl == "fused":
         if not table_frozen:
             raise ValueError(
@@ -133,6 +154,8 @@ def _resolve_ce_impl(ce_impl: str, table_frozen: bool, hidden_size: Optional[int
     if not on_card or not table_frozen:
         return "chunked"
     if hidden_size is not None and hidden_size % 128 != 0:
+        return "chunked"
+    if tp.size() > 1 and vocab_size is not None and vocab_size % tp.size():
         return "chunked"
     return "fused"
 
@@ -188,7 +211,7 @@ def stage1_loss(cfg: vlm.VLMConfig, pad_token_id: int, *, remat=True,
                                                   pad_token_id=pad_token_id,
                                                   caption_ids=batch["caption_ids"])
         impl = _resolve_ce_impl(ce_impl, table_frozen=True, hidden_size=cfg.llm.hidden_size,
-                                on_card=embeds.is_cuda)
+                                on_card=embeds.is_cuda, vocab_size=cfg.llm.vocab_size)
         loss, n_tok = _clm_loss_from_embeds(
             params, cfg, embeds, mask, labels, remat=remat, logits_chunk=logits_chunk,
             sample_weights=batch.get("sample_weight"), ce_impl=impl,
@@ -204,7 +227,8 @@ def stage1_loss(cfg: vlm.VLMConfig, pad_token_id: int, *, remat=True,
 
 def _vis_remat(remat):
     """An integer (partial) remat names decoder layers; the tower then recomputes all
-    of its layers (``train/steps.py:_vis_remat`` of the JAX package)."""
+    of its layers (``train/steps.py:_vis_remat`` of the JAX package); True, False and
+    'dots' pass on to the tower."""
     return True if isinstance(remat, int) and not isinstance(remat, bool) else remat
 
 
@@ -240,7 +264,8 @@ def stage2_loss(cfg: vlm.VLMConfig, pad_token_id: int, *, lora_cfg=None, remat=T
             params, cfg, visual, pad_token_id=pad_token_id,
             question_ids=batch["question_ids"], answer_ids=batch["answer_ids"])
         impl = _resolve_ce_impl(ce_impl, table_frozen=table_frozen,
-                                hidden_size=cfg.llm.hidden_size, on_card=embeds.is_cuda)
+                                hidden_size=cfg.llm.hidden_size, on_card=embeds.is_cuda,
+                                vocab_size=cfg.llm.vocab_size)
         loss, n_tok = _clm_loss_from_embeds(
             params, cfg, embeds, mask, labels, remat=remat, logits_chunk=logits_chunk,
             sample_weights=batch.get("sample_weight"), ce_impl=impl,

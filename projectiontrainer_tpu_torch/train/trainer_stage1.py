@@ -14,6 +14,12 @@ Stage1/projector_trainer.py:18-521):
   metadata names the ``--quant_method`` of an ``--enable_qlora`` run, whose frozen
   base ``train/setup.py`` quantized).
 
+Tensor parallelism (``--mesh_model`` above 1; ``parallel/sharding.py``): ``params``
+hold this model rank's shards (``setup.build_vlm``); the train step sums the partial
+gradients over the model axis, the exports and checkpoints gather the projector's
+shards and rank 0 writes them whole, ``--resume`` slices again, and the validation
+captions are generated on the sharded model.
+
 Any dataset object with ``__len__`` and ``__getitem__`` returning ``{'pixel_values'
 [H, W, C] float32, 'caption_ids' [Tc] int}`` serves (the CLI's is
 ``data/datasets.py``'s ``Stage1PairDataset``).
@@ -35,7 +41,7 @@ from projectiontrainer_tpu_torch.core import dtypes
 from projectiontrainer_tpu_torch.core.config import Stage1Config
 from projectiontrainer_tpu_torch.generate import GenerationConfig, generate
 from projectiontrainer_tpu_torch.models import vlm
-from projectiontrainer_tpu_torch.parallel import distributed
+from projectiontrainer_tpu_torch.parallel import distributed, sharding
 from projectiontrainer_tpu_torch.train import common, masks, optim, steps
 from projectiontrainer_tpu_torch.utils.logging import MetricLogger
 from projectiontrainer_tpu_torch.utils.timing import StepProfiler, StepTimer
@@ -58,6 +64,10 @@ class Stage1Trainer:
                                      num_steps=cfg.profile_num_steps,
                                      rank=distributed.rank())
 
+        # tensor parallelism: params hold this model rank's shards (setup.build_vlm)
+        sharding.check_config(vlm_cfg, distributed.model_size())
+        self.plan = sharding.plan_for(params, vlm_cfg)
+        sharding.check_local(params, vlm_cfg, self.plan)
         gbs = common.global_batch_size(cfg)
         self.max_train_steps = common.update_steps(
             len(train_dataset), gbs, cfg.gradient_accumulation_steps, cfg.num_epochs)
@@ -66,6 +76,7 @@ class Stage1Trainer:
             labels, cfg.learning_rate, total_steps=self.max_train_steps,
             warmup_ratio=cfg.warmup_ratio, weight_decay=cfg.weight_decay,
             clip_norm=cfg.grad_clip, accum_steps=cfg.gradient_accumulation_steps,
+            sharded_paths=self.plan.sharded,
         )
         self.pad_id = tokenizer.pad_token_id if tokenizer.pad_token_id is not None else 0
         logits_chunk = 128 if vlm_cfg.llm.vocab_size >= 32_768 else None
@@ -74,7 +85,7 @@ class Stage1Trainer:
             steps.stage1_loss(vlm_cfg, self.pad_id, logits_chunk=logits_chunk,
                               compute_dtype=cdtype),
             self.tx, trainable_mask=masks.bool_mask(labels),
-            watch_subtree="projector" if cfg.watch_gradients else None,
+            watch_subtree="projector" if cfg.watch_gradients else None, plan=self.plan,
         )
         self.eval_step = steps.make_eval_step(
             steps.stage1_loss(vlm_cfg, self.pad_id, remat=False, logits_chunk=logits_chunk,
@@ -83,7 +94,7 @@ class Stage1Trainer:
 
         self.ckpt = CheckpointManager(os.path.join(cfg.output_dir, "checkpoints"),
                                       save_every_n_epochs=max(1, cfg.save_every_n_epochs),
-                                      best_mode="min")
+                                      best_mode="min", plan=self.plan)
         self.global_step = 0
         self.start_epoch = 0
         self._skip_batches = 0
@@ -221,7 +232,9 @@ class Stage1Trainer:
                 "quant_method": self.cfg.quant_method if self.cfg.enable_qlora else None}
 
     def _export_projector(self, tag: str):
+        projector = sharding.gather_params(self.state["params"]["projector"], self.plan,
+                                           prefix="projector")
         if distributed.is_main():
-            export.save_projector(self.state["params"]["projector"], self.vlm_cfg.projector,
-                                  self.cfg.output_dir, tag=tag)
+            export.save_projector(projector, self.vlm_cfg.projector, self.cfg.output_dir,
+                                  tag=tag)
         distributed.barrier()

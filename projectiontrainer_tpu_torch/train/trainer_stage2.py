@@ -29,6 +29,13 @@ writes, fenced by barriers):
   the run, and the ``quant_method`` in their metadata) for ``--resume``, also
   mid-epoch from ``--save_steps``.
 
+Tensor parallelism (``--mesh_model`` above 1; ``parallel/sharding.py``): ``params``
+hold this model rank's shards (``setup.build_vlm`` slices each layer as it builds it;
+LoRA adapters initialised here are drawn whole from ``--seed`` and sliced); the train
+step sums the partial gradients over the model axis, the checkpoints and exports gather
+the shards and rank 0 writes the reference's layout, ``--resume`` slices again, and the
+validation generates on the sharded model.
+
 Any dataset object with ``__len__``, ``__getitem__`` returning ``{'pixel_values'
 [H, W, C] float32, 'question_ids' [Tq] int, 'answer_ids' [Ta] int}`` and
 ``token_lengths()`` serves (the CLI's is ``data/datasets.py``'s ``Stage2VQADataset``).
@@ -53,21 +60,20 @@ from projectiontrainer_tpu_torch.data import bucketing
 from projectiontrainer_tpu_torch.data import pipeline as pipe
 from projectiontrainer_tpu_torch.generate import GenerationConfig, generate
 from projectiontrainer_tpu_torch.models import vlm
-from projectiontrainer_tpu_torch.parallel import distributed
+from projectiontrainer_tpu_torch.parallel import distributed, sharding
 from projectiontrainer_tpu_torch.train import common, lora as lora_mod, masks, optim, steps
 from projectiontrainer_tpu_torch.utils.logging import MetricLogger
 from projectiontrainer_tpu_torch.utils.timing import StepProfiler, StepTimer
 
 
 def parse_remat(arg: str):
-    """``--remat`` -> the ``remat`` argument of the loss: 'full' True, 'none' False, an
-    integer N the first N decoder layers."""
-    if arg == "dots":
-        raise NotImplementedError("--remat dots (save the matmul outputs) is not ported")
+    """``--remat`` -> the ``remat`` argument of the loss: 'full' True, 'none' False,
+    'dots' (save the products' outputs, ``core/remat.py``), an integer N the first N
+    decoder layers."""
     if arg.isdigit():
         return int(arg)
     try:
-        return {"full": True, "none": False}[arg]
+        return {"full": True, "none": False, "dots": "dots"}[arg]
     except KeyError:
         raise ValueError(f"--remat must be one of full|dots|none|<int N layers>, "
                          f"got {arg!r}") from None
@@ -100,7 +106,12 @@ class Stage2Trainer:
             if "lora" not in params:
                 device = params["llm"]["embed_tokens"]["embedding"].device
                 gen = torch.Generator(device=device).manual_seed(cfg.seed)
-                params["lora"] = lora_mod.init(gen, vlm_cfg.llm, self.lora_cfg, device=device)
+                full = lora_mod.init(gen, vlm_cfg.llm, self.lora_cfg, device=device)
+                params["lora"] = sharding.shard_params(
+                    full, sharding.plan_for(full, vlm_cfg, prefix="lora"), prefix="lora")
+        sharding.check_config(vlm_cfg, distributed.model_size())
+        self.plan = sharding.plan_for(params, vlm_cfg)
+        sharding.check_local(params, vlm_cfg, self.plan)
 
         self.base_policy = cfg.freeze_policy()
         # full-parameter fine-tunes store their trainables in --master_dtype, and so
@@ -150,9 +161,11 @@ class Stage2Trainer:
             tx, schedule = optim.single_group_optimizer(
                 labels, cfg.learning_rate, total_steps=self.max_train_steps,
                 warmup_ratio=cfg.warmup_ratio, weight_decay=cfg.weight_decay,
-                clip_norm=cfg.grad_clip, clip_per_module=True, accum_steps=accum)
+                clip_norm=cfg.grad_clip, clip_per_module=True, accum_steps=accum,
+                sharded_paths=self.plan.sharded)
             self._steps[ve] = (steps.make_train_step(
-                loss_fn, tx, trainable_mask=masks.bool_mask(labels)), tx, schedule)
+                loss_fn, tx, trainable_mask=masks.bool_mask(labels), plan=self.plan),
+                tx, schedule)
             trained |= {p for p, label in leaves_with_paths(labels)
                         if label != masks.FROZEN and p in unique}
         _, self.tx, self.schedule = self._steps[cfg.train_ve_first_epoch]
@@ -165,7 +178,7 @@ class Stage2Trainer:
         # every leaf that trains at any point of the run: the tower that epoch 0
         # changed has no optimizer state after the swap, yet a resume needs it
         self.ckpt = CheckpointManager(os.path.join(cfg.output_dir, "checkpoints"),
-                                      best_mode="min", save_paths=trained)
+                                      best_mode="min", save_paths=trained, plan=self.plan)
         self.global_step = 0
         self.start_epoch = 0
         self._skip_batches = 0
@@ -377,8 +390,11 @@ class Stage2Trainer:
 
     def save_checkpoint(self, epoch: int):
         self.ckpt.save_periodic(epoch, self.state, self._meta(epoch))
+        # every model rank enters the gathers of the shards; rank 0 writes
+        exported = ("projector", "lora") + (("llm",) if self.base_policy.train_llm else ())
+        params = {k: sharding.gather_params(v, self.plan, prefix=k)
+                  for k, v in self.state["params"].items() if k in exported}
         if distributed.is_main():
-            params = self.state["params"]
             export.save_stage2_checkpoint(
                 self.cfg.output_dir, epoch, projector_params=params["projector"],
                 projector_cfg=self.vlm_cfg.projector,

@@ -5,7 +5,7 @@
   results, and its errors (type and message).
 - ``build_mesh`` over the world: -1 is every rank, a mesh smaller than the world
   raises (the JAX package would take a prefix of its devices: an idle rank has nothing
-  to do), a model axis above 1 raises ``NotImplementedError``.
+  to do), and a model axis resolves with it (rank r at (r // model, r % model)).
 - Four gloo processes (``tests/torch_dp_worker.py collectives``; each bounded by 120 s,
   its collectives by 60 s): ``gather_ragged`` and ``gather_objects`` at per-rank counts
   3/5/7/9, the case of the JAX package's ``tests/test_multihost.py:32``, an empty rank,
@@ -59,10 +59,16 @@ def test_build_mesh_resolves_over_the_world(data, world, expect):
             mesh.build_mesh(mesh.MeshConfig(data, 1), world)
 
 
+# the model axis is ported (tensor parallelism, tests/test_torch_tp.py): over a world of
+# 4 it resolves to 2 x 2, and a mesh that is not the world is refused as the data axis is
 @pytest.mark.parametrize("data,model", [(1, 2), (4, 2), (-1, 2), (2, -1)])
 def test_build_mesh_refuses_the_model_axis(data, model):
-    with pytest.raises(NotImplementedError, match="tensor parallel"):
-        mesh.build_mesh(mesh.MeshConfig(data, model), 4)
+    if data * model != 4 and -1 not in (data, model):
+        with pytest.raises(ValueError, match="projectiontrainer-torch-launch"):
+            mesh.build_mesh(mesh.MeshConfig(data, model), 4)
+        return
+    got = mesh.build_mesh(mesh.MeshConfig(data, model), 4)
+    assert (got.data, got.model, got.size) == (2, 2, 4)
 
 
 def test_single_process_helpers_are_the_identity():

@@ -158,9 +158,16 @@ def test_frozen_text_tower_builds_no_graph():
 
 
 def test_remat_dots_raises():
+    """'dots' is ported (tests/test_torch_remat_dots.py): the tower runs under it as under
+    full remat; a value that names no policy raises."""
     _, _, cfg, p = _models()
-    with pytest.raises(NotImplementedError, match="dots"):
-        siglip.vision_forward(p["vision"], cfg.vision, torch.zeros((1, 32, 32, 3)), remat="dots")
+    x = torch.randn((1, 32, 32, 3), generator=torch.Generator().manual_seed(0))
+    with torch.enable_grad():
+        dots, _ = siglip.vision_forward(p["vision"], cfg.vision, x, remat="dots")
+        full, _ = siglip.vision_forward(p["vision"], cfg.vision, x, remat=True)
+    assert torch.equal(dots, full)
+    with pytest.raises(ValueError, match="remat"):
+        siglip.vision_forward(p["vision"], cfg.vision, x, remat="everything")
 
 
 def test_stage0_labels_freeze_policy():

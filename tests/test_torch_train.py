@@ -180,13 +180,18 @@ def test_cosine_schedule_matches_optax_schedule():
 
 
 def test_decoder_remat_dots_raises():
+    """'dots' is ported (tests/test_torch_remat_dots.py): the decoder runs under it as
+    under full remat; a value that names no policy raises."""
     from projectiontrainer_tpu_torch.models import decoder as dec
 
     jcfg, jparams, cfg = _models()
     params = from_jax.vlm_params(jparams)
-    with pytest.raises(NotImplementedError, match="dots"):
-        dec.forward(params["llm"], cfg.llm, input_ids=torch.zeros((1, 4), dtype=torch.long),
-                    remat="dots")
+    ids = torch.arange(4)[None]
+    dots, _ = dec.forward(params["llm"], cfg.llm, input_ids=ids, remat="dots")
+    full, _ = dec.forward(params["llm"], cfg.llm, input_ids=ids, remat=True)
+    assert torch.equal(dots, full)
+    with pytest.raises(ValueError, match="remat"):
+        dec.forward(params["llm"], cfg.llm, input_ids=ids, remat="everything")
 
 
 def test_stage1_mask_trains_the_projector_only():

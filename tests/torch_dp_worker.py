@@ -32,9 +32,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PAD = 0
 
 
-def spawn_ranks(mode: str, directory: str, world: int, *, timeout: float = 120) -> None:
-    """Run ``world`` ranks of this worker over gloo, each bounded by ``timeout`` seconds
-    and its collectives by 60; raises with a failing rank's output."""
+def spawn_ranks(mode: str, directory: str, world: int, *, timeout: float = 120,
+                script: str = __file__) -> None:
+    """Run ``world`` ranks of this worker (or of ``script``) over gloo, each bounded by
+    ``timeout`` seconds and its collectives by 60; raises with a failing rank's output."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -42,7 +43,7 @@ def spawn_ranks(mode: str, directory: str, world: int, *, timeout: float = 120) 
     env.update(PYTHONPATH=REPO, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
                WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world), PTT_DIST_TIMEOUT_S="60",
                OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
-    procs = [subprocess.Popen([sys.executable, __file__, mode, directory],
+    procs = [subprocess.Popen([sys.executable, script, mode, directory],
                               env={**env, "RANK": str(r), "LOCAL_RANK": str(r)},
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for r in range(world)]
