@@ -94,7 +94,8 @@ Phases, each printing one JSON line; any failure raises, so the exit code is not
    gradient norm (rounding noise) must stay within 3x the plain path's.
 9. stage-2 train: the stage-0 model is freed; Stage2Trainer.train() full-joint
    (--unfreeze_llm --unfreeze_projection_layer --train_ve_first_epoch) on the
-   full-width VLM of phase 3 from seeded random weights, fp32 masters and bf16
+   full-width VLM of phase 3 (its decoder cut to 6 of 26 layers for run time) from
+   seeded random weights, fp32 masters and bf16
    compute, per-layer remat, batch 1, accumulation 8, lr 1e-5, per-module clip 1.0,
    2 epochs of 16 in-memory samples (questions of 8-128 tokens, answers of 32-512:
    buckets up to 575 + 128 + 512 = 1215 tokens), validation on 2 samples with 3-beam
@@ -114,8 +115,9 @@ Phases, each printing one JSON line; any failure raises, so the exit code is not
    bit-equal, every gradient leaf at cosine >= 0.99999; peak memory above the model and
    ms of the micro-step for each.
 11. stage-2 QLoRA train: phase 10's model is freed; the full-width ViT-L/16-384 +
-   projector 1024 -> 10240 -> 4096 + Qwen3-8B (36 layers, hidden 4096, 32/8 heads of
-   128, vocab 151,936, untied head) from seeded random weights, the decoder built and
+   projector 1024 -> 10240 -> 4096 + Qwen3-8B (hidden 4096, 32/8 heads of 128, vocab
+   151,936, untied head; 9 of its 36 layers, cut for run time) from seeded
+   random weights, the decoder built and
    quantized (nf4 -> nf4-mirror) one layer at a time; Stage2Trainer.train() with the
    reference's recipe (--enable_qlora --quant_method nf4-mirror --lora_r 16
    --lora_alpha 32 --lora_dropout 0.05, lr 1e-5, warmup 0.05), per-layer remat, bf16
@@ -224,8 +226,8 @@ Phases, each printing one JSON line; any failure raises, so the exit code is not
    so), 1 NCCL rank where the card admits one process only (Exclusive_Process; the
    2-rank checks are then not run, and not reported as passed). (b) ``cli/launch.py``
    spawns the ranks (``--entry chip_smoke:dp_stage1_rank``), each running
-   ``cli/train_stage1.main`` with phase 5's full-width model built in the rank from the
-   seed (the snapshot and tokenizer loaders replaced: no transformers on the card's
+   ``cli/train_stage1.main`` with phase 5's full-width model, its decoder cut to 8 of
+   26 layers (run time), built in the rank from the seed (the snapshot and tokenizer loaders replaced: no transformers on the card's
    host) over 64 + 8 seeded 1024 px CXR-like JPEG files with captions of 32-512 stub
    tokens: per-rank batch 4 (global 8), 8 steps, fused CE, validation on 8, steps 6-7
    profiled on rank 0. Every rank logs the same 8 finite losses; the trained projectors
@@ -246,7 +248,7 @@ Phases, each printing one JSON line; any failure raises, so the exit code is not
    or more; where the card admits one process the phase prints that it did not run and
    why, and reports no pass. (b) ``cli/launch.py`` runs ``cli/train_stage2.main``
    (``--entry chip_smoke:tp_stage2_rank``) at --mesh_data 1 --mesh_model 2 with phase
-   11's model and recipe: each rank builds each whole layer from the seed, quantizes it
+   11's model (Qwen3-8B cut to 6 of 36 layers for run time) and recipe: each rank builds each whole layer from the seed, quantizes it
    and keeps its slice (the shards of phase 11's model), LoRA B drawn at std 0.02;
    batch 2, accumulation 2, 4 micro-steps up to 1855 tokens, validation on 2 samples
    (3 beams, 16 new tokens), step 2 profiled. The ranks log bit-equal losses, every
@@ -260,15 +262,47 @@ Phases, each printing one JSON line; any failure raises, so the exit code is not
    sum apart). (c) ``cli/train_stage1.main`` at phase 5's Gemma3-1B width with
    --mesh_model 2 (one KV head, replicated; the vocab-parallel K6/K7 over the tied
    table), 4 steps at batch 4, validation on 4: the same checks against the 1-process
-   step, projector_final.bin written whole.
+   step, projector_final.bin written whole; the decoder cut to 6 of 26 layers (run time).
+22. ZeRO-3 over the data axis (--fsdp), BASELINE config #4: (a) the world as in phase 21
+   (2 gloo ranks sharing one card, said so: a sharing figure; one NCCL rank a card on 2
+   cards or more, 4 on 4; where the card admits one process the phase prints that it
+   did not run and why). (b) ``cli/launch.py`` runs ``cli/train_stage2.main``
+   (``--entry chip_smoke:fsdp_stage2_rank``) with --fsdp --mesh_data N,
+   --unfreeze_llm --unfreeze_projection_layer --train_ve_first_epoch, fp32 masters,
+   bf16 compute, remat full, over the ViT-L/16-384 + projector 1024 -> 10240 -> 2560 +
+   Gemma3-4B VLM (2560 wide, 8|4 heads of 256, vocab 262,208, window 1024 on 5 layers
+   of 6, rope factor 8) at full width from the seed, cut to 6 of its 34 decoder layers
+   when the ranks share a card (34 on cards of their own); each rank builds the model in
+   bf16 and its trainer keeps the rank's data shard of every large leaf before the fp32
+   cast; batch 1 a rank, accumulation 2, 2 epochs of 2 micro-steps a rank at 1215
+   tokens (the tower's freeze and the optimizer swap crossed; 4 micro-steps an epoch cut
+   to 2 for the script's time), validation on 2 samples (3 beams, 16
+   new tokens), the train state and exports written after the last epoch only. Every
+   rank logs the same finite losses; the replicated trained leaves are bit-equal across
+   the ranks; each rank's params + moments + accumulators are at most total / N + the
+   replicated residue (both printed); the gathered checkpoint loads whole here (memory-
+   mapped); K1/K2/K3/K4/K5/K8 launch on every rank; then this process runs the first
+   micro-step on the whole model (the trainer's masters and loss, no optimizer) on the
+   same global batch: the loss within 1e-3 relative, each gathered gradient leaf at
+   cosine >= 0.999 (below it at >= 0.99 with its group at >= 0.999: phase 21's rule),
+   the key-projection biases by their noise and the q/k RMSNorm scales by phase 10's
+   distance rule. Per rank: images/s and tokens/s, ``max_memory_allocated``, the host
+   time of the gathers and reduce-scatters and, from a profiled extra micro-step, their
+   kernel time; the gathers of a micro-step by phase; the live gathered bytes of one
+   micro-step under remat full and under 'dots' (which keeps every gathered weight).
+   (c) phase 20 (c)'s cut dual tower with --fsdp, 4 steps: finite losses equal on
+   every rank, the replicated leaves bit-equal, the checkpoint whole.
+   Phase 2 adds Gemma3-4B's shapes: K1/K4/K5 at [1,1215,8|4,256] (window 1024 and
+   none, the question's and the answer's padding masked) and K3 at its 8|4 heads of
+   256 (one sample of 3 beams, P = 703, G = 16), each rerun held bit-equal.
 
 The second-to-last line is {"kernels": [...]} (name, route, source, replaces, launches
 on the main path, launches_by_path (serve, train, stage0, stage0_files, stage2,
 stage2_qlora, serve_qwen3_adapter, cls, caption_llama, generation_eval, zero_shot,
-tsne, stage1_dp_rank0, stage0_dp_rank0, stage2_qlora_tp_rank0, stage1_tp_rank0), max_abs_err,
-ms, plain_ms, bound_ms, bound_by,
-library_ms, and the launches of one epoch-0 stage-2 micro-step at the longest bucket,
-phase 9's); the last is
+tsne, stage1_dp_rank0, stage0_dp_rank0, stage2_qlora_tp_rank0, stage1_tp_rank0,
+stage2_fsdp_rank0, stage0_fsdp_rank0), max_abs_err, ms, plain_ms, bound_ms, bound_by,
+library_ms, the launches of one epoch-0 stage-2 micro-step at the longest bucket,
+phase 9's, and of one phase-22 FSDP micro-step on rank 0); the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Needs no network and no model snapshot; imports nothing of JAX.
 """
@@ -684,6 +718,7 @@ def phase_kernels():
     check_cls_kernels(rng, record)
     check_llama_kernels(rng, record)
     check_tp_kernels(rng, record)
+    check_gemma3_4b_kernels(rng, record)
     emit({"phase": 2, "readings": READINGS})
     return results
 
@@ -951,6 +986,28 @@ def check_tp_kernels(rng, record):
                    out_of_slice=0.5)
     check_decode(rng, record, 2, 3, 575 + 256, 16, (15,), hq=16, hkv=4, d=128,
                  windows=(None,), label="TP rank: Qwen3 ")
+
+
+def check_gemma3_4b_kernels(rng, record):
+    """Gemma3-4B's shapes (phase 22, BASELINE config #4): K1/K4/K5 over the decoder's
+    longest bucket of phase 9's recipe at batch 1 ([1,1215,8|4,256]: 575 visual + 128
+    question + 512 answer tokens, causal, the question's and the answer's padding masked)
+    with the 4B's window of 1024 and without (its full layers), and K3 at its 8|4 heads of
+    256 (one validation sample of 3 beams, a prefix of 575 + 128 slots, 16 generated, the
+    window and none); each rerun held bit-equal; record(kernel, case, err, ms, plain_ms,
+    bound, library_ms, library)."""
+    import torch
+
+    mask = torch.zeros((1, 1215), dtype=torch.int32, device="cuda")
+    mask[0, :575 + 40] = 1             # visual tokens, a question of 40 tokens
+    mask[0, 575 + 128:575 + 128 + 300] = 1  # an answer of 300 tokens
+    for window in (1024, None):
+        check_attention_layer(
+            rng, record, f"Gemma3-4B decoder [1,1215,8|4,256] causal window={window}, padded "
+            "question and answer", 1, 1215, 8, 4, 256, mask, rerun=True, scale=256 ** -0.5,
+            causal=True, window=window)
+    check_decode(rng, record, 1, 3, 575 + 128, 16, (15,), hq=8, hkv=4, d=256,
+                 windows=(1024, None), label="Gemma3-4B ")
 
 
 def check_cls_kernels(rng, record):
@@ -1321,7 +1378,9 @@ class StubTokenizer:
         return {"input_ids": [row + [0] * (max_length - len(row)) for row in ids]}
 
 
-def full_width_model():
+def full_width_model(layers=26):
+    """Phase 3's VLM from the seed: ViT-L/16-384 (bf16), projector 1024 -> 10240 -> 1152
+    (fp32), Gemma3-1B (bf16; ``layers`` of its 26: phases 20-21 cut it for run time)."""
     import torch
 
     from projectiontrainer_tpu_torch.models import decoder as dec
@@ -1330,7 +1389,7 @@ def full_width_model():
 
     cfg = vlm.VLMConfig(vision=siglip.vit_l_16_384(),
                         projector=proj.ProjectorConfig(vision_dim=1024, llm_dim=1152),
-                        llm=dec.gemma3_config())
+                        llm=dec.gemma3_config(num_layers=layers))
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = vlm.init(gen, cfg, device="cuda", tower_dtype=torch.bfloat16,
                       projector_dtype=torch.float32)
@@ -1922,6 +1981,10 @@ def phase_stage0_end_to_end(cfg, params, kernel_counters):
 # ---------------------------------------------------------------------------- phase 9
 
 
+STAGE2_LAYERS = 6   # Gemma3-1B cut from 26 layers in phases 9-10: one sliding period
+                    # (run time)
+
+
 class VQASamples:
     """In-memory stage-2 samples: seeded pixels in [-1, 1] (made once, in bulk),
     questions of 8-128 token ids and answers of 32-512 (the first sample at both
@@ -2104,7 +2167,8 @@ def phase_stage2_train(cfg, params, kernel_counters):
           "kernel_ms_per_micro_step": split, "device_idle_share_steps_6_7": idle,
           "checkpoint_saves": saves, "language_model_bytes": llm_bytes, "disk_free_gb": free_gb,
           "timed_steps": "1-5 (0 warms up, 6-7 profiled)",
-          "cut": "2 epochs of 16 random samples, 2 validation samples, 16 new tokens (a real "
+          "cut": f"Gemma3-1B cut to {STAGE2_LAYERS} of 26 layers (run time), "
+                 "2 epochs of 16 random samples, 2 validation samples, 16 new tokens (a real "
                  "run: the VQA corpus, 5 epochs, 128 new tokens)"})
     return launches, one_step, trained
 
@@ -2260,6 +2324,7 @@ def check_remat_dots(cfg, params, batch, train):
 # (question bucket, answer bucket) of each group of 4 phase-11 samples: the plan batches
 # by bucket, so 32 samples make 8 full micro-steps; the first group is the longest
 # bucket, 575 + 256 + 1024 = 1855 tokens
+QLORA_LAYERS = 9    # Qwen3-8B cut from 36 layers in phases 11-13 (run time)
 QLORA_GROUPS = ((256, 1024), (32, 128), (64, 256), (128, 512), (256, 512), (32, 1024),
                 (128, 128), (64, 1024))
 _Q_FLOOR = {32: 8, 64: 33, 128: 65, 256: 129}
@@ -2276,7 +2341,7 @@ def qlora_lengths(seed, groups=QLORA_GROUPS, per=4):
     return q, a
 
 
-def qwen3_model(quant_method=None, shard=False):
+def qwen3_model(quant_method=None, shard=False, layers=36):
     """The stage-2 QLoRA VLM at full width from seeded random weights: SigLIP
     ViT-L/16-384 (bf16), projector 1024 -> 10240 -> 4096 (fp32), Qwen3-8B (36 layers,
     hidden 4096, MLP 12288, 32/8 heads of 128, vocab 151,936, untied head; bf16). The
@@ -2284,7 +2349,8 @@ def qwen3_model(quant_method=None, shard=False):
     quantized before the next is drawn, so the dense 16 GB of projections is never
     resident whole. The same seed draws the same dense weights either way. ``shard``
     (a rank of phase 21): each whole layer, once quantized, is sliced to this model
-    rank's shard, and so is the rest (``train/setup.py``): the shards of the same model."""
+    rank's shard, and so is the rest (``train/setup.py``): the shards of the same model.
+    ``layers``: Qwen3-8B's 36, or fewer (phase 21 cuts it for run time)."""
     import torch
 
     from projectiontrainer_tpu_torch.models import decoder as dec
@@ -2293,7 +2359,7 @@ def qwen3_model(quant_method=None, shard=False):
     from projectiontrainer_tpu_torch.ops import quant
     from projectiontrainer_tpu_torch.train import setup
 
-    vision, llm_cfg = siglip.vit_l_16_384(), dec.qwen3_config()
+    vision, llm_cfg = siglip.vit_l_16_384(), dec.qwen3_config(num_layers=layers)
     cfg = vlm.VLMConfig(vision=vision, llm=llm_cfg, projector=proj.ProjectorConfig(
         vision_dim=vision.hidden_size, llm_dim=llm_cfg.hidden_size))
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
@@ -2424,7 +2490,8 @@ def phase_qlora_train(cfg, params, kernel_counters):
           "dequant_ms_per_micro_step": dequant, "dequant_share": dequant / split["total_ms"],
           "device_idle_share_steps_6_7": idle, "adapter_bytes": adapter_bytes,
           "frozen_leaves_checked": len(frozen), "timed_steps": "1-5 (0 warms up, 6-7 profiled)",
-          "cut": "8 micro-steps of 32 random samples, 2 validation samples, 16 new tokens (a "
+          "cut": f"Qwen3-8B cut to {QLORA_LAYERS} of 36 layers (run time), "
+                 "8 micro-steps of 32 random samples, 2 validation samples, 16 new tokens (a "
                  "real run: the VQA corpus, 3 epochs, accumulation 8)"})
     return launches, trained, adapter_dir
 
@@ -2807,8 +2874,8 @@ def phase_cls_end_to_end(cfg, params, kernel_counters):
 
 FEED_SOURCES = 256        # seeded 1024 x 1024 CXR-like JPEG files
 FEED_SOURCES_2048 = 32    # and 2048 x 2048 ones, for one row
-FEED_ROW_IMAGES = 128     # images each feed-alone row reads (8 batches of 16)
-FEED_ROW_REPEATS = 2      # times each row is timed; its median and its spread are kept
+FEED_ROW_IMAGES = 64      # images each feed-alone row reads (4 batches of 16; run time)
+FEED_ROW_REPEATS = 1      # times each row is timed (one: run time)
 FEED_CLASSES = ("pneumonia", "edema", "cardiomegaly", "no finding")
 # what the feed must deliver (PERF.md section 5, NVIDIA H100 80GB HBM3 at 700 W): stage 0
 # at batch 16 asks 63 images/s at its host step (253.0 ms) and 104 at its kernel time
@@ -3439,7 +3506,8 @@ DP_BATCH = 4          # per rank: a global batch of 8
 DP_STEPS = 8
 DP_STAGE0_BATCH = 8   # per rank
 DP_STAGE0_STEPS = 4
-DP_STAGE0_LAYERS = 4  # the so400m towers cut from 27 layers each: run time
+DP_STAGE0_LAYERS = 2  # the so400m towers cut from 27 layers each: run time
+DP_STAGE1_LAYERS = 6  # Gemma3-1B cut from 26 layers: one sliding period (layer 6 full)
 DP_TIMEOUT_S = 420    # the launcher's run, kernels loaded and models built in each rank
 
 
@@ -3555,7 +3623,7 @@ def dp_stage1_rank(argv):
     built = {}
 
     def build_vlm(*_, device, **__):
-        built["cfg"], built["params"] = full_width_model()
+        built["cfg"], built["params"] = full_width_model(DP_STAGE1_LAYERS)
         return built["cfg"], built["params"]
 
     setup.build_vlm = build_vlm
@@ -3598,7 +3666,7 @@ def dp_stage0_rank(argv):
 
     from projectiontrainer_tpu_torch.cli import train_stage0
     from projectiontrainer_tpu_torch.core.pytree import unique_leaves_with_paths
-    from projectiontrainer_tpu_torch.train import setup, steps
+    from projectiontrainer_tpu_torch.train import common, setup, steps
 
     dump, flags, rank = _rank_entry(argv)
     built = {}
@@ -3607,8 +3675,15 @@ def dp_stage0_rank(argv):
         built["cfg"], built["params"] = _stage0_dp_model()
         return built["cfg"], built["params"]
 
+    place = common.place_params
+
+    def placing(*a, **kw):
+        built["plan"] = place(*a, **kw)
+        return built["plan"]
+
     train_stage0.hf_import.load_siglip = load_siglip
     setup.load_tokenizer = lambda _: FileTokenizer()
+    common.place_params = placing
     record = {"losses": [], "allreduce_host_ms": []}
     _record_steps(steps, record)
     kernel_counters = counters()
@@ -3616,11 +3691,15 @@ def dp_stage0_rank(argv):
         c.reset()
     result = train_stage0.main(flags)
     torch.cuda.synchronize()
+    # the trained leaves each rank holds whole (under --fsdp the data shards differ)
+    shards = built["plan"].data_sharded
     trained = [(p, x) for p, x in unique_leaves_with_paths(built["params"])
-               if not p.startswith("text/")]
+               if not p.startswith("text/") and p not in shards]
     torch.save({"rank": rank, "losses": record["losses"], "result": result,
                 "launches": {n: c.value for n, c in kernel_counters.items()},
                 "allreduce_host_ms": record["allreduce_host_ms"],
+                "data_sharded": len([p for p, _ in unique_leaves_with_paths(built["params"])
+                                     if p in shards]),
                 "trained_sha256": _sha(trained)}, os.path.join(dump, f"rank{rank}.pt"))
     return result
 
@@ -3635,7 +3714,7 @@ def _dp_one_process_step(root, samples, flags_cfg):
     from projectiontrainer_tpu_torch.data import datasets, pipeline
     from projectiontrainer_tpu_torch.train.trainer_stage1 import Stage1Trainer
 
-    cfg, params = full_width_model()
+    cfg, params = full_width_model(DP_STAGE1_LAYERS)
     before = {p: x.detach().cpu().clone() for p, x in _projector_leaves(params)}
     ds = datasets.Stage1PairDataset(samples, image_root=root, tokenizer=FileTokenizer(),
                                     image_size=cfg.vision.image_size, max_length=512)
@@ -3772,7 +3851,8 @@ def phase_data_parallel():
               "grad_allreduce_host_ms_median": reduce_ms,
               "kernel_ms_per_step": split,
               "launches_per_rank": [d["launches"] for d in dumps], **checks,
-              "cut": f"{DP_STEPS} steps of random weights, {n_train} + 8 seeded JPEG files"})
+              "cut": f"{DP_STEPS} steps of random weights, {n_train} + 8 seeded JPEG files, "
+                     f"Gemma3-1B cut to {DP_STAGE1_LAYERS} of 26 layers (run time)"})
 
         # (c) stage 0 across ranks, the so400m towers cut to DP_STAGE0_LAYERS layers
         n0 = DP_STAGE0_BATCH * ranks * DP_STAGE0_STEPS
@@ -3827,6 +3907,8 @@ TP_BATCH = 2               # per replica
 TP_GROUPS = QLORA_GROUPS[:4]  # 4 micro-steps; the first at 575 + 256 + 1024 = 1855 tokens
 TP_STAGE1_BATCH = 4
 TP_STAGE1_STEPS = 4
+TP_QWEN3_LAYERS = 6        # Qwen3-8B cut from 36 layers: run time
+TP_GEMMA_LAYERS = 6        # Gemma3-1B cut from 26 layers: one sliding period (layer 6 full)
 TP_TIMEOUT_S = 600         # each launch: kernels loaded and models built in each rank
 TP_LORA_B_STD = 0.02       # B drawn off zero (as phase 12): the A gradients are nonzero too
 TP_LEAF_COS_FLOOR = 0.99   # a LoRA leaf below COS_MIN: a missed model-axis sum reads ~0.7
@@ -3993,7 +4075,7 @@ def tp_stage2_rank(argv):
     built, data = {}, {}
 
     def build_vlm(*_, device, **__):
-        cfg, params = qwen3_model("nf4-mirror", shard=True)
+        cfg, params = qwen3_model("nf4-mirror", shard=True, layers=TP_QWEN3_LAYERS)
         params["lora"] = tp_lora(cfg, shard=True)
         built["cfg"], built["params"] = cfg, params
         data["train"], data["val"] = tp_vqa_data(cfg)
@@ -4027,7 +4109,7 @@ def tp_stage1_rank(argv):
     built = {}
 
     def build_vlm(*_, device, **__):
-        cfg, params = full_width_model()
+        cfg, params = full_width_model(TP_GEMMA_LAYERS)
         layers = params["llm"]["layers"]
         for i, layer in enumerate(layers):
             layers[i] = setup.shard_layer(layer, i, cfg.llm)
@@ -4120,7 +4202,7 @@ def _tp_one_process_stage2(root):
     from projectiontrainer_tpu_torch.core.config import Stage2Config, from_args, parser_for
     from projectiontrainer_tpu_torch.train.trainer_stage2 import Stage2Trainer
 
-    cfg, params = qwen3_model("nf4-mirror")
+    cfg, params = qwen3_model("nf4-mirror", layers=TP_QWEN3_LAYERS)
     params["lora"] = tp_lora(cfg, shard=False)
     train, val = tp_vqa_data(cfg)
     out = tempfile.mkdtemp(prefix="chip_smoke_tp_one_")
@@ -4151,7 +4233,7 @@ def _tp_one_process_stage1(root):
     from projectiontrainer_tpu_torch.train import common
     from projectiontrainer_tpu_torch.train.trainer_stage1 import Stage1Trainer
 
-    cfg, params = full_width_model()
+    cfg, params = full_width_model(TP_GEMMA_LAYERS)
     out = tempfile.mkdtemp(prefix="chip_smoke_tp_one_s1_")
     saved = datasets.load_manifest, datasets.Stage1PairDataset
     _tp_stage1_data(datasets)
@@ -4271,7 +4353,8 @@ def phase_tensor_parallel():
         gc_cuda()
         _tp_report("stage2_qlora", dumps, split, wall, smi, world, {
             "adapter_loads_in_one_process": True, "validation_examples": examples, **versus,
-            "cut": f"{len(TP_GROUPS)} micro-steps of {TP_BATCH} samples (accumulation 2) up "
+            "cut": f"Qwen3-8B cut to {TP_QWEN3_LAYERS} of 36 layers (run time), "
+                   f"{len(TP_GROUPS)} micro-steps of {TP_BATCH} samples (accumulation 2) up "
                    "to 1855 tokens, 2 validation samples with 3 beams of 16 tokens (a real "
                    "run: 4 x 2 ranks, the VQA corpus, 3 epochs, accumulation 8)"})
         launches = {"stage2_qlora_tp_rank0": dumps[0]["launches"]}
@@ -4304,9 +4387,588 @@ def phase_tensor_parallel():
         gc_cuda()
         _tp_report("stage1", dumps, split, wall, smi, world, {
             "projector_exported_whole": True, **versus,
-            "cut": f"{TP_STAGE1_STEPS} steps at batch {TP_STAGE1_BATCH}, 4 validation "
+            "cut": f"Gemma3-1B cut to {TP_GEMMA_LAYERS} of 26 layers (run time), "
+                   f"{TP_STAGE1_STEPS} steps at batch {TP_STAGE1_BATCH}, 4 validation "
                    "samples (a real run: the caption corpus, many epochs)"})
         launches["stage1_tp_rank0"] = dumps[0]["launches"]
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------- phase 22
+
+FSDP_LAYERS_SHARING = 6   # Gemma3-4B's 34 layers cut to one period of the sliding
+                          # pattern (5 sliding, 1 full) when the ranks share one card
+FSDP_SAMPLES = 4          # an epoch: 2 micro-steps of batch 1 on each of 2 ranks (cut
+                          # from 4 for run time: the script's 1200 s)
+FSDP_TIMEOUT_S = 900      # the launch: kernels loaded, the model built in each rank
+FSDP_STAGE0_STEPS = 4
+FSDP_DISK_BYTES = 40e9    # beyond this phase 22's files go to /dev/shm first
+
+
+def fsdp_model(layers):
+    """BASELINE config #4's VLM (ViT-L/16-384, projector 1024 -> 10240 -> 2560, Gemma3-4B)
+    at full width with ``layers`` decoder layers, from the seed: the towers bf16 (the
+    decoder drawn layer after layer), the projector fp32."""
+    import torch
+
+    from projectiontrainer_tpu_torch.models import vlm
+
+    cfg = vlm.full_joint_4b_config(num_layers=layers)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    return cfg, vlm.init(gen, cfg, device="cuda", tower_dtype=torch.bfloat16,
+                         projector_dtype=torch.float32)
+
+
+def _fsdp_scratch_root(layers):
+    """A temp directory with room for phase 22's files (the gathered train state, the
+    exported decoder and the dumped first gradients: ~24 bytes a parameter, ~100 GB at
+    the full 34 layers): under the default temp dir, or, for more than FSDP_DISK_BYTES,
+    under the memory-backed /dev/shm first (a disk may cap the bytes written to it)."""
+    import torch
+
+    from projectiontrainer_tpu_torch.core.pytree import unique_leaves_with_paths
+    from projectiontrainer_tpu_torch.models import vlm
+
+    shapes = vlm.init(torch.Generator(), vlm.full_joint_4b_config(num_layers=layers),
+                      device="meta")
+    need = 24 * sum(x.numel() for _, x in unique_leaves_with_paths(shapes))
+    order = (tempfile.gettempdir(), "/dev/shm")
+    for d in (order if need <= FSDP_DISK_BYTES else order[::-1]):
+        if os.path.isdir(d) and shutil.disk_usage(d).free > need:
+            return tempfile.mkdtemp(prefix="chip_smoke_fsdp_", dir=d)
+    raise AssertionError(f"fsdp: no directory with {need / 1e9:.0f} GB free")
+
+
+def fsdp_vqa_data(cfg):
+    """(train, val): FSDP_SAMPLES samples at the longest bucket of phase 9's recipe (128
+    question and 512 answer tokens: 1215 with the 575 visual ones) and 2 validation
+    samples."""
+    size, vocab = cfg.vision.image_size, cfg.llm.vocab_size
+    n = FSDP_SAMPLES
+    train = VQASamples(n, SEED + 22, size=size, vocab=vocab, lengths=([128] * n, [512] * n))
+    val = VQASamples(2, SEED + 23, size=size, vocab=vocab, lengths=([40, 60], [200, 240]))
+    return train, val
+
+
+def fsdp_stage2_flags(root, out):
+    """The stage-2 CLI flags of phase 22 (b): BASELINE config #4's full-joint recipe with
+    --fsdp, batch 1 a rank, accumulation 2, 2 epochs (the tower's freeze crossed),
+    validation with 3 sampled beams of 16 tokens."""
+    return ["--image_root", root, "--train_json", os.path.join(root, "train.json"),
+            "--val_json", os.path.join(root, "val.json"), "--output_dir", out,
+            "--vision_model_name", "seeded", "--llm_name", "seeded", "--img_size", "384",
+            "--batch_size", "1", "--gradient_accumulation_steps", "2", "--num_epochs", "2",
+            "--learning_rate", "1e-5", "--warmup_ratio", "0.05", "--max_q_len", "128",
+            "--max_a_len", "512", "--unfreeze_llm", "--unfreeze_projection_layer",
+            "--train_ve_first_epoch", "--master_dtype", "fp32", "--remat", "full",
+            "--mixed_precision", "bf16", "--eval_max_new_tokens", "16",
+            "--eval_num_beams", "3", "--logging_steps", "1", "--num_workers", "2",
+            "--disable_wandb", "--seed", str(SEED), "--fsdp"]
+
+
+def _fsdp_first_batch(trainer):
+    """The first micro-step's batch of the trainer's epoch-0 plan (this rank's rows)."""
+    return next(iter(trainer._feed(trainer.train_dataset, trainer._train_plans[0])))
+
+
+def _fsdp_micro_step(trainer, batch, remat):
+    """The loss and gradient of every trainable leaf (the epoch-0 step's: tower included)
+    under ``remat``, the shards gathered as the train step gathers them; no update.
+    Returns (peak live gathered bytes, the card's peak bytes above the start)."""
+    import torch
+
+    from projectiontrainer_tpu_torch.core.pytree import unique_leaves_with_paths
+    from projectiontrainer_tpu_torch.parallel import fsdp
+    from projectiontrainer_tpu_torch.train import steps
+
+    loss_fn = steps.stage2_loss(trainer.vlm_cfg, trainer.pad_id, logits_chunk=128,
+                                table_frozen=False, compute_dtype=trainer.compute_dtype,
+                                remat=remat)
+    train = [x for _, x in unique_leaves_with_paths(trainer.state["params"])
+             if x.is_floating_point()]
+    for x in train:
+        x.requires_grad_(True)
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fsdp.track(True)
+    with fsdp.active(trainer.plan):
+        loss, _ = loss_fn(trainer.state["params"], batch, None)
+        grads = torch.autograd.grad(loss, train, allow_unused=True)
+    torch.cuda.synchronize()
+    del loss, grads
+    live = fsdp.LIVE["peak"]
+    fsdp.track(False)
+    return live, torch.cuda.max_memory_allocated() - start
+
+
+def fsdp_stage2_rank(argv):
+    """A rank of phase 22 (b): ``cli/train_stage2.main`` with --fsdp over BASELINE config
+    #4's model from the seed (``setup.build_vlm``, ``setup.load_tokenizer`` and the
+    dataset's ``from_json`` replaced: no snapshot, no transformers, in-memory samples);
+    the train state and the exports are written after the last epoch only, no best
+    checkpoint (run time: each is the whole state). The first micro-step's live
+    gathered bytes and peak memory are recorded (remat full), the second is profiled on
+    every rank (the collectives' kernel time); after the run one more micro-step under
+    'dots' (the gathered weights it keeps), then the rank dumps its record."""
+    import argparse
+
+    import torch
+
+    from projectiontrainer_tpu_torch.checkpoint.manager import CheckpointManager
+    from projectiontrainer_tpu_torch.cli import train_stage2
+    from projectiontrainer_tpu_torch.core.pytree import unique_leaves_with_paths
+    from projectiontrainer_tpu_torch.parallel import fsdp
+    from projectiontrainer_tpu_torch.train import optim, setup, steps
+    from projectiontrainer_tpu_torch.train.trainer_stage2 import Stage2Trainer
+    from projectiontrainer_tpu_torch.utils import timing
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--layers", type=int, required=True)
+    own, rest = parser.parse_known_args(argv)
+    dump, flags, rank = _rank_entry(rest)
+    built, data = {}, {}
+
+    def build_vlm(*_, device, **__):
+        cfg, params = fsdp_model(own.layers)
+        built["cfg"] = cfg
+        data["train"], data["val"] = fsdp_vqa_data(cfg)
+        return cfg, params
+
+    setup.build_vlm = build_vlm
+    setup.load_tokenizer = lambda _: StubTokenizer()
+    train_stage2.datasets.Stage2VQADataset.from_json = staticmethod(
+        lambda path, **_: data["train" if path.endswith("train.json") else "val"])
+    save_checkpoint, init = Stage2Trainer.save_checkpoint, Stage2Trainer.__init__
+
+    def last_epoch_only(self, epoch):
+        if epoch == self.cfg.num_epochs - 1:
+            save_checkpoint(self, epoch)
+
+    def keep(self, *a, **kw):
+        init(self, *a, **kw)
+        built["trainer"] = self
+
+    Stage2Trainer.save_checkpoint = last_epoch_only
+    Stage2Trainer.__init__ = keep
+    CheckpointManager.save_best = lambda self, *a, **kw: False
+
+    record = {"losses": [], "counts_first": None, "bytes_first": None, "first_grads": None,
+              "launches_first": None, "gather_host_ms": [], "reduce_scatter_host_ms": [],
+              "live_first": None, "peak_first": None, "split": None}
+    kernel_counters = counters()
+    make, update = steps.make_train_step, optim.MaskedAdamW.update
+    gather, scatter = fsdp._all_gather, fsdp._reduce_scatter
+
+    def recording(*a, **kw):
+        step = make(*a, **kw)
+
+        def wrapped(state, batch, rng=None):
+            first, profiled = not record["losses"], len(record["losses"]) == 1
+            if first:
+                counts, nbytes = dict(fsdp.COUNTS), dict(fsdp.BYTES)
+                launched = {n: c.value for n, c in kernel_counters.items()}
+                torch.cuda.synchronize()
+                start = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                fsdp.track(True)
+            if profiled:
+                prof = torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
+                prof.__enter__()
+            out = step(state, batch, rng)
+            record["losses"].append(float(out[1]))  # a host sync
+            if first:
+                record["counts_first"] = {k: fsdp.COUNTS[k] - counts[k] for k in counts}
+                record["bytes_first"] = {k: fsdp.BYTES[k] - nbytes[k] for k in nbytes}
+                record["launches_first"] = {n: c.value - launched[n]
+                                            for n, c in kernel_counters.items()}
+                record["live_first"] = fsdp.LIVE["peak"]
+                record["peak_first"] = torch.cuda.max_memory_allocated() - start
+                fsdp.track(False)
+            if profiled:
+                torch.cuda.synchronize()
+                prof.__exit__(None, None, None)
+                record["split"] = timing.span_times(prof.events(), device=True)
+            return out
+
+        return wrapped
+
+    def capturing(self, grads, state, params):
+        if record["first_grads"] is None:  # the first micro-step's gradients, whole
+            plan, whole = built["trainer"].plan, {}
+            for p, g in grads.items():  # a collective every rank enters, leaf by leaf
+                g = plan.gather(p, g)
+                if rank == 0:
+                    whole[p] = g.float().cpu()
+            record["first_grads"] = whole
+        return update(self, grads, state, params)
+
+    def timed(fn, key):
+        def run(*a):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            record[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    steps.make_train_step = recording
+    optim.MaskedAdamW.update = capturing
+    fsdp._all_gather = timed(gather, "gather_host_ms")
+    fsdp._reduce_scatter = timed(scatter, "reduce_scatter_host_ms")
+    for c in kernel_counters.values():
+        c.reset()
+    fsdp.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    result = train_stage2.main(flags)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {n: c.value for n, c in kernel_counters.items()}
+    counts_run = dict(fsdp.COUNTS)
+    trainer = built["trainer"]
+    plan, params = trainer.plan, trainer.state["params"]
+    leaves = dict(unique_leaves_with_paths(params))
+    slots = [x for v in trainer.state["opt_state"].values() if isinstance(v, dict)
+             for x in v.values()]
+    local = sum(x.numel() * x.element_size() for x in list(leaves.values()) + slots)
+    data_n = plan.data
+    whole = sum(x.numel() * x.element_size() * (data_n if p in plan.data_sharded else 1)
+                for v in [leaves] + [v for v in trainer.state["opt_state"].values()
+                                     if isinstance(v, dict)] for p, x in v.items())
+    residue = sum(x.numel() * x.element_size()
+                  for v in [leaves] + [v for v in trainer.state["opt_state"].values()
+                                       if isinstance(v, dict)]
+                  for p, x in v.items() if p not in plan.data_sharded)
+    replicated = [(p, x) for p, x in leaves.items() if p not in plan.data_sharded]
+    # remat 'dots' against the run's full remat: one more micro-step on the first batch
+    live, above = _fsdp_micro_step(trainer, _fsdp_first_batch(trainer), "dots")
+    remat = {"full": {"live_gathered_peak_bytes": record["live_first"],
+                      "peak_bytes_above_state": record["peak_first"]},
+             "dots": {"live_gathered_peak_bytes": live, "peak_bytes_above_state": above}}
+    torch.save({"rank": rank, "losses": record["losses"], "result": result,
+                "launches": launches, "launches_first": record["launches_first"],
+                "counts_first": record["counts_first"], "bytes_first": record["bytes_first"],
+                "counts_run": counts_run, "gather_host_ms": record["gather_host_ms"],
+                "reduce_scatter_host_ms": record["reduce_scatter_host_ms"],
+                "peak_memory_bytes": peak, "state_bytes_local": local,
+                "state_bytes_whole": whole, "state_bytes_residue": residue,
+                "data_sharded_leaves": len([p for p in leaves if p in plan.data_sharded]),
+                "leaves": len(leaves), "replicated_sha256": _sha(replicated),
+                "replicated_leaves": len(replicated), "remat": remat,
+                "span_kernel_ms_micro_step_2": record["split"],
+                "whole_shapes": {p: _whole_shape(plan, p, x) for p, x in leaves.items()},
+                "first_grads": record["first_grads"] if rank == 0 else None},
+               os.path.join(dump, f"rank{rank}.pt"))
+    return result
+
+
+def _whole_shape(plan, path, x) -> tuple:
+    """The shape of the leaf ``x`` at ``path`` whole over the data axis."""
+    shape = list(x.shape)
+    if path in plan.data_sharded:
+        shape[plan.data_dims[path]] *= plan.data
+    return tuple(shape)
+
+
+def _fsdp_one_process(layers, ranks, kernel_counters):
+    """The first micro-step in this process on the whole model (the trainer's masters:
+    fp32 tower, projector and decoder, bf16 compute, the loss of ``steps.stage2_loss``;
+    no optimizer, whose state is what --fsdp shards) on the ranks' first global batch:
+    (loss, every gradient in bf16 compute, the q/k RMSNorm scales' gradients through
+    the plain path in fp32)."""
+    import torch
+
+    from projectiontrainer_tpu_torch.core import dtypes
+    from projectiontrainer_tpu_torch.core.pytree import unique_leaves_with_paths
+    from projectiontrainer_tpu_torch.data import bucketing
+    from projectiontrainer_tpu_torch.data import pipeline as pipe
+    from projectiontrainer_tpu_torch.train import steps
+
+    cfg, params = fsdp_model(layers)
+    for k in ("vision", "llm"):
+        params[k] = dtypes.cast_compute_params(params[k], torch.float32)
+    train, _ = fsdp_vqa_data(cfg)
+    q_lens, a_lens = train.token_lengths()
+    plan = bucketing.global_bucket_plan(
+        q_lens, a_lens, batch_size=ranks, epoch=0, seed=SEED,
+        q_buckets=bucketing.buckets_covering(128, bucketing.DEFAULT_Q_BUCKETS),
+        a_buckets=bucketing.buckets_covering(512, bucketing.DEFAULT_A_BUCKETS))
+    batch = next(iter(pipe.planned_epoch_batches(train, plan, pad_id=0, device=DEVICE,
+                                                 num_workers=2)))
+    leaves = list(unique_leaves_with_paths(params))
+    for _, x in leaves:
+        x.requires_grad_(True)
+    for c in kernel_counters.values():
+        c.reset()
+    loss_fn = steps.stage2_loss(cfg, 0, logits_chunk=128, table_frozen=False,
+                                compute_dtype=torch.bfloat16, remat=True)
+    loss, _ = loss_fn(params, batch)
+    grads = torch.autograd.grad(loss, [x for _, x in leaves])
+    grads = {p: g.float().cpu() for (p, _), g in zip(leaves, grads)}
+    loss = float(loss.detach())
+    launched = {n: c.value for n, c in kernel_counters.items()}
+    rounding = [(p, x) for p, x in leaves if p.startswith("llm/") and p.endswith(ROUNDING_LEAVES)]
+    for p, x in leaves:
+        x.requires_grad_(any(x is y for _, y in rounding))
+    plain = steps.stage2_loss(plain_config(cfg), 0, logits_chunk=128, table_frozen=False,
+                              compute_dtype=None, remat=True)
+    f_loss, _ = plain(params, batch)
+    fp32 = torch.autograd.grad(f_loss, [x for _, x in rounding])
+    fp32 = {p: g.float().cpu() for (p, _), g in zip(rounding, fp32)}
+    del params, leaves, rounding, f_loss
+    gc_cuda()
+    return loss, grads, fp32, launched
+
+
+def _fsdp_against_one_process(first_loss, grads_r, loss_one, grads_one, fp32):
+    """The ranks' first micro-step against one process: the loss within LOSS_REL; every
+    gathered gradient leaf at cosine >= COS_MIN, or below it at >= TP_LEAF_COS_FLOOR with
+    its group (the leaves of one name) at >= COS_MIN (phase 21's rule); the key-projection
+    biases (zero in exact arithmetic) by their noise, at most KEY_BIAS_NOISE x one
+    process's; the q/k RMSNorm scales by their distance to the plain fp32 gradient, at
+    most ROUNDING_GAP x one process's bf16 (phase 10's rule)."""
+    import torch
+
+    def sums(a, b):  # (a.b, a.a, b.b) in fp64 on the card: an fp32 sum over 671M drifts
+        a, b = a.to(DEVICE).flatten().double(), b.to(DEVICE).flatten().double()
+        return [float(a @ b), float(a @ a), float(b @ b)]
+
+    def cosine(s):
+        return s[0] / max((s[1] * s[2]) ** 0.5, 1e-300)
+
+    rel = abs(first_loss - loss_one) / abs(loss_one)
+    if grads_r.keys() != grads_one.keys():
+        raise AssertionError(f"fsdp: gradient leaves differ: {sorted(grads_r)[:4]} vs "
+                             f"{sorted(grads_one)[:4]}")
+    dots, gaps, key_bias = {}, {}, [0.0, 0.0]
+    for p in sorted(grads_one):
+        a, b = grads_r[p], grads_one[p]
+        if p.endswith("k_proj/bias"):
+            key_bias = [max(key_bias[0], float(a.norm())), max(key_bias[1], float(b.norm()))]
+        elif p in fp32:
+            f = fp32[p]
+            gaps[p] = float((a - f).norm()) / max(float((b - f).norm()), 1e-30)
+        else:
+            dots[p] = sums(a, b)
+    cos = {p: cosine(d) for p, d in dots.items()}
+    groups = {}
+    for p, d in dots.items():  # a group's cosine from its leaves' sums: no concatenation
+        g = groups.setdefault(p.rsplit("/", 1)[-1], [0.0, 0.0, 0.0])
+        for i in range(3):
+            g[i] += d[i]
+    group_cos = {k: cosine(g) for k, g in groups.items()}
+    below = {p: c for p, c in cos.items() if not c >= COS_MIN}
+    worst = min(cos, key=cos.get)
+    row = {"first_loss_ranks": first_loss, "first_loss_one_process": loss_one,
+           "first_loss_rel_diff": rel, "grad_leaves": len(cos),
+           "min_grad_cosine": cos[worst], "min_grad_cosine_leaf": worst,
+           "group_grad_cosine": group_cos, "leaves_below_cos_min": below,
+           "rounding_leaves_gap_ratio_max": max(gaps.values()) if gaps else None,
+           "rounding_leaves": len(gaps), "key_bias_grad_norm_max_ranks_one": key_bias,
+           "table_grad_cosine": cos.get("llm/embed_tokens/embedding")}
+    if not rel <= LOSS_REL:
+        raise AssertionError(f"fsdp: first loss {first_loss} vs one process {loss_one}")
+    if below and not (min(below.values()) >= TP_LEAF_COS_FLOOR
+                      and min(group_cos.values()) >= COS_MIN):
+        raise AssertionError(f"fsdp: gradient cosines {below}, by group {group_cos}")
+    if gaps and not max(gaps.values()) <= ROUNDING_GAP:
+        raise AssertionError(f"fsdp: q/k norm scales' distance to fp32 {gaps} > "
+                             f"{ROUNDING_GAP} x one process's")
+    if not key_bias[0] <= KEY_BIAS_NOISE * key_bias[1]:
+        raise AssertionError(f"fsdp: key-projection bias gradient norm {key_bias}")
+    return row
+
+
+def _fsdp_world():
+    """(ranks, backend, why, sharing, decoder layers): one NCCL rank a card on 2 cards or
+    more (4 on 4, at the full 34 layers); 2 gloo ranks sharing one card at
+    FSDP_LAYERS_SHARING layers; 1 where the card admits one process."""
+    import torch
+
+    ranks, backend, why, sharing = _dp_world("fsdp")
+    n = torch.cuda.device_count()
+    if backend == "nccl" and n >= 4:
+        ranks, why = 4, f"{n} cards: one NCCL rank on each of 4"
+    return ranks, backend, why, sharing, FSDP_LAYERS_SHARING if sharing else 34
+
+
+def phase_fsdp():
+    """Phase 22: --fsdp over BASELINE config #4 (Gemma3-4B full-joint stage 2) through
+    the launcher, then stage 0 with --fsdp; see the module's docstring."""
+    import torch
+
+    ranks, backend, why, sharing, layers = _fsdp_world()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+    world = {"ranks": ranks, "backend": backend, "why": why, "sharing_one_card": sharing}
+    if ranks < 2:
+        print(f"fsdp: NOT RUN: {why}", flush=True)
+        emit({"phase": 22, "ran": False, "why": why, "nvidia_smi": smi})
+        return {}
+    label = ("ranks sharing one card, a sharing figure, not a scaling one" if sharing
+             else f"{ranks} ranks, one card each")
+    cut = (f"Gemma3-4B's 34 decoder layers cut to {layers} (one period of the sliding "
+           "pattern: 5 sliding, 1 full)" if layers < 34 else "the full 34 decoder layers")
+    print(f"fsdp: {ranks} data ranks over {backend}: {why}; {cut} ({smi})", flush=True)
+    root = _fsdp_scratch_root(layers)
+    kernel_counters = counters()
+    try:
+        # (b) stage-2 full-joint over BASELINE config #4
+        out = os.path.join(root, "stage2")
+        flags = fsdp_stage2_flags(root, out) + ["--mesh_data", str(ranks)]
+        gc_cuda()
+        rc, logs, wall = _dp_launch("fsdp_stage2_rank", root, ["--layers", str(layers)] + flags,
+                                    ranks, backend, FSDP_TIMEOUT_S)
+        if rc != 0:
+            raise AssertionError(f"fsdp: the stage-2 launch exited {rc}:\n{logs[-6000:]}")
+        dumps = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+                 for r in range(ranks)]
+        n_steps = 2 * FSDP_SAMPLES // ranks
+        for d in dumps:
+            if len(d["losses"]) != n_steps or not np.isfinite(d["losses"]).all():
+                raise AssertionError(f"fsdp: rank {d['rank']} losses {d['losses']}")
+            if not all(d["launches"][n] for n in STAGE2_KERNELS):
+                raise AssertionError(f"fsdp: rank {d['rank']} never launched a kernel of the "
+                                     f"path: {d['launches']}")
+            bound = ((d["state_bytes_whole"] - d["state_bytes_residue"]) / ranks
+                     + d["state_bytes_residue"])
+            if not d["state_bytes_local"] <= bound + 1:
+                raise AssertionError(f"fsdp: rank {d['rank']} holds {d['state_bytes_local']} "
+                                     f"bytes of state > {bound}")
+        if any(d["losses"] != dumps[0]["losses"] for d in dumps):
+            raise AssertionError(f"fsdp: the ranks logged different losses: "
+                                 f"{[d['losses'] for d in dumps]}")
+        if len({d["replicated_sha256"] for d in dumps}) != 1 or not dumps[0]["replicated_leaves"]:
+            raise AssertionError("fsdp: the replicated trained leaves differ across the ranks")
+        # the gathered train state loads whole here (memory-mapped)
+        saved = torch.load(os.path.join(out, "checkpoints", "epoch_1.pt"), map_location="cpu",
+                           weights_only=True, mmap=True)
+        shapes = dumps[0]["whole_shapes"]
+        if not saved["params"] or any(tuple(x.shape) != shapes[p]
+                                      for p, x in saved["params"].items()):
+            raise AssertionError("fsdp: the checkpoint does not hold whole leaves")
+        for slot in ("mu", "nu", "acc"):
+            if any(tuple(x.shape) != shapes[p] for p, x in saved["opt_state"][slot].items()):
+                raise AssertionError(f"fsdp: the checkpoint's {slot} is not whole")
+        ckpt_bytes = os.path.getsize(os.path.join(out, "checkpoints", "epoch_1.pt"))
+        probe = saved["params"]["llm/layers/0/mlp/down_proj/weight"]
+        if not bool(torch.isfinite(probe).all()):
+            raise AssertionError("fsdp: the checkpoint's down_proj is not finite")
+        del saved, probe
+        exported = sorted(os.listdir(os.path.join(out, "checkpoint-epoch_1")))
+        examples = sorted(os.listdir(os.path.join(out, "validation_examples")))
+        grads_r = dumps[0]["first_grads"]
+        gc_cuda()
+        loss_one, grads_one, fp32, launched_one = _fsdp_one_process(layers, ranks,
+                                                                    kernel_counters)
+        versus = _fsdp_against_one_process(dumps[0]["losses"][0], grads_r, loss_one,
+                                           grads_one, fp32)
+        del grads_r, grads_one, fp32
+        for d in dumps:
+            d.pop("first_grads", None)
+        gc_cuda()
+        per_rank = [{
+            "images_per_sec": d["result"].get("images_per_sec"),
+            "tokens_per_sec": d["result"].get("tokens_per_sec"),
+            "micro_step_ms": d["result"].get("step_time_ms"),
+            "max_memory_allocated_gib": d["peak_memory_bytes"] / 2 ** 30,
+            "state_gib_local_whole_residue": [d["state_bytes_local"] / 2 ** 30,
+                                              d["state_bytes_whole"] / 2 ** 30,
+                                              d["state_bytes_residue"] / 2 ** 30],
+            "fsdp_gather_host_ms_first_micro_step": float(np.sum(
+                d["gather_host_ms"][:d["counts_first"]["forward"]
+                                    + d["counts_first"]["recompute"]])),
+            "fsdp_gather_host_ms_run": float(np.sum(d["gather_host_ms"])),
+            "fsdp_reduce_scatter_host_ms_run": float(np.sum(d["reduce_scatter_host_ms"])),
+            "fsdp_kernel_ms_micro_step_2": {
+                k: v for k, v in d["span_kernel_ms_micro_step_2"].items() if "fsdp" in k},
+            "kernel_ms_micro_step_2": d["span_kernel_ms_micro_step_2"]["total_ms"],
+            "collectives_first_micro_step": d["counts_first"],
+            "gathered_bytes_first_micro_step": d["bytes_first"],
+            "remat_full_vs_dots": d["remat"]} for d in dumps]
+        for r, row in enumerate(per_rank):
+            print(f"fsdp rank {r} ({label}; {smi}): {row['images_per_sec']} images/s, "
+                  f"{row['tokens_per_sec']} tokens/s, {row['micro_step_ms']} ms a micro-step; "
+                  f"max_memory_allocated {row['max_memory_allocated_gib']:.2f} GiB; state "
+                  f"(local, whole, replicated residue) GiB {row['state_gib_local_whole_residue']}; "
+                  f"fsdp_gather host ms {row['fsdp_gather_host_ms_run']:.0f} (run), "
+                  f"fsdp_reduce_scatter host ms {row['fsdp_reduce_scatter_host_ms_run']:.0f} "
+                  f"(run); kernel ms of micro-step 2 {row['kernel_ms_micro_step_2']:.1f}, of its "
+                  f"collectives {row['fsdp_kernel_ms_micro_step_2']}; gathers of a micro-step "
+                  f"{row['collectives_first_micro_step']}; remat {row['remat_full_vs_dots']}",
+                  flush=True)
+        emit({"phase": 22, "part": "stage2_full_joint_4b", "world": world, "label": label,
+              "nvidia_smi": smi, "launch_wall_s": wall, "decoder_layers": layers,
+              "losses": dumps[0]["losses"], "per_rank": per_rank,
+              "data_sharded_leaves": dumps[0]["data_sharded_leaves"],
+              "leaves": dumps[0]["leaves"], "replicated_leaves_bit_equal":
+              dumps[0]["replicated_leaves"], "checkpoint_bytes": ckpt_bytes,
+              "checkpoint_loads_whole": True, "exported": exported,
+              "validation_examples": examples,
+              "kernel_ms_micro_step_2_rank0": dumps[0]["span_kernel_ms_micro_step_2"],
+              "launches_per_rank": [d["launches"] for d in dumps],
+              "launches_first_micro_step_rank0": dumps[0]["launches_first"],
+              "launches_one_process_micro_step": launched_one, **versus,
+              "cut": f"{cut}; 2 epochs of {FSDP_SAMPLES} random samples at 1215 tokens, "
+                     "2 validation samples with 3 beams of 16 tokens, the train state and "
+                     "exports saved after the last epoch only (a real run: the VQA "
+                     "corpus, 5 epochs, a checkpoint each epoch and the best)"})
+        launches = {"stage2_fsdp_rank0": dumps[0]["launches"],
+                    "stage2_fsdp_micro_step": dumps[0]["launches_first"]}
+
+        # (c) stage 0 with --fsdp: phase 20 (c)'s cut dual tower
+        n0 = DP_STAGE0_BATCH * ranks * FSDP_STAGE0_STEPS
+        feed = write_cxr_sources(root, n0 + 16, 1024, SEED + 3000)
+        with open(os.path.join(root, "stage0.json"), "w") as f:
+            json.dump(feed, f)
+        out0 = os.path.join(root, "stage0")
+        flags0 = ["--image_root", root, "--train_json", os.path.join(root, "stage0.json"),
+                  "--output_dir", out0, "--model_name", "seeded", "--img_size", "512",
+                  "--batch_size", str(DP_STAGE0_BATCH), "--num_epochs", "1",
+                  "--val_split", str(16 / (n0 + 16)), "--max_text_len", "64",
+                  "--logging_steps", "1", "--num_workers", "4", "--disable_wandb",
+                  "--seed", str(SEED), "--min_save_epoch", "0", "--local_negatives",
+                  "--mesh_data", str(ranks), "--fsdp"]
+        gc_cuda()
+        rc, logs, wall0 = _dp_launch("dp_stage0_rank", root, flags0, ranks, backend)
+        if rc != 0:
+            raise AssertionError(f"fsdp: the stage-0 launch exited {rc}:\n{logs[-6000:]}")
+        dumps0 = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+                  for r in range(ranks)]
+        for d in dumps0:
+            if len(d["losses"]) != FSDP_STAGE0_STEPS or not np.isfinite(d["losses"]).all():
+                raise AssertionError(f"fsdp stage 0: rank {d['rank']} losses {d['losses']}")
+            if not all(d["launches"][n] for n in STAGE0_KERNELS) or not d["data_sharded"]:
+                raise AssertionError(f"fsdp stage 0: rank {d['rank']}: launches "
+                                     f"{d['launches']}, {d['data_sharded']} data shards")
+        if any(d["losses"] != dumps0[0]["losses"] for d in dumps0):
+            raise AssertionError(f"fsdp stage 0: the ranks logged different losses: "
+                                 f"{[d['losses'] for d in dumps0]}")
+        if len({d["trained_sha256"] for d in dumps0}) != 1:
+            raise AssertionError("fsdp stage 0: the replicated leaves differ across ranks")
+        saved = torch.load(os.path.join(out0, "checkpoints", "final.pt"), map_location="cpu",
+                           weights_only=True, mmap=True)["params"]
+        _, whole0 = _stage0_dp_model()
+        from projectiontrainer_tpu_torch.core.pytree import unique_leaves_with_paths
+
+        whole0 = {p: tuple(x.shape) for p, x in unique_leaves_with_paths(whole0)}
+        if not saved or any(tuple(x.shape) != whole0[p] for p, x in saved.items()):
+            raise AssertionError("fsdp stage 0: the checkpoint does not hold whole leaves")
+        del saved
+        gc_cuda()
+        print(f"fsdp stage 0 ({label}; {smi}): losses {dumps0[0]['losses']}, images/s per "
+              f"rank {[d['result'].get('images_per_sec') for d in dumps0]}", flush=True)
+        emit({"phase": 22, "part": "stage0", "label": label, "nvidia_smi": smi,
+              "launch_wall_s": wall0, "losses": dumps0[0]["losses"],
+              "data_sharded_leaves": dumps0[0]["data_sharded"],
+              "images_per_sec_per_rank": [d["result"].get("images_per_sec") for d in dumps0],
+              "launches_per_rank": [d["launches"] for d in dumps0],
+              "checkpoint_loads_whole": True,
+              "cut": f"so400m towers cut to {DP_STAGE0_LAYERS} of 27 layers each (run time), "
+                     f"{FSDP_STAGE0_STEPS} steps at {DP_STAGE0_BATCH} a rank"})
+        launches["stage0_fsdp_rank0"] = dumps0[0]["launches"]
         return launches
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -4317,9 +4979,15 @@ def main() -> int:
 
     import torch
 
+    t0, walls = time.perf_counter(), {}
+
+    def mark(name):  # the seconds since the last mark, printed at the end
+        walls[name] = time.perf_counter() - t0 - sum(walls.values())
+
     device = phase_device()
     phase_build()
     results = phase_kernels()
+    mark("0-2 device, build, kernels")
 
     kernel_counters = counters()
     cfg, params = full_width_model()
@@ -4328,6 +4996,7 @@ def main() -> int:
     check_profiler_spans()
     train_launches = phase_train(cfg, params, kernel_counters)
     phase_train_end_to_end(cfg, params, kernel_counters)
+    mark("3-6 serve, stage 1")
     del cfg, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4340,20 +5009,22 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     files_launches = phase_feed(cfg, params, kernel_counters, stage0_stats)
+    mark("7-8, 16 stage 0, the feed")
     del cfg, params
     gc.collect()
     torch.cuda.empty_cache()
 
-    cfg, params = full_width_model()
+    cfg, params = full_width_model(STAGE2_LAYERS)
     stage2_launches, stage2_step, params = phase_stage2_train(cfg, params, kernel_counters)
     gc.collect()
     torch.cuda.empty_cache()
     phase_stage2_end_to_end(cfg, params, kernel_counters)
+    mark("9-10 stage 2")
     del cfg, params
     gc.collect()
     torch.cuda.empty_cache()
 
-    cfg, params = qwen3_model("nf4-mirror")
+    cfg, params = qwen3_model("nf4-mirror", layers=QLORA_LAYERS)
     qlora_launches, params, adapter_dir = phase_qlora_train(cfg, params, kernel_counters)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4362,13 +5033,14 @@ def main() -> int:
         del params
         gc.collect()
         torch.cuda.empty_cache()
-        cfg, params = qwen3_model()  # dense bf16, the same seed
+        cfg, params = qwen3_model(layers=QLORA_LAYERS)  # dense bf16, the same seed
         qlora_serve = phase_serve(cfg, params, [kernel_counters[n] for n in SERVE_KERNELS],
                                   clients=8, adapter_path=adapter_dir, phase=13)
         del params
     finally:
         shutil.rmtree(adapter_dir, ignore_errors=True)
     gc_cuda()
+    mark("11-13 QLoRA")
 
     cfg, params = cls_model()
     cls_launches = phase_cls_train(cfg, params, kernel_counters)
@@ -4376,6 +5048,7 @@ def main() -> int:
     phase_cls_end_to_end(cfg, params, kernel_counters)
     del cfg, params
     gc_cuda()
+    mark("14-15 cls")
 
     cfg, params = llama_vlm()
     slice_launches = {"caption_llama": phase_caption(cfg, params, kernel_counters),
@@ -4384,15 +5057,25 @@ def main() -> int:
     gc_cuda()
     slice_launches.update(phase_zero_shot_tsne(kernel_counters))
     gc_cuda()
+    mark("17-19 inference")
 
     dp = phase_data_parallel()  # the ranks count their own launches
+    mark("20 data parallel")
     slice_launches["stage1_dp_rank0"] = {n: dp["stage1_dp"][n] for n in STAGE1_KERNELS}
     slice_launches["stage0_dp_rank0"] = {n: dp["stage0_dp"][n] for n in STAGE0_KERNELS}
     tp_runs = phase_tensor_parallel()
+    mark("21 tensor parallel")
     for path, kernels in (("stage2_qlora_tp_rank0", STAGE2_QLORA_KERNELS),
                           ("stage1_tp_rank0", STAGE1_KERNELS)):
         if path in tp_runs:
             slice_launches[path] = {n: tp_runs[path][n] for n in kernels}
+    gc_cuda()
+    fsdp_runs = phase_fsdp()
+    mark("22 fsdp")
+    for path, kernels in (("stage2_fsdp_rank0", STAGE2_KERNELS),
+                          ("stage0_fsdp_rank0", STAGE0_KERNELS)):
+        if path in fsdp_runs:
+            slice_launches[path] = {n: fsdp_runs[path][n] for n in kernels}
 
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
@@ -4419,11 +5102,14 @@ def main() -> int:
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
                         "launches": by_path[main_path], "launches_by_path": by_path,
                         "launches_per_stage2_micro_step": stage2_step[name],
+                        "launches_per_fsdp_micro_step": fsdp_runs.get(
+                            "stage2_fsdp_micro_step", {}).get(name),
                         "max_abs_err": max(r["max_abs_err"] for r in rows),
                         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
                         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
                         "library_ms": main_row["library_ms"], "library": main_row["library"],
                         "timed_case": main_row["case"]})
+    emit({"phase_walls_s": walls, "total_s": time.perf_counter() - t0})
     emit({"kernels": kernels})
     emit({"ok": True, "device": device})
     return 0

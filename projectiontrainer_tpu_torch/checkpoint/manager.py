@@ -17,7 +17,10 @@ decision takes rank 0's metric everywhere; ``--resume`` reads on every rank. Und
 tensor parallelism (``plan``, a ``parallel/sharding.ShardPlan``) each model rank holds
 shards: every rank enters the gathers of the sharded params and optimizer slots, rank 0
 writes the whole leaves (the file is the one a single process writes), and a restore
-slices each leaf to the rank's shard again.
+slices each leaf to the rank's shard again. The same holds for the data axis under
+``--fsdp`` (the plan's data shards, params and optimizer slots alike). Each leaf is
+gathered and moved to the host one at a time, so the card never holds the whole state,
+and a restore reads the file memory-mapped, each rank copying its blocks.
 
 The cls probe names every leaf of its classifier (the JAX package saves the whole
 state): its evaluators rebuild the model from a checkpoint alone (``restore_params``,
@@ -44,14 +47,6 @@ from projectiontrainer_tpu_torch.core.pytree import leaves_with_paths, unique_le
 from projectiontrainer_tpu_torch.parallel import distributed
 
 
-def _cpu(x):
-    if isinstance(x, torch.Tensor):
-        return x.detach().cpu()
-    if isinstance(x, dict):
-        return {k: _cpu(v) for k, v in x.items()}
-    return x
-
-
 class CheckpointManager:
     def __init__(self, directory: str, *, save_every_n_epochs: int = 1,
                  min_save_epoch: int = 0, best_mode: str = "min",
@@ -72,22 +67,26 @@ class CheckpointManager:
     def _path(self, name: str) -> str:
         return os.path.join(self.directory, f"{name}.pt")
 
-    def _whole(self, tree: dict) -> dict:
-        """{path: leaf} with each sharded leaf gathered whole (every model rank enters)."""
-        if self.plan is None:
-            return tree
-        return {p: self.plan.gather(p, x) for p, x in tree.items()}
+    def _host(self, tree: dict) -> dict:
+        """{path: leaf} whole on the CPU, on rank 0 (empty elsewhere): each sharded leaf
+        gathered (every rank of its axes enters) and moved to the host before the next."""
+        out = {}
+        for p, x in tree.items():
+            whole = x if self.plan is None else self.plan.gather(p, x)
+            if distributed.is_main():
+                out[p] = whole.detach().cpu()
+        return out
 
     def _save(self, name: str, state: dict, metadata: Optional[dict] = None):
         """Rank 0 writes (tmp + rename); every rank returns once the file is there."""
         keep = (self.save_paths if self.save_paths is not None
                 else set(state["opt_state"]["mu"]))
-        params = self._whole({p: x for p, x in unique_leaves_with_paths(state["params"])
-                              if p in keep})
-        opt = {k: self._whole(v) if isinstance(v, dict) else v
+        params = self._host({p: x for p, x in unique_leaves_with_paths(state["params"])
+                             if p in keep})
+        opt = {k: self._host(v) if isinstance(v, dict) else v
                for k, v in state["opt_state"].items()}
         if distributed.is_main():
-            payload = {"params": _cpu(params), "opt_state": _cpu(opt),
+            payload = {"params": params, "opt_state": opt,
                        "step": int(state["step"]), "metadata": dict(metadata or {})}
             tmp = self._path(name) + ".tmp"
             torch.save(payload, tmp)
@@ -179,7 +178,8 @@ class CheckpointManager:
     def restore(self, name: str, state: dict) -> dict:
         """Copy checkpoint ``name`` into ``state`` in place (params onto their devices
         and types, optimizer tensors onto the params' device); returns ``state``."""
-        payload = torch.load(self._path(name), map_location="cpu", weights_only=True)
+        payload = torch.load(self._path(name), map_location="cpu", weights_only=True,
+                             mmap=True)
         leaves = dict(leaves_with_paths(state["params"]))
         with torch.no_grad():
             for p, x in payload["params"].items():

@@ -17,10 +17,10 @@ multi-hot targets (``MultiLabelClassificationDataset``). Images are read on
 protocol, so ``--num_loader_procs`` has no effect (said once in the log), as in the JAX
 package. Data parallel over N GPUs: ``projectiontrainer-torch-launch --nproc_per_node N cls --
 <these flags>`` (or ``torchrun``) starts one process per GPU; ``--mesh_data`` N or -1 (every
-rank). Not ported yet, and refused: ``--mesh_model`` above 1 (tensor parallelism; stages
-1 and 2 have it, this stage's comes later) and
-``--fsdp``; ``--mesh_data -1`` with more than one GPU visible in a process no launcher
-started raises too.
+rank); ``--fsdp`` shards the classifier and the optimizer state over the data axis
+(ZeRO-3, ``parallel/fsdp.py``). Not ported yet, and refused: ``--mesh_model`` above 1
+(tensor parallelism; stages 1 and 2 have it, this stage's comes later); ``--mesh_data
+-1`` with more than one GPU visible in a process no launcher started raises too.
 """
 
 from __future__ import annotations

@@ -27,8 +27,10 @@ rank). Tensor parallelism: ``--mesh_model`` M splits each replica over M ranks (
 at (r // M, r % M); heads, hidden columns and the vocab sharded, ``parallel/sharding.py``;
 ``launchers/run_stage2_h100.sh`` runs the stage-2 QLoRA recipe at 4 x 2); a model the M
 ranks do not divide raises. ``--remat dots`` saves the products' outputs and recomputes
-the rest (``core/remat.py``). Not ported yet, and refused: ``--fsdp``; ``--mesh_data
--1`` with more than one GPU visible in a process no launcher started raises too.
+the rest (``core/remat.py``). ``--fsdp`` shards the params and the optimizer state over
+the data axis (ZeRO-3, ``parallel/fsdp.py``; with ``--mesh_model`` too), the recipe of
+``launchers/run_stage2_full_joint_h100.sh`` (Gemma3-4B full-joint). ``--mesh_data -1``
+with more than one GPU visible in a process no launcher started raises.
 """
 
 from __future__ import annotations

@@ -3,9 +3,9 @@
 Counterpart of ``projectiontrainer_tpu/core/config.py`` for the stage-0, stage-1 and
 stage-2 paths and the cls probe (``CommonConfig``, ``Stage0Config``, ``Stage1Config``,
 ``Stage2Config``, ``ClsConfig``, ``parser_for``, ``from_args``): the same fields, flag
-names and defaults, plus the port's ``--device``. Flags whose machinery is not ported
-yet (``--fsdp``; ``--mesh_model`` above 1 in stage 0 and the cls probe) parse as in
-JAX; the CLIs raise on them.
+names and defaults, plus the port's ``--device``. A flag whose machinery is not ported
+yet (``--mesh_model`` above 1 in stage 0 and the cls probe) parses as in JAX; the CLIs
+raise on it.
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ class CommonConfig:
     num_loader_procs: int = 0
     mesh_data: int = -1
     mesh_model: int = 1
-    # ZeRO-3 sharded parameters and optimizer state (multi-device; not ported)
+    # ZeRO-3: params and optimizer state sharded over the data axis (parallel/fsdp.py)
     fsdp: bool = False
     mixed_precision: str = "bf16"
     # the port's own flag: the card the run uses ('cuda', 'cuda:1') or 'cpu' for the

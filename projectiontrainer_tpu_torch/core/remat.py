@@ -4,16 +4,16 @@ Counterpart of the JAX package's ``jax.checkpoint`` around each decoder and towe
 (``models/decoder.py:439-446``, ``models/siglip.py:228-233`` there). ``remat`` is
 
 - ``True``: recompute everything (``torch.utils.checkpoint``, non-reentrant): the
-  backward runs each layer's forward again, its tensor-parallel all-reduces included,
-  as the JAX package's remat repeats the psum;
+  backward runs each layer's forward again, its tensor-parallel all-reduces and its
+  ``--fsdp`` gathers included, as the JAX package's remat repeats the psum;
 - ``'dots'``: the JAX policy ``dots_with_no_batch_dims_saveable``: the outputs of the
   products without batch dimensions are saved and everything else is recomputed.
   In torch these are ``aten.mm`` and ``aten.addmm``, which ``F.linear``, the
   dequantized base's product and the LoRA thin products reach; ``aten.bmm`` and the
   flash kernels' autograd Functions are recomputed, as on the TPU. Under tensor
   parallelism the output of each row-parallel product's all-reduce
-  (``parallel/tensor_parallel.py``) is saved too, so the recompute launches no
-  collective;
+  (``parallel/tensor_parallel.py``) is saved too, and under ``--fsdp`` each gathered
+  weight (``parallel/fsdp.py``), so the recompute launches no collective;
 - ``False``: keep every activation.
 
 The numbers are the same under every policy; only what is stored differs.
@@ -27,10 +27,11 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from projectiontrainer_tpu_torch.parallel import tensor_parallel
+from projectiontrainer_tpu_torch.parallel import fsdp, tensor_parallel
 
 aten = torch.ops.aten
-DOTS_SAVED = frozenset({aten.mm.default, aten.addmm.default, tensor_parallel.ALL_REDUCE_OP})
+DOTS_SAVED = frozenset({aten.mm.default, aten.addmm.default, tensor_parallel.ALL_REDUCE_OP,
+                        fsdp.ALL_GATHER_OP})
 
 
 def _dots_policy(ctx, op, *args, **kwargs):

@@ -11,7 +11,9 @@ trains), inside the span ``vision``; the head (C queries against every patch, no
 self-attention shape) runs the plain ``dot_product_attention``, as the JAX package
 runs it on its XLA path, inside the span ``head``. A snapshot's MAP head, which the
 classifier never reads, stays in the params (so it is saved, and under ``Unfreeze``
-AdamW's decay moves it as in JAX) but is not run.
+AdamW's decay moves it as in JAX) but is not run. Under ``--fsdp`` the tower gathers
+its data shards as it runs and the head's leaves are gathered where the head runs
+(``parallel/fsdp.py``).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 from projectiontrainer_tpu_torch.models import siglip
 from projectiontrainer_tpu_torch.ops import layers as L
 from projectiontrainer_tpu_torch.ops.attention import dot_product_attention
+from projectiontrainer_tpu_torch.parallel import fsdp
 from projectiontrainer_tpu_torch.utils.timing import span
 
 
@@ -70,6 +73,7 @@ def forward(params, cfg: ClassifierConfig, pixel_values: torch.Tensor, *,
         features, _ = siglip.vision_forward(
             tower, cfg.vision, pixel_values.to(tower["patch_embedding"]["weight"].dtype))
     with span("head"):
+        params = fsdp.gather({k: v for k, v in params.items() if k != "vision"}, "")
         b, t, d = features.shape
         c, nh = cfg.num_classes, cfg.num_heads
         mha = params["mha"]

@@ -28,6 +28,12 @@ a single KV head is replicated). The embedding table and the LM head are vocab-s
 after the sum), ``logits`` all-gathers the rank's columns for generation, and the
 caches hold the rank's KV heads. Without a model axis nothing changes.
 
+ZeRO-3 over the data axis (``--fsdp``, ``parallel/fsdp.py``): inside a train step the
+leaves may be data shards; each layer gathers its leaves (and its LoRA adapters) at
+the top of the function that the remat policy checkpoints, so the recompute of remat
+``True`` gathers again; the losses gather the table and the other top-level leaves
+once (``train/steps.py``).
+
 Caches are updated IN PLACE (the JAX package returns new arrays): the prefill writes
 its K/V into the monolithic cache and each decode step writes slot ``t`` of the
 generated cache. ``forward`` still returns the cache list, so callers read the same
@@ -53,6 +59,7 @@ from projectiontrainer_tpu_torch.ops.flash_attention import (
     sharded_flash_attention, sharded_flash_plan,
 )
 from projectiontrainer_tpu_torch.ops import quant
+from projectiontrainer_tpu_torch.parallel import fsdp
 from projectiontrainer_tpu_torch.parallel import tensor_parallel as tp
 from projectiontrainer_tpu_torch.train import lora as lora_mod
 
@@ -115,6 +122,17 @@ def gemma3_config(
         query_pre_attn_scalar=query_pre_attn_scalar, qk_norm=True,
         rmsnorm_zero_centered=True, sandwich_norms=True, embed_scale=True, **kw,
     )
+
+
+def gemma3_4b_config(**kw) -> DecoderConfig:
+    """google/gemma-3-4b-it's text decoder (the port's copy of the JAX package's
+    ``parallel/budget.py:gemma3_4b_text_config``): hidden 2560, MLP 10240, 34 layers,
+    8 query heads over 4 KV heads of 256, vocab 262 208, window 1024 on five layers of
+    every six, linear rope factor 8 on the full layers."""
+    return gemma3_config(**{**dict(
+        vocab_size=262_208, hidden_size=2560, intermediate_size=10_240, num_layers=34,
+        num_heads=8, num_kv_heads=4, head_dim=256, sliding_window=1024, sliding_pattern=6,
+        rope_scaling_factor=8.0, query_pre_attn_scalar=256), **kw})
 
 
 def qwen3_config(
@@ -374,7 +392,12 @@ def _mlp_block(lp, cfg: DecoderConfig, x, lora=None):
 
 
 def _layer(lp, cfg: DecoderConfig, x, sin, cos, *, layer_type, kv_mask, q_offset,
-           cache, prefix_len, lora=None):
+           cache, prefix_len, lora=None, path="", lora_path=""):
+    """One decoder layer; its leaves (``path``) and adapters (``lora_path``) gathered
+    first where they are data shards (``--fsdp``)."""
+    lp = fsdp.gather(lp, path)
+    if lora is not None:
+        lora = (fsdp.gather(lora[0], lora_path),) + lora[1:]
     h, _ = _attention_block(
         lp["attn"], cfg, _norm(lp["input_norm"], x, cfg), sin, cos,
         layer_type=layer_type, kv_mask=kv_mask, q_offset=q_offset, cache=cache,
@@ -408,7 +431,9 @@ def forward(params, cfg: DecoderConfig, *, input_ids=None, inputs_embeds=None,
     ``lora`` (``{'layers': [...]}``, ``train/lora.py``) with ``lora_cfg`` adds the
     adapters' deltas to every adapted projection; ``lora_seed`` (an int, the train
     step's) turns on their dropout when ``lora_cfg.dropout > 0``: layer i, target t
-    draws its mask from ``lora.dropout_seed(lora_seed, i, t)``. None is no dropout."""
+    draws its mask from ``lora.dropout_seed(lora_seed, i, t)``. None is no dropout.
+    Under an active ``--fsdp`` plan each layer gathers its data shards (the decoder's
+    params at ``llm/``, its adapters at ``lora/`` of the VLM tree)."""
     remat_mod.check(remat)
     x = embed(params, cfg, input_ids) if inputs_embeds is None else inputs_embeds
     b, t, _ = x.shape
@@ -428,7 +453,8 @@ def forward(params, cfg: DecoderConfig, *, input_ids=None, inputs_embeds=None,
             layer_lora = (lora["layers"][i], lora_cfg, seeds)
         fn = functools.partial(_layer, lp, cfg, layer_type=layer_type, kv_mask=kv_mask,
                                q_offset=q_offset, cache=None if cache is None else cache[i],
-                               prefix_len=prefix_len, lora=layer_lora)
+                               prefix_len=prefix_len, lora=layer_lora,
+                               path=f"llm/layers/{i}", lora_path=f"lora/layers/{i}")
         policy = remat_mod.layer_remat(remat, i) if cache is None else False
         x = remat_mod.run(fn, policy, x, sin, cos)
     return _norm(params["final_norm"], x, cfg), cache

@@ -22,6 +22,12 @@ with a model axis the encoder layers hold one rank's shard (``parallel/sharding.
 q/k/v and fc1 column-parallel, out_proj and fc2 row-parallel (all-reduced on exit, the
 bias added once after), the heads read from the weights' shapes; the LayerNorms (K2,
 K8) run row-local on the replicated residual stream.
+
+ZeRO-3 over the data axis (``--fsdp``, ``parallel/fsdp.py``): inside a train step a
+tower's leaves may be data shards; the embeddings, the final LayerNorm and the heads
+are gathered at the top of the tower's forward, and each encoder layer gathers its own
+leaves inside the function that the remat policy checkpoints; the towers' places in
+the params tree are ``vision`` and ``text``.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from projectiontrainer_tpu_torch.ops import fused_layernorm as FLN
 from projectiontrainer_tpu_torch.ops import layers as L
 from projectiontrainer_tpu_torch.ops.attention import dot_product_attention
 from projectiontrainer_tpu_torch.ops.flash_attention import flash_attention
+from projectiontrainer_tpu_torch.parallel import fsdp
 from projectiontrainer_tpu_torch.parallel import tensor_parallel as tp
 from projectiontrainer_tpu_torch.utils.timing import span
 
@@ -216,7 +223,8 @@ def _attention(cfg: TowerConfig, q, k, v):
     return dot_product_attention(q, k, v, causal=False)
 
 
-def _encoder_layer(p, cfg: TowerConfig, x):
+def _encoder_layer(p, cfg: TowerConfig, x, path=""):
+    p = fsdp.gather(p, path)
     b, t, _ = x.shape
     col, row = ((L.linear, L.linear) if tp.size() == 1
                 else (tp.column_linear, tp.row_linear))
@@ -247,13 +255,14 @@ def _map_head(p, cfg: VisionConfig, x):
     return (residual + h)[:, 0]
 
 
-def _encoder(layers, cfg: TowerConfig, x, remat: Union[bool, int, str]):
+def _encoder(layers, cfg: TowerConfig, x, remat: Union[bool, int, str], prefix: str):
     """The encoder blocks; ``remat`` True recomputes every layer in the backward
     (``torch.utils.checkpoint``), an int N the first N only, 'dots' every layer but its
     products' outputs (``core/remat.py``)."""
     remat_mod.check(remat)
     for i, lp in enumerate(layers):
-        x = remat_mod.run(functools.partial(_encoder_layer, lp, cfg),
+        x = remat_mod.run(functools.partial(_encoder_layer, lp, cfg,
+                                            path=f"{prefix}/layers/{i}"),
                           remat_mod.layer_remat(remat, i), x)
     return x
 
@@ -262,9 +271,10 @@ def vision_forward(params, cfg: VisionConfig, pixel_values: torch.Tensor, *,
                    remat: Union[bool, int] = False):
     """pixel_values [B, H, W, C] (NHWC) -> (last_hidden_state [B, num_patches, D],
     pooled [B, D] from the MAP head, or None for a tower without one)."""
+    params = fsdp.gather_top(params, "vision")
     x = L.conv_patchify(params["patch_embedding"], pixel_values, patch=cfg.patch_size)
     x = x + params["position_embedding"]["embedding"][None].to(x.dtype)
-    x = _ln(params["post_layernorm"], cfg, _encoder(params["layers"], cfg, x, remat))
+    x = _ln(params["post_layernorm"], cfg, _encoder(params["layers"], cfg, x, remat, "vision"))
     pooled = _map_head(params["head"], cfg, x) if "head" in params else None
     return x, pooled
 
@@ -283,9 +293,10 @@ def text_forward(params, cfg: TextConfig, input_ids: torch.Tensor):
     No attention mask (the processor pads to ``max_length`` and the model attends to
     the padding); pooled is the LAST token's hidden state through the linear head."""
     t = input_ids.shape[-1]
+    params = fsdp.gather_top(params, "text")
     x = L.embedding_lookup(params["token_embedding"], input_ids)
     x = x + params["position_embedding"]["embedding"][None, :t].to(x.dtype)
-    x = _ln(params["final_layer_norm"], cfg, _encoder(params["layers"], cfg, x, False))
+    x = _ln(params["final_layer_norm"], cfg, _encoder(params["layers"], cfg, x, False, "text"))
     return x, L.linear(params["head"], x[:, -1, :])
 
 

@@ -33,6 +33,17 @@ class VLMConfig:
     drop_first_patch: bool = True  # the reference's "discard CLS" quirk
 
 
+def full_joint_4b_config(**llm_kw) -> VLMConfig:
+    """BASELINE config #4's model: the XraySigLIP ViT-L/16-384 tower, the projector
+    1024 -> 10240 -> 2560 and Gemma3-4B (``decoder.gemma3_4b_config``; ``llm_kw``
+    overrides its fields, ``num_layers`` to cut the depth): the port's copy of the JAX
+    package's ``parallel/budget.py:full_joint_4b_vlm_cfg``."""
+    vis = siglip.vit_l_16_384()
+    llm = dec.gemma3_4b_config(**llm_kw)
+    return VLMConfig(vision=vis, llm=llm, projector=proj.ProjectorConfig(
+        vision_dim=vis.hidden_size, llm_dim=llm.hidden_size, expansion_factor=10))
+
+
 def num_visual_tokens(cfg: VLMConfig) -> int:
     n = cfg.vision.num_patches
     return n - 1 if cfg.drop_first_patch else n

@@ -250,7 +250,9 @@ def all_gather_dim(x: torch.Tensor, dim: int, axis: str = DATA_AXIS) -> torch.Te
     ``dim``, in rank order; not differentiable."""
     if axis_size(axis) == 1:
         return x
-    c = _staged(x.detach().contiguous())
+    c = x.detach().contiguous()
+    if dist.get_backend() == "gloo":  # on the host, in its own type: a gather sums nothing
+        c = c.cpu()
     out = [torch.empty_like(c) for _ in range(axis_size(axis))]
     dist.all_gather(out, c, group=_group(axis))
     return torch.cat(out, dim=dim).to(x.device, x.dtype)

@@ -33,13 +33,22 @@ sharded leaf's squares over the model axis and a replicated leaf's once
 (``train/optim.py``). :func:`shard_params` slices a full tree to a rank's shards,
 :func:`gather_params` is its inverse (a collective; the checkpoints' writes).
 
-``_with_fsdp_axis`` and ``FSDP_MIN_SIZE`` (ZeRO-3 over the data axis) come with the
-``--fsdp`` slice.
+ZeRO-3 over the data axis (``--fsdp``; the JAX package's ``_with_fsdp_axis``,
+``FSDP_MIN_SIZE`` and ``param_shardings(..., fsdp=True)``): a plan built with ``fsdp``
+also names, for each leaf of at least ``FSDP_MIN_SIZE`` elements and two or more dims,
+the dim that the data axis splits: the largest one that the model rules leave free and
+that the data axis divides, read on the JAX package's layout of the leaf (its ``[in,
+out]`` kernels, its ``[p, p, C, D]`` patch kernel; :func:`fsdp_dim`), so that a square
+leaf lands on the same logical dim in both packages. Every leaf qualifies, frozen and
+quantized ones too; a leaf the rule leaves alone stays replicated over the data axis.
+:func:`shard_params`, :func:`gather_params` and the plan's ``shard``/``gather`` work
+over both axes; ``parallel/fsdp.py`` gathers the data shards on use.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import re
 from typing import Mapping, Optional, Sequence
 
@@ -50,6 +59,10 @@ from projectiontrainer_tpu_torch.parallel import distributed
 from projectiontrainer_tpu_torch.utils.timing import span
 
 MODEL_AXIS = distributed.MODEL_AXIS
+DATA_AXIS = distributed.DATA_AXIS
+# leaves below this many elements stay replicated under --fsdp (the JAX package's
+# parallel/sharding.py:76): a gather's latency outweighs the bytes a small leaf saves
+FSDP_MIN_SIZE = 65_536
 _Q = "weight|qvalues|qvalues_block|packed_nf4|block_scales"
 
 # (pattern, spec): the JAX package's DEFAULT_RULES in order, 'kernel' read as 'weight'
@@ -114,10 +127,57 @@ def rules_for(vlm_cfg=None) -> tuple[tuple, tuple]:
     """(sharding rules, partial-gradient patterns) for a VLM (or decoder) config: the
     defaults, with a single KV head replicated."""
     llm = getattr(vlm_cfg, "llm", vlm_cfg)
-    if llm is not None and llm.num_kv_heads == 1:
+    if getattr(llm, "num_kv_heads", None) == 1:
         return (tuple(SINGLE_KV_HEAD_RULES) + tuple(DEFAULT_RULES),
                 tuple(PARTIAL_GRADS) + tuple(SINGLE_KV_HEAD_PARTIAL))
     return tuple(DEFAULT_RULES), tuple(PARTIAL_GRADS)
+
+
+_TRANSPOSED = frozenset({"weight", "qvalues", "qvalues_block", "packed_nf4", "block_scales"})
+
+
+def _jax_view(path: str, shape: Sequence[int], vision=None):
+    """(the leaf's shape in the JAX package's layout, the port dim of each of its dims or
+    None): a linear's ``[out, in]`` (quantized leaves and LoRA's ``a``/``b`` too) is
+    ``[in, out]`` there; the patch matrix ``[D, p*p*C]`` is the HWIO kernel ``[p, p, C, D]``,
+    whose patch rows are contiguous blocks of the port's columns (``checkpoint/from_jax.py``);
+    everything else keeps its layout."""
+    key = path.rsplit("/", 1)[-1]
+    if path.endswith("patch_embedding/weight") and len(shape) == 2:
+        if vision is None:
+            raise ValueError(f"{path}: the vision config is needed to read the patch kernel")
+        p, c = vision.patch_size, vision.num_channels
+        return (p, p, c, shape[0]), (1, None, None, 0)
+    lora = key in ("a", "b") and re.search(r"(^|/)lora/", path)
+    if len(shape) == 2 and (key in _TRANSPOSED or lora):
+        return (shape[1], shape[0]), (1, 0)
+    return tuple(shape), tuple(range(len(shape)))
+
+
+def fsdp_dim(path: str, shape: Sequence[int], data: int, *, model: int = 1,
+             vision=None) -> Optional[int]:
+    """The port dim of the leaf at ``path`` (whole ``shape``) that the data axis of
+    ``data`` ranks splits under ``--fsdp``, or None: the JAX package's
+    ``_with_fsdp_axis`` on the JAX layout of the leaf (:func:`_jax_view`) and its
+    ``DEFAULT_RULES`` spec (which names a dim whenever the model axis divides it, a
+    model axis of one included): the largest other dim that the data axis divides,
+    the first of equals, for a leaf of two or more dims and at least
+    ``FSDP_MIN_SIZE`` elements."""
+    if data <= 1 or len(shape) < 2 or math.prod(shape) < FSDP_MIN_SIZE:
+        return None
+    jshape, to_port = _jax_view(path, shape, vision)
+    m = sharded_dim(path)
+    if m is not None and shape[m] % model:
+        m = None  # the JAX package replicates what the model axis does not divide
+    candidates = [d for d in range(len(jshape))
+                  if (m is None or to_port[d] != m) and jshape[d] % data == 0]
+    if not candidates:
+        return None
+    best = max(candidates, key=lambda d: jshape[d])
+    if to_port[best] is None:
+        raise ValueError(f"{path}: the data axis would split dim {best} of the JAX layout "
+                         f"{tuple(jshape)}, which is not a block of the port's {tuple(shape)}")
+    return to_port[best]
 
 
 def _divide(what: str, n: int, model: int) -> None:
@@ -150,49 +210,79 @@ def check_config(vlm_cfg, model: int) -> None:
 @dataclasses.dataclass(frozen=True)
 class ShardPlan:
     """Which leaves of a params tree the model axis splits (path -> dim) and which
-    replicated leaves get partial gradients, for model rank ``rank`` of ``model``."""
+    replicated leaves get partial gradients, for model rank ``rank`` of ``model``;
+    under ``--fsdp`` also which leaves the data axis splits (path -> dim, for data rank
+    ``data_rank`` of ``data``) and the shape of the rank's block of each
+    (``local_shapes``, both axes applied)."""
 
     model: int
     rank: int
     dims: Mapping[str, int]
     partial: frozenset
+    data: int = 1
+    data_rank: int = 0
+    data_dims: Mapping[str, int] = dataclasses.field(default_factory=dict)
+    local_shapes: Mapping[str, tuple] = dataclasses.field(default_factory=dict)
 
     @property
     def sharded(self) -> frozenset:
+        """The leaves the model axis splits."""
         return frozenset(self.dims)
 
-    def shard(self, path: str, x: torch.Tensor) -> torch.Tensor:
-        """The rank's block of the full leaf at ``path`` (``x`` itself if replicated);
-        raises when the model axis does not divide the dim."""
-        dim = self.dims.get(path)
-        if dim is None or self.model == 1:
-            return x
-        n = x.shape[dim]
-        if n % self.model:
-            raise ValueError(f"tensor parallel: {path} {tuple(x.shape)}: dim {dim} does not "
-                             f"divide over {self.model} model ranks")
-        n //= self.model
-        return x.narrow(dim, self.rank * n, n).clone()
+    @property
+    def data_sharded(self) -> frozenset:
+        """The leaves the data axis splits (``--fsdp``)."""
+        return frozenset(self.data_dims) if self.data > 1 else frozenset()
 
-    def gather(self, path: str, x: torch.Tensor) -> torch.Tensor:
-        """The full leaf at ``path`` from every model rank's block (a collective every
-        model rank enters; ``x`` itself if replicated)."""
+    def shard(self, path: str, x: torch.Tensor, axes=(MODEL_AXIS, DATA_AXIS)) -> torch.Tensor:
+        """The rank's block of the leaf at ``path``, whole along ``axes`` (``x`` itself
+        when no axis of ``axes`` splits it); raises when an axis does not divide its
+        dim."""
+        out = x
+        for axis, dims, n, r in ((MODEL_AXIS, self.dims, self.model, self.rank),
+                                 (DATA_AXIS, self.data_dims, self.data, self.data_rank)):
+            dim = dims.get(path)
+            if axis not in axes or dim is None or n == 1:
+                continue
+            size = out.shape[dim]
+            if size % n:
+                raise ValueError(f"{axis} axis: {path} {tuple(out.shape)}: dim {dim} does not "
+                                 f"divide over {n} ranks")
+            out = out.narrow(dim, r * (size // n), size // n)
+        return x if out is x else out.clone()
+
+    def gather(self, path: str, x: torch.Tensor, axes=(MODEL_AXIS, DATA_AXIS)) -> torch.Tensor:
+        """The leaf at ``path`` whole along ``axes`` from every rank's block: over the
+        data axis, then the model axis (a collective every rank of those axes enters;
+        ``x`` itself when neither splits it)."""
+        dim = self.data_dims.get(path)
+        if DATA_AXIS in axes and dim is not None and self.data > 1:
+            with span("fsdp_gather"):
+                x = distributed.all_gather_dim(x, dim, DATA_AXIS)
         dim = self.dims.get(path)
-        if dim is None or self.model == 1:
+        if MODEL_AXIS not in axes or dim is None or self.model == 1:
             return x
         with span("tp_allgather"):
             return distributed.all_gather_dim(x, dim, MODEL_AXIS)
 
 
 def plan_for(params, vlm_cfg=None, *, model: Optional[int] = None,
-             rank: Optional[int] = None, prefix: str = "") -> ShardPlan:
-    """The plan of ``params`` (full or sharded: only the paths count) under the rules of
-    ``vlm_cfg``; ``model``/``rank`` default to this process's model axis. ``prefix``
-    names the subtree's place in a VLM tree (``'llm'``, ``'lora'``)."""
+             rank: Optional[int] = None, data: Optional[int] = None,
+             data_rank: Optional[int] = None, fsdp: bool = False,
+             prefix: str = "") -> ShardPlan:
+    """The plan of ``params`` under the rules of ``vlm_cfg``; ``model``/``rank`` and
+    ``data``/``data_rank`` default to this process's axes. ``prefix`` names the
+    subtree's place in a VLM tree (``'llm'``, ``'lora'``). Without ``fsdp`` only the
+    paths count (full or sharded params alike); with it the data dims are read from the
+    shapes, so ``params`` must hold whole leaves along the data axis: the full tree, or a
+    model rank's shards (the trainers' input; a model-sharded dim counts whole)."""
     model = distributed.model_size() if model is None else model
     rank = distributed.model_rank() if rank is None else rank
+    data = distributed.data_size() if data is None else data
+    data_rank = distributed.data_rank() if data_rank is None else data_rank
     rules, partial_patterns = rules_for(vlm_cfg)
-    dims, partial = {}, set()
+    vision = getattr(vlm_cfg, "vision", None)
+    dims, partial, data_dims, local = {}, set(), {}, {}
     for path, x in leaves_with_paths(params, prefix):
         if not isinstance(x, torch.Tensor):
             continue
@@ -201,35 +291,51 @@ def plan_for(params, vlm_cfg=None, *, model: Optional[int] = None,
             dims[path] = dim
         elif any(re.search(p, path) for p in partial_patterns):
             partial.add(path)
-    return ShardPlan(model=model, rank=rank, dims=dims, partial=frozenset(partial))
+        if fsdp:
+            whole = list(x.shape)
+            if dim is not None and model > 1:
+                whole[dim] *= model
+            d = fsdp_dim(path, whole, data, model=model, vision=vision)
+            if d is not None:
+                data_dims[path] = d
+                shape = list(x.shape)
+                shape[d] //= data
+                local[path] = tuple(shape)
+    return ShardPlan(model=model, rank=rank, dims=dims, partial=frozenset(partial),
+                     data=data, data_rank=data_rank, data_dims=data_dims, local_shapes=local)
 
 
-def shard_params(params, plan: ShardPlan, prefix: str = ""):
-    """A tree of the same structure holding the rank's block of every sharded leaf of the
-    full tree ``params`` (replicated leaves shared). A tensor held under two paths (the
-    tied LM head) is sliced once and held under both."""
+def shard_params(params, plan: ShardPlan, prefix: str = "", axes=(MODEL_AXIS, DATA_AXIS)):
+    """A tree of the same structure holding the rank's block of every leaf that an axis
+    of ``axes`` splits (``params`` whole along them; other leaves shared). A tensor held
+    under two paths (the tied LM head) is sliced once and held under both."""
     done = {}
 
     def one(path, x):
         if not isinstance(x, torch.Tensor):
             return x
         if id(x) not in done:
-            done[id(x)] = (x, plan.shard(path, x))
+            done[id(x)] = (x, plan.shard(path, x, axes))
         return done[id(x)][1]
 
     return map_with_path(one, params, prefix)
 
 
-def gather_params(params, plan: ShardPlan, prefix: str = ""):
-    """The inverse of :func:`shard_params`: the full tree from every model rank's shards
-    (a collective every model rank enters, leaf by leaf in path order; ties kept)."""
+def gather_params(params, plan: ShardPlan, prefix: str = "", host: bool = False,
+                  axes=(MODEL_AXIS, DATA_AXIS)):
+    """The inverse of :func:`shard_params`: the tree whole along ``axes`` from every
+    rank's shards (a collective every rank enters, leaf by leaf in path order; ties
+    kept). ``host``
+    moves each whole leaf to the CPU as it comes, so the card never holds more than one
+    whole leaf beside the shards (the exports of a model sharded over the data axis)."""
     done = {}
 
     def one(path, x):
         if not isinstance(x, torch.Tensor):
             return x
         if id(x) not in done:
-            done[id(x)] = (x, plan.gather(path, x))
+            whole = plan.gather(path, x, axes)
+            done[id(x)] = (x, whole.cpu() if host else whole)
         return done[id(x)][1]
 
     return map_with_path(one, params, prefix)

@@ -4,11 +4,14 @@ Counterpart of ``projectiontrainer_tpu/train/common.py``. The port runs one proc
 per device; ``init_world`` joins the data-parallel world (``parallel/distributed.py``),
 which enters the feed through the process shard of ``data/pipeline.py``, the batch
 arithmetic below (processes counted as the JAX package counts hosts) and
-``gather_rows`` (an evaluation's rows from every rank).
+``gather_rows`` (an evaluation's rows from every rank). ``place_params`` is the JAX
+package's: the params' shard plan, and under ``--fsdp`` the rank's data shards of them;
+``compute_copy`` gathers those once for an evaluation.
 """
 
 from __future__ import annotations
 
+import logging
 import math
 import os
 from typing import Iterator
@@ -17,11 +20,11 @@ import numpy as np
 import torch
 
 from projectiontrainer_tpu_torch.checkpoint.manager import CheckpointManager
-from projectiontrainer_tpu_torch.core import mesh
+from projectiontrainer_tpu_torch.core import dtypes, mesh
 from projectiontrainer_tpu_torch.core.config import CommonConfig
 from projectiontrainer_tpu_torch.core.pytree import unique_leaves_with_paths
 from projectiontrainer_tpu_torch.data import pipeline as pipe
-from projectiontrainer_tpu_torch.parallel import distributed
+from projectiontrainer_tpu_torch.parallel import distributed, sharding
 
 
 def init_world(cfg: CommonConfig, *, tensor_parallel: bool = False) -> mesh.Mesh:
@@ -34,18 +37,15 @@ def init_world(cfg: CommonConfig, *, tensor_parallel: bool = False) -> mesh.Mesh
     is then ``--mesh_data`` x ``--mesh_model`` ranks (-1: the rest of the world), and
     the mesh's groups are created. ``--mesh_model`` above 1 is tensor parallelism,
     which stages 1 and 2 pass ``tensor_parallel`` for; stage 0 and the cls probe raise
-    for it. ``--fsdp`` raises: sharded optimizer state is not ported yet. A process
-    that no launcher started is a world of one, so ``--mesh_data`` -1 with several GPUs
-    visible raises there: every GPU needs a process of its own."""
+    for it. ``--fsdp`` (every stage; with ``--mesh_model`` in stages 1 and 2) shards the
+    params and the optimizer state over the data axis (:func:`place_params`); in a
+    world of one it changes nothing. A process that no launcher started is a world of
+    one, so ``--mesh_data`` -1 with several GPUs visible raises there: every GPU needs a
+    process of its own."""
     if cfg.mesh_model > 1 and not tensor_parallel:
         raise NotImplementedError(
             f"--mesh_model {cfg.mesh_model}: tensor parallelism is not ported for this stage "
             "yet (stages 1 and 2 have it); run data parallel with --mesh_model 1")
-    if cfg.fsdp:
-        raise NotImplementedError(
-            "--fsdp: sharded parameters and optimizer state are not ported yet (they come "
-            "with Gemma3-4B, after the tensor-parallel slice); data parallelism replicates "
-            "the model on every rank")
     device = torch.device(cfg.device)
     if not distributed.launched():
         if (-1 in (cfg.mesh_data, cfg.mesh_model) and device.type == "cuda"
@@ -65,6 +65,45 @@ def init_world(cfg: CommonConfig, *, tensor_parallel: bool = False) -> mesh.Mesh
     if cfg.num_loader_procs > 0:
         cfg.num_loader_procs = max(1, cfg.num_loader_procs // distributed.local_world_size())
     return world
+
+
+def place_params(params: dict, model_cfg, cfg: CommonConfig) -> sharding.ShardPlan:
+    """The shard plan of ``params`` (whole, or a model rank's shards: ``setup.build_vlm``
+    slices each layer as it builds it; anything else raises) and, under ``--fsdp``,
+    each top-level subtree of ``params`` replaced IN PLACE by the rank's data shards
+    (the JAX package's ``train/common.py:place_params``). A trainer calls it before it
+    casts its trainables to fp32 masters, so no rank ever holds the whole fp32 model."""
+    sharding.check_config(model_cfg, distributed.model_size())
+    plan = sharding.plan_for(params, model_cfg, fsdp=cfg.fsdp)
+    sharding.check_local(params, model_cfg, plan)
+    if plan.data_sharded:
+        before = _nbytes(params)
+        for k in list(params):
+            params[k] = sharding.shard_params(params[k], plan, prefix=k,
+                                              axes=(sharding.DATA_AXIS,))
+        logging.getLogger(__name__).info(
+            "--fsdp: %d of %d leaves are data shards over %d ranks; this rank holds %d of "
+            "%d bytes of params",
+            sum(1 for p, _ in unique_leaves_with_paths(params) if p in plan.data_sharded),
+            sum(1 for _ in unique_leaves_with_paths(params)), plan.data, _nbytes(params),
+            before)
+    return plan
+
+
+def _nbytes(params) -> int:
+    return sum(x.numel() * x.element_size() for _, x in unique_leaves_with_paths(params))
+
+
+def compute_copy(params, plan: sharding.ShardPlan, compute_dtype=None):
+    """The params an evaluation and its generation run on: cast to ``compute_dtype``
+    (None: as they are; ties kept) and, under ``--fsdp``, every data shard gathered
+    whole after the cast. Gathered once per evaluation, not once per decoded token (a
+    collective every data rank enters); the model axis's shards stay shards."""
+    if compute_dtype is not None:
+        params = dtypes.cast_compute_params(params, compute_dtype)
+    if not plan.data_sharded:
+        return params
+    return sharding.gather_params(params, plan, axes=(sharding.DATA_AXIS,))
 
 
 def log_thread_feed(cfg: CommonConfig, logger, why: str) -> None:
@@ -125,11 +164,14 @@ def to_host(x) -> np.ndarray:
     return np.asarray(x)
 
 
-def sync_replicas(params, paths) -> None:
+def sync_replicas(params, paths, plan: sharding.ShardPlan = None) -> None:
     """Overwrite the leaves of ``params`` at ``paths`` (the leaves that train) with data
     rank 0's (the same model index's shard): the data-parallel replicas start equal,
-    whatever each rank built or restored."""
-    distributed.broadcast_([x for p, x in unique_leaves_with_paths(params) if p in paths])
+    whatever each rank built or restored. The data shards of ``plan`` (``--fsdp``)
+    differ by rank and are left alone."""
+    skip = plan.data_sharded if plan is not None else frozenset()
+    distributed.broadcast_([x for p, x in unique_leaves_with_paths(params)
+                            if p in paths and p not in skip])
 
 
 def gather_rows(x) -> np.ndarray:

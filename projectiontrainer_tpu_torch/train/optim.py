@@ -23,7 +23,10 @@ Counterpart of ``projectiontrainer_tpu/train/optim.py`` for stages 0-2:
 Under tensor parallelism (``parallel/sharding.py``) each model rank holds a shard of
 some leaves: the norms of the clip (``global_norm`` ``:55``, ``_clip`` ``:137`` of the
 JAX package) sum a sharded leaf's squares over the model axis and count a replicated
-leaf's once (``sharded_paths``), so every model rank clips by the same factor.
+leaf's once (``sharded_paths``), so every model rank clips by the same factor. Under
+``--fsdp`` a leaf held as a data shard (``fsdp_paths``) has its squares summed over the
+data axis, over both axes when the model axis splits it too; its moments and
+accumulator are ``zeros_like`` of the shard, so the update stays local to it.
 
 ``MaskedAdamW.update`` updates the params IN PLACE (optax returns new arrays). Its
 state is a plain dict of tensors keyed by parameter path, so ``torch.save`` stores
@@ -38,6 +41,7 @@ from typing import Callable, Mapping, Optional, Union
 import torch
 
 from projectiontrainer_tpu_torch.core.pytree import leaves_with_paths, unique_leaves_with_paths
+from projectiontrainer_tpu_torch.parallel import distributed, fsdp
 from projectiontrainer_tpu_torch.parallel import tensor_parallel as tp
 from projectiontrainer_tpu_torch.train import masks as M
 
@@ -64,22 +68,33 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 def sharded_global_norms(groups: Mapping[str, Mapping[str, torch.Tensor]],
-                         sharded=frozenset()) -> dict:
+                         sharded=frozenset(), data_sharded=frozenset()) -> dict:
     """{group: global norm} of groups of gradients keyed by path, the leaves at
-    ``sharded`` paths holding one model rank's shard: their squares summed over the
-    model axis (one all-reduce for every group), the replicated leaves' counted once.
-    Without a model axis, ``global_norm`` of each group."""
-    if tp.size() == 1 or not sharded:
+    ``sharded`` paths holding one model rank's shard and those at ``data_sharded`` one
+    data rank's (``--fsdp``): their squares summed over the axes that split them (one
+    all-reduce an axis for every group), the replicated leaves' counted once. Without
+    a split leaf, ``global_norm`` of each group."""
+    model = sharded if tp.size() > 1 else frozenset()
+    data = data_sharded if distributed.data_size() > 1 else frozenset()
+    if not model and not data:
         return {k: global_norm(g.values()) for k, g in groups.items()}
-    rep, part = [], []
+    # per group: replicated, model-only, data-only, both
+    parts = []
     for g in groups.values():
         zero = torch.zeros((), dtype=torch.float32, device=next(iter(g.values())).device)
-        rep.append(sum((x.float().square().sum() for p, x in g.items() if p not in sharded),
-                       zero))
-        part.append(sum((x.float().square().sum() for p, x in g.items() if p in sharded),
-                        zero))
-    part = tp.all_reduce(torch.stack(part), "grads")
-    return {k: torch.sqrt(r + s) for k, r, s in zip(groups, rep, part)}
+        sums = [zero] * 4
+        for p, x in g.items():
+            i = (p in model) + 2 * (p in data)
+            sums[i] = sums[i] + x.float().square().sum()
+        parts.append(torch.stack(sums))
+    parts = torch.stack(parts)  # [groups, 4]
+    if model:
+        parts[:, 1::2] = tp.all_reduce(parts[:, 1::2], "grads")
+    if data:
+        fsdp.COUNTS["grads"] += 1
+        parts[:, 2:] = distributed.all_reduce_(parts[:, 2:].contiguous(),
+                                               distributed.DATA_AXIS)
+    return {k: torch.sqrt(s.sum()) for k, s in zip(groups, parts)}
 
 
 class MaskedAdamW:
@@ -97,13 +112,14 @@ class MaskedAdamW:
     operations rounds to that type, as in JAX. A leaf held under two paths (the tied LM
     head) has one state, under its first path (``core/pytree.py``). ``sharded_paths``:
     the leaves that hold a model rank's shard (tensor parallelism), for the clip's
-    norms."""
+    norms; ``fsdp_paths``: those that hold a data rank's shard (``--fsdp``)."""
 
     def __init__(self, labels: Mapping,
                  schedule: Union[Callable[[int], float], Mapping[str, Callable[[int], float]]],
                  *, weight_decay: float = 0.01, clip_norm: Optional[float] = None,
                  clip_per_module: bool = False, accum_steps: int = 1, b1: float = 0.9,
-                 b2: float = 0.999, eps: float = 1e-8, sharded_paths=frozenset()):
+                 b2: float = 0.999, eps: float = 1e-8, sharded_paths=frozenset(),
+                 fsdp_paths=frozenset()):
         self.label_of = {p: label for p, label in leaves_with_paths(labels)
                          if label != M.FROZEN}
         self.trainable = list(self.label_of)
@@ -114,6 +130,7 @@ class MaskedAdamW:
         self.accum_steps = accum_steps
         self.b1, self.b2, self.eps = b1, b2, eps
         self.sharded_paths = frozenset(sharded_paths)
+        self.fsdp_paths = frozenset(fsdp_paths)
 
     def init(self, params, carry: Optional[dict] = None) -> dict:
         """Zero state for the trainable leaves. ``carry`` (another ``MaskedAdamW``'s
@@ -165,7 +182,8 @@ class MaskedAdamW:
     def _clip(self, grads: dict) -> dict:
         """Selected on the device: no host sync."""
         if not self.clip_per_module:
-            norm = sharded_global_norms({"all": grads}, self.sharded_paths)["all"]
+            norm = sharded_global_norms({"all": grads}, self.sharded_paths,
+                                        self.fsdp_paths)["all"]
             keep = norm < self.clip_norm
             return {p: torch.where(keep, g.float(), g.float() / norm * self.clip_norm)
                     for p, g in grads.items()}
@@ -173,7 +191,8 @@ class MaskedAdamW:
         for p, g in grads.items():
             groups.setdefault(p.split("/", 1)[0], {})[p] = g
         factor = {k: torch.clamp(self.clip_norm / (norm + 1e-6), max=1.0)
-                  for k, norm in sharded_global_norms(groups, self.sharded_paths).items()}
+                  for k, norm in sharded_global_norms(groups, self.sharded_paths,
+                                                     self.fsdp_paths).items()}
         return {p: (g.float() * factor[p.split("/", 1)[0]]).to(g.dtype)
                 for p, g in grads.items()}
 
@@ -222,24 +241,26 @@ def single_group_optimizer(labels: Mapping, lr: float, *, total_steps: int,
                            warmup_ratio: float = 0.0, weight_decay: float = 0.01,
                            clip_norm: Optional[float] = None, clip_per_module: bool = False,
                            accum_steps: int = 1, warmup_rounding: str = "ceil",
-                           sharded_paths=frozenset()):
+                           sharded_paths=frozenset(), fsdp_paths=frozenset()):
     """One trainable group + frozen rest -> (tx, schedule)."""
     schedule = cosine_schedule_with_warmup(lr, warmup_ratio=warmup_ratio,
                                            total_steps=total_steps,
                                            warmup_rounding=warmup_rounding)
     tx = MaskedAdamW(labels, schedule, weight_decay=weight_decay, clip_norm=clip_norm,
                      clip_per_module=clip_per_module, accum_steps=accum_steps,
-                     sharded_paths=sharded_paths)
+                     sharded_paths=sharded_paths, fsdp_paths=fsdp_paths)
     return tx, schedule
 
 
 def discriminative_optimizer(labels: Mapping, *, head_lr: float, backbone_lr: float,
-                             weight_decay: float = 0.01, accum_steps: int = 1):
+                             weight_decay: float = 0.01, accum_steps: int = 1,
+                             fsdp_paths=frozenset()):
     """cls_evaluate's discriminative-LR AdamW: the ``head`` label at ``head_lr``, the
     ``backbone`` label at ``backbone_lr`` (reference: cls_evaluate/train_utils.py:219-259).
     Both rates are CONSTANT: the reference builds AdamW with no scheduler and never
     steps one (:257-261), so there is no horizon (JAX's ``total_steps``) to give.
     Returns (tx, the head's schedule)."""
     schedules = {M.HEAD: lambda step: head_lr, M.BACKBONE: lambda step: backbone_lr}
-    tx = MaskedAdamW(labels, schedules, weight_decay=weight_decay, accum_steps=accum_steps)
+    tx = MaskedAdamW(labels, schedules, weight_decay=weight_decay, accum_steps=accum_steps,
+                     fsdp_paths=fsdp_paths)
     return tx, schedules[M.HEAD]

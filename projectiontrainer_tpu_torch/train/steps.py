@@ -22,6 +22,17 @@ plan of the shards: it sums the partial gradients of the replicated leaves that 
 sharded activations over the model axis (one bucketed all-reduce, span
 ``tp_allreduce``) before the data all-reduce, and its ``grad_norm`` counts a sharded
 leaf's squares over the model axis.
+
+ZeRO-3 over the data axis (``--fsdp``; ``parallel/fsdp.py``): the plan also names the
+leaves held as data shards. The step runs the loss and its backward with that plan
+active, so the models gather each shard where they use it and its gradient arrives
+already reduce-scattered (summed over the data ranks, the rank's block): those leaves
+leave the data all-reduce, and the norms count their squares over the data axis (over
+both axes for a leaf split by both). The optimizer's moments and accumulators are
+``zeros_like`` of the shards, so its update stays local. The CLM losses gather the
+decoder's table and other top-level leaves once a micro-step: the tied table serves the
+embedding and the chunked CE head, and its two gradients meet before one
+reduce-scatter.
 """
 
 from __future__ import annotations
@@ -35,7 +46,7 @@ from projectiontrainer_tpu_torch.core.pytree import leaves_with_paths, unique_le
 from projectiontrainer_tpu_torch.models import classifier as cls_model
 from projectiontrainer_tpu_torch.models import decoder as dec
 from projectiontrainer_tpu_torch.models import siglip, vlm
-from projectiontrainer_tpu_torch.parallel import distributed
+from projectiontrainer_tpu_torch.parallel import distributed, fsdp
 from projectiontrainer_tpu_torch.parallel import tensor_parallel as tp
 from projectiontrainer_tpu_torch.train import losses
 from projectiontrainer_tpu_torch.train.optim import sharded_global_norms
@@ -76,11 +87,15 @@ def make_train_step(loss_fn: Callable, tx, *, trainable_mask=None,
     leaves; ``watch_subtree`` (a top-level key such as ``'projector'``) adds that
     subtree's gradients, keyed by their paths inside it, as ``aux['watched_grads']``.
     ``plan`` (a ``sharding.ShardPlan``; required with a model axis) names the sharded
-    leaves and those whose gradients are partial on each model rank."""
+    leaves and those whose gradients are partial on each model rank, and under
+    ``--fsdp`` the data shards, which the models gather inside the step and whose
+    gradients the gathers' backward reduce-scatters (the watched gradients of those
+    leaves are the rank's blocks)."""
     mask = None if trainable_mask is None else dict(leaves_with_paths(trainable_mask))
     if tp.size() > 1 and plan is None:
         raise ValueError("a train step under tensor parallelism needs the params' shard plan")
     sharded = plan.sharded if plan is not None else frozenset()
+    data_sharded = plan.data_sharded if plan is not None else frozenset()
 
     def step(state, batch, rng=None):
         params = state["params"]
@@ -90,8 +105,9 @@ def make_train_step(loss_fn: Callable, tx, *, trainable_mask=None,
             x.requires_grad_(on)
             if on:
                 train.append((path, x))
-        loss, aux = loss_fn(params, batch, rng)
-        grads = torch.autograd.grad(loss, [x for _, x in train], allow_unused=True)
+        with fsdp.active(plan):
+            loss, aux = loss_fn(params, batch, rng)
+            grads = torch.autograd.grad(loss, [x for _, x in train], allow_unused=True)
         grads = {p: torch.zeros_like(x) if g is None else g
                  for (p, x), g in zip(train, grads)}
         if tp.size() > 1:
@@ -101,12 +117,13 @@ def make_train_step(loss_fn: Callable, tx, *, trainable_mask=None,
                     tp.COUNTS["grads"] += 1
                     distributed.all_reduce_grads(partial, distributed.MODEL_AXIS)
         with span("grad_allreduce"):
-            distributed.all_reduce_grads(list(grads.values()))
+            distributed.all_reduce_grads([g for p, g in grads.items() if p not in data_sharded])
             loss = distributed.sum_over_ranks(loss.detach())
         with span("optimizer"):
             tx.update(grads, state["opt_state"], params)
             state["step"] += 1
-            aux = {**aux, "grad_norm": sharded_global_norms({"all": grads}, sharded)["all"]}
+            aux = {**aux, "grad_norm": sharded_global_norms({"all": grads}, sharded,
+                                                            data_sharded)["all"]}
         if watch_subtree is not None:
             prefix = watch_subtree + "/"
             aux["watched_grads"] = {p[len(prefix):]: g for p, g in grads.items()
@@ -160,6 +177,13 @@ def _resolve_ce_impl(ce_impl: str, table_frozen: bool, hidden_size: Optional[int
     return "fused"
 
 
+def _gather_decoder_top(params):
+    """``params`` with the decoder's top-level leaves (the table, a separate head, the
+    final norm) gathered once where they are ``--fsdp`` data shards: the embedding and
+    the CE head then read one gathered table (``parallel/fsdp.py``)."""
+    return {**params, "llm": fsdp.gather_top(params["llm"], "llm")}
+
+
 def _clm_loss_from_embeds(params, cfg: vlm.VLMConfig, embeds, mask, labels, *, remat,
                           logits_chunk: Optional[int], sample_weights=None,
                           ce_impl: str = "chunked", loss_prefix: int = 0, lora=None,
@@ -206,6 +230,7 @@ def stage1_loss(cfg: vlm.VLMConfig, pad_token_id: int, *, remat=True,
         del rng
         if compute_dtype is not None:
             params = dtypes.cast_compute_params(params, compute_dtype)
+        params = _gather_decoder_top(params)
         visual = vlm.visual_embeds(params, cfg, batch["pixel_values"])
         embeds, mask, labels = vlm.build_sequence(params, cfg, visual,
                                                   pad_token_id=pad_token_id,
@@ -258,6 +283,7 @@ def stage2_loss(cfg: vlm.VLMConfig, pad_token_id: int, *, lora_cfg=None, remat=T
     def loss_fn(params, batch, rng=None):
         if compute_dtype is not None:
             params = dtypes.cast_compute_params(params, compute_dtype)
+        params = _gather_decoder_top(params)
         lora = params.get("lora") if lora_cfg is not None else None
         visual = vlm.visual_embeds(params, cfg, batch["pixel_values"], remat=_vis_remat(remat))
         embeds, mask, labels = vlm.build_sequence(

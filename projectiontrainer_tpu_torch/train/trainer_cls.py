@@ -27,6 +27,12 @@ rank's rows):
   with; the step timer (images/s of each epoch) and profiler (``--profile_dir``
   splits a step over the spans ``vision``, ``head``, ``loss`` and ``optimizer``).
 
+ZeRO-3 over the data axis (``--fsdp``; ``parallel/fsdp.py``): the rank keeps its data
+shard of every large leaf of the classifier (``common.place_params``), the step
+gathers them where they are used and reduce-scatters their gradients, the evaluation
+gathers the classifier once per call, and the checkpoints gather every leaf whole
+(rank 0 writes; ``--resume`` slices again).
+
 Any dataset with ``__len__`` and ``__getitem__`` returning ``{'pixel_values' [H, W, C]
 float32, 'target_indices' int}`` (or ``'targets'`` [C] float32 multi-hot under
 ``--multilabel_two_way``) serves (the CLI's is ``data/datasets.py``'s
@@ -140,6 +146,7 @@ class ClsTrainer:
                                      rank=distributed.rank())
 
         self.compute_dtype = dtypes.compute_dtype(cfg.mixed_precision)
+        self.plan = common.place_params(params, self.model_cfg, cfg)
         loss_fn = steps.classifier_loss(self.model_cfg, multilabel=cfg.multilabel_two_way,
                                         compute_dtype=self.compute_dtype)
         # two step variants under 1EpochUnfreeze: the tower trainable, then frozen
@@ -152,21 +159,23 @@ class ClsTrainer:
             trained |= {p for p, on in leaves_with_paths(masks.bool_mask(labels)) if on}
             tx, schedule = optim.discriminative_optimizer(
                 labels, head_lr=cfg.lr, backbone_lr=cfg.bb_lr, weight_decay=cfg.weight_decay,
-                accum_steps=cfg.gradient_accumulation_steps)
+                accum_steps=cfg.gradient_accumulation_steps,
+                fsdp_paths=self.plan.data_sharded)
             self._steps[frozen] = (steps.make_train_step(
-                loss_fn, tx, trainable_mask=masks.bool_mask(labels)), tx, schedule)
+                loss_fn, tx, trainable_mask=masks.bool_mask(labels), plan=self.plan),
+                tx, schedule)
         _, self.tx, self.schedule = self._steps[self._epoch_frozen(0)]
         self.state = steps.init_state(params, self.tx)
 
         # every leaf, in every freeze mode: see the module's docstring
         self.ckpt = CheckpointManager(
             os.path.join(self.exp_dir, "checkpoints"), save_every_n_epochs=2, best_mode="max",
-            save_paths=[p for p, _ in unique_leaves_with_paths(params)])
+            save_paths=[p for p, _ in unique_leaves_with_paths(params)], plan=self.plan)
         self.global_step = 0
         self.start_epoch = 0
         if cfg.resume:
             self.resume_latest()
-        common.sync_replicas(self.state["params"], trained)
+        common.sync_replicas(self.state["params"], trained, self.plan)
         self.results_tsv = os.path.join(self.exp_dir, "results.tsv")
         if distributed.is_main() and not os.path.exists(self.results_tsv):
             with open(self.results_tsv, "w") as f:
@@ -272,13 +281,15 @@ class ClsTrainer:
 
     def evaluate(self, dataset=None) -> tuple[float, float, float]:
         """(loss, accuracy, AUROC) over ``dataset`` (the validation set by default), a
-        straggler batch's filler rows left out."""
+        straggler batch's filler rows left out; the classifier gathered once
+        (``common.compute_copy``) under ``--fsdp``."""
         dataset = dataset if dataset is not None else self.val_dataset
         target_key = "targets" if self.cfg.multilabel_two_way else "target_indices"
         all_logits, all_targets = [], []
+        params = common.compute_copy(self.state["params"], self.plan)
         for batch in common.feed(dataset, self.cfg, epoch=0, shuffle=False):
             keep = common.real_rows(batch)
-            all_logits.append(classifier_logits(self.state["params"], self.model_cfg,
+            all_logits.append(classifier_logits(params, self.model_cfg,
                                                 batch["pixel_values"], self.compute_dtype)[keep])
             all_targets.append(common.to_host(batch[target_key])[keep])
         return classification_metrics(

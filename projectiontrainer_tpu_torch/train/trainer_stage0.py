@@ -21,6 +21,12 @@ world (one device alone; rank 0 logs and writes, fenced by barriers):
   stage 1 (``--profile_dir`` splits the step over ``vision``, ``text``, ``loss`` and
   ``optimizer``).
 
+ZeRO-3 over the data axis (``--fsdp``; ``parallel/fsdp.py``): the rank keeps its data
+shard of every large leaf of both towers (``common.place_params``), the step gathers
+them layer by layer and reduce-scatters their gradients, the zero-shot validation
+gathers the towers once per evaluation, and the checkpoints and HF exports gather them
+whole (rank 0 writes).
+
 Any dataset with ``__len__`` and ``__getitem__`` returning ``{'pixel_values' [H, W, C]
 float32, 'input_ids' [T] int, 'class_idx' int, 'valid' bool}`` serves (the CLI's is
 ``data/datasets.py``'s ``ContrastiveDataset``, whose image decoding needs PIL).
@@ -39,7 +45,7 @@ from projectiontrainer_tpu_torch.checkpoint.manager import CheckpointManager
 from projectiontrainer_tpu_torch.core import dtypes
 from projectiontrainer_tpu_torch.core.config import Stage0Config
 from projectiontrainer_tpu_torch.models import siglip
-from projectiontrainer_tpu_torch.parallel import distributed
+from projectiontrainer_tpu_torch.parallel import distributed, sharding
 from projectiontrainer_tpu_torch.train import common, masks, optim, steps
 from projectiontrainer_tpu_torch.utils.logging import MetricLogger
 from projectiontrainer_tpu_torch.utils.timing import StepProfiler, StepTimer
@@ -85,6 +91,7 @@ class Stage0Trainer:
         self.max_train_steps = common.update_steps(
             len(train_dataset), common.global_batch_size(cfg), cfg.gradient_accumulation_steps,
             cfg.num_epochs)
+        self.plan = common.place_params(params, model_cfg, cfg)
         labels = masks.stage0_labels(
             params, freeze_text=cfg.freeze_text_encoder,
             freeze_logit_scale=cfg.freeze_logit_scale,
@@ -93,7 +100,8 @@ class Stage0Trainer:
         self.tx, self.schedule = optim.single_group_optimizer(
             labels, cfg.learning_rate, total_steps=self.max_train_steps,
             warmup_ratio=cfg.warmup_ratio, weight_decay=cfg.weight_decay,
-            accum_steps=cfg.gradient_accumulation_steps, warmup_rounding="floor")
+            accum_steps=cfg.gradient_accumulation_steps, warmup_rounding="floor",
+            fsdp_paths=self.plan.data_sharded)
         self.compute_dtype = dtypes.compute_dtype(cfg.mixed_precision)
         # --local_negatives: one group of negatives a rank (the JAX package's data-axis
         # shards); else one group over the whole batch
@@ -101,17 +109,19 @@ class Stage0Trainer:
         self.train_step = steps.make_train_step(
             steps.stage0_loss(model_cfg, remat=False, local_negatives_shards=shards,
                               compute_dtype=self.compute_dtype),
-            self.tx, trainable_mask=masks.bool_mask(labels))
+            self.tx, trainable_mask=masks.bool_mask(labels), plan=self.plan)
         self.state = steps.init_state(params, self.tx)
 
         self.ckpt = CheckpointManager(os.path.join(cfg.output_dir, "checkpoints"),
                                       save_every_n_epochs=max(1, cfg.save_every_n_epochs),
-                                      min_save_epoch=cfg.min_save_epoch, best_mode="max")
+                                      min_save_epoch=cfg.min_save_epoch, best_mode="max",
+                                      plan=self.plan)
         self.global_step = 0
         self.start_epoch = 0
         if cfg.resume:
             self.resume_latest()
-        common.sync_replicas(self.state["params"], set(self.state["opt_state"]["mu"]))
+        common.sync_replicas(self.state["params"], set(self.state["opt_state"]["mu"]),
+                             self.plan)
 
     def resume_latest(self) -> int:
         """Restore the trainable params, optimizer state and step from the newest epoch
@@ -185,10 +195,9 @@ class Stage0Trainer:
     def validate_zero_shot(self, epoch: int) -> dict:
         """Class prompts are the raw class names (the reference encodes the class
         captions themselves, Stage0:290-307), tokenised and encoded once; a
-        prediction is the argmax over the image's logits against them."""
-        params = self.state["params"]
-        if self.compute_dtype is not None:  # the kernels take bf16
-            params = dtypes.cast_compute_params(params, self.compute_dtype)
+        prediction is the argmax over the image's logits against them. The towers run
+        on a compute copy (the kernels take bf16; under ``--fsdp`` gathered once here)."""
+        params = common.compute_copy(self.state["params"], self.plan, self.compute_dtype)
         enc = self.tokenizer(self.class_names, padding="max_length", truncation=True,
                              max_length=self.cfg.max_text_len)
         class_ids = torch.tensor(np.asarray(enc["input_ids"], np.int64), device=self.cfg.device)
@@ -216,9 +225,11 @@ class Stage0Trainer:
 
     def _export_hf(self, tag: str):
         """HF snapshot under output_dir/<tag>, what the reference's downstream stages
-        load with ``from_pretrained`` (Stage0:800-835)."""
+        load with ``from_pretrained`` (Stage0:800-835); every rank enters the gathers of
+        the data shards, rank 0 writes."""
+        params = sharding.gather_params(self.state["params"], self.plan, host=True)
         if distributed.is_main():
             src = self.cfg.model_name if os.path.isdir(self.cfg.model_name or "") else None
-            export.save_siglip_hf(self.state["params"], self.model_cfg,
+            export.save_siglip_hf(params, self.model_cfg,
                                   os.path.join(self.cfg.output_dir, tag), src_dir=src)
         distributed.barrier()

@@ -20,6 +20,12 @@ gradients over the model axis, the exports and checkpoints gather the projector'
 shards and rank 0 writes them whole, ``--resume`` slices again, and the validation
 captions are generated on the sharded model.
 
+ZeRO-3 over the data axis (``--fsdp``; ``parallel/fsdp.py``): the rank keeps its data
+shard of every large leaf, the frozen towers and decoder included
+(``common.place_params``); the step gathers them where they are used, the projector's
+gradient is reduce-scattered, and the validation gathers the model once per
+evaluation (``common.compute_copy``), not once per decoded token.
+
 Any dataset object with ``__len__`` and ``__getitem__`` returning ``{'pixel_values'
 [H, W, C] float32, 'caption_ids' [Tc] int}`` serves (the CLI's is
 ``data/datasets.py``'s ``Stage1PairDataset``).
@@ -64,10 +70,9 @@ class Stage1Trainer:
                                      num_steps=cfg.profile_num_steps,
                                      rank=distributed.rank())
 
-        # tensor parallelism: params hold this model rank's shards (setup.build_vlm)
-        sharding.check_config(vlm_cfg, distributed.model_size())
-        self.plan = sharding.plan_for(params, vlm_cfg)
-        sharding.check_local(params, vlm_cfg, self.plan)
+        # tensor parallelism: params hold this model rank's shards (setup.build_vlm);
+        # --fsdp: the rank's data shards of them from here on
+        self.plan = common.place_params(params, vlm_cfg, cfg)
         gbs = common.global_batch_size(cfg)
         self.max_train_steps = common.update_steps(
             len(train_dataset), gbs, cfg.gradient_accumulation_steps, cfg.num_epochs)
@@ -76,7 +81,7 @@ class Stage1Trainer:
             labels, cfg.learning_rate, total_steps=self.max_train_steps,
             warmup_ratio=cfg.warmup_ratio, weight_decay=cfg.weight_decay,
             clip_norm=cfg.grad_clip, accum_steps=cfg.gradient_accumulation_steps,
-            sharded_paths=self.plan.sharded,
+            sharded_paths=self.plan.sharded, fsdp_paths=self.plan.data_sharded,
         )
         self.pad_id = tokenizer.pad_token_id if tokenizer.pad_token_id is not None else 0
         logits_chunk = 128 if vlm_cfg.llm.vocab_size >= 32_768 else None
@@ -100,7 +105,8 @@ class Stage1Trainer:
         self._skip_batches = 0
         if cfg.resume:
             self.resume_latest()
-        common.sync_replicas(self.state["params"], set(self.state["opt_state"]["mu"]))
+        common.sync_replicas(self.state["params"], set(self.state["opt_state"]["mu"]),
+                             self.plan)
 
     def resume_latest(self) -> int:
         """Restore trainable params, optimizer state and step from the newest epoch
@@ -192,11 +198,13 @@ class Stage1Trainer:
 
     def evaluate(self, epoch: int, *, max_generate_batches: int = 2) -> dict:
         """The validation loss of each global batch (every rank's rows), and the
-        captions of the first ``max_generate_batches`` batches of every rank."""
+        captions of the first ``max_generate_batches`` batches of every rank, on the
+        params gathered once (``common.compute_copy``, in their stored types)."""
         cfg = self.cfg
         losses, pairs = [], []
+        params = common.compute_copy(self.state["params"], self.plan)
         for n, batch in enumerate(common.feed(self.val_dataset, cfg, epoch=0, shuffle=False)):
-            loss, _ = self.eval_step(self.state["params"], batch)
+            loss, _ = self.eval_step(params, batch)
             losses.append(float(loss))
             if n < max_generate_batches:
                 keep = common.real_rows(batch)  # skip straggler filler rows
@@ -204,7 +212,8 @@ class Stage1Trainer:
                                                  skip_special_tokens=True)
                            for ids in common.to_host(batch["caption_ids"])]
                 pairs += [(g, t) for g, t, k in
-                          zip(self._generate_captions(batch), targets, keep) if k]
+                          zip(self._generate_captions(batch, params), targets, keep) if k]
+        del params
         pairs = distributed.gather_objects(pairs)
         out = {"val/loss": float(np.mean(losses)) if losses else float("nan")}
         if pairs:
@@ -213,8 +222,7 @@ class Stage1Trainer:
         self.logger.log({**out, "epoch": epoch}, step=self.global_step)
         return out
 
-    def _generate_captions(self, batch, max_new_tokens: int = 32) -> list[str]:
-        params = self.state["params"]
+    def _generate_captions(self, batch, params, max_new_tokens: int = 32) -> list[str]:
         visual, mask = vlm.visual_prefix(params, self.vlm_cfg, batch["pixel_values"])
         ids = generate(params["llm"], self.vlm_cfg.llm, visual, mask,
                        GenerationConfig(max_new_tokens=max_new_tokens, do_sample=False,

@@ -36,6 +36,16 @@ step sums the partial gradients over the model axis, the checkpoints and exports
 the shards and rank 0 writes the reference's layout, ``--resume`` slices again, and the
 validation generates on the sharded model.
 
+ZeRO-3 over the data axis (``--fsdp``; ``parallel/fsdp.py``, Gemma3-4B full-joint):
+``common.place_params`` keeps each rank's data shard of every large leaf (frozen and
+quantized ones too) before the trainables are cast to fp32 masters, so no rank holds
+the whole fp32 model; the step gathers the shards layer by layer and reduce-scatters
+their gradients, and the Adam moments and accumulators are shard-shaped, also across
+the ``--train_ve_first_epoch`` swap. Checkpoints and exports gather the params and
+optimizer slots leaf by leaf (rank 0 writes the one-process files; ``--resume`` slices
+again). The validation gathers the model ONCE per evaluation into a compute copy (the
+loss and every decoded token run on it), not once per decoded token.
+
 Any dataset object with ``__len__``, ``__getitem__`` returning ``{'pixel_values'
 [H, W, C] float32, 'question_ids' [Tq] int, 'answer_ids' [Ta] int}`` and
 ``token_lengths()`` serves (the CLI's is ``data/datasets.py``'s ``Stage2VQADataset``).
@@ -109,9 +119,7 @@ class Stage2Trainer:
                 full = lora_mod.init(gen, vlm_cfg.llm, self.lora_cfg, device=device)
                 params["lora"] = sharding.shard_params(
                     full, sharding.plan_for(full, vlm_cfg, prefix="lora"), prefix="lora")
-        sharding.check_config(vlm_cfg, distributed.model_size())
-        self.plan = sharding.plan_for(params, vlm_cfg)
-        sharding.check_local(params, vlm_cfg, self.plan)
+        self.plan = common.place_params(params, vlm_cfg, cfg)
 
         self.base_policy = cfg.freeze_policy()
         # full-parameter fine-tunes store their trainables in --master_dtype, and so
@@ -162,7 +170,7 @@ class Stage2Trainer:
                 labels, cfg.learning_rate, total_steps=self.max_train_steps,
                 warmup_ratio=cfg.warmup_ratio, weight_decay=cfg.weight_decay,
                 clip_norm=cfg.grad_clip, clip_per_module=True, accum_steps=accum,
-                sharded_paths=self.plan.sharded)
+                sharded_paths=self.plan.sharded, fsdp_paths=self.plan.data_sharded)
             self._steps[ve] = (steps.make_train_step(
                 loss_fn, tx, trainable_mask=masks.bool_mask(labels), plan=self.plan),
                 tx, schedule)
@@ -184,7 +192,7 @@ class Stage2Trainer:
         self._skip_batches = 0
         if cfg.resume:
             self.resume_latest()
-        common.sync_replicas(self.state["params"], trained)
+        common.sync_replicas(self.state["params"], trained, self.plan)
 
     # ------------------------------------------------------------------ resume
 
@@ -302,20 +310,24 @@ class Stage2Trainer:
     def evaluate(self, epoch: int) -> dict:
         """The validation loss, and generated answers for the whole validation set
         (the reference's behaviour, Stage2/trainer.py:596-700) or for its first
-        ``cfg.eval_example_batches`` batches. The generation params (LoRA merged) are
-        built at the first batch that generates and dropped after the last one."""
+        ``cfg.eval_example_batches`` batches. The loss and the generation run on one
+        compute copy of the params (``common.compute_copy``: under ``--fsdp`` gathered
+        once here); the generation params (LoRA merged) are built at the first batch
+        that generates and dropped after the last one."""
         cfg = self.cfg
         losses, examples = [], []
+        full = common.compute_copy(self.state["params"], self.plan, self.compute_dtype)
         gen_params = None
         for n, batch in enumerate(self._feed(self.val_dataset, self._val_plan or [])):
-            loss, _ = self.eval_step(self.state["params"], batch)
+            loss, _ = self.eval_step(full, batch)
             losses.append(float(loss))
             if cfg.eval_example_batches is None or n < cfg.eval_example_batches:
                 if gen_params is None:
-                    gen_params = self.generation_params()
+                    gen_params = self.generation_params(full)
                 examples += self._generate_examples(batch, gen_params)
             else:
                 gen_params = None  # free the dense merge for the remaining batches
+        del full, gen_params
         out = {"val/loss": float(np.mean(losses)) if losses else float("nan")}
         self.logger.log({**out, "epoch": epoch}, step=self.global_step)
         # every rank's examples (the reference's gather_object, Stage2/trainer.py:654)
@@ -328,17 +340,18 @@ class Stage2Trainer:
                     f.write(f"QUESTION: {q}\nTARGET: {a}\nGENERATED: {g}\n{'-' * 60}\n")
         return out
 
-    def generation_params(self):
-        """The params generation runs on: cast to the compute type (ties kept), as the
-        loss computes (fp32 masters would put fp32 tensors before the kernels), with
-        the LoRA adapters (fp32 masters) merged into a dense decoder
+    def generation_params(self, full=None):
+        """The params generation runs on: ``full``, the compute copy (by default made
+        here: cast to the compute type, ties kept, as the loss computes, since fp32
+        masters would put fp32 tensors before the kernels; gathered whole under
+        ``--fsdp``), with the LoRA adapters (fp32 masters) merged into a dense decoder
         (``lora.merge_into_decoder``; a quantized base is dequantized to bf16)."""
-        params = self.state["params"]
-        if self.compute_dtype is not None:
-            params = dtypes.cast_compute_params(params, self.compute_dtype)
+        params = (common.compute_copy(self.state["params"], self.plan, self.compute_dtype)
+                  if full is None else full)
         if self.lora_cfg is not None:
-            merged = lora_mod.merge_into_decoder(params["llm"], self.state["params"]["lora"],
-                                                 self.lora_cfg)
+            adapters = sharding.gather_params(self.state["params"]["lora"], self.plan,
+                                              prefix="lora", axes=(sharding.DATA_AXIS,))
+            merged = lora_mod.merge_into_decoder(params["llm"], adapters, self.lora_cfg)
             params = {k: v for k, v in params.items() if k != "lora"}
             params["llm"] = merged
         return params
@@ -392,7 +405,7 @@ class Stage2Trainer:
         self.ckpt.save_periodic(epoch, self.state, self._meta(epoch))
         # every model rank enters the gathers of the shards; rank 0 writes
         exported = ("projector", "lora") + (("llm",) if self.base_policy.train_llm else ())
-        params = {k: sharding.gather_params(v, self.plan, prefix=k)
+        params = {k: sharding.gather_params(v, self.plan, prefix=k, host=True)
                   for k, v in self.state["params"].items() if k in exported}
         if distributed.is_main():
             export.save_stage2_checkpoint(

@@ -314,8 +314,9 @@ def test_balanced_sample_matches_jax_cli(tmp_path, labels, size, seed):
 
 # --num_loader_procs runs since the feeder port, on threads here
 # (test_cli_num_loader_procs_falls_back_to_threads below), --mesh_data since the
-# data-parallel port (below); the model axis and --fsdp are refused
-@pytest.mark.parametrize("flag", [["--fsdp"], ["--mesh_model", "2"]])
+# data-parallel port (below), --fsdp since the ZeRO-3 port (tests/test_torch_fsdp_cli.py);
+# the model axis is refused
+@pytest.mark.parametrize("flag", [["--mesh_model", "2"]])
 def test_cli_refuses_what_is_not_ported(snapshot, tmp_path, monkeypatch, flag):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     with pytest.raises(NotImplementedError, match="not ported"):

@@ -266,3 +266,28 @@ def test_prompt_copies(name):
         from projectiontrainer_tpu_torch.cli import infer_generation
 
         assert infer_generation.DIAGNOSTIC_PROMPT == jax_infer_generation.DIAGNOSTIC_PROMPT
+
+
+@pytest.mark.parametrize("name", ["FSDP_MIN_SIZE", "gemma3_4b", "full_joint_4b"])
+def test_fsdp_and_gemma3_4b_copies(name):
+    """The port's copies of the JAX package's ``--fsdp`` size threshold
+    (``parallel/sharding.py``) and of Gemma3-4B's dims and BASELINE config #4's VLM
+    (``parallel/budget.py``), field by field (the kernel choice is each package's own)."""
+    import dataclasses
+
+    from projectiontrainer_tpu.parallel import budget as jax_budget
+    from projectiontrainer_tpu.parallel import sharding as jax_sharding
+    from projectiontrainer_tpu_torch.checkpoint import from_jax
+    from projectiontrainer_tpu_torch.models import decoder, vlm
+    from projectiontrainer_tpu_torch.parallel import sharding
+
+    if name == "FSDP_MIN_SIZE":
+        assert sharding.FSDP_MIN_SIZE == jax_sharding.FSDP_MIN_SIZE
+        return
+    if name == "gemma3_4b":
+        got, ref = decoder.gemma3_4b_config(), jax_budget.gemma3_4b_text_config()
+        assert got.num_layers == 34 and got.hidden_size == 2560
+    else:
+        got, ref = vlm.full_joint_4b_config(), jax_budget.full_joint_4b_vlm_cfg()
+        assert got.projector.intermediate_dim == 10_240
+    assert dataclasses.asdict(got) == dataclasses.asdict(from_jax.config_from_jax(ref))

@@ -329,11 +329,10 @@ def test_cli_trains_exports_and_resumes(snapshot, tmp_path):
 
 
 # --num_loader_procs runs since the feeder port (test_cli_trains_on_the_process_feeder
-# below), --mesh_data since the data-parallel port (below); the model axis and --fsdp
-# are refused
-@pytest.mark.parametrize("flag", [["--mesh_model", "2"], ["--fsdp"],
-                                  ["--mesh_data", "1", "--mesh_model", "2"],
-                                  ["--mesh_data", "-1", "--fsdp"]])
+# below), --mesh_data since the data-parallel port (below), --fsdp since the ZeRO-3 port
+# (tests/test_torch_fsdp_cli.py); the model axis is refused
+@pytest.mark.parametrize("flag", [["--mesh_model", "2"],
+                                  ["--mesh_data", "1", "--mesh_model", "2"]])
 def test_cli_refuses_what_is_not_ported(snapshot, tmp_path, monkeypatch, flag):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     with pytest.raises(NotImplementedError, match="not ported"):

@@ -122,20 +122,6 @@ def test_cli_trains_exports_and_resumes(snapshots, tmp_path):
                                   batch[4:])
 
 
-# --enable_qlora runs since the QLoRA port (tests/test_torch_qlora_cli.py); with a flag
-# that is still not ported it raises all the same
-# --num_loader_procs runs since the feeder port (test_cli_num_loader_procs_feeds_from_processes
-# below), --mesh_data since the data-parallel port (below), --mesh_model since the
-# tensor-parallel port (below; tests/test_torch_tp.py); --fsdp is refused, beside them too
-@pytest.mark.parametrize("flag", [["--enable_qlora", "--fsdp"],
-                                  ["--mesh_model", "2", "--fsdp"], ["--fsdp"],
-                                  ["--mesh_data", "1", "--mesh_model", "2", "--fsdp"]])
-def test_cli_refuses_what_is_not_ported(snapshots, tmp_path, monkeypatch, flag):
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        train_stage1.main(_argv(snapshots, str(tmp_path / "x"), *flag))
-
-
 # --mesh_data resolves over the world of processes (core/mesh.py): one process that no
 # launcher started is a world of one, and -1 with several GPUs visible needs a process
 # for each; under the launcher it trains data parallel (tests/test_torch_launch.py,

@@ -258,23 +258,6 @@ def test_cli_profiles_the_tower_backward_in_epoch0(snapshots, tmp_path):
         assert split[f"{name}_ms"] > 0, name
 
 
-# --enable_qlora and --resume_qlora_adapter_path run since the QLoRA port
-# (tests/test_torch_qlora_cli.py); beside a flag that is still not ported they raise.
-# --num_loader_procs runs since the feeder port, on threads here
-# (test_cli_num_loader_procs_reads_on_threads below), --mesh_data since the data-parallel
-# port (below), --mesh_model since the tensor-parallel port (below;
-# tests/test_torch_tp.py) and --remat dots with it (tests/test_torch_remat_dots.py);
-# --fsdp is refused, beside them too
-@pytest.mark.parametrize("flag", [["--enable_qlora", "--fsdp"],
-                                  ["--resume_qlora_adapter_path", "x", "--fsdp"],
-                                  ["--remat", "dots", "--fsdp"], ["--mesh_model", "2", "--fsdp"],
-                                  ["--fsdp"], ["--mesh_data", "-1", "--mesh_model", "2", "--fsdp"]])
-def test_cli_refuses_what_is_not_ported(snapshots, tmp_path, monkeypatch, flag):
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        train_stage2.main(_argv(snapshots, str(tmp_path / "x"), *flag))
-
-
 # --mesh_data resolves over the world of processes (core/mesh.py): one process that no
 # launcher started is a world of one, and -1 with several GPUs visible needs a process
 # for each; under the launcher it trains data parallel (tests/test_torch_launch.py,
