@@ -170,7 +170,7 @@ Phases, each printing one JSON line; any failure raises, so the exit code is not
    may use; /dev/shm's free bytes); 256 seeded 1024 x 1024 and 32 2048 x 2048 CXR-like
    gray JPEGs (stored as RGB, 4 caption classes) written to a temp dir; (a) the feed
    alone: images/s of ``epoch_batches`` (batch 16, onto the card) over 128 of them at
-   512 px on 8 threads and on the process feeder at N = 1, 4 and every CPU, augmentation
+   512 px on 8 threads and on the process feeder at N = 4 and every CPU, augmentation
    off and on (on: the workers at OMP_NUM_THREADS 1 and at OpenMP's default), then at
    384 px (threads and the best N) and from the 2048 px files, each beside the demand
    (stage 0: 63-104 images/s; the cls frozen epoch: 606-735); (b) Stage0Trainer.train()
@@ -239,7 +239,7 @@ Phases, each printing one JSON line; any failure raises, so the exit code is not
    sign(gradient), so a near-zero gradient element flips on bf16 rounding). Images/s per
    rank and the span ``grad_allreduce`` (kernel time from rank 0's trace, the host time
    of the all-reduce per rank). (c) the same launcher runs ``cli/train_stage0.main``
-   with --local_negatives on the so400m dual tower cut to 4 layers a tower (run time)
+   with --local_negatives on the so400m dual tower cut to 2 layers a tower (run time)
    from the seed, over 64 + 16 JPEG files, 2 ranks x 8 rows, 4 steps: every loss
    finite and the same on every rank, the trained leaves bit-equal across the ranks,
    K1/K2/K4/K5/K8 launched on every rank. A rank that fails fails the phase.
@@ -271,8 +271,9 @@ Phases, each printing one JSON line; any failure raises, so the exit code is not
    --unfreeze_llm --unfreeze_projection_layer --train_ve_first_epoch, fp32 masters,
    bf16 compute, remat full, over the ViT-L/16-384 + projector 1024 -> 10240 -> 2560 +
    Gemma3-4B VLM (2560 wide, 8|4 heads of 256, vocab 262,208, window 1024 on 5 layers
-   of 6, rope factor 8) at full width from the seed, cut to 6 of its 34 decoder layers
-   when the ranks share a card (34 on cards of their own); each rank builds the model in
+   of 6, rope factor 8) at full width from the seed, cut to 2 of its 34 decoder layers
+   (both sliding) and 2 of the tower's 24 when the ranks share a card (all on cards of
+   their own; cut for the script's time); each rank builds the model in
    bf16 and its trainer keeps the rank's data shard of every large leaf before the fp32
    cast; batch 1 a rank, accumulation 2, 2 epochs of 2 micro-steps a rank at 1215
    tokens (the tower's freeze and the optimizer swap crossed; 4 micro-steps an epoch cut
@@ -290,17 +291,51 @@ Phases, each printing one JSON line; any failure raises, so the exit code is not
    time of the gathers and reduce-scatters and, from a profiled extra micro-step, their
    kernel time; the gathers of a micro-step by phase; the live gathered bytes of one
    micro-step under remat full and under 'dots' (which keeps every gathered weight).
-   (c) phase 20 (c)'s cut dual tower with --fsdp, 4 steps: finite losses equal on
-   every rank, the replicated leaves bit-equal, the checkpoint whole.
+   (Stage 0 with --fsdp runs in phase 23 (b), at --mesh_model 2 only: the kernels line
+   holds no stage0_fsdp_rank0 path of --mesh_model 1.)
    Phase 2 adds Gemma3-4B's shapes: K1/K4/K5 at [1,1215,8|4,256] (window 1024 and
    none, the question's and the answer's padding masked) and K3 at its 8|4 heads of
    256 (one sample of 3 beams, P = 703, G = 16), each rerun held bit-equal.
+23. tensor parallel towers: the world as in phase 21 (2 model ranks share one card over
+   gloo, said so: a sharing figure; where the card admits one process the phase prints
+   that it did not run and why). (a) ``cli/launch.py`` runs ``cli/train_stage0.main``
+   (``--entry chip_smoke:tp_towers_stage0_rank``) at --mesh_data 1 --mesh_model 2 over
+   the so400m dual tower at full width and depth (27 + 27 layers, 8 of 16 heads of 72 a
+   rank), built whole from the seed in each rank and sliced by the CLI
+   (``sharding.model_shards``): batch 16 at 512 px, 3 steps of in-memory samples (the
+   last profiled on rank 0: kernel time by span, ``tp_allreduce`` apart), no validation
+   (run time), the final checkpoint.
+   Every rank logs the same finite losses; each step's model-axis collectives are the
+   count read off the code (``tp_towers_predicted``: 110 / 55 / 0 / 2 forward /
+   backward / recompute / grads); every leaf the model axis leaves whole (logit_*, the
+   LayerNorms, the MAP head's attention, ...) hashes equal on the two ranks after every
+   step; the final checkpoint holds every trained leaf whole (the MAP head's MLP among
+   them); K1/K2/K4/K5/K8 launch
+   on every rank; then this process runs the first step on the whole model: the loss
+   within 1e-3 relative, each gathered gradient leaf at cosine >= 0.999 or, below it,
+   by its distance to the one-process fp32 plain-path gradient (computed only then), the
+   key-projection biases by their noise (``hold_gradients``, the rule of every phase
+   that holds gradients). (b) stage 0 at 2 x 2 (4 ranks: one NCCL rank a
+   card on 4 cards or more, else 4 gloo ranks sharing the cards, said so; not run where
+   a card admits one process) with --fsdp --no-local_negatives on phase 20 (c)'s cut
+   towers, 2 steps of 8 a data rank: the same checks within each replica, data shards
+   held, the final checkpoint whole, and the first loss within 1e-3 of one process on
+   the whole global batch (the global negatives gathered over the data axis only). (c) ``cli/cls_train.main`` at
+   --mesh_model 2 over the ViT-L/16-384 tower (24 layers, 8 of 16 heads of 64 a rank)
+   and the 4-class head from the seed, batch 32, 1EpochUnfreeze, 2 epochs of 2 steps:
+   the same checks (48 / 48 / 0 / 2 collectives a step in epoch 0, 48 / 0 / 0 / 1 in
+   epoch 1), an evaluation of the initial classifier before training whose logits sit
+   at cosine >= 0.999 to one process's, every evaluation over each data rank's rows
+   once (its AUROC beside one process's), and the first loss within 1e-3.
+   Phase 2 adds the towers' per-rank shapes: K1/K4/K5 at so400m's [16,1024,8,72] and
+   the cls tower's [32,576,8,64], K1 at the text tower's [16,64,8,72].
 
 The second-to-last line is {"kernels": [...]} (name, route, source, replaces, launches
 on the main path, launches_by_path (serve, train, stage0, stage0_files, stage2,
 stage2_qlora, serve_qwen3_adapter, cls, caption_llama, generation_eval, zero_shot,
 tsne, stage1_dp_rank0, stage0_dp_rank0, stage2_qlora_tp_rank0, stage1_tp_rank0,
-stage2_fsdp_rank0, stage0_fsdp_rank0), max_abs_err, ms, plain_ms, bound_ms, bound_by,
+stage2_fsdp_rank0, stage0_tp_rank0, stage0_fsdp_tp_rank0,
+cls_tp_rank0), max_abs_err, ms, plain_ms, bound_ms, bound_by,
 library_ms, the launches of one epoch-0 stage-2 micro-step at the longest bucket,
 phase 9's, and of one phase-22 FSDP micro-step on rank 0); the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -377,6 +412,99 @@ def compare_rel(name, got, ref) -> float:
     if not err <= REL_BWD * scale:
         raise AssertionError(f"{name}: max abs err {err:.4g} > {REL_BWD} x max|ref| {scale:.4g}")
     return err
+
+
+def _key_bias(path) -> bool:
+    return path.endswith("k_proj/bias")
+
+
+def hold_gradients(label, got, ref, fp32=None, *, below="distance", noise=_key_bias,
+                   by_distance=None):
+    """The per-leaf rule for two bf16 gradients of one loss on one batch, ``got`` (the
+    path under test) against ``ref`` (the plain path or one process), each {path: tensor}:
+
+    - the leaves ``noise`` names (zero in exact arithmetic, the key biases by default) are
+      rounding on both sides: their largest norm at most KEY_BIAS_NOISE x ``ref``'s;
+    - every other leaf at cosine >= COS_MIN. A leaf below it: with ``below="distance"``
+      held by its distance to the fp32 gradient, at most ROUNDING_GAP x ``ref``'s; with
+      ``below="group"`` (phase 21's rule) at >= TP_LEAF_COS_FLOOR where every group (the
+      leaves of one name) is at >= COS_MIN; with ``below="fail"`` not at all;
+    - the leaves ``by_distance`` names (mostly rounding at random weights) by their
+      distance to the fp32 gradient alone.
+
+    ``fp32(paths)`` gives the fp32 gradients at ``paths``. Sums run in fp64 on the card.
+    Returns (the readings, each leaf's cosine); raises naming ``label``."""
+    import torch
+
+    if got.keys() != ref.keys():
+        raise AssertionError(f"{label}: gradient leaves differ: {sorted(got)[:4]} vs "
+                             f"{sorted(ref)[:4]}")
+
+    def flat(x):
+        return x.to(DEVICE, torch.float64).flatten()
+
+    def cosine(s):  # from (a.b, a.a, b.b)
+        return s[0] / max((s[1] * s[2]) ** 0.5, 1e-300)
+
+    sums, far, noise_norm = {}, [], [0.0, 0.0]
+    for p in sorted(ref):
+        if by_distance is not None and by_distance(p):
+            far.append(p)
+            continue
+        a, b = flat(got[p]), flat(ref[p])
+        if noise(p):
+            noise_norm = [max(noise_norm[0], float(a.norm())),
+                          max(noise_norm[1], float(b.norm()))]
+        else:
+            sums[p] = [float(a @ b), float(a @ a), float(b @ b)]
+        del a, b
+    cos = {p: cosine(s) for p, s in sums.items()}
+    groups = {}
+    for p, s in sums.items():  # a group's cosine from its leaves' sums: no concatenation
+        g = groups.setdefault(p.rsplit("/", 1)[-1], [0.0, 0.0, 0.0])
+        for i in range(3):
+            g[i] += s[i]
+    group_cos = {k: cosine(g) for k, g in groups.items()}
+    slow = {p: c for p, c in cos.items() if not c >= COS_MIN}
+    worst = min(cos, key=cos.get, default=None)
+    readings = {"grad_leaves": len(cos), "min_grad_cosine": cos.get(worst),
+                "min_grad_cosine_leaf": worst,
+                "lowest_grad_cosines": {p: cos[p] for p in sorted(cos, key=cos.get)[:5]},
+                "leaves_below_cos_min": slow,
+                "noise_grad_norm_max_got_ref": noise_norm}
+    trees = {p.split("/", 1)[0] for p in cos}
+    readings["min_grad_cosine_by_tree"] = {
+        t: min(c for p, c in cos.items() if p.split("/", 1)[0] == t) for t in sorted(trees)}
+    if below == "group":
+        readings["group_grad_cosine"] = group_cos
+        if slow and not (min(slow.values()) >= TP_LEAF_COS_FLOOR
+                         and min(group_cos.values()) >= COS_MIN):
+            raise AssertionError(f"{label}: gradient cosines {slow}, by group {group_cos}")
+    elif below == "distance":
+        far += sorted(slow)
+    elif slow:
+        raise AssertionError(f"{label}: gradient cosines {slow} < {COS_MIN}")
+    gaps = {}
+    if far:
+        ref32 = fp32(far)
+        for p in far:
+            f = flat(ref32[p])
+            gaps[p] = (float((flat(got[p]) - f).norm())
+                       / max(float((flat(ref[p]) - f).norm()), 1e-30))
+    worst_gap = max(gaps, key=gaps.get, default=None)
+    readings.update({"leaves_held_by_distance": len(gaps),
+                     "distance_gap_max": gaps.get(worst_gap), "distance_gap_max_leaf": worst_gap,
+                     "distance_gap_quantiles_50_90_100": [
+                         float(np.quantile(list(gaps.values()), q)) for q in (0.5, 0.9, 1.0)]
+                     if gaps else None})
+    if gaps and not gaps[worst_gap] <= ROUNDING_GAP:
+        raise AssertionError(f"{label}: {worst_gap}'s distance to fp32 is {gaps[worst_gap]:.4g} "
+                             f"x the reference's > {ROUNDING_GAP}")
+    if not noise_norm[0] <= KEY_BIAS_NOISE * noise_norm[1]:
+        raise AssertionError(f"{label}: the gradient norm of the leaves zero in exact "
+                             f"arithmetic {noise_norm[0]:.4g} > {KEY_BIAS_NOISE} x the "
+                             f"reference's {noise_norm[1]:.4g}")
+    return readings, cos
 
 
 # ------------------------------------------------------------- bounds and library calls
@@ -718,6 +846,7 @@ def phase_kernels():
     check_cls_kernels(rng, record)
     check_llama_kernels(rng, record)
     check_tp_kernels(rng, record)
+    check_tp_tower_kernels(rng, record)
     check_gemma3_4b_kernels(rng, record)
     emit({"phase": 2, "readings": READINGS})
     return results
@@ -986,6 +1115,23 @@ def check_tp_kernels(rng, record):
                    out_of_slice=0.5)
     check_decode(rng, record, 2, 3, 575 + 256, 16, (15,), hq=16, hkv=4, d=128,
                  windows=(None,), label="TP rank: Qwen3 ")
+
+
+def check_tp_tower_kernels(rng, record):
+    """The towers' per-rank shapes over 2 model ranks (phase 23): K1/K4/K5 on a rank's 8
+    of so400m's 16 heads of 72 ([16,1024,8,72]: stage 0's vision tower at batch 16) and
+    of ViT-L's 16 heads of 64 ([32,576,8,64]: the cls probe at batch 32), K1 alone on the
+    so400m text tower's ([16,64,8,72]: frozen, forward only); non-causal, unmasked, each
+    rerun held bit-equal; record(kernel, case, err, ms, plain_ms, bound, library_ms,
+    library)."""
+    for case, b, t, h, d in (("TP rank: so400m tower [16,1024,8,72]", 16, 1024, 8, 72),
+                             ("TP rank: cls tower [32,576,8,64]", 32, 576, 8, 64)):
+        kw = dict(scale=d ** -0.5, causal=False, window=None)
+        check_flash_forward(rng, record, case, b, t, h, h, d, None, **kw)
+        check_attention_layer(rng, record, case + " non-causal", b, t, h, h, d, None,
+                              rerun=True, **kw)
+    check_flash_forward(rng, record, "TP rank: so400m text tower [16,64,8,72]", 16, 64, 8, 8,
+                        72, None, scale=72 ** -0.5, causal=False, window=None)
 
 
 def check_gemma3_4b_kernels(rng, record):
@@ -1929,7 +2075,6 @@ def phase_stage0_train(cfg, params, kernel_counters):
 
 def phase_stage0_end_to_end(cfg, params, kernel_counters):
     import torch
-    import torch.nn.functional as F
 
     from projectiontrainer_tpu_torch.core.pytree import leaves_with_paths
     from projectiontrainer_tpu_torch.train import masks, steps
@@ -1954,28 +2099,15 @@ def phase_stage0_end_to_end(cfg, params, kernel_counters):
     loss_k, grads_k, launches_k = run(cfg)
     loss_p, grads_p, launches_p = run(plain)
     rel = abs(loss_k - loss_p) / abs(loss_p)
-    cos, key_bias = {}, [0.0, 0.0]
-    for (path, _), a, b in zip(train, grads_k, grads_p):
-        if path.endswith("k_proj/bias"):  # zero in exact arithmetic: both sides are noise
-            key_bias = [max(key_bias[0], float(a.float().norm())),
-                        max(key_bias[1], float(b.float().norm()))]
-        else:
-            cos[path] = float(F.cosine_similarity(a.flatten().float(), b.flatten().float(), dim=0))
-    worst = min(cos, key=cos.get)
-    emit({"phase": 8, "batch_size": 4, "loss_kernel": loss_k, "loss_plain": loss_p,
-          "loss_rel_diff": rel, "leaves_compared": len(cos), "min_grad_cosine": cos[worst],
-          "min_grad_cosine_leaf": worst, "key_bias_grad_norm_max_kernel_plain": key_bias,
-          "launches_kernel_path": launches_k})
     if not all(launches_k[n] for n in STAGE0_KERNELS) or any(launches_p.values()):
         raise AssertionError(f"stage 0 end to end: kernel path {launches_k}, plain {launches_p}")
     if not rel <= LOSS_REL:
         raise AssertionError(f"stage 0 end to end: loss {loss_k} vs plain {loss_p}")
-    if not cos[worst] >= COS_MIN:
-        raise AssertionError(f"stage 0 end to end: gradient cosine {cos[worst]:.5f} of {worst} "
-                             f"< {COS_MIN}")
-    if not key_bias[0] <= KEY_BIAS_NOISE * key_bias[1]:
-        raise AssertionError(f"stage 0 end to end: key-projection bias gradient norm "
-                             f"{key_bias[0]:.4g} > {KEY_BIAS_NOISE} x plain {key_bias[1]:.4g}")
+    names = [p for p, _ in train]
+    versus, _ = hold_gradients("stage 0 end to end", dict(zip(names, grads_k)),
+                               dict(zip(names, grads_p)), below="fail")
+    emit({"phase": 8, "batch_size": 4, "loss_kernel": loss_k, "loss_plain": loss_p,
+          "loss_rel_diff": rel, **versus, "launches_kernel_path": launches_k})
 
 
 # ---------------------------------------------------------------------------- phase 9
@@ -2212,60 +2344,42 @@ def phase_stage2_end_to_end(cfg, params, kernel_counters):
     loss_p, grads_p, launches_p = run(plain)
     _, grads_f, _ = run(plain, None)
     rel = abs(loss_k - loss_p) / abs(loss_p)
-    cos, rounding, plain_to_fp32, key_bias = {}, {}, {}, [0.0, 0.0]
-    for (path, _), a, b, f in zip(train, grads_k, grads_p, grads_f):
-        a, b, f = a.float(), b.float(), f.float()
-        if path.endswith("k_proj/bias"):  # zero in exact arithmetic: both sides are noise
-            key_bias = [max(key_bias[0], float(a.norm())), max(key_bias[1], float(b.norm()))]
-            continue
-        gap = float((b - f).norm())
-        # (cosine, whether plain bf16's distance to fp32 exceeds the gradient's norm)
-        plain_to_fp32[path] = (cosine(b, f), gap > float(f.norm()))
-        if path.startswith("llm/") and path.endswith(ROUNDING_LEAVES):
-            rounding[path] = {"plain_cos_to_fp32": plain_to_fp32[path][0],
-                              "kernel_cos_to_fp32": cosine(a, f),
-                              "gap_ratio": float((a - f).norm()) / gap}
-        else:
-            cos[path] = cosine(a, b)
-    del grads_k, grads_p, grads_f, a, b, f
-    worst = min(cos, key=cos.get, default=None)
-    worst_gap = max(rounding, key=lambda p: rounding[p]["gap_ratio"], default=None)
-    lowest = sorted(rounding, key=lambda p: rounding[p]["plain_cos_to_fp32"])[:5]
+    step_kernels = [n for n in STAGE2_KERNELS if n != "decode_attn"]
+    if not all(launches_k[n] for n in step_kernels) or any(launches_p.values()):
+        raise AssertionError(f"stage 2 end to end: kernel path {launches_k}, plain {launches_p}")
+    if not rel <= LOSS_REL:
+        raise AssertionError(f"stage 2 end to end: loss {loss_k} vs plain {loss_p}")
+    names = [p for p, _ in train]
+    # how much of plain bf16 is rounding: (its cosine to fp32, whether its distance to
+    # fp32 exceeds the gradient's norm)
+    plain_to_fp32 = {}
+    for p, b, f in zip(names, grads_p, grads_f):
+        if not _key_bias(p):
+            b, f = b.float(), f.float()
+            plain_to_fp32[p] = (cosine(b, f), float((b - f).norm()) > float(f.norm()))
+    del b, f
+
+    def rounding(p):
+        return p.startswith("llm/") and p.endswith(ROUNDING_LEAVES)
+
+    versus, cos = hold_gradients("stage 2 end to end", dict(zip(names, grads_k)),
+                                 dict(zip(names, grads_p)),
+                                 lambda paths: dict(zip(names, grads_f)), below="fail",
+                                 by_distance=rounding)
+    del grads_k, grads_p, grads_f
+    lowest = sorted((p for p in names if rounding(p)), key=lambda p: plain_to_fp32[p][0])[:5]
     groups = ("vision", "projector", "llm")
     emit({"phase": 10, "batch_size": 1, "tokens": 575 + 128 + 512, "loss_kernel": loss_k,
-          "loss_plain": loss_p, "loss_rel_diff": rel, "leaves_compared": len(cos),
-          "min_grad_cosine": cos.get(worst), "min_grad_cosine_leaf": worst,
-          "min_grad_cosine_by_group": {
-              g: min((v for p, v in cos.items() if p.startswith(g + "/")), default=None)
-              for g in groups},
-          "lowest_grad_cosines": {p: cos[p] for p in sorted(cos, key=cos.get)[:5]},
+          "loss_plain": loss_p, "loss_rel_diff": rel, **versus,
           "plain_bf16_cos_to_fp32_quantiles_0_10_50_90": [
               float(np.quantile([c for c, _ in plain_to_fp32.values()], q))
               for q in (0, 0.1, 0.5, 0.9)],
           "plain_bf16_error_above_fp32_norm_by_group": {
               g: sum(p.startswith(g + "/") and over for p, (_, over) in plain_to_fp32.items())
               for g in groups},
-          "rounding_leaves": len(rounding),
-          "max_gap_ratio_to_fp32": rounding[worst_gap]["gap_ratio"] if rounding else None,
-          "max_gap_ratio_leaf": worst_gap,
-          "rounding_leaves_lowest_plain_cos_to_fp32": {p: rounding[p] for p in lowest},
+          "rounding_leaves_lowest_plain_cos_to_fp32": {p: plain_to_fp32[p][0] for p in lowest},
           "table_grad_cosine": cos.get("llm/embed_tokens/embedding"),
-          "key_bias_grad_norm_max_kernel_plain": key_bias, "launches_kernel_path": launches_k})
-    step_kernels = [n for n in STAGE2_KERNELS if n != "decode_attn"]
-    if not all(launches_k[n] for n in step_kernels) or any(launches_p.values()):
-        raise AssertionError(f"stage 2 end to end: kernel path {launches_k}, plain {launches_p}")
-    if not rel <= LOSS_REL:
-        raise AssertionError(f"stage 2 end to end: loss {loss_k} vs plain {loss_p}")
-    if worst is None or not cos[worst] >= COS_MIN:
-        raise AssertionError(f"stage 2 end to end: gradient cosine {cos.get(worst)} of {worst} "
-                             f"< {COS_MIN}")
-    if rounding and not rounding[worst_gap]["gap_ratio"] <= ROUNDING_GAP:
-        raise AssertionError(f"stage 2 end to end: {worst_gap}'s distance to fp32 is "
-                             f"{rounding[worst_gap]['gap_ratio']:.4g} x plain bf16's "
-                             f"> {ROUNDING_GAP}")
-    if not key_bias[0] <= KEY_BIAS_NOISE * key_bias[1]:
-        raise AssertionError(f"stage 2 end to end: key-projection bias gradient norm "
-                             f"{key_bias[0]:.4g} > {KEY_BIAS_NOISE} x plain {key_bias[1]:.4g}")
+          "launches_kernel_path": launches_k})
     check_remat_dots(cfg, params, batch, train)
 
 
@@ -2547,19 +2661,22 @@ def phase_qlora_end_to_end(cfg, params, kernel_counters):
     loss_p, grads_p, launches_p = run(plain, "chunked")
     _, grads_f, _ = run(plain, "chunked", torch.float32)
     rel = abs(loss_k - loss_p) / abs(loss_p)
+    step_kernels = [n for n in STAGE2_QLORA_KERNELS if n != "decode_attn"]
+    if not all(launches_k[n] for n in step_kernels) or any(launches_p.values()):
+        raise AssertionError(f"QLoRA end to end: kernel path {launches_k}, plain {launches_p}")
+    if not rel <= LOSS_REL:
+        raise AssertionError(f"QLoRA end to end: loss {loss_k} vs plain {loss_p}")
     # each leaf against plain bf16; where the two bf16 paths differ by more than 0.001
     # (each is ~0.9995 from fp32 at random weights, the A gradients down to 0.998: a sum
-    # over 1855 tokens of nearly cancelling terms), the kernel path's distance to the
-    # plain fp32 gradient over plain bf16's (ROUNDING_GAP, PR 8's rule)
-    cos, gap, plain_to_fp32 = {}, {}, {}
-    for (p, _), a, b, f in zip(train, grads_k, grads_p, grads_f):
-        cos[p] = cosine(a, b)
-        plain_to_fp32[p] = cosine(b, f)
-        gap[p] = float((a - f).norm() / (b - f).norm())
+    # over 1855 tokens of nearly cancelling terms), the distance rule of hold_gradients
+    names = [p for p, _ in train]
+    plain_to_fp32 = {p: cosine(b, f) for p, b, f in zip(names, grads_p, grads_f)}
+    versus, cos = hold_gradients("QLoRA end to end", dict(zip(names, grads_k)),
+                                 dict(zip(names, grads_p)),
+                                 lambda paths: dict(zip(names, grads_f)))
     del grads_k, grads_p, grads_f
     for _, x in train:
         x.requires_grad_(False)
-    by_gap = [p for p in cos if cos[p] < COS_MIN]
 
     # the merged decoder (the quantized base dequantized to bf16 + B A) against the
     # unmerged forward, at the last position of a [visual; question] prefix of 4 rows
@@ -2580,30 +2697,15 @@ def phase_qlora_end_to_end(cfg, params, kernel_counters):
         del merged_llm, compute
         row_cos = F.cosine_similarity(merged.float(), unmerged.float(), dim=-1).tolist()
         top1 = (merged.argmax(-1) == unmerged.argmax(-1)).float().mean().item()
-    worst = min(cos, key=cos.get)
-    worst_gap = max(by_gap, key=gap.get, default=None)
     emit({"phase": 12, "batch_size": 1, "tokens": 575 + 256 + 1024, "loss_kernel": loss_k,
-          "loss_plain": loss_p, "loss_rel_diff": rel, "leaves_compared": len(cos),
-          "min_grad_cosine": cos[worst], "min_grad_cosine_leaf": worst,
-          "lowest_grad_cosines": {p: cos[p] for p in sorted(cos, key=cos.get)[:5]},
+          "loss_plain": loss_p, "loss_rel_diff": rel, **versus,
           "plain_bf16_cos_to_fp32_quantiles_0_10_50": [
               float(np.quantile(list(plain_to_fp32.values()), q)) for q in (0, 0.1, 0.5)],
-          "leaves_held_by_gap": len(by_gap),
-          "max_gap_ratio_to_fp32": None if worst_gap is None else gap[worst_gap],
-          "max_gap_ratio_leaf": worst_gap,
-          "held_by_gap": {p: {"cos_plain_bf16": cos[p], "plain_cos_to_fp32": plain_to_fp32[p],
-                              "gap_ratio": gap[p]} for p in sorted(by_gap, key=cos.get)[:8]},
+          "held_by_distance_plain_cos_to_fp32": {
+              p: plain_to_fp32[p] for p in sorted(versus["leaves_below_cos_min"],
+                                                  key=cos.get)[:8]},
           "merged_vs_unmerged_row_cosine": row_cos, "merged_vs_unmerged_top1": top1,
           "launches_kernel_path": launches_k})
-    step_kernels = [n for n in STAGE2_QLORA_KERNELS if n != "decode_attn"]
-    if not all(launches_k[n] for n in step_kernels) or any(launches_p.values()):
-        raise AssertionError(f"QLoRA end to end: kernel path {launches_k}, plain {launches_p}")
-    if not rel <= LOSS_REL:
-        raise AssertionError(f"QLoRA end to end: loss {loss_k} vs plain {loss_p}")
-    if worst_gap is not None and not gap[worst_gap] <= ROUNDING_GAP:
-        raise AssertionError(f"QLoRA end to end: {worst_gap}'s gradient cosine {cos[worst_gap]} "
-                             f"< {COS_MIN} and its distance to fp32 {gap[worst_gap]:.4g} x "
-                             f"plain bf16's > {ROUNDING_GAP}")
     if not min(row_cos) >= 0.99:
         raise AssertionError(f"QLoRA end to end: merged against unmerged logits, row cosines "
                              f"{row_cos} (< 0.99)")
@@ -2802,7 +2904,7 @@ def phase_cls_end_to_end(cfg, params, kernel_counters):
     import torch.nn.functional as F
 
     from projectiontrainer_tpu_torch.core.pytree import leaves_with_paths
-    from projectiontrainer_tpu_torch.train import masks, steps
+    from projectiontrainer_tpu_torch.train import steps
 
     plain = plain_config(cfg)
     data = ClsSamples(8, SEED + 11, size=cfg.vision.image_size, n_classes=cfg.num_classes)
@@ -2833,41 +2935,25 @@ def phase_cls_end_to_end(cfg, params, kernel_counters):
     # classes' attended queries differ little, and the CE's gradient over the classes
     # sums to 0), so each bf16 path's own rounding shows: both paths' cosines to fp32
     # are printed beside the cosine between them
-    cos, gap, to_fp32, noise = {}, {}, {"kernel": [], "plain": []}, [0.0, 0.0]
-    for (path, _), a, b, f in zip(train, grads_k, grads_p, grads_f):
-        if _zero_sum(path):
-            noise = [max(noise[0], float(a.float().norm())), max(noise[1], float(b.float().norm()))]
-            continue
-        cos[path] = cosine(a, b)
-        to_fp32["kernel"].append(cosine(a, f))
-        to_fp32["plain"].append(cosine(b, f))
-        if cos[path] < COS_MIN:
-            gap[path] = float((a.float() - f).norm() / (b.float() - f).norm())
-    del grads_k, grads_p, grads_f
-    worst = min(cos, key=cos.get)
-    worst_gap = max(gap, key=gap.get, default=None)
-    emit({"phase": 15, "batch_size": 8, "loss_kernel": loss_k, "loss_plain": loss_p,
-          "loss_rel_diff": rel, "leaves_compared": len(cos), "min_grad_cosine": cos[worst],
-          "min_grad_cosine_leaf": worst,
-          "lowest_grad_cosines": {p: cos[p] for p in sorted(cos, key=cos.get)[:5]},
-          "cos_to_fp32_quantiles_0_10_50": {
-              k: [float(np.quantile(v, q)) for q in (0, 0.1, 0.5)] for k, v in to_fp32.items()},
-          "leaves_held_by_gap": len(gap),
-          "gap_ratio_quantiles_50_90_100": [float(np.quantile(list(gap.values()), q))
-                                            for q in (0.5, 0.9, 1.0)] if gap else None,
-          "max_gap_ratio_leaf": worst_gap,
-          "zero_sum_grad_norm_max_kernel_plain": noise, "launches_kernel_path": launches_k})
     if not all(launches_k[n] for n in CLS_KERNELS) or any(launches_p.values()):
         raise AssertionError(f"cls end to end: kernel path {launches_k}, plain {launches_p}")
     if not rel <= LOSS_REL:
         raise AssertionError(f"cls end to end: loss {loss_k} vs plain {loss_p}")
-    if worst_gap is not None and not gap[worst_gap] <= ROUNDING_GAP:
-        raise AssertionError(f"cls end to end: {worst_gap}'s gradient cosine {cos[worst_gap]} < "
-                             f"{COS_MIN} and its distance to fp32 {gap[worst_gap]:.4g} x plain "
-                             f"bf16's > {ROUNDING_GAP}")
-    if not noise[0] <= KEY_BIAS_NOISE * noise[1]:
-        raise AssertionError(f"cls end to end: zero-sum bias gradient norm {noise[0]:.4g} > "
-                             f"{KEY_BIAS_NOISE} x plain {noise[1]:.4g}")
+    names = [p for p, _ in train]
+    to_fp32 = {"kernel": [], "plain": []}
+    for p, a, b, f in zip(names, grads_k, grads_p, grads_f):
+        if not _zero_sum(p):
+            to_fp32["kernel"].append(cosine(a, f))
+            to_fp32["plain"].append(cosine(b, f))
+    versus, _ = hold_gradients("cls end to end", dict(zip(names, grads_k)),
+                               dict(zip(names, grads_p)),
+                               lambda paths: dict(zip(names, grads_f)), noise=_zero_sum)
+    del grads_k, grads_p, grads_f
+    emit({"phase": 15, "batch_size": 8, "loss_kernel": loss_k, "loss_plain": loss_p,
+          "loss_rel_diff": rel, **versus,
+          "cos_to_fp32_quantiles_0_10_50": {
+              k: [float(np.quantile(v, q)) for q in (0, 0.1, 0.5)] for k, v in to_fp32.items()},
+          "launches_kernel_path": launches_k})
 
 
 # ---------------------------------------------------------------------------- phase 16
@@ -3039,7 +3125,7 @@ def phase_feed(cfg, params, kernel_counters, stage0_stats):
         write_s = time.perf_counter() - t0
         rows_in = samples[:FEED_ROW_IMAGES]
         cpus = env["cpus"]
-        ns = sorted({1, 4, cpus})
+        ns = sorted({4, cpus})
         rows = [feed_row(make, rows_in, size=512, augment=a, threads=8) for a in (False, True)]
         for n in ns:
             for augment in (False, True):
@@ -3070,30 +3156,26 @@ def phase_feed(cfg, params, kernel_counters, stage0_stats):
               "best_procs": best_n, "faster_omp_threads_by_procs": omp_faster,
               "omp_default_in_feeder": feeder.WORKER_OMP_THREADS})
 
-        # (b) stage-0 training from the files, augmentation on: the process feeder at the
-        # best N (the feeder's OpenMP setting) is the path whose launches count; then
-        # the thread feed for comparison
+        # (b) stage-0 training from the files, augmentation on, on the process feeder at
+        # the best N (the feeder's OpenMP setting)
         for c in kernel_counters.values():
             c.reset()
         procs_run = train_from_files(cfg, params, make, samples, procs=best_n,
                                      out_dir=os.path.join(root, "procs"))
         launches = {name: c.value for name, c in kernel_counters.items()}
-        threads_run = train_from_files(cfg, params, make, samples, procs=0,
-                                       out_dir=os.path.join(root, "threads"))
     finally:
         feeder.close_pools()
         shutil.rmtree(root, ignore_errors=True)
     if not all(launches[n] for n in STAGE0_KERNELS):
         raise AssertionError(f"stage 0 from files: a kernel of the path never launched: "
                              f"{launches}")
-    ref = stage0_stats or {}
-    for run in (procs_run, threads_run):
-        print(f"stage 0 from files ({run['feed']}): {run['images_per_sec']:.3f} images/s, "
-              f"{run['step_time_ms']:.1f} ms/step, kernel time {run['kernel_ms']:.1f} ms/step "
-              f"(device idle {run['device_idle_share']:.1%}); in memory (phase 7): "
-              f"{ref.get('images_per_sec')} images/s, {ref.get('step_time_ms')} ms/step, "
-              f"idle {ref.get('device_idle_share')}", flush=True)
-    emit({"phase": 16, **procs_run, "launches": launches, "thread_feed": threads_run,
+    ref, run = stage0_stats or {}, procs_run
+    print(f"stage 0 from files ({run['feed']}): {run['images_per_sec']:.3f} images/s, "
+          f"{run['step_time_ms']:.1f} ms/step, kernel time {run['kernel_ms']:.1f} ms/step "
+          f"(device idle {run['device_idle_share']:.1%}); in memory (phase 7): "
+          f"{ref.get('images_per_sec')} images/s, {ref.get('step_time_ms')} ms/step, "
+          f"idle {ref.get('device_idle_share')}", flush=True)
+    emit({"phase": 16, **procs_run, "launches": launches,
           "in_memory_phase7": ref, "timed_steps": "1-5 (0 warms up, 6-7 profiled)",
           "cut": "8 steps of 128 generated files, validation on 16 (a real run: the caption "
                  "corpus, many epochs)"})
@@ -3102,7 +3184,7 @@ def phase_feed(cfg, params, kernel_counters, stage0_stats):
 
 def train_from_files(cfg, params, make, samples, *, procs, out_dir):
     """Stage0Trainer.train() as phase 7 runs it, fed from 128 of the files with online
-    augmentation on ``procs`` feeder workers (0: 8 threads), validated on 16 others;
+    augmentation on ``procs`` feeder workers, validated on 16 others;
     checks it and returns its numbers."""
     import torch
 
@@ -3144,7 +3226,7 @@ def train_from_files(cfg, params, make, samples, *, procs, out_dir):
     stats = {"images_per_sec": result.get("images_per_sec"),
              "step_time_ms": result.get("step_time_ms")}
     listed_pids = {int(line.split(",")[0]) for line in listed}
-    feed = f"{procs} feeder processes" if procs else "8 threads"
+    feed = f"{procs} feeder processes"
     if len(losses) != 8 or not np.isfinite(losses).all():
         raise AssertionError(f"stage 0 from files ({feed}): expected 8 finite losses, got "
                              f"{losses}")
@@ -3154,7 +3236,7 @@ def train_from_files(cfg, params, make, samples, *, procs, out_dir):
     if train_ds.n_invalid or val_ds.n_invalid:
         raise AssertionError(f"stage 0 from files ({feed}): {train_ds.n_invalid} + "
                              f"{val_ds.n_invalid} invalid samples")
-    if [p.num_workers for p in pools] != ([procs] if procs else []):
+    if [p.num_workers for p in pools] != [procs]:
         raise AssertionError(f"stage 0 from files ({feed}): the feed ran on {pools}")
     if cuda_in_workers or listed_pids & set(worker_pids) or len(listed) > 1:
         raise AssertionError(f"stage 0 from files ({feed}): the card's processes {listed}; "
@@ -3166,7 +3248,7 @@ def train_from_files(cfg, params, make, samples, *, procs, out_dir):
     return {"feed": feed, "steps": len(losses), "losses": losses, **stats,
             "kernel_ms": split["total_ms"], "kernel_ms_per_step": split,
             "device_idle_share": 1 - split["total_ms"] / stats["step_time_ms"],
-            "num_loader_procs": procs, "omp_threads": pools[0].omp_threads if pools else None,
+            "num_loader_procs": procs, "omp_threads": pools[0].omp_threads,
             "invalid_samples": 0, "leaf_max_change": moved, "compute_apps": listed,
             "worker_pids": worker_pids}
 
@@ -4161,37 +4243,14 @@ def _tp_check(label, dumps, kernels):
 
 def _tp_against_one_process(label, first_loss, grads_tp, loss_one, grads_one):
     """The first micro-step of the ranks against one process: the loss within LOSS_REL,
-    every gradient leaf at cosine >= COS_MIN (a leaf below it held to TP_LEAF_COS_FLOOR
-    and its group's concatenation to COS_MIN); returns the readings."""
-    import torch
-    import torch.nn.functional as F
-
-    def cosine(a, b):
-        return float(F.cosine_similarity(a.flatten().double(), b.flatten().double(), dim=0))
-
+    the gradients by ``hold_gradients``'s group rule; returns the readings."""
     rel = abs(first_loss - loss_one) / abs(loss_one)
-    if grads_tp.keys() != grads_one.keys():
-        raise AssertionError(f"tensor parallel {label}: gradient leaves differ")
-    cos = {p: cosine(grads_tp[p], grads_one[p]) for p in sorted(grads_one)}
-    groups = {}
-    for p in cos:
-        groups.setdefault(p.rsplit("/", 1)[-1], []).append(p)
-    group_cos = {k: cosine(torch.cat([grads_tp[p].flatten() for p in ps]),
-                           torch.cat([grads_one[p].flatten() for p in ps]))
-                 for k, ps in groups.items()}
-    below = {p: c for p, c in cos.items() if not c >= COS_MIN}
-    row = {"first_loss_ranks": first_loss, "first_loss_one_process": loss_one,
-           "first_loss_rel_diff": rel, "grad_leaves": len(cos),
-           "min_grad_cosine": min(cos.values()), "min_grad_cosine_leaf": min(cos, key=cos.get),
-           "group_grad_cosine": group_cos, "leaves_below_cos_min": below}
     if not rel <= LOSS_REL:
         raise AssertionError(f"tensor parallel {label}: first loss {first_loss} vs one "
                              f"process {loss_one}")
-    if below and not (min(below.values()) >= TP_LEAF_COS_FLOOR
-                      and min(group_cos.values()) >= COS_MIN):
-        raise AssertionError(f"tensor parallel {label}: gradient cosines {below}, by group "
-                             f"{group_cos}")
-    return row
+    versus, _ = hold_gradients(f"tensor parallel {label}", grads_tp, grads_one, below="group")
+    return {"first_loss_ranks": first_loss, "first_loss_one_process": loss_one,
+            "first_loss_rel_diff": rel, **versus}
 
 
 def _tp_one_process_stage2(root):
@@ -4398,24 +4457,36 @@ def phase_tensor_parallel():
 
 # ---------------------------------------------------------------------------- phase 22
 
-FSDP_LAYERS_SHARING = 6   # Gemma3-4B's 34 layers cut to one period of the sliding
-                          # pattern (5 sliding, 1 full) when the ranks share one card
+FSDP_LAYERS_SHARING = 2   # Gemma3-4B's 34 layers cut to 2 (both sliding) when the
+                          # ranks share one card (run time: the script's 1200 s)
+FSDP_TOWER_LAYERS_SHARING = 2  # and the ViT-L tower's 24 layers
 FSDP_SAMPLES = 4          # an epoch: 2 micro-steps of batch 1 on each of 2 ranks (cut
                           # from 4 for run time: the script's 1200 s)
 FSDP_TIMEOUT_S = 900      # the launch: kernels loaded, the model built in each rank
-FSDP_STAGE0_STEPS = 4
 FSDP_DISK_BYTES = 40e9    # beyond this phase 22's files go to /dev/shm first
 
 
-def fsdp_model(layers):
+def fsdp_config(layers):
     """BASELINE config #4's VLM (ViT-L/16-384, projector 1024 -> 10240 -> 2560, Gemma3-4B)
-    at full width with ``layers`` decoder layers, from the seed: the towers bf16 (the
-    decoder drawn layer after layer), the projector fp32."""
+    at full width with ``layers`` decoder layers; below the full 34 (ranks sharing one
+    card) the tower is cut to FSDP_TOWER_LAYERS_SHARING of its 24 layers too."""
+    from projectiontrainer_tpu_torch.models import vlm
+
+    cfg = vlm.full_joint_4b_config(num_layers=layers)
+    if layers < 34:
+        cfg = dataclasses.replace(cfg, vision=dataclasses.replace(
+            cfg.vision, num_layers=FSDP_TOWER_LAYERS_SHARING))
+    return cfg
+
+
+def fsdp_model(layers):
+    """``fsdp_config(layers)``'s VLM from the seed: the towers bf16 (the decoder drawn
+    layer after layer), the projector fp32."""
     import torch
 
     from projectiontrainer_tpu_torch.models import vlm
 
-    cfg = vlm.full_joint_4b_config(num_layers=layers)
+    cfg = fsdp_config(layers)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     return cfg, vlm.init(gen, cfg, device="cuda", tower_dtype=torch.bfloat16,
                          projector_dtype=torch.float32)
@@ -4431,8 +4502,7 @@ def _fsdp_scratch_root(layers):
     from projectiontrainer_tpu_torch.core.pytree import unique_leaves_with_paths
     from projectiontrainer_tpu_torch.models import vlm
 
-    shapes = vlm.init(torch.Generator(), vlm.full_joint_4b_config(num_layers=layers),
-                      device="meta")
+    shapes = vlm.init(torch.Generator(), fsdp_config(layers), device="meta")
     need = 24 * sum(x.numel() for _, x in unique_leaves_with_paths(shapes))
     order = (tempfile.gettempdir(), "/dev/shm")
     for d in (order if need <= FSDP_DISK_BYTES else order[::-1]):
@@ -4723,62 +4793,17 @@ def _fsdp_one_process(layers, ranks, kernel_counters):
 
 
 def _fsdp_against_one_process(first_loss, grads_r, loss_one, grads_one, fp32):
-    """The ranks' first micro-step against one process: the loss within LOSS_REL; every
-    gathered gradient leaf at cosine >= COS_MIN, or below it at >= TP_LEAF_COS_FLOOR with
-    its group (the leaves of one name) at >= COS_MIN (phase 21's rule); the key-projection
-    biases (zero in exact arithmetic) by their noise, at most KEY_BIAS_NOISE x one
-    process's; the q/k RMSNorm scales by their distance to the plain fp32 gradient, at
-    most ROUNDING_GAP x one process's bf16 (phase 10's rule)."""
-    import torch
-
-    def sums(a, b):  # (a.b, a.a, b.b) in fp64 on the card: an fp32 sum over 671M drifts
-        a, b = a.to(DEVICE).flatten().double(), b.to(DEVICE).flatten().double()
-        return [float(a @ b), float(a @ a), float(b @ b)]
-
-    def cosine(s):
-        return s[0] / max((s[1] * s[2]) ** 0.5, 1e-300)
-
+    """The ranks' first micro-step against one process: the loss within LOSS_REL; the
+    gradients by ``hold_gradients``'s group rule, the q/k RMSNorm scales (``fp32`` holds
+    their plain fp32 gradients) by their distance (phase 10's rule)."""
     rel = abs(first_loss - loss_one) / abs(loss_one)
-    if grads_r.keys() != grads_one.keys():
-        raise AssertionError(f"fsdp: gradient leaves differ: {sorted(grads_r)[:4]} vs "
-                             f"{sorted(grads_one)[:4]}")
-    dots, gaps, key_bias = {}, {}, [0.0, 0.0]
-    for p in sorted(grads_one):
-        a, b = grads_r[p], grads_one[p]
-        if p.endswith("k_proj/bias"):
-            key_bias = [max(key_bias[0], float(a.norm())), max(key_bias[1], float(b.norm()))]
-        elif p in fp32:
-            f = fp32[p]
-            gaps[p] = float((a - f).norm()) / max(float((b - f).norm()), 1e-30)
-        else:
-            dots[p] = sums(a, b)
-    cos = {p: cosine(d) for p, d in dots.items()}
-    groups = {}
-    for p, d in dots.items():  # a group's cosine from its leaves' sums: no concatenation
-        g = groups.setdefault(p.rsplit("/", 1)[-1], [0.0, 0.0, 0.0])
-        for i in range(3):
-            g[i] += d[i]
-    group_cos = {k: cosine(g) for k, g in groups.items()}
-    below = {p: c for p, c in cos.items() if not c >= COS_MIN}
-    worst = min(cos, key=cos.get)
-    row = {"first_loss_ranks": first_loss, "first_loss_one_process": loss_one,
-           "first_loss_rel_diff": rel, "grad_leaves": len(cos),
-           "min_grad_cosine": cos[worst], "min_grad_cosine_leaf": worst,
-           "group_grad_cosine": group_cos, "leaves_below_cos_min": below,
-           "rounding_leaves_gap_ratio_max": max(gaps.values()) if gaps else None,
-           "rounding_leaves": len(gaps), "key_bias_grad_norm_max_ranks_one": key_bias,
-           "table_grad_cosine": cos.get("llm/embed_tokens/embedding")}
     if not rel <= LOSS_REL:
         raise AssertionError(f"fsdp: first loss {first_loss} vs one process {loss_one}")
-    if below and not (min(below.values()) >= TP_LEAF_COS_FLOOR
-                      and min(group_cos.values()) >= COS_MIN):
-        raise AssertionError(f"fsdp: gradient cosines {below}, by group {group_cos}")
-    if gaps and not max(gaps.values()) <= ROUNDING_GAP:
-        raise AssertionError(f"fsdp: q/k norm scales' distance to fp32 {gaps} > "
-                             f"{ROUNDING_GAP} x one process's")
-    if not key_bias[0] <= KEY_BIAS_NOISE * key_bias[1]:
-        raise AssertionError(f"fsdp: key-projection bias gradient norm {key_bias}")
-    return row
+    versus, cos = hold_gradients("fsdp", grads_r, grads_one, lambda paths: fp32,
+                                 below="group", by_distance=fp32.__contains__)
+    return {"first_loss_ranks": first_loss, "first_loss_one_process": loss_one,
+            "first_loss_rel_diff": rel, **versus,
+            "table_grad_cosine": cos.get("llm/embed_tokens/embedding")}
 
 
 def _fsdp_world():
@@ -4796,7 +4821,7 @@ def _fsdp_world():
 
 def phase_fsdp():
     """Phase 22: --fsdp over BASELINE config #4 (Gemma3-4B full-joint stage 2) through
-    the launcher, then stage 0 with --fsdp; see the module's docstring."""
+    the launcher; see the module's docstring."""
     import torch
 
     ranks, backend, why, sharing, layers = _fsdp_world()
@@ -4809,8 +4834,10 @@ def phase_fsdp():
         return {}
     label = ("ranks sharing one card, a sharing figure, not a scaling one" if sharing
              else f"{ranks} ranks, one card each")
-    cut = (f"Gemma3-4B's 34 decoder layers cut to {layers} (one period of the sliding "
-           "pattern: 5 sliding, 1 full)" if layers < 34 else "the full 34 decoder layers")
+    cut = (f"Gemma3-4B's 34 decoder layers cut to {layers} (sliding only), the ViT-L "
+           f"tower's 24 to "
+           f"{FSDP_TOWER_LAYERS_SHARING}" if layers < 34
+           else "the full 34 decoder layers and 24 tower layers")
     print(f"fsdp: {ranks} data ranks over {backend}: {why}; {cut} ({smi})", flush=True)
     root = _fsdp_scratch_root(layers)
     kernel_counters = counters()
@@ -4918,60 +4945,678 @@ def phase_fsdp():
         launches = {"stage2_fsdp_rank0": dumps[0]["launches"],
                     "stage2_fsdp_micro_step": dumps[0]["launches_first"]}
 
-        # (c) stage 0 with --fsdp: phase 20 (c)'s cut dual tower
-        n0 = DP_STAGE0_BATCH * ranks * FSDP_STAGE0_STEPS
-        feed = write_cxr_sources(root, n0 + 16, 1024, SEED + 3000)
-        with open(os.path.join(root, "stage0.json"), "w") as f:
-            json.dump(feed, f)
-        out0 = os.path.join(root, "stage0")
-        flags0 = ["--image_root", root, "--train_json", os.path.join(root, "stage0.json"),
-                  "--output_dir", out0, "--model_name", "seeded", "--img_size", "512",
-                  "--batch_size", str(DP_STAGE0_BATCH), "--num_epochs", "1",
-                  "--val_split", str(16 / (n0 + 16)), "--max_text_len", "64",
-                  "--logging_steps", "1", "--num_workers", "4", "--disable_wandb",
-                  "--seed", str(SEED), "--min_save_epoch", "0", "--local_negatives",
-                  "--mesh_data", str(ranks), "--fsdp"]
-        gc_cuda()
-        rc, logs, wall0 = _dp_launch("dp_stage0_rank", root, flags0, ranks, backend)
-        if rc != 0:
-            raise AssertionError(f"fsdp: the stage-0 launch exited {rc}:\n{logs[-6000:]}")
-        dumps0 = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
-                  for r in range(ranks)]
-        for d in dumps0:
-            if len(d["losses"]) != FSDP_STAGE0_STEPS or not np.isfinite(d["losses"]).all():
-                raise AssertionError(f"fsdp stage 0: rank {d['rank']} losses {d['losses']}")
-            if not all(d["launches"][n] for n in STAGE0_KERNELS) or not d["data_sharded"]:
-                raise AssertionError(f"fsdp stage 0: rank {d['rank']}: launches "
-                                     f"{d['launches']}, {d['data_sharded']} data shards")
-        if any(d["losses"] != dumps0[0]["losses"] for d in dumps0):
-            raise AssertionError(f"fsdp stage 0: the ranks logged different losses: "
-                                 f"{[d['losses'] for d in dumps0]}")
-        if len({d["trained_sha256"] for d in dumps0}) != 1:
-            raise AssertionError("fsdp stage 0: the replicated leaves differ across ranks")
-        saved = torch.load(os.path.join(out0, "checkpoints", "final.pt"), map_location="cpu",
-                           weights_only=True, mmap=True)["params"]
-        _, whole0 = _stage0_dp_model()
-        from projectiontrainer_tpu_torch.core.pytree import unique_leaves_with_paths
-
-        whole0 = {p: tuple(x.shape) for p, x in unique_leaves_with_paths(whole0)}
-        if not saved or any(tuple(x.shape) != whole0[p] for p, x in saved.items()):
-            raise AssertionError("fsdp stage 0: the checkpoint does not hold whole leaves")
-        del saved
-        gc_cuda()
-        print(f"fsdp stage 0 ({label}; {smi}): losses {dumps0[0]['losses']}, images/s per "
-              f"rank {[d['result'].get('images_per_sec') for d in dumps0]}", flush=True)
-        emit({"phase": 22, "part": "stage0", "label": label, "nvidia_smi": smi,
-              "launch_wall_s": wall0, "losses": dumps0[0]["losses"],
-              "data_sharded_leaves": dumps0[0]["data_sharded"],
-              "images_per_sec_per_rank": [d["result"].get("images_per_sec") for d in dumps0],
-              "launches_per_rank": [d["launches"] for d in dumps0],
-              "checkpoint_loads_whole": True,
-              "cut": f"so400m towers cut to {DP_STAGE0_LAYERS} of 27 layers each (run time), "
-                     f"{FSDP_STAGE0_STEPS} steps at {DP_STAGE0_BATCH} a rank"})
-        launches["stage0_fsdp_rank0"] = dumps0[0]["launches"]
         return launches
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------- phase 23
+
+TT_RANKS = 2               # the model axis of phase 23
+TT_STAGE0_BATCH = 16       # a replica's rows, at 512 px (phase 7's batch)
+TT_STAGE0_STEPS = 3       # (run time; the script's 1200 s)
+TT_FSDP_BATCH = 8          # (b): a data rank's rows
+TT_FSDP_STEPS = 2
+TT_CLS_BATCH = 32          # (c): run_cls_experiments.sh's batch, at 384 px
+TT_CLS_STEPS = 2           # an epoch: 2 steps of 32 (run time; a real epoch is the corpus)
+TT_TIMEOUT_S = 420         # each launch: kernels loaded, the model built in each rank
+
+
+def tt_stage0_config(layers=None):
+    """Phase 7's so400m dual tower config, ``layers`` layers a tower (None: all 27)."""
+    from projectiontrainer_tpu_torch.models import siglip
+
+    vision, text = siglip.so400m_16_512(), siglip.so400m_text()
+    if layers is not None:
+        vision, text = (dataclasses.replace(t, num_layers=layers) for t in (vision, text))
+    return siglip.SiglipConfig(vision=vision, text=text)
+
+
+def tp_towers_stage0_model(layers=None):
+    """The dual tower of ``tt_stage0_config(layers)``, whole, from the seed (the weights
+    of ``stage0_model`` and ``_stage0_dp_model``: fp32 vision, bf16 text)."""
+    import torch
+
+    from projectiontrainer_tpu_torch.models import siglip
+
+    cfg = tt_stage0_config(layers)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    return cfg, siglip.init(gen, cfg, device=DEVICE, vision_dtype=torch.float32,
+                            text_dtype=torch.bfloat16)
+
+
+def tt_cls_vision_config():
+    """The probe's tower: XraySigLIP's ViT-L/16-384."""
+    from projectiontrainer_tpu_torch.models import siglip
+
+    return siglip.vit_l_16_384()
+
+
+def tp_towers_predicted(n_vision, n_text=None, *, tower_trains=True):
+    """The model-axis collectives of one train step, read off the code: every encoder
+    layer all-reduces after out_proj and fc2 in the forward (``tp.row_linear``) and after
+    the gradients of its two column-parallel blocks' input in the backward
+    (``tp.copy_to_model``); the MAP head's MLP (stage 0 runs it) once each way, the
+    frozen text tower's layers and vocab-sharded lookup in the forward only; the step
+    sums the partial gradients once and the grad norm's squares once (``grads``; with the
+    tower frozen there is no partial gradient to sum, only the norm's)."""
+    stage0 = n_text is not None
+    fwd = 2 * n_vision + (2 + 2 * n_text if stage0 else 0)
+    bwd = 2 * n_vision + stage0 if tower_trains else 0
+    return {"forward": fwd, "backward": bwd, "recompute": 0,
+            "grads": 2 if tower_trains else 1}
+
+
+class TowerSamples(ContrastiveSamples):
+    """Phase 7's in-memory stage-0 samples with the dataset's ``class_names``."""
+
+    class_names = ["pneumonia", "edema", "cardiomegaly", "no finding"]
+
+
+def _tt_stage0_samples(n, cfg):
+    """``n`` in-memory stage-0 samples for ``cfg``, seeded by ``n`` (the training and
+    validation sets differ)."""
+    return TowerSamples(n, SEED + 40 + n, size=cfg.vision.image_size, vocab=cfg.text.vocab_size,
+                        text_len=cfg.text.max_position_embeddings)
+
+
+def _tt_stage0_data(datasets_mod, n_train, cfg):
+    """The stage-0 CLI's manifest, split and dataset as in-memory samples; no validation
+    set (run time: the zero-shot validation's checkpoint and HF export would cost ~25 s;
+    ``tests/test_torch_tp_towers.py`` holds it under the model axis)."""
+    datasets_mod.load_manifest = lambda path: [{"i": i} for i in range(n_train)]
+    datasets_mod.train_val_split = lambda s, *_, **__: (s, [])
+    datasets_mod.ContrastiveDataset = lambda s, **_: _tt_stage0_samples(len(s), cfg)
+
+
+def _tt_cls_data(datasets_mod, n_train, n_val, size, n_classes):
+    datasets_mod.load_manifest = lambda path: [{"i": i} for i in range(n_train + n_val)]
+    datasets_mod.stratified_split = lambda s, **_: (s[:n_train], s[n_train:])
+    datasets_mod.ClassificationDataset = lambda s, **_: ClsSamples(
+        len(s), SEED + 50 + len(s), size=size, n_classes=n_classes)
+
+
+def tp_cls_vision():
+    """The probe's tower (``tt_cls_vision_config``, with its MAP head) from the seed,
+    fp32; the CLI builds the classifier's head around it from ``--seed``."""
+    import torch
+
+    from projectiontrainer_tpu_torch.models import siglip
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 23)
+    cfg = tt_cls_vision_config()
+    return cfg, siglip.init_vision(gen, cfg, torch.float32, DEVICE, head=True)
+
+
+def _tt_record(record, cfg_of, plan_of):
+    """Wrap the train step and the optimizer's update: each step's loss, its model-axis
+    collectives and the hash of every leaf the model axis leaves whole after it; the
+    first step's gradients whole (after the model-axis sum of the partial ones)."""
+    from projectiontrainer_tpu_torch.core.pytree import unique_leaves_with_paths
+    from projectiontrainer_tpu_torch.parallel import tensor_parallel as tp
+    from projectiontrainer_tpu_torch.train import optim, steps
+
+    make, update = steps.make_train_step, optim.MaskedAdamW.update
+
+    def recording(*a, **kw):
+        step = make(*a, **kw)
+
+        def wrapped(state, batch, rng=None):
+            before = dict(tp.COUNTS)
+            out = step(state, batch, rng)
+            record["losses"].append(float(out[1]))
+            record["counts_by_step"].append({k: tp.COUNTS[k] - before[k] for k in before})
+            sharded = plan_of().sharded
+            record["whole_sha_by_step"].append(_sha(
+                [(p, x) for p, x in unique_leaves_with_paths(state["params"])
+                 if p not in sharded]))
+            return out
+
+        return wrapped
+
+    def capturing(self, grads, state, params):
+        if record["first_grads"] is None and record.get("want_grads"):
+            record["first_grads"] = {p: _tp_whole(p, g, cfg_of()).float().cpu()
+                                     for p, g in grads.items()}
+        return update(self, grads, state, params)
+
+    steps.make_train_step = recording
+    optim.MaskedAdamW.update = capturing
+    return make, update
+
+
+def _tt_new_record(want_grads=False):
+    return {"losses": [], "counts_by_step": [], "whole_sha_by_step": [], "first_grads": None,
+            "want_grads": want_grads}
+
+
+def _tt_flags(argv):
+    """(this rank's options of phase 23: ``--layers`` a tower, None for all, and
+    ``--train_samples``; the CLI's flags)."""
+    import argparse
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--layers", type=int, default=None)
+    parser.add_argument("--train_samples", type=int, required=True)
+    return parser.parse_known_args(argv)
+
+
+def tp_towers_stage0_rank(argv):
+    """A rank of phase 23 (a) and (b): ``cli/train_stage0.main`` with --mesh_model 2
+    over the so400m dual tower built whole from the seed in the rank (``--layers`` a
+    tower) and sliced by the CLI (``sharding.model_shards``), on in-memory samples (the
+    manifest reader, the split and the dataset replaced)."""
+    import torch
+
+    from projectiontrainer_tpu_torch.cli import train_stage0
+    from projectiontrainer_tpu_torch.parallel import distributed
+    from projectiontrainer_tpu_torch.parallel import tensor_parallel as tp
+    from projectiontrainer_tpu_torch.train import common, setup
+
+    dump, rest, rank = _rank_entry(argv)
+    opts, flags = _tt_flags(rest)
+    built = {}
+
+    def load_siglip(*_, **__):
+        built["cfg"], params = tp_towers_stage0_model(opts.layers)
+        return built["cfg"], params
+
+    place = common.place_params
+
+    def placing(params, *a, **kw):
+        built["params"] = params
+        built["plan"] = place(params, *a, **kw)
+        return built["plan"]
+
+    train_stage0.hf_import.load_siglip = load_siglip
+    setup.load_tokenizer = lambda _: StubTokenizer()
+    common.place_params = placing
+    _tt_stage0_data(train_stage0.datasets, opts.train_samples, tt_stage0_config(opts.layers))
+    record = _tt_new_record(want_grads=opts.layers is None)  # (a) compares gradients
+    _tt_record(record, lambda: built["cfg"], lambda: built["plan"])
+    kernel_counters = counters()
+    for c in kernel_counters.values():
+        c.reset()
+    tp.reset_counts()
+    t0 = time.perf_counter()
+    result = train_stage0.main(flags)
+    torch.cuda.synchronize()
+    torch.save({"rank": rank, "data_rank": distributed.data_rank(), "losses": record["losses"],
+                "result": result, "wall_s": time.perf_counter() - t0,
+                "launches": {n: c.value for n, c in kernel_counters.items()},
+                "counts_by_step": record["counts_by_step"], "counts_total": dict(tp.COUNTS),
+                "whole_sha_by_step": record["whole_sha_by_step"],
+                "sharded_leaves": len(built["plan"].sharded),
+                "data_sharded_leaves": len(built["plan"].data_sharded),
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                "first_grads": record["first_grads"] if rank == 0 else None},
+               os.path.join(dump, f"rank{rank}.pt"))
+    return result
+
+
+def tp_towers_cls_rank(argv):
+    """A rank of phase 23 (c): ``cli/cls_train.main`` with --mesh_model 2 over the ViT-L
+    tower from the seed (``tp_cls_vision``; the CLI builds the head and slices the
+    classifier), on in-memory samples; the classifier's initial evaluation is run first,
+    and every evaluation's gathered logits recorded."""
+    import torch
+
+    from projectiontrainer_tpu_torch.cli import cls_train
+    from projectiontrainer_tpu_torch.parallel import tensor_parallel as tp
+    from projectiontrainer_tpu_torch.train import common, trainer_cls
+
+    dump, flags, rank = _rank_entry(argv)
+    built = {}
+    cls_train.hf_import.load_siglip_vision = lambda *_, **__: tp_cls_vision()
+    n_classes = len(CLS_CLASSES.split(","))
+    _tt_cls_data(cls_train.datasets, TT_CLS_BATCH * TT_CLS_STEPS, TT_CLS_BATCH,
+                 tt_cls_vision_config().image_size, n_classes)
+    place = common.place_params
+
+    def placing(params, model_cfg, *a, **kw):
+        built["cfg"] = model_cfg
+        built["plan"] = place(params, model_cfg, *a, **kw)
+        return built["plan"]
+
+    common.place_params = placing
+    evaluations = []
+    metrics = trainer_cls.classification_metrics
+
+    def capture(logits, targets, **kw):
+        evaluations.append((np.asarray(logits), np.asarray(targets)))
+        return metrics(logits, targets, **kw)
+
+    trainer_cls.classification_metrics = capture
+    train = trainer_cls.ClsTrainer.train
+
+    def train_after_a_first_evaluation(self):
+        self.evaluate()
+        return train(self)
+
+    trainer_cls.ClsTrainer.train = train_after_a_first_evaluation
+    record = _tt_new_record()
+    _tt_record(record, lambda: built["cfg"], lambda: built["plan"])
+    kernel_counters = counters()
+    for c in kernel_counters.values():
+        c.reset()
+    tp.reset_counts()
+    t0 = time.perf_counter()
+    result = cls_train.main(flags)
+    torch.cuda.synchronize()
+    torch.save({"rank": rank, "losses": record["losses"], "result": result,
+                "wall_s": time.perf_counter() - t0,
+                "launches": {n: c.value for n, c in kernel_counters.items()},
+                "counts_by_step": record["counts_by_step"], "counts_total": dict(tp.COUNTS),
+                "whole_sha_by_step": record["whole_sha_by_step"],
+                "sharded_leaves": len(built["plan"].sharded), "evaluations": evaluations,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30},
+               os.path.join(dump, f"rank{rank}.pt"))
+    return result
+
+
+def _tt_check(label, dumps, kernels, steps, predicted, model=TT_RANKS):
+    """Every rank: ``steps`` finite losses, bit-equal across the ranks; each step's
+    model-axis collectives as predicted (``predicted(step)``); the leaves the model axis
+    leaves whole hash equal across the model ranks of a replica after every step; each
+    kernel of the path launched."""
+    for d in dumps:
+        if len(d["losses"]) != steps or not np.isfinite(d["losses"]).all():
+            raise AssertionError(f"{label}: rank {d['rank']} losses {d['losses']}")
+        if not all(d["launches"][n] for n in kernels):
+            raise AssertionError(f"{label}: rank {d['rank']} never launched a kernel of the "
+                                 f"path: {d['launches']}")
+        want = [predicted(i) for i in range(steps)]
+        if d["counts_by_step"] != want:
+            raise AssertionError(f"{label}: rank {d['rank']} model-axis collectives "
+                                 f"{d['counts_by_step']}, predicted {want}")
+        first = dumps[d["rank"] - d["rank"] % model]
+        if d["whole_sha_by_step"] != first["whole_sha_by_step"]:
+            raise AssertionError(f"{label}: rank {d['rank']}'s whole leaves differ from rank "
+                                 f"{first['rank']}'s after some step")
+    if any(d["losses"] != dumps[0]["losses"] for d in dumps):
+        raise AssertionError(f"{label}: the ranks logged different losses: "
+                             f"{[d['losses'] for d in dumps]}")
+
+
+def _tt_stage0_one_process(flags, layers, n_train, global_rows):
+    """The first step of phase 23's stage-0 recipe in this process on the whole model
+    over the ranks' ``n_train`` samples: (loss, every trainable gradient, a function of
+    paths giving their fp32 plain-path gradients on the same batch), ``global_rows`` the
+    rank-ordered indices of the first global batch."""
+    import torch
+
+    from projectiontrainer_tpu_torch.core.config import Stage0Config, from_args, parser_for
+    from projectiontrainer_tpu_torch.core.pytree import leaves_with_paths
+    from projectiontrainer_tpu_torch.train import steps
+    from projectiontrainer_tpu_torch.train.trainer_stage0 import Stage0Trainer
+
+    cfg, params = tp_towers_stage0_model(layers)
+    train = _tt_stage0_samples(n_train, cfg)
+    out = tempfile.mkdtemp(prefix="chip_smoke_tt_one_")
+    record = _tt_new_record(want_grads=True)
+    originals = None
+    try:
+        tcfg = from_args(Stage0Config, parser_for(Stage0Config, "").parse_args(flags))
+        tcfg.device, tcfg.output_dir = DEVICE, out
+        tcfg.mesh_data, tcfg.mesh_model = 1, 1
+        trainer = Stage0Trainer(tcfg, model_cfg=cfg, params=params, tokenizer=StubTokenizer(),
+                                train_dataset=train, val_dataset=None)
+        rows = [train[int(i)] for i in global_rows]
+        batch = {k: torch.tensor(np.stack([r[k] for r in rows]), device=DEVICE)
+                 for k in ("pixel_values", "input_ids", "valid")}
+        batch["sample_weight"] = torch.ones((len(rows),), device=DEVICE)
+        originals = _tt_record(record, lambda: cfg, lambda: trainer.plan)
+        # the masters before the update: the fp32 pass below differentiates these
+        masters = {p: x.detach().clone() for p, x in leaves_with_paths(params)
+                   if x.is_floating_point()}
+        _, loss, _ = trainer.train_step(trainer.state, batch)
+        torch.cuda.synchronize()
+        loss = float(loss)
+        del trainer
+    finally:
+        if originals is not None:
+            from projectiontrainer_tpu_torch.train import optim, steps as steps_mod
+
+            steps_mod.make_train_step, optim.MaskedAdamW.update = originals
+        shutil.rmtree(out, ignore_errors=True)
+    grads = record["first_grads"]
+
+    def fp32_of(paths):
+        """The gradients at ``paths`` on the plain fp32 path (the masters as the step
+        read them)."""
+        whole = {p: x for p, x in leaves_with_paths(params)}
+        with torch.no_grad():
+            for p, x in masters.items():
+                whole[p].copy_(x)
+        for p, x in whole.items():
+            if x.is_floating_point():
+                x.requires_grad_(p in paths)
+        loss32, _ = steps.stage0_loss(plain_config(cfg), compute_dtype=torch.float32)(
+            params, batch)
+        out_grads = torch.autograd.grad(loss32, [whole[p] for p in paths])
+        return {p: g.detach().float().cpu() for p, g in zip(paths, out_grads)}
+
+    return loss, grads, fp32_of
+
+
+def _tt_whole_checkpoint(label, out, layers):
+    """The final checkpoint the ranks wrote holds every trained leaf whole (memory-mapped:
+    the shapes only), the MAP head's sharded MLP among them."""
+    import torch
+
+    from projectiontrainer_tpu_torch.core.pytree import unique_leaves_with_paths
+    from projectiontrainer_tpu_torch.models import siglip
+
+    shapes = {p: tuple(x.shape) for p, x in unique_leaves_with_paths(
+        siglip.init(torch.Generator(), tt_stage0_config(layers), device="meta"))}
+    saved = torch.load(os.path.join(out, "checkpoints", "final.pt"), map_location="cpu",
+                       weights_only=True, mmap=True)["params"]
+    if (not saved or "vision/head/mlp/fc1/weight" not in saved
+            or any(tuple(x.shape) != shapes[p] for p, x in saved.items())):
+        raise AssertionError(f"{label}: the final checkpoint does not hold whole leaves")
+
+
+def _tt_stage0_flags(root, out, cfg, *, batch, data, fsdp):
+    """The stage-0 CLI's flags of phase 23: one epoch, no validation, the final
+    checkpoint (no periodic one: ``--min_save_epoch`` stays 1); the mesh flags last."""
+    flags = ["--image_root", root, "--train_json", os.path.join(root, "s0.json"),
+             "--output_dir", out, "--model_name", "seeded", "--img_size",
+             str(cfg.vision.image_size), "--batch_size", str(batch), "--num_epochs", "1",
+             "--val_split", "0", "--max_text_len", str(cfg.text.max_position_embeddings),
+             "--logging_steps", "1", "--num_workers", "4",
+             "--disable_wandb", "--seed", str(SEED),
+             "--mesh_data", str(data), "--mesh_model", str(TT_RANKS)]
+    if fsdp:
+        flags += ["--fsdp", "--no-local_negatives"]
+    return flags
+
+
+def _first_global_rows(n, batch, data):
+    """The sample indices of the first global batch, data rank by data rank (each data
+    rank's first ``batch`` of its round-robin shard, ``data/pipeline.py``)."""
+    from projectiontrainer_tpu_torch.data import pipeline
+
+    return np.concatenate([pipeline.host_shard_indices(n, epoch=0, seed=SEED, process_index=d,
+                                                       process_count=data)[:batch]
+                           for d in range(data)])
+
+
+def _tt_fsdp_world():
+    """(ranks, backend, why, sharing) for phase 23 (b)'s 2 x 2 mesh: one NCCL rank a card
+    on 4 cards or more; else 4 gloo ranks sharing the cards (a rank on card LOCAL_RANK
+    modulo the cards); none where a card admits one process only."""
+    import torch
+
+    n, ranks = torch.cuda.device_count(), 2 * TT_RANKS
+    if n >= ranks:
+        return ranks, "nccl", f"{n} cards: one NCCL rank on each of {ranks}", False
+    modes = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                           capture_output=True, text=True, timeout=60).stdout.split()
+    if "Exclusive_Process" in modes:
+        return 0, "nccl", (f"{n} card(s) in Exclusive_Process mode: {ranks} ranks need "
+                           f"{ranks} cards"), False
+    return ranks, "gloo", (f"{n} card(s): {ranks} gloo ranks share them (NCCL refuses two "
+                           "ranks on one GPU)"), True
+
+
+def _tt_stage0_fsdp(root, smi):
+    """Phase 23 (b): stage 0 at 2 x 2 with --fsdp and global negatives on the cut towers;
+    rank 0's launches, or None where 4 ranks cannot run (``_tt_fsdp_world``)."""
+    import torch
+
+    ranks, backend, why, sharing = _tt_fsdp_world()
+    if ranks < 2 * TT_RANKS:
+        print(f"tensor parallel towers: (b) NOT RUN: {why}", flush=True)
+        emit({"phase": 23, "part": "stage0_2x2_fsdp", "ran": False, "why": why})
+        return None
+    label = ("ranks sharing cards, a sharing figure, not a scaling one" if sharing
+             else f"{ranks} ranks, one card each")
+    print(f"tensor parallel towers (b): {ranks} ranks over {backend}: {why}", flush=True)
+    out = os.path.join(root, "stage0_fsdp")
+    cut = tt_stage0_config(DP_STAGE0_LAYERS)
+    flags = _tt_stage0_flags(root, out, cut, batch=TT_FSDP_BATCH, data=2, fsdp=True)
+    n_train = 2 * TT_FSDP_BATCH * TT_FSDP_STEPS
+    gc_cuda()
+    rc, logs, wall = _dp_launch(
+        "tp_towers_stage0_rank", root,
+        ["--layers", str(DP_STAGE0_LAYERS), "--train_samples", str(n_train)] + flags, ranks,
+        backend, TT_TIMEOUT_S)
+    if rc != 0:
+        raise AssertionError(f"tensor parallel towers: the 2 x 2 --fsdp launch exited "
+                             f"{rc}:\n{logs[-6000:]}")
+    dumps = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+             for r in range(ranks)]
+    predicted = tp_towers_predicted(DP_STAGE0_LAYERS, DP_STAGE0_LAYERS)
+    _tt_check("tensor parallel stage 0 --fsdp", dumps, STAGE0_KERNELS, TT_FSDP_STEPS,
+              lambda i: predicted)
+    if not all(d["data_sharded_leaves"] for d in dumps):
+        raise AssertionError("tensor parallel stage 0 --fsdp: no data shard")
+    _tt_whole_checkpoint("tensor parallel stage 0 --fsdp", out, DP_STAGE0_LAYERS)
+    for d in dumps:
+        d.pop("first_grads", None)
+    gc_cuda()
+    # global negatives over the data axis only: the first loss is the one-process loss of
+    # the whole global batch (gathered over the world, the model ranks' texts would count
+    # twice)
+    loss_one, grads_one, _ = _tt_stage0_one_process(
+        flags[:flags.index("--mesh_data")] + ["--no-local_negatives"], DP_STAGE0_LAYERS,
+        n_train, _first_global_rows(n_train, TT_FSDP_BATCH, 2))
+    del grads_one
+    gc_cuda()
+    rel = abs(dumps[0]["losses"][0] - loss_one) / abs(loss_one)
+    if not rel <= LOSS_REL:
+        raise AssertionError(f"tensor parallel stage 0 --fsdp: first loss "
+                             f"{dumps[0]['losses'][0]} vs one process {loss_one}")
+    print(f"tensor parallel stage 0 2 x 2 --fsdp ({label}; {smi}): losses "
+          f"{dumps[0]['losses']}, first loss {rel:.2e} from one process", flush=True)
+    emit({"phase": 23, "part": "stage0_2x2_fsdp",
+          "world": {"ranks": ranks, "backend": backend, "why": why, "sharing_cards": sharing},
+          "label": label, "nvidia_smi": smi, "launch_wall_s": wall,
+          "losses": dumps[0]["losses"], "first_loss_one_process": loss_one,
+          "first_loss_rel_diff": rel,
+          "model_axis_collectives_per_step": dumps[0]["counts_by_step"],
+          "predicted_per_step": predicted,
+          "data_sharded_leaves": dumps[0]["data_sharded_leaves"],
+          "whole_leaves_bit_equal_every_step": True, "checkpoint_loads_whole": True,
+          "images_per_sec_per_rank": [d["result"].get("images_per_sec") for d in dumps],
+          "step_time_ms_per_rank": [d["result"].get("step_time_ms") for d in dumps],
+          "launches_per_rank": [d["launches"] for d in dumps],
+          "cut": f"so400m towers cut to {DP_STAGE0_LAYERS} of 27 layers each (run time), "
+                 f"{TT_FSDP_STEPS} steps at {TT_FSDP_BATCH} a data rank"})
+    return dumps[0]["launches"]
+
+
+def phase_tp_towers():
+    """Phase 23: stage 0 and the cls probe over the model axis through the launcher;
+    see the module's docstring."""
+    import torch
+    import torch.nn.functional as F
+
+    ranks, backend, why, sharing = _dp_world("tensor parallel towers")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+    world = {"ranks": ranks, "backend": backend, "why": why, "sharing_one_card": sharing}
+    if ranks < TT_RANKS:
+        print(f"tensor parallel towers: NOT RUN: {why}", flush=True)
+        emit({"phase": 23, "ran": False, "why": why, "nvidia_smi": smi})
+        return {}
+    label = ("ranks sharing one card, a sharing figure, not a scaling one" if sharing
+             else f"{ranks} ranks, one card each")
+    root = tempfile.mkdtemp(prefix="chip_smoke_tt_")
+    launches = {}
+    try:
+        # (a) stage 0 at 1 x 2, so400m at full width and depth
+        out = os.path.join(root, "stage0")
+        cfg = tt_stage0_config()
+        flags = _tt_stage0_flags(root, out, cfg, batch=TT_STAGE0_BATCH, data=1, fsdp=False)
+        # the last step profiled on rank 0: the kernel time by span (tp_allreduce apart)
+        flags += ["--profile_dir", os.path.join(out, "profile"), "--profile_start_step",
+                  str(TT_STAGE0_STEPS - 1), "--profile_num_steps", "1"]
+        gc_cuda()
+        rc, logs, wall = _dp_launch(
+            "tp_towers_stage0_rank", root,
+            ["--train_samples", str(TT_STAGE0_BATCH * TT_STAGE0_STEPS)] + flags, TT_RANKS,
+            backend, TT_TIMEOUT_S)
+        if rc != 0:
+            raise AssertionError(f"tensor parallel towers: the stage-0 launch exited {rc}:\n"
+                                 f"{logs[-6000:]}")
+        dumps = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+                 for r in range(TT_RANKS)]
+        predicted = tp_towers_predicted(cfg.vision.num_layers, cfg.text.num_layers)
+        _tt_check("tensor parallel stage 0", dumps, STAGE0_KERNELS, TT_STAGE0_STEPS,
+                  lambda i: predicted)
+        _tt_whole_checkpoint("tensor parallel stage 0", out, None)
+        split = _tp_split(out)
+        grads_tp = dumps[0]["first_grads"]
+        for d in dumps:
+            d.pop("first_grads", None)
+        gc_cuda()
+        n_train = TT_STAGE0_BATCH * TT_STAGE0_STEPS
+        loss_one, grads_one, fp32_of = _tt_stage0_one_process(
+            flags[:flags.index("--mesh_data")], None, n_train,
+            _first_global_rows(n_train, TT_STAGE0_BATCH, 1))
+        rel = abs(dumps[0]["losses"][0] - loss_one) / abs(loss_one)
+        versus, _ = hold_gradients("tensor parallel stage 0", grads_tp, grads_one, fp32_of)
+        del grads_tp, grads_one, fp32_of
+        gc_cuda()
+        if not rel <= LOSS_REL:
+            raise AssertionError(f"tensor parallel stage 0: first loss {dumps[0]['losses'][0]} "
+                                 f"vs one process {loss_one}")
+        print(f"tensor parallel stage 0 ({label}; {smi}): losses {dumps[0]['losses']}, first "
+              f"loss {rel:.2e} from one process, min gradient cosine "
+              f"{versus['min_grad_cosine']:.6f}; {predicted} model-axis collectives a step; "
+              f"step ms per rank {[d['result'].get('step_time_ms') for d in dumps]}",
+              flush=True)
+        emit({"phase": 23, "part": "stage0_1x2", "world": world, "label": label,
+              "nvidia_smi": smi, "launch_wall_s": wall, "losses": dumps[0]["losses"],
+              "first_loss_one_process": loss_one, "first_loss_rel_diff": rel, **versus,
+              "model_axis_collectives_per_step": dumps[0]["counts_by_step"],
+              "predicted_per_step": predicted, "counts_total": dumps[0]["counts_total"],
+              "whole_leaves_bit_equal_every_step": True, "checkpoint_loads_whole": True,
+              "images_per_sec_per_rank": [d["result"].get("images_per_sec") for d in dumps],
+              "step_time_ms_per_rank": [d["result"].get("step_time_ms") for d in dumps],
+              "kernel_ms_last_step_rank0": split,
+              "rank_wall_s": [d["wall_s"] for d in dumps],
+              "peak_gib_per_rank": [d["peak_gib"] for d in dumps],
+              "sharded_leaves": dumps[0]["sharded_leaves"],
+              "launches_per_rank": [d["launches"] for d in dumps],
+              "cut": f"full width and depth (27 + 27 layers); {TT_STAGE0_STEPS} steps at "
+                     f"{TT_STAGE0_BATCH} of random in-memory data, no validation (run "
+                     "time; a real run: the caption corpus, many epochs, zero-shot each)"})
+        launches["stage0_tp_rank0"] = dumps[0]["launches"]
+
+        # (b) stage 0 at 2 x 2 with --fsdp and global negatives, the cut towers
+        fsdp_launches = _tt_stage0_fsdp(root, smi)
+        if fsdp_launches is not None:
+            launches["stage0_fsdp_tp_rank0"] = fsdp_launches
+
+        # (c) the cls probe at 1 x 2, ViT-L/16-384 at full width and depth
+        out = os.path.join(root, "cls")
+        flags = ["--exp_id", "EXP1", "--class_names", CLS_CLASSES, "--freeze_mode",
+                 "1EpochUnfreeze", "--vision_model_name", "seeded", "--data_json",
+                 os.path.join(root, "cls.json"), "--image_root", root, "--output_base_dir",
+                 out, "--img_size", str(tt_cls_vision_config().image_size), "--batch_size",
+                 str(TT_CLS_BATCH), "--epochs", "2",
+                 "--num_workers", "4", "--seed", str(SEED), "--logging_steps", "1",
+                 "--mesh_data", "1", "--mesh_model", str(TT_RANKS)]
+        gc_cuda()
+        rc, logs, wall = _dp_launch("tp_towers_cls_rank", root, flags, TT_RANKS, backend,
+                                    TT_TIMEOUT_S)
+        if rc != 0:
+            raise AssertionError(f"tensor parallel towers: the cls launch exited {rc}:\n"
+                                 f"{logs[-6000:]}")
+        dumps = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+                 for r in range(TT_RANKS)]
+        n_layers = tt_cls_vision_config().num_layers
+        trains, frozen = (tp_towers_predicted(n_layers),
+                          tp_towers_predicted(n_layers, tower_trains=False))
+        _tt_check("tensor parallel cls", dumps, CLS_KERNELS, 2 * TT_CLS_STEPS,
+                  lambda i: trains if i < TT_CLS_STEPS else frozen)
+        evaluations = dumps[0]["evaluations"]
+        if len(evaluations) != 3 or any(lg.shape != (TT_CLS_BATCH, 4) for lg, _ in evaluations):
+            raise AssertionError(f"tensor parallel cls: evaluations "
+                                 f"{[lg.shape for lg, _ in evaluations]}")
+        with open(os.path.join(out, "EXP1", "results.tsv")) as f:
+            results = f.read().splitlines()
+        gc_cuda()
+        loss_one, logits_one, targets_one, auroc = _tt_cls_one_process(flags)
+        gc_cuda()
+        logits_tp, targets_tp = evaluations[0]
+        rel = abs(dumps[0]["losses"][0] - loss_one) / abs(loss_one)
+        cos = float(F.cosine_similarity(torch.tensor(logits_tp).flatten().double(),
+                                        torch.tensor(logits_one).flatten().double(), dim=0))
+        if not (rel <= LOSS_REL and cos >= COS_MIN
+                and np.array_equal(targets_tp, targets_one)):
+            raise AssertionError(f"tensor parallel cls: first loss {dumps[0]['losses'][0]} vs "
+                                 f"{loss_one}; initial evaluation logits cosine {cos}")
+        from projectiontrainer_tpu_torch.train import trainer_cls
+
+        auroc_tp = trainer_cls.classification_metrics(logits_tp, targets_tp)[2]
+        print(f"tensor parallel cls ({label}; {smi}): losses {dumps[0]['losses']}, first loss "
+              f"{rel:.2e} from one process, initial logits cosine {cos:.6f}, AUROC "
+              f"{auroc_tp:.4f} (one process {auroc:.4f}) over {len(targets_tp)} rows",
+              flush=True)
+        emit({"phase": 23, "part": "cls_1x2", "label": label, "nvidia_smi": smi,
+              "launch_wall_s": wall, "losses": dumps[0]["losses"],
+              "first_loss_one_process": loss_one, "first_loss_rel_diff": rel,
+              "initial_logits_cosine": cos, "auroc_initial_tp_one": [auroc_tp, auroc],
+              "evaluation_rows": [len(t) for _, t in evaluations], "results_tsv": results,
+              "model_axis_collectives_per_step": dumps[0]["counts_by_step"],
+              "predicted_per_step": [trains, frozen],
+              "whole_leaves_bit_equal_every_step": True,
+              "epochs_rank0": dumps[0]["result"]["epochs"],
+              "rank_wall_s": [d["wall_s"] for d in dumps],
+              "peak_gib_per_rank": [d["peak_gib"] for d in dumps],
+              "launches_per_rank": [d["launches"] for d in dumps],
+              "cut": f"full width and depth (24 layers); 2 epochs of {TT_CLS_STEPS} steps at "
+                     f"{TT_CLS_BATCH}, {TT_CLS_BATCH} validation samples (a real run: the CXR "
+                     "corpus, 10 epochs)"})
+        launches["cls_tp_rank0"] = dumps[0]["launches"]
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _tt_cls_one_process(flags):
+    """Phase 23 (c) in this process on the whole classifier: the first step's loss and
+    the initial evaluation's logits, targets and AUROC."""
+    import torch
+
+    from projectiontrainer_tpu_torch.core.config import ClsConfig, from_args, parser_for
+    from projectiontrainer_tpu_torch.models import classifier
+    from projectiontrainer_tpu_torch.train import common, trainer_cls
+
+    tcfg = from_args(ClsConfig, parser_for(ClsConfig, "").parse_args(
+        flags[:flags.index("--mesh_data")]))
+    vision_cfg, vision = tp_cls_vision()
+    model_cfg = classifier.ClassifierConfig(vision=vision_cfg, num_classes=4,
+                                            dropout_rate=tcfg.dropout_rate)
+    gen = torch.Generator(device=DEVICE).manual_seed(tcfg.seed)
+    params = classifier.init(gen, model_cfg, device=DEVICE, vision=vision)
+    out = tempfile.mkdtemp(prefix="chip_smoke_tt_cls_one_")
+    tcfg.output_base_dir, tcfg.device = out, DEVICE
+    seen = []
+    metrics = trainer_cls.classification_metrics
+    try:
+        trainer_cls.classification_metrics = lambda lg, t, **kw: (
+            seen.append((np.asarray(lg), np.asarray(t))) or metrics(lg, t, **kw))
+        size = vision_cfg.image_size
+        train = ClsSamples(TT_CLS_BATCH * TT_CLS_STEPS, SEED + 50 + TT_CLS_BATCH * TT_CLS_STEPS,
+                           size=size, n_classes=4)
+        val = ClsSamples(TT_CLS_BATCH, SEED + 50 + TT_CLS_BATCH, size=size, n_classes=4)
+        trainer = trainer_cls.ClsTrainer(tcfg, model_cfg=model_cfg, params=params,
+                                         train_dataset=train, val_dataset=val)
+        _, _, auroc = trainer.evaluate()
+        batch = next(iter(common.feed(train, tcfg, epoch=0)))
+        step_fn = trainer._steps[False][0]
+        _, loss, _ = step_fn(trainer.state, batch, 0)
+        torch.cuda.synchronize()
+        loss = float(loss)
+        del trainer
+    finally:
+        trainer_cls.classification_metrics = metrics
+        shutil.rmtree(out, ignore_errors=True)
+    return loss, seen[0][0], seen[0][1], auroc
 
 
 def main() -> int:
@@ -5072,10 +5717,17 @@ def main() -> int:
     gc_cuda()
     fsdp_runs = phase_fsdp()
     mark("22 fsdp")
-    for path, kernels in (("stage2_fsdp_rank0", STAGE2_KERNELS),
-                          ("stage0_fsdp_rank0", STAGE0_KERNELS)):
-        if path in fsdp_runs:
-            slice_launches[path] = {n: fsdp_runs[path][n] for n in kernels}
+    if "stage2_fsdp_rank0" in fsdp_runs:
+        slice_launches["stage2_fsdp_rank0"] = {n: fsdp_runs["stage2_fsdp_rank0"][n]
+                                               for n in STAGE2_KERNELS}
+    gc_cuda()
+    tt_runs = phase_tp_towers()
+    mark("23 tensor parallel towers")
+    for path, kernels in (("stage0_tp_rank0", STAGE0_KERNELS),
+                          ("stage0_fsdp_tp_rank0", STAGE0_KERNELS),
+                          ("cls_tp_rank0", CLS_KERNELS)):
+        if path in tt_runs:
+            slice_launches[path] = {n: tt_runs[path][n] for n in kernels}
 
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():

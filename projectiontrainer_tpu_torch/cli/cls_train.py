@@ -1,4 +1,5 @@
-"""cls_evaluate training entry: attention-probe classifier experiments, data parallel.
+"""cls_evaluate training entry: attention-probe classifier experiments, data and tensor
+parallel.
 
 Counterpart of ``projectiontrainer_tpu/cli/cls_train.py`` with the same flags
 (reference: cls_evaluate/train.py:53-143: ``--exp_id``, ``--class_names``,
@@ -17,10 +18,14 @@ multi-hot targets (``MultiLabelClassificationDataset``). Images are read on
 protocol, so ``--num_loader_procs`` has no effect (said once in the log), as in the JAX
 package. Data parallel over N GPUs: ``projectiontrainer-torch-launch --nproc_per_node N cls --
 <these flags>`` (or ``torchrun``) starts one process per GPU; ``--mesh_data`` N or -1 (every
-rank); ``--fsdp`` shards the classifier and the optimizer state over the data axis
-(ZeRO-3, ``parallel/fsdp.py``). Not ported yet, and refused: ``--mesh_model`` above 1
-(tensor parallelism; stages 1 and 2 have it, this stage's comes later); ``--mesh_data
--1`` with more than one GPU visible in a process no launcher started raises too.
+rank); ``--mesh_model`` M splits the tower over M ranks of each replica (tensor
+parallelism: the classifier is built whole and sliced to the rank's shards,
+``parallel/sharding.model_shards``; the tower's heads and intermediate size must divide
+over M; the classifier's head is replicated); ``--fsdp`` shards the classifier and the
+optimizer state over the data axis (ZeRO-3, ``parallel/fsdp.py``), with or without
+``--mesh_model``. ``--mesh_data -1`` with more than one GPU visible in a process no
+launcher started raises, as does a ``--mesh_data`` x ``--mesh_model`` mesh other than
+the world of ranks.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from projectiontrainer_tpu_torch.checkpoint import hf_import
 from projectiontrainer_tpu_torch.core.config import ClsConfig, from_args, parser_for
 from projectiontrainer_tpu_torch.data import datasets
 from projectiontrainer_tpu_torch.models import classifier as cls_model
+from projectiontrainer_tpu_torch.parallel import sharding
 from projectiontrainer_tpu_torch.train import common
 from projectiontrainer_tpu_torch.train.trainer_cls import ClsTrainer
 from projectiontrainer_tpu_torch.utils.logging import setup_logging
@@ -52,7 +58,8 @@ def build_trainer(cfg: ClsConfig, *, vision_cfg=None, vision_params=None) -> Cls
     model_cfg = cls_model.ClassifierConfig(vision=vision_cfg, num_classes=len(names),
                                            dropout_rate=cfg.dropout_rate)
     gen = torch.Generator(device=device).manual_seed(cfg.seed)
-    params = cls_model.init(gen, model_cfg, device=device, vision=vision_params)
+    params = sharding.model_shards(
+        cls_model.init(gen, model_cfg, device=device, vision=vision_params), model_cfg)
 
     samples = datasets.load_manifest(cfg.data_json)
     if cfg.filter_no_finding:

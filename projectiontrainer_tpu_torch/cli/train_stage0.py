@@ -1,4 +1,4 @@
-"""Stage 0 entry: SigLIP contrastive vision-encoder fine-tuning, data parallel.
+"""Stage 0 entry: SigLIP contrastive vision-encoder fine-tuning, data and tensor parallel.
 
 Counterpart of ``projectiontrainer_tpu/cli/train_stage0.py`` with the same flags
 (reference: Stage0/train_vision_encoder_stage0.py:845-897), plus ``--device``:
@@ -16,10 +16,13 @@ worker processes (``data/feeder.py``) instead of ``--num_workers`` threads.
 
 Data parallel over N GPUs: ``projectiontrainer-torch-launch --nproc_per_node N stage0 --
 <these flags>`` (or ``torchrun``) starts one process per GPU; ``--mesh_data`` N or -1 (every
-rank); ``--fsdp`` shards the towers and the optimizer state over the data axis (ZeRO-3,
-``parallel/fsdp.py``). Not ported yet, and refused: ``--mesh_model`` above 1 (tensor
-parallelism; stages 1 and 2 have it, this stage's comes later); ``--mesh_data -1`` with
-more than one GPU visible in a process no launcher started raises too.
+rank); ``--mesh_model`` M splits both towers over M ranks of each replica (tensor
+parallelism: the snapshot is loaded whole and sliced to the rank's shards,
+``parallel/sharding.model_shards``; heads, intermediate sizes and the text vocab must
+divide over M); ``--fsdp`` shards the towers and the optimizer state over the data axis
+(ZeRO-3, ``parallel/fsdp.py``), with or without ``--mesh_model``. ``--mesh_data -1``
+with more than one GPU visible in a process no launcher started raises, as does a
+``--mesh_data`` x ``--mesh_model`` mesh other than the world of ranks.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from projectiontrainer_tpu_torch.data import datasets
 from projectiontrainer_tpu_torch.checkpoint import hf_import
 from projectiontrainer_tpu_torch.core import dtypes
 from projectiontrainer_tpu_torch.core.config import Stage0Config, from_args, parser_for
+from projectiontrainer_tpu_torch.parallel import sharding
 from projectiontrainer_tpu_torch.train import common, setup
 from projectiontrainer_tpu_torch.train.trainer_stage0 import Stage0Trainer
 from projectiontrainer_tpu_torch.utils.logging import setup_logging
@@ -44,6 +48,7 @@ def main(argv=None):
     model_cfg, params = hf_import.load_siglip(cfg.model_name, device=device,
                                               vision_dtype=torch.float32,
                                               text_dtype=text_dtype or torch.float32)
+    params = sharding.model_shards(params, model_cfg)
     tokenizer = setup.load_tokenizer(cfg.model_name)
 
     samples = datasets.load_manifest(cfg.train_json)

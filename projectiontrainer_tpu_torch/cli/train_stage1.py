@@ -38,7 +38,7 @@ from projectiontrainer_tpu_torch.utils.logging import setup_logging
 
 def main(argv=None):
     cfg = from_args(Stage1Config, parser_for(Stage1Config, __doc__).parse_args(argv))
-    common.init_world(cfg, tensor_parallel=True)
+    common.init_world(cfg)
     logger = setup_logging()
     device = torch.device(cfg.device)
     common.resume_quant_method(cfg, os.path.join(cfg.output_dir, "checkpoints"), logger)

@@ -48,13 +48,9 @@ from projectiontrainer_tpu_torch.train.trainer_stage2 import Stage2Trainer
 from projectiontrainer_tpu_torch.utils.logging import setup_logging
 
 
-def check_supported(cfg) -> None:
-    common.init_world(cfg, tensor_parallel=True)
-
-
 def main(argv=None):
     cfg = from_args(Stage2Config, parser_for(Stage2Config, __doc__).parse_args(argv))
-    check_supported(cfg)
+    common.init_world(cfg)
     logger = setup_logging()
     common.log_thread_feed(cfg, logger, "stage 2 executes a bucket plan")
     device = torch.device(cfg.device)

@@ -3,9 +3,7 @@
 Counterpart of ``projectiontrainer_tpu/core/config.py`` for the stage-0, stage-1 and
 stage-2 paths and the cls probe (``CommonConfig``, ``Stage0Config``, ``Stage1Config``,
 ``Stage2Config``, ``ClsConfig``, ``parser_for``, ``from_args``): the same fields, flag
-names and defaults, plus the port's ``--device``. A flag whose machinery is not ported
-yet (``--mesh_model`` above 1 in stage 0 and the cls probe) parses as in JAX; the CLIs
-raise on it.
+names and defaults, plus the port's ``--device``.
 """
 
 from __future__ import annotations

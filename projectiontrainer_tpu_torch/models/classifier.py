@@ -13,7 +13,9 @@ runs it on its XLA path, inside the span ``head``. A snapshot's MAP head, which 
 classifier never reads, stays in the params (so it is saved, and under ``Unfreeze``
 AdamW's decay moves it as in JAX) but is not run. Under ``--fsdp`` the tower gathers
 its data shards as it runs and the head's leaves are gathered where the head runs
-(``parallel/fsdp.py``).
+(``parallel/fsdp.py``). With a model axis the tower holds the rank's shards and its
+output is replicated; the head, which the JAX rules leave whole, runs whole on it on
+every model rank, so its gradient is whole there too.
 """
 
 from __future__ import annotations

@@ -17,11 +17,14 @@ compare the kernel path against. The MAP head's attention (one query against eve
 patch) is always the plain one: the flash kernels take self-attention shapes only, as
 the JAX package's gate does (``flash_attention_supported``).
 
-Tensor parallelism (stages 1 and 2's vision tower; ``parallel/tensor_parallel.py``):
-with a model axis the encoder layers hold one rank's shard (``parallel/sharding.py``):
-q/k/v and fc1 column-parallel, out_proj and fc2 row-parallel (all-reduced on exit, the
-bias added once after), the heads read from the weights' shapes; the LayerNorms (K2,
-K8) run row-local on the replicated residual stream.
+Tensor parallelism (every stage's towers; ``parallel/tensor_parallel.py``): with a
+model axis the encoder layers hold one rank's shard (``parallel/sharding.py``): q/k/v
+and fc1 column-parallel, out_proj and fc2 row-parallel (all-reduced on exit, the bias
+added once after), the heads read from the weights' shapes; the LayerNorms (K2, K8)
+run row-local on the replicated residual stream. The MAP head's MLP is split the same
+way (its attention, LayerNorm and probe stay replicated, as the JAX rules leave them),
+and the text tower's token table is a vocab shard; its linear head, the position
+embeddings and ``logit_scale``/``logit_bias`` are replicated.
 
 ZeRO-3 over the data axis (``--fsdp``, ``parallel/fsdp.py``): inside a train step a
 tower's leaves may be data shards; the embeddings, the final LayerNorm and the heads
@@ -223,11 +226,23 @@ def _attention(cfg: TowerConfig, q, k, v):
     return dot_product_attention(q, k, v, causal=False)
 
 
+def _linears():
+    """(column, row) linears: plain without a model axis, else on the rank's shards."""
+    return ((L.linear, L.linear) if tp.size() == 1 else (tp.column_linear, tp.row_linear))
+
+
+def _mlp(p, ln, cfg: TowerConfig, x):
+    """The LayerNorm ``ln`` then the MLP ``p`` (fc1, gelu, fc2) on ``x``; with a model axis
+    fc1 column-parallel and fc2 row-parallel (all-reduced on exit)."""
+    col, row = _linears()
+    h = tp.copy_to_model(_ln(ln, cfg, x))
+    return row(p["fc2"], L.gelu(col(p["fc1"], h), approximate=True))
+
+
 def _encoder_layer(p, cfg: TowerConfig, x, path=""):
     p = fsdp.gather(p, path)
     b, t, _ = x.shape
-    col, row = ((L.linear, L.linear) if tp.size() == 1
-                else (tp.column_linear, tp.row_linear))
+    col, row = _linears()
     h = tp.copy_to_model(_ln(p["ln1"], cfg, x))
     shape = (b, t, -1, cfg.head_dim)  # the rank's heads
     q = col(p["attn"]["q_proj"], h).reshape(shape)
@@ -235,24 +250,21 @@ def _encoder_layer(p, cfg: TowerConfig, x, path=""):
     v = col(p["attn"]["v_proj"], h).reshape(shape)
     h = row(p["attn"]["out_proj"], _attention(cfg, q, k, v).reshape(b, t, -1))
     x = x + h
-    h = tp.copy_to_model(_ln(p["ln2"], cfg, x))
-    h = row(p["mlp"]["fc2"], L.gelu(col(p["mlp"]["fc1"], h), approximate=True))
-    return x + h
+    return x + _mlp(p["mlp"], p["ln2"], cfg, x)
 
 
 def _map_head(p, cfg: VisionConfig, x):
     """MAP pooling head with torch.nn.MultiheadAttention semantics (scale head_dim^-0.5)
-    -> [B, D]."""
+    -> [B, D]. With a model axis its MLP runs column-then-row on the rank's shards of
+    fc1/fc2 (all-reduced on exit, as the encoder's); its attention, LayerNorm and probe
+    are replicated and run whole on every rank."""
     b, t, d = x.shape
     probe = p["probe"].to(x.dtype).expand(b, 1, d)
     q = L.linear(p["attention"]["q_proj"], probe).reshape(b, 1, cfg.num_heads, cfg.head_dim)
     k = L.linear(p["attention"]["k_proj"], x).reshape(b, t, cfg.num_heads, cfg.head_dim)
     v = L.linear(p["attention"]["v_proj"], x).reshape(b, t, cfg.num_heads, cfg.head_dim)
     h = L.linear(p["attention"]["out_proj"], dot_product_attention(q, k, v).reshape(b, 1, d))
-    residual = h
-    h = _ln(p["layernorm"], cfg, h)
-    h = L.linear(p["mlp"]["fc2"], L.gelu(L.linear(p["mlp"]["fc1"], h), approximate=True))
-    return (residual + h)[:, 0]
+    return (h + _mlp(p["mlp"], p["layernorm"], cfg, h))[:, 0]
 
 
 def _encoder(layers, cfg: TowerConfig, x, remat: Union[bool, int, str], prefix: str):
@@ -291,10 +303,13 @@ def vision_patch_embeddings(params, cfg: VisionConfig, pixel_values: torch.Tenso
 def text_forward(params, cfg: TextConfig, input_ids: torch.Tensor):
     """input_ids [B, T] -> (last_hidden_state [B, T, D], pooled [B, projection]).
     No attention mask (the processor pads to ``max_length`` and the model attends to
-    the padding); pooled is the LAST token's hidden state through the linear head."""
+    the padding); pooled is the LAST token's hidden state through the linear head.
+    With a model axis the token table is the rank's vocab slice
+    (``tp.vocab_embedding``: the rows summed over the model axis); the head is
+    replicated."""
     t = input_ids.shape[-1]
     params = fsdp.gather_top(params, "text")
-    x = L.embedding_lookup(params["token_embedding"], input_ids)
+    x = tp.vocab_embedding(params["token_embedding"]["embedding"], input_ids)
     x = x + params["position_embedding"]["embedding"][None, :t].to(x.dtype)
     x = _ln(params["final_layer_norm"], cfg, _encoder(params["layers"], cfg, x, False, "text"))
     return x, L.linear(params["head"], x[:, -1, :])

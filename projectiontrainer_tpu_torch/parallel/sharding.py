@@ -186,23 +186,30 @@ def _divide(what: str, n: int, model: int) -> None:
                          "ranks")
 
 
-def check_config(vlm_cfg, model: int) -> None:
+def check_config(model_cfg, model: int) -> None:
     """Raise for a model whose heads, KV heads (unless one), intermediate sizes or vocab
     the model axis does not divide (the JAX package would replicate what does not
-    divide; explicit TP cannot)."""
+    divide; explicit TP cannot). ``model_cfg`` is a VLM or decoder config, a SigLIP dual
+    tower (both towers; the text tower's vocab too) or a classifier (its tower; the
+    classifier's head is replicated)."""
     if model == 1:
         return
     from projectiontrainer_tpu_torch.ops.flash_attention import sharded_flash_plan
 
-    llm = getattr(vlm_cfg, "llm", vlm_cfg)
-    sharded_flash_plan(llm.num_heads, llm.num_kv_heads, model)
-    _divide("the decoder's intermediate size", llm.intermediate_size, model)
-    _divide("the vocab", llm.vocab_size, model)
-    vision = getattr(vlm_cfg, "vision", None)
-    if vision is not None:
-        _divide("the vision tower's heads", vision.num_heads, model)
-        _divide("the vision tower's intermediate size", vision.intermediate_size, model)
-    projector = getattr(vlm_cfg, "projector", None)
+    llm = getattr(model_cfg, "llm", model_cfg if hasattr(model_cfg, "num_kv_heads") else None)
+    if llm is not None:
+        sharded_flash_plan(llm.num_heads, llm.num_kv_heads, model)
+        _divide("the decoder's intermediate size", llm.intermediate_size, model)
+        _divide("the vocab", llm.vocab_size, model)
+    for name in ("vision", "text"):
+        tower = getattr(model_cfg, name, None)
+        if tower is None:
+            continue
+        _divide(f"the {name} tower's heads", tower.num_heads, model)
+        _divide(f"the {name} tower's intermediate size", tower.intermediate_size, model)
+        if name == "text":
+            _divide("the text tower's vocab", tower.vocab_size, model)
+    projector = getattr(model_cfg, "projector", None)
     if projector is not None:
         _divide("the projector's intermediate size", projector.intermediate_dim, model)
 
@@ -341,16 +348,39 @@ def gather_params(params, plan: ShardPlan, prefix: str = "", host: bool = False,
     return map_with_path(one, params, prefix)
 
 
-def check_local(params, vlm_cfg, plan: ShardPlan) -> None:
+def check_local(params, model_cfg, plan: ShardPlan) -> None:
     """Raise unless ``params`` hold the rank's shards: a trainer in a world with a model
-    axis must not train full leaves as if they were its shards."""
+    axis must not train full leaves as if they were its shards. Read on the decoder's
+    first q_proj (a VLM tree) or the vision tower's (a SigLIP dual tower, a
+    classifier)."""
     if plan.model == 1:
         return
-    llm = getattr(vlm_cfg, "llm", vlm_cfg)
-    q = params["llm"]["layers"][0]["attn"]["q_proj"]
+    if "llm" in params:
+        llm = getattr(model_cfg, "llm", model_cfg)
+        q = params["llm"]["layers"][0]["attn"]["q_proj"]
+        width, where = llm.num_heads * llm.head_dim, "the decoder's q_proj"
+    else:
+        layers = params["vision"]["layers"]
+        if not layers:
+            return
+        q = layers[0]["attn"]["q_proj"]
+        width, where = model_cfg.vision.hidden_size, "the vision tower's q_proj"
     rows = next(q[k] for k in ("weight", "qvalues", "qvalues_block", "packed_nf4") if k in q)
-    want = llm.num_heads * llm.head_dim // plan.model
+    want = width // plan.model
     if rows.shape[0] != want:
-        raise ValueError(f"tensor parallel: q_proj holds {rows.shape[0]} rows where model "
+        raise ValueError(f"tensor parallel: {where} holds {rows.shape[0]} rows where model "
                          f"rank {plan.rank} of {plan.model} holds {want}: shard the params "
-                         "(parallel/sharding.shard_params) before training")
+                         "(parallel/sharding.model_shards) before training")
+
+
+def model_shards(params: dict, model_cfg) -> dict:
+    """A whole loaded tree (a SigLIP dual tower, a classifier) sliced to this model
+    rank's shards, each sharded leaf a copy of its block (the whole leaves are freed
+    with ``params``); ``params`` itself without a model axis. Raises for a model the
+    model axis does not divide (:func:`check_config`). The VLM's counterpart, which
+    slices the decoder a layer at a time, is ``train/setup.py:shard_model``."""
+    model = distributed.model_size()
+    if model == 1:
+        return params
+    check_config(model_cfg, model)
+    return shard_params(params, plan_for(params, model_cfg), axes=(MODEL_AXIS,))

@@ -27,7 +27,7 @@ from projectiontrainer_tpu_torch.data import pipeline as pipe
 from projectiontrainer_tpu_torch.parallel import distributed, sharding
 
 
-def init_world(cfg: CommonConfig, *, tensor_parallel: bool = False) -> mesh.Mesh:
+def init_world(cfg: CommonConfig) -> mesh.Mesh:
     """Join the world and resolve the data x model mesh over it; ``cfg.device`` becomes
     the rank's card (``cuda:<local rank>``) and ``cfg.num_loader_procs`` its share of
     the host's feeder workers (the host's count over its ranks).
@@ -35,17 +35,13 @@ def init_world(cfg: CommonConfig, *, tensor_parallel: bool = False) -> mesh.Mesh
     A process that a launcher started (``RANK``/``WORLD_SIZE`` set: ``cli/launch.py``
     or ``torchrun``) joins the process group (``parallel/distributed.py``); the mesh
     is then ``--mesh_data`` x ``--mesh_model`` ranks (-1: the rest of the world), and
-    the mesh's groups are created. ``--mesh_model`` above 1 is tensor parallelism,
-    which stages 1 and 2 pass ``tensor_parallel`` for; stage 0 and the cls probe raise
-    for it. ``--fsdp`` (every stage; with ``--mesh_model`` in stages 1 and 2) shards the
-    params and the optimizer state over the data axis (:func:`place_params`); in a
-    world of one it changes nothing. A process that no launcher started is a world of
-    one, so ``--mesh_data`` -1 with several GPUs visible raises there: every GPU needs a
-    process of its own."""
-    if cfg.mesh_model > 1 and not tensor_parallel:
-        raise NotImplementedError(
-            f"--mesh_model {cfg.mesh_model}: tensor parallelism is not ported for this stage "
-            "yet (stages 1 and 2 have it); run data parallel with --mesh_model 1")
+    the mesh's groups are created. ``--mesh_model`` above 1 is tensor parallelism (every
+    stage: the caller slices its params to the model rank's shards before
+    :func:`place_params`). ``--fsdp`` (every stage, with or without ``--mesh_model``)
+    shards the params and the optimizer state over the data axis
+    (:func:`place_params`); in a world of one it changes nothing. A process that no
+    launcher started is a world of one, so ``--mesh_data`` -1 with several GPUs visible
+    raises there: every GPU needs a process of its own."""
     device = torch.device(cfg.device)
     if not distributed.launched():
         if (-1 in (cfg.mesh_data, cfg.mesh_model) and device.type == "cuda"
@@ -69,7 +65,8 @@ def init_world(cfg: CommonConfig, *, tensor_parallel: bool = False) -> mesh.Mesh
 
 def place_params(params: dict, model_cfg, cfg: CommonConfig) -> sharding.ShardPlan:
     """The shard plan of ``params`` (whole, or a model rank's shards: ``setup.build_vlm``
-    slices each layer as it builds it; anything else raises) and, under ``--fsdp``,
+    slices each layer as it builds it, the stage-0 and cls CLIs slice their towers with
+    ``sharding.model_shards``; anything else raises) and, under ``--fsdp``,
     each top-level subtree of ``params`` replaced IN PLACE by the rank's data shards
     (the JAX package's ``train/common.py:place_params``). A trainer calls it before it
     casts its trainables to fp32 masters, so no rank ever holds the whole fp32 model."""

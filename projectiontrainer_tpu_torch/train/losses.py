@@ -163,16 +163,17 @@ def siglip_pairwise_loss_over_ranks(image_features, text_features, logit_scale,
     the text features with their gradient (``all_gather_with_grad``); the rank scores
     its own images' rows of the global pairwise matrix against all the texts and
     divides by the global count. The shares add up to the loss over the whole batch,
-    and no rank computes the whole matrix. ``siglip_pairwise_loss`` in a single
-    process."""
-    if distributed.world_size() == 1:
+    and no rank computes the whole matrix. ``siglip_pairwise_loss`` on a data axis of
+    one. Every collective and offset here is over the data axis: the model ranks of one
+    replica hold the same rows and compute the same share."""
+    if distributed.data_size() == 1:
         return siglip_pairwise_loss(image_features, text_features, logit_scale, logit_bias,
                                     sample_weight)
     n = image_features.shape[0]
     w = (torch.ones((n,), dtype=torch.float32, device=image_features.device)
          if sample_weight is None else sample_weight.float())
     per = _pairwise_bce(image_features, distributed.all_gather_with_grad(text_features),
-                        logit_scale, logit_bias, offset=distributed.rank() * n)
+                        logit_scale, logit_bias, offset=distributed.data_rank() * n)
     w_cols = distributed.all_gather(w)
     return ((per * (w[:, None] * w_cols[None, :])).sum()
             / distributed.sum_over_ranks(w.sum()).clamp_min(1.0))
@@ -199,15 +200,16 @@ def two_way_multilabel_loss(logits, targets, *, t_p: float = 4.0, t_n: float = 1
 
     ``sample_weights`` (0/1 a row) excludes a straggler batch's filler rows from both
     directions and from the sample mean's count. The class-wise term runs over the
-    whole batch, so ``over_ranks`` gathers every rank's logits (with their gradient),
-    targets and weights and takes 1/world of the global loss."""
-    if over_ranks and distributed.world_size() > 1:
+    whole batch, so ``over_ranks`` gathers every data rank's logits (with their
+    gradient), targets and weights and takes 1/(data ranks) of the global loss (the
+    model ranks of one replica hold the same rows)."""
+    if over_ranks and distributed.data_size() > 1:
         return two_way_multilabel_loss(
             distributed.all_gather_with_grad(logits), distributed.all_gather(targets),
             t_p=t_p, t_n=t_n,
             sample_weights=(None if sample_weights is None
                             else distributed.all_gather(sample_weights))
-        ) / distributed.world_size()
+        ) / distributed.data_size()
     logits = logits.float()
     pos, neg = targets == 1, targets == 0
     if sample_weights is not None:

@@ -317,7 +317,8 @@ def stage0_loss(cfg: siglip.SiglipConfig, *, remat=False, local_negatives_shards
     missing image's placeholder) masks rows and columns of the pairwise matrix.
     ``local_negatives_shards=N`` splits the data-parallel batch into N groups with
     their own negatives (the reference's per-rank loss under DDP; N a multiple of the
-    world size: each rank splits its rows into N / world groups) and averages the
+    data ranks: each data rank splits its rows into N / (data ranks) groups; the model
+    ranks of one replica hold the same rows) and averages the
     losses of the groups that hold a real row, on every rank (a straggler batch can
     leave a rank without one). N = 1 gives global negatives: every rank's images
     against every rank's texts (``siglip_pairwise_loss_over_ranks``). Pixels are cast
@@ -341,10 +342,10 @@ def stage0_loss(cfg: siglip.SiglipConfig, *, remat=False, local_negatives_shards
             if local_negatives_shards <= 1:
                 return losses.siglip_pairwise_loss_over_ranks(img, txt, scale[0], bias[0],
                                                               sample_weight=w), {}
-            if local_negatives_shards % distributed.world_size():
+            if local_negatives_shards % distributed.data_size():
                 raise ValueError(f"local_negatives_shards={local_negatives_shards} is not a "
-                                 f"multiple of the world size {distributed.world_size()}")
-            n = local_negatives_shards // distributed.world_size()
+                                 f"multiple of the data ranks {distributed.data_size()}")
+            n = local_negatives_shards // distributed.data_size()
             per = img.shape[0] // n
             w_s = (torch.ones((n, per), device=img.device) if w is None
                    else w.float().reshape(n, per))

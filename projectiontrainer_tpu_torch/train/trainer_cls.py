@@ -27,11 +27,21 @@ rank's rows):
   with; the step timer (images/s of each epoch) and profiler (``--profile_dir``
   splits a step over the spans ``vision``, ``head``, ``loss`` and ``optimizer``).
 
+Tensor parallelism (``--mesh_model`` above 1; ``parallel/sharding.py``): ``params``
+hold this model rank's shards of the tower (``sharding.model_shards``, the CLI's call:
+the encoder layers and the MAP head's MLP); the classifier's head (queries, MHA,
+linear) is replicated and runs whole on the tower's replicated output, so its gradient
+is whole on every model rank, and its dropout masks are the same on the model ranks of
+one data rank (``distributed.rank_seed`` folds in the data rank only). Every freeze
+mode's step is built with the plan, so the 1EpochUnfreeze swap keeps the shards; the
+losses, the evaluation's gathers and its AUROC go over the data ranks (each row once);
+the checkpoints gather the shards whole (rank 0 writes) and ``--resume`` slices them.
+
 ZeRO-3 over the data axis (``--fsdp``; ``parallel/fsdp.py``): the rank keeps its data
-shard of every large leaf of the classifier (``common.place_params``), the step
-gathers them where they are used and reduce-scatters their gradients, the evaluation
-gathers the classifier once per call, and the checkpoints gather every leaf whole
-(rank 0 writes; ``--resume`` slices again).
+shard of every large leaf of the classifier (``common.place_params``; of its model
+shards under a model axis), the step gathers them where they are used and
+reduce-scatters their gradients, the evaluation gathers the classifier once per call,
+and the checkpoints gather every leaf whole (rank 0 writes; ``--resume`` slices again).
 
 Any dataset with ``__len__`` and ``__getitem__`` returning ``{'pixel_values' [H, W, C]
 float32, 'target_indices' int}`` (or ``'targets'`` [C] float32 multi-hot under

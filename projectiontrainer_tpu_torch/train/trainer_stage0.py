@@ -21,11 +21,22 @@ world (one device alone; rank 0 logs and writes, fenced by barriers):
   stage 1 (``--profile_dir`` splits the step over ``vision``, ``text``, ``loss`` and
   ``optimizer``).
 
+Tensor parallelism (``--mesh_model`` above 1; ``parallel/sharding.py``): ``params``
+hold this model rank's shards of both towers (``sharding.model_shards``, the CLI's
+call): the encoders' q/k/v, out_proj and fc1/fc2, the MAP head's fc1/fc2 and the text
+tower's token table; the MAP head's attention, the LayerNorms, the text head and
+``logit_scale``/``logit_bias`` are replicated. The model ranks of one replica read the
+same rows, so the loss, its negatives (local or global) and its counts go over the data
+axis only; the train step sums the partial gradients over the model axis. The zero-shot
+validation encodes the class prompts and the images on the sharded towers and gathers
+the predictions over the data ranks; the checkpoints and HF exports gather the shards
+(rank 0 writes whole leaves) and ``--resume`` slices them again.
+
 ZeRO-3 over the data axis (``--fsdp``; ``parallel/fsdp.py``): the rank keeps its data
-shard of every large leaf of both towers (``common.place_params``), the step gathers
-them layer by layer and reduce-scatters their gradients, the zero-shot validation
-gathers the towers once per evaluation, and the checkpoints and HF exports gather them
-whole (rank 0 writes).
+shard of every large leaf of both towers (``common.place_params``; of its model shards
+under a model axis), the step gathers them layer by layer and reduce-scatters their
+gradients, the zero-shot validation gathers the towers once per evaluation, and the
+checkpoints and HF exports gather them whole (rank 0 writes).
 
 Any dataset with ``__len__`` and ``__getitem__`` returning ``{'pixel_values' [H, W, C]
 float32, 'input_ids' [T] int, 'class_idx' int, 'valid' bool}`` serves (the CLI's is
@@ -103,9 +114,10 @@ class Stage0Trainer:
             accum_steps=cfg.gradient_accumulation_steps, warmup_rounding="floor",
             fsdp_paths=self.plan.data_sharded)
         self.compute_dtype = dtypes.compute_dtype(cfg.mixed_precision)
-        # --local_negatives: one group of negatives a rank (the JAX package's data-axis
-        # shards); else one group over the whole batch
-        shards = distributed.world_size() if cfg.local_negatives else 1
+        # --local_negatives: one group of negatives a data rank (the JAX package's
+        # data-axis shards; the model ranks of a replica share theirs); else one group
+        # over the whole batch
+        shards = distributed.data_size() if cfg.local_negatives else 1
         self.train_step = steps.make_train_step(
             steps.stage0_loss(model_cfg, remat=False, local_negatives_shards=shards,
                               compute_dtype=self.compute_dtype),
@@ -196,7 +208,9 @@ class Stage0Trainer:
         """Class prompts are the raw class names (the reference encodes the class
         captions themselves, Stage0:290-307), tokenised and encoded once; a
         prediction is the argmax over the image's logits against them. The towers run
-        on a compute copy (the kernels take bf16; under ``--fsdp`` gathered once here)."""
+        on a compute copy (the kernels take bf16; under ``--fsdp`` gathered once here;
+        a model axis's shards stay shards), and the predictions are gathered over the
+        data ranks: every row once, whatever the model axis."""
         params = common.compute_copy(self.state["params"], self.plan, self.compute_dtype)
         enc = self.tokenizer(self.class_names, padding="max_length", truncation=True,
                              max_length=self.cfg.max_text_len)

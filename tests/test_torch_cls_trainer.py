@@ -314,12 +314,14 @@ def test_balanced_sample_matches_jax_cli(tmp_path, labels, size, seed):
 
 # --num_loader_procs runs since the feeder port, on threads here
 # (test_cli_num_loader_procs_falls_back_to_threads below), --mesh_data since the
-# data-parallel port (below), --fsdp since the ZeRO-3 port (tests/test_torch_fsdp_cli.py);
-# the model axis is refused
+# data-parallel port (below), --fsdp since the ZeRO-3 port (tests/test_torch_fsdp_cli.py),
+# --mesh_model since the tensor-parallel port of the towers
+# (tests/test_torch_tp_towers.py): a model axis of 2 needs 2 processes, so a process
+# that no launcher started (a world of one) refuses it with the mesh's error
 @pytest.mark.parametrize("flag", [["--mesh_model", "2"]])
 def test_cli_refuses_what_is_not_ported(snapshot, tmp_path, monkeypatch, flag):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="does not divide the world"):
         cls_train.main(_train_argv(snapshot, str(tmp_path / "x"), *flag))
 
 

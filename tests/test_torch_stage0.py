@@ -330,12 +330,15 @@ def test_cli_trains_exports_and_resumes(snapshot, tmp_path):
 
 # --num_loader_procs runs since the feeder port (test_cli_trains_on_the_process_feeder
 # below), --mesh_data since the data-parallel port (below), --fsdp since the ZeRO-3 port
-# (tests/test_torch_fsdp_cli.py); the model axis is refused
-@pytest.mark.parametrize("flag", [["--mesh_model", "2"],
-                                  ["--mesh_data", "1", "--mesh_model", "2"]])
-def test_cli_refuses_what_is_not_ported(snapshot, tmp_path, monkeypatch, flag):
+# (tests/test_torch_fsdp_cli.py), --mesh_model since the tensor-parallel port of the
+# towers (tests/test_torch_tp_towers.py): a model axis of 2 needs 2 processes, so a
+# process that no launcher started (a world of one) refuses it with the mesh's error
+@pytest.mark.parametrize("flag,match", [(["--mesh_model", "2"], "does not divide the world"),
+                                        (["--mesh_data", "1", "--mesh_model", "2"],
+                                         "needs 2 processes")])
+def test_cli_refuses_what_is_not_ported(snapshot, tmp_path, monkeypatch, flag, match):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match=match):
         train_stage0.main(_argv(snapshot, str(tmp_path / "x"), *flag))
 
 
