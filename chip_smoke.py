@@ -99,8 +99,9 @@ Phases, each printing one JSON line; any failure raises, so the exit code is not
    compute, per-layer remat, batch 1, accumulation 8, lr 1e-5, per-module clip 1.0,
    2 epochs of 16 in-memory samples (questions of 8-128 tokens, answers of 32-512:
    buckets up to 575 + 128 + 512 = 1215 tokens), validation on 2 samples with 3-beam
-   sampling and 16 new tokens. One train-state file is kept on disk at a time (~21 GB
-   each; each save's bytes and seconds printed). Every loss finite; the tower moved in
+   sampling and 16 new tokens. The last epoch's train-state file is written (~13 GB;
+   its bytes and seconds printed; ``best`` and ``epoch_0`` take the same path and are
+   skipped for the script's wall). Every loss finite; the tower moved in
    epoch 0 and not in epoch 1; the LLM, its tied table and the projector moved in
    both; checkpoint-epoch_1/ and the examples written; K1, K2, K3, K4, K5 and K8
    launched. Micro-steps 6-7 are profiled (the card's kernel time by span, forward and
@@ -167,13 +168,14 @@ Phases, each printing one JSON line; any failure raises, so the exit code is not
    [18432,1024], each rerun held bit-equal.
 16. the input feed from files, run after phase 8 on phase 7's so400m model: one line
    of the environment (Pillow, cv2, scipy found; g++'s version; the CPUs this process
-   may use; /dev/shm's free bytes); 256 seeded 1024 x 1024 and 32 2048 x 2048 CXR-like
+   may use; /dev/shm's free bytes); 256 seeded 1024 x 1024 CXR-like
    gray JPEGs (stored as RGB, 4 caption classes) written to a temp dir; (a) the feed
-   alone: images/s of ``epoch_batches`` (batch 16, onto the card) over 128 of them at
-   512 px on 8 threads and on the process feeder at N = 4 and every CPU, augmentation
-   off and on (on: the workers at OMP_NUM_THREADS 1 and at OpenMP's default), then at
-   384 px (threads and the best N) and from the 2048 px files, each beside the demand
-   (stage 0: 63-104 images/s; the cls frozen epoch: 606-735); (b) Stage0Trainer.train()
+   alone: images/s of ``epoch_batches`` (batch 16, onto the card) over 64 of them at
+   512 px on 8 threads, augmentation off and on, and on the process feeder at every CPU,
+   augmentation on, the workers at OMP_NUM_THREADS 1 and at OpenMP's default, each
+   beside the demand (stage 0: 63-104 images/s); the rows at N = 4, augmentation off on
+   the feeder, 384 px and 2048 px sources were cut for the script's wall (readings for
+   A8's bench); (b) Stage0Trainer.train()
    as phase 7 runs it but fed from 128 of the files with --use_online_augmentation and
    --num_loader_procs at the best N (8 steps at batch 16, zero-shot validation on 16
    files; steps 6-7 profiled): images/s, ms/step and the card's idle share beside phase
@@ -224,8 +226,11 @@ Phases, each printing one JSON line; any failure raises, so the exit code is not
 20. data parallel: (a) the world: ``torch.cuda.device_count()``, ``nvidia-smi -L`` and the
    compute mode; 2 NCCL ranks on 2 cards or more, 2 gloo ranks sharing one card (said
    so), 1 NCCL rank where the card admits one process only (Exclusive_Process; the
-   2-rank checks are then not run, and not reported as passed). (b) ``cli/launch.py``
-   spawns the ranks (``--entry chip_smoke:dp_stage1_rank``), each running
+   2-rank checks are then not run, and not reported as passed). The ranks of phases
+   20-23 (and 22's where its world is the same) are started once: ``cli/launch.py``
+   spawns them with ``--entry chip_smoke:legs_rank``, and each phase hands them its legs
+   in turn (``_launch_legs``), every attribute a leg patched put back after it; the
+   launch ends after phase 23. (b) the ranks run ``dp_stage1_rank``, each running
    ``cli/train_stage1.main`` with phase 5's full-width model, its decoder cut to 8 of
    26 layers (run time), built in the rank from the seed (the snapshot and tokenizer loaders replaced: no transformers on the card's
    host) over 64 + 8 seeded 1024 px CXR-like JPEG files with captions of 32-512 stub
@@ -300,13 +305,13 @@ Phases, each printing one JSON line; any failure raises, so the exit code is not
    gloo, said so: a sharing figure; where the card admits one process the phase prints
    that it did not run and why). (a) ``cli/launch.py`` runs ``cli/train_stage0.main``
    (``--entry chip_smoke:tp_towers_stage0_rank``) at --mesh_data 1 --mesh_model 2 over
-   the so400m dual tower at full width and depth (27 + 27 layers, 8 of 16 heads of 72 a
-   rank), built whole from the seed in each rank and sliced by the CLI
+   the so400m dual tower at full width and depth (27 layers a tower; 8 of 16 heads of
+   72 a rank), built whole from the seed in each rank and sliced by the CLI
    (``sharding.model_shards``): batch 16 at 512 px, 3 steps of in-memory samples (the
    last profiled on rank 0: kernel time by span, ``tp_allreduce`` apart), no validation
    (run time), the final checkpoint.
    Every rank logs the same finite losses; each step's model-axis collectives are the
-   count read off the code (``tp_towers_predicted``: 110 / 55 / 0 / 2 forward /
+   count read off the code (``tp_towers_predicted``: 18 / 9 / 0 / 2 forward /
    backward / recompute / grads); every leaf the model axis leaves whole (logit_*, the
    LayerNorms, the MAP head's attention, ...) hashes equal on the two ranks after every
    step; the final checkpoint holds every trained leaf whole (the MAP head's MLP among
@@ -321,14 +326,37 @@ Phases, each printing one JSON line; any failure raises, so the exit code is not
    towers, 2 steps of 8 a data rank: the same checks within each replica, data shards
    held, the final checkpoint whole, and the first loss within 1e-3 of one process on
    the whole global batch (the global negatives gathered over the data axis only). (c) ``cli/cls_train.main`` at
-   --mesh_model 2 over the ViT-L/16-384 tower (24 layers, 8 of 16 heads of 64 a rank)
-   and the 4-class head from the seed, batch 32, 1EpochUnfreeze, 2 epochs of 2 steps:
-   the same checks (48 / 48 / 0 / 2 collectives a step in epoch 0, 48 / 0 / 0 / 1 in
-   epoch 1), an evaluation of the initial classifier before training whose logits sit
+   --mesh_model 2 over the ViT-L/16-384 tower (all 24 layers; 8 of 16 heads of 64 a
+   rank) and the 4-class head from the seed, batch 32,
+   1EpochUnfreeze, 2 epochs of 2 steps: the same checks (8 / 8 / 0 / 2 collectives a
+   step in epoch 0, 8 / 0 / 0 / 1 in epoch 1), an evaluation of the initial classifier before training whose logits sit
    at cosine >= 0.999 to one process's, every evaluation over each data rank's rows
    once (its AUROC beside one process's), and the first loss within 1e-3.
    Phase 2 adds the towers' per-rank shapes: K1/K4/K5 at so400m's [16,1024,8,72] and
    the cls tower's [32,576,8,64], K1 at the text tower's [16,64,8,72].
+24. budget (after phase 23): ``parallel/budget.py`` against the card. The ``ptt``
+   operators' declared buffers (K1 with its fp32 O, K4, K5 at [8,576,16,64]; K2 at
+   [4608,1024]; K8 at [576,1024] with its partial sums), each rounded to 512 B, equal
+   the peak of ``memory_allocated`` over one real launch; the host microseconds of a K1
+   launch through the operator and through its CUDA implementation called directly
+   (1000 launches each, at the cls tower's shape and a tiny one); the bytes a fresh
+   process holds beyond its allocator's (CUDA context, cuBLAS, the kernel library,
+   Triton, a 1-rank NCCL communicator), beside the constant the budget's limit is built
+   from. Phase 22's config (Gemma3-4B at 2 of 34 layers, the tower at 2 of 24; batch
+   1, 1215 tokens, accumulation 2, fp32 masters, full remat) at world 1: the fake-CUDA
+   trace's peak equals the meta trace's, and is within 10% of ``max_memory_allocated``
+   over the same applying micro-step run for real (the trainer's own program,
+   ``trainer_stage2.build_stage2``; reset after the build), the gap printed by category
+   (the real run under the same tracker). The trace at phase 22's world against the
+   trainer itself, phase 22's rank 0 over its applying micro-step: the collectives
+   equal by kind and phase, the peak within 10% of its ``max_memory_allocated`` (reset
+   just before it). With 2 cards or more, the trace's rank-0 peak at
+   world 2 within 10% of rank 0's over 2 NCCL ranks. BASELINE config #4 at its full 34
+   layers (``projectiontrainer-torch-budget``, six processes at once): peak, fits and
+   collectives at 4 x 1 and 8 x 1, batch 2 and 4, and 4 x 2, batch 2 and 4 a data rank.
+   Phase 2 adds head dims the kernels do not take, zero-padded to the next one: K1/K4/K5
+   at D = 80 ([16,1024,16,80]) and 96 ([8,576,16,96]) through autograd (launches
+   counted), K3 at D = 96, at the other rows' tolerances, with the pad's copy time.
 
 The second-to-last line is {"kernels": [...]} (name, route, source, replaces, launches
 on the main path, launches_by_path (serve, train, stage0, stage0_files, stage2,
@@ -344,6 +372,7 @@ Needs no network and no model snapshot; imports nothing of JAX.
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import json
 import os
@@ -671,9 +700,18 @@ def phase_build():
 # ---------------------------------------------------------------------------- phase 2
 
 
+BF16_HOST_MAX = 1 << 26  # above this many values, inputs are drawn on the card
+
+
 def _bf16(rng, shape, scale=1.0):
+    """Seeded standard-normal bf16 on the card: drawn by numpy, or for more than
+    BF16_HOST_MAX values by a card generator seeded from ``rng`` (numpy takes seconds to
+    draw a vocab table)."""
     import torch
 
+    if int(np.prod(shape)) > BF16_HOST_MAX:
+        gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(1 << 62)))
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
     return torch.tensor(rng.standard_normal(shape, dtype=np.float32) * scale,
                         device="cuda").to(torch.bfloat16)
 
@@ -749,10 +787,10 @@ def phase_kernels():
     results = {name: [] for name in KERNELS}
 
     def record(kernel, case, err, ms, plain_ms, bound=(None, None), library_ms=None,
-               library=None):
+               library=None, **extra):
         row = {"kernel": kernel, "case": case, "max_abs_err": err, "ms": ms,
                "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
-               "library_ms": library_ms, "library": library}
+               "library_ms": library_ms, "library": library, **extra}
         results[kernel].append(row)
         emit({"phase": 2, **row})
 
@@ -848,6 +886,7 @@ def phase_kernels():
     check_tp_kernels(rng, record)
     check_tp_tower_kernels(rng, record)
     check_gemma3_4b_kernels(rng, record)
+    check_padded_head_dims(rng, record)
     emit({"phase": 2, "readings": READINGS})
     return results
 
@@ -863,6 +902,7 @@ def check_decode(rng, record, b, nb, p_len, g, steps, *, hq=4, hkv=1, d=256,
 
     from projectiontrainer_tpu_torch.kernels.check_decode_attn import library_call
     from projectiontrainer_tpu_torch.ops import decode_attention as DA
+    from projectiontrainer_tpu_torch.ops import flash_attention as FA
 
     qd = _bf16(rng, (b * nb, hq, d))
     kp, vp = _bf16(rng, (b, hkv, p_len, d)), _bf16(rng, (b, hkv, p_len, d))
@@ -870,11 +910,19 @@ def check_decode(rng, record, b, nb, p_len, g, steps, *, hq=4, hkv=1, d=256,
     if pmask is None:
         pmask, _ = _left_pad_mask(rng, b, p_len, 224)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    extra = {}
+    if d not in DA.HEAD_DIMS:  # padded on the card: the copies' time beside the row
+        width = FA.padded_head_dim(d, DA.HEAD_DIMS)
+        extra["pad_ms"] = cuda_ms(lambda: [FA.pad_head_dim(x, width)
+                                           for x in (qd, kp, vp, kg, vg)])
     for t in steps:
         for window in windows:
             kw = dict(prefix_mask=pmask, t=t, prefix_len=p_len, scale=d ** -0.5,
                       window=window)
+            launched = DA.launches.value
             got = DA.decode_attention(qd, kp, vp, kg, vg, **kw)
+            if DA.launches.value != launched + 1:
+                raise AssertionError(f"decode d={d}: the call did not launch K3 once")
             ref = DA.decode_attention_reference(*(x.float() for x in (qd, kp, vp, kg, vg)),
                                                 **kw)
             case = f"{label}B={b} nb={nb} P={p_len} G={g} t={t} window={window}"
@@ -891,7 +939,8 @@ def check_decode(rng, record, b, nb, p_len, g, steps, *, hq=4, hkv=1, d=256,
                    cuda_ms(lambda: DA.decode_attention(qd, kp, vp, kg, vg, **kw)),
                    cuda_ms(lambda: DA.decode_attention_reference(qd, kp, vp, kg, vg, **kw)),
                    bound_decode_attn(b, nb, hq, hkv, p_len, g, d, live),
-                   cuda_ms(lib), f"SDPA {backend} over concatenated caches, explicit mask")
+                   cuda_ms(lib), f"SDPA {backend} over concatenated caches, explicit mask",
+                   **extra)
 
 
 def check_stage0_kernels(rng, record):
@@ -1154,6 +1203,69 @@ def check_gemma3_4b_kernels(rng, record):
             causal=True, window=window)
     check_decode(rng, record, 1, 3, 575 + 128, 16, (15,), hq=8, hkv=4, d=256,
                  windows=(1024, None), label="Gemma3-4B ")
+
+
+def check_padded_head_dims(rng, record):
+    """Head dims the kernels do not take, zero-padded on the card to the next width they
+    take (``ops/flash_attention.py:flash_attention_padded``; ``decode_attention_padded``):
+    K1/K4/K5 at D = 80 ([16,1024,16,80], a SigLIP tower of 1280 in 16 heads; padded to
+    128) and D = 96 ([8,576,16,96], a tower of 1536; padded to 128), non-causal, and K3
+    at D = 96 (padded to 128). Each against its plain version at the caller's D, at the
+    other rows' tolerances, its launches counted; ``ms`` is the padded call's (pad,
+    kernel, slice), ``pad_ms`` the pad's copies alone, the bound and SDPA's time at the
+    caller's D; record(kernel, case, err, ms, plain_ms, bound, library_ms, library,
+    **extra)."""
+    import torch
+
+    from projectiontrainer_tpu_torch.ops import flash_attention as FA
+
+    for b, t, h, d in ((16, 1024, 16, 80), (8, 576, 16, 96)):
+        width = FA.padded_head_dim(d)
+        case = f"padded head dim [{b},{t},{h},{d}] -> {width} non-causal"
+        kw = dict(scale=d ** -0.5, causal=False, window=None)
+        q, k, v, do = (_bf16(rng, (b, t, h, d)) for _ in range(4))
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        counts = (FA.launches.value, FA.bwd_dkv_launches.value, FA.bwd_dq_launches.value)
+        out, lse = FA.flash_attention(*leaves, **kw)
+        dq, dk, dv = torch.autograd.grad(out, leaves, do)
+        if (FA.launches.value, FA.bwd_dkv_launches.value, FA.bwd_dq_launches.value) != tuple(
+                c + 1 for c in counts):
+            raise AssertionError(f"flash {case}: the padded path did not launch K1, K4, K5 once")
+        if out.shape != q.shape or dq.shape != q.shape or dk.shape != k.shape:
+            raise AssertionError(f"flash {case}: shapes {out.shape} {dq.shape} {dk.shape}")
+        ref, ref_lse = FA.flash_attention_reference(q.float(), k.float(), v.float(), **kw)
+        err = compare(f"flash {case} out", out, ref)
+        compare(f"flash {case} lse", lse, ref_lse)
+        rq, rk, rv = FA.flash_attention_bwd_reference(q.float(), k.float(), v.float(), None,
+                                                      ref, ref_lse, do.float(), **kw)
+        err_kv = max(compare_rel(f"flash {case} dk", dk, rk),
+                     compare_rel(f"flash {case} dv", dv, rv))
+        err_q = compare_rel(f"flash {case} dq", dq, rq)
+        del ref, ref_lse, rq, rk, rv, out, dq, dk, dv
+        pad = [FA.pad_head_dim(x, width) for x in (q, k, v, do)]
+        pout, plse, pout32 = FA._launch(*pad[:3], out_f32=True, kv_mask=None, **kw)
+        prep = FA.prepare_bwd(*pad[:3], None, pout32, plse, pad[3])
+        args = (*pad[:3], prep[0], prep[1], plse, prep[2])
+        pad_fwd = cuda_ms(lambda: [FA.pad_head_dim(x, width) for x in (q, k, v)])
+        pad_bwd = cuda_ms(lambda: [FA.pad_head_dim(x, width) for x in (q, k, v, do)])
+        lib, backend = sdpa_library(q, k, v, scale=kw["scale"])
+        record("flash_attn_fwd", case, err, cuda_ms(lambda: FA.flash_attention(q, k, v, **kw)),
+               cuda_ms(lambda: FA.flash_attention_reference(q, k, v, **kw)),
+               bound_flash_fwd(b, t, h, h, d), cuda_ms(lib), f"SDPA {backend}",
+               pad_ms=pad_fwd, kernel_ms_at_width=cuda_ms(
+                   lambda: FA._launch(*pad[:3], kv_mask=None, **kw)))
+        ref_out, lse2 = FA.flash_attention_reference(q, k, v, **kw)
+        plain = cuda_ms(lambda: FA.flash_attention_bwd_reference(q, k, v, None, ref_out, lse2,
+                                                                 do, **kw))
+        lib, backend = sdpa_library_bwd(q, k, v, do, scale=kw["scale"])
+        library = (cuda_ms(lib), f"SDPA {backend} backward (dq, dk, dv together)")
+        record("flash_attn_bwd_dkv", case, err_kv, cuda_ms(lambda: FA.launch_bwd_dkv(*args, **kw)),
+               plain, bound_flash_bwd_dkv(b, t, h, h, d), *library, pad_ms=pad_bwd)
+        record("flash_attn_bwd_dq", case, err_q, cuda_ms(lambda: FA.launch_bwd_dq(*args, **kw)),
+               plain, bound_flash_bwd_dq(b, t, h, h, d), *library, pad_ms=pad_bwd)
+        del pad, pout, plse, pout32, prep, args, ref_out, lse2
+    check_decode(rng, record, 8, 3, 831, 32, (31,), hq=4, hkv=1, d=96, windows=(None,),
+                 label="padded head dim 96 -> 128 ")
 
 
 def check_cls_kernels(rng, record):
@@ -2171,13 +2283,18 @@ def phase_stage2_train(cfg, params, kernel_counters):
 
     class OneCheckpointOnDisk(CheckpointManager):
         """Keeps one train-state file at a time (~21 GB each at this width) and records
-        each save's name, bytes and seconds."""
+        each save's name, bytes and seconds. Only the run's last one (``epoch_1``) is
+        written: ``best`` and ``epoch_0`` go through the same code with the same bytes
+        (the script's wall: ~24 s)."""
 
         def __init__(self, *args, **kw):
             super().__init__(*args, **kw)
             self.saves = []
 
         def _save(self, name, state, metadata=None):
+            if name != "epoch_1":
+                self.saves.append({"name": name, "skipped": True})
+                return
             for f in os.listdir(self.directory):
                 if f.endswith(".pt"):
                     os.remove(os.path.join(self.directory, f))
@@ -2289,7 +2406,7 @@ def phase_stage2_train(cfg, params, kernel_counters):
     print(f"stage 2: {stats['images_per_sec']:.3f} images/s, {stats['micro_step_ms']:.1f} ms a "
           f"micro-step (steps 1-5, batch 1, up to 1215 tokens); kernel time "
           f"{split['total_ms']:.1f} ms a micro-step in steps 6-7 (device idle {idle:.1%}); "
-          f"checkpoints {[(c['name'], round(c['bytes'] / 1e9, 2), round(c['seconds'], 1)) for c in saves]} "
+          f"checkpoints {[(c['name'], round(c['bytes'] / 1e9, 2), round(c['seconds'], 1)) for c in saves if 'bytes' in c]} "
           f"(GB, s; {free_gb:.0f} GB free)", flush=True)
     emit({"phase": 9, "micro_steps": len(losses), "losses": losses, **stats,
           "train_result": result, "wall_s": wall, "leaf_max_change_by_epoch": moved,
@@ -2959,7 +3076,6 @@ def phase_cls_end_to_end(cfg, params, kernel_counters):
 # ---------------------------------------------------------------------------- phase 16
 
 FEED_SOURCES = 256        # seeded 1024 x 1024 CXR-like JPEG files
-FEED_SOURCES_2048 = 32    # and 2048 x 2048 ones, for one row
 FEED_ROW_IMAGES = 64      # images each feed-alone row reads (4 batches of 16; run time)
 FEED_ROW_REPEATS = 1      # times each row is timed (one: run time)
 FEED_CLASSES = ("pneumonia", "edema", "cardiomegaly", "no finding")
@@ -3121,15 +3237,13 @@ def phase_feed(cfg, params, kernel_counters, stage0_stats):
     try:
         t0 = time.perf_counter()
         samples = write_cxr_sources(root, FEED_SOURCES, 1024, SEED)
-        big = write_cxr_sources(root, FEED_SOURCES_2048, 2048, SEED + 1000)
         write_s = time.perf_counter() - t0
         rows_in = samples[:FEED_ROW_IMAGES]
         cpus = env["cpus"]
-        ns = sorted({4, cpus})
+        ns = [cpus]  # N = 4, 384 px and 2048 px sources: readings of A8's bench (wall)
         rows = [feed_row(make, rows_in, size=512, augment=a, threads=8) for a in (False, True)]
         for n in ns:
-            for augment in (False, True):
-                rows.append(feed_row(make, rows_in, size=512, augment=augment, procs=n))
+            rows.append(feed_row(make, rows_in, size=512, augment=True, procs=n))
             rows.append(feed_row(make, rows_in, size=512, augment=True, procs=n, omp_threads=1))
             feeder.close_pools()
         aug_rows = [r for r in rows if r["augment"] and r["path"].startswith("procs")]
@@ -3137,12 +3251,6 @@ def phase_feed(cfg, params, kernel_counters, stage0_stats):
         best_n = int(best["path"].split()[1])
         omp_faster = {n: max((r for r in aug_rows if r["path"] == f"procs {n}"),
                              key=lambda r: r["images_per_sec"])["omp_threads"] for n in ns}
-        rows.append(feed_row(make, rows_in, size=384, augment=False, threads=8))
-        rows.append(feed_row(make, rows_in, size=384, augment=False, procs=best_n,
-                             omp_threads=best["omp_threads"]))
-        rows.append(feed_row(make, big, size=512, augment=True, procs=best_n,
-                             omp_threads=best["omp_threads"]))
-        rows[-1]["source_px"] = 2048
         feeder.close_pools()
         for r in rows:
             demand = CLS_FROZEN_DEMAND if r["size"] == 384 else STAGE0_DEMAND
@@ -3638,6 +3746,174 @@ def _dp_launch(entry, dump, flags, ranks, backend, timeout=None):
     return proc.returncode, proc.stdout + proc.stderr, time.perf_counter() - t0
 
 
+def _port_modules():
+    """Every module of the port that a rank's entry may patch, imported (the CLIs, the
+    trainers, what they build on); the kernels' check scripts and ``__main__`` left out."""
+    import importlib
+    import pkgutil
+
+    import projectiontrainer_tpu_torch as pkg
+
+    for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+        if ".check_" not in info.name and not info.name.endswith("__main__"):
+            importlib.import_module(info.name)
+    return [m for n, m in sorted(sys.modules.items())
+            if m is not None and (n == pkg.__name__ or n.startswith(pkg.__name__ + "."))]
+
+
+def _attribute_state(modules):
+    """(object, a copy of its ``__dict__``) for each module and each class defined in one:
+    what a leg's patches change, to put back (:func:`_put_back`)."""
+    import inspect
+
+    state = []
+    for m in modules:
+        state.append((m, dict(vars(m))))
+        for v in list(vars(m).values()):
+            if inspect.isclass(v) and v.__module__ == m.__name__:
+                state.append((v, dict(vars(v))))
+    return state
+
+
+def _put_back(state) -> None:
+    missing = object()
+    for obj, saved in state:
+        now = vars(obj)
+        for k in [k for k in now if k not in saved]:
+            delattr(obj, k)
+        for k, v in saved.items():
+            if now.get(k, missing) is not v:
+                setattr(obj, k, v)
+
+
+def _run_legs(legs, state):
+    """Run [entry name, its argv] legs in turn in this rank, putting back every
+    attribute a leg's entry set on the port's modules and classes (``state``, from
+    :func:`_attribute_state`) after it and emptying the card's cache; returns each leg's
+    wall."""
+    import gc
+
+    import torch
+
+    walls = []
+    for name, leg_argv in legs:
+        t0 = time.perf_counter()
+        try:
+            globals()[name](leg_argv)
+        finally:
+            _put_back(state)
+            gc.collect()
+            torch.cuda.empty_cache()
+        walls.append(time.perf_counter() - t0)
+    return walls
+
+
+def legs_rank(argv):
+    """A rank that serves the legs of phases 20-23 that share its world, so they share
+    their rank processes (one start-up, one CUDA context, one process group, one load
+    of the kernels): it waits for ``<--dump>/job<n>.json`` (a JSON list of [entry name,
+    its argv], or ``"exit"``), runs the job's legs in turn (:func:`_run_legs`), writes
+    ``job<n>.done<rank>.json`` (each leg's wall) and waits for job n + 1."""
+    import argparse
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--dump", required=True)
+    args, _ = parser.parse_known_args(argv)
+    state = _attribute_state(_port_modules())
+    rank = os.environ["RANK"]
+    n = 0
+    while True:
+        path = os.path.join(args.dump, f"job{n}.json")
+        while not os.path.exists(path):
+            time.sleep(0.05)
+        with open(path) as f:
+            job = json.load(f)
+        if job == "exit":
+            return
+        walls = _run_legs(job, state)
+        tmp = os.path.join(args.dump, f"job{n}.done{rank}.tmp")
+        with open(tmp, "w") as f:
+            json.dump(walls, f)
+        os.replace(tmp, os.path.join(args.dump, f"job{n}.done{rank}.json"))
+        n += 1
+
+
+_SERVERS: dict = {}  # (ranks, backend) -> the launch that serves legs (legs_rank)
+
+
+def _legs_server(ranks, backend):
+    """The running launch of ``ranks`` rank processes over ``backend`` that serves legs,
+    started at first use (the launcher's output goes to a file beside its jobs)."""
+    key = (ranks, backend)
+    server = _SERVERS.get(key)
+    if server is not None and server["proc"].poll() is None:
+        return server
+    root = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    cmd = [sys.executable, "-m", "projectiontrainer_tpu_torch.cli.launch",
+           "--nproc_per_node", str(ranks), "--backend", backend, "--timeout", "300",
+           "--feeder_procs", "0", "--log_dir", os.path.join(root, "logs"),
+           "--entry", "chip_smoke:legs_rank", "--", "--dump", root]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__)) + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    log = open(os.path.join(root, "launch.log"), "w")
+    proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, env=env)
+    server = _SERVERS[key] = {"proc": proc, "root": root, "log": log, "jobs": 0,
+                              "ranks": ranks}
+    return server
+
+
+def stop_legs_servers():
+    """Ask every leg server to exit, wait for it, and remove its files."""
+    for server in list(_SERVERS.values()):
+        if server["proc"].poll() is None:
+            with open(os.path.join(server["root"], f"job{server['jobs']}.json"), "w") as f:
+                json.dump("exit", f)
+            try:
+                server["proc"].wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                server["proc"].kill()
+                server["proc"].wait()
+        server["log"].close()
+        shutil.rmtree(server["root"], ignore_errors=True)
+    _SERVERS.clear()
+
+
+atexit.register(lambda: [s["proc"].kill() for s in _SERVERS.values() if s["proc"].poll() is None])
+
+
+def _launch_legs(legs, ranks, backend, timeout):
+    """Run ``legs`` ([(entry, dump directory, flags)]) on the leg server of ``ranks``
+    ranks over ``backend`` (:func:`_legs_server`), in turn -> (each leg's wall on rank 0,
+    the job's wall); raises with the launcher's output if a rank fails or the job
+    outlasts ``timeout``."""
+    server = _legs_server(ranks, backend)
+    n = server["jobs"]
+    server["jobs"] += 1
+    spec = [[entry, ["--dump", d, *flags]] for entry, d, flags in legs]
+    tmp = os.path.join(server["root"], f"job{n}.tmp")
+    with open(tmp, "w") as f:
+        json.dump(spec, f)
+    os.replace(tmp, os.path.join(server["root"], f"job{n}.json"))
+    t0 = time.perf_counter()
+    done = [os.path.join(server["root"], f"job{n}.done{r}.json") for r in range(ranks)]
+    while not all(os.path.exists(p) for p in done):
+        if server["proc"].poll() is not None or time.perf_counter() - t0 > timeout:
+            if server["proc"].poll() is None:
+                server["proc"].kill()
+            server["proc"].wait()
+            server["log"].flush()
+            with open(os.path.join(server["root"], "launch.log")) as f:
+                logs = f.read()
+            _SERVERS.pop((ranks, backend), None)
+            raise AssertionError(f"the ranks' job {[e for e, _, _ in legs]} failed (exit "
+                                 f"{server['proc'].returncode}):\n{logs[-8000:]}")
+        time.sleep(0.1)
+    with open(done[0]) as f:
+        walls = json.load(f)
+    return walls, time.perf_counter() - t0
+
+
 def _rank_entry(argv):
     """(the dump directory, the CLI's flags, this rank) for a rank of phase 20."""
     import argparse
@@ -3859,12 +4135,28 @@ def phase_data_parallel():
                   "--vision_model_name", "seeded",
                   "--llm_name", "seeded", "--profile_dir", os.path.join(out, "profile"),
                   "--mesh_data", "-1"]
+        # (c)'s inputs: stage 0 across ranks, the so400m towers cut to DP_STAGE0_LAYERS
+        n0 = DP_STAGE0_BATCH * ranks * DP_STAGE0_STEPS
+        feed = write_cxr_sources(root, n0 + 16, 1024, SEED + 3000)
+        with open(os.path.join(root, "stage0.json"), "w") as f:
+            json.dump(feed, f)
+        out0 = os.path.join(root, "stage0")
+        flags0 = ["--image_root", root, "--train_json", os.path.join(root, "stage0.json"),
+                  "--output_dir", out0, "--model_name", "seeded", "--img_size", "512",
+                  "--batch_size", str(DP_STAGE0_BATCH), "--num_epochs", "1",
+                  "--val_split", str(16 / (n0 + 16)), "--max_text_len", "64",
+                  "--logging_steps", "1", "--num_workers", "4", "--disable_wandb",
+                  "--seed", str(SEED), "--min_save_epoch", "0", "--local_negatives",
+                  "--mesh_data", "-1"]
+        dump1, dump0 = (os.path.join(root, d) for d in ("dump_stage1", "dump_stage0"))
+        for d in (dump1, dump0):
+            os.makedirs(d)
         gc_cuda()
-        rc, logs, wall = _dp_launch("dp_stage1_rank", root, flags, ranks, backend)
-        if rc != 0:
-            raise AssertionError(f"data parallel: the stage-1 launch exited {rc}:\n"
-                                 f"{logs[-6000:]}")
-        dumps = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+        # both legs on the ranks that phases 21-23 reuse (legs_rank)
+        (wall, wall0), _ = _launch_legs([("dp_stage1_rank", dump1, flags),
+                                         ("dp_stage0_rank", dump0, flags0)],
+                                        ranks, backend, 2 * DP_TIMEOUT_S)
+        dumps = [torch.load(os.path.join(dump1, f"rank{r}.pt"), weights_only=False)
                  for r in range(ranks)]
         with open(os.path.join(out, "metrics.jsonl")) as f:
             rows = [json.loads(line) for line in f]
@@ -3937,24 +4229,7 @@ def phase_data_parallel():
                      f"Gemma3-1B cut to {DP_STAGE1_LAYERS} of 26 layers (run time)"})
 
         # (c) stage 0 across ranks, the so400m towers cut to DP_STAGE0_LAYERS layers
-        n0 = DP_STAGE0_BATCH * ranks * DP_STAGE0_STEPS
-        feed = write_cxr_sources(root, n0 + 16, 1024, SEED + 3000)
-        with open(os.path.join(root, "stage0.json"), "w") as f:
-            json.dump(feed, f)
-        out0 = os.path.join(root, "stage0")
-        flags0 = ["--image_root", root, "--train_json", os.path.join(root, "stage0.json"),
-                  "--output_dir", out0, "--model_name", "seeded", "--img_size", "512",
-                  "--batch_size", str(DP_STAGE0_BATCH), "--num_epochs", "1",
-                  "--val_split", str(16 / (n0 + 16)), "--max_text_len", "64",
-                  "--logging_steps", "1", "--num_workers", "4", "--disable_wandb",
-                  "--seed", str(SEED), "--min_save_epoch", "0", "--local_negatives",
-                  "--mesh_data", "-1"]
-        gc_cuda()
-        rc, logs, wall0 = _dp_launch("dp_stage0_rank", root, flags0, ranks, backend)
-        if rc != 0:
-            raise AssertionError(f"data parallel: the stage-0 launch exited {rc}:\n"
-                                 f"{logs[-6000:]}")
-        dumps0 = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+        dumps0 = [torch.load(os.path.join(dump0, f"rank{r}.pt"), weights_only=False)
                   for r in range(ranks)]
         for d in dumps0:
             if len(d["losses"]) != DP_STAGE0_STEPS or not np.isfinite(d["losses"]).all():
@@ -4382,16 +4657,20 @@ def phase_tensor_parallel():
     print(f"tensor parallel: {ranks} model ranks over {backend}: {why} ({smi})", flush=True)
     root = tempfile.mkdtemp(prefix="chip_smoke_tp_")
     try:
-        # (b) stage-2 QLoRA over Qwen3-8B, 1 x 2
+        # (b) stage-2 QLoRA over Qwen3-8B, 1 x 2, and (c) stage 1 over Gemma3-1B, 1 x 2,
+        # in one launch: the ranks start once (legs_rank)
         out = os.path.join(root, "stage2")
         flags = tp_stage2_flags(root, out) + ["--mesh_data", "1", "--mesh_model", "2"]
+        out1 = os.path.join(root, "stage1")
+        flags1 = tp_stage1_flags(root, out1) + ["--mesh_data", "1", "--mesh_model", "2"]
+        dump2, dump1 = (os.path.join(root, d) for d in ("dump_stage2", "dump_stage1"))
+        for d in (dump2, dump1):
+            os.makedirs(d)
         gc_cuda()
-        rc, logs, wall = _dp_launch("tp_stage2_rank", root, flags, ranks, backend,
-                                    TP_TIMEOUT_S)
-        if rc != 0:
-            raise AssertionError(f"tensor parallel: the stage-2 launch exited {rc}:\n"
-                                 f"{logs[-6000:]}")
-        dumps = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+        (wall, wall1), _ = _launch_legs([("tp_stage2_rank", dump2, flags),
+                                         ("tp_stage1_rank", dump1, flags1)],
+                                        ranks, backend, 2 * TP_TIMEOUT_S)
+        dumps = [torch.load(os.path.join(dump2, f"rank{r}.pt"), weights_only=False)
                  for r in range(ranks)]
         _tp_check("stage 2", dumps, STAGE2_QLORA_KERNELS)
         if len(dumps[0]["losses"]) != len(TP_GROUPS):
@@ -4419,14 +4698,8 @@ def phase_tensor_parallel():
         launches = {"stage2_qlora_tp_rank0": dumps[0]["launches"]}
 
         # (c) stage 1 over Gemma3-1B, 1 x 2
-        out = os.path.join(root, "stage1")
-        flags = tp_stage1_flags(root, out) + ["--mesh_data", "1", "--mesh_model", "2"]
-        rc, logs, wall = _dp_launch("tp_stage1_rank", root, flags, ranks, backend,
-                                    TP_TIMEOUT_S)
-        if rc != 0:
-            raise AssertionError(f"tensor parallel: the stage-1 launch exited {rc}:\n"
-                                 f"{logs[-6000:]}")
-        dumps = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+        out, wall = out1, wall1
+        dumps = [torch.load(os.path.join(dump1, f"rank{r}.pt"), weights_only=False)
                  for r in range(ranks)]
         _tp_check("stage 1", dumps, STAGE1_KERNELS)
         if len(dumps[0]["losses"]) != TP_STAGE1_STEPS:
@@ -4590,7 +4863,7 @@ def fsdp_stage2_rank(argv):
     from projectiontrainer_tpu_torch.checkpoint.manager import CheckpointManager
     from projectiontrainer_tpu_torch.cli import train_stage2
     from projectiontrainer_tpu_torch.core.pytree import unique_leaves_with_paths
-    from projectiontrainer_tpu_torch.parallel import fsdp
+    from projectiontrainer_tpu_torch.parallel import distributed, fsdp
     from projectiontrainer_tpu_torch.train import optim, setup, steps
     from projectiontrainer_tpu_torch.train.trainer_stage2 import Stage2Trainer
     from projectiontrainer_tpu_torch.utils import timing
@@ -4627,7 +4900,8 @@ def fsdp_stage2_rank(argv):
 
     record = {"losses": [], "counts_first": None, "bytes_first": None, "first_grads": None,
               "launches_first": None, "gather_host_ms": [], "reduce_scatter_host_ms": [],
-              "live_first": None, "peak_first": None, "split": None}
+              "live_first": None, "peak_first": None, "split": None,
+              "collectives_apply": None, "peak_before_apply": 0, "peak_apply": None}
     kernel_counters = counters()
     make, update = steps.make_train_step, optim.MaskedAdamW.update
     gather, scatter = fsdp._all_gather, fsdp._reduce_scatter
@@ -4644,11 +4918,20 @@ def fsdp_stage2_rank(argv):
                 start = torch.cuda.memory_allocated()
                 torch.cuda.reset_peak_memory_stats()
                 fsdp.track(True)
-            if profiled:
+            if profiled:  # the applying micro-step (accumulation 2)
+                distributed.reset_collectives()
                 prof = torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
                 prof.__enter__()
+                # its peak, from what the trainer holds before it (phase 24's budget)
+                torch.cuda.synchronize()
+                record["peak_before_apply"] = torch.cuda.max_memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
             out = step(state, batch, rng)
+            if profiled:
+                record["collectives_apply"] = distributed.collective_inventory()
+                torch.cuda.synchronize()
+                record["peak_apply"] = torch.cuda.max_memory_allocated()
             record["losses"].append(float(out[1]))  # a host sync
             if first:
                 record["counts_first"] = {k: fsdp.COUNTS[k] - counts[k] for k in counts}
@@ -4694,7 +4977,7 @@ def fsdp_stage2_rank(argv):
     torch.cuda.reset_peak_memory_stats()
     result = train_stage2.main(flags)
     torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(torch.cuda.max_memory_allocated(), record["peak_before_apply"])
     launches = {n: c.value for n, c in kernel_counters.items()}
     counts_run = dict(fsdp.COUNTS)
     trainer = built["trainer"]
@@ -4721,6 +5004,8 @@ def fsdp_stage2_rank(argv):
                 "launches": launches, "launches_first": record["launches_first"],
                 "counts_first": record["counts_first"], "bytes_first": record["bytes_first"],
                 "counts_run": counts_run, "gather_host_ms": record["gather_host_ms"],
+                "collectives_apply": record["collectives_apply"],
+                "peak_apply": record["peak_apply"],
                 "reduce_scatter_host_ms": record["reduce_scatter_host_ms"],
                 "peak_memory_bytes": peak, "state_bytes_local": local,
                 "state_bytes_whole": whole, "state_bytes_residue": residue,
@@ -4846,10 +5131,9 @@ def phase_fsdp():
         out = os.path.join(root, "stage2")
         flags = fsdp_stage2_flags(root, out) + ["--mesh_data", str(ranks)]
         gc_cuda()
-        rc, logs, wall = _dp_launch("fsdp_stage2_rank", root, ["--layers", str(layers)] + flags,
-                                    ranks, backend, FSDP_TIMEOUT_S)
-        if rc != 0:
-            raise AssertionError(f"fsdp: the stage-2 launch exited {rc}:\n{logs[-6000:]}")
+        (wall,), _ = _launch_legs(
+            [("fsdp_stage2_rank", root, ["--layers", str(layers)] + flags)], ranks, backend,
+            FSDP_TIMEOUT_S)
         dumps = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
                  for r in range(ranks)]
         n_steps = 2 * FSDP_SAMPLES // ranks
@@ -4943,7 +5227,10 @@ def phase_fsdp():
                      "exports saved after the last epoch only (a real run: the VQA "
                      "corpus, 5 epochs, a checkpoint each epoch and the best)"})
         launches = {"stage2_fsdp_rank0": dumps[0]["launches"],
-                    "stage2_fsdp_micro_step": dumps[0]["launches_first"]}
+                    "stage2_fsdp_micro_step": dumps[0]["launches_first"],
+                    "collectives_apply_micro_step": dumps[0]["collectives_apply"],
+                    "peak_apply_micro_step": dumps[0]["peak_apply"],
+                    "world": (ranks, layers, backend)}
 
         return launches
     finally:
@@ -4953,6 +5240,8 @@ def phase_fsdp():
 # ---------------------------------------------------------------------------- phase 23
 
 TT_RANKS = 2               # the model axis of phase 23
+TT_STAGE0_LAYERS = 27      # (a): so400m's layers a tower, all of them
+TT_CLS_LAYERS = 24         # (c): ViT-L's layers, all of them
 TT_STAGE0_BATCH = 16       # a replica's rows, at 512 px (phase 7's batch)
 TT_STAGE0_STEPS = 3       # (run time; the script's 1200 s)
 TT_FSDP_BATCH = 8          # (b): a data rank's rows
@@ -4986,10 +5275,11 @@ def tp_towers_stage0_model(layers=None):
 
 
 def tt_cls_vision_config():
-    """The probe's tower: XraySigLIP's ViT-L/16-384."""
+    """The probe's tower: XraySigLIP's ViT-L/16-384 at full width, TT_CLS_LAYERS of its
+    24 layers."""
     from projectiontrainer_tpu_torch.models import siglip
 
-    return siglip.vit_l_16_384()
+    return dataclasses.replace(siglip.vit_l_16_384(), num_layers=TT_CLS_LAYERS)
 
 
 def tp_towers_predicted(n_vision, n_text=None, *, tower_trains=True):
@@ -5098,6 +5388,7 @@ def _tt_flags(argv):
     parser = argparse.ArgumentParser()
     parser.add_argument("--layers", type=int, default=None)
     parser.add_argument("--train_samples", type=int, required=True)
+    parser.add_argument("--first_grads", action="store_true")  # (a): held against one process
     return parser.parse_known_args(argv)
 
 
@@ -5132,7 +5423,7 @@ def tp_towers_stage0_rank(argv):
     setup.load_tokenizer = lambda _: StubTokenizer()
     common.place_params = placing
     _tt_stage0_data(train_stage0.datasets, opts.train_samples, tt_stage0_config(opts.layers))
-    record = _tt_new_record(want_grads=opts.layers is None)  # (a) compares gradients
+    record = _tt_new_record(want_grads=opts.first_grads)  # (a) compares gradients
     _tt_record(record, lambda: built["cfg"], lambda: built["plan"])
     kernel_counters = counters()
     for c in kernel_counters.values():
@@ -5445,27 +5736,40 @@ def phase_tp_towers():
     root = tempfile.mkdtemp(prefix="chip_smoke_tt_")
     launches = {}
     try:
-        # (a) stage 0 at 1 x 2, so400m at full width and depth
+        # (a) stage 0 at 1 x 2, so400m at full width, TT_STAGE0_LAYERS layers a tower
         out = os.path.join(root, "stage0")
-        cfg = tt_stage0_config()
+        cfg = tt_stage0_config(TT_STAGE0_LAYERS)
         flags = _tt_stage0_flags(root, out, cfg, batch=TT_STAGE0_BATCH, data=1, fsdp=False)
         # the last step profiled on rank 0: the kernel time by span (tp_allreduce apart)
         flags += ["--profile_dir", os.path.join(out, "profile"), "--profile_start_step",
                   str(TT_STAGE0_STEPS - 1), "--profile_num_steps", "1"]
+        # (c)'s flags: the cls probe at 1 x 2, ViT-L/16-384 at full width, TT_CLS_LAYERS
+        out_cls = os.path.join(root, "cls")
+        flags_cls = ["--exp_id", "EXP1", "--class_names", CLS_CLASSES, "--freeze_mode",
+                     "1EpochUnfreeze", "--vision_model_name", "seeded", "--data_json",
+                     os.path.join(root, "cls.json"), "--image_root", root,
+                     "--output_base_dir", out_cls, "--img_size",
+                     str(tt_cls_vision_config().image_size), "--batch_size",
+                     str(TT_CLS_BATCH), "--epochs", "2", "--num_workers", "4", "--seed",
+                     str(SEED), "--logging_steps", "1", "--mesh_data", "1", "--mesh_model",
+                     str(TT_RANKS)]
+        dump_a, dump_c = (os.path.join(root, d) for d in ("dump_stage0", "dump_cls"))
+        for d in (dump_a, dump_c):
+            os.makedirs(d)
         gc_cuda()
-        rc, logs, wall = _dp_launch(
-            "tp_towers_stage0_rank", root,
-            ["--train_samples", str(TT_STAGE0_BATCH * TT_STAGE0_STEPS)] + flags, TT_RANKS,
-            backend, TT_TIMEOUT_S)
-        if rc != 0:
-            raise AssertionError(f"tensor parallel towers: the stage-0 launch exited {rc}:\n"
-                                 f"{logs[-6000:]}")
-        dumps = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+        # (a) and (c) on the ranks of phases 20-22 (legs_rank)
+        leg_walls, _ = _launch_legs(
+            [("tp_towers_stage0_rank", dump_a,
+              ["--layers", str(TT_STAGE0_LAYERS), "--first_grads",
+               "--train_samples", str(TT_STAGE0_BATCH * TT_STAGE0_STEPS)] + flags),
+             ("tp_towers_cls_rank", dump_c, flags_cls)], TT_RANKS, backend, 2 * TT_TIMEOUT_S)
+        wall, wall_cls = leg_walls
+        dumps = [torch.load(os.path.join(dump_a, f"rank{r}.pt"), weights_only=False)
                  for r in range(TT_RANKS)]
         predicted = tp_towers_predicted(cfg.vision.num_layers, cfg.text.num_layers)
         _tt_check("tensor parallel stage 0", dumps, STAGE0_KERNELS, TT_STAGE0_STEPS,
                   lambda i: predicted)
-        _tt_whole_checkpoint("tensor parallel stage 0", out, None)
+        _tt_whole_checkpoint("tensor parallel stage 0", out, TT_STAGE0_LAYERS)
         split = _tp_split(out)
         grads_tp = dumps[0]["first_grads"]
         for d in dumps:
@@ -5473,7 +5777,7 @@ def phase_tp_towers():
         gc_cuda()
         n_train = TT_STAGE0_BATCH * TT_STAGE0_STEPS
         loss_one, grads_one, fp32_of = _tt_stage0_one_process(
-            flags[:flags.index("--mesh_data")], None, n_train,
+            flags[:flags.index("--mesh_data")], TT_STAGE0_LAYERS, n_train,
             _first_global_rows(n_train, TT_STAGE0_BATCH, 1))
         rel = abs(dumps[0]["losses"][0] - loss_one) / abs(loss_one)
         versus, _ = hold_gradients("tensor parallel stage 0", grads_tp, grads_one, fp32_of)
@@ -5500,7 +5804,8 @@ def phase_tp_towers():
               "peak_gib_per_rank": [d["peak_gib"] for d in dumps],
               "sharded_leaves": dumps[0]["sharded_leaves"],
               "launches_per_rank": [d["launches"] for d in dumps],
-              "cut": f"full width and depth (27 + 27 layers); {TT_STAGE0_STEPS} steps at "
+              "cut": f"full width, {TT_STAGE0_LAYERS} of 27 layers a tower; "
+                     f"{TT_STAGE0_STEPS} steps at "
                      f"{TT_STAGE0_BATCH} of random in-memory data, no validation (run "
                      "time; a real run: the caption corpus, many epochs, zero-shot each)"})
         launches["stage0_tp_rank0"] = dumps[0]["launches"]
@@ -5510,22 +5815,9 @@ def phase_tp_towers():
         if fsdp_launches is not None:
             launches["stage0_fsdp_tp_rank0"] = fsdp_launches
 
-        # (c) the cls probe at 1 x 2, ViT-L/16-384 at full width and depth
-        out = os.path.join(root, "cls")
-        flags = ["--exp_id", "EXP1", "--class_names", CLS_CLASSES, "--freeze_mode",
-                 "1EpochUnfreeze", "--vision_model_name", "seeded", "--data_json",
-                 os.path.join(root, "cls.json"), "--image_root", root, "--output_base_dir",
-                 out, "--img_size", str(tt_cls_vision_config().image_size), "--batch_size",
-                 str(TT_CLS_BATCH), "--epochs", "2",
-                 "--num_workers", "4", "--seed", str(SEED), "--logging_steps", "1",
-                 "--mesh_data", "1", "--mesh_model", str(TT_RANKS)]
-        gc_cuda()
-        rc, logs, wall = _dp_launch("tp_towers_cls_rank", root, flags, TT_RANKS, backend,
-                                    TT_TIMEOUT_S)
-        if rc != 0:
-            raise AssertionError(f"tensor parallel towers: the cls launch exited {rc}:\n"
-                                 f"{logs[-6000:]}")
-        dumps = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+        # (c) the cls probe at 1 x 2, ViT-L/16-384 at full width, TT_CLS_LAYERS layers
+        out, flags, wall = out_cls, flags_cls, wall_cls
+        dumps = [torch.load(os.path.join(dump_c, f"rank{r}.pt"), weights_only=False)
                  for r in range(TT_RANKS)]
         n_layers = tt_cls_vision_config().num_layers
         trains, frozen = (tp_towers_predicted(n_layers),
@@ -5568,7 +5860,8 @@ def phase_tp_towers():
               "rank_wall_s": [d["wall_s"] for d in dumps],
               "peak_gib_per_rank": [d["peak_gib"] for d in dumps],
               "launches_per_rank": [d["launches"] for d in dumps],
-              "cut": f"full width and depth (24 layers); 2 epochs of {TT_CLS_STEPS} steps at "
+              "cut": f"full width, {TT_CLS_LAYERS} of 24 layers; 2 epochs of "
+                     f"{TT_CLS_STEPS} steps at "
                      f"{TT_CLS_BATCH}, {TT_CLS_BATCH} validation samples (a real run: the CXR "
                      "corpus, 10 epochs)"})
         launches["cls_tp_rank0"] = dumps[0]["launches"]
@@ -5619,6 +5912,348 @@ def _tt_cls_one_process(flags):
     return loss, seen[0][0], seen[0][1], auroc
 
 
+# ---------------------------------------------------------------------------- phase 24
+
+# phase 22's recipe: batch 1 a rank, the (128, 512) bucket, accumulation 2, fp32 masters
+BUDGET_KW = dict(batch_per_device=1, q_len=128, a_len=512, accum_steps=2,
+                 master_dtype="fp32", remat="full")
+BUDGET_GAP = 0.10         # predicted against measured peak
+# BASELINE config #4 at its full 34 layers: (devices, model axis, batch a data rank)
+BUDGET_4B = ((4, 1, 2), (4, 1, 4), (8, 1, 2), (8, 1, 4), (8, 2, 2), (8, 2, 4))
+RESERVE_CODE = """
+import json, subprocess, sys
+
+
+def used():  # the card's used bytes, all processes (the caller waits meanwhile)
+    out = subprocess.run(["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,"
+                          "nounits", "-i", "0"], capture_output=True, text=True, check=True)
+    return int(out.stdout.split()[0]) << 20
+
+
+before = used()
+import torch, torch.distributed as dist
+from projectiontrainer_tpu_torch.kernels import _build
+from projectiontrainer_tpu_torch.ops import fused_layernorm as FLN
+x = torch.ones(1024, 1024, device="cuda")
+y = x @ x                                  # cuBLAS's handle and workspace
+_build.library()                           # the hand-written kernels' library
+p = {"scale": torch.ones(1024, device="cuda", dtype=torch.bfloat16),
+     "bias": torch.zeros(1024, device="cuda", dtype=torch.bfloat16)}
+FLN.layernorm(p, x.bfloat16())             # Triton's module (K2)
+dist.init_process_group("nccl", init_method="tcp://127.0.0.1:" + sys.argv[1], rank=0,
+                        world_size=1)
+dist.all_reduce(x)                         # NCCL's communicator and buffers
+torch.cuda.synchronize()
+grown = used() - before
+print(json.dumps({"total": torch.cuda.mem_get_info()[1], "process_bytes": grown,
+                  "reserved": torch.cuda.memory_reserved(),
+                  "reserve": grown - torch.cuda.memory_reserved()}))
+dist.destroy_process_group()
+"""
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def start_full_depth_budgets(root):
+    """``projectiontrainer-torch-budget`` for each BUDGET_4B cell, each in its own
+    process (host work alone: fake tensors, no card), all started at once; returns
+    [(cell, process, output path)]."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__)) + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    env["OMP_NUM_THREADS"] = "1"
+    runs = []
+    atexit.register(lambda: [proc.kill() for _, proc, _ in runs if proc.poll() is None])
+    for n, m, b in BUDGET_4B:
+        path = os.path.join(root, f"budget_{n}x{m}_b{b}.json")
+        cmd = [sys.executable, "-m", "projectiontrainer_tpu_torch.cli.budget", "--preset",
+               "gemma3-4b", "--n_devices", str(n), "--model_axis", str(m),
+               "--batch_per_device", str(b), "--accum_steps", "16"]
+        with open(path, "w") as out:
+            runs.append(((n, m, b), subprocess.Popen(cmd, stdout=out, stderr=subprocess.PIPE,
+                                                     text=True, env=env), path))
+    return runs
+
+
+def check_fake_buffers(rng):
+    """Each operator's declared buffers (``*_buffers``, each rounded up to the
+    allocator's 512 B: what its fake implementation lets a trace charge) against one
+    real launch at phase 2's shapes: the peak of ``memory_allocated`` above the start
+    over the launch, scratch included. Returns {kernel: (declared, measured)}."""
+    import torch
+
+    from projectiontrainer_tpu_torch.ops import flash_attention as FA
+    from projectiontrainer_tpu_torch.ops import fused_layernorm as FLN
+
+    def rounded(bufs):
+        return sum(-(-int(np.prod(shape)) * torch.empty((), dtype=dt).element_size() // 512) * 512
+                   for shape, dt in bufs.values())
+
+    kw = dict(scale=64 ** -0.5, causal=False, window=None)
+    q, k, v, do = (_bf16(rng, (8, 576, 16, 64)) for _ in range(4))
+    out, lse, out32 = FA._launch(q, k, v, kv_mask=None, out_f32=True, **kw)
+    prep = FA.prepare_bwd(q, k, v, None, out32, lse, do)
+    args = (q, k, v, prep[0], prep[1], lse, prep[2])
+    x = _bf16(rng, (4608, 1024))
+    xb, dy = _bf16(rng, (576, 1024)), _bf16(rng, (576, 1024))
+    scale, bias = _bf16(rng, (1024,), 0.5) + 1, _bf16(rng, (1024,), 0.1)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = {
+        "flash_attn_fwd": (lambda: FA._launch(q, k, v, kv_mask=None, out_f32=True, **kw),
+                           FA.fwd_buffers(q, True)),
+        "flash_attn_bwd_dkv": (lambda: FA.launch_bwd_dkv(*args, **kw), FA.dkv_buffers(q, k)),
+        "flash_attn_bwd_dq": (lambda: FA.launch_bwd_dq(*args, **kw), FA.dq_buffers(q)),
+        "layernorm_fwd": (lambda: FLN.layernorm_fwd(x, scale, bias, 1e-6),
+                          FLN.fwd_buffers(x)),
+        "layernorm_bwd": (lambda: FLN.layernorm_bwd(xb, dy, scale, 1e-6),
+                          FLN.bwd_buffers(576, 1024, xb.dtype, FLN.bwd_plan(576, 1024, sms))),
+    }
+    found = {}
+    for name, (launch, bufs) in cases.items():
+        launch()  # compiled, its per-stream counters made
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kept = launch()
+        torch.cuda.synchronize()
+        measured = torch.cuda.max_memory_allocated() - start
+        del kept
+        found[name] = (rounded(bufs), measured)
+        if found[name][0] != measured:
+            raise AssertionError(f"budget: {name} declares {found[name][0]} bytes, a launch "
+                                 f"allocated {measured}")
+    return found
+
+
+def launch_host_cost(rng, n=1000):
+    """Host microseconds a K1 launch at the cls tower's shape ([32,576,16,64]) and at a
+    tiny one ([1,64,1,64]), through the ``ptt`` operator and through its CUDA
+    implementation called directly (the launch as it was before the operator), the
+    buffers made once; ``n`` launches a reading, in turns, the queue drained between."""
+    import torch
+
+    from projectiontrainer_tpu_torch.ops import flash_attention as FA
+
+    found = {}
+    for label, shape in (("cls tower [32,576,16,64]", (32, 576, 16, 64)),
+                         ("tiny [1,64,1,64]", (1, 64, 1, 64))):
+        q, k, v = (_bf16(rng, shape) for _ in range(3))
+        bufs = {key: torch.empty(sz, dtype=dt, device="cuda")
+                for key, (sz, dt) in FA.fwd_buffers(q).items()}
+        args = (q, k, v, None, bufs["out"], bufs["lse"], None, 64 ** -0.5, False, 0)
+        times = {"operator": [], "direct": []}
+        for _ in range(2):
+            for key, fn in (("operator", FA.FWD_OP), ("direct", FA._fwd_launch)):
+                fn(*args)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    fn(*args)
+                times[key].append((time.perf_counter() - t0) / n * 1e6)
+                torch.cuda.synchronize()
+        found[label] = {key: min(v) for key, v in times.items()}
+        found[label]["extra_us"] = found[label]["operator"] - found[label]["direct"]
+    return found
+
+
+def measure_reserve():
+    """The bytes a process holds on the card beyond its allocator's before its first
+    tensor of a model: the CUDA context, cuBLAS, the kernel library, Triton's module and
+    a 1-rank NCCL communicator, read in a fresh process as the growth of the card's used
+    memory (``nvidia-smi``, MiB) over its start-up less its allocator's reserved bytes;
+    this process waits meanwhile."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__)) + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", RESERVE_CODE, str(_free_port())],
+                          capture_output=True, text=True, timeout=300, env=env)
+    if proc.returncode != 0:
+        raise AssertionError(f"budget: the reserve's process exited {proc.returncode}:\n"
+                             f"{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def budget_rank(argv):
+    """A rank of phase 24's 2-card check: the budget's program for phase 22's config
+    built for real on this rank of the launcher's world, its applying micro-step run
+    under the budget's tracker; dumps the card's peak over it, the tracker's, and the
+    bytes the process holds beyond its allocator's to ``<dump>/rank<r>.pt``."""
+    import torch
+
+    from projectiontrainer_tpu_torch.parallel import budget, distributed
+
+    dump, _, rank = _rank_entry(argv)
+    distributed.initialize("cuda")
+    try:
+        distributed.setup_mesh(distributed.world_size(), 1)
+        program = budget.build_program(fsdp_config(FSDP_LAYERS_SHARING), torch.device("cuda"),
+                                       fake=False, **BUDGET_KW)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tracker = budget.MemoryTracker(budget.ALLOCATOR_ROUND)
+        ran = budget.run_tracked(program, tracker)
+        torch.cuda.synchronize()
+        free, total = torch.cuda.mem_get_info()
+        torch.save({"rank": rank, "peak": torch.cuda.max_memory_allocated(),
+                    "tracked": tracker.peak, "at_peak": tracker.at_peak,
+                    "collectives": ran["collectives"],
+                    "reserve": total - free - torch.cuda.memory_reserved()},
+                   os.path.join(dump, f"rank{rank}.pt"))
+    finally:
+        distributed.shutdown()
+
+
+def check_budget_nccl(root, smi):
+    """With 2 cards or more: the budget's rank-0 peak for phase 22's config at world 2
+    against rank 0's ``max_memory_allocated`` over its applying micro-step on 2 NCCL
+    ranks, a card each (``budget_rank``), within BUDGET_GAP, and the collectives equal."""
+    import torch
+
+    from projectiontrainer_tpu_torch.parallel import budget
+
+    rc, logs, wall = _dp_launch("budget_rank", root, [], 2, "nccl", 600)
+    if rc != 0:
+        raise AssertionError(f"budget: the 2-rank launch exited {rc}:\n{logs[-6000:]}")
+    dump, dump1 = (torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+                   for r in range(2))
+    two = budget.full_joint_budget(fsdp_config(FSDP_LAYERS_SHARING), n_devices=2, **BUDGET_KW)
+    gap = (two["per_device"]["peak_bytes"] - dump["peak"]) / dump["peak"]
+    found = {"predicted": two["per_device"], "measured_peak": dump["peak"],
+             "tracked": dump["tracked"], "tracked_by_category": dump["at_peak"], "gap": gap,
+             # rank 1's card holds no other process (this one's context is on card 0)
+             "reserve_rank1": dump1["reserve"], "launch_wall_s": wall,
+             "collectives_equal": dump["collectives"] == two["collectives"]}
+    print(f"budget world 2 over NCCL ({smi}): {found}", flush=True)
+    if not abs(gap) <= BUDGET_GAP or not found["collectives_equal"]:
+        raise AssertionError(f"budget: world-2 rank 0 {found}")
+    return found
+
+
+def phase_budget(fsdp_runs, full_depth=None):
+    """Phase 24: the memory and collective budget (``parallel/budget.py``) against the
+    card. The fake implementations' bytes against real launches; the host cost of the
+    operator a launch; the reserve a process holds; the predicted peak of phase 22's
+    config at world 1 against ``max_memory_allocated`` over the same micro-step run for
+    real (within BUDGET_GAP; the gap by category, the real run under the same tracker);
+    the meta trace (a host without CUDA) against the fake CUDA one (equal); the predicted
+    collectives and rank-0 peak at phase 22's world against what the trainer's rank 0
+    counted and measured there over its applying micro-step (equal; within BUDGET_GAP);
+    where the host has 2 cards or more, the predicted rank-0 peak at
+    world 2 against rank 0's over 2 NCCL ranks; then BASELINE config #4 at full depth,
+    printed: peak, fits and collectives at 4 x 1 and 8 x 1 (batch 2 and 4) and 4 x 2
+    (``full_depth``: those traces' processes, from ``start_full_depth_budgets``, started
+    earlier; else started here)."""
+    import contextlib
+
+    import torch
+
+    from projectiontrainer_tpu_torch.parallel import budget
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+    root = tempfile.mkdtemp(prefix="chip_smoke_budget_")
+    try:
+        if full_depth is None:
+            full_depth = start_full_depth_budgets(root)
+        rng = np.random.default_rng(SEED + 24)
+        buffers = check_fake_buffers(rng)
+        host_cost = launch_host_cost(rng)
+        gc_cuda()
+        reserve = measure_reserve()
+        cfg = fsdp_config(FSDP_LAYERS_SHARING)
+        predicted = budget.full_joint_budget(cfg, n_devices=1, **BUDGET_KW)
+        stand_in = budget.full_joint_budget(cfg, n_devices=1, device="meta", **BUDGET_KW)
+        if (stand_in["per_device"], stand_in["collectives"]) != (
+                predicted["per_device"], predicted["collectives"]):
+            raise AssertionError(f"budget: the meta trace {stand_in['per_device']} differs "
+                                 f"from the fake CUDA one {predicted['per_device']}")
+        card = {}
+
+        @contextlib.contextmanager
+        def around_step():
+            torch.cuda.synchronize()
+            card["start"] = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            yield
+            torch.cuda.synchronize()
+            card["peak"] = torch.cuda.max_memory_allocated()
+
+        gc_cuda()
+        real = budget.full_joint_budget(cfg, n_devices=1, fake=False, around_step=around_step,
+                                        **BUDGET_KW)
+        gc_cuda()
+        want = predicted["per_device"]["peak_bytes"]
+        gap = (want - card["peak"]) / card["peak"]
+        by_category = {k: want_k - real["per_device"][k]
+                       for k, want_k in predicted["per_device"].items()}
+        print(f"budget world 1 ({smi}): predicted peak {want} bytes, the card's "
+              f"max_memory_allocated {card['peak']} ({gap:+.2%}); the tracker over the real "
+              f"run {real['per_device']['peak_bytes']}; predicted - tracked by category "
+              f"{by_category}", flush=True)
+        if not abs(gap) <= BUDGET_GAP:
+            raise AssertionError(f"budget: world-1 peak predicted {want}, measured "
+                                 f"{card['peak']} ({gap:+.2%})")
+        world2 = None
+        if fsdp_runs.get("collectives_apply_micro_step") is not None:
+            # the trainer itself: phase 22's rank 0 over its applying micro-step
+            ranks, layers, backend = fsdp_runs["world"]
+            at_world = budget.full_joint_budget(fsdp_config(layers), n_devices=ranks,
+                                                **BUDGET_KW)
+            traced, counted = at_world["collectives"], fsdp_runs["collectives_apply_micro_step"]
+            want2 = at_world["per_device"]["peak_bytes"]
+            measured2 = fsdp_runs["peak_apply_micro_step"]
+            gap2 = (want2 - measured2) / measured2
+            print(f"budget at phase 22's world, {ranks} x 1 over {backend}, {layers} layers "
+                  f"({smi}): predicted rank-0 peak {want2} bytes, the trainer's "
+                  f"max_memory_allocated over its applying micro-step {measured2} "
+                  f"({gap2:+.2%}); collectives predicted {traced}, counted {counted}",
+                  flush=True)
+            if traced != counted:
+                raise AssertionError(f"budget: collectives predicted {traced}, phase 22 "
+                                     f"counted {counted}")
+            if not abs(gap2) <= BUDGET_GAP:
+                raise AssertionError(f"budget: phase 22's rank-0 peak predicted {want2}, "
+                                     f"measured {measured2} ({gap2:+.2%})")
+            world2 = {"ranks": ranks, "layers": layers, "backend": backend,
+                      "collectives": traced, "predicted": at_world["per_device"],
+                      "max_memory_allocated": measured2, "gap": gap2}
+        nccl2 = check_budget_nccl(root, smi) if torch.cuda.device_count() >= 2 else None
+        cells = []
+        for (n, m, b), proc, path in full_depth:
+            _, err = proc.communicate(timeout=900)
+            if proc.returncode != 0:
+                raise AssertionError(f"budget: the {n} x {m} batch {b} trace exited "
+                                     f"{proc.returncode}:\n{err[-3000:]}")
+            with open(path) as f:
+                report = json.load(f)
+            os.remove(path)
+            cells.append({k: report[k] for k in ("mesh", "batch_per_device", "per_device",
+                                                 "fits", "oom", "state_bytes_per_device",
+                                                 "collectives", "trace_s", "traced_on")})
+            print(f"budget BASELINE #4 at 34 layers, {n // m} x {m} (data x model), batch {b} "
+                  f"a data rank: peak "
+                  f"{report['per_device']['peak_bytes'] / 2 ** 30:.2f} GiB, fits "
+                  f"{report['fits']}, state {report['state_bytes_per_device'] / 2 ** 30:.2f} "
+                  f"GiB, traced in {report['trace_s']:.1f} s", flush=True)
+        emit({"phase": 24, "nvidia_smi": smi, "fake_buffers_declared_measured": buffers,
+              "launch_host_us": host_cost, "reserve": reserve,
+              "usable_bytes_constant": budget.H100_USABLE_BYTES,
+              "reserve_constant": budget.H100_RESERVE_BYTES,
+              "world1": {"predicted": predicted["per_device"], "tracked": real["per_device"],
+                         "max_memory_allocated": card["peak"], "start": card["start"],
+                         "gap": gap, "predicted_minus_tracked": by_category,
+                         "trace_s": predicted["trace_s"]},
+              "world2_collectives": world2, "world2_nccl": nccl2, "baseline4_full_depth": cells})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import gc
 
@@ -5631,6 +6266,9 @@ def main() -> int:
 
     device = phase_device()
     phase_build()
+    # phase 24's traces of BASELINE config #4 at full depth: host work alone, in six
+    # processes while the card times phase 2's rows
+    full_depth = start_full_depth_budgets(tempfile.gettempdir())
     results = phase_kernels()
     mark("0-2 device, build, kernels")
 
@@ -5722,7 +6360,11 @@ def main() -> int:
                                                for n in STAGE2_KERNELS}
     gc_cuda()
     tt_runs = phase_tp_towers()
+    stop_legs_servers()
     mark("23 tensor parallel towers")
+    gc_cuda()
+    phase_budget(fsdp_runs, full_depth)
+    mark("24 budget")
     for path, kernels in (("stage0_tp_rank0", STAGE0_KERNELS),
                           ("stage0_fsdp_tp_rank0", STAGE0_KERNELS),
                           ("cls_tp_rank0", CLS_KERNELS)):

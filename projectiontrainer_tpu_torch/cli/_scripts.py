@@ -76,3 +76,7 @@ def serve():
 def launch():
     # a failed rank raises SystemExit with its exit code inside the launcher's main
     _run("launch")
+
+
+def budget():
+    _run("budget")

@@ -10,6 +10,13 @@ fallback to another implementation.
 
 The Triton kernel (the LayerNorm forward) is not built here; it is imported and
 compiled inside the function that launches it.
+
+Each launch is an operator of the ``ptt`` namespace (:func:`kernel_op`): its CUDA
+implementation launches the kernel, its fake implementation (``FakeTensorMode``: the
+budget's trace, ``parallel/budget.py``) does nothing. Every buffer a launch writes, its
+outputs and its scratch alike, is allocated in Python on the tensor's device before the
+operator and passed to it as a mutated argument, so the operator itself allocates
+nothing: a memory tracker sees the same bytes under the fake mode as on the card.
 """
 
 from __future__ import annotations
@@ -23,6 +30,8 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -62,6 +71,7 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
+_OPS = torch.library.Library("ptt", "FRAGMENT")
 build_seconds: float | None = None  # wall time of the build this process did, if any
 
 
@@ -155,6 +165,38 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+def on_card(x) -> bool:
+    """Whether ``x`` takes a kernel's branch: a CUDA tensor (real, or fake in a trace),
+    or a meta tensor, which stands for the card in a trace where torch has no CUDA
+    (autograd refuses a fake CUDA tensor there; ``parallel/budget.py``). The operators
+    launch nothing on a fake or meta tensor."""
+    return x.is_cuda or x.is_meta
+
+
+def traced(x) -> bool:
+    """Whether ``x`` is a fake or meta tensor: a trace's, on no card."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    return x.is_meta or is_fake(x)
+
+
+def allocate(buffers: dict, device) -> dict:
+    """``torch.empty`` of each (shape, dtype) of a launch's buffers on ``device``."""
+    return {n: torch.empty(shape, dtype=dt, device=device) for n, (shape, dt) in buffers.items()}
+
+
+def kernel_op(name: str, schema: str, launch):
+    """Define the operator ``ptt::<name><schema>`` (a schema whose buffers are mutated
+    arguments and which returns nothing): ``launch`` is its CUDA implementation, and its
+    fake implementation returns nothing, so under ``FakeTensorMode`` the operator runs
+    no kernel and allocates nothing. Registered through ``torch.library.Library``, the
+    dispatcher's cheapest path from Python. Returns the operator."""
+    _OPS.define(name + schema)
+    _OPS.impl(name, launch, "CUDA")
+    torch.library.register_fake(f"ptt::{name}", lambda *args: None, lib=_OPS)
+    return getattr(torch.ops.ptt, name).default
 
 
 def check(name: str, err: int) -> None:

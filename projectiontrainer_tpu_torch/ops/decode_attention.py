@@ -15,6 +15,12 @@ fills the card: ``decode_plan`` decides the cut on the host, and the CPU tests h
 Each split leaves a partial softmax in fp32 scratch (from the caching allocator) and
 the last split of a (batch, KV head) to finish combines them; a per-stream counter
 tells it that it is the last, and it sets the counter back to 0 for the next launch.
+
+The kernel takes head dims 64, 128 and 256; any other up to 256 is zero-padded on the
+card to the next of them, the query and the four caches alike, and the output sliced
+back (``decode_attention_padded``; the scale stays the caller's). The JAX package falls
+back to XLA there instead. Padding copies the caches at every step: the copy-free
+version is a kernel that reads rows of D < width.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch
 
 from projectiontrainer_tpu_torch.kernels import _build
 from projectiontrainer_tpu_torch.ops.attention import NEG_INF
+from projectiontrainer_tpu_torch.ops.flash_attention import pad_head_dim, padded_head_dim
 
 launches = _build.LaunchCounter("decode_attn")
 HEAD_DIMS = (64, 128, 256)
@@ -155,7 +162,21 @@ def decode_attention(q, kp, vp, kg, vg, *, prefix_mask, t: int, prefix_len: int,
     kw = dict(prefix_mask=prefix_mask, t=t, prefix_len=prefix_len, scale=scale,
               window=window)
     if q.is_cuda:
+        if q.shape[-1] not in HEAD_DIMS:
+            return decode_attention_padded(q, kp, vp, kg, vg, **kw)
         return _launch(q, kp, vp, kg, vg, **kw)
     if q.device.type != "cpu":
         raise RuntimeError(f"decode_attention: no kernel for device {q.device}")
     return decode_attention_reference(q, kp, vp, kg, vg, **kw)
+
+
+def decode_attention_padded(q, kp, vp, kg, vg, **kw):
+    """``decode_attention`` at a head dim D the kernel does not take: q and the caches
+    zero-padded on D to the next of ``HEAD_DIMS``, the output sliced
+    back to D; ``kw`` as ``decode_attention``'s, the caller's scale included. On CPU
+    tensors the plain version runs at the padded width."""
+    d = q.shape[-1]
+    width = padded_head_dim(d, HEAD_DIMS)
+    q, kp, vp, kg, vg = (pad_head_dim(x, width) for x in (q, kp, vp, kg, vg))
+    run = _launch if q.is_cuda else decode_attention_reference
+    return run(q, kp, vp, kg, vg, **kw)[..., :d]

@@ -16,8 +16,17 @@ will follow, the forward kernel also writes O in fp32 and the backward takes del
 from that copy, not from the bf16 output (see ``csrc/flash_attn_fwd.cu``).
 
 Self-attention shapes only (``Tq == Tk``): the towers (non-causal) and the decoder
-(causal, sliding window, padding mask, GQA). Head dims 64, 72 (so400m; the kernels fill
-its rows up with zeros on the chip, nothing is padded here), 128 and 256.
+(causal, sliding window, padding mask, GQA). The kernels take head dims 64, 72 (so400m;
+the kernels fill its rows up with zeros on the chip, nothing is padded here), 128 and
+256; any other head dim up to 256 is zero-padded on the card to the next of them, as the
+JAX package pads inside its kernel (``flash_attention_padded``): the kernels run at that
+width with the caller's scale ``D ** -0.5`` and O, dQ, dK and dV are sliced back (q.k and
+P.V gain only zero terms); above 256 the wrapper raises.
+
+Each launch is a ``ptt`` operator (``kernels/_build.py:kernel_op``): the wrappers check
+the shapes and allocate every buffer the kernel writes (``fwd_buffers``,
+``dkv_buffers``, ``dq_buffers``) before it, and the operator's CUDA implementation
+checks the pointers and launches; under ``FakeTensorMode`` it does nothing.
 
 What a launch decides on the host is in plain functions here, which the CPU tests
 reach: the tiles of each kernel by head dim (``forward_plan``, ``dkv_plan``,
@@ -48,6 +57,7 @@ import ctypes
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from projectiontrainer_tpu_torch.kernels import _build
 from projectiontrainer_tpu_torch.ops.attention import attention_probs, dot_product_attention, repeat_kv
@@ -165,14 +175,22 @@ def flash_attention_bwd_reference(q, k, v, kv_mask, out, lse, do, *,
 
 
 def _check(name, x, ndim):
-    if not x.is_cuda:
+    if not _build.on_card(x):
         raise ValueError(f"flash_attention: {name} is not on the card")
     if x.dtype != torch.bfloat16:
         raise TypeError(f"flash_attention: {name} must be bf16 on the card, got {x.dtype}")
     if x.dim() != ndim or x.stride(-1) != 1:
         raise ValueError(f"flash_attention: {name} must be {ndim}-D with unit stride on D")
-    if x.data_ptr() % 16 or any(s % 8 for s in x.stride()[:-1]):
+    if any(s % 8 for s in x.stride()[:-1]):
         raise ValueError(f"flash_attention: {name} rows must be 16-byte aligned")
+
+
+def _check_pointers(**tensors):
+    """The operators' own check: the TMA unit reads from 16-byte aligned addresses (a
+    fake tensor has none, so the wrappers leave this to the launch)."""
+    for name, x in tensors.items():
+        if x.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} rows must be 16-byte aligned")
 
 
 def _check_shapes(q, k, v):
@@ -201,31 +219,101 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
-def _launch(q, k, v, *, scale, causal, window, kv_mask, out_f32: bool = False):
-    """K1 -> (out, lse, fp32 copy of out or None)."""
+def fwd_buffers(q, out_f32: bool = False) -> dict:
+    """What one K1 launch on q writes, name -> (shape, dtype): O in q's type, the fp32
+    lse [B, Hq, T] and, when a backward follows, O in fp32."""
     b, t, hq, d = q.shape
-    hkv = k.shape[2]
-    _check_shapes(q, k, v)
-    if not scale > 0:
-        raise ValueError(f"flash_attention: scale must be positive, got {scale}")
-    mask = _mask_arg(kv_mask, q)
+    bufs = {"out": ((b, t, hq, d), q.dtype), "lse": ((b, hq, t), torch.float32)}
+    if out_f32:
+        bufs["out32"] = ((b, t, hq, d), torch.float32)
+    return bufs
+
+
+def dkv_buffers(q, k) -> dict:
+    """What one K4 launch writes: dK and dV in k's type and shape."""
+    return {"dk": (tuple(k.shape), k.dtype), "dv": (tuple(k.shape), k.dtype)}
+
+
+def dq_buffers(q) -> dict:
+    """What one K5 launch writes: dQ in q's type and shape."""
+    return {"dq": (tuple(q.shape), q.dtype)}
+
+
+def _stream(x) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _fwd_launch(q, k, v, mask, out, lse, out32, scale, causal, window):
+    """K1's operator on the card: ``out``, ``lse`` and ``out32`` (or None) written."""
+    _check_pointers(q=q, k=k, v=v)
+    b, t, hq, d = q.shape
     plan = forward_plan(d)
     maps = (ctypes.c_longlong * 33)(*tensor_map_plan(q, plan["bq"]),
                                     *tensor_map_plan(k, plan["bk"]),
                                     *tensor_map_plan(v, plan["bk"]))
-    lib = _build.library()
-    out = torch.empty((b, t, hq, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, hq, t), dtype=torch.float32, device=q.device)
-    out32 = torch.empty((b, t, hq, d), dtype=torch.float32, device=q.device) if out_f32 else None
-    err = lib.flash_attn_fwd_bf16(
+    err = _build.library().flash_attn_fwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), out.data_ptr(), lse.data_ptr(),
-        _ptr(out32), b, t, hq, hkv, d, maps, plan["bq"], plan["bk"], *out.stride()[:3],
-        float(scale), int(causal), int(window or 0),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+        _ptr(out32), b, t, hq, k.shape[2], d, maps, plan["bq"], plan["bk"],
+        *out.stride()[:3], scale, int(causal), window, _stream(q))
     _build.check("flash_attn_fwd_bf16", err)
     launches.add()
-    return out, lse, out32
+
+
+def _dkv_launch(q, k, v, mask, do, lse, delta, dk, dv, scale, causal, window):
+    """K4's operator on the card: ``dk`` and ``dv`` written."""
+    _check_pointers(q=q, k=k, v=v, dout=do)
+    b, t, hq, d = q.shape
+    plan = dkv_plan(d)
+    strides = (ctypes.c_longlong * 18)(*(s for x in (q, k, v, do, dk, dv) for s in x.stride()[:3]))
+    maps = (ctypes.c_longlong * 44)(*tensor_map_plan(q, plan["bq"]), *tensor_map_plan(k, plan["bk"]),
+                                    *tensor_map_plan(v, plan["bk"]), *tensor_map_plan(do, plan["bq"]))
+    err = _build.library().flash_attn_bwd_dkv_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t, hq, k.shape[2], d, strides, maps,
+        plan["bk"], plan["bq"], scale, int(causal), window, _stream(q))
+    _build.check("flash_attn_bwd_dkv_bf16", err)
+    bwd_dkv_launches.add()
+
+
+def _dq_launch(q, k, v, mask, do, lse, delta, dq, scale, causal, window):
+    """K5's operator on the card: ``dq`` written."""
+    _check_pointers(q=q, k=k, v=v, dout=do)
+    b, t, hq, d = q.shape
+    plan = dq_plan(d)
+    strides = (ctypes.c_longlong * 15)(*(s for x in (q, k, v, do, dq) for s in x.stride()[:3]))
+    maps = (ctypes.c_longlong * 44)(*tensor_map_plan(q, plan["bq"]), *tensor_map_plan(k, plan["bk"]),
+                                    *tensor_map_plan(v, plan["bk"]), *tensor_map_plan(do, plan["bq"]))
+    err = _build.library().flash_attn_bwd_dq_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), b, t, hq, k.shape[2], d, strides, maps,
+        plan["bq"], plan["bk"], scale, int(causal), window, _stream(q))
+    _build.check("flash_attn_bwd_dq_bf16", err)
+    bwd_dq_launches.add()
+
+
+_ARGS = "Tensor q, Tensor k, Tensor v, Tensor? mask"
+_OPTS = "float scale, bool causal, int window"
+FWD_OP = _build.kernel_op(
+    "flash_attn_fwd", f"({_ARGS}, Tensor(a!) out, Tensor(b!) lse, Tensor(c!)? out32, "
+    f"{_OPTS}) -> ()", _fwd_launch)
+DKV_OP = _build.kernel_op(
+    "flash_attn_bwd_dkv", f"({_ARGS}, Tensor dout, Tensor lse, Tensor delta, Tensor(a!) dk, "
+    f"Tensor(b!) dv, {_OPTS}) -> ()", _dkv_launch)
+DQ_OP = _build.kernel_op(
+    "flash_attn_bwd_dq", f"({_ARGS}, Tensor dout, Tensor lse, Tensor delta, Tensor(a!) dq, "
+    f"{_OPTS}) -> ()", _dq_launch)
+
+
+def _launch(q, k, v, *, scale, causal, window, kv_mask, out_f32: bool = False):
+    """K1 -> (out, lse, fp32 copy of out or None)."""
+    _check_shapes(q, k, v)
+    if not scale > 0:
+        raise ValueError(f"flash_attention: scale must be positive, got {scale}")
+    mask = _mask_arg(kv_mask, q)
+    bufs = _build.allocate(fwd_buffers(q, out_f32), q.device)
+    FWD_OP(q, k, v, mask, bufs["out"], bufs["lse"], bufs.get("out32"), float(scale),
+           bool(causal), int(window or 0))
+    return bufs["out"], bufs["lse"], bufs.get("out32")
 
 
 def prepare_bwd(q, k, v, kv_mask, out, lse, do):
@@ -246,39 +334,16 @@ def prepare_bwd(q, k, v, kv_mask, out, lse, do):
 
 def launch_bwd_dkv(q, k, v, mask, do, lse, delta, *, scale, causal, window):
     """K4 on prepared inputs (``prepare_bwd``) -> (dk, dv)."""
-    b, t, hq, d = q.shape
-    hkv = k.shape[2]
-    plan = dkv_plan(d)
-    dk = torch.empty((b, t, hkv, d), dtype=k.dtype, device=q.device)
-    dv = torch.empty((b, t, hkv, d), dtype=v.dtype, device=q.device)
-    strides = (ctypes.c_longlong * 18)(*(s for x in (q, k, v, do, dk, dv) for s in x.stride()[:3]))
-    maps = (ctypes.c_longlong * 44)(*tensor_map_plan(q, plan["bq"]), *tensor_map_plan(k, plan["bk"]),
-                                    *tensor_map_plan(v, plan["bk"]), *tensor_map_plan(do, plan["bq"]))
-    err = _build.library().flash_attn_bwd_dkv_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t, hq, hkv, d, strides, maps,
-        plan["bk"], plan["bq"], float(scale), int(causal), int(window or 0),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check("flash_attn_bwd_dkv_bf16", err)
-    bwd_dkv_launches.add()
-    return dk, dv
+    bufs = _build.allocate(dkv_buffers(q, k), q.device)
+    DKV_OP(q, k, v, mask, do, lse, delta, bufs["dk"], bufs["dv"], float(scale), bool(causal),
+           int(window or 0))
+    return bufs["dk"], bufs["dv"]
 
 
 def launch_bwd_dq(q, k, v, mask, do, lse, delta, *, scale, causal, window):
     """K5 on prepared inputs (``prepare_bwd``) -> dq."""
-    b, t, hq, d = q.shape
-    plan = dq_plan(d)
-    dq = torch.empty((b, t, hq, d), dtype=q.dtype, device=q.device)
-    strides = (ctypes.c_longlong * 15)(*(s for x in (q, k, v, do, dq) for s in x.stride()[:3]))
-    maps = (ctypes.c_longlong * 44)(*tensor_map_plan(q, plan["bq"]), *tensor_map_plan(k, plan["bk"]),
-                                    *tensor_map_plan(v, plan["bk"]), *tensor_map_plan(do, plan["bq"]))
-    err = _build.library().flash_attn_bwd_dq_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), b, t, hq, k.shape[2], d, strides, maps,
-        plan["bq"], plan["bk"], float(scale), int(causal), int(window or 0),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check("flash_attn_bwd_dq_bf16", err)
-    bwd_dq_launches.add()
+    dq = _build.allocate(dq_buffers(q), q.device)["dq"]
+    DQ_OP(q, k, v, mask, do, lse, delta, dq, float(scale), bool(causal), int(window or 0))
     return dq
 
 
@@ -289,7 +354,7 @@ def flash_attention_bwd(q, k, v, kv_mask, out, lse, do, *, scale: Optional[float
     if scale is None:
         scale = q.shape[-1] ** -0.5
     kw = dict(scale=scale, causal=causal, window=window)
-    if not q.is_cuda:
+    if not _build.on_card(q):
         if q.device.type != "cpu":
             raise RuntimeError(f"flash_attention: no kernel for device {q.device}")
         return flash_attention_bwd_reference(q, k, v, kv_mask, out, lse, do, **kw)
@@ -302,7 +367,7 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, scale, causal, window):
-        if q.is_cuda:
+        if _build.on_card(q):
             out, lse, out32 = _launch(q, k, v, scale=scale, causal=causal, window=window,
                                       kv_mask=kv_mask, out_f32=any(ctx.needs_input_grad[:3]))
         elif q.device.type == "cpu":
@@ -328,11 +393,48 @@ def flash_attention(q, k, v, *, scale: Optional[float] = None, causal: bool = Fa
                     window: Optional[int] = None, kv_mask=None):
     """q [B, T, Hq, D], k/v [B, T, Hkv, D] -> (out [B, T, Hq, D], lse [B, Hq, T]).
 
-    The kernels on CUDA tensors, the plain versions on CPU tensors; differentiable
-    in ``out`` with respect to q, k and v."""
+    The kernels on CUDA tensors (a head dim outside ``HEAD_DIMS`` zero-padded to the
+    next one, ``flash_attention_padded``), the plain versions on CPU tensors;
+    differentiable in ``out`` with respect to q, k and v."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    if _build.on_card(q) and q.shape[-1] not in HEAD_DIMS:
+        return flash_attention_padded(q, k, v, scale=scale, causal=causal, window=window,
+                                      kv_mask=kv_mask)
     return _FlashAttention.apply(q, k, v, kv_mask, float(scale), bool(causal), window)
+
+
+def padded_head_dim(d: int, widths=HEAD_DIMS) -> int:
+    """The smallest of ``widths`` at or above head dim d; raises above the largest."""
+    for w in sorted(widths):
+        if w >= d:
+            return w
+    raise ValueError(f"head_dim {d} not supported: the kernels take up to {max(widths)}")
+
+
+def pad_head_dim(x, width: int):
+    """``x`` zero-padded on its last axis to ``width`` (``x`` itself at that width)."""
+    d = x.shape[-1]
+    return x if d == width else F.pad(x, (0, width - d))
+
+
+def flash_attention_padded(q, k, v, *, scale: Optional[float] = None, causal: bool = False,
+                           window: Optional[int] = None, kv_mask=None):
+    """``flash_attention`` at a head dim D the kernels do not take: q, k and v
+    zero-padded on D to :func:`padded_head_dim`, the attention run
+    there with the caller's scale (default D ** -0.5, not the padded width's), O sliced
+    back to D and lse as it comes. The zero columns add nothing to q.k and give zero
+    columns of O, dQ, dK and dV, which the pad's backward drops. The JAX package pads
+    the same way inside its kernel (``ops/flash_attention.py:flash_attention`` there).
+    On CPU tensors the plain versions run at the padded width."""
+    d = q.shape[-1]
+    if scale is None:
+        scale = d ** -0.5
+    width = padded_head_dim(d)
+    out, lse = _FlashAttention.apply(pad_head_dim(q, width), pad_head_dim(k, width),
+                                     pad_head_dim(v, width), kv_mask, float(scale),
+                                     bool(causal), window)
+    return out[..., :d], lse
 
 
 def sharded_flash_plan(hq: int, hkv: int, model: int) -> tuple[int, int]:
@@ -383,7 +485,8 @@ def flash_attention_merged(qm, km, vm, *, heads: int, kv_heads: int,
 
     The counterpart of the JAX package's ``_flash_lanes``: the inputs are viewed as
     [B, T, H, D] without a copy and run through ``flash_attention`` (the K1 forward and
-    K4/K5 backward kernels on CUDA tensors), so there is no gate and no pad."""
+    K4/K5 backward kernels on CUDA tensors), so there is no gate; a head dim the kernels
+    do not take is padded there like any other."""
     q, k, v = _split_heads(qm, heads), _split_heads(km, kv_heads), _split_heads(vm, kv_heads)
     out, _ = flash_attention(q, k, v, scale=scale)
     return out.reshape(qm.shape)

@@ -272,8 +272,10 @@ class _ChunkedVocabParallelNLL(torch.autograd.Function):
             h = hidden[s:s + ctx.chunk]
             p = torch.exp(_logits(h, table, ctx.scale) - lse[s:s + ctx.chunk, None])
             lab = loc[s:s + ctx.chunk].long()
-            hit = (lab >= 0).nonzero()[:, 0]
-            p[hit, lab[hit]] -= 1.0
+            # minus one at each label inside the slice; no data-dependent shape, so a
+            # trace without data (parallel/budget.py) runs it too
+            hit = (lab >= 0)[:, None]
+            p.scatter_add_(1, lab.clamp_min(0)[:, None], -hit.to(p.dtype))
             q = (p * (g[s:s + ctx.chunk, None].float() * ctx.scale)).to(h.dtype)
             dh.append(q @ w)
             dw += (q.t() @ h).float()

@@ -24,7 +24,14 @@ and dy and writes dx (~113 MB at the stage-0 tower's [16384, 1152] bf16).
   grid barrier each CTA adds its slice of the columns over all partials in CTA order
   (deterministic: no atomics). Rows past a band's end are never loaded, so a
   part-filled stage adds nothing. bf16 or fp32 rows, D a multiple of 8 up to
-  ``BWD_MAX_D``, 16-byte aligned rows.
+  ``BWD_MAX_D``, 16-byte aligned rows. That width is a refusal the JAX package does not
+  share (it falls back to XLA for D % 128, ``ops/fused_layernorm.py:53`` there), and no
+  pad repairs it: zero columns would enter the row statistics, so K8 would need the true
+  D beside a padded row stride. Every tower the repo runs (768, 1024, 1152) is inside.
+
+Each launch is a ``ptt`` operator (``kernels/_build.py:kernel_op``): the wrappers
+allocate what the kernel writes (``fwd_buffers``, ``bwd_buffers``: K8's partial sums
+too) before it; under ``FakeTensorMode`` the operator does nothing.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ BWD_MAX_D = 4096         # MAX_D: 128 column-sum threads x 32 columns each
 BWD_THREADS = 416        # THREADS
 BWD_MAX_STAGES = 4       # ring stages the plan uses (the kernel takes up to 8)
 SMEM_LIMIT = 232_448     # dynamic shared memory a block may opt into on the H100
+H100_SMS = 132           # the SMs K8's plan spreads over where no card is asked (a trace)
 _barriers: dict = {}     # (device index, stream) -> the grid barrier's uint32 counter
 _barriers_lock = threading.Lock()
 
@@ -106,8 +114,28 @@ def _check_rows(name, x2):
 
 def _check_params(d, *params):
     for t in params:
-        if t.shape != (d,) or not t.is_cuda:
+        if t.shape != (d,) or not _build.on_card(t):
             raise ValueError("layernorm kernel needs [D] scale and bias on the card")
+
+
+def fwd_buffers(x2) -> dict:
+    """What one K2 launch on rows x2 [N, D] writes: y, contiguous, in x's type."""
+    return {"out": (tuple(x2.shape), x2.dtype)}
+
+
+def _fwd_launch(x2, scale, bias, out, eps):
+    """K2's operator on the card: ``out`` written."""
+    triton, kernel = _fwd_kernel()
+    d = x2.shape[1]
+    block = triton.next_power_of_2(d)
+    kernel[(x2.shape[0],)](x2, scale, bias, out, x2.stride(0), d, eps, BLOCK_D=block,
+                           num_warps=4 if block <= 2048 else 8)
+    launches.add()
+
+
+FWD_OP = _build.kernel_op(
+    "layernorm_fwd", "(Tensor x, Tensor scale, Tensor bias, Tensor(a!) out, float eps) -> ()",
+    _fwd_launch)
 
 
 def layernorm_fwd(x: torch.Tensor, scale, bias, eps: float) -> torch.Tensor:
@@ -116,13 +144,9 @@ def layernorm_fwd(x: torch.Tensor, scale, bias, eps: float) -> torch.Tensor:
     x2 = x.reshape(-1, d)
     _check_rows("x", x2)
     _check_params(d, scale, bias)
-    triton, kernel = _fwd_kernel()
-    out = torch.empty((x2.shape[0], d), dtype=x.dtype, device=x.device)
-    block = triton.next_power_of_2(d)
-    kernel[(x2.shape[0],)](x2, scale.contiguous(), bias.contiguous(), out,
-                           x2.stride(0), d, eps, BLOCK_D=block,
-                           num_warps=4 if block <= 2048 else 8)
-    launches.add()
+    scale, bias = scale.contiguous(), bias.contiguous()
+    out = _build.allocate(fwd_buffers(x2), x.device)["out"]
+    FWD_OP(x2, scale, bias, out, float(eps))
     return out.reshape(shape)
 
 
@@ -184,6 +208,44 @@ def _grid_barrier(device, stream: int):
         return c
 
 
+def sm_count(x) -> int:
+    """The SMs of the card that holds ``x``; ``H100_SMS`` for a tensor that stands for
+    one in a trace (``parallel/budget.py``: a fake or meta tensor, no card asked)."""
+    if _build.traced(x):
+        return H100_SMS
+    return torch.cuda.get_device_properties(x.device).multi_processor_count
+
+
+def bwd_buffers(n: int, d: int, dtype, plan: dict) -> dict:
+    """What one K8 launch on [n, d] rows of ``dtype`` under ``plan`` writes: dx in x's
+    type, each CTA's fp32 partial column sums [ctas, 2, d] and the combined sums [2, d]
+    (dscale, dbias)."""
+    return {"dx": ((n, d), dtype), "part": ((plan["ctas"], 2, d), torch.float32),
+            "sums": ((2, d), torch.float32)}
+
+
+def _bwd_launch(x2, dy2, scale, dx, part, sums, rows, stages, eps):
+    """K8's operator on the card: ``dx``, ``part`` and ``sums`` written."""
+    for name, t in (("x", x2), ("dy", dy2)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"layernorm backward kernel: {name} rows must be 16-byte aligned")
+    n, d = x2.shape
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    name = "layernorm_bwd_bf16" if x2.dtype == torch.bfloat16 else "layernorm_bwd_f32"
+    err = getattr(_build.library(), name)(
+        x2.data_ptr(), dy2.data_ptr(), scale.data_ptr(), dx.data_ptr(), part.data_ptr(),
+        sums.data_ptr(), _grid_barrier(x2.device, stream).data_ptr(), n, d, x2.stride(0),
+        dy2.stride(0), rows, stages, part.shape[0], int(scale.dtype == torch.float32),
+        eps, stream)
+    _build.check(name, err)
+    bwd_launches.add()
+
+
+BWD_OP = _build.kernel_op(
+    "layernorm_bwd", "(Tensor x, Tensor dy, Tensor scale, Tensor(a!) dx, Tensor(b!) part, "
+    "Tensor(c!) sums, int rows, int stages, float eps) -> ()", _bwd_launch)
+
+
 def layernorm_bwd(x2: torch.Tensor, dy2: torch.Tensor, scale, eps: float,
                   plan: dict | None = None):
     """K8 on CUDA rows x2, dy2 [N, D] (bf16 or fp32, 16-byte aligned rows) -> (dx [N, D]
@@ -198,27 +260,17 @@ def layernorm_bwd(x2: torch.Tensor, dy2: torch.Tensor, scale, eps: float,
         raise ValueError(f"layernorm backward: dy {tuple(dy2.shape)} {dy2.dtype} is not x "
                          f"{tuple(x2.shape)} {x2.dtype}")
     for name, t in (("x", x2), ("dy", dy2)):
-        if t.data_ptr() % 16 or t.stride(0) * t.element_size() % 16:
+        if t.stride(0) * t.element_size() % 16:
             raise ValueError(f"layernorm backward kernel: {name} rows must be 16-byte aligned")
     if scale.dtype not in (torch.bfloat16, torch.float32) or scale.stride(0) != 1:
         raise TypeError(f"layernorm backward kernel: scale must be contiguous bf16 or fp32, "
                         f"got {scale.dtype}")
     if plan is None:
-        plan = bwd_plan(n, d, torch.cuda.get_device_properties(x2.device).multi_processor_count,
-                        x2.element_size())
-    dx = torch.empty((n, d), dtype=x2.dtype, device=x2.device)
-    part = torch.empty((plan["ctas"], 2, d), dtype=torch.float32, device=x2.device)
-    sums = torch.empty((2, d), dtype=torch.float32, device=x2.device)
-    stream = torch.cuda.current_stream(x2.device).cuda_stream
-    name = "layernorm_bwd_bf16" if x2.dtype == torch.bfloat16 else "layernorm_bwd_f32"
-    err = getattr(_build.library(), name)(
-        x2.data_ptr(), dy2.data_ptr(), scale.data_ptr(), dx.data_ptr(), part.data_ptr(),
-        sums.data_ptr(), _grid_barrier(x2.device, stream).data_ptr(), n, d, x2.stride(0),
-        dy2.stride(0), plan["rows"], plan["stages"], plan["ctas"],
-        int(scale.dtype == torch.float32), float(eps), stream)
-    _build.check(name, err)
-    bwd_launches.add()
-    return dx, sums[0], sums[1]
+        plan = bwd_plan(n, d, sm_count(x2), x2.element_size())
+    bufs = _build.allocate(bwd_buffers(n, d, x2.dtype, plan), x2.device)
+    BWD_OP(x2, dy2, scale, bufs["dx"], bufs["part"], bufs["sums"], plan["rows"],
+           plan["stages"], float(eps))
+    return bufs["dx"], bufs["sums"][0], bufs["sums"][1]
 
 
 # ---------------------------------------------------------------------------- autograd
@@ -228,7 +280,7 @@ class _LayerNorm(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, scale, bias, eps):
-        if x.is_cuda:
+        if _build.on_card(x):
             y = layernorm_fwd(x, scale, bias, eps)
         elif x.device.type == "cpu":
             y = layernorm_reference({"scale": scale, "bias": bias}, x, eps=eps)
@@ -244,7 +296,7 @@ class _LayerNorm(torch.autograd.Function):
         x, scale = ctx.saved_tensors
         d = x.shape[-1]
         x2, dy2 = x.reshape(-1, d), dy.reshape(-1, d)
-        if x.is_cuda:
+        if _build.on_card(x):
             dx, dscale, dbias = layernorm_bwd(x2, dy2.contiguous(), scale, ctx.eps)
         else:
             dx, dscale, dbias = layernorm_bwd_reference(x2, dy2, scale, ctx.eps)

@@ -29,13 +29,25 @@ only; :func:`all_reduce_` and :func:`all_gather_dim` take the axis explicitly.
 
 Backends: ``nccl`` for ranks on their own GPUs, ``gloo`` for the CPU, or for ranks that
 share a GPU (NCCL refuses two ranks on one device). Gloo runs its collectives on the
-host: a CUDA tensor is copied to the CPU for them (fp16/bf16 as fp32) and back.
+host: a CUDA tensor is copied to the CPU for them (fp16/bf16 as fp32) and back. Every
+branch between the two asks :func:`on_device_collectives`, which the ``fake`` backend
+answers like ``nccl``: :func:`fake_world` is a world of ``n`` ranks seen from rank 0,
+whose collectives move nothing (``torch.testing``'s ``FakeStore``), for the memory and
+collective budget's trace (``parallel/budget.py``), so the trace allocates what an NCCL
+rank allocates and no host staging.
+
+Every collective that the port issues is noted in :data:`COLLECTIVES` by kind
+(``all-gather``, ``reduce-scatter``, ``all-reduce``, ``broadcast``) and phase
+(``forward``, ``recompute``, ``backward``, ``grads``, ``optimizer``; :func:`note`), with
+the bytes of its result (of its whole input for a reduce-scatter): the inventory that
+the budget predicts and the smoke counts.
 
 Every function here is a no-op, or the identity, in a world of one process.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import pickle
@@ -54,6 +66,44 @@ DATA_AXIS = "data"
 MODEL_AXIS = "model"
 # the resolved mesh of this process (setup_mesh): axis sizes and this rank's groups
 _MESH = {"data": 1, "model": 1, "groups": {}}
+# (kind, phase) -> [count, bytes] of the collectives issued (note); the phase a caller
+# sets with collective_phase
+COLLECTIVES: dict = defaultdict(lambda: [0, 0])
+_PHASE = [None]
+
+
+@contextlib.contextmanager
+def collective_phase(name: str):
+    """Note the collectives issued inside the block under phase ``name`` (the train
+    step's ``grads`` and ``optimizer``), whatever their callers say."""
+    prev, _PHASE[0] = _PHASE[0], name
+    try:
+        yield
+    finally:
+        _PHASE[0] = prev
+
+
+def note(kind: str, nbytes: int, phase: Optional[str] = None) -> None:
+    """Count one collective of ``kind`` moving ``nbytes`` in :data:`COLLECTIVES`, under
+    the phase of :func:`collective_phase`, else ``phase``, else ``backward`` inside
+    autograd's backward and ``forward`` outside it."""
+    if phase is None:
+        phase = "backward" if torch._C._current_graph_task_id() != -1 else "forward"
+    entry = COLLECTIVES[(kind, _PHASE[0] or phase)]
+    entry[0] += 1
+    entry[1] += int(nbytes)
+
+
+def collective_inventory() -> dict:
+    """:data:`COLLECTIVES` as {kind: {phase: {'count', 'bytes'}}}."""
+    out: dict = {}
+    for (kind, phase), (count, nbytes) in sorted(COLLECTIVES.items()):
+        out.setdefault(kind, {})[phase] = {"count": count, "bytes": nbytes}
+    return out
+
+
+def reset_collectives() -> None:
+    COLLECTIVES.clear()
 
 
 def is_initialized() -> bool:
@@ -145,6 +195,32 @@ def initialize(device_type: str = "cuda", backend: Optional[str] = None,
     return rank(), world_size()
 
 
+def on_device_collectives() -> bool:
+    """Whether the process group runs its collectives on the tensors' device: NCCL, and
+    the fake backend of :func:`fake_world`, which stands for it. Gloo stages through the
+    host."""
+    return dist.get_backend() in ("nccl", "fake")
+
+
+@contextlib.contextmanager
+def fake_world(n: int, data: Optional[int] = None, model: int = 1):
+    """A process group of ``n`` ranks on the ``fake`` backend, this process rank 0, laid
+    out as a ``data`` (default n / model) x ``model`` mesh: every collective returns at
+    once and moves nothing. Raises if a process group exists already; the world and the
+    mesh are torn down on exit, whatever happens inside."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if is_initialized():
+        raise RuntimeError("fake_world: a process group is initialized already")
+    data = n // model if data is None else data
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    try:
+        setup_mesh(data, model)
+        yield
+    finally:
+        shutdown()
+
+
 def shutdown() -> None:
     if is_initialized():
         dist.destroy_process_group()
@@ -203,7 +279,7 @@ def barrier() -> None:
     ``dist.barrier``, Stage0:321,357,428,795-798)."""
     if world_size() == 1:
         return
-    if dist.get_backend() == "nccl":
+    if dist.get_backend() == "nccl":  # the fake backend's barrier needs no device
         dist.barrier(device_ids=[torch.cuda.current_device()])
     else:
         dist.barrier()
@@ -215,17 +291,20 @@ def barrier() -> None:
 def _staged(t: torch.Tensor) -> torch.Tensor:
     """``t`` as the process group carries it: itself under nccl; under gloo a CPU
     tensor, fp16/bf16 widened to fp32 (gloo sums on the host)."""
-    if dist.get_backend() != "gloo":
+    if on_device_collectives():
         return t
     if t.dtype in (torch.float16, torch.bfloat16):
         return t.to("cpu", torch.float32)
     return t.cpu()
 
 
-def all_reduce_(t: torch.Tensor, axis: str = DATA_AXIS, op=dist.ReduceOp.SUM) -> torch.Tensor:
-    """Reduce ``t`` (sum, or ``op``) over the ranks of ``axis``, in place; returns ``t``."""
+def all_reduce_(t: torch.Tensor, axis: str = DATA_AXIS, op=dist.ReduceOp.SUM,
+                phase: Optional[str] = None) -> torch.Tensor:
+    """Reduce ``t`` (sum, or ``op``) over the ranks of ``axis``, in place; returns ``t``.
+    ``phase``: what :func:`note` counts it under, when no block sets one."""
     if axis_size(axis) == 1:
         return t
+    note("all-reduce", t.numel() * t.element_size(), phase)
     c = _staged(t)
     dist.all_reduce(c, op=op, group=_group(axis))
     if c is not t:
@@ -245,15 +324,17 @@ def sum_over_ranks(x: torch.Tensor) -> torch.Tensor:
     return all_reduce_sum_(x.detach().clone())
 
 
-def all_gather_dim(x: torch.Tensor, dim: int, axis: str = DATA_AXIS) -> torch.Tensor:
+def all_gather_dim(x: torch.Tensor, dim: int, axis: str = DATA_AXIS,
+                   phase: Optional[str] = None) -> torch.Tensor:
     """Every rank's ``x`` of ``axis`` (the same shape on each) concatenated along
-    ``dim``, in rank order; not differentiable."""
+    ``dim``, in rank order; not differentiable. ``phase`` as :func:`all_reduce_`'s."""
     if axis_size(axis) == 1:
         return x
     c = x.detach().contiguous()
-    if dist.get_backend() == "gloo":  # on the host, in its own type: a gather sums nothing
+    if not on_device_collectives():  # gloo: on the host, in its own type (it sums nothing)
         c = c.cpu()
     out = [torch.empty_like(c) for _ in range(axis_size(axis))]
+    note("all-gather", axis_size(axis) * c.numel() * c.element_size(), phase)
     dist.all_gather(out, c, group=_group(axis))
     return torch.cat(out, dim=dim).to(x.device, x.dtype)
 
@@ -331,6 +412,7 @@ def broadcast_(tensors: Sequence[torch.Tensor]) -> None:
     src = model_rank()  # global rank of (0, model index)
 
     def bcast(flat):
+        note("broadcast", flat.numel() * flat.element_size())
         c = _staged(flat)
         dist.broadcast(c, src, group=_group(DATA_AXIS))
         if c is not flat:
@@ -343,7 +425,8 @@ def broadcast_(tensors: Sequence[torch.Tensor]) -> None:
 
 
 def _host_device() -> torch.device:
-    """Where a host value travels: the rank's GPU under nccl, the CPU under gloo."""
+    """Where a host value travels: the rank's GPU under nccl, the CPU under gloo (and
+    under the fake backend, which moves nothing)."""
     if dist.get_backend() == "nccl":
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device("cpu")

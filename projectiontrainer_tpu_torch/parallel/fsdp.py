@@ -10,6 +10,7 @@ the port writes out:
   data dim over the data group and whose backward reduce-scatters the incoming
   gradient back to the shard: the rank's block of the gradient summed over the data
   ranks, which is what the data all-reduce of the other leaves gives them. Under NCCL
+  (and the fake backend of the budget's trace, ``distributed.on_device_collectives``)
   these are ``all_gather_into_tensor`` and ``reduce_scatter_tensor``; gloo has no
   reduce-scatter, so there the whole gradient is all-reduced on the host, in its own
   type as NCCL sums it, and the rank keeps its block: the same gradient, a different
@@ -39,7 +40,9 @@ and ``recompute`` gathers, ``backward`` reduce-scatters, ``grads``: the clip's n
 over the data axis) with the bytes of the whole tensor in :data:`BYTES`, and runs in a
 profiler span ``fsdp_gather`` or ``fsdp_reduce_scatter``. Under :func:`track`,
 :data:`LIVE` follows the bytes of the gathered weights still alive and their peak, and
-``LIVE['events']`` lists every collective as (phase, leaf path, bytes).
+``LIVE['events']`` lists every collective as (phase, leaf path, bytes). Each is noted in
+``distributed.COLLECTIVES`` too (the gathers by their result's bytes, the reduce-scatters
+by their whole input's: what ``BYTES`` counts).
 """
 
 from __future__ import annotations
@@ -87,7 +90,7 @@ def _all_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
     n = distributed.data_size()
     group = distributed._group(distributed.DATA_AXIS)
     x = x.detach().contiguous()
-    if dist.get_backend() == "nccl":
+    if distributed.on_device_collectives():
         out = torch.empty((n,) + tuple(x.shape), dtype=x.dtype, device=x.device)
         dist.all_gather_into_tensor(out, x, group=group)
     else:
@@ -102,7 +105,7 @@ def _reduce_scatter(g: torch.Tensor, dim: int) -> torch.Tensor:
     """The rank's block along ``dim`` of ``g`` summed over the data ranks."""
     n, r = distributed.data_size(), distributed.data_rank()
     size = g.shape[dim] // n
-    if dist.get_backend() == "nccl":
+    if distributed.on_device_collectives():
         chunks = g.contiguous() if dim == 0 else torch.stack(g.chunk(n, dim))
         out = torch.empty(g.shape[:dim] + (size,) + g.shape[dim + 1:], dtype=g.dtype,
                           device=g.device)
@@ -114,12 +117,11 @@ def _reduce_scatter(g: torch.Tensor, dim: int) -> torch.Tensor:
     return full.narrow(dim, r * size, size).contiguous().to(g.device)
 
 
-@torch.library.custom_op("ptt::fsdp_all_gather", mutates_args=())
-def _all_gather_op(x: torch.Tensor, dim: int, path: str) -> torch.Tensor:
+def _counted(out: torch.Tensor, path: str) -> torch.Tensor:
+    """Count the gather that made ``out`` (and follow its bytes under :func:`track`)."""
     phase = "recompute" if _in_backward() else "forward"
-    with span("fsdp_gather"):
-        out = _all_gather(x, dim)
     n = out.numel() * out.element_size()
+    distributed.note("all-gather", n, phase)
     COUNTS[phase] += 1
     BYTES[phase] += n
     if LIVE["track"]:
@@ -130,11 +132,19 @@ def _all_gather_op(x: torch.Tensor, dim: int, path: str) -> torch.Tensor:
     return out
 
 
+@torch.library.custom_op("ptt::fsdp_all_gather", mutates_args=())
+def _all_gather_op(x: torch.Tensor, dim: int, path: str) -> torch.Tensor:
+    with span("fsdp_gather"):
+        return _counted(_all_gather(x, dim), path)
+
+
 @_all_gather_op.register_fake
 def _(x, dim, path):
+    """The gather of a trace (``parallel/budget.py``): its output, counted as the real
+    one is."""
     shape = list(x.shape)
     shape[dim] *= distributed.data_size()
-    return x.new_empty(shape)
+    return _counted(x.new_empty(shape), path)
 
 
 ALL_GATHER_OP = torch.ops.ptt.fsdp_all_gather.default
@@ -154,6 +164,7 @@ class _Gather(torch.autograd.Function):
         with span("fsdp_reduce_scatter"):
             out = _reduce_scatter(grad, ctx.dim)
         n = grad.numel() * grad.element_size()
+        distributed.note("reduce-scatter", n, "backward")
         COUNTS["backward"] += 1
         BYTES["backward"] += n
         if LIVE["track"]:

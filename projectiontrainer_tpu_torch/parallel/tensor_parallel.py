@@ -64,7 +64,7 @@ def all_reduce(x: torch.Tensor, phase: str, op=None) -> torch.Tensor:
     COUNTS[phase] += 1
     with span("tp_allreduce"):
         return distributed.all_reduce_(x.contiguous().clone(), distributed.MODEL_AXIS,
-                                       **({} if op is None else {"op": op}))
+                                       **({} if op is None else {"op": op}), phase=phase)
 
 
 @torch.library.custom_op("ptt::tp_all_reduce", mutates_args=())
@@ -74,6 +74,11 @@ def _all_reduce_op(x: torch.Tensor) -> torch.Tensor:
 
 @_all_reduce_op.register_fake
 def _(x):
+    """The all-reduce of a trace (``parallel/budget.py``): its output, counted as the
+    real one is."""
+    phase = "recompute" if _in_backward() else "forward"
+    COUNTS[phase] += 1
+    distributed.note("all-reduce", x.numel() * x.element_size(), phase)
     return torch.empty_like(x)
 
 
@@ -105,9 +110,10 @@ class _GatherFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim):
         ctx.dim, ctx.n = dim, x.shape[dim]
-        COUNTS["recompute" if _in_backward() else "forward"] += 1
+        phase = "recompute" if _in_backward() else "forward"
+        COUNTS[phase] += 1
         with span("tp_allgather"):
-            return distributed.all_gather_dim(x, dim, distributed.MODEL_AXIS)
+            return distributed.all_gather_dim(x, dim, distributed.MODEL_AXIS, phase)
 
     @staticmethod
     def backward(ctx, grad):

@@ -110,20 +110,24 @@ def make_train_step(loss_fn: Callable, tx, *, trainable_mask=None,
             grads = torch.autograd.grad(loss, [x for _, x in train], allow_unused=True)
         grads = {p: torch.zeros_like(x) if g is None else g
                  for (p, x), g in zip(train, grads)}
-        if tp.size() > 1:
-            partial = [g for p, g in grads.items() if p in plan.partial]
-            if partial:
-                with span("tp_allreduce"):
-                    tp.COUNTS["grads"] += 1
-                    distributed.all_reduce_grads(partial, distributed.MODEL_AXIS)
-        with span("grad_allreduce"):
-            distributed.all_reduce_grads([g for p, g in grads.items() if p not in data_sharded])
-            loss = distributed.sum_over_ranks(loss.detach())
+        with distributed.collective_phase("grads"):
+            if tp.size() > 1:
+                partial = [g for p, g in grads.items() if p in plan.partial]
+                if partial:
+                    with span("tp_allreduce"):
+                        tp.COUNTS["grads"] += 1
+                        distributed.all_reduce_grads(partial, distributed.MODEL_AXIS)
+            with span("grad_allreduce"):
+                distributed.all_reduce_grads([g for p, g in grads.items()
+                                              if p not in data_sharded])
+                loss = distributed.sum_over_ranks(loss.detach())
         with span("optimizer"):
-            tx.update(grads, state["opt_state"], params)
+            with distributed.collective_phase("optimizer"):
+                tx.update(grads, state["opt_state"], params)
             state["step"] += 1
-            aux = {**aux, "grad_norm": sharded_global_norms({"all": grads}, sharded,
-                                                            data_sharded)["all"]}
+            with distributed.collective_phase("grads"):
+                aux = {**aux, "grad_norm": sharded_global_norms({"all": grads}, sharded,
+                                                                data_sharded)["all"]}
         if watch_subtree is not None:
             prefix = watch_subtree + "/"
             aux["watched_grads"] = {p[len(prefix):]: g for p, g in grads.items()

@@ -89,6 +89,67 @@ def parse_remat(arg: str):
                          f"got {arg!r}") from None
 
 
+@dataclasses.dataclass
+class Stage2Program:
+    """What a stage-2 run trains with (:func:`build_stage2`)."""
+
+    plan: sharding.ShardPlan
+    policy: masks.Stage2Freeze
+    steps: dict            # train_vision -> (step, optimizer, schedule)
+    state: dict            # under the first epoch's variant
+    trained: set           # every leaf path that trains at some point of the run
+    logits_chunk: Optional[int]
+    table_frozen: bool
+    compute_dtype: torch.dtype
+
+
+def build_stage2(params: dict, vlm_cfg: vlm.VLMConfig, cfg: Stage2Config, *, pad_id: int,
+                 total_steps: int, lora_cfg=None) -> Stage2Program:
+    """The train state and step variants of a stage-2 run from ``params`` (whole, or this
+    model rank's shards; the adapters in ``params['lora']`` under LoRA): the params
+    placed (``common.place_params``, in place: under ``--fsdp`` the rank's data shards)
+    and the full-joint trainables cast to ``--master_dtype``; the loss; one (step,
+    optimizer, schedule) for each variant of the tower's freeze, and the state under
+    the first epoch's. ``Stage2Trainer`` and the memory budget (``parallel/budget.py``)
+    both build through it."""
+    plan = common.place_params(params, vlm_cfg, cfg)
+    policy = cfg.freeze_policy()
+    # full-parameter fine-tunes store their trainables in --master_dtype, and so
+    # their Adam moments (reference: accelerate bf16 keeps fp32 masters and fp32
+    # optimizer state); the loss computes in --mixed_precision's type
+    if policy.train_llm:
+        target = torch.float32 if cfg.master_dtype == "fp32" else torch.bfloat16
+        params["llm"] = dtypes.cast_compute_params(params["llm"], target)
+        if cfg.train_ve_first_epoch:
+            params["vision"] = dtypes.cast_compute_params(params["vision"], target)
+    logits_chunk = 128 if vlm_cfg.llm.vocab_size >= 32_768 else None
+    # the vocab table trains under a full-LLM fine-tune: the chunked CE then
+    table_frozen = not policy.train_llm
+    compute_dtype = dtypes.compute_dtype(cfg.mixed_precision)
+    loss_fn = steps.stage2_loss(vlm_cfg, pad_id, lora_cfg=lora_cfg, logits_chunk=logits_chunk,
+                                table_frozen=table_frozen, compute_dtype=compute_dtype,
+                                remat=parse_remat(cfg.remat))
+    variants = {}
+    unique = {p for p, _ in unique_leaves_with_paths(params)}
+    trained = set()
+    for ve in ((True, False) if cfg.train_ve_first_epoch else (False,)):
+        labels = masks.stage2_labels(params, dataclasses.replace(policy, train_vision=ve))
+        tx, schedule = optim.single_group_optimizer(
+            labels, cfg.learning_rate, total_steps=total_steps,
+            warmup_ratio=cfg.warmup_ratio, weight_decay=cfg.weight_decay,
+            clip_norm=cfg.grad_clip, clip_per_module=True,
+            accum_steps=cfg.gradient_accumulation_steps, sharded_paths=plan.sharded,
+            fsdp_paths=plan.data_sharded)
+        variants[ve] = (steps.make_train_step(
+            loss_fn, tx, trainable_mask=masks.bool_mask(labels), plan=plan), tx, schedule)
+        trained |= {p for p, label in leaves_with_paths(labels)
+                    if label != masks.FROZEN and p in unique}
+    state = steps.init_state(params, variants[cfg.train_ve_first_epoch][1])
+    return Stage2Program(plan=plan, policy=policy, steps=variants, state=state,
+                         trained=trained, logits_chunk=logits_chunk,
+                         table_frozen=table_frozen, compute_dtype=compute_dtype)
+
+
 class Stage2Trainer:
     def __init__(self, cfg: Stage2Config, *, vlm_cfg: vlm.VLMConfig, params, tokenizer,
                  train_dataset, val_dataset=None, logger: Optional[MetricLogger] = None):
@@ -119,17 +180,6 @@ class Stage2Trainer:
                 full = lora_mod.init(gen, vlm_cfg.llm, self.lora_cfg, device=device)
                 params["lora"] = sharding.shard_params(
                     full, sharding.plan_for(full, vlm_cfg, prefix="lora"), prefix="lora")
-        self.plan = common.place_params(params, vlm_cfg, cfg)
-
-        self.base_policy = cfg.freeze_policy()
-        # full-parameter fine-tunes store their trainables in --master_dtype, and so
-        # their Adam moments (reference: accelerate bf16 keeps fp32 masters and fp32
-        # optimizer state); the loss computes in --mixed_precision's type
-        if self.base_policy.train_llm:
-            target = torch.float32 if cfg.master_dtype == "fp32" else torch.bfloat16
-            params["llm"] = dtypes.cast_compute_params(params["llm"], target)
-            if cfg.train_ve_first_epoch:
-                params["vision"] = dtypes.cast_compute_params(params["vision"], target)
 
         # deterministic per-epoch bucket plans from the token lengths: the same in
         # every process, and the cosine schedule ends exactly at max_train_steps
@@ -151,48 +201,30 @@ class Stage2Trainer:
         accum = cfg.gradient_accumulation_steps
         self.max_train_steps = sum(-(-len(p) // accum) for p in self._train_plans)
 
-        logits_chunk = 128 if vlm_cfg.llm.vocab_size >= 32_768 else None
-        # the vocab table trains under a full-LLM fine-tune: the chunked CE then
-        table_frozen = not self.base_policy.train_llm
-        self.compute_dtype = dtypes.compute_dtype(cfg.mixed_precision)
-        loss_fn = steps.stage2_loss(vlm_cfg, self.pad_id, lora_cfg=self.lora_cfg,
-                                    logits_chunk=logits_chunk, table_frozen=table_frozen,
-                                    compute_dtype=self.compute_dtype,
-                                    remat=parse_remat(cfg.remat))
+        built = build_stage2(params, vlm_cfg, cfg, pad_id=self.pad_id,
+                             total_steps=self.max_train_steps, lora_cfg=self.lora_cfg)
+        self.plan, self.base_policy = built.plan, built.policy
+        self.compute_dtype = built.compute_dtype
         # two step variants when the tower trains only in epoch 0
-        self._steps = {}
-        unique = {p for p, _ in unique_leaves_with_paths(params)}
-        trained = set()
-        for ve in ((True, False) if cfg.train_ve_first_epoch else (False,)):
-            labels = masks.stage2_labels(
-                params, dataclasses.replace(self.base_policy, train_vision=ve))
-            tx, schedule = optim.single_group_optimizer(
-                labels, cfg.learning_rate, total_steps=self.max_train_steps,
-                warmup_ratio=cfg.warmup_ratio, weight_decay=cfg.weight_decay,
-                clip_norm=cfg.grad_clip, clip_per_module=True, accum_steps=accum,
-                sharded_paths=self.plan.sharded, fsdp_paths=self.plan.data_sharded)
-            self._steps[ve] = (steps.make_train_step(
-                loss_fn, tx, trainable_mask=masks.bool_mask(labels), plan=self.plan),
-                tx, schedule)
-            trained |= {p for p, label in leaves_with_paths(labels)
-                        if label != masks.FROZEN and p in unique}
+        self._steps = built.steps
         _, self.tx, self.schedule = self._steps[cfg.train_ve_first_epoch]
-        self.state = steps.init_state(params, self.tx)
+        self.state = built.state
         self.eval_step = steps.make_eval_step(
             steps.stage2_loss(vlm_cfg, self.pad_id, lora_cfg=self.lora_cfg, remat=False,
-                              logits_chunk=logits_chunk, table_frozen=table_frozen,
+                              logits_chunk=built.logits_chunk,
+                              table_frozen=built.table_frozen,
                               compute_dtype=self.compute_dtype))
 
         # every leaf that trains at any point of the run: the tower that epoch 0
         # changed has no optimizer state after the swap, yet a resume needs it
         self.ckpt = CheckpointManager(os.path.join(cfg.output_dir, "checkpoints"),
-                                      best_mode="min", save_paths=trained, plan=self.plan)
+                                      best_mode="min", save_paths=built.trained, plan=self.plan)
         self.global_step = 0
         self.start_epoch = 0
         self._skip_batches = 0
         if cfg.resume:
             self.resume_latest()
-        common.sync_replicas(self.state["params"], trained, self.plan)
+        common.sync_replicas(self.state["params"], built.trained, self.plan)
 
     # ------------------------------------------------------------------ resume
 

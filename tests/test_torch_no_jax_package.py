@@ -65,6 +65,8 @@ def test_entry_points_load_nothing_of_the_jax_package():
         "from projectiontrainer_tpu_torch.cli import launch\n"
         "from projectiontrainer_tpu_torch.core import mesh\n"
         "from projectiontrainer_tpu_torch.parallel import distributed\n"
+        "from projectiontrainer_tpu_torch.parallel import budget\n"
+        "from projectiontrainer_tpu_torch.cli import budget as budget_cli\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'projectiontrainer_tpu' or m.startswith('projectiontrainer_tpu.')]\n"

@@ -37,7 +37,7 @@ def test_every_port_cli_has_one_entry():
         code = getattr(shims, func).__code__
         reached.update(c for c in code.co_consts if isinstance(c, str) and c in _cli_modules())
     assert reached == set(_cli_modules())
-    assert len(scripts) == len(_cli_modules()) == 15
+    assert len(scripts) == len(_cli_modules()) == 16
 
 
 @pytest.mark.parametrize("name", sorted(_port_scripts()))
