@@ -6,8 +6,8 @@ plus ``--device``. Per batch: bucket and left-pad the questions, run the
 ``--adapter_path`` merges a LoRA adapter (PEFT, or the legacy flat format with the
 ``--lora_r``/``--lora_alpha`` flags) into the dense base before the first batch.
 
-Not ported: ``--approx_topk`` raises inside ``generate`` (the JAX package's TPU-only
-approximate top-k).
+``--approx_topk`` asks the JAX package for the TPU's approximate top-k in the sampled
+beam search's candidate scan; here, as in XLA off the TPU, that top-k is exact.
 """
 
 from __future__ import annotations
@@ -56,7 +56,8 @@ def build_parser():
     p.add_argument("--repetition_penalty", type=float, default=1.8)
     p.add_argument("--length_penalty", type=float, default=1.2)
     p.add_argument("--approx_topk", action="store_true",
-                   help="The JAX package's TPU approximate top-k: not available here")
+                   help="Approximate top-k in the sampled beam search's candidate scan "
+                   "(the TPU's approx_max_k; exact here, as XLA computes it off the TPU)")
     p.add_argument("--lora_r", type=int, default=16)
     p.add_argument("--lora_alpha", type=int, default=32)
     p.add_argument("--device", type=str, default="cuda")

@@ -15,10 +15,17 @@
 //
 // Design: the live keys of each (batch, KV head) are cut into splits of `chunk` keys
 // (ops/decode_attention.py:decode_plan sizes them so that the grid fills the card),
-// one CTA each: grid (splits, Hkv, B). A split of the shared prefix serves ALL
+// one CTA each: grid (splits, Hkv, B * groups). A split of the shared prefix serves ALL
 // nb * n_rep query rows of its (batch, KV head) (12 at 3 beams x 4 heads), so each
 // prefix key is still read once for all beams, as the split cache intends; a split of
-// one beam's generated slots serves that beam's n_rep rows. Inside a split, tiles of 32
+// one beam's generated slots serves that beam's n_rep rows. Shared memory holds the
+// rows of a CTA in fp32 (q and O), at most MAX_M<D> of them (64; 16 at D = 512): more
+// rows per (batch, KV head) (17 beams x 4 heads) are cut into row groups, each its own
+// set of splits and its own combine, as if it were a (batch, KV head) of its own. A
+// group is `bpg` whole beams of all n_rep rows or, where n_rep alone is too many, `rpg`
+// of one beam's rows; each group reads the prefix again
+// (ops/decode_attention.py:group_shape sizes them). Up to MAX_M rows there is one group,
+// and the kernel is compiled without the groups' index arithmetic (GROUPED false). Inside a split, tiles of 32
 // keys are loaded with 16-byte cp.async copies, the next tile in flight while the
 // current one is computed on CUDA cores (scores with a warp a key, an online softmax
 // with a warp a row, then P V with a thread a column pair and group of rows). Keys
@@ -55,6 +62,12 @@ constexpr int TK = 32;  // keys per tile: one per lane in the softmax pass
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr float NEG_INF = -2.3819763e38f;
+
+// query rows a CTA holds (ops/decode_attention.py:max_rows): the K/V tiles in flight
+// and the rows' fp32 q and O within the 227 KB of one SM (199 KB at 64 rows of 256 and at
+// 16 rows of 512)
+template <int D>
+constexpr int MAX_M = D > 256 ? 16 : 64;
 
 template <int D>
 size_t smem_bytes(int M) {
@@ -200,7 +213,9 @@ __device__ __forceinline__ int covering_split(int u, int beam, int p_splits, int
   return u < p_splits ? u : p_splits + beam * g_splits + (u - p_splits);
 }
 
-template <int D>
+// GROUPED: the rows of a (batch, KV head) are cut into row groups; without it the
+// group is the whole (batch, KV head), and the indices below fold to constants
+template <int D, bool GROUPED>
 __global__ void __launch_bounds__(THREADS)
 decode_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
                    const bf16* __restrict__ vp, const bf16* __restrict__ kg,
@@ -208,10 +223,19 @@ decode_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
                    bf16* __restrict__ out, float* __restrict__ o_part, float* __restrict__ ml_part,
                    int* __restrict__ counter, int nb, int Hkv, int n_rep, int P, int G,
                    int p_begin, int p_splits, int g_begin, int g_end, int g_splits, int chunk,
-                   float scale) {
+                   int groups, int bpg, int rpg, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int is_last;
-  const int M = nb * n_rep;
+  const int split = blockIdx.x, h = blockIdx.y, b = GROUPED ? blockIdx.z / groups : blockIdx.z;
+  // this CTA's row group: beams [beam0, beam0 + nbu) x reps [rep0, rep0 + nru) of its
+  // (batch, KV head); its rows r = local beam * nru + local rep
+  const int grp = GROUPED ? blockIdx.z % groups : 0;
+  const int n_rg = GROUPED ? (n_rep + rpg - 1) / rpg : 1;
+  const int beam0 = GROUPED ? grp / n_rg * bpg : 0, nbu = GROUPED ? min(bpg, nb - beam0) : nb;
+  const int rep0 = GROUPED ? grp % n_rg * rpg : 0, nru = GROUPED ? min(rpg, n_rep - rep0) : n_rep;
+  const int M = nbu * nru, M_max = GROUPED ? bpg * rpg : M;
+  const int S = p_splits + nbu * g_splits, S_max = GROUPED ? p_splits + bpg * g_splits : S;
+  if (GROUPED && split >= S) return;  // a smaller last group: this split is not its
   Shared sh;
   sh.k = reinterpret_cast<bf16*>(smem);
   sh.v = sh.k + 2 * TK * D;
@@ -222,10 +246,9 @@ decode_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
   sh.l = sh.m + M;
   sh.corr = sh.l + M;
 
-  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int Hq = Hkv * n_rep;
   const int bh = b * Hkv + h;
-  const int S = p_splits + nb * g_splits;
+  const int unit = GROUPED ? bh * groups + grp : bh;  // the group's counter and scratch
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   // this split's keys [k_begin, k_end) and query rows [row0, row0 + nr)
@@ -240,12 +263,12 @@ decode_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
     kbase = kp + (long long)bh * P * D;
     vbase = vp + (long long)bh * P * D;
   } else {
-    const int gs = split - p_splits, beam = gs / g_splits;
-    row0 = beam * n_rep;
-    nr = n_rep;
+    const int gs = split - p_splits, beam = gs / g_splits;  // the group's local beam
+    row0 = beam * nru;
+    nr = nru;
     k_begin = g_begin + (gs % g_splits) * chunk;
     k_end = min(g_end, k_begin + chunk);
-    const long long row = (long long)(b * nb + beam) * Hkv + h;
+    const long long row = (long long)(b * nb + beam0 + beam) * Hkv + h;
     kbase = kg + row * G * D;
     vbase = vg + row * G * D;
   }
@@ -255,10 +278,11 @@ decode_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
     load_tile<D>(sh.k, sh.v, kbase + (long long)k_begin * D, vbase + (long long)k_begin * D,
                  min(TK, k_end - k_begin));
 
-  // query rows r = beam * n_rep + rep: row (b * nb + beam) of q, head h * n_rep + rep
+  // query rows r = local beam * nru + local rep: row (b * nb + beam0 + beam) of q, head
+  // h * n_rep + rep0 + rep
   for (int i = threadIdx.x; i < nr * D; i += THREADS) {
     const int r = row0 + i / D, d = i % D;
-    const int beam = r / n_rep, rep = r % n_rep;
+    const int beam = beam0 + r / nru, rep = rep0 + r % nru;
     sh.q[i] = __bfloat162float(q[((long long)(b * nb + beam) * Hq + h * n_rep + rep) * D + d]);
     sh.o[i] = 0.f;
   }
@@ -288,16 +312,18 @@ decode_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
     __syncthreads();  // every thread is done with the buffer before it is refilled
   }
 
-  // this split's partial: unnormalised O, row max m and sum l, fp32 [B * Hkv, S, M, ...]
-  const long long part = (long long)bh * S + split;
-  for (int i = threadIdx.x; i < nr * D; i += THREADS) o_part[(part * M + row0) * D + i] = sh.o[i];
+  // this split's partial: unnormalised O, row max m and sum l, fp32
+  // [B * Hkv * groups, S_max, M_max, ...] (the group's M of M_max rows used)
+  const long long part = (long long)unit * S_max + split;
+  for (int i = threadIdx.x; i < nr * D; i += THREADS)
+    o_part[(part * M_max + row0) * D + i] = sh.o[i];
   for (int r = threadIdx.x; r < nr; r += THREADS) {
-    ml_part[(part * M + row0 + r) * 2] = sh.m[r];
-    ml_part[(part * M + row0 + r) * 2 + 1] = sh.l[r];
+    ml_part[(part * M_max + row0 + r) * 2] = sh.m[r];
+    ml_part[(part * M_max + row0 + r) * 2 + 1] = sh.l[r];
   }
   __threadfence();
   __syncthreads();
-  if (threadIdx.x == 0) is_last = atomicAdd(counter + bh, 1) == S - 1;
+  if (threadIdx.x == 0) is_last = atomicAdd(counter + unit, 1) == S - 1;
   __syncthreads();
   if (!is_last) return;
   __threadfence();
@@ -307,21 +333,21 @@ decode_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
   // A warp a row finds its max and sum, the lanes taking the splits (a fixed order of
   // sums); then the weighted partials are summed into sO, in split order.
   const int n_cover = p_splits + g_splits;
-  const float* ml = ml_part + (long long)bh * S * M * 2;
-  const float* op = o_part + (long long)bh * S * M * D;
+  const float* ml = ml_part + (long long)unit * S_max * M_max * 2;
+  const float* op = o_part + (long long)unit * S_max * M_max * D;
   for (int r = warp; r < M; r += WARPS) {
-    const int beam = r / n_rep;
+    const int beam = r / nru;
     float mt = NEG_INF;
     for (int u = lane; u < n_cover; u += 32) {
       const long long sp = covering_split(u, beam, p_splits, g_splits);
-      mt = fmaxf(mt, __ldcg(ml + (sp * M + r) * 2));
+      mt = fmaxf(mt, __ldcg(ml + (sp * M_max + r) * 2));
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
     float lt = 0.f;
     for (int u = lane; u < n_cover; u += 32) {
       const long long sp = covering_split(u, beam, p_splits, g_splits);
-      lt += __ldcg(ml + (sp * M + r) * 2 + 1) * __expf(__ldcg(ml + (sp * M + r) * 2) - mt);
+      lt += __ldcg(ml + (sp * M_max + r) * 2 + 1) * __expf(__ldcg(ml + (sp * M_max + r) * 2) - mt);
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) lt += __shfl_xor_sync(0xffffffffu, lt, off);
@@ -342,14 +368,14 @@ decode_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
     __syncthreads();  // the row statistics, or the previous round's last reads
     for (int i = threadIdx.x; i < nu * M * (D / 4); i += THREADS) {
       const int uu = i / (M * (D / 4)), r = (i / (D / 4)) % M, c = (i % (D / 4)) * 4;
-      const long long sp = covering_split(u0 + uu, r / n_rep, p_splits, g_splits);
-      cp_async_16(stage + ((long long)uu * M + r) * D + c, op + (sp * M + r) * D + c);
+      const long long sp = covering_split(u0 + uu, r / nru, p_splits, g_splits);
+      cp_async_16(stage + ((long long)uu * M + r) * D + c, op + (sp * M_max + r) * D + c);
     }
     cp_async_commit();
     for (int i = threadIdx.x; i < M * nu; i += THREADS) {
       const int r = i / nu, uu = i % nu;
-      const long long sp = covering_split(u0 + uu, r / n_rep, p_splits, g_splits);
-      sh.s[r * TK + uu] = __expf(__ldcg(ml + (sp * M + r) * 2) - sh.m[r]);
+      const long long sp = covering_split(u0 + uu, r / nru, p_splits, g_splits);
+      sh.s[r * TK + uu] = __expf(__ldcg(ml + (sp * M_max + r) * 2) - sh.m[r]);
     }
     cp_async_wait<0>();
     __syncthreads();
@@ -362,62 +388,63 @@ decode_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
   }
   for (int i = threadIdx.x; i < M * D; i += THREADS) {
     const int r = i / D, d = i % D;
-    const int beam = r / n_rep, rep = r % n_rep;
+    const int beam = beam0 + r / nru, rep = rep0 + r % nru;
     out[((long long)(b * nb + beam) * Hq + h * n_rep + rep) * D + d] =
         __float2bfloat16(sh.o[i] / sh.l[r]);
   }
-  if (threadIdx.x == 0) counter[bh] = 0;  // ready for the next launch
+  if (threadIdx.x == 0) counter[unit] = 0;  // ready for the next launch
 }
 
-template <int D>
+template <int D, bool GROUPED>
 cudaError_t launch(const void* q, const void* kp, const void* vp, const void* kg,
                    const void* vg, const void* prefix_mask, void* out, void* o_part,
                    void* ml_part, void* counter, int B, int nb, int Hkv, int n_rep, int P, int G,
                    int p_begin, int p_splits, int g_begin, int g_end, int g_splits, int chunk,
-                   float scale, cudaStream_t stream) {
-  if (chunk <= 0 || chunk % TK || g_splits <= 0 || p_splits < 0)
+                   int groups, int bpg, int rpg, float scale, cudaStream_t stream) {
+  if (chunk <= 0 || chunk % TK || g_splits <= 0 || p_splits < 0 || bpg < 1 || rpg < 1 ||
+      bpg * rpg > MAX_M<D> || (rpg < n_rep && bpg != 1) || rpg > n_rep ||
+      groups != (nb + bpg - 1) / bpg * ((n_rep + rpg - 1) / rpg))
     return cudaErrorInvalidValue;  // not a plan of ops/decode_attention.py:decode_plan
-  const size_t bytes = smem_bytes<D>(nb * n_rep);
-  cudaError_t err = cudaFuncSetAttribute(decode_attn_kernel<D>,
+  const size_t bytes = smem_bytes<D>(bpg * rpg);
+  cudaError_t err = cudaFuncSetAttribute(decode_attn_kernel<D, GROUPED>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);
   if (err != cudaSuccess) return err;
-  dim3 grid(p_splits + nb * g_splits, Hkv, B);
-  decode_attn_kernel<D><<<grid, THREADS, bytes, stream>>>(
+  dim3 grid(p_splits + bpg * g_splits, Hkv, B * groups);
+  decode_attn_kernel<D, GROUPED><<<grid, THREADS, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(kp), static_cast<const bf16*>(vp),
       static_cast<const bf16*>(kg), static_cast<const bf16*>(vg),
       static_cast<const int*>(prefix_mask), static_cast<bf16*>(out),
       static_cast<float*>(o_part), static_cast<float*>(ml_part), static_cast<int*>(counter), nb,
-      Hkv, n_rep, P, G, p_begin, p_splits, g_begin, g_end, g_splits, chunk, scale);
+      Hkv, n_rep, P, G, p_begin, p_splits, g_begin, g_end, g_splits, chunk, groups, bpg, rpg,
+      scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// o_part, ml_part: fp32 scratch of B * Hkv * splits * nb * n_rep * D and * 2 floats;
-// counter: B * Hkv ints, 0 before the launch and 0 after it; p_begin .. chunk: the plan
-// of ops/decode_attention.py:decode_plan
+// o_part, ml_part: fp32 scratch of B * Hkv * groups * (p_splits + bpg * g_splits) * bpg
+// * rpg * D and * 2 floats; counter: B * Hkv * groups ints, 0 before the launch and 0
+// after it; p_begin .. rpg: the plan of ops/decode_attention.py:decode_plan
 extern "C" int decode_attn_bf16(const void* q, const void* kp, const void* vp,
                                 const void* kg, const void* vg, const void* prefix_mask,
                                 void* out, void* o_part, void* ml_part, void* counter, int B,
                                 int nb, int Hkv, int n_rep, int P, int G, int D, int p_begin,
                                 int p_splits, int g_begin, int g_end, int g_splits, int chunk,
-                                float scale, void* stream) {
+                                int groups, int bpg, int rpg, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define DECODE_ATTN_CASE(W)                                                                   \
+  case W:                                                                                     \
+    return (int)(groups > 1 ? launch<W, true> : launch<W, false>)(                            \
+        q, kp, vp, kg, vg, prefix_mask, out, o_part, ml_part, counter, B, nb, Hkv, n_rep, P,  \
+        G, p_begin, p_splits, g_begin, g_end, g_splits, chunk, groups, bpg, rpg, scale, s);
   switch (D) {
-    case 64:
-      return (int)launch<64>(q, kp, vp, kg, vg, prefix_mask, out, o_part, ml_part, counter, B,
-                             nb, Hkv, n_rep, P, G, p_begin, p_splits, g_begin, g_end, g_splits,
-                             chunk, scale, s);
-    case 128:
-      return (int)launch<128>(q, kp, vp, kg, vg, prefix_mask, out, o_part, ml_part, counter, B,
-                              nb, Hkv, n_rep, P, G, p_begin, p_splits, g_begin, g_end, g_splits,
-                              chunk, scale, s);
-    case 256:
-      return (int)launch<256>(q, kp, vp, kg, vg, prefix_mask, out, o_part, ml_part, counter, B,
-                              nb, Hkv, n_rep, P, G, p_begin, p_splits, g_begin, g_end, g_splits,
-                              chunk, scale, s);
+    DECODE_ATTN_CASE(64)
+    DECODE_ATTN_CASE(128)
+    DECODE_ATTN_CASE(256)
+    DECODE_ATTN_CASE(512)
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef DECODE_ATTN_CASE
 }

@@ -47,7 +47,11 @@
 //   At D = 256 dK and dV of 64 keys would be 256 registers a thread: there the CTA owns
 //   64 keys, both warpgroups compute S^T and dP^T of all of them (two of the five
 //   products done twice) and each keeps one half of the columns of dK and dV, reading
-//   its half of the dO and Q boxes. No warpgroup waits for the other.
+//   its half of the dO and Q boxes. No warpgroup waits for the other. At D = 512 the
+//   columns of dK and dV are cut once more, over two CTAs a key tile (grid x = key
+//   tiles x 2): each CTA computes S^T and dP^T of its 64 keys over all 512 columns and its
+//   warpgroups keep 128 columns each (the products S^T and dP^T done four times), with
+//   one stage of 32 queries (K and V 128 KB, Q and dO 64 KB).
 //   Measured (NVIDIA H100 80GB HBM3, 700 W; kernels/check_flash_attn.py --time, ms a
 //   launch with the host's share out; the kernel it replaced / the library's whole
 //   backward, dq, dk and dv together, beside it): [16, 1024, 16, 72] 0.502 (4.300 timed
@@ -71,7 +75,10 @@
 //   the producer warp writes beside them. S = Q K^T and dP = dO V^T (A = Q or dO, B = K
 //   or V), then dQ += dS_hi K + dS_lo K with the same K box read as the MN-major B
 //   operand. dQ is [64, D] fp32 a warpgroup: D / 2 registers a thread, 128 at D = 256,
-//   where S and dP of 64 keys would not fit beside it: hence the 32-key stages there. GQA:
+//   where S and dP of 64 keys would not fit beside it: hence the 32-key stages there. At
+//   D = 512 dQ of 64 queries would be 256 registers: a CTA owns 64 queries, both
+//   warpgroups compute S and dP of all of them and each keeps half of dQ's columns, with
+//   one stage of 32 keys (Q and dO 128 KB, K and V 64 KB). GQA:
 //   query head h reads KV head h / n_rep; each dQ row belongs to one CTA.
 //   Measured (NVIDIA H100 80GB HBM3, 700 W; kernels/check_flash_attn.py --time and
 //   chip_smoke.py phase 2, device ms; the kernel it replaced, whose S and dP went through
@@ -107,7 +114,7 @@ __device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
   return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
 }
 
-// -------------------------------------------------- dK/dV on wgmma (head dims 64, 72, 128, 256)
+// ------------------------------------------- dK/dV on wgmma (head dims 64, 72, 128, 256, 512)
 
 namespace dkv {
 
@@ -121,12 +128,14 @@ struct Cfg {
   // warpgroups then share the CTA's 64 keys (each computes S^T and dP^T of all of them)
   // and own one half of the columns of dK and dV each.
   static constexpr int SPLIT = D > 128 ? 2 : 1;
-  static constexpr int BKV = 128 / SPLIT;  // keys a CTA
-  static constexpr int DW = D / SPLIT;     // columns of dK and dV a warpgroup
+  // At D = 512 two CTAs share a key tile, each with one half of the columns
+  static constexpr int COLS = D > 256 ? 2 : 1;
+  static constexpr int BKV = 128 / SPLIT;         // keys a CTA
+  static constexpr int DW = D / SPLIT / COLS;     // columns of dK and dV a warpgroup
   // queries a ring stage: with dK and dV at 128 registers a thread, 64-query S^T and dP^T
   // (64 more) spilled 12-28 bytes at 232 and 240 registers
   static constexpr int BQ = DW > 72 ? 32 : 64;
-  static constexpr int STAGES = DW > 72 ? 4 : 3;
+  static constexpr int STAGES = D > 256 ? 1 : (DW > 72 ? 4 : 3);
   static constexpr int NB = (D + 63) / 64;      // 64-column blocks (TMA boxes) of a row
   static constexpr int KSTEPS = (D + 15) / 16;  // k-steps over D (zero columns past D)
   static constexpr int KV_BLOCK = BKV * 128;    // bytes of one 64-column block of K or V
@@ -162,7 +171,8 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   const uint32_t full = ring + STAGES * (C::STAGE_BYTES + C::STATS_BYTES);
   const uint32_t empty = full + 8 * STAGES, kv_full = empty + 8 * STAGES;
 
-  const int k0 = blockIdx.x * BKV, hk = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x / C::COLS * BKV, hk = blockIdx.y, b = blockIdx.z;
+  const int cta_col0 = blockIdx.x % C::COLS * (D / C::COLS);  // this CTA's columns
   const int n_rep = Hq / Hkv;
   // a warpgroup whose keys all lie past T leaves
   const int active_wgs = C::SPLIT == 2 || k0 + 64 < T ? 2 : 1;
@@ -231,7 +241,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
   const int tq = lane % 4;
   // this warpgroup's 64 keys of the CTA's, and its columns of dK and dV
-  const int key_wg = C::SPLIT == 2 ? 0 : wg, col0 = C::SPLIT == 2 ? DW * wg : 0;
+  const int key_wg = C::SPLIT == 2 ? 0 : wg, col0 = cta_col0 + (C::SPLIT == 2 ? DW * wg : 0);
   const int wg_lo = k0 + 64 * key_wg, wg_hi = wg_lo + 63;
   const int warp_lo = wg_lo + 16 * warp;                // this warp's 16 keys
   const int key = warp_lo + lane / 4;                   // this thread's keys: key, key + 8
@@ -382,7 +392,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* kv_m
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)C::SMEM);
   if (err != cudaSuccess) return err;
-  dim3 grid((T + C::BKV - 1) / C::BKV, Hkv, B);
+  dim3 grid((T + C::BKV - 1) / C::BKV * C::COLS, Hkv, B);
   flash_bwd_dkv_wgmma_kernel<D><<<grid, THREADS, C::SMEM, stream>>>(
       map_q, map_k, map_v, map_do, static_cast<const int*>(kv_mask),
       static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<bf16*>(dk_out),
@@ -393,7 +403,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* kv_m
 
 }  // namespace dkv
 
-// ---------------------------------------------------- dQ on wgmma (head dims 64, 72, 128, 256)
+// ---------------------------------------------- dQ on wgmma (head dims 64, 72, 128, 256, 512)
 
 namespace dq {
 
@@ -403,10 +413,13 @@ constexpr int THREADS = 384;  // warpgroups 0, 1: consumers; warp 8: the produce
 
 template <int D>
 struct Cfg {
-  static constexpr int BQ = 128;  // queries a CTA: 64 a warpgroup
-  // keys a ring stage: dQ is D / 2 registers a thread, S and dP BK / 2 each
+  // At D = 512 the two warpgroups share the CTA's 64 queries and split dQ's columns
+  static constexpr int SPLIT = D > 256 ? 2 : 1;
+  static constexpr int BQ = 128 / SPLIT;  // queries a CTA: 64 a warpgroup
+  static constexpr int DW = D / SPLIT;    // columns of dQ a warpgroup
+  // keys a ring stage: dQ is DW / 2 registers a thread, S and dP BK / 2 each
   static constexpr int BK = D > 128 ? 32 : 64;
-  static constexpr int STAGES = 3;
+  static constexpr int STAGES = D > 256 ? 1 : 3;
   static constexpr int NB = (D + 63) / 64;      // 64-column blocks (TMA boxes) of a row
   static constexpr int KSTEPS = (D + 15) / 16;  // k-steps over D (zero columns past D)
   static constexpr int Q_BLOCK = BQ * 128;      // bytes of one 64-column block of Q or dO
@@ -442,7 +455,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
   // a warpgroup whose queries all lie past T leaves
-  const int active_wgs = q0 + 64 < T ? 2 : 1;
+  const int active_wgs = C::SPLIT == 2 || q0 + 64 < T ? 2 : 1;
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(full + 8 * s, 1);
@@ -504,7 +517,10 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   if (wg >= active_wgs) return;
   const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
   const int tq = lane % 4;
-  const int wg_lo = q0 + 64 * wg;          // this warpgroup's 64 queries
+  constexpr int DW = C::DW;
+  // this warpgroup's 64 queries, and its columns of dQ
+  const int row_wg = C::SPLIT == 2 ? 0 : wg, col0 = C::SPLIT == 2 ? DW * wg : 0;
+  const int wg_lo = q0 + 64 * row_wg;
   const int warp_lo = wg_lo + 16 * warp;   // this warp's 16
   const int row = warp_lo + lane / 4;      // this thread's queries: row, row + 8
   const float qk_scale = scale * LOG2E;
@@ -517,9 +533,9 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     dl[rr] = qp < T ? delta[row_off + qp] : 0.f;
   }
 
-  float acc[D / 2];
+  float acc[DW / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DW / 2; ++i) acc[i] = 0.f;
 
   mbar_wait(q_full, 0);
   RingPos r;
@@ -536,7 +552,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       wgmma_fence();
 #pragma unroll
       for (int kd = 0; kd < C::KSTEPS; ++kd) {
-        const uint32_t a_off = (kd / 4) * C::Q_BLOCK + wg * 8192 + 32 * (kd % 4);
+        const uint32_t a_off = (kd / 4) * C::Q_BLOCK + row_wg * 8192 + 32 * (kd % 4);
         const uint32_t b_off = (kd / 4) * C::KV_BLOCK + 32 * (kd % 4);
         WgmmaSS<BK, 0>::run(s, smem_desc(sq + a_off, 16, 1024), smem_desc(st + b_off, 16, 1024),
                             kd != 0);
@@ -590,14 +606,15 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         }
       }
 
-      // dQ += (dS_hi + dS_lo) K; K is read from the same box as an MN-major B operand
+      // dQ += (dS_hi + dS_lo) K; K is read from the same box as an MN-major B operand,
+      // from this warpgroup's first 64-column block on
       fence_regs(acc);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
-        const uint64_t b_k = smem_desc(st + 2048 * kk, C::KV_BLOCK, 1024);
-        WgmmaRS<D, 1>::run(acc, ds_hi[kk], b_k, 1);
-        WgmmaRS<D, 1>::run(acc, ds_lo[kk], b_k, 1);
+        const uint64_t b_k = smem_desc(st + (col0 / 64) * C::KV_BLOCK + 2048 * kk, C::KV_BLOCK, 1024);
+        WgmmaRS<DW, 1>::run(acc, ds_hi[kk], b_k, 1);
+        WgmmaRS<DW, 1>::run(acc, ds_lo[kk], b_k, 1);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -614,9 +631,9 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   for (int rr = 0; rr < 2; ++rr) {
     const int qp = row + 8 * rr;
     if (qp >= T) continue;
-    bf16* out = dq + b * sdqb + qp * sdqt + h * sdqh + 2 * tq;
+    bf16* out = dq + b * sdqb + qp * sdqt + h * sdqh + col0 + 2 * tq;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DW / 8; ++j)
       *reinterpret_cast<uint32_t*>(out + 8 * j) =
           pack_bf16(acc[4 * j + 2 * rr] * scale, acc[4 * j + 2 * rr + 1] * scale);
   }
@@ -675,6 +692,9 @@ extern "C" int flash_attn_bwd_dkv_bf16(const void* q, const void* k, const void*
     case 256:
       return (int)dkv::launch<256>(q, k, v, kv_mask, dout, lse, delta, dk, dv, B, T, Hq, Hkv,
                                    strides, maps, bk, bq, scale, causal, window, st);
+    case 512:
+      return (int)dkv::launch<512>(q, k, v, kv_mask, dout, lse, delta, dk, dv, B, T, Hq, Hkv,
+                                   strides, maps, bk, bq, scale, causal, window, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -703,6 +723,9 @@ extern "C" int flash_attn_bwd_dq_bf16(const void* q, const void* k, const void* 
                                   strides, maps, bq, bk, scale, causal, window, st);
     case 256:
       return (int)dq::launch<256>(q, k, v, kv_mask, dout, lse, delta, dq_out, B, T, Hq, Hkv,
+                                  strides, maps, bq, bk, scale, causal, window, st);
+    case 512:
+      return (int)dq::launch<512>(q, k, v, kv_mask, dout, lse, delta, dq_out, B, T, Hq, Hkv,
                                   strides, maps, bq, bk, scale, causal, window, st);
     default:
       return (int)cudaErrorInvalidValue;

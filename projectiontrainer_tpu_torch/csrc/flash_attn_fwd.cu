@@ -33,7 +33,10 @@
 //               registers are already in A's places); the V tile is read as an MN-major B
 //               operand, wgmma's transposed form, so V is never transposed.
 // No score, no P and no O passes through shared memory; O is scaled and written from
-// the registers. The two warpgroups are not synchronised with each other, so one's
+// the registers. At D = 512 a warpgroup's O of 64 rows would be 256 registers a thread:
+// there a CTA owns 64 query rows, both warpgroups compute S and the softmax of all of
+// them (the same bits) and each keeps one half of O's columns (128 registers), with
+// 32-key stages (Q 64 KB and two stages of K and V, 192 KB). The two warpgroups are not synchronised with each other, so one's
 // softmax runs under the other's products. Each (128-row tile, query head, batch) is a
 // CTA of its own, the last tiles first; the query heads of one KV head are neighbours in
 // the grid, so their K/V reads meet in L2, and they are not packed into one CTA's rows.
@@ -92,16 +95,19 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int BQ = 128;       // query rows a CTA: two consumer warpgroups of 64
 constexpr int THREADS = 384;  // warpgroups 0, 1: consumers; warpgroup 2: the producer thread
 constexpr float NEG_INF = -2.3819763e38f;
 constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
 
 template <int D>
 struct Cfg {
+  // At D = 512 the two warpgroups share the CTA's 64 rows and split O's columns
+  static constexpr int SPLIT = D > 256 ? 2 : 1;
+  static constexpr int BQ = 128 / SPLIT;         // query rows a CTA
+  static constexpr int DW = D / SPLIT;           // O's columns a warpgroup
   static constexpr int NB = (D + 63) / 64;       // 64-column blocks (TMA boxes) of a row
   static constexpr int KSTEPS = (D + 15) / 16;   // k-steps of Q K^T (zero columns past D)
-  static constexpr int BK = D > 128 ? 64 : 128;  // keys a stage
+  static constexpr int BK = D > 256 ? 32 : (D > 128 ? 64 : 128);  // keys a stage
   static constexpr int STAGES = D <= 64 ? 4 : (D <= 128 ? 3 : 2);
   static constexpr int Q_BLOCK = BQ * 128;       // bytes of one 64-column block of the Q tile
   static constexpr int KV_BLOCK = BK * 128;      // ... of a K or V tile
@@ -233,7 +239,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
                  int T, int Hq, int Hkv, long long sob, long long sot, long long soh,
                  float scale, int causal, int window) {
   using C = Cfg<D>;
-  constexpr int BK = C::BK, STAGES = C::STAGES;
+  constexpr int BQ = C::BQ, BK = C::BK, STAGES = C::STAGES, DW = C::DW;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sq = smem_addr(align_1024(smem_raw));
   const uint32_t ring = sq + C::Q_BYTES;
@@ -244,7 +250,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
-  const int active_wgs = q0 + 64 < T ? 2 : 1;  // a warpgroup whose rows all lie past T leaves
+  // a warpgroup whose rows all lie past T leaves
+  const int active_wgs = C::SPLIT == 2 || q0 + 64 < T ? 2 : 1;
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(full + 8 * s, 1);
@@ -287,14 +294,16 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   if (wg >= active_wgs) return;
   const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
   const int tq = lane % 4;
-  const int wg_lo = q0 + 64 * wg, wg_hi = wg_lo + 63;  // this warpgroup's rows
+  // this warpgroup's 64 rows of the CTA's, and its columns of O
+  const int row_wg = C::SPLIT == 2 ? 0 : wg, col0 = C::SPLIT == 2 ? DW * wg : 0;
+  const int wg_lo = q0 + 64 * row_wg, wg_hi = wg_lo + 63;
   const int row = wg_lo + 16 * warp + lane / 4;         // this thread's rows: row, row + 8
   const float qk_scale = scale * LOG2E;                 // exp2 domain
   const int* mb = kv_mask ? kv_mask + (long long)b * T : nullptr;
 
-  float o[D / 2];
+  float o[DW / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DW / 2; ++i) o[i] = 0.f;
   // per row: running max (log2 domain), this thread's part of the fp32 sum of the
   // weights (for lse) and of the sum of their bf16 roundings (what PV applies, for O)
   float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f}, u_run[2] = {0.f, 0.f};
@@ -314,7 +323,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
     for (int kd = 0; kd < C::KSTEPS; ++kd)
       WgmmaSS<BK, 0>::run(
-          s, smem_desc(sq + (kd / 4) * C::Q_BLOCK + wg * 8192 + 32 * (kd % 4), 16, 1024),
+          s, smem_desc(sq + (kd / 4) * C::Q_BLOCK + row_wg * 8192 + 32 * (kd % 4), 16, 1024),
           smem_desc(st + (kd / 4) * C::KV_BLOCK + 32 * (kd % 4), 16, 1024), kd != 0);
     wgmma_commit();
   };
@@ -345,15 +354,15 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     score_tile<BK>(s, m_run, l_run, corr, key_ok, kt * BK, row, tq, wg_lo, wg_hi, causal, window,
                    qk_scale);
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i / 2) % 2];
+    for (int i = 0; i < DW / 2; ++i) o[i] *= corr[(i / 2) % 2];
     pack_tile<BK>(s, pa, u_run, corr);
-    const uint32_t st = ring + r.stage * C::STAGE_BYTES;
+    // V from this warpgroup's first 64-column block on
+    const uint32_t sv = ring + r.stage * C::STAGE_BYTES + C::TILE_BYTES + (col0 / 64) * C::KV_BLOCK;
     fence_regs(o);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      WgmmaRS<D, 1>::run(o, pa[kk], smem_desc(st + C::TILE_BYTES + 2048 * kk, C::KV_BLOCK, 1024),
-                         1);
+      WgmmaRS<DW, 1>::run(o, pa[kk], smem_desc(sv + 2048 * kk, C::KV_BLOCK, 1024), 1);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);
@@ -374,19 +383,19 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     const int q_pos = row + 8 * rr;
     if (q_pos >= T) continue;
     const float inv = 1.f / fmaxf(u, 1e-30f);
-    bf16* ob = out + b * sob + q_pos * sot + h * soh + 2 * tq;
+    bf16* ob = out + b * sob + q_pos * sot + h * soh + col0 + 2 * tq;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DW / 8; ++j)
       *reinterpret_cast<uint32_t*>(ob + 8 * j) =
           pack_bf16(o[4 * j + 2 * rr] * inv, o[4 * j + 2 * rr + 1] * inv);
     if (out_f32) {
-      float* of = out_f32 + (((long long)b * T + q_pos) * Hq + h) * D + 2 * tq;
+      float* of = out_f32 + (((long long)b * T + q_pos) * Hq + h) * D + col0 + 2 * tq;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
+      for (int j = 0; j < DW / 8; ++j)
         *reinterpret_cast<float2*>(of + 8 * j) =
             make_float2(o[4 * j + 2 * rr] * inv, o[4 * j + 2 * rr + 1] * inv);
     }
-    if (tq == 0)
+    if (tq == 0 && col0 == 0)
       lse[((long long)b * Hq + h) * T + q_pos] = m_run[rr] * LN2 + logf(fmaxf(l, 1e-30f));
   }
 }
@@ -406,7 +415,7 @@ struct Args {
 template <int D>
 cudaError_t launch(const Args& a) {
   using C = Cfg<D>;
-  if (a.bq != BQ || a.bk != C::BK) return cudaErrorInvalidValue;  // the wrapper's plan is another
+  if (a.bq != C::BQ || a.bk != C::BK) return cudaErrorInvalidValue;  // the wrapper's plan is another
   CUtensorMap map_q, map_k, map_v;
   if (!tmap::make_map_4d(&map_q, a.q, a.maps) || !tmap::make_map_4d(&map_k, a.k, a.maps + 11) ||
       !tmap::make_map_4d(&map_v, a.v, a.maps + 22))
@@ -415,7 +424,7 @@ cudaError_t launch(const Args& a) {
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)C::SMEM);
   if (err != cudaSuccess) return err;
-  dim3 grid((a.T + BQ - 1) / BQ, a.Hq, a.B);
+  dim3 grid((a.T + C::BQ - 1) / C::BQ, a.Hq, a.B);
   flash_fwd_kernel<D><<<grid, THREADS, C::SMEM, a.stream>>>(
       map_q, map_k, map_v, static_cast<const int*>(a.kv_mask), static_cast<bf16*>(a.out),
       static_cast<float*>(a.lse), static_cast<float*>(a.out_f32), a.T, a.Hq, a.Hkv, a.sob, a.sot,
@@ -447,6 +456,8 @@ extern "C" int flash_attn_fwd_bf16(const void* q, const void* k, const void* v,
       return (int)launch<128>(a);
     case 256:
       return (int)launch<256>(a);
+    case 512:
+      return (int)launch<512>(a);
     default:
       return (int)cudaErrorInvalidValue;
   }

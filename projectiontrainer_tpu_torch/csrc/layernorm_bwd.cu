@@ -24,6 +24,15 @@
 //   mbarrier; a stage holds R rows (8 at D <= 2048 in bf16: 4 stages, 147 KB at
 //   D = 1152, of which three are in flight while one is read). Rows past the band's end
 //   are never copied and never read: a part-filled stage adds nothing to any sum.
+//   A row's slot is DP = D rounded up to 8 elements. Rows that a bulk copy cannot take
+//   (D * size not a multiple of 16 bytes, or a row that does not start on 16 bytes: D =
+//   1001, 1004 in bf16) are copied by the row warps instead ("direct"): each its own rows,
+//   with cp.async in the widest units (16, 8 or 4 bytes) that the row's start allows,
+//   the rest element by element and the slot's pad set to 0, one or two chunks ahead of
+//   the chunk it computes; the column warps learn from the "ready" barrier that a
+//   stage's rows are in. (On an NVIDIA H100 80GB HBM3 at 700 W, kernels/check_layernorm.py
+//   --time at [16384, 1004]: the producer warp alone issuing every copy took 0.20 ms,
+//   row warps that copied and then computed 0.13.)
 // - Eight row warps, a row each, no block barrier: the lanes read the row from shared
 //   memory in 16-byte vectors; mean in one pass, then the centred sum of squares, sum(g)
 //   and sum(g * (x - mean)) in a second (three interleaved shuffle reductions); a third
@@ -31,7 +40,9 @@
 //   shared memory and arrives on the stage's "ready" mbarrier.
 // - Four column warps, a stage behind: column thread t owns the 16-byte column vectors
 //   t, t + 128, ... and adds dy * xhat and dy of the stage's rows, in row order, into
-//   fp32 registers (64 a thread: D <= 4096). Row and column warps both arrive on the
+//   fp32 registers (64 a thread: D <= 4096). Above 4096 ("wide"), the thread adds each
+//   stage's rows to the CTA's own partial row in device memory (it reads back its own
+//   writes, in the same order: the same sums as in registers). Row and column warps both arrive on the
 //   stage's "empty" mbarrier, which frees it for the producer. On warps of their own the
 //   two passes overlap, where one set of warps would wait at a barrier between them.
 // - The CTA writes its two partial rows to a [C, 2, D] fp32 scratch, all CTAs cross one
@@ -58,7 +69,7 @@ constexpr int ROW_THREADS = ROW_WARPS * 32, COL_THREADS = COL_WARPS * 32;
 constexpr int PRODUCER = ROW_WARPS + COL_WARPS;  // the producer's warp
 constexpr int THREADS = (PRODUCER + 1) * 32;
 constexpr int MAX_STAGES = 8;
-constexpr int MAX_D = 4096;               // COL_THREADS threads x 32 columns each
+constexpr int MAX_D = 4096;               // column sums in registers: COL_THREADS x 32 each
 constexpr int COMBINE_BATCH = 16;         // partials a thread loads at once in the combine
 constexpr int SMEM_LIMIT = 232448;        // dynamic shared memory a block may opt into
 
@@ -108,23 +119,76 @@ __device__ __forceinline__ void load_f32x8(const float* p, float* f) {
   Vec<float>::load(p + 4, f + 4);
 }
 
-// shared-memory layout:
-// [ring | scale fp32 [D] | stats fp32 [S][R][2] | full[S], empty[S], stats_ready[S]];
+// a row's slot in shared memory and in the partial sums: D rounded up to 8 elements
+__host__ __device__ __forceinline__ int slot_width(int d) { return (d + 7) / 8 * 8; }
+
+// shared-memory layout (dp = slot_width(D)):
+// [ring | scale fp32 [dp] | stats fp32 [S][R][2] | full[S], empty[S], stats_ready[S]];
 // after the ring has drained its first bytes hold the combine's sums
 template <typename T>
-__host__ __device__ __forceinline__ size_t ring_bytes(int d, int rows, int stages) {
-  return (size_t)stages * rows * 2 * d * sizeof(T);
+__host__ __device__ __forceinline__ size_t ring_bytes(int dp, int rows, int stages) {
+  return (size_t)stages * rows * 2 * dp * sizeof(T);
 }
 
-__host__ __device__ __forceinline__ size_t combine_bytes(int d) {
-  return (size_t)4 * (2 * d > THREADS ? 2 * d : THREADS);
+__host__ __device__ __forceinline__ size_t combine_bytes(int dp) {
+  return (size_t)4 * (2 * dp > THREADS ? 2 * dp : THREADS);
 }
 
 template <typename T>
 size_t smem_bytes(int d, int rows, int stages) {
-  const size_t ring = ring_bytes<T>(d, rows, stages);
-  const size_t region = ring > combine_bytes(d) ? ring : combine_bytes(d);
-  return region + (size_t)4 * d + (size_t)8 * stages * rows + (size_t)24 * stages;
+  const int dp = slot_width(d);
+  const size_t ring = ring_bytes<T>(dp, rows, stages);
+  const size_t region = ring > combine_bytes(dp) ? ring : combine_bytes(dp);
+  return region + (size_t)4 * dp + (size_t)8 * stages * rows + (size_t)24 * stages;
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src) {
+  if constexpr (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst), "l"(src), "n"(N)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// until at most n (0, 1 or 2) of this thread's committed groups are in flight
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  if (n >= 2)
+    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+  else if (n == 1)
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// a row of d elements at src into the 16-byte aligned slot dst of dp elements, by one
+// warp: cp.async in units of the widest size that src's alignment allows, the tail
+// element by element, then the pad [d, dp) set to 0
+template <typename T>
+__device__ __forceinline__ void copy_row(T* dst, const T* src, int d, int dp, int lane) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+  const uint32_t sd = sm90::smem_addr(dst);
+  const int bytes = d * (int)sizeof(T);
+  int done = 0;  // bytes copied in units
+  if (a % 16 == 0) {
+    done = bytes / 16 * 16;
+    for (int i = 16 * lane; i < done; i += 16 * 32)
+      cp_async<16>(sd + i, reinterpret_cast<const char*>(src) + i);
+  } else if (a % 8 == 0) {
+    done = bytes / 8 * 8;
+    for (int i = 8 * lane; i < done; i += 8 * 32)
+      cp_async<8>(sd + i, reinterpret_cast<const char*>(src) + i);
+  } else if (a % 4 == 0) {
+    done = bytes / 4 * 4;
+    for (int i = 4 * lane; i < done; i += 4 * 32)
+      cp_async<4>(sd + i, reinterpret_cast<const char*>(src) + i);
+  }
+  for (int e = done / (int)sizeof(T) + lane; e < d; e += 32) dst[e] = src[e];
+  for (int e = d + lane; e < dp; e += 32) dst[e] = T(0.f);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -158,21 +222,29 @@ __device__ __forceinline__ void grid_barrier(unsigned int* counter) {
   __syncthreads();
 }
 
-template <typename T>
+// ANY: rows of any width and alignment (slots of D rounded up to 8, direct copies,
+// column sums in device memory above MAX_D); without it the kernel takes D a multiple
+// of 8 up to MAX_D in bulk copies only, and those paths fold away
+template <typename T, bool ANY>
 __global__ void __launch_bounds__(THREADS, 1)
 layernorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                      const void* __restrict__ scale, T* __restrict__ dx,
                      float* __restrict__ part, float* __restrict__ sums,
                      unsigned int* __restrict__ counter, int n, int d, long long x_stride,
-                     long long dy_stride, int rows, int stages, int scale_f32, float eps) {
+                     long long dy_stride, int rows, int stages, int scale_f32, int direct_rows,
+                     float eps) {
   constexpr int VEC = Vec<T>::N;
   constexpr int CV = MAX_D / VEC / COL_THREADS;  // column vectors a column thread owns
   extern __shared__ __align__(128) unsigned char smem[];
-  const int row_bytes = d * (int)sizeof(T);
-  const int nv = d / VEC;  // 16-byte vectors in a row
-  const size_t ring = ring_bytes<T>(d, rows, stages);
-  float* s_scale = reinterpret_cast<float*>(smem + (ring > combine_bytes(d) ? ring : combine_bytes(d)));
-  float* s_stats = s_scale + d;  // [S][R] x (mean, rstd)
+  const int dp = ANY ? slot_width(d) : d;
+  const int row_bytes = d * (int)sizeof(T), slot_bytes = dp * (int)sizeof(T);
+  const int nv = ANY ? (d + VEC - 1) / VEC : d / VEC;  // 16-byte vectors in a row
+  const int v_tail = ANY && d % VEC ? d / VEC : -1;    // a part-filled last one (direct rows)
+  const bool wide = ANY && nv > CV * COL_THREADS;      // column sums in device memory
+  const bool direct = ANY && direct_rows;              // the row warps' own copies
+  const size_t ring = ring_bytes<T>(dp, rows, stages);
+  float* s_scale = reinterpret_cast<float*>(smem + (ring > combine_bytes(dp) ? ring : combine_bytes(dp)));
+  float* s_stats = s_scale + dp;  // [S][R] x (mean, rstd)
   uint64_t* bars = reinterpret_cast<uint64_t*>(s_stats + 2 * stages * rows);
   const uint32_t full0 = sm90::smem_addr(bars), empty0 = full0 + 8 * stages,
                  ready0 = empty0 + 8 * stages;
@@ -195,17 +267,17 @@ layernorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   __syncthreads();
 
   if (warp == PRODUCER) {
-    if (lane == 0) {
+    if (lane == 0 && !direct) {
       for (int i = 0; i < chunks; ++i) {
         const int s = i % stages;
         const uint32_t full = full0 + 8 * s;
         sm90::mbar_wait(empty0 + 8 * s, ((i / stages) & 1) ^ 1);
         const int r0 = row0 + i * rows, nr = min(rows, row0 + band - r0);
         sm90::mbar_expect_tx(full, 2 * nr * row_bytes);
-        const uint32_t stage = sm90::smem_addr(smem) + s * rows * 2 * row_bytes;
+        const uint32_t stage = sm90::smem_addr(smem) + s * rows * 2 * slot_bytes;
         for (int r = 0; r < nr; ++r) {
-          sm90::bulk_load_1d(stage + r * row_bytes, x + (r0 + r) * x_stride, row_bytes, full);
-          sm90::bulk_load_1d(stage + (rows + r) * row_bytes, dy + (r0 + r) * dy_stride,
+          sm90::bulk_load_1d(stage + r * slot_bytes, x + (r0 + r) * x_stride, row_bytes, full);
+          sm90::bulk_load_1d(stage + (rows + r) * slot_bytes, dy + (r0 + r) * dy_stride,
                              row_bytes, full);
         }
       }
@@ -214,21 +286,47 @@ layernorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
     // row warps: dx and each row's (mean, rstd); warp w takes rows w, w + ROW_WARPS, ...
     const float inv_d = 1.f / d;
     // the scale in fp32, while the first stages are in flight
-    for (int i = threadIdx.x; i < d; i += ROW_THREADS)
-      s_scale[i] = scale_f32 ? static_cast<const float*>(scale)[i]
-                             : __bfloat162float(static_cast<const bf16*>(scale)[i]);
+    for (int i = threadIdx.x; i < dp; i += ROW_THREADS)
+      s_scale[i] = ANY && i >= d ? 0.f
+                   : scale_f32   ? static_cast<const float*>(scale)[i]
+                                 : __bfloat162float(static_cast<const bf16*>(scale)[i]);
+    // direct rows: this warp copies its own rows of chunk j into its stage `ahead`
+    // chunks before it computes them (the stage's last chunk, j - stages, must have been
+    // read by then: two chunks back where there are three stages or more)
+    const int ahead = stages >= 3 ? stages - 2 : stages - 1;
+    auto copy_chunk = [&](int j) {
+      if (j < chunks) {
+        const int s = j % stages;
+        sm90::mbar_wait(empty0 + 8 * s, ((j / stages) & 1) ^ 1);
+        const int r0 = row0 + j * rows, nr = min(rows, row0 + band - r0);
+        T* sx = reinterpret_cast<T*>(smem + (size_t)s * rows * 2 * slot_bytes);
+        for (int r = warp; r < nr; r += ROW_WARPS) {
+          copy_row(sx + (size_t)r * dp, x + (r0 + r) * x_stride, d, dp, lane);
+          copy_row(sx + (size_t)(rows + r) * dp, dy + (r0 + r) * dy_stride, d, dp, lane);
+        }
+      }
+      cp_async_commit();  // one group a chunk, empty past the last
+    };
+    if (direct)
+      for (int j = 0; j < ahead; ++j) copy_chunk(j);
     sm90::named_barrier_sync<ROW_THREADS>(1);
 
     for (int i = 0; i < chunks; ++i) {
       const int s = i % stages;
       const int r0 = row0 + i * rows, nr = min(rows, row0 + band - r0);
-      const T* sx = reinterpret_cast<const T*>(smem + (size_t)s * rows * 2 * row_bytes);
-      const T* sg = sx + (size_t)rows * d;
+      const T* sx = reinterpret_cast<const T*>(smem + (size_t)s * rows * 2 * slot_bytes);
+      const T* sg = sx + (size_t)rows * dp;
       float* st = s_stats + 2 * s * rows;
-      sm90::mbar_wait(full0 + 8 * s, (i / stages) & 1);
+      if (direct) {
+        copy_chunk(i + ahead);
+        cp_async_wait_upto(ahead);  // this thread's copies of chunk i have landed
+        __syncwarp();               // and its lanes' too
+      } else {
+        sm90::mbar_wait(full0 + 8 * s, (i / stages) & 1);
+      }
       for (int r = warp; r < nr; r += ROW_WARPS) {
-        const T* xr = sx + (size_t)r * d;
-        const T* gr = sg + (size_t)r * d;
+        const T* xr = sx + (size_t)r * dp;
+        const T* gr = sg + (size_t)r * dp;
         float sum = 0.f;
 #pragma unroll 4
         for (int v = lane; v < nv; v += 32) {
@@ -246,6 +344,11 @@ layernorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
           Vec<T>::load(gr + v * VEC, g);
           if constexpr (VEC == 8) load_f32x8(s_scale + v * VEC, w);
           else Vec<float>::load(s_scale + v * VEC, w);
+          if (v == v_tail) {  // the slot's pad (0) adds nothing to the centred squares
+#pragma unroll
+            for (int e = 0; e < VEC; ++e)
+              if (v * VEC + e >= d) f[e] = mean;
+          }
 #pragma unroll
           for (int e = 0; e < VEC; ++e) {
             const float xc = f[e] - mean, gg = g[e] * w[e];
@@ -272,7 +375,13 @@ layernorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
           else Vec<float>::load(s_scale + v * VEC, w);
 #pragma unroll
           for (int e = 0; e < VEC; ++e) f[e] = rstd * (g[e] * w[e] - gm - (f[e] - mean) * rstd * gxm);
-          Vec<T>::store(out + v * VEC, f);
+          if (!ANY || d % VEC == 0) {
+            Vec<T>::store(out + v * VEC, f);
+          } else {  // dx's rows are not 16-byte aligned: element by element
+#pragma unroll
+            for (int e = 0; e < VEC; ++e)
+              if (v * VEC + e < d) out[v * VEC + e] = T(f[e]);
+          }
         }
         if (lane == 0) {
           st[2 * r] = mean;
@@ -296,28 +405,65 @@ layernorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
 #pragma unroll
       for (int e = 0; e < VEC; ++e) acc_s[j][e] = acc_b[j][e] = 0.f;
 
+    // this CTA's partial rows, [0] = dscale, [1] = dbias, [2, dp]: the sums themselves if
+    // the grid is one CTA (a slot's pad, dy = 0, adds 0 to its columns)
+    float* ps = C == 1 ? sums : part + (size_t)c * 2 * dp;
     for (int i = 0; i < chunks; ++i) {
       const int s = i % stages;
       const int r0 = row0 + i * rows, nr = min(rows, row0 + band - r0);
-      const T* sx = reinterpret_cast<const T*>(smem + (size_t)s * rows * 2 * row_bytes);
-      const T* sg = sx + (size_t)rows * d;
+      const T* sx = reinterpret_cast<const T*>(smem + (size_t)s * rows * 2 * slot_bytes);
+      const T* sg = sx + (size_t)rows * dp;
       const float* st = s_stats + 2 * s * rows;
-      sm90::mbar_wait(full0 + 8 * s, (i / stages) & 1);   // the stage's bytes
-      sm90::mbar_wait(ready0 + 8 * s, (i / stages) & 1);  // its rows' statistics
+      if (!direct) sm90::mbar_wait(full0 + 8 * s, (i / stages) & 1);  // the stage's bytes
+      sm90::mbar_wait(ready0 + 8 * s, (i / stages) & 1);  // its rows' statistics (and, for
+                                                          // direct rows, their copies)
+      if (!wide) {
 #pragma unroll
-      for (int j = 0; j < CV; ++j) {
-        const int v = t + j * COL_THREADS;
-        if (v < nv) {
+        for (int j = 0; j < CV; ++j) {
+          const int v = t + j * COL_THREADS;
+          if (v < nv) {
+            for (int r = 0; r < nr; ++r) {
+              float f[VEC], g[VEC];
+              Vec<T>::load(sx + (size_t)r * dp + v * VEC, f);
+              Vec<T>::load(sg + (size_t)r * dp + v * VEC, g);
+              const float mean = st[2 * r], rstd = st[2 * r + 1];
+#pragma unroll
+              for (int e = 0; e < VEC; ++e) {
+                acc_s[j][e] += g[e] * ((f[e] - mean) * rstd);
+                acc_b[j][e] += g[e];
+              }
+            }
+          }
+        }
+      } else {  // the running sums of each column vector in ps, read back and written
+        for (int v = t; v < nv; v += COL_THREADS) {
+          float as[VEC], ab[VEC];
+#pragma unroll
+          for (int e = 0; e < VEC; e += 4) {
+            const float4 a = i ? __ldcg(reinterpret_cast<const float4*>(ps + v * VEC + e))
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+            const float4 b = i ? __ldcg(reinterpret_cast<const float4*>(ps + dp + v * VEC + e))
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+            as[e] = a.x, as[e + 1] = a.y, as[e + 2] = a.z, as[e + 3] = a.w;
+            ab[e] = b.x, ab[e + 1] = b.y, ab[e + 2] = b.z, ab[e + 3] = b.w;
+          }
           for (int r = 0; r < nr; ++r) {
             float f[VEC], g[VEC];
-            Vec<T>::load(sx + (size_t)r * d + v * VEC, f);
-            Vec<T>::load(sg + (size_t)r * d + v * VEC, g);
+            Vec<T>::load(sx + (size_t)r * dp + v * VEC, f);
+            Vec<T>::load(sg + (size_t)r * dp + v * VEC, g);
             const float mean = st[2 * r], rstd = st[2 * r + 1];
 #pragma unroll
             for (int e = 0; e < VEC; ++e) {
-              acc_s[j][e] += g[e] * ((f[e] - mean) * rstd);
-              acc_b[j][e] += g[e];
+              as[e] += g[e] * ((f[e] - mean) * rstd);
+              ab[e] += g[e];
             }
+          }
+#pragma unroll
+          for (int e = 0; e < VEC; e += 4) {
+            __stcg(reinterpret_cast<float4*>(ps + v * VEC + e),
+                   make_float4(as[e], as[e + 1], as[e + 2], as[e + 3]));
+            __stcg(reinterpret_cast<float4*>(ps + dp + v * VEC + e),
+                   make_float4(ab[e], ab[e + 1], ab[e + 2], ab[e + 3]));
           }
         }
       }
@@ -325,19 +471,18 @@ layernorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
       if (lane == 0) sm90::mbar_arrive(empty0 + 8 * s);
     }
 
-    // this CTA's partial rows, [0] = dscale, [1] = dbias: the sums themselves if the grid
-    // is one CTA
-    float* ps = C == 1 ? sums : part + (size_t)c * 2 * d;
+    if (!wide) {
 #pragma unroll
-    for (int j = 0; j < CV; ++j) {
-      const int v = t + j * COL_THREADS;
-      if (v < nv) {
+      for (int j = 0; j < CV; ++j) {
+        const int v = t + j * COL_THREADS;
+        if (v < nv) {
 #pragma unroll
-        for (int e = 0; e < VEC; e += 4) {
-          *reinterpret_cast<float4*>(ps + v * VEC + e) =
-              make_float4(acc_s[j][e], acc_s[j][e + 1], acc_s[j][e + 2], acc_s[j][e + 3]);
-          *reinterpret_cast<float4*>(ps + d + v * VEC + e) =
-              make_float4(acc_b[j][e], acc_b[j][e + 1], acc_b[j][e + 2], acc_b[j][e + 3]);
+          for (int e = 0; e < VEC; e += 4) {
+            *reinterpret_cast<float4*>(ps + v * VEC + e) =
+                make_float4(acc_s[j][e], acc_s[j][e + 1], acc_s[j][e + 2], acc_s[j][e + 3]);
+            *reinterpret_cast<float4*>(ps + dp + v * VEC + e) =
+                make_float4(acc_b[j][e], acc_b[j][e + 1], acc_b[j][e + 2], acc_b[j][e + 3]);
+          }
         }
       }
     }
@@ -346,11 +491,11 @@ layernorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
 
   grid_barrier(counter);
 
-  // combine: CTA c sums columns [c0, c1) of the 2D over all C partials in CTA order;
+  // combine: CTA c sums columns [c0, c1) of the 2 dp over all C partials in CTA order;
   // `groups` threads share a column (partials g, g + groups, ...; COMBINE_BATCH of them
   // loaded at once), then their sums are added in group order. The drained ring holds
   // the group sums.
-  const int width = 2 * d, cols = (width + C - 1) / C;
+  const int width = 2 * dp, cols = (width + C - 1) / C;
   const int c0 = c * cols, c1 = min(width, c0 + cols);
   if (c0 >= c1) return;
   const int ncol = c1 - c0, groups = max(1, THREADS / ncol);
@@ -378,18 +523,22 @@ layernorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   }
 }
 
-template <typename T>
+template <typename T, bool ANY>
 cudaError_t launch(const void* x, const void* dy, const void* scale, void* dx, void* part,
                    void* sums, void* counter, int n, int d, long long x_stride,
-                   long long dy_stride, int rows, int stages, int ctas, int scale_f32, float eps,
-                   cudaStream_t stream) {
-  if (d % 8 || d < 8 || d > MAX_D || rows < 1 || stages < 1 || stages > MAX_STAGES ||
-      ctas < 1 || ctas > n || (x_stride * (long long)sizeof(T)) % 16 ||
-      (dy_stride * (long long)sizeof(T)) % 16)
+                   long long dy_stride, int rows, int stages, int ctas, int scale_f32, int direct,
+                   float eps, cudaStream_t stream) {
+  if (d < 1 || rows < 1 || stages < 1 || stages > MAX_STAGES || ctas < 1 || ctas > n ||
+      (!ANY && (d % 8 || d > MAX_D || direct)))
     return cudaErrorInvalidValue;  // not a plan of ops/fused_layernorm.py:bwd_plan
+  // a bulk copy takes 16-byte aligned rows of a multiple of 16 bytes only
+  const long long sz = sizeof(T);
+  if (!direct && ((d * sz) % 16 || (x_stride * sz) % 16 || (dy_stride * sz) % 16 ||
+                  reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(dy) % 16))
+    return cudaErrorInvalidValue;
   const size_t bytes = smem_bytes<T>(d, rows, stages);
   if (bytes > (size_t)SMEM_LIMIT) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(layernorm_bwd_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(layernorm_bwd_kernel<T, ANY>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   const T* xp = static_cast<const T*>(x);
@@ -401,8 +550,8 @@ cudaError_t launch(const void* x, const void* dy, const void* scale, void* dx, v
   void* args[] = {(void*)&xp,       (void*)&dyp,  (void*)&scale,     (void*)&dxp,
                   (void*)&partp,    (void*)&sumsp, (void*)&counterp, (void*)&n,
                   (void*)&d,        (void*)&x_stride, (void*)&dy_stride, (void*)&rows,
-                  (void*)&stages,   (void*)&scale_f32, (void*)&eps};
-  err = cudaLaunchCooperativeKernel((const void*)layernorm_bwd_kernel<T>, dim3(ctas),
+                  (void*)&stages,   (void*)&scale_f32, (void*)&direct, (void*)&eps};
+  err = cudaLaunchCooperativeKernel((const void*)layernorm_bwd_kernel<T, ANY>, dim3(ctas),
                                     dim3(THREADS), args, bytes, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
@@ -410,23 +559,30 @@ cudaError_t launch(const void* x, const void* dy, const void* scale, void* dx, v
 
 }  // namespace
 
-// x, dy: [n, d] rows with the given row strides (elements), 16-byte aligned; scale [d]
-// (fp32 if scale_f32, else bf16); dx [n, d] contiguous in x's type; part: fp32 scratch
-// of ctas * 2 * d; sums: fp32 [2, d] (dscale, dbias); counter: one uint32, 0 before the
-// first launch on a stream and left for the next; rows .. ctas: the plan of
-// ops/fused_layernorm.py:bwd_plan
+// x, dy: [n, d] rows with the given row strides (elements), copied in bulk unless
+// `direct` (then any alignment of the element type); scale [d] (fp32 if scale_f32, else
+// bf16); dx [n, d] contiguous in x's type; part: fp32 scratch of ctas * 2 * dp (dp = d
+// rounded up to 8); sums: fp32 [2, dp] (dscale, dbias; the pad columns 0); counter: one
+// uint32, 0 before the first launch on a stream and left for the next; rows .. ctas: the
+// plan of ops/fused_layernorm.py:bwd_plan
 extern "C" int layernorm_bwd_bf16(const void* x, const void* dy, const void* scale, void* dx,
                                   void* part, void* sums, void* counter, int n, int d,
                                   long long x_stride, long long dy_stride, int rows, int stages,
-                                  int ctas, int scale_f32, float eps, void* stream) {
-  return (int)launch<bf16>(x, dy, scale, dx, part, sums, counter, n, d, x_stride, dy_stride,
-                           rows, stages, ctas, scale_f32, eps, static_cast<cudaStream_t>(stream));
+                                  int ctas, int scale_f32, int direct, float eps,
+                                  void* stream) {
+  const bool any = direct || d % 8 || d > MAX_D;
+  return (int)(any ? launch<bf16, true> : launch<bf16, false>)(
+      x, dy, scale, dx, part, sums, counter, n, d, x_stride, dy_stride, rows, stages, ctas,
+      scale_f32, direct, eps, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int layernorm_bwd_f32(const void* x, const void* dy, const void* scale, void* dx,
                                  void* part, void* sums, void* counter, int n, int d,
                                  long long x_stride, long long dy_stride, int rows, int stages,
-                                 int ctas, int scale_f32, float eps, void* stream) {
-  return (int)launch<float>(x, dy, scale, dx, part, sums, counter, n, d, x_stride, dy_stride,
-                            rows, stages, ctas, scale_f32, eps, static_cast<cudaStream_t>(stream));
+                                 int ctas, int scale_f32, int direct, float eps,
+                                 void* stream) {
+  const bool any = direct || d % 8 || d > MAX_D;
+  return (int)(any ? launch<float, true> : launch<float, false>)(
+      x, dy, scale, dx, part, sums, counter, n, d, x_stride, dy_stride, rows, stages, ctas,
+      scale_f32, direct, eps, static_cast<cudaStream_t>(stream));
 }

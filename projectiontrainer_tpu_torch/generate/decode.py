@@ -44,8 +44,10 @@ class GenerationConfig:
     length_penalty: float = 1.0
     eos_token_id: Optional[int] = None
     pad_token_id: int = 0
-    # The JAX package's TPU-only approximate top-k for sampled beam search. The port
-    # has no approximate top-k and refuses the flag rather than run exact silently.
+    # The JAX package's ``approx_max_k`` candidate scan in sampled beam search. Off the
+    # TPU, XLA computes that as an exact top-k, and so does the port: the scan takes the
+    # exact ``_top_k`` with the flag set or not (recall 1.0; the TPU aims at 0.95), and
+    # every other path ignores the flag, as the JAX package does.
     approx_top_k: bool = False
 
 
@@ -231,7 +233,8 @@ def _generate_beam(params, llm_cfg, inputs_embeds, attention_mask, cfg, gen,
         scores = _apply_repetition_penalty(scores, live_gen.reshape(b * nb, max_new),
                                            cfg.repetition_penalty)
         if cfg.do_sample and cfg.top_k:
-            # compact candidates: one top-k per beam, then warp / draw on [B, nb * k]
+            # compact candidates: one top-k per beam, then warp / draw on [B, nb * k];
+            # exact under approx_top_k too (GenerationConfig.approx_top_k)
             if cfg.temperature != 1.0:
                 scores = scores / cfg.temperature
             k = min(cfg.top_k, vocab)
@@ -315,9 +318,6 @@ def generate(params, llm_cfg, inputs_embeds, attention_mask, cfg: GenerationConf
     ``params``: decoder params (the ``llm`` part of a VLM tree); ``inputs_embeds``
     [B, P, D] embedding prefix; ``attention_mask`` [B, P], left-padded (the last slot
     is a real token). ``with_stats`` also returns the number of steps taken."""
-    if cfg.approx_top_k:
-        raise NotImplementedError("approx_top_k is the JAX package's TPU-only "
-                                  "approximate top-k; the port has none")
     if generator is None:
         generator = torch.Generator(device=inputs_embeds.device).manual_seed(0)
     fn = _generate_beam if cfg.num_beams > 1 else _generate_sample

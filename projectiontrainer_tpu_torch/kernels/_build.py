@@ -47,8 +47,9 @@ SIGNATURES = {
     # window; stream
     "flash_attn_fwd_bf16": [_P] * 7 + [_I] * 5 + [_P, _I, _I] + [_L] * 3 + [_F, _I, _I, _P],
     # q, kp, vp, kg, vg, prefix_mask, out, o_part, ml_part, counter; B, nb, Hkv, n_rep, P,
-    # G, D; p_begin, p_splits, g_begin, g_end, g_splits, chunk; scale; stream
-    "decode_attn_bf16": [_P] * 10 + [_I] * 7 + [_I] * 6 + [_F, _P],
+    # G, D; p_begin, p_splits, g_begin, g_end, g_splits, chunk; groups, beams and reps a
+    # group; scale; stream
+    "decode_attn_bf16": [_P] * 10 + [_I] * 7 + [_I] * 6 + [_I] * 3 + [_F, _P],
     # q, k, v, kv_mask, dout, lse, delta, dk, dv; B, T, Hq, Hkv, D;
     # strides (long long[18]: q, k, v, dout, dk, dv, each (b, t, h)); tensor maps of q, k,
     # v, dout (long long[44]); bk, bq; scale, causal, window; stream
@@ -64,9 +65,9 @@ SIGNATURES = {
     # stream
     "fused_ce_bwd_bf16": [_P] * 7 + [_I] * 5 + [_F, _P],
     # x, dy, scale, dx, part, sums, counter; N, D; x and dy row strides (elements); rows,
-    # stages, ctas, scale_f32; eps; stream
-    "layernorm_bwd_bf16": [_P] * 7 + [_I] * 2 + [_L] * 2 + [_I] * 4 + [_F, _P],
-    "layernorm_bwd_f32": [_P] * 7 + [_I] * 2 + [_L] * 2 + [_I] * 4 + [_F, _P],
+    # stages, ctas, scale_f32, direct; eps; stream
+    "layernorm_bwd_bf16": [_P] * 7 + [_I] * 2 + [_L] * 2 + [_I] * 5 + [_F, _P],
+    "layernorm_bwd_f32": [_P] * 7 + [_I] * 2 + [_L] * 2 + [_I] * 5 + [_F, _P],
 }
 
 _lock = threading.Lock()

@@ -14,7 +14,9 @@ Needs an NVIDIA GPU and ``nvcc``. Prints one JSON line per step:
   whole splits, with a window that starts inside a split, at 1024 generated slots with
   t = 1000, at Llama-3.2-1B's 32/8 heads of 64 (the served batch at P = 831 and at the
   generation evaluation's P = 703, and one caption of 3 beams at P = 575, G = 128), and
-  at the other head dims and GQA ratios; a rerun must give the same bits, and the plan
+  at the other head dims and GQA ratios, at more rows a KV head than a CTA holds (24 beams
+  of Gemma3-1B's 4/1 heads, 17 of Llama's 32/8, 96 query heads on one KV head), at head
+  dim 512 and at 320 (padded to 512); a rerun must give the same bits, and the plan
   (``ops/decode_attention.py:decode_plan``) must put more CTAs on the card than there
   are (batch, KV head) pairs. Every case is run before a failure is reported;
 - ``--time``: device times (``utils/timing.py:device_ms``) of kernel, plain version and
@@ -37,6 +39,7 @@ import torch
 from projectiontrainer_tpu_torch.kernels import _build
 from projectiontrainer_tpu_torch.kernels.check_flash_attn import ptxas_report, sdpa
 from projectiontrainer_tpu_torch.ops import decode_attention as DA
+from projectiontrainer_tpu_torch.ops import flash_attention as FA
 from projectiontrainer_tpu_torch.utils.timing import device_ms
 
 TOL = 2e-2
@@ -62,8 +65,16 @@ CASES = [
     (3, 3, 8, 2, 64, 150, 41, 9, 16, "ragged"),
     (2, 1, 1, 1, 64, 5, 3, 0, None, None),
     (4, 4, 16, 1, 64, 300, 64, 63, 100, "ragged"),      # 64 rows a KV head: MAX_ROWS
+    (2, 24, 4, 1, 256, 831, 32, 31, None, "ragged"),    # 96 rows a KV head: 2 row groups
+    (2, 24, 4, 1, 256, 831, 32, 17, 512, "ragged"),
+    (8, 17, 32, 8, 64, 831, 32, 31, None, "ragged"),    # 68 rows: Llama at 17 beams
+    (1, 1, 96, 1, 64, 300, 16, 15, None, "splits"),     # 96 query heads a KV head: rep groups
+    (2, 5, 40, 2, 128, 150, 41, 40, 30, "ragged"),      # 100 rows: whole beams of 20
+    (8, 3, 8, 1, 512, 831, 32, 31, None, "ragged"),     # head dim 512: 24 rows, 2 groups
+    (2, 2, 4, 2, 512, 300, 16, 15, 200, "splits"),
+    (2, 3, 4, 1, 320, 300, 16, 15, None, "ragged"),     # 320, padded to 512
 ]
-TIMED = CASES[:8]
+TIMED = CASES[:8] + CASES[18:21] + CASES[23:24]
 
 
 def emit(obj) -> None:
@@ -100,12 +111,13 @@ def check(b, nb, hq, hkv, d, p, g, t, window, pad) -> bool:
     err = (got.float() - ref).abs()
     again = [DA.decode_attention(q, kp, vp, kg, vg, **kw) for _ in range(2)]
     plan = DA.decode_plan(b, nb, hkv, p, g, t, p, window,
-                          torch.cuda.get_device_properties(0).multi_processor_count)
+                          torch.cuda.get_device_properties(0).multi_processor_count,
+                          n_rep=hq // hkv, d=FA.padded_head_dim(d, DA.HEAD_DIMS))
     row = {"case": [b, nb, hq, hkv, d, p, g, t, window, pad], "max_abs_err": float(err.max()),
            "within_tol": bool((err <= TOL + TOL * ref.abs()).all() and got.isfinite().all()),
            "bit_equal": all(torch.equal(got, x) for x in again),
            "launched": DA.launches.value == before + 3, "ctas": plan["ctas"],
-           "splits": plan["splits"], "chunk": plan["chunk"]}
+           "splits": plan["splits"], "chunk": plan["chunk"], "groups": plan["groups"]}
     row["ok"] = bool(row["within_tol"] and row["bit_equal"] and row["launched"]
                      and plan["ctas"] > b * hkv)
     emit(row)
@@ -145,6 +157,34 @@ def time_case(b, nb, hq, hkv, d, p, g, t, window, pad) -> None:
     emit({"case": [b, nb, hq, hkv, d, p, g, t, window, pad], "library": backend, "ms": rows})
 
 
+def time_group_rows(sizes=(8, 12, 16, 24, 32, 64)) -> None:
+    """The row groups' size at more rows a KV head than a CTA holds: the plan's choice
+    (None) against each size alone (``DA.GROUP_SIZES`` narrowed to it), each checked
+    against the plain version, then timed in turns."""
+    default = DA.GROUP_SIZES
+    for case in (CASES[18], CASES[19], CASES[20], CASES[21]):
+        b, nb, hq, hkv, d, p, g, t, window, pad = case
+        q, kp, vp, kg, vg, mask = inputs(b, nb, hq, hkv, d, p, g, pad)
+        kw = dict(prefix_mask=mask, t=t, prefix_len=p, scale=d ** -0.5, window=window)
+        ref = DA.decode_attention_reference(*(x.float() for x in (q, kp, vp, kg, vg)), **kw)
+        rows = {}
+        for size in (None, *sizes):
+            DA.GROUP_SIZES = default if size is None else (size,)
+            err = float((DA.decode_attention(q, kp, vp, kg, vg, **kw).float() - ref).abs().max())
+            plan = DA.decode_plan(b, nb, hkv, p, g, t, p, window, n_rep=hq // hkv, d=d,
+                                  sms=torch.cuda.get_device_properties(0).multi_processor_count)
+            rows[str(size)] = {"err": err, "groups": plan["groups"], "ctas": plan["ctas"],
+                               "rows": plan["beams_per_group"] * plan["reps_per_group"],
+                               "chunk": plan["chunk"], "ms": []}
+        for _ in range(2):  # in turns
+            for size in (None, *sizes):
+                DA.GROUP_SIZES = default if size is None else (size,)
+                rows[str(size)]["ms"].append(
+                    device_ms(lambda: DA.decode_attention(q, kp, vp, kg, vg, **kw)))
+        DA.GROUP_SIZES = default
+        emit({"group_rows": list(case), **rows})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--ptxas", action="store_true")
@@ -162,6 +202,7 @@ def main() -> int:
     if args.time:
         for case in TIMED:
             time_case(*case)
+        time_group_rows()
     return 0 if all(ok) else 1
 
 

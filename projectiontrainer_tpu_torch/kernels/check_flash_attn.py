@@ -65,6 +65,10 @@ CASES = [
     (2, 150, 4, 1, 256, True, 37, "left", False),
     (2, 300, 4, 2, 72, True, 37, "left", True),         # left padding masks whole tiles
     (2, 257, 8, 2, 128, False, None, "right", False),
+    (4, 1024, 8, 2, 512, True, 512, None, False),       # head dim 512: columns split
+    (2, 150, 4, 1, 512, True, 37, "left", False),
+    (2, 257, 4, 4, 512, False, None, "right", True),
+    (1, 63, 2, 2, 512, False, None, None, False),
 ]
 
 

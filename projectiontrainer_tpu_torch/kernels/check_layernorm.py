@@ -12,10 +12,11 @@ Needs an NVIDIA GPU and ``nvcc``. Prints one JSON line per step:
   launch, at the stage-0 tower's rows ([16384, 1152]), at row counts whose bands end
   part-way through a ring stage (ragged, checked on a 132-SM card) or fill whole stages,
   at few rows (fewer CTAs than SMs), at the ViT-L tower's [4608, 1024], with fp32 rows,
-  an fp32 scale, strided rows and the widest D; a rerun must give the same bits; then
-  each refusal (rows not 16-byte aligned, D not a multiple of 8 or above the plan's
-  limit, another dtype, dy of another shape) must raise. Every case is run before a
-  failure is reported;
+  an fp32 scale, strided rows, D = 4096, rows that a bulk copy cannot take (D = 1001 and
+  1004, 8-byte aligned strides, a base off 16 bytes: copied by cp.async) and D above
+  4096 (6144, 8192; column sums through device memory); a rerun must give the same
+  bits; then each refusal (D above the plan's limit, another dtype, dy of another shape)
+  must raise. Every case is run before a failure is reported;
 - ``--time``: device times (``utils/timing.py:device_ms``) of kernel, plain version,
   the library call (the autograd backward of ``F.layer_norm``: dx, dscale and dbias; a
   yardstick the port never calls) and ``torch.add(x, dy, out=dx)`` (the same bytes read
@@ -58,9 +59,19 @@ CASES = [
     (4608, 4096, torch.bfloat16, torch.bfloat16, None, True),   # the widest D: 4 a stage
     (2000, 4096, torch.float32, torch.float32, None, True),     # 2 rows a stage
     (300, 64, torch.bfloat16, torch.bfloat16, None, True),
+    (16384, 1004, torch.bfloat16, torch.bfloat16, None, True),  # rows of 2008 bytes: direct
+    (16, 1001, torch.bfloat16, torch.bfloat16, None, False),    # odd D, one CTA
+    (700, 1152, torch.bfloat16, torch.bfloat16, 1156, True),    # rows 8-byte aligned only
+    (200, 1001, torch.float32, torch.float32, None, False),
+    (1001, 1004, torch.float32, torch.bfloat16, None, True),    # bulk rows into 1008 slots
+    (4096, 6144, torch.bfloat16, torch.bfloat16, None, True),   # wide: sums in device memory
+    (2048, 8192, torch.bfloat16, torch.bfloat16, None, True),
+    (3, 6144, torch.bfloat16, torch.bfloat16, None, True),      # wide, one CTA
+    (300, 4104, torch.float32, torch.float32, None, True),
+    (64, 4100, torch.bfloat16, torch.bfloat16, None, False),    # wide and direct
 ]
 TIMED = [case for case in CASES if case[2] == case[3] == torch.bfloat16
-         and case[4] is None and case[0] > 1][:7]
+         and case[4] is None and case[0] > 1][:7] + [CASES[14], CASES[19], CASES[20]]
 
 
 def emit(obj) -> None:
@@ -86,6 +97,8 @@ def rel_err(got, ref) -> float:
 
 def check(n, d, dtype, scale_dtype, stride, ragged) -> bool:
     x, dy, scale = inputs(n, d, dtype, scale_dtype, stride)
+    if n == 64 and d == 4100:  # a base that is not 16-byte aligned, too
+        x = inputs(n, d + 4, dtype, scale_dtype, None)[0][:, 4:]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     plan = FLN.bwd_plan(n, d, sms, x.element_size())
     before = FLN.bwd_launches.value
@@ -96,6 +109,7 @@ def check(n, d, dtype, scale_dtype, stride, ragged) -> bool:
     errs = [rel_err(a, b) for a, b in zip(got, ref)]
     again = [FLN.layernorm_bwd(x, dy, scale, 1e-6) for _ in range(2)]
     row = {"case": [n, d, str(dtype), str(scale_dtype), stride], **plan,
+           "direct": FLN.bwd_direct(x, dy),
            "bands": sorted({c for _, c in FLN.bwd_bands(n, plan["ctas"])}),
            "ragged": FLN.bwd_ragged(n, plan), "rel_err_dx_dscale_dbias": errs,
            "finite": all(bool(a.isfinite().all()) for a in got),
@@ -112,13 +126,10 @@ def refusals() -> bool:
     """Each input the kernel does not take raises, and nothing is launched."""
     x = torch.zeros((64, 1160), dtype=torch.bfloat16, device="cuda")
     scale = torch.ones(1152, dtype=torch.bfloat16, device="cuda")
-    rows = x.view(-1)[:63 * 1156].view(63, 1156)[:, :1152]
-    big = torch.zeros((4, 4104), dtype=torch.bfloat16, device="cuda")
+    big = torch.zeros((4, 19376), dtype=torch.bfloat16, device="cuda")
     cases = {
-        "base not 16-byte aligned": (ValueError, (x[:, 4:1156], x[:, :1152], scale)),
-        "row stride of 2312 bytes": (ValueError, (rows, rows, scale)),
-        "D = 1156": (ValueError, (x[:, :1156], x[:, :1156], torch.ones(1156, device="cuda"))),
-        "D = 4104": (ValueError, (big, big, torch.ones(4104, device="cuda"))),
+        "D = 19376 (one ring row and the scale above 227 KB)":
+            (ValueError, (big, big, torch.ones(19376, device="cuda"))),
         "fp16 rows": (TypeError, (x[:, :1152].half(), x[:, :1152].half(), scale)),
         "dy of another shape": (ValueError, (x[:, :1152], x[:32, :1152], scale)),
         "fp16 scale": (TypeError, (x[:, :1152], x[:, :1152], scale.half())),

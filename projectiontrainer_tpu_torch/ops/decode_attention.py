@@ -16,11 +16,18 @@ Each split leaves a partial softmax in fp32 scratch (from the caching allocator)
 the last split of a (batch, KV head) to finish combines them; a per-stream counter
 tells it that it is the last, and it sets the counter back to 0 for the next launch.
 
-The kernel takes head dims 64, 128 and 256; any other up to 256 is zero-padded on the
-card to the next of them, the query and the four caches alike, and the output sliced
-back (``decode_attention_padded``; the scale stays the caller's). The JAX package falls
-back to XLA there instead. Padding copies the caches at every step: the copy-free
-version is a kernel that reads rows of D < width.
+A CTA holds its query rows in shared memory, at most ``max_rows(d)`` of them (64; 16 at
+head dim 512). A (batch, KV head) with more rows (nb * n_rep: 17 beams of Gemma3-1B's 4
+query heads a KV head) is cut into row groups of whole beams (or, where one beam's
+n_rep rows are too many, of a beam's rows), each with its own splits and combine, and
+each reading the prefix again; ``decode_plan`` picks their size and reports them. The
+JAX package sends such shapes to its XLA decode path instead.
+
+The kernel takes head dims 64, 128, 256 and 512; any other up to 512 is zero-padded on
+the card to the next of them, the query and the four caches alike, and the output sliced
+back (``decode_attention_padded``; the scale stays the caller's); above 512 the wrapper
+raises. The JAX package falls back to XLA there instead. Padding copies the caches at
+every step: the copy-free version is a kernel that reads rows of D < width.
 """
 
 from __future__ import annotations
@@ -35,36 +42,85 @@ from projectiontrainer_tpu_torch.ops.attention import NEG_INF
 from projectiontrainer_tpu_torch.ops.flash_attention import pad_head_dim, padded_head_dim
 
 launches = _build.LaunchCounter("decode_attn")
-HEAD_DIMS = (64, 128, 256)
-MAX_ROWS = 64  # nb * n_rep query rows one CTA holds in shared memory
+HEAD_DIMS = (64, 128, 256, 512)
+MAX_ROWS = 64  # query rows one CTA holds in shared memory (csrc/decode_attention.cu:MAX_M)
+MAX_ROWS_512 = 16  # ... at head dim 512
+GROUP_SIZES = (64, 32, 16, 8)  # rows a row group may hold, largest first
 TILE_KEYS = 32  # keys a tile inside a split (csrc/decode_attention.cu:TK)
 _counters: dict = {}  # (device index, stream) -> int32 [>= B * Hkv], zero between launches
 _counters_lock = threading.Lock()
 
 
+def max_rows(d: int) -> int:
+    """Query rows one CTA of K3 holds at head dim d: its fp32 q and O beside two K/V
+    tiles in flight within 227 KB of shared memory."""
+    return MAX_ROWS_512 if d > 256 else MAX_ROWS
+
+
+def row_groups(nb: int, n_rep: int, cap: int) -> tuple[int, int]:
+    """(beams, reps) of a row group: all nb * n_rep rows of a (batch, KV head) while
+    they fit in ``cap``; else as few groups of whole beams as fit, their sizes evened
+    out; else (n_rep > cap) one beam's rows in as few groups as fit, evened out."""
+    if nb * n_rep <= cap:
+        return nb, n_rep
+    if n_rep <= cap:
+        n = -(-nb // (cap // n_rep))
+        return -(-nb // n), n_rep
+    n = -(-n_rep // cap)
+    return 1, -(-n_rep // n)
+
+
+def group_shape(pairs: int, nb: int, n_rep: int, d: int, sms: int) -> tuple[int, int]:
+    """(beams, reps) of K3's row groups for ``pairs`` (batch, KV head) pairs: all
+    nb * n_rep rows while a CTA holds them (``max_rows(d)``); else groups of the largest
+    of ``GROUP_SIZES`` that still gives ``sms`` groups in all, or of the smallest. A
+    group's partials and its one-CTA combine grow with its rows, while the prefix that
+    each group reads again is cheap: at 2 x 24 beams of Gemma3-1B's 4|1 heads (2 pairs)
+    groups of 8 rows took 0.064 ms, of 16 0.081, of 64 0.217; at 8 x 17 beams of
+    Llama-3.2-1B's 32|8 (64 pairs) groups of 32 took 0.268, of 8 0.322, of 64 0.375
+    (NVIDIA H100 80GB HBM3, 700 W; ``kernels/check_decode_attn.py --time``)."""
+    cap = max_rows(d)
+    if nb * n_rep <= cap:
+        return nb, n_rep
+    for size in [s for s in GROUP_SIZES if s <= cap]:
+        bpg, rpg = row_groups(nb, n_rep, size)
+        if pairs * -(-nb // bpg) * -(-n_rep // rpg) >= sms:
+            break
+    return bpg, rpg
+
+
 def decode_plan(b: int, nb: int, hkv: int, p: int, g: int, t: int, prefix_len: int,
-                window: Optional[int], sms: int = 132) -> dict:
+                window: Optional[int], sms: int = 132, *, n_rep: int = 1,
+                d: int = 256) -> dict:
     """How K3 cuts the live keys of each (batch, KV head) over CTAs at step t.
 
-    Live are the prefix slots [p_begin, p) (the padding mask removes more inside the
-    kernel) and each beam's generated slots [g_begin, g_end) = j <= t, both inside the
-    window (cache slots, the query at prefix_len + t). They are cut into splits of
-    ``chunk`` keys, a multiple of the kernel's 32-key tile, sized so that
-    b * hkv * splits comes near ``sms`` CTAs (rounded to the nearest tile, at least one):
-    ``p_splits`` splits of the prefix, each for all nb * n_rep rows, then ``g_splits``
-    a beam of its generated slots, each for that beam's rows. No split is empty of
-    slots; a split may be empty of live keys (padding)."""
+    The nb * n_rep query rows of a (batch, KV head) are one group while they fit in a
+    CTA; more are cut into ``groups`` row groups (``group_shape``: ``beams_per_group``
+    beams x ``reps_per_group`` rows of a beam). Live are the prefix slots [p_begin, p) (the padding mask removes more
+    inside the kernel) and each beam's generated slots [g_begin, g_end) = j <= t, both
+    inside the window (cache slots, the query at prefix_len + t). They are cut into splits of ``chunk`` keys, a
+    multiple of the kernel's 32-key tile, sized so that the CTAs come near ``sms``
+    (rounded to the nearest tile, at least one): for each group ``p_splits`` splits of
+    the prefix, each for all the group's rows, then ``g_splits`` a beam of its generated
+    slots, each for that beam's rows in the group. ``splits``: a group's of most beams
+    (the grid's x), ``ctas``: the CTAs that run. No split is empty of slots; a split may
+    be empty of live keys (padding)."""
+    bpg, rpg = group_shape(b * hkv, nb, n_rep, d, sms)
+    rep_groups = -(-n_rep // rpg)
+    groups = -(-nb // bpg) * rep_groups
     q_slot = prefix_len + t
     p_begin = min(p, max(0, q_slot - window + 1)) if window else 0
     g_begin, g_end = (max(0, t - window + 1) if window else 0), min(t + 1, g)
     live_p, live_g = p - p_begin, g_end - g_begin
-    keys = b * hkv * (live_p + nb * live_g)
+    keys = b * hkv * (groups * live_p + nb * rep_groups * live_g)
     tiles = max(1, (keys + sms * TILE_KEYS // 2) // (sms * TILE_KEYS))
     chunk = tiles * TILE_KEYS
     p_splits, g_splits = -(-live_p // chunk), -(-live_g // chunk)
-    splits = p_splits + nb * g_splits
+    splits = p_splits + bpg * g_splits
+    ctas = b * hkv * (groups * p_splits + nb * rep_groups * g_splits)
     return {"p_begin": p_begin, "p_splits": p_splits, "g_begin": g_begin, "g_end": g_end,
-            "g_splits": g_splits, "chunk": chunk, "splits": splits, "ctas": b * hkv * splits}
+            "g_splits": g_splits, "chunk": chunk, "splits": splits, "ctas": ctas,
+            "groups": groups, "beams_per_group": bpg, "reps_per_group": rpg}
 
 
 def _counter(device, stream: int, n: int):
@@ -125,17 +181,19 @@ def _launch(q, kp, vp, kg, vg, *, prefix_mask, t, prefix_len, scale, window):
             raise ValueError(f"decode_attention: {name} must be contiguous and 16-byte aligned")
     if vp.shape != kp.shape or vg.shape != kg.shape or kg.shape != (r, hkv, g, d):
         raise ValueError("decode_attention: cache shapes disagree")
-    if d not in HEAD_DIMS or hq % hkv or nb * n_rep > MAX_ROWS:
-        raise ValueError(f"decode_attention: head_dim {d} (takes {HEAD_DIMS}), GQA "
-                         f"{hq}/{hkv} or {nb * n_rep} rows per kv head not supported")
+    if d not in HEAD_DIMS or hq % hkv:
+        raise ValueError(f"decode_attention: head_dim {d} (takes {HEAD_DIMS}) or GQA "
+                         f"{hq}/{hkv} not supported")
     if not 0 <= t < g:
         raise ValueError(f"decode_attention: step {t} outside the generated cache [0, {g})")
     mask = prefix_mask.to(device=q.device, dtype=torch.int32).contiguous()
     if mask.shape != (b, p):
         raise ValueError(f"decode_attention: prefix_mask must be [B, P], got {tuple(mask.shape)}")
     plan = decode_plan(b, nb, hkv, p, g, t, prefix_len, window,
-                       torch.cuda.get_device_properties(q.device).multi_processor_count)
-    rows = b * hkv * plan["splits"] * nb * n_rep
+                       torch.cuda.get_device_properties(q.device).multi_processor_count,
+                       n_rep=n_rep, d=d)
+    units = b * hkv * plan["groups"]  # (batch, KV head, row group): a counter each
+    rows = units * plan["splits"] * plan["beams_per_group"] * plan["reps_per_group"]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     lib = _build.library()
     out = torch.empty_like(q)
@@ -144,9 +202,10 @@ def _launch(q, kp, vp, kg, vg, *, prefix_mask, t, prefix_len, scale, window):
     err = lib.decode_attn_bf16(
         q.data_ptr(), kp.data_ptr(), vp.data_ptr(), kg.data_ptr(), vg.data_ptr(),
         mask.data_ptr(), out.data_ptr(), o_part.data_ptr(), ml_part.data_ptr(),
-        _counter(q.device, stream, b * hkv).data_ptr(), b, nb, hkv, n_rep, p, g, d,
+        _counter(q.device, stream, units).data_ptr(), b, nb, hkv, n_rep, p, g, d,
         plan["p_begin"], plan["p_splits"], plan["g_begin"], plan["g_end"], plan["g_splits"],
-        plan["chunk"], float(scale), stream,
+        plan["chunk"], plan["groups"], plan["beams_per_group"], plan["reps_per_group"],
+        float(scale), stream,
     )
     _build.check("decode_attn_bf16", err)
     launches.add()

@@ -17,11 +17,13 @@ from that copy, not from the bf16 output (see ``csrc/flash_attn_fwd.cu``).
 
 Self-attention shapes only (``Tq == Tk``): the towers (non-causal) and the decoder
 (causal, sliding window, padding mask, GQA). The kernels take head dims 64, 72 (so400m;
-the kernels fill its rows up with zeros on the chip, nothing is padded here), 128 and
-256; any other head dim up to 256 is zero-padded on the card to the next of them, as the
-JAX package pads inside its kernel (``flash_attention_padded``): the kernels run at that
-width with the caller's scale ``D ** -0.5`` and O, dQ, dK and dV are sliced back (q.k and
-P.V gain only zero terms); above 256 the wrapper raises.
+the kernels fill its rows up with zeros on the chip, nothing is padded here), 128, 256
+and 512; any other head dim up to 512 is zero-padded on the card to the next of them, as
+the JAX package pads inside its kernel (``flash_attention_padded``): the kernels run at
+that width with the caller's scale ``D ** -0.5`` and O, dQ, dK and dV are sliced back
+(q.k and P.V gain only zero terms); above 512 the wrapper raises (the JAX package pads
+any width). At 512 each kernel splits its accumulator's columns over its two warpgroups
+(and K4 over two CTAs a key tile), which both compute the scores.
 
 Each launch is a ``ptt`` operator (``kernels/_build.py:kernel_op``): the wrappers check
 the shapes and allocate every buffer the kernel writes (``fwd_buffers``,
@@ -65,15 +67,19 @@ from projectiontrainer_tpu_torch.ops.attention import attention_probs, dot_produ
 launches = _build.LaunchCounter("flash_attn_fwd")
 bwd_dkv_launches = _build.LaunchCounter("flash_attn_bwd_dkv")
 bwd_dq_launches = _build.LaunchCounter("flash_attn_bwd_dq")
-HEAD_DIMS = (64, 72, 128, 256)
+HEAD_DIMS = (64, 72, 128, 256, 512)
 TMA_COLUMNS = 64  # bf16 columns of a 128-byte-swizzled TMA box
 
 
 def forward_plan(d: int) -> dict:
     """K1's tiles at head dim d: ``bq`` query rows a CTA (two warpgroups of 64) and
-    ``bk`` keys a ring stage (64 at d = 256, where O alone is 128 registers a thread)."""
+    ``bk`` keys a ring stage (64 at d = 256, where O alone is 128 registers a thread). At
+    d = 512 the two warpgroups share 64 rows, each with half of O, and stages of 32 keys
+    (two of them and Q fill 192 KB)."""
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {d} not supported (takes {HEAD_DIMS})")
+    if d > 256:
+        return {"bq": 64, "bk": 32}
     return {"bq": 128, "bk": 64 if d > 128 else 128}
 
 
@@ -81,7 +87,8 @@ def dkv_plan(d: int) -> dict:
     """K4's tiles at head dim d: ``bk`` keys a CTA and ``bq`` queries a ring stage. 128
     keys (two warpgroups of 64) and 64 queries at 64 and 72; 32 queries at 128, where dK
     and dV are 128 registers a thread; at 256 the two warpgroups share 64 keys and split
-    the columns of dK and dV, again 128 registers a thread and 32 queries."""
+    the columns of dK and dV, again 128 registers a thread and 32 queries; at 512 two
+    CTAs share the 64 keys, each with half of the columns (one stage of 32 queries)."""
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {d} not supported (takes {HEAD_DIMS})")
     return {"bk": 64 if d > 128 else 128, "bq": 64 if d <= 72 else 32}
@@ -90,10 +97,11 @@ def dkv_plan(d: int) -> dict:
 def dq_plan(d: int) -> dict:
     """K5's tiles at head dim d: ``bq`` queries a CTA (two warpgroups of 64) and ``bk``
     keys a ring stage: 64, and 32 at d = 256, where dQ alone is 128 registers a thread
-    and S and dP of 64 keys would not fit beside it."""
+    and S and dP of 64 keys would not fit beside it. At d = 512 the two warpgroups share
+    64 queries, each with half of dQ (one stage of 32 keys)."""
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {d} not supported (takes {HEAD_DIMS})")
-    return {"bq": 128, "bk": 32 if d > 128 else 64}
+    return {"bq": 64 if d > 256 else 128, "bk": 32 if d > 128 else 64}
 
 
 def kv_tile_range(q0: int, bq: int, bk: int, t: int, causal: bool, window: Optional[int]):

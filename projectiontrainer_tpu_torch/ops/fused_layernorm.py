@@ -20,14 +20,16 @@ and dy and writes dx (~113 MB at the stage-0 tower's [16384, 1152] bf16).
   contiguous band of rows (``bwd_plan``), whose rows of x and dy a producer thread
   copies whole into a ring of shared-memory stages; a warp a row computes dx with
   shuffle reductions, and four column-sum warps fold each stage's rows into fp32
-  registers. The CTAs' partial sums meet in a ``[C, 2, D]`` fp32 scratch; after one
+  registers. The CTAs' partial sums meet in a ``[C, 2, slot]`` fp32 scratch; after one
   grid barrier each CTA adds its slice of the columns over all partials in CTA order
   (deterministic: no atomics). Rows past a band's end are never loaded, so a
-  part-filled stage adds nothing. bf16 or fp32 rows, D a multiple of 8 up to
-  ``BWD_MAX_D``, 16-byte aligned rows. That width is a refusal the JAX package does not
-  share (it falls back to XLA for D % 128, ``ops/fused_layernorm.py:53`` there), and no
-  pad repairs it: zero columns would enter the row statistics, so K8 would need the true
-  D beside a padded row stride. Every tower the repo runs (768, 1024, 1152) is inside.
+  part-filled stage adds nothing. bf16 or fp32 rows of any width up to what one ring
+  row must fit in shared memory (``bwd_plan`` raises above: 19,368): a row's slot is D
+  rounded up to 8 (``bwd_slot``), and rows that are not 16-byte multiples or do not start
+  on 16 bytes are copied by the row warps' cp.async instead of in bulk (``bwd_direct``);
+  above 4096 the column sums run through the CTA's partial row in device memory instead
+  of registers. The JAX package computes every width (its gate sends the rest to XLA,
+  ``ops/fused_layernorm.py:38-53`` there).
 
 Each launch is a ``ptt`` operator (``kernels/_build.py:kernel_op``): the wrappers
 allocate what the kernel writes (``fwd_buffers``, ``bwd_buffers``: K8's partial sums
@@ -47,7 +49,7 @@ from projectiontrainer_tpu_torch.ops import layers as L
 launches = _build.LaunchCounter("layernorm_fwd")
 bwd_launches = _build.LaunchCounter("layernorm_bwd")
 # K8's launch (csrc/layernorm_bwd.cu): 8 row warps, 4 column-sum warps, 1 producer warp
-BWD_MAX_D = 4096         # MAX_D: 128 column-sum threads x 32 columns each
+BWD_MAX_D = 4096         # MAX_D: widest D whose column sums stay in registers
 BWD_THREADS = 416        # THREADS
 BWD_MAX_STAGES = 4       # ring stages the plan uses (the kernel takes up to 8)
 SMEM_LIMIT = 232_448     # dynamic shared memory a block may opt into on the H100
@@ -150,25 +152,32 @@ def layernorm_fwd(x: torch.Tensor, scale, bias, eps: float) -> torch.Tensor:
     return out.reshape(shape)
 
 
+def bwd_slot(d: int) -> int:
+    """A row's slot in K8's ring and partial sums: d rounded up to 8 elements (16-byte
+    slots in bf16 and fp32; csrc/layernorm_bwd.cu:slot_width)."""
+    return -(-d // 8) * 8
+
+
 def bwd_smem_bytes(d: int, itemsize: int, rows: int, stages: int) -> int:
     """K8's dynamic shared memory (csrc/layernorm_bwd.cu:smem_bytes): the ring of
-    ``stages`` x ``rows`` rows of x and dy (its first bytes hold the combine's sums once
+    ``stages`` x ``rows`` slots of x and dy (its first bytes hold the combine's sums once
     it has drained), the scale in fp32, each slot's (mean, rstd), three mbarriers a
     stage."""
-    ring = stages * rows * 2 * d * itemsize
-    return max(ring, 4 * max(2 * d, BWD_THREADS)) + 4 * d + 8 * stages * rows + 24 * stages
+    dp = bwd_slot(d)
+    ring = stages * rows * 2 * dp * itemsize
+    return max(ring, 4 * max(2 * dp, BWD_THREADS)) + 4 * dp + 8 * stages * rows + 24 * stages
 
 
 def bwd_plan(n: int, d: int, sms: int, itemsize: int = 2) -> dict:
     """How K8 lays n rows of width d (``itemsize`` bytes an element) over a card of
     ``sms`` SMs: ``rows`` a ring stage (8, or fewer where three stages of 8 would not fit
-    in shared memory), ``stages`` (at most ``BWD_MAX_STAGES``), and
-    ``ctas`` = min(sms, ceil(n / rows)), one an SM, CTA c over the contiguous band
-    ``bwd_bands`` gives it; one CTA for up to 2 x rows rows. Raises for a d the kernel
-    does not take."""
-    if d % 8 or not 8 <= d <= BWD_MAX_D:
-        raise ValueError(f"layernorm backward kernel: D = {d} must be a multiple of 8 in "
-                         f"[8, {BWD_MAX_D}] (16-byte bulk copies; 32 column sums a thread)")
+    in shared memory), ``stages`` (at most ``BWD_MAX_STAGES``; fewer than 3 only where
+    one row a stage leaves no room for more), and ``ctas`` = min(sms, ceil(n / rows)),
+    one an SM, CTA c over the contiguous band ``bwd_bands`` gives it; one CTA for up to
+    2 x rows rows. Raises for a d the kernel does not take: one row of x and dy and the
+    fp32 scale must fit in shared memory (up to 19,368 in bf16 and fp32)."""
+    if d < 1:
+        raise ValueError(f"layernorm backward kernel: D = {d}")
     if n < 1:
         raise ValueError("layernorm backward kernel: no rows")
     for rows in (8, 4, 2, 1):
@@ -177,6 +186,10 @@ def bwd_plan(n: int, d: int, sms: int, itemsize: int = 2) -> dict:
             stages -= 1
         if stages >= 3:
             break
+    if bwd_smem_bytes(d, itemsize, rows, stages) > SMEM_LIMIT:
+        raise ValueError(f"layernorm backward kernel: D = {d} too wide: one ring row of x "
+                         f"and dy and the fp32 scale take {bwd_smem_bytes(d, itemsize, 1, 1)} "
+                         f"bytes of shared memory, above {SMEM_LIMIT}")
     # up to two stages of rows, one CTA without the grid barrier and the combine is the
     # quicker (kernels/check_layernorm.py --time times both)
     ctas = 1 if n <= 2 * rows else min(sms, -(-n // rows))
@@ -218,17 +231,23 @@ def sm_count(x) -> int:
 
 def bwd_buffers(n: int, d: int, dtype, plan: dict) -> dict:
     """What one K8 launch on [n, d] rows of ``dtype`` under ``plan`` writes: dx in x's
-    type, each CTA's fp32 partial column sums [ctas, 2, d] and the combined sums [2, d]
-    (dscale, dbias)."""
-    return {"dx": ((n, d), dtype), "part": ((plan["ctas"], 2, d), torch.float32),
-            "sums": ((2, d), torch.float32)}
+    type, each CTA's fp32 partial column sums [ctas, 2, slot] and the combined sums
+    [2, slot] (dscale, dbias; ``bwd_slot``: d rounded up to 8, the pad columns 0)."""
+    dp = bwd_slot(d)
+    return {"dx": ((n, d), dtype), "part": ((plan["ctas"], 2, dp), torch.float32),
+            "sums": ((2, dp), torch.float32)}
+
+
+def bwd_direct(x2, dy2) -> bool:
+    """Whether K8 copies the rows with the row warps' cp.async instead of bulk copies:
+    a row that is not a multiple of 16 bytes (D = 1001, 1004 in bf16) or does not start
+    on 16 bytes."""
+    return any(t.shape[1] * t.element_size() % 16 or t.stride(0) * t.element_size() % 16
+               or t.data_ptr() % 16 for t in (x2, dy2))
 
 
 def _bwd_launch(x2, dy2, scale, dx, part, sums, rows, stages, eps):
     """K8's operator on the card: ``dx``, ``part`` and ``sums`` written."""
-    for name, t in (("x", x2), ("dy", dy2)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"layernorm backward kernel: {name} rows must be 16-byte aligned")
     n, d = x2.shape
     stream = torch.cuda.current_stream(x2.device).cuda_stream
     name = "layernorm_bwd_bf16" if x2.dtype == torch.bfloat16 else "layernorm_bwd_f32"
@@ -236,7 +255,7 @@ def _bwd_launch(x2, dy2, scale, dx, part, sums, rows, stages, eps):
         x2.data_ptr(), dy2.data_ptr(), scale.data_ptr(), dx.data_ptr(), part.data_ptr(),
         sums.data_ptr(), _grid_barrier(x2.device, stream).data_ptr(), n, d, x2.stride(0),
         dy2.stride(0), rows, stages, part.shape[0], int(scale.dtype == torch.float32),
-        eps, stream)
+        int(bwd_direct(x2, dy2)), eps, stream)
     _build.check(name, err)
     bwd_launches.add()
 
@@ -248,9 +267,9 @@ BWD_OP = _build.kernel_op(
 
 def layernorm_bwd(x2: torch.Tensor, dy2: torch.Tensor, scale, eps: float,
                   plan: dict | None = None):
-    """K8 on CUDA rows x2, dy2 [N, D] (bf16 or fp32, 16-byte aligned rows) -> (dx [N, D]
-    in x's type, dscale fp32 [D], dbias fp32 [D]). One launch; raises for what the
-    kernel does not take. ``plan``: another ``bwd_plan`` to launch (for timing its
+    """K8 on CUDA rows x2, dy2 [N, D] (bf16 or fp32, unit stride on D) -> (dx [N, D] in
+    x's type, dscale fp32 [D], dbias fp32 [D]). One launch; raises for what the kernel
+    does not take. ``plan``: another ``bwd_plan`` to launch (for timing its
     alternatives), else ``bwd_plan``'s own."""
     n, d = x2.shape
     _check_rows("x", x2)
@@ -259,9 +278,6 @@ def layernorm_bwd(x2: torch.Tensor, dy2: torch.Tensor, scale, eps: float,
     if dy2.shape != x2.shape or dy2.dtype != x2.dtype:
         raise ValueError(f"layernorm backward: dy {tuple(dy2.shape)} {dy2.dtype} is not x "
                          f"{tuple(x2.shape)} {x2.dtype}")
-    for name, t in (("x", x2), ("dy", dy2)):
-        if t.stride(0) * t.element_size() % 16:
-            raise ValueError(f"layernorm backward kernel: {name} rows must be 16-byte aligned")
     if scale.dtype not in (torch.bfloat16, torch.float32) or scale.stride(0) != 1:
         raise TypeError(f"layernorm backward kernel: scale must be contiguous bf16 or fp32, "
                         f"got {scale.dtype}")
@@ -270,7 +286,7 @@ def layernorm_bwd(x2: torch.Tensor, dy2: torch.Tensor, scale, eps: float,
     bufs = _build.allocate(bwd_buffers(n, d, x2.dtype, plan), x2.device)
     BWD_OP(x2, dy2, scale, bufs["dx"], bufs["part"], bufs["sums"], plan["rows"],
            plan["stages"], float(eps))
-    return bufs["dx"], bufs["sums"][0], bufs["sums"][1]
+    return bufs["dx"], bufs["sums"][0, :d], bufs["sums"][1, :d]
 
 
 # ---------------------------------------------------------------------------- autograd

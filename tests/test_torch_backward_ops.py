@@ -226,11 +226,12 @@ def test_layernorm_bwd_plan_keeps_loads_in_flight(d):
     assert (plan["stages"] - 1) * plan["rows"] * 2 * d * 2 >= 64 * 1024
 
 
-@pytest.mark.parametrize("n,d", [(16, 1156), (16, 4100), (16, 4104), (16, 8192), (16, 0),
+@pytest.mark.parametrize("n,d", [(16, 19369), (16, 20000), (16, 65536), (16, -8), (16, 0),
                                  (0, 1152)])
 def test_layernorm_bwd_plan_refuses(n, d):
-    """D must be a multiple of 8 (16-byte bulk copies of bf16 rows) and at most 4096 (32
-    column sums for each of 128 threads); there must be rows."""
+    """D must be at least 1 and at most 19,368: one ring row of x and dy and the fp32
+    scale must fit in the 227 KB of shared memory a block may use (any width below,
+    tests/test_torch_layernorm_widths.py); there must be rows."""
     with pytest.raises(ValueError):
         FLN.bwd_plan(n, d, 132)
 

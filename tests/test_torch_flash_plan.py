@@ -26,14 +26,16 @@ def _tile_has_pair(valid, q0, bq, k0, bk):
     return bool(valid[q0:q0 + bq, k0:k0 + bk].any())
 
 
-@pytest.mark.parametrize("bk", [64, 128])  # K1's stages: 64 keys at D = 256, else 128
+# K1's stages: 64 keys at D = 256 (128 rows a CTA), 32 at 512 (64 rows), else 128
+@pytest.mark.parametrize("bk", [32, 64, 128])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("window", WINDOWS)
 @pytest.mark.parametrize("t", LENGTHS)
 def test_kv_tile_range_holds_every_live_pair(t, window, causal, bk):
     valid = _valid(t, causal, window)
-    bq = FA.forward_plan(64 if bk == 128 else 256)["bq"]
-    assert FA.forward_plan(64 if bk == 128 else 256)["bk"] == bk
+    d = {128: 64, 64: 256, 32: 512}[bk]
+    bq = FA.forward_plan(d)["bq"]
+    assert FA.forward_plan(d)["bk"] == bk
     n_kv_tiles = -(-t // bk)
     for q0 in range(0, t, bq):
         begin, end = FA.kv_tile_range(q0, bq, bk, t, causal, window)
@@ -46,7 +48,8 @@ def test_kv_tile_range_holds_every_live_pair(t, window, causal, bk):
         assert _tile_has_pair(valid, q0, bq, (end - 1) * bk, bk)
 
 
-@pytest.mark.parametrize("d", [64, 256])  # K5's tiles: 128 queries, stages of 64 keys (32 at 256)
+# K5's tiles: 128 queries, stages of 64 keys (32 at 256); 64 queries and 32 keys at 512
+@pytest.mark.parametrize("d", [64, 256, 512])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("window", WINDOWS)
 @pytest.mark.parametrize("t", LENGTHS)
@@ -95,6 +98,7 @@ def test_q_tile_range_holds_every_live_pair(t, window, causal, bk, bq):
     (72, {"bq": 128, "bk": 128}, {"bk": 128, "bq": 64}, {"bq": 128, "bk": 64}),
     (128, {"bq": 128, "bk": 128}, {"bk": 128, "bq": 32}, {"bq": 128, "bk": 64}),
     (256, {"bq": 128, "bk": 64}, {"bk": 64, "bq": 32}, {"bq": 128, "bk": 32}),
+    (512, {"bq": 64, "bk": 32}, {"bk": 64, "bq": 32}, {"bq": 64, "bk": 32}),
 ])
 def test_kernel_and_tiles_by_head_dim(d, fwd, dkv, dq):
     assert FA.forward_plan(d) == fwd
@@ -102,7 +106,7 @@ def test_kernel_and_tiles_by_head_dim(d, fwd, dkv, dq):
     assert FA.dq_plan(d) == dq
 
 
-@pytest.mark.parametrize("d", [0, 32, 80, 96, 512])
+@pytest.mark.parametrize("d", [0, 32, 80, 96, 1024])  # 512 is a kernel's width
 def test_plans_refuse_other_head_dims(d):
     with pytest.raises(ValueError):
         FA.forward_plan(d)

@@ -132,12 +132,15 @@ def test_repetition_penalty_matches_jax():
 
 
 def test_approx_top_k_raises(setup):
+    """It no longer raises: the sampled beam search's candidate scan is the exact top-k
+    under the flag too (XLA's ``approx_max_k`` off the TPU), so the flag changes no token
+    under the same generator (tests/test_torch_approx_topk.py holds the rest)."""
     s = setup
-    with pytest.raises(NotImplementedError):
-        generate(s["p"]["llm"], s["cfg"].llm, torch.tensor(s["embeds"]),
-                 torch.tensor(s["mask"]),
-                 GenerationConfig(max_new_tokens=4, do_sample=True, top_k=5, num_beams=3,
-                                  approx_top_k=True))
+    run = lambda flag: generate(
+        s["p"]["llm"], s["cfg"].llm, torch.tensor(s["embeds"]), torch.tensor(s["mask"]),
+        GenerationConfig(max_new_tokens=4, do_sample=True, top_k=5, num_beams=3,
+                         approx_top_k=flag), torch.Generator().manual_seed(0)).numpy()
+    np.testing.assert_array_equal(run(True), run(False))
 
 
 def test_port_imports_no_jax():

@@ -1,14 +1,16 @@
 """Head dims the attention kernels do not take: the port zero-pads them on the card to
 the next width a kernel takes (``ops/flash_attention.py:flash_attention_padded``,
 ``ops/decode_attention.py:decode_attention_padded``), as the JAX package pads inside its
-flash kernel.
+flash kernel; 512 is the widest.
 
 The pad helpers, run here through the plain versions at the padded width, against the
 JAX package's ``flash_attention`` in interpret mode (forward and the three gradients)
 and its ``decode_attention`` (the XLA path, which it takes at these dims), fp32, the
-same numpy inputs, at D = 32, 80, 96 and 100. Then the card's branch on meta tensors
+same numpy inputs, at D = 32, 80, 96, 100, and at 288, 320, 384 (padded to 512) and 512
+itself; tolerance 1e-5 absolute and relative. Then the card's branch on meta tensors
 (which stand for the card in the budget's trace): a head dim outside the kernels' set
-goes through the pad, and one above 256 raises."""
+goes through the pad (320 too), 512 goes straight to the kernels, and one above 512
+raises."""
 
 import jax
 import jax.numpy as jnp
@@ -23,7 +25,7 @@ from projectiontrainer_tpu_torch.ops import flash_attention as FA
 
 torch.set_num_threads(2)
 TOL = dict(rtol=1e-5, atol=1e-5)
-DIMS = (32, 80, 96, 100)
+DIMS = (32, 80, 96, 100, 288, 320, 384, 512)
 CASES = {
     "tower": dict(hq=4, hkv=4, causal=False, window=None, pad=False),
     "decoder": dict(hq=4, hkv=2, causal=True, window=16, pad=True),
@@ -86,20 +88,22 @@ def test_padded_decode_matches_xla(d):
 
 
 def test_padded_widths():
-    assert [FA.padded_head_dim(d) for d in (1, 64, 65, 72, 73, 128, 200, 256)] == [
-        64, 64, 72, 72, 128, 128, 256, 256]
-    assert [FA.padded_head_dim(d, DA.HEAD_DIMS) for d in (32, 72, 96, 129)] == [64, 128, 128, 256]
+    assert [FA.padded_head_dim(d) for d in (1, 64, 65, 72, 73, 128, 200, 256, 257, 320, 512)] == [
+        64, 64, 72, 72, 128, 128, 256, 256, 512, 512, 512]
+    assert [FA.padded_head_dim(d, DA.HEAD_DIMS) for d in (32, 72, 96, 129, 288)] == [
+        64, 128, 128, 256, 512]
     for widths in (FA.HEAD_DIMS, DA.HEAD_DIMS):
-        with pytest.raises(ValueError, match="257"):
-            FA.padded_head_dim(257, widths)
+        with pytest.raises(ValueError, match="513.*512"):
+            FA.padded_head_dim(513, widths)
 
 
 def test_card_branch_pads_on_meta_tensors():
     """Meta tensors take the kernels' branch (the budget's stand-in for the card): a
-    head dim outside the kernels' set is padded there, the merged layout too, and the
-    shapes that come back are the caller's; nothing is launched."""
+    head dim outside the kernels' set is padded there (320 to 512), 512 runs as it is,
+    the merged layout too, and the shapes that come back are the caller's; nothing is
+    launched; above 512 the wrapper raises with the limit in the message."""
     before = (FA.launches.value, FA.bwd_dkv_launches.value, FA.bwd_dq_launches.value)
-    for d in (32, 80, 96, 100):
+    for d in (32, 80, 96, 100, 320, 512):
         q = torch.empty(2, 64, 4, d, dtype=torch.bfloat16, device="meta", requires_grad=True)
         k = torch.empty(2, 64, 2, d, dtype=torch.bfloat16, device="meta", requires_grad=True)
         out, lse = FA.flash_attention(q, k, k, causal=True, window=16)
@@ -109,6 +113,6 @@ def test_card_branch_pads_on_meta_tensors():
         qm = torch.empty(2, 64, 4 * d, dtype=torch.bfloat16, device="meta")
         assert FA.flash_attention_merged(qm, qm, qm, heads=4, kv_heads=4).shape == qm.shape
     assert (FA.launches.value, FA.bwd_dkv_launches.value, FA.bwd_dq_launches.value) == before
-    big = torch.empty(1, 8, 2, 320, dtype=torch.bfloat16, device="meta")
-    with pytest.raises(ValueError, match="320"):
+    big = torch.empty(1, 8, 2, 513, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="513.*512"):
         FA.flash_attention(big, big, big)

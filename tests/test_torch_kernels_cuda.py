@@ -118,9 +118,9 @@ def test_flash_forward_fp32_copy_and_reruns(card, t, d, hq, hkv, causal):
 
 
 def test_flash_kernel_rejects_unsupported(card):
-    q = torch.zeros((1, 8, 2, 96), dtype=torch.bfloat16, device=card)
-    with pytest.raises(ValueError):
-        FA.flash_attention(q, q, q)  # head dim 96
+    q = torch.zeros((1, 8, 2, 513), dtype=torch.bfloat16, device=card)
+    with pytest.raises(ValueError, match="512"):
+        FA.flash_attention(q, q, q)  # head dim 513: above the widest kernel, no pad
     with pytest.raises(TypeError):
         FA.flash_attention(q.float()[..., :64], q.float()[..., :64], q.float()[..., :64])
     q = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16, device=card)
@@ -148,6 +148,12 @@ def test_flash_kernel_rejects_unsupported(card):
     (8, 3, 4, 1, 831, 1024, 256, 1000, None, "left"),  # max_new_tokens 1024
     (8, 3, 4, 1, 831, 1024, 256, 1000, 512, "left"),
     (2, 2, 8, 2, 150, 20, 64, 19, 64, "left"),
+    (2, 24, 4, 1, 831, 32, 256, 31, None, "left"),    # 96 rows a KV head: 2 row groups
+    (3, 17, 32, 8, 300, 32, 64, 17, 100, "splits"),   # 68 rows: Llama at 17 beams
+    (1, 1, 96, 1, 300, 16, 64, 15, None, None),       # 96 query heads on one KV head
+    (2, 3, 40, 1, 150, 16, 128, 15, None, "left"),    # 40 heads a beam: groups of its rows
+    (3, 3, 8, 1, 831, 32, 512, 31, None, "left"),     # head dim 512: 24 rows, 2 groups
+    (2, 3, 4, 1, 300, 16, 320, 15, 200, "left"),      # 320, padded to 512
 ])
 def test_decode_kernel(card, b, nb, hq, hkv, p, g, d, t, window, pad):
     """Within atol = rtol = 2e-2 of the plain version in fp32, a rerun bit-equal (the
@@ -168,7 +174,9 @@ def test_decode_kernel(card, b, nb, hq, hkv, p, g, d, t, window, pad):
     for _ in range(2):
         assert torch.equal(got, DA.decode_attention(q, kp, vp, kg, vg, **kw))
     sms = torch.cuda.get_device_properties(card).multi_processor_count
-    assert DA.decode_plan(b, nb, hkv, p, g, t, p, window, sms)["ctas"] > b * hkv
+    width = FA.padded_head_dim(d, DA.HEAD_DIMS)
+    assert DA.decode_plan(b, nb, hkv, p, g, t, p, window, sms, n_rep=hq // hkv,
+                          d=width)["ctas"] > b * hkv
 
 
 def _rel_close(got, ref, rel=2e-2):
@@ -199,6 +207,8 @@ def _rel_close(got, ref, rel=2e-2):
     (2, 127, 4, 1, 256, True, 37, "right", True),
     (2, 300, 4, 4, 64, True, None, "left", True),      # left padding masks whole tiles
     (2, 300, 4, 2, 72, True, 37, "left", False),
+    (2, 150, 4, 1, 512, True, 37, "left", False),      # head dim 512: columns split
+    (2, 257, 4, 4, 512, False, None, "right", True),
 ])
 def test_flash_backward_kernels(card, b, t, hq, hkv, d, causal, window, pad, sliced):
     rng = np.random.default_rng(4)
@@ -337,6 +347,9 @@ def test_flash_backward_rejects_unsupported(card):
     (529, 1152, torch.bfloat16, True), (1001, 1152, torch.bfloat16, True),
     (16383, 1152, torch.bfloat16, True), (4608, 1024, torch.bfloat16, True),
     (1001, 1152, torch.float32, True), (4608, 4096, torch.bfloat16, True),
+    (16384, 1004, torch.bfloat16, True), (16, 1001, torch.bfloat16, False),
+    (200, 1001, torch.float32, False), (4096, 6144, torch.bfloat16, True),
+    (2048, 8192, torch.bfloat16, True), (300, 4104, torch.float32, True),
 ])
 def test_layernorm_backward_kernel(card, n, d, dtype, ragged):
     """K8's dx, dscale and dbias against the plain backward, each within 2e-2 x
@@ -377,20 +390,27 @@ def test_layernorm_backward_kernel_strided_rows_and_fp32_scale(card):
 
 
 def test_layernorm_backward_kernel_refuses(card):
-    """Rows not 16-byte aligned, a D the plan does not hold, another dtype or dy of
-    another shape raise: there is no fallback."""
-    x = torch.zeros((64, 1160), dtype=torch.bfloat16, device=card)
+    """A D wider than one ring row fits, another dtype or dy of another shape raise:
+    there is no fallback. Rows that are not 16-byte aligned and the widths the kernel
+    used to refuse (1156, 4104) are taken, by the row warps' cp.async: the plain
+    backward's numbers."""
+    rng = np.random.default_rng(11)
+    x, g = _bf16(rng, (64, 1160), card), _bf16(rng, (64, 1160), card)
     scale = torch.ones(1152, dtype=torch.bfloat16, device=card)
-    with pytest.raises(ValueError, match="16-byte"):
-        FLN.layernorm_bwd(x[:, 4:1156], x[:, :1152], scale, 1e-6)  # base 8 bytes off
-    with pytest.raises(ValueError, match="16-byte"):
-        rows = x.view(-1)[:63 * 1156].view(63, 1156)[:, :1152]  # row stride 2312 bytes
-        FLN.layernorm_bwd(rows, rows, scale, 1e-6)
-    with pytest.raises(ValueError):
-        FLN.layernorm_bwd(x[:, :1156], x[:, :1156], torch.ones(1156, device=card), 1e-6)
-    with pytest.raises(ValueError):
-        big = torch.zeros((4, 4104), dtype=torch.bfloat16, device=card)
-        FLN.layernorm_bwd(big, big, torch.ones(4104, device=card), 1e-6)
+    rows = x.view(-1)[:63 * 1156].view(63, 1156)[:, :1152]  # row stride 2312 bytes
+    g_rows = g.view(-1)[:63 * 1156].view(63, 1156)[:, :1152]
+    big, g_big = _bf16(rng, (4, 4104), card), _bf16(rng, (4, 4104), card)
+    for args in ((x[:, 4:1156], g[:, :1152], scale),  # base 8 bytes off
+                 (rows, g_rows, scale),
+                 (x[:, :1156], g[:, :1156], torch.ones(1156, device=card)),
+                 (big, g_big, torch.ones(4104, device=card))):
+        got = FLN.layernorm_bwd(*args, 1e-6)
+        ref = FLN.layernorm_bwd_reference(*(a.float() for a in args), 1e-6)
+        for a, b in zip(got, ref):
+            _rel_close(a, b)
+    with pytest.raises(ValueError, match="19369"):
+        wide = torch.zeros((4, 19369), dtype=torch.bfloat16, device=card)
+        FLN.layernorm_bwd(wide, wide, torch.ones(19369, device=card), 1e-6)
     with pytest.raises(TypeError):
         h = x[:, :1152].half()
         FLN.layernorm_bwd(h, h, scale, 1e-6)
