@@ -271,6 +271,14 @@ Phases, each printing one JSON line; any failure raises, so the exit code is not
    --mesh_model 2 (one KV head, replicated; the vocab-parallel K6/K7 over the tied
    table), 4 steps at batch 4, validation on 4: the same checks against the 1-process
    step, projector_final.bin written whole; the decoder cut to 6 of 26 layers (run time).
+   (d) the same stage 1 at --mesh_data 1 --mesh_model 3 in a launch of 3 ranks of its
+   own (started while (b) and (c) run; 3 gloo ranks sharing the card, said so, or one
+   NCCL rank a card on 3 cards or more; not run where a card admits one process): the
+   model axis divides only the decoder's MLP (6912 = 3 x 2304), so the tower, every
+   attention block (4 query heads), the projector (10240) and the vocab (262,144) run
+   whole on each rank, through K1/K2 in the tower, K1/K4/K5 on all heads in the decoder
+   and the whole-vocab K6/K7. The checks of (c), held against (c)'s 1-process step;
+   each rank's launches in the kernels line (``stage1_tp3_rank<r>``).
 22. ZeRO-3 over the data axis (--fsdp), BASELINE config #4: (a) the world as in phase 21
    (2 gloo ranks sharing one card, said so: a sharing figure; one NCCL rank a card on 2
    cards or more, 4 on 4; where the card admits one process the phase prints that it
@@ -355,8 +363,10 @@ Phases, each printing one JSON line; any failure raises, so the exit code is not
    equal by kind and phase, the peak within 10% of its ``max_memory_allocated`` (reset
    just before it). With 2 cards or more, the trace's rank-0 peak at
    world 2 within 10% of rank 0's over 2 NCCL ranks. BASELINE config #4 at its full 34
-   layers (``projectiontrainer-torch-budget``, six processes at once): peak, fits and
-   collectives at 4 x 1 and 8 x 1, batch 2 and 4, and 4 x 2, batch 2 and 4 a data rank.
+   layers (``projectiontrainer-torch-budget``, seven processes at once): peak, fits and
+   collectives at 4 x 1 and 8 x 1, batch 2 and 4, 4 x 2, batch 2 and 4 a data rank, and
+   1 x 8 (``--model_axis 8``: Gemma3-4B's 4 KV heads replicated, each rank's query head
+   reading its own), batch 4, its collectives printed beside 8 x 1's.
    Phase 2 adds head dims the kernels do not take, zero-padded to the next one: K1/K4/K5
    at D = 80 ([16,1024,16,80]) and 96 ([8,576,16,96]) through autograd (launches
    counted), K3 at D = 96, at the other rows' tolerances, with the pad's copy time.
@@ -370,7 +380,7 @@ The second-to-last line is {"kernels": [...]} (name, route, source, replaces, la
 on the main path, launches_by_path (serve, serve_24_beams, train, stage0, stage0_files, stage2,
 stage2_qlora, serve_qwen3_adapter, cls, caption_llama, generation_eval, zero_shot,
 tsne, stage1_dp_rank0, stage0_dp_rank0, stage2_qlora_tp_rank0, stage1_tp_rank0,
-stage2_fsdp_rank0, stage0_tp_rank0, stage0_fsdp_tp_rank0,
+stage1_tp3_rank0, stage1_tp3_rank1, stage1_tp3_rank2, stage2_fsdp_rank0, stage0_tp_rank0, stage0_fsdp_tp_rank0,
 cls_tp_rank0), max_abs_err, ms, plain_ms, bound_ms, bound_by,
 library_ms, the launches of one epoch-0 stage-2 micro-step at the longest bucket,
 phase 9's, and of one phase-22 FSDP micro-step on rank 0); the last is
@@ -1719,18 +1729,26 @@ class StubTokenizer:
         return {"input_ids": [row + [0] * (max_length - len(row)) for row in ids]}
 
 
+def full_width_config(layers=26):
+    """Phase 3's VLM config: ViT-L/16-384, projector 1024 -> 10240 -> 1152, Gemma3-1B
+    (``layers`` of its 26)."""
+    from projectiontrainer_tpu_torch.models import decoder as dec
+    from projectiontrainer_tpu_torch.models import projector as proj
+    from projectiontrainer_tpu_torch.models import siglip, vlm
+
+    return vlm.VLMConfig(vision=siglip.vit_l_16_384(),
+                         projector=proj.ProjectorConfig(vision_dim=1024, llm_dim=1152),
+                         llm=dec.gemma3_config(num_layers=layers))
+
+
 def full_width_model(layers=26):
     """Phase 3's VLM from the seed: ViT-L/16-384 (bf16), projector 1024 -> 10240 -> 1152
     (fp32), Gemma3-1B (bf16; ``layers`` of its 26: phases 20-21 cut it for run time)."""
     import torch
 
-    from projectiontrainer_tpu_torch.models import decoder as dec
-    from projectiontrainer_tpu_torch.models import projector as proj
-    from projectiontrainer_tpu_torch.models import siglip, vlm
+    from projectiontrainer_tpu_torch.models import vlm
 
-    cfg = vlm.VLMConfig(vision=siglip.vit_l_16_384(),
-                        projector=proj.ProjectorConfig(vision_dim=1024, llm_dim=1152),
-                        llm=dec.gemma3_config(num_layers=layers))
+    cfg = full_width_config(layers)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = vlm.init(gen, cfg, device="cuda", tower_dtype=torch.bfloat16,
                       projector_dtype=torch.float32)
@@ -4027,9 +4045,12 @@ def _legs_server(ranks, backend):
     return server
 
 
-def stop_legs_servers():
-    """Ask every leg server to exit, wait for it, and remove its files."""
-    for server in list(_SERVERS.values()):
+def stop_legs_servers(key=None):
+    """Ask every leg server (or the one of ``key`` = (ranks, backend)) to exit, wait for
+    it, and remove its files."""
+    for k, server in list(_SERVERS.items()):
+        if key is not None and k != key:
+            continue
         if server["proc"].poll() is None:
             with open(os.path.join(server["root"], f"job{server['jobs']}.json"), "w") as f:
                 json.dump("exit", f)
@@ -4040,7 +4061,7 @@ def stop_legs_servers():
                 server["proc"].wait()
         server["log"].close()
         shutil.rmtree(server["root"], ignore_errors=True)
-    _SERVERS.clear()
+        del _SERVERS[k]
 
 
 atexit.register(lambda: [s["proc"].kill() for s in _SERVERS.values() if s["proc"].poll() is None])
@@ -4433,6 +4454,7 @@ TP_GEMMA_LAYERS = 6        # Gemma3-1B cut from 26 layers: one sliding period (l
 TP_TIMEOUT_S = 600         # each launch: kernels loaded and models built in each rank
 TP_LORA_B_STD = 0.02       # B drawn off zero (as phase 12): the A gradients are nonzero too
 TP_LEAF_COS_FLOOR = 0.99   # a LoRA leaf below COS_MIN: a missed model-axis sum reads ~0.7
+TP3_RANKS = 3              # (d): stage 1 at 1 x 3, where the model axis divides only the MLP
 
 
 def tp_lora(cfg, shard):
@@ -4494,6 +4516,24 @@ def tp_stage1_flags(root, out):
             "--logging_steps", "1", "--num_workers", "2", "--disable_wandb", "--seed",
             str(SEED), "--profile_dir", os.path.join(out, "profile"), "--profile_start_step",
             "2", "--profile_num_steps", "1"]
+
+
+def _tp3_world():
+    """(ranks, backend, why, sharing) for phase 21 (d)'s 1 x 3 mesh: one NCCL rank a card
+    on 3 cards or more; else 3 gloo ranks sharing the cards (a rank on card LOCAL_RANK
+    modulo the cards); none where a card admits one process only."""
+    import torch
+
+    n = torch.cuda.device_count()
+    if n >= TP3_RANKS:
+        return TP3_RANKS, "nccl", f"{n} cards: one NCCL rank on each of {TP3_RANKS}", False
+    modes = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                           capture_output=True, text=True, timeout=60).stdout.split()
+    if "Exclusive_Process" in modes:
+        return 0, "nccl", (f"{n} card(s) in Exclusive_Process mode: {TP3_RANKS} ranks need "
+                           f"{TP3_RANKS} cards"), False
+    return TP3_RANKS, "gloo", (f"{n} card(s): {TP3_RANKS} gloo ranks share them (NCCL refuses "
+                               "two ranks on one GPU)"), True
 
 
 def _tp_whole(path, g, cfg):
@@ -4801,7 +4841,8 @@ def _tp_report(label, dumps, split, wall, smi, world, extra):
 
 def phase_tensor_parallel():
     """Phase 21: stage-2 QLoRA over Qwen3-8B and stage 1 over Gemma3-1B with
-    --mesh_model 2 through the launcher; see the module's docstring."""
+    --mesh_model 2, and stage 1 over Gemma3-1B with --mesh_model 3, through the
+    launcher; see the module's docstring."""
     import torch
 
     from projectiontrainer_tpu_torch.checkpoint import export
@@ -4819,6 +4860,10 @@ def phase_tensor_parallel():
         emit({"phase": 21, "ran": False, "why": why, "nvidia_smi": smi})
         return {}
     print(f"tensor parallel: {ranks} model ranks over {backend}: {why} ({smi})", flush=True)
+    ranks3, backend3, why3, sharing3 = _tp3_world()
+    world3 = {"ranks": ranks3, "backend": backend3, "why": why3, "sharing_one_card": sharing3}
+    if ranks3:
+        _legs_server(ranks3, backend3)  # (d)'s ranks start while (b) and (c) run
     root = tempfile.mkdtemp(prefix="chip_smoke_tp_")
     try:
         # (b) stage-2 QLoRA over Qwen3-8B, 1 x 2, and (c) stage 1 over Gemma3-1B, 1 x 2,
@@ -4881,14 +4926,52 @@ def phase_tensor_parallel():
         versus = _tp_against_one_process("stage 1", dumps[0]["losses"][0], grads_tp, loss_one,
                                          grads_one)
         gc_cuda()
+        cut = (f"Gemma3-1B cut to {TP_GEMMA_LAYERS} of 26 layers (run time), "
+               f"{TP_STAGE1_STEPS} steps at batch {TP_STAGE1_BATCH}, 4 validation samples (a "
+               "real run: the caption corpus, many epochs)")
         _tp_report("stage1", dumps, split, wall, smi, world, {
-            "projector_exported_whole": True, **versus,
-            "cut": f"Gemma3-1B cut to {TP_GEMMA_LAYERS} of 26 layers (run time), "
-                   f"{TP_STAGE1_STEPS} steps at batch {TP_STAGE1_BATCH}, 4 validation "
-                   "samples (a real run: the caption corpus, many epochs)"})
+            "projector_exported_whole": True, **versus, "cut": cut})
         launches["stage1_tp_rank0"] = dumps[0]["launches"]
+
+        # (d) stage 1 over Gemma3-1B at 1 x 3: the model axis divides the decoder's MLP
+        # (6912 = 3 x 2304) alone; the tower, the attention, the projector and the vocab
+        # run whole on every rank (held against (c)'s one-process step)
+        if not ranks3:
+            print(f"tensor parallel stage 1 at 1 x 3: NOT RUN: {why3}", flush=True)
+            emit({"phase": 21, "part": "stage1_1x3", "ran": False, "why": why3,
+                  "nvidia_smi": smi})
+            return launches
+        out = os.path.join(root, "stage1_1x3")
+        dump3 = os.path.join(root, "dump_stage1_1x3")
+        os.makedirs(dump3)
+        flags3 = tp_stage1_flags(root, out) + ["--mesh_data", "1", "--mesh_model",
+                                               str(ranks3)]
+        (wall,), _ = _launch_legs([("tp_stage1_rank", dump3, flags3)], ranks3, backend3,
+                                  TP_TIMEOUT_S)
+        stop_legs_servers((ranks3, backend3))
+        dumps = [torch.load(os.path.join(dump3, f"rank{r}.pt"), weights_only=False)
+                 for r in range(ranks3)]
+        _tp_check("stage 1 at 1 x 3", dumps, STAGE1_KERNELS)
+        if len(dumps[0]["losses"]) != TP_STAGE1_STEPS:
+            raise AssertionError(f"tensor parallel stage 1 at 1 x 3: {dumps[0]['losses']}")
+        exported = torch.load(os.path.join(out, "projector_final.bin"), weights_only=True)
+        if tuple(exported["model.0.weight"].shape) != (10240, 1024):
+            raise AssertionError(f"tensor parallel stage 1 at 1 x 3: exported fc1 "
+                                 f"{exported['model.0.weight'].shape}")
+        versus = _tp_against_one_process("stage 1 at 1 x 3", dumps[0]["losses"][0],
+                                         dumps[0]["first_grads"], loss_one, grads_one)
+        del grads_one
+        gc_cuda()
+        from projectiontrainer_tpu_torch.parallel import sharding
+
+        whole = sharding.check_config(full_width_config(TP_GEMMA_LAYERS), ranks3)
+        _tp_report("stage1_1x3", dumps, _tp_split(out), wall, smi, world3, {
+            "projector_exported_whole": True, "whole_units": whole, **versus, "cut": cut})
+        for r, d in enumerate(dumps):
+            launches[f"stage1_tp3_rank{r}"] = d["launches"]
         return launches
     finally:
+        stop_legs_servers((ranks3, backend3))
         shutil.rmtree(root, ignore_errors=True)
 
 
@@ -6083,7 +6166,9 @@ BUDGET_KW = dict(batch_per_device=1, q_len=128, a_len=512, accum_steps=2,
                  master_dtype="fp32", remat="full")
 BUDGET_GAP = 0.10         # predicted against measured peak
 # BASELINE config #4 at its full 34 layers: (devices, model axis, batch a data rank)
-BUDGET_4B = ((4, 1, 2), (4, 1, 4), (8, 1, 2), (8, 1, 4), (8, 2, 2), (8, 2, 4))
+BUDGET_4B = ((4, 1, 2), (4, 1, 4), (8, 1, 2), (8, 1, 4), (8, 2, 2), (8, 2, 4), (8, 8, 4))
+# the cells whose collectives phase 24 prints: 8 x 1 beside 1 x 8 (4 KV heads replicated)
+BUDGET_4B_COLLECTIVES = ((8, 1, 4), (8, 8, 4))
 RESERVE_CODE = """
 import json, subprocess, sys
 
@@ -6310,9 +6395,10 @@ def phase_budget(fsdp_runs, full_depth=None):
     counted and measured there over its applying micro-step (equal; within BUDGET_GAP);
     where the host has 2 cards or more, the predicted rank-0 peak at
     world 2 against rank 0's over 2 NCCL ranks; then BASELINE config #4 at full depth,
-    printed: peak, fits and collectives at 4 x 1 and 8 x 1 (batch 2 and 4) and 4 x 2
-    (``full_depth``: those traces' processes, from ``start_full_depth_budgets``, started
-    earlier; else started here)."""
+    printed: peak, fits and collectives at 4 x 1 and 8 x 1 (batch 2 and 4), 4 x 2, and
+    1 x 8 at batch 4 (``--model_axis 8``: the 4 KV heads replicated), its collectives
+    beside 8 x 1's (``full_depth``: those traces' processes, from
+    ``start_full_depth_budgets``, started earlier; else started here)."""
     import contextlib
 
     import torch
@@ -6399,12 +6485,19 @@ def phase_budget(fsdp_runs, full_depth=None):
             os.remove(path)
             cells.append({k: report[k] for k in ("mesh", "batch_per_device", "per_device",
                                                  "fits", "oom", "state_bytes_per_device",
-                                                 "collectives", "trace_s", "traced_on")})
+                                                 "collectives", "whole_units", "trace_s",
+                                                 "traced_on")})
+            counts = ""
+            if (n, m, b) in BUDGET_4B_COLLECTIVES:
+                counts = "; collectives (count by phase) " + json.dumps(
+                    {kind: {ph: v["count"] for ph, v in by.items()}
+                     for kind, by in report["collectives"].items()})
+                counts += f"; whole on every model rank: {report['whole_units']}"
             print(f"budget BASELINE #4 at 34 layers, {n // m} x {m} (data x model), batch {b} "
                   f"a data rank: peak "
                   f"{report['per_device']['peak_bytes'] / 2 ** 30:.2f} GiB, fits "
                   f"{report['fits']}, state {report['state_bytes_per_device'] / 2 ** 30:.2f} "
-                  f"GiB, traced in {report['trace_s']:.1f} s", flush=True)
+                  f"GiB, traced in {report['trace_s']:.1f} s{counts}", flush=True)
         emit({"phase": 24, "nvidia_smi": smi, "fake_buffers_declared_measured": buffers,
               "launch_host_us": host_cost, "reserve": reserve,
               "usable_bytes_constant": budget.H100_USABLE_BYTES,
@@ -6430,7 +6523,7 @@ def main() -> int:
 
     device = phase_device()
     phase_build()
-    # phase 24's traces of BASELINE config #4 at full depth: host work alone, in six
+    # phase 24's traces of BASELINE config #4 at full depth: host work alone, in seven
     # processes while the card times phase 2's rows
     full_depth = start_full_depth_budgets(tempfile.gettempdir())
     results = phase_kernels()
@@ -6516,7 +6609,8 @@ def main() -> int:
     tp_runs = phase_tensor_parallel()
     mark("21 tensor parallel")
     for path, kernels in (("stage2_qlora_tp_rank0", STAGE2_QLORA_KERNELS),
-                          ("stage1_tp_rank0", STAGE1_KERNELS)):
+                          ("stage1_tp_rank0", STAGE1_KERNELS),
+                          *((f"stage1_tp3_rank{r}", STAGE1_KERNELS) for r in range(TP3_RANKS))):
         if path in tp_runs:
             slice_launches[path] = {n: tp_runs[path][n] for n in kernels}
     gc_cuda()

@@ -20,8 +20,8 @@ package. Data parallel over N GPUs: ``projectiontrainer-torch-launch --nproc_per
 <these flags>`` (or ``torchrun``) starts one process per GPU; ``--mesh_data`` N or -1 (every
 rank); ``--mesh_model`` M splits the tower over M ranks of each replica (tensor
 parallelism: the classifier is built whole and sliced to the rank's shards,
-``parallel/sharding.model_shards``; the tower's heads and intermediate size must divide
-over M; the classifier's head is replicated); ``--fsdp`` shards the classifier and the
+``parallel/sharding.model_shards``; the tower's attention or MLP that M does not divide
+runs whole on each rank; the classifier's head is replicated); ``--fsdp`` shards the classifier and the
 optimizer state over the data axis (ZeRO-3, ``parallel/fsdp.py``), with or without
 ``--mesh_model``. ``--mesh_data -1`` with more than one GPU visible in a process no
 launcher started raises, as does a ``--mesh_data`` x ``--mesh_model`` mesh other than

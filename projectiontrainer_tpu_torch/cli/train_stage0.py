@@ -18,8 +18,8 @@ Data parallel over N GPUs: ``projectiontrainer-torch-launch --nproc_per_node N s
 <these flags>`` (or ``torchrun``) starts one process per GPU; ``--mesh_data`` N or -1 (every
 rank); ``--mesh_model`` M splits both towers over M ranks of each replica (tensor
 parallelism: the snapshot is loaded whole and sliced to the rank's shards,
-``parallel/sharding.model_shards``; heads, intermediate sizes and the text vocab must
-divide over M); ``--fsdp`` shards the towers and the optimizer state over the data axis
+``parallel/sharding.model_shards``; the attention, MLP or text vocab that M does not
+divide runs whole on each rank); ``--fsdp`` shards the towers and the optimizer state over the data axis
 (ZeRO-3, ``parallel/fsdp.py``), with or without ``--mesh_model``. ``--mesh_data -1``
 with more than one GPU visible in a process no launcher started raises, as does a
 ``--mesh_data`` x ``--mesh_model`` mesh other than the world of ranks.

@@ -17,9 +17,9 @@ Data parallel over N GPUs: ``projectiontrainer-torch-launch --nproc_per_node N s
 <these flags>`` (or ``torchrun``) starts one process per GPU; ``--mesh_data`` N or -1 (every
 rank). Tensor parallelism: ``--mesh_model`` M splits each replica over M ranks (rank r
 at (r // M, r % M); heads, hidden columns and the vocab sharded, ``parallel/sharding.py``);
-a model the M ranks do not divide raises. ``--fsdp`` shards the params and the
-optimizer state over the data axis (ZeRO-3, ``parallel/fsdp.py``; with ``--mesh_model``
-too). ``--mesh_data -1`` with more than one GPU visible in a process no launcher
+a unit the M ranks do not divide runs whole on each of them. ``--fsdp`` shards the
+params and the optimizer state over the data axis (ZeRO-3, ``parallel/fsdp.py``; with
+``--mesh_model`` too). ``--mesh_data -1`` with more than one GPU visible in a process no launcher
 started raises.
 """
 

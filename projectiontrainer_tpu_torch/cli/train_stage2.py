@@ -25,8 +25,8 @@ Data parallel over N GPUs: ``projectiontrainer-torch-launch --nproc_per_node N s
 <these flags>`` (or ``torchrun``) starts one process per GPU; ``--mesh_data`` N or -1 (every
 rank). Tensor parallelism: ``--mesh_model`` M splits each replica over M ranks (rank r
 at (r // M, r % M); heads, hidden columns and the vocab sharded, ``parallel/sharding.py``;
-``launchers/run_stage2_h100.sh`` runs the stage-2 QLoRA recipe at 4 x 2); a model the M
-ranks do not divide raises. ``--remat dots`` saves the products' outputs and recomputes
+``launchers/run_stage2_h100.sh`` runs the stage-2 QLoRA recipe at 4 x 2); a unit the M
+ranks do not divide runs whole on each of them. ``--remat dots`` saves the products' outputs and recomputes
 the rest (``core/remat.py``). ``--fsdp`` shards the params and the optimizer state over
 the data axis (ZeRO-3, ``parallel/fsdp.py``; with ``--mesh_model`` too), the recipe of
 ``launchers/run_stage2_full_joint_h100.sh`` (Gemma3-4B full-joint). ``--mesh_data -1``

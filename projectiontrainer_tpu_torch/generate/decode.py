@@ -14,10 +14,12 @@ device per step. Top-k selections are stable (ties go to the lower index, as
 ``jax.lax.top_k`` breaks them), so deterministic decoding gives the JAX package's
 tokens. Random draws come from a ``torch.Generator`` and differ from JAX's.
 
-On a model rank's shards (tensor parallelism) the caches hold the rank's KV heads and
-the decode kernel runs on them (``decoder.local_heads``); ``decoder.logits`` gathers the
-whole vocab's logits over the model axis, so every model rank takes the same steps, and
-a caller that samples seeds the same generator on every model rank.
+On a model rank's shards (tensor parallelism) the caches hold the KV heads the rank
+attends with and the decode kernel runs on them (``decoder.local_heads``: the rank's
+heads, the KV heads its query heads read, or all heads where the attention is whole);
+``decoder.logits`` gathers a split vocab's logits over the model axis, so every model
+rank takes the same steps, and a caller that samples seeds the same generator on every
+model rank.
 """
 
 from __future__ import annotations

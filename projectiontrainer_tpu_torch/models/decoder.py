@@ -17,16 +17,20 @@ LoRA adapters (``train/lora.py``) adds their delta, with a dropout mask seeded b
 ``core/remat.py`` says what each recomputes).
 
 Tensor parallelism (``parallel/tensor_parallel.py``, the model axis of the mesh): the
-params may be one model rank's shard (``parallel/sharding.py``). q/k/v and gate/up are
+params may be one model rank's shard (``parallel/sharding.py``). Each unit that the
+model axis splits (``sharding.units``) runs Megatron-style: q/k/v and gate/up are
 column-parallel (the rank's heads and hidden columns; their input enters through
 ``copy_to_model``), o/down row-parallel (all-reduced on exit, any bias added once
-after), so each block makes one all-reduce in the forward and one in the backward.
-Head counts are read from the weights' shapes: the rotary embedding, the q/k RMSNorm
-and the flash kernels act on the rank's heads (``flash_attention.sharded_flash_plan``;
-a single KV head is replicated). The embedding table and the LM head are vocab-sharded:
-``embed`` looks up the rank's rows and all-reduces them (Gemma's ``sqrt(D)`` scale
-after the sum), ``logits`` all-gathers the rank's columns for generation, and the
-caches hold the rank's KV heads. Without a model axis nothing changes.
+after), so each block makes one all-reduce in the forward and one in the backward; the
+embedding table and the LM head are vocab-sharded (``embed`` looks up the rank's rows
+and all-reduces them, Gemma's ``sqrt(D)`` scale after the sum; ``logits`` all-gathers
+the rank's columns for generation). A unit the model axis does not divide (the query
+heads, the intermediate size, the vocab) runs whole on every rank, with no collective.
+KV heads that do not divide where the query heads do (one KV head included) are
+replicated, and each rank slices the KV heads its query heads read after the
+projection (``flash_attention.rank_kv_heads``). The rotary embedding, the q/k RMSNorm,
+the flash kernels and the caches act on the rank's heads (``local_heads``). Without a
+model axis nothing changes.
 
 ZeRO-3 over the data axis (``--fsdp``, ``parallel/fsdp.py``): inside a train step the
 leaves may be data shards; each layer gathers its leaves (and its LoRA adapters) at
@@ -56,10 +60,10 @@ from projectiontrainer_tpu_torch.ops.decode_attention import (
     decode_attention, decode_attention_reference,
 )
 from projectiontrainer_tpu_torch.ops.flash_attention import (
-    sharded_flash_attention, sharded_flash_plan,
+    rank_kv_heads, sharded_flash_attention, sharded_flash_plan,
 )
 from projectiontrainer_tpu_torch.ops import quant
-from projectiontrainer_tpu_torch.parallel import fsdp
+from projectiontrainer_tpu_torch.parallel import fsdp, sharding
 from projectiontrainer_tpu_torch.parallel import tensor_parallel as tp
 from projectiontrainer_tpu_torch.train import lora as lora_mod
 
@@ -290,14 +294,29 @@ def init_layer(gen: torch.Generator, cfg: DecoderConfig, dtype=torch.float32, de
 
 
 def local_heads(cfg: DecoderConfig) -> tuple[int, int]:
-    """(query heads, KV heads) this model rank holds (all of them without a model axis)."""
-    return sharded_flash_plan(cfg.num_heads, cfg.num_kv_heads, tp.size())
+    """(query heads, KV heads) this model rank attends with (all of them without a model
+    axis or where the query heads do not divide)."""
+    return sharded_flash_plan(cfg.num_heads, cfg.num_kv_heads, tp.size(), tp.rank())
+
+
+def _rank_kv(cfg: DecoderConfig, x: torch.Tensor) -> torch.Tensor:
+    """k or v [B, T, Hkv, D] of every KV head (a replicated projection) -> the KV heads
+    this model rank's query heads read (``flash_attention.rank_kv_heads``): a view of a
+    run of heads, or one head a query head."""
+    heads = rank_kv_heads(cfg.num_heads, cfg.num_kv_heads, tp.size(), tp.rank())
+    if heads is None:
+        return x
+    if heads == list(range(heads[0], heads[0] + len(heads))):
+        return x.narrow(2, heads[0], len(heads))
+    return x.index_select(2, torch.tensor(heads, device=x.device))
 
 
 def embed(params, cfg: DecoderConfig, input_ids: torch.Tensor) -> torch.Tensor:
     """Token embedding, with Gemma3's ``sqrt(hidden)`` scale rounded to the table's type
     (after the sum over the model axis of a vocab-sharded table)."""
-    x = tp.vocab_embedding(params["embed_tokens"]["embedding"], input_ids)
+    table = params["embed_tokens"]["embedding"]
+    x = (tp.vocab_embedding(table, input_ids) if sharding.splits(cfg, "vocab")
+         else table[input_ids])
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=x.dtype)
     return x
@@ -318,23 +337,24 @@ def _norm(p, x, cfg: DecoderConfig):
 ROW_PARALLEL = frozenset({"o_proj", "down_proj"})
 
 
-def _proj(lp, name, x, lora):
+def _proj(lp, name, x, lora, split):
     """One projection: a quantized leaf through ``quant.quantized_matmul``, a dense one
     through ``L.linear``; plus the layer's LoRA delta when ``lora`` = (its adapters,
-    LoraConfig, {target: dropout seed} or None) holds one for ``name``. Under tensor
-    parallelism o/down are row-parallel: the partial product (LoRA delta included) is
-    all-reduced, then the bias added; a column-parallel bias is the rank's block."""
+    LoraConfig, {target: dropout seed} or None) holds one for ``name``. ``split``: the
+    model axis splits its unit; then o/down are row-parallel (the partial product, LoRA
+    delta included, all-reduced, then the bias added) and a column-parallel bias is the
+    rank's block."""
     p = lp[name]
     bias = None
-    if tp.size() > 1 and "bias" in p:
+    if split and "bias" in p:
         bias, p = p["bias"], {k: v for k, v in p.items() if k != "bias"}
     y = quant.quantized_matmul(p, x) if quant.is_quantized(p) else L.linear(p, x)
     if lora is not None:
         layer, cfg, seeds = lora
         y = lora_mod.apply_delta(layer, name, cfg, x, y,
                                  seed=None if seeds is None else seeds[name],
-                                 row_parallel=name in ROW_PARALLEL)
-    if tp.size() == 1:
+                                 row_parallel=split and name in ROW_PARALLEL)
+    if not split:
         return y
     if name in ROW_PARALLEL:
         y = tp.reduce_from_model(y)
@@ -346,10 +366,14 @@ def _proj(lp, name, x, lora):
 def _attention_block(lp, cfg: DecoderConfig, x, sin, cos, *, layer_type, kv_mask,
                      q_offset, cache=None, prefix_len=None, lora=None):
     b, t, _ = x.shape
-    x = tp.copy_to_model(x)
-    q = _proj(lp, "q_proj", x, lora).reshape(b, t, -1, cfg.head_dim)
-    k = _proj(lp, "k_proj", x, lora).reshape(b, t, -1, cfg.head_dim)
-    v = _proj(lp, "v_proj", x, lora).reshape(b, t, -1, cfg.head_dim)
+    split, kv_split = sharding.splits(cfg, "attn"), sharding.splits(cfg, "kv")
+    if split:
+        x = tp.copy_to_model(x)
+    q = _proj(lp, "q_proj", x, lora, split).reshape(b, t, -1, cfg.head_dim)
+    k = _proj(lp, "k_proj", x, lora, kv_split).reshape(b, t, -1, cfg.head_dim)
+    v = _proj(lp, "v_proj", x, lora, kv_split).reshape(b, t, -1, cfg.head_dim)
+    if split and not kv_split:  # replicated KV heads: the ones the rank's queries read
+        k, v = _rank_kv(cfg, k), _rank_kv(cfg, v)
     if cfg.qk_norm:
         q = _norm(lp["q_norm"], q, cfg)
         k = _norm(lp["k_norm"], k, cfg)
@@ -367,7 +391,7 @@ def _attention_block(lp, cfg: DecoderConfig, x, sin, cos, *, layer_type, kv_mask
         out = attend(q[:, 0].to(cache["kp"].dtype), cache["kp"], cache["vp"], kg, vg,
                      prefix_mask=kv_mask, t=q_offset, prefix_len=prefix_len,
                      scale=cfg.attn_scale, window=window).to(q.dtype)
-        return _proj(lp, "o_proj", out.reshape(b, t, -1), lora), cache
+        return _proj(lp, "o_proj", out.reshape(b, t, -1), lora, split), cache
 
     if cache is not None:  # monolithic cache: write this call's K/V at q_offset
         cache["k"][:, q_offset:q_offset + t] = k.to(cache["k"].dtype)
@@ -377,18 +401,20 @@ def _attention_block(lp, cfg: DecoderConfig, x, sin, cos, *, layer_type, kv_mask
     k, v = k.to(q.dtype), v.to(q.dtype)
     if cfg.attn_impl == "kernel" and k.shape[1] == t and q_offset == 0:
         out = sharded_flash_attention(q, k, v, heads=(cfg.num_heads, cfg.num_kv_heads),
-                                      model=tp.size(), scale=cfg.attn_scale, causal=True,
-                                      window=window, kv_mask=kv_mask)[0]
+                                      model=tp.size(), rank=tp.rank(), scale=cfg.attn_scale,
+                                      causal=True, window=window, kv_mask=kv_mask)[0]
     else:
         out = dot_product_attention(q, k, v, scale=cfg.attn_scale, causal=True,
                                     window=window, kv_mask=kv_mask, q_offset=q_offset)
-    return _proj(lp, "o_proj", out.reshape(b, t, -1), lora), cache
+    return _proj(lp, "o_proj", out.reshape(b, t, -1), lora, split), cache
 
 
 def _mlp_block(lp, cfg: DecoderConfig, x, lora=None):
-    x = tp.copy_to_model(x)
-    gate = L.ACTIVATIONS[cfg.act](_proj(lp, "gate_proj", x, lora))
-    return _proj(lp, "down_proj", gate * _proj(lp, "up_proj", x, lora), lora)
+    split = sharding.splits(cfg, "mlp")
+    if split:
+        x = tp.copy_to_model(x)
+    gate = L.ACTIVATIONS[cfg.act](_proj(lp, "gate_proj", x, lora, split))
+    return _proj(lp, "down_proj", gate * _proj(lp, "up_proj", x, lora, split), lora, split)
 
 
 def _layer(lp, cfg: DecoderConfig, x, sin, cos, *, layer_type, kv_mask, q_offset,
@@ -472,12 +498,15 @@ def logits(params, cfg: DecoderConfig, hidden: torch.Tensor) -> torch.Tensor:
     gathered over the model axis). The product runs in the hidden states' type; with
     bf16 weights the logits are rounded to bf16 before the fp32 cast (JAX accumulates
     straight into fp32)."""
-    return tp.vocab_logits(hidden, params["lm_head"]["weight"]).float()
+    table = params["lm_head"]["weight"]
+    if sharding.splits(cfg, "vocab"):
+        return tp.vocab_logits(hidden, table).float()
+    return F.linear(hidden, table.to(hidden.dtype)).float()
 
 
 def init_cache(cfg: DecoderConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                device=None):
-    """The monolithic cache of the KV heads this rank holds."""
+    """The monolithic cache of the KV heads this rank attends with."""
     shape = (batch, max_len, local_heads(cfg)[1], cfg.head_dim)
     return [{"k": torch.zeros(shape, dtype=dtype, device=device),
              "v": torch.zeros(shape, dtype=dtype, device=device)}

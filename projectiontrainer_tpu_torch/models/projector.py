@@ -6,7 +6,8 @@ tower output: each linear computes in fp32 and casts back to the input's type, a
 JAX's dtype promotion does (``ops/layers.py:linear``). Under tensor parallelism
 (``parallel/tensor_parallel.py``) fc1 is column-parallel (the rank's hidden columns)
 and fc2 row-parallel (all-reduced on exit, its bias added once after), as the JAX
-rules shard them (``parallel/sharding.py:46-53`` there). Under ``--fsdp`` its leaves
+rules shard them (``parallel/sharding.py:46-53`` there), where the model axis divides
+the intermediate size; else it runs whole on every rank. Under ``--fsdp`` its leaves
 are gathered where it runs (``parallel/fsdp.py``; the projector sits at ``projector/``
 of the VLM tree).
 """
@@ -14,11 +15,12 @@ of the VLM tree).
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
 from projectiontrainer_tpu_torch.ops import layers as L
-from projectiontrainer_tpu_torch.parallel import fsdp
+from projectiontrainer_tpu_torch.parallel import distributed, fsdp, sharding
 from projectiontrainer_tpu_torch.parallel import tensor_parallel as tp
 
 
@@ -42,10 +44,13 @@ def init(gen: torch.Generator, cfg: ProjectorConfig, dtype=torch.float32, device
     }
 
 
-def forward(params, x: torch.Tensor) -> torch.Tensor:
-    """x [B, P, vision_dim] -> [B, P, llm_dim]; GELU is exact (torch nn.GELU default)."""
+def forward(params, x: torch.Tensor, cfg: Optional[ProjectorConfig] = None) -> torch.Tensor:
+    """x [B, P, vision_dim] -> [B, P, llm_dim]; GELU is exact (torch nn.GELU default).
+    ``cfg`` says whether a model axis splits the projector; without one it may be None."""
     params = fsdp.gather(params, "projector")
-    if tp.size() > 1:
+    if cfg is None and distributed.model_size() > 1:
+        raise ValueError("projector.forward: the config is needed under a model axis")
+    if cfg is not None and sharding.splits(cfg, "mlp"):
         h = L.gelu(tp.column_linear(params["fc1"], tp.copy_to_model(x)), approximate=False)
         return tp.row_linear(params["fc2"], h)
     h = L.gelu(L.linear(params["fc1"], x), approximate=False)

@@ -24,7 +24,9 @@ added once after), the heads read from the weights' shapes; the LayerNorms (K2, 
 run row-local on the replicated residual stream. The MAP head's MLP is split the same
 way (its attention, LayerNorm and probe stay replicated, as the JAX rules leave them),
 and the text tower's token table is a vocab shard; its linear head, the position
-embeddings and ``logit_scale``/``logit_bias`` are replicated.
+embeddings and ``logit_scale``/``logit_bias`` are replicated. A tower's attention (its
+heads), its MLPs (the intermediate size) and the text vocab each run whole on every
+rank where the model axis does not divide them (``sharding.units``).
 
 ZeRO-3 over the data axis (``--fsdp``, ``parallel/fsdp.py``): inside a train step a
 tower's leaves may be data shards; the embeddings, the final LayerNorm and the heads
@@ -48,7 +50,7 @@ from projectiontrainer_tpu_torch.ops import fused_layernorm as FLN
 from projectiontrainer_tpu_torch.ops import layers as L
 from projectiontrainer_tpu_torch.ops.attention import dot_product_attention
 from projectiontrainer_tpu_torch.ops.flash_attention import flash_attention
-from projectiontrainer_tpu_torch.parallel import fsdp
+from projectiontrainer_tpu_torch.parallel import fsdp, sharding
 from projectiontrainer_tpu_torch.parallel import tensor_parallel as tp
 from projectiontrainer_tpu_torch.utils.timing import span
 
@@ -226,24 +228,31 @@ def _attention(cfg: TowerConfig, q, k, v):
     return dot_product_attention(q, k, v, causal=False)
 
 
-def _linears():
-    """(column, row) linears: plain without a model axis, else on the rank's shards."""
-    return ((L.linear, L.linear) if tp.size() == 1 else (tp.column_linear, tp.row_linear))
+def _linears(split: bool):
+    """(column, row) linears: on the rank's shards of a unit the model axis splits, else
+    plain."""
+    return (tp.column_linear, tp.row_linear) if split else (L.linear, L.linear)
 
 
 def _mlp(p, ln, cfg: TowerConfig, x):
-    """The LayerNorm ``ln`` then the MLP ``p`` (fc1, gelu, fc2) on ``x``; with a model axis
-    fc1 column-parallel and fc2 row-parallel (all-reduced on exit)."""
-    col, row = _linears()
-    h = tp.copy_to_model(_ln(ln, cfg, x))
+    """The LayerNorm ``ln`` then the MLP ``p`` (fc1, gelu, fc2) on ``x``; where the model
+    axis splits the MLP, fc1 column-parallel and fc2 row-parallel (all-reduced on exit)."""
+    split = sharding.splits(cfg, "mlp")
+    col, row = _linears(split)
+    h = _ln(ln, cfg, x)
+    if split:
+        h = tp.copy_to_model(h)
     return row(p["fc2"], L.gelu(col(p["fc1"], h), approximate=True))
 
 
 def _encoder_layer(p, cfg: TowerConfig, x, path=""):
     p = fsdp.gather(p, path)
     b, t, _ = x.shape
-    col, row = _linears()
-    h = tp.copy_to_model(_ln(p["ln1"], cfg, x))
+    split = sharding.splits(cfg, "attn")
+    col, row = _linears(split)
+    h = _ln(p["ln1"], cfg, x)
+    if split:
+        h = tp.copy_to_model(h)
     shape = (b, t, -1, cfg.head_dim)  # the rank's heads
     q = col(p["attn"]["q_proj"], h).reshape(shape)
     k = col(p["attn"]["k_proj"], h).reshape(shape)
@@ -255,9 +264,10 @@ def _encoder_layer(p, cfg: TowerConfig, x, path=""):
 
 def _map_head(p, cfg: VisionConfig, x):
     """MAP pooling head with torch.nn.MultiheadAttention semantics (scale head_dim^-0.5)
-    -> [B, D]. With a model axis its MLP runs column-then-row on the rank's shards of
-    fc1/fc2 (all-reduced on exit, as the encoder's); its attention, LayerNorm and probe
-    are replicated and run whole on every rank."""
+    -> [B, D]. Where the model axis splits the tower's MLP, the head's runs
+    column-then-row on the rank's shards of fc1/fc2 (all-reduced on exit, as the
+    encoder's); its attention, LayerNorm and probe are replicated and run whole on every
+    rank."""
     b, t, d = x.shape
     probe = p["probe"].to(x.dtype).expand(b, 1, d)
     q = L.linear(p["attention"]["q_proj"], probe).reshape(b, 1, cfg.num_heads, cfg.head_dim)
@@ -304,12 +314,14 @@ def text_forward(params, cfg: TextConfig, input_ids: torch.Tensor):
     """input_ids [B, T] -> (last_hidden_state [B, T, D], pooled [B, projection]).
     No attention mask (the processor pads to ``max_length`` and the model attends to
     the padding); pooled is the LAST token's hidden state through the linear head.
-    With a model axis the token table is the rank's vocab slice
+    Where the model axis splits the vocab the token table is the rank's slice
     (``tp.vocab_embedding``: the rows summed over the model axis); the head is
     replicated."""
     t = input_ids.shape[-1]
     params = fsdp.gather_top(params, "text")
-    x = tp.vocab_embedding(params["token_embedding"]["embedding"], input_ids)
+    table = params["token_embedding"]["embedding"]
+    x = (tp.vocab_embedding(table, input_ids) if sharding.splits(cfg, "vocab")
+         else table[input_ids])
     x = x + params["position_embedding"]["embedding"][None, :t].to(x.dtype)
     x = _ln(params["final_layer_norm"], cfg, _encoder(params["layers"], cfg, x, False, "text"))
     return x, L.linear(params["head"], x[:, -1, :])

@@ -77,7 +77,7 @@ def visual_embeds(params, cfg: VLMConfig, pixel_values: torch.Tensor, *,
     if cfg.drop_first_patch:
         hidden = hidden[:, 1:, :]
     with span("projector"):
-        return proj.forward(params["projector"], hidden)
+        return proj.forward(params["projector"], hidden, cfg.projector)
 
 
 @torch.no_grad()

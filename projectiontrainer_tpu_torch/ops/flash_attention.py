@@ -41,10 +41,12 @@ q, k, v and dO as they lie.
 ``sharded_flash_plan`` and ``sharded_flash_attention`` are the counterparts of the JAX
 package's heads-over-model ``shard_map`` (``ops/flash_attention.py:864-933`` there):
 under tensor parallelism each model rank runs the same kernels on its ``hq / m`` query
-heads and ``hkv / m`` KV heads (one KV head replicated); attention is independent per
-(batch, head), so no collective is needed. Where the JAX plan returns None and JAX
-falls back to XLA attention, the plan raises here (``parallel/sharding.py`` calls it
-when the model is sharded, before any step).
+heads and ``hkv / m`` KV heads; attention is independent per (batch, head), so no
+collective is needed. Where the KV heads do not divide (one KV head included) each rank
+runs its query heads against the KV heads they read (``rank_kv_heads``: sliced from the
+whole, replicated k/v). Where the query heads do not divide, the JAX plan returns None
+and JAX falls back to XLA attention on all heads; here the attention block runs whole on
+every rank, through the same kernels on all heads (``parallel/sharding.py:units``).
 
 ``flash_attention_merged`` is the counterpart of the TPU's merged-lane kernels
 (``_fwd_lanes_kernel``, ``_bwd_dkv_lanes_kernel``, ``_bwd_dq_lanes_kernel`` via
@@ -445,31 +447,40 @@ def flash_attention_padded(q, k, v, *, scale: Optional[float] = None, causal: bo
     return out[..., :d], lse
 
 
-def sharded_flash_plan(hq: int, hkv: int, model: int) -> tuple[int, int]:
-    """(query heads, KV heads) of each of ``model`` ranks: the query heads split over
-    the ranks, the KV heads too, or replicated when there is one. Raises where the JAX
-    plan returns None: heads the model axis does not divide (a replicated multi-head KV
-    would pair rank s's query heads with the wrong KV group)."""
-    if model == 1:
+def rank_kv_heads(hq: int, hkv: int, model: int, rank: int) -> Optional[list]:
+    """The KV heads that the query heads of model rank ``rank`` of ``model`` read, where
+    the query heads divide over the ranks and the KV heads do not (one KV head
+    included): rank r holds query heads r hq/m ... (r + 1) hq/m - 1, and query head j
+    reads KV head j // (hq / hkv). A run of KV heads where the rank's query heads are a
+    uniform GQA grouping of it; else one KV head a query head (the list repeats heads).
+    None where the KV heads split with the query heads, or the query heads do not
+    divide (the attention is whole)."""
+    if model == 1 or hq % model or (hkv != 1 and hkv % model == 0):
+        return None
+    hq_l, group = hq // model, hq // hkv
+    read = [j // group for j in range(rank * hq_l, (rank + 1) * hq_l)]
+    n = read[-1] - read[0] + 1
+    if hq_l % n == 0 and read == [read[0] + i // (hq_l // n) for i in range(hq_l)]:
+        return list(range(read[0], read[0] + n))
+    return read
+
+
+def sharded_flash_plan(hq: int, hkv: int, model: int, rank: int) -> tuple[int, int]:
+    """(query heads, KV heads) of model rank ``rank`` of ``model``: the query heads and
+    the KV heads split over the ranks; the KV heads the rank's query heads read where
+    the KV heads do not divide (:func:`rank_kv_heads`); all heads where the query heads
+    do not divide (the JAX plan's None: the attention runs whole on every rank)."""
+    if model == 1 or hq % model:
         return hq, hkv
-    if hq % model:
-        raise ValueError(f"tensor parallel: {hq} query heads do not divide over {model} "
-                         "model ranks")
-    if hkv != 1 and hkv % model:
-        raise ValueError(f"tensor parallel: {hkv} KV heads neither divide over {model} "
-                         "model ranks nor are one replicated head")
-    hq_l, hkv_l = hq // model, 1 if hkv == 1 else hkv // model
-    if hq_l % hkv_l:
-        raise ValueError(f"tensor parallel: {hq_l} query heads a rank is not a multiple "
-                         f"of {hkv_l} KV heads")
-    return hq_l, hkv_l
+    kv = rank_kv_heads(hq, hkv, model, rank)
+    return hq // model, hkv // model if kv is None else len(kv)
 
 
-def sharded_flash_attention(q, k, v, *, heads: tuple[int, int], model: int, **kw):
-    """``flash_attention`` on one model rank's heads: q [B, T, hq / m, D], k/v [B, T,
-    hkv / m (or 1), D] of a model with ``heads`` = (hq, hkv) over ``model`` ranks; the
-    shapes are held to :func:`sharded_flash_plan`."""
-    hq_l, hkv_l = sharded_flash_plan(*heads, model)
+def sharded_flash_attention(q, k, v, *, heads: tuple[int, int], model: int, rank: int, **kw):
+    """``flash_attention`` on one model rank's heads: q, k/v [B, T, heads, D] of a model
+    with ``heads`` = (hq, hkv) over ``model`` ranks, held to :func:`sharded_flash_plan`
+    for rank ``rank``."""
+    hq_l, hkv_l = sharded_flash_plan(*heads, model, rank)
     if q.shape[2] != hq_l or k.shape[2] != hkv_l or v.shape[2] != hkv_l:
         raise ValueError(f"sharded flash attention: heads {q.shape[2]}/{k.shape[2]} on a "
                          f"rank, the plan of {heads} over {model} says {hq_l}/{hkv_l}")

@@ -208,7 +208,6 @@ def build_program(vlm_cfg: vlm.VLMConfig, device, *, fake: bool, batch_per_devic
     else:
         params = vlm.init(torch.Generator(device=device).manual_seed(seed), vlm_cfg,
                           device=device)
-    sharding.check_config(vlm_cfg, distributed.model_size())
     if distributed.model_size() > 1:  # the model rank's shards, as setup.build_vlm slices
         params = sharding.shard_params(params, sharding.plan_for(params, vlm_cfg),
                                        axes=(sharding.MODEL_AXIS,))
@@ -300,7 +299,9 @@ def full_joint_budget(vlm_cfg=None, *, n_devices: int = 8, model_axis: int = 1,
     report's keys mirror the JAX report's; ``per_device`` holds the peak and its split by
     category, ``fits`` replaces ``fits_16gb``, and ``oom`` is ``{used_bytes,
     limit_bytes, over_bytes}`` when the peak passes ``limit_bytes`` (default
-    :data:`H100_USABLE_BYTES` on the card, None on the CPU).
+    :data:`H100_USABLE_BYTES` on the card, None on the CPU); ``whole_units`` names the
+    units that the model axis leaves whole on every rank (``sharding.check_config``: a
+    model axis of 8 over Gemma3-4B's 4 KV heads replicates them).
 
     ``fake=False`` runs the same step for real on ``device`` (random leaves from a seed;
     the fake world's collectives still move nothing), under the same tracker: the
@@ -352,5 +353,6 @@ def full_joint_budget(vlm_cfg=None, *, n_devices: int = 8, model_axis: int = 1,
                                               for k, v in tracker.at_peak.items()}},
         "fits": None if limit_bytes is None else not over,
         "collectives": ran["collectives"],
+        "whole_units": sharding.check_config(vlm_cfg, model_axis),
         "trace_s": time.perf_counter() - t0,
     }

@@ -11,25 +11,25 @@ embedding tables are ``[V, D]`` in both packages and keep their spec):
 - the embedding table and the LM head: the vocab; LoRA's ``b`` of a column target and
   ``a`` of a row target, with the base.
 
-Where GSPMD lets the JAX package shard anything and gather as it goes, the port's
-explicit Megatron collectives (``parallel/tensor_parallel.py``) need the shards to
-compose, so two deliberate divergences:
-
-- a leaf whose sharded dim the model axis does not divide raises (the JAX package
-  quietly replicates it, ``_divisible`` / ``param_shardings``): a replicated ``q_proj``
-  beside a sharded ``o_proj`` cannot compose; so do head counts, KV head counts
-  (unless one), intermediate sizes and a vocab that the model axis does not divide
-  (:func:`check_config`);
-- a single KV head stays replicated (``rules_for``): the k/v projections, their LoRA
-  adapters and quantized leaves; the flash kernels then run every rank's query heads
-  against the one head (``ops/flash_attention.sharded_flash_plan``).
+Where GSPMD lets the JAX package shard any leaf and regather around a lone replicated
+one, the port's explicit Megatron collectives (``parallel/tensor_parallel.py``) can
+compose only whole units, so the port replicates by unit where the JAX package
+replicates by leaf (``_divisible`` / ``param_shardings`` there). :func:`units` says which
+units of a model the model axis splits: one only when every dim of it divides. A unit
+it does not split runs whole on every model rank (no collective on its way in or out, a
+complete gradient): a decoder's attention block (its query heads), its MLP, its vocab
+(the table and the LM head), the projector, and a tower's attention, MLP (the MAP head's
+too) and text vocab. A decoder's KV heads where the query heads divide and the KV heads
+do not (one KV head included) are replicated: the k/v projections, their LoRA adapters
+and quantized leaves; each rank slices the KV heads its query heads read after the
+projection (``ops/flash_attention.rank_kv_heads``), and their gradient is partial.
 
 A :class:`ShardPlan` says, for a params tree, which leaves are sharded on which dim and
 which replicated leaves get a PARTIAL gradient on each model rank because they act on
-sharded activations (the q/k RMSNorm scales, a column-parallel bias, the k/v projections
-of a single KV head, LoRA's ``a`` of a column target and ``b`` of a row target): the
-train step sums those over the model axis (``train/steps.py``), and the norms count a
-sharded leaf's squares over the model axis and a replicated leaf's once
+sharded activations (the q/k RMSNorm scales, a column-parallel bias, the replicated k/v
+projections, LoRA's ``a`` of a column target and ``b`` of a row target, each of a split
+unit): the train step sums those over the model axis (``train/steps.py``), and the
+norms count a sharded leaf's squares over the model axis and a replicated leaf's once
 (``train/optim.py``). :func:`shard_params` slices a full tree to a rank's shards,
 :func:`gather_params` is its inverse (a collective; the checkpoints' writes).
 
@@ -48,6 +48,7 @@ over both axes; ``parallel/fsdp.py`` gathers the data shards on use.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import re
 from typing import Mapping, Optional, Sequence
@@ -87,8 +88,8 @@ DEFAULT_RULES: Sequence[tuple[str, tuple]] = (
     (r"token_embedding/embedding$", (MODEL_AXIS, None)),
 )
 
-# a single KV head is replicated (ahead of DEFAULT_RULES)
-SINGLE_KV_HEAD_RULES: Sequence[tuple[str, tuple]] = (
+# KV heads the model axis does not split are replicated (ahead of DEFAULT_RULES)
+REPLICATED_KV_RULES: Sequence[tuple[str, tuple]] = (
     (r"^llm/layers/\d+/attn/(k_proj|v_proj)/", ()),
     (r"^lora/layers/\d+/(k_proj|v_proj)/", ()),
 )
@@ -103,7 +104,7 @@ PARTIAL_GRADS: Sequence[str] = (
     r"^lora/.*(q_proj|k_proj|v_proj|gate_proj|up_proj)/a$",
     r"^lora/.*(o_proj|down_proj)/b$",
 )
-SINGLE_KV_HEAD_PARTIAL: Sequence[str] = (
+REPLICATED_KV_PARTIAL: Sequence[str] = (
     r"^llm/layers/\d+/attn/(k_proj|v_proj)/(weight|bias)$",
     r"^lora/layers/\d+/(k_proj|v_proj)/b$",
 )
@@ -123,14 +124,104 @@ def sharded_dim(path: str, rules: Sequence[tuple[str, tuple]] = DEFAULT_RULES) -
     return spec.index(MODEL_AXIS) if MODEL_AXIS in spec else None
 
 
-def rules_for(vlm_cfg=None) -> tuple[tuple, tuple]:
-    """(sharding rules, partial-gradient patterns) for a VLM (or decoder) config: the
-    defaults, with a single KV head replicated."""
-    llm = getattr(vlm_cfg, "llm", vlm_cfg)
-    if getattr(llm, "num_kv_heads", None) == 1:
-        return (tuple(SINGLE_KV_HEAD_RULES) + tuple(DEFAULT_RULES),
-                tuple(PARTIAL_GRADS) + tuple(SINGLE_KV_HEAD_PARTIAL))
-    return tuple(DEFAULT_RULES), tuple(PARTIAL_GRADS)
+@dataclasses.dataclass(frozen=True)
+class Units:
+    """Which units of one part of a model the model axis splits (True) or leaves whole
+    on every model rank (False): ``attn`` the attention block's query heads (a
+    decoder's or a tower's), ``kv`` a decoder's KV heads (split only with its query
+    heads; else replicated and sliced by rank), ``mlp`` the MLP's (or the projector's)
+    intermediate size, ``vocab`` the token table (and a decoder's LM head)."""
+
+    attn: bool = False
+    kv: bool = False
+    mlp: bool = False
+    vocab: bool = False
+
+
+@functools.lru_cache(maxsize=None)
+def units(cfg, model: int) -> Units:
+    """The units of ``cfg`` (a decoder, a tower or the projector config) that a model
+    axis of ``model`` ranks splits: each whose dims all divide. KV heads are split only
+    where the query heads are, where they divide, and where there is more than one (the
+    rule at a model axis of one too, where nothing is cut)."""
+    def div(n):
+        return n % model == 0
+
+    if hasattr(cfg, "num_kv_heads"):
+        attn = div(cfg.num_heads)
+        return Units(attn=attn, kv=attn and cfg.num_kv_heads != 1 and div(cfg.num_kv_heads),
+                     mlp=div(cfg.intermediate_size), vocab=div(cfg.vocab_size))
+    if hasattr(cfg, "intermediate_dim"):
+        return Units(mlp=div(cfg.intermediate_dim))
+    return Units(attn=div(cfg.num_heads), mlp=div(cfg.intermediate_size),
+                 vocab=hasattr(cfg, "vocab_size") and div(cfg.vocab_size))
+
+
+def splits(cfg, unit: str) -> bool:
+    """Whether this process's model axis splits ``unit`` (a field of :class:`Units`) of
+    ``cfg``; without a model axis nothing is split."""
+    model = distributed.model_size()
+    return model > 1 and getattr(units(cfg, model), unit)
+
+
+def _decoder_cfg(model_cfg):
+    return getattr(model_cfg, "llm", model_cfg if hasattr(model_cfg, "num_kv_heads") else None)
+
+
+def _parts(model_cfg):
+    """(tree prefix, config) of each part of ``model_cfg`` (a VLM or decoder config, a
+    SigLIP dual tower or a classifier) that has units."""
+    out = []
+    if _decoder_cfg(model_cfg) is not None:
+        out.append(("llm", _decoder_cfg(model_cfg)))
+    for name in ("projector", "vision", "text"):
+        if getattr(model_cfg, name, None) is not None:
+            out.append((name, getattr(model_cfg, name)))
+    return out
+
+
+_LORA_ATTN, _LORA_MLP = "q_proj|k_proj|v_proj|o_proj", "gate_proj|up_proj|down_proj"
+
+
+def whole_patterns(model_cfg, model: int) -> tuple[str, ...]:
+    """Path patterns of the leaves of the units that a model axis of ``model`` ranks
+    leaves whole (:func:`units`): replicated, with complete gradients."""
+    if model_cfg is None or model == 1:
+        return ()
+    out = []
+    for name, cfg in _parts(model_cfg):
+        u = units(cfg, model)
+        if name == "llm":
+            if not u.attn:
+                out += [r"^llm/layers/\d+/attn/", rf"^lora/layers/\d+/({_LORA_ATTN})/"]
+            if not u.mlp:
+                out += [r"^llm/layers/\d+/mlp/", rf"^lora/layers/\d+/({_LORA_MLP})/"]
+            if not u.vocab:
+                out.append(r"^llm/(embed_tokens|lm_head)/")
+        elif name == "projector":
+            if not u.mlp:
+                out.append(r"^projector/")
+        else:
+            if not u.attn:
+                out.append(rf"^{name}/layers/\d+/attn/")
+            if not u.mlp:
+                out += [rf"^{name}/layers/\d+/mlp/", rf"^{name}/head/mlp/"]
+            if name == "text" and not u.vocab:
+                out.append(r"^text/token_embedding/")
+    return tuple(out)
+
+
+def rules_for(vlm_cfg=None, model: Optional[int] = None) -> tuple[tuple, tuple]:
+    """(sharding rules, partial-gradient patterns) for a model config at a model axis of
+    ``model`` ranks (default: this process's): the defaults, behind the leaves of whole
+    units (:func:`whole_patterns`, replicated) and replicated KV heads."""
+    model = distributed.model_size() if model is None else model
+    whole = tuple((p, ()) for p in whole_patterns(vlm_cfg, model))
+    llm = _decoder_cfg(vlm_cfg)
+    if llm is not None and units(llm, model).attn and not units(llm, model).kv:
+        return (whole + tuple(REPLICATED_KV_RULES) + tuple(DEFAULT_RULES),
+                tuple(PARTIAL_GRADS) + tuple(REPLICATED_KV_PARTIAL))
+    return whole + tuple(DEFAULT_RULES), tuple(PARTIAL_GRADS)
 
 
 _TRANSPOSED = frozenset({"weight", "qvalues", "qvalues_block", "packed_nf4", "block_scales"})
@@ -180,38 +271,26 @@ def fsdp_dim(path: str, shape: Sequence[int], data: int, *, model: int = 1,
     return to_port[best]
 
 
-def _divide(what: str, n: int, model: int) -> None:
-    if n % model:
-        raise ValueError(f"tensor parallel: {what} ({n}) does not divide over {model} model "
-                         "ranks")
+_UNIT_NAMES = {"attn": "attention", "kv": "KV heads", "mlp": "MLP", "vocab": "vocab"}
 
 
-def check_config(model_cfg, model: int) -> None:
-    """Raise for a model whose heads, KV heads (unless one), intermediate sizes or vocab
-    the model axis does not divide (the JAX package would replicate what does not
-    divide; explicit TP cannot). ``model_cfg`` is a VLM or decoder config, a SigLIP dual
-    tower (both towers; the text tower's vocab too) or a classifier (its tower; the
-    classifier's head is replicated)."""
+def check_config(model_cfg, model: int) -> list[str]:
+    """The units of ``model_cfg`` (a VLM or decoder config, a SigLIP dual tower or a
+    classifier, whose head is always whole) that a model axis of ``model`` ranks leaves
+    whole, by name (replicated KV heads as ``'llm KV heads'``); raises for a model axis
+    below one."""
+    if model < 1:
+        raise ValueError(f"tensor parallel: a model axis of {model} ranks")
     if model == 1:
-        return
-    from projectiontrainer_tpu_torch.ops.flash_attention import sharded_flash_plan
-
-    llm = getattr(model_cfg, "llm", model_cfg if hasattr(model_cfg, "num_kv_heads") else None)
-    if llm is not None:
-        sharded_flash_plan(llm.num_heads, llm.num_kv_heads, model)
-        _divide("the decoder's intermediate size", llm.intermediate_size, model)
-        _divide("the vocab", llm.vocab_size, model)
-    for name in ("vision", "text"):
-        tower = getattr(model_cfg, name, None)
-        if tower is None:
-            continue
-        _divide(f"the {name} tower's heads", tower.num_heads, model)
-        _divide(f"the {name} tower's intermediate size", tower.intermediate_size, model)
-        if name == "text":
-            _divide("the text tower's vocab", tower.vocab_size, model)
-    projector = getattr(model_cfg, "projector", None)
-    if projector is not None:
-        _divide("the projector's intermediate size", projector.intermediate_dim, model)
+        return []
+    out = []
+    for name, cfg in _parts(model_cfg):
+        u = units(cfg, model)
+        fields = {"llm": ("attn", "kv", "mlp", "vocab"), "projector": ("mlp",),
+                  "vision": ("attn", "mlp"), "text": ("attn", "mlp", "vocab")}[name]
+        out += [f"{name} {_UNIT_NAMES[f]}" for f in fields
+                if not getattr(u, f) and not (f == "kv" and not u.attn)]
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -287,7 +366,8 @@ def plan_for(params, vlm_cfg=None, *, model: Optional[int] = None,
     rank = distributed.model_rank() if rank is None else rank
     data = distributed.data_size() if data is None else data
     data_rank = distributed.data_rank() if data_rank is None else data_rank
-    rules, partial_patterns = rules_for(vlm_cfg)
+    rules, partial_patterns = rules_for(vlm_cfg, model)
+    whole_units = whole_patterns(vlm_cfg, model)
     vision = getattr(vlm_cfg, "vision", None)
     dims, partial, data_dims, local = {}, set(), {}, {}
     for path, x in leaves_with_paths(params, prefix):
@@ -296,7 +376,8 @@ def plan_for(params, vlm_cfg=None, *, model: Optional[int] = None,
         dim = sharded_dim(path, rules)
         if dim is not None:
             dims[path] = dim
-        elif any(re.search(p, path) for p in partial_patterns):
+        elif (any(re.search(p, path) for p in partial_patterns)
+              and not any(re.search(p, path) for p in whole_units)):
             partial.add(path)
         if fsdp:
             whole = list(x.shape)
@@ -348,36 +429,57 @@ def gather_params(params, plan: ShardPlan, prefix: str = "", host: bool = False,
     return map_with_path(one, params, prefix)
 
 
+def _probes(params, model_cfg) -> list[tuple[str, int]]:
+    """(path, whole rows) of a leaf of each unit of ``params``: a decoder's first q_proj
+    and gate_proj, its table, the projector's fc1, each tower's first q_proj and fc1
+    and the text table (those the tree holds)."""
+    out = []
+    llm = _decoder_cfg(model_cfg)
+    if "llm" in params and llm is not None and params["llm"]["layers"]:
+        out += [("llm/layers/0/attn/q_proj", llm.num_heads * llm.head_dim),
+                ("llm/layers/0/mlp/gate_proj", llm.intermediate_size)]
+    if "llm" in params and llm is not None:
+        out.append(("llm/embed_tokens", llm.vocab_size))
+    if "projector" in params:
+        out.append(("projector/fc1", model_cfg.projector.intermediate_dim))
+    for name in ("vision", "text"):
+        tower = getattr(model_cfg, name, None)
+        if name in params and tower is not None and params[name]["layers"]:
+            out += [(f"{name}/layers/0/attn/q_proj", tower.hidden_size),
+                    (f"{name}/layers/0/mlp/fc1", tower.intermediate_size)]
+        if name == "text" and name in params and tower is not None:
+            out.append(("text/token_embedding", tower.vocab_size))
+    return out
+
+
 def check_local(params, model_cfg, plan: ShardPlan) -> None:
     """Raise unless ``params`` hold the rank's shards: a trainer in a world with a model
-    axis must not train full leaves as if they were its shards. Read on the decoder's
-    first q_proj (a VLM tree) or the vision tower's (a SigLIP dual tower, a
-    classifier)."""
+    axis must not train full leaves as if they were its shards. Read on a leaf of each
+    unit (:func:`_probes`): a model rank's share of its rows where the plan splits it,
+    all of them where the unit is whole."""
     if plan.model == 1:
         return
-    if "llm" in params:
-        llm = getattr(model_cfg, "llm", model_cfg)
-        q = params["llm"]["layers"][0]["attn"]["q_proj"]
-        width, where = llm.num_heads * llm.head_dim, "the decoder's q_proj"
-    else:
-        layers = params["vision"]["layers"]
-        if not layers:
-            return
-        q = layers[0]["attn"]["q_proj"]
-        width, where = model_cfg.vision.hidden_size, "the vision tower's q_proj"
-    rows = next(q[k] for k in ("weight", "qvalues", "qvalues_block", "packed_nf4") if k in q)
-    want = width // plan.model
-    if rows.shape[0] != want:
-        raise ValueError(f"tensor parallel: {where} holds {rows.shape[0]} rows where model "
-                         f"rank {plan.rank} of {plan.model} holds {want}: shard the params "
-                         "(parallel/sharding.model_shards) before training")
+    for path, width in _probes(params, model_cfg):
+        node = params
+        for key in path.split("/"):
+            node = node[int(key)] if isinstance(node, list) else node[key]
+        key = next(k for k in ("weight", "qvalues", "qvalues_block", "packed_nf4",
+                               "embedding") if k in node)
+        split = f"{path}/{key}" in plan.dims
+        want = width // plan.model if split else width
+        rows = node[key].shape[0]
+        if rows != want:
+            raise ValueError(f"tensor parallel: {path} holds {rows} rows where model rank "
+                             f"{plan.rank} of {plan.model} holds {want}"
+                             f"{'' if split else ' (a whole unit)'}: shard the params "
+                             "(parallel/sharding.model_shards) before training")
 
 
 def model_shards(params: dict, model_cfg) -> dict:
     """A whole loaded tree (a SigLIP dual tower, a classifier) sliced to this model
     rank's shards, each sharded leaf a copy of its block (the whole leaves are freed
-    with ``params``); ``params`` itself without a model axis. Raises for a model the
-    model axis does not divide (:func:`check_config`). The VLM's counterpart, which
+    with ``params``; a whole unit's leaves are shared); ``params`` itself without a model
+    axis. The VLM's counterpart, which
     slices the decoder a layer at a time, is ``train/setup.py:shard_model``."""
     model = distributed.model_size()
     if model == 1:

@@ -16,6 +16,10 @@ writes out (``models/decoder.py``, ``models/siglip.py``, ``models/projector.py``
 - :func:`local_block`: the rank's block of a replicated tensor (a column-parallel
   bias, which the JAX rules keep replicated).
 
+The models call these only for the units that the model axis splits
+(``parallel/sharding.py:units``); a unit it leaves whole calls none, so a model axis
+that divides less of the model counts fewer collectives.
+
 Every collective on the model axis runs in a profiler span ``tp_allreduce`` or
 ``tp_allgather`` and is counted in :data:`COUNTS` by phase: ``forward``, ``backward``
 (the all-reduces of :func:`copy_to_model`'s backward), ``recompute`` (a forward
@@ -130,8 +134,7 @@ def gather_from_model(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
 
 def local_block(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
     """The rank's block of ``n`` along ``dim`` of a replicated ``x`` (``x`` itself when
-    that dim already has ``n``: a leaf the rules replicate, such as the k/v projections
-    of a single KV head)."""
+    that dim already has ``n``)."""
     if x.shape[dim] == n:
         return x
     if x.shape[dim] != n * size():

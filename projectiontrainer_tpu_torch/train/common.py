@@ -69,8 +69,13 @@ def place_params(params: dict, model_cfg, cfg: CommonConfig) -> sharding.ShardPl
     ``sharding.model_shards``; anything else raises) and, under ``--fsdp``,
     each top-level subtree of ``params`` replaced IN PLACE by the rank's data shards
     (the JAX package's ``train/common.py:place_params``). A trainer calls it before it
-    casts its trainables to fp32 masters, so no rank ever holds the whole fp32 model."""
-    sharding.check_config(model_cfg, distributed.model_size())
+    casts its trainables to fp32 masters, so no rank ever holds the whole fp32 model.
+    The units that the model axis leaves whole (``sharding.units``) are logged once."""
+    whole = sharding.check_config(model_cfg, distributed.model_size())
+    if whole and distributed.rank() == 0:
+        logging.getLogger(__name__).info(
+            "tensor parallel over %d model ranks: whole on every rank (the model axis does "
+            "not divide them): %s", distributed.model_size(), ", ".join(whole))
     plan = sharding.plan_for(params, model_cfg, fsdp=cfg.fsdp)
     sharding.check_local(params, model_cfg, plan)
     if plan.data_sharded:

@@ -125,9 +125,9 @@ def apply_delta(lora_layer: Optional[dict], target: str, cfg: LoraConfig, x: tor
                 row_parallel: bool = False) -> torch.Tensor:
     """y + scaling * (dropout(x) A^T) B^T for one projection; y itself when the target
     is not adapted. ``seed`` (a mask seed, ``dropout_seed``) turns on the dropout when
-    ``cfg.dropout > 0``; None (evaluation) is the identity. ``row_parallel``: under a
-    model axis, x holds the rank's input columns, and the mask is the rank's slice of the
-    whole input's mask."""
+    ``cfg.dropout > 0``; None (evaluation) is the identity. ``row_parallel``: the
+    projection is row-parallel in a unit the model axis splits, so x holds the rank's
+    input columns, and the mask is the rank's slice of the whole input's mask."""
     if lora_layer is None or target not in lora_layer:
         return y
     p = lora_layer[target]

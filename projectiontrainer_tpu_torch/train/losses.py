@@ -17,10 +17,12 @@ its gradients. A mean of per-rank means would weigh a rank's token by the rank's
 count. The count returned is then the global one. In a single process it changes
 nothing.
 
-Under tensor parallelism (a model axis, ``parallel/tensor_parallel.py``) the head
-table is the rank's vocab slice: the chunked and fused CLM losses then run their
+Under tensor parallelism (a model axis, ``parallel/tensor_parallel.py``) that splits
+the vocab (``vocab_parallel``, which the train steps read off ``sharding.units``) the
+head table is the rank's vocab slice: the chunked and fused CLM losses then run their
 vocab-parallel forms (``ops/fused_ce.py``), whose per-token NLL is the same on every
-model rank, and the ranks are counted once (the global counts sum over the data axis).
+model rank; a vocab the model axis leaves whole runs the whole-vocab forms on every
+rank. The ranks are counted once (the global counts sum over the data axis).
 """
 
 from __future__ import annotations
@@ -32,7 +34,6 @@ from projectiontrainer_tpu_torch.ops.fused_ce import (
     chunked_nll_vocab_parallel, fused_clm_token_nll, fused_clm_token_nll_vocab_parallel,
 )
 from projectiontrainer_tpu_torch.parallel import distributed
-from projectiontrainer_tpu_torch.parallel import tensor_parallel as tp
 
 IGNORE_INDEX = -100
 
@@ -74,20 +75,20 @@ def _chunk_nll(h, table, safe, scale):
 
 def chunked_shifted_clm_loss(hidden, embed_table, labels, *, chunk_size: int = 128,
                              logits_scale: float = 1.0, sample_weights=None,
-                             over_ranks=False):
+                             over_ranks=False, vocab_parallel: bool = False):
     """The same loss from hidden states [B, T, D] and the [V, D] head table, over
     ``chunk_size`` positions at a time; each chunk's logits are recomputed in the
     backward (``torch.utils.checkpoint``, as ``jax.checkpoint`` in the JAX package),
     so at most one chunk's [B, chunk, V] fp32 logits are alive. The product runs in
-    the hidden states' type (bf16 in training), its result is read in fp32. With a
-    model axis ``embed_table`` is the rank's vocab slice and the vocab-parallel form
-    runs (``ops/fused_ce.chunked_nll_vocab_parallel``), its gradient reaching the
+    the hidden states' type (bf16 in training), its result is read in fp32. With
+    ``vocab_parallel`` ``embed_table`` is the rank's vocab slice and the vocab-parallel
+    form runs (``ops/fused_ce.chunked_nll_vocab_parallel``), its gradient reaching the
     slice."""
     hidden = hidden[:, :-1]
     labels = labels[:, 1:]
     valid = labels != IGNORE_INDEX
     safe = torch.where(valid, labels, 0).long()
-    if tp.size() > 1:
+    if vocab_parallel:
         b, t, d = hidden.shape
         nll = chunked_nll_vocab_parallel(hidden.reshape(b * t, d), embed_table,
                                          safe.reshape(-1), logits_scale,
@@ -105,18 +106,19 @@ def chunked_shifted_clm_loss(hidden, embed_table, labels, *, chunk_size: int = 1
 
 
 def fused_shifted_clm_loss(hidden, embed_table, labels, *, logits_scale: float = 1.0,
-                           sample_weights=None, over_ranks=False):
+                           sample_weights=None, over_ranks=False,
+                           vocab_parallel: bool = False):
     """The same loss through the fused linear + CE kernels (``ops/fused_ce.py``): the
     [tokens, V] logits never exist. REQUIRES a frozen ``embed_table``: its gradient
-    is zero by the kernels' contract. With a model axis in the process's mesh
-    ``embed_table`` is the rank's vocab slice and the vocab-parallel kernels run
+    is zero by the kernels' contract. With ``vocab_parallel`` ``embed_table`` is the
+    rank's vocab slice and the vocab-parallel kernels run
     (``fused_clm_token_nll_vocab_parallel``)."""
     b, t, d = hidden.shape
     labels = labels[:, 1:]
     valid = labels != IGNORE_INDEX
     safe = torch.where(valid, labels, 0)
     flat = hidden[:, :-1].reshape(b * (t - 1), d)
-    nll_fn = fused_clm_token_nll_vocab_parallel if tp.size() > 1 else fused_clm_token_nll
+    nll_fn = fused_clm_token_nll_vocab_parallel if vocab_parallel else fused_clm_token_nll
     nll = nll_fn(flat, embed_table, safe.reshape(-1), logits_scale)
     token_loss = torch.where(valid, nll.reshape(b, t - 1), 0.0)
     return _reduce(token_loss, valid, sample_weights, over_ranks)

@@ -80,8 +80,8 @@ def shard_layer(layer: dict, i: int, llm_cfg) -> dict:
 
 def shard_model(params: dict, cfg) -> dict:
     """A VLM tree whose decoder layers may already be shards (:func:`shard_layer`) with
-    every other leaf sliced to this model rank's shard; the tree itself without a model
-    axis. Raises for a model the model axis does not divide."""
+    every other leaf sliced to this model rank's shard (a unit the model axis leaves
+    whole stays whole, ``sharding.units``); the tree itself without a model axis."""
     if distributed.model_size() == 1:
         return params
     sharding.check_config(cfg, distributed.model_size())

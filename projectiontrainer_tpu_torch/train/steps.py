@@ -46,7 +46,7 @@ from projectiontrainer_tpu_torch.core.pytree import leaves_with_paths, unique_le
 from projectiontrainer_tpu_torch.models import classifier as cls_model
 from projectiontrainer_tpu_torch.models import decoder as dec
 from projectiontrainer_tpu_torch.models import siglip, vlm
-from projectiontrainer_tpu_torch.parallel import distributed, fsdp
+from projectiontrainer_tpu_torch.parallel import distributed, fsdp, sharding
 from projectiontrainer_tpu_torch.parallel import tensor_parallel as tp
 from projectiontrainer_tpu_torch.train import losses
 from projectiontrainer_tpu_torch.train.optim import sharded_global_norms
@@ -152,12 +152,14 @@ def make_eval_step(loss_fn: Callable):
 
 
 def _resolve_ce_impl(ce_impl: str, table_frozen: bool, hidden_size: Optional[int] = None,
-                     on_card: bool = False, vocab_size: Optional[int] = None) -> str:
+                     on_card: bool = False) -> str:
     """'auto' picks the fused linear + CE kernels (``ops/fused_ce.py``) when the
     tensors are on the card and their contract holds: a frozen vocab table and a
-    hidden size that is a multiple of 128; with a model axis (tensor parallelism) also
-    a vocab the model ranks divide (the vocab-parallel kernels; ``train/steps.py:174-216``
-    of the JAX package). Anything else gets 'chunked'. An explicit 'fused' overrides
+    hidden size that is a multiple of 128. With a model axis the kernels run on the
+    rank's vocab slice where it splits the vocab, and on the whole vocab on every rank
+    where it does not (the JAX package takes the chunked CE there,
+    ``train/steps.py:174-216``; the port holds the whole table on every rank, so the
+    whole-vocab kernels serve). Anything else gets 'chunked'. An explicit 'fused' overrides
     the device choice (on the CPU it runs the kernels' plain versions) but not the
     contract: the kernels return a zero table gradient, so forcing them on a run that
     trains the embedding raises."""
@@ -175,8 +177,6 @@ def _resolve_ce_impl(ce_impl: str, table_frozen: bool, hidden_size: Optional[int
     if not on_card or not table_frozen:
         return "chunked"
     if hidden_size is not None and hidden_size % 128 != 0:
-        return "chunked"
-    if tp.size() > 1 and vocab_size is not None and vocab_size % tp.size():
         return "chunked"
     return "fused"
 
@@ -204,15 +204,18 @@ def _clm_loss_from_embeds(params, cfg: vlm.VLMConfig, embeds, mask, labels, *, r
     if loss_prefix > 1:
         hidden = hidden[:, loss_prefix - 1:]
         labels = labels[:, loss_prefix - 1:]
+    vocab_parallel = sharding.splits(cfg.llm, "vocab")
     with span("lm_head_ce"):
         if logits_chunk and ce_impl == "fused":
             return losses.fused_shifted_clm_loss(
                 hidden, dec.lm_head_table(params["llm"], cfg.llm), labels,
-                sample_weights=sample_weights, over_ranks=True)
+                sample_weights=sample_weights, over_ranks=True,
+                vocab_parallel=vocab_parallel)
         if logits_chunk:
             return losses.chunked_shifted_clm_loss(
                 hidden, dec.lm_head_table(params["llm"], cfg.llm), labels,
-                chunk_size=logits_chunk, sample_weights=sample_weights, over_ranks=True)
+                chunk_size=logits_chunk, sample_weights=sample_weights, over_ranks=True,
+                vocab_parallel=vocab_parallel)
         return losses.shifted_clm_loss(dec.logits(params["llm"], cfg.llm, hidden), labels,
                                        sample_weights=sample_weights, over_ranks=True)
 
@@ -240,7 +243,7 @@ def stage1_loss(cfg: vlm.VLMConfig, pad_token_id: int, *, remat=True,
                                                   pad_token_id=pad_token_id,
                                                   caption_ids=batch["caption_ids"])
         impl = _resolve_ce_impl(ce_impl, table_frozen=True, hidden_size=cfg.llm.hidden_size,
-                                on_card=embeds.is_cuda, vocab_size=cfg.llm.vocab_size)
+                                on_card=embeds.is_cuda)
         loss, n_tok = _clm_loss_from_embeds(
             params, cfg, embeds, mask, labels, remat=remat, logits_chunk=logits_chunk,
             sample_weights=batch.get("sample_weight"), ce_impl=impl,
@@ -294,8 +297,7 @@ def stage2_loss(cfg: vlm.VLMConfig, pad_token_id: int, *, lora_cfg=None, remat=T
             params, cfg, visual, pad_token_id=pad_token_id,
             question_ids=batch["question_ids"], answer_ids=batch["answer_ids"])
         impl = _resolve_ce_impl(ce_impl, table_frozen=table_frozen,
-                                hidden_size=cfg.llm.hidden_size, on_card=embeds.is_cuda,
-                                vocab_size=cfg.llm.vocab_size)
+                                hidden_size=cfg.llm.hidden_size, on_card=embeds.is_cuda)
         loss, n_tok = _clm_loss_from_embeds(
             params, cfg, embeds, mask, labels, remat=remat, logits_chunk=logits_chunk,
             sample_weights=batch.get("sample_weight"), ce_impl=impl,

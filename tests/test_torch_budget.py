@@ -15,7 +15,9 @@
   gloo run of the same micro-step and apply (``tests/torch_budget_worker.py``).
 - The card's trace (meta tensors: no CUDA here) runs the small-test preset, whose towers
   have head dim 32, through the kernels' branch (padded) and launches nothing.
-- The CLI prints every key of the report.
+- The CLI prints every key of the report; at a model axis of 8 over the small-test
+  preset (replicated KV heads, a whole tower attention) the collectives are the count
+  read off the plan.
 """
 
 import json
@@ -162,3 +164,42 @@ def test_cli_prints_every_key(capsys):
     assert report["mesh"] == {"data": 4, "model": 1} and report["batch_global"] == 4
     # the trainer's chunk: the small-test vocabulary (4096) keeps its logits whole
     assert report["model"] == "small-test" and report["logits_chunk"] is None
+
+
+def test_cli_traces_a_model_axis_that_does_not_divide(capsys):
+    """``--n_devices 8 --model_axis 8`` over the small-test preset: its decoder's 8 query
+    heads split over 4 KV heads (the KV heads replicated, each rank slicing the one its
+    query head reads) and its tower's 4 heads whole, the rest split. The traced
+    collectives are the count read off the plan (``sharding.units``): a split unit's
+    row-parallel exit all-reduces in the forward and ``copy_to_model`` at its entry in
+    the backward; a whole unit neither. Under full remat each decoder block's exit is
+    recomputed, a tower layer's MLP exit is not (its last operator: the checkpoint's
+    recompute stops at the last tensor the backward needs)."""
+    from projectiontrainer_tpu_torch.parallel import sharding
+
+    cli.main(["--preset", "small-test", "--device", "cpu", "--n_devices", "8",
+              "--model_axis", "8"])
+    report = json.loads(capsys.readouterr().out)
+    assert report["mesh"] == {"data": 1, "model": 8} and report["logits_chunk"] is None
+    assert report["whole_units"] == ["llm KV heads", "vision attention"]
+    cfg = budget.small_test_config()
+    llm, vis = (sharding.units(c, 8) for c in (cfg.llm, cfg.vision))
+    proj = sharding.units(cfg.projector, 8).mlp
+    blocks = cfg.llm.num_layers * (llm.attn + llm.mlp)
+    tower = cfg.vision.num_layers * (vis.attn + vis.mlp)
+    want = {
+        # the logits of the split vocab (no chunk under a vocabulary of 32768)
+        "all-gather": {"forward": 1},
+        "all-reduce": {
+            "forward": tower + proj + blocks + 2 * llm.vocab,  # question and answer lookups
+            "recompute": blocks + cfg.vision.num_layers * vis.attn,
+            "backward": tower + proj + blocks + llm.vocab,  # the LM head's input
+            "grads": 2,      # the partial gradients' sum, the step's grad norm
+            "optimizer": 1,  # the clip's norm
+        },
+    }
+    got = {kind: {phase: v["count"] for phase, v in by_phase.items()}
+           for kind, by_phase in report["collectives"].items()}
+    assert got == want
+    assert want["all-reduce"] == {"forward": 9, "recompute": 4, "backward": 8, "grads": 2,
+                                  "optimizer": 1}

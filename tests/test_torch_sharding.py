@@ -9,7 +9,8 @@
   deliberate divergence: its k/v projections stay replicated.
 - Each rank's shards put back together are the leaf (``gather_params`` over gloo ranks is
   held by ``tests/test_torch_tp.py``); the tied head is sliced once.
-- A model the model axis does not divide raises.
+- A model the model axis does not divide gets a plan that leaves each unit it does not
+  divide whole; a sharded leaf that does not divide raises.
 """
 
 import functools
@@ -140,25 +141,63 @@ def test_the_tied_head_is_sliced_once():
                        full["llm"]["embed_tokens"]["embedding"][64:])
 
 
+# per case: (model axis, the units it leaves whole, leaves of whole units, sharded leaves
+# (path -> dim), leaves with partial gradients) for a 1-layer Qwen3 decoder
+_L = "llm/layers/0/"
+_PLANS = {
+    "heads": (2, ["llm attention"],
+              [_L + "attn/q_proj/weight", _L + "attn/k_proj/weight", _L + "attn/o_proj/weight",
+               _L + "attn/q_norm/scale", _L + "attn/k_norm/scale"],
+              {_L + "mlp/gate_proj/weight": 0, _L + "mlp/down_proj/weight": 1,
+               "llm/embed_tokens/embedding": 0}, []),
+    "kv_heads": (8, ["llm KV heads"], [],
+                 {_L + "attn/q_proj/weight": 0, _L + "attn/o_proj/weight": 1,
+                  _L + "mlp/up_proj/weight": 0, "llm/lm_head/weight": 0},
+                 [_L + "attn/k_proj/weight", _L + "attn/v_proj/weight", _L + "attn/q_norm/scale",
+                  _L + "attn/k_norm/scale"]),
+    "intermediate": (2, ["llm MLP"],
+                     [_L + "mlp/gate_proj/weight", _L + "mlp/up_proj/weight",
+                      _L + "mlp/down_proj/weight"],
+                     {_L + "attn/q_proj/weight": 0, _L + "attn/k_proj/weight": 0,
+                      "llm/embed_tokens/embedding": 0}, [_L + "attn/k_norm/scale"]),
+    "vocab": (2, ["llm vocab"], ["llm/embed_tokens/embedding", "llm/lm_head/weight"],
+              {_L + "attn/v_proj/weight": 0, _L + "mlp/down_proj/weight": 1}, []),
+}
+
+
 @pytest.mark.parametrize("what", ["heads", "kv_heads", "intermediate", "vocab", "leaf"])
 def test_an_indivisible_model_raises(what):
-    kw = dict(vocab_size=128, hidden_size=128, intermediate_size=256, num_layers=1,
-              num_heads=4, num_kv_heads=2, head_dim=32)
-    kw.update({"heads": dict(num_heads=3, num_kv_heads=1), "kv_heads": dict(num_kv_heads=4,
-               num_heads=8), "intermediate": dict(intermediate_size=255),
-               "vocab": dict(vocab_size=127), "leaf": {}}[what])
-    llm = JDEC.qwen3_config(**kw)
-    cfg = from_jax.config_from_jax(llm)
-    if what == "kv_heads":
-        sharding.check_config(cfg, 2)  # 4 KV heads divide over 2 ...
-        with pytest.raises(ValueError, match="KV heads"):
-            sharding.check_config(cfg, 8)  # ... not over 8 (and are not one)
-        return
+    """A model whose heads, KV heads, intermediate size or vocab the model axis does not
+    divide no longer raises: the plan leaves that unit whole on every rank (replicated,
+    a complete gradient; replicated KV heads get a partial one) and shards the rest. A
+    leaf that a plan shards and that does not divide still raises."""
     if what == "leaf":
         plan = sharding.plan_for({"projector": {"fc1": {"weight": torch.zeros(5, 4)}}},
                                  model=2, rank=0)
         with pytest.raises(ValueError, match="does not divide"):
             sharding.shard_params({"projector": {"fc1": {"weight": torch.zeros(5, 4)}}}, plan)
         return
-    with pytest.raises(ValueError, match="divide"):
-        sharding.check_config(cfg, 2)
+    kw = dict(vocab_size=128, hidden_size=128, intermediate_size=256, num_layers=1,
+              num_heads=4, num_kv_heads=2, head_dim=32)
+    kw.update({"heads": dict(num_heads=3, num_kv_heads=1), "kv_heads": dict(num_kv_heads=4,
+               num_heads=8), "intermediate": dict(intermediate_size=255),
+               "vocab": dict(vocab_size=127)}[what])
+    cfg = from_jax.config_from_jax(JDEC.qwen3_config(**kw))
+    model, whole_units, whole, shards, partial = _PLANS[what]
+    if what == "kv_heads":
+        assert sharding.check_config(cfg, 2) == []  # 4 KV heads divide over 2 ...
+    assert sharding.check_config(cfg, model) == whole_units
+    from projectiontrainer_tpu_torch.models import decoder
+
+    params = decoder.init(torch.Generator().manual_seed(0), cfg)
+    plan = sharding.plan_for(params, cfg, model=model, rank=model - 1, prefix="llm")
+    for p in whole:
+        assert p not in plan.dims and p not in plan.partial, p
+    assert {p: plan.dims.get(p) for p in shards} == shards
+    assert all(p in plan.partial for p in partial)
+    local = dict(leaves_with_paths(sharding.shard_params(params, plan, prefix="llm"), "llm"))
+    full = dict(leaves_with_paths(params, "llm"))
+    for p in whole:
+        assert local[p] is full[p], p  # whole on every rank
+    for p, dim in shards.items():
+        assert local[p].shape[dim] * model == full[p].shape[dim], p

@@ -33,8 +33,8 @@ Each is held against
 
 Also: the port's spec of every leaf of the SigLIP and classifier trees against the JAX
 package's ``spec_for_path`` (transposed to ``[out, in]``); the losses that reduce over
-the data axis only, on the ranks of one replica; and the model checks that raise for a
-SigLIP or classifier config the model axis does not divide.
+the data axis only, on the ranks of one replica; and the plans of a SigLIP or classifier
+config the model axis does not divide (the units it leaves whole).
 """
 
 import functools
@@ -598,27 +598,48 @@ def test_losses_reduce_over_the_data_axis_only(ranks):
 @pytest.mark.parametrize("what", ["vision_heads", "vision_mlp", "text_heads", "text_mlp",
                                   "text_vocab", "classifier_tower"])
 def test_an_indivisible_tower_raises(what):
-    """``check_config`` reads a SigLIP dual tower and a classifier (the JAX package
-    replicates what does not divide; explicit TP cannot)."""
+    """``check_config`` reads a SigLIP dual tower and a classifier: a tower's attention,
+    MLP (the MAP head's too) or text vocab that the model axis does not divide no longer
+    raises; the plan leaves that unit whole on every rank (replicated, no partial
+    gradient) and shards the rest, as the JAX package replicates what does not divide."""
     cfg = _port_cfg(T.tiny_siglip_cfg())
     vision, text = cfg.vision, cfg.text
     import dataclasses
 
-    bad = {"vision_heads": ("vision", dict(num_heads=3, hidden_size=33)),
-           "vision_mlp": ("vision", dict(intermediate_size=127)),
-           "text_heads": ("text", dict(num_heads=3, hidden_size=33)),
-           "text_mlp": ("text", dict(intermediate_size=127)),
-           "text_vocab": ("text", dict(vocab_size=127)),
-           "classifier_tower": ("vision", dict(num_heads=3, hidden_size=33))}[what]
-    sharding.check_config(cfg, 2)
+    bad = {"vision_heads": ("vision", dict(num_heads=3, hidden_size=33), "attention"),
+           "vision_mlp": ("vision", dict(intermediate_size=127), "MLP"),
+           "text_heads": ("text", dict(num_heads=3, hidden_size=33), "attention"),
+           "text_mlp": ("text", dict(intermediate_size=127), "MLP"),
+           "text_vocab": ("text", dict(vocab_size=127), "vocab"),
+           "classifier_tower": ("vision", dict(num_heads=3, hidden_size=33), "attention")}[what]
+    assert sharding.check_config(cfg, 2) == []
     if bad[0] == "vision":
         vision = dataclasses.replace(vision, **bad[1])
     else:
         text = dataclasses.replace(text, **bad[1])
-    model_cfg = (classifier.ClassifierConfig(vision=vision, num_classes=4)
-                 if what == "classifier_tower" else siglip.SiglipConfig(vision=vision, text=text))
-    with pytest.raises(ValueError, match="does not divide"):
-        sharding.check_config(model_cfg, 2)
+    if what == "classifier_tower":
+        model_cfg = classifier.ClassifierConfig(vision=vision, num_classes=4)
+        params = classifier.init(torch.Generator().manual_seed(0), model_cfg)
+    else:
+        model_cfg = siglip.SiglipConfig(vision=vision, text=text)
+        params = siglip.init(torch.Generator().manual_seed(0), model_cfg)
+    assert sharding.check_config(model_cfg, 2) == [f"{bad[0]} {bad[2]}"]
+    plan = sharding.plan_for(params, model_cfg, model=2, rank=1)
+    tower = f"{bad[0]}/layers/0/"
+    unit = {"attention": [tower + "attn/q_proj/weight", tower + "attn/q_proj/bias",
+                          tower + "attn/out_proj/weight"],
+            "MLP": [tower + "mlp/fc1/weight", tower + "mlp/fc1/bias", tower + "mlp/fc2/weight"],
+            "vocab": ["text/token_embedding/embedding"]}
+    for name, paths in unit.items():
+        for p in paths:
+            if name == bad[2]:  # whole: replicated, a complete gradient
+                assert p not in plan.dims and p not in plan.partial, p
+            elif name != "vocab" or bad[0] == "text":
+                assert plan.dims.get(p) == (1 if "out_proj" in p or "fc2" in p else 0) or (
+                    p.endswith("bias") and p in plan.partial), p
+    if bad[0] == "vision" and bad[2] == "MLP":  # the MAP head's MLP goes with the tower's
+        assert "vision/head/mlp/fc1/weight" not in plan.dims
+    sharding.check_local(sharding.shard_params(params, plan), model_cfg, plan)
 
 
 @pytest.mark.parametrize("name", ["siglip", "classifier"])

@@ -20,7 +20,8 @@ call) and writes ``<dir>/result<r>.pt``:
   wrote under ``<dir>/<case>``.
 
 ``run_case``, ``Rows``, ``StubTokenizer`` and the trainer runs serve the one-process
-references of the test too.
+references of the test too. ``_counts`` holds the model-axis collectives of the whole
+run by phase (``tensor_parallel.COUNTS``), ``_counts_by_case`` each case's.
 """
 
 from __future__ import annotations
@@ -244,8 +245,9 @@ def main(mesh: str, directory: str) -> None:
         distributed.setup_mesh(data, model)
         d = distributed.data_rank()
         payload = torch.load(os.path.join(directory, "payload.pt"), weights_only=False)
-        results = {}
+        results, by_case = {}, {}
         for name, case in payload.items():
+            before = dict(tp.COUNTS)
             kind = case["kind"]
             if kind == "faults":
                 results[name] = faults(case)
@@ -263,7 +265,9 @@ def main(mesh: str, directory: str) -> None:
                                                  batch=case["batch"])
             else:
                 raise ValueError(kind)
+            by_case[name] = {k: v - before[k] for k, v in tp.COUNTS.items()}
         results["_counts"] = dict(tp.COUNTS)
+        results["_counts_by_case"] = by_case
         torch.save(results, os.path.join(directory, f"result{rank}.pt"))
     finally:
         distributed.shutdown()

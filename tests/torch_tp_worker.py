@@ -22,6 +22,9 @@ on its data rank's rows and writes ``<dir>/result<r>.pt``:
   the test in one process;
 - ``roundtrip``: ``gather_params`` of the rank's shards, which the test holds to the
   full tree.
+
+``_counts`` holds the model-axis collectives of the whole run by phase
+(``tensor_parallel.COUNTS``), ``_counts_by_case`` each case's.
 """
 
 from __future__ import annotations
@@ -180,8 +183,11 @@ def main(mesh: str, directory: str) -> None:
         distributed.setup_mesh(data, model)
         d = distributed.data_rank()
         payload = torch.load(os.path.join(directory, "payload.pt"), weights_only=False)
-        results = {}
+        from projectiontrainer_tpu_torch.parallel import tensor_parallel
+
+        results, by_case = {}, {}
         for name, case in payload.items():
+            before = dict(tensor_parallel.COUNTS)
             kind = case["kind"]
             plan = sharding.plan_for(case["params"], case["cfg"],
                                      prefix=case.get("prefix", ""))
@@ -205,9 +211,9 @@ def main(mesh: str, directory: str) -> None:
                     sharding.gather_params(params, plan)))
             else:
                 raise ValueError(kind)
-        from projectiontrainer_tpu_torch.parallel import tensor_parallel
-
+            by_case[name] = {k: v - before[k] for k, v in tensor_parallel.COUNTS.items()}
         results["_counts"] = dict(tensor_parallel.COUNTS)
+        results["_counts_by_case"] = by_case
         torch.save(results, os.path.join(directory, f"result{rank}.pt"))
     finally:
         distributed.shutdown()
