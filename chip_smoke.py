@@ -81,6 +81,13 @@ Phases, each printing one JSON line; any failure raises, so the exit code is not
 6. end to end (train): one batch's loss and projector gradients through the kernel
    path against the plain path (plain attention, plain LayerNorm, chunked CE): loss
    within 1e-3 relative, every gradient leaf at cosine >= 0.999.
+6b. head dim 1024: Gemma3-1B's widths (hidden 1152, 4|1 heads, window 512, vocab
+   262,144) at head dim 1024 and 2 layers behind ViT-L/16-384 (2 of 24 layers), from the
+   seed: 3 stage-1 train steps (``train/steps.py``, batch 2 at 1087 tokens; K1/K4/K5 on the
+   wide kernels, K6/K7), each held against the plain path at the same params (loss within
+   1e-3 relative, projector gradients at cosine >= 0.999), then a 3-beam decode of 16
+   tokens (K1, K3 at head dim 1024) and its prefill and 16 teacher-forced steps held by
+   ``hold_logits`` against the plain path.
 7. stage-0 train: the stage-1 model is freed; Stage0Trainer.train() on the full-width
    so400m-patch16-512 dual tower (vision 27 x 1152, 16 heads of 72, 1024 patches, MAP
    head, fp32 masters and bf16 compute; text 27 x 1152, vocab 256,000, bf16, frozen)
@@ -316,14 +323,15 @@ Phases, each printing one JSON line; any failure raises, so the exit code is not
    gloo, said so: a sharing figure; where the card admits one process the phase prints
    that it did not run and why). (a) ``cli/launch.py`` runs ``cli/train_stage0.main``
    (``--entry chip_smoke:tp_towers_stage0_rank``) at --mesh_data 1 --mesh_model 2 over
-   the so400m dual tower at full width and depth (27 layers a tower; 8 of 16 heads of
-   72 a rank), built whole from the seed in each rank and sliced by the CLI
+   the so400m dual tower at full width (14 of its 27 layers a tower, cut for the
+   script's time; 8 of 16 heads of 72 a rank), built whole from the seed in each rank
+   and sliced by the CLI
    (``sharding.model_shards``): batch 16 at 512 px, 3 steps of in-memory samples (the
    last profiled on rank 0: kernel time by span, ``tp_allreduce`` apart), no validation
    (run time), the final checkpoint.
    Every rank logs the same finite losses; each step's model-axis collectives are the
-   count read off the code (``tp_towers_predicted``: 18 / 9 / 0 / 2 forward /
-   backward / recompute / grads); every leaf the model axis leaves whole (logit_*, the
+   count read off the code (``tp_towers_predicted``, forward / backward / recompute /
+   grads); every leaf the model axis leaves whole (logit_*, the
    LayerNorms, the MAP head's attention, ...) hashes equal on the two ranks after every
    step; the final checkpoint holds every trained leaf whole (the MAP head's MLP among
    them); K1/K2/K4/K5/K8 launch
@@ -337,10 +345,10 @@ Phases, each printing one JSON line; any failure raises, so the exit code is not
    towers, 2 steps of 8 a data rank: the same checks within each replica, data shards
    held, the final checkpoint whole, and the first loss within 1e-3 of one process on
    the whole global batch (the global negatives gathered over the data axis only). (c) ``cli/cls_train.main`` at
-   --mesh_model 2 over the ViT-L/16-384 tower (all 24 layers; 8 of 16 heads of 64 a
-   rank) and the 4-class head from the seed, batch 32,
-   1EpochUnfreeze, 2 epochs of 2 steps: the same checks (8 / 8 / 0 / 2 collectives a
-   step in epoch 0, 8 / 0 / 0 / 1 in epoch 1), an evaluation of the initial classifier before training whose logits sit
+   --mesh_model 2 over the ViT-L/16-384 tower (12 of its 24 layers, cut for the
+   script's time; 8 of 16 heads of 64 a rank) and the 4-class head from the seed, batch
+   32, 1EpochUnfreeze, 2 epochs of 2 steps: the same checks (``tp_towers_predicted``'s
+   collectives a step, the tower trained in epoch 0 and frozen in epoch 1), an evaluation of the initial classifier before training whose logits sit
    at cosine >= 0.999 to one process's, every evaluation over each data rank's rows
    once (its AUROC beside one process's), and the first loss within 1e-3.
    Phase 2 adds the towers' per-rank shapes: K1/K4/K5 at so400m's [16,1024,8,72] and
@@ -374,10 +382,14 @@ Phases, each printing one JSON line; any failure raises, so the exit code is not
    head dim 512 ([4,1024,8|2,512], causal, window 512) and at 320 padded to 512
    ([8,576,8,320]); K3 at head dim 512, at 96 query rows a KV head (2 x 24 beams of
    Gemma3-1B) and 68 (8 x 17 beams of Llama-3.2-1B); K2 and K8 at [16384,1004],
-   [4096,6144] and [2048,8192]; each rerun held bit-equal.
+   [4096,6144] and [2048,8192]; each rerun held bit-equal. Above those (the wide kernels):
+   K1/K4/K5 at head dim 1024 ([2,1024,4|1,1024], causal, window 512) and 640
+   ([4,576,4,640]); K3 at head dim 1024 (8 x 3 beams, P = 831, G = 32); K2 and K8 at
+   [2048,20480], [512,32768] and [1000,24577] (K8's streamed rows).
 
 The second-to-last line is {"kernels": [...]} (name, route, source, replaces, launches
-on the main path, launches_by_path (serve, serve_24_beams, train, stage0, stage0_files, stage2,
+on the main path, launches_by_path (serve, serve_24_beams, train, head_dim_1024_train,
+head_dim_1024_decode, stage0, stage0_files, stage2,
 stage2_qlora, serve_qwen3_adapter, cls, caption_llama, generation_eval, zero_shot,
 tsne, stage1_dp_rank0, stage0_dp_rank0, stage2_qlora_tp_rank0, stage1_tp_rank0,
 stage1_tp3_rank0, stage1_tp3_rank1, stage1_tp3_rank2, stage2_fsdp_rank0, stage0_tp_rank0, stage0_fsdp_tp_rank0,
@@ -930,8 +942,8 @@ def check_decode(rng, record, b, nb, p_len, g, steps, *, hq=4, hkv=1, d=256,
         pmask, _ = _left_pad_mask(rng, b, p_len, 224)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     extra = {}
-    if d not in DA.HEAD_DIMS:  # padded on the card: the copies' time beside the row
-        width = FA.padded_head_dim(d, DA.HEAD_DIMS)
+    if not DA.takes_head_dim(d):  # padded on the card: the copies' time beside the row
+        width = DA.padded_width(d)
         extra["pad_ms"] = cuda_ms(lambda: [FA.pad_head_dim(x, width)
                                            for x in (qd, kp, vp, kg, vg)])
     for t in steps:
@@ -949,7 +961,7 @@ def check_decode(rng, record, b, nb, p_len, g, steps, *, hq=4, hkv=1, d=256,
                 if not torch.equal(got, DA.decode_attention(qd, kp, vp, kg, vg, **kw)):
                     raise AssertionError(f"decode {case}: a rerun gave other bits")
             plan = DA.decode_plan(b, nb, hkv, p_len, g, t, p_len, window, sms,
-                                  n_rep=hq // hkv, d=FA.padded_head_dim(d, DA.HEAD_DIMS))
+                                  n_rep=hq // hkv, d=DA.padded_width(d))
             if not plan["ctas"] > b * hkv:
                 raise AssertionError(f"decode {case}: {plan['ctas']} CTAs for {b * hkv} "
                                      "(batch, KV head) pairs")
@@ -1310,7 +1322,11 @@ def check_wide_kernels(rng, record):
     (Gemma3-1B's 4|1 heads, B = 2 x 24 beams: two row groups) and at 68 (Llama-3.2-1B's
     32|8 heads, B = 8 x 17 beams); K2 and K8 at rows of 1004 (not a 16-byte multiple:
     K8's row warps copy them by cp.async), 6144 and 8192 (K8's column sums through
-    device memory).
+    device memory). Above the widest of those (the wide kernels' column blocks, K8's
+    streamed rows, K2's column chunks): K1/K4/K5 at head dim 1024 ([2,1024,4|1,1024],
+    causal, window 512) and 640 ([4,576,4,640], non-causal); K3 at head dim 1024
+    (Gemma3-1B's 4|1 heads, 8 x 3 beams, P = 831, G = 32); K2 and K8 at [2048,20480],
+    [512,32768] and [1000,24577] (rows that are not 16-byte multiples).
     Each against its plain version at phase 2's tolerances, a rerun held bit-equal,
     timed beside its bound and the library call; record(kernel, case, err, ms, plain_ms,
     bound, library_ms, library)."""
@@ -1332,12 +1348,22 @@ def check_wide_kernels(rng, record):
                  label="96 rows a KV head ")
     check_decode(rng, record, 8, 17, 831, 32, (31,), hq=32, hkv=8, d=64, windows=(None,),
                  label="68 rows a KV head (Llama) ")
-    for n, d in ((16384, 1004), (4096, 6144), (2048, 8192)):
+    for n, d, ragged in ((16384, 1004, True), (4096, 6144, True), (2048, 8192, True),
+                         (2048, 20480, False), (512, 32768, False), (1000, 24577, False)):
         x = _bf16(rng, (n, d))
         p = {"scale": _bf16(rng, (d,), 0.5) + 1, "bias": _bf16(rng, (d,), 0.1)}
         check_layernorm_fwd(rng, record, x, p, f"rows [{n},{d}]")
-        check_layernorm_bwd(rng, record, x, p, cases=((n, True),))
+        check_layernorm_bwd(rng, record, x, p, cases=((n, ragged),))
         del x, p
+    mask = torch.ones((2, 1024), dtype=torch.int32, device="cuda")
+    check_attention_layer(rng, record, "head dim 1024 [2,1024,4|1,1024] causal window=512", 2,
+                          1024, 4, 1, 1024, mask, rerun=True, scale=1024 ** -0.5, causal=True,
+                          window=512)
+    mask = torch.ones((4, 576), dtype=torch.int32, device="cuda")
+    check_attention_layer(rng, record, "head dim 640 [4,576,4,640] non-causal", 4, 576, 4, 4,
+                          640, mask, rerun=True, scale=640 ** -0.5, causal=False, window=None)
+    check_decode(rng, record, 8, 3, 831, 32, (31,), hq=4, hkv=1, d=1024, windows=(None,),
+                 label="head dim 1024 ")
 
 
 def check_layernorm_fwd(rng, record, x, p, case):
@@ -1523,8 +1549,10 @@ def check_layernorm_bwd(rng, record, x, p, cases=((16384, True), (16383, True), 
                        zip(got, FLN.layernorm_bwd(x2, dy, p["scale"], 1e-6))):
                 raise AssertionError(f"layernorm bwd [{n},{d}]: a rerun gave other bits")
         counts = sorted({c for _, c in FLN.bwd_bands(n, plan["ctas"])})
-        case = (f"[{n},{d}] {plan['ctas']} CTAs, bands of {counts} rows, "
-                f"{plan['stages']} stages of {plan['rows']} rows" + (" (ragged)" if ragged else ""))
+        ring = (f"streamed in chunks of {plan['chunk']} columns" if plan.get("streamed") else
+                f"{plan['stages']} stages of {plan['rows']} rows")
+        case = (f"[{n},{d}] {plan['ctas']} CTAs, bands of {counts} rows, {ring}"
+                + (" (ragged)" if ragged else ""))
         leaves = [x2.detach().requires_grad_(True), p["scale"].detach().requires_grad_(True),
                   torch.zeros(d, dtype=x.dtype, device="cuda", requires_grad=True)]
         y = F.layer_norm(leaves[0], (d,), leaves[1], leaves[2], 1e-6)
@@ -2245,6 +2273,143 @@ def phase_train_end_to_end(cfg, params, kernel_counters):
     if not min(cos) >= COS_MIN:
         raise AssertionError(f"train end to end: projector gradient cosine {min(cos):.5f} "
                              f"< {COS_MIN}")
+
+
+# ---------------------------------------------------------------------------- phase 6b
+
+
+HD_LAYERS = 2       # the head-dim-1024 leg: decoder and tower cut to 2 layers (run time)
+HD_STEPS = 3        # its stage-1 steps, each held against the plain path's
+HD_NEW_TOKENS = 16  # its 3-beam decode
+
+
+def head_dim_1024_model():
+    """Gemma3-1B's widths (hidden 1152, 4|1 heads, window 512, vocab 262,144) at head dim
+    1024 and 2 layers (both sliding), behind the ViT-L/16-384 tower (2 of its 24 layers)
+    and the projector 1024 -> 10240 -> 1152, from the seed (the tower and decoder bf16,
+    the projector fp32)."""
+    import torch
+
+    from projectiontrainer_tpu_torch.models import decoder as dec
+    from projectiontrainer_tpu_torch.models import projector as proj
+    from projectiontrainer_tpu_torch.models import siglip, vlm
+
+    cfg = vlm.VLMConfig(vision=dataclasses.replace(siglip.vit_l_16_384(), num_layers=HD_LAYERS),
+                        projector=proj.ProjectorConfig(vision_dim=1024, llm_dim=1152),
+                        llm=dec.gemma3_config(num_layers=HD_LAYERS, head_dim=1024))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = vlm.init(gen, cfg, device="cuda", tower_dtype=torch.bfloat16,
+                      projector_dtype=torch.float32)
+    return cfg, params
+
+
+def phase_head_dim_1024(kernel_counters):
+    """The head-dim-1024 leg through the entry points a user's run takes: the stage-1
+    train step (``train/steps.py:make_train_step`` over ``stage1_loss``, fused CE,
+    AdamW on the fp32 projector) for HD_STEPS steps of batch 2 at 575 + 512 tokens
+    (K1/K4/K5 on the wide kernels, K6/K7), each held against the plain path (plain
+    attention and LayerNorm, chunked CE) at the same params, just before the step: its
+    loss within 1e-3 relative and each projector gradient leaf at cosine >= 0.999; then a 3-beam
+    decode of HD_NEW_TOKENS tokens (``generate/decode.py:generate``: K1's prefill, K3 at
+    head dim 1024) and the prefill logits and HD_NEW_TOKENS teacher-forced 3-beam steps
+    of both paths held by ``hold_logits``. The counts of the kernels each path
+    launched."""
+    import torch
+    import torch.nn.functional as F
+
+    from projectiontrainer_tpu_torch.cli import infer_vqa_stage2 as vqa
+    from projectiontrainer_tpu_torch.core.pytree import leaves_with_paths
+    from projectiontrainer_tpu_torch.generate import decode as D
+    from projectiontrainer_tpu_torch.train import masks, optim, steps
+
+    cfg, params = head_dim_1024_model()
+    plain = plain_config(cfg)
+    batches = [{k: torch.tensor(np.stack([r[k] for r in rows]), device=DEVICE)
+                for k in rows[0]}
+               for rows in ([CaptionDataset(2, SEED + 30 + i, size=cfg.vision.image_size,
+                                            vocab=cfg.llm.vocab_size)[j] for j in range(2)]
+                            for i in range(HD_STEPS))]
+    labels = masks.stage1_labels(params)
+    tx, _ = optim.single_group_optimizer(labels, 1e-4, total_steps=HD_STEPS)
+    step = steps.make_train_step(
+        steps.stage1_loss(cfg, 0, logits_chunk=128, ce_impl="auto", compute_dtype=torch.bfloat16),
+        tx, trainable_mask=masks.bool_mask(labels), watch_subtree="projector")
+    plain_loss = steps.stage1_loss(plain, 0, logits_chunk=128, ce_impl="chunked",
+                                   compute_dtype=torch.bfloat16)
+    state = steps.init_state(params, tx)
+    train_launches = {n: 0 for n in kernel_counters}
+    plain_launches = dict(train_launches)
+
+    def counted(fn, into):
+        for counter in kernel_counters.values():
+            counter.reset()
+        out = fn()
+        torch.cuda.synchronize()
+        for n, k in kernel_counters.items():
+            into[n] += k.value
+        return out
+
+    def plain_grads(batch):
+        leaves = dict(leaves_with_paths(params["projector"]))
+        for x in leaves.values():
+            x.requires_grad_(True)
+        loss, _ = plain_loss(params, batch)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return float(loss.detach()), dict(zip(leaves, grads))
+
+    t0 = time.perf_counter()
+    rows = []
+    for i, batch in enumerate(batches):
+        loss_p, grads_p = counted(lambda: plain_grads(batch), plain_launches)
+        state, loss_k, aux = counted(lambda: step(state, batch), train_launches)
+        loss_k, grads_k = float(loss_k), aux["watched_grads"]
+        cos = {p: float(F.cosine_similarity(grads_k[p].flatten().float(),
+                                            grads_p[p].flatten().float(), dim=0))
+               for p in grads_p}
+        rows.append({"step": i, "loss_kernel": loss_k, "loss_plain": loss_p,
+                     "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p),
+                     "min_grad_cosine": min(cos.values())})
+    train_s = time.perf_counter() - t0
+    wanted = ("flash_attn_fwd", "flash_attn_bwd_dkv", "flash_attn_bwd_dq", "fused_ce_fwd",
+              "fused_ce_bwd")
+    if not all(train_launches[n] for n in wanted) or any(plain_launches.values()):
+        raise AssertionError(f"head dim 1024 train: kernel path {train_launches}, "
+                             f"plain {plain_launches}")
+    for r in rows:
+        if not (np.isfinite(r["loss_kernel"]) and r["loss_rel_diff"] <= LOSS_REL
+                and r["min_grad_cosine"] >= COS_MIN):
+            raise AssertionError(f"head dim 1024 train: step {r}")
+
+    rng = np.random.default_rng(SEED + 33)
+    size, nb = cfg.vision.image_size, 3
+    pixels = np.clip(rng.standard_normal((2, size, size, 3), dtype=np.float32), -1, 1)
+    q_tok = [rng.integers(2, cfg.llm.vocab_size, size=int(n)).tolist() for n in (40, 90)]
+    teacher = torch.tensor(rng.integers(2, cfg.llm.vocab_size, size=(HD_NEW_TOKENS, 2 * nb)),
+                           device=DEVICE)
+
+    def prefix(c):
+        return vqa.build_prefix(pixels, q_tok, c, params, StubTokenizer(), max_q_len=128)
+
+    for counter in kernel_counters.values():
+        counter.reset()
+    with torch.no_grad():
+        embeds, mask = prefix(cfg)
+        tokens = D.generate(params["llm"], cfg.llm, embeds, mask,
+                            D.GenerationConfig(max_new_tokens=HD_NEW_TOKENS, num_beams=nb,
+                                               eos_token_id=1, pad_token_id=0))
+    torch.cuda.synchronize()
+    decode_launches = {n: k.value for n, k in kernel_counters.items()}
+    if not (decode_launches["flash_attn_fwd"] and decode_launches["decode_attn"]):
+        raise AssertionError(f"head dim 1024 decode: kernels {decode_launches}")
+    if tokens.shape != (2, HD_NEW_TOKENS):
+        raise AssertionError(f"head dim 1024 decode: tokens of shape {tuple(tokens.shape)}")
+    logits = hold_logits("head dim 1024 decode", teacher_forced(cfg, params, prefix, nb, teacher),
+                         teacher_forced(plain, params, prefix, nb, teacher))
+    emit({"phase": "6b", "config": "Gemma3-1B widths at head dim 1024, 2 layers (tower 2 of "
+          "24)", "train_steps": rows, "train_s": train_s, "launches_train": train_launches,
+          "launches_decode": decode_launches, "decode_logits": logits})
+    del params
+    return {"head_dim_1024_train": train_launches, "head_dim_1024_decode": decode_launches}
 
 
 # ---------------------------------------------------------------------------- phase 7
@@ -5487,8 +5652,8 @@ def phase_fsdp():
 # ---------------------------------------------------------------------------- phase 23
 
 TT_RANKS = 2               # the model axis of phase 23
-TT_STAGE0_LAYERS = 27      # (a): so400m's layers a tower, all of them
-TT_CLS_LAYERS = 24         # (c): ViT-L's layers, all of them
+TT_STAGE0_LAYERS = 14      # (a): so400m's layers a tower, 14 of 27 (the script's time)
+TT_CLS_LAYERS = 12         # (c): ViT-L's layers, 12 of 24 (the script's time)
 TT_STAGE0_BATCH = 16       # a replica's rows, at 512 px (phase 7's batch)
 TT_STAGE0_STEPS = 3       # (run time; the script's 1200 s)
 TT_FSDP_BATCH = 8          # (b): a data rank's rows
@@ -6542,6 +6707,9 @@ def main() -> int:
     del cfg, params
     gc.collect()
     torch.cuda.empty_cache()
+    head_dim_1024 = phase_head_dim_1024(kernel_counters)
+    gc_cuda()
+    mark("6b head dim 1024")
 
     cfg, params = stage0_model()
     stage0_launches, stage0_stats = phase_stage0_train(cfg, params, kernel_counters)
@@ -6593,7 +6761,7 @@ def main() -> int:
     mark("14-15 cls")
 
     cfg, params = llama_vlm()
-    slice_launches = {"serve_24_beams": wide_beams,
+    slice_launches = {**head_dim_1024, "serve_24_beams": wide_beams,
                       "caption_llama": phase_caption(cfg, params, kernel_counters),
                       "generation_eval": phase_generation_eval(cfg, params, kernel_counters)}
     del cfg, params

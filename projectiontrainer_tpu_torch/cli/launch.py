@@ -20,6 +20,11 @@ per host that owns the host's chips; the port runs one process per GPU, joined b
 
        projectiontrainer-torch-launch --simulate 2 stage1 -- --train_json ...
 
+   ``--devices_per_host M`` beside it starts N x M ranks: the JAX launcher's M XLA CPU
+   devices on each of N simulated hosts, as the port's one process a device (each
+   simulated host's M ranks share its ``LOCAL_WORLD_SIZE``). Without ``--simulate`` it
+   raises: the JAX launcher reads it in simulation only.
+
 ``--backend`` (nccl or gloo) is printed at start-up and never switched silently. NCCL
 refuses two ranks on one GPU, so more ranks than GPUs needs an explicit ``--backend
 gloo``, which then carries the CUDA tensors through host memory. ``--timeout`` bounds
@@ -129,9 +134,11 @@ def _wait(procs) -> int:
 
 
 def _spawn(args, stage, stage_argv, *, nproc: int, node: int, nodes: int, master: str,
-           backend: str) -> int:
+           backend: str, per_host: int | None = None) -> int:
     """Start ranks ``node * nproc ... + nproc - 1`` of a world of ``nodes * nproc``, wait
-    for them, print their logs; returns the exit code."""
+    for them, print their logs; returns the exit code. ``per_host``: the ranks of one
+    simulated host (``LOCAL_WORLD_SIZE``; default all ``nproc``)."""
+    per_host = per_host or nproc
     logdir = args.log_dir or tempfile.mkdtemp(prefix="ptt_launch_")
     os.makedirs(logdir, exist_ok=True)
     addr, _, port = master.rpartition(":")
@@ -143,7 +150,7 @@ def _spawn(args, stage, stage_argv, *, nproc: int, node: int, nodes: int, master
     pkg_root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     env["PYTHONPATH"] = pkg_root + os.pathsep + env.get("PYTHONPATH", "")
     env.update(MASTER_ADDR=addr, MASTER_PORT=port, WORLD_SIZE=str(world),
-               LOCAL_WORLD_SIZE=str(nproc), PTT_DIST_BACKEND=backend)
+               LOCAL_WORLD_SIZE=str(per_host), PTT_DIST_BACKEND=backend)
     if args.timeout:
         env["PTT_DIST_TIMEOUT_S"] = str(args.timeout)
     if nodes == 1:  # the master is this host: keep the bootstrap sockets on the loopback
@@ -164,7 +171,7 @@ def _spawn(args, stage, stage_argv, *, nproc: int, node: int, nodes: int, master
             procs.append(subprocess.Popen(
                 [sys.executable, "-m", "projectiontrainer_tpu_torch.cli.launch", *head, "--",
                  *stage_argv],
-                env={**env, "RANK": str(rank), "LOCAL_RANK": str(local)},
+                env={**env, "RANK": str(rank), "LOCAL_RANK": str(local % per_host)},
                 stdout=files[-1], stderr=subprocess.STDOUT))
         rc = _wait(procs)
     finally:
@@ -215,6 +222,9 @@ def main(argv=None) -> None:
                         help="this node's index in [0, num_processes)")
     parser.add_argument("--simulate", type=int, default=0, metavar="N",
                         help="N CPU processes over gloo on this machine (dry run, no GPU)")
+    parser.add_argument("--devices_per_host", type=int, default=None, metavar="M",
+                        help="with --simulate N: M CPU ranks on each of the N simulated "
+                             "hosts (N x M ranks in all)")
     parser.add_argument("--backend", choices=("nccl", "gloo"), default=None,
                         help="the process group's backend (default: nccl; gloo under "
                              "--simulate)")
@@ -237,6 +247,8 @@ def main(argv=None) -> None:
         _run_rank(stage, args.entry, stage_argv)
         return
 
+    if args.devices_per_host is not None and (not args.simulate or args.devices_per_host < 1):
+        parser.error("--devices_per_host M takes --simulate N (N x M CPU ranks) and M >= 1")
     if args.simulate:
         if args.backend == "nccl" or args.coordinator or args.num_processes != 1:
             parser.error("--simulate runs one node of CPU processes over gloo")
@@ -244,7 +256,8 @@ def main(argv=None) -> None:
             parser.error("--simulate runs the stage on the CPU (--device cpu)")
         if "--device" not in stage_argv:
             stage_argv = stage_argv + ["--device", "cpu"]
-        nproc, backend, master = args.simulate, "gloo", f"127.0.0.1:{_free_port()}"
+        nproc = args.simulate * (args.devices_per_host or 1)
+        backend, master = "gloo", f"127.0.0.1:{_free_port()}"
     else:
         import torch
 
@@ -257,12 +270,14 @@ def main(argv=None) -> None:
         if args.num_processes > 1 and not args.coordinator:
             parser.error("several nodes need --coordinator host:port (node 0's)")
         master = args.coordinator or f"127.0.0.1:{_free_port()}"
-    stage_argv = _inject_feeder(stage_argv, args.feeder_procs, nproc)
+    per_host = args.devices_per_host if args.simulate else None
+    stage_argv = _inject_feeder(stage_argv, args.feeder_procs, per_host or nproc)
     # a SIGTERM to the launcher stops the ranks too (_spawn's finally)
     previous = signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
     try:
         rc = _spawn(args, stage, stage_argv, nproc=nproc, node=args.process_id,
-                    nodes=args.num_processes, master=master, backend=backend)
+                    nodes=args.num_processes, master=master, backend=backend,
+                    per_host=per_host)
     finally:
         signal.signal(signal.SIGTERM, previous)
     if rc:

@@ -40,6 +40,19 @@
 // normalise before the combine). P and G may be any length: the kernel masks its own
 // edges, so the caches need no padding.
 //
+// Head dims above 512 ("wide": any multiple of 256; the wrapper zero-pads the others): the
+// same kernel over column blocks of DC = 256. A CTA owns one block of O's columns of its
+// split's rows: grid z gains the D / 256 blocks, and each (batch, KV head, row group,
+// column block) is a unit of its own, with its own partials, counter and combine. Every
+// block computes the split's scores over the whole D again, K's row chunk by chunk (256
+// columns at a time, accumulated in fp32 in sS), so every block finds the same (m, l) of
+// a split, bit for bit, and its combine weighs its own partials as the other blocks
+// weigh theirs; it reads V and writes O only in its block. The q rows are held in fp32
+// at the full width, so the rows a CTA holds are what 227 KB leave beside them
+// (ops/decode_attention.py:max_rows: 16 at 1024). The chunks are copied one at a time,
+// not ahead of their use: no model of the repository has such a head dim, and the kernel
+// is here to match the JAX package, which runs XLA's decode attention there.
+//
 // Measured (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py phase 2 and
 // kernels/check_decode_attn.py --time, device ms; the kernel it replaced, one CTA a
 // (batch, KV head), / the plain version / the library call beside it): batch 8, 3 beams,
@@ -69,10 +82,15 @@ constexpr float NEG_INF = -2.3819763e38f;
 template <int D>
 constexpr int MAX_M = D > 256 ? 16 : 64;
 
+constexpr int DC = 256;  // O's columns a CTA above 512 (a column block)
+constexpr size_t SMEM_LIMIT = 232448;
+
+// W: the rows' width (D, or the whole head dim above 512, where D is a column block)
 template <int D>
-size_t smem_bytes(int M) {
+size_t smem_bytes(int M, int W = D) {
   return (size_t)2 * TK * D * 2 * 2  // sK, sV bf16 [2][TK][D]: two tiles in flight
-         + (size_t)M * D * 4 * 2     // sQ, sO fp32 [M][D]
+         + (size_t)M * W * 4         // sQ fp32 [M][W]
+         + (size_t)M * D * 4         // sO fp32 [M][D]
          + (size_t)M * TK * 4        // sS fp32 [M][TK]: scores, then probabilities
          + (size_t)M * 4 * 3;        // sM, sL, sCorr fp32 [M]
 }
@@ -80,8 +98,8 @@ size_t smem_bytes(int M) {
 struct Shared {
   bf16* k;  // [2][TK][D]
   bf16* v;
-  float* q;
-  float* o;
+  float* q;  // [M][W]
+  float* o;  // [M][D]
   float* s;
   float* m;
   float* l;
@@ -103,23 +121,27 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// start copying n <= TK key and value rows (row r at base + r * D) into a tile buffer
+// start copying n <= TK columns c0 .. c0 + D - 1 of key rows (row r at kbase + r * W) and
+// of value rows into a tile buffer each (sv null: the keys alone)
 template <int D>
 __device__ __forceinline__ void load_tile(bf16* sk, bf16* sv, const bf16* kbase,
-                                          const bf16* vbase, int n) {
+                                          const bf16* vbase, int n, int W = D) {
   for (int i = threadIdx.x; i < n * (D / 8); i += THREADS) {
     const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-    cp_async_16(sk + r * D + c, kbase + (long long)r * D + c);
-    cp_async_16(sv + r * D + c, vbase + (long long)r * D + c);
+    if (sk) cp_async_16(sk + r * D + c, kbase + (long long)r * W + c);
+    if (sv) cp_async_16(sv + r * D + c, vbase + (long long)r * W + c);
   }
   cp_async_commit();
 }
 
-// One tile of n <= TK keys in shared memory against the nr query rows of the split.
-// key_valid(j) says whether tile key j (0-based inside the tile) is attended.
+// The scores of a tile of n <= TK keys against the nr query rows of the split, over the
+// columns c0 .. c0 + D - 1 of the rows (sk: those columns of the keys; the q rows of
+// width W in sQ), into sS: the first chunk of a row writes, later ones add, the last
+// scales. key_valid(j) says whether tile key j (0-based inside the tile) is attended.
 template <int D, typename KeyValid>
-__device__ void attend_tile(const Shared& sh, const bf16* sk, const bf16* sv, int n, int nr,
-                            float scale, KeyValid key_valid) {
+__device__ void tile_scores(const Shared& sh, const bf16* sk, int n, int nr, float scale,
+                            KeyValid key_valid, int W = D, int c0 = 0, bool first = true,
+                            bool last = true) {
   constexpr int E = D / 32;  // elements of a key row per lane
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
@@ -127,7 +149,8 @@ __device__ void attend_tile(const Shared& sh, const bf16* sk, const bf16* sv, in
   // four rows at a time, interleaved
   for (int kk = warp; kk < TK; kk += WARPS) {
     if (!(kk < n && key_valid(kk))) {  // the same for the whole warp
-      for (int r = lane; r < nr; r += 32) sh.s[r * TK + kk] = NEG_INF;
+      if (last)
+        for (int r = lane; r < nr; r += 32) sh.s[r * TK + kk] = NEG_INF;
       continue;
     }
     float kr[E];
@@ -137,7 +160,8 @@ __device__ void attend_tile(const Shared& sh, const bf16* sk, const bf16* sv, in
       float part[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float* qr = sh.q + min(r0 + j, nr - 1) * D + lane * E;  // past nr: not stored
+        // past nr: not stored
+        const float* qr = sh.q + min(r0 + j, nr - 1) * W + c0 + lane * E;
         part[j] = 0.f;
 #pragma unroll
         for (int e = 0; e < E; ++e) part[j] += qr[e] * kr[e];
@@ -150,11 +174,21 @@ __device__ void attend_tile(const Shared& sh, const bf16* sk, const bf16* sv, in
       if (lane == 0) {
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          if (r0 + j < nr) sh.s[(r0 + j) * TK + kk] = part[j] * scale;
+          if (r0 + j < nr) {
+            float* s = sh.s + (r0 + j) * TK + kk;
+            const float v = first ? part[j] : *s + part[j];
+            *s = last ? v * scale : v;
+          }
       }
     }
   }
-  __syncthreads();
+}
+
+// The online softmax of the tile's scores in sS, then O = O * corr + P V (sv: the tile's
+// value rows, D columns)
+template <int D>
+__device__ void softmax_pv(const Shared& sh, const bf16* sv, int n, int nr) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   // online softmax: warp per row, lane per key
   for (int r = warp; r < nr; r += WARPS) {
@@ -207,6 +241,16 @@ __device__ void attend_tile(const Shared& sh, const bf16* sk, const bf16* sv, in
   }
 }
 
+// One tile of n <= TK keys in shared memory (D columns) against the nr query rows of the
+// split. key_valid(j) says whether tile key j (0-based inside the tile) is attended.
+template <int D, typename KeyValid>
+__device__ void attend_tile(const Shared& sh, const bf16* sk, const bf16* sv, int n, int nr,
+                            float scale, KeyValid key_valid) {
+  tile_scores<D>(sh, sk, n, nr, scale, key_valid);
+  __syncthreads();
+  softmax_pv<D>(sh, sv, n, nr);
+}
+
 // the u-th split that holds keys of a row of `beam`: every prefix split, then the beam's
 // own generated ones, in split order
 __device__ __forceinline__ int covering_split(int u, int beam, int p_splits, int g_splits) {
@@ -214,8 +258,10 @@ __device__ __forceinline__ int covering_split(int u, int beam, int p_splits, int
 }
 
 // GROUPED: the rows of a (batch, KV head) are cut into row groups; without it the
-// group is the whole (batch, KV head), and the indices below fold to constants
-template <int D, bool GROUPED>
+// group is the whole (batch, KV head), and the indices below fold to constants. WIDE: the
+// rows are W wide (a multiple of D = DC above 512) and a CTA owns the column block
+// blockIdx.z % (W / D) of O; without it W = D.
+template <int D, bool GROUPED, bool WIDE>
 __global__ void __launch_bounds__(THREADS)
 decode_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
                    const bf16* __restrict__ vp, const bf16* __restrict__ kg,
@@ -223,13 +269,15 @@ decode_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
                    bf16* __restrict__ out, float* __restrict__ o_part, float* __restrict__ ml_part,
                    int* __restrict__ counter, int nb, int Hkv, int n_rep, int P, int G,
                    int p_begin, int p_splits, int g_begin, int g_end, int g_splits, int chunk,
-                   int groups, int bpg, int rpg, float scale) {
+                   int groups, int bpg, int rpg, float scale, int W_) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int is_last;
-  const int split = blockIdx.x, h = blockIdx.y, b = GROUPED ? blockIdx.z / groups : blockIdx.z;
+  const int W = WIDE ? W_ : D, ncb = WIDE ? W_ / D : 1;
+  const int cb = WIDE ? blockIdx.z % ncb : 0, z = WIDE ? blockIdx.z / ncb : blockIdx.z;
+  const int split = blockIdx.x, h = blockIdx.y, b = GROUPED ? z / groups : z;
   // this CTA's row group: beams [beam0, beam0 + nbu) x reps [rep0, rep0 + nru) of its
   // (batch, KV head); its rows r = local beam * nru + local rep
-  const int grp = GROUPED ? blockIdx.z % groups : 0;
+  const int grp = GROUPED ? z % groups : 0;
   const int n_rg = GROUPED ? (n_rep + rpg - 1) / rpg : 1;
   const int beam0 = GROUPED ? grp / n_rg * bpg : 0, nbu = GROUPED ? min(bpg, nb - beam0) : nb;
   const int rep0 = GROUPED ? grp % n_rg * rpg : 0, nru = GROUPED ? min(rpg, n_rep - rep0) : n_rep;
@@ -240,7 +288,7 @@ decode_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
   sh.k = reinterpret_cast<bf16*>(smem);
   sh.v = sh.k + 2 * TK * D;
   sh.q = reinterpret_cast<float*>(sh.v + 2 * TK * D);
-  sh.o = sh.q + M * D;
+  sh.o = sh.q + M * W;
   sh.s = sh.o + M * D;
   sh.m = sh.s + M * TK;
   sh.l = sh.m + M;
@@ -248,7 +296,8 @@ decode_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
 
   const int Hq = Hkv * n_rep;
   const int bh = b * Hkv + h;
-  const int unit = GROUPED ? bh * groups + grp : bh;  // the group's counter and scratch
+  // the group's (and column block's) counter and scratch
+  const int unit = (GROUPED ? bh * groups + grp : bh) * ncb + cb;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   // this split's keys [k_begin, k_end) and query rows [row0, row0 + nr)
@@ -260,8 +309,8 @@ decode_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
     nr = M;
     k_begin = p_begin + split * chunk;
     k_end = min(P, k_begin + chunk);
-    kbase = kp + (long long)bh * P * D;
-    vbase = vp + (long long)bh * P * D;
+    kbase = kp + (long long)bh * P * W;
+    vbase = vp + (long long)bh * P * W;
   } else {
     const int gs = split - p_splits, beam = gs / g_splits;  // the group's local beam
     row0 = beam * nru;
@@ -269,29 +318,54 @@ decode_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
     k_begin = g_begin + (gs % g_splits) * chunk;
     k_end = min(g_end, k_begin + chunk);
     const long long row = (long long)(b * nb + beam0 + beam) * Hkv + h;
-    kbase = kg + row * G * D;
-    vbase = vg + row * G * D;
+    kbase = kg + row * G * W;
+    vbase = vg + row * G * W;
   }
   const int* pm = prefix_mask + (long long)b * P;
   const int n_tiles = (k_end - k_begin + TK - 1) / TK;
-  if (n_tiles > 0)
+  if (!WIDE && n_tiles > 0)
     load_tile<D>(sh.k, sh.v, kbase + (long long)k_begin * D, vbase + (long long)k_begin * D,
                  min(TK, k_end - k_begin));
 
   // query rows r = local beam * nru + local rep: row (b * nb + beam0 + beam) of q, head
   // h * n_rep + rep0 + rep
-  for (int i = threadIdx.x; i < nr * D; i += THREADS) {
-    const int r = row0 + i / D, d = i % D;
+  for (int i = threadIdx.x; i < nr * W; i += THREADS) {
+    const int r = row0 + i / W, d = i % W;
     const int beam = beam0 + r / nru, rep = rep0 + r % nru;
-    sh.q[i] = __bfloat162float(q[((long long)(b * nb + beam) * Hq + h * n_rep + rep) * D + d]);
-    sh.o[i] = 0.f;
+    sh.q[i] = __bfloat162float(q[((long long)(b * nb + beam) * Hq + h * n_rep + rep) * W + d]);
   }
+  for (int i = threadIdx.x; i < nr * D; i += THREADS) sh.o[i] = 0.f;
   for (int r = threadIdx.x; r < nr; r += THREADS) {
     sh.m[r] = NEG_INF;
     sh.l[r] = 0.f;
   }
 
-  for (int it = 0; it < n_tiles; ++it) {
+  // above 512: a tile's scores chunk by chunk of D columns, then the tile's V block; one
+  // copy at a time (a chunk in flight while the one before it is computed took 0.580
+  // against 0.584 ms at 8 x 3 beams, P = 831, D = 1024: the scores' arithmetic, done
+  // again by every column block, bounds it, not the copies)
+  for (int it = 0; WIDE && it < n_tiles; ++it) {
+    const int j0 = k_begin + it * TK, n = min(TK, k_end - j0);
+    for (int c = 0; c < ncb; ++c) {
+      __syncthreads();  // the buffer's last reads (and, at the first, the query rows' writes)
+      load_tile<D>(sh.k, nullptr, kbase + (long long)j0 * W + c * D, nullptr, n, W);
+      cp_async_wait<0>();
+      __syncthreads();
+      if (in_prefix)
+        tile_scores<D>(sh, sh.k, n, nr, scale, [&](int kk) { return pm[j0 + kk] != 0; }, W,
+                       c * D, c == 0, c == ncb - 1);
+      else
+        tile_scores<D>(sh, sh.k, n, nr, scale, [](int) { return true; }, W, c * D, c == 0,
+                       c == ncb - 1);
+    }
+    load_tile<D>(nullptr, sh.v, nullptr, vbase + (long long)j0 * W + cb * D, n, W);
+    cp_async_wait<0>();
+    __syncthreads();  // the tile's scores and values in place for all
+    softmax_pv<D>(sh, sh.v, n, nr);
+  }
+  if (WIDE) __syncthreads();
+
+  for (int it = 0; !WIDE && it < n_tiles; ++it) {
     const int j0 = k_begin + it * TK, n = min(TK, k_end - j0);
     const int buf = it & 1;
     if (it + 1 < n_tiles) {  // the next tile into the other buffer, then wait for this one
@@ -389,43 +463,45 @@ decode_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
   for (int i = threadIdx.x; i < M * D; i += THREADS) {
     const int r = i / D, d = i % D;
     const int beam = beam0 + r / nru, rep = rep0 + r % nru;
-    out[((long long)(b * nb + beam) * Hq + h * n_rep + rep) * D + d] =
+    out[((long long)(b * nb + beam) * Hq + h * n_rep + rep) * W + cb * D + d] =
         __float2bfloat16(sh.o[i] / sh.l[r]);
   }
   if (threadIdx.x == 0) counter[unit] = 0;  // ready for the next launch
 }
 
-template <int D, bool GROUPED>
+// W: the rows' width (D, or a multiple of D = DC above 512: WIDE)
+template <int D, bool GROUPED, bool WIDE>
 cudaError_t launch(const void* q, const void* kp, const void* vp, const void* kg,
                    const void* vg, const void* prefix_mask, void* out, void* o_part,
                    void* ml_part, void* counter, int B, int nb, int Hkv, int n_rep, int P, int G,
                    int p_begin, int p_splits, int g_begin, int g_end, int g_splits, int chunk,
-                   int groups, int bpg, int rpg, float scale, cudaStream_t stream) {
+                   int groups, int bpg, int rpg, float scale, int W, cudaStream_t stream) {
+  const size_t bytes = smem_bytes<D>(bpg * rpg, W);
   if (chunk <= 0 || chunk % TK || g_splits <= 0 || p_splits < 0 || bpg < 1 || rpg < 1 ||
-      bpg * rpg > MAX_M<D> || (rpg < n_rep && bpg != 1) || rpg > n_rep ||
-      groups != (nb + bpg - 1) / bpg * ((n_rep + rpg - 1) / rpg))
+      (WIDE ? bytes > SMEM_LIMIT : bpg * rpg > MAX_M<D>) || (rpg < n_rep && bpg != 1) ||
+      rpg > n_rep || groups != (nb + bpg - 1) / bpg * ((n_rep + rpg - 1) / rpg))
     return cudaErrorInvalidValue;  // not a plan of ops/decode_attention.py:decode_plan
-  const size_t bytes = smem_bytes<D>(bpg * rpg);
-  cudaError_t err = cudaFuncSetAttribute(decode_attn_kernel<D, GROUPED>,
+  cudaError_t err = cudaFuncSetAttribute(decode_attn_kernel<D, GROUPED, WIDE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);
   if (err != cudaSuccess) return err;
-  dim3 grid(p_splits + bpg * g_splits, Hkv, B * groups);
-  decode_attn_kernel<D, GROUPED><<<grid, THREADS, bytes, stream>>>(
+  dim3 grid(p_splits + bpg * g_splits, Hkv, B * groups * (W / D));
+  decode_attn_kernel<D, GROUPED, WIDE><<<grid, THREADS, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(kp), static_cast<const bf16*>(vp),
       static_cast<const bf16*>(kg), static_cast<const bf16*>(vg),
       static_cast<const int*>(prefix_mask), static_cast<bf16*>(out),
       static_cast<float*>(o_part), static_cast<float*>(ml_part), static_cast<int*>(counter), nb,
       Hkv, n_rep, P, G, p_begin, p_splits, g_begin, g_end, g_splits, chunk, groups, bpg, rpg,
-      scale);
+      scale, W);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// o_part, ml_part: fp32 scratch of B * Hkv * groups * (p_splits + bpg * g_splits) * bpg
-// * rpg * D and * 2 floats; counter: B * Hkv * groups ints, 0 before the launch and 0
-// after it; p_begin .. rpg: the plan of ops/decode_attention.py:decode_plan
+// o_part, ml_part: fp32 scratch of B * Hkv * groups * ncb * (p_splits + bpg * g_splits) *
+// bpg * rpg * min(D, 256) and * 2 floats; counter: B * Hkv * groups * ncb ints, 0 before
+// the launch and 0 after it (ncb = D / 256 column blocks above 512, else 1); p_begin ..
+// rpg: the plan of ops/decode_attention.py:decode_plan
 extern "C" int decode_attn_bf16(const void* q, const void* kp, const void* vp,
                                 const void* kg, const void* vg, const void* prefix_mask,
                                 void* out, void* o_part, void* ml_part, void* counter, int B,
@@ -433,18 +509,24 @@ extern "C" int decode_attn_bf16(const void* q, const void* kp, const void* vp,
                                 int p_splits, int g_begin, int g_end, int g_splits, int chunk,
                                 int groups, int bpg, int rpg, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define DECODE_ATTN_ARGS                                                                      \
+  q, kp, vp, kg, vg, prefix_mask, out, o_part, ml_part, counter, B, nb, Hkv, n_rep, P, G,     \
+      p_begin, p_splits, g_begin, g_end, g_splits, chunk, groups, bpg, rpg, scale, D, s
 #define DECODE_ATTN_CASE(W)                                                                   \
   case W:                                                                                     \
-    return (int)(groups > 1 ? launch<W, true> : launch<W, false>)(                            \
-        q, kp, vp, kg, vg, prefix_mask, out, o_part, ml_part, counter, B, nb, Hkv, n_rep, P,  \
-        G, p_begin, p_splits, g_begin, g_end, g_splits, chunk, groups, bpg, rpg, scale, s);
+    return (int)(groups > 1 ? launch<W, true, false> : launch<W, false, false>)(              \
+        DECODE_ATTN_ARGS);
   switch (D) {
     DECODE_ATTN_CASE(64)
     DECODE_ATTN_CASE(128)
     DECODE_ATTN_CASE(256)
     DECODE_ATTN_CASE(512)
     default:
+      if (D > 512 && D % DC == 0)
+        return (int)(groups > 1 ? launch<DC, true, true> : launch<DC, false, true>)(
+            DECODE_ATTN_ARGS);
       return (int)cudaErrorInvalidValue;
   }
 #undef DECODE_ATTN_CASE
+#undef DECODE_ATTN_ARGS
 }

@@ -52,6 +52,21 @@
 //   reading all the partials. A grid of one CTA writes its sums directly.
 // Every mbarrier wait and the grid barrier trap after ~2 s, so a fault is a CUDA error
 // and not a hang.
+//
+// Rows too wide for one ring row of x and dy beside the fp32 scale (D above 19,368 in
+// bf16; ops/fused_layernorm.py:bwd_plan says "streamed"): a kernel of its own,
+// layernorm_bwd_streamed_kernel, streams each row from device memory in column chunks of
+// STREAM_THREADS vectors, the whole CTA on STREAM_ROWS rows at a time. Pass 1 takes a
+// row's mean; pass 2 its centred sum of squares, sum(g) and sum(g * (x - mean)) (three
+// block reductions: warp shuffles, then the warps' sums in warp order); pass 3 writes the
+// rows' dx and adds their dy * xhat and dy, in row order, into the CTA's partial column
+// sums in device memory, each column vector by the one thread that owns it, once for the
+// STREAM_ROWS rows (one row at a time, that read-modify-write moved 16 bytes an element
+// and took 1.00 ms at [2048, 20480] on an NVIDIA H100 80GB HBM3 at 700 W). x is read three
+// times and dy twice, mostly from L2.
+// Rows that are not 16-byte multiples or do not start on 16 bytes are read element by
+// element. The grid barrier and a combine in CTA order follow, as above (each column of
+// the combine summed by one thread): deterministic, no atomics.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -523,6 +538,178 @@ layernorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   }
 }
 
+// ------------------------------------------------------------------ streamed rows
+
+constexpr int STREAM_THREADS = 512;
+constexpr int STREAM_WARPS = STREAM_THREADS / 32;
+constexpr int STREAM_ROWS = 8;  // rows whose column sums are added to the partials at once
+
+// the sums of v[0..N) over the CTA, in every thread: warp shuffles, then the warps' sums
+// in warp order (the same bits at every launch)
+template <int N>
+__device__ __forceinline__ void block_sums(float (&v)[N], float* red) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int i = 0; i < N; ++i) v[i] = warp_sum(v[i]);
+  __syncthreads();  // the previous reduction's reads of red
+  if (lane == 0)
+#pragma unroll
+    for (int i = 0; i < N; ++i) red[i * STREAM_WARPS + warp] = v[i];
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    float acc = 0.f;
+    for (int w = 0; w < STREAM_WARPS; ++w) acc += red[i * STREAM_WARPS + w];
+    v[i] = acc;
+  }
+}
+
+__device__ __forceinline__ float load_scale(const void* scale, int i, int scale_f32) {
+  return scale_f32 ? static_cast<const float*>(scale)[i]
+                   : __bfloat162float(static_cast<const bf16*>(scale)[i]);
+}
+
+// VEC: elements a thread reads at once (16 bytes; 1 for rows a vector load cannot take)
+template <typename T, int VEC>
+__global__ void __launch_bounds__(STREAM_THREADS, 1)
+layernorm_bwd_streamed_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                              const void* __restrict__ scale, T* __restrict__ dx,
+                              float* __restrict__ part, float* __restrict__ sums,
+                              unsigned int* __restrict__ counter, int n, int d,
+                              long long x_stride, long long dy_stride, int scale_f32, float eps) {
+  __shared__ float red[3 * STREAM_WARPS];
+  __shared__ float4 row_stats[STREAM_ROWS];  // mean, rstd, mean(g), mean(g * xhat)
+  const int dp = slot_width(d);
+  const int C = gridDim.x, c = blockIdx.x;
+  const int q = n / C, extra = n % C;
+  const int row0 = c * q + min(c, extra), band = q + (c < extra ? 1 : 0);
+  const float inv_d = 1.f / d;
+  const int nv = d / VEC;  // VEC divides d (the host sends the rest to VEC = 1)
+  // this CTA's partial rows (the sums themselves for a grid of one CTA); the slot's pad
+  // columns 0
+  float* ps = C == 1 ? sums : part + (size_t)c * 2 * dp;
+  for (int i = d + threadIdx.x; i < dp; i += STREAM_THREADS) ps[i] = ps[dp + i] = 0.f;
+
+  auto load = [&](const T* p, int v, float* f) {
+    if constexpr (VEC == 1) f[0] = static_cast<float>(p[v]);
+    else Vec<T>::load(p + v * VEC, f);
+  };
+  for (int i0 = 0; i0 < band; i0 += STREAM_ROWS) {
+    const int nr = min(STREAM_ROWS, band - i0);
+    // passes 1 and 2, row by row: the rows' statistics
+    for (int r = 0; r < nr; ++r) {
+      const T* xr = x + (row0 + i0 + r) * x_stride;
+      const T* gr = dy + (row0 + i0 + r) * dy_stride;
+      float m[1] = {0.f};
+      for (int v = threadIdx.x; v < nv; v += STREAM_THREADS) {
+        float f[VEC];
+        load(xr, v, f);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) m[0] += f[e];
+      }
+      block_sums(m, red);
+      const float mean = m[0] * inv_d;
+      float st[3] = {0.f, 0.f, 0.f};  // centred squares, sum(g), sum(g * (x - mean))
+      for (int v = threadIdx.x; v < nv; v += STREAM_THREADS) {
+        float f[VEC], g[VEC];
+        load(xr, v, f);
+        load(gr, v, g);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          const float xc = f[e] - mean, gg = g[e] * load_scale(scale, v * VEC + e, scale_f32);
+          st[0] += xc * xc;
+          st[1] += gg;
+          st[2] += gg * xc;
+        }
+      }
+      block_sums(st, red);
+      const float rstd = rsqrtf(st[0] * inv_d + eps);
+      // mean(g), mean(g * xhat)
+      if (threadIdx.x == 0) row_stats[r] = make_float4(mean, rstd, st[1] * inv_d,
+                                                       rstd * st[2] * inv_d);
+    }
+    __syncthreads();
+    // pass 3: dx of the rows, and their column sums added to the partials once
+    for (int v = threadIdx.x; v < nv; v += STREAM_THREADS) {
+      float as[VEC], ab[VEC], w[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        as[e] = ab[e] = 0.f;
+        w[e] = load_scale(scale, v * VEC + e, scale_f32);
+      }
+      for (int r = 0; r < nr; ++r) {
+        const float4 st = row_stats[r];
+        float f[VEC], g[VEC], o[VEC];
+        load(x + (row0 + i0 + r) * x_stride, v, f);
+        load(dy + (row0 + i0 + r) * dy_stride, v, g);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          const float xhat = (f[e] - st.x) * st.y;
+          o[e] = st.y * (g[e] * w[e] - st.z - xhat * st.w);
+          as[e] += g[e] * xhat;
+          ab[e] += g[e];
+        }
+        T* out = dx + (size_t)(row0 + i0 + r) * d;
+        if constexpr (VEC == 1) out[v] = T(o[0]);
+        else Vec<T>::store(out + v * VEC, o);
+      }
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const int col = v * VEC + e;
+        const float a = i0 ? __ldcg(ps + col) : 0.f, b = i0 ? __ldcg(ps + dp + col) : 0.f;
+        __stcg(ps + col, a + as[e]);
+        __stcg(ps + dp + col, b + ab[e]);
+      }
+    }
+  }
+  if (C == 1) return;
+
+  grid_barrier(counter);
+
+  // combine: CTA c sums columns [c0, c1) of the 2 dp over all C partials in CTA order,
+  // one thread a column, COMBINE_BATCH loads in flight
+  const int width = 2 * dp, cols = (width + C - 1) / C;
+  const int c0 = c * cols, c1 = min(width, c0 + cols);
+  for (int j = c0 + threadIdx.x; j < c1; j += STREAM_THREADS) {
+    float acc = 0.f;
+    for (int p0 = 0; p0 < C; p0 += COMBINE_BATCH) {
+      float v[COMBINE_BATCH];
+#pragma unroll
+      for (int k = 0; k < COMBINE_BATCH; ++k)
+        v[k] = p0 + k < C ? __ldcg(part + (size_t)(p0 + k) * width + j) : 0.f;
+#pragma unroll
+      for (int k = 0; k < COMBINE_BATCH; ++k) acc += v[k];
+    }
+    sums[j] = acc;
+  }
+}
+
+template <typename T>
+cudaError_t launch_streamed(const void* x, const void* dy, const void* scale, void* dx,
+                            void* part, void* sums, void* counter, int n, int d,
+                            long long x_stride, long long dy_stride, int ctas, int scale_f32,
+                            int direct, float eps, cudaStream_t stream) {
+  if (d < 1 || ctas < 1 || ctas > n) return cudaErrorInvalidValue;
+  const T* xp = static_cast<const T*>(x);
+  const T* dyp = static_cast<const T*>(dy);
+  T* dxp = static_cast<T*>(dx);
+  float* partp = static_cast<float*>(part);
+  float* sumsp = static_cast<float*>(sums);
+  unsigned int* counterp = static_cast<unsigned int*>(counter);
+  void* args[] = {(void*)&xp,       (void*)&dyp,      (void*)&scale,     (void*)&dxp,
+                  (void*)&partp,    (void*)&sumsp,    (void*)&counterp,  (void*)&n,
+                  (void*)&d,        (void*)&x_stride, (void*)&dy_stride, (void*)&scale_f32,
+                  (void*)&eps};
+  // 16-byte loads where every row starts on 16 bytes and holds whole vectors
+  const void* kernel = direct || d % Vec<T>::N
+                           ? (const void*)layernorm_bwd_streamed_kernel<T, 1>
+                           : (const void*)layernorm_bwd_streamed_kernel<T, Vec<T>::N>;
+  cudaError_t err = cudaLaunchCooperativeKernel(kernel, dim3(ctas), dim3(STREAM_THREADS), args,
+                                                0, stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 template <typename T, bool ANY>
 cudaError_t launch(const void* x, const void* dy, const void* scale, void* dx, void* part,
                    void* sums, void* counter, int n, int d, long long x_stride,
@@ -564,12 +751,16 @@ cudaError_t launch(const void* x, const void* dy, const void* scale, void* dx, v
 // bf16); dx [n, d] contiguous in x's type; part: fp32 scratch of ctas * 2 * dp (dp = d
 // rounded up to 8); sums: fp32 [2, dp] (dscale, dbias; the pad columns 0); counter: one
 // uint32, 0 before the first launch on a stream and left for the next; rows .. ctas: the
-// plan of ops/fused_layernorm.py:bwd_plan
+// plan of ops/fused_layernorm.py:bwd_plan (stages 0: the streamed kernel)
 extern "C" int layernorm_bwd_bf16(const void* x, const void* dy, const void* scale, void* dx,
                                   void* part, void* sums, void* counter, int n, int d,
                                   long long x_stride, long long dy_stride, int rows, int stages,
                                   int ctas, int scale_f32, int direct, float eps,
                                   void* stream) {
+  if (stages == 0)
+    return (int)launch_streamed<bf16>(x, dy, scale, dx, part, sums, counter, n, d, x_stride,
+                                      dy_stride, ctas, scale_f32, direct, eps,
+                                      static_cast<cudaStream_t>(stream));
   const bool any = direct || d % 8 || d > MAX_D;
   return (int)(any ? launch<bf16, true> : launch<bf16, false>)(
       x, dy, scale, dx, part, sums, counter, n, d, x_stride, dy_stride, rows, stages, ctas,
@@ -581,6 +772,10 @@ extern "C" int layernorm_bwd_f32(const void* x, const void* dy, const void* scal
                                  long long x_stride, long long dy_stride, int rows, int stages,
                                  int ctas, int scale_f32, int direct, float eps,
                                  void* stream) {
+  if (stages == 0)
+    return (int)launch_streamed<float>(x, dy, scale, dx, part, sums, counter, n, d, x_stride,
+                                       dy_stride, ctas, scale_f32, direct, eps,
+                                       static_cast<cudaStream_t>(stream));
   const bool any = direct || d % 8 || d > MAX_D;
   return (int)(any ? launch<float, true> : launch<float, false>)(
       x, dy, scale, dx, part, sums, counter, n, d, x_stride, dy_stride, rows, stages, ctas,

@@ -58,6 +58,12 @@ SIGNATURES = {
     # strides (long long[15]: q, k, v, dout, dq); tensor maps of q, k, v, dout
     # (long long[44]); bq, bk; scale, causal, window; stream
     "flash_attn_bwd_dq_bf16": [_P] * 8 + [_I] * 5 + [_P, _P, _I, _I, _F, _I, _I, _P],
+    # the wide kernels (head dims above 512, csrc/flash_attn_wide.cu): the same pointers as
+    # the three above; B, T, Hq, Hkv, D; strides (long long[]: (b, t, h) of q, k, v, then
+    # out / dout, dk, dv / dout, dq); scale, causal, window; stream
+    "flash_attn_wide_fwd_bf16": [_P] * 7 + [_I] * 5 + [_P, _F, _I, _I, _P],
+    "flash_attn_wide_bwd_dkv_bf16": [_P] * 9 + [_I] * 5 + [_P, _F, _I, _I, _P],
+    "flash_attn_wide_bwd_dq_bf16": [_P] * 8 + [_I] * 5 + [_P, _F, _I, _I, _P],
     # hidden, table, labels, part, lse, nll; N, V, D, splits, tiles_per_split; scale;
     # stream
     "fused_ce_fwd_bf16": [_P] * 6 + [_I] * 5 + [_F, _P],

@@ -1,7 +1,7 @@
 """Build, check and time the split decode attention (K3) on the card, without the rest of
 the smoke run.
 
-    python -m projectiontrainer_tpu_torch.kernels.check_decode_attn [--ptxas] [--time]
+    python -m projectiontrainer_tpu_torch.kernels.check_decode_attn [--ptxas] [--time] [--wide]
 
 Needs an NVIDIA GPU and ``nvcc``. Prints one JSON line per step:
 
@@ -16,7 +16,8 @@ Needs an NVIDIA GPU and ``nvcc``. Prints one JSON line per step:
   generation evaluation's P = 703, and one caption of 3 beams at P = 575, G = 128), and
   at the other head dims and GQA ratios, at more rows a KV head than a CTA holds (24 beams
   of Gemma3-1B's 4/1 heads, 17 of Llama's 32/8, 96 query heads on one KV head), at head
-  dim 512 and at 320 (padded to 512); a rerun must give the same bits, and the plan
+  dim 512 and at 320 (padded to 512), and above 512 (1024, 768 and 640, padded to 768:
+  column blocks of 256; ``--wide``: only those); a rerun must give the same bits, and the plan
   (``ops/decode_attention.py:decode_plan``) must put more CTAs on the card than there
   are (batch, KV head) pairs. Every case is run before a failure is reported;
 - ``--time``: device times (``utils/timing.py:device_ms``) of kernel, plain version and
@@ -73,7 +74,14 @@ CASES = [
     (8, 3, 8, 1, 512, 831, 32, 31, None, "ragged"),     # head dim 512: 24 rows, 2 groups
     (2, 2, 4, 2, 512, 300, 16, 15, 200, "splits"),
     (2, 3, 4, 1, 320, 300, 16, 15, None, "ragged"),     # 320, padded to 512
+    # above 512: column blocks of 256
+    (8, 3, 4, 1, 1024, 831, 32, 31, None, "ragged"),    # chip_smoke.py phase 2's shape
+    (8, 3, 4, 1, 1024, 831, 32, 17, 512, "ragged"),
+    (2, 24, 4, 1, 1024, 300, 16, 15, None, "splits"),   # 96 rows: row groups of 16
+    (2, 3, 4, 2, 768, 300, 16, 15, 200, "splits"),
+    (2, 3, 4, 1, 640, 150, 16, 15, None, "ragged"),     # 640, padded to 768
 ]
+WIDE = [case for case in CASES if case[4] > 512]
 TIMED = CASES[:8] + CASES[18:21] + CASES[23:24]
 
 
@@ -112,7 +120,7 @@ def check(b, nb, hq, hkv, d, p, g, t, window, pad) -> bool:
     again = [DA.decode_attention(q, kp, vp, kg, vg, **kw) for _ in range(2)]
     plan = DA.decode_plan(b, nb, hkv, p, g, t, p, window,
                           torch.cuda.get_device_properties(0).multi_processor_count,
-                          n_rep=hq // hkv, d=FA.padded_head_dim(d, DA.HEAD_DIMS))
+                          n_rep=hq // hkv, d=DA.padded_width(d))
     row = {"case": [b, nb, hq, hkv, d, p, g, t, window, pad], "max_abs_err": float(err.max()),
            "within_tol": bool((err <= TOL + TOL * ref.abs()).all() and got.isfinite().all()),
            "bit_equal": all(torch.equal(got, x) for x in again),
@@ -189,6 +197,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--time", action="store_true")
+    ap.add_argument("--wide", action="store_true", help="only the head dims above 512")
     args = ap.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -198,8 +207,10 @@ def main() -> int:
         ptxas_report(("decode_attention.cu",))
     _build.library()
     emit({"build_s": _build.build_seconds})
-    ok = [check(*case) for case in CASES]
-    if args.time:
+    ok = [check(*case) for case in (WIDE if args.wide else CASES)]
+    if args.time and args.wide:
+        time_case(*WIDE[0])
+    elif args.time:
         for case in TIMED:
             time_case(*case)
         time_group_rows()

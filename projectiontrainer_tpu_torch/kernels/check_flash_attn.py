@@ -1,12 +1,15 @@
 """Build, check and time the flash-attention forward (K1) and its dK/dV (K4) and dQ (K5)
 backward on the card, without the rest of the smoke run.
 
-    python -m projectiontrainer_tpu_torch.kernels.check_flash_attn [--ptxas] [--time]
+    python -m projectiontrainer_tpu_torch.kernels.check_flash_attn [--ptxas] [--time] [--wide]
 
 Needs an NVIDIA GPU and ``nvcc``. Prints one JSON line per step:
 
-- ``--ptxas``: what ``nvcc -Xptxas -v`` says of ``csrc/flash_attn_fwd.cu`` and
-  ``csrc/flash_attn_bwd.cu`` (registers, spills, shared memory of each kernel, warnings);
+- ``--ptxas``: what ``nvcc -Xptxas -v`` says of ``csrc/flash_attn_fwd.cu``,
+  ``csrc/flash_attn_bwd.cu`` and ``csrc/flash_attn_wide.cu`` (registers, spills, shared
+  memory of each kernel, warnings);
+- ``--wide``: only the head dims above 512 (``csrc/flash_attn_wide.cu``), checked and,
+  with ``--time``, timed;
 - always: K1's out and lse, K4's dk and dv and K5's dq against the plain versions at the main
   paths' shapes (Llama-3.2-1B's prefill at 32/8 heads of 64, causal, whole tiles
   left-padded, at P = 831 and the generation evaluation's 703; the ViT-L text tower; Mistral-7B's window of 4096 over 4608 tokens among
@@ -69,14 +72,23 @@ CASES = [
     (2, 150, 4, 1, 512, True, 37, "left", False),
     (2, 257, 4, 4, 512, False, None, "right", True),
     (1, 63, 2, 2, 512, False, None, None, False),
+    # above 512: the wide kernels' column blocks
+    (2, 1024, 4, 1, 1024, True, 512, None, False),      # chip_smoke.py phase 2's shapes
+    (4, 576, 4, 4, 640, False, None, None, False),
+    (2, 150, 4, 1, 576, True, 37, "left", False),       # a last block of 64 columns
+    (2, 257, 4, 2, 640, False, None, "right", True),
+    (1, 63, 2, 2, 1024, False, None, None, False),
+    (2, 129, 4, 4, 768, True, None, None, False),
 ]
+WIDE = [case for case in CASES if case[4] > 512]
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def ptxas_report(sources=("flash_attn_fwd.cu", "flash_attn_bwd.cu")) -> None:
+def ptxas_report(sources=None) -> None:
+    sources = sources or ("flash_attn_fwd.cu", "flash_attn_bwd.cu", "flash_attn_wide.cu")
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     for source in sources:
         proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
@@ -247,18 +259,20 @@ def main() -> int:
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--time", action="store_true")
     ap.add_argument("--cases", type=int, default=len(CASES), help="check the first K cases")
+    ap.add_argument("--wide", action="store_true", help="only the head dims above 512")
     args = ap.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     emit({"card": smi, "python": sys.version.split()[0], "torch": torch.__version__,
           "cuda": torch.version.cuda})
     if args.ptxas:
-        ptxas_report()
+        ptxas_report(("flash_attn_wide.cu",) if args.wide else None)
     _build.library()
     emit({"build_s": _build.build_seconds})
-    ok = [check(*case) for case in CASES[:args.cases]]
+    cases = WIDE if args.wide else CASES[:args.cases]
+    ok = [check(*case) for case in cases]
     if args.time:
-        for case in CASES[:TIMED]:
+        for case in WIDE[:2] if args.wide else CASES[:TIMED]:
             time_case(*case)
     return 0 if all(ok) else 1
 

@@ -1,7 +1,7 @@
 """Build, check and time the LayerNorm backward (K8) on the card, without the rest of the
 smoke run.
 
-    python -m projectiontrainer_tpu_torch.kernels.check_layernorm [--ptxas] [--time]
+    python -m projectiontrainer_tpu_torch.kernels.check_layernorm [--ptxas] [--time] [--wide]
 
 Needs an NVIDIA GPU and ``nvcc``. Prints one JSON line per step:
 
@@ -14,9 +14,12 @@ Needs an NVIDIA GPU and ``nvcc``. Prints one JSON line per step:
   at few rows (fewer CTAs than SMs), at the ViT-L tower's [4608, 1024], with fp32 rows,
   an fp32 scale, strided rows, D = 4096, rows that a bulk copy cannot take (D = 1001 and
   1004, 8-byte aligned strides, a base off 16 bytes: copied by cp.async) and D above
-  4096 (6144, 8192; column sums through device memory); a rerun must give the same
-  bits; then each refusal (D above the plan's limit, another dtype, dy of another shape)
-  must raise. Every case is run before a failure is reported;
+  4096 (6144, 8192; column sums through device memory) and rows too wide for one ring
+  row (20480, 24577, 32768 and others: the streamed kernel); a rerun must give the same
+  bits; then each refusal (another dtype, dy of another shape) must raise; at the widths
+  above 16384 the LayerNorm forward (K2, looping over column chunks) against its plain
+  version within atol = rtol = 2e-2 too. ``--wide``: only the widths above 19,368 (and
+  K2 there). Every case is run before a failure is reported;
 - ``--time``: device times (``utils/timing.py:device_ms``) of kernel, plain version,
   the library call (the autograd backward of ``F.layer_norm``: dx, dscale and dbias; a
   yardstick the port never calls) and ``torch.add(x, dy, out=dx)`` (the same bytes read
@@ -69,7 +72,15 @@ CASES = [
     (3, 6144, torch.bfloat16, torch.bfloat16, None, True),      # wide, one CTA
     (300, 4104, torch.float32, torch.float32, None, True),
     (64, 4100, torch.bfloat16, torch.bfloat16, None, False),    # wide and direct
+    # one ring row no longer fits: the streamed kernel
+    (2048, 20480, torch.bfloat16, torch.bfloat16, None, False),  # chip_smoke.py's shapes
+    (512, 32768, torch.bfloat16, torch.bfloat16, None, False),
+    (1000, 24577, torch.bfloat16, torch.bfloat16, None, False),  # odd rows: element by element
+    (2, 20480, torch.bfloat16, torch.bfloat16, None, False),     # one CTA
+    (300, 20480, torch.float32, torch.float32, None, False),
+    (140, 20480, torch.bfloat16, torch.float32, 20488, False),   # strided rows
 ]
+STREAMED = [case for case in CASES if case[1] > 19368]
 TIMED = [case for case in CASES if case[2] == case[3] == torch.bfloat16
          and case[4] is None and case[0] > 1][:7] + [CASES[14], CASES[19], CASES[20]]
 
@@ -126,10 +137,7 @@ def refusals() -> bool:
     """Each input the kernel does not take raises, and nothing is launched."""
     x = torch.zeros((64, 1160), dtype=torch.bfloat16, device="cuda")
     scale = torch.ones(1152, dtype=torch.bfloat16, device="cuda")
-    big = torch.zeros((4, 19376), dtype=torch.bfloat16, device="cuda")
     cases = {
-        "D = 19376 (one ring row and the scale above 227 KB)":
-            (ValueError, (big, big, torch.ones(19376, device="cuda"))),
         "fp16 rows": (TypeError, (x[:, :1152].half(), x[:, :1152].half(), scale)),
         "dy of another shape": (ValueError, (x[:, :1152], x[:32, :1152], scale)),
         "fp16 scale": (TypeError, (x[:, :1152], x[:, :1152], scale.half())),
@@ -146,6 +154,24 @@ def refusals() -> bool:
         emit({"refusal": name, "raised": raised.__name__ if raised else None, "ok": good})
         ok &= good
     return ok
+
+
+def check_forward(n, d, dtype, scale_dtype, stride, ragged) -> bool:
+    """K2 at the rows of a case against the plain forward, a rerun held bit-equal."""
+    x, _, scale = inputs(n, d, dtype, scale_dtype, stride)
+    p = {"scale": scale.to(dtype), "bias": (scale.float() * 0.1).to(dtype)}
+    before = FLN.launches.value
+    got = FLN.layernorm(p, x)
+    torch.cuda.synchronize()
+    ref = FLN.layernorm_reference({k: v.float() for k, v in p.items()}, x.float())
+    err = (got.float() - ref).abs()
+    row = {"forward": [n, d, str(dtype)], **FLN.fwd_plan(d), "max_abs_err": float(err.max()),
+           "within_tol": bool((err <= TOL + TOL * ref.abs()).all() and got.isfinite().all()),
+           "bit_equal": torch.equal(got, FLN.layernorm(p, x)),
+           "launched": FLN.launches.value == before + 2}
+    row["ok"] = row["within_tol"] and row["bit_equal"] and row["launched"]
+    emit(row)
+    return row["ok"]
 
 
 def time_case(n, d, dtype, scale_dtype, stride, ragged) -> None:
@@ -199,6 +225,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--time", action="store_true")
+    ap.add_argument("--wide", action="store_true", help="only the widths above 19,368")
     args = ap.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -208,9 +235,13 @@ def main() -> int:
         ptxas_report(("layernorm_bwd.cu",))
     _build.library()
     emit({"build_s": _build.build_seconds})
-    ok = [check(*case) for case in CASES]
+    ok = [check(*case) for case in (STREAMED if args.wide else CASES)]
+    ok += [check_forward(*case) for case in STREAMED if case[4] is None]
     ok.append(refusals())
-    if args.time:
+    if args.time and args.wide:
+        for case in STREAMED[:3]:
+            time_case(*case)
+    elif args.time:
         for case in TIMED:
             time_case(*case)
         time_plans()

@@ -107,6 +107,23 @@ class DecoderConfig:
         return float(base) ** -0.5
 
 
+@dataclasses.dataclass(frozen=True)
+class QuantizedDecoderConfig(DecoderConfig):
+    """A decoder whose projections are stored quantized by ``quant_method``
+    (``ops/quant.py``; ``train/setup.py:build_vlm`` under ``--enable_qlora``): NF4's
+    blocks of 64 values along a projection's input decide what a model axis may split
+    (``parallel/sharding.py:units``). The same model otherwise; a config of its own, so
+    that the JAX package's ``DecoderConfig`` fields stay the port's."""
+
+    quant_method: str = "int8"
+
+
+def quantized_config(cfg: DecoderConfig, method: str) -> QuantizedDecoderConfig:
+    """``cfg`` with its projections quantized by ``method``."""
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(DecoderConfig)}
+    return QuantizedDecoderConfig(**fields, quant_method=method)
+
+
 def gemma3_config(
     *, vocab_size=262_144, hidden_size=1152, intermediate_size=6912, num_layers=26,
     num_heads=4, num_kv_heads=1, head_dim=256, sliding_window=512,

@@ -17,17 +17,20 @@ the last split of a (batch, KV head) to finish combines them; a per-stream count
 tells it that it is the last, and it sets the counter back to 0 for the next launch.
 
 A CTA holds its query rows in shared memory, at most ``max_rows(d)`` of them (64; 16 at
-head dim 512). A (batch, KV head) with more rows (nb * n_rep: 17 beams of Gemma3-1B's 4
+head dim 512 and at 1024). A (batch, KV head) with more rows (nb * n_rep: 17 beams of Gemma3-1B's 4
 query heads a KV head) is cut into row groups of whole beams (or, where one beam's
 n_rep rows are too many, of a beam's rows), each with its own splits and combine, and
 each reading the prefix again; ``decode_plan`` picks their size and reports them. The
 JAX package sends such shapes to its XLA decode path instead.
 
-The kernel takes head dims 64, 128, 256 and 512; any other up to 512 is zero-padded on
-the card to the next of them, the query and the four caches alike, and the output sliced
-back (``decode_attention_padded``; the scale stays the caller's); above 512 the wrapper
-raises. The JAX package falls back to XLA there instead. Padding copies the caches at
-every step: the copy-free version is a kernel that reads rows of D < width.
+The kernel takes head dims 64, 128, 256 and 512, and every multiple of 256 above 512;
+any other is zero-padded on the card to the next of them, the query and the four caches
+alike, and the output sliced back (``decode_attention_padded``; the scale stays the
+caller's). Padding copies the caches at every step: the copy-free version is a kernel
+that reads rows of D < width. Above 512 (where the JAX package runs XLA's decode
+attention) a CTA owns one block of 256 of the output's columns and computes its split's
+scores over the whole D again (``decode_plan``'s ``col_blocks``: each block is a unit
+with its own partials, counter and combine).
 """
 
 from __future__ import annotations
@@ -45,16 +48,47 @@ launches = _build.LaunchCounter("decode_attn")
 HEAD_DIMS = (64, 128, 256, 512)
 MAX_ROWS = 64  # query rows one CTA holds in shared memory (csrc/decode_attention.cu:MAX_M)
 MAX_ROWS_512 = 16  # ... at head dim 512
+WIDE_COLUMNS = 256  # above 512: O's columns a CTA (csrc/decode_attention.cu:DC)
 GROUP_SIZES = (64, 32, 16, 8)  # rows a row group may hold, largest first
 TILE_KEYS = 32  # keys a tile inside a split (csrc/decode_attention.cu:TK)
+SMEM_LIMIT = 232_448  # dynamic shared memory a block may opt into on the H100
 _counters: dict = {}  # (device index, stream) -> int32 [>= B * Hkv], zero between launches
 _counters_lock = threading.Lock()
 
 
+def takes_head_dim(d: int) -> bool:
+    """Whether K3 runs at head dim d as it is: ``HEAD_DIMS``, or a multiple of
+    ``WIDE_COLUMNS`` above 512."""
+    return d in HEAD_DIMS or (d > max(HEAD_DIMS) and d % WIDE_COLUMNS == 0)
+
+
+def col_blocks(d: int) -> int:
+    """The column blocks of O that K3's CTAs split at head dim d (1 up to 512)."""
+    return d // WIDE_COLUMNS if d > max(HEAD_DIMS) else 1
+
+
+def smem_bytes(d: int, rows: int) -> int:
+    """K3's dynamic shared memory at head dim d for ``rows`` query rows
+    (csrc/decode_attention.cu:smem_bytes): two K/V tiles of the column block's width, the
+    rows' fp32 q at the whole width and O at the block's, their scores and statistics."""
+    block = WIDE_COLUMNS if d > max(HEAD_DIMS) else d
+    return (2 * TILE_KEYS * block * 2 * 2 + rows * d * 4 + rows * block * 4
+            + rows * TILE_KEYS * 4 + rows * 12)
+
+
 def max_rows(d: int) -> int:
     """Query rows one CTA of K3 holds at head dim d: its fp32 q and O beside two K/V
-    tiles in flight within 227 KB of shared memory."""
-    return MAX_ROWS_512 if d > 256 else MAX_ROWS
+    tiles in flight within 227 KB of shared memory; above 512 the largest power of two
+    whose rows of the whole width fit (16 at 1024, 8 at 4096)."""
+    if d <= max(HEAD_DIMS):
+        return MAX_ROWS_512 if d > 256 else MAX_ROWS
+    rows = MAX_ROWS
+    while rows > 1 and smem_bytes(d, rows) > SMEM_LIMIT:
+        rows //= 2
+    if smem_bytes(d, rows) > SMEM_LIMIT:
+        raise ValueError(f"decode_attention: head_dim {d}: one query row does not fit in "
+                         f"{SMEM_LIMIT} bytes of shared memory")
+    return rows
 
 
 def row_groups(nb: int, n_rep: int, cap: int) -> tuple[int, int]:
@@ -82,7 +116,7 @@ def group_shape(pairs: int, nb: int, n_rep: int, d: int, sms: int) -> tuple[int,
     cap = max_rows(d)
     if nb * n_rep <= cap:
         return nb, n_rep
-    for size in [s for s in GROUP_SIZES if s <= cap]:
+    for size in [s for s in GROUP_SIZES if s <= cap] or [cap]:
         bpg, rpg = row_groups(nb, n_rep, size)
         if pairs * -(-nb // bpg) * -(-n_rep // rpg) >= sms:
             break
@@ -102,7 +136,8 @@ def decode_plan(b: int, nb: int, hkv: int, p: int, g: int, t: int, prefix_len: i
     multiple of the kernel's 32-key tile, sized so that the CTAs come near ``sms``
     (rounded to the nearest tile, at least one): for each group ``p_splits`` splits of
     the prefix, each for all the group's rows, then ``g_splits`` a beam of its generated
-    slots, each for that beam's rows in the group. ``splits``: a group's of most beams
+    slots, each for that beam's rows in the group. Above 512 every split runs once for
+    each of ``col_blocks`` blocks of O's columns. ``splits``: a group's of most beams
     (the grid's x), ``ctas``: the CTAs that run. No split is empty of slots; a split may
     be empty of live keys (padding)."""
     bpg, rpg = group_shape(b * hkv, nb, n_rep, d, sms)
@@ -112,15 +147,17 @@ def decode_plan(b: int, nb: int, hkv: int, p: int, g: int, t: int, prefix_len: i
     p_begin = min(p, max(0, q_slot - window + 1)) if window else 0
     g_begin, g_end = (max(0, t - window + 1) if window else 0), min(t + 1, g)
     live_p, live_g = p - p_begin, g_end - g_begin
-    keys = b * hkv * (groups * live_p + nb * rep_groups * live_g)
+    blocks = col_blocks(d)
+    keys = blocks * b * hkv * (groups * live_p + nb * rep_groups * live_g)
     tiles = max(1, (keys + sms * TILE_KEYS // 2) // (sms * TILE_KEYS))
     chunk = tiles * TILE_KEYS
     p_splits, g_splits = -(-live_p // chunk), -(-live_g // chunk)
     splits = p_splits + bpg * g_splits
-    ctas = b * hkv * (groups * p_splits + nb * rep_groups * g_splits)
+    ctas = blocks * b * hkv * (groups * p_splits + nb * rep_groups * g_splits)
     return {"p_begin": p_begin, "p_splits": p_splits, "g_begin": g_begin, "g_end": g_end,
             "g_splits": g_splits, "chunk": chunk, "splits": splits, "ctas": ctas,
-            "groups": groups, "beams_per_group": bpg, "reps_per_group": rpg}
+            "groups": groups, "beams_per_group": bpg, "reps_per_group": rpg,
+            "col_blocks": blocks}
 
 
 def _counter(device, stream: int, n: int):
@@ -181,9 +218,9 @@ def _launch(q, kp, vp, kg, vg, *, prefix_mask, t, prefix_len, scale, window):
             raise ValueError(f"decode_attention: {name} must be contiguous and 16-byte aligned")
     if vp.shape != kp.shape or vg.shape != kg.shape or kg.shape != (r, hkv, g, d):
         raise ValueError("decode_attention: cache shapes disagree")
-    if d not in HEAD_DIMS or hq % hkv:
-        raise ValueError(f"decode_attention: head_dim {d} (takes {HEAD_DIMS}) or GQA "
-                         f"{hq}/{hkv} not supported")
+    if not takes_head_dim(d) or hq % hkv:
+        raise ValueError(f"decode_attention: head_dim {d} (takes {HEAD_DIMS} and multiples "
+                         f"of {WIDE_COLUMNS} above) or GQA {hq}/{hkv} not supported")
     if not 0 <= t < g:
         raise ValueError(f"decode_attention: step {t} outside the generated cache [0, {g})")
     mask = prefix_mask.to(device=q.device, dtype=torch.int32).contiguous()
@@ -192,12 +229,13 @@ def _launch(q, kp, vp, kg, vg, *, prefix_mask, t, prefix_len, scale, window):
     plan = decode_plan(b, nb, hkv, p, g, t, prefix_len, window,
                        torch.cuda.get_device_properties(q.device).multi_processor_count,
                        n_rep=n_rep, d=d)
-    units = b * hkv * plan["groups"]  # (batch, KV head, row group): a counter each
+    # (batch, KV head, row group, column block): a counter each
+    units = b * hkv * plan["groups"] * plan["col_blocks"]
     rows = units * plan["splits"] * plan["beams_per_group"] * plan["reps_per_group"]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     lib = _build.library()
     out = torch.empty_like(q)
-    o_part = torch.empty(rows * d, dtype=torch.float32, device=q.device)
+    o_part = torch.empty(rows * (d // plan["col_blocks"]), dtype=torch.float32, device=q.device)
     ml_part = torch.empty(rows * 2, dtype=torch.float32, device=q.device)
     err = lib.decode_attn_bf16(
         q.data_ptr(), kp.data_ptr(), vp.data_ptr(), kg.data_ptr(), vg.data_ptr(),
@@ -221,7 +259,7 @@ def decode_attention(q, kp, vp, kg, vg, *, prefix_mask, t: int, prefix_len: int,
     kw = dict(prefix_mask=prefix_mask, t=t, prefix_len=prefix_len, scale=scale,
               window=window)
     if q.is_cuda:
-        if q.shape[-1] not in HEAD_DIMS:
+        if not takes_head_dim(q.shape[-1]):
             return decode_attention_padded(q, kp, vp, kg, vg, **kw)
         return _launch(q, kp, vp, kg, vg, **kw)
     if q.device.type != "cpu":
@@ -231,11 +269,17 @@ def decode_attention(q, kp, vp, kg, vg, *, prefix_mask, t: int, prefix_len: int,
 
 def decode_attention_padded(q, kp, vp, kg, vg, **kw):
     """``decode_attention`` at a head dim D the kernel does not take: q and the caches
-    zero-padded on D to the next of ``HEAD_DIMS``, the output sliced
-    back to D; ``kw`` as ``decode_attention``'s, the caller's scale included. On CPU
-    tensors the plain version runs at the padded width."""
+    zero-padded on D to the next of ``HEAD_DIMS`` (above 512: to a multiple of
+    ``WIDE_COLUMNS``), the output sliced back to D; ``kw`` as ``decode_attention``'s, the
+    caller's scale included. On CPU tensors the plain version runs at the padded width."""
     d = q.shape[-1]
-    width = padded_head_dim(d, HEAD_DIMS)
+    width = padded_width(d)
     q, kp, vp, kg, vg = (pad_head_dim(x, width) for x in (q, kp, vp, kg, vg))
     run = _launch if q.is_cuda else decode_attention_reference
     return run(q, kp, vp, kg, vg, **kw)[..., :d]
+
+
+def padded_width(d: int) -> int:
+    """The head dim K3 runs a head dim d at: d itself where it takes it, else the next of
+    ``HEAD_DIMS``, or above 512 the next multiple of ``WIDE_COLUMNS``."""
+    return padded_head_dim(d, HEAD_DIMS, WIDE_COLUMNS)

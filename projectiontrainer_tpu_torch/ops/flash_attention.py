@@ -18,12 +18,15 @@ from that copy, not from the bf16 output (see ``csrc/flash_attn_fwd.cu``).
 Self-attention shapes only (``Tq == Tk``): the towers (non-causal) and the decoder
 (causal, sliding window, padding mask, GQA). The kernels take head dims 64, 72 (so400m;
 the kernels fill its rows up with zeros on the chip, nothing is padded here), 128, 256
-and 512; any other head dim up to 512 is zero-padded on the card to the next of them, as
-the JAX package pads inside its kernel (``flash_attention_padded``): the kernels run at
-that width with the caller's scale ``D ** -0.5`` and O, dQ, dK and dV are sliced back
-(q.k and P.V gain only zero terms); above 512 the wrapper raises (the JAX package pads
-any width). At 512 each kernel splits its accumulator's columns over its two warpgroups
-(and K4 over two CTAs a key tile), which both compute the scores.
+and 512, and every multiple of 64 above 512; any other head dim is zero-padded on the
+card to the next of them, as the JAX package pads inside its kernel
+(``flash_attention_padded``): the kernels run at that width with the caller's scale
+``D ** -0.5`` and O, dQ, dK and dV are sliced back (q.k and P.V gain only zero terms).
+At 512 each kernel splits its accumulator's columns over its two warpgroups (and K4 over
+two CTAs a key tile), which both compute the scores. Above 512 the three kernels of
+``csrc/flash_attn_wide.cu`` run instead: a CTA owns one block of 128 output columns of
+a 64-row tile, computes the scores over the whole D again for its block, and writes
+only its block (``forward_plan``, ``dkv_plan``, ``dq_plan``: the column blocks).
 
 Each launch is a ``ptt`` operator (``kernels/_build.py:kernel_op``): the wrappers check
 the shapes and allocate every buffer the kernel writes (``fwd_buffers``,
@@ -71,15 +74,41 @@ bwd_dkv_launches = _build.LaunchCounter("flash_attn_bwd_dkv")
 bwd_dq_launches = _build.LaunchCounter("flash_attn_bwd_dq")
 HEAD_DIMS = (64, 72, 128, 256, 512)
 TMA_COLUMNS = 64  # bf16 columns of a 128-byte-swizzled TMA box
+WIDE_STEP = 64      # above 512 the kernels take every multiple of this (csrc/flash_attn_wide.cu:CH)
+WIDE_COLUMNS = 128  # output columns a CTA of the wide kernels owns (:DC)
+WIDE_ROWS = 64      # rows a CTA of the wide kernels owns, and rows a tile of the other operand
+
+
+def takes_head_dim(d: int) -> bool:
+    """Whether the kernels run at head dim d as it is: ``HEAD_DIMS``, or a multiple of
+    ``WIDE_STEP`` above 512 (the wide kernels)."""
+    return d in HEAD_DIMS or (d > max(HEAD_DIMS) and d % WIDE_STEP == 0)
+
+
+def wide_plan(d: int, rows: str, tile: str) -> dict:
+    """The wide kernels' plan at head dim d > 512: ``rows`` (the operand a CTA owns) and
+    ``tile`` (the other, a tile of the loop) of ``WIDE_ROWS`` each; ``col_block`` output
+    columns a CTA and ``col_blocks`` of them (the grid's x is row tiles x column blocks;
+    the last block of a d that 128 does not divide holds 64 columns); each block computes
+    the scores over the whole d in ``d / chunk`` chunks."""
+    if not (d > max(HEAD_DIMS) and d % WIDE_STEP == 0):
+        raise ValueError(f"flash_attention: head_dim {d} is not a wide kernel's (a multiple "
+                         f"of {WIDE_STEP} above {max(HEAD_DIMS)})")
+    return {rows: WIDE_ROWS, tile: WIDE_ROWS, "col_block": WIDE_COLUMNS,
+            "col_blocks": -(-d // WIDE_COLUMNS), "chunk": WIDE_STEP}
 
 
 def forward_plan(d: int) -> dict:
     """K1's tiles at head dim d: ``bq`` query rows a CTA (two warpgroups of 64) and
     ``bk`` keys a ring stage (64 at d = 256, where O alone is 128 registers a thread). At
     d = 512 the two warpgroups share 64 rows, each with half of O, and stages of 32 keys
-    (two of them and Q fill 192 KB)."""
+    (two of them and Q fill 192 KB). Above 512 the wide kernel's column blocks
+    (``wide_plan``)."""
+    if d > max(HEAD_DIMS):
+        return wide_plan(d, "bq", "bk")
     if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {d} not supported (takes {HEAD_DIMS})")
+        raise ValueError(f"flash_attention: head_dim {d} not supported (takes {HEAD_DIMS} "
+                         f"and multiples of {WIDE_STEP} above)")
     if d > 256:
         return {"bq": 64, "bk": 32}
     return {"bq": 128, "bk": 64 if d > 128 else 128}
@@ -90,9 +119,14 @@ def dkv_plan(d: int) -> dict:
     keys (two warpgroups of 64) and 64 queries at 64 and 72; 32 queries at 128, where dK
     and dV are 128 registers a thread; at 256 the two warpgroups share 64 keys and split
     the columns of dK and dV, again 128 registers a thread and 32 queries; at 512 two
-    CTAs share the 64 keys, each with half of the columns (one stage of 32 queries)."""
+    CTAs share the 64 keys, each with half of the columns (one stage of 32 queries).
+    Above 512 the wide kernel's column blocks (``wide_plan``): a CTA's 64 keys and 128
+    columns of dK and dV, over tiles of 64 queries."""
+    if d > max(HEAD_DIMS):
+        return wide_plan(d, "bk", "bq")
     if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {d} not supported (takes {HEAD_DIMS})")
+        raise ValueError(f"flash_attention: head_dim {d} not supported (takes {HEAD_DIMS} "
+                         f"and multiples of {WIDE_STEP} above)")
     return {"bk": 64 if d > 128 else 128, "bq": 64 if d <= 72 else 32}
 
 
@@ -100,9 +134,13 @@ def dq_plan(d: int) -> dict:
     """K5's tiles at head dim d: ``bq`` queries a CTA (two warpgroups of 64) and ``bk``
     keys a ring stage: 64, and 32 at d = 256, where dQ alone is 128 registers a thread
     and S and dP of 64 keys would not fit beside it. At d = 512 the two warpgroups share
-    64 queries, each with half of dQ (one stage of 32 keys)."""
+    64 queries, each with half of dQ (one stage of 32 keys). Above 512 the wide kernel's
+    column blocks (``wide_plan``)."""
+    if d > max(HEAD_DIMS):
+        return wide_plan(d, "bq", "bk")
     if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {d} not supported (takes {HEAD_DIMS})")
+        raise ValueError(f"flash_attention: head_dim {d} not supported (takes {HEAD_DIMS} "
+                         f"and multiples of {WIDE_STEP} above)")
     return {"bq": 64 if d > 256 else 128, "bk": 32 if d > 128 else 64}
 
 
@@ -211,9 +249,9 @@ def _check_shapes(q, k, v):
     if k.shape != (b, t, hkv, d) or v.shape != k.shape:
         raise ValueError(f"flash_attention: self-attention shapes only, got q {tuple(q.shape)}"
                          f" k {tuple(k.shape)} v {tuple(v.shape)}")
-    if d not in HEAD_DIMS or hq % hkv:
-        raise ValueError(f"flash_attention: head_dim {d} (takes {HEAD_DIMS}) or GQA "
-                         f"{hq}/{hkv} not supported")
+    if not takes_head_dim(d) or hq % hkv:
+        raise ValueError(f"flash_attention: head_dim {d} (takes {HEAD_DIMS} and multiples "
+                         f"of {WIDE_STEP} above) or GQA {hq}/{hkv} not supported")
 
 
 def _mask_arg(kv_mask, q):
@@ -253,51 +291,66 @@ def _stream(x) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def _strides(*tensors):
+    """The (b, t, h) element strides of each tensor, as one ``long long`` array."""
+    flat = [s for x in tensors for s in x.stride()[:3]]
+    return (ctypes.c_longlong * len(flat))(*flat)
+
+
 def _fwd_launch(q, k, v, mask, out, lse, out32, scale, causal, window):
-    """K1's operator on the card: ``out``, ``lse`` and ``out32`` (or None) written."""
+    """K1's operator on the card: ``out``, ``lse`` and ``out32`` (or None) written (above
+    512 by the wide kernel, which reads the strides alone)."""
     _check_pointers(q=q, k=k, v=v)
     b, t, hq, d = q.shape
     plan = forward_plan(d)
-    maps = (ctypes.c_longlong * 33)(*tensor_map_plan(q, plan["bq"]),
-                                    *tensor_map_plan(k, plan["bk"]),
-                                    *tensor_map_plan(v, plan["bk"]))
-    err = _build.library().flash_attn_fwd_bf16(
+    if "col_blocks" in plan:
+        name, layout = "flash_attn_wide_fwd_bf16", (_strides(q, k, v, out),)
+    else:
+        maps = (ctypes.c_longlong * 33)(*tensor_map_plan(q, plan["bq"]),
+                                        *tensor_map_plan(k, plan["bk"]),
+                                        *tensor_map_plan(v, plan["bk"]))
+        name, layout = "flash_attn_fwd_bf16", (maps, plan["bq"], plan["bk"], *out.stride()[:3])
+    err = getattr(_build.library(), name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), out.data_ptr(), lse.data_ptr(),
-        _ptr(out32), b, t, hq, k.shape[2], d, maps, plan["bq"], plan["bk"],
-        *out.stride()[:3], scale, int(causal), window, _stream(q))
-    _build.check("flash_attn_fwd_bf16", err)
+        _ptr(out32), b, t, hq, k.shape[2], d, *layout, scale, int(causal), window, _stream(q))
+    _build.check(name, err)
     launches.add()
 
 
+def _bwd_maps(q, k, v, do, plan):
+    """The tensor maps of q, k, v and dO for a backward kernel's tiles (long long[44])."""
+    return (ctypes.c_longlong * 44)(*tensor_map_plan(q, plan["bq"]), *tensor_map_plan(k, plan["bk"]),
+                                    *tensor_map_plan(v, plan["bk"]), *tensor_map_plan(do, plan["bq"]))
+
+
 def _dkv_launch(q, k, v, mask, do, lse, delta, dk, dv, scale, causal, window):
-    """K4's operator on the card: ``dk`` and ``dv`` written."""
+    """K4's operator on the card: ``dk`` and ``dv`` written (above 512 by the wide kernel,
+    which reads the strides alone)."""
     _check_pointers(q=q, k=k, v=v, dout=do)
     b, t, hq, d = q.shape
     plan = dkv_plan(d)
-    strides = (ctypes.c_longlong * 18)(*(s for x in (q, k, v, do, dk, dv) for s in x.stride()[:3]))
-    maps = (ctypes.c_longlong * 44)(*tensor_map_plan(q, plan["bq"]), *tensor_map_plan(k, plan["bk"]),
-                                    *tensor_map_plan(v, plan["bk"]), *tensor_map_plan(do, plan["bq"]))
-    err = _build.library().flash_attn_bwd_dkv_bf16(
+    name, tiles = (("flash_attn_wide_bwd_dkv_bf16", ()) if "col_blocks" in plan else
+                   ("flash_attn_bwd_dkv_bf16", (_bwd_maps(q, k, v, do, plan), plan["bk"], plan["bq"])))
+    err = getattr(_build.library(), name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t, hq, k.shape[2], d, strides, maps,
-        plan["bk"], plan["bq"], scale, int(causal), window, _stream(q))
-    _build.check("flash_attn_bwd_dkv_bf16", err)
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t, hq, k.shape[2], d,
+        _strides(q, k, v, do, dk, dv), *tiles, scale, int(causal), window, _stream(q))
+    _build.check(name, err)
     bwd_dkv_launches.add()
 
 
 def _dq_launch(q, k, v, mask, do, lse, delta, dq, scale, causal, window):
-    """K5's operator on the card: ``dq`` written."""
+    """K5's operator on the card: ``dq`` written (above 512 by the wide kernel)."""
     _check_pointers(q=q, k=k, v=v, dout=do)
     b, t, hq, d = q.shape
     plan = dq_plan(d)
-    strides = (ctypes.c_longlong * 15)(*(s for x in (q, k, v, do, dq) for s in x.stride()[:3]))
-    maps = (ctypes.c_longlong * 44)(*tensor_map_plan(q, plan["bq"]), *tensor_map_plan(k, plan["bk"]),
-                                    *tensor_map_plan(v, plan["bk"]), *tensor_map_plan(do, plan["bq"]))
-    err = _build.library().flash_attn_bwd_dq_bf16(
+    name, tiles = (("flash_attn_wide_bwd_dq_bf16", ()) if "col_blocks" in plan else
+                   ("flash_attn_bwd_dq_bf16", (_bwd_maps(q, k, v, do, plan), plan["bq"], plan["bk"])))
+    err = getattr(_build.library(), name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), b, t, hq, k.shape[2], d, strides, maps,
-        plan["bq"], plan["bk"], scale, int(causal), window, _stream(q))
-    _build.check("flash_attn_bwd_dq_bf16", err)
+        delta.data_ptr(), dq.data_ptr(), b, t, hq, k.shape[2], d, _strides(q, k, v, do, dq),
+        *tiles, scale, int(causal), window, _stream(q))
+    _build.check(name, err)
     bwd_dq_launches.add()
 
 
@@ -403,23 +456,24 @@ def flash_attention(q, k, v, *, scale: Optional[float] = None, causal: bool = Fa
                     window: Optional[int] = None, kv_mask=None):
     """q [B, T, Hq, D], k/v [B, T, Hkv, D] -> (out [B, T, Hq, D], lse [B, Hq, T]).
 
-    The kernels on CUDA tensors (a head dim outside ``HEAD_DIMS`` zero-padded to the
-    next one, ``flash_attention_padded``), the plain versions on CPU tensors;
-    differentiable in ``out`` with respect to q, k and v."""
+    The kernels on CUDA tensors (a head dim they do not take zero-padded to the next
+    one, ``flash_attention_padded``), the plain versions on CPU tensors; differentiable
+    in ``out`` with respect to q, k and v."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if _build.on_card(q) and q.shape[-1] not in HEAD_DIMS:
+    if _build.on_card(q) and not takes_head_dim(q.shape[-1]):
         return flash_attention_padded(q, k, v, scale=scale, causal=causal, window=window,
                                       kv_mask=kv_mask)
     return _FlashAttention.apply(q, k, v, kv_mask, float(scale), bool(causal), window)
 
 
-def padded_head_dim(d: int, widths=HEAD_DIMS) -> int:
-    """The smallest of ``widths`` at or above head dim d; raises above the largest."""
+def padded_head_dim(d: int, widths=HEAD_DIMS, step: int = WIDE_STEP) -> int:
+    """The smallest of ``widths`` at or above head dim d; above the largest, d rounded
+    up to a multiple of ``step`` (the wide kernels' widths)."""
     for w in sorted(widths):
         if w >= d:
             return w
-    raise ValueError(f"head_dim {d} not supported: the kernels take up to {max(widths)}")
+    return -(-d // step) * step
 
 
 def pad_head_dim(x, width: int):

@@ -13,7 +13,9 @@ and dy and writes dx (~113 MB at the stage-0 tower's [16384, 1152] bf16).
 
 - K2 (forward, Triton) does a whole row in one pass held in registers: one program per
   row, ``BLOCK_D = next_pow2(D)`` wide and masked at the edge, mean and variance in
-  fp32, the output in the input's type.
+  fp32, the output in the input's type. Above ``FWD_MAX_BLOCK`` columns a row no longer
+  sits in registers: the program loops over column chunks of ``FWD_CHUNK`` instead (the
+  mean, then the centred squares, then the output: x read three times, from L2).
 - K8 (backward, ``csrc/layernorm_bwd.cu``): dx = rstd * (g - mean(g) - xhat *
   mean(g * xhat)), g = dy * scale, and the column sums dscale = sum(dy * xhat),
   dbias = sum(dy), in one persistent cooperative launch: one CTA an SM, each over a
@@ -24,11 +26,16 @@ and dy and writes dx (~113 MB at the stage-0 tower's [16384, 1152] bf16).
   grid barrier each CTA adds its slice of the columns over all partials in CTA order
   (deterministic: no atomics). Rows past a band's end are never loaded, so a
   part-filled stage adds nothing. bf16 or fp32 rows of any width up to what one ring
-  row must fit in shared memory (``bwd_plan`` raises above: 19,368): a row's slot is D
+  row must fit in shared memory (19,368): a row's slot is D
   rounded up to 8 (``bwd_slot``), and rows that are not 16-byte multiples or do not start
   on 16 bytes are copied by the row warps' cp.async instead of in bulk (``bwd_direct``);
   above 4096 the column sums run through the CTA's partial row in device memory instead
-  of registers. The JAX package computes every width (its gate sends the rest to XLA,
+  of registers. Wider rows (one ring row of x and dy and the fp32 scale no longer fits:
+  above 19,368 in bf16) take K8's streamed kernel (``bwd_plan``'s ``stages`` 0): a CTA
+  an SM over its band, the whole CTA on one row at a time, read from device memory in
+  chunks of ``BWD_STREAM_THREADS`` vectors (the mean; the centred squares, sum(g) and
+  sum(g * xhat); then dx and the partial column sums), and the same combine. The JAX
+  package computes every width (its gate sends the rest to XLA,
   ``ops/fused_layernorm.py:38-53`` there).
 
 Each launch is a ``ptt`` operator (``kernels/_build.py:kernel_op``): the wrappers
@@ -52,6 +59,9 @@ bwd_launches = _build.LaunchCounter("layernorm_bwd")
 BWD_MAX_D = 4096         # MAX_D: widest D whose column sums stay in registers
 BWD_THREADS = 416        # THREADS
 BWD_MAX_STAGES = 4       # ring stages the plan uses (the kernel takes up to 8)
+BWD_STREAM_THREADS = 512  # the streamed kernel's CTA (csrc/layernorm_bwd.cu:STREAM_THREADS)
+FWD_MAX_BLOCK = 16384    # K2's widest row held in registers (BLOCK_D); wider rows loop
+FWD_CHUNK = 4096         # K2's column chunk on wider rows
 SMEM_LIMIT = 232_448     # dynamic shared memory a block may opt into on the H100
 H100_SMS = 132           # the SMs K8's plan spreads over where no card is asked (a trace)
 _barriers: dict = {}     # (device index, stream) -> the grid barrier's uint32 counter
@@ -79,7 +89,34 @@ def _fwd_kernel():
         y = xc * rstd * w + b
         tl.store(out_ptr + row * d + cols, y.to(out_ptr.dtype.element_ty), mask=live)
 
-    return triton, layernorm_fwd
+    @triton.jit
+    def layernorm_fwd_chunked(x_ptr, scale_ptr, bias_ptr, out_ptr, row_stride, d, eps,
+                              BLOCK: tl.constexpr):
+        row = tl.program_id(0).to(tl.int64)
+        acc = tl.zeros([BLOCK], dtype=tl.float32)
+        for c0 in range(0, d, BLOCK):
+            cols = c0 + tl.arange(0, BLOCK)
+            acc += tl.load(x_ptr + row * row_stride + cols, mask=cols < d,
+                           other=0.0).to(tl.float32)
+        mean = tl.sum(acc, axis=0) / d
+        acc = tl.zeros([BLOCK], dtype=tl.float32)
+        for c0 in range(0, d, BLOCK):
+            cols = c0 + tl.arange(0, BLOCK)
+            live = cols < d
+            x = tl.load(x_ptr + row * row_stride + cols, mask=live, other=0.0).to(tl.float32)
+            xc = tl.where(live, x - mean, 0.0)
+            acc += xc * xc
+        rstd = 1.0 / tl.sqrt(tl.sum(acc, axis=0) / d + eps)
+        for c0 in range(0, d, BLOCK):
+            cols = c0 + tl.arange(0, BLOCK)
+            live = cols < d
+            x = tl.load(x_ptr + row * row_stride + cols, mask=live, other=0.0).to(tl.float32)
+            w = tl.load(scale_ptr + cols, mask=live, other=0.0).to(tl.float32)
+            b = tl.load(bias_ptr + cols, mask=live, other=0.0).to(tl.float32)
+            y = (x - mean) * rstd * w + b
+            tl.store(out_ptr + row * d + cols, y.to(out_ptr.dtype.element_ty), mask=live)
+
+    return triton, layernorm_fwd, layernorm_fwd_chunked
 
 
 # ---------------------------------------------------------------------------- plain
@@ -125,13 +162,27 @@ def fwd_buffers(x2) -> dict:
     return {"out": (tuple(x2.shape), x2.dtype)}
 
 
+def fwd_plan(d: int) -> dict:
+    """K2's launch at width d: one program a row, the whole row in registers
+    (``block`` = next power of two of d) up to ``FWD_MAX_BLOCK``; above, ``chunked``
+    over column chunks of ``FWD_CHUNK``."""
+    block = 1 << max(0, d - 1).bit_length()
+    if block <= FWD_MAX_BLOCK:
+        return {"block": block, "chunked": False, "num_warps": 4 if block <= 2048 else 8}
+    return {"block": FWD_CHUNK, "chunked": True, "num_warps": 8}
+
+
 def _fwd_launch(x2, scale, bias, out, eps):
     """K2's operator on the card: ``out`` written."""
-    triton, kernel = _fwd_kernel()
+    _, kernel, chunked = _fwd_kernel()
     d = x2.shape[1]
-    block = triton.next_power_of_2(d)
-    kernel[(x2.shape[0],)](x2, scale, bias, out, x2.stride(0), d, eps, BLOCK_D=block,
-                           num_warps=4 if block <= 2048 else 8)
+    plan = fwd_plan(d)
+    if plan["chunked"]:
+        chunked[(x2.shape[0],)](x2, scale, bias, out, x2.stride(0), d, eps, BLOCK=plan["block"],
+                                num_warps=plan["num_warps"])
+    else:
+        kernel[(x2.shape[0],)](x2, scale, bias, out, x2.stride(0), d, eps,
+                               BLOCK_D=plan["block"], num_warps=plan["num_warps"])
     launches.add()
 
 
@@ -174,8 +225,10 @@ def bwd_plan(n: int, d: int, sms: int, itemsize: int = 2) -> dict:
     in shared memory), ``stages`` (at most ``BWD_MAX_STAGES``; fewer than 3 only where
     one row a stage leaves no room for more), and ``ctas`` = min(sms, ceil(n / rows)),
     one an SM, CTA c over the contiguous band ``bwd_bands`` gives it; one CTA for up to
-    2 x rows rows. Raises for a d the kernel does not take: one row of x and dy and the
-    fp32 scale must fit in shared memory (up to 19,368 in bf16 and fp32)."""
+    2 x rows rows. Where one row of x and dy and the fp32 scale do not fit in shared
+    memory (above 19,368 in bf16 and fp32), the streamed kernel: ``streamed``, ``stages``
+    0, one row at a time (``rows`` 1) in ``chunk`` columns a pass (16 bytes a thread of
+    ``BWD_STREAM_THREADS``), ``ctas`` = min(sms, n), or 1 up to 2 rows."""
     if d < 1:
         raise ValueError(f"layernorm backward kernel: D = {d}")
     if n < 1:
@@ -187,9 +240,9 @@ def bwd_plan(n: int, d: int, sms: int, itemsize: int = 2) -> dict:
         if stages >= 3:
             break
     if bwd_smem_bytes(d, itemsize, rows, stages) > SMEM_LIMIT:
-        raise ValueError(f"layernorm backward kernel: D = {d} too wide: one ring row of x "
-                         f"and dy and the fp32 scale take {bwd_smem_bytes(d, itemsize, 1, 1)} "
-                         f"bytes of shared memory, above {SMEM_LIMIT}")
+        return {"ctas": 1 if n <= 2 else min(sms, n), "rows": 1, "stages": 0,
+                "streamed": True, "chunk": BWD_STREAM_THREADS * (16 // itemsize),
+                "smem_bytes": 0}
     # up to two stages of rows, one CTA without the grid barrier and the combine is the
     # quicker (kernels/check_layernorm.py --time times both)
     ctas = 1 if n <= 2 * rows else min(sms, -(-n // rows))

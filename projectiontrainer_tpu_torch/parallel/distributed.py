@@ -19,7 +19,11 @@ itself:
   reduce-scatter);
 - :func:`setup_mesh` lays the world out as the JAX package's ``data`` x ``model`` mesh
   (rank r at ``(r // model, r % model)``, ``np.reshape(devices, (data, model))``) and
-  creates one process group per row and per column, in the same order on every rank.
+  creates one process group per row and per column, in the same order on every rank. A
+  mesh smaller than the world takes its first ``data x model`` ranks (the JAX package's
+  prefix of its devices): every rank of the world creates the groups, those beyond the
+  mesh are then :func:`idle`, and for the mesh's ranks :func:`world_size` is the mesh's
+  and every collective, the world's ones too, runs over the mesh's group.
 
 Every helper above works over the **data** axis: the ranks that hold different rows. A
 model axis of size m makes m ranks hold one replica's rows together (tensor
@@ -64,8 +68,10 @@ DEFAULT_TIMEOUT_S = 600.0
 BUCKET_BYTES = 256 << 20
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
-# the resolved mesh of this process (setup_mesh): axis sizes and this rank's groups
-_MESH = {"data": 1, "model": 1, "groups": {}}
+# the resolved mesh of this process (setup_mesh): axis sizes, this rank's groups (and
+# "world": the mesh's ranks where it is smaller than the world), the mesh's size where it
+# is smaller than the world, and whether this rank lies beyond it
+_MESH = {"data": 1, "model": 1, "groups": {}, "size": None, "idle": False}
 # (kind, phase) -> [count, bytes] of the collectives issued (note); the phase a caller
 # sets with collective_phase
 COLLECTIVES: dict = defaultdict(lambda: [0, 0])
@@ -115,7 +121,17 @@ def rank() -> int:
 
 
 def world_size() -> int:
+    """The processes that run the step: the world's, or the mesh's where
+    :func:`setup_mesh` took a prefix of the world."""
+    if _MESH["size"] is not None:
+        return _MESH["size"]
     return dist.get_world_size() if is_initialized() else 1
+
+
+def idle() -> bool:
+    """Whether this rank lies beyond a mesh smaller than the world (:func:`setup_mesh`):
+    it has no place in the step."""
+    return _MESH["idle"]
 
 
 def local_rank() -> int:
@@ -224,26 +240,39 @@ def fake_world(n: int, data: Optional[int] = None, model: int = 1):
 def shutdown() -> None:
     if is_initialized():
         dist.destroy_process_group()
-    _MESH.update({"data": 1, "model": 1, "groups": {}})
+    _MESH.update({"data": 1, "model": 1, "groups": {}, "size": None, "idle": False})
 
 
 def setup_mesh(data: int, model: int) -> None:
     """Lay the world out as a ``data`` x ``model`` mesh: rank r at (r // model, r % model).
-    Every rank creates every group, columns (the data groups: the ranks of one model
-    index) then rows (the model groups: the ranks of one replica), in the same order."""
-    if data * model != world_size():
-        raise ValueError(f"mesh {data}x{model} over a world of {world_size()}")
-    _MESH.update({"data": data, "model": model, "groups": {}})
-    if model == 1 or world_size() == 1:
-        return  # the data group is the world; no model group
-    r = rank()
+    Every rank creates every group, the mesh's own first where the mesh is smaller than
+    the world (the mesh's data group where there is no model axis), then columns (the
+    data groups: the ranks of one model index) and rows (the model groups: the ranks of
+    one replica), in the same order; the ranks beyond the mesh belong to none of them
+    and are :func:`idle`."""
+    world = dist.get_world_size() if is_initialized() else 1
+    size, r = data * model, rank()
+    if size > world:
+        raise ValueError(f"mesh {data}x{model} over a world of {world}")
+    prefix = size < world
+    _MESH.update({"data": data, "model": model, "groups": {}, "size": size if prefix else None,
+                  "idle": r >= size})
+    mine = r < size
+    if prefix:
+        g = dist.new_group(list(range(size)))
+        if mine:
+            _MESH["groups"]["world"] = g
+            if model == 1:
+                _MESH["groups"][DATA_AXIS] = g
+    if model == 1 or world == 1:
+        return  # the data group is the mesh; no model group
     for j in range(model):
         g = dist.new_group([d * model + j for d in range(data)])
-        if r % model == j:
+        if mine and r % model == j:
             _MESH["groups"][DATA_AXIS] = g
     for d in range(data):
         g = dist.new_group([d * model + j for j in range(model)])
-        if r // model == d:
+        if mine and r // model == d:
             _MESH["groups"][MODEL_AXIS] = g
 
 
@@ -270,7 +299,8 @@ def axis_size(axis: str) -> int:
 
 
 def _group(axis: str):
-    """The process group of this rank's ``axis`` (None: the world)."""
+    """The process group of this rank's ``axis``, or ``'world'``: the mesh's ranks (None:
+    the world)."""
     return _MESH["groups"].get(axis)
 
 
@@ -279,10 +309,11 @@ def barrier() -> None:
     ``dist.barrier``, Stage0:321,357,428,795-798)."""
     if world_size() == 1:
         return
+    group = _group("world")
     if dist.get_backend() == "nccl":  # the fake backend's barrier needs no device
-        dist.barrier(device_ids=[torch.cuda.current_device()])
+        dist.barrier(group=group, device_ids=[torch.cuda.current_device()])
     else:
-        dist.barrier()
+        dist.barrier(group=group)
 
 
 # ------------------------------------------------------------------------ tensors
@@ -438,7 +469,7 @@ def broadcast_value(value: float, src: int = 0) -> float:
     if world_size() == 1:
         return float(value)
     t = torch.tensor([float(value)], dtype=torch.float64, device=_host_device())
-    dist.broadcast(t, src)
+    dist.broadcast(t, src, group=_group("world"))
     return float(t.item())
 
 

@@ -23,6 +23,12 @@ too) and text vocab. A decoder's KV heads where the query heads divide and the K
 do not (one KV head included) are replicated: the k/v projections, their LoRA adapters
 and quantized leaves; each rank slices the KV heads its query heads read after the
 projection (``ops/flash_attention.rank_kv_heads``), and their gradient is partial.
+A decoder quantized by NF4 (``nf4``, ``nf4-mirror``: ``models/decoder.py:
+QuantizedDecoderConfig``) keeps its blocks of 64 values along a projection's input
+whole on a rank, so its attention block and its MLP split only where the blocks of the
+row-parallel o_proj and down_proj (``block_scales [out, in / 64]``) divide too: Gemma3-1B's
+MLP of 6912 (108 blocks) splits at a model axis of 2, 3 or 4 and runs whole at 8. The JAX
+package replicates those leaves alone (by leaf, as everywhere).
 
 A :class:`ShardPlan` says, for a params tree, which leaves are sharded on which dim and
 which replicated leaves get a PARTIAL gradient on each model rank because they act on
@@ -56,6 +62,7 @@ from typing import Mapping, Optional, Sequence
 import torch
 
 from projectiontrainer_tpu_torch.core.pytree import leaves_with_paths, map_with_path
+from projectiontrainer_tpu_torch.ops import quant
 from projectiontrainer_tpu_torch.parallel import distributed
 from projectiontrainer_tpu_torch.utils.timing import span
 
@@ -141,20 +148,32 @@ class Units:
 @functools.lru_cache(maxsize=None)
 def units(cfg, model: int) -> Units:
     """The units of ``cfg`` (a decoder, a tower or the projector config) that a model
-    axis of ``model`` ranks splits: each whose dims all divide. KV heads are split only
-    where the query heads are, where they divide, and where there is more than one (the
-    rule at a model axis of one too, where nothing is cut)."""
+    axis of ``model`` ranks splits: each whose dims all divide, and for a decoder
+    quantized by NF4 whose row-parallel projection's blocks of 64 along its input divide
+    too (:func:`nf4_blocks`). KV heads are split only where the query heads are, where
+    they divide, and where there is more than one (the rule at a model axis of one too,
+    where nothing is cut)."""
     def div(n):
         return n % model == 0
 
     if hasattr(cfg, "num_kv_heads"):
-        attn = div(cfg.num_heads)
+        attn = div(cfg.num_heads) and div(nf4_blocks(cfg, cfg.num_heads * cfg.head_dim))
         return Units(attn=attn, kv=attn and cfg.num_kv_heads != 1 and div(cfg.num_kv_heads),
-                     mlp=div(cfg.intermediate_size), vocab=div(cfg.vocab_size))
+                     mlp=div(cfg.intermediate_size) and div(nf4_blocks(cfg, cfg.intermediate_size)),
+                     vocab=div(cfg.vocab_size))
     if hasattr(cfg, "intermediate_dim"):
         return Units(mlp=div(cfg.intermediate_dim))
     return Units(attn=div(cfg.num_heads), mlp=div(cfg.intermediate_size),
                  vocab=hasattr(cfg, "vocab_size") and div(cfg.vocab_size))
+
+
+def nf4_blocks(cfg, width: int) -> int:
+    """The NF4 blocks along an input of ``width`` values of a decoder quantized by NF4
+    (``ops/quant.py:quantize_nf4``: blocks of ``min(64, width)``); 0, which every model
+    axis divides, for any other decoder."""
+    if getattr(cfg, "quant_method", None) not in ("nf4", "nf4-mirror"):
+        return 0
+    return width // min(quant.NF4_BLOCK, width)
 
 
 def splits(cfg, unit: str) -> bool:

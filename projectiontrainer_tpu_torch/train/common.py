@@ -35,7 +35,9 @@ def init_world(cfg: CommonConfig) -> mesh.Mesh:
     A process that a launcher started (``RANK``/``WORLD_SIZE`` set: ``cli/launch.py``
     or ``torchrun``) joins the process group (``parallel/distributed.py``); the mesh
     is then ``--mesh_data`` x ``--mesh_model`` ranks (-1: the rest of the world), and
-    the mesh's groups are created. ``--mesh_model`` above 1 is tensor parallelism (every
+    the mesh's groups are created. A fully specified mesh smaller than the world takes
+    its first ranks; a rank beyond it logs that the mesh leaves it idle and exits 0
+    (``SystemExit(0)``) once every rank has created the groups. ``--mesh_model`` above 1 is tensor parallelism (every
     stage: the caller slices its params to the model rank's shards before
     :func:`place_params`). ``--fsdp`` (every stage, with or without ``--mesh_model``)
     shards the params and the optimizer state over the data axis
@@ -56,6 +58,13 @@ def init_world(cfg: CommonConfig) -> mesh.Mesh:
     world = mesh.build_mesh(mesh.MeshConfig(cfg.mesh_data, cfg.mesh_model),
                             distributed.world_size())
     distributed.setup_mesh(world.data, world.model)
+    if distributed.idle():
+        logging.getLogger(__name__).warning(
+            "rank %d is idle: the mesh --mesh_data %d x --mesh_model %d takes the first %d of "
+            "the world's %d ranks", distributed.rank(), world.data, world.model, world.size,
+            int(os.environ["WORLD_SIZE"]))
+        distributed.shutdown()
+        raise SystemExit(0)
     if device.type == "cuda" and device.index is None:
         cfg.device = f"cuda:{torch.cuda.current_device()}"
     if cfg.num_loader_procs > 0:

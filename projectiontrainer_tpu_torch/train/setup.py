@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 
 from projectiontrainer_tpu_torch.checkpoint import hf_import
+from projectiontrainer_tpu_torch.models import decoder as dec
 from projectiontrainer_tpu_torch.models import projector as proj
 from projectiontrainer_tpu_torch.models import vlm
 from projectiontrainer_tpu_torch.ops import quant
@@ -40,8 +41,10 @@ def build_vlm(vision_model_name: str, llm_name: str, *, device,
     ``quantize_llm`` stores the decoder's projections quantized by ``quant_method``
     ('nf4-mirror', the reference's NF4 value grid with int8 compute; 'nf4', exact; or
     'int8'), each quantized from its ``frozen_dtype`` weight, as the JAX package does;
-    each layer's dense weights are released once it is quantized. With a model axis
-    the params returned are this model rank's shards (:func:`shard_model`)."""
+    each layer's dense weights are released once it is quantized, and the decoder's
+    config says so (``decoder.QuantizedDecoderConfig``: the NF4 blocks a model axis must
+    keep whole). With a model axis the params returned are this model rank's shards
+    (:func:`shard_model`)."""
     for path in (vision_model_name, llm_name):
         if not os.path.isdir(path):
             raise FileNotFoundError(f"{path!r} is not a local model directory: download "
@@ -49,6 +52,8 @@ def build_vlm(vision_model_name: str, llm_name: str, *, device,
     vis_cfg, vis_params = hf_import.load_siglip_vision(vision_model_name, device=device,
                                                        dtype=frozen_dtype)
     llm_cfg, llm_params = hf_import.load_decoder(llm_name, device=device, dtype=frozen_dtype)
+    if quantize_llm:
+        llm_cfg = dec.quantized_config(llm_cfg, quant_method)
     layers = llm_params["layers"]
     for i, layer in enumerate(layers):
         if quantize_llm:

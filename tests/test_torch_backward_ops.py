@@ -229,9 +229,14 @@ def test_layernorm_bwd_plan_keeps_loads_in_flight(d):
 @pytest.mark.parametrize("n,d", [(16, 19369), (16, 20000), (16, 65536), (16, -8), (16, 0),
                                  (0, 1152)])
 def test_layernorm_bwd_plan_refuses(n, d):
-    """D must be at least 1 and at most 19,368: one ring row of x and dy and the fp32
-    scale must fit in the 227 KB of shared memory a block may use (any width below,
-    tests/test_torch_layernorm_widths.py); there must be rows."""
+    """D must be at least 1 and there must be rows. Above 19,368, where one ring row of
+    x and dy and the fp32 scale no longer fit in the 227 KB of shared memory a block may
+    use (and the plan used to raise), the rows are streamed (any width below,
+    tests/test_torch_layernorm_widths.py)."""
+    if n > 0 and d > 19368:
+        plan = FLN.bwd_plan(n, d, 132)
+        assert plan["streamed"] and plan["stages"] == 0 and plan["ctas"] == n
+        return
     with pytest.raises(ValueError):
         FLN.bwd_plan(n, d, 132)
 

@@ -106,8 +106,14 @@ def test_kernel_and_tiles_by_head_dim(d, fwd, dkv, dq):
     assert FA.dq_plan(d) == dq
 
 
-@pytest.mark.parametrize("d", [0, 32, 80, 96, 1024])  # 512 is a kernel's width
+@pytest.mark.parametrize("d", [0, 32, 80, 96, 1024, 1000])  # 512 is a kernel's width
 def test_plans_refuse_other_head_dims(d):
+    """Head dims no kernel takes raise (the wrappers pad them first); a multiple of 64
+    above 512, which used to raise, is the wide kernels' (column blocks of 128)."""
+    if FA.takes_head_dim(d):
+        for plan in (FA.forward_plan(d), FA.dkv_plan(d), FA.dq_plan(d)):
+            assert plan["col_blocks"] == -(-d // 128) and plan["col_block"] == 128
+        return
     with pytest.raises(ValueError):
         FA.forward_plan(d)
     with pytest.raises(ValueError):

@@ -1,16 +1,18 @@
 """Head dims the attention kernels do not take: the port zero-pads them on the card to
 the next width a kernel takes (``ops/flash_attention.py:flash_attention_padded``,
 ``ops/decode_attention.py:decode_attention_padded``), as the JAX package pads inside its
-flash kernel; 512 is the widest.
+flash kernel. Above 512 the wide kernels take every multiple of 64 (flash) and of 256
+(decode); nothing raises.
 
 The pad helpers, run here through the plain versions at the padded width, against the
 JAX package's ``flash_attention`` in interpret mode (forward and the three gradients)
 and its ``decode_attention`` (the XLA path, which it takes at these dims), fp32, the
-same numpy inputs, at D = 32, 80, 96, 100, and at 288, 320, 384 (padded to 512) and 512
-itself; tolerance 1e-5 absolute and relative. Then the card's branch on meta tensors
+same numpy inputs, at D = 32, 80, 96, 100, at 288, 320, 384 (padded to 512) and 512
+itself, and at 576, 640 and 1024 (the wide kernels' widths; decode pads 576 and 640 to
+768); tolerance 1e-5 absolute and relative. Then the card's branch on meta tensors
 (which stand for the card in the budget's trace): a head dim outside the kernels' set
-goes through the pad (320 too), 512 goes straight to the kernels, and one above 512
-raises."""
+goes through the pad (320 and 600 too), 512 and the multiples of 64 above it go
+straight to the kernels, 513 is padded to 576."""
 
 import jax
 import jax.numpy as jnp
@@ -25,7 +27,7 @@ from projectiontrainer_tpu_torch.ops import flash_attention as FA
 
 torch.set_num_threads(2)
 TOL = dict(rtol=1e-5, atol=1e-5)
-DIMS = (32, 80, 96, 100, 288, 320, 384, 512)
+DIMS = (32, 80, 96, 100, 288, 320, 384, 512, 576, 640, 1024)
 CASES = {
     "tower": dict(hq=4, hkv=4, causal=False, window=None, pad=False),
     "decoder": dict(hq=4, hkv=2, causal=True, window=16, pad=True),
@@ -37,7 +39,7 @@ CASES = {
 def test_padded_flash_matches_pallas(d, case):
     c = CASES[case]
     rng = np.random.default_rng(d)
-    b, t = 2, 40
+    b, t = 2, 40 if d <= 512 else 24  # above 512: fewer rows, for the file's time
     q = rng.standard_normal((b, t, c["hq"], d), dtype=np.float32)
     k = rng.standard_normal((b, t, c["hkv"], d), dtype=np.float32)
     v = rng.standard_normal((b, t, c["hkv"], d), dtype=np.float32)
@@ -48,7 +50,7 @@ def test_padded_flash_matches_pallas(d, case):
         mask[1, :13] = 0
     kw = dict(causal=c["causal"], window=c["window"])
     width = FA.padded_head_dim(d)
-    assert width in FA.HEAD_DIMS and width >= d
+    assert FA.takes_head_dim(width) and width >= d
 
     qt, kt, vt = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
     out, lse = FA.flash_attention_padded(qt, kt, vt, kv_mask=None if mask is None
@@ -65,6 +67,33 @@ def test_padded_flash_matches_pallas(d, case):
                                  kv_mask=jmask, interpret=True, **kw)
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(theirs), **TOL)
     grads = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    for name, ours, g in zip("qkv", (qt.grad, kt.grad, vt.grad), grads):
+        np.testing.assert_allclose(ours.numpy(), np.asarray(g), err_msg=f"d{name}", **TOL)
+
+
+@pytest.mark.parametrize("d", [576, 640, 1024])
+def test_merged_matches_pallas_above_512(d):
+    """``flash_attention_merged`` on head-merged [B, T, H*D] tensors (views of the same
+    storage, padded like any other above 512) against the JAX package's flash attention
+    on the [B, T, H, D] view, forward and gradients, GQA 4/2."""
+    rng = np.random.default_rng(20 + d)
+    b, t = 2, 16
+    q = rng.standard_normal((b, t, 4 * d), dtype=np.float32)
+    k, v = (rng.standard_normal((b, t, 2 * d), dtype=np.float32) for _ in range(2))
+    w = rng.standard_normal((b, t, 4 * d), dtype=np.float32)
+    qt, kt, vt = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
+    out = FA.flash_attention_merged(qt, kt, vt, heads=4, kv_heads=2)
+    assert out.shape == (b, t, 4 * d)
+    (out * torch.tensor(w)).sum().backward()
+
+    def attend(q_, k_, v_):
+        o = JFA.flash_attention(q_.reshape(b, t, 4, d), k_.reshape(b, t, 2, d),
+                                v_.reshape(b, t, 2, d), interpret=True)
+        return o.reshape(b, t, -1)
+
+    theirs, vjp = jax.vjp(attend, *map(jnp.asarray, (q, k, v)))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(theirs), **TOL)
+    grads = vjp(jnp.asarray(w))
     for name, ours, g in zip("qkv", (qt.grad, kt.grad, vt.grad), grads):
         np.testing.assert_allclose(ours.numpy(), np.asarray(g), err_msg=f"d{name}", **TOL)
 
@@ -88,22 +117,29 @@ def test_padded_decode_matches_xla(d):
 
 
 def test_padded_widths():
+    """Up to 512 the next kernel width; above it the next multiple of 64 (flash) or of
+    256 (decode), where 513 used to raise."""
     assert [FA.padded_head_dim(d) for d in (1, 64, 65, 72, 73, 128, 200, 256, 257, 320, 512)] == [
         64, 64, 72, 72, 128, 128, 256, 256, 512, 512, 512]
     assert [FA.padded_head_dim(d, DA.HEAD_DIMS) for d in (32, 72, 96, 129, 288)] == [
         64, 128, 128, 256, 512]
-    for widths in (FA.HEAD_DIMS, DA.HEAD_DIMS):
-        with pytest.raises(ValueError, match="513.*512"):
-            FA.padded_head_dim(513, widths)
+    assert [FA.padded_head_dim(d) for d in (513, 576, 600, 640, 1000, 1024)] == [
+        576, 576, 640, 640, 1024, 1024]
+    assert [DA.padded_width(d) for d in (96, 513, 576, 640, 768, 1000, 1024)] == [
+        128, 768, 768, 768, 768, 1024, 1024]
+    assert all(FA.takes_head_dim(d) for d in (576, 640, 1024, 4096))
+    assert not any(FA.takes_head_dim(d) for d in (80, 513, 600))
+    assert DA.takes_head_dim(1024) and not DA.takes_head_dim(640)
 
 
 def test_card_branch_pads_on_meta_tensors():
     """Meta tensors take the kernels' branch (the budget's stand-in for the card): a
-    head dim outside the kernels' set is padded there (320 to 512), 512 runs as it is,
-    the merged layout too, and the shapes that come back are the caller's; nothing is
-    launched; above 512 the wrapper raises with the limit in the message."""
+    head dim outside the kernels' set is padded there (320 to 512, 600 to 640), 512 and
+    the wide kernels' widths run as they are, the merged layout too, and the shapes that
+    come back are the caller's; nothing is launched; 513, which used to raise, is padded
+    to 576."""
     before = (FA.launches.value, FA.bwd_dkv_launches.value, FA.bwd_dq_launches.value)
-    for d in (32, 80, 96, 100, 320, 512):
+    for d in (32, 80, 96, 100, 320, 512, 576, 600, 1024):
         q = torch.empty(2, 64, 4, d, dtype=torch.bfloat16, device="meta", requires_grad=True)
         k = torch.empty(2, 64, 2, d, dtype=torch.bfloat16, device="meta", requires_grad=True)
         out, lse = FA.flash_attention(q, k, k, causal=True, window=16)
@@ -114,5 +150,38 @@ def test_card_branch_pads_on_meta_tensors():
         assert FA.flash_attention_merged(qm, qm, qm, heads=4, kv_heads=4).shape == qm.shape
     assert (FA.launches.value, FA.bwd_dkv_launches.value, FA.bwd_dq_launches.value) == before
     big = torch.empty(1, 8, 2, 513, dtype=torch.bfloat16, device="meta")
-    with pytest.raises(ValueError, match="513.*512"):
-        FA.flash_attention(big, big, big)
+    out, lse = FA.flash_attention(big, big, big)
+    assert out.shape == big.shape and lse.shape == (1, 2, 8)
+    assert FA.forward_plan(FA.padded_head_dim(513))["col_blocks"] == 5
+
+
+@pytest.mark.parametrize("d,blocks", [(576, 5), (640, 5), (1024, 8), (4096, 32)])
+def test_wide_plans(d, blocks):
+    """The wide kernels' plans: 64-row tiles over 128-column blocks (the last of 576
+    holds 64), the scores over 64-column chunks; the same tile ranges as the kernels'."""
+    fwd, dkv, dq = FA.forward_plan(d), FA.dkv_plan(d), FA.dq_plan(d)
+    assert fwd == dq == {"bq": 64, "bk": 64, "col_block": 128, "col_blocks": blocks,
+                         "chunk": 64}
+    assert dkv == {"bk": 64, "bq": 64, "col_block": 128, "col_blocks": blocks, "chunk": 64}
+    assert FA.kv_tile_range(128, 64, 64, 1024, True, 512) == (0, 3)
+    assert FA.q_tile_range(128, 64, 64, 1024, True, 512) == (2, 11)
+    for bad in (520, 600):
+        with pytest.raises(ValueError, match="multiple of 64"):
+            FA.forward_plan(bad)
+
+
+@pytest.mark.parametrize("d,rows,blocks,groups", [(768, 32, 3, 1), (1024, 16, 4, 1),
+                                                   (4096, 8, 16, 2)])
+def test_wide_decode_plan(d, rows, blocks, groups):
+    """K3 above 512: column blocks of 256, each a unit with its own splits; the rows a
+    CTA holds by shared memory (16 at 1024, 8 at 4096: 3 beams of 4 heads then take two
+    row groups); more rows a KV head in row groups."""
+    assert DA.max_rows(d) == rows and DA.smem_bytes(d, rows) <= DA.SMEM_LIMIT
+    assert DA.smem_bytes(d, 2 * rows) > DA.SMEM_LIMIT
+    plan = DA.decode_plan(8, 3, 1, 831, 32, 31, 831, None, 132, n_rep=4, d=d)
+    assert plan["col_blocks"] == blocks and plan["groups"] == groups
+    assert plan["ctas"] == blocks * 8 * (groups * plan["p_splits"] + 3 * plan["g_splits"])
+    assert plan["chunk"] % DA.TILE_KEYS == 0 and plan["ctas"] > 8
+    grouped = DA.decode_plan(2, 24, 1, 300, 16, 15, 300, None, 132, n_rep=4, d=d)
+    assert grouped["beams_per_group"] * grouped["reps_per_group"] <= rows
+    assert grouped["groups"] == -(-24 // grouped["beams_per_group"])

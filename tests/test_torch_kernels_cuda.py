@@ -31,7 +31,7 @@ def _bf16(rng, shape, device):
         torch.bfloat16)
 
 
-@pytest.mark.parametrize("d", [64, 1000, 1152])
+@pytest.mark.parametrize("d", [64, 1000, 1152, 20480, 24577])
 def test_layernorm_kernel(card, d):
     rng = np.random.default_rng(0)
     x = _bf16(rng, (300, d), card)
@@ -79,6 +79,9 @@ def _pad_mask(b, t, pad, n, card):
     (65, 256, 4, 1, True, 37, "left", True),
     (300, 64, 4, 4, True, None, "left", True),     # left padding masks a whole query tile
     (300, 72, 4, 2, True, 37, "left", False),
+    (300, 1024, 4, 1, True, 100, "left", False),   # above 512: column blocks of 128
+    (150, 640, 4, 4, False, None, None, True),
+    (129, 576, 4, 2, True, None, "right", False),  # a last block of 64 columns
 ])
 def test_flash_kernel(card, t, d, hq, hkv, causal, window, pad, sliced):
     rng = np.random.default_rng(1)
@@ -101,7 +104,8 @@ def test_flash_kernel(card, t, d, hq, hkv, causal, window, pad, sliced):
 
 
 @pytest.mark.parametrize("t,d,hq,hkv,causal", [(150, 64, 4, 4, False), (1024, 72, 4, 4, False),
-                                               (300, 128, 4, 2, True), (300, 256, 4, 1, True)])
+                                               (300, 128, 4, 2, True), (300, 256, 4, 1, True),
+                                               (300, 1024, 4, 1, True), (200, 640, 4, 4, False)])
 def test_flash_forward_fp32_copy_and_reruns(card, t, d, hq, hkv, causal):
     """The fp32 copy of O that the forward writes for the backward's delta rounds to the
     bf16 O of the same launch, and a rerun gives the same bits (no sum of the kernel
@@ -118,9 +122,9 @@ def test_flash_forward_fp32_copy_and_reruns(card, t, d, hq, hkv, causal):
 
 
 def test_flash_kernel_rejects_unsupported(card):
-    q = torch.zeros((1, 8, 2, 513), dtype=torch.bfloat16, device=card)
-    with pytest.raises(ValueError, match="512"):
-        FA.flash_attention(q, q, q)  # head dim 513: above the widest kernel, no pad
+    q = torch.zeros((1, 8, 2, 520), dtype=torch.bfloat16, device=card)
+    with pytest.raises(ValueError, match="512"):  # no kernel's width; the launch pads nothing
+        FA._launch(q, q, q, scale=0.05, causal=False, window=None, kv_mask=None)
     with pytest.raises(TypeError):
         FA.flash_attention(q.float()[..., :64], q.float()[..., :64], q.float()[..., :64])
     q = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16, device=card)
@@ -154,6 +158,9 @@ def test_flash_kernel_rejects_unsupported(card):
     (2, 3, 40, 1, 150, 16, 128, 15, None, "left"),    # 40 heads a beam: groups of its rows
     (3, 3, 8, 1, 831, 32, 512, 31, None, "left"),     # head dim 512: 24 rows, 2 groups
     (2, 3, 4, 1, 300, 16, 320, 15, 200, "left"),      # 320, padded to 512
+    (8, 3, 4, 1, 831, 32, 1024, 31, None, "left"),    # above 512: column blocks of 256
+    (2, 24, 4, 1, 300, 16, 1024, 15, 100, "splits"),  # ... and row groups of 16
+    (2, 3, 4, 1, 300, 16, 640, 15, None, "left"),     # 640, padded to 768
 ])
 def test_decode_kernel(card, b, nb, hq, hkv, p, g, d, t, window, pad):
     """Within atol = rtol = 2e-2 of the plain version in fp32, a rerun bit-equal (the
@@ -174,7 +181,7 @@ def test_decode_kernel(card, b, nb, hq, hkv, p, g, d, t, window, pad):
     for _ in range(2):
         assert torch.equal(got, DA.decode_attention(q, kp, vp, kg, vg, **kw))
     sms = torch.cuda.get_device_properties(card).multi_processor_count
-    width = FA.padded_head_dim(d, DA.HEAD_DIMS)
+    width = DA.padded_width(d)
     assert DA.decode_plan(b, nb, hkv, p, g, t, p, window, sms, n_rep=hq // hkv,
                           d=width)["ctas"] > b * hkv
 
@@ -209,6 +216,9 @@ def _rel_close(got, ref, rel=2e-2):
     (2, 300, 4, 2, 72, True, 37, "left", False),
     (2, 150, 4, 1, 512, True, 37, "left", False),      # head dim 512: columns split
     (2, 257, 4, 4, 512, False, None, "right", True),
+    (2, 150, 4, 1, 1024, True, 37, "left", False),     # above 512: column blocks
+    (2, 257, 4, 2, 640, False, None, "right", True),   # a last block of 128
+    (2, 300, 4, 4, 576, True, None, None, False),      # ... and of 64
 ])
 def test_flash_backward_kernels(card, b, t, hq, hkv, d, causal, window, pad, sliced):
     rng = np.random.default_rng(4)
@@ -237,7 +247,9 @@ def test_flash_backward_kernels(card, b, t, hq, hkv, d, causal, window, pad, sli
 @pytest.mark.parametrize("t,d,hq,hkv,causal,window", [(300, 64, 4, 4, False, None),
                                                       (1024, 72, 4, 4, False, None),
                                                       (300, 128, 8, 2, True, 37),
-                                                      (300, 256, 4, 1, True, None)])
+                                                      (300, 256, 4, 1, True, None),
+                                                      (300, 1024, 4, 1, True, 100),
+                                                      (200, 640, 4, 4, False, None)])
 def test_flash_dkv_reruns_are_bit_equal(card, t, d, hq, hkv, causal, window):
     """Each element of dK, dV and dQ is summed by one thread in program order (the query
     heads of a KV head inside the CTA too): a rerun gives the same bits."""
@@ -350,6 +362,8 @@ def test_flash_backward_rejects_unsupported(card):
     (16384, 1004, torch.bfloat16, True), (16, 1001, torch.bfloat16, False),
     (200, 1001, torch.float32, False), (4096, 6144, torch.bfloat16, True),
     (2048, 8192, torch.bfloat16, True), (300, 4104, torch.float32, True),
+    (2048, 20480, torch.bfloat16, False), (1000, 24577, torch.bfloat16, False),  # streamed
+    (2, 32768, torch.bfloat16, False), (300, 20480, torch.float32, False),
 ])
 def test_layernorm_backward_kernel(card, n, d, dtype, ragged):
     """K8's dx, dscale and dbias against the plain backward, each within 2e-2 x
@@ -390,7 +404,8 @@ def test_layernorm_backward_kernel_strided_rows_and_fp32_scale(card):
 
 
 def test_layernorm_backward_kernel_refuses(card):
-    """A D wider than one ring row fits, another dtype or dy of another shape raise:
+    """A D wider than one ring row fits streams its rows; another dtype or dy of another
+    shape raise:
     there is no fallback. Rows that are not 16-byte aligned and the widths the kernel
     used to refuse (1156, 4104) are taken, by the row warps' cp.async: the plain
     backward's numbers."""
@@ -408,9 +423,12 @@ def test_layernorm_backward_kernel_refuses(card):
         ref = FLN.layernorm_bwd_reference(*(a.float() for a in args), 1e-6)
         for a, b in zip(got, ref):
             _rel_close(a, b)
-    with pytest.raises(ValueError, match="19369"):
-        wide = torch.zeros((4, 19369), dtype=torch.bfloat16, device=card)
-        FLN.layernorm_bwd(wide, wide, torch.ones(19369, device=card), 1e-6)
+    wide, g_wide = _bf16(rng, (4, 19369), card), _bf16(rng, (4, 19369), card)
+    scale_wide = torch.ones(19369, device=card)  # one ring row no longer fits: streamed
+    assert FLN.bwd_plan(4, 19369, 132)["streamed"]
+    for a, b in zip(FLN.layernorm_bwd(wide, g_wide, scale_wide, 1e-6),
+                    FLN.layernorm_bwd_reference(wide.float(), g_wide.float(), scale_wide, 1e-6)):
+        _rel_close(a, b)
     with pytest.raises(TypeError):
         h = x[:, :1152].half()
         FLN.layernorm_bwd(h, h, scale, 1e-6)

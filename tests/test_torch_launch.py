@@ -11,7 +11,11 @@ the projector of one process trained at batch 4 on the same samples within 1e-5.
 Stages 0 and 2 and the cls probe run the same way (2 ranks, tiny snapshots): every rank
 ends with the same result, and rank 0 writes what each evaluation gathers from every
 rank (stage 0's zero-shot accuracy, stage 2's validation examples, the cls
-``results.tsv``). A rank that fails fails the launch.
+``results.tsv``). A rank that fails fails the launch. ``--simulate 2 --devices_per_host
+2`` starts 4 ranks (2 simulated hosts of 2), and stage 1 at ``--mesh_data 2`` over that
+world of 4 trains on ranks 0-1 as the 2-rank world does (its losses within 1e-5 of one
+process at twice the batch) while ranks 2-3, beyond the mesh, say so and exit 0;
+``--devices_per_host`` without ``--simulate`` is refused.
 """
 
 import json
@@ -64,7 +68,9 @@ def test_more_ranks_than_gpus_under_nccl_raises(argv, monkeypatch):
 
 @pytest.mark.parametrize("argv", [["--simulate", "2", "--backend", "nccl", "stage1"],
                                   ["--simulate", "2", "stage1", "--", "--device", "cuda"],
-                                  ["--nproc_per_node", "1"]])
+                                  ["--nproc_per_node", "1"],
+                                  ["--devices_per_host", "2", "stage1"],
+                                  ["--simulate", "2", "--devices_per_host", "0", "stage1"]])
 def test_launcher_refuses_what_it_cannot_run(argv):
     with pytest.raises(SystemExit) as e:
         launch.main(argv)
@@ -219,3 +225,28 @@ def test_simulated_two_rank_run_of_every_trainer(snapshots, tmp_path, stage):
         with open(os.path.join(out, WRITTEN[stage][0])) as f:
             # every rank's real validation rows: the 8 samples, gathered
             assert f.read().count("QUESTION: ") == 8
+
+
+def test_devices_per_host_and_a_mesh_smaller_than_the_world(snapshots, tmp_path):
+    out = str(tmp_path / "prefix")
+    rc, logs = _launch(["--simulate", "2", "--devices_per_host", "2", "--timeout", "60",
+                        "--feeder_procs", "0", "stage1", "--",
+                        *_stage_argv(snapshots, out, 2), "--mesh_data", "2"])
+    assert rc == 0, logs[-4000:]
+    for r in range(4):  # 2 simulated hosts of 2 ranks
+        assert f"[rank {r}] launch: rank {r}/4, local rank {r % 2}/2, backend=gloo" in logs
+    for r in (2, 3):
+        assert f"rank {r} is idle: the mesh --mesh_data 2 x --mesh_model 1" in logs
+    results = {int(line.split(" launch: rank ", 1)[1].split()[0]):
+               json.loads(line.split(" result ", 1)[1]) for line in logs.splitlines()
+               if " launch: rank " in line and " result " in line}
+    assert sorted(results) == [0, 1]
+    assert results[0]["train/epoch_loss"] == results[1]["train/epoch_loss"]
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        losses = [r["train/batch_loss"] for r in map(json.loads, f) if "train/batch_loss" in r]
+    one = str(tmp_path / "one")
+    train_stage1.main(_stage_argv(snapshots, one, 4) + ["--device", "cpu"])
+    with open(os.path.join(one, "metrics.jsonl")) as f:
+        one_losses = [r["train/batch_loss"] for r in map(json.loads, f) if "train/batch_loss" in r]
+    assert len(losses) == 4
+    np.testing.assert_allclose(losses, one_losses, rtol=1e-5)

@@ -4,8 +4,10 @@ widths the kernel used to refuse (D not a multiple of 8, D above 4096).
 ``bwd_plan`` at D = 1000, 1001, 1004, 4104, 6144 and 8192, bf16 and fp32 rows: no raise,
 every row in one band, shared memory within the 227 KB a block may use; the widths the
 kernel took before keep their plan; a D whose one ring row of x and dy and fp32 scale
-would not fit raises with the limit. ``bwd_direct`` sends the rows a bulk copy cannot
-take to the row warps' cp.async. Then the port's LayerNorm forward and backward
+would not fit (20480, 24577, 32768) takes the streamed kernel's plan, one row at a time
+in chunks of 512 vectors, a CTA an SM. ``bwd_direct`` sends the rows a bulk copy cannot
+take to the row warps' cp.async. K2's plan: the whole row in registers up to 16384,
+column chunks above. Then the port's LayerNorm forward and backward
 (the plain versions the kernels hold to, inside the same ``torch.autograd.Function``)
 against ``jax.grad`` of the JAX package's ``layernorm`` at 1004 (its XLA path, which it
 takes there) and 6144 (also its Pallas kernel in interpret mode), fp32, numpy inputs
@@ -58,10 +60,40 @@ def test_the_old_widths_keep_their_plan(d):
 
 
 def test_the_widest_rows():
+    """The widest ring row (19,368 in bf16) keeps the ring; one wider, where the plan
+    used to raise, streams its rows."""
     widest = max(d for d in range(19000, 20000) if FLN.bwd_smem_bytes(d, 2, 1, 1) <= FLN.SMEM_LIMIT)
+    assert widest == 19368
     assert FLN.bwd_plan(8, widest, 132)["rows"] == 1
-    with pytest.raises(ValueError, match=f"{widest + 1}.*{FLN.SMEM_LIMIT}"):
-        FLN.bwd_plan(8, widest + 1, 132)
+    assert FLN.bwd_plan(8, widest + 1, 132) == {"ctas": 8, "rows": 1, "stages": 0,
+                                                "streamed": True, "chunk": 4096,
+                                                "smem_bytes": 0}
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("n,d", [(2048, 20480), (1000, 24577), (512, 32768), (2, 32768),
+                                 (131, 20480)])
+def test_streamed_plan(n, d, itemsize):
+    """Rows too wide for one ring row: the streamed kernel, a CTA an SM (one up to two
+    rows), every row in one band, 16 bytes a thread of 512 a chunk; its partial sums as
+    the ring's."""
+    plan = FLN.bwd_plan(n, d, 132, itemsize)
+    assert plan["streamed"] and plan["stages"] == 0 and plan["rows"] == 1
+    assert plan["ctas"] == (1 if n <= 2 else min(132, n))
+    assert plan["chunk"] == FLN.BWD_STREAM_THREADS * 16 // itemsize
+    covered = np.zeros(n, int)
+    for start, count in FLN.bwd_bands(n, plan["ctas"]):
+        covered[start:start + count] += 1
+    assert (covered == 1).all() and not FLN.bwd_ragged(n, plan)
+    bufs = FLN.bwd_buffers(n, d, torch.bfloat16, plan)
+    assert bufs["part"][0] == (plan["ctas"], 2, FLN.bwd_slot(d))
+
+
+def test_forward_plan():
+    assert FLN.fwd_plan(1152) == {"block": 2048, "chunked": False, "num_warps": 4}
+    assert FLN.fwd_plan(16384) == {"block": 16384, "chunked": False, "num_warps": 8}
+    for d in (16385, 20480, 24577, 32768):
+        assert FLN.fwd_plan(d) == {"block": FLN.FWD_CHUNK, "chunked": True, "num_warps": 8}
 
 
 def test_direct_rows():
@@ -93,7 +125,7 @@ def _close(ours, theirs):
     assert err <= REL * np.abs(theirs).max(), err
 
 
-@pytest.mark.parametrize("d", [1004, 6144])
+@pytest.mark.parametrize("d", [1004, 6144, 20480, 24577])
 def test_layernorm_matches_jax(d, monkeypatch):
     x, scale, bias, dy = _case(24, d, d)
     tx, ts, tb = (torch.tensor(a, requires_grad=True) for a in (x, scale, bias))

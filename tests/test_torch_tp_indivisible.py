@@ -21,7 +21,11 @@ package replicates each leaf that does not divide. The cases:
     129 whole): stage 0 with global negatives and the text tower trained, and the cls
     probe over a tower of 3 heads;
 (d) stage 0 at 2 x 2 under ``--fsdp``: towers of 4 heads (split) with MLPs of 515
-    (whole on the model axis, data-sharded on their width).
+    (whole on the model axis, data-sharded on their width);
+(e) (b)'s QLoRA VLM with an MLP of 384 at 1 x 4, quantized by nf4 and by nf4-mirror: its
+    rows divide over the 4 ranks, its 6 blocks of 64 along down_proj's input do not, so
+    the port runs the MLP whole (``sharding.units``: a unit whole) where the JAX package
+    replicates the leaves that do not divide (``block_scales``) and shards the rest.
 
 The ranks are ``tests/torch_tp_worker.py`` (a, b) and ``tests/torch_tp_towers_worker.py``
 (c, d) processes (no JAX; the four meshes spawned at once, each rank bounded by 120 s).
@@ -41,6 +45,7 @@ cosine >= 0.9999 (0.999 against JAX). The model-axis collectives of (a)'s stage 
 """
 
 import concurrent.futures
+import dataclasses
 import functools
 import os
 
@@ -68,7 +73,7 @@ from projectiontrainer_tpu.train import optim as JO
 from projectiontrainer_tpu.train import steps as JS
 from projectiontrainer_tpu_torch.checkpoint import from_jax
 from projectiontrainer_tpu_torch.core.pytree import unique_leaves_with_paths
-from projectiontrainer_tpu_torch.models import classifier
+from projectiontrainer_tpu_torch.models import classifier, decoder
 from projectiontrainer_tpu_torch.ops.flash_attention import rank_kv_heads
 from projectiontrainer_tpu_torch.parallel import sharding
 
@@ -90,9 +95,12 @@ FSDP_RTOL, FSDP_COS, FSDP_COS_JAX = 1e-5, 0.9999, 0.999
 # case -> (mesh, worker): the VLM cases on torch_tp_worker, the towers' on the other
 CASES = {"stage1": "1x2", "full_joint": "1x2", "generate": "1x2", "forward_kv": "1x2",
          "qlora": "1x4", "generate_kv": "1x4", "stage0": "1x2", "cls": "1x2",
-         "stage0_fsdp": "2x2"}
+         "stage0_fsdp": "2x2", "qlora_nf4_blocks": "1x4", "qlora_mirror_blocks": "1x4"}
 TOWERS = ("stage0", "cls", "stage0_fsdp")
-TRAIN = ("stage1", "full_joint", "qlora", "stage0", "cls", "stage0_fsdp")
+TRAIN = ("stage1", "full_joint", "qlora", "stage0", "cls", "stage0_fsdp", "qlora_nf4_blocks",
+         "qlora_mirror_blocks")
+# (e)'s models: an MLP of 384, quantized by each NF4 method
+BLOCKS = {"qwen_blocks_nf4": "nf4", "qwen_blocks_mirror": "nf4-mirror"}
 
 
 def _meshes():
@@ -124,9 +132,10 @@ def _jcfg(model):
                                  sliding_window=16, query_pre_attn_scalar=16)
         return JVLM.VLMConfig(vision=vis, llm=llm, projector=JPROJ.ProjectorConfig(
             vision_dim=33, llm_dim=48, expansion_factor=3))
-    if model == "qwen":
+    if model in ("qwen",) + tuple(BLOCKS):
         vis = T.tiny_vision_cfg(hidden=30, heads=3)
-        llm = JDEC.qwen3_config(vocab_size=131, hidden_size=128, intermediate_size=512,
+        llm = JDEC.qwen3_config(vocab_size=131, hidden_size=128,
+                                intermediate_size=384 if model in BLOCKS else 512,
                                 num_layers=2, num_heads=4, num_kv_heads=2, head_dim=64)
         return JVLM.VLMConfig(vision=vis, llm=llm, projector=JPROJ.ProjectorConfig(
             vision_dim=30, llm_dim=128, expansion_factor=3))
@@ -141,9 +150,11 @@ def _jcfg(model):
     return JC.ClassifierConfig(vision=vcfg, num_classes=4, num_heads=4, dropout_rate=0.0)
 
 
-MODELS = ("gemma", "qwen", "qwen_dense", "qwen_kv6", "siglip", "siglip_wide", "classifier")
+MODELS = ("gemma", "qwen", "qwen_dense", "qwen_kv6", "siglip", "siglip_wide", "classifier",
+          "qwen_blocks_nf4", "qwen_blocks_mirror")
 INIT = {"gemma": JVLM.init, "qwen": JVLM.init, "qwen_dense": JDEC.init, "qwen_kv6": JDEC.init,
-        "siglip": JSIG.init, "siglip_wide": JSIG.init, "classifier": JC.init}
+        "siglip": JSIG.init, "siglip_wide": JSIG.init, "classifier": JC.init,
+        "qwen_blocks_nf4": JVLM.init, "qwen_blocks_mirror": JVLM.init}
 
 
 @functools.cache
@@ -152,12 +163,12 @@ def _jparams(model):
     B drawn off zero so that the A gradients are nonzero too)."""
     jcfg = _jcfg(model)
     jp = jax.jit(INIT[model], static_argnums=1)(jax.random.key(0), jcfg)
-    if model == "qwen":
-        jp["llm"] = jax.jit(functools.partial(JQ.quantize_decoder, method="nf4-mirror"))(
-            jp["llm"])
+    if model == "qwen" or model in BLOCKS:
+        jp["llm"] = jax.jit(functools.partial(JQ.quantize_decoder,
+                                              method=BLOCKS.get(model, "nf4-mirror")))(jp["llm"])
         jp["lora"] = JL.init(jax.random.key(1), jcfg.llm, JL.LoraConfig(r=4, alpha=8))
     jp = jax.tree.map(np.asarray, jp)
-    if model == "qwen":
+    if model == "qwen" or model in BLOCKS:
         rng = np.random.default_rng(2)
         for layer in jp["lora"]["layers"]:
             for p in layer.values():
@@ -207,7 +218,8 @@ def _tower_batches(kind, image_size):
 
 MODEL_OF = {"stage1": "gemma", "full_joint": "gemma", "generate": "gemma", "qlora": "qwen",
             "generate_kv": "qwen_dense", "forward_kv": "qwen_kv6", "stage0": "siglip",
-            "cls": "classifier", "stage0_fsdp": "siglip_wide"}
+            "cls": "classifier", "stage0_fsdp": "siglip_wide",
+            "qlora_nf4_blocks": "qwen_blocks_nf4", "qlora_mirror_blocks": "qwen_blocks_mirror"}
 GENERATE = ("generate", "generate_kv")
 
 
@@ -223,7 +235,7 @@ def _case(name):
     jcfg, jp = _case_cfg(name), _jparams(MODEL_OF[name])
     if name == "stage1":
         return dict(kind="stage1", batches=_vlm_batches("stage1")), jcfg, jp
-    if name in ("full_joint", "qlora"):
+    if name in ("full_joint", "qlora", "qlora_nf4_blocks", "qlora_mirror_blocks"):
         case = (dict(policy=FULL_JOINT, remat=True) if name == "full_joint" else
                 dict(policy=QLORA, lora_r=4, remat="dots"))
         return dict(kind="stage2", batches=_vlm_batches("stage2"), **case), jcfg, jp
@@ -244,13 +256,18 @@ def _case(name):
                  batches=_tower_batches("stage0", 16)), jcfg, jp)
 
 
-def _port_cfg(jcfg):
+def _port_cfg(jcfg, quant_method=None):
+    """The port's config of ``jcfg``; its decoder quantized by ``quant_method`` where one
+    is given (``decoder.QuantizedDecoderConfig``, as ``setup.build_vlm`` makes it)."""
     if isinstance(jcfg, JC.ClassifierConfig):
         return classifier.ClassifierConfig(vision=from_jax.config_from_jax(jcfg.vision),
                                            num_classes=jcfg.num_classes,
                                            num_heads=jcfg.num_heads,
                                            dropout_rate=jcfg.dropout_rate)
-    return from_jax.config_from_jax(jcfg)
+    cfg = from_jax.config_from_jax(jcfg)
+    if quant_method is not None:
+        cfg = dataclasses.replace(cfg, llm=decoder.quantized_config(cfg.llm, quant_method))
+    return cfg
 
 
 def _port_params(name):
@@ -266,7 +283,8 @@ def _port_params(name):
 
 def _port_case(name):
     case, jcfg, _ = _case(name)
-    return {**case, "cfg": _port_cfg(jcfg), "params": _port_params(name)}
+    return {**case, "cfg": _port_cfg(jcfg, BLOCKS.get(MODEL_OF[name])),
+            "params": _port_params(name)}
 
 
 # ------------------------------------------------------------------ the ranks
@@ -382,15 +400,46 @@ def test_the_plans_leave_the_indivisible_units_whole():
             "stage0": ["vision attention", "text attention", "text vocab"],
             "cls": ["vision attention"],
             "stage0_fsdp": ["vision MLP", "text MLP", "text vocab"]}
+    blocks = ["llm KV heads", "llm MLP", "llm vocab", "projector MLP", "vision attention"]
+    want.update(qlora_nf4_blocks=blocks, qlora_mirror_blocks=blocks)
     for name, whole in want.items():
         model = int(CASES[name].split("x")[1])
-        assert sharding.check_config(_port_cfg(_case_cfg(name)), model) == whole, name
+        cfg = _port_cfg(_case_cfg(name), BLOCKS.get(MODEL_OF[name]))
+        assert sharding.check_config(cfg, model) == whole, name
     assert sharding.check_config(vlm.full_joint_4b_config(), 8) == ["llm KV heads"]
     stage1_1b = vlm.VLMConfig(vision=siglip.vit_l_16_384(),
                               projector=projector.ProjectorConfig(1024, 1152),
                               llm=decoder.gemma3_config(num_layers=6))
     assert sharding.check_config(stage1_1b, 3) == [
         "llm attention", "llm vocab", "projector MLP", "vision attention", "vision MLP"]
+
+
+@pytest.mark.parametrize("name", ["qlora_nf4_blocks", "qlora_mirror_blocks"])
+def test_nf4_blocks_keep_the_mlp_whole(name):
+    """(e)'s plan at 1 x 4: the MLP's rows divide, its NF4 blocks do not, so every leaf
+    of the MLP (codes, block scales, LoRA) stays whole on each rank, while the attention
+    and the same decoder unquantized split; the JAX package shards the codes and
+    replicates the block scales alone."""
+    cfg = _port_cfg(_case_cfg(name), BLOCKS[MODEL_OF[name]])
+    assert sharding.nf4_blocks(cfg.llm, cfg.llm.intermediate_size) == 6
+    dense = _port_cfg(_case_cfg(name))
+    assert sharding.units(dense.llm, 4).mlp and not sharding.units(cfg.llm, 4).mlp
+    assert sharding.units(cfg.llm, 4).attn
+    params = _port_params(name)
+    plan = sharding.plan_for(params, cfg, model=4, rank=3)
+    mlp = [p for p, _ in unique_leaves_with_paths(params)
+           if p.startswith("llm/") and "/mlp/" in p
+           or p.startswith("lora/") and any(t in p for t in ("gate_proj", "up_proj", "down_proj"))]
+    assert mlp and not any(p in plan.dims for p in mlp)
+    key = "packed_nf4" if BLOCKS[MODEL_OF[name]] == "nf4" else "qvalues_block"
+    assert plan.dims["llm/layers/0/attn/o_proj/" + key] == 1
+    assert plan.dims["llm/layers/0/attn/q_proj/block_scales"] == 0
+    local = sharding.shard_params(params, plan)
+    down = params["llm"]["layers"][0]["mlp"]["down_proj"]
+    assert local["llm"]["layers"][0]["mlp"]["down_proj"]["block_scales"] is down["block_scales"]
+    jspecs = param_shardings(_jparams(MODEL_OF[name]), _jax_mesh(CASES[name]))
+    jdown = jspecs["llm"]["layers"][0]["mlp"]["down_proj"]
+    assert jdown["block_scales"].spec == P() and jdown[key].spec != P()
 
 
 @pytest.mark.parametrize("name", TRAIN)
