@@ -83,11 +83,11 @@ Phases, each printing one JSON line; any failure raises, so the exit code is not
    within 1e-3 relative, every gradient leaf at cosine >= 0.999.
 6b. head dim 1024: Gemma3-1B's widths (hidden 1152, 4|1 heads, window 512, vocab
    262,144) at head dim 1024 and 2 layers behind ViT-L/16-384 (2 of 24 layers), from the
-   seed: 3 stage-1 train steps (``train/steps.py``, batch 2 at 1087 tokens; K1/K4/K5 on the
-   wide kernels, K6/K7), each held against the plain path at the same params (loss within
-   1e-3 relative, projector gradients at cosine >= 0.999), then a 3-beam decode of 16
-   tokens (K1, K3 at head dim 1024) and its prefill and 16 teacher-forced steps held by
-   ``hold_logits`` against the plain path.
+   seed: 3 stage-1 train steps (``train/steps.py``, batch 2 at 1087 tokens; K1/K4 on the
+   cluster kernels, K5 on the column blocks, K6/K7), each held against the plain path at
+   the same params (loss within 1e-3 relative, projector gradients at cosine >= 0.999),
+   then a 3-beam decode of 16 tokens (K1, K3 at head dim 1024) and its prefill and 16
+   teacher-forced steps held by ``hold_logits`` against the plain path.
 7. stage-0 train: the stage-1 model is freed; Stage0Trainer.train() on the full-width
    so400m-patch16-512 dual tower (vision 27 x 1152, 16 heads of 72, 1024 patches, MAP
    head, fp32 masters and bf16 compute; text 27 x 1152, vocab 256,000, bf16, frozen)
@@ -382,10 +382,14 @@ Phases, each printing one JSON line; any failure raises, so the exit code is not
    head dim 512 ([4,1024,8|2,512], causal, window 512) and at 320 padded to 512
    ([8,576,8,320]); K3 at head dim 512, at 96 query rows a KV head (2 x 24 beams of
    Gemma3-1B) and 68 (8 x 17 beams of Llama-3.2-1B); K2 and K8 at [16384,1004],
-   [4096,6144] and [2048,8192]; each rerun held bit-equal. Above those (the wide kernels):
-   K1/K4/K5 at head dim 1024 ([2,1024,4|1,1024], causal, window 512) and 640
-   ([4,576,4,640]); K3 at head dim 1024 (8 x 3 beams, P = 831, G = 32); K2 and K8 at
-   [2048,20480], [512,32768] and [1000,24577] (K8's streamed rows).
+   [4096,6144] and [2048,8192]; each rerun held bit-equal. Above those: K1/K4/K5 at head
+   dim 1024 ([2,1024,4|1,1024], causal, window 512; the library call SDPA's efficient
+   backend on k and v repeated to the query heads), 640 ([4,576,4,640]), 2048
+   ([1,1024,4|1,2048], window 512: K4's 8-CTA cluster) and 2112 ([1,512,4|1,2112]: K4
+   past the cluster's reach), each row naming its route (K1 and K4 on the cluster
+   kernels, K5 and K4 at 2112 on the column blocks); K3 at head dim 1024 (8 x 3 beams,
+   P = 831, G = 32); K2 and K8 at [2048,20480], [512,32768] and [1000,24577] (K8's
+   streamed rows).
 
 The second-to-last line is {"kernels": [...]} (name, route, source, replaces, launches
 on the main path, launches_by_path (serve, serve_24_beams, train, head_dim_1024_train,
@@ -690,6 +694,21 @@ def sdpa_library_bwd(q, k, v, do, **kw):
     out = fwd()
     dout = do.transpose(1, 2)
     return (lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)), name
+
+
+def flash_route(kernel, d) -> dict:
+    """The route and source of a flash kernel at head dim d (``ops/flash_attention.py``:
+    the plans), for the kernels line's widest rows; {} for the other kernels."""
+    from projectiontrainer_tpu_torch.ops import flash_attention as FA
+
+    sources = {"cluster": f"{PKG}/csrc/flash_attn_cluster.cu",
+               "column blocks": f"{PKG}/csrc/flash_attn_wide.cu"}
+    plan = {"flash_attn_fwd": FA.forward_plan, "flash_attn_bwd_dkv": FA.dkv_plan,
+            "flash_attn_bwd_dq": FA.dq_plan}.get(kernel)
+    if plan is None:
+        return {}
+    route = plan(d).get("route", "column blocks" if "col_blocks" in plan(d) else "wgmma")
+    return {"flash_route": route, "flash_source": sources.get(route)}
 
 
 # ---------------------------------------------------------------------------- phase 0
@@ -1065,17 +1084,26 @@ def check_stage0_kernels(rng, record):
         record("flash_attn_bwd_dkv", case, max(errs[1:]), None, None)
 
 
-def check_attention_layer(rng, record, case, b, t, hq, hkv, d, mask, rerun=False, **kw):
+def check_attention_layer(rng, record, case, b, t, hq, hkv, d, mask, rerun=False,
+                          repeat_kv_library=False, **kw):
     """K1 (when ``mask`` is given: the forward of the same layer), K4 and K5 at one
     decoder or tower shape against their plain versions, each beside its bound and the
     library call, and with ``rerun`` a second launch of K1 (when it runs), K4 and K5 held
-    bit-equal; record(kernel, case, err, ms, plain_ms, bound, library_ms, library)."""
+    bit-equal; record(kernel, case, err, ms, plain_ms, bound, library_ms, library).
+    ``repeat_kv_library``: the library call gets k and v repeated to the query heads (no
+    GQA), which SDPA's efficient backend takes with an explicit mask; its name says
+    which backend ran, the math one where the efficient one refuses the shape."""
     import torch
 
     from projectiontrainer_tpu_torch.ops import flash_attention as FA
+    from projectiontrainer_tpu_torch.ops.attention import repeat_kv
 
     q, do = _bf16(rng, (b, t, hq, d)), _bf16(rng, (b, t, hq, d))
     k, v = _bf16(rng, (b, t, hkv, d)), _bf16(rng, (b, t, hkv, d))
+    lib_kv, lib_note = (k, v), ""
+    if repeat_kv_library and hq != hkv:
+        lib_kv, lib_note = (repeat_kv(k, hq // hkv), repeat_kv(v, hq // hkv)), \
+            ", k and v repeated to the query heads"
     out, lse = FA.flash_attention(q, k, v, kv_mask=mask, **kw)
     seen = (attention_mask(t, causal=kw["causal"], window=kw["window"], kv_mask=mask)
             if mask is not None or kw["causal"] else None)
@@ -1092,12 +1120,12 @@ def check_attention_layer(rng, record, case, b, t, hq, hkv, d, mask, rerun=False
             if not (torch.equal(out, again) and torch.equal(lse[live], again_lse[live])):
                 raise AssertionError(f"flash {case}: a rerun of K1 gave other bits")
             del again, again_lse
-        lib, backend = sdpa_library(q, k, v, scale=kw["scale"], mask=seen)
+        lib, backend = sdpa_library(q, *lib_kv, scale=kw["scale"], mask=seen)
         record("flash_attn_fwd", case, err,
                cuda_ms(lambda: FA.flash_attention(q, k, v, kv_mask=mask, **kw)),
                cuda_ms(lambda: FA.flash_attention_reference(q, k, v, kv_mask=mask, **kw)),
                bound_flash_fwd(b, t, hq, hkv, d, pairs), cuda_ms(lib),
-               f"SDPA {backend}, explicit mask")
+               f"SDPA {backend}, explicit mask{lib_note}")
     prep = FA.prepare_bwd(q, k, v, mask, out, lse, do)
     args = (q, k, v, prep[0], prep[1], lse, prep[2])
     dk, dv = FA.launch_bwd_dkv(*args, **kw)
@@ -1113,9 +1141,9 @@ def check_attention_layer(rng, record, case, b, t, hq, hkv, d, mask, rerun=False
     err_q = compare_rel(f"flash {case} dq", dq, rq)
     del rq, rk, rv
     plain = cuda_ms(lambda: FA.flash_attention_bwd_reference(q, k, v, mask, out, lse, do, **kw))
-    lib, backend = sdpa_library_bwd(q, k, v, do, scale=kw["scale"], mask=seen)
+    lib, backend = sdpa_library_bwd(q, *lib_kv, do, scale=kw["scale"], mask=seen)
     library = (cuda_ms(lib), f"SDPA {backend} backward (dq, dk, dv together)"
-               + (", explicit mask" if seen is not None else ""))
+               + (", explicit mask" if seen is not None else "") + lib_note)
     record("flash_attn_bwd_dkv", case, err_kv, cuda_ms(lambda: FA.launch_bwd_dkv(*args, **kw)),
            plain, bound_flash_bwd_dkv(b, t, hq, hkv, d, pairs), *library)
     record("flash_attn_bwd_dq", case, err_q, cuda_ms(lambda: FA.launch_bwd_dq(*args, **kw)),
@@ -1322,20 +1350,29 @@ def check_wide_kernels(rng, record):
     (Gemma3-1B's 4|1 heads, B = 2 x 24 beams: two row groups) and at 68 (Llama-3.2-1B's
     32|8 heads, B = 8 x 17 beams); K2 and K8 at rows of 1004 (not a 16-byte multiple:
     K8's row warps copy them by cp.async), 6144 and 8192 (K8's column sums through
-    device memory). Above the widest of those (the wide kernels' column blocks, K8's
-    streamed rows, K2's column chunks): K1/K4/K5 at head dim 1024 ([2,1024,4|1,1024],
-    causal, window 512) and 640 ([4,576,4,640], non-causal); K3 at head dim 1024
-    (Gemma3-1B's 4|1 heads, 8 x 3 beams, P = 831, G = 32); K2 and K8 at [2048,20480],
-    [512,32768] and [1000,24577] (rows that are not 16-byte multiples).
-    Each against its plain version at phase 2's tolerances, a rerun held bit-equal,
-    timed beside its bound and the library call; record(kernel, case, err, ms, plain_ms,
-    bound, library_ms, library)."""
+    device memory). Above the widest of those (K1 and K4 on the cluster kernels, K5 and
+    widths past their reach on the column blocks, K8's streamed rows, K2's column
+    chunks): K1/K4/K5 at head dim 1024 ([2,1024,4|1,1024], causal, window 512; the
+    library call SDPA's efficient backend with k and v repeated to the query heads and
+    the window as an explicit mask, or the math one where it refuses) and 640
+    ([4,576,4,640], non-causal), and at 2048 ([1,1024,4|1,2048], causal, window 512: K4's
+    widest cluster, 8 CTAs) and 2112 ([1,512,4|1,2112], causal: K4 past its reach, on the
+    column blocks; K1 on 5 CTAs); K3 at head dim 1024 (Gemma3-1B's 4|1 heads, 8 x 3 beams, P = 831, G = 32);
+    K2 and K8 at [2048,20480], [512,32768] and [1000,24577] (rows that are not 16-byte
+    multiples). Each against its plain version at phase 2's tolerances, a rerun held
+    bit-equal, timed beside its bound and the library call; each flash row names its
+    route (``flash_route``); record(kernel, case, err, ms, plain_ms, bound, library_ms,
+    library)."""
     import torch
 
     plain_record = record
 
     def record(*args, **kw):  # these rows also go to the kernels line
         plain_record(*args, widest=True, **kw)
+
+    def at_width(d):  # ... with the route each flash kernel takes at head dim d
+        return lambda kernel, *args, **kw: record(kernel, *args, **kw,
+                                                  **flash_route(kernel, d))
 
     mask = torch.ones((4, 1024), dtype=torch.int32, device="cuda")
     check_attention_layer(rng, record, "head dim 512 [4,1024,8|2,512] causal window=512", 4,
@@ -1356,12 +1393,20 @@ def check_wide_kernels(rng, record):
         check_layernorm_bwd(rng, record, x, p, cases=((n, ragged),))
         del x, p
     mask = torch.ones((2, 1024), dtype=torch.int32, device="cuda")
-    check_attention_layer(rng, record, "head dim 1024 [2,1024,4|1,1024] causal window=512", 2,
-                          1024, 4, 1, 1024, mask, rerun=True, scale=1024 ** -0.5, causal=True,
-                          window=512)
+    check_attention_layer(rng, at_width(1024), "head dim 1024 [2,1024,4|1,1024] causal "
+                          "window=512", 2, 1024, 4, 1, 1024, mask, rerun=True,
+                          repeat_kv_library=True, scale=1024 ** -0.5, causal=True, window=512)
     mask = torch.ones((4, 576), dtype=torch.int32, device="cuda")
-    check_attention_layer(rng, record, "head dim 640 [4,576,4,640] non-causal", 4, 576, 4, 4,
-                          640, mask, rerun=True, scale=640 ** -0.5, causal=False, window=None)
+    check_attention_layer(rng, at_width(640), "head dim 640 [4,576,4,640] non-causal", 4, 576,
+                          4, 4, 640, mask, rerun=True, scale=640 ** -0.5, causal=False,
+                          window=None)
+    mask = torch.ones((1, 1024), dtype=torch.int32, device="cuda")
+    check_attention_layer(rng, at_width(2048), "head dim 2048 [1,1024,4|1,2048] causal "
+                          "window=512", 1, 1024, 4, 1, 2048, mask, rerun=True,
+                          scale=2048 ** -0.5, causal=True, window=512)
+    check_attention_layer(rng, at_width(2112), "head dim 2112 [1,512,4|1,2112] causal", 1,
+                          512, 4, 1, 2112, mask[:, :512], rerun=True, scale=2112 ** -0.5,
+                          causal=True, window=None)
     check_decode(rng, record, 8, 3, 831, 32, (31,), hq=4, hkv=1, d=1024, windows=(None,),
                  label="head dim 1024 ")
 
@@ -2307,7 +2352,8 @@ def phase_head_dim_1024(kernel_counters):
     """The head-dim-1024 leg through the entry points a user's run takes: the stage-1
     train step (``train/steps.py:make_train_step`` over ``stage1_loss``, fused CE,
     AdamW on the fp32 projector) for HD_STEPS steps of batch 2 at 575 + 512 tokens
-    (K1/K4/K5 on the wide kernels, K6/K7), each held against the plain path (plain
+    (K1/K4 on the cluster kernels, K5 on the column blocks, K6/K7), each held against
+    the plain path (plain
     attention and LayerNorm, chunked CE) at the same params, just before the step: its
     loss within 1e-3 relative and each projector gradient leaf at cosine >= 0.999; then a 3-beam
     decode of HD_NEW_TOKENS tokens (``generate/decode.py:generate``: K1's prefill, K3 at
@@ -2406,7 +2452,8 @@ def phase_head_dim_1024(kernel_counters):
     logits = hold_logits("head dim 1024 decode", teacher_forced(cfg, params, prefix, nb, teacher),
                          teacher_forced(plain, params, prefix, nb, teacher))
     emit({"phase": "6b", "config": "Gemma3-1B widths at head dim 1024, 2 layers (tower 2 of "
-          "24)", "train_steps": rows, "train_s": train_s, "launches_train": train_launches,
+          "24)", "routes": {n: flash_route(n, 1024)["flash_route"] for n in wanted[:3]},
+          "train_steps": rows, "train_s": train_s, "launches_train": train_launches,
           "launches_decode": decode_launches, "decode_logits": logits})
     del params
     return {"head_dim_1024_train": train_launches, "head_dim_1024_decode": decode_launches}
@@ -6832,8 +6879,11 @@ def main() -> int:
                         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
                         "library_ms": main_row["library_ms"], "library": main_row["library"],
                         "timed_case": main_row["case"],
-                        "widest": [{k: r[k] for k in ("case", "max_abs_err", "ms", "plain_ms",
-                                                      "bound_ms", "bound_by", "library_ms")}
+                        "widest": [{k: r.get(k) for k in ("case", "max_abs_err", "ms", "plain_ms",
+                                                          "bound_ms", "bound_by", "library_ms",
+                                                          "library", "flash_route",
+                                                          "flash_source")
+                                    if k in r}
                                    for r in rows if r.get("widest")]})
     emit({"phase_walls_s": walls, "total_s": time.perf_counter() - t0})
     emit({"kernels": kernels})

@@ -4,7 +4,9 @@ key tile visits under the causal mask and the window, and the tensor map of a st
 [B, T, H, D] tensor. The tile ranges are held against the valid mask of the plain
 attention (``ops/attention.py:attention_probs``): every live (query, key) pair lies in a
 visited tile, and a tile that is skipped holds none. The kernels compute the same bounds
-on the card (``csrc/flash_attn_fwd.cu``, ``csrc/flash_attn_bwd.cu``)."""
+on the card (``csrc/flash_attn_fwd.cu``, ``csrc/flash_attn_bwd.cu``). Above head dim 512:
+the cluster kernels' plans (``csrc/flash_attn_cluster.cu``: column slices, cluster size,
+ring stages and shared memory) up to their reach, the column blocks past it."""
 
 import pytest
 import torch
@@ -109,10 +111,13 @@ def test_kernel_and_tiles_by_head_dim(d, fwd, dkv, dq):
 @pytest.mark.parametrize("d", [0, 32, 80, 96, 1024, 1000])  # 512 is a kernel's width
 def test_plans_refuse_other_head_dims(d):
     """Head dims no kernel takes raise (the wrappers pad them first); a multiple of 64
-    above 512, which used to raise, is the wide kernels' (column blocks of 128)."""
+    above 512, which used to raise, is the cluster kernels' for K1 and K4 (within their
+    reach) and the wide kernel's column blocks of 128 for K5."""
     if FA.takes_head_dim(d):
-        for plan in (FA.forward_plan(d), FA.dkv_plan(d), FA.dq_plan(d)):
-            assert plan["col_blocks"] == -(-d // 128) and plan["col_block"] == 128
+        for plan in (FA.forward_plan(d), FA.dkv_plan(d)):
+            assert plan["route"] == "cluster" and sum(plan["slices"]) == d
+        plan = FA.dq_plan(d)
+        assert plan["col_blocks"] == -(-d // 128) and plan["col_block"] == 128
         return
     with pytest.raises(ValueError):
         FA.forward_plan(d)
@@ -162,3 +167,62 @@ def test_tensor_map_plan_describes_the_tensor(name, box_rows):
 def test_tensor_map_plan_head_dim_64_box():
     x = torch.zeros((2, 5, 3, 64), dtype=torch.bfloat16)
     assert FA.tensor_map_plan(x, 128) == [64, 5, 3, 2, 2 * 192, 2 * 64, 2 * 960, 64, 128, 1, 1]
+
+
+def _check_cluster_plan(plan, d, dkv):
+    width = FA.DKV_SLICE if dkv else FA.FWD_SLICE
+    rows, tile = ("bk", "bq") if dkv else ("bq", "bk")
+    assert plan["route"] == "cluster" and plan[rows] == 64 and plan[tile] == 32
+    slices = plan["slices"]
+    assert 2 <= plan["cluster"] <= 8 and len(slices) == 2 * plan["cluster"]
+    # whole 64-column TMA boxes, covering d once, at most a warpgroup's width each
+    assert sum(slices) == d and all(s % 64 == 0 and 64 <= s <= width for s in slices)
+    assert plan["cluster"] == -(-d // (2 * width))  # the fewest CTAs that hold d
+    ctas = [a + b for a, b in zip(slices[::2], slices[1::2])]
+    assert max(ctas) - min(ctas) <= 64 and ctas[0] == max(ctas)  # CTA 0 the widest
+    # as many ring stages as fit an SM's shared memory, at most 4
+    assert 2 <= plan["stages"] <= FA.MAX_STAGES and plan["smem"] <= FA.SMEM_LIMIT
+    assert plan["smem"] == FA.cluster_smem(d, plan["cluster"], plan["stages"], dkv)
+    assert (plan["stages"] == FA.MAX_STAGES
+            or FA.cluster_smem(d, plan["cluster"], plan["stages"] + 1, dkv) > FA.SMEM_LIMIT)
+
+
+@pytest.mark.parametrize("d,fwd,dkv", [
+    (576, (2, [192, 128, 128, 128], 4), (3, [128, 64, 128, 64, 128, 64], 4)),
+    (640, (2, [192, 128, 192, 128], 4), (3, [128, 128, 128, 64, 128, 64], 3)),
+    (768, (2, [192] * 4, 3), (3, [128] * 6, 3)),
+    (1024, (2, [256] * 4, 2), (4, [128] * 8, 3)),
+    (2048, (4, [256] * 8, 2), (8, [128] * 16, 3)),
+    (4096, (8, [256] * 16, 2), None),  # past K4's reach
+])
+def test_cluster_plans(d, fwd, dkv):
+    """K1 and K4 above 512: the cluster route, its size, the column slices (uneven at 576
+    and 640: the first warpgroup of each CTA takes the extra blocks first) and the ring's
+    stages; the same formulas as csrc/flash_attn_cluster.cu:Layout, which refuses
+    another plan."""
+    for plan, want, is_dkv in ((FA.forward_plan(d), fwd, False), (FA.dkv_plan(d), dkv, True)):
+        if want is None:
+            assert plan == {"route": "column blocks", **FA.wide_plan(d, "bk", "bq")}
+            continue
+        _check_cluster_plan(plan, d, is_dkv)
+        assert (plan["cluster"], plan["slices"], plan["stages"]) == want
+    assert FA.dq_plan(d) == FA.wide_plan(d, "bq", "bk")  # K5 keeps its column blocks
+
+
+def test_cluster_plans_reach_and_past_it():
+    """Every multiple of 64 from 576 up to each reach (K1 4096, K4 2048) takes the
+    cluster kernel; the next width past it takes the column blocks; the CTA's shared
+    memory at 1024 is what csrc/flash_attn_cluster.cu lays out: Q 64 KB, two stages of K
+    and V (64 KB each), the partial pieces and their sum (24 KB), 13 barriers, 1 KB of
+    alignment (K1); K and V 64 KB, three stages of Q, dO and their statistics, 48 KB of
+    partial pieces and sums (K4)."""
+    assert (FA.FWD_REACH, FA.DKV_REACH) == (4096, 2048)
+    for d in range(576, FA.FWD_REACH + 1, 64):
+        _check_cluster_plan(FA.forward_plan(d), d, False)
+    for d in range(576, FA.DKV_REACH + 1, 64):
+        _check_cluster_plan(FA.dkv_plan(d), d, True)
+    assert FA.forward_plan(4160) == {"route": "column blocks", **FA.wide_plan(4160, "bq", "bk")}
+    assert FA.dkv_plan(2112) == {"route": "column blocks", **FA.wide_plan(2112, "bk", "bq")}
+    assert FA.forward_plan(2112)["route"] == "cluster"
+    assert FA.forward_plan(1024)["smem"] == 65536 + 2 * 65536 + 3 * 8192 + 104 + 1024
+    assert FA.dkv_plan(1024)["smem"] == 65536 + 3 * (32768 + 256) + 6 * 8192 + 104 + 1024

@@ -12,7 +12,8 @@ itself, and at 576, 640 and 1024 (the wide kernels' widths; decode pads 576 and 
 768); tolerance 1e-5 absolute and relative. Then the card's branch on meta tensors
 (which stand for the card in the budget's trace): a head dim outside the kernels' set
 goes through the pad (320 and 600 too), 512 and the multiples of 64 above it go
-straight to the kernels, 513 is padded to 576."""
+straight to the kernels, 513 is padded to 576. The plans above 512: K1 and K4 on the cluster
+kernels within their reach, K5 and K4 past 2048 on the column blocks."""
 
 import jax
 import jax.numpy as jnp
@@ -152,17 +153,26 @@ def test_card_branch_pads_on_meta_tensors():
     big = torch.empty(1, 8, 2, 513, dtype=torch.bfloat16, device="meta")
     out, lse = FA.flash_attention(big, big, big)
     assert out.shape == big.shape and lse.shape == (1, 2, 8)
-    assert FA.forward_plan(FA.padded_head_dim(513))["col_blocks"] == 5
+    assert FA.dq_plan(FA.padded_head_dim(513))["col_blocks"] == 5
+    assert FA.forward_plan(FA.padded_head_dim(513))["slices"] == [192, 128, 128, 128]
 
 
 @pytest.mark.parametrize("d,blocks", [(576, 5), (640, 5), (1024, 8), (4096, 32)])
 def test_wide_plans(d, blocks):
-    """The wide kernels' plans: 64-row tiles over 128-column blocks (the last of 576
-    holds 64), the scores over 64-column chunks; the same tile ranges as the kernels'."""
+    """The plans above 512: K5's column blocks, 64-row tiles over 128-column blocks (the
+    last of 576 holds 64), the scores over 64-column chunks; K1's cluster at every one of
+    these widths, K4's up to 2048 and its column blocks past it (4096); the same tile
+    ranges as the kernels'."""
     fwd, dkv, dq = FA.forward_plan(d), FA.dkv_plan(d), FA.dq_plan(d)
-    assert fwd == dq == {"bq": 64, "bk": 64, "col_block": 128, "col_blocks": blocks,
-                         "chunk": 64}
-    assert dkv == {"bk": 64, "bq": 64, "col_block": 128, "col_blocks": blocks, "chunk": 64}
+    assert dq == {"bq": 64, "bk": 64, "col_block": 128, "col_blocks": blocks, "chunk": 64}
+    assert fwd["route"] == "cluster" and sum(fwd["slices"]) == d
+    assert {k: fwd[k] for k in ("bq", "bk")} == {"bq": 64, "bk": 32}
+    if d <= FA.DKV_REACH:
+        assert dkv["route"] == "cluster" and sum(dkv["slices"]) == d
+        assert {k: dkv[k] for k in ("bk", "bq")} == {"bk": 64, "bq": 32}
+    else:
+        assert dkv == {"route": "column blocks", "bk": 64, "bq": 64, "col_block": 128,
+                       "col_blocks": blocks, "chunk": 64}
     assert FA.kv_tile_range(128, 64, 64, 1024, True, 512) == (0, 3)
     assert FA.q_tile_range(128, 64, 64, 1024, True, 512) == (2, 11)
     for bad in (520, 600):

@@ -79,9 +79,12 @@ def _pad_mask(b, t, pad, n, card):
     (65, 256, 4, 1, True, 37, "left", True),
     (300, 64, 4, 4, True, None, "left", True),     # left padding masks a whole query tile
     (300, 72, 4, 2, True, 37, "left", False),
-    (300, 1024, 4, 1, True, 100, "left", False),   # above 512: column blocks of 128
+    (300, 1024, 4, 1, True, 100, "left", False),   # above 512: the cluster kernel, 2 CTAs
     (150, 640, 4, 4, False, None, None, True),
-    (129, 576, 4, 2, True, None, "right", False),  # a last block of 64 columns
+    (129, 576, 4, 2, True, None, "right", False),  # uneven slices: 192 + 128 | 128 + 128
+    (300, 2048, 4, 2, True, 100, "left", True),    # 4 CTAs
+    (150, 2112, 4, 2, True, 37, "left", False),    # 5 CTAs, uneven slices
+    (129, 4160, 2, 1, False, None, None, False),   # past K1's reach: the column blocks
 ])
 def test_flash_kernel(card, t, d, hq, hkv, causal, window, pad, sliced):
     rng = np.random.default_rng(1)
@@ -105,7 +108,8 @@ def test_flash_kernel(card, t, d, hq, hkv, causal, window, pad, sliced):
 
 @pytest.mark.parametrize("t,d,hq,hkv,causal", [(150, 64, 4, 4, False), (1024, 72, 4, 4, False),
                                                (300, 128, 4, 2, True), (300, 256, 4, 1, True),
-                                               (300, 1024, 4, 1, True), (200, 640, 4, 4, False)])
+                                               (300, 1024, 4, 1, True), (200, 640, 4, 4, False),
+                                               (200, 576, 4, 2, True), (300, 2048, 4, 2, True)])
 def test_flash_forward_fp32_copy_and_reruns(card, t, d, hq, hkv, causal):
     """The fp32 copy of O that the forward writes for the backward's delta rounds to the
     bf16 O of the same launch, and a rerun gives the same bits (no sum of the kernel
@@ -216,9 +220,12 @@ def _rel_close(got, ref, rel=2e-2):
     (2, 300, 4, 2, 72, True, 37, "left", False),
     (2, 150, 4, 1, 512, True, 37, "left", False),      # head dim 512: columns split
     (2, 257, 4, 4, 512, False, None, "right", True),
-    (2, 150, 4, 1, 1024, True, 37, "left", False),     # above 512: column blocks
-    (2, 257, 4, 2, 640, False, None, "right", True),   # a last block of 128
-    (2, 300, 4, 4, 576, True, None, None, False),      # ... and of 64
+    (2, 150, 4, 1, 1024, True, 37, "left", False),     # above 512: K4 on the cluster kernel
+    (2, 257, 4, 2, 640, False, None, "right", True),   # (K5 on column blocks of 128)
+    (2, 300, 4, 4, 576, True, None, None, False),      # ... and of 64; uneven slices
+    (2, 257, 8, 2, 1024, False, None, "right", True),
+    (2, 300, 4, 2, 2048, True, 100, "left", True),     # K4's widest cluster: 8 CTAs
+    (2, 200, 4, 1, 2112, True, 37, "right", False),    # past K4's reach: the column blocks
 ])
 def test_flash_backward_kernels(card, b, t, hq, hkv, d, causal, window, pad, sliced):
     rng = np.random.default_rng(4)
@@ -249,7 +256,10 @@ def test_flash_backward_kernels(card, b, t, hq, hkv, d, causal, window, pad, sli
                                                       (300, 128, 8, 2, True, 37),
                                                       (300, 256, 4, 1, True, None),
                                                       (300, 1024, 4, 1, True, 100),
-                                                      (200, 640, 4, 4, False, None)])
+                                                      (200, 640, 4, 4, False, None),
+                                                      (200, 576, 4, 2, False, None),
+                                                      (300, 2048, 4, 2, True, 64),
+                                                      (150, 2112, 4, 1, True, 37)])
 def test_flash_dkv_reruns_are_bit_equal(card, t, d, hq, hkv, causal, window):
     """Each element of dK, dV and dQ is summed by one thread in program order (the query
     heads of a KV head inside the CTA too): a rerun gives the same bits."""
@@ -267,7 +277,8 @@ def test_flash_dkv_reruns_are_bit_equal(card, t, d, hq, hkv, causal, window):
         assert torch.equal(dq, FA.launch_bwd_dq(q, k, v, mask, do, lse, delta, **kw))
 
 
-@pytest.mark.parametrize("hq,hkv,d", [(8, 8, 128), (8, 2, 128), (16, 16, 72)])
+@pytest.mark.parametrize("hq,hkv,d", [(8, 8, 128), (8, 2, 128), (16, 16, 72), (4, 2, 640),
+                                      (4, 4, 1024)])
 def test_flash_merged_layout(card, hq, hkv, d):
     """Head-merged [B, T, H*D] tensors run through the same kernels as views; forward
     and gradients against the plain attention of the [B, T, H, D] views."""
@@ -291,8 +302,9 @@ def test_flash_merged_layout(card, hq, hkv, d):
         _rel_close(got.reshape(want.shape), want)
 
 
+@pytest.mark.parametrize("d", [72, 640])  # 640: K1 and K4 on the cluster kernels
 @pytest.mark.parametrize("spread,floor", [(0.2, 0.999), (0.05, None)])
-def test_flash_autograd_gradients_on_nearly_equal_tokens(card, spread, floor):
+def test_flash_autograd_gradients_on_nearly_equal_tokens(card, spread, floor, d):
     """Tokens whose q, k and v share a common part (x3) 15x / 60x their spread (a
     trained tower's last layers): dQ lives in the small remainder of K, and |O| is
     large. The backward's delta = rowsum(dO * O) must agree with the kernels' own
@@ -308,7 +320,7 @@ def test_flash_autograd_gradients_on_nearly_equal_tokens(card, spread, floor):
     from projectiontrainer_tpu_torch.ops.attention import dot_product_attention
 
     rng = np.random.default_rng(10)
-    b, t, h, d = 2, 512, 4, 72
+    b, t, h = 2, 512, 4
     common = 3 * rng.standard_normal((1, 1, h, d)).astype(np.float32)
     q, k, v = (torch.tensor(common + spread * rng.standard_normal((b, t, h, d), dtype=np.float32),
                             device=card).to(torch.bfloat16) for _ in range(3))
