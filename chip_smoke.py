@@ -86,8 +86,8 @@ Phases, each printing one JSON line; any failure raises, so the exit code is not
    seed: 3 stage-1 train steps (``train/steps.py``, batch 2 at 1087 tokens; K1/K4 on the
    cluster kernels, K5 on the column blocks, K6/K7), each held against the plain path at
    the same params (loss within 1e-3 relative, projector gradients at cosine >= 0.999),
-   then a 3-beam decode of 16 tokens (K1, K3 at head dim 1024) and its prefill and 16
-   teacher-forced steps held by ``hold_logits`` against the plain path.
+   then a 3-beam decode of 16 tokens (K1, K3 at head dim 1024 on its cluster route) and
+   its prefill and 16 teacher-forced steps held by ``hold_logits`` against the plain path.
 7. stage-0 train: the stage-1 model is freed; Stage0Trainer.train() on the full-width
    so400m-patch16-512 dual tower (vision 27 x 1152, 16 heads of 72, 1024 patches, MAP
    head, fp32 masters and bf16 compute; text 27 x 1152, vocab 256,000, bf16, frozen)
@@ -388,8 +388,10 @@ Phases, each printing one JSON line; any failure raises, so the exit code is not
    ([1,1024,4|1,2048], window 512: K4's 8-CTA cluster) and 2112 ([1,512,4|1,2112]: K4
    past the cluster's reach), each row naming its route (K1 and K4 on the cluster
    kernels, K5 and K4 at 2112 on the column blocks); K3 at head dim 1024 (8 x 3 beams,
-   P = 831, G = 32); K2 and K8 at [2048,20480], [512,32768] and [1000,24577] (K8's
-   streamed rows).
+   P = 831, G = 32; a cluster of 4 CTAs; the library call SDPA's math backend on the GQA
+   caches and its efficient backend on k and v repeated to the query heads); K2 and K8 at
+   [2048,20480], [512,32768] and [1000,24577] (K8 on clusters of 5, 8 and 7 CTAs), each
+   row of K3 and K8 naming its route too.
 
 The second-to-last line is {"kernels": [...]} (name, route, source, replaces, launches
 on the main path, launches_by_path (serve, serve_24_beams, train, head_dim_1024_train,
@@ -696,11 +698,20 @@ def sdpa_library_bwd(q, k, v, do, **kw):
     return (lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)), name
 
 
-def flash_route(kernel, d) -> dict:
-    """The route and source of a flash kernel at head dim d (``ops/flash_attention.py``:
-    the plans), for the kernels line's widest rows; {} for the other kernels."""
+def plan_route(kernel, d) -> dict:
+    """The route and source of a kernel at head dim or row width d (the plans of
+    ``ops/flash_attention.py``, ``ops/decode_attention.py:decode_plan`` and
+    ``ops/fused_layernorm.py:bwd_plan``), for the kernels line's widest rows; {} for the
+    other kernels."""
+    from projectiontrainer_tpu_torch.ops import decode_attention as DA
     from projectiontrainer_tpu_torch.ops import flash_attention as FA
+    from projectiontrainer_tpu_torch.ops import fused_layernorm as FLN
 
+    if kernel == "decode_attn":
+        return {"plan_route": DA.route(d), "plan_source": KERNELS[kernel][1]}
+    if kernel == "layernorm_bwd":
+        return {"plan_route": FLN.bwd_plan(1, d, FLN.H100_SMS)["route"],
+                "plan_source": KERNELS[kernel][1]}
     sources = {"cluster": f"{PKG}/csrc/flash_attn_cluster.cu",
                "column blocks": f"{PKG}/csrc/flash_attn_wide.cu"}
     plan = {"flash_attn_fwd": FA.forward_plan, "flash_attn_bwd_dkv": FA.dkv_plan,
@@ -708,7 +719,7 @@ def flash_route(kernel, d) -> dict:
     if plan is None:
         return {}
     route = plan(d).get("route", "column blocks" if "col_blocks" in plan(d) else "wgmma")
-    return {"flash_route": route, "flash_source": sources.get(route)}
+    return {"plan_route": route, "plan_source": sources.get(route)}
 
 
 # ---------------------------------------------------------------------------- phase 0
@@ -942,12 +953,14 @@ def phase_kernels():
 
 
 def check_decode(rng, record, b, nb, p_len, g, steps, *, hq=4, hkv=1, d=256,
-                 windows=(512, None), label="", pmask=None):
+                 windows=(512, None), label="", pmask=None, repeat_kv_library=False):
     """K3 at batch b, nb beams, GQA hq/hkv at head dim d (Gemma3-1B's 4/1 at 256 by
     default), a prefix of p_len slots with ragged left padding (or the [b, p_len] mask
     ``pmask``) and g generated slots, at
     each step t of `steps` and each window of `windows`; record(kernel, case, err, ms,
-    plain_ms, bound, library_ms, library)."""
+    plain_ms, bound, library_ms, library). ``repeat_kv_library``: the library call gets k
+    and v repeated to the query heads (SDPA's efficient backend takes them with the
+    explicit mask), the GQA call's time beside it (``library_gqa_ms``)."""
     import torch
 
     from projectiontrainer_tpu_torch.kernels.check_decode_attn import library_call
@@ -985,14 +998,19 @@ def check_decode(rng, record, b, nb, p_len, g, steps, *, hq=4, hkv=1, d=256,
                 raise AssertionError(f"decode {case}: {plan['ctas']} CTAs for {b * hkv} "
                                      "(batch, KV head) pairs")
             lib, backend, live = library_call(qd, kp, vp, kg, vg, **kw)
+            note, more = "", dict(extra)
+            if repeat_kv_library and hq != hkv:
+                more["library_gqa_ms"] = cuda_ms(lib)
+                note = f", k and v repeated to the query heads (GQA caches: SDPA {backend})"
+                lib, backend, _ = library_call(qd, kp, vp, kg, vg, **kw, repeat_kv=True)
             groups = f", {plan['groups']} row groups" if plan["groups"] > 1 else ""
             record("decode_attn", f"{case} ({plan['ctas']} CTAs{groups})",
                    compare(f"decode {case}", got, ref),
                    cuda_ms(lambda: DA.decode_attention(qd, kp, vp, kg, vg, **kw)),
                    cuda_ms(lambda: DA.decode_attention_reference(qd, kp, vp, kg, vg, **kw)),
                    bound_decode_attn(b, nb, hq, hkv, p_len, g, d, live),
-                   cuda_ms(lib), f"SDPA {backend} over concatenated caches, explicit mask",
-                   **extra)
+                   cuda_ms(lib), f"SDPA {backend} over concatenated caches, explicit mask{note}",
+                   **more)
 
 
 def check_stage0_kernels(rng, record):
@@ -1350,19 +1368,21 @@ def check_wide_kernels(rng, record):
     (Gemma3-1B's 4|1 heads, B = 2 x 24 beams: two row groups) and at 68 (Llama-3.2-1B's
     32|8 heads, B = 8 x 17 beams); K2 and K8 at rows of 1004 (not a 16-byte multiple:
     K8's row warps copy them by cp.async), 6144 and 8192 (K8's column sums through
-    device memory). Above the widest of those (K1 and K4 on the cluster kernels, K5 and
-    widths past their reach on the column blocks, K8's streamed rows, K2's column
+    device memory). Above the widest of those (K1, K4 and K3 on the cluster kernels, K5
+    and widths past their reach on the column blocks, K8's rows on a cluster, K2's column
     chunks): K1/K4/K5 at head dim 1024 ([2,1024,4|1,1024], causal, window 512; the
     library call SDPA's efficient backend with k and v repeated to the query heads and
     the window as an explicit mask, or the math one where it refuses) and 640
     ([4,576,4,640], non-causal), and at 2048 ([1,1024,4|1,2048], causal, window 512: K4's
     widest cluster, 8 CTAs) and 2112 ([1,512,4|1,2112], causal: K4 past its reach, on the
-    column blocks; K1 on 5 CTAs); K3 at head dim 1024 (Gemma3-1B's 4|1 heads, 8 x 3 beams, P = 831, G = 32);
-    K2 and K8 at [2048,20480], [512,32768] and [1000,24577] (rows that are not 16-byte
-    multiples). Each against its plain version at phase 2's tolerances, a rerun held
-    bit-equal, timed beside its bound and the library call; each flash row names its
-    route (``flash_route``); record(kernel, case, err, ms, plain_ms, bound, library_ms,
-    library)."""
+    column blocks; K1 on 5 CTAs); K3 at head dim 1024 (Gemma3-1B's 4|1 heads, 8 x 3 beams,
+    P = 831, G = 32; a cluster of 4 CTAs; the library call SDPA's efficient backend on k
+    and v repeated to the query heads, its math backend on the GQA caches beside it); K2
+    and K8 at [2048,20480], [512,32768] and [1000,24577] (rows that are not 16-byte
+    multiples; K8 on clusters of 5, 8 and 7 CTAs). Each against its plain version at
+    phase 2's tolerances, a rerun held bit-equal, timed beside its bound and the library
+    call; each flash, K3 and K8 row names its route (``plan_route``); record(kernel, case,
+    err, ms, plain_ms, bound, library_ms, library)."""
     import torch
 
     plain_record = record
@@ -1370,9 +1390,9 @@ def check_wide_kernels(rng, record):
     def record(*args, **kw):  # these rows also go to the kernels line
         plain_record(*args, widest=True, **kw)
 
-    def at_width(d):  # ... with the route each flash kernel takes at head dim d
+    def at_width(d):  # ... with the route each kernel takes at head dim or width d
         return lambda kernel, *args, **kw: record(kernel, *args, **kw,
-                                                  **flash_route(kernel, d))
+                                                  **plan_route(kernel, d))
 
     mask = torch.ones((4, 1024), dtype=torch.int32, device="cuda")
     check_attention_layer(rng, record, "head dim 512 [4,1024,8|2,512] causal window=512", 4,
@@ -1390,7 +1410,7 @@ def check_wide_kernels(rng, record):
         x = _bf16(rng, (n, d))
         p = {"scale": _bf16(rng, (d,), 0.5) + 1, "bias": _bf16(rng, (d,), 0.1)}
         check_layernorm_fwd(rng, record, x, p, f"rows [{n},{d}]")
-        check_layernorm_bwd(rng, record, x, p, cases=((n, ragged),))
+        check_layernorm_bwd(rng, at_width(d), x, p, cases=((n, ragged),))
         del x, p
     mask = torch.ones((2, 1024), dtype=torch.int32, device="cuda")
     check_attention_layer(rng, at_width(1024), "head dim 1024 [2,1024,4|1,1024] causal "
@@ -1407,8 +1427,8 @@ def check_wide_kernels(rng, record):
     check_attention_layer(rng, at_width(2112), "head dim 2112 [1,512,4|1,2112] causal", 1,
                           512, 4, 1, 2112, mask[:, :512], rerun=True, scale=2112 ** -0.5,
                           causal=True, window=None)
-    check_decode(rng, record, 8, 3, 831, 32, (31,), hq=4, hkv=1, d=1024, windows=(None,),
-                 label="head dim 1024 ")
+    check_decode(rng, at_width(1024), 8, 3, 831, 32, (31,), hq=4, hkv=1, d=1024,
+                 windows=(None,), label="head dim 1024 ", repeat_kv_library=True)
 
 
 def check_layernorm_fwd(rng, record, x, p, case):
@@ -1593,9 +1613,11 @@ def check_layernorm_bwd(rng, record, x, p, cases=((16384, True), (16383, True), 
             if not all(torch.equal(a, b) for a, b in
                        zip(got, FLN.layernorm_bwd(x2, dy, p["scale"], 1e-6))):
                 raise AssertionError(f"layernorm bwd [{n},{d}]: a rerun gave other bits")
-        counts = sorted({c for _, c in FLN.bwd_bands(n, plan["ctas"])})
-        ring = (f"streamed in chunks of {plan['chunk']} columns" if plan.get("streamed") else
-                f"{plan['stages']} stages of {plan['rows']} rows")
+        counts = sorted({c for _, c in FLN.bwd_bands(n, FLN.band_count(plan))})
+        ring = {"streamed": f"streamed in chunks of {plan.get('chunk')} columns",
+                "cluster": f"clusters of {plan.get('cluster')} CTAs, {plan.get('slots')} ring "
+                           "slots of a row"}.get(plan["route"],
+                                                 f"{plan['stages']} stages of {plan['rows']} rows")
         case = (f"[{n},{d}] {plan['ctas']} CTAs, bands of {counts} rows, {ring}"
                 + (" (ragged)" if ragged else ""))
         leaves = [x2.detach().requires_grad_(True), p["scale"].detach().requires_grad_(True),
@@ -2452,7 +2474,8 @@ def phase_head_dim_1024(kernel_counters):
     logits = hold_logits("head dim 1024 decode", teacher_forced(cfg, params, prefix, nb, teacher),
                          teacher_forced(plain, params, prefix, nb, teacher))
     emit({"phase": "6b", "config": "Gemma3-1B widths at head dim 1024, 2 layers (tower 2 of "
-          "24)", "routes": {n: flash_route(n, 1024)["flash_route"] for n in wanted[:3]},
+          "24)", "routes": {n: plan_route(n, 1024)["plan_route"]
+                            for n in (*wanted[:3], "decode_attn")},
           "train_steps": rows, "train_s": train_s, "launches_train": train_launches,
           "launches_decode": decode_launches, "decode_logits": logits})
     del params
@@ -6881,8 +6904,8 @@ def main() -> int:
                         "timed_case": main_row["case"],
                         "widest": [{k: r.get(k) for k in ("case", "max_abs_err", "ms", "plain_ms",
                                                           "bound_ms", "bound_by", "library_ms",
-                                                          "library", "flash_route",
-                                                          "flash_source")
+                                                          "library", "plan_route",
+                                                          "plan_source", "library_gqa_ms")
                                     if k in r}
                                    for r in rows if r.get("widest")]})
     emit({"phase_walls_s": walls, "total_s": time.perf_counter() - t0})

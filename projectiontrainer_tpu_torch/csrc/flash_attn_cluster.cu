@@ -60,14 +60,15 @@
 // slice's width is a compile-time constant of the loop (one copy a width): a wgmma chain
 // under a runtime guard is serialized too.
 // Launched with cudaLaunchKernelEx and the cluster-dimension attribute (at most 8 CTAs,
-// the portable limit). Measured: PERF.md (kernels/check_flash_attn.py, chip_smoke.py
-// phase 2).
+// the portable limit); the cluster primitives are cluster_sm90.cuh's. Measured: PERF.md
+// (kernels/check_flash_attn.py, chip_smoke.py phase 2).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cluster_sm90.cuh"
 #include "tensor_map.cuh"
 #include "wgmma_sm90.cuh"
 
@@ -80,7 +81,6 @@ constexpr int THREADS = 256;   // two warpgroups; thread 0 also issues the TMA l
 constexpr int ROWS = 64;       // rows a cluster owns: queries in K1, keys in K4
 constexpr int TILE = 32;       // rows of the other operand a ring stage: keys in K1, queries in K4
 constexpr int BOX = 64;        // columns of a TMA box (128 bytes of bf16)
-constexpr int MAX_CLUSTER = 8;
 constexpr int FWD_BLOCKS = 4;  // 64-column blocks a K1 warpgroup at most (O: 128 registers)
 constexpr int DKV_BLOCKS = 2;  // ... a K4 warpgroup (dK and dV: 128 registers)
 constexpr int MAX_STAGES = 4;
@@ -142,59 +142,6 @@ template <int N>
 struct Blocks {
   static constexpr int value = N;
 };
-
-// ---- cluster primitives
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ uint32_t cluster_ctas() {
-  uint32_t n;
-  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
-  return n;
-}
-
-// every thread of the cluster: what each did before is seen by all after
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
-}
-
-// the address of the same shared-memory byte in CTA `rank` of the cluster
-__device__ __forceinline__ uint32_t map_cta(uint32_t addr, uint32_t rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
-  return r;
-}
-
-// one arrival on a barrier of any CTA of the cluster (a mapped address), after reads of
-// the buffer it guards
-__device__ __forceinline__ void arrive_remote(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// 16 bytes into the shared memory of any CTA of the cluster (mapped addresses), counted on
-// that CTA's barrier `bar` as complete_tx bytes when they have landed
-__device__ __forceinline__ void st_async(uint32_t addr, float4 v, uint32_t bar) {
-  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, [%5];\n"
-               ::"r"(addr), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ float4 ld_shared(uint32_t addr) {
-  float4 v;
-  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "r"(addr)
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ float4 add4(float4 a, float4 b) {
-  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
-}
 
 __device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
   return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
@@ -758,28 +705,6 @@ bool plan_ok(bool dkv, int D, int cluster, int stages, float scale) {
          stages >= 2 && stages == plan_stages(dkv, nb, cluster);
 }
 
-template <typename Kernel, typename... Args>
-cudaError_t launch_cluster(Kernel kernel, dim3 grid, int cluster, uint32_t smem, cudaStream_t stream,
-                           Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // q [B, T, Hq, D], k and v [B, T, Hkv, D] bf16 (D > 512, a multiple of 64) with any 16-byte
@@ -802,7 +727,7 @@ extern "C" int flash_attn_cluster_fwd_bf16(const void* q, const void* k, const v
     return (int)cudaErrorNotSupported;
   const Layout L(false, D / BOX, cluster, stages);
   const dim3 grid((T + ROWS - 1) / ROWS * cluster, Hq, B);
-  return (int)launch_cluster(cluster_fwd_kernel, grid, cluster, L.request(),
+  return (int)launch_cluster(cluster_fwd_kernel, grid, THREADS, cluster, L.request(),
                              static_cast<cudaStream_t>(stream), map_q, map_k, map_v,
                              static_cast<const int*>(kv_mask), static_cast<bf16*>(out),
                              static_cast<float*>(lse), static_cast<float*>(out_f32), T, Hq, Hkv,
@@ -828,7 +753,7 @@ extern "C" int flash_attn_cluster_bwd_dkv_bf16(const void* q, const void* k, con
     return (int)cudaErrorNotSupported;
   const Layout L(true, D / BOX, cluster, stages);
   const dim3 grid((T + ROWS - 1) / ROWS * cluster, Hkv, B);
-  return (int)launch_cluster(cluster_dkv_kernel, grid, cluster, L.request(),
+  return (int)launch_cluster(cluster_dkv_kernel, grid, THREADS, cluster, L.request(),
                              static_cast<cudaStream_t>(stream), map_q, map_k, map_v, map_do,
                              static_cast<const int*>(kv_mask), static_cast<const float*>(lse),
                              static_cast<const float*>(delta), static_cast<bf16*>(dk),

@@ -70,18 +70,6 @@ struct Strides {  // (b, t, h) in elements
   long long b, t, h;
 };
 
-// d[16 x 8] += a[16 x 16] . b[16 x 8], bf16 in, fp32 accumulators. Thread (g = lane / 4,
-// t = lane % 4): a[0] row g cols 2t, 2t+1; a[1] row g+8; a[2] cols + 8; a[3] both; b0
-// k rows 2t, 2t+1 of column g, b1 k rows + 8; d[0..1] row g cols 2t, 2t+1, d[2..3] row g+8.
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
@@ -107,7 +95,7 @@ __device__ __forceinline__ void chunk_product(float (&acc)[NT][4], const bf16* s
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       const bf16* m = sm + (8 * nt + g) * LDS + 16 * kk + 2 * t;
-      mma16816(acc[nt], a, ld32(m), ld32(m + 8));
+      sm90::mma16816(acc[nt], a, ld32(m), ld32(m + 8));
     }
   }
 }
@@ -121,7 +109,7 @@ __device__ __forceinline__ void block_product(float (&acc)[DC / 8][4], const uin
 #pragma unroll
     for (int nt = 0; nt < DC / 8; ++nt) {
       const bf16* m = st + (8 * nt + g) * LDT + 16 * kk + 2 * t;
-      mma16816(acc[nt], a[kk], ld32(m), ld32(m + 8));
+      sm90::mma16816(acc[nt], a[kk], ld32(m), ld32(m + 8));
     }
   }
 }

@@ -53,25 +53,35 @@
 // Every mbarrier wait and the grid barrier trap after ~2 s, so a fault is a CUDA error
 // and not a hang.
 //
-// Rows too wide for one ring row of x and dy beside the fp32 scale (D above 19,368 in
-// bf16; ops/fused_layernorm.py:bwd_plan says "streamed"): a kernel of its own,
-// layernorm_bwd_streamed_kernel, streams each row from device memory in column chunks of
-// STREAM_THREADS vectors, the whole CTA on STREAM_ROWS rows at a time. Pass 1 takes a
-// row's mean; pass 2 its centred sum of squares, sum(g) and sum(g * (x - mean)) (three
-// block reductions: warp shuffles, then the warps' sums in warp order); pass 3 writes the
-// rows' dx and adds their dy * xhat and dy, in row order, into the CTA's partial column
-// sums in device memory, each column vector by the one thread that owns it, once for the
-// STREAM_ROWS rows (one row at a time, that read-modify-write moved 16 bytes an element
-// and took 1.00 ms at [2048, 20480] on an NVIDIA H100 80GB HBM3 at 700 W). x is read three
-// times and dy twice, mostly from L2.
-// Rows that are not 16-byte multiples or do not start on 16 bytes are read element by
-// element. The grid barrier and a combine in CTA order follow, as above (each column of
-// the combine summed by one thread): deterministic, no atomics.
+// Rows too wide for one ring row of x and dy beside the fp32 scale (D above 19,368;
+// ops/fused_layernorm.py:bwd_plan names the route):
+// - "cluster", up to 32,768 columns: layernorm_bwd_cluster_kernel cuts each row over a
+//   thread-block cluster of C = ceil(D / MAX_D) CTAs (5 at 20480, 8 at 32768), each with
+//   the warps' roles above and its slice of the row in a ring slot, copied once from
+//   device memory by one bulk copy (any alignment: the copy takes the slice's 16-byte
+//   envelope and the readers start inside it); the row statistics are summed over the
+//   cluster through distributed shared memory (a CTA's partial by st.async to every CTA,
+//   summed in rank order by each, so every CTA holds the same bits); dx is written from
+//   shared memory and the column sums stay in registers until the band ends. Grid barrier
+//   and combine as above, the grid sized by cudaOccupancyMaxActiveClusters (a cluster
+//   needs C SMs of one GPC, so fewer CTAs than SMs run) and a larger one refused.
+// - "streamed", wider: a kernel of its own, layernorm_bwd_streamed_kernel, streams each
+//   row from device memory in column chunks of STREAM_THREADS vectors, the whole CTA on
+//   STREAM_ROWS rows at a time. Pass 1 takes a row's mean; pass 2 its centred sum of
+//   squares, sum(g) and sum(g * (x - mean)) (three block reductions: warp shuffles, then
+//   the warps' sums in warp order); pass 3 writes the rows' dx and adds their dy * xhat
+//   and dy, in row order, into the CTA's partial column sums in device memory, each
+//   column vector by the one thread that owns it, once for the STREAM_ROWS rows. x is read
+//   three times and dy twice, mostly from L2; rows that are not 16-byte multiples or do
+//   not start on 16 bytes element by element. The grid barrier and a combine in CTA order
+//   follow (each column of the combine summed by one thread): deterministic, no atomics.
+// Measured: PERF.md (chip_smoke.py phase 2, kernels/check_layernorm.py).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cluster_sm90.cuh"
 #include "wgmma_sm90.cuh"
 
 typedef __nv_bfloat16 bf16;
@@ -95,8 +105,7 @@ struct Vec;
 template <>
 struct Vec<bf16> {
   static constexpr int N = 8;
-  __device__ __forceinline__ static void load(const bf16* p, float* f) {
-    const uint4 u = *reinterpret_cast<const uint4*>(p);
+  __device__ __forceinline__ static void unpack(uint4 u, float* f) {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -104,6 +113,9 @@ struct Vec<bf16> {
       f[2 * i] = t.x;
       f[2 * i + 1] = t.y;
     }
+  }
+  __device__ __forceinline__ static void load(const bf16* p, float* f) {
+    unpack(*reinterpret_cast<const uint4*>(p), f);
   }
   __device__ __forceinline__ static void store(bf16* p, const float* f) {
     uint4 u;
@@ -117,6 +129,12 @@ struct Vec<bf16> {
 template <>
 struct Vec<float> {
   static constexpr int N = 4;
+  __device__ __forceinline__ static void unpack(uint4 u, float* f) {
+    f[0] = __uint_as_float(u.x);
+    f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z);
+    f[3] = __uint_as_float(u.w);
+  }
   __device__ __forceinline__ static void load(const float* p, float* f) {
     const float4 u = *reinterpret_cast<const float4*>(p);
     f[0] = u.x;
@@ -235,6 +253,41 @@ __device__ __forceinline__ void grid_barrier(unsigned int* counter) {
     __threadfence();
   }
   __syncthreads();
+}
+
+// After the grid barrier: CTA c of `ctas` sums its slice [c0, c1) of the `width` columns
+// over the `parts` partial rows of `part` ([parts][width]) in row order; `groups`
+// threads share a column (partials g, g + groups, ...; COMBINE_BATCH of them loaded at
+// once), then their sums are added in group order. `red` (shared memory of at least
+// 4 * max(THREADS, ceil(width / ctas)) bytes) holds the group sums.
+__device__ __forceinline__ void combine_columns(const float* __restrict__ part,
+                                                float* __restrict__ sums, int width, int parts,
+                                                int c, int ctas, float* red) {
+  const int cols = (width + ctas - 1) / ctas;
+  const int c0 = c * cols, c1 = min(width, c0 + cols);
+  if (c0 >= c1) return;
+  const int ncol = c1 - c0, groups = max(1, THREADS / ncol);
+  for (int j = threadIdx.x; j < ncol * groups; j += THREADS) {
+    const float* col = part + c0 + j % ncol;
+    float acc = 0.f;
+    for (int p0 = j / ncol; p0 < parts; p0 += COMBINE_BATCH * groups) {
+      float v[COMBINE_BATCH];
+#pragma unroll
+      for (int k = 0; k < COMBINE_BATCH; ++k) {
+        const int p = p0 + k * groups;
+        v[k] = p < parts ? __ldcg(col + (size_t)p * width) : 0.f;
+      }
+#pragma unroll
+      for (int k = 0; k < COMBINE_BATCH; ++k) acc += v[k];
+    }
+    red[j] = acc;
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < ncol; j += THREADS) {
+    float acc = 0.f;
+    for (int g = 0; g < groups; ++g) acc += red[g * ncol + j];
+    sums[c0 + j] = acc;
+  }
 }
 
 // ANY: rows of any width and alignment (slots of D rounded up to 8, direct copies,
@@ -506,36 +559,340 @@ layernorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
 
   grid_barrier(counter);
 
-  // combine: CTA c sums columns [c0, c1) of the 2 dp over all C partials in CTA order;
-  // `groups` threads share a column (partials g, g + groups, ...; COMBINE_BATCH of them
-  // loaded at once), then their sums are added in group order. The drained ring holds
-  // the group sums.
-  const int width = 2 * dp, cols = (width + C - 1) / C;
-  const int c0 = c * cols, c1 = min(width, c0 + cols);
-  if (c0 >= c1) return;
-  const int ncol = c1 - c0, groups = max(1, THREADS / ncol);
-  float* red = reinterpret_cast<float*>(smem);
-  for (int j = threadIdx.x; j < ncol * groups; j += THREADS) {
-    const float* col = part + c0 + j % ncol;
-    float acc = 0.f;
-    for (int p0 = j / ncol; p0 < C; p0 += COMBINE_BATCH * groups) {
-      float v[COMBINE_BATCH];
+  combine_columns(part, sums, 2 * dp, C, c, C, reinterpret_cast<float*>(smem));
+}
+
+// ------------------------------------------------------------------ rows on a cluster
+
+constexpr int CLUSTER_SLOTS = 16;  // ring slots of the cluster kernel at most (a row each)
+
+// The C slices of a row of nv 16-byte vectors: nv % C of them one vector wider; slice r
+// starts at vector first(r) (ops/fused_layernorm.py:bwd_cluster_slices).
+struct RowSlices {
+  int nv, c;
+  __host__ __device__ __forceinline__ int first(int r) const {
+    return r * (nv / c) + (r < nv % c ? r : nv % c);
+  }
+};
+
+// The cluster kernel's shared memory at `slots` ring slots (byte offsets; the same in
+// ops/fused_layernorm.py:bwd_cluster_smem): the ring, a slot holding a CTA's slice of one
+// row of x and of dy, each in its 16-byte envelope (the slice's widest vectors + 1); the
+// slice's scale in fp32; each slot's (mean, rstd); each slot's two rounds of the
+// statistics' exchange ([2][MAX_CLUSTER] float4); six barriers a slot. After the ring has
+// drained its first bytes hold the combine's sums.
+template <typename T>
+struct ClusterLayout {
+  uint32_t slot, scale, stats, recv, bars, bytes;
+  __host__ __device__ ClusterLayout(int d, int c, int slots) {
+    constexpr int VEC = Vec<T>::N;
+    const int nv = (d + VEC - 1) / VEC, widest = (nv + c - 1) / c;
+    slot = (widest + 1) * 16;
+    scale = slots * 2 * slot;
+    stats = scale + widest * VEC * 4;
+    recv = (stats + slots * 8 + 15) / 16 * 16;
+    bars = recv + slots * 2 * sm90::MAX_CLUSTER * 16;
+    bytes = bars + slots * 6 * 8;
+  }
+};
+
+// 16 bytes at byte offset `shift` (0..15, a multiple of the element's size) into the
+// 16-byte chunks p[v], p[v + 1] of shared memory (p[v] taken as 0 where v < 0)
+__device__ __forceinline__ uint4 load_shifted(const uint4* p, int v, int shift) {
+  const uint4 a = v >= 0 ? p[v] : make_uint4(0, 0, 0, 0);
+  if (shift == 0) return a;
+  const uint4 b = p[v + 1];
+  const uint32_t w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  const int q = shift / 4, bits = shift % 4 * 8;
+  uint32_t o[5];
 #pragma unroll
-      for (int k = 0; k < COMBINE_BATCH; ++k) {
-        const int p = p0 + k * groups;
-        v[k] = p < C ? __ldcg(col + (size_t)p * width) : 0.f;
-      }
-#pragma unroll
-      for (int k = 0; k < COMBINE_BATCH; ++k) acc += v[k];
+  for (int k = 0; k < 5; ++k) o[k] = q == 0 ? w[k] : q == 1 ? w[k + 1] : q == 2 ? w[k + 2] : w[k + 3];
+  return make_uint4(__funnelshift_r(o[0], o[1], bits), __funnelshift_r(o[1], o[2], bits),
+                    __funnelshift_r(o[2], o[3], bits), __funnelshift_r(o[3], o[4], bits));
+}
+
+// the 16-byte aligned envelope of the n elements at p: its start, its bytes and p's offset
+// in it. The bytes read past the n elements share a 16-byte chunk with one of them, so
+// they lie inside the allocation of the tensor (allocations are 16-byte aligned).
+struct Envelope {
+  const void* start;
+  uint32_t bytes;
+  int shift;
+};
+
+template <typename T>
+__device__ __forceinline__ Envelope envelope(const T* p, int n) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p), a0 = a & ~uintptr_t(15);
+  const uintptr_t a1 = (a + n * sizeof(T) + 15) & ~uintptr_t(15);
+  return {reinterpret_cast<const void*>(a0), (uint32_t)(a1 - a0), (int)(a - a0)};
+}
+
+// Rows too wide for a ring row of the kernel above (19,369 to 32,768 columns; ops/
+// fused_layernorm.py:bwd_plan, route "cluster"): a row is cut over a cluster of C =
+// ceil(D / MAX_D) CTAs, CTA `rank` owning the vectors of its slice (RowSlices), and
+// cluster k owns a contiguous band of rows. The warps keep the roles of the kernel above,
+// a row a ring slot: the producer thread copies the CTA's slice of each row of x and dy
+// once, by a 1-D bulk copy of its 16-byte envelope (any alignment: the readers start
+// `shift` bytes in); row warp w takes rows w, w + R, ... (R = min(8, slots)), sums its
+// slice's partial statistics and exchanges them over the cluster: each CTA sends its
+// partial to every CTA by st.async (counted on the receiver's barrier), and every CTA
+// adds the C partials in rank order, so each holds the same bits. First the row's sum,
+// then its centred squares, sum(g) and sum(g * (x - mean)), as the kernel above; then it
+// writes the slice's dx from shared memory. The column warps add each row's dy * xhat and
+// dy into fp32 registers, in row order, until the band ends; then the CTA's slice of its
+// cluster's partial rows is written, a grid barrier, and the combine in cluster order.
+// A slot's exchange buffers are written again once every CTA's row warp has read them
+// (a remote arrival on the writers' barrier). Every warp of the grid is resident (the
+// wrapper sizes the grid by cudaOccupancyMaxActiveClusters and refuses more).
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+layernorm_bwd_cluster_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                             const void* __restrict__ scale, T* __restrict__ dx,
+                             float* __restrict__ part, float* __restrict__ sums,
+                             unsigned int* __restrict__ counter, int n, int d, long long x_stride,
+                             long long dy_stride, int slots, int scale_f32, float eps) {
+  constexpr int VEC = Vec<T>::N;
+  constexpr int CV = MAX_D / VEC / COL_THREADS;  // column vectors a column thread owns
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int C = (int)sm90::cluster_ctas(), rank = (int)sm90::cluster_rank();
+  const ClusterLayout<T> L(d, C, slots);
+  const int dp = slot_width(d), nv = (d + VEC - 1) / VEC;
+  const RowSlices sl{nv, C};
+  const int v0 = sl.first(rank), sv = sl.first(rank + 1) - v0;  // this CTA's vectors
+  const int e0 = v0 * VEC, ne = min(d, (v0 + sv) * VEC) - e0;   // and elements
+  const int v_tail = ne % VEC ? sv - 1 : -1;                     // a part-filled last vector
+  // this cluster's band: rows [row0, row0 + band)
+  const int K = gridDim.x / C, k = blockIdx.x / C;
+  const int q = n / K, extra = n % K;
+  const int row0 = k * q + min(k, extra), band = q + (k < extra ? 1 : 0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row_warps = min(ROW_WARPS, slots);
+  const uint32_t base = sm90::smem_addr(smem);
+  float* s_scale = reinterpret_cast<float*>(smem + L.scale);
+  float* s_stats = reinterpret_cast<float*>(smem + L.stats);  // [slots] x (mean, rstd)
+  // a slot's barriers: the bytes landed; freed; its statistics in place; the two rounds of
+  // partials landed; the rounds' buffers read by every CTA
+  const uint32_t full0 = base + L.bars, empty0 = full0 + 8 * slots, ready0 = empty0 + 8 * slots;
+  const uint32_t landed0 = ready0 + 8 * slots, read0 = landed0 + 16 * slots;
+  const auto x_row = [&](int j) { return x + (row0 + j) * x_stride + e0; };
+  const auto dy_row = [&](int j) { return dy + (row0 + j) * dy_stride + e0; };
+  const auto slot_x = [&](int s) { return reinterpret_cast<const uint4*>(smem + s * 2 * L.slot); };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < slots; ++s) {
+      sm90::mbar_init(full0 + 8 * s, 1);
+      sm90::mbar_init(empty0 + 8 * s, 1 + COL_WARPS);
+      sm90::mbar_init(ready0 + 8 * s, 1);
+      sm90::mbar_init(landed0 + 16 * s, 1);
+      sm90::mbar_init(landed0 + 16 * s + 8, 1);
+      sm90::mbar_init(read0 + 8 * s, C);
     }
-    red[j] = acc;
+    sm90::mbar_init_fence();
   }
-  __syncthreads();
-  for (int j = threadIdx.x; j < ncol; j += THREADS) {
-    float acc = 0.f;
-    for (int g = 0; g < groups; ++g) acc += red[g * ncol + j];
-    sums[c0 + j] = acc;
+  sm90::cluster_sync();  // every CTA's barriers before any remote use
+
+  // the slice's vector v of a slot's x or dy (xs: the slot's chunks, shift: the row's
+  // offset into them), as floats
+  const auto load = [&](const uint4* xs, int shift, int v, float* f) {
+    Vec<T>::unpack(load_shifted(xs, v, shift), f);
+  };
+
+  if (warp == PRODUCER) {
+    for (int j = 0; lane == 0 && j < band; ++j) {
+      const int s = j % slots;
+      const uint32_t full = full0 + 8 * s, dst = base + s * 2 * L.slot;
+      sm90::mbar_wait(empty0 + 8 * s, ((j / slots) & 1) ^ 1);
+      const Envelope ex = envelope(x_row(j), ne), eg = envelope(dy_row(j), ne);
+      sm90::mbar_expect_tx(full, ex.bytes + eg.bytes);
+      sm90::bulk_load_1d(dst, ex.start, ex.bytes, full);
+      sm90::bulk_load_1d(dst + L.slot, eg.start, eg.bytes, full);
+    }
+  } else if (warp < ROW_WARPS) {
+    const float inv_d = 1.f / d;
+    for (int i = threadIdx.x; i < sv * VEC; i += ROW_THREADS)
+      s_scale[i] = i >= ne      ? 0.f
+                   : scale_f32 ? static_cast<const float*>(scale)[e0 + i]
+                               : __bfloat162float(static_cast<const bf16*>(scale)[e0 + i]);
+    sm90::named_barrier_sync<ROW_THREADS>(1);
+    for (int j = warp; warp < row_warps && j < band; j += row_warps) {
+      const int s = j % slots;
+      const uint32_t par = (j / slots) & 1, landed = landed0 + 16 * s, read = read0 + 8 * s;
+      const uint32_t recv = base + L.recv + s * 2 * sm90::MAX_CLUSTER * 16;
+      const uint4* xs = slot_x(s);
+      const uint4* gs = reinterpret_cast<const uint4*>(smem + s * 2 * L.slot + L.slot);
+      const int shx = envelope(x_row(j), ne).shift, shg = envelope(dy_row(j), ne).shift;
+      sm90::mbar_wait(full0 + 8 * s, par);
+      if (lane == 0) {  // this row's two rounds, C partials of 16 bytes each
+        sm90::mbar_expect_tx(landed, C * 16);
+        sm90::mbar_expect_tx(landed + 8, C * 16);
+      }
+      // round 1: the row's sum over the cluster
+      float sum = 0.f;
+#pragma unroll 2
+      for (int v = lane; v < sv; v += 32) {
+        float f[VEC];
+        load(xs, shx, v, f);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          if (v != v_tail || v * VEC + e < ne) sum += f[e];
+      }
+      sum = warp_sum(sum);
+      sm90::mbar_wait(read, par ^ 1);  // every CTA has read this slot's last rounds
+      if (lane < C)
+        sm90::st_async(sm90::map_cta(recv + 16 * rank, lane), make_float4(sum, 0.f, 0.f, 0.f),
+                       sm90::map_cta(landed, lane));
+      sm90::mbar_wait(landed, par);
+      float total = 0.f;
+      for (int c = 0; c < C; ++c) total += sm90::ld_shared(recv + 16 * c).x;
+      const float mean = total * inv_d;
+      // round 2: the centred squares, sum(g), sum(g * (x - mean))
+      float sq = 0.f, sgs = 0.f, sgx = 0.f;
+#pragma unroll 2
+      for (int v = lane; v < sv; v += 32) {
+        float f[VEC], g[VEC], w[VEC];
+        load(xs, shx, v, f);
+        load(gs, shg, v, g);
+        if constexpr (VEC == 8) load_f32x8(s_scale + v * VEC, w);
+        else Vec<float>::load(s_scale + v * VEC, w);
+        if (v == v_tail) {  // past the row: adds nothing
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+            if (v * VEC + e >= ne) f[e] = mean, g[e] = 0.f;
+        }
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          const float xc = f[e] - mean, gg = g[e] * w[e];
+          sq += xc * xc;
+          sgs += gg;
+          sgx += gg * xc;
+        }
+      }
+      sq = warp_sum(sq);
+      sgs = warp_sum(sgs);
+      sgx = warp_sum(sgx);
+      if (lane < C)
+        sm90::st_async(sm90::map_cta(recv + 16 * (sm90::MAX_CLUSTER + rank), lane),
+                       make_float4(sq, sgs, sgx, 0.f), sm90::map_cta(landed + 8, lane));
+      sm90::mbar_wait(landed + 8, par);
+      float4 st = sm90::ld_shared(recv + 16 * sm90::MAX_CLUSTER);
+      for (int c = 1; c < C; ++c) st = sm90::add4(st, sm90::ld_shared(recv + 16 * (sm90::MAX_CLUSTER + c)));
+      __syncwarp();  // the warp's reads of both rounds, then one arrival a CTA
+      if (lane < C) sm90::arrive_remote(sm90::map_cta(read, lane));
+      const float rstd = rsqrtf(st.x * inv_d + eps);
+      const float gm = st.y * inv_d, gxm = rstd * st.z * inv_d;  // mean(g), mean(g * xhat)
+      // dx of the slice, in 16-byte stores: where dx's rows are not 16-byte aligned, each
+      // lane takes an aligned 16 bytes of dx (x and dy read at its offset in the slots),
+      // element by element where it reaches past the slice (all element by element: 0.152
+      // ms at [1000,24577], against 0.131; kernels/check_layernorm.py --wide --time)
+      T* out = dx + (size_t)(row0 + j) * d + e0;
+      if (d % VEC == 0) {
+#pragma unroll 2
+        for (int v = lane; v < sv; v += 32) {
+          float f[VEC], g[VEC], w[VEC];
+          load(xs, shx, v, f);
+          load(gs, shg, v, g);
+          if constexpr (VEC == 8) load_f32x8(s_scale + v * VEC, w);
+          else Vec<float>::load(s_scale + v * VEC, w);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) f[e] = rstd * (g[e] * w[e] - gm - (f[e] - mean) * rstd * gxm);
+          Vec<T>::store(out + v * VEC, f);
+        }
+      } else {
+        const int so = (int)(reinterpret_cast<uintptr_t>(out) % 16 / sizeof(T));
+        for (int c = lane; c * VEC < so + ne; c += 32) {
+          const int first = c * VEC - so;  // the slice's element at the chunk's start
+          const int bx = shx + first * (int)sizeof(T), bg = shg + first * (int)sizeof(T);
+          float f[VEC], g[VEC];
+          Vec<T>::unpack(load_shifted(xs, (bx + 16) / 16 - 1, (bx + 16) % 16), f);
+          Vec<T>::unpack(load_shifted(gs, (bg + 16) / 16 - 1, (bg + 16) % 16), g);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) {
+            const bool in = first + e >= 0 && first + e < ne;
+            f[e] = in ? rstd * (g[e] * s_scale[first + e] - gm - (f[e] - mean) * rstd * gxm) : 0.f;
+          }
+          if (first >= 0 && first + VEC <= ne) {
+            Vec<T>::store(out + first, f);
+          } else {
+#pragma unroll
+            for (int e = 0; e < VEC; ++e)
+              if (first + e >= 0 && first + e < ne) out[first + e] = T(f[e]);
+          }
+        }
+      }
+      if (lane == 0) {
+        s_stats[2 * s] = mean;
+        s_stats[2 * s + 1] = rstd;
+      }
+      __syncwarp();
+      if (lane == 0) {
+        sm90::mbar_arrive(ready0 + 8 * s);  // the row's statistics are in place
+        sm90::mbar_arrive(empty0 + 8 * s);
+      }
+    }
+  } else {
+    // column warps: thread t owns the slice's vectors t, t + COL_THREADS, ... and adds
+    // dy * xhat and dy of the band's rows, in row order, into fp32 registers
+    const int t = threadIdx.x - ROW_THREADS;
+    float acc_s[CV][VEC], acc_b[CV][VEC];
+#pragma unroll
+    for (int i = 0; i < CV; ++i)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc_s[i][e] = acc_b[i][e] = 0.f;
+    for (int j = 0; j < band; ++j) {
+      const int s = j % slots;
+      const uint32_t par = (j / slots) & 1;
+      const uint4* xs = slot_x(s);
+      const uint4* gs = reinterpret_cast<const uint4*>(smem + s * 2 * L.slot + L.slot);
+      const int shx = envelope(x_row(j), ne).shift, shg = envelope(dy_row(j), ne).shift;
+      sm90::mbar_wait(full0 + 8 * s, par);   // the slot's bytes
+      sm90::mbar_wait(ready0 + 8 * s, par);  // its row's statistics
+      const float mean = s_stats[2 * s], rstd = s_stats[2 * s + 1];
+#pragma unroll
+      for (int i = 0; i < CV; ++i) {
+        const int v = t + i * COL_THREADS;
+        if (v < sv) {
+          float f[VEC], g[VEC];
+          load(xs, shx, v, f);
+          load(gs, shg, v, g);
+          if (v == v_tail) {
+#pragma unroll
+            for (int e = 0; e < VEC; ++e)
+              if (v * VEC + e >= ne) f[e] = mean, g[e] = 0.f;
+          }
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) {
+            acc_s[i][e] += g[e] * ((f[e] - mean) * rstd);
+            acc_b[i][e] += g[e];
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive(empty0 + 8 * s);
+    }
+    // this CTA's slice of its cluster's partial rows ([0] dscale, [1] dbias; the sums
+    // themselves for one cluster); columns past the last vector up to the slot width 0
+    float* ps = K == 1 ? sums : part + (size_t)k * 2 * dp;
+#pragma unroll
+    for (int i = 0; i < CV; ++i) {
+      const int v = t + i * COL_THREADS;
+      if (v < sv) {
+#pragma unroll
+        for (int e = 0; e < VEC; e += 4) {
+          *reinterpret_cast<float4*>(ps + e0 + v * VEC + e) =
+              make_float4(acc_s[i][e], acc_s[i][e + 1], acc_s[i][e + 2], acc_s[i][e + 3]);
+          *reinterpret_cast<float4*>(ps + dp + e0 + v * VEC + e) =
+              make_float4(acc_b[i][e], acc_b[i][e + 1], acc_b[i][e + 2], acc_b[i][e + 3]);
+        }
+      }
+    }
+    if (rank == C - 1)
+      for (int col = nv * VEC + t; col < dp; col += COL_THREADS) ps[col] = ps[dp + col] = 0.f;
   }
+  sm90::cluster_sync();  // every exchange done: no CTA leaves while another may signal it
+  if (K == 1) return;
+
+  grid_barrier(counter);
+  combine_columns(part, sums, 2 * dp, K, blockIdx.x, gridDim.x, reinterpret_cast<float*>(smem));
 }
 
 // ------------------------------------------------------------------ streamed rows
@@ -710,6 +1067,30 @@ cudaError_t launch_streamed(const void* x, const void* dy, const void* scale, vo
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch_cluster_rows(const void* x, const void* dy, const void* scale, void* dx,
+                                void* part, void* sums, void* counter, int n, int d,
+                                long long x_stride, long long dy_stride, int cluster,
+                                int clusters, int slots, int scale_f32, float eps,
+                                cudaStream_t stream) {
+  const ClusterLayout<T> L(d, cluster, slots);
+  const int dp = slot_width(d), ctas = clusters * cluster;
+  const size_t red = (size_t)4 * max(THREADS, (2 * dp + ctas - 1) / ctas);  // the combine's
+  if (d <= 0 || cluster != (d + MAX_D - 1) / MAX_D || cluster < 2 ||
+      cluster > sm90::MAX_CLUSTER || slots < 1 || slots > CLUSTER_SLOTS || clusters < 1 ||
+      clusters > n || L.bytes > (uint32_t)SMEM_LIMIT || (clusters > 1 && L.scale < red))
+    return cudaErrorInvalidValue;  // not a plan of ops/fused_layernorm.py:bwd_plan
+  const auto kernel = layernorm_bwd_cluster_kernel<T>;
+  // the grid barrier needs every CTA resident: more clusters than fit are refused
+  if (clusters > sm90::max_active_clusters(kernel, THREADS, cluster, L.bytes))
+    return cudaErrorCooperativeLaunchTooLarge;
+  return sm90::launch_cluster(kernel, dim3(ctas), THREADS, cluster, L.bytes, stream,
+                              static_cast<const T*>(x), static_cast<const T*>(dy), scale,
+                              static_cast<T*>(dx), static_cast<float*>(part),
+                              static_cast<float*>(sums), static_cast<unsigned int*>(counter), n,
+                              d, x_stride, dy_stride, slots, scale_f32, eps);
+}
+
 template <typename T, bool ANY>
 cudaError_t launch(const void* x, const void* dy, const void* scale, void* dx, void* part,
                    void* sums, void* counter, int n, int d, long long x_stride,
@@ -780,4 +1161,45 @@ extern "C" int layernorm_bwd_f32(const void* x, const void* dy, const void* scal
   return (int)(any ? launch<float, true> : launch<float, false>)(
       x, dy, scale, dx, part, sums, counter, n, d, x_stride, dy_stride, rows, stages, ctas,
       scale_f32, direct, eps, static_cast<cudaStream_t>(stream));
+}
+
+// Rows cut over a cluster (ops/fused_layernorm.py:bwd_plan, route "cluster"): x, dy [n, d]
+// with the given row strides (elements), any alignment of the element type; scale [d]
+// (fp32 if scale_f32, else bf16); dx [n, d] contiguous in x's type; part: fp32 scratch of
+// clusters * 2 * dp (dp = d rounded up to 8); sums: fp32 [2, dp]; counter as above;
+// cluster, clusters, slots: the plan's. Refused (cudaErrorCooperativeLaunchTooLarge)
+// where more clusters are asked than can be resident at once.
+extern "C" int layernorm_bwd_cluster_bf16(const void* x, const void* dy, const void* scale,
+                                          void* dx, void* part, void* sums, void* counter, int n,
+                                          int d, long long x_stride, long long dy_stride,
+                                          int cluster, int clusters, int slots, int scale_f32,
+                                          float eps, void* stream) {
+  return (int)launch_cluster_rows<bf16>(x, dy, scale, dx, part, sums, counter, n, d, x_stride,
+                                        dy_stride, cluster, clusters, slots, scale_f32, eps,
+                                        static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int layernorm_bwd_cluster_f32(const void* x, const void* dy, const void* scale,
+                                         void* dx, void* part, void* sums, void* counter, int n,
+                                         int d, long long x_stride, long long dy_stride,
+                                         int cluster, int clusters, int slots, int scale_f32,
+                                         float eps, void* stream) {
+  return (int)launch_cluster_rows<float>(x, dy, scale, dx, part, sums, counter, n, d, x_stride,
+                                         dy_stride, cluster, clusters, slots, scale_f32, eps,
+                                         static_cast<cudaStream_t>(stream));
+}
+
+// how many clusters of the cluster kernel at this width (itemsize 2: bf16, 4: fp32),
+// cluster size and ring slots can be resident at once on the current device; 0 where the
+// layout does not fit
+extern "C" int layernorm_bwd_cluster_fit(int itemsize, int d, int cluster, int slots) {
+  if (cluster < 1 || cluster > sm90::MAX_CLUSTER || slots < 1) return 0;
+  if (itemsize == 2) {
+    const ClusterLayout<bf16> L(d, cluster, slots);
+    return L.bytes > (uint32_t)SMEM_LIMIT ? 0
+               : sm90::max_active_clusters(layernorm_bwd_cluster_kernel<bf16>, THREADS, cluster, L.bytes);
+  }
+  const ClusterLayout<float> L(d, cluster, slots);
+  return L.bytes > (uint32_t)SMEM_LIMIT ? 0
+             : sm90::max_active_clusters(layernorm_bwd_cluster_kernel<float>, THREADS, cluster, L.bytes);
 }

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks for the kernels of this directory: mbarriers, TMA tile
-// loads, shared-memory matrix descriptors and the warpgroup matrix multiply (wgmma), as
-// thin wrappers over PTX. No state, no launch: device inline functions only.
+// loads, shared-memory matrix descriptors, the warpgroup matrix multiply (wgmma) and the
+// warp's (mma.sync), as thin wrappers over PTX. No state, no launch: device inline functions only.
 
 #pragma once
 
@@ -517,6 +517,20 @@ struct WgmmaSS<128, TNSP_B> {
     wgmma_m64n128k16<TNSP_B>(d, a, b, scale_d);
   }
 };
+
+// ---- mma.sync --------------------------------------------------------------------
+
+// d[16 x 8] += a[16 x 16] . b[16 x 8], bf16 in, fp32 accumulators. Thread (g = lane / 4,
+// t = lane % 4): a[0] row g cols 2t, 2t+1; a[1] row g+8; a[2] cols + 8; a[3] both; b0
+// k rows 2t, 2t+1 of column g, b1 k rows + 8; d[0..1] row g cols 2t, 2t+1, d[2..3] row g+8.
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
 // keeps registers that an asynchronous wgmma reads alive (and unmoved) up to this point
 template <int N>

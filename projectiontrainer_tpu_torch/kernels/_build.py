@@ -39,6 +39,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-lineinfo")
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+MAX_CLUSTER = 8  # CTAs a thread-block cluster at most, the portable size (csrc/cluster_sm90.cuh)
 
 # C signatures of the entry points (see the ``extern "C"`` blocks of csrc/*.cu)
 SIGNATURES = {
@@ -79,6 +80,12 @@ SIGNATURES = {
     # stages, ctas, scale_f32, direct; eps; stream
     "layernorm_bwd_bf16": [_P] * 7 + [_I] * 2 + [_L] * 2 + [_I] * 5 + [_F, _P],
     "layernorm_bwd_f32": [_P] * 7 + [_I] * 2 + [_L] * 2 + [_I] * 5 + [_F, _P],
+    # rows cut over a cluster: the pointers and sizes above; cluster, clusters, slots,
+    # scale_f32; eps; stream
+    "layernorm_bwd_cluster_bf16": [_P] * 7 + [_I] * 2 + [_L] * 2 + [_I] * 4 + [_F, _P],
+    "layernorm_bwd_cluster_f32": [_P] * 7 + [_I] * 2 + [_L] * 2 + [_I] * 4 + [_F, _P],
+    # itemsize, d, cluster, slots -> clusters resident at once
+    "layernorm_bwd_cluster_fit": [_I] * 4,
 }
 
 _lock = threading.Lock()

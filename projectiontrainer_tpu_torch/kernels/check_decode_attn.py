@@ -16,15 +16,21 @@ Needs an NVIDIA GPU and ``nvcc``. Prints one JSON line per step:
   generation evaluation's P = 703, and one caption of 3 beams at P = 575, G = 128), and
   at the other head dims and GQA ratios, at more rows a KV head than a CTA holds (24 beams
   of Gemma3-1B's 4/1 heads, 17 of Llama's 32/8, 96 query heads on one KV head), at head
-  dim 512 and at 320 (padded to 512), and above 512 (1024, 768 and 640, padded to 768:
-  column blocks of 256; ``--wide``: only those); a rerun must give the same bits, and the plan
-  (``ops/decode_attention.py:decode_plan``) must put more CTAs on the card than there
-  are (batch, KV head) pairs. Every case is run before a failure is reported;
+  dim 512 and at 320 (padded to 512), and above 512 (``--wide``: only those): 768 (and
+  640, padded to it), 1024 (also at 96 rows a KV head, and leg 6b's decode) and 2048 on
+  the cluster route (3, 4 and 8 CTAs a split), 2304 on the column blocks; a rerun must
+  give the same bits, and the plan (``ops/decode_attention.py:decode_plan``, its route in
+  each row) must put more CTAs on the card than there are (batch, KV head) pairs. Every
+  case is run before a failure is reported; ``--ptxas`` fails the run where a kernel
+  spills;
 - ``--time``: device times (``utils/timing.py:device_ms``) of kernel, plain version and
   the library call (``scaled_dot_product_attention`` over the concatenated caches, the
   prefix repeated per beam outside the timed call, with the masks as one explicit bool
-  mask: a yardstick the port never calls), in turns, at the served shapes (Gemma3-1B's
-  and Llama-3.2-1B's) and one caption's.
+  mask: a yardstick the port never calls; and again with k and v repeated to the query
+  heads, which the efficient backend takes), in turns, at the served shapes (Gemma3-1B's
+  and Llama-3.2-1B's) and one caption's; with ``--wide`` at phase 2's head dim 1024
+  (and its window, and 96 rows a KV head), at 2048, at 2304 and at leg 6b's decode, and
+  the cluster route's least tiles a split (``time_cluster_tiles``).
 """
 
 from __future__ import annotations
@@ -78,8 +84,11 @@ CASES = [
     (8, 3, 4, 1, 1024, 831, 32, 31, None, "ragged"),    # chip_smoke.py phase 2's shape
     (8, 3, 4, 1, 1024, 831, 32, 17, 512, "ragged"),
     (2, 24, 4, 1, 1024, 300, 16, 15, None, "splits"),   # 96 rows: row groups of 16
-    (2, 3, 4, 2, 768, 300, 16, 15, 200, "splits"),
+    (2, 3, 4, 2, 768, 300, 16, 15, 200, "splits"),     # the narrowest cluster: 3 CTAs
     (2, 3, 4, 1, 640, 150, 16, 15, None, "ragged"),     # 640, padded to 768
+    (2, 3, 4, 1, 2048, 300, 16, 15, 100, "ragged"),     # the widest cluster: 8 CTAs
+    (2, 3, 4, 1, 2304, 150, 16, 15, None, "ragged"),    # past the reach: column blocks
+    (2, 3, 4, 1, 1024, 703, 16, 15, 512, "ragged"),     # chip_smoke.py leg 6b's decode
 ]
 WIDE = [case for case in CASES if case[4] > 512]
 TIMED = CASES[:8] + CASES[18:21] + CASES[23:24]
@@ -125,18 +134,22 @@ def check(b, nb, hq, hkv, d, p, g, t, window, pad) -> bool:
            "within_tol": bool((err <= TOL + TOL * ref.abs()).all() and got.isfinite().all()),
            "bit_equal": all(torch.equal(got, x) for x in again),
            "launched": DA.launches.value == before + 3, "ctas": plan["ctas"],
-           "splits": plan["splits"], "chunk": plan["chunk"], "groups": plan["groups"]}
+           "splits": plan["splits"], "chunk": plan["chunk"], "groups": plan["groups"],
+           "route": plan["route"]}
     row["ok"] = bool(row["within_tol"] and row["bit_equal"] and row["launched"]
                      and plan["ctas"] > b * hkv)
     emit(row)
     return row["ok"]
 
 
-def library_call(q, kp, vp, kg, vg, *, prefix_mask, t, prefix_len, scale, window):
+def library_call(q, kp, vp, kg, vg, *, prefix_mask, t, prefix_len, scale, window,
+                 repeat_kv=False):
     """The one PyTorch call that computes decode attention, a yardstick the port never
     calls: ``scaled_dot_product_attention`` over the caches concatenated (the prefix
     repeated per beam, here and not in the timed call) with the masks as one explicit bool
-    mask -> (fn, the backend that ran, the live keys over all rows)."""
+    mask -> (fn, the backend that ran, the live keys over all rows). ``repeat_kv``: k and
+    v repeated to the query heads too (outside the timed call), which SDPA's efficient
+    backend takes with an explicit mask where it refuses GQA."""
     r, _, _ = q.shape
     b, _, p, _ = kp.shape
     g, nb = kg.shape[2], r // b
@@ -148,6 +161,9 @@ def library_call(q, kp, vp, kg, vg, *, prefix_mask, t, prefix_len, scale, window
     live = torch.cat([live, gen[None].expand(r, g)], dim=1)
     k_cat = torch.cat([kp.repeat_interleave(nb, 0), kg], dim=2).transpose(1, 2)
     v_cat = torch.cat([vp.repeat_interleave(nb, 0), vg], dim=2).transpose(1, 2)
+    if repeat_kv:
+        k_cat, v_cat = (x.repeat_interleave(q.shape[1] // x.shape[2], 2).contiguous()
+                        for x in (k_cat, v_cat))
     fn, backend = sdpa(q[:, None], k_cat, v_cat, live[:, None, None, :], scale, False)
     return fn, backend, int(live.sum())
 
@@ -156,13 +172,15 @@ def time_case(b, nb, hq, hkv, d, p, g, t, window, pad) -> None:
     q, kp, vp, kg, vg, mask = inputs(b, nb, hq, hkv, d, p, g, pad)
     kw = dict(prefix_mask=mask, t=t, prefix_len=p, scale=d ** -0.5, window=window)
     lib, backend, _ = library_call(q, kp, vp, kg, vg, **kw)
+    lib_rep, backend_rep, _ = library_call(q, kp, vp, kg, vg, **kw, repeat_kv=True)
     rows = {}
     for _ in range(2):  # in turns
         for name, fn in (("plain", lambda: DA.decode_attention_reference(q, kp, vp, kg, vg, **kw)),
                          ("kernel", lambda: DA.decode_attention(q, kp, vp, kg, vg, **kw)),
-                         ("library", lib)):
+                         ("library", lib), ("library_repeat_kv", lib_rep)):
             rows.setdefault(name, []).append(device_ms(fn))
-    emit({"case": [b, nb, hq, hkv, d, p, g, t, window, pad], "library": backend, "ms": rows})
+    emit({"case": [b, nb, hq, hkv, d, p, g, t, window, pad], "library": backend,
+          "library_repeat_kv": backend_rep, "ms": rows})
 
 
 def time_group_rows(sizes=(8, 12, 16, 24, 32, 64)) -> None:
@@ -193,6 +211,33 @@ def time_group_rows(sizes=(8, 12, 16, 24, 32, 64)) -> None:
         emit({"group_rows": list(case), **rows})
 
 
+def time_cluster_tiles(floors=(1, 2, 3)) -> None:
+    """The cluster route's least tiles a split (``DA.CLUSTER_MIN_TILES``): the plan's
+    floor against each of ``floors``, each checked against the plain version, then timed
+    in turns, at phase 2's head dim 1024 shape, its window, 96 rows, 2048 and leg 6b's
+    decode."""
+    default = DA.CLUSTER_MIN_TILES
+    for case in WIDE[:3] + WIDE[5:6] + WIDE[-1:]:
+        b, nb, hq, hkv, d, p, g, t, window, pad = case
+        q, kp, vp, kg, vg, mask = inputs(b, nb, hq, hkv, d, p, g, pad)
+        kw = dict(prefix_mask=mask, t=t, prefix_len=p, scale=d ** -0.5, window=window)
+        ref = DA.decode_attention_reference(*(x.float() for x in (q, kp, vp, kg, vg)), **kw)
+        rows = {}
+        for floor in floors:
+            DA.CLUSTER_MIN_TILES = floor
+            err = float((DA.decode_attention(q, kp, vp, kg, vg, **kw).float() - ref).abs().max())
+            plan = DA.decode_plan(b, nb, hkv, p, g, t, p, window, n_rep=hq // hkv, d=d,
+                                  sms=torch.cuda.get_device_properties(0).multi_processor_count)
+            rows[str(floor)] = {"err": err, "chunk": plan["chunk"], "ctas": plan["ctas"], "ms": []}
+        for _ in range(2):  # in turns
+            for floor in floors:
+                DA.CLUSTER_MIN_TILES = floor
+                rows[str(floor)]["ms"].append(
+                    device_ms(lambda: DA.decode_attention(q, kp, vp, kg, vg, **kw)))
+        DA.CLUSTER_MIN_TILES = default
+        emit({"cluster_min_tiles": list(case), "plan": default, **rows})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--ptxas", action="store_true")
@@ -203,13 +248,14 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     emit({"card": smi, "python": sys.version.split()[0], "torch": torch.__version__,
           "cuda": torch.version.cuda})
-    if args.ptxas:
-        ptxas_report(("decode_attention.cu",))
+    ok = [ptxas_report(("decode_attention.cu",))] if args.ptxas else []
     _build.library()
     emit({"build_s": _build.build_seconds})
-    ok = [check(*case) for case in (WIDE if args.wide else CASES)]
+    ok += [check(*case) for case in (WIDE if args.wide else CASES)]
     if args.time and args.wide:
-        time_case(*WIDE[0])
+        for case in WIDE[:3] + WIDE[5:]:  # phase 2's shape, its window, 96 rows; 2048, 2304, leg 6b
+            time_case(*case)
+        time_cluster_tiles()
     elif args.time:
         for case in TIMED:
             time_case(*case)

@@ -96,9 +96,12 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def ptxas_report(sources=None) -> None:
+def ptxas_report(sources=None) -> bool:
+    """What ``nvcc -Xptxas -v`` says of each source's kernels, a line each; whether none
+    spills (no spill stores or loads)."""
     sources = sources or ("flash_attn_fwd.cu", "flash_attn_bwd.cu", "flash_attn_wide.cu",
                           "flash_attn_cluster.cu")
+    spills = 0
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     for source in sources:
         proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
@@ -113,6 +116,9 @@ def ptxas_report(sources=None) -> None:
                 name = found.group(1)
             elif "registers" in line or "spill" in line or "warning" in line.lower():
                 emit({"ptxas": name, "line": line.strip()})
+                spills += sum(map(int, re.findall(r"(\d+) bytes spill", line)))
+    emit({"ptxas_spill_bytes": spills, "ok": spills == 0})
+    return spills == 0
 
 
 def one_at_a_time_ms(fn, iters: int = 20) -> float:

@@ -15,11 +15,13 @@ Needs an NVIDIA GPU and ``nvcc``. Prints one JSON line per step:
   an fp32 scale, strided rows, D = 4096, rows that a bulk copy cannot take (D = 1001 and
   1004, 8-byte aligned strides, a base off 16 bytes: copied by cp.async) and D above
   4096 (6144, 8192; column sums through device memory) and rows too wide for one ring
-  row (20480, 24577, 32768 and others: the streamed kernel); a rerun must give the same
-  bits; then each refusal (another dtype, dy of another shape) must raise; at the widths
-  above 16384 the LayerNorm forward (K2, looping over column chunks) against its plain
-  version within atol = rtol = 2e-2 too. ``--wide``: only the widths above 19,368 (and
-  K2 there). Every case is run before a failure is reported;
+  row: 19369 to 32768 on a cluster (20480, 24577 with rows off 16 bytes, 32768, two rows
+  on one cluster, fp32 rows, strided rows), 40000 streamed; a rerun must give the same
+  bits; then each refusal (another dtype, dy of another shape, a cluster grid larger than
+  can be resident) must raise; at the widths above 16384 the LayerNorm forward (K2,
+  looping over column chunks) against its plain version within atol = rtol = 2e-2 too.
+  ``--wide``: only the widths above 19,368 (and K2 there). Every case is run before a
+  failure is reported; ``--ptxas`` fails the run where a kernel spills;
 - ``--time``: device times (``utils/timing.py:device_ms``) of kernel, plain version,
   the library call (the autograd backward of ``F.layer_norm``: dx, dscale and dbias; a
   yardstick the port never calls) and ``torch.add(x, dy, out=dx)`` (the same bytes read
@@ -79,6 +81,10 @@ CASES = [
     (2, 20480, torch.bfloat16, torch.bfloat16, None, False),     # one CTA
     (300, 20480, torch.float32, torch.float32, None, False),
     (140, 20480, torch.bfloat16, torch.float32, 20488, False),   # strided rows
+    (16, 19369, torch.bfloat16, torch.bfloat16, None, False),    # the narrowest cluster
+    (2, 32768, torch.bfloat16, torch.bfloat16, None, False),     # one cluster of 8
+    (100, 20483, torch.float32, torch.float32, None, False),     # fp32 rows off 16 bytes
+    (64, 40000, torch.bfloat16, torch.bfloat16, None, False),    # past the cluster: streamed
 ]
 STREAMED = [case for case in CASES if case[1] > 19368]
 TIMED = [case for case in CASES if case[2] == case[3] == torch.bfloat16
@@ -121,20 +127,21 @@ def check(n, d, dtype, scale_dtype, stride, ragged) -> bool:
     again = [FLN.layernorm_bwd(x, dy, scale, 1e-6) for _ in range(2)]
     row = {"case": [n, d, str(dtype), str(scale_dtype), stride], **plan,
            "direct": FLN.bwd_direct(x, dy),
-           "bands": sorted({c for _, c in FLN.bwd_bands(n, plan["ctas"])}),
+           "bands": sorted({c for _, c in FLN.bwd_bands(n, FLN.band_count(plan))}),
            "ragged": FLN.bwd_ragged(n, plan), "rel_err_dx_dscale_dbias": errs,
            "finite": all(bool(a.isfinite().all()) for a in got),
            "bit_equal": all(torch.equal(a, b) for r in again for a, b in zip(got, r)),
            "launched_once": launched}
     row["ok"] = bool(max(errs) <= TOL and row["finite"] and row["bit_equal"] and launched
                      and (sms != 132 or row["ragged"] == ragged)
-                     and (n >= plan["rows"] * sms or plan["ctas"] < sms))
+                     and FLN.band_count(plan) <= -(-n // plan["rows"]))  # no band empty
     emit(row)
     return row["ok"]
 
 
 def refusals() -> bool:
-    """Each input the kernel does not take raises, and nothing is launched."""
+    """Each input the kernel does not take raises, and nothing is launched; so does a
+    cluster grid larger than can be resident at once (its grid barrier would hang)."""
     x = torch.zeros((64, 1160), dtype=torch.bfloat16, device="cuda")
     scale = torch.ones(1152, dtype=torch.bfloat16, device="cuda")
     cases = {
@@ -142,13 +149,17 @@ def refusals() -> bool:
         "dy of another shape": (ValueError, (x[:, :1152], x[:32, :1152], scale)),
         "fp16 scale": (TypeError, (x[:, :1152], x[:, :1152], scale.half())),
     }
+    wide = torch.zeros((600, 20480), dtype=torch.bfloat16, device="cuda")
+    cases["more clusters than resident"] = (
+        RuntimeError, (wide, wide, torch.ones(20480, device="cuda")),
+        FLN.bwd_plan(600, 20480, 132, clusters=600))
     ok = True
-    for name, (error, args) in cases.items():
+    for name, (error, args, *plan) in cases.items():
         before = FLN.bwd_launches.value
         try:
-            FLN.layernorm_bwd(*args, 1e-6)
+            FLN.layernorm_bwd(*args, 1e-6, *plan)
             raised = None
-        except (TypeError, ValueError) as e:
+        except (TypeError, ValueError, RuntimeError) as e:
             raised = type(e)
         good = raised is error and FLN.bwd_launches.value == before
         emit({"refusal": name, "raised": raised.__name__ if raised else None, "ok": good})
@@ -231,11 +242,10 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     emit({"card": smi, "python": sys.version.split()[0], "torch": torch.__version__,
           "cuda": torch.version.cuda})
-    if args.ptxas:
-        ptxas_report(("layernorm_bwd.cu",))
+    ok = [ptxas_report(("layernorm_bwd.cu",))] if args.ptxas else []
     _build.library()
     emit({"build_s": _build.build_seconds})
-    ok = [check(*case) for case in (STREAMED if args.wide else CASES)]
+    ok += [check(*case) for case in (STREAMED if args.wide else CASES)]
     ok += [check_forward(*case) for case in STREAMED if case[4] is None]
     ok.append(refusals())
     if args.time and args.wide:

@@ -17,10 +17,10 @@ the last split of a (batch, KV head) to finish combines them; a per-stream count
 tells it that it is the last, and it sets the counter back to 0 for the next launch.
 
 A CTA holds its query rows in shared memory, at most ``max_rows(d)`` of them (64; 16 at
-head dim 512 and at 1024). A (batch, KV head) with more rows (nb * n_rep: 17 beams of Gemma3-1B's 4
-query heads a KV head) is cut into row groups of whole beams (or, where one beam's
-n_rep rows are too many, of a beam's rows), each with its own splits and combine, and
-each reading the prefix again; ``decode_plan`` picks their size and reports them. The
+head dim 512; 8 at 4096). A (batch, KV head) with more rows (nb * n_rep: 17 beams of
+Gemma3-1B's 4 query heads a KV head) is cut into row groups of whole beams (or, where one
+beam's n_rep rows are too many, of a beam's rows), each with its own splits and combine,
+and each reading the prefix again; ``decode_plan`` picks their size and reports them. The
 JAX package sends such shapes to its XLA decode path instead.
 
 The kernel takes head dims 64, 128, 256 and 512, and every multiple of 256 above 512;
@@ -28,9 +28,12 @@ any other is zero-padded on the card to the next of them, the query and the four
 alike, and the output sliced back (``decode_attention_padded``; the scale stays the
 caller's). Padding copies the caches at every step: the copy-free version is a kernel
 that reads rows of D < width. Above 512 (where the JAX package runs XLA's decode
-attention) a CTA owns one block of 256 of the output's columns and computes its split's
-scores over the whole D again (``decode_plan``'s ``col_blocks``: each block is a unit
-with its own partials, counter and combine).
+attention) O's columns are cut into slices of 256 (``col_blocks``: each slice a unit with
+its own partials, counter and combine), on one of two routes (``decode_plan``'s
+``route``): up to ``CLUSTER_REACH`` a split runs on a thread-block cluster of D / 256
+CTAs, which compute each score once, each over its slice, and sum the partial scores over
+the cluster ("cluster"); past it each CTA computes its split's scores over the whole D
+again ("column blocks").
 """
 
 from __future__ import annotations
@@ -49,7 +52,16 @@ HEAD_DIMS = (64, 128, 256, 512)
 MAX_ROWS = 64  # query rows one CTA holds in shared memory (csrc/decode_attention.cu:MAX_M)
 MAX_ROWS_512 = 16  # ... at head dim 512
 WIDE_COLUMNS = 256  # above 512: O's columns a CTA (csrc/decode_attention.cu:DC)
+KEY_STRIDE = WIDE_COLUMNS + 8  # a cluster CTA's K and q rows in shared memory (KS)
+CLUSTER_REACH = _build.MAX_CLUSTER * WIDE_COLUMNS  # the widest head dim on the cluster route
 GROUP_SIZES = (64, 32, 16, 8)  # rows a row group may hold, largest first
+# tiles a split at least on the cluster route where splits of one tile would put more CTAs
+# than SMs on the card: a split's fixed cost (the cluster's start, q, the partial and its
+# share of the combine) outweighs a tile once the scores are on the tensor cores. Leg 6b's
+# decode in chip_smoke.py (2 x 3 beams, 4|1 heads of 1024, P = 703, window 512: 152 CTAs
+# in one-tile splits) took 0.0365-0.0372 ms in splits of one tile, 0.0265 in two, 0.0299
+# in three (NVIDIA H100 80GB HBM3, 700 W; kernels/check_decode_attn.py --wide --time)
+CLUSTER_MIN_TILES = 2
 TILE_KEYS = 32  # keys a tile inside a split (csrc/decode_attention.cu:TK)
 SMEM_LIMIT = 232_448  # dynamic shared memory a block may opt into on the H100
 _counters: dict = {}  # (device index, stream) -> int32 [>= B * Hkv], zero between launches
@@ -63,23 +75,47 @@ def takes_head_dim(d: int) -> bool:
 
 
 def col_blocks(d: int) -> int:
-    """The column blocks of O that K3's CTAs split at head dim d (1 up to 512)."""
+    """The slices of O's columns that K3's CTAs split at head dim d (1 up to 512)."""
     return d // WIDE_COLUMNS if d > max(HEAD_DIMS) else 1
+
+
+def route(d: int) -> str:
+    """K3's route at head dim d: "splits" (a CTA a split) up to 512, "cluster" up to
+    ``CLUSTER_REACH``, "column blocks" past it (csrc/decode_attention.cu:Route)."""
+    if d <= max(HEAD_DIMS):
+        return "splits"
+    return "cluster" if d <= CLUSTER_REACH else "column blocks"
+
+
+def exchange_bytes(rows: int, cluster: int) -> int:
+    """The cluster's exchange of partial scores at ``rows`` rows over ``cluster`` CTAs
+    (csrc/decode_attention.cu:exchange_bytes): each CTA's piece of every CTA's
+    [rows x 32] fp32 tile and the whole sum, as 16-byte chunks, and four barriers."""
+    total = rows * TILE_KEYS // 4
+    return 16 * (cluster * -(-total // cluster) + total) + 32
 
 
 def smem_bytes(d: int, rows: int) -> int:
     """K3's dynamic shared memory at head dim d for ``rows`` query rows
-    (csrc/decode_attention.cu:smem_bytes): two K/V tiles of the column block's width, the
-    rows' fp32 q at the whole width and O at the block's, their scores and statistics."""
-    block = WIDE_COLUMNS if d > max(HEAD_DIMS) else d
-    return (2 * TILE_KEYS * block * 2 * 2 + rows * d * 4 + rows * block * 4
-            + rows * TILE_KEYS * 4 + rows * 12)
+    (csrc/decode_attention.cu:smem_bytes): two K/V tiles of the slice's width, the rows'
+    fp32 q (at the whole width on the column blocks) and O at the slice's, their scores and
+    statistics; on the cluster route q in bf16 (rows rounded up to 16), K's and q's rows
+    ``KEY_STRIDE`` apart, and the exchange."""
+    way = route(d)
+    block = WIDE_COLUMNS if way != "splits" else d
+    rest = rows * block * 4 + rows * TILE_KEYS * 4 + rows * 12
+    if way == "cluster":
+        return (2 * TILE_KEYS * (KEY_STRIDE + block) * 2 + -(-rows // 16) * 16 * KEY_STRIDE * 2
+                + exchange_bytes(rows, col_blocks(d)) + rest)
+    q_width = d if way == "column blocks" else block
+    return 2 * TILE_KEYS * block * 2 * 2 + rows * q_width * 4 + rest
 
 
 def max_rows(d: int) -> int:
     """Query rows one CTA of K3 holds at head dim d: its fp32 q and O beside two K/V
-    tiles in flight within 227 KB of shared memory; above 512 the largest power of two
-    whose rows of the whole width fit (16 at 1024, 8 at 4096)."""
+    tiles in flight within 227 KB of shared memory: 64 (16 at 512); 64 on the cluster
+    route, where q is held at the slice's width; on the column blocks the largest power
+    of two whose rows of the whole width fit (8 at 4096)."""
     if d <= max(HEAD_DIMS):
         return MAX_ROWS_512 if d > 256 else MAX_ROWS
     rows = MAX_ROWS
@@ -134,12 +170,16 @@ def decode_plan(b: int, nb: int, hkv: int, p: int, g: int, t: int, prefix_len: i
     inside the kernel) and each beam's generated slots [g_begin, g_end) = j <= t, both
     inside the window (cache slots, the query at prefix_len + t). They are cut into splits of ``chunk`` keys, a
     multiple of the kernel's 32-key tile, sized so that the CTAs come near ``sms``
-    (rounded to the nearest tile, at least one): for each group ``p_splits`` splits of
+    (rounded to the nearest tile, at least one; on the cluster route at least
+    ``CLUSTER_MIN_TILES`` where one-tile splits would overfill the SMs): for each group
+    ``p_splits`` splits of
     the prefix, each for all the group's rows, then ``g_splits`` a beam of its generated
-    slots, each for that beam's rows in the group. Above 512 every split runs once for
-    each of ``col_blocks`` blocks of O's columns. ``splits``: a group's of most beams
-    (the grid's x), ``ctas``: the CTAs that run. No split is empty of slots; a split may
-    be empty of live keys (padding)."""
+    slots, each for that beam's rows in the group. Above 512 every split runs on
+    ``col_blocks`` CTAs, one a 256-column slice of O: on a cluster of them (``route``
+    "cluster", ``cluster`` CTAs, ``slices`` their widths) up to ``CLUSTER_REACH``, as
+    column blocks past it. ``splits``: a group's of most beams (the grid's x, in
+    clusters on the cluster route), ``ctas``: the CTAs that run. No split is empty of
+    slots; a split may be empty of live keys (padding)."""
     bpg, rpg = group_shape(b * hkv, nb, n_rep, d, sms)
     rep_groups = -(-n_rep // rpg)
     groups = -(-nb // bpg) * rep_groups
@@ -150,14 +190,24 @@ def decode_plan(b: int, nb: int, hkv: int, p: int, g: int, t: int, prefix_len: i
     blocks = col_blocks(d)
     keys = blocks * b * hkv * (groups * live_p + nb * rep_groups * live_g)
     tiles = max(1, (keys + sms * TILE_KEYS // 2) // (sms * TILE_KEYS))
-    chunk = tiles * TILE_KEYS
-    p_splits, g_splits = -(-live_p // chunk), -(-live_g // chunk)
+
+    def cut(tiles):  # (chunk, p_splits, g_splits, ctas)
+        chunk = tiles * TILE_KEYS
+        p_splits, g_splits = -(-live_p // chunk), -(-live_g // chunk)
+        return chunk, p_splits, g_splits, blocks * b * hkv * (groups * p_splits
+                                                              + nb * rep_groups * g_splits)
+
+    chunk, p_splits, g_splits, ctas = cut(tiles)
+    if route(d) == "cluster" and tiles < CLUSTER_MIN_TILES and ctas > sms:
+        chunk, p_splits, g_splits, ctas = cut(CLUSTER_MIN_TILES)
     splits = p_splits + bpg * g_splits
-    ctas = blocks * b * hkv * (groups * p_splits + nb * rep_groups * g_splits)
-    return {"p_begin": p_begin, "p_splits": p_splits, "g_begin": g_begin, "g_end": g_end,
+    plan = {"p_begin": p_begin, "p_splits": p_splits, "g_begin": g_begin, "g_end": g_end,
             "g_splits": g_splits, "chunk": chunk, "splits": splits, "ctas": ctas,
             "groups": groups, "beams_per_group": bpg, "reps_per_group": rpg,
-            "col_blocks": blocks}
+            "col_blocks": blocks, "route": route(d)}
+    if plan["route"] == "cluster":
+        plan.update(cluster=blocks, slices=[WIDE_COLUMNS] * blocks)
+    return plan
 
 
 def _counter(device, stream: int, n: int):

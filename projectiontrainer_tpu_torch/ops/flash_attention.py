@@ -84,7 +84,7 @@ WIDE_ROWS = 64      # rows a CTA of the wide kernels owns, and rows a tile of th
 # the cluster kernels (csrc/flash_attn_cluster.cu): 64 rows a cluster, ring stages of 32 rows
 # of the other operand, at most 8 CTAs of two consumer warpgroups, a warpgroup's slice of
 # at most 256 columns of O (K1) or 128 of dK and dV (K4)
-CLUSTER_ROWS, CLUSTER_TILE, MAX_CLUSTER = 64, 32, 8
+CLUSTER_ROWS, CLUSTER_TILE, MAX_CLUSTER = 64, 32, _build.MAX_CLUSTER
 FWD_SLICE, DKV_SLICE = 256, 128
 FWD_REACH, DKV_REACH = 2 * MAX_CLUSTER * FWD_SLICE, 2 * MAX_CLUSTER * DKV_SLICE  # 4096, 2048
 SMEM_LIMIT = 232448  # bytes of shared memory a CTA can have on the H100

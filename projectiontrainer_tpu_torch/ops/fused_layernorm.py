@@ -31,12 +31,17 @@ and dy and writes dx (~113 MB at the stage-0 tower's [16384, 1152] bf16).
   on 16 bytes are copied by the row warps' cp.async instead of in bulk (``bwd_direct``);
   above 4096 the column sums run through the CTA's partial row in device memory instead
   of registers. Wider rows (one ring row of x and dy and the fp32 scale no longer fits:
-  above 19,368 in bf16) take K8's streamed kernel (``bwd_plan``'s ``stages`` 0): a CTA
-  an SM over its band, the whole CTA on one row at a time, read from device memory in
-  chunks of ``BWD_STREAM_THREADS`` vectors (the mean; the centred squares, sum(g) and
-  sum(g * xhat); then dx and the partial column sums), and the same combine. The JAX
-  package computes every width (its gate sends the rest to XLA,
-  ``ops/fused_layernorm.py:38-53`` there).
+  above 19,368) up to 32,768 are cut over a thread-block cluster (``bwd_plan``'s
+  ``route`` "cluster"): C = ceil(D / 4096) CTAs, each holding its slice of a row (one
+  bulk copy of its 16-byte envelope, any alignment) in a ring slot and its column sums in
+  registers; the row statistics are summed over the cluster through distributed shared
+  memory, and the grid is as many clusters as can be resident at once
+  (``cluster_fit``). Wider still, K8's streamed kernel (``stages`` 0): a CTA an SM over
+  its band, the whole CTA on one row at a time, read from device memory in chunks of
+  ``BWD_STREAM_THREADS`` vectors (the mean; the centred squares, sum(g) and sum(g *
+  xhat); then dx and the partial column sums), and the same combine. The JAX package
+  computes every width (its gate sends the rest to XLA, ``ops/fused_layernorm.py:38-53``
+  there).
 
 Each launch is a ``ptt`` operator (``kernels/_build.py:kernel_op``): the wrappers
 allocate what the kernel writes (``fwd_buffers``, ``bwd_buffers``: K8's partial sums
@@ -60,12 +65,14 @@ BWD_MAX_D = 4096         # MAX_D: widest D whose column sums stay in registers
 BWD_THREADS = 416        # THREADS
 BWD_MAX_STAGES = 4       # ring stages the plan uses (the kernel takes up to 8)
 BWD_STREAM_THREADS = 512  # the streamed kernel's CTA (csrc/layernorm_bwd.cu:STREAM_THREADS)
+BWD_CLUSTER_SLOTS = 16   # the cluster kernel's ring slots at most (CLUSTER_SLOTS)
 FWD_MAX_BLOCK = 16384    # K2's widest row held in registers (BLOCK_D); wider rows loop
 FWD_CHUNK = 4096         # K2's column chunk on wider rows
 SMEM_LIMIT = 232_448     # dynamic shared memory a block may opt into on the H100
 H100_SMS = 132           # the SMs K8's plan spreads over where no card is asked (a trace)
 _barriers: dict = {}     # (device index, stream) -> the grid barrier's uint32 counter
 _barriers_lock = threading.Lock()
+_fits: dict = {}         # (device index, itemsize, d, cluster, slots) -> resident clusters
 
 
 @functools.cache
@@ -219,16 +226,46 @@ def bwd_smem_bytes(d: int, itemsize: int, rows: int, stages: int) -> int:
     return max(ring, 4 * max(2 * dp, BWD_THREADS)) + 4 * dp + 8 * stages * rows + 24 * stages
 
 
-def bwd_plan(n: int, d: int, sms: int, itemsize: int = 2) -> dict:
+def bwd_cluster_slices(d: int, itemsize: int, cluster: int) -> list[int]:
+    """The columns of each CTA of a cluster row (csrc/layernorm_bwd.cu:RowSlices): the
+    row's 16-byte vectors dealt out in order, ``nv % cluster`` slices one vector wider;
+    the last slice ends at d."""
+    vec = 16 // itemsize
+    nv = -(-d // vec)
+    firsts = [r * (nv // cluster) + min(r, nv % cluster) for r in range(cluster + 1)]
+    return [min(d, firsts[r + 1] * vec) - firsts[r] * vec for r in range(cluster)]
+
+
+def bwd_cluster_smem(d: int, itemsize: int, cluster: int, slots: int) -> int:
+    """The cluster kernel's shared memory (csrc/layernorm_bwd.cu:ClusterLayout): ``slots``
+    ring slots of a slice of x and of dy in their 16-byte envelopes (the widest slice's
+    vectors + 1), the slice's scale in fp32, each slot's (mean, rstd), each slot's
+    exchange of two rounds of 16 bytes from each of up to 8 CTAs, six barriers a slot."""
+    vec = 16 // itemsize
+    nv = -(-d // vec)
+    widest = -(-nv // cluster)
+    stats = slots * 2 * (widest + 1) * 16 + widest * vec * 4
+    recv = -(-(stats + slots * 8) // 16) * 16
+    return recv + slots * 2 * _build.MAX_CLUSTER * 16 + slots * 6 * 8
+
+
+def bwd_plan(n: int, d: int, sms: int, itemsize: int = 2, *,
+             clusters: int | None = None) -> dict:
     """How K8 lays n rows of width d (``itemsize`` bytes an element) over a card of
-    ``sms`` SMs: ``rows`` a ring stage (8, or fewer where three stages of 8 would not fit
-    in shared memory), ``stages`` (at most ``BWD_MAX_STAGES``; fewer than 3 only where
-    one row a stage leaves no room for more), and ``ctas`` = min(sms, ceil(n / rows)),
-    one an SM, CTA c over the contiguous band ``bwd_bands`` gives it; one CTA for up to
-    2 x rows rows. Where one row of x and dy and the fp32 scale do not fit in shared
-    memory (above 19,368 in bf16 and fp32), the streamed kernel: ``streamed``, ``stages``
-    0, one row at a time (``rows`` 1) in ``chunk`` columns a pass (16 bytes a thread of
-    ``BWD_STREAM_THREADS``), ``ctas`` = min(sms, n), or 1 up to 2 rows."""
+    ``sms`` SMs (``route`` "ring"): ``rows`` a ring stage (8, or fewer where three stages
+    of 8 would not fit in shared memory), ``stages`` (at most ``BWD_MAX_STAGES``; fewer
+    than 3 only where one row a stage leaves no room for more), and ``ctas`` =
+    min(sms, ceil(n / rows)), one an SM, CTA c over the contiguous band ``bwd_bands``
+    gives it; one CTA for up to 2 x rows rows. Where one row of x and dy and the fp32
+    scale do not fit in shared memory (above 19,368 in bf16 and fp32) and up to 8 x 4096
+    columns, a row is cut over a cluster (``route`` "cluster"): ``cluster`` =
+    ceil(d / 4096) CTAs (``slices``: their columns), ``slots`` ring slots of a row (as
+    many as fit, at most ``BWD_CLUSTER_SLOTS``), and ``bands`` = min(``clusters``, n)
+    clusters (1 up to 2 rows), cluster k over band k; ``clusters``: how many can be
+    resident at once (``cluster_fit`` on the card), else sms // cluster. Wider rows
+    stream (``route`` "streamed", ``stages`` 0): one row at a time (``rows`` 1) in
+    ``chunk`` columns a pass (16 bytes a thread of ``BWD_STREAM_THREADS``), ``ctas`` =
+    min(sms, n), or 1 up to 2 rows."""
     if d < 1:
         raise ValueError(f"layernorm backward kernel: D = {d}")
     if n < 1:
@@ -239,15 +276,23 @@ def bwd_plan(n: int, d: int, sms: int, itemsize: int = 2) -> dict:
             stages -= 1
         if stages >= 3:
             break
-    if bwd_smem_bytes(d, itemsize, rows, stages) > SMEM_LIMIT:
-        return {"ctas": 1 if n <= 2 else min(sms, n), "rows": 1, "stages": 0,
-                "streamed": True, "chunk": BWD_STREAM_THREADS * (16 // itemsize),
-                "smem_bytes": 0}
-    # up to two stages of rows, one CTA without the grid barrier and the combine is the
-    # quicker (kernels/check_layernorm.py --time times both)
-    ctas = 1 if n <= 2 * rows else min(sms, -(-n // rows))
-    return {"ctas": ctas, "rows": rows, "stages": stages,
-            "smem_bytes": bwd_smem_bytes(d, itemsize, rows, stages)}
+    if bwd_smem_bytes(d, itemsize, rows, stages) <= SMEM_LIMIT:
+        # up to two stages of rows, one CTA without the grid barrier and the combine is
+        # the quicker (kernels/check_layernorm.py --time times both)
+        ctas = 1 if n <= 2 * rows else min(sms, -(-n // rows))
+        return {"route": "ring", "ctas": ctas, "rows": rows, "stages": stages,
+                "smem_bytes": bwd_smem_bytes(d, itemsize, rows, stages)}
+    cluster = -(-d // BWD_MAX_D)
+    if cluster <= _build.MAX_CLUSTER:
+        slots = max(s for s in range(1, BWD_CLUSTER_SLOTS + 1)
+                    if bwd_cluster_smem(d, itemsize, cluster, s) <= SMEM_LIMIT)
+        bands = 1 if n <= 2 else min(sms // cluster if clusters is None else clusters, n)
+        return {"route": "cluster", "cluster": cluster, "bands": bands,
+                "ctas": bands * cluster, "slices": bwd_cluster_slices(d, itemsize, cluster),
+                "slots": slots, "rows": 1, "stages": slots,
+                "smem_bytes": bwd_cluster_smem(d, itemsize, cluster, slots)}
+    return {"route": "streamed", "ctas": 1 if n <= 2 else min(sms, n), "rows": 1, "stages": 0,
+            "streamed": True, "chunk": BWD_STREAM_THREADS * (16 // itemsize), "smem_bytes": 0}
 
 
 def bwd_bands(n: int, ctas: int) -> list[tuple[int, int]]:
@@ -257,10 +302,15 @@ def bwd_bands(n: int, ctas: int) -> list[tuple[int, int]]:
     return [(c * q + min(c, extra), q + (c < extra)) for c in range(ctas)]
 
 
+def band_count(plan: dict) -> int:
+    """The bands a plan cuts the rows into: one a CTA, or one a cluster."""
+    return plan.get("bands", plan["ctas"])
+
+
 def bwd_ragged(n: int, plan: dict) -> bool:
     """Whether some band ends in a part-filled stage (its slots past the band's end are
     never loaded and must add nothing to the column sums)."""
-    return any(count % plan["rows"] for _, count in bwd_bands(n, plan["ctas"]))
+    return any(count % plan["rows"] for _, count in bwd_bands(n, band_count(plan)))
 
 
 def _grid_barrier(device, stream: int):
@@ -282,12 +332,30 @@ def sm_count(x) -> int:
     return torch.cuda.get_device_properties(x.device).multi_processor_count
 
 
+def cluster_fit(x, d: int, plan: dict) -> int:
+    """How many clusters of the cluster route's ``plan`` can be resident at once on the
+    card that holds ``x`` (cudaOccupancyMaxActiveClusters, asked once a shape); for a
+    tensor on no card (a trace) the most the SMs allow."""
+    if _build.traced(x):
+        return H100_SMS // plan["cluster"]
+    key = (x.device.index, x.element_size(), d, plan["cluster"], plan["slots"])
+    if key not in _fits:
+        with torch.cuda.device(x.device):
+            _fits[key] = _build.library().layernorm_bwd_cluster_fit(
+                x.element_size(), d, plan["cluster"], plan["slots"])
+        if _fits[key] < 1:
+            raise RuntimeError(f"layernorm backward kernel: no cluster of {plan['cluster']} "
+                               f"CTAs can be resident at D = {d}")
+    return _fits[key]
+
+
 def bwd_buffers(n: int, d: int, dtype, plan: dict) -> dict:
     """What one K8 launch on [n, d] rows of ``dtype`` under ``plan`` writes: dx in x's
-    type, each CTA's fp32 partial column sums [ctas, 2, slot] and the combined sums
-    [2, slot] (dscale, dbias; ``bwd_slot``: d rounded up to 8, the pad columns 0)."""
+    type, each band's fp32 partial column sums [bands, 2, slot] (a CTA's, or a
+    cluster's) and the combined sums [2, slot] (dscale, dbias; ``bwd_slot``: d rounded up
+    to 8, the pad columns 0)."""
     dp = bwd_slot(d)
-    return {"dx": ((n, d), dtype), "part": ((plan["ctas"], 2, dp), torch.float32),
+    return {"dx": ((n, d), dtype), "part": ((band_count(plan), 2, dp), torch.float32),
             "sums": ((2, dp), torch.float32)}
 
 
@@ -299,23 +367,32 @@ def bwd_direct(x2, dy2) -> bool:
                or t.data_ptr() % 16 for t in (x2, dy2))
 
 
-def _bwd_launch(x2, dy2, scale, dx, part, sums, rows, stages, eps):
-    """K8's operator on the card: ``dx``, ``part`` and ``sums`` written."""
+def _bwd_launch(x2, dy2, scale, dx, part, sums, rows, stages, cluster, eps):
+    """K8's operator on the card: ``dx``, ``part`` and ``sums`` written; ``cluster``: the
+    cluster route's CTAs a cluster (``stages`` its ring slots, a band a row of ``part``),
+    else 0."""
     n, d = x2.shape
     stream = torch.cuda.current_stream(x2.device).cuda_stream
-    name = "layernorm_bwd_bf16" if x2.dtype == torch.bfloat16 else "layernorm_bwd_f32"
-    err = getattr(_build.library(), name)(
-        x2.data_ptr(), dy2.data_ptr(), scale.data_ptr(), dx.data_ptr(), part.data_ptr(),
-        sums.data_ptr(), _grid_barrier(x2.device, stream).data_ptr(), n, d, x2.stride(0),
-        dy2.stride(0), rows, stages, part.shape[0], int(scale.dtype == torch.float32),
-        int(bwd_direct(x2, dy2)), eps, stream)
+    kind = "bf16" if x2.dtype == torch.bfloat16 else "f32"
+    args = (x2.data_ptr(), dy2.data_ptr(), scale.data_ptr(), dx.data_ptr(), part.data_ptr(),
+            sums.data_ptr(), _grid_barrier(x2.device, stream).data_ptr(), n, d, x2.stride(0),
+            dy2.stride(0))
+    scale_f32 = int(scale.dtype == torch.float32)
+    if cluster:
+        name = f"layernorm_bwd_cluster_{kind}"
+        err = getattr(_build.library(), name)(*args, cluster, part.shape[0], stages, scale_f32,
+                                               eps, stream)
+    else:
+        name = f"layernorm_bwd_{kind}"
+        err = getattr(_build.library(), name)(*args, rows, stages, part.shape[0], scale_f32,
+                                               int(bwd_direct(x2, dy2)), eps, stream)
     _build.check(name, err)
     bwd_launches.add()
 
 
 BWD_OP = _build.kernel_op(
     "layernorm_bwd", "(Tensor x, Tensor dy, Tensor scale, Tensor(a!) dx, Tensor(b!) part, "
-    "Tensor(c!) sums, int rows, int stages, float eps) -> ()", _bwd_launch)
+    "Tensor(c!) sums, int rows, int stages, int cluster, float eps) -> ()", _bwd_launch)
 
 
 def layernorm_bwd(x2: torch.Tensor, dy2: torch.Tensor, scale, eps: float,
@@ -336,9 +413,12 @@ def layernorm_bwd(x2: torch.Tensor, dy2: torch.Tensor, scale, eps: float,
                         f"got {scale.dtype}")
     if plan is None:
         plan = bwd_plan(n, d, sm_count(x2), x2.element_size())
+        if plan["route"] == "cluster":  # as many clusters as can be resident at once
+            plan = bwd_plan(n, d, sm_count(x2), x2.element_size(),
+                            clusters=cluster_fit(x2, d, plan))
     bufs = _build.allocate(bwd_buffers(n, d, x2.dtype, plan), x2.device)
     BWD_OP(x2, dy2, scale, bufs["dx"], bufs["part"], bufs["sums"], plan["rows"],
-           plan["stages"], float(eps))
+           plan["stages"], plan.get("cluster", 0), float(eps))
     return bufs["dx"], bufs["sums"][0, :d], bufs["sums"][1, :d]
 
 

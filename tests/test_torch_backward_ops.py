@@ -231,11 +231,14 @@ def test_layernorm_bwd_plan_keeps_loads_in_flight(d):
 def test_layernorm_bwd_plan_refuses(n, d):
     """D must be at least 1 and there must be rows. Above 19,368, where one ring row of
     x and dy and the fp32 scale no longer fit in the 227 KB of shared memory a block may
-    use (and the plan used to raise), the rows are streamed (any width below,
-    tests/test_torch_layernorm_widths.py)."""
+    use (and the plan used to raise), a row is cut over a cluster up to 32,768 columns,
+    and wider rows are streamed (any width below, tests/test_torch_layernorm_widths.py)."""
     if n > 0 and d > 19368:
         plan = FLN.bwd_plan(n, d, 132)
-        assert plan["streamed"] and plan["stages"] == 0 and plan["ctas"] == n
+        if d <= 32768:
+            assert plan["route"] == "cluster" and plan["bands"] == n
+        else:
+            assert plan["streamed"] and plan["stages"] == 0 and plan["ctas"] == n
         return
     with pytest.raises(ValueError):
         FLN.bwd_plan(n, d, 132)

@@ -13,7 +13,8 @@ itself, and at 576, 640 and 1024 (the wide kernels' widths; decode pads 576 and 
 (which stand for the card in the budget's trace): a head dim outside the kernels' set
 goes through the pad (320 and 600 too), 512 and the multiples of 64 above it go
 straight to the kernels, 513 is padded to 576. The plans above 512: K1 and K4 on the cluster
-kernels within their reach, K5 and K4 past 2048 on the column blocks."""
+kernels within their reach, K5 and K4 past 2048 on the column blocks; K3 on a cluster up
+to 2048, on column blocks past it."""
 
 import jax
 import jax.numpy as jnp
@@ -180,16 +181,20 @@ def test_wide_plans(d, blocks):
             FA.forward_plan(bad)
 
 
-@pytest.mark.parametrize("d,rows,blocks,groups", [(768, 32, 3, 1), (1024, 16, 4, 1),
-                                                   (4096, 8, 16, 2)])
-def test_wide_decode_plan(d, rows, blocks, groups):
-    """K3 above 512: column blocks of 256, each a unit with its own splits; the rows a
-    CTA holds by shared memory (16 at 1024, 8 at 4096: 3 beams of 4 heads then take two
-    row groups); more rows a KV head in row groups."""
+@pytest.mark.parametrize("d,rows,blocks,groups,route", [
+    (768, 64, 3, 1, "cluster"), (1024, 64, 4, 1, "cluster"), (2048, 64, 8, 1, "cluster"),
+    (2304, 16, 9, 1, "column blocks"), (4096, 8, 16, 2, "column blocks")])
+def test_wide_decode_plan(d, rows, blocks, groups, route):
+    """K3 above 512: slices of 256 columns, each a unit with its own splits; up to 2048 on
+    a cluster of them (q held at a slice's width: 64 rows a CTA), past it on column blocks,
+    whose rows a CTA holds at the whole width by shared memory (16 at 2304, 8 at 4096: 3
+    beams of 4 heads then take two row groups); more rows a KV head in row groups."""
     assert DA.max_rows(d) == rows and DA.smem_bytes(d, rows) <= DA.SMEM_LIMIT
     assert DA.smem_bytes(d, 2 * rows) > DA.SMEM_LIMIT
     plan = DA.decode_plan(8, 3, 1, 831, 32, 31, 831, None, 132, n_rep=4, d=d)
+    assert plan["route"] == route == DA.route(d)
     assert plan["col_blocks"] == blocks and plan["groups"] == groups
+    assert plan.get("cluster") == (blocks if route == "cluster" else None)
     assert plan["ctas"] == blocks * 8 * (groups * plan["p_splits"] + 3 * plan["g_splits"])
     assert plan["chunk"] % DA.TILE_KEYS == 0 and plan["ctas"] > 8
     grouped = DA.decode_plan(2, 24, 1, 300, 16, 15, 300, None, 132, n_rep=4, d=d)

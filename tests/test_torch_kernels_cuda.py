@@ -162,13 +162,17 @@ def test_flash_kernel_rejects_unsupported(card):
     (2, 3, 40, 1, 150, 16, 128, 15, None, "left"),    # 40 heads a beam: groups of its rows
     (3, 3, 8, 1, 831, 32, 512, 31, None, "left"),     # head dim 512: 24 rows, 2 groups
     (2, 3, 4, 1, 300, 16, 320, 15, 200, "left"),      # 320, padded to 512
-    (8, 3, 4, 1, 831, 32, 1024, 31, None, "left"),    # above 512: column blocks of 256
-    (2, 24, 4, 1, 300, 16, 1024, 15, 100, "splits"),  # ... and row groups of 16
+    (8, 3, 4, 1, 831, 32, 1024, 31, None, "left"),    # above 512: a cluster of 4 slices
+    (2, 24, 4, 1, 300, 16, 1024, 15, 100, "splits"),  # ... and 96 rows in row groups
     (2, 3, 4, 1, 300, 16, 640, 15, None, "left"),     # 640, padded to 768
+    (2, 3, 4, 2, 300, 16, 768, 15, 200, "splits"),    # the narrowest cluster: 3 CTAs
+    (2, 3, 4, 1, 300, 16, 2048, 15, 100, "left"),     # the widest cluster: 8 CTAs
+    (2, 3, 4, 1, 150, 16, 2304, 15, None, "left"),    # past the reach: column blocks
 ])
 def test_decode_kernel(card, b, nb, hq, hkv, p, g, d, t, window, pad):
     """Within atol = rtol = 2e-2 of the plain version in fp32, a rerun bit-equal (the
-    partials are combined in split order), and more CTAs than (batch, KV head) pairs."""
+    partials are combined in split order, a cluster's partial scores summed in slice
+    order), and more CTAs than (batch, KV head) pairs."""
     rng = np.random.default_rng(2)
     q = _bf16(rng, (b * nb, hq, d), card)
     kp, vp = _bf16(rng, (b, hkv, p, d), card), _bf16(rng, (b, hkv, p, d), card)
@@ -374,8 +378,10 @@ def test_flash_backward_rejects_unsupported(card):
     (16384, 1004, torch.bfloat16, True), (16, 1001, torch.bfloat16, False),
     (200, 1001, torch.float32, False), (4096, 6144, torch.bfloat16, True),
     (2048, 8192, torch.bfloat16, True), (300, 4104, torch.float32, True),
-    (2048, 20480, torch.bfloat16, False), (1000, 24577, torch.bfloat16, False),  # streamed
+    (2048, 20480, torch.bfloat16, False), (1000, 24577, torch.bfloat16, False),  # clusters
     (2, 32768, torch.bfloat16, False), (300, 20480, torch.float32, False),
+    (512, 32768, torch.bfloat16, False), (16, 19369, torch.bfloat16, False),
+    (100, 20483, torch.float32, False), (64, 40000, torch.bfloat16, False),   # streamed
 ])
 def test_layernorm_backward_kernel(card, n, d, dtype, ragged):
     """K8's dx, dscale and dbias against the plain backward, each within 2e-2 x
@@ -436,8 +442,8 @@ def test_layernorm_backward_kernel_refuses(card):
         for a, b in zip(got, ref):
             _rel_close(a, b)
     wide, g_wide = _bf16(rng, (4, 19369), card), _bf16(rng, (4, 19369), card)
-    scale_wide = torch.ones(19369, device=card)  # one ring row no longer fits: streamed
-    assert FLN.bwd_plan(4, 19369, 132)["streamed"]
+    scale_wide = torch.ones(19369, device=card)  # one ring row no longer fits: a cluster
+    assert FLN.bwd_plan(4, 19369, 132)["route"] == "cluster"
     for a, b in zip(FLN.layernorm_bwd(wide, g_wide, scale_wide, 1e-6),
                     FLN.layernorm_bwd_reference(wide.float(), g_wide.float(), scale_wide, 1e-6)):
         _rel_close(a, b)
@@ -446,6 +452,20 @@ def test_layernorm_backward_kernel_refuses(card):
         FLN.layernorm_bwd(h, h, scale, 1e-6)
     with pytest.raises(ValueError):
         FLN.layernorm_bwd(x[:, :1152], x[:32, :1152], scale, 1e-6)
+
+
+def test_layernorm_cluster_grid_that_cannot_be_resident_raises(card):
+    """The cluster route's grid barrier needs every CTA resident: a plan of more clusters
+    than fit at once is refused with a CUDA error, launches nothing and does not hang."""
+    rng = np.random.default_rng(12)
+    x, dy = _bf16(rng, (600, 20480), card), _bf16(rng, (600, 20480), card)
+    scale = torch.ones(20480, device=card)
+    plan = FLN.bwd_plan(600, 20480, 132, clusters=600)
+    before = FLN.bwd_launches.value
+    with pytest.raises(RuntimeError, match="cudaError"):
+        FLN.layernorm_bwd(x, dy, scale, 1e-6, plan=plan)
+    assert FLN.bwd_launches.value == before
+    torch.cuda.synchronize()
 
 
 def test_layernorm_autograd_runs_both_kernels(card):

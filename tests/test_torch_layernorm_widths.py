@@ -4,8 +4,9 @@ widths the kernel used to refuse (D not a multiple of 8, D above 4096).
 ``bwd_plan`` at D = 1000, 1001, 1004, 4104, 6144 and 8192, bf16 and fp32 rows: no raise,
 every row in one band, shared memory within the 227 KB a block may use; the widths the
 kernel took before keep their plan; a D whose one ring row of x and dy and fp32 scale
-would not fit (20480, 24577, 32768) takes the streamed kernel's plan, one row at a time
-in chunks of 512 vectors, a CTA an SM. ``bwd_direct`` sends the rows a bulk copy cannot
+would not fit (20480, 24577, 32768) is cut over a cluster of ceil(D / 4096) CTAs, a
+band a cluster; wider rows (40000, 65536) take the streamed kernel's plan, one row at a
+time in chunks of 512 vectors, a CTA an SM. ``bwd_direct`` sends the rows a bulk copy cannot
 take to the row warps' cp.async. K2's plan: the whole row in registers up to 16384,
 column chunks above. Then the port's LayerNorm forward and backward
 (the plain versions the kernels hold to, inside the same ``torch.autograd.Function``)
@@ -55,38 +56,50 @@ def test_the_old_widths_keep_their_plan(d):
                 assert FLN.bwd_smem_bytes(d, itemsize, rows, stages) == (
                     max(ring, 4 * max(2 * d, FLN.BWD_THREADS)) + 4 * d + 8 * stages * rows
                     + 24 * stages)
-    assert FLN.bwd_plan(16384, 1152, 132) == {"ctas": 132, "rows": 8, "stages": 4,
-                                              "smem_bytes": 152416}
+    assert FLN.bwd_plan(16384, 1152, 132) == {"route": "ring", "ctas": 132, "rows": 8,
+                                              "stages": 4, "smem_bytes": 152416}
 
 
 def test_the_widest_rows():
     """The widest ring row (19,368 in bf16) keeps the ring; one wider, where the plan
-    used to raise, streams its rows."""
+    used to raise (and then streamed its rows), is cut over a cluster of 5 CTAs, one
+    band a cluster."""
     widest = max(d for d in range(19000, 20000) if FLN.bwd_smem_bytes(d, 2, 1, 1) <= FLN.SMEM_LIMIT)
     assert widest == 19368
     assert FLN.bwd_plan(8, widest, 132)["rows"] == 1
-    assert FLN.bwd_plan(8, widest + 1, 132) == {"ctas": 8, "rows": 1, "stages": 0,
-                                                "streamed": True, "chunk": 4096,
-                                                "smem_bytes": 0}
+    assert FLN.bwd_plan(8, widest + 1, 132) == {
+        "route": "cluster", "cluster": 5, "bands": 8, "ctas": 40,
+        "slices": [3880, 3880, 3872, 3872, 3865], "slots": 13, "rows": 1, "stages": 13,
+        "smem_bytes": 221760}
 
 
 @pytest.mark.parametrize("itemsize", [2, 4])
 @pytest.mark.parametrize("n,d", [(2048, 20480), (1000, 24577), (512, 32768), (2, 32768),
-                                 (131, 20480)])
+                                 (131, 20480), (300, 40000), (2, 65536)])
 def test_streamed_plan(n, d, itemsize):
-    """Rows too wide for one ring row: the streamed kernel, a CTA an SM (one up to two
-    rows), every row in one band, 16 bytes a thread of 512 a chunk; its partial sums as
-    the ring's."""
+    """Rows too wide for one ring row: up to 32,768 columns a cluster of ceil(D / 4096)
+    CTAs, a band a cluster (one cluster up to two rows, else as many as the SMs allow, or
+    as are resident at once), a row a ring slot, every row in one band; wider, the streamed
+    kernel, a CTA an SM (one up to two rows), 16 bytes a thread of 512 a chunk. The partial
+    sums a band's, as the ring's are a CTA's."""
     plan = FLN.bwd_plan(n, d, 132, itemsize)
-    assert plan["streamed"] and plan["stages"] == 0 and plan["rows"] == 1
-    assert plan["ctas"] == (1 if n <= 2 else min(132, n))
-    assert plan["chunk"] == FLN.BWD_STREAM_THREADS * 16 // itemsize
+    assert plan["rows"] == 1 and not FLN.bwd_ragged(n, plan)
+    if d <= 8 * 4096:
+        cluster = -(-d // 4096)
+        assert plan["route"] == "cluster" and plan["cluster"] == cluster
+        assert plan["bands"] == (1 if n <= 2 else min(132 // cluster, n))
+        assert plan["ctas"] == plan["bands"] * cluster and plan["stages"] == plan["slots"] >= 1
+        assert FLN.bwd_plan(n, d, 132, itemsize, clusters=3)["bands"] == (min(3, n) if n > 2 else 1)
+    else:
+        assert plan["route"] == "streamed" and plan["streamed"] and plan["stages"] == 0
+        assert plan["ctas"] == (1 if n <= 2 else min(132, n))
+        assert plan["chunk"] == FLN.BWD_STREAM_THREADS * 16 // itemsize
     covered = np.zeros(n, int)
-    for start, count in FLN.bwd_bands(n, plan["ctas"]):
+    for start, count in FLN.bwd_bands(n, FLN.band_count(plan)):
         covered[start:start + count] += 1
-    assert (covered == 1).all() and not FLN.bwd_ragged(n, plan)
+    assert (covered == 1).all()
     bufs = FLN.bwd_buffers(n, d, torch.bfloat16, plan)
-    assert bufs["part"][0] == (plan["ctas"], 2, FLN.bwd_slot(d))
+    assert bufs["part"][0] == (FLN.band_count(plan), 2, FLN.bwd_slot(d))
 
 
 def test_forward_plan():
