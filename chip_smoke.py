@@ -84,7 +84,7 @@ Phases, each printing one JSON line; any failure raises, so the exit code is not
 6b. head dim 1024: Gemma3-1B's widths (hidden 1152, 4|1 heads, window 512, vocab
    262,144) at head dim 1024 and 2 layers behind ViT-L/16-384 (2 of 24 layers), from the
    seed: 3 stage-1 train steps (``train/steps.py``, batch 2 at 1087 tokens; K1/K4 on the
-   cluster kernels, K5 on the column blocks, K6/K7), each held against the plain path at
+   cluster kernels, K5 too, K6/K7), each held against the plain path at
    the same params (loss within 1e-3 relative, projector gradients at cosine >= 0.999),
    then a 3-beam decode of 16 tokens (K1, K3 at head dim 1024 on its cluster route) and
    its prefill and 16 teacher-forced steps held by ``hold_logits`` against the plain path.
@@ -385,11 +385,13 @@ Phases, each printing one JSON line; any failure raises, so the exit code is not
    [4096,6144] and [2048,8192]; each rerun held bit-equal. Above those: K1/K4/K5 at head
    dim 1024 ([2,1024,4|1,1024], causal, window 512; the library call SDPA's efficient
    backend on k and v repeated to the query heads), 640 ([4,576,4,640]), 2048
-   ([1,1024,4|1,2048], window 512: K4's 8-CTA cluster) and 2112 ([1,512,4|1,2112]: K4
-   past the cluster's reach), each row naming its route (K1 and K4 on the cluster
-   kernels, K5 and K4 at 2112 on the column blocks); K3 at head dim 1024 (8 x 3 beams,
-   P = 831, G = 32; a cluster of 4 CTAs; the library call SDPA's math backend on the GQA
-   caches and its efficient backend on k and v repeated to the query heads); K2 and K8 at
+   ([1,1024,4|1,2048], window 512: K4's and K5's 8-CTA clusters) and 2112
+   ([1,512,4|1,2112]: K4 and K5 past the cluster's reach), each row naming its route (K1,
+   K4 and K5 on the cluster kernels, K4 and K5 at 2112 on the column blocks); K3 at head
+   dim 1024 (8 x 3 beams, P = 831, G = 32; a cluster of 4 CTAs; the library call SDPA's
+   math backend on the GQA caches and its efficient backend on k and v repeated to the
+   query heads) and at 2304 and 4096 (2 x 3 beams, P = 300, G = 16, window 100 and none:
+   clusters of 5 and 8 CTAs of two 256-column blocks, the last of 2304's one); K2 and K8 at
    [2048,20480], [512,32768] and [1000,24577] (K8 on clusters of 5, 8 and 7 CTAs), each
    row of K3 and K8 naming its route too.
 
@@ -621,13 +623,16 @@ def bound_layernorm_bwd(n, d):
     return bound(0, 2 * (3 * n * d + 3 * d))
 
 
-def bound_decode_attn(b, nb, hq, hkv, p, g, d, live_keys=None):
-    """K3: one query row a beam over [prefix; generated]: both caches read once, q read,
-    out written; 2 products over the live keys of each row."""
+def bound_decode_attn(b, nb, hq, hkv, d, slots, live_keys):
+    """K3: one query row a beam over [prefix; generated]: the live slots of both caches
+    read once (``slots``: the live prefix slots over the batch, the prefix slots inside
+    the window a batch row, whose mask is read, and the generated slots inside it a beam),
+    q read, out written; 2 products over the live keys of all rows."""
+    prefix, window_prefix, gen = slots
     rows = b * nb
-    live = rows * (p + g) if live_keys is None else live_keys
-    nbytes = 2 * (2 * b * hkv * p * d + 2 * rows * hkv * g * d + 2 * rows * hq * d) + 4 * b * p
-    return bound(4 * hq * live * d, nbytes)
+    nbytes = (2 * 2 * hkv * d * (prefix + rows * gen) + 2 * 2 * rows * hq * d
+              + 4 * b * window_prefix)
+    return bound(4 * hq * live_keys * d, nbytes)
 
 
 def bound_fused_ce_fwd(n, v, d):
@@ -661,10 +666,10 @@ def live_pairs(mask) -> int:
     return int(mask.sum())
 
 
-def sdpa_library(q, k, v, *, scale, causal=False, mask=None):
+def sdpa_library(q, k, v, *, scale, causal=False, mask=None, backends=None):
     """F.scaled_dot_product_attention on [B, T, H, D] tensors (a yardstick only: the
     port never calls it) -> (fn, name of the backend that ran): the fused backends
-    are tried in turn, the math backend last."""
+    are tried in turn, the math backend last (``backends``: these names only)."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -673,6 +678,8 @@ def sdpa_library(q, k, v, *, scale, causal=False, mask=None):
     gqa = q.shape[2] != k.shape[2]
     for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
                     SDPBackend.MATH):
+        if backends is not None and backend.name not in backends:
+            continue
         def fn(backend=backend):
             with sdpa_kernel(backend):
                 return F.scaled_dot_product_attention(
@@ -688,14 +695,23 @@ def sdpa_library(q, k, v, *, scale, causal=False, mask=None):
 
 
 def sdpa_library_bwd(q, k, v, do, **kw):
-    """The autograd backward of that call (dq, dk, dv together) -> (fn, backend)."""
+    """The autograd backward of that call (dq, dk, dv together) -> (fn, backend); the
+    math backend's where the fused one that took the forward refuses the backward."""
     import torch
 
     leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
-    fwd, name = sdpa_library(*leaves, **kw)
-    out = fwd()
-    dout = do.transpose(1, 2)
-    return (lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)), name
+    for backends in (None, ("MATH",)):
+        fwd, name = sdpa_library(*leaves, **kw, backends=backends)
+        out = fwd()
+        fn = (lambda out=out: torch.autograd.grad(out, leaves, do.transpose(1, 2),
+                                                  retain_graph=True))
+        try:
+            fn()
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        return fn, name
+    raise AssertionError("no scaled_dot_product_attention backend took this backward")
 
 
 def plan_route(kernel, d) -> dict:
@@ -708,7 +724,8 @@ def plan_route(kernel, d) -> dict:
     from projectiontrainer_tpu_torch.ops import fused_layernorm as FLN
 
     if kernel == "decode_attn":
-        return {"plan_route": DA.route(d), "plan_source": KERNELS[kernel][1]}
+        return {"plan_route": DA.decode_plan(1, 1, 1, 1, 1, 0, 1, None, d=d)["route"],
+                "plan_source": KERNELS[kernel][1]}
     if kernel == "layernorm_bwd":
         return {"plan_route": FLN.bwd_plan(1, d, FLN.H100_SMS)["route"],
                 "plan_source": KERNELS[kernel][1]}
@@ -718,7 +735,7 @@ def plan_route(kernel, d) -> dict:
             "flash_attn_bwd_dq": FA.dq_plan}.get(kernel)
     if plan is None:
         return {}
-    route = plan(d).get("route", "column blocks" if "col_blocks" in plan(d) else "wgmma")
+    route = plan(d).get("route", "wgmma")
     return {"plan_route": route, "plan_source": sources.get(route)}
 
 
@@ -963,7 +980,7 @@ def check_decode(rng, record, b, nb, p_len, g, steps, *, hq=4, hkv=1, d=256,
     explicit mask), the GQA call's time beside it (``library_gqa_ms``)."""
     import torch
 
-    from projectiontrainer_tpu_torch.kernels.check_decode_attn import library_call
+    from projectiontrainer_tpu_torch.kernels.check_decode_attn import library_call, live_slots
     from projectiontrainer_tpu_torch.ops import decode_attention as DA
     from projectiontrainer_tpu_torch.ops import flash_attention as FA
 
@@ -1008,7 +1025,8 @@ def check_decode(rng, record, b, nb, p_len, g, steps, *, hq=4, hkv=1, d=256,
                    compare(f"decode {case}", got, ref),
                    cuda_ms(lambda: DA.decode_attention(qd, kp, vp, kg, vg, **kw)),
                    cuda_ms(lambda: DA.decode_attention_reference(qd, kp, vp, kg, vg, **kw)),
-                   bound_decode_attn(b, nb, hq, hkv, p_len, g, d, live),
+                   bound_decode_attn(b, nb, hq, hkv, d, live_slots(
+                       pmask, t=t, prefix_len=p_len, window=window, g=g), live),
                    cuda_ms(lib), f"SDPA {backend} over concatenated caches, explicit mask{note}",
                    **more)
 
@@ -1110,7 +1128,8 @@ def check_attention_layer(rng, record, case, b, t, hq, hkv, d, mask, rerun=False
     bit-equal; record(kernel, case, err, ms, plain_ms, bound, library_ms, library).
     ``repeat_kv_library``: the library call gets k and v repeated to the query heads (no
     GQA), which SDPA's efficient backend takes with an explicit mask; its name says
-    which backend ran, the math one where the efficient one refuses the shape."""
+    which backend ran, the math one where the efficient one refuses the shape; the GQA
+    call's time beside it (``library_gqa_ms``)."""
     import torch
 
     from projectiontrainer_tpu_torch.ops import flash_attention as FA
@@ -1118,8 +1137,8 @@ def check_attention_layer(rng, record, case, b, t, hq, hkv, d, mask, rerun=False
 
     q, do = _bf16(rng, (b, t, hq, d)), _bf16(rng, (b, t, hq, d))
     k, v = _bf16(rng, (b, t, hkv, d)), _bf16(rng, (b, t, hkv, d))
-    lib_kv, lib_note = (k, v), ""
-    if repeat_kv_library and hq != hkv:
+    lib_kv, lib_note, gqa = (k, v), "", repeat_kv_library and hq != hkv
+    if gqa:
         lib_kv, lib_note = (repeat_kv(k, hq // hkv), repeat_kv(v, hq // hkv)), \
             ", k and v repeated to the query heads"
     out, lse = FA.flash_attention(q, k, v, kv_mask=mask, **kw)
@@ -1139,11 +1158,16 @@ def check_attention_layer(rng, record, case, b, t, hq, hkv, d, mask, rerun=False
                 raise AssertionError(f"flash {case}: a rerun of K1 gave other bits")
             del again, again_lse
         lib, backend = sdpa_library(q, *lib_kv, scale=kw["scale"], mask=seen)
+        note, more = lib_note, {}
+        if gqa:
+            lib_gqa, backend_gqa = sdpa_library(q, k, v, scale=kw["scale"], mask=seen)
+            more["library_gqa_ms"] = cuda_ms(lib_gqa)
+            note += f" (GQA caches: SDPA {backend_gqa})"
         record("flash_attn_fwd", case, err,
                cuda_ms(lambda: FA.flash_attention(q, k, v, kv_mask=mask, **kw)),
                cuda_ms(lambda: FA.flash_attention_reference(q, k, v, kv_mask=mask, **kw)),
                bound_flash_fwd(b, t, hq, hkv, d, pairs), cuda_ms(lib),
-               f"SDPA {backend}, explicit mask{lib_note}")
+               f"SDPA {backend}, explicit mask{note}", **more)
     prep = FA.prepare_bwd(q, k, v, mask, out, lse, do)
     args = (q, k, v, prep[0], prep[1], lse, prep[2])
     dk, dv = FA.launch_bwd_dkv(*args, **kw)
@@ -1160,12 +1184,17 @@ def check_attention_layer(rng, record, case, b, t, hq, hkv, d, mask, rerun=False
     del rq, rk, rv
     plain = cuda_ms(lambda: FA.flash_attention_bwd_reference(q, k, v, mask, out, lse, do, **kw))
     lib, backend = sdpa_library_bwd(q, *lib_kv, do, scale=kw["scale"], mask=seen)
+    more = {}
+    if gqa:
+        lib_gqa, backend_gqa = sdpa_library_bwd(q, k, v, do, scale=kw["scale"], mask=seen)
+        more["library_gqa_ms"] = cuda_ms(lib_gqa)
+        lib_note += f" (GQA caches: SDPA {backend_gqa})"
     library = (cuda_ms(lib), f"SDPA {backend} backward (dq, dk, dv together)"
                + (", explicit mask" if seen is not None else "") + lib_note)
     record("flash_attn_bwd_dkv", case, err_kv, cuda_ms(lambda: FA.launch_bwd_dkv(*args, **kw)),
-           plain, bound_flash_bwd_dkv(b, t, hq, hkv, d, pairs), *library)
+           plain, bound_flash_bwd_dkv(b, t, hq, hkv, d, pairs), *library, **more)
     record("flash_attn_bwd_dq", case, err_q, cuda_ms(lambda: FA.launch_bwd_dq(*args, **kw)),
-           plain, bound_flash_bwd_dq(b, t, hq, hkv, d, pairs), *library)
+           plain, bound_flash_bwd_dq(b, t, hq, hkv, d, pairs), *library, **more)
 
 
 def check_stage2_kernels(rng, record):
@@ -1368,16 +1397,19 @@ def check_wide_kernels(rng, record):
     (Gemma3-1B's 4|1 heads, B = 2 x 24 beams: two row groups) and at 68 (Llama-3.2-1B's
     32|8 heads, B = 8 x 17 beams); K2 and K8 at rows of 1004 (not a 16-byte multiple:
     K8's row warps copy them by cp.async), 6144 and 8192 (K8's column sums through
-    device memory). Above the widest of those (K1, K4 and K3 on the cluster kernels, K5
-    and widths past their reach on the column blocks, K8's rows on a cluster, K2's column
+    device memory). Above the widest of those (K1, K4, K5 and K3 on the cluster kernels,
+    widths past their reach on the column blocks, K8's rows on a cluster, K2's column
     chunks): K1/K4/K5 at head dim 1024 ([2,1024,4|1,1024], causal, window 512; the
     library call SDPA's efficient backend with k and v repeated to the query heads and
     the window as an explicit mask, or the math one where it refuses) and 640
     ([4,576,4,640], non-causal), and at 2048 ([1,1024,4|1,2048], causal, window 512: K4's
-    widest cluster, 8 CTAs) and 2112 ([1,512,4|1,2112], causal: K4 past its reach, on the
-    column blocks; K1 on 5 CTAs); K3 at head dim 1024 (Gemma3-1B's 4|1 heads, 8 x 3 beams,
-    P = 831, G = 32; a cluster of 4 CTAs; the library call SDPA's efficient backend on k
-    and v repeated to the query heads, its math backend on the GQA caches beside it); K2
+    and K5's widest cluster, 8 CTAs) and 2112 ([1,512,4|1,2112], causal: K4 and K5 past
+    their reach, on the column blocks; K1 on 5 CTAs), the library call as at 1024; K3
+    at head dim 1024 (Gemma3-1B's 4|1 heads, 8 x 3 beams, P = 831, G = 32; a cluster of
+    4 CTAs; the library call SDPA's
+    efficient backend on k and v repeated to the query heads, its math backend on the GQA
+    caches beside it) and at 2304 and 4096 (2 x 3 beams, P = 300, G = 16, window 100 and
+    none: clusters of 5 and 8 CTAs of two 256-column blocks, 2304's last of one); K2
     and K8 at [2048,20480], [512,32768] and [1000,24577] (rows that are not 16-byte
     multiples; K8 on clusters of 5, 8 and 7 CTAs). Each against its plain version at
     phase 2's tolerances, a rerun held bit-equal, timed beside its bound and the library
@@ -1423,12 +1455,15 @@ def check_wide_kernels(rng, record):
     mask = torch.ones((1, 1024), dtype=torch.int32, device="cuda")
     check_attention_layer(rng, at_width(2048), "head dim 2048 [1,1024,4|1,2048] causal "
                           "window=512", 1, 1024, 4, 1, 2048, mask, rerun=True,
-                          scale=2048 ** -0.5, causal=True, window=512)
+                          repeat_kv_library=True, scale=2048 ** -0.5, causal=True, window=512)
     check_attention_layer(rng, at_width(2112), "head dim 2112 [1,512,4|1,2112] causal", 1,
-                          512, 4, 1, 2112, mask[:, :512], rerun=True, scale=2112 ** -0.5,
-                          causal=True, window=None)
+                          512, 4, 1, 2112, mask[:, :512], rerun=True, repeat_kv_library=True,
+                          scale=2112 ** -0.5, causal=True, window=None)
     check_decode(rng, at_width(1024), 8, 3, 831, 32, (31,), hq=4, hkv=1, d=1024,
                  windows=(None,), label="head dim 1024 ", repeat_kv_library=True)
+    for d in (2304, 4096):
+        check_decode(rng, at_width(d), 2, 3, 300, 16, (15,), hq=4, hkv=1, d=d,
+                     windows=(100, None), label=f"head dim {d} ", repeat_kv_library=True)
 
 
 def check_layernorm_fwd(rng, record, x, p, case):
@@ -2374,7 +2409,7 @@ def phase_head_dim_1024(kernel_counters):
     """The head-dim-1024 leg through the entry points a user's run takes: the stage-1
     train step (``train/steps.py:make_train_step`` over ``stage1_loss``, fused CE,
     AdamW on the fp32 projector) for HD_STEPS steps of batch 2 at 575 + 512 tokens
-    (K1/K4 on the cluster kernels, K5 on the column blocks, K6/K7), each held against
+    (K1/K4/K5 on the cluster kernels, K6/K7), each held against
     the plain path (plain
     attention and LayerNorm, chunked CE) at the same params, just before the step: its
     loss within 1e-3 relative and each projector gradient leaf at cosine >= 0.999; then a 3-beam

@@ -2,8 +2,8 @@
 // shared memory (mapped addresses, st.async counted on the receiver's mbarrier, remote
 // arrivals), a sum of fp32 partials held in each CTA's shared memory over the cluster
 // (ClusterSum), and the launch with the cluster-dimension attribute. Used by
-// flash_attn_cluster.cu (K1/K4 above head dim 512), decode_attention.cu (K3 from 768 to
-// 2048) and layernorm_bwd.cu (K8's rows from 19,369 to 32,768 wide).
+// flash_attn_cluster.cu (K1/K4/K5 above head dim 512), decode_attention.cu (K3 above 512)
+// and layernorm_bwd.cu (K8's rows from 19,369 to 32,768 wide).
 
 #pragma once
 

@@ -1,23 +1,24 @@
 // Flash attention at head dims above 512 for Hopper (sm_90a), split over a thread-block
-// cluster: the forward (K1) at D <= 4096 and dK/dV (K4) at D <= 2048, any multiple of 64
-// (the wrapper zero-pads the others), bf16 in and out, fp32 accumulation.
+// cluster: the forward (K1) at D <= 4096, dK/dV (K4) and dQ (K5) at D <= 2048, any multiple
+// of 64 (the wrapper zero-pads the others), bf16 in and out, fp32 accumulation.
 //
-// Replaces the TPU kernels projectiontrainer_tpu/ops/flash_attention.py:_fwd_kernel and
-// :_bwd_dkv_kernel at those widths (the JAX kernels take any head dim: their K/V block is
-// the whole [T, D] of a head). Past the reach (K1 above 4096, K4 above 2048) and for dQ
-// (K5) at every width above 512, flash_attn_wide.cu's column blocks run instead
-// (ops/flash_attention.py:forward_plan, dkv_plan). Same contract as flash_attn_wide.cu:
-// causal, sliding window, per-batch key padding mask, GQA, rows with no valid key give 0
-// and zero gradients, O divided by the sum of the bf16-rounded weights its product
-// applied, lse = m + log(l) with l the fp32 sum of the unrounded weights (written by one
-// warpgroup), the forward's fp32 copy of O for the backward's delta, and dS entering the
-// dK product as hi + lo, two bf16 terms.
+// Replaces the TPU kernels projectiontrainer_tpu/ops/flash_attention.py:_fwd_kernel,
+// :_bwd_dkv_kernel and :_bwd_dq_kernel at those widths (the JAX kernels take any head dim:
+// their K/V block is the whole [T, D] of a head). Past the reach (K1 above 4096, K4 and K5
+// above 2048) flash_attn_wide.cu's column blocks run instead (ops/flash_attention.py:
+// forward_plan, dkv_plan, dq_plan). Same contract as flash_attn_wide.cu: causal, sliding
+// window, per-batch key padding mask, GQA, rows with no valid key give 0 and zero
+// gradients, O divided by the sum of the bf16-rounded weights its product applied, lse =
+// m + log(l) with l the fp32 sum of the unrounded weights (written by one warpgroup), the
+// forward's fp32 copy of O for the backward's delta, and dS entering the dK and dQ
+// products as hi + lo, two bf16 terms.
 //
 // What bounds it on the H100: the tensor cores (4 * pairs * D operations forward, 10 * pairs
-// * D for dK/dV, against one read of the operands). Above 512 neither the 64-row operand
-// tile nor its accumulators fit one SM, so the column-block kernels computed the scores
-// (and dP) again for every 128 output columns: 9 products' worth where 2 would do at
-// D = 1024 forward, 19 where 5 would do for dK/dV, on mma.sync with no copy in flight.
+// * D for dK/dV, 8 * pairs * D for dQ, against one read of the operands). Above 512 neither
+// the 64-row operand tile nor its accumulators fit one SM, so the column-block kernels
+// computed the scores (and dP) again for every 128 output columns: 9 products' worth where
+// 2 would do at D = 1024 forward, 19 where 5 would do for dK/dV, 24 where 4 would do for
+// dQ, on mma.sync with no copy in flight.
 //
 // Design: the head dim is cut over a cluster of C CTAs of two warpgroups (256 threads;
 // thread 0, or warp 0 in K4, also issues the TMA loads into a ring of mbarrier stages and
@@ -25,21 +26,26 @@
 // dealt out to the W = 2 C warpgroups, D / 64 % W of them one block wider, so that the
 // CTAs' shares differ by at most one block (640 = 192 + 128 | 192 + 128): K1's warpgroups
 // own at most 256 columns of O (C = ceil(D / 512): O is 128 registers a thread, as at
-// D = 512), K4's at most 128 of dK and of dV (C = ceil(D / 256)). A CTA loads only its
-// warpgroups' blocks, from the same 4-D tensor maps as flash_attn_fwd.cu (the TMA unit
-// zero-fills past T). A warpgroup runs its slice's part of the score contraction on
-// wgmma: K1 S_w = Q[:, w] K[:, w]^T over 32 keys a tile, K4 S^T_w = K[:, w] Q[:, w]^T and
-// dP^T_w = V[:, w] dO[:, w]^T over 32 queries a tile, fp32 in registers. The partials are
-// summed over the cluster (Exchange below): each 16-byte chunk goes by st.async to the
-// CTA that reduces it, CTA r sums its C-th of the tile over the W partials in slice order
-// and sends the sum to every CTA, and each warpgroup reads the whole sum from its own
-// CTA. Every element of S (and dP) is summed by one thread in one order, so every
-// warpgroup holds the same bits of S, m, l and P (and dS), and a rerun gives the same
-// bits. Then each warpgroup runs its own slice's products, one wgmma of N = its width
-// a k-step: K1 O[:, w] += P V[:, w]; K4 dV[:, w] += P^T dO[:, w] and dK[:, w] +=
-// dS_hi^T Q[:, w] + dS_lo^T Q[:, w], the operands read as MN-major B operands from the
-// same boxes. Every score product is done once, on the tensor cores; the softmax (the
-// exponentials) is repeated by each warpgroup.
+// D = 512), K4's at most 128 of dK and of dV, K5's at most 128 of dQ (C = ceil(D / 256):
+// K5's CTA keeps Q and dO of 64 rows, and at 256 columns a warpgroup those alone and one
+// ring stage of K and V would fill 256 KB). A CTA loads only its warpgroups' blocks, from
+// the same 4-D tensor maps as flash_attn_fwd.cu (the TMA unit zero-fills past T). A
+// warpgroup runs its slice's part of the score contraction on wgmma: K1 S_w = Q[:, w]
+// K[:, w]^T and K5 S_w and dP_w = dO[:, w] V[:, w]^T over 32 keys a tile, K4 S^T_w =
+// K[:, w] Q[:, w]^T and dP^T_w = V[:, w] dO[:, w]^T over 32 queries a tile, fp32 in
+// registers. The partials are summed over the cluster (Exchange below): each 16-byte
+// chunk goes by st.async to the CTA that reduces it, CTA r sums its C-th of the tile over
+// the W partials in slice order and sends the sum to every CTA, and each warpgroup reads
+// the whole sum from its own CTA. Every element of S (and dP) is summed by one thread in
+// one order, so every warpgroup holds the same bits of S, m, l and P (and dS), and a rerun
+// gives the same bits. Then each warpgroup runs its own slice's products, one wgmma of N =
+// its width a k-step: K1 O[:, w] += P V[:, w]; K4 dV[:, w] += P^T dO[:, w] and dK[:, w] +=
+// dS_hi^T Q[:, w] + dS_lo^T Q[:, w]; K5 dQ[:, w] += dS_hi K[:, w] + dS_lo K[:, w], the
+// operands read as MN-major B operands from the same boxes. Every score product is done
+// once, on the tensor cores; the softmax (the exponentials) is repeated by each warpgroup.
+// K1 and K5 issue the next tile's partials before this tile's sums are taken, so those
+// products run while the sums cross the cluster (K4 does not). K5 keeps each row's lse and
+// delta in registers, as flash_attn_bwd.cu's K5 does.
 //
 // Synchronisation: no cluster-wide barrier inside the loop, and no memory fence. Each
 // st.async counts its bytes on the receiving CTA's mbarrier (complete_tx), so a CTA
@@ -82,13 +88,16 @@ constexpr int ROWS = 64;       // rows a cluster owns: queries in K1, keys in K4
 constexpr int TILE = 32;       // rows of the other operand a ring stage: keys in K1, queries in K4
 constexpr int BOX = 64;        // columns of a TMA box (128 bytes of bf16)
 constexpr int FWD_BLOCKS = 4;  // 64-column blocks a K1 warpgroup at most (O: 128 registers)
-constexpr int DKV_BLOCKS = 2;  // ... a K4 warpgroup (dK and dV: 128 registers)
+constexpr int DKV_BLOCKS = 2;  // ... a K4 warpgroup (dK and dV: 128 registers), and a K5 one
 constexpr int MAX_STAGES = 4;
 constexpr int SMEM_LIMIT = 232448;
 constexpr float NEG_INF = -2.3819763e38f;
 constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
 
 // ---- the column slices and the shared-memory plan (ops/flash_attention.py computes the same)
+
+// the three kernels of this file (ops/flash_attention.py:cluster_plan's `kind`)
+enum Kind { FWD, DKV, DQ };
 
 // the nb column blocks of D dealt out to W warpgroups in order: nb % W of them one block
 // wider, warpgroup 0 of each CTA before warpgroup 1, so that the CTAs' blocks differ by at
@@ -104,22 +113,23 @@ struct Slices {
   }
 };
 
-// byte offsets from the 1024-aligned base: the operand a CTA keeps (K1: Q; K4: K, V), the
-// ring, both warpgroups' partials, the sums, K4's per-stage query statistics, barriers
+// byte offsets from the 1024-aligned base: the operands a CTA keeps (K1: Q; K4: K, V; K5: Q,
+// dO), the ring, both warpgroups' partials, the sums, K4's per-stage query statistics,
+// barriers
 struct Layout {
   int nbc;
   uint32_t own, stage, ring, part, sum, stats, bars, bytes;
-  __host__ __device__ Layout(bool dkv, int nb, int c, int stages) {
+  __host__ __device__ Layout(Kind kind, int nb, int c, int stages) {
     const Slices sl{nb, 2 * c};
     nbc = sl.first(2);  // CTA 0 holds the most blocks
-    own = dkv ? 2 * nbc * ROWS * 128 : nbc * ROWS * 128;
+    own = (kind == FWD ? 1 : 2) * nbc * ROWS * 128;
     stage = 2 * nbc * TILE * 128;
     ring = own;
     part = ring + stages * stage;
-    const int total = (dkv ? 2 : 1) * TILE / 8 * 128;  // float4 chunks of the partials
-    sum = part + 2 * c * ((total + c - 1) / c) * 16;     // W pieces of ceil(total / C)
+    const int total = (kind == FWD ? 1 : 2) * TILE / 8 * 128;  // float4 chunks of the partials
+    sum = part + 2 * c * ((total + c - 1) / c) * 16;           // W pieces of ceil(total / C)
     stats = sum + total * 16;
-    bars = stats + (dkv ? stages * 2 * TILE * 4 : 0);
+    bars = stats + (kind == DKV ? stages * 2 * TILE * 4 : 0);
     bytes = bars + 8 * (2 * MAX_STAGES + 5);
   }
   // the dynamic shared memory a launch asks for (the base is aligned up to 1024)
@@ -127,14 +137,14 @@ struct Layout {
 };
 
 // the most ring stages that fit an SM (at least 2), or 0 where even 2 do not
-int plan_stages(bool dkv, int nb, int c) {
+int plan_stages(Kind kind, int nb, int c) {
   for (int s = MAX_STAGES; s >= 2; --s)
-    if (Layout(dkv, nb, c, s).request() <= (uint32_t)SMEM_LIMIT) return s;
+    if (Layout(kind, nb, c, s).request() <= (uint32_t)SMEM_LIMIT) return s;
   return 0;
 }
 
-int plan_cluster(bool dkv, int nb) {
-  const int per_cta = 2 * (dkv ? DKV_BLOCKS : FWD_BLOCKS);
+int plan_cluster(Kind kind, int nb) {
+  const int per_cta = 2 * (kind == FWD ? FWD_BLOCKS : DKV_BLOCKS);
   return (nb + per_cta - 1) / per_cta;
 }
 
@@ -259,7 +269,7 @@ cluster_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_const
   uint8_t* smem = align_1024(smem_raw);
   const uint32_t ctas = cluster_ctas(), rank = cluster_rank();
   const Slices sl{D / BOX, 2 * (int)ctas};
-  const Layout L(false, sl.nb, ctas, stages);
+  const Layout L(FWD, sl.nb, ctas, stages);
   constexpr int Q_BLOCK = ROWS * 128, KV_BLOCK = TILE * 128;
   const uint32_t sq = smem_addr(smem), ring = sq + L.ring;  // Q first
   const uint32_t full = sq + L.bars, empty = full + 8 * MAX_STAGES, q_full = empty + 8 * MAX_STAGES;
@@ -484,7 +494,7 @@ cluster_dkv_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_const
   uint8_t* smem = align_1024(smem_raw);
   const uint32_t ctas = cluster_ctas(), rank = cluster_rank();
   const Slices sl{D / BOX, 2 * (int)ctas};
-  const Layout L(true, sl.nb, ctas, stages);
+  const Layout L(DKV, sl.nb, ctas, stages);
   constexpr int KV_BLOCK = ROWS * 128, Q_BLOCK = TILE * 128;
   const uint32_t base = smem_addr(smem), sk = base, sv = base + L.nbc * KV_BLOCK;
   const uint32_t ring = base + L.ring, tile_bytes = L.nbc * Q_BLOCK;  // Q, then dO, a stage
@@ -697,12 +707,229 @@ cluster_dkv_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_const
   cluster_sync();
 }
 
+// ------------------------------------------------------------------------------- K5
+
+// S and dP are [64 queries x 32 keys], as K1's S: the thread's queries are rows lane / 4
+// (+ 8) of its warp's 16, its keys columns 8 j + 2 (lane % 4) + e.
+__global__ void __launch_bounds__(THREADS, 1)
+cluster_dq_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                  const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
+                  const int* __restrict__ kv_mask, const float* __restrict__ lse,
+                  const float* __restrict__ delta, bf16* __restrict__ dq, int T, int Hq, int Hkv,
+                  int D, int stages, long long sdqb, long long sdqt, long long sdqh, float scale,
+                  int causal, int window) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  const uint32_t ctas = cluster_ctas(), rank = cluster_rank();
+  const Slices sl{D / BOX, 2 * (int)ctas};
+  const Layout L(DQ, sl.nb, ctas, stages);
+  constexpr int Q_BLOCK = ROWS * 128, KV_BLOCK = TILE * 128;
+  const uint32_t base = smem_addr(smem), sq = base, sdo = base + L.nbc * Q_BLOCK;
+  const uint32_t ring = base + L.ring, tile_bytes = L.nbc * KV_BLOCK;  // K, then V, a stage
+  const uint32_t full = base + L.bars, empty = full + 8 * MAX_STAGES, q_full = empty + 8 * MAX_STAGES;
+  const Exchange<2> ex{base + L.part, base + L.sum, q_full + 8, ctas, rank};
+
+  const int q0 = (int)(blockIdx.x / ctas) * ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const int cb0 = sl.first(2 * rank), cta_blocks = sl.first(2 * rank + 2) - cb0;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);  // lane 0 of each consumer warp
+    }
+    mbar_init(q_full, 1);
+    ex.init();
+    mbar_init_fence();
+  }
+  cluster_sync();
+
+  // the K/V tiles the cluster's rows can see (ops/flash_attention.py:kv_tile_range)
+  int kt_end = (T + TILE - 1) / TILE;
+  if (causal) kt_end = min(kt_end, (q0 + ROWS - 1) / TILE + 1);
+  const int kt_begin = window > 0 ? max(0, q0 - window + 1) / TILE : 0;
+  const int n_tiles = kt_end - kt_begin, wg = threadIdx.x / 128;
+
+  // thread 0: the K and V boxes of tile n (of the range) into stage n % stages
+  const auto load_kv = [&](int n) {
+    const int stage = n % stages, k0 = (kt_begin + n) * TILE;
+    const uint32_t st = ring + stage * L.stage, bar = full + 8 * stage;
+    mbar_expect_tx(bar, 2 * cta_blocks * KV_BLOCK);
+    for (int j = 0; j < cta_blocks; ++j) {
+      tma_load_4d(st + j * KV_BLOCK, &map_k, bar, BOX * (cb0 + j), k0, hk, b);
+      tma_load_4d(st + tile_bytes + j * KV_BLOCK, &map_v, bar, BOX * (cb0 + j), k0, hk, b);
+    }
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(q_full, 2 * cta_blocks * Q_BLOCK);
+    for (int j = 0; j < cta_blocks; ++j) {
+      tma_load_4d(sq + j * Q_BLOCK, &map_q, q_full, BOX * (cb0 + j), q0, h, b);
+      tma_load_4d(sdo + j * Q_BLOCK, &map_do, q_full, BOX * (cb0 + j), q0, h, b);
+    }
+    for (int n = 0; n < min(stages, n_tiles); ++n) load_kv(n);
+  }
+
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32, tq = lane % 4;
+  // this warpgroup's slice: blocks gs .. gs + gn - 1 of D, lb .. of the CTA's
+  const int g = 2 * rank + wg, gs = sl.first(g), gn = sl.first(g + 1) - gs, lb = gs - cb0;
+  const int row = q0 + 16 * warp + lane / 4;  // this thread's queries: row, row + 8
+  const float qk_scale = scale * LOG2E;       // exp2 domain
+  const int* mb = kv_mask ? kv_mask + (long long)b * T : nullptr;
+  const long long row_off = ((long long)b * Hq + h) * T;
+  float lse2[2], dl[2];  // lse in log2 units and delta of the thread's rows, 0 past T
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int qp = row + 8 * rr;
+    lse2[rr] = qp < T ? lse[row_off + qp] * LOG2E : 0.f;
+    dl[rr] = qp < T ? delta[row_off + qp] : 0.f;
+  }
+
+  // the slice's width is a constant of the loop below, one copy of it a width
+  const auto consume = [&](auto width) {
+    constexpr int NB = decltype(width)::value;
+    float acc[NB * 32];  // dQ[:, slice]: wgmma's N = 64 NB
+#pragma unroll
+    for (int i = 0; i < NB * 32; ++i) acc[i] = 0.f;
+
+    // this slice's parts of S = Q K^T and dP = dO V^T for the tile in stage rp, issued (not
+    // waited for)
+    const auto partial = [&](float (&sp)[2][TILE / 2], const RingPos& rp) {
+      const uint32_t st = ring + rp.stage * L.stage;
+      mbar_wait(full + 8 * rp.stage, rp.phase);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {  // 16 columns a k-step
+          const uint32_t a_off = (lb + j) * Q_BLOCK + 32 * kk;
+          const uint32_t b_off = (lb + j) * KV_BLOCK + 32 * kk;
+          WgmmaSS<TILE, 0>::run(sp[0], smem_desc(sq + a_off, 16, 1024),
+                                smem_desc(st + b_off, 16, 1024), j + kk != 0);
+          WgmmaSS<TILE, 0>::run(sp[1], smem_desc(sdo + a_off, 16, 1024),
+                                smem_desc(st + tile_bytes + b_off, 16, 1024), j + kk != 0);
+        }
+      wgmma_commit();
+    };
+
+    // The next tile's partials run on the tensor cores while this tile's are summed over
+    // the cluster and its dS and dQ product run; they are published once done.
+    mbar_wait(q_full, 0);
+    RingPos r;
+    float sp[2][TILE / 2], sp_next[2][TILE / 2];
+    partial(sp, r);
+    wgmma_wait<0>();
+    fence_regs(sp[0]);
+    fence_regs(sp[1]);
+    ex.publish(sp, wg, t, 0);
+    uint32_t tile = 0;
+    for (int kt = kt_begin; kt < kt_end; ++kt, ++tile) {
+      const int k0 = kt * TILE;
+      const int key_ok = k0 + lane < T ? (mb ? mb[k0 + lane] != 0 : 1) : 0;
+      const uint32_t st = ring + r.stage * L.stage;
+      RingPos r_next = r;
+      if (++r_next.stage == stages) {
+        r_next.stage = 0;
+        r_next.phase ^= 1;
+      }
+      const bool more = kt + 1 < kt_end;
+      partial(sp_next, more ? r_next : r);  // after the last tile a product unused (no branch
+      ex.finish(sp, wg, t, tile & 1);       // around a wgmma: it would be serialized)
+
+      // P = exp2(S - lse) on valid pairs (0 elsewhere, set explicitly: the lse of a query
+      // with no valid key is only "very negative"), dS = P (dP - delta), rounded to bf16 as
+      // hi + lo in wgmma's A-operand places; the same bits in every warpgroup
+      const uint32_t word = __ballot_sync(0xffffffffu, key_ok != 0);
+      const bool masked = word != 0xffffffffu || (causal && k0 + TILE - 1 > q0) ||
+                          (window > 0 && k0 <= q0 + ROWS - 1 - window);
+      uint32_t ds_hi[TILE / 16][4], ds_lo[TILE / 16][4];
+#pragma unroll
+      for (int j = 0; j < TILE / 8; ++j) {
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int qp = row + 8 * rr;
+          const int hi = causal ? qp - k0 : TILE;  // keys relative to k0 it may see
+          const int lo = window > 0 ? qp - window + 1 - k0 : 0;
+          float ds[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * j + 2 * rr + e, c = 8 * j + 2 * tq + e;
+            float p = ex2(fmaf(sp[0][i], qk_scale, -lse2[rr]));
+            if (masked) p = ((word >> c) & 1) && c <= hi && c >= lo ? p : 0.f;
+            ds[e] = p * (sp[1][i] - dl[rr]);
+          }
+          const int slot = (j % 2) * 2 + rr;
+          const uint32_t packed = pack_bf16(ds[0], ds[1]);
+          ds_hi[j / 2][slot] = packed;
+          ds_lo[j / 2][slot] = pack_bf16(ds[0] - bf16_lo(packed), ds[1] - bf16_hi(packed));
+        }
+      }
+
+      // dQ[:, slice] += (dS_hi + dS_lo) K[:, slice]; K read MN-major from its boxes,
+      // KV_BLOCK apart
+      const uint32_t sk = st + lb * KV_BLOCK;
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TILE / 16; ++kk) {
+        const uint64_t b_k = smem_desc(sk + 2048 * kk, KV_BLOCK, 1024);
+        WgmmaRS<64 * NB, 1>::run(acc, ds_hi[kk], b_k, 1);
+        WgmmaRS<64 * NB, 1>::run(acc, ds_lo[kk], b_k, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();  // this tile's dQ product and the next tile's partials
+      fence_regs(acc);
+      fence_regs(sp_next[0]);
+      fence_regs(sp_next[1]);
+      keep_regs(ds_hi);
+      keep_regs(ds_lo);
+      if (lane == 0) mbar_arrive(empty + 8 * r.stage);
+      // thread 0 refills the stage, with the tile `stages` ahead, once both warpgroups are
+      // done with it
+      if (threadIdx.x == 0 && (int)tile + stages < n_tiles) {
+        mbar_wait(empty + 8 * r.stage, r.phase);
+        load_kv(tile + stages);
+      }
+      __syncwarp();
+      if (more) {
+        ex.publish(sp_next, wg, t, (tile + 1) & 1);
+#pragma unroll
+        for (int i = 0; i < TILE / 2; ++i) {
+          sp[0][i] = sp_next[0][i];
+          sp[1][i] = sp_next[1][i];
+        }
+      }
+      r = r_next;
+    }
+
+    // epilogue: dQ = scale * acc as bf16, the thread's two rows and its slice
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int qp = row + 8 * rr;
+      if (qp >= T) continue;
+      bf16* out = dq + b * sdqb + qp * sdqt + h * sdqh + BOX * gs + 2 * tq;
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int i = 32 * j + 4 * jj + 2 * rr;
+          *reinterpret_cast<uint32_t*>(out + BOX * j + 8 * jj) =
+              pack_bf16(acc[i] * scale, acc[i + 1] * scale);
+        }
+      }
+    }
+  };
+  if (gn == 1)
+    consume(Blocks<1>{});
+  else
+    consume(Blocks<2>{});
+  cluster_sync();
+}
+
 // the cluster size and ring the wrapper planned against this file's: the same, or refused
-bool plan_ok(bool dkv, int D, int cluster, int stages, float scale) {
+bool plan_ok(Kind kind, int D, int cluster, int stages, float scale) {
   if (!(D > 512 && D % BOX == 0 && scale > 0.f)) return false;
   const int nb = D / BOX;
-  return cluster == plan_cluster(dkv, nb) && cluster >= 2 && cluster <= MAX_CLUSTER &&
-         stages >= 2 && stages == plan_stages(dkv, nb, cluster);
+  return cluster == plan_cluster(kind, nb) && cluster >= 2 && cluster <= MAX_CLUSTER &&
+         stages >= 2 && stages == plan_stages(kind, nb, cluster);
 }
 
 }  // namespace
@@ -719,13 +946,13 @@ extern "C" int flash_attn_cluster_fwd_bf16(const void* q, const void* k, const v
                                            const long long* maps, int cluster, int stages,
                                            long long sob, long long sot, long long soh,
                                            float scale, int causal, int window, void* stream) {
-  if (!plan_ok(false, D, cluster, stages, scale) || T <= 0 || Hkv <= 0 || Hq % Hkv)
+  if (!plan_ok(FWD, D, cluster, stages, scale) || T <= 0 || Hkv <= 0 || Hq % Hkv)
     return (int)cudaErrorInvalidValue;
   CUtensorMap map_q, map_k, map_v;
   if (!tmap::make_map_4d(&map_q, q, maps) || !tmap::make_map_4d(&map_k, k, maps + 11) ||
       !tmap::make_map_4d(&map_v, v, maps + 22))
     return (int)cudaErrorNotSupported;
-  const Layout L(false, D / BOX, cluster, stages);
+  const Layout L(FWD, D / BOX, cluster, stages);
   const dim3 grid((T + ROWS - 1) / ROWS * cluster, Hq, B);
   return (int)launch_cluster(cluster_fwd_kernel, grid, THREADS, cluster, L.request(),
                              static_cast<cudaStream_t>(stream), map_q, map_k, map_v,
@@ -745,13 +972,13 @@ extern "C" int flash_attn_cluster_bwd_dkv_bf16(const void* q, const void* k, con
                                                const long long* s, const long long* maps,
                                                int cluster, int stages, float scale, int causal,
                                                int window, void* stream) {
-  if (!plan_ok(true, D, cluster, stages, scale) || T <= 0 || Hkv <= 0 || Hq % Hkv)
+  if (!plan_ok(DKV, D, cluster, stages, scale) || T <= 0 || Hkv <= 0 || Hq % Hkv)
     return (int)cudaErrorInvalidValue;
   CUtensorMap map_q, map_k, map_v, map_do;
   if (!tmap::make_map_4d(&map_q, q, maps) || !tmap::make_map_4d(&map_k, k, maps + 11) ||
       !tmap::make_map_4d(&map_v, v, maps + 22) || !tmap::make_map_4d(&map_do, dout, maps + 33))
     return (int)cudaErrorNotSupported;
-  const Layout L(true, D / BOX, cluster, stages);
+  const Layout L(DKV, D / BOX, cluster, stages);
   const dim3 grid((T + ROWS - 1) / ROWS * cluster, Hkv, B);
   return (int)launch_cluster(cluster_dkv_kernel, grid, THREADS, cluster, L.request(),
                              static_cast<cudaStream_t>(stream), map_q, map_k, map_v, map_do,
@@ -759,4 +986,30 @@ extern "C" int flash_attn_cluster_bwd_dkv_bf16(const void* q, const void* k, con
                              static_cast<const float*>(delta), static_cast<bf16*>(dk),
                              static_cast<bf16*>(dv), T, Hq, Hkv, D, stages, s[12], s[13], s[14],
                              s[15], s[16], s[17], scale, causal, window);
+}
+
+// strides: (b, t, h) in elements for q, k, v, dout, dq (15 values, of which dq's are used);
+// maps: the 4-D tensor maps of q, k, v, dout (4 x 11 numbers) for boxes of 64 queries and
+// 32 keys; `cluster` and `stages` as ops/flash_attention.py:dq_plan gives them; lse and
+// delta [B, Hq, T] fp32
+extern "C" int flash_attn_cluster_bwd_dq_bf16(const void* q, const void* k, const void* v,
+                                              const void* kv_mask, const void* dout,
+                                              const void* lse, const void* delta, void* dq,
+                                              int B, int T, int Hq, int Hkv, int D,
+                                              const long long* s, const long long* maps,
+                                              int cluster, int stages, float scale, int causal,
+                                              int window, void* stream) {
+  if (!plan_ok(DQ, D, cluster, stages, scale) || T <= 0 || Hkv <= 0 || Hq % Hkv)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap map_q, map_k, map_v, map_do;
+  if (!tmap::make_map_4d(&map_q, q, maps) || !tmap::make_map_4d(&map_k, k, maps + 11) ||
+      !tmap::make_map_4d(&map_v, v, maps + 22) || !tmap::make_map_4d(&map_do, dout, maps + 33))
+    return (int)cudaErrorNotSupported;
+  const Layout L(DQ, D / BOX, cluster, stages);
+  const dim3 grid((T + ROWS - 1) / ROWS * cluster, Hq, B);
+  return (int)launch_cluster(cluster_dq_kernel, grid, THREADS, cluster, L.request(),
+                             static_cast<cudaStream_t>(stream), map_q, map_k, map_v, map_do,
+                             static_cast<const int*>(kv_mask), static_cast<const float*>(lse),
+                             static_cast<const float*>(delta), static_cast<bf16*>(dq), T, Hq,
+                             Hkv, D, stages, s[12], s[13], s[14], scale, causal, window);
 }

@@ -16,21 +16,24 @@ Needs an NVIDIA GPU and ``nvcc``. Prints one JSON line per step:
   generation evaluation's P = 703, and one caption of 3 beams at P = 575, G = 128), and
   at the other head dims and GQA ratios, at more rows a KV head than a CTA holds (24 beams
   of Gemma3-1B's 4/1 heads, 17 of Llama's 32/8, 96 query heads on one KV head), at head
-  dim 512 and at 320 (padded to 512), and above 512 (``--wide``: only those): 768 (and
-  640, padded to it), 1024 (also at 96 rows a KV head, and leg 6b's decode) and 2048 on
-  the cluster route (3, 4 and 8 CTAs a split), 2304 on the column blocks; a rerun must
-  give the same bits, and the plan (``ops/decode_attention.py:decode_plan``, its route in
-  each row) must put more CTAs on the card than there are (batch, KV head) pairs. Every
-  case is run before a failure is reported; ``--ptxas`` fails the run where a kernel
-  spills;
+  dim 512 and at 320 (padded to 512), and above 512 (``--wide``: only those, all on the
+  cluster route): 768 (and 640, padded to it), 1024 (also at 96 rows a KV head, and leg
+  6b's decode) and 2048 (3, 4 and 8 CTAs a split of one 256-column block each), 2304 and
+  4096 (5 CTAs of 2, 2, 2, 2 and 1 blocks; 8 of 2: chip_smoke.py phase 2's shapes, with a
+  window of 100 and none); a rerun must give the same bits, and the plan
+  (``ops/decode_attention.py:decode_plan``, its route in each row) must put more CTAs on
+  the card than there are (batch, KV head) pairs. Every case is run before a failure is
+  reported; ``--ptxas`` fails the run where a kernel spills;
 - ``--time``: device times (``utils/timing.py:device_ms``) of kernel, plain version and
   the library call (``scaled_dot_product_attention`` over the concatenated caches, the
   prefix repeated per beam outside the timed call, with the masks as one explicit bool
   mask: a yardstick the port never calls; and again with k and v repeated to the query
   heads, which the efficient backend takes), in turns, at the served shapes (Gemma3-1B's
   and Llama-3.2-1B's) and one caption's; with ``--wide`` at phase 2's head dim 1024
-  (and its window, and 96 rows a KV head), at 2048, at 2304 and at leg 6b's decode, and
-  the cluster route's least tiles a split (``time_cluster_tiles``).
+  (and its window, and 96 rows a KV head), at 2048, 2304, 4096 and at leg 6b's decode, and
+  the cluster route's least tiles a split (``time_cluster_tiles``); each beside its bound
+  (``bound``: the caches, q and the output moved once over 3.35 TB/s, or the live keys'
+  4 D operations a query head over 989 TFLOP/s, whichever is larger).
 """
 
 from __future__ import annotations
@@ -80,14 +83,19 @@ CASES = [
     (8, 3, 8, 1, 512, 831, 32, 31, None, "ragged"),     # head dim 512: 24 rows, 2 groups
     (2, 2, 4, 2, 512, 300, 16, 15, 200, "splits"),
     (2, 3, 4, 1, 320, 300, 16, 15, None, "ragged"),     # 320, padded to 512
-    # above 512: column blocks of 256
+    # above 512: a split on a cluster of CTAs holding 256-column blocks
     (8, 3, 4, 1, 1024, 831, 32, 31, None, "ragged"),    # chip_smoke.py phase 2's shape
     (8, 3, 4, 1, 1024, 831, 32, 17, 512, "ragged"),
     (2, 24, 4, 1, 1024, 300, 16, 15, None, "splits"),   # 96 rows: row groups of 16
     (2, 3, 4, 2, 768, 300, 16, 15, 200, "splits"),     # the narrowest cluster: 3 CTAs
     (2, 3, 4, 1, 640, 150, 16, 15, None, "ragged"),     # 640, padded to 768
-    (2, 3, 4, 1, 2048, 300, 16, 15, 100, "ragged"),     # the widest cluster: 8 CTAs
-    (2, 3, 4, 1, 2304, 150, 16, 15, None, "ragged"),    # past the reach: column blocks
+    (2, 3, 4, 1, 2048, 300, 16, 15, 100, "ragged"),     # 8 CTAs of one block
+    (2, 3, 4, 1, 2304, 150, 16, 15, None, "ragged"),    # 5 CTAs of 2, 2, 2, 2, 1 blocks
+    (2, 3, 4, 1, 2304, 300, 16, 15, 100, "ragged"),     # chip_smoke.py phase 2's
+    (2, 3, 4, 1, 2304, 300, 16, 15, None, "ragged"),
+    (2, 3, 4, 1, 4096, 300, 16, 15, 100, "ragged"),     # 8 CTAs of 2 blocks
+    (2, 3, 4, 1, 4096, 300, 16, 15, None, "ragged"),
+    (1, 12, 4, 1, 4096, 150, 16, 15, None, "splits"),   # 48 rows: row groups of <= 32
     (2, 3, 4, 1, 1024, 703, 16, 15, 512, "ragged"),     # chip_smoke.py leg 6b's decode
 ]
 WIDE = [case for case in CASES if case[4] > 512]
@@ -168,10 +176,34 @@ def library_call(q, kp, vp, kg, vg, *, prefix_mask, t, prefix_len, scale, window
     return fn, backend, int(live.sum())
 
 
+def live_slots(prefix_mask, *, t, prefix_len, window, g) -> tuple:
+    """(the live prefix slots over the batch, the prefix slots inside the window a batch
+    row, the generated slots inside the window a beam): the cache rows the function needs
+    (padding and slots out of the window left out) and the mask's slots it reads."""
+    p = prefix_mask.shape[1]
+    p_begin = min(p, max(0, prefix_len + t - window + 1)) if window else 0
+    g_begin, g_end = (max(0, t - window + 1) if window else 0), min(t + 1, g)
+    return int(prefix_mask[:, p_begin:].bool().sum()), p - p_begin, g_end - g_begin
+
+
+def bound(b, nb, hq, hkv, d, slots, live) -> tuple:
+    """(ms, "bytes" or "operations"): the least time an H100 SXM could take: the live
+    slots of both caches (``slots``: ``live_slots``' counts), q and the output moved once
+    and the prefix mask read inside the window, over 3.35 TB/s, or the scores and P V
+    over the ``live`` keys of every row (4 D operations a key and query head) over 989
+    TFLOP/s, whichever is larger (chip_smoke.py:bound_decode_attn's count)."""
+    prefix, window_prefix, gen = slots
+    rows = b * nb
+    nbytes = (2 * 2 * hkv * d * (prefix + rows * gen) + 2 * 2 * rows * hq * d
+              + 4 * b * window_prefix)
+    by_bytes, by_ops = nbytes / 3.35e12 * 1e3, 4 * hq * live * d / 989e12 * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+
+
 def time_case(b, nb, hq, hkv, d, p, g, t, window, pad) -> None:
     q, kp, vp, kg, vg, mask = inputs(b, nb, hq, hkv, d, p, g, pad)
     kw = dict(prefix_mask=mask, t=t, prefix_len=p, scale=d ** -0.5, window=window)
-    lib, backend, _ = library_call(q, kp, vp, kg, vg, **kw)
+    lib, backend, live = library_call(q, kp, vp, kg, vg, **kw)
     lib_rep, backend_rep, _ = library_call(q, kp, vp, kg, vg, **kw, repeat_kv=True)
     rows = {}
     for _ in range(2):  # in turns
@@ -179,8 +211,11 @@ def time_case(b, nb, hq, hkv, d, p, g, t, window, pad) -> None:
                          ("kernel", lambda: DA.decode_attention(q, kp, vp, kg, vg, **kw)),
                          ("library", lib), ("library_repeat_kv", lib_rep)):
             rows.setdefault(name, []).append(device_ms(fn))
+    bound_ms, bound_by = bound(b, nb, hq, hkv, d,
+                               live_slots(mask, t=t, prefix_len=p, window=window, g=g), live)
     emit({"case": [b, nb, hq, hkv, d, p, g, t, window, pad], "library": backend,
-          "library_repeat_kv": backend_rep, "ms": rows})
+          "library_repeat_kv": backend_rep, "ms": rows, "bound_ms": bound_ms,
+          "bound_by": bound_by})
 
 
 def time_group_rows(sizes=(8, 12, 16, 24, 32, 64)) -> None:
@@ -214,10 +249,10 @@ def time_group_rows(sizes=(8, 12, 16, 24, 32, 64)) -> None:
 def time_cluster_tiles(floors=(1, 2, 3)) -> None:
     """The cluster route's least tiles a split (``DA.CLUSTER_MIN_TILES``): the plan's
     floor against each of ``floors``, each checked against the plain version, then timed
-    in turns, at phase 2's head dim 1024 shape, its window, 96 rows, 2048 and leg 6b's
-    decode."""
+    in turns, at the timed cases of ``--wide`` (phase 2's head dim 1024 shape, its window,
+    96 rows, 2048, 2304, 4096 and leg 6b's decode)."""
     default = DA.CLUSTER_MIN_TILES
-    for case in WIDE[:3] + WIDE[5:6] + WIDE[-1:]:
+    for case in WIDE[:3] + WIDE[5:]:
         b, nb, hq, hkv, d, p, g, t, window, pad = case
         q, kp, vp, kg, vg, mask = inputs(b, nb, hq, hkv, d, p, g, pad)
         kw = dict(prefix_mask=mask, t=t, prefix_len=p, scale=d ** -0.5, window=window)
@@ -253,7 +288,7 @@ def main() -> int:
     emit({"build_s": _build.build_seconds})
     ok += [check(*case) for case in (WIDE if args.wide else CASES)]
     if args.time and args.wide:
-        for case in WIDE[:3] + WIDE[5:]:  # phase 2's shape, its window, 96 rows; 2048, 2304, leg 6b
+        for case in WIDE[:3] + WIDE[5:]:  # phase 2's shape, its window, 96 rows; 2048 and past
             time_case(*case)
         time_cluster_tiles()
     elif args.time:

@@ -10,7 +10,7 @@ Needs an NVIDIA GPU and ``nvcc``. Prints one JSON line per step:
   ``csrc/flash_attn_cluster.cu`` (registers, spills, shared memory of each kernel,
   warnings);
 - ``--wide``: only the head dims above 512 (``csrc/flash_attn_cluster.cu`` and, past its
-  reach and for dQ, ``csrc/flash_attn_wide.cu``), checked and, with ``--time``, timed;
+  reach, ``csrc/flash_attn_wide.cu``), checked and, with ``--time``, timed;
 - always: K1's out and lse, K4's dk and dv and K5's dq against the plain versions at the main
   paths' shapes (Llama-3.2-1B's prefill at 32/8 heads of 64, causal, whole tiles
   left-padded, at P = 831 and the generation evaluation's 703; the ViT-L text tower; Mistral-7B's window of 4096 over 4608 tokens among
@@ -73,8 +73,8 @@ CASES = [
     (2, 150, 4, 1, 512, True, 37, "left", False),
     (2, 257, 4, 4, 512, False, None, "right", True),
     (1, 63, 2, 2, 512, False, None, None, False),
-    # above 512: K1 and K4 on the cluster kernels up to 4096 and 2048, K5 and what lies
-    # past those on the column blocks (ops/flash_attention.py:forward_plan, dkv_plan)
+    # above 512: K1 on the cluster kernel up to 4096, K4 and K5 up to 2048, what lies past
+    # those on the column blocks (ops/flash_attention.py:forward_plan, dkv_plan, dq_plan)
     (2, 1024, 4, 1, 1024, True, 512, None, False),      # chip_smoke.py phase 2's shapes
     (4, 576, 4, 4, 640, False, None, None, False),
     (2, 150, 4, 1, 576, True, 37, "left", False),       # uneven slices: 192 | 128 | ...
@@ -84,9 +84,9 @@ CASES = [
     (1, 63, 2, 2, 1024, False, None, None, False),
     (2, 300, 8, 2, 1024, True, 128, "left", True),
     (2, 129, 4, 4, 768, True, None, None, False),
-    (2, 300, 4, 2, 2048, True, 100, "left", True),      # K4's widest cluster: 8 CTAs
+    (2, 300, 4, 2, 2048, True, 100, "left", True),      # K4's and K5's widest cluster: 8 CTAs
     (2, 200, 4, 1, 2048, False, None, "right", False),
-    (2, 150, 4, 2, 2112, True, 37, "left", False),      # past K4's reach: its column blocks
+    (2, 150, 4, 2, 2112, True, 37, "left", False),      # past their reach: the column blocks
     (2, 70, 2, 1, 4160, True, None, "right", True),     # past K1's too
 ]
 WIDE = [case for case in CASES if case[4] > 512]
@@ -184,8 +184,8 @@ def check(b, t, hq, hkv, d, causal, window, pad, sliced) -> bool:
     lse_tol = TOL + TOL * ref_lse[live].abs()
     again = FA._launch(q, k, v, kv_mask=mask, out_f32=True, **kw)
     row = {"case": [b, t, hq, hkv, d, causal, window, pad, sliced],
-           "routes": [FA.forward_plan(d).get("route", "wgmma"), FA.dkv_plan(d).get("route", "wgmma"),
-                      "column blocks" if "col_blocks" in FA.dq_plan(d) else "wgmma"],
+           "routes": [plan(d).get("route", "wgmma")
+                      for plan in (FA.forward_plan, FA.dkv_plan, FA.dq_plan)],
            "out_err": float(err.max()), "lse_err": float(lse_err.max()),
            "out_ok": bool((err <= TOL + TOL * ref.abs()).all() and out.isfinite().all()),
            "lse_ok": bool((lse_err <= lse_tol).all()),

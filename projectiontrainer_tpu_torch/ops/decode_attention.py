@@ -17,23 +17,22 @@ the last split of a (batch, KV head) to finish combines them; a per-stream count
 tells it that it is the last, and it sets the counter back to 0 for the next launch.
 
 A CTA holds its query rows in shared memory, at most ``max_rows(d)`` of them (64; 16 at
-head dim 512; 8 at 4096). A (batch, KV head) with more rows (nb * n_rep: 17 beams of
-Gemma3-1B's 4 query heads a KV head) is cut into row groups of whole beams (or, where one
-beam's n_rep rows are too many, of a beam's rows), each with its own splits and combine,
-and each reading the prefix again; ``decode_plan`` picks their size and reports them. The
-JAX package sends such shapes to its XLA decode path instead.
+head dim 512; 64 above it up to 2048, 32 up to 6144). A (batch, KV head) with more rows
+(nb * n_rep: 17 beams of Gemma3-1B's 4 query heads a KV head) is cut into row groups of
+whole beams (or, where one beam's n_rep rows are too many, of a beam's rows), each with its
+own splits and combine, and each reading the prefix again; ``decode_plan`` picks their
+size and reports them. The JAX package sends such shapes to its XLA decode path instead.
 
 The kernel takes head dims 64, 128, 256 and 512, and every multiple of 256 above 512;
 any other is zero-padded on the card to the next of them, the query and the four caches
 alike, and the output sliced back (``decode_attention_padded``; the scale stays the
 caller's). Padding copies the caches at every step: the copy-free version is a kernel
 that reads rows of D < width. Above 512 (where the JAX package runs XLA's decode
-attention) O's columns are cut into slices of 256 (``col_blocks``: each slice a unit with
-its own partials, counter and combine), on one of two routes (``decode_plan``'s
-``route``): up to ``CLUSTER_REACH`` a split runs on a thread-block cluster of D / 256
-CTAs, which compute each score once, each over its slice, and sum the partial scores over
-the cluster ("cluster"); past it each CTA computes its split's scores over the whole D
-again ("column blocks").
+attention) a split runs on a thread-block cluster (``decode_plan``'s ``route``
+"cluster"): O's columns are cut into blocks of 256, dealt over ``cluster_size(d)`` <= 8
+CTAs (``cluster_slices``: at most ceil(d / 2048) blocks a CTA), which compute each score
+once, each over its own columns, and sum the partial scores over the cluster; each
+cluster rank is a unit with its own partials, counter and combine.
 """
 
 from __future__ import annotations
@@ -51,18 +50,23 @@ launches = _build.LaunchCounter("decode_attn")
 HEAD_DIMS = (64, 128, 256, 512)
 MAX_ROWS = 64  # query rows one CTA holds in shared memory (csrc/decode_attention.cu:MAX_M)
 MAX_ROWS_512 = 16  # ... at head dim 512
-WIDE_COLUMNS = 256  # above 512: O's columns a CTA (csrc/decode_attention.cu:DC)
-KEY_STRIDE = WIDE_COLUMNS + 8  # a cluster CTA's K and q rows in shared memory (KS)
-CLUSTER_REACH = _build.MAX_CLUSTER * WIDE_COLUMNS  # the widest head dim on the cluster route
+WIDE_COLUMNS = 256  # above 512: a column block (csrc/decode_attention.cu:DC)
+KEY_STRIDE = WIDE_COLUMNS + 8  # a cluster CTA's K, V and q rows in shared memory (KS)
+RING = 4  # a cluster CTA's block buffers of K or V (NBUF)
 GROUP_SIZES = (64, 32, 16, 8)  # rows a row group may hold, largest first
 # tiles a split at least on the cluster route where splits of one tile would put more CTAs
-# than SMs on the card: a split's fixed cost (the cluster's start, q, the partial and its
-# share of the combine) outweighs a tile once the scores are on the tensor cores. Leg 6b's
-# decode in chip_smoke.py (2 x 3 beams, 4|1 heads of 1024, P = 703, window 512: 152 CTAs
-# in one-tile splits) took 0.0365-0.0372 ms in splits of one tile, 0.0265 in two, 0.0299
-# in three (NVIDIA H100 80GB HBM3, 700 W; kernels/check_decode_attn.py --wide --time)
+# than one wave holds at a CTA an SM (``cluster_wave``): a split's fixed cost (the
+# cluster's start, q, the partial and its share of the combine) outweighs a tile once the
+# scores are on the tensor cores, and a second CTA on an SM shares it. Leg 6b's decode in
+# chip_smoke.py (2 x 3 beams, 4|1 heads of 1024, P = 703, window 512: 152 CTAs in
+# one-tile splits) took 0.0351 ms in splits of one tile, 0.0265 in two, 0.0297 in three;
+# at 2304 (2 x 3 beams, P = 300: 130 CTAs in clusters of 5, 120 a wave) 0.0548 in one,
+# 0.0414 in two; where one-tile splits fit a wave they win (4096, window 100: 96 CTAs
+# 0.0287, 80 in two-tile splits 0.0343; NVIDIA H100 80GB HBM3, 700 W;
+# kernels/check_decode_attn.py --wide --time)
 CLUSTER_MIN_TILES = 2
 TILE_KEYS = 32  # keys a tile inside a split (csrc/decode_attention.cu:TK)
+GPCS = 8  # the H100's GPCs: each thread-block cluster runs inside one
 SMEM_LIMIT = 232_448  # dynamic shared memory a block may opt into on the H100
 _counters: dict = {}  # (device index, stream) -> int32 [>= B * Hkv], zero between launches
 _counters_lock = threading.Lock()
@@ -74,17 +78,30 @@ def takes_head_dim(d: int) -> bool:
     return d in HEAD_DIMS or (d > max(HEAD_DIMS) and d % WIDE_COLUMNS == 0)
 
 
-def col_blocks(d: int) -> int:
-    """The slices of O's columns that K3's CTAs split at head dim d (1 up to 512)."""
-    return d // WIDE_COLUMNS if d > max(HEAD_DIMS) else 1
-
-
-def route(d: int) -> str:
-    """K3's route at head dim d: "splits" (a CTA a split) up to 512, "cluster" up to
-    ``CLUSTER_REACH``, "column blocks" past it (csrc/decode_attention.cu:Route)."""
+def cluster_size(d: int) -> int:
+    """The CTAs that share a split of K3 at head dim d (csrc/decode_attention.cu:Deal): 1
+    up to 512; above it the d / 256 column blocks, at most ceil(d / 2048) a CTA, over as
+    few CTAs as that takes (at most ``MAX_CLUSTER``: 5 at 2304, 8 at 2048 and 4096)."""
     if d <= max(HEAD_DIMS):
-        return "splits"
-    return "cluster" if d <= CLUSTER_REACH else "column blocks"
+        return 1
+    blocks = d // WIDE_COLUMNS
+    per = -(-blocks // _build.MAX_CLUSTER)
+    return -(-blocks // per)
+
+
+def cluster_slices(d: int) -> list:
+    """The columns of each CTA of a split's cluster at head dim d above 512, in rank
+    order: the d / 256 blocks dealt out, the first of them one block wider where the count
+    does not divide (2304: 512, 512, 512, 512, 256)."""
+    blocks, c = d // WIDE_COLUMNS, cluster_size(d)
+    return [WIDE_COLUMNS * (blocks // c + (r < blocks % c)) for r in range(c)]
+
+
+def cluster_wave(cluster: int, sms: int) -> int:
+    """The CTAs of clusters of ``cluster`` that one wave holds at a CTA an SM, each
+    cluster inside one of ``GPCS`` GPCs of sms // GPCS SMs (of 132 SMs: 120 for clusters
+    of 3 or 5, 128 for 4 or 8)."""
+    return sms // GPCS // cluster * cluster * GPCS
 
 
 def exchange_bytes(rows: int, cluster: int) -> int:
@@ -97,25 +114,24 @@ def exchange_bytes(rows: int, cluster: int) -> int:
 
 def smem_bytes(d: int, rows: int) -> int:
     """K3's dynamic shared memory at head dim d for ``rows`` query rows
-    (csrc/decode_attention.cu:smem_bytes): two K/V tiles of the slice's width, the rows'
-    fp32 q (at the whole width on the column blocks) and O at the slice's, their scores and
-    statistics; on the cluster route q in bf16 (rows rounded up to 16), K's and q's rows
-    ``KEY_STRIDE`` apart, and the exchange."""
-    way = route(d)
-    block = WIDE_COLUMNS if way != "splits" else d
-    rest = rows * block * 4 + rows * TILE_KEYS * 4 + rows * 12
-    if way == "cluster":
-        return (2 * TILE_KEYS * (KEY_STRIDE + block) * 2 + -(-rows // 16) * 16 * KEY_STRIDE * 2
-                + exchange_bytes(rows, col_blocks(d)) + rest)
-    q_width = d if way == "column blocks" else block
-    return 2 * TILE_KEYS * block * 2 * 2 + rows * q_width * 4 + rest
+    (csrc/decode_attention.cu:smem_bytes): up to 512 two K/V tiles and the rows' fp32 q
+    and O, their scores and statistics; on the cluster route the ring of ``RING`` blocks of
+    K or V and the widest CTA's q in bf16 (rows rounded up to 8 or 16) and fp32 O at its
+    width, K's, V's and q's rows ``KEY_STRIDE`` apart, and the exchange."""
+    rest = rows * TILE_KEYS * 4 + rows * 12
+    if d <= max(HEAD_DIMS):
+        return 2 * TILE_KEYS * d * 2 * 2 + 2 * rows * d * 4 + rest
+    blocks = max(cluster_slices(d)) // WIDE_COLUMNS
+    q_rows = 8 if rows <= 8 else -(-rows // 16) * 16
+    return (RING * TILE_KEYS * KEY_STRIDE * 2 + blocks * q_rows * KEY_STRIDE * 2
+            + blocks * rows * WIDE_COLUMNS * 4 + exchange_bytes(rows, cluster_size(d)) + rest)
 
 
 def max_rows(d: int) -> int:
     """Query rows one CTA of K3 holds at head dim d: its fp32 q and O beside two K/V
-    tiles in flight within 227 KB of shared memory: 64 (16 at 512); 64 on the cluster
-    route, where q is held at the slice's width; on the column blocks the largest power
-    of two whose rows of the whole width fit (8 at 4096)."""
+    tiles in flight within 227 KB of shared memory: 64 (16 at 512); on the cluster route,
+    where q and O are held at the CTA's width, the largest power of two up to 64 that fits
+    (64 up to 2048, 32 up to 6144)."""
     if d <= max(HEAD_DIMS):
         return MAX_ROWS_512 if d > 256 else MAX_ROWS
     rows = MAX_ROWS
@@ -171,15 +187,15 @@ def decode_plan(b: int, nb: int, hkv: int, p: int, g: int, t: int, prefix_len: i
     inside the window (cache slots, the query at prefix_len + t). They are cut into splits of ``chunk`` keys, a
     multiple of the kernel's 32-key tile, sized so that the CTAs come near ``sms``
     (rounded to the nearest tile, at least one; on the cluster route at least
-    ``CLUSTER_MIN_TILES`` where one-tile splits would overfill the SMs): for each group
+    ``CLUSTER_MIN_TILES`` where one-tile splits would put more CTAs on the card than one
+    wave holds, ``cluster_wave``): for each group
     ``p_splits`` splits of
     the prefix, each for all the group's rows, then ``g_splits`` a beam of its generated
-    slots, each for that beam's rows in the group. Above 512 every split runs on
-    ``col_blocks`` CTAs, one a 256-column slice of O: on a cluster of them (``route``
-    "cluster", ``cluster`` CTAs, ``slices`` their widths) up to ``CLUSTER_REACH``, as
-    column blocks past it. ``splits``: a group's of most beams (the grid's x, in
-    clusters on the cluster route), ``ctas``: the CTAs that run. No split is empty of
-    slots; a split may be empty of live keys (padding)."""
+    slots, each for that beam's rows in the group. ``route``: "splits" (a CTA a split) up
+    to 512; above it "cluster", every split on a cluster of ``cluster`` CTAs, ``slices``
+    their columns. ``splits``: a group's of most beams (the grid's x, in clusters on the
+    cluster route), ``ctas``: the CTAs that run. No split is empty of slots; a split may be
+    empty of live keys (padding)."""
     bpg, rpg = group_shape(b * hkv, nb, n_rep, d, sms)
     rep_groups = -(-n_rep // rpg)
     groups = -(-nb // bpg) * rep_groups
@@ -187,26 +203,27 @@ def decode_plan(b: int, nb: int, hkv: int, p: int, g: int, t: int, prefix_len: i
     p_begin = min(p, max(0, q_slot - window + 1)) if window else 0
     g_begin, g_end = (max(0, t - window + 1) if window else 0), min(t + 1, g)
     live_p, live_g = p - p_begin, g_end - g_begin
-    blocks = col_blocks(d)
-    keys = blocks * b * hkv * (groups * live_p + nb * rep_groups * live_g)
+    cluster = cluster_size(d)
+    keys = cluster * b * hkv * (groups * live_p + nb * rep_groups * live_g)
     tiles = max(1, (keys + sms * TILE_KEYS // 2) // (sms * TILE_KEYS))
 
     def cut(tiles):  # (chunk, p_splits, g_splits, ctas)
         chunk = tiles * TILE_KEYS
         p_splits, g_splits = -(-live_p // chunk), -(-live_g // chunk)
-        return chunk, p_splits, g_splits, blocks * b * hkv * (groups * p_splits
-                                                              + nb * rep_groups * g_splits)
+        return chunk, p_splits, g_splits, cluster * b * hkv * (groups * p_splits
+                                                               + nb * rep_groups * g_splits)
 
     chunk, p_splits, g_splits, ctas = cut(tiles)
-    if route(d) == "cluster" and tiles < CLUSTER_MIN_TILES and ctas > sms:
+    wide = d > max(HEAD_DIMS)
+    if wide and tiles < CLUSTER_MIN_TILES and ctas > cluster_wave(cluster, sms):
         chunk, p_splits, g_splits, ctas = cut(CLUSTER_MIN_TILES)
     splits = p_splits + bpg * g_splits
     plan = {"p_begin": p_begin, "p_splits": p_splits, "g_begin": g_begin, "g_end": g_end,
             "g_splits": g_splits, "chunk": chunk, "splits": splits, "ctas": ctas,
             "groups": groups, "beams_per_group": bpg, "reps_per_group": rpg,
-            "col_blocks": blocks, "route": route(d)}
-    if plan["route"] == "cluster":
-        plan.update(cluster=blocks, slices=[WIDE_COLUMNS] * blocks)
+            "route": "cluster" if wide else "splits"}
+    if wide:
+        plan.update(cluster=cluster, slices=cluster_slices(d))
     return plan
 
 
@@ -279,13 +296,15 @@ def _launch(q, kp, vp, kg, vg, *, prefix_mask, t, prefix_len, scale, window):
     plan = decode_plan(b, nb, hkv, p, g, t, prefix_len, window,
                        torch.cuda.get_device_properties(q.device).multi_processor_count,
                        n_rep=n_rep, d=d)
-    # (batch, KV head, row group, column block): a counter each
-    units = b * hkv * plan["groups"] * plan["col_blocks"]
+    # (batch, KV head, row group, cluster rank): a counter each; the partials of the
+    # widest CTA's columns
+    units = b * hkv * plan["groups"] * plan.get("cluster", 1)
     rows = units * plan["splits"] * plan["beams_per_group"] * plan["reps_per_group"]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     lib = _build.library()
     out = torch.empty_like(q)
-    o_part = torch.empty(rows * (d // plan["col_blocks"]), dtype=torch.float32, device=q.device)
+    o_part = torch.empty(rows * max(plan.get("slices", [d])), dtype=torch.float32,
+                         device=q.device)
     ml_part = torch.empty(rows * 2, dtype=torch.float32, device=q.device)
     err = lib.decode_attn_bf16(
         q.data_ptr(), kp.data_ptr(), vp.data_ptr(), kg.data_ptr(), vg.data_ptr(),

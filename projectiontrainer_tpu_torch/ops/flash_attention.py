@@ -24,13 +24,12 @@ card to the next of them, as the JAX package pads inside its kernel
 ``D ** -0.5`` and O, dQ, dK and dV are sliced back (q.k and P.V gain only zero terms).
 At 512 each kernel splits its accumulator's columns over its two warpgroups (and K4 over
 two CTAs a key tile), which both compute the scores. Above 512 two routes
-(``forward_plan``, ``dkv_plan``, ``dq_plan`` name them): K1 up to D = 4096 and K4 up to
-2048 run ``csrc/flash_attn_cluster.cu``, which cuts D over a thread-block cluster of up to
-8 CTAs, each warpgroup computing its column slice's part of the scores on wgmma and the
-cluster summing the parts (``cluster_plan``); past those widths, and for K5 at every width
-above 512, the column blocks of ``csrc/flash_attn_wide.cu`` (a CTA owns 128 output
-columns of a 64-row tile and computes the scores over the whole D again for its block:
-``wide_plan``).
+(``forward_plan``, ``dkv_plan``, ``dq_plan`` name them): K1 up to D = 4096 and K4 and K5 up
+to 2048 run ``csrc/flash_attn_cluster.cu``, which cuts D over a thread-block cluster of up
+to 8 CTAs, each warpgroup computing its column slice's part of the scores (and of dP) on
+wgmma and the cluster summing the parts (``cluster_plan``); past those widths the column
+blocks of ``csrc/flash_attn_wide.cu`` (a CTA owns 128 output columns of a 64-row tile and
+computes the scores over the whole D again for its block: ``wide_plan``).
 
 Each launch is a ``ptt`` operator (``kernels/_build.py:kernel_op``): the wrappers check
 the shapes and allocate every buffer the kernel writes (``fwd_buffers``,
@@ -83,10 +82,11 @@ WIDE_COLUMNS = 128  # output columns a CTA of the wide kernels owns (:DC)
 WIDE_ROWS = 64      # rows a CTA of the wide kernels owns, and rows a tile of the other operand
 # the cluster kernels (csrc/flash_attn_cluster.cu): 64 rows a cluster, ring stages of 32 rows
 # of the other operand, at most 8 CTAs of two consumer warpgroups, a warpgroup's slice of
-# at most 256 columns of O (K1) or 128 of dK and dV (K4)
+# at most 256 columns of O (K1) or 128 of dK and dV (K4) or of dQ (K5: at 256 its CTA's Q
+# and dO beside one ring stage would not fit an SM's shared memory); `kind` names the kernel
 CLUSTER_ROWS, CLUSTER_TILE, MAX_CLUSTER = 64, 32, _build.MAX_CLUSTER
-FWD_SLICE, DKV_SLICE = 256, 128
-FWD_REACH, DKV_REACH = 2 * MAX_CLUSTER * FWD_SLICE, 2 * MAX_CLUSTER * DKV_SLICE  # 4096, 2048
+SLICE = {"fwd": 256, "dkv": 128, "dq": 128}
+REACH = {kind: 2 * MAX_CLUSTER * width for kind, width in SLICE.items()}  # 4096, 2048, 2048
 SMEM_LIMIT = 232448  # bytes of shared memory a CTA can have on the H100
 MAX_STAGES = 4
 
@@ -120,44 +120,44 @@ def cluster_slices(d: int, warpgroups: int) -> list:
     return [WIDE_STEP * (base + (pos < extra)) for pos in order]
 
 
-def cluster_smem(d: int, cluster: int, stages: int, dkv: bool) -> int:
+def cluster_smem(d: int, cluster: int, stages: int, kind: str) -> int:
     """The dynamic shared memory of a cluster kernel's CTA (``csrc/flash_attn_cluster.cu:
-    Layout``): the resident operand of the widest CTA (K1: Q; K4: K and V) of 64 rows,
-    ``stages`` ring stages of two 32-row operands (K and V; Q and dO), both warpgroups'
-    fp32 partial tiles, 16-byte chunks of one tensor in K1 (S^T and dP^T in K4): the
-    pieces a CTA sums, one from each of the 2 x ``cluster`` warpgroups, and the whole
-    sum; K4's per-stage query statistics, 13 barriers, and 1024 bytes to align the
-    base."""
+    Layout``; ``kind`` "fwd", "dkv" or "dq": K1, K4 or K5): the resident operands of the
+    widest CTA (K1: Q; K4: K and V; K5: Q and dO) of 64 rows, ``stages`` ring stages of two
+    32-row operands (K and V; Q and dO in K4), both warpgroups' fp32 partial tiles, 16-byte
+    chunks of one tensor in K1 (S^T and dP^T in K4, S and dP in K5): the pieces a CTA sums,
+    one from each of the 2 x ``cluster`` warpgroups, and the whole sum; K4's per-stage query
+    statistics, 13 barriers, and 1024 bytes to align the base."""
     widest = sum(cluster_slices(d, 2 * cluster)[:2]) // WIDE_STEP  # CTA 0's blocks
-    chunks = (2 if dkv else 1) * CLUSTER_ROWS * CLUSTER_TILE // 4
-    own = (2 if dkv else 1) * widest * CLUSTER_ROWS * 128
+    operands = 1 if kind == "fwd" else 2
+    chunks = operands * CLUSTER_ROWS * CLUSTER_TILE // 4
+    own = operands * widest * CLUSTER_ROWS * 128
     stage = 2 * widest * CLUSTER_TILE * 128
     exchange = 16 * (2 * cluster * -(-chunks // cluster) + chunks)
-    stats = stages * 2 * CLUSTER_TILE * 4 if dkv else 0
+    stats = stages * 2 * CLUSTER_TILE * 4 if kind == "dkv" else 0
     return own + stages * stage + exchange + stats + 8 * (2 * MAX_STAGES + 5) + 1024
 
 
-def cluster_plan(d: int, dkv: bool) -> dict:
+def cluster_plan(d: int, kind: str) -> dict:
     """A cluster kernel's plan at head dim d (a multiple of 64 above 512 and at most
-    ``FWD_REACH``, or ``DKV_REACH`` for K4): ``cluster`` CTAs of two warpgroups, each
-    warpgroup's slice of the columns (``slices``: at most ``FWD_SLICE`` or ``DKV_SLICE``,
-    multiples of 64), the ring's ``stages`` (as many as fit, at most 4) and the CTA's
-    shared memory (``smem``). The kernel computes the same and refuses another plan."""
-    width = DKV_SLICE if dkv else FWD_SLICE
-    cluster = -(-d // (2 * width))
+    ``REACH[kind]``): ``cluster`` CTAs of two warpgroups, each warpgroup's slice of the
+    columns (``slices``: at most ``SLICE[kind]``, multiples of 64), the ring's ``stages``
+    (as many as fit, at most 4) and the CTA's shared memory (``smem``). The kernel computes
+    the same and refuses another plan."""
+    cluster = -(-d // (2 * SLICE[kind]))
     stages = next(s for s in range(MAX_STAGES, 1, -1)
-                  if cluster_smem(d, cluster, s, dkv) <= SMEM_LIMIT)
-    rows, tile = ("bk", "bq") if dkv else ("bq", "bk")
+                  if cluster_smem(d, cluster, s, kind) <= SMEM_LIMIT)
+    rows, tile = ("bk", "bq") if kind == "dkv" else ("bq", "bk")
     return {"route": "cluster", rows: CLUSTER_ROWS, tile: CLUSTER_TILE, "cluster": cluster,
             "slices": cluster_slices(d, 2 * cluster), "stages": stages,
-            "smem": cluster_smem(d, cluster, stages, dkv)}
+            "smem": cluster_smem(d, cluster, stages, kind)}
 
 
-def _wide_route(d: int, dkv: bool, rows: str, tile: str) -> dict:
+def _wide_route(d: int, kind: str, rows: str, tile: str) -> dict:
     """Above 512: the cluster kernel within its reach, the column blocks past it."""
     plan = wide_plan(d, rows, tile)  # raises at a width no wide kernel takes
-    if d <= (DKV_REACH if dkv else FWD_REACH):
-        return cluster_plan(d, dkv)
+    if d <= REACH[kind]:
+        return cluster_plan(d, kind)
     return {"route": "column blocks", **plan}
 
 
@@ -165,11 +165,11 @@ def forward_plan(d: int) -> dict:
     """K1's tiles at head dim d: ``bq`` query rows a CTA (two warpgroups of 64) and
     ``bk`` keys a ring stage (64 at d = 256, where O alone is 128 registers a thread). At
     d = 512 the two warpgroups share 64 rows, each with half of O, and stages of 32 keys
-    (two of them and Q fill 192 KB). Above 512 and up to ``FWD_REACH`` the cluster
+    (two of them and Q fill 192 KB). Above 512 and up to ``REACH["fwd"]`` the cluster
     kernel (``cluster_plan``: 64 query rows a cluster, 32 keys a stage), past it the wide
     kernel's column blocks (``wide_plan``, with ``route``)."""
     if d > max(HEAD_DIMS):
-        return _wide_route(d, False, "bq", "bk")
+        return _wide_route(d, "fwd", "bq", "bk")
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {d} not supported (takes {HEAD_DIMS} "
                          f"and multiples of {WIDE_STEP} above)")
@@ -184,12 +184,12 @@ def dkv_plan(d: int) -> dict:
     and dV are 128 registers a thread; at 256 the two warpgroups share 64 keys and split
     the columns of dK and dV, again 128 registers a thread and 32 queries; at 512 two
     CTAs share the 64 keys, each with half of the columns (one stage of 32 queries).
-    Above 512 and up to ``DKV_REACH`` the cluster kernel (``cluster_plan``: 64 keys a
+    Above 512 and up to ``REACH["dkv"]`` the cluster kernel (``cluster_plan``: 64 keys a
     cluster, 32 queries a stage); past it the wide kernel's column blocks (``wide_plan``,
     with ``route``): a CTA's 64 keys and 128 columns of dK and dV, over tiles of 64
     queries."""
     if d > max(HEAD_DIMS):
-        return _wide_route(d, True, "bk", "bq")
+        return _wide_route(d, "dkv", "bk", "bq")
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {d} not supported (takes {HEAD_DIMS} "
                          f"and multiples of {WIDE_STEP} above)")
@@ -200,10 +200,12 @@ def dq_plan(d: int) -> dict:
     """K5's tiles at head dim d: ``bq`` queries a CTA (two warpgroups of 64) and ``bk``
     keys a ring stage: 64, and 32 at d = 256, where dQ alone is 128 registers a thread
     and S and dP of 64 keys would not fit beside it. At d = 512 the two warpgroups share
-    64 queries, each with half of dQ (one stage of 32 keys). Above 512 the wide kernel's
-    column blocks (``wide_plan``)."""
+    64 queries, each with half of dQ (one stage of 32 keys). Above 512 and up to
+    ``REACH["dq"]`` the cluster kernel (``cluster_plan``: 64 queries a cluster, 32 keys a
+    stage, as K1); past it the wide kernel's column blocks (``wide_plan``, with
+    ``route``)."""
     if d > max(HEAD_DIMS):
-        return wide_plan(d, "bq", "bk")
+        return _wide_route(d, "dq", "bq", "bk")
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {d} not supported (takes {HEAD_DIMS} "
                          f"and multiples of {WIDE_STEP} above)")
@@ -393,21 +395,25 @@ def _bwd_maps(q, k, v, do, plan):
                                     *tensor_map_plan(v, plan["bk"]), *tensor_map_plan(do, plan["bq"]))
 
 
-def _dkv_launch(q, k, v, mask, do, lse, delta, dk, dv, scale, causal, window):
-    """K4's operator on the card: ``dk`` and ``dv`` written (above 512 by the cluster
-    kernel, or past its reach by the column blocks, which read the strides alone)."""
-    _check_pointers(q=q, k=k, v=v, dout=do)
-    b, t, hq, d = q.shape
-    plan = dkv_plan(d)
+def _bwd_route(q, k, v, do, plan, kernel: str, tiles: tuple) -> tuple:
+    """A backward kernel's entry point (``kernel``: "dkv" or "dq") and its plan's
+    arguments: the column blocks read the strides alone; the cluster kernel and the kernel
+    at 512 and below the tensor maps and the cluster and ring, or the tiles ``tiles``."""
     route = plan.get("route")
     if route == "column blocks":
-        name, tiles = "flash_attn_wide_bwd_dkv_bf16", ()
-    elif route == "cluster":
-        name, tiles = "flash_attn_cluster_bwd_dkv_bf16", (_bwd_maps(q, k, v, do, plan),
-                                                          plan["cluster"], plan["stages"])
-    else:
-        name, tiles = "flash_attn_bwd_dkv_bf16", (_bwd_maps(q, k, v, do, plan), plan["bk"],
-                                                  plan["bq"])
+        return f"flash_attn_wide_bwd_{kernel}_bf16", ()
+    maps = _bwd_maps(q, k, v, do, plan)
+    if route == "cluster":
+        return f"flash_attn_cluster_bwd_{kernel}_bf16", (maps, plan["cluster"], plan["stages"])
+    return f"flash_attn_bwd_{kernel}_bf16", (maps, *(plan[n] for n in tiles))
+
+
+def _dkv_launch(q, k, v, mask, do, lse, delta, dk, dv, scale, causal, window):
+    """K4's operator on the card: ``dk`` and ``dv`` written (above 512 by the cluster
+    kernel, or past its reach by the column blocks)."""
+    _check_pointers(q=q, k=k, v=v, dout=do)
+    b, t, hq, d = q.shape
+    name, tiles = _bwd_route(q, k, v, do, dkv_plan(d), "dkv", ("bk", "bq"))
     err = getattr(_build.library(), name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t, hq, k.shape[2], d,
@@ -417,12 +423,11 @@ def _dkv_launch(q, k, v, mask, do, lse, delta, dk, dv, scale, causal, window):
 
 
 def _dq_launch(q, k, v, mask, do, lse, delta, dq, scale, causal, window):
-    """K5's operator on the card: ``dq`` written (above 512 by the wide kernel)."""
+    """K5's operator on the card: ``dq`` written (above 512 by the cluster kernel, or past
+    its reach by the column blocks)."""
     _check_pointers(q=q, k=k, v=v, dout=do)
     b, t, hq, d = q.shape
-    plan = dq_plan(d)
-    name, tiles = (("flash_attn_wide_bwd_dq_bf16", ()) if "col_blocks" in plan else
-                   ("flash_attn_bwd_dq_bf16", (_bwd_maps(q, k, v, do, plan), plan["bq"], plan["bk"])))
+    name, tiles = _bwd_route(q, k, v, do, dq_plan(d), "dq", ("bq", "bk"))
     err = getattr(_build.library(), name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), b, t, hq, k.shape[2], d, _strides(q, k, v, do, dq),

@@ -1,14 +1,24 @@
-"""The thread-block cluster schedules of K3 above head dim 512 and of K8 above 19,368
-columns (``csrc/decode_attention.cu`` route "cluster", ``csrc/layernorm_bwd.cu``
+"""The thread-block cluster schedules of K5 and K3 above head dim 512 and of K8 above
+19,368 columns (``csrc/flash_attn_cluster.cu`` ``cluster_dq_kernel``,
+``csrc/decode_attention.cu`` route "cluster", ``csrc/layernorm_bwd.cu``
 ``layernorm_bwd_cluster_kernel``), emulated in torch fp32 on the CPU as the kernels cut
 the work, and held against the JAX package.
 
+K5: the plan's (``ops/flash_attention.py:dq_plan``) 64-row query tiles and the 32-key
+tiles each visits (``kv_tile_range``); each tile's S and dP as the warpgroups' partial
+products over their column slices, summed in slice order; P = exp2(S scale log2(e) - lse
+log2(e)) on valid pairs, 0 elsewhere; dS = P (dP - delta) as hi + lo, two bf16 terms; each
+warpgroup's dQ slice += dS_hi K + dS_lo K. Against ``jax.vjp`` of the JAX package's
+``flash_attention`` (``interpret=True``) at D = 640, 1024 and 2048, causal with a window,
+GQA and ragged key padding.
+
 K3: the plan's (``ops/decode_attention.py:decode_plan``) row groups and splits; each 32-key
-tile's scores as the C slices' partial products over their 256 columns, summed in slice
-order; one online softmax for all slices; each slice's P V; each split's partial (m, l,
-O slice) combined in split order. Against ``decode_attention`` of the JAX package (its XLA
-path, which it takes above 512) at D = 768 and 1024, with a window, ragged prefix padding
-and 96 query rows a KV head (row groups).
+tile's scores as the C CTAs' partial products, each CTA's summed over its 256-column
+blocks and the CTAs' summed in rank order; one online softmax for all CTAs; each block's
+P V; each split's partial (m, l, O slice) combined in split order. Against
+``decode_attention`` of the JAX package (its XLA path, which it takes above 512) at D =
+768 and 1024 (a block a CTA) and 2304 and 4096 (two blocks a CTA, 2304's last CTA one),
+with a window, ragged prefix padding and 96 query rows a KV head (row groups).
 
 K8: the plan's (``ops/fused_layernorm.py:bwd_plan``) bands a cluster and slices a CTA; a
 row's sum, then its centred squares, sum(g) and sum(g * (x - mean)), each as the slices'
@@ -16,11 +26,12 @@ partials summed in slice order; dx a slice at a time; the column sums in row ord
 band, then over the bands in band order. Against ``jax.vjp`` of the JAX package's
 ``layernorm`` at 20480 and 24577 on a few rows (its XLA path there).
 
-Numpy inputs from a seed, fp32; tolerance: K3 1e-5 absolute and relative, K8 max |error|
-within 1e-5 of max |reference| (fp32 sums in another order). Then the plans' cluster
-edges: every column in exactly one slice, slices that differ by at most one 16-byte
-vector (K8) or are all 256 wide (K3), the cluster size at the reach's edges, shared
-memory within the 227 KB a block may use, and the cluster route's least tiles a split."""
+Numpy inputs from a seed, fp32; tolerance: K5 and K3 1e-5 absolute and relative, K8 max
+|error| within 1e-5 of max |reference| (fp32 sums in another order). Then the plans'
+cluster edges: every column in exactly one slice, slices that differ by at most one
+16-byte vector (K8) or one 256-column block (K3), the cluster size at the edges of each
+count of blocks a CTA, shared memory within the 227 KB a block may use, and the cluster
+route's least tiles a split."""
 
 import jax
 import jax.numpy as jnp
@@ -29,14 +40,98 @@ import pytest
 import torch
 
 from projectiontrainer_tpu.ops import decode_attention as JDA
+from projectiontrainer_tpu.ops import flash_attention as JFA
 from projectiontrainer_tpu.ops import fused_layernorm as JFLN
 from projectiontrainer_tpu_torch.ops import decode_attention as DA
+from projectiontrainer_tpu_torch.ops import flash_attention as FA
 from projectiontrainer_tpu_torch.ops import fused_layernorm as FLN
 from projectiontrainer_tpu_torch.ops.attention import NEG_INF
 
 torch.set_num_threads(2)
 TOL = dict(rtol=1e-5, atol=1e-5)
 REL = 1e-5
+
+
+def _slices(widths):
+    cuts = np.cumsum([0] + list(widths))
+    return [slice(int(lo), int(hi)) for lo, hi in zip(cuts[:-1], cuts[1:])]
+
+
+# ---------------------------------------------------------------------------- K5
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def cluster_dq(q, k, v, do, *, scale, causal, window, kv_mask):
+    """dQ as the cluster kernel computes it, in fp32, with the plain forward's lse and O
+    (the forward kernel's, on the card) for P and delta."""
+    b, t, hq, d = q.shape
+    n_rep = hq // k.shape[2]
+    plan = FA.dq_plan(d)
+    assert plan["route"] == "cluster" and sum(plan["slices"]) == d
+    rows, keys = plan["bq"], plan["bk"]
+    slices = _slices(plan["slices"])
+    out, lse = FA.flash_attention_reference(q, k, v, scale=scale, causal=causal,
+                                            window=window, kv_mask=kv_mask)
+    delta = (do * out).sum(-1)  # [B, T, Hq]
+    i = torch.arange(t)
+    valid = kv_mask.bool()[:, None, :] if kv_mask is not None else torch.ones(b, 1, t, dtype=bool)
+    if causal:
+        valid = valid & (i[None, :] <= i[:, None])
+    if window:
+        valid = valid & (i[:, None] - i[None, :] < window)
+    log2e = 1.0 / np.log(2.0)
+    dq = torch.zeros_like(q)
+    for bi in range(b):
+        for h in range(hq):
+            hk = h // n_rep
+            for q0 in range(0, t, rows):
+                qs = slice(q0, min(t, q0 + rows))
+                acc = [torch.zeros(qs.stop - q0, sl.stop - sl.start) for sl in slices]
+                for kt in range(*FA.kv_tile_range(q0, rows, keys, t, causal, window)):
+                    ks = slice(kt * keys, min(t, kt * keys + keys))
+                    kk, vv = k[bi, ks, hk], v[bi, ks, hk]
+                    s = sum(q[bi, qs, h, sl] @ kk[:, sl].T for sl in slices)
+                    dp = sum(do[bi, qs, h, sl] @ vv[:, sl].T for sl in slices)
+                    p = torch.exp2(s * (scale * log2e) - lse[bi, h, qs, None] * log2e)
+                    p = torch.where(valid[bi, qs, ks], p, 0.0)
+                    ds = p * (dp - delta[bi, qs, h, None])
+                    hi = _bf16(ds)
+                    lo = _bf16(ds - hi)
+                    acc = [a + hi @ kk[:, sl] + lo @ kk[:, sl] for a, sl in zip(acc, slices)]
+                dq[bi, qs, h] = torch.cat(acc, -1) * scale
+    return dq
+
+
+# b, t, hq, hkv, d, causal, window, ragged key padding
+DQ_CASES = [
+    (2, 70, 4, 2, 640, True, 40, True),    # GQA, a window, two query tiles, padding
+    (1, 70, 4, 1, 1024, True, None, True),
+    (1, 40, 2, 1, 2048, False, None, False),  # the widest cluster: 8 CTAs
+]
+
+
+@pytest.mark.parametrize("case", DQ_CASES)
+def test_cluster_dq_matches_jax(case):
+    b, t, hq, hkv, d, causal, window, ragged = case
+    rng = np.random.default_rng(d + t)
+    q, do = (rng.standard_normal((b, t, hq, d), dtype=np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((b, t, hkv, d), dtype=np.float32) for _ in range(2))
+    mask = np.ones((b, t), np.int32)
+    if ragged:
+        for i, n in enumerate(rng.integers(1, t // 3, size=b)):
+            mask[i, -n:] = 0  # right padding of varied length
+    kw = dict(scale=d ** -0.5, causal=causal, window=window)
+    ours = cluster_dq(*map(torch.tensor, (q, k, v, do)), kv_mask=torch.tensor(mask), **kw)
+
+    def attend(q_, k_, v_):
+        return JFA.flash_attention(q_, k_, v_, kv_mask=jnp.asarray(mask), interpret=True, **kw)
+
+    _, vjp = jax.vjp(attend, *map(jnp.asarray, (q, k, v)))
+    theirs = np.asarray(vjp(jnp.asarray(do))[0])
+    np.testing.assert_allclose(ours.numpy(), theirs, **TOL)
 
 
 # ---------------------------------------------------------------------------- K3
@@ -58,8 +153,10 @@ def cluster_decode(q, kp, vp, kg, vg, *, prefix_mask, t, prefix_len, scale, wind
     g, nb, n_rep = kg.shape[2], r // b, hq // hkv
     plan = DA.decode_plan(b, nb, hkv, p, g, t, prefix_len, window, sms, n_rep=n_rep, d=d)
     assert plan["route"] == "cluster" and sum(plan["slices"]) == d
-    cuts = np.cumsum([0] + plan["slices"])
-    slices = [slice(lo, hi) for lo, hi in zip(cuts[:-1], cuts[1:])]
+    # each CTA's 256-column blocks, in rank order
+    ctas = [[slice(sl.start + lo, sl.start + lo + 256) for lo in range(0, sl.stop - sl.start, 256)]
+            for sl in _slices(plan["slices"])]
+    blocks = [blk for cta in ctas for blk in cta]
     c = plan["chunk"]
     out = torch.full((r, hq, d), float("nan"))
     for bi in range(b):
@@ -85,16 +182,17 @@ def cluster_decode(q, kp, vp, kg, vg, *, prefix_mask, t, prefix_len, scale, wind
                     xs = x[mine]
                     m = torch.full((len(mine),), NEG_INF)
                     l = torch.zeros(len(mine))
-                    o = [torch.zeros(len(mine), s.stop - s.start) for s in slices]
+                    o = [torch.zeros(len(mine), 256) for _ in blocks]
                     for j0 in range(lo, hi, 32):  # a tile: 32 keys
                         j1 = min(hi, j0 + 32)
-                        s = sum(xs[:, sl] @ keys[j0:j1, sl].T for sl in slices) * scale
+                        s = sum(sum(xs[:, blk] @ keys[j0:j1, blk].T for blk in cta)
+                                for cta in ctas) * scale
                         s = s.masked_fill(~live[j0:j1], NEG_INF)
                         m_new = torch.maximum(m, s.max(-1).values)
                         pr = torch.where(s > 0.5 * NEG_INF, torch.exp(s - m_new[:, None]), 0.0)
                         corr = torch.exp(m - m_new)
                         l = l * corr + pr.sum(-1)
-                        o = [oc * corr[:, None] + pr @ vals[j0:j1, sl] for oc, sl in zip(o, slices)]
+                        o = [oc * corr[:, None] + pr @ vals[j0:j1, blk] for oc, blk in zip(o, blocks)]
                         m = m_new
                     parts.append((mine, m, l, torch.cat(o, -1)))
                 # the combine of each row over its covering splits, in split order
@@ -108,12 +206,15 @@ def cluster_decode(q, kp, vp, kg, vg, *, prefix_mask, t, prefix_len, scale, wind
     return out, plan
 
 
-# b, nb, hq, hkv, d, p, g, t, window: 768 and 1024 on the cluster route
+# b, nb, hq, hkv, d, p, g, t, window: 768 and 1024 (a block a CTA), 2304 and 4096 (two)
 DECODE_CASES = [
     (2, 3, 4, 2, 768, 70, 12, 7, 40),      # a window, ragged prefix padding
     (2, 3, 4, 1, 1024, 70, 12, 11, None),
     (2, 24, 4, 1, 1024, 40, 8, 5, None),   # 96 query rows a KV head: row groups
     (1, 24, 4, 1, 768, 40, 8, 7, 20),      # ... and a window
+    (2, 3, 4, 1, 2304, 70, 12, 7, 40),     # 5 CTAs of 2, 2, 2, 2, 1 blocks, a window
+    (2, 3, 4, 2, 4096, 70, 12, 11, None),  # 8 CTAs of 2
+    (1, 12, 4, 1, 4096, 40, 8, 5, 20),     # 48 rows a KV head: row groups of 32 at most
 ]
 
 
@@ -130,7 +231,7 @@ def test_cluster_decode_matches_xla(case):
     kw = dict(t=t, prefix_len=p, scale=d ** -0.5, window=window)
     ours, plan = cluster_decode(*map(torch.tensor, (q, kp, vp, kg, vg)),
                                 prefix_mask=torch.tensor(pm), **kw)
-    if nb * hq // hkv > 64:
+    if nb * hq // hkv > DA.max_rows(d):
         assert plan["groups"] > 1
     theirs = JDA.decode_attention(*map(jnp.asarray, (q, kp, vp, kg, vg)),
                                   prefix_mask=jnp.asarray(pm), **kw)
@@ -191,30 +292,48 @@ def test_cluster_layernorm_bwd_matches_jax(n, d):
 # ---------------------------------------------------------------------------- plans
 
 
-@pytest.mark.parametrize("d,cluster", [(768, 3), (1024, 4), (1536, 6), (2048, 8), (2304, None),
-                                       (4096, None)])
-def test_decode_cluster_reach(d, cluster):
-    """K3's cluster: D / 256 CTAs, each one 256-column slice, up to 2048; past it the
-    column blocks; 64 rows a CTA on the cluster, in shared memory."""
+@pytest.mark.parametrize("d,cluster,blocks", [
+    (768, 3, [1] * 3), (1024, 4, [1] * 4), (1536, 6, [1] * 6), (2048, 8, [1] * 8),
+    (2304, 5, [2, 2, 2, 2, 1]), (4096, 8, [2] * 8), (4352, 6, [3, 3, 3, 3, 3, 2]),
+    (6144, 8, [3] * 8), (6400, 7, [4, 4, 4, 4, 3, 3, 3])])
+def test_decode_cluster_reach(d, cluster, blocks):
+    """K3's one route above 512: the d / 256 blocks dealt over at most 8 CTAs, at most
+    ceil(d / 2048) a CTA in as few CTAs as that takes, counts that differ by at most one and
+    the widest first; q and O at the CTA's width: 64 rows a CTA up to 2048, 32 to 6144, 16
+    past it, in shared memory."""
     plan = DA.decode_plan(8, 3, 1, 831, 32, 31, 831, None, 132, n_rep=4, d=d)
-    assert plan["col_blocks"] == d // 256
-    if cluster is None:
-        assert plan["route"] == "column blocks" and "cluster" not in plan
-        return
-    assert plan["route"] == "cluster" and plan["cluster"] == cluster
-    assert plan["slices"] == [256] * cluster and sum(plan["slices"]) == d
-    assert DA.max_rows(d) == 64
-    for rows in (1, 12, 16, 17, 48, 64):
-        assert DA.smem_bytes(d, rows) <= DA.SMEM_LIMIT
+    assert plan["route"] == "cluster" and plan["cluster"] == cluster == DA.cluster_size(d)
+    assert plan["slices"] == [256 * n for n in blocks] and sum(plan["slices"]) == d
+    assert max(blocks) == -(-d // 2048) and max(blocks) - min(blocks) <= 1
+    rows = DA.max_rows(d)
+    assert rows == (64 if d <= 2048 else 32 if d <= 6144 else 16)
+    for r in (1, 8, 9, 12, 16, 17, 32, 48, 64):
+        assert r > rows or DA.smem_bytes(d, r) <= DA.SMEM_LIMIT
+    assert DA.smem_bytes(d, 2 * rows) > DA.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("d", [2304, 4096, 4352, 6144])
+def test_decode_cluster_shared_memory(d):
+    """The cluster CTA's shared memory, term by term as csrc/decode_attention.cu lays it
+    out at the plan's rows (the ring of 4 blocks of K or V, q in bf16 and O in fp32 at the
+    widest CTA's width, the scores, the exchange, the statistics), within 227 KB and over
+    it at twice the rows."""
+    rows, widest = DA.max_rows(d), max(DA.cluster_slices(d)) // 256
+    q_rows = 8 if rows <= 8 else -(-rows // 16) * 16
+    want = (4 * 32 * 264 * 2 + widest * q_rows * 264 * 2 + widest * rows * 256 * 4
+            + rows * 32 * 4 + DA.exchange_bytes(rows, DA.cluster_size(d)) + rows * 12)
+    assert DA.smem_bytes(d, rows) == want <= DA.SMEM_LIMIT < DA.smem_bytes(d, 2 * rows)
 
 
 def test_decode_cluster_rows():
-    """q held at a slice's width: 64 rows a CTA at every D of the cluster, so 96 rows a
-    KV head (24 beams of 4 query heads) take two row groups of 48 where the card has few
-    SMs to fill; the column blocks hold 8 rows at 4096, so twelve groups there."""
+    """q and O held at the CTA's width: 64 rows a CTA up to 2048, so 96 rows a KV head (24
+    beams of 4 query heads) take two row groups of 48 where the card has few SMs to fill;
+    32 rows at 4096, so groups of at most 32 there; one row fits at widths the column
+    blocks took (41,216), the q rows of a split of 8 or fewer held as 8."""
     wide = DA.decode_plan(2, 24, 1, 300, 16, 15, 300, None, 4, n_rep=4, d=1024)
     assert (wide["groups"], wide["beams_per_group"], wide["reps_per_group"]) == (2, 12, 4)
-    assert DA.group_shape(4, 24, 4, 4096, 4) == (2, 4)  # column blocks: 8 rows, 12 groups
+    assert DA.group_shape(4, 24, 4, 4096, 4) == (8, 4)  # 32 rows: 3 groups of 8 beams
+    assert DA.max_rows(41216) >= 1 and DA.smem_bytes(41216, 1) <= DA.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("itemsize", [2, 4])
@@ -255,13 +374,24 @@ def test_layernorm_cluster_reach(d, cluster):
     ((2, 3, 1, 300, 16, 15, 300, 100, 2048), 32),   # 96 CTAs at one tile: the card not full
     ((8, 3, 1, 831, 32, 31, 831, None, 1024), 224),  # phase 2's: several tiles already
     ((2, 3, 1, 703, 16, 15, 703, 512, 512), 32),    # at 512 and below, no floor
+    ((2, 3, 1, 300, 16, 15, 300, None, 2304), 64),  # 130 CTAs in clusters of 5: 120 a wave
+    ((2, 3, 1, 150, 16, 15, 150, None, 2304), 32),  # 80 CTAs: inside a wave
+    ((2, 3, 1, 300, 16, 15, 300, 100, 4096), 32),   # 96 CTAs in clusters of 8: 128 a wave
+    ((2, 3, 1, 300, 16, 15, 300, None, 4096), 64),  # 208 CTAs at one tile
 ])
 def test_decode_cluster_split_floor(case, chunk):
     """On the cluster route a split holds at least ``CLUSTER_MIN_TILES`` tiles where
-    splits of one tile would put more CTAs than SMs on the card; elsewhere the plan is
-    the one it was."""
+    splits of one tile would put more CTAs on the card than one wave holds
+    (``cluster_wave``); elsewhere the plan is the one it was."""
     *args, d = case
     plan = DA.decode_plan(*args, 132, n_rep=4, d=d)
     assert plan["chunk"] == chunk
     live_p = args[3] - plan["p_begin"]
     assert plan["p_splits"] == -(-live_p // chunk)
+
+
+@pytest.mark.parametrize("cluster,wave", [(1, 128), (3, 120), (4, 128), (5, 120), (8, 128)])
+def test_decode_cluster_wave(cluster, wave):
+    """A wave of K3's clusters at a CTA an SM: whole clusters inside each of the 8 GPCs of
+    16 SMs that 132 SMs give, never more CTAs than SMs."""
+    assert DA.cluster_wave(cluster, 132) == wave <= 132

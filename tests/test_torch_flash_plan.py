@@ -6,7 +6,8 @@ attention (``ops/attention.py:attention_probs``): every live (query, key) pair l
 visited tile, and a tile that is skipped holds none. The kernels compute the same bounds
 on the card (``csrc/flash_attn_fwd.cu``, ``csrc/flash_attn_bwd.cu``). Above head dim 512:
 the cluster kernels' plans (``csrc/flash_attn_cluster.cu``: column slices, cluster size,
-ring stages and shared memory) up to their reach, the column blocks past it."""
+ring stages and shared memory of K1, K4 and K5) up to their reach, the column blocks past
+it."""
 
 import pytest
 import torch
@@ -111,13 +112,11 @@ def test_kernel_and_tiles_by_head_dim(d, fwd, dkv, dq):
 @pytest.mark.parametrize("d", [0, 32, 80, 96, 1024, 1000])  # 512 is a kernel's width
 def test_plans_refuse_other_head_dims(d):
     """Head dims no kernel takes raise (the wrappers pad them first); a multiple of 64
-    above 512, which used to raise, is the cluster kernels' for K1 and K4 (within their
-    reach) and the wide kernel's column blocks of 128 for K5."""
+    above 512, which used to raise, is the cluster kernels' for K1, K4 and K5 (within
+    their reach)."""
     if FA.takes_head_dim(d):
-        for plan in (FA.forward_plan(d), FA.dkv_plan(d)):
+        for plan in (FA.forward_plan(d), FA.dkv_plan(d), FA.dq_plan(d)):
             assert plan["route"] == "cluster" and sum(plan["slices"]) == d
-        plan = FA.dq_plan(d)
-        assert plan["col_blocks"] == -(-d // 128) and plan["col_block"] == 128
         return
     with pytest.raises(ValueError):
         FA.forward_plan(d)
@@ -169,9 +168,9 @@ def test_tensor_map_plan_head_dim_64_box():
     assert FA.tensor_map_plan(x, 128) == [64, 5, 3, 2, 2 * 192, 2 * 64, 2 * 960, 64, 128, 1, 1]
 
 
-def _check_cluster_plan(plan, d, dkv):
-    width = FA.DKV_SLICE if dkv else FA.FWD_SLICE
-    rows, tile = ("bk", "bq") if dkv else ("bq", "bk")
+def _check_cluster_plan(plan, d, kind):
+    width = FA.SLICE[kind]
+    rows, tile = ("bk", "bq") if kind == "dkv" else ("bq", "bk")
     assert plan["route"] == "cluster" and plan[rows] == 64 and plan[tile] == 32
     slices = plan["slices"]
     assert 2 <= plan["cluster"] <= 8 and len(slices) == 2 * plan["cluster"]
@@ -182,47 +181,70 @@ def _check_cluster_plan(plan, d, dkv):
     assert max(ctas) - min(ctas) <= 64 and ctas[0] == max(ctas)  # CTA 0 the widest
     # as many ring stages as fit an SM's shared memory, at most 4
     assert 2 <= plan["stages"] <= FA.MAX_STAGES and plan["smem"] <= FA.SMEM_LIMIT
-    assert plan["smem"] == FA.cluster_smem(d, plan["cluster"], plan["stages"], dkv)
+    assert plan["smem"] == FA.cluster_smem(d, plan["cluster"], plan["stages"], kind)
     assert (plan["stages"] == FA.MAX_STAGES
-            or FA.cluster_smem(d, plan["cluster"], plan["stages"] + 1, dkv) > FA.SMEM_LIMIT)
+            or FA.cluster_smem(d, plan["cluster"], plan["stages"] + 1, kind) > FA.SMEM_LIMIT)
 
 
-@pytest.mark.parametrize("d,fwd,dkv", [
-    (576, (2, [192, 128, 128, 128], 4), (3, [128, 64, 128, 64, 128, 64], 4)),
-    (640, (2, [192, 128, 192, 128], 4), (3, [128, 128, 128, 64, 128, 64], 3)),
-    (768, (2, [192] * 4, 3), (3, [128] * 6, 3)),
-    (1024, (2, [256] * 4, 2), (4, [128] * 8, 3)),
-    (2048, (4, [256] * 8, 2), (8, [128] * 16, 3)),
-    (4096, (8, [256] * 16, 2), None),  # past K4's reach
+@pytest.mark.parametrize("d,fwd,dkv,dq", [
+    (576, (2, [192, 128, 128, 128], 4), (3, [128, 64, 128, 64, 128, 64], 4),
+     (3, [128, 64, 128, 64, 128, 64], 4)),
+    (640, (2, [192, 128, 192, 128], 4), (3, [128, 128, 128, 64, 128, 64], 3),
+     (3, [128, 128, 128, 64, 128, 64], 3)),
+    (768, (2, [192] * 4, 3), (3, [128] * 6, 3), (3, [128] * 6, 3)),
+    (1024, (2, [256] * 4, 2), (4, [128] * 8, 3), (4, [128] * 8, 3)),
+    (2048, (4, [256] * 8, 2), (8, [128] * 16, 3), (8, [128] * 16, 3)),
+    (4096, (8, [256] * 16, 2), None, None),  # past K4's and K5's reach
 ])
-def test_cluster_plans(d, fwd, dkv):
-    """K1 and K4 above 512: the cluster route, its size, the column slices (uneven at 576
-    and 640: the first warpgroup of each CTA takes the extra blocks first) and the ring's
-    stages; the same formulas as csrc/flash_attn_cluster.cu:Layout, which refuses
-    another plan."""
-    for plan, want, is_dkv in ((FA.forward_plan(d), fwd, False), (FA.dkv_plan(d), dkv, True)):
+def test_cluster_plans(d, fwd, dkv, dq):
+    """K1, K4 and K5 above 512: the cluster route, its size, the column slices (uneven at
+    576 and 640: the first warpgroup of each CTA takes the extra blocks first) and the
+    ring's stages; the same formulas as csrc/flash_attn_cluster.cu:Layout, which refuses
+    another plan. K5 cuts D as K4 does (128 columns a warpgroup) and keeps no query
+    statistics in its stages."""
+    for plan, want, kind in ((FA.forward_plan(d), fwd, "fwd"), (FA.dkv_plan(d), dkv, "dkv"),
+                             (FA.dq_plan(d), dq, "dq")):
         if want is None:
-            assert plan == {"route": "column blocks", **FA.wide_plan(d, "bk", "bq")}
+            rows, tile = ("bk", "bq") if kind == "dkv" else ("bq", "bk")
+            assert plan == {"route": "column blocks", **FA.wide_plan(d, rows, tile)}
             continue
-        _check_cluster_plan(plan, d, is_dkv)
+        _check_cluster_plan(plan, d, kind)
         assert (plan["cluster"], plan["slices"], plan["stages"]) == want
-    assert FA.dq_plan(d) == FA.wide_plan(d, "bq", "bk")  # K5 keeps its column blocks
 
 
 def test_cluster_plans_reach_and_past_it():
-    """Every multiple of 64 from 576 up to each reach (K1 4096, K4 2048) takes the
+    """Every multiple of 64 from 576 up to each reach (K1 4096, K4 and K5 2048) takes the
     cluster kernel; the next width past it takes the column blocks; the CTA's shared
     memory at 1024 is what csrc/flash_attn_cluster.cu lays out: Q 64 KB, two stages of K
     and V (64 KB each), the partial pieces and their sum (24 KB), 13 barriers, 1 KB of
     alignment (K1); K and V 64 KB, three stages of Q, dO and their statistics, 48 KB of
-    partial pieces and sums (K4)."""
-    assert (FA.FWD_REACH, FA.DKV_REACH) == (4096, 2048)
-    for d in range(576, FA.FWD_REACH + 1, 64):
-        _check_cluster_plan(FA.forward_plan(d), d, False)
-    for d in range(576, FA.DKV_REACH + 1, 64):
-        _check_cluster_plan(FA.dkv_plan(d), d, True)
+    partial pieces and sums (K4); Q and dO 64 KB, three stages of K and V, 48 KB of
+    partial pieces and sums (K5)."""
+    assert FA.REACH == {"fwd": 4096, "dkv": 2048, "dq": 2048}
+    for d in range(576, FA.REACH["fwd"] + 1, 64):
+        _check_cluster_plan(FA.forward_plan(d), d, "fwd")
+    for d in range(576, FA.REACH["dkv"] + 1, 64):
+        _check_cluster_plan(FA.dkv_plan(d), d, "dkv")
+        _check_cluster_plan(FA.dq_plan(d), d, "dq")
     assert FA.forward_plan(4160) == {"route": "column blocks", **FA.wide_plan(4160, "bq", "bk")}
     assert FA.dkv_plan(2112) == {"route": "column blocks", **FA.wide_plan(2112, "bk", "bq")}
+    assert FA.dq_plan(2112) == {"route": "column blocks", **FA.wide_plan(2112, "bq", "bk")}
     assert FA.forward_plan(2112)["route"] == "cluster"
     assert FA.forward_plan(1024)["smem"] == 65536 + 2 * 65536 + 3 * 8192 + 104 + 1024
     assert FA.dkv_plan(1024)["smem"] == 65536 + 3 * (32768 + 256) + 6 * 8192 + 104 + 1024
+    assert FA.dq_plan(1024)["smem"] == 65536 + 3 * 32768 + 6 * 8192 + 104 + 1024
+
+
+@pytest.mark.parametrize("d,fits_at_256", [(576, True), (640, True), (768, False),
+                                           (1024, False), (1536, False), (2048, False)])
+def test_dq_cluster_shared_memory_edges(d, fits_at_256):
+    """K5's plan at the edges of shared memory: its stages are the most that fit 227 KB
+    (one more would not, or it is at 4). At 256 columns a warpgroup (K1's width) even two
+    stages fit only up to 640 (5 boxes a CTA), not at leg 6b's 1024: why K5 takes K4's
+    128 at every width."""
+    plan = FA.dq_plan(d)
+    assert plan["smem"] <= FA.SMEM_LIMIT
+    assert (plan["stages"] == FA.MAX_STAGES
+            or FA.cluster_smem(d, plan["cluster"], plan["stages"] + 1, "dq") > FA.SMEM_LIMIT)
+    wide = -(-d // (2 * FA.SLICE["fwd"]))  # the CTAs at 256 columns a warpgroup
+    assert (FA.cluster_smem(d, wide, 2, "dq") <= FA.SMEM_LIMIT) == fits_at_256

@@ -12,9 +12,9 @@ itself, and at 576, 640 and 1024 (the wide kernels' widths; decode pads 576 and 
 768); tolerance 1e-5 absolute and relative. Then the card's branch on meta tensors
 (which stand for the card in the budget's trace): a head dim outside the kernels' set
 goes through the pad (320 and 600 too), 512 and the multiples of 64 above it go
-straight to the kernels, 513 is padded to 576. The plans above 512: K1 and K4 on the cluster
-kernels within their reach, K5 and K4 past 2048 on the column blocks; K3 on a cluster up
-to 2048, on column blocks past it."""
+straight to the kernels, 513 is padded to 576. The plans above 512: K1, K4 and K5 on the
+cluster kernels within their reach, K4 and K5 past 2048 on the column blocks; K3 on a
+cluster at every width, more than one 256-column block a CTA past 2048."""
 
 import jax
 import jax.numpy as jnp
@@ -154,26 +154,28 @@ def test_card_branch_pads_on_meta_tensors():
     big = torch.empty(1, 8, 2, 513, dtype=torch.bfloat16, device="meta")
     out, lse = FA.flash_attention(big, big, big)
     assert out.shape == big.shape and lse.shape == (1, 2, 8)
-    assert FA.dq_plan(FA.padded_head_dim(513))["col_blocks"] == 5
+    assert FA.dq_plan(FA.padded_head_dim(513))["slices"] == [128, 64, 128, 64, 128, 64]
     assert FA.forward_plan(FA.padded_head_dim(513))["slices"] == [192, 128, 128, 128]
 
 
 @pytest.mark.parametrize("d,blocks", [(576, 5), (640, 5), (1024, 8), (4096, 32)])
 def test_wide_plans(d, blocks):
-    """The plans above 512: K5's column blocks, 64-row tiles over 128-column blocks (the
-    last of 576 holds 64), the scores over 64-column chunks; K1's cluster at every one of
-    these widths, K4's up to 2048 and its column blocks past it (4096); the same tile
-    ranges as the kernels'."""
+    """The plans above 512: K1's cluster at every one of these widths, K4's and K5's up to
+    2048 and their column blocks past it (4096: 64-row tiles over 128-column blocks, the
+    scores over 64-column chunks); the same tile ranges as the kernels'."""
     fwd, dkv, dq = FA.forward_plan(d), FA.dkv_plan(d), FA.dq_plan(d)
-    assert dq == {"bq": 64, "bk": 64, "col_block": 128, "col_blocks": blocks, "chunk": 64}
     assert fwd["route"] == "cluster" and sum(fwd["slices"]) == d
     assert {k: fwd[k] for k in ("bq", "bk")} == {"bq": 64, "bk": 32}
-    if d <= FA.DKV_REACH:
+    if d <= FA.REACH["dkv"]:
         assert dkv["route"] == "cluster" and sum(dkv["slices"]) == d
         assert {k: dkv[k] for k in ("bk", "bq")} == {"bk": 64, "bq": 32}
+        assert dq["route"] == "cluster" and dq["slices"] == dkv["slices"]
+        assert {k: dq[k] for k in ("bq", "bk")} == {"bq": 64, "bk": 32}
     else:
         assert dkv == {"route": "column blocks", "bk": 64, "bq": 64, "col_block": 128,
                        "col_blocks": blocks, "chunk": 64}
+        assert dq == {"route": "column blocks", "bq": 64, "bk": 64, "col_block": 128,
+                      "col_blocks": blocks, "chunk": 64}
     assert FA.kv_tile_range(128, 64, 64, 1024, True, 512) == (0, 3)
     assert FA.q_tile_range(128, 64, 64, 1024, True, 512) == (2, 11)
     for bad in (520, 600):
@@ -181,21 +183,20 @@ def test_wide_plans(d, blocks):
             FA.forward_plan(bad)
 
 
-@pytest.mark.parametrize("d,rows,blocks,groups,route", [
-    (768, 64, 3, 1, "cluster"), (1024, 64, 4, 1, "cluster"), (2048, 64, 8, 1, "cluster"),
-    (2304, 16, 9, 1, "column blocks"), (4096, 8, 16, 2, "column blocks")])
-def test_wide_decode_plan(d, rows, blocks, groups, route):
-    """K3 above 512: slices of 256 columns, each a unit with its own splits; up to 2048 on
-    a cluster of them (q held at a slice's width: 64 rows a CTA), past it on column blocks,
-    whose rows a CTA holds at the whole width by shared memory (16 at 2304, 8 at 4096: 3
-    beams of 4 heads then take two row groups); more rows a KV head in row groups."""
+@pytest.mark.parametrize("d,rows,cluster,groups,slices", [
+    (768, 64, 3, 1, [256] * 3), (1024, 64, 4, 1, [256] * 4), (2048, 64, 8, 1, [256] * 8),
+    (2304, 32, 5, 1, [512] * 4 + [256]), (4096, 32, 8, 1, [512] * 8),
+    (4352, 32, 6, 1, [768] * 5 + [512])])
+def test_wide_decode_plan(d, rows, cluster, groups, slices):
+    """K3 above 512: one route, a split on a cluster whose CTAs hold 256-column blocks,
+    one each up to 2048 and ceil(d / 2048) at most past it (q and O held at the CTA's
+    width: 64 rows a CTA up to 2048, 32 past it); more rows a KV head in row groups."""
     assert DA.max_rows(d) == rows and DA.smem_bytes(d, rows) <= DA.SMEM_LIMIT
     assert DA.smem_bytes(d, 2 * rows) > DA.SMEM_LIMIT
     plan = DA.decode_plan(8, 3, 1, 831, 32, 31, 831, None, 132, n_rep=4, d=d)
-    assert plan["route"] == route == DA.route(d)
-    assert plan["col_blocks"] == blocks and plan["groups"] == groups
-    assert plan.get("cluster") == (blocks if route == "cluster" else None)
-    assert plan["ctas"] == blocks * 8 * (groups * plan["p_splits"] + 3 * plan["g_splits"])
+    assert plan["route"] == "cluster" and plan["groups"] == groups
+    assert plan["cluster"] == cluster == DA.cluster_size(d) and plan["slices"] == slices
+    assert plan["ctas"] == cluster * 8 * (groups * plan["p_splits"] + 3 * plan["g_splits"])
     assert plan["chunk"] % DA.TILE_KEYS == 0 and plan["ctas"] > 8
     grouped = DA.decode_plan(2, 24, 1, 300, 16, 15, 300, None, 132, n_rep=4, d=d)
     assert grouped["beams_per_group"] * grouped["reps_per_group"] <= rows

@@ -166,8 +166,12 @@ def test_flash_kernel_rejects_unsupported(card):
     (2, 24, 4, 1, 300, 16, 1024, 15, 100, "splits"),  # ... and 96 rows in row groups
     (2, 3, 4, 1, 300, 16, 640, 15, None, "left"),     # 640, padded to 768
     (2, 3, 4, 2, 300, 16, 768, 15, 200, "splits"),    # the narrowest cluster: 3 CTAs
-    (2, 3, 4, 1, 300, 16, 2048, 15, 100, "left"),     # the widest cluster: 8 CTAs
-    (2, 3, 4, 1, 150, 16, 2304, 15, None, "left"),    # past the reach: column blocks
+    (2, 3, 4, 1, 300, 16, 2048, 15, 100, "left"),     # 8 CTAs of one 256-column block
+    (2, 3, 4, 1, 150, 16, 2304, 15, None, "left"),    # 5 CTAs of 2, 2, 2, 2, 1 blocks
+    (2, 3, 4, 1, 300, 16, 4096, 15, 100, "left"),     # 8 CTAs of 2 blocks, a window
+    (2, 3, 4, 2, 300, 16, 4096, 15, None, "splits"),
+    (1, 12, 4, 1, 150, 16, 4096, 15, None, "left"),   # 48 rows: row groups of <= 32
+    (2, 3, 4, 1, 150, 16, 4352, 15, 100, "left"),     # 6 CTAs of 3, 3, 3, 3, 3, 2 blocks
 ])
 def test_decode_kernel(card, b, nb, hq, hkv, p, g, d, t, window, pad):
     """Within atol = rtol = 2e-2 of the plain version in fp32, a rerun bit-equal (the
@@ -224,12 +228,12 @@ def _rel_close(got, ref, rel=2e-2):
     (2, 300, 4, 2, 72, True, 37, "left", False),
     (2, 150, 4, 1, 512, True, 37, "left", False),      # head dim 512: columns split
     (2, 257, 4, 4, 512, False, None, "right", True),
-    (2, 150, 4, 1, 1024, True, 37, "left", False),     # above 512: K4 on the cluster kernel
-    (2, 257, 4, 2, 640, False, None, "right", True),   # (K5 on column blocks of 128)
-    (2, 300, 4, 4, 576, True, None, None, False),      # ... and of 64; uneven slices
+    (2, 150, 4, 1, 1024, True, 37, "left", False),     # above 512: K4, K5 on the cluster kernel
+    (2, 257, 4, 2, 640, False, None, "right", True),
+    (2, 300, 4, 4, 576, True, None, None, False),      # uneven slices
     (2, 257, 8, 2, 1024, False, None, "right", True),
-    (2, 300, 4, 2, 2048, True, 100, "left", True),     # K4's widest cluster: 8 CTAs
-    (2, 200, 4, 1, 2112, True, 37, "right", False),    # past K4's reach: the column blocks
+    (2, 300, 4, 2, 2048, True, 100, "left", True),     # the widest cluster: 8 CTAs
+    (2, 200, 4, 1, 2112, True, 37, "right", False),    # past the reach: the column blocks
 ])
 def test_flash_backward_kernels(card, b, t, hq, hkv, d, causal, window, pad, sliced):
     rng = np.random.default_rng(4)
@@ -279,6 +283,32 @@ def test_flash_dkv_reruns_are_bit_equal(card, t, d, hq, hkv, causal, window):
         dk2, dv2 = FA.launch_bwd_dkv(q, k, v, mask, do, lse, delta, **kw)
         assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
         assert torch.equal(dq, FA.launch_bwd_dq(q, k, v, mask, do, lse, delta, **kw))
+
+
+@pytest.mark.parametrize("t,d,hq,hkv,causal,window,route", [
+    (150, 640, 4, 2, True, 37, "cluster"),      # 3 CTAs, uneven slices
+    (300, 1024, 4, 1, True, 100, "cluster"),    # leg 6b's width: 4 CTAs
+    (300, 2048, 4, 2, False, None, "cluster"),  # the widest cluster: 8 CTAs
+    (150, 2112, 4, 1, True, None, "column blocks"),  # the first width past the reach
+])
+def test_dq_kernel_above_512(card, t, d, hq, hkv, causal, window, route):
+    """K5 above 512 on its plan's route (the cluster kernel up to 2048, the column blocks
+    past it) against its plain version, with right padding, a rerun bit-equal."""
+    assert FA.dq_plan(d)["route"] == route
+    rng = np.random.default_rng(13)
+    q, k, v = _qkv(rng, 2, t, hq, hkv, d, card)
+    do = _bf16(rng, (2, t, hq, d), card)
+    mask = _pad_mask(2, t, "right", 40, card)
+    kw = dict(scale=d ** -0.5, causal=causal, window=window)
+    out, lse = FA.flash_attention(q, k, v, kv_mask=mask, **kw)
+    mask, do, delta = FA.prepare_bwd(q, k, v, mask, out, lse, do)
+    before = FA.bwd_dq_launches.value
+    dq = FA.launch_bwd_dq(q, k, v, mask, do, lse, delta, **kw)
+    assert FA.bwd_dq_launches.value == before + 1
+    ref = FA.flash_attention_bwd_reference(q.float(), k.float(), v.float(), mask, out.float(),
+                                           lse, do.float(), **kw)[0]
+    _rel_close(dq, ref)
+    assert torch.equal(dq, FA.launch_bwd_dq(q, k, v, mask, do, lse, delta, **kw))
 
 
 @pytest.mark.parametrize("hq,hkv,d", [(8, 8, 128), (8, 2, 128), (16, 16, 72), (4, 2, 640),

@@ -184,7 +184,9 @@ def test_fused_ce_plan_fills_the_card_at_the_stage1_shape():
     ("bound_flash_bwd_dq", (16, 1024, 16, 16, 72), 0.117, "operations"),
     ("bound_layernorm_fwd", (16384, 1152), 0.0225, "bytes"),
     ("bound_layernorm_bwd", (16384, 1152), 0.0338, "bytes"),
-    ("bound_decode_attn", (8, 3, 4, 1, 831, 32, 256), 0.0023, "bytes"),
+    ("bound_decode_attn", (8, 3, 4, 1, 256, (8 * 831, 831, 32), 24 * 863), 0.0023, "bytes"),
+    # head dim 2304, P = 300, window 100 at t = 15: 84 prefix and 16 generated slots live
+    ("bound_decode_attn", (2, 3, 4, 1, 2304, (2 * 84, 84, 16), 6 * 100), 0.00079, "bytes"),
 ])
 def test_chip_smoke_bounds(name, args, want_ms, by):
     """The bound calculators of chip_smoke.py (operations over 989 TFLOP/s, bytes over
