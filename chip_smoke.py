@@ -385,9 +385,12 @@ Phases, each printing one JSON line; any failure raises, so the exit code is not
    [4096,6144] and [2048,8192]; each rerun held bit-equal. Above those: K1/K4/K5 at head
    dim 1024 ([2,1024,4|1,1024], causal, window 512; the library call SDPA's efficient
    backend on k and v repeated to the query heads), 640 ([4,576,4,640]), 2048
-   ([1,1024,4|1,2048], window 512: K4's and K5's 8-CTA clusters) and 2112
-   ([1,512,4|1,2112]: K4 and K5 past the cluster's reach), each row naming its route (K1,
-   K4 and K5 on the cluster kernels, K4 and K5 at 2112 on the column blocks); K3 at head
+   ([1,1024,4|1,2048], window 512: K4's and K5's 8-CTA clusters), 2112 and 4096
+   ([1,512,4|1,2112] and [1,512,4|1,4096]: K4 and K5 on clusters of 9 and 16 CTAs, past
+   the portable 8) and 4160 (the same shape past every reach), each row naming its route
+   (K1, K4 and K5 on the cluster kernels up to 4096, all three on the column blocks at
+   4160), after a line of the clusters of 9-16 CTAs of K4 and K5 the card holds at once
+   at their plans' shared memory (``cluster_fits``); K3 at head
    dim 1024 (8 x 3 beams, P = 831, G = 32; a cluster of 4 CTAs; the library call SDPA's
    math backend on the GQA caches and its efficient backend on k and v repeated to the
    query heads) and at 2304 and 4096 (2 x 3 beams, P = 300, G = 16, window 100 and none:
@@ -1403,8 +1406,11 @@ def check_wide_kernels(rng, record):
     library call SDPA's efficient backend with k and v repeated to the query heads and
     the window as an explicit mask, or the math one where it refuses) and 640
     ([4,576,4,640], non-causal), and at 2048 ([1,1024,4|1,2048], causal, window 512: K4's
-    and K5's widest cluster, 8 CTAs) and 2112 ([1,512,4|1,2112], causal: K4 and K5 past
-    their reach, on the column blocks; K1 on 5 CTAs), the library call as at 1024; K3
+    and K5's widest portable cluster, 8 CTAs), 2112 ([1,512,4|1,2112], causal: K4 and K5
+    on clusters of 9 CTAs, K1 of 5), 4096 ([1,512,4|1,4096], causal: K4 and K5 on 16 CTAs,
+    K1 on 8) and 4160 (the same, all three past the reach on the column blocks), the
+    library call as at 1024, after a line of the clusters of 9-16 CTAs the card holds at
+    once (``cluster_fits``); K3
     at head dim 1024 (Gemma3-1B's 4|1 heads, 8 x 3 beams, P = 831, G = 32; a cluster of
     4 CTAs; the library call SDPA's
     efficient backend on k and v repeated to the query heads, its math backend on the GQA
@@ -1416,6 +1422,8 @@ def check_wide_kernels(rng, record):
     call; each flash, K3 and K8 row names its route (``plan_route``); record(kernel, case,
     err, ms, plain_ms, bound, library_ms, library)."""
     import torch
+
+    from projectiontrainer_tpu_torch.kernels.check_flash_attn import cluster_fits
 
     plain_record = record
 
@@ -1456,9 +1464,14 @@ def check_wide_kernels(rng, record):
     check_attention_layer(rng, at_width(2048), "head dim 2048 [1,1024,4|1,2048] causal "
                           "window=512", 1, 1024, 4, 1, 2048, mask, rerun=True,
                           repeat_kv_library=True, scale=2048 ** -0.5, causal=True, window=512)
-    check_attention_layer(rng, at_width(2112), "head dim 2112 [1,512,4|1,2112] causal", 1,
-                          512, 4, 1, 2112, mask[:, :512], rerun=True, repeat_kv_library=True,
-                          scale=2112 ** -0.5, causal=True, window=None)
+    fits = cluster_fits()
+    emit({"phase": 2, **fits})
+    if not fits["ok"]:
+        raise AssertionError(f"cluster_fit: a cluster the card cannot place: {fits}")
+    for d in (2112, 4096, 4160):
+        check_attention_layer(rng, at_width(d), f"head dim {d} [1,512,4|1,{d}] causal", 1,
+                              512, 4, 1, d, mask[:, :512], rerun=True, repeat_kv_library=True,
+                              scale=d ** -0.5, causal=True, window=None)
     check_decode(rng, at_width(1024), 8, 3, 831, 32, (31,), hq=4, hkv=1, d=1024,
                  windows=(None,), label="head dim 1024 ", repeat_kv_library=True)
     for d in (2304, 4096):

@@ -1,9 +1,11 @@
 // Thread-block clusters on Hopper (sm_90a): the cluster's ranks and barrier, distributed
 // shared memory (mapped addresses, st.async counted on the receiver's mbarrier, remote
 // arrivals), a sum of fp32 partials held in each CTA's shared memory over the cluster
-// (ClusterSum), and the launch with the cluster-dimension attribute. Used by
-// flash_attn_cluster.cu (K1/K4/K5 above head dim 512), decode_attention.cu (K3 above 512)
-// and layernorm_bwd.cu (K8's rows from 19,369 to 32,768 wide).
+// (ClusterSum), and the launch with the cluster-dimension attribute (clusters above the
+// portable 8 CTAs, up to the H100's 16, allowed on the kernel only where asked for: K4 and
+// K5 past head dim 2048). Used by flash_attn_cluster.cu (K1/K4/K5 above head dim 512),
+// decode_attention.cu (K3 above 512) and layernorm_bwd.cu (K8's rows from 19,369 to 32,768
+// wide).
 
 #pragma once
 
@@ -15,6 +17,8 @@
 namespace sm90 {
 
 constexpr int MAX_CLUSTER = 8;  // the portable cluster size
+// the H100's largest cluster, which a kernel may take once it allows non-portable sizes
+constexpr int MAX_NONPORTABLE_CLUSTER = 16;
 
 __device__ __forceinline__ uint32_t cluster_rank() {
   uint32_t r;
@@ -139,12 +143,26 @@ struct ClusterSum {
   }
 };
 
+// `kernel` set up for clusters of `cluster` CTAs at `smem` bytes of dynamic shared memory:
+// above the portable 8 it is allowed the non-portable sizes. The attribute stays on the
+// kernel for the rest of the process, so a later launch of the same kernel in at most 8
+// CTAs carries it too (it only permits the larger sizes); K1's, K3's and K8's kernels never
+// ask for more than 8 and never get it
+template <typename Kernel>
+cudaError_t cluster_attributes(Kernel kernel, int cluster, uint32_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && cluster > MAX_CLUSTER)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return err;
+}
+
 // a launch of `kernel` over `grid` (x a multiple of `cluster`) in clusters of `cluster`
-// CTAs along x; returns the launch's error
+// CTAs along x; returns the launch's error (a cluster the card cannot place, such as
+// cudaErrorClusterOutOfResources, included: no retry at another size)
 template <typename Kernel, typename... Args>
 cudaError_t launch_cluster(Kernel kernel, dim3 grid, int threads, int cluster, uint32_t smem,
                            cudaStream_t stream, Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = cluster_attributes(kernel, cluster, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
@@ -167,9 +185,7 @@ cudaError_t launch_cluster(Kernel kernel, dim3 grid, int threads, int cluster, u
 // resident at once on the current device: cudaOccupancyMaxActiveClusters; 0 on an error
 template <typename Kernel>
 int max_active_clusters(Kernel kernel, int threads, int cluster, uint32_t smem) {
-  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) !=
-      cudaSuccess)
-    return 0;
+  if (cluster_attributes(kernel, cluster, smem) != cudaSuccess) return 0;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cluster);
   cfg.blockDim = dim3(threads);

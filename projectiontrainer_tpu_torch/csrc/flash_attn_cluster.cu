@@ -1,11 +1,11 @@
 // Flash attention at head dims above 512 for Hopper (sm_90a), split over a thread-block
-// cluster: the forward (K1) at D <= 4096, dK/dV (K4) and dQ (K5) at D <= 2048, any multiple
-// of 64 (the wrapper zero-pads the others), bf16 in and out, fp32 accumulation.
+// cluster: the forward (K1), dK/dV (K4) and dQ (K5) at D <= 4096, any multiple of 64 (the
+// wrapper zero-pads the others), bf16 in and out, fp32 accumulation.
 //
 // Replaces the TPU kernels projectiontrainer_tpu/ops/flash_attention.py:_fwd_kernel,
 // :_bwd_dkv_kernel and :_bwd_dq_kernel at those widths (the JAX kernels take any head dim:
-// their K/V block is the whole [T, D] of a head). Past the reach (K1 above 4096, K4 and K5
-// above 2048) flash_attn_wide.cu's column blocks run instead (ops/flash_attention.py:
+// their K/V block is the whole [T, D] of a head). Past the reach (above 4096)
+// flash_attn_wide.cu's column blocks run instead (ops/flash_attention.py:
 // forward_plan, dkv_plan, dq_plan). Same contract as flash_attn_wide.cu: causal, sliding
 // window, per-batch key padding mask, GQA, rows with no valid key give 0 and zero
 // gradients, O divided by the sum of the bf16-rounded weights its product applied, lse =
@@ -65,9 +65,16 @@
 // registers whatever was tried: O or dK/dV spilled and every wgmma was serialized. The
 // slice's width is a compile-time constant of the loop (one copy a width): a wgmma chain
 // under a runtime guard is serialized too.
-// Launched with cudaLaunchKernelEx and the cluster-dimension attribute (at most 8 CTAs,
-// the portable limit); the cluster primitives are cluster_sm90.cuh's. Measured: PERF.md
-// (kernels/check_flash_attn.py, chip_smoke.py phase 2).
+// Launched with cudaLaunchKernelEx and the cluster-dimension attribute: K1 in at most 8
+// CTAs (the portable limit; its 256 columns a warpgroup reach 4096 there), K4 and K5 in up
+// to 16 (ceil(D / 256): 9-16 CTAs from 2112 to 4096, the kernel allowed the H100's
+// non-portable cluster sizes above 8). A CTA's shared memory does not grow with the
+// cluster: the exchange's piece shrinks as C grows (at C = 16, 64 of the 1024 chunks a CTA,
+// each summed over 32 partials by one of its threads and sent to 16 CTAs), so K4 and K5
+// keep three ring stages from 1024 to 4096. A cluster the card cannot place is the
+// launch's error, raised by the wrapper; nothing retries at a smaller size. The cluster
+// primitives are cluster_sm90.cuh's. Measured: PERF.md (kernels/check_flash_attn.py,
+// chip_smoke.py phase 2).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -924,12 +931,13 @@ cluster_dq_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_consta
   cluster_sync();
 }
 
-// the cluster size and ring the wrapper planned against this file's: the same, or refused
+// the cluster size and ring the wrapper planned against this file's: the same, or refused;
+// K1 in at most the portable 8 CTAs, K4 and K5 in up to the H100's 16
 bool plan_ok(Kind kind, int D, int cluster, int stages, float scale) {
   if (!(D > 512 && D % BOX == 0 && scale > 0.f)) return false;
-  const int nb = D / BOX;
-  return cluster == plan_cluster(kind, nb) && cluster >= 2 && cluster <= MAX_CLUSTER &&
-         stages >= 2 && stages == plan_stages(kind, nb, cluster);
+  const int nb = D / BOX, most = kind == FWD ? MAX_CLUSTER : MAX_NONPORTABLE_CLUSTER;
+  return cluster == plan_cluster(kind, nb) && cluster >= 2 && cluster <= most && stages >= 2 &&
+         stages == plan_stages(kind, nb, cluster);
 }
 
 }  // namespace
@@ -1012,4 +1020,15 @@ extern "C" int flash_attn_cluster_bwd_dq_bf16(const void* q, const void* k, cons
                              static_cast<const int*>(kv_mask), static_cast<const float*>(lse),
                              static_cast<const float*>(delta), static_cast<bf16*>(dq), T, Hq,
                              Hkv, D, stages, s[12], s[13], s[14], scale, causal, window);
+}
+
+// kind 0, 1, 2 (K1, K4, K5) at head dim D, in the plan's `cluster` CTAs and `stages` -> how
+// many of its clusters the card holds at once (cudaOccupancyMaxActiveClusters at the plan's
+// shared memory); 0 where it cannot place one, -1 for a plan this file would refuse
+extern "C" int flash_attn_cluster_fit(int kind, int D, int cluster, int stages) {
+  if (kind < FWD || kind > DQ || !plan_ok((Kind)kind, D, cluster, stages, 1.f)) return -1;
+  const uint32_t smem = Layout((Kind)kind, D / BOX, cluster, stages).request();
+  return kind == FWD   ? max_active_clusters(cluster_fwd_kernel, THREADS, cluster, smem)
+         : kind == DKV ? max_active_clusters(cluster_dkv_kernel, THREADS, cluster, smem)
+                       : max_active_clusters(cluster_dq_kernel, THREADS, cluster, smem);
 }

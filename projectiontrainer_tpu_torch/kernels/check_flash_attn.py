@@ -8,9 +8,16 @@ Needs an NVIDIA GPU and ``nvcc``. Prints one JSON line per step:
 - ``--ptxas``: what ``nvcc -Xptxas -v`` says of ``csrc/flash_attn_fwd.cu``,
   ``csrc/flash_attn_bwd.cu``, ``csrc/flash_attn_wide.cu`` and
   ``csrc/flash_attn_cluster.cu`` (registers, spills, shared memory of each kernel,
-  warnings);
-- ``--wide``: only the head dims above 512 (``csrc/flash_attn_cluster.cu`` and, past its
-  reach, ``csrc/flash_attn_wide.cu``), checked and, with ``--time``, timed;
+  warnings); a spill in ``flash_attn_cluster.cu`` fails the run, the others' are
+  reported (``flash_attn_wide.cu``'s ``wide_dkv_kernel``, K4 past 4096, spills);
+- ``--wide``: only the head dims above 512 (``csrc/flash_attn_cluster.cu`` up to 4096 and,
+  past it, ``csrc/flash_attn_wide.cu``), checked and, with ``--time``, timed at
+  ``WIDE_TIMED``; first the clusters the card holds at once (``cluster_fit``) for K4 and
+  K5 in 9-16 CTAs (head dims 2304-4096) and K1 in 8. The script times whatever package
+  ``projectiontrainer_tpu_torch`` resolves to: run it by path with ``PYTHONPATH`` set to
+  another checkout (one whose ``ops/flash_attention.py`` has ``cluster_fit``) to time that
+  tree's kernels on these shapes (its ``package`` line says which), in turns with this
+  one's;
 - always: K1's out and lse, K4's dk and dv and K5's dq against the plain versions at the main
   paths' shapes (Llama-3.2-1B's prefill at 32/8 heads of 64, causal, whole tiles
   left-padded, at P = 831 and the generation evaluation's 703; the ViT-L text tower; Mistral-7B's window of 4096 over 4608 tokens among
@@ -18,8 +25,9 @@ Needs an NVIDIA GPU and ``nvcc``. Prints one JSON line per step:
   tile, padding that masks whole tiles, GQA, q/k/v sliced out of one fused tensor), with
   the tolerances of ``chip_smoke.py`` (out and lse: atol = rtol = 2e-2; dk, dv, dq: 2e-2
   x max |reference|); fully masked rows must be exactly 0 (out and dq), K1's fp32 copy of
-  O must round to its bf16 O, and a rerun of each kernel must give the same bits. Every
-  case is run before a failure is reported;
+  O must round to its bf16 O, and a rerun of each kernel must give the same bits (each
+  line's ``bits`` digests out, dk, dv and dq, to hold two trees' kernels bit-equal on the
+  same seeded inputs). Every case is run before a failure is reported;
 - ``--time``: device times (``utils/timing.py:device_ms``: launches queued behind a
   spinning kernel, so the host's launch time is not in them) of kernel, plain version and
   the library call (``scaled_dot_product_attention`` and its autograd backward, a
@@ -30,6 +38,7 @@ Needs an NVIDIA GPU and ``nvcc``. Prints one JSON line per step:
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import re
 import statistics
@@ -73,8 +82,9 @@ CASES = [
     (2, 150, 4, 1, 512, True, 37, "left", False),
     (2, 257, 4, 4, 512, False, None, "right", True),
     (1, 63, 2, 2, 512, False, None, None, False),
-    # above 512: K1 on the cluster kernel up to 4096, K4 and K5 up to 2048, what lies past
-    # those on the column blocks (ops/flash_attention.py:forward_plan, dkv_plan, dq_plan)
+    # above 512: K1, K4 and K5 on the cluster kernel up to 4096 (K4 and K5 in 9-16 CTAs past
+    # 2048), what lies past it on the column blocks (ops/flash_attention.py:forward_plan,
+    # dkv_plan, dq_plan)
     (2, 1024, 4, 1, 1024, True, 512, None, False),      # chip_smoke.py phase 2's shapes
     (4, 576, 4, 4, 640, False, None, None, False),
     (2, 150, 4, 1, 576, True, 37, "left", False),       # uneven slices: 192 | 128 | ...
@@ -84,24 +94,39 @@ CASES = [
     (1, 63, 2, 2, 1024, False, None, None, False),
     (2, 300, 8, 2, 1024, True, 128, "left", True),
     (2, 129, 4, 4, 768, True, None, None, False),
-    (2, 300, 4, 2, 2048, True, 100, "left", True),      # K4's and K5's widest cluster: 8 CTAs
+    (2, 300, 4, 2, 2048, True, 100, "left", True),      # K4's and K5's widest portable cluster
     (2, 200, 4, 1, 2048, False, None, "right", False),
-    (2, 150, 4, 2, 2112, True, 37, "left", False),      # past their reach: the column blocks
-    (2, 70, 2, 1, 4160, True, None, "right", True),     # past K1's too
+    (2, 150, 4, 2, 2112, True, 37, "left", False),      # K4 and K5 in 9 CTAs, uneven slices
+    (1, 512, 4, 1, 2112, True, None, None, False),      # chip_smoke.py phase 2's shapes
+    (2, 200, 4, 2, 3072, True, 100, "right", True),     # 12 CTAs
+    (1, 512, 4, 1, 4096, True, None, None, False),      # 16 CTAs (K1: 8)
+    (2, 150, 4, 2, 4096, True, 37, "left", False),
+    (1, 512, 4, 1, 4160, True, None, None, False),      # past the reach: the column blocks
+    (2, 70, 2, 1, 4160, True, None, "right", True),
 ]
 WIDE = [case for case in CASES if case[4] > 512]
+# the wide shapes timed by ``--wide --time``: PERF.md's rows (chip_smoke.py phase 2's)
+WIDE_TIMED = [
+    (4, 576, 4, 4, 640, False, None, None, False),
+    (2, 1024, 4, 1, 1024, True, 512, None, False),
+    (1, 1024, 4, 1, 2048, True, 512, None, False),
+    (1, 512, 4, 1, 2112, True, None, None, False),
+    (1, 512, 4, 1, 4096, True, None, None, False),
+    (1, 512, 4, 1, 4160, True, None, None, False),
+]
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def ptxas_report(sources=None) -> bool:
-    """What ``nvcc -Xptxas -v`` says of each source's kernels, a line each; whether none
-    spills (no spill stores or loads)."""
+def ptxas_report(sources=None, fail_on=None) -> bool:
+    """What ``nvcc -Xptxas -v`` says of each source's kernels, a line each, and the bytes of
+    spill stores and loads by source; whether none of ``fail_on`` (by default every
+    source) spills."""
     sources = sources or ("flash_attn_fwd.cu", "flash_attn_bwd.cu", "flash_attn_wide.cu",
                           "flash_attn_cluster.cu")
-    spills = 0
+    spills = dict.fromkeys(sources, 0)
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     for source in sources:
         proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
@@ -116,9 +141,10 @@ def ptxas_report(sources=None) -> bool:
                 name = found.group(1)
             elif "registers" in line or "spill" in line or "warning" in line.lower():
                 emit({"ptxas": name, "line": line.strip()})
-                spills += sum(map(int, re.findall(r"(\d+) bytes spill", line)))
-    emit({"ptxas_spill_bytes": spills, "ok": spills == 0})
-    return spills == 0
+                spills[source] += sum(map(int, re.findall(r"(\d+) bytes spill", line)))
+    ok = all(spills[source] == 0 for source in (fail_on or sources))
+    emit({"ptxas_spill_bytes": spills, "ok": ok})
+    return ok
 
 
 def one_at_a_time_ms(fn, iters: int = 20) -> float:
@@ -160,6 +186,14 @@ def inputs(b, t, hq, hkv, d, pad, sliced, seed=11):
         else:
             mask[1, t - n:] = 0
     return q, k, v, bf16((b, t, hq, d)), mask
+
+
+def digest(*tensors) -> str:
+    """A digest of the tensors' bits (bf16 as int16), in order."""
+    h = hashlib.sha256()
+    for x in tensors:
+        h.update(x.contiguous().view(torch.int16).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def rel_err(got, ref) -> float:
@@ -210,7 +244,8 @@ def check(b, t, hq, hkv, d, causal, window, pad, sliced) -> bool:
                 "dkv_bit_equal": bool(torch.equal(dk, dk2) and torch.equal(dv, dv2)),
                 "dq_rel": rel_err(dq, rq), "dq_finite": bool(dq.isfinite().all()),
                 "dq_bit_equal": bool(torch.equal(dq, dq2)),
-                "dq_dead_rows_zero": pad != "left" or bool(dq[~mask.bool()].eq(0).all())})
+                "dq_dead_rows_zero": pad != "left" or bool(dq[~mask.bool()].eq(0).all()),
+                "bits": digest(out, dk, dv, dq)})
     row["ok"] = bool(row["out_ok"] and row["lse_ok"] and dead_rows_zero
                      and row["f32_rounds_to_bf16"] and row["fwd_bit_equal"] and row["dkv_finite"]
                      and row["dk_rel"] <= TOL and row["dv_rel"] <= TOL and row["dkv_bit_equal"]
@@ -269,7 +304,22 @@ def time_case(b, t, hq, hkv, d, causal, window, pad, sliced) -> None:
     rows["fwd_kernel_one_at_a_time"] = one_at_a_time_ms(
         lambda: FA._launch(q, k, v, kv_mask=mask, **kw))
     rows["fwd_library_one_at_a_time"] = one_at_a_time_ms(lib)
-    emit({"case": [b, t, hq, hkv, d, causal, window, pad, sliced], "library": backend, "ms": rows})
+    emit({"case": [b, t, hq, hkv, d, causal, window, pad, sliced], "library": backend,
+          "routes": [plan(d).get("route", "wgmma")
+                     for plan in (FA.forward_plan, FA.dkv_plan, FA.dq_plan)], "ms": rows})
+
+
+def cluster_fits() -> dict:
+    """The clusters of K4 and K5 in 9-16 CTAs (head dims 256 C) and of K1 in 8 (4096) that
+    the card holds at once at their plans' shared memory (``cluster_fit``), the shared
+    memory beside them, and whether each holds at least one (``ok``)."""
+    fits = {kind: {c: FA.cluster_fit(256 * c, kind) for c in range(9, 17)}
+            for kind in ("dkv", "dq")}
+    fits["fwd"] = {8: FA.cluster_fit(4096, "fwd")}
+    smem = {kind: {c: FA.cluster_plan(256 * c, kind)["smem"] for c in range(9, 17)}
+            for kind in ("dkv", "dq")}
+    return {"cluster_fit": fits, "cluster_smem": smem,
+            "ok": all(n >= 1 for by_c in fits.values() for n in by_c.values())}
 
 
 def main() -> int:
@@ -282,15 +332,21 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     emit({"card": smi, "python": sys.version.split()[0], "torch": torch.__version__,
-          "cuda": torch.version.cuda})
+          "cuda": torch.version.cuda, "package": FA.__file__})
+    ok = []
     if args.ptxas:
-        ptxas_report(("flash_attn_cluster.cu", "flash_attn_wide.cu") if args.wide else None)
+        ok.append(ptxas_report(("flash_attn_cluster.cu", "flash_attn_wide.cu") if args.wide
+                               else None, fail_on=("flash_attn_cluster.cu",)))
     _build.library()
     emit({"build_s": _build.build_seconds})
+    if args.wide:
+        fits = cluster_fits()
+        emit(fits)
+        ok.append(fits["ok"])
     cases = WIDE if args.wide else CASES[:args.cases]
-    ok = [check(*case) for case in cases]
+    ok += [check(*case) for case in cases]
     if args.time:
-        for case in WIDE[:2] if args.wide else CASES[:TIMED]:
+        for case in WIDE_TIMED if args.wide else CASES[:TIMED]:
             time_case(*case)
     return 0 if all(ok) else 1
 

@@ -24,12 +24,13 @@ card to the next of them, as the JAX package pads inside its kernel
 ``D ** -0.5`` and O, dQ, dK and dV are sliced back (q.k and P.V gain only zero terms).
 At 512 each kernel splits its accumulator's columns over its two warpgroups (and K4 over
 two CTAs a key tile), which both compute the scores. Above 512 two routes
-(``forward_plan``, ``dkv_plan``, ``dq_plan`` name them): K1 up to D = 4096 and K4 and K5 up
-to 2048 run ``csrc/flash_attn_cluster.cu``, which cuts D over a thread-block cluster of up
-to 8 CTAs, each warpgroup computing its column slice's part of the scores (and of dP) on
-wgmma and the cluster summing the parts (``cluster_plan``); past those widths the column
-blocks of ``csrc/flash_attn_wide.cu`` (a CTA owns 128 output columns of a 64-row tile and
-computes the scores over the whole D again for its block: ``wide_plan``).
+(``forward_plan``, ``dkv_plan``, ``dq_plan`` name them): K1, K4 and K5 up to D = 4096 run
+``csrc/flash_attn_cluster.cu``, which cuts D over a thread-block cluster (K1 of up to 8
+CTAs, K4 and K5 of up to 16: above 8 the H100's non-portable cluster sizes), each
+warpgroup computing its column slice's part of the scores (and of dP) on wgmma and the
+cluster summing the parts (``cluster_plan``); past 4096 the column blocks of
+``csrc/flash_attn_wide.cu`` (a CTA owns 128 output columns of a 64-row tile and computes
+the scores over the whole D again for its block: ``wide_plan``).
 
 Each launch is a ``ptt`` operator (``kernels/_build.py:kernel_op``): the wrappers check
 the shapes and allocate every buffer the kernel writes (``fwd_buffers``,
@@ -81,12 +82,15 @@ WIDE_STEP = 64      # above 512 the kernels take every multiple of this (csrc/fl
 WIDE_COLUMNS = 128  # output columns a CTA of the wide kernels owns (:DC)
 WIDE_ROWS = 64      # rows a CTA of the wide kernels owns, and rows a tile of the other operand
 # the cluster kernels (csrc/flash_attn_cluster.cu): 64 rows a cluster, ring stages of 32 rows
-# of the other operand, at most 8 CTAs of two consumer warpgroups, a warpgroup's slice of
-# at most 256 columns of O (K1) or 128 of dK and dV (K4) or of dQ (K5: at 256 its CTA's Q
-# and dO beside one ring stage would not fit an SM's shared memory); `kind` names the kernel
-CLUSTER_ROWS, CLUSTER_TILE, MAX_CLUSTER = 64, 32, _build.MAX_CLUSTER
+# of the other operand, CTAs of two consumer warpgroups, a warpgroup's slice of at most 256
+# columns of O (K1) or 128 of dK and dV (K4) or of dQ (K5: at 256 its CTA's Q and dO beside
+# one ring stage would not fit an SM's shared memory); K1 in at most 8 CTAs (the portable
+# cluster size), K4 and K5 in up to 16 (the H100's non-portable size, which the launch
+# allows above 8), so all three reach 4096; `kind` names the kernel
+CLUSTER_ROWS, CLUSTER_TILE = 64, 32
+MAX_CLUSTER = {"fwd": _build.MAX_CLUSTER, "dkv": 16, "dq": 16}
 SLICE = {"fwd": 256, "dkv": 128, "dq": 128}
-REACH = {kind: 2 * MAX_CLUSTER * width for kind, width in SLICE.items()}  # 4096, 2048, 2048
+REACH = {kind: 2 * MAX_CLUSTER[kind] * width for kind, width in SLICE.items()}  # 4096 each
 SMEM_LIMIT = 232448  # bytes of shared memory a CTA can have on the H100
 MAX_STAGES = 4
 
@@ -151,6 +155,15 @@ def cluster_plan(d: int, kind: str) -> dict:
     return {"route": "cluster", rows: CLUSTER_ROWS, tile: CLUSTER_TILE, "cluster": cluster,
             "slices": cluster_slices(d, 2 * cluster), "stages": stages,
             "smem": cluster_smem(d, cluster, stages, kind)}
+
+
+def cluster_fit(d: int, kind: str) -> int:
+    """How many clusters of ``kind``'s cluster kernel at head dim d (its plan's size, ring
+    and shared memory) the card holds at once (``cudaOccupancyMaxActiveClusters``); 0
+    where it cannot place one. Needs the card."""
+    plan = cluster_plan(d, kind)
+    return _build.library().flash_attn_cluster_fit(("fwd", "dkv", "dq").index(kind), d,
+                                                   plan["cluster"], plan["stages"])
 
 
 def _wide_route(d: int, kind: str, rows: str, tile: str) -> dict:

@@ -1,16 +1,22 @@
-"""The thread-block cluster schedules of K5 and K3 above head dim 512 and of K8 above
-19,368 columns (``csrc/flash_attn_cluster.cu`` ``cluster_dq_kernel``,
-``csrc/decode_attention.cu`` route "cluster", ``csrc/layernorm_bwd.cu``
-``layernorm_bwd_cluster_kernel``), emulated in torch fp32 on the CPU as the kernels cut
-the work, and held against the JAX package.
+"""The thread-block cluster schedules of K4 and K5 above head dim 512, of K3 above 512 and
+of K8 above 19,368 columns (``csrc/flash_attn_cluster.cu`` ``cluster_dkv_kernel`` and
+``cluster_dq_kernel``, ``csrc/decode_attention.cu`` route "cluster",
+``csrc/layernorm_bwd.cu`` ``layernorm_bwd_cluster_kernel``), emulated in torch fp32 on the
+CPU as the kernels cut the work, and held against the JAX package.
 
-K5: the plan's (``ops/flash_attention.py:dq_plan``) 64-row query tiles and the 32-key
-tiles each visits (``kv_tile_range``); each tile's S and dP as the warpgroups' partial
-products over their column slices, summed in slice order; P = exp2(S scale log2(e) - lse
-log2(e)) on valid pairs, 0 elsewhere; dS = P (dP - delta) as hi + lo, two bf16 terms; each
-warpgroup's dQ slice += dS_hi K + dS_lo K. Against ``jax.vjp`` of the JAX package's
-``flash_attention`` (``interpret=True``) at D = 640, 1024 and 2048, causal with a window,
-GQA and ragged key padding.
+K4: the plan's (``ops/flash_attention.py:dkv_plan``) 64-row key tiles and, for each query
+head of the KV head in turn, the 32-query tiles each visits (``q_tile_range``); each tile's
+S^T and dP^T as the warpgroups' partial products over their column slices, summed in slice
+order; P^T = exp2(S^T scale log2(e) - lse log2(e)) on valid pairs, 0 elsewhere; dS^T = P^T
+(dP^T - delta) as hi + lo, two bf16 terms; each warpgroup's dV slice += P^T dO and dK
+slice += dS_hi^T Q + dS_lo^T Q (P stays fp32 here: the kernel rounds it once to bf16 as
+its A operand, a rounding of the card's bf16 inputs that the card tests hold). K5: the
+plan's (``dq_plan``) 64-row query tiles and the 32-key tiles each visits
+(``kv_tile_range``); S and dP summed in slice order the same way; dS = P (dP - delta) as
+hi + lo; each warpgroup's dQ slice += dS_hi K + dS_lo K. Both against ``jax.vjp`` of the
+JAX package's ``flash_attention`` (``interpret=True``) at D = 640 to 4096 (2112: 9 CTAs
+of uneven slices; 4096: 16, the widest cluster), causal with a window, GQA and ragged key
+padding.
 
 K3: the plan's (``ops/decode_attention.py:decode_plan``) row groups and splits; each 32-key
 tile's scores as the C CTAs' partial products, each CTA's summed over its 256-column
@@ -26,12 +32,15 @@ partials summed in slice order; dx a slice at a time; the column sums in row ord
 band, then over the bands in band order. Against ``jax.vjp`` of the JAX package's
 ``layernorm`` at 20480 and 24577 on a few rows (its XLA path there).
 
-Numpy inputs from a seed, fp32; tolerance: K5 and K3 1e-5 absolute and relative, K8 max
-|error| within 1e-5 of max |reference| (fp32 sums in another order). Then the plans'
+Numpy inputs from a seed, fp32; tolerance: K4's dV, K5 and K3 1e-5 absolute and relative,
+K4's dK and K8 max |error| within 1e-5 of max |reference| (K8: fp32 sums in another order;
+K4's dK: dS as hi + lo, see its test). Then the plans'
 cluster edges: every column in exactly one slice, slices that differ by at most one
 16-byte vector (K8) or one 256-column block (K3), the cluster size at the edges of each
 count of blocks a CTA, shared memory within the 227 KB a block may use, and the cluster
 route's least tiles a split."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -57,11 +66,65 @@ def _slices(widths):
     return [slice(int(lo), int(hi)) for lo, hi in zip(cuts[:-1], cuts[1:])]
 
 
-# ---------------------------------------------------------------------------- K5
+# ---------------------------------------------------------------------------- K4 and K5
 
 
 def _bf16(x):
     return x.to(torch.bfloat16).float()
+
+
+def _backward_inputs(q, k, v, do, *, scale, causal, window, kv_mask):
+    """The plain forward's lse [B, Hq, T] and delta = rowsum(dO O) [B, T, Hq] (the forward
+    kernel's, on the card), and the valid (query, key) pairs [B, T, T]."""
+    b, t = q.shape[:2]
+    out, lse = FA.flash_attention_reference(q, k, v, scale=scale, causal=causal,
+                                            window=window, kv_mask=kv_mask)
+    i = torch.arange(t)
+    valid = kv_mask.bool()[:, None, :] if kv_mask is not None else torch.ones(b, 1, t, dtype=bool)
+    if causal:
+        valid = valid & (i[None, :] <= i[:, None])
+    if window:
+        valid = valid & (i[:, None] - i[None, :] < window)
+    return lse, (do * out).sum(-1), valid.expand(b, t, t)
+
+
+def cluster_dkv(q, k, v, do, *, scale, causal, window, kv_mask):
+    """dK and dV as the cluster kernel computes them, in fp32."""
+    b, t, hq, d = q.shape
+    hkv = k.shape[2]
+    n_rep = hq // hkv
+    plan = FA.dkv_plan(d)
+    assert plan["route"] == "cluster" and sum(plan["slices"]) == d
+    rows, queries = plan["bk"], plan["bq"]
+    slices = _slices(plan["slices"])
+    lse, delta, valid = _backward_inputs(q, k, v, do, scale=scale, causal=causal,
+                                         window=window, kv_mask=kv_mask)
+    log2e = 1.0 / np.log(2.0)
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for bi in range(b):
+        for hk in range(hkv):
+            for k0 in range(0, t, rows):
+                ks = slice(k0, min(t, k0 + rows))
+                kk, vv = k[bi, ks, hk], v[bi, ks, hk]
+                acc_dk = [torch.zeros(ks.stop - k0, sl.stop - sl.start) for sl in slices]
+                acc_dv = [torch.zeros_like(a) for a in acc_dk]
+                for h in range(hk * n_rep, (hk + 1) * n_rep):  # the KV head's query heads
+                    for qt in range(*FA.q_tile_range(k0, rows, queries, t, causal, window)):
+                        qs = slice(qt * queries, min(t, qt * queries + queries))
+                        qq, dd = q[bi, qs, h], do[bi, qs, h]
+                        s = sum(kk[:, sl] @ qq[:, sl].T for sl in slices)  # S^T
+                        dp = sum(vv[:, sl] @ dd[:, sl].T for sl in slices)  # dP^T
+                        p = torch.exp2(s * (scale * log2e) - lse[bi, h, None, qs] * log2e)
+                        p = torch.where(valid[bi, qs, ks].T, p, 0.0)
+                        ds = p * (dp - delta[bi, None, qs, h])
+                        hi = _bf16(ds)
+                        lo = _bf16(ds - hi)
+                        acc_dv = [a + p @ dd[:, sl] for a, sl in zip(acc_dv, slices)]
+                        acc_dk = [a + hi @ qq[:, sl] + lo @ qq[:, sl]
+                                  for a, sl in zip(acc_dk, slices)]
+                dk[bi, ks, hk] = torch.cat(acc_dk, -1) * scale
+                dv[bi, ks, hk] = torch.cat(acc_dv, -1)
+    return dk, dv
 
 
 def cluster_dq(q, k, v, do, *, scale, causal, window, kv_mask):
@@ -73,15 +136,8 @@ def cluster_dq(q, k, v, do, *, scale, causal, window, kv_mask):
     assert plan["route"] == "cluster" and sum(plan["slices"]) == d
     rows, keys = plan["bq"], plan["bk"]
     slices = _slices(plan["slices"])
-    out, lse = FA.flash_attention_reference(q, k, v, scale=scale, causal=causal,
-                                            window=window, kv_mask=kv_mask)
-    delta = (do * out).sum(-1)  # [B, T, Hq]
-    i = torch.arange(t)
-    valid = kv_mask.bool()[:, None, :] if kv_mask is not None else torch.ones(b, 1, t, dtype=bool)
-    if causal:
-        valid = valid & (i[None, :] <= i[:, None])
-    if window:
-        valid = valid & (i[:, None] - i[None, :] < window)
+    lse, delta, valid = _backward_inputs(q, k, v, do, scale=scale, causal=causal,
+                                         window=window, kv_mask=kv_mask)
     log2e = 1.0 / np.log(2.0)
     dq = torch.zeros_like(q)
     for bi in range(b):
@@ -109,12 +165,21 @@ def cluster_dq(q, k, v, do, *, scale, causal, window, kv_mask):
 DQ_CASES = [
     (2, 70, 4, 2, 640, True, 40, True),    # GQA, a window, two query tiles, padding
     (1, 70, 4, 1, 1024, True, None, True),
-    (1, 40, 2, 1, 2048, False, None, False),  # the widest cluster: 8 CTAs
+    (1, 40, 2, 1, 2048, False, None, False),  # the widest portable cluster: 8 CTAs
+    (1, 40, 4, 2, 2112, True, 24, True),      # 9 CTAs, uneven slices (three of 64 columns)
+    (1, 40, 4, 2, 4096, True, 24, True),      # the widest cluster: 16 CTAs
+]
+DKV_CASES = [
+    (2, 70, 4, 2, 640, True, 40, True),    # two key tiles, three query tiles a query head
+    (1, 40, 4, 2, 2112, True, 24, True),
+    (1, 40, 4, 2, 4096, True, 24, True),
 ]
 
 
-@pytest.mark.parametrize("case", DQ_CASES)
-def test_cluster_dq_matches_jax(case):
+@functools.lru_cache(maxsize=None)
+def _case_grads(case):
+    """The case's numpy inputs (q, k, v, dO, mask) from its seed and the JAX package's
+    (dq, dk, dv): ``jax.vjp`` of its flash attention in interpret mode, once a case."""
     b, t, hq, hkv, d, causal, window, ragged = case
     rng = np.random.default_rng(d + t)
     q, do = (rng.standard_normal((b, t, hq, d), dtype=np.float32) for _ in range(2))
@@ -124,14 +189,38 @@ def test_cluster_dq_matches_jax(case):
         for i, n in enumerate(rng.integers(1, t // 3, size=b)):
             mask[i, -n:] = 0  # right padding of varied length
     kw = dict(scale=d ** -0.5, causal=causal, window=window)
-    ours = cluster_dq(*map(torch.tensor, (q, k, v, do)), kv_mask=torch.tensor(mask), **kw)
 
     def attend(q_, k_, v_):
         return JFA.flash_attention(q_, k_, v_, kv_mask=jnp.asarray(mask), interpret=True, **kw)
 
     _, vjp = jax.vjp(attend, *map(jnp.asarray, (q, k, v)))
-    theirs = np.asarray(vjp(jnp.asarray(do))[0])
+    return (q, k, v, do, mask), tuple(map(np.asarray, vjp(jnp.asarray(do))))
+
+
+def _emulated(fn, case):
+    (q, k, v, do, mask), grads = _case_grads(case)
+    d, causal, window = case[4:7]
+    ours = fn(*map(torch.tensor, (q, k, v, do)), kv_mask=torch.tensor(mask),
+              scale=d ** -0.5, causal=causal, window=window)
+    return ours, grads
+
+
+@pytest.mark.parametrize("case", DQ_CASES)
+def test_cluster_dq_matches_jax(case):
+    ours, (theirs, _, _) = _emulated(cluster_dq, case)
     np.testing.assert_allclose(ours.numpy(), theirs, **TOL)
+
+
+@pytest.mark.parametrize("case", DKV_CASES)
+def test_cluster_dkv_matches_jax(case):
+    """dV elementwise within 1e-5; dK's max |error| within 1e-5 of max |dK|: dS enters as
+    hi + lo, two bf16 terms that keep about 16 of its 24 bits, summed over every query row
+    a key sees in each of its query heads, so an element near 0 carries an error of a few
+    millionths of max |dK| (1.4e-5 at 4096, max |dK| 4.5; the JAX package's fp32 dK is
+    within 4.8e-6 of fp64 there, this schedule's within 1.4e-5)."""
+    (dk, dv), (_, jdk, jdv) = _emulated(cluster_dkv, case)
+    np.testing.assert_allclose(dv.numpy(), jdv, **TOL)
+    assert np.abs(dk.numpy() - jdk).max() <= REL * np.abs(jdk).max()
 
 
 # ---------------------------------------------------------------------------- K3

@@ -168,12 +168,26 @@ def test_tensor_map_plan_head_dim_64_box():
     assert FA.tensor_map_plan(x, 128) == [64, 5, 3, 2, 2 * 192, 2 * 64, 2 * 960, 64, 128, 1, 1]
 
 
+def _layout_bytes(d, cluster, stages, kind):
+    """csrc/flash_attn_cluster.cu:Layout's request, term by term: the resident operands of
+    CTA 0 (the widest) of 64 rows, the ring's stages of two 32-row operands at its width,
+    the 2C warpgroups' pieces of ceil(chunks / C) 16-byte chunks and the whole sum (K1 one
+    tensor of 64 x 32 fp32, K4 and K5 two), K4's per-stage query statistics, 13 barriers
+    and 1 KB to align the base."""
+    widest = sum(FA.cluster_slices(d, 2 * cluster)[:2]) // 64
+    tensors = 1 if kind == "fwd" else 2
+    chunks = tensors * 64 * 32 // 4
+    return (tensors * widest * 64 * 128 + stages * 2 * widest * 32 * 128
+            + 16 * (2 * cluster * -(-chunks // cluster) + chunks)
+            + (stages * 2 * 32 * 4 if kind == "dkv" else 0) + 8 * 13 + 1024)
+
+
 def _check_cluster_plan(plan, d, kind):
     width = FA.SLICE[kind]
     rows, tile = ("bk", "bq") if kind == "dkv" else ("bq", "bk")
     assert plan["route"] == "cluster" and plan[rows] == 64 and plan[tile] == 32
     slices = plan["slices"]
-    assert 2 <= plan["cluster"] <= 8 and len(slices) == 2 * plan["cluster"]
+    assert 2 <= plan["cluster"] <= FA.MAX_CLUSTER[kind] and len(slices) == 2 * plan["cluster"]
     # whole 64-column TMA boxes, covering d once, at most a warpgroup's width each
     assert sum(slices) == d and all(s % 64 == 0 and 64 <= s <= width for s in slices)
     assert plan["cluster"] == -(-d // (2 * width))  # the fewest CTAs that hold d
@@ -194,14 +208,21 @@ def _check_cluster_plan(plan, d, kind):
     (768, (2, [192] * 4, 3), (3, [128] * 6, 3), (3, [128] * 6, 3)),
     (1024, (2, [256] * 4, 2), (4, [128] * 8, 3), (4, [128] * 8, 3)),
     (2048, (4, [256] * 8, 2), (8, [128] * 16, 3), (8, [128] * 16, 3)),
-    (4096, (8, [256] * 16, 2), None, None),  # past K4's and K5's reach
+    # K4's and K5's non-portable clusters: 9 CTAs at 2112 (the last three slices of 64
+    # columns), 12 at 3072, 16 at 4096, each with three stages as at 2048
+    (2112, (5, [256, 192] * 3 + [192] * 4, 2), (9, [128] * 13 + [64, 128, 64, 128, 64], 3),
+     (9, [128] * 13 + [64, 128, 64, 128, 64], 3)),
+    (3072, (6, [256] * 12, 2), (12, [128] * 24, 3), (12, [128] * 24, 3)),
+    (4096, (8, [256] * 16, 2), (16, [128] * 32, 3), (16, [128] * 32, 3)),
+    (4160, None, None, None),  # past every reach: the column blocks
 ])
 def test_cluster_plans(d, fwd, dkv, dq):
     """K1, K4 and K5 above 512: the cluster route, its size, the column slices (uneven at
-    576 and 640: the first warpgroup of each CTA takes the extra blocks first) and the
-    ring's stages; the same formulas as csrc/flash_attn_cluster.cu:Layout, which refuses
-    another plan. K5 cuts D as K4 does (128 columns a warpgroup) and keeps no query
-    statistics in its stages."""
+    576, 640 and 2112: the first warpgroup of each CTA takes the extra blocks first) and
+    the ring's stages; the same formulas as csrc/flash_attn_cluster.cu:Layout, which
+    refuses another plan. K5 cuts D as K4 does (128 columns a warpgroup) and keeps no query
+    statistics in its stages. A CTA's shared memory is the Layout's at every cluster size
+    (the exchange's pieces shrink as the cluster grows)."""
     for plan, want, kind in ((FA.forward_plan(d), fwd, "fwd"), (FA.dkv_plan(d), dkv, "dkv"),
                              (FA.dq_plan(d), dq, "dq")):
         if want is None:
@@ -210,25 +231,29 @@ def test_cluster_plans(d, fwd, dkv, dq):
             continue
         _check_cluster_plan(plan, d, kind)
         assert (plan["cluster"], plan["slices"], plan["stages"]) == want
+        assert plan["smem"] == _layout_bytes(d, plan["cluster"], plan["stages"], kind)
 
 
 def test_cluster_plans_reach_and_past_it():
-    """Every multiple of 64 from 576 up to each reach (K1 4096, K4 and K5 2048) takes the
-    cluster kernel; the next width past it takes the column blocks; the CTA's shared
-    memory at 1024 is what csrc/flash_attn_cluster.cu lays out: Q 64 KB, two stages of K
-    and V (64 KB each), the partial pieces and their sum (24 KB), 13 barriers, 1 KB of
-    alignment (K1); K and V 64 KB, three stages of Q, dO and their statistics, 48 KB of
-    partial pieces and sums (K4); Q and dO 64 KB, three stages of K and V, 48 KB of
-    partial pieces and sums (K5)."""
-    assert FA.REACH == {"fwd": 4096, "dkv": 2048, "dq": 2048}
+    """Every multiple of 64 from 576 up to the reach (4096 for K1, K4 and K5) takes the
+    cluster kernel: K1 in at most 8 CTAs, K4 and K5 in ceil(d / 256) <= 16 with at least
+    two ring stages; the next width past it, 4160, takes the column blocks in all three;
+    the CTA's shared memory at 1024 is what csrc/flash_attn_cluster.cu lays out: Q 64 KB,
+    two stages of K and V (64 KB each), the partial pieces and their sum (24 KB), 13
+    barriers, 1 KB of alignment (K1); K and V 64 KB, three stages of Q, dO and their
+    statistics, 48 KB of partial pieces and sums (K4); Q and dO 64 KB, three stages of K
+    and V, 48 KB of partial pieces and sums (K5)."""
+    assert FA.REACH == {"fwd": 4096, "dkv": 4096, "dq": 4096}
+    assert FA.MAX_CLUSTER == {"fwd": 8, "dkv": 16, "dq": 16}
     for d in range(576, FA.REACH["fwd"] + 1, 64):
         _check_cluster_plan(FA.forward_plan(d), d, "fwd")
     for d in range(576, FA.REACH["dkv"] + 1, 64):
-        _check_cluster_plan(FA.dkv_plan(d), d, "dkv")
-        _check_cluster_plan(FA.dq_plan(d), d, "dq")
+        for plan, kind in ((FA.dkv_plan(d), "dkv"), (FA.dq_plan(d), "dq")):
+            _check_cluster_plan(plan, d, kind)
+            assert plan["cluster"] == -(-d // 256) <= 16 and plan["stages"] >= 2
     assert FA.forward_plan(4160) == {"route": "column blocks", **FA.wide_plan(4160, "bq", "bk")}
-    assert FA.dkv_plan(2112) == {"route": "column blocks", **FA.wide_plan(2112, "bk", "bq")}
-    assert FA.dq_plan(2112) == {"route": "column blocks", **FA.wide_plan(2112, "bq", "bk")}
+    assert FA.dkv_plan(4160) == {"route": "column blocks", **FA.wide_plan(4160, "bk", "bq")}
+    assert FA.dq_plan(4160) == {"route": "column blocks", **FA.wide_plan(4160, "bq", "bk")}
     assert FA.forward_plan(2112)["route"] == "cluster"
     assert FA.forward_plan(1024)["smem"] == 65536 + 2 * 65536 + 3 * 8192 + 104 + 1024
     assert FA.dkv_plan(1024)["smem"] == 65536 + 3 * (32768 + 256) + 6 * 8192 + 104 + 1024
@@ -236,7 +261,8 @@ def test_cluster_plans_reach_and_past_it():
 
 
 @pytest.mark.parametrize("d,fits_at_256", [(576, True), (640, True), (768, False),
-                                           (1024, False), (1536, False), (2048, False)])
+                                           (1024, False), (1536, False), (2048, False),
+                                           (4096, False)])
 def test_dq_cluster_shared_memory_edges(d, fits_at_256):
     """K5's plan at the edges of shared memory: its stages are the most that fit 227 KB
     (one more would not, or it is at 4). At 256 columns a warpgroup (K1's width) even two

@@ -13,8 +13,8 @@ itself, and at 576, 640 and 1024 (the wide kernels' widths; decode pads 576 and 
 (which stand for the card in the budget's trace): a head dim outside the kernels' set
 goes through the pad (320 and 600 too), 512 and the multiples of 64 above it go
 straight to the kernels, 513 is padded to 576. The plans above 512: K1, K4 and K5 on the
-cluster kernels within their reach, K4 and K5 past 2048 on the column blocks; K3 on a
-cluster at every width, more than one 256-column block a CTA past 2048."""
+cluster kernels up to 4096, past it on the column blocks; K3 on a cluster at every width,
+more than one 256-column block a CTA past 2048."""
 
 import jax
 import jax.numpy as jnp
@@ -158,14 +158,19 @@ def test_card_branch_pads_on_meta_tensors():
     assert FA.forward_plan(FA.padded_head_dim(513))["slices"] == [192, 128, 128, 128]
 
 
-@pytest.mark.parametrize("d,blocks", [(576, 5), (640, 5), (1024, 8), (4096, 32)])
+@pytest.mark.parametrize("d,blocks", [(576, 5), (640, 5), (1024, 8), (4096, 32), (4160, 33)])
 def test_wide_plans(d, blocks):
-    """The plans above 512: K1's cluster at every one of these widths, K4's and K5's up to
-    2048 and their column blocks past it (4096: 64-row tiles over 128-column blocks, the
-    scores over 64-column chunks); the same tile ranges as the kernels'."""
+    """The plans above 512: K1's, K4's and K5's clusters up to 4096 (K4's and K5's of 16
+    CTAs there) and their column blocks past it (4160: 64-row tiles over 128-column
+    blocks, the last of 64, the scores over 64-column chunks); the same tile ranges as the
+    kernels'."""
     fwd, dkv, dq = FA.forward_plan(d), FA.dkv_plan(d), FA.dq_plan(d)
-    assert fwd["route"] == "cluster" and sum(fwd["slices"]) == d
-    assert {k: fwd[k] for k in ("bq", "bk")} == {"bq": 64, "bk": 32}
+    if d > FA.REACH["fwd"]:
+        assert fwd == {"route": "column blocks", "bq": 64, "bk": 64, "col_block": 128,
+                       "col_blocks": blocks, "chunk": 64}
+    else:
+        assert fwd["route"] == "cluster" and sum(fwd["slices"]) == d
+        assert {k: fwd[k] for k in ("bq", "bk")} == {"bq": 64, "bk": 32}
     if d <= FA.REACH["dkv"]:
         assert dkv["route"] == "cluster" and sum(dkv["slices"]) == d
         assert {k: dkv[k] for k in ("bk", "bq")} == {"bk": 64, "bq": 32}

@@ -232,8 +232,10 @@ def _rel_close(got, ref, rel=2e-2):
     (2, 257, 4, 2, 640, False, None, "right", True),
     (2, 300, 4, 4, 576, True, None, None, False),      # uneven slices
     (2, 257, 8, 2, 1024, False, None, "right", True),
-    (2, 300, 4, 2, 2048, True, 100, "left", True),     # the widest cluster: 8 CTAs
-    (2, 200, 4, 1, 2112, True, 37, "right", False),    # past the reach: the column blocks
+    (2, 300, 4, 2, 2048, True, 100, "left", True),     # the widest portable cluster: 8 CTAs
+    (2, 200, 4, 1, 2112, True, 37, "right", False),    # 9 CTAs, uneven slices
+    (2, 300, 4, 2, 4096, True, 100, "left", True),     # the widest cluster: 16 CTAs
+    (2, 129, 2, 1, 4160, False, None, "right", False),  # past the reach: the column blocks
 ])
 def test_flash_backward_kernels(card, b, t, hq, hkv, d, causal, window, pad, sliced):
     rng = np.random.default_rng(4)
@@ -267,7 +269,8 @@ def test_flash_backward_kernels(card, b, t, hq, hkv, d, causal, window, pad, sli
                                                       (200, 640, 4, 4, False, None),
                                                       (200, 576, 4, 2, False, None),
                                                       (300, 2048, 4, 2, True, 64),
-                                                      (150, 2112, 4, 1, True, 37)])
+                                                      (150, 2112, 4, 1, True, 37),
+                                                      (150, 4096, 4, 2, True, None)])
 def test_flash_dkv_reruns_are_bit_equal(card, t, d, hq, hkv, causal, window):
     """Each element of dK, dV and dQ is summed by one thread in program order (the query
     heads of a KV head inside the CTA too): a rerun gives the same bits."""
@@ -288,11 +291,13 @@ def test_flash_dkv_reruns_are_bit_equal(card, t, d, hq, hkv, causal, window):
 @pytest.mark.parametrize("t,d,hq,hkv,causal,window,route", [
     (150, 640, 4, 2, True, 37, "cluster"),      # 3 CTAs, uneven slices
     (300, 1024, 4, 1, True, 100, "cluster"),    # leg 6b's width: 4 CTAs
-    (300, 2048, 4, 2, False, None, "cluster"),  # the widest cluster: 8 CTAs
-    (150, 2112, 4, 1, True, None, "column blocks"),  # the first width past the reach
+    (300, 2048, 4, 2, False, None, "cluster"),  # the widest portable cluster: 8 CTAs
+    (150, 2112, 4, 1, True, None, "cluster"),   # 9 CTAs (non-portable), uneven slices
+    (150, 4096, 4, 2, True, 37, "cluster"),     # the widest cluster: 16 CTAs
+    (129, 4160, 4, 1, True, None, "column blocks"),  # the first width past the reach
 ])
 def test_dq_kernel_above_512(card, t, d, hq, hkv, causal, window, route):
-    """K5 above 512 on its plan's route (the cluster kernel up to 2048, the column blocks
+    """K5 above 512 on its plan's route (the cluster kernel up to 4096, the column blocks
     past it) against its plain version, with right padding, a rerun bit-equal."""
     assert FA.dq_plan(d)["route"] == route
     rng = np.random.default_rng(13)
@@ -309,6 +314,71 @@ def test_dq_kernel_above_512(card, t, d, hq, hkv, causal, window, route):
                                            lse, do.float(), **kw)[0]
     _rel_close(dq, ref)
     assert torch.equal(dq, FA.launch_bwd_dq(q, k, v, mask, do, lse, delta, **kw))
+
+
+@pytest.mark.parametrize("t,d,hq,hkv,causal,window,route", [
+    (200, 2112, 4, 1, True, None, "cluster"),  # 9 CTAs (non-portable), uneven slices
+    (300, 3072, 4, 2, True, 64, "cluster"),    # 12 CTAs
+    (150, 4096, 4, 1, False, None, "cluster"),  # the widest cluster: 16 CTAs
+    (129, 4160, 4, 2, True, None, "column blocks"),  # the first width past the reach
+])
+def test_dkv_kernel_past_2048(card, t, d, hq, hkv, causal, window, route):
+    """K4 past head dim 2048 on its plan's route (clusters of 9-16 CTAs up to 4096, the
+    column blocks past it) against its plain version, with right padding, a rerun
+    bit-equal."""
+    assert FA.dkv_plan(d)["route"] == route
+    rng = np.random.default_rng(14)
+    q, k, v = _qkv(rng, 2, t, hq, hkv, d, card)
+    do = _bf16(rng, (2, t, hq, d), card)
+    mask = _pad_mask(2, t, "right", 40, card)
+    kw = dict(scale=d ** -0.5, causal=causal, window=window)
+    out, lse = FA.flash_attention(q, k, v, kv_mask=mask, **kw)
+    mask, do, delta = FA.prepare_bwd(q, k, v, mask, out, lse, do)
+    before = FA.bwd_dkv_launches.value
+    dk, dv = FA.launch_bwd_dkv(q, k, v, mask, do, lse, delta, **kw)
+    assert FA.bwd_dkv_launches.value == before + 1
+    _, rk, rv = FA.flash_attention_bwd_reference(q.float(), k.float(), v.float(), mask,
+                                                 out.float(), lse, do.float(), **kw)
+    _rel_close(dk, rk)
+    _rel_close(dv, rv)
+    dk2, dv2 = FA.launch_bwd_dkv(q, k, v, mask, do, lse, delta, **kw)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+def test_nonportable_clusters_are_placed(card):
+    """K4 and K5 in clusters of 9-16 CTAs (head dims 2304-4096, 256 a CTA) at their plans'
+    shared memory: the card holds at least one such cluster at once (the occupancy query
+    on the kernel allowed non-portable sizes); K1 stays within 8."""
+    for c in range(9, 17):
+        for kind in ("dkv", "dq"):
+            assert FA.cluster_plan(256 * c, kind)["cluster"] == c
+            assert FA.cluster_fit(256 * c, kind) >= 1, (kind, c)
+    assert FA.cluster_plan(4096, "fwd")["cluster"] == 8 and FA.cluster_fit(4096, "fwd") >= 1
+
+
+def test_cluster_launch_outside_the_plan_raises(card):
+    """A cluster size or ring other than the plan's is refused by the kernel's entry point
+    (K4 at 17 CTAs, K1 at 16) and raised by the wrapper's check: nothing is retried at
+    another size."""
+    from projectiontrainer_tpu_torch.kernels import _build
+
+    lib = _build.library()
+    assert lib.flash_attn_cluster_fit(1, 4096, 17, 3) == -1
+    assert lib.flash_attn_cluster_fit(0, 4096, 16, 2) == -1
+    rng = np.random.default_rng(15)
+    q, k, v = _qkv(rng, 1, 64, 2, 1, 4096, card)
+    do = _bf16(rng, (1, 64, 2, 4096), card)
+    out, lse = FA.flash_attention(q, k, v)
+    mask, do, delta = FA.prepare_bwd(q, k, v, None, out, lse, do)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    plan = FA.dkv_plan(4096)
+    err = lib.flash_attn_cluster_bwd_dkv_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), None, do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), 1, 64, 2, 1, 4096,
+        FA._strides(q, k, v, do, dk, dv), FA._bwd_maps(q, k, v, do, plan), 17,
+        plan["stages"], 4096 ** -0.5, 0, 0, torch.cuda.current_stream().cuda_stream)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        _build.check("flash_attn_cluster_bwd_dkv_bf16", err)
 
 
 @pytest.mark.parametrize("hq,hkv,d", [(8, 8, 128), (8, 2, 128), (16, 16, 72), (4, 2, 640),

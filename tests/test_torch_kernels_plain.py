@@ -205,3 +205,47 @@ def test_chip_smoke_bound_takes_the_larger():
     assert chip_smoke.bound(989e12, 0) == (1000.0, "operations")
     assert chip_smoke.bound(0, 3.35e12) == (1000.0, "bytes")
     assert chip_smoke.bound(989e9, 3.35e12)[1] == "bytes"
+
+
+PTXAS_SPILLS = {  # what ptxas -v says of one kernel of each source: spill stores
+    "flash_attn_cluster.cu": 0, "flash_attn_wide.cu": 294, "decode_attention.cu": 0,
+    "layernorm_bwd.cu": 0}
+
+
+@pytest.mark.parametrize("sources,fail_on,spilling,want", [
+    # check_flash_attn --wide --ptxas: fails on the cluster kernels only
+    (("flash_attn_cluster.cu", "flash_attn_wide.cu"), ("flash_attn_cluster.cu",), None, True),
+    (("flash_attn_cluster.cu", "flash_attn_wide.cu"), ("flash_attn_cluster.cu",),
+     "flash_attn_cluster.cu", False),
+    # check_decode_attn / check_layernorm --ptxas: fail on any spill in their one source
+    (("decode_attention.cu",), None, None, True),
+    (("decode_attention.cu",), None, "decode_attention.cu", False),
+    (("layernorm_bwd.cu",), None, None, True),
+    (("layernorm_bwd.cu",), None, "layernorm_bwd.cu", False),
+])
+def test_ptxas_report_fails_on_a_spill(monkeypatch, tmp_path, capsys, sources, fail_on,
+                                       spilling, want):
+    """``check_flash_attn.ptxas_report`` (used by the three checkers' ``--ptxas``) returns
+    and prints ``ok`` false where a source it is told to fail on spills, true otherwise;
+    ptxas' output is given here, nvcc is not run."""
+    import json
+    import subprocess
+    from types import SimpleNamespace
+
+    from projectiontrainer_tpu_torch.kernels import check_flash_attn as CF
+
+    def fake_run(cmd, **_):
+        source = cmd[-1].rsplit("/", 1)[-1]
+        spill = 128 if source == spilling else PTXAS_SPILLS[source]
+        return SimpleNamespace(returncode=0, stdout="", stderr=(
+            "ptxas info    : Compiling entry function 'kernel' for 'sm_90a'\n"
+            f"    0 bytes stack frame, {spill} bytes spill stores, {spill} bytes spill loads\n"
+            "ptxas info    : Used 255 registers, used 1 barriers\n"))
+
+    monkeypatch.setattr(subprocess, "run", fake_run)
+    monkeypatch.setattr(CF._build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(CF._build, "BUILD_DIR", tmp_path)
+    assert CF.ptxas_report(sources, fail_on=fail_on) is want
+    last = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert last["ok"] is want
+    assert set(last["ptxas_spill_bytes"]) == set(sources)
