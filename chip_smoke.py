@@ -387,10 +387,13 @@ Phases, each printing one JSON line; any failure raises, so the exit code is not
    backend on k and v repeated to the query heads), 640 ([4,576,4,640]), 2048
    ([1,1024,4|1,2048], window 512: K4's and K5's 8-CTA clusters), 2112 and 4096
    ([1,512,4|1,2112] and [1,512,4|1,4096]: K4 and K5 on clusters of 9 and 16 CTAs, past
-   the portable 8) and 4160 (the same shape past every reach), each row naming its route
-   (K1, K4 and K5 on the cluster kernels up to 4096, all three on the column blocks at
-   4160), after a line of the clusters of 9-16 CTAs of K4 and K5 the card holds at once
-   at their plans' shared memory (``cluster_fits``); K3 at head
+   the portable 8), 4160 and 8192 (the same shape past K1's reach: K4 and K5 in two passes
+   over the output columns on 16 CTAs, K1 on the column blocks) and 8256 (K1, K4 and K5
+   past their reach), each row naming its route (K1, K4 and K5 on the cluster kernels up
+   to 4096, K4 and K5 "cluster passes" at 4160 and 8192, K1 "column blocks" there and K4
+   and K5 at 8256), after a line of the clusters of 9-16 CTAs of K4
+   and K5, and of their two-pass plans, the card holds at once at their plans' shared
+   memory (``cluster_fits``); K3 at head
    dim 1024 (8 x 3 beams, P = 831, G = 32; a cluster of 4 CTAs; the library call SDPA's
    math backend on the GQA caches and its efficient backend on k and v repeated to the
    query heads) and at 2304 and 4096 (2 x 3 beams, P = 300, G = 16, window 100 and none:
@@ -733,6 +736,7 @@ def plan_route(kernel, d) -> dict:
         return {"plan_route": FLN.bwd_plan(1, d, FLN.H100_SMS)["route"],
                 "plan_source": KERNELS[kernel][1]}
     sources = {"cluster": f"{PKG}/csrc/flash_attn_cluster.cu",
+               "cluster passes": f"{PKG}/csrc/flash_attn_cluster.cu",
                "column blocks": f"{PKG}/csrc/flash_attn_wide.cu"}
     plan = {"flash_attn_fwd": FA.forward_plan, "flash_attn_bwd_dkv": FA.dkv_plan,
             "flash_attn_bwd_dq": FA.dq_plan}.get(kernel)
@@ -1408,9 +1412,11 @@ def check_wide_kernels(rng, record):
     ([4,576,4,640], non-causal), and at 2048 ([1,1024,4|1,2048], causal, window 512: K4's
     and K5's widest portable cluster, 8 CTAs), 2112 ([1,512,4|1,2112], causal: K4 and K5
     on clusters of 9 CTAs, K1 of 5), 4096 ([1,512,4|1,4096], causal: K4 and K5 on 16 CTAs,
-    K1 on 8) and 4160 (the same, all three past the reach on the column blocks), the
-    library call as at 1024, after a line of the clusters of 9-16 CTAs the card holds at
-    once (``cluster_fits``); K3
+    K1 on 8), 4160 and 8192 (the same shape: K4 and K5 in two passes on 16 CTAs, K1 past
+    its reach on the column blocks) and 8256 (the same shape: K4 and K5 past their reach on
+    the column blocks, as K1), the library call as at 1024 (and SDPA math on the GQA
+    caches beside it), after a line of the clusters of 9-16 CTAs and of the two-pass
+    plans the card holds at once (``cluster_fits``); K3
     at head dim 1024 (Gemma3-1B's 4|1 heads, 8 x 3 beams, P = 831, G = 32; a cluster of
     4 CTAs; the library call SDPA's
     efficient backend on k and v repeated to the query heads, its math backend on the GQA
@@ -1468,7 +1474,7 @@ def check_wide_kernels(rng, record):
     emit({"phase": 2, **fits})
     if not fits["ok"]:
         raise AssertionError(f"cluster_fit: a cluster the card cannot place: {fits}")
-    for d in (2112, 4096, 4160):
+    for d in (2112, 4096, 4160, 8192, 8256):
         check_attention_layer(rng, at_width(d), f"head dim {d} [1,512,4|1,{d}] causal", 1,
                               512, 4, 1, d, mask[:, :512], rerun=True, repeat_kv_library=True,
                               scale=d ** -0.5, causal=True, window=None)

@@ -1,11 +1,11 @@
 // Flash attention at head dims above 512 for Hopper (sm_90a), split over a thread-block
-// cluster: the forward (K1), dK/dV (K4) and dQ (K5) at D <= 4096, any multiple of 64 (the
-// wrapper zero-pads the others), bf16 in and out, fp32 accumulation.
+// cluster: the forward (K1) at D <= 4096, dK/dV (K4) and dQ (K5) at D <= 8192, any multiple
+// of 64 (the wrapper zero-pads the others), bf16 in and out, fp32 accumulation.
 //
 // Replaces the TPU kernels projectiontrainer_tpu/ops/flash_attention.py:_fwd_kernel,
 // :_bwd_dkv_kernel and :_bwd_dq_kernel at those widths (the JAX kernels take any head dim:
-// their K/V block is the whole [T, D] of a head). Past the reach (above 4096)
-// flash_attn_wide.cu's column blocks run instead (ops/flash_attention.py:
+// their K/V block is the whole [T, D] of a head). Past the reach (K1 above 4096, K4 and K5
+// above 8192) flash_attn_wide.cu's column blocks run instead (ops/flash_attention.py:
 // forward_plan, dkv_plan, dq_plan). Same contract as flash_attn_wide.cu: causal, sliding
 // window, per-batch key padding mask, GQA, rows with no valid key give 0 and zero
 // gradients, O divided by the sum of the bf16-rounded weights its product applied, lse =
@@ -16,7 +16,7 @@
 // What bounds it on the H100: the tensor cores (4 * pairs * D operations forward, 10 * pairs
 // * D for dK/dV, 8 * pairs * D for dQ, against one read of the operands). Above 512 neither
 // the 64-row operand tile nor its accumulators fit one SM, so the column-block kernels
-// computed the scores (and dP) again for every 128 output columns: 9 products' worth where
+// compute the scores (and dP) again for every 128 output columns: 9 products' worth where
 // 2 would do at D = 1024 forward, 19 where 5 would do for dK/dV, 24 where 4 would do for
 // dQ, on mma.sync with no copy in flight.
 //
@@ -31,8 +31,8 @@
 // ring stage of K and V would fill 256 KB). A CTA loads only its warpgroups' blocks, from
 // the same 4-D tensor maps as flash_attn_fwd.cu (the TMA unit zero-fills past T). A
 // warpgroup runs its slice's part of the score contraction on wgmma: K1 S_w = Q[:, w]
-// K[:, w]^T and K5 S_w and dP_w = dO[:, w] V[:, w]^T over 32 keys a tile, K4 S^T_w =
-// K[:, w] Q[:, w]^T and dP^T_w = V[:, w] dO[:, w]^T over 32 queries a tile, fp32 in
+// K[:, w]^T and K5 S_w and dP_w = dO[:, w] V[:, w]^T over TILE keys a tile, K4 S^T_w =
+// K[:, w] Q[:, w]^T and dP^T_w = V[:, w] dO[:, w]^T over TILE queries a tile, fp32 in
 // registers. The partials are summed over the cluster (Exchange below): each 16-byte
 // chunk goes by st.async to the CTA that reduces it, CTA r sums its C-th of the tile over
 // the W partials in slice order and sends the sum to every CTA, and each warpgroup reads
@@ -47,6 +47,26 @@
 // products run while the sums cross the cluster (K4 does not). K5 keeps each row's lse and
 // delta in registers, as flash_attn_bwd.cu's K5 does.
 //
+// Passes (K4 and K5 above 4096): 16 CTAs of two warpgroups of 128 columns hold 4096 columns
+// of dK and dV (of dQ), and a wider slice does not fit in registers, so the output columns
+// are cut into P = ceil(D / 4096) passes (2 up to 8192) in one launch of 16 CTAs. The D /
+// 64 blocks are dealt over the 2 C P slots (CTA r, warpgroup w, pass p), the wider ones to
+// the lowest ranks (2 p + w) C + r, and a CTA lays out its slots warpgroup by warpgroup, so
+// a warpgroup's slices of all passes are one run of its CTA's blocks. The CTA keeps its whole
+// share of D resident (K and V in K4, Q and dO in K5: up to 8 blocks of 64 rows at 8192) and
+// its ring streams the other operand's share once a pass. In every pass a warpgroup
+// contracts the scores over all its slices (the cluster's sum is then the whole score,
+// formed by the same products in the same order each pass: the same bits), and runs the
+// products on that pass's slice alone; its dK and dV (dQ) are written at the pass's end.
+// So each score (and dP) is formed P times, where the column blocks form it D / 128 times
+// (33-64 from 4160 to 8192). Two passes run 16 rows of the other operand a ring stage (TILE,
+// a template constant of K4 and K5): at 32, a warpgroup that contracts three blocks beside
+// its 128 columns of dK and dV spills registers (ptxas, whatever the descriptors' form), and
+// 8192's resident share (8 blocks of K and V, 128 KB) leaves room for two stages of 16 (64
+// KB) beside 24 KB of exchange. The contraction's descriptors are formed inside each wgmma's
+// own block from two per-tile bases (WgmmaSS::run_at, per_tile): hoisted, they held two
+// registers a step of the chain and spilled the longest chains.
+//
 // Synchronisation: no cluster-wide barrier inside the loop, and no memory fence. Each
 // st.async counts its bytes on the receiving CTA's mbarrier (complete_tx), so a CTA
 // knows its partials or sums have landed when that barrier's phase completes (a release
@@ -55,20 +75,20 @@
 // again once every reader warp of the cluster has arrived on the writers' barrier (a
 // plain remote mbarrier.arrive, as a cluster's TMA multicast hands its stages back).
 // Every wait traps after ~2 s, like the ring's. Every warpgroup of a cluster visits the
-// same tiles (kv_tile_range, q_tile_range of ops/flash_attention.py at 64 rows), so the
-// tile count is the barriers' phase. The cluster synchronises once after the barriers'
-// set-up and once before it exits (no CTA leaves while another may still write or
-// signal its shared memory).
+// same tiles (kv_tile_range, q_tile_range of ops/flash_attention.py at 64 rows) in every
+// pass, so the tile count over the passes is the barriers' phase. The cluster synchronises
+// once after the barriers' set-up and once before it exits (no CTA leaves while another
+// may still write or signal its shared memory).
 //
 // Registers: 256 threads leave a thread up to 255. With a third, producer warpgroup and
 // setmaxnreg (232 / 40, as flash_attn_fwd.cu), ptxas kept these kernels within 168
 // registers whatever was tried: O or dK/dV spilled and every wgmma was serialized. The
-// slice's width is a compile-time constant of the loop (one copy a width): a wgmma chain
-// under a runtime guard is serialized too.
+// slice's width and the contraction's length are compile-time constants of the loop (one
+// copy a pair): a wgmma chain under a runtime guard is serialized too.
 // Launched with cudaLaunchKernelEx and the cluster-dimension attribute: K1 in at most 8
 // CTAs (the portable limit; its 256 columns a warpgroup reach 4096 there), K4 and K5 in up
-// to 16 (ceil(D / 256): 9-16 CTAs from 2112 to 4096, the kernel allowed the H100's
-// non-portable cluster sizes above 8). A CTA's shared memory does not grow with the
+// to 16 (ceil(D / 256): 9-16 CTAs from 2112 to 4096, 16 past it; the kernel allowed the
+// H100's non-portable cluster sizes above 8). A CTA's shared memory does not grow with the
 // cluster: the exchange's piece shrinks as C grows (at C = 16, 64 of the 1024 chunks a CTA,
 // each summed over 32 partials by one of its threads and sent to 16 CTAs), so K4 and K5
 // keep three ring stages from 1024 to 4096. A cluster the card cannot place is the
@@ -81,6 +101,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <utility>
+
 #include "cluster_sm90.cuh"
 #include "tensor_map.cuh"
 #include "wgmma_sm90.cuh"
@@ -91,11 +113,13 @@ typedef __nv_bfloat16 bf16;
 namespace {
 
 constexpr int THREADS = 256;   // two warpgroups; thread 0 also issues the TMA loads
-constexpr int ROWS = 64;       // rows a cluster owns: queries in K1, keys in K4
-constexpr int TILE = 32;       // rows of the other operand a ring stage: keys in K1, queries in K4
+constexpr int ROWS = 64;       // rows a cluster owns: queries in K1 and K5, keys in K4
+constexpr int TILE = 32;       // rows of the other operand a ring stage (K4 and K5 in two passes: 16)
 constexpr int BOX = 64;        // columns of a TMA box (128 bytes of bf16)
 constexpr int FWD_BLOCKS = 4;  // 64-column blocks a K1 warpgroup at most (O: 128 registers)
 constexpr int DKV_BLOCKS = 2;  // ... a K4 warpgroup (dK and dV: 128 registers), and a K5 one
+constexpr int PASS_BLOCKS = 2 * MAX_NONPORTABLE_CLUSTER * DKV_BLOCKS;  // K4's, K5's a pass: 4096 columns
+constexpr int MAX_PASSES = 2;  // K4 and K5 up to 8192
 constexpr int MAX_STAGES = 4;
 constexpr int SMEM_LIMIT = 232448;
 constexpr float NEG_INF = -2.3819763e38f;
@@ -106,53 +130,84 @@ constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
 // the three kernels of this file (ops/flash_attention.py:cluster_plan's `kind`)
 enum Kind { FWD, DKV, DQ };
 
-// the nb column blocks of D dealt out to W warpgroups in order: nb % W of them one block
-// wider, warpgroup 0 of each CTA before warpgroup 1, so that the CTAs' blocks differ by at
-// most one (640 over 2 CTAs: 192 + 128 | 192 + 128); slice g starts at block first(g)
+// The nb column blocks of D dealt out to the 2 c passes slots (CTA r, warpgroup w, pass p):
+// nb / slots blocks each, one more for the nb % slots lowest ranks (2 p + w) c + r, so that
+// the CTAs' blocks differ by at most one and CTA 0 holds the most (640 over 2 CTAs in one
+// pass: 192 + 128 | 192 + 128). A CTA's blocks are one run of D, its slots in order
+// warpgroup by warpgroup, pass by pass within each.
 struct Slices {
-  int nb, w;
-  // the even slices below g hold ranks 0 .. (g + 1) / 2 - 1 of the deal, the odd ones
-  // w / 2 .. w / 2 + g / 2 - 1; those below nb % w are one block wider
-  __host__ __device__ __forceinline__ int first(int g) const {
-    const int extra = nb % w, odd_extra = extra > w / 2 ? extra - w / 2 : 0;
-    return g * (nb / w) + ((g + 1) / 2 < extra ? (g + 1) / 2 : extra) +
-           (g / 2 < odd_extra ? g / 2 : odd_extra);
+  int nb, c, passes;
+  __host__ __device__ __forceinline__ int slots() const { return 2 * passes * c; }
+  __host__ __device__ __forceinline__ int width(int r, int w, int p) const {
+    return nb / slots() + ((2 * p + w) * c + r < nb % slots() ? 1 : 0);
+  }
+  // the first block of CTA r: the even share of the CTAs before it, and of the extra
+  // blocks those of each rank k c + r' (r' < r) below nb % slots
+  __host__ __device__ __forceinline__ int cta_first(int r) const {
+    const int extra = nb % slots();
+    int first = r * 2 * passes * (nb / slots());
+    for (int k = 0; k < 2 * passes; ++k) {
+      const int below = extra - k * c;
+      first += below < 0 ? 0 : (below < r ? below : r);
+    }
+    return first;
+  }
+  __host__ __device__ __forceinline__ int cta_blocks(int r) const {
+    return cta_first(r + 1) - cta_first(r);
+  }
+  // the first block of slot (r, w, p)
+  __host__ __device__ __forceinline__ int first(int r, int w, int p) const {
+    int first = cta_first(r);
+    for (int k = 0; k < w * passes + p; ++k) first += width(r, k / passes, k % passes);
+    return first;
   }
 };
 
 // byte offsets from the 1024-aligned base: the operands a CTA keeps (K1: Q; K4: K, V; K5: Q,
-// dO), the ring, both warpgroups' partials, the sums, K4's per-stage query statistics,
-// barriers
+// dO), the ring of `tile`-row stages, both warpgroups' partials, the sums, K4's per-stage
+// query statistics, barriers
 struct Layout {
   int nbc;
   uint32_t own, stage, ring, part, sum, stats, bars, bytes;
-  __host__ __device__ Layout(Kind kind, int nb, int c, int stages) {
-    const Slices sl{nb, 2 * c};
-    nbc = sl.first(2);  // CTA 0 holds the most blocks
+  __host__ __device__ Layout(Kind kind, const Slices& sl, int stages, int tile) {
+    nbc = sl.cta_blocks(0);  // CTA 0 holds the most blocks
     own = (kind == FWD ? 1 : 2) * nbc * ROWS * 128;
-    stage = 2 * nbc * TILE * 128;
+    stage = 2 * nbc * tile * 128;
     ring = own;
     part = ring + stages * stage;
-    const int total = (kind == FWD ? 1 : 2) * TILE / 8 * 128;  // float4 chunks of the partials
-    sum = part + 2 * c * ((total + c - 1) / c) * 16;           // W pieces of ceil(total / C)
+    const int total = (kind == FWD ? 1 : 2) * tile / 8 * 128;  // float4 chunks of the partials
+    sum = part + 2 * sl.c * ((total + sl.c - 1) / sl.c) * 16;  // W pieces of ceil(total / C)
     stats = sum + total * 16;
-    bars = stats + (kind == DKV ? stages * 2 * TILE * 4 : 0);
+    bars = stats + (kind == DKV ? stages * 2 * tile * 4 : 0);
     bytes = bars + 8 * (2 * MAX_STAGES + 5);
   }
   // the dynamic shared memory a launch asks for (the base is aligned up to 1024)
   __host__ __device__ uint32_t request() const { return bytes + 1024; }
 };
 
-// the most ring stages that fit an SM (at least 2), or 0 where even 2 do not
-int plan_stages(Kind kind, int nb, int c) {
-  for (int s = MAX_STAGES; s >= 2; --s)
-    if (Layout(kind, nb, c, s).request() <= (uint32_t)SMEM_LIMIT) return s;
-  return 0;
+// K4's and K5's passes over the output columns (1 up to 4096); K1 runs one
+int plan_passes(Kind kind, int nb) {
+  return kind == FWD ? 1 : (nb + PASS_BLOCKS - 1) / PASS_BLOCKS;
 }
 
+// the fewest CTAs that hold D in one pass; 16 where it takes more than one
 int plan_cluster(Kind kind, int nb) {
+  if (plan_passes(kind, nb) > 1) return MAX_NONPORTABLE_CLUSTER;
   const int per_cta = 2 * (kind == FWD ? FWD_BLOCKS : DKV_BLOCKS);
   return (nb + per_cta - 1) / per_cta;
+}
+
+// the ring's rows: TILE in one pass, half of it in two (at TILE rows a warpgroup that
+// contracts three blocks and keeps 128 columns of dK and dV spills registers)
+constexpr int tile_of(int passes) { return passes > 1 ? TILE / 2 : TILE; }
+int plan_tile(Kind kind, int nb) { return tile_of(plan_passes(kind, nb)); }
+
+// the most ring stages that fit an SM (at least 2), or 0 where even 2 do not
+int plan_stages(Kind kind, int nb, int c, int tile) {
+  const Slices sl{nb, c, plan_passes(kind, nb)};
+  for (int s = MAX_STAGES; s >= 2; --s)
+    if (Layout(kind, sl, s, tile).request() <= (uint32_t)SMEM_LIMIT) return s;
+  return 0;
 }
 
 template <int N>
@@ -160,14 +215,52 @@ struct Blocks {
   static constexpr int value = N;
 };
 
+// f(std::integral_constant<int, 0>{}), ..., f(<N - 1>), in order: a loop each of whose
+// steps knows its index at compile time
+template <typename F, int... I>
+__device__ __forceinline__ void for_steps_of(F&& f, std::integer_sequence<int, I...>) {
+  (f(std::integral_constant<int, I>{}), ...);
+}
+template <int N, typename F>
+__device__ __forceinline__ void for_steps(F&& f) {
+  for_steps_of(f, std::make_integer_sequence<int, N>{});
+}
+
+// K4's and K5's passes over a warpgroup's run of nc blocks from block `run`, each slice's
+// width known at compile time: consume(contraction, width, pass, first block); pass 1's slice
+// follows pass 0's in the run (no state of one pass is held through the other's loop)
+template <int PASSES, typename F>
+__device__ __forceinline__ void run_passes(F&& consume, int nc, int run) {
+  if constexpr (PASSES == 1) {
+    if (nc == 1)
+      consume(Blocks<1>{}, Blocks<1>{}, 0, run);
+    else
+      consume(Blocks<2>{}, Blocks<2>{}, 0, run);
+  } else if (nc == 4) {  // slices of 2 and 2 blocks
+    consume(Blocks<4>{}, Blocks<2>{}, 0, run);
+    consume(Blocks<4>{}, Blocks<2>{}, 1, run + 2);
+  } else if (nc == 3) {  // 2 and 1
+    consume(Blocks<3>{}, Blocks<2>{}, 0, run);
+    consume(Blocks<3>{}, Blocks<1>{}, 1, run + 2);
+  } else {  // 1 and 1
+    consume(Blocks<2>{}, Blocks<1>{}, 0, run);
+    consume(Blocks<2>{}, Blocks<1>{}, 1, run + 1);
+  }
+}
+
+// v, in a form the compiler cannot prove constant over a loop whose count n stays below
+// 2^31 (it adds n >> 31 = 0): the descriptors formed from it are formed in the loop, next to
+// their wgmma, not hoisted out of it and held in registers (two of them a step of a chain)
+__device__ __forceinline__ uint32_t per_tile(uint32_t v, uint32_t n) { return v + (n >> 31); }
+
 __device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
   return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
 }
 
 // ---- the cluster's sum of the warpgroups' partial tiles
 
-// NT tensors of [64 x TILE] fp32 a warpgroup, in wgmma's accumulator layout (TILE / 2
-// values a thread). A tensor is CHUNKS float4s, chunk j * 128 + t holding thread t's
+// NT tensors of [64 x TILE] fp32 a warpgroup (TILE: the ring's rows), in wgmma's
+// accumulator layout (TILE / 2 values a thread). A tensor is CHUNKS float4s, chunk j * 128 + t holding thread t's
 // values 4 j .. 4 j + 3; chunk i of the NT tensors (i = n * CHUNKS + chunk) is reduced by
 // CTA i / PIECE, PIECE = ceil(NT * CHUNKS / C). In CTA r, `part` is [W][PIECE] float4: the
 // W warpgroups' chunks of its piece, and `sum` [NT * CHUNKS] float4: the whole sum. Data
@@ -176,7 +269,7 @@ __device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
 // buffer is reused once each reader warp of the cluster has arrived on the writers'
 // barrier (a plain remote mbarrier.arrive after the reads, as a cluster's TMA multicast
 // hands its stages back).
-template <int NT>
+template <int NT, int TILE>
 struct Exchange {
   static constexpr int CHUNKS = TILE / 8 * 128, TOTAL = NT * CHUNKS;
   uint32_t part, sum;  // shared-memory addresses in this CTA
@@ -275,16 +368,16 @@ cluster_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_const
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_1024(smem_raw);
   const uint32_t ctas = cluster_ctas(), rank = cluster_rank();
-  const Slices sl{D / BOX, 2 * (int)ctas};
-  const Layout L(FWD, sl.nb, ctas, stages);
+  const Slices sl{D / BOX, (int)ctas, 1};
+  const Layout L(FWD, sl, stages, TILE);
   constexpr int Q_BLOCK = ROWS * 128, KV_BLOCK = TILE * 128;
   const uint32_t sq = smem_addr(smem), ring = sq + L.ring;  // Q first
   const uint32_t full = sq + L.bars, empty = full + 8 * MAX_STAGES, q_full = empty + 8 * MAX_STAGES;
-  const Exchange<1> ex{sq + L.part, sq + L.sum, q_full + 8, ctas, rank};
+  const Exchange<1, TILE> ex{sq + L.part, sq + L.sum, q_full + 8, ctas, rank};
 
   const int q0 = (int)(blockIdx.x / ctas) * ROWS, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
-  const int cb0 = sl.first(2 * rank), cta_blocks = sl.first(2 * rank + 2) - cb0;
+  const int cb0 = sl.cta_first(rank), cta_blocks = sl.cta_blocks(rank);
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
       mbar_init(full + 8 * s, 1);
@@ -321,7 +414,8 @@ cluster_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_const
 
   const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32, tq = lane % 4;
   // this warpgroup's slice: blocks gs .. gs + gn - 1 of D, lb .. of the CTA's
-  const int g = 2 * rank + wg, gs = sl.first(g), gn = sl.first(g + 1) - gs, lb = gs - cb0;
+  const int g = 2 * rank + wg, gs = sl.first(rank, wg, 0), gn = sl.width(rank, wg, 0);
+  const int lb = gs - cb0;
   const int row = q0 + 16 * warp + lane / 4;  // this thread's rows: row, row + 8
   const float qk_scale = scale * LOG2E;       // exp2 domain
   const int* mb = kv_mask ? kv_mask + (long long)b * T : nullptr;
@@ -487,8 +581,10 @@ cluster_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_const
 
 // ------------------------------------------------------------------------------- K4
 
-// S^T and dP^T are [64 keys x 32 queries]: the thread's keys are rows lane / 4 (+ 8) of
-// its warp's 16, its queries columns 8 j + 2 (lane % 4) + e.
+// S^T and dP^T are [64 keys x TILE queries]: the thread's keys are rows lane / 4 (+ 8) of
+// its warp's 16, its queries columns 8 j + 2 (lane % 4) + e. TILE: queries a ring stage
+// (32 in one pass, 16 in two); PASSES: passes over the output columns (2 above 4096).
+template <int TILE, int PASSES>
 __global__ void __launch_bounds__(THREADS, 1)
 cluster_dkv_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
                    const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
@@ -500,18 +596,18 @@ cluster_dkv_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_const
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_1024(smem_raw);
   const uint32_t ctas = cluster_ctas(), rank = cluster_rank();
-  const Slices sl{D / BOX, 2 * (int)ctas};
-  const Layout L(DKV, sl.nb, ctas, stages);
+  const Slices sl{D / BOX, (int)ctas, PASSES};
+  const Layout L(DKV, sl, stages, TILE);
   constexpr int KV_BLOCK = ROWS * 128, Q_BLOCK = TILE * 128;
   const uint32_t base = smem_addr(smem), sk = base, sv = base + L.nbc * KV_BLOCK;
   const uint32_t ring = base + L.ring, tile_bytes = L.nbc * Q_BLOCK;  // Q, then dO, a stage
   float* stats = reinterpret_cast<float*>(smem + L.stats);
   const uint32_t full = base + L.bars, empty = full + 8 * MAX_STAGES, kv_full = empty + 8 * MAX_STAGES;
-  const Exchange<2> ex{base + L.part, base + L.sum, kv_full + 8, ctas, rank};
+  const Exchange<2, TILE> ex{base + L.part, base + L.sum, kv_full + 8, ctas, rank};
 
   const int k0 = (int)(blockIdx.x / ctas) * ROWS, hk = blockIdx.y, b = blockIdx.z;
   const int n_rep = Hq / Hkv;
-  const int cb0 = sl.first(2 * rank), cta_blocks = sl.first(2 * rank + 2) - cb0;
+  const int cb0 = sl.cta_first(rank), cta_blocks = sl.cta_blocks(rank);
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
       mbar_init(full + 8 * s, 1);
@@ -523,21 +619,26 @@ cluster_dkv_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_const
   }
   cluster_sync();
 
-  // the query tiles that can see a key of the cluster (ops/flash_attention.py:q_tile_range)
+  // the query tiles that can see a key of the cluster (ops/flash_attention.py:q_tile_range),
+  // visited by every pass
   const int q_lo = causal ? k0 : 0;
   const int q_hi = window > 0 ? min(T, k0 + ROWS - 1 + window) : T;
   const int qt_begin = q_lo / TILE, qt_end = (q_hi + TILE - 1) / TILE;
   const int n_qt = qt_end - qt_begin, n_tiles = n_rep * n_qt, wg = threadIdx.x / 128;
+  const int all_tiles = PASSES * n_tiles;
 
   // warp 0: tile n's lse (to log2 units) and delta rows (0 past T) into stage n % stages,
   // then lane 0 its Q and dO boxes; the arrival with the TMA's bytes releases both
   const auto load_q = [&](int n) {
-    const int stage = n % stages, h = hk * n_rep + n / n_qt, q0 = (qt_begin + n % n_qt) * TILE;
+    const int stage = n % stages, m = n % n_tiles;
+    const int h = hk * n_rep + m / n_qt, q0 = (qt_begin + m % n_qt) * TILE;
     const long long row_off = ((long long)b * Hq + h) * T;
     const int qi = q0 + threadIdx.x;
     float* row_stats = stats + stage * 2 * TILE;
-    row_stats[threadIdx.x] = qi < T ? lse[row_off + qi] * LOG2E : 0.f;
-    row_stats[TILE + threadIdx.x] = qi < T ? delta[row_off + qi] : 0.f;
+    if (threadIdx.x < TILE) {
+      row_stats[threadIdx.x] = qi < T ? lse[row_off + qi] * LOG2E : 0.f;
+      row_stats[TILE + threadIdx.x] = qi < T ? delta[row_off + qi] : 0.f;
+    }
     __syncwarp();
     if (threadIdx.x == 0) {
       const uint32_t st = ring + stage * L.stage, bar = full + 8 * stage;
@@ -556,11 +657,14 @@ cluster_dkv_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_const
         tma_load_4d(sv + j * KV_BLOCK, &map_v, kv_full, BOX * (cb0 + j), k0, hk, b);
       }
     }
-    for (int n = 0; n < min(stages, n_tiles); ++n) load_q(n);
+    for (int n = 0; n < min(stages, all_tiles); ++n) load_q(n);
   }
 
   const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32, tq = lane % 4;
-  const int g = 2 * rank + wg, gs = sl.first(g), gn = sl.first(g + 1) - gs, lb = gs - cb0;
+  // this warpgroup's blocks lc .. lc + nc - 1 of the CTA's: its slices of every pass, over
+  // which it contracts the scores in each
+  const int run = sl.first(rank, wg, 0), lc = run - cb0;
+  const int nc = sl.first(rank, wg, PASSES - 1) + sl.width(rank, wg, PASSES - 1) - run;
   const float qk_scale = scale * LOG2E;
   // the thread's keys (key, key + 8): inside T and unpadded; the queries [warp_first,
   // warp_last] with which every key of the warp pairs (a tile inside takes the unmasked path)
@@ -581,16 +685,21 @@ cluster_dkv_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_const
     warp_last = min(warp_last, __shfl_xor_sync(0xffffffffu, warp_last, o));
   }
 
-  // the slice's width is a constant of the loop below, one copy of it a width
-  const auto consume = [&](auto width) {
-    constexpr int NB = decltype(width)::value;
+  // pass p: its slice (blocks gs .. of D) of dK and dV; the contraction's length NC and the
+  // slice's width NB are constants of the loop below, one copy of it a pair
+  const auto consume = [&](auto contraction, auto width, int p, int gs) {
+    constexpr int NC = decltype(contraction)::value, NB = decltype(width)::value;
+    const int lb = gs - cb0;
+    // tiles consumed over the passes (the ring's and the exchange's phase) and the ring's place
+    uint32_t tile = p * n_tiles;
+    RingPos r;
+    r.stage = tile % stages;
+    r.phase = (tile / stages) & 1;
     float acc_dk[NB * 32], acc_dv[NB * 32];  // wgmma's N = 64 NB
 #pragma unroll
     for (int i = 0; i < NB * 32; ++i) acc_dk[i] = acc_dv[i] = 0.f;
 
     mbar_wait(kv_full, 0);
-    RingPos r;
-    uint32_t tile = 0;
     for (int rep = 0; rep < n_rep; ++rep) {
       for (int qt = qt_begin; qt < qt_end; ++qt, ++tile) {
         const int q0 = qt * TILE;
@@ -598,20 +707,20 @@ cluster_dkv_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_const
         const float* row_stats = stats + r.stage * 2 * TILE;
         mbar_wait(full + 8 * r.stage, r.phase);
 
-        // this slice's parts of S^T = K Q^T and dP^T = V dO^T, then the cluster's sums
+        // this warpgroup's parts of S^T = K Q^T and dP^T = V dO^T, then the cluster's sums;
+        // the descriptors of its run's first block, each step's formed in its wgmma's block
         float sp[2][TILE / 2];
+        const uint64_t k_desc = smem_desc(per_tile(sk, tile) + lc * KV_BLOCK, 16, 1024);
+        const uint64_t v_desc = smem_desc(per_tile(sv, tile) + lc * KV_BLOCK, 16, 1024);
+        const uint64_t q_desc = smem_desc(st + lc * Q_BLOCK, 16, 1024);
+        const uint64_t do_desc = smem_desc(st + tile_bytes + lc * Q_BLOCK, 16, 1024);
         wgmma_fence();
-#pragma unroll
-        for (int j = 0; j < NB; ++j)
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {  // 16 columns a k-step
-            const uint32_t a_off = (lb + j) * KV_BLOCK + 32 * kk;
-            const uint32_t b_off = (lb + j) * Q_BLOCK + 32 * kk;
-            WgmmaSS<TILE, 0>::run(sp[0], smem_desc(sk + a_off, 16, 1024),
-                                  smem_desc(st + b_off, 16, 1024), j + kk != 0);
-            WgmmaSS<TILE, 0>::run(sp[1], smem_desc(sv + a_off, 16, 1024),
-                                  smem_desc(st + tile_bytes + b_off, 16, 1024), j + kk != 0);
-          }
+        for_steps<NC * 4>([&](auto step) {  // block j of the run, 16 columns kk a k-step
+          constexpr int J = decltype(step)::value / 4, KK = decltype(step)::value % 4;
+          constexpr int A = (J * KV_BLOCK + 32 * KK) / 16, B = (J * Q_BLOCK + 32 * KK) / 16;
+          WgmmaSS<TILE, 0>::template run_at<A, B>(sp[0], k_desc, q_desc, J + KK != 0);
+          WgmmaSS<TILE, 0>::template run_at<A, B>(sp[1], v_desc, do_desc, J + KK != 0);
+        });
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(sp[0]);
@@ -673,9 +782,9 @@ cluster_dkv_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_const
         keep_regs(ds_hi);
         keep_regs(ds_lo);
         if (lane == 0) mbar_arrive(empty + 8 * r.stage);
-        // warp 0 refills the stage, with the tile `stages` ahead, once both warpgroups are
-        // done with it
-        if (threadIdx.x < 32 && (int)tile + stages < n_tiles) {
+        // warp 0 refills the stage, with the tile `stages` ahead (of this pass or the
+        // next), once both warpgroups are done with it
+        if (threadIdx.x < 32 && (int)tile + stages < all_tiles) {
           if (threadIdx.x == 0) mbar_wait(empty + 8 * r.stage, r.phase);
           __syncwarp();
           load_q(tile + stages);
@@ -707,17 +816,16 @@ cluster_dkv_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_const
       }
     }
   };
-  if (gn == 1)
-    consume(Blocks<1>{});
-  else
-    consume(Blocks<2>{});
+  run_passes<PASSES>(consume, nc, run);
   cluster_sync();
 }
 
 // ------------------------------------------------------------------------------- K5
 
-// S and dP are [64 queries x 32 keys], as K1's S: the thread's queries are rows lane / 4
-// (+ 8) of its warp's 16, its keys columns 8 j + 2 (lane % 4) + e.
+// S and dP are [64 queries x TILE keys], as K1's S: the thread's queries are rows lane / 4
+// (+ 8) of its warp's 16, its keys columns 8 j + 2 (lane % 4) + e. TILE: keys a ring stage
+// (32 in one pass, 16 in two); PASSES: passes over the output columns (2 above 4096).
+template <int TILE, int PASSES>
 __global__ void __launch_bounds__(THREADS, 1)
 cluster_dq_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
                   const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
@@ -725,20 +833,21 @@ cluster_dq_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_consta
                   const float* __restrict__ delta, bf16* __restrict__ dq, int T, int Hq, int Hkv,
                   int D, int stages, long long sdqb, long long sdqt, long long sdqh, float scale,
                   int causal, int window) {
+  constexpr uint32_t TILE_LANES = (TILE == 32 ? 0u : 1u << (TILE % 32)) - 1u;  // a tile's keys
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_1024(smem_raw);
   const uint32_t ctas = cluster_ctas(), rank = cluster_rank();
-  const Slices sl{D / BOX, 2 * (int)ctas};
-  const Layout L(DQ, sl.nb, ctas, stages);
+  const Slices sl{D / BOX, (int)ctas, PASSES};
+  const Layout L(DQ, sl, stages, TILE);
   constexpr int Q_BLOCK = ROWS * 128, KV_BLOCK = TILE * 128;
   const uint32_t base = smem_addr(smem), sq = base, sdo = base + L.nbc * Q_BLOCK;
   const uint32_t ring = base + L.ring, tile_bytes = L.nbc * KV_BLOCK;  // K, then V, a stage
   const uint32_t full = base + L.bars, empty = full + 8 * MAX_STAGES, q_full = empty + 8 * MAX_STAGES;
-  const Exchange<2> ex{base + L.part, base + L.sum, q_full + 8, ctas, rank};
+  const Exchange<2, TILE> ex{base + L.part, base + L.sum, q_full + 8, ctas, rank};
 
   const int q0 = (int)(blockIdx.x / ctas) * ROWS, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
-  const int cb0 = sl.first(2 * rank), cta_blocks = sl.first(2 * rank + 2) - cb0;
+  const int cb0 = sl.cta_first(rank), cta_blocks = sl.cta_blocks(rank);
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
       mbar_init(full + 8 * s, 1);
@@ -750,15 +859,17 @@ cluster_dq_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_consta
   }
   cluster_sync();
 
-  // the K/V tiles the cluster's rows can see (ops/flash_attention.py:kv_tile_range)
+  // the K/V tiles the cluster's rows can see (ops/flash_attention.py:kv_tile_range), visited
+  // by every pass
   int kt_end = (T + TILE - 1) / TILE;
   if (causal) kt_end = min(kt_end, (q0 + ROWS - 1) / TILE + 1);
   const int kt_begin = window > 0 ? max(0, q0 - window + 1) / TILE : 0;
   const int n_tiles = kt_end - kt_begin, wg = threadIdx.x / 128;
+  const int all_tiles = PASSES * n_tiles;
 
-  // thread 0: the K and V boxes of tile n (of the range) into stage n % stages
+  // thread 0: the K and V boxes of tile n (of the passes' ranges) into stage n % stages
   const auto load_kv = [&](int n) {
-    const int stage = n % stages, k0 = (kt_begin + n) * TILE;
+    const int stage = n % stages, k0 = (kt_begin + n % n_tiles) * TILE;
     const uint32_t st = ring + stage * L.stage, bar = full + 8 * stage;
     mbar_expect_tx(bar, 2 * cta_blocks * KV_BLOCK);
     for (int j = 0; j < cta_blocks; ++j) {
@@ -772,12 +883,14 @@ cluster_dq_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_consta
       tma_load_4d(sq + j * Q_BLOCK, &map_q, q_full, BOX * (cb0 + j), q0, h, b);
       tma_load_4d(sdo + j * Q_BLOCK, &map_do, q_full, BOX * (cb0 + j), q0, h, b);
     }
-    for (int n = 0; n < min(stages, n_tiles); ++n) load_kv(n);
+    for (int n = 0; n < min(stages, all_tiles); ++n) load_kv(n);
   }
 
   const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32, tq = lane % 4;
-  // this warpgroup's slice: blocks gs .. gs + gn - 1 of D, lb .. of the CTA's
-  const int g = 2 * rank + wg, gs = sl.first(g), gn = sl.first(g + 1) - gs, lb = gs - cb0;
+  // this warpgroup's blocks lc .. lc + nc - 1 of the CTA's: its slices of every pass, over
+  // which it contracts the scores in each
+  const int run = sl.first(rank, wg, 0), lc = run - cb0;
+  const int nc = sl.first(rank, wg, PASSES - 1) + sl.width(rank, wg, PASSES - 1) - run;
   const int row = q0 + 16 * warp + lane / 4;  // this thread's queries: row, row + 8
   const float qk_scale = scale * LOG2E;       // exp2 domain
   const int* mb = kv_mask ? kv_mask + (long long)b * T : nullptr;
@@ -790,47 +903,52 @@ cluster_dq_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_consta
     dl[rr] = qp < T ? delta[row_off + qp] : 0.f;
   }
 
-  // the slice's width is a constant of the loop below, one copy of it a width
-  const auto consume = [&](auto width) {
-    constexpr int NB = decltype(width)::value;
+  // pass p: its slice (blocks gs .. of D) of dQ; the contraction's length NC and the slice's
+  // width NB are constants of the loop below, one copy of it a pair
+  const auto consume = [&](auto contraction, auto width, int p, int gs) {
+    constexpr int NC = decltype(contraction)::value, NB = decltype(width)::value;
+    const int lb = gs - cb0;
+    // tiles consumed over the passes (the ring's and the exchange's phase) and the ring's place
+    uint32_t tile = p * n_tiles;
+    RingPos r;
+    r.stage = tile % stages;
+    r.phase = (tile / stages) & 1;
     float acc[NB * 32];  // dQ[:, slice]: wgmma's N = 64 NB
 #pragma unroll
     for (int i = 0; i < NB * 32; ++i) acc[i] = 0.f;
 
-    // this slice's parts of S = Q K^T and dP = dO V^T for the tile in stage rp, issued (not
-    // waited for)
+    // this warpgroup's parts of S = Q K^T and dP = dO V^T for the tile in stage rp, issued
+    // (not waited for)
     const auto partial = [&](float (&sp)[2][TILE / 2], const RingPos& rp) {
       const uint32_t st = ring + rp.stage * L.stage;
+      // the descriptors of the run's first block, each step's formed in its wgmma's block
+      const uint64_t q_desc = smem_desc(per_tile(sq, tile) + lc * Q_BLOCK, 16, 1024);
+      const uint64_t do_desc = smem_desc(per_tile(sdo, tile) + lc * Q_BLOCK, 16, 1024);
+      const uint64_t k_desc = smem_desc(st + lc * KV_BLOCK, 16, 1024);
+      const uint64_t v_desc = smem_desc(st + tile_bytes + lc * KV_BLOCK, 16, 1024);
       mbar_wait(full + 8 * rp.stage, rp.phase);
       wgmma_fence();
-#pragma unroll
-      for (int j = 0; j < NB; ++j)
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {  // 16 columns a k-step
-          const uint32_t a_off = (lb + j) * Q_BLOCK + 32 * kk;
-          const uint32_t b_off = (lb + j) * KV_BLOCK + 32 * kk;
-          WgmmaSS<TILE, 0>::run(sp[0], smem_desc(sq + a_off, 16, 1024),
-                                smem_desc(st + b_off, 16, 1024), j + kk != 0);
-          WgmmaSS<TILE, 0>::run(sp[1], smem_desc(sdo + a_off, 16, 1024),
-                                smem_desc(st + tile_bytes + b_off, 16, 1024), j + kk != 0);
-        }
+      for_steps<NC * 4>([&](auto step) {  // block j of the run, 16 columns kk a k-step
+        constexpr int J = decltype(step)::value / 4, KK = decltype(step)::value % 4;
+        constexpr int A = (J * Q_BLOCK + 32 * KK) / 16, B = (J * KV_BLOCK + 32 * KK) / 16;
+        WgmmaSS<TILE, 0>::template run_at<A, B>(sp[0], q_desc, k_desc, J + KK != 0);
+        WgmmaSS<TILE, 0>::template run_at<A, B>(sp[1], do_desc, v_desc, J + KK != 0);
+      });
       wgmma_commit();
     };
 
     // The next tile's partials run on the tensor cores while this tile's are summed over
     // the cluster and its dS and dQ product run; they are published once done.
     mbar_wait(q_full, 0);
-    RingPos r;
     float sp[2][TILE / 2], sp_next[2][TILE / 2];
     partial(sp, r);
     wgmma_wait<0>();
     fence_regs(sp[0]);
     fence_regs(sp[1]);
-    ex.publish(sp, wg, t, 0);
-    uint32_t tile = 0;
+    ex.publish(sp, wg, t, tile & 1);
     for (int kt = kt_begin; kt < kt_end; ++kt, ++tile) {
       const int k0 = kt * TILE;
-      const int key_ok = k0 + lane < T ? (mb ? mb[k0 + lane] != 0 : 1) : 0;
+      const int key_ok = lane < TILE && k0 + lane < T ? (mb ? mb[k0 + lane] != 0 : 1) : 0;
       const uint32_t st = ring + r.stage * L.stage;
       RingPos r_next = r;
       if (++r_next.stage == stages) {
@@ -845,7 +963,7 @@ cluster_dq_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_consta
       // with no valid key is only "very negative"), dS = P (dP - delta), rounded to bf16 as
       // hi + lo in wgmma's A-operand places; the same bits in every warpgroup
       const uint32_t word = __ballot_sync(0xffffffffu, key_ok != 0);
-      const bool masked = word != 0xffffffffu || (causal && k0 + TILE - 1 > q0) ||
+      const bool masked = word != TILE_LANES || (causal && k0 + TILE - 1 > q0) ||
                           (window > 0 && k0 <= q0 + ROWS - 1 - window);
       uint32_t ds_hi[TILE / 16][4], ds_lo[TILE / 16][4];
 #pragma unroll
@@ -889,9 +1007,9 @@ cluster_dq_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_consta
       keep_regs(ds_hi);
       keep_regs(ds_lo);
       if (lane == 0) mbar_arrive(empty + 8 * r.stage);
-      // thread 0 refills the stage, with the tile `stages` ahead, once both warpgroups are
-      // done with it
-      if (threadIdx.x == 0 && (int)tile + stages < n_tiles) {
+      // thread 0 refills the stage, with the tile `stages` ahead (of this pass or the next),
+      // once both warpgroups are done with it
+      if (threadIdx.x == 0 && (int)tile + stages < all_tiles) {
         mbar_wait(empty + 8 * r.stage, r.phase);
         load_kv(tile + stages);
       }
@@ -924,21 +1042,32 @@ cluster_dq_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_consta
       }
     }
   };
-  if (gn == 1)
-    consume(Blocks<1>{});
-  else
-    consume(Blocks<2>{});
+  run_passes<PASSES>(consume, nc, run);
   cluster_sync();
 }
 
-// the cluster size and ring the wrapper planned against this file's: the same, or refused;
-// K1 in at most the portable 8 CTAs, K4 and K5 in up to the H100's 16
-bool plan_ok(Kind kind, int D, int cluster, int stages, float scale) {
+// the plan the wrapper computed against this file's: the same, or refused. K1 in at most the
+// portable 8 CTAs and one pass at 32 keys a stage; K4 and K5 in up to the H100's 16, in one
+// pass at 32 rows a stage or two at 16 (the kernels' instances)
+bool plan_ok(Kind kind, int D, int cluster, int stages, int tile, float scale) {
   if (!(D > 512 && D % BOX == 0 && scale > 0.f)) return false;
-  const int nb = D / BOX, most = kind == FWD ? MAX_CLUSTER : MAX_NONPORTABLE_CLUSTER;
-  return cluster == plan_cluster(kind, nb) && cluster >= 2 && cluster <= most && stages >= 2 &&
-         stages == plan_stages(kind, nb, cluster);
+  const int nb = D / BOX;
+  const int most = kind == FWD ? MAX_CLUSTER : MAX_NONPORTABLE_CLUSTER;
+  return plan_passes(kind, nb) <= MAX_PASSES && cluster == plan_cluster(kind, nb) &&
+         cluster >= 2 && cluster <= most && tile == plan_tile(kind, nb) && stages >= 2 &&
+         stages == plan_stages(kind, nb, cluster, tile);
 }
+
+// K4's (K == DKV) or K5's instance for a plan of `passes` passes, at its ring tile (tile_of)
+template <Kind K, int PASSES>
+auto instance() {
+  if constexpr (K == DKV)
+    return cluster_dkv_kernel<tile_of(PASSES), PASSES>;
+  else
+    return cluster_dq_kernel<tile_of(PASSES), PASSES>;
+}
+template <Kind K>
+auto kernel_for(int passes) { return passes == 1 ? instance<K, 1>() : instance<K, 2>(); }
 
 }  // namespace
 
@@ -954,13 +1083,13 @@ extern "C" int flash_attn_cluster_fwd_bf16(const void* q, const void* k, const v
                                            const long long* maps, int cluster, int stages,
                                            long long sob, long long sot, long long soh,
                                            float scale, int causal, int window, void* stream) {
-  if (!plan_ok(FWD, D, cluster, stages, scale) || T <= 0 || Hkv <= 0 || Hq % Hkv)
+  if (!plan_ok(FWD, D, cluster, stages, TILE, scale) || T <= 0 || Hkv <= 0 || Hq % Hkv)
     return (int)cudaErrorInvalidValue;
   CUtensorMap map_q, map_k, map_v;
   if (!tmap::make_map_4d(&map_q, q, maps) || !tmap::make_map_4d(&map_k, k, maps + 11) ||
       !tmap::make_map_4d(&map_v, v, maps + 22))
     return (int)cudaErrorNotSupported;
-  const Layout L(FWD, D / BOX, cluster, stages);
+  const Layout L(FWD, Slices{D / BOX, cluster, 1}, stages, TILE);
   const dim3 grid((T + ROWS - 1) / ROWS * cluster, Hq, B);
   return (int)launch_cluster(cluster_fwd_kernel, grid, THREADS, cluster, L.request(),
                              static_cast<cudaStream_t>(stream), map_q, map_k, map_v,
@@ -971,24 +1100,25 @@ extern "C" int flash_attn_cluster_fwd_bf16(const void* q, const void* k, const v
 
 // strides: (b, t, h) in elements for q, k, v, dout, dk, dv (18 values, of which dk's and
 // dv's are used); maps: the 4-D tensor maps of q, k, v, dout (4 x 11 numbers) for boxes of
-// 32 queries and 64 keys; `cluster` and `stages` as ops/flash_attention.py:dkv_plan gives
-// them; lse and delta [B, Hq, T] fp32
+// `tile` queries and 64 keys; `cluster`, `stages` and `tile` as ops/flash_attention.py:
+// dkv_plan gives them; lse and delta [B, Hq, T] fp32
 extern "C" int flash_attn_cluster_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                                                const void* kv_mask, const void* dout,
                                                const void* lse, const void* delta, void* dk,
                                                void* dv, int B, int T, int Hq, int Hkv, int D,
                                                const long long* s, const long long* maps,
-                                               int cluster, int stages, float scale, int causal,
-                                               int window, void* stream) {
-  if (!plan_ok(DKV, D, cluster, stages, scale) || T <= 0 || Hkv <= 0 || Hq % Hkv)
+                                               int cluster, int stages, int tile, float scale,
+                                               int causal, int window, void* stream) {
+  if (!plan_ok(DKV, D, cluster, stages, tile, scale) || T <= 0 || Hkv <= 0 || Hq % Hkv)
     return (int)cudaErrorInvalidValue;
   CUtensorMap map_q, map_k, map_v, map_do;
   if (!tmap::make_map_4d(&map_q, q, maps) || !tmap::make_map_4d(&map_k, k, maps + 11) ||
       !tmap::make_map_4d(&map_v, v, maps + 22) || !tmap::make_map_4d(&map_do, dout, maps + 33))
     return (int)cudaErrorNotSupported;
-  const Layout L(DKV, D / BOX, cluster, stages);
+  const int passes = plan_passes(DKV, D / BOX);
+  const Layout L(DKV, Slices{D / BOX, cluster, passes}, stages, tile);
   const dim3 grid((T + ROWS - 1) / ROWS * cluster, Hkv, B);
-  return (int)launch_cluster(cluster_dkv_kernel, grid, THREADS, cluster, L.request(),
+  return (int)launch_cluster(kernel_for<DKV>(passes), grid, THREADS, cluster, L.request(),
                              static_cast<cudaStream_t>(stream), map_q, map_k, map_v, map_do,
                              static_cast<const int*>(kv_mask), static_cast<const float*>(lse),
                              static_cast<const float*>(delta), static_cast<bf16*>(dk),
@@ -998,37 +1128,40 @@ extern "C" int flash_attn_cluster_bwd_dkv_bf16(const void* q, const void* k, con
 
 // strides: (b, t, h) in elements for q, k, v, dout, dq (15 values, of which dq's are used);
 // maps: the 4-D tensor maps of q, k, v, dout (4 x 11 numbers) for boxes of 64 queries and
-// 32 keys; `cluster` and `stages` as ops/flash_attention.py:dq_plan gives them; lse and
-// delta [B, Hq, T] fp32
+// `tile` keys; `cluster`, `stages` and `tile` as ops/flash_attention.py:dq_plan gives them;
+// lse and delta [B, Hq, T] fp32
 extern "C" int flash_attn_cluster_bwd_dq_bf16(const void* q, const void* k, const void* v,
                                               const void* kv_mask, const void* dout,
                                               const void* lse, const void* delta, void* dq,
                                               int B, int T, int Hq, int Hkv, int D,
                                               const long long* s, const long long* maps,
-                                              int cluster, int stages, float scale, int causal,
-                                              int window, void* stream) {
-  if (!plan_ok(DQ, D, cluster, stages, scale) || T <= 0 || Hkv <= 0 || Hq % Hkv)
+                                              int cluster, int stages, int tile, float scale,
+                                              int causal, int window, void* stream) {
+  if (!plan_ok(DQ, D, cluster, stages, tile, scale) || T <= 0 || Hkv <= 0 || Hq % Hkv)
     return (int)cudaErrorInvalidValue;
   CUtensorMap map_q, map_k, map_v, map_do;
   if (!tmap::make_map_4d(&map_q, q, maps) || !tmap::make_map_4d(&map_k, k, maps + 11) ||
       !tmap::make_map_4d(&map_v, v, maps + 22) || !tmap::make_map_4d(&map_do, dout, maps + 33))
     return (int)cudaErrorNotSupported;
-  const Layout L(DQ, D / BOX, cluster, stages);
+  const int passes = plan_passes(DQ, D / BOX);
+  const Layout L(DQ, Slices{D / BOX, cluster, passes}, stages, tile);
   const dim3 grid((T + ROWS - 1) / ROWS * cluster, Hq, B);
-  return (int)launch_cluster(cluster_dq_kernel, grid, THREADS, cluster, L.request(),
+  return (int)launch_cluster(kernel_for<DQ>(passes), grid, THREADS, cluster, L.request(),
                              static_cast<cudaStream_t>(stream), map_q, map_k, map_v, map_do,
                              static_cast<const int*>(kv_mask), static_cast<const float*>(lse),
                              static_cast<const float*>(delta), static_cast<bf16*>(dq), T, Hq,
                              Hkv, D, stages, s[12], s[13], s[14], scale, causal, window);
 }
 
-// kind 0, 1, 2 (K1, K4, K5) at head dim D, in the plan's `cluster` CTAs and `stages` -> how
-// many of its clusters the card holds at once (cudaOccupancyMaxActiveClusters at the plan's
-// shared memory); 0 where it cannot place one, -1 for a plan this file would refuse
-extern "C" int flash_attn_cluster_fit(int kind, int D, int cluster, int stages) {
-  if (kind < FWD || kind > DQ || !plan_ok((Kind)kind, D, cluster, stages, 1.f)) return -1;
-  const uint32_t smem = Layout((Kind)kind, D / BOX, cluster, stages).request();
-  return kind == FWD   ? max_active_clusters(cluster_fwd_kernel, THREADS, cluster, smem)
-         : kind == DKV ? max_active_clusters(cluster_dkv_kernel, THREADS, cluster, smem)
-                       : max_active_clusters(cluster_dq_kernel, THREADS, cluster, smem);
+// kind 0, 1, 2 (K1, K4, K5) at head dim D, in the plan's `cluster` CTAs, `stages` and ring
+// `tile` -> how many of its clusters the card holds at once (cudaOccupancyMaxActiveClusters
+// at the plan's shared memory); 0 where it cannot place one, -1 for a plan this file would
+// refuse
+extern "C" int flash_attn_cluster_fit(int kind, int D, int cluster, int stages, int tile) {
+  if (kind < FWD || kind > DQ || !plan_ok((Kind)kind, D, cluster, stages, tile, 1.f)) return -1;
+  const int passes = plan_passes((Kind)kind, D / BOX);
+  const uint32_t smem = Layout((Kind)kind, Slices{D / BOX, cluster, passes}, stages, tile).request();
+  if (kind == FWD) return max_active_clusters(cluster_fwd_kernel, THREADS, cluster, smem);
+  if (kind == DKV) return max_active_clusters(kernel_for<DKV>(passes), THREADS, cluster, smem);
+  return max_active_clusters(kernel_for<DQ>(passes), THREADS, cluster, smem);
 }

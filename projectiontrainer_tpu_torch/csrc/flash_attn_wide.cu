@@ -2,7 +2,7 @@
 // and dQ (K5) of ops/flash_attention.py at any head dim D > 512 that is a multiple of 64
 // (the wrapper zero-pads the others), bf16 in and out, fp32 accumulation. The wrappers run
 // these column blocks only past the reach of flash_attn_cluster.cu (K1 above 4096, K4 and
-// K5 above 2048: ops/flash_attention.py:forward_plan, dkv_plan, dq_plan).
+// K5 above 8192: ops/flash_attention.py:forward_plan, dkv_plan, dq_plan).
 //
 // Replaces the TPU kernels projectiontrainer_tpu/ops/flash_attention.py:_fwd_kernel,
 // :_bwd_dkv_kernel and :_bwd_dq_kernel at those widths (the JAX kernels take any head

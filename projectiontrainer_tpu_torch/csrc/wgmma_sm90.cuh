@@ -258,7 +258,11 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t a, ui
 // ---- wgmma at other widths, and with A from registers -------------------------------
 //
 // WgmmaSS<N, TNSP_B>::run(d, a, b, scale_d): d[64 x N] (+)= A[64 x 16] . B[16 x N], both
-// operands from shared memory, as wgmma_m64n128k16 above.
+// operands from shared memory, as wgmma_m64n128k16 above (N = 32, 64, 128).
+// run_at<A_STEP, B_STEP> (N = 16, 32): the same at the descriptors a + A_STEP and b + B_STEP
+// (steps of 16 bytes, within the descriptor's 14-bit address field), formed inside the
+// instruction's own block: a long chain then holds two base descriptors, not one a step
+// formed ahead of time.
 // WgmmaRS<N, TNSP_B>::run(d, a, b, scale_d): the same with A from registers. a[0..3] is the
 // thread's part of the 64 x 16 bf16 tile, two values a register (the lower column in the
 // lower half): a[0] = row 16 w + l / 4, columns 2 (l % 4) and + 1; a[1] = row + 8; a[2] =
@@ -269,6 +273,23 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t a, ui
 
 template <int N, int TNSP_B> struct WgmmaSS;
 template <int N, int TNSP_B> struct WgmmaRS;
+
+template <int TNSP_B>
+struct WgmmaSS<16, TNSP_B> {
+  template <int A_STEP, int B_STEP>
+  static __device__ __forceinline__ void run_at(float (&d)[8], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 da, db;\nsetp.ne.b32 p, %10, 0;\n"
+      "add.s64 da, %8, %12;\nadd.s64 db, %9, %13;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "da, db, p, 1, 1, 0, %11;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TNSP_B), "n"(A_STEP), "n"(B_STEP));
+  }
+};
 
 template <int TNSP_B>
 struct WgmmaSS<32, TNSP_B> {
@@ -285,6 +306,22 @@ struct WgmmaSS<32, TNSP_B> {
       "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
       "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(a), "l"(b), "r"(scale_d), "n"(TNSP_B));
+  }
+  template <int A_STEP, int B_STEP>
+  static __device__ __forceinline__ void run_at(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 da, db;\nsetp.ne.b32 p, %18, 0;\n"
+      "add.s64 da, %16, %20;\nadd.s64 db, %17, %21;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "da, db, p, 1, 1, 0, %19;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TNSP_B), "n"(A_STEP), "n"(B_STEP));
   }
 };
 

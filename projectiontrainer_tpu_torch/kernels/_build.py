@@ -65,15 +65,15 @@ SIGNATURES = {
     # the three above; B, T, Hq, Hkv, D; strides (long long[]: (b, t, h) of q, k, v, then
     # out / dout, dk, dv / dout, dq); scale, causal, window; stream
     "flash_attn_wide_fwd_bf16": [_P] * 7 + [_I] * 5 + [_P, _F, _I, _I, _P],
-    # the cluster kernels (K1, K4 and K5 at head dims 576-4096,
+    # the cluster kernels (K1 at head dims 576-4096, K4 and K5 at 576-8192,
     # csrc/flash_attn_cluster.cu): the signatures of flash_attn_fwd_bf16,
     # flash_attn_bwd_dkv_bf16 and flash_attn_bwd_dq_bf16, the cluster size and ring stages
-    # in place of the tiles
+    # (and K4's and K5's ring tile) in place of the tiles
     "flash_attn_cluster_fwd_bf16": [_P] * 7 + [_I] * 5 + [_P, _I, _I] + [_L] * 3 + [_F, _I, _I, _P],
-    "flash_attn_cluster_bwd_dkv_bf16": [_P] * 9 + [_I] * 5 + [_P, _P, _I, _I, _F, _I, _I, _P],
-    "flash_attn_cluster_bwd_dq_bf16": [_P] * 8 + [_I] * 5 + [_P, _P, _I, _I, _F, _I, _I, _P],
-    # kind (0 K1, 1 K4, 2 K5), D, cluster, stages -> clusters resident at once
-    "flash_attn_cluster_fit": [_I] * 4,
+    "flash_attn_cluster_bwd_dkv_bf16": [_P] * 9 + [_I] * 5 + [_P, _P] + [_I] * 3 + [_F, _I, _I, _P],
+    "flash_attn_cluster_bwd_dq_bf16": [_P] * 8 + [_I] * 5 + [_P, _P] + [_I] * 3 + [_F, _I, _I, _P],
+    # kind (0 K1, 1 K4, 2 K5), D, cluster, stages, ring tile -> clusters resident at once
+    "flash_attn_cluster_fit": [_I] * 5,
     "flash_attn_wide_bwd_dkv_bf16": [_P] * 9 + [_I] * 5 + [_P, _F, _I, _I, _P],
     "flash_attn_wide_bwd_dq_bf16": [_P] * 8 + [_I] * 5 + [_P, _F, _I, _I, _P],
     # hidden, table, labels, part, lse, nll; N, V, D, splits, tiles_per_split; scale;

@@ -8,16 +8,19 @@ Needs an NVIDIA GPU and ``nvcc``. Prints one JSON line per step:
 - ``--ptxas``: what ``nvcc -Xptxas -v`` says of ``csrc/flash_attn_fwd.cu``,
   ``csrc/flash_attn_bwd.cu``, ``csrc/flash_attn_wide.cu`` and
   ``csrc/flash_attn_cluster.cu`` (registers, spills, shared memory of each kernel,
-  warnings); a spill in ``flash_attn_cluster.cu`` fails the run, the others' are
-  reported (``flash_attn_wide.cu``'s ``wide_dkv_kernel``, K4 past 4096, spills);
-- ``--wide``: only the head dims above 512 (``csrc/flash_attn_cluster.cu`` up to 4096 and,
-  past it, ``csrc/flash_attn_wide.cu``), checked and, with ``--time``, timed at
-  ``WIDE_TIMED``; first the clusters the card holds at once (``cluster_fit``) for K4 and
-  K5 in 9-16 CTAs (head dims 2304-4096) and K1 in 8. The script times whatever package
-  ``projectiontrainer_tpu_torch`` resolves to: run it by path with ``PYTHONPATH`` set to
-  another checkout (one whose ``ops/flash_attention.py`` has ``cluster_fit``) to time that
-  tree's kernels on these shapes (its ``package`` line says which), in turns with this
-  one's;
+  warnings); a spill in ``flash_attn_cluster.cu`` (every instance of its K4 and K5, those
+  of two passes too) fails the run, the others' are reported (``flash_attn_wide.cu``'s
+  ``wide_dkv_kernel``, K4 past 8192, spills);
+- ``--wide``: only the head dims above 512 (``csrc/flash_attn_cluster.cu`` up to its reach,
+  4096 for K1 and 8192 for K4 and K5 (two passes past 4096), and past it
+  ``csrc/flash_attn_wide.cu``), checked and, with ``--time``, timed at ``WIDE_TIMED``;
+  first the clusters the card holds at once (``cluster_fit``) for K4 and K5 in 9-16 CTAs
+  (head dims 2304-4096), in 16 CTAs of two passes (4160-8192, at each stage count)
+  and K1 in 8. The script times whatever package ``projectiontrainer_tpu_torch``
+  resolves to: run it by path with ``PYTHONPATH`` set to another checkout (one whose
+  ``ops/flash_attention.py`` has ``cluster_fit``) to time that tree's kernels on these
+  shapes (its ``package`` line says which; the fits asked of it are those within its
+  reach), in turns with this one's;
 - always: K1's out and lse, K4's dk and dv and K5's dq against the plain versions at the main
   paths' shapes (Llama-3.2-1B's prefill at 32/8 heads of 64, causal, whole tiles
   left-padded, at P = 831 and the generation evaluation's 703; the ViT-L text tower; Mistral-7B's window of 4096 over 4608 tokens among
@@ -83,8 +86,9 @@ CASES = [
     (2, 257, 4, 4, 512, False, None, "right", True),
     (1, 63, 2, 2, 512, False, None, None, False),
     # above 512: K1, K4 and K5 on the cluster kernel up to 4096 (K4 and K5 in 9-16 CTAs past
-    # 2048), what lies past it on the column blocks (ops/flash_attention.py:forward_plan,
-    # dkv_plan, dq_plan)
+    # 2048), K4 and K5 in two passes on 16 CTAs from 4160 to 8192 (K1 past 4096 on the
+    # column blocks), what lies past 8192 on the column blocks (ops/flash_attention.py:
+    # forward_plan, dkv_plan, dq_plan)
     (2, 1024, 4, 1, 1024, True, 512, None, False),      # chip_smoke.py phase 2's shapes
     (4, 576, 4, 4, 640, False, None, None, False),
     (2, 150, 4, 1, 576, True, 37, "left", False),       # uneven slices: 192 | 128 | ...
@@ -101,8 +105,18 @@ CASES = [
     (2, 200, 4, 2, 3072, True, 100, "right", True),     # 12 CTAs
     (1, 512, 4, 1, 4096, True, None, None, False),      # 16 CTAs (K1: 8)
     (2, 150, 4, 2, 4096, True, 37, "left", False),
-    (1, 512, 4, 1, 4160, True, None, None, False),      # past the reach: the column blocks
+    (1, 512, 4, 1, 4160, True, None, None, False),      # K4, K5: two passes (K1: column blocks)
     (2, 70, 2, 1, 4160, True, None, "right", True),
+    (2, 150, 4, 2, 4160, True, 37, "left", False),
+    (2, 130, 4, 1, 5120, True, 64, "right", False),     # 16 rows a stage; runs of 3 | 2 blocks
+    (2, 200, 4, 2, 6144, True, 100, "right", True),     # passes of 128 | 64
+    (2, 150, 4, 2, 6144, True, None, "left", False),
+    (2, 100, 4, 2, 5184, True, None, "right", False),   # passes of 128 | 64, 64 | 64
+    (2, 129, 4, 4, 7232, False, None, "right", False),  # passes of 128 | 128, 128 | 64
+    (1, 512, 4, 1, 8192, True, None, None, False),      # the reach of K4 and K5
+    (2, 150, 4, 2, 8192, True, 37, "left", False),
+    (2, 129, 4, 4, 8192, False, None, "right", True),
+    (2, 70, 2, 1, 8256, True, None, "right", False),    # past every reach: the column blocks
 ]
 WIDE = [case for case in CASES if case[4] > 512]
 # the wide shapes timed by ``--wide --time``: PERF.md's rows (chip_smoke.py phase 2's)
@@ -113,6 +127,8 @@ WIDE_TIMED = [
     (1, 512, 4, 1, 2112, True, None, None, False),
     (1, 512, 4, 1, 4096, True, None, None, False),
     (1, 512, 4, 1, 4160, True, None, None, False),
+    (1, 512, 4, 1, 6144, True, None, None, False),
+    (1, 512, 4, 1, 8192, True, None, None, False),
 ]
 
 
@@ -310,16 +326,19 @@ def time_case(b, t, hq, hkv, d, causal, window, pad, sliced) -> None:
 
 
 def cluster_fits() -> dict:
-    """The clusters of K4 and K5 in 9-16 CTAs (head dims 256 C) and of K1 in 8 (4096) that
-    the card holds at once at their plans' shared memory (``cluster_fit``), the shared
-    memory beside them, and whether each holds at least one (``ok``)."""
-    fits = {kind: {c: FA.cluster_fit(256 * c, kind) for c in range(9, 17)}
+    """The clusters of K4 and K5 in 9-16 CTAs (head dims 256 C), in 16 CTAs of two passes
+    (4160, 6208, 7232: the first widths at four, three and two ring stages; 6144, 8192) and of
+    K1 in 8 (4096) that the card holds at once at their plans' shared memory
+    (``cluster_fit``; the widths within the package's reach), the shared memory beside
+    them, and whether each holds at least one (``ok``)."""
+    widths = [256 * c for c in range(9, 17)] + [4160, 6144, 6208, 7232, 8192]
+    fits = {kind: {d: FA.cluster_fit(d, kind) for d in widths if d <= FA.REACH[kind]}
             for kind in ("dkv", "dq")}
-    fits["fwd"] = {8: FA.cluster_fit(4096, "fwd")}
-    smem = {kind: {c: FA.cluster_plan(256 * c, kind)["smem"] for c in range(9, 17)}
-            for kind in ("dkv", "dq")}
+    fits["fwd"] = {4096: FA.cluster_fit(4096, "fwd")}
+    smem = {kind: {d: FA.cluster_plan(d, kind)["smem"] for d in by_d}
+            for kind, by_d in fits.items() if kind != "fwd"}
     return {"cluster_fit": fits, "cluster_smem": smem,
-            "ok": all(n >= 1 for by_c in fits.values() for n in by_c.values())}
+            "ok": all(n >= 1 for by_d in fits.values() for n in by_d.values())}
 
 
 def main() -> int:

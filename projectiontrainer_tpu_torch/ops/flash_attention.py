@@ -24,13 +24,15 @@ card to the next of them, as the JAX package pads inside its kernel
 ``D ** -0.5`` and O, dQ, dK and dV are sliced back (q.k and P.V gain only zero terms).
 At 512 each kernel splits its accumulator's columns over its two warpgroups (and K4 over
 two CTAs a key tile), which both compute the scores. Above 512 two routes
-(``forward_plan``, ``dkv_plan``, ``dq_plan`` name them): K1, K4 and K5 up to D = 4096 run
-``csrc/flash_attn_cluster.cu``, which cuts D over a thread-block cluster (K1 of up to 8
-CTAs, K4 and K5 of up to 16: above 8 the H100's non-portable cluster sizes), each
-warpgroup computing its column slice's part of the scores (and of dP) on wgmma and the
-cluster summing the parts (``cluster_plan``); past 4096 the column blocks of
-``csrc/flash_attn_wide.cu`` (a CTA owns 128 output columns of a 64-row tile and computes
-the scores over the whole D again for its block: ``wide_plan``).
+(``forward_plan``, ``dkv_plan``, ``dq_plan`` name them): K1 up to D = 4096 and K4 and K5
+up to 8192 run ``csrc/flash_attn_cluster.cu``, which cuts D over a thread-block cluster
+(K1 of up to 8 CTAs, K4 and K5 of up to 16: above 8 the H100's non-portable cluster
+sizes), each warpgroup computing its column slice's part of the scores (and of dP) on
+wgmma and the cluster summing the parts (``cluster_plan``; K4 and K5 past 4096 in two
+passes over the output columns, route "cluster passes", each forming the scores once);
+past that reach the column blocks of ``csrc/flash_attn_wide.cu`` (a CTA owns 128 output
+columns of a 64-row tile and computes the scores over the whole D again for its block:
+``wide_plan``).
 
 Each launch is a ``ptt`` operator (``kernels/_build.py:kernel_op``): the wrappers check
 the shapes and allocate every buffer the kernel writes (``fwd_buffers``,
@@ -82,15 +84,19 @@ WIDE_STEP = 64      # above 512 the kernels take every multiple of this (csrc/fl
 WIDE_COLUMNS = 128  # output columns a CTA of the wide kernels owns (:DC)
 WIDE_ROWS = 64      # rows a CTA of the wide kernels owns, and rows a tile of the other operand
 # the cluster kernels (csrc/flash_attn_cluster.cu): 64 rows a cluster, ring stages of 32 rows
-# of the other operand, CTAs of two consumer warpgroups, a warpgroup's slice of at most 256
-# columns of O (K1) or 128 of dK and dV (K4) or of dQ (K5: at 256 its CTA's Q and dO beside
-# one ring stage would not fit an SM's shared memory); K1 in at most 8 CTAs (the portable
-# cluster size), K4 and K5 in up to 16 (the H100's non-portable size, which the launch
-# allows above 8), so all three reach 4096; `kind` names the kernel
+# of the other operand (16 in K4's and K5's two passes, where 32 would spill registers),
+# CTAs of two consumer warpgroups, a warpgroup's slice of at most 256 columns of O (K1) or
+# 128 of dK and dV (K4) or of dQ (K5: at 256 its CTA's Q and dO beside one ring stage would
+# not fit an SM's shared memory) a pass; K1 in at most 8 CTAs (the portable cluster size)
+# and one pass, K4 and K5 in up to 16 (the H100's non-portable size, which the launch allows
+# above 8) and up to two passes over the output columns, so K1 reaches 4096 and K4 and K5
+# 8192; `kind` names the kernel
 CLUSTER_ROWS, CLUSTER_TILE = 64, 32
 MAX_CLUSTER = {"fwd": _build.MAX_CLUSTER, "dkv": 16, "dq": 16}
 SLICE = {"fwd": 256, "dkv": 128, "dq": 128}
-REACH = {kind: 2 * MAX_CLUSTER[kind] * width for kind, width in SLICE.items()}  # 4096 each
+MAX_PASSES = {"fwd": 1, "dkv": 2, "dq": 2}
+PASS_COLUMNS = {kind: 2 * MAX_CLUSTER[kind] * width for kind, width in SLICE.items()}  # 4096 each
+REACH = {kind: MAX_PASSES[kind] * cols for kind, cols in PASS_COLUMNS.items()}
 SMEM_LIMIT = 232448  # bytes of shared memory a CTA can have on the H100
 MAX_STAGES = 4
 
@@ -114,47 +120,61 @@ def wide_plan(d: int, rows: str, tile: str) -> dict:
             "col_blocks": -(-d // WIDE_COLUMNS), "chunk": WIDE_STEP}
 
 
-def cluster_slices(d: int, warpgroups: int) -> list:
-    """The columns of each warpgroup's slice of head dim d, in order: the d / 64 column
-    blocks dealt out, d / 64 % warpgroups of the slices one block wider, the first
-    warpgroup of each CTA (even g) before the second, so that the CTAs' shares differ by
-    at most one block (640 over 2 CTAs: 192, 128 | 192, 128)."""
-    base, extra = divmod(d // WIDE_STEP, warpgroups)
-    order = [g // 2 if g % 2 == 0 else warpgroups // 2 + g // 2 for g in range(warpgroups)]
-    return [WIDE_STEP * (base + (pos < extra)) for pos in order]
+def pass_slices(d: int, cluster: int, passes: int) -> list:
+    """The columns of each warpgroup's slice of head dim d in each pass over the output
+    columns, [pass][warpgroup]: the d / 64 column blocks dealt over the 2 x ``cluster`` x
+    ``passes`` slots (CTA r, warpgroup w, pass p), d / 64 % slots of them one block wider,
+    the lowest ranks (2 p + w) cluster + r first, so that the CTAs' shares differ by at most
+    one block and CTA 0 holds the most (640 over 2 CTAs: 192, 128 | 192, 128). A CTA's
+    slots lie in D warpgroup by warpgroup, pass by pass within each
+    (``csrc/flash_attn_cluster.cu:Slices``)."""
+    slots = 2 * cluster * passes
+    base, extra = divmod(d // WIDE_STEP, slots)
+    return [[WIDE_STEP * (base + ((2 * p + g % 2) * cluster + g // 2 < extra))
+             for g in range(2 * cluster)] for p in range(passes)]
 
 
-def cluster_smem(d: int, cluster: int, stages: int, kind: str) -> int:
+def cluster_smem(d: int, cluster: int, stages: int, kind: str, tile: int = CLUSTER_TILE,
+                 passes: int = 1) -> int:
     """The dynamic shared memory of a cluster kernel's CTA (``csrc/flash_attn_cluster.cu:
     Layout``; ``kind`` "fwd", "dkv" or "dq": K1, K4 or K5): the resident operands of the
-    widest CTA (K1: Q; K4: K and V; K5: Q and dO) of 64 rows, ``stages`` ring stages of two
-    32-row operands (K and V; Q and dO in K4), both warpgroups' fp32 partial tiles, 16-byte
-    chunks of one tensor in K1 (S^T and dP^T in K4, S and dP in K5): the pieces a CTA sums,
-    one from each of the 2 x ``cluster`` warpgroups, and the whole sum; K4's per-stage query
-    statistics, 13 barriers, and 1024 bytes to align the base."""
-    widest = sum(cluster_slices(d, 2 * cluster)[:2]) // WIDE_STEP  # CTA 0's blocks
+    widest CTA, its slices of every pass (K1: Q; K4: K and V; K5: Q and dO) of 64 rows,
+    ``stages`` ring stages of two ``tile``-row operands (K and V; Q and dO in K4), both
+    warpgroups' fp32 partial tiles, 16-byte chunks of one tensor in K1 (S^T and dP^T in K4,
+    S and dP in K5): the pieces a CTA sums, one from each of the 2 x ``cluster``
+    warpgroups, and the whole sum; K4's per-stage query statistics, 13 barriers, and 1024
+    bytes to align the base."""
+    widest = sum(s[0] + s[1] for s in pass_slices(d, cluster, passes)) // WIDE_STEP  # CTA 0's
     operands = 1 if kind == "fwd" else 2
-    chunks = operands * CLUSTER_ROWS * CLUSTER_TILE // 4
+    chunks = operands * CLUSTER_ROWS * tile // 4
     own = operands * widest * CLUSTER_ROWS * 128
-    stage = 2 * widest * CLUSTER_TILE * 128
+    stage = 2 * widest * tile * 128
     exchange = 16 * (2 * cluster * -(-chunks // cluster) + chunks)
-    stats = stages * 2 * CLUSTER_TILE * 4 if kind == "dkv" else 0
+    stats = stages * 2 * tile * 4 if kind == "dkv" else 0
     return own + stages * stage + exchange + stats + 8 * (2 * MAX_STAGES + 5) + 1024
 
 
 def cluster_plan(d: int, kind: str) -> dict:
     """A cluster kernel's plan at head dim d (a multiple of 64 above 512 and at most
     ``REACH[kind]``): ``cluster`` CTAs of two warpgroups, each warpgroup's slice of the
-    columns (``slices``: at most ``SLICE[kind]``, multiples of 64), the ring's ``stages``
-    (as many as fit, at most 4) and the CTA's shared memory (``smem``). The kernel computes
-    the same and refuses another plan."""
-    cluster = -(-d // (2 * SLICE[kind]))
+    columns in each of its ``passes`` passes over the output columns (``slices``: at most
+    ``SLICE[kind]``, multiples of 64, 2 x ``cluster`` a pass, pass 0's first), the ring's
+    rows (32) and ``stages`` (as many as fit, at most 4) and the CTA's shared memory
+    (``smem``). K1, K4 and K5 up to ``PASS_COLUMNS`` (4096) run one pass; K4 and K5 past it
+    run ceil(d / 4096) in 16 CTAs (route "cluster passes"), each warpgroup
+    contracting the scores over its slices of every pass in each, so each score is formed
+    ``passes`` times, on ring stages of 16 rows. The kernel computes the same and refuses
+    another plan."""
+    passes = -(-d // PASS_COLUMNS[kind])
+    cluster = MAX_CLUSTER[kind] if passes > 1 else -(-d // (2 * SLICE[kind]))
+    tile = CLUSTER_TILE if passes == 1 else CLUSTER_TILE // 2
     stages = next(s for s in range(MAX_STAGES, 1, -1)
-                  if cluster_smem(d, cluster, s, kind) <= SMEM_LIMIT)
-    rows, tile = ("bk", "bq") if kind == "dkv" else ("bq", "bk")
-    return {"route": "cluster", rows: CLUSTER_ROWS, tile: CLUSTER_TILE, "cluster": cluster,
-            "slices": cluster_slices(d, 2 * cluster), "stages": stages,
-            "smem": cluster_smem(d, cluster, stages, kind)}
+                  if cluster_smem(d, cluster, s, kind, tile, passes) <= SMEM_LIMIT)
+    rows, ring = ("bk", "bq") if kind == "dkv" else ("bq", "bk")
+    return {"route": "cluster" if passes == 1 else "cluster passes", rows: CLUSTER_ROWS,
+            ring: tile, "cluster": cluster, "passes": passes,
+            "slices": [w for ws in pass_slices(d, cluster, passes) for w in ws],
+            "stages": stages, "smem": cluster_smem(d, cluster, stages, kind, tile, passes)}
 
 
 def cluster_fit(d: int, kind: str) -> int:
@@ -162,12 +182,14 @@ def cluster_fit(d: int, kind: str) -> int:
     and shared memory) the card holds at once (``cudaOccupancyMaxActiveClusters``); 0
     where it cannot place one. Needs the card."""
     plan = cluster_plan(d, kind)
+    tile = plan["bq" if kind == "dkv" else "bk"]
     return _build.library().flash_attn_cluster_fit(("fwd", "dkv", "dq").index(kind), d,
-                                                   plan["cluster"], plan["stages"])
+                                                   plan["cluster"], plan["stages"], tile)
 
 
 def _wide_route(d: int, kind: str, rows: str, tile: str) -> dict:
-    """Above 512: the cluster kernel within its reach, the column blocks past it."""
+    """Above 512: the cluster kernel within its reach (in passes past 4096), the column
+    blocks past it."""
     plan = wide_plan(d, rows, tile)  # raises at a width no wide kernel takes
     if d <= REACH[kind]:
         return cluster_plan(d, kind)
@@ -197,10 +219,11 @@ def dkv_plan(d: int) -> dict:
     and dV are 128 registers a thread; at 256 the two warpgroups share 64 keys and split
     the columns of dK and dV, again 128 registers a thread and 32 queries; at 512 two
     CTAs share the 64 keys, each with half of the columns (one stage of 32 queries).
-    Above 512 and up to ``REACH["dkv"]`` the cluster kernel (``cluster_plan``: 64 keys a
-    cluster, 32 queries a stage); past it the wide kernel's column blocks (``wide_plan``,
-    with ``route``): a CTA's 64 keys and 128 columns of dK and dV, over tiles of 64
-    queries."""
+    Above 512 and up to ``REACH["dkv"]`` (8192) the cluster kernel (``cluster_plan``: 64
+    keys a cluster, 32 queries a stage; past 4096 two passes over the columns of dK and dV,
+    16 queries a stage); past it the wide kernel's column blocks
+    (``wide_plan``, with ``route``): a CTA's 64 keys and 128 columns of dK and dV, over
+    tiles of 64 queries."""
     if d > max(HEAD_DIMS):
         return _wide_route(d, "dkv", "bk", "bq")
     if d not in HEAD_DIMS:
@@ -214,9 +237,9 @@ def dq_plan(d: int) -> dict:
     keys a ring stage: 64, and 32 at d = 256, where dQ alone is 128 registers a thread
     and S and dP of 64 keys would not fit beside it. At d = 512 the two warpgroups share
     64 queries, each with half of dQ (one stage of 32 keys). Above 512 and up to
-    ``REACH["dq"]`` the cluster kernel (``cluster_plan``: 64 queries a cluster, 32 keys a
-    stage, as K1); past it the wide kernel's column blocks (``wide_plan``, with
-    ``route``)."""
+    ``REACH["dq"]`` (8192) the cluster kernel (``cluster_plan``: 64 queries a cluster, 32
+    keys a stage, as K1; past 4096 two passes over the columns of dQ, 16 keys a stage);
+    past it the wide kernel's column blocks (``wide_plan``, with ``route``)."""
     if d > max(HEAD_DIMS):
         return _wide_route(d, "dq", "bq", "bk")
     if d not in HEAD_DIMS:
@@ -410,20 +433,22 @@ def _bwd_maps(q, k, v, do, plan):
 
 def _bwd_route(q, k, v, do, plan, kernel: str, tiles: tuple) -> tuple:
     """A backward kernel's entry point (``kernel``: "dkv" or "dq") and its plan's
-    arguments: the column blocks read the strides alone; the cluster kernel and the kernel
-    at 512 and below the tensor maps and the cluster and ring, or the tiles ``tiles``."""
+    arguments: the column blocks read the strides alone; the cluster kernel (in one pass or
+    more) and the kernel at 512 and below the tensor maps and the cluster, ring and ring
+    tile (``tiles[1]``), or the tiles ``tiles``."""
     route = plan.get("route")
     if route == "column blocks":
         return f"flash_attn_wide_bwd_{kernel}_bf16", ()
     maps = _bwd_maps(q, k, v, do, plan)
-    if route == "cluster":
-        return f"flash_attn_cluster_bwd_{kernel}_bf16", (maps, plan["cluster"], plan["stages"])
+    if route in ("cluster", "cluster passes"):
+        return (f"flash_attn_cluster_bwd_{kernel}_bf16",
+                (maps, plan["cluster"], plan["stages"], plan[tiles[1]]))
     return f"flash_attn_bwd_{kernel}_bf16", (maps, *(plan[n] for n in tiles))
 
 
 def _dkv_launch(q, k, v, mask, do, lse, delta, dk, dv, scale, causal, window):
     """K4's operator on the card: ``dk`` and ``dv`` written (above 512 by the cluster
-    kernel, or past its reach by the column blocks)."""
+    kernel, in passes past 4096, or past its reach by the column blocks)."""
     _check_pointers(q=q, k=k, v=v, dout=do)
     b, t, hq, d = q.shape
     name, tiles = _bwd_route(q, k, v, do, dkv_plan(d), "dkv", ("bk", "bq"))
@@ -436,8 +461,8 @@ def _dkv_launch(q, k, v, mask, do, lse, delta, dk, dv, scale, causal, window):
 
 
 def _dq_launch(q, k, v, mask, do, lse, delta, dq, scale, causal, window):
-    """K5's operator on the card: ``dq`` written (above 512 by the cluster kernel, or past
-    its reach by the column blocks)."""
+    """K5's operator on the card: ``dq`` written (above 512 by the cluster kernel, in
+    passes past 4096, or past its reach by the column blocks)."""
     _check_pointers(q=q, k=k, v=v, dout=do)
     b, t, hq, d = q.shape
     name, tiles = _bwd_route(q, k, v, do, dq_plan(d), "dq", ("bq", "bk"))

@@ -5,18 +5,19 @@ of K8 above 19,368 columns (``csrc/flash_attn_cluster.cu`` ``cluster_dkv_kernel`
 CPU as the kernels cut the work, and held against the JAX package.
 
 K4: the plan's (``ops/flash_attention.py:dkv_plan``) 64-row key tiles and, for each query
-head of the KV head in turn, the 32-query tiles each visits (``q_tile_range``); each tile's
-S^T and dP^T as the warpgroups' partial products over their column slices, summed in slice
-order; P^T = exp2(S^T scale log2(e) - lse log2(e)) on valid pairs, 0 elsewhere; dS^T = P^T
-(dP^T - delta) as hi + lo, two bf16 terms; each warpgroup's dV slice += P^T dO and dK
-slice += dS_hi^T Q + dS_lo^T Q (P stays fp32 here: the kernel rounds it once to bf16 as
+head of the KV head in turn, the 32-query tiles each visits (``q_tile_range``; past 4096 16
+queries and two passes over the output columns), in each pass; each tile's S^T and dP^T as the warpgroups' partial products over their column runs
+(their slices of every pass), summed in slice order; P^T = exp2(S^T scale log2(e) - lse log2(e)) on valid pairs, 0 elsewhere; dS^T = P^T
+(dP^T - delta) as hi + lo, two bf16 terms; each warpgroup's dV slice of the pass += P^T dO
+and dK slice += dS_hi^T Q + dS_lo^T Q (P stays fp32 here: the kernel rounds it once to bf16 as
 its A operand, a rounding of the card's bf16 inputs that the card tests hold). K5: the
 plan's (``dq_plan``) 64-row query tiles and the 32-key tiles each visits
 (``kv_tile_range``); S and dP summed in slice order the same way; dS = P (dP - delta) as
-hi + lo; each warpgroup's dQ slice += dS_hi K + dS_lo K. Both against ``jax.vjp`` of the
-JAX package's ``flash_attention`` (``interpret=True``) at D = 640 to 4096 (2112: 9 CTAs
-of uneven slices; 4096: 16, the widest cluster), causal with a window, GQA and ragged key
-padding.
+hi + lo; each warpgroup's dQ slice of the pass += dS_hi K + dS_lo K. Both against
+``jax.vjp`` of the JAX package's ``flash_attention`` (``interpret=True``) at D = 640 to
+8192 (2112: 9 CTAs of uneven slices; 4096: 16, the widest cluster; 4160, 6144 and 8192:
+two passes of 16-row tiles, 4160's with one slice of 128 columns), causal with a window,
+GQA and ragged key padding.
 
 K3: the plan's (``ops/decode_attention.py:decode_plan``) row groups and splits; each 32-key
 tile's scores as the C CTAs' partial products, each CTA's summed over its 256-column
@@ -88,15 +89,33 @@ def _backward_inputs(q, k, v, do, *, scale, causal, window, kv_mask):
     return lse, (do * out).sum(-1), valid.expand(b, t, t)
 
 
+def _cluster_columns(plan):
+    """The plan's columns as the kernel cuts them: each warpgroup's run (its slices of
+    every pass), over which it contracts the scores, in slice order g = 2 r + w; and each
+    pass's output slices, [pass][g]. A CTA's blocks are its warpgroups' runs in order, a
+    run its passes' slices in order (``csrc/flash_attn_cluster.cu:Slices``)."""
+    wgs = 2 * plan["cluster"]
+    per_pass = [plan["slices"][p * wgs:(p + 1) * wgs] for p in range(plan["passes"])]
+    runs, out, pos = [], [[None] * len(per_pass[0]) for _ in per_pass], 0
+    for g in range(len(per_pass[0])):
+        start = pos
+        for p, widths in enumerate(per_pass):
+            out[p][g] = slice(pos, pos + widths[g])
+            pos += widths[g]
+        runs.append(slice(start, pos))
+    assert pos == sum(map(sum, per_pass))
+    return runs, out
+
+
 def cluster_dkv(q, k, v, do, *, scale, causal, window, kv_mask):
     """dK and dV as the cluster kernel computes them, in fp32."""
     b, t, hq, d = q.shape
     hkv = k.shape[2]
     n_rep = hq // hkv
     plan = FA.dkv_plan(d)
-    assert plan["route"] == "cluster" and sum(plan["slices"]) == d
+    assert plan["route"] in ("cluster", "cluster passes")
     rows, queries = plan["bk"], plan["bq"]
-    slices = _slices(plan["slices"])
+    runs, passes = _cluster_columns(plan)
     lse, delta, valid = _backward_inputs(q, k, v, do, scale=scale, causal=causal,
                                          window=window, kv_mask=kv_mask)
     log2e = 1.0 / np.log(2.0)
@@ -106,24 +125,26 @@ def cluster_dkv(q, k, v, do, *, scale, causal, window, kv_mask):
             for k0 in range(0, t, rows):
                 ks = slice(k0, min(t, k0 + rows))
                 kk, vv = k[bi, ks, hk], v[bi, ks, hk]
-                acc_dk = [torch.zeros(ks.stop - k0, sl.stop - sl.start) for sl in slices]
-                acc_dv = [torch.zeros_like(a) for a in acc_dk]
-                for h in range(hk * n_rep, (hk + 1) * n_rep):  # the KV head's query heads
-                    for qt in range(*FA.q_tile_range(k0, rows, queries, t, causal, window)):
-                        qs = slice(qt * queries, min(t, qt * queries + queries))
-                        qq, dd = q[bi, qs, h], do[bi, qs, h]
-                        s = sum(kk[:, sl] @ qq[:, sl].T for sl in slices)  # S^T
-                        dp = sum(vv[:, sl] @ dd[:, sl].T for sl in slices)  # dP^T
-                        p = torch.exp2(s * (scale * log2e) - lse[bi, h, None, qs] * log2e)
-                        p = torch.where(valid[bi, qs, ks].T, p, 0.0)
-                        ds = p * (dp - delta[bi, None, qs, h])
-                        hi = _bf16(ds)
-                        lo = _bf16(ds - hi)
-                        acc_dv = [a + p @ dd[:, sl] for a, sl in zip(acc_dv, slices)]
-                        acc_dk = [a + hi @ qq[:, sl] + lo @ qq[:, sl]
-                                  for a, sl in zip(acc_dk, slices)]
-                dk[bi, ks, hk] = torch.cat(acc_dk, -1) * scale
-                dv[bi, ks, hk] = torch.cat(acc_dv, -1)
+                for slices in passes:  # each pass forms the scores again
+                    acc_dk = [torch.zeros(ks.stop - k0, sl.stop - sl.start) for sl in slices]
+                    acc_dv = [torch.zeros_like(a) for a in acc_dk]
+                    for h in range(hk * n_rep, (hk + 1) * n_rep):  # the KV head's query heads
+                        for qt in range(*FA.q_tile_range(k0, rows, queries, t, causal, window)):
+                            qs = slice(qt * queries, min(t, qt * queries + queries))
+                            qq, dd = q[bi, qs, h], do[bi, qs, h]
+                            s = sum(kk[:, sl] @ qq[:, sl].T for sl in runs)  # S^T
+                            dp = sum(vv[:, sl] @ dd[:, sl].T for sl in runs)  # dP^T
+                            p = torch.exp2(s * (scale * log2e) - lse[bi, h, None, qs] * log2e)
+                            p = torch.where(valid[bi, qs, ks].T, p, 0.0)
+                            ds = p * (dp - delta[bi, None, qs, h])
+                            hi = _bf16(ds)
+                            lo = _bf16(ds - hi)
+                            acc_dv = [a + p @ dd[:, sl] for a, sl in zip(acc_dv, slices)]
+                            acc_dk = [a + hi @ qq[:, sl] + lo @ qq[:, sl]
+                                      for a, sl in zip(acc_dk, slices)]
+                    for sl, a_dk, a_dv in zip(slices, acc_dk, acc_dv):
+                        dk[bi, ks, hk, sl] = a_dk * scale
+                        dv[bi, ks, hk, sl] = a_dv
     return dk, dv
 
 
@@ -133,9 +154,9 @@ def cluster_dq(q, k, v, do, *, scale, causal, window, kv_mask):
     b, t, hq, d = q.shape
     n_rep = hq // k.shape[2]
     plan = FA.dq_plan(d)
-    assert plan["route"] == "cluster" and sum(plan["slices"]) == d
+    assert plan["route"] in ("cluster", "cluster passes")
     rows, keys = plan["bq"], plan["bk"]
-    slices = _slices(plan["slices"])
+    runs, passes = _cluster_columns(plan)
     lse, delta, valid = _backward_inputs(q, k, v, do, scale=scale, causal=causal,
                                          window=window, kv_mask=kv_mask)
     log2e = 1.0 / np.log(2.0)
@@ -145,19 +166,21 @@ def cluster_dq(q, k, v, do, *, scale, causal, window, kv_mask):
             hk = h // n_rep
             for q0 in range(0, t, rows):
                 qs = slice(q0, min(t, q0 + rows))
-                acc = [torch.zeros(qs.stop - q0, sl.stop - sl.start) for sl in slices]
-                for kt in range(*FA.kv_tile_range(q0, rows, keys, t, causal, window)):
-                    ks = slice(kt * keys, min(t, kt * keys + keys))
-                    kk, vv = k[bi, ks, hk], v[bi, ks, hk]
-                    s = sum(q[bi, qs, h, sl] @ kk[:, sl].T for sl in slices)
-                    dp = sum(do[bi, qs, h, sl] @ vv[:, sl].T for sl in slices)
-                    p = torch.exp2(s * (scale * log2e) - lse[bi, h, qs, None] * log2e)
-                    p = torch.where(valid[bi, qs, ks], p, 0.0)
-                    ds = p * (dp - delta[bi, qs, h, None])
-                    hi = _bf16(ds)
-                    lo = _bf16(ds - hi)
-                    acc = [a + hi @ kk[:, sl] + lo @ kk[:, sl] for a, sl in zip(acc, slices)]
-                dq[bi, qs, h] = torch.cat(acc, -1) * scale
+                for slices in passes:  # each pass forms the scores again
+                    acc = [torch.zeros(qs.stop - q0, sl.stop - sl.start) for sl in slices]
+                    for kt in range(*FA.kv_tile_range(q0, rows, keys, t, causal, window)):
+                        ks = slice(kt * keys, min(t, kt * keys + keys))
+                        kk, vv = k[bi, ks, hk], v[bi, ks, hk]
+                        s = sum(q[bi, qs, h, sl] @ kk[:, sl].T for sl in runs)
+                        dp = sum(do[bi, qs, h, sl] @ vv[:, sl].T for sl in runs)
+                        p = torch.exp2(s * (scale * log2e) - lse[bi, h, qs, None] * log2e)
+                        p = torch.where(valid[bi, qs, ks], p, 0.0)
+                        ds = p * (dp - delta[bi, qs, h, None])
+                        hi = _bf16(ds)
+                        lo = _bf16(ds - hi)
+                        acc = [a + hi @ kk[:, sl] + lo @ kk[:, sl] for a, sl in zip(acc, slices)]
+                    for sl, a in zip(slices, acc):
+                        dq[bi, qs, h, sl] = a * scale
     return dq
 
 
@@ -168,11 +191,17 @@ DQ_CASES = [
     (1, 40, 2, 1, 2048, False, None, False),  # the widest portable cluster: 8 CTAs
     (1, 40, 4, 2, 2112, True, 24, True),      # 9 CTAs, uneven slices (three of 64 columns)
     (1, 40, 4, 2, 4096, True, 24, True),      # the widest cluster: 16 CTAs
+    (1, 40, 4, 2, 4160, True, 24, True),      # two passes of 16-key tiles
+    (1, 40, 2, 1, 6144, False, None, True),   # 128 | 64
+    (1, 40, 4, 2, 8192, True, 24, True),      # the reach: 128 | 128
 ]
 DKV_CASES = [
     (2, 70, 4, 2, 640, True, 40, True),    # two key tiles, three query tiles a query head
     (1, 40, 4, 2, 2112, True, 24, True),
     (1, 40, 4, 2, 4096, True, 24, True),
+    (1, 40, 4, 2, 4160, True, 24, True),   # two passes of 16-query tiles
+    (1, 40, 2, 1, 6144, False, None, True),  # 128 | 64
+    (1, 40, 4, 2, 8192, True, 24, True),   # the reach: 128 | 128
 ]
 
 

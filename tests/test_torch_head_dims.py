@@ -12,9 +12,11 @@ itself, and at 576, 640 and 1024 (the wide kernels' widths; decode pads 576 and 
 768); tolerance 1e-5 absolute and relative. Then the card's branch on meta tensors
 (which stand for the card in the budget's trace): a head dim outside the kernels' set
 goes through the pad (320 and 600 too), 512 and the multiples of 64 above it go
-straight to the kernels, 513 is padded to 576. The plans above 512: K1, K4 and K5 on the
-cluster kernels up to 4096, past it on the column blocks; K3 on a cluster at every width,
-more than one 256-column block a CTA past 2048."""
+straight to the kernels, 513 is padded to 576. The plans above 512: K1 on the cluster
+kernel up to 4096, K4 and K5 up to 8192 (two passes over the output columns past 4096),
+past that on the column blocks; K3 on a cluster at every width, more than one 256-column
+block a CTA past 2048. The plain backward (the CPU's K4 and K5) against the JAX package's
+at head dims past 4096, where the card runs the two passes."""
 
 import jax
 import jax.numpy as jnp
@@ -158,34 +160,70 @@ def test_card_branch_pads_on_meta_tensors():
     assert FA.forward_plan(FA.padded_head_dim(513))["slices"] == [192, 128, 128, 128]
 
 
-@pytest.mark.parametrize("d,blocks", [(576, 5), (640, 5), (1024, 8), (4096, 32), (4160, 33)])
+@pytest.mark.parametrize("d,blocks", [(576, 5), (640, 5), (1024, 8), (4096, 32), (4160, 33),
+                                      (6144, 48), (8192, 64), (8256, 65)])
 def test_wide_plans(d, blocks):
-    """The plans above 512: K1's, K4's and K5's clusters up to 4096 (K4's and K5's of 16
-    CTAs there) and their column blocks past it (4160: 64-row tiles over 128-column
-    blocks, the last of 64, the scores over 64-column chunks); the same tile ranges as the
-    kernels'."""
+    """The plans above 512: K1's clusters up to 4096 and their column blocks past it
+    (4160: 64-row tiles over 128-column blocks, the last of 64, the scores over 64-column
+    chunks); K4's and K5's clusters up to 4096 (16 CTAs there), two passes over the output
+    columns on 16 CTAs from 4160 to 8192 (16 rows a ring stage),
+    the column blocks past 8192; the same tile ranges as the kernels'."""
     fwd, dkv, dq = FA.forward_plan(d), FA.dkv_plan(d), FA.dq_plan(d)
+    column_blocks = {"col_block": 128, "col_blocks": blocks, "chunk": 64}
     if d > FA.REACH["fwd"]:
-        assert fwd == {"route": "column blocks", "bq": 64, "bk": 64, "col_block": 128,
-                       "col_blocks": blocks, "chunk": 64}
+        assert fwd == {"route": "column blocks", "bq": 64, "bk": 64, **column_blocks}
     else:
         assert fwd["route"] == "cluster" and sum(fwd["slices"]) == d
         assert {k: fwd[k] for k in ("bq", "bk")} == {"bq": 64, "bk": 32}
-    if d <= FA.REACH["dkv"]:
+    if d <= 4096:
         assert dkv["route"] == "cluster" and sum(dkv["slices"]) == d
         assert {k: dkv[k] for k in ("bk", "bq")} == {"bk": 64, "bq": 32}
         assert dq["route"] == "cluster" and dq["slices"] == dkv["slices"]
         assert {k: dq[k] for k in ("bq", "bk")} == {"bq": 64, "bk": 32}
+    elif d <= FA.REACH["dkv"]:
+        ring = 16
+        assert dkv["route"] == dq["route"] == "cluster passes"
+        assert dkv["passes"] == dq["passes"] == 2 and dkv["cluster"] == dq["cluster"] == 16
+        assert sum(dkv["slices"]) == d and dq["slices"] == dkv["slices"]
+        assert {k: dkv[k] for k in ("bk", "bq")} == {"bk": 64, "bq": ring}
+        assert {k: dq[k] for k in ("bq", "bk")} == {"bq": 64, "bk": ring}
     else:
-        assert dkv == {"route": "column blocks", "bk": 64, "bq": 64, "col_block": 128,
-                       "col_blocks": blocks, "chunk": 64}
-        assert dq == {"route": "column blocks", "bq": 64, "bk": 64, "col_block": 128,
-                      "col_blocks": blocks, "chunk": 64}
+        assert dkv == {"route": "column blocks", "bk": 64, "bq": 64, **column_blocks}
+        assert dq == {"route": "column blocks", "bq": 64, "bk": 64, **column_blocks}
     assert FA.kv_tile_range(128, 64, 64, 1024, True, 512) == (0, 3)
     assert FA.q_tile_range(128, 64, 64, 1024, True, 512) == (2, 11)
     for bad in (520, 600):
         with pytest.raises(ValueError, match="multiple of 64"):
             FA.forward_plan(bad)
+
+
+@pytest.mark.parametrize("d", [4160, 6144, 8192])
+def test_plain_backward_past_4096_matches_pallas(d):
+    """The plain K4 and K5 (``flash_attention_bwd_reference``, what the CPU runs where the
+    card runs the two-pass cluster kernels) against the JAX package's backward (its Pallas
+    kernels in interpret mode) at head dims past 4096: T = 16, GQA 2/1, causal with a
+    window of 5, the second row's last 4 keys padded; fp32, 1e-4."""
+    rng = np.random.default_rng(30 + d // 64)
+    b, t, hq, hkv = 2, 16, 2, 1
+    q = rng.standard_normal((b, t, hq, d), dtype=np.float32)
+    k, v = (rng.standard_normal((b, t, hkv, d), dtype=np.float32) for _ in range(2))
+    do = rng.standard_normal((b, t, hq, d), dtype=np.float32)
+    mask = np.ones((b, t), np.int32)
+    mask[1, t - 4:] = 0
+    kw = dict(causal=True, window=5)
+    tq, tk, tv, tm = (torch.tensor(x) for x in (q, k, v, mask))
+    out, lse = FA.flash_attention_reference(tq, tk, tv, kv_mask=tm, scale=d ** -0.5, **kw)
+    ours = FA.flash_attention_bwd_reference(tq, tk, tv, tm, out, lse, torch.tensor(do),
+                                            scale=d ** -0.5, **kw)
+
+    def attend(q_, k_, v_):
+        return JFA.flash_attention(q_, k_, v_, kv_mask=jnp.asarray(mask), interpret=True, **kw)
+
+    theirs, vjp = jax.vjp(attend, *map(jnp.asarray, (q, k, v)))
+    np.testing.assert_allclose(out.numpy(), np.asarray(theirs), rtol=1e-4, atol=1e-4)
+    for name, mine, g in zip("qkv", ours, vjp(jnp.asarray(do))):
+        np.testing.assert_allclose(mine.numpy(), np.asarray(g), rtol=1e-4, atol=1e-4,
+                                   err_msg=f"d{name}")
 
 
 @pytest.mark.parametrize("d,rows,cluster,groups,slices", [

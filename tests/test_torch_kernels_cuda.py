@@ -235,7 +235,11 @@ def _rel_close(got, ref, rel=2e-2):
     (2, 300, 4, 2, 2048, True, 100, "left", True),     # the widest portable cluster: 8 CTAs
     (2, 200, 4, 1, 2112, True, 37, "right", False),    # 9 CTAs, uneven slices
     (2, 300, 4, 2, 4096, True, 100, "left", True),     # the widest cluster: 16 CTAs
-    (2, 129, 2, 1, 4160, False, None, "right", False),  # past the reach: the column blocks
+    (2, 129, 2, 1, 4160, False, None, "right", False),  # K4, K5: two passes of 16 rows a stage
+    (2, 150, 4, 2, 6144, True, 37, "left", False),     # passes of 128 | 64
+    (2, 200, 4, 2, 8192, True, 100, "right", True),    # the reach of K4 and K5
+    (2, 150, 4, 2, 8192, True, None, "left", False),
+    (2, 70, 2, 1, 8256, True, None, "right", False),   # past every reach: the column blocks
 ])
 def test_flash_backward_kernels(card, b, t, hq, hkv, d, causal, window, pad, sliced):
     rng = np.random.default_rng(4)
@@ -270,7 +274,10 @@ def test_flash_backward_kernels(card, b, t, hq, hkv, d, causal, window, pad, sli
                                                       (200, 576, 4, 2, False, None),
                                                       (300, 2048, 4, 2, True, 64),
                                                       (150, 2112, 4, 1, True, 37),
-                                                      (150, 4096, 4, 2, True, None)])
+                                                      (150, 4096, 4, 2, True, None),
+                                                      (150, 4160, 4, 2, True, None),
+                                                      (150, 6144, 4, 2, True, 37),
+                                                      (129, 8192, 4, 1, False, None)])
 def test_flash_dkv_reruns_are_bit_equal(card, t, d, hq, hkv, causal, window):
     """Each element of dK, dV and dQ is summed by one thread in program order (the query
     heads of a KV head inside the CTA too): a rerun gives the same bits."""
@@ -294,11 +301,15 @@ def test_flash_dkv_reruns_are_bit_equal(card, t, d, hq, hkv, causal, window):
     (300, 2048, 4, 2, False, None, "cluster"),  # the widest portable cluster: 8 CTAs
     (150, 2112, 4, 1, True, None, "cluster"),   # 9 CTAs (non-portable), uneven slices
     (150, 4096, 4, 2, True, 37, "cluster"),     # the widest cluster: 16 CTAs
-    (129, 4160, 4, 1, True, None, "column blocks"),  # the first width past the reach
+    (129, 4160, 4, 1, True, None, "cluster passes"),  # two passes, 16 keys a stage
+    (150, 6144, 4, 2, True, 37, "cluster passes"),    # passes of 128 | 64
+    (129, 8192, 4, 2, False, None, "cluster passes"),  # the reach
+    (70, 8256, 2, 1, True, None, "column blocks"),    # the first width past it
 ])
 def test_dq_kernel_above_512(card, t, d, hq, hkv, causal, window, route):
-    """K5 above 512 on its plan's route (the cluster kernel up to 4096, the column blocks
-    past it) against its plain version, with right padding, a rerun bit-equal."""
+    """K5 above 512 on its plan's route (the cluster kernel up to 4096, in two passes up to
+    8192, the column blocks past it) against its plain version, with right padding, a
+    rerun bit-equal."""
     assert FA.dq_plan(d)["route"] == route
     rng = np.random.default_rng(13)
     q, k, v = _qkv(rng, 2, t, hq, hkv, d, card)
@@ -320,12 +331,15 @@ def test_dq_kernel_above_512(card, t, d, hq, hkv, causal, window, route):
     (200, 2112, 4, 1, True, None, "cluster"),  # 9 CTAs (non-portable), uneven slices
     (300, 3072, 4, 2, True, 64, "cluster"),    # 12 CTAs
     (150, 4096, 4, 1, False, None, "cluster"),  # the widest cluster: 16 CTAs
-    (129, 4160, 4, 2, True, None, "column blocks"),  # the first width past the reach
+    (129, 4160, 4, 2, True, None, "cluster passes"),  # two passes, 16 queries a stage
+    (200, 6144, 4, 1, True, 100, "cluster passes"),   # passes of 128 | 64
+    (150, 8192, 4, 2, True, 37, "cluster passes"),    # the reach
+    (70, 8256, 2, 1, True, None, "column blocks"),    # the first width past it
 ])
 def test_dkv_kernel_past_2048(card, t, d, hq, hkv, causal, window, route):
-    """K4 past head dim 2048 on its plan's route (clusters of 9-16 CTAs up to 4096, the
-    column blocks past it) against its plain version, with right padding, a rerun
-    bit-equal."""
+    """K4 past head dim 2048 on its plan's route (clusters of 9-16 CTAs up to 4096, 16 CTAs
+    in two passes up to 8192, the column blocks past it) against its plain version, with
+    right padding, a rerun bit-equal."""
     assert FA.dkv_plan(d)["route"] == route
     rng = np.random.default_rng(14)
     q, k, v = _qkv(rng, 2, t, hq, hkv, d, card)
@@ -346,25 +360,35 @@ def test_dkv_kernel_past_2048(card, t, d, hq, hkv, causal, window, route):
 
 
 def test_nonportable_clusters_are_placed(card):
-    """K4 and K5 in clusters of 9-16 CTAs (head dims 2304-4096, 256 a CTA) at their plans'
-    shared memory: the card holds at least one such cluster at once (the occupancy query
-    on the kernel allowed non-portable sizes); K1 stays within 8."""
+    """K4 and K5 in clusters of 9-16 CTAs (head dims 2304-4096, 256 a CTA) and in 16 CTAs
+    of two passes (4160-8192, at each stage count of the plans) at their
+    plans' shared memory: the card holds at least one such cluster at once (the occupancy
+    query on the kernel allowed non-portable sizes); K1 stays within 8."""
     for c in range(9, 17):
         for kind in ("dkv", "dq"):
             assert FA.cluster_plan(256 * c, kind)["cluster"] == c
             assert FA.cluster_fit(256 * c, kind) >= 1, (kind, c)
+    for d in (4160, 6144, 6208, 7232, 8192):
+        for kind in ("dkv", "dq"):
+            assert FA.cluster_plan(d, kind)["cluster"] == 16
+            assert FA.cluster_fit(d, kind) >= 1, (kind, d)
     assert FA.cluster_plan(4096, "fwd")["cluster"] == 8 and FA.cluster_fit(4096, "fwd") >= 1
 
 
 def test_cluster_launch_outside_the_plan_raises(card):
     """A cluster size or ring other than the plan's is refused by the kernel's entry point
-    (K4 at 17 CTAs, K1 at 16) and raised by the wrapper's check: nothing is retried at
-    another size."""
+    (K4 at 17 CTAs, K1 at 16, K4 at 8192 with stages of 32 queries or 8 CTAs, K5 past its
+    reach) and raised by the wrapper's check: nothing is retried at another size."""
     from projectiontrainer_tpu_torch.kernels import _build
 
     lib = _build.library()
-    assert lib.flash_attn_cluster_fit(1, 4096, 17, 3) == -1
-    assert lib.flash_attn_cluster_fit(0, 4096, 16, 2) == -1
+    assert lib.flash_attn_cluster_fit(1, 4096, 17, 3, 32) == -1
+    assert lib.flash_attn_cluster_fit(0, 4096, 16, 2, 32) == -1
+    assert lib.flash_attn_cluster_fit(1, 8192, 16, 2, 32) == -1
+    assert lib.flash_attn_cluster_fit(2, 4160, 16, 4, 32) == -1
+    assert lib.flash_attn_cluster_fit(1, 8192, 8, 2, 16) == -1
+    assert lib.flash_attn_cluster_fit(2, 8256, 16, 2, 16) == -1
+    assert lib.flash_attn_cluster_fit(1, 8192, 16, 2, 16) >= 1
     rng = np.random.default_rng(15)
     q, k, v = _qkv(rng, 1, 64, 2, 1, 4096, card)
     do = _bf16(rng, (1, 64, 2, 4096), card)
@@ -376,7 +400,7 @@ def test_cluster_launch_outside_the_plan_raises(card):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None, do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), 1, 64, 2, 1, 4096,
         FA._strides(q, k, v, do, dk, dv), FA._bwd_maps(q, k, v, do, plan), 17,
-        plan["stages"], 4096 ** -0.5, 0, 0, torch.cuda.current_stream().cuda_stream)
+        plan["stages"], plan["bq"], 4096 ** -0.5, 0, 0, torch.cuda.current_stream().cuda_stream)
     with pytest.raises(RuntimeError, match="cudaError"):
         _build.check("flash_attn_cluster_bwd_dkv_bf16", err)
 
