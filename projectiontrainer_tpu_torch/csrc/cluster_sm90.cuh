@@ -2,10 +2,10 @@
 // shared memory (mapped addresses, st.async counted on the receiver's mbarrier, remote
 // arrivals), a sum of fp32 partials held in each CTA's shared memory over the cluster
 // (ClusterSum), and the launch with the cluster-dimension attribute (clusters above the
-// portable 8 CTAs, up to the H100's 16, allowed on the kernel only where asked for: K4 and
-// K5 past head dim 2048). Used by flash_attn_cluster.cu (K1/K4/K5 above head dim 512),
-// decode_attention.cu (K3 above 512) and layernorm_bwd.cu (K8's rows from 19,369 to 32,768
-// wide).
+// portable 8 CTAs, up to the H100's 16, allowed on the kernel only where asked for: K1 past
+// head dim 4096, K4 and K5 past 2048). Used by flash_attn_cluster.cu (K1/K4/K5 above head
+// dim 512), decode_attention.cu (K3 above 512) and layernorm_bwd.cu (K8's rows from 19,369
+// to 32,768 wide).
 
 #pragma once
 
@@ -146,8 +146,8 @@ struct ClusterSum {
 // `kernel` set up for clusters of `cluster` CTAs at `smem` bytes of dynamic shared memory:
 // above the portable 8 it is allowed the non-portable sizes. The attribute stays on the
 // kernel for the rest of the process, so a later launch of the same kernel in at most 8
-// CTAs carries it too (it only permits the larger sizes); K1's, K3's and K8's kernels never
-// ask for more than 8 and never get it
+// CTAs carries it too (it only permits the larger sizes); K3's and K8's kernels never ask
+// for more than 8 and never get it
 template <typename Kernel>
 cudaError_t cluster_attributes(Kernel kernel, int cluster, uint32_t smem) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -1,11 +1,11 @@
 // Flash attention at head dims above 512 for Hopper (sm_90a), split over a thread-block
-// cluster: the forward (K1) at D <= 4096, dK/dV (K4) and dQ (K5) at D <= 8192, any multiple
-// of 64 (the wrapper zero-pads the others), bf16 in and out, fp32 accumulation.
+// cluster: the forward (K1), dK/dV (K4) and dQ (K5) at D <= 8192, any multiple of 64 (the
+// wrapper zero-pads the others), bf16 in and out, fp32 accumulation.
 //
 // Replaces the TPU kernels projectiontrainer_tpu/ops/flash_attention.py:_fwd_kernel,
 // :_bwd_dkv_kernel and :_bwd_dq_kernel at those widths (the JAX kernels take any head dim:
-// their K/V block is the whole [T, D] of a head). Past the reach (K1 above 4096, K4 and K5
-// above 8192) flash_attn_wide.cu's column blocks run instead (ops/flash_attention.py:
+// their K/V block is the whole [T, D] of a head). Past the reach (D above 8192)
+// flash_attn_wide.cu's column blocks run instead (ops/flash_attention.py:
 // forward_plan, dkv_plan, dq_plan). Same contract as flash_attn_wide.cu: causal, sliding
 // window, per-batch key padding mask, GQA, rows with no valid key give 0 and zero
 // gradients, O divided by the sum of the bf16-rounded weights its product applied, lse =
@@ -85,16 +85,17 @@
 // registers whatever was tried: O or dK/dV spilled and every wgmma was serialized. The
 // slice's width and the contraction's length are compile-time constants of the loop (one
 // copy a pair): a wgmma chain under a runtime guard is serialized too.
-// Launched with cudaLaunchKernelEx and the cluster-dimension attribute: K1 in at most 8
-// CTAs (the portable limit; its 256 columns a warpgroup reach 4096 there), K4 and K5 in up
-// to 16 (ceil(D / 256): 9-16 CTAs from 2112 to 4096, 16 past it; the kernel allowed the
-// H100's non-portable cluster sizes above 8). A CTA's shared memory does not grow with the
-// cluster: the exchange's piece shrinks as C grows (at C = 16, 64 of the 1024 chunks a CTA,
-// each summed over 32 partials by one of its threads and sent to 16 CTAs), so K4 and K5
-// keep three ring stages from 1024 to 4096. A cluster the card cannot place is the
-// launch's error, raised by the wrapper; nothing retries at a smaller size. The cluster
-// primitives are cluster_sm90.cuh's. Measured: PERF.md (kernels/check_flash_attn.py,
-// chip_smoke.py phase 2).
+// Launched with cudaLaunchKernelEx and the cluster-dimension attribute, in up to 16 CTAs
+// (the kernel allowed the H100's non-portable cluster sizes above the portable 8): K1 in
+// ceil(D / 512) (its 256 columns a warpgroup: 9-16 CTAs from 4160 to 8192), K4 and K5 in
+// ceil(D / 256) (9-16 from 2112 to 4096, 16 past it). A CTA's shared memory does not grow
+// with the cluster: the exchange's piece shrinks as C grows (at C = 16, 64 of K4's 1024
+// chunks a CTA and 32 of K1's 512, each summed over 32 partials by one of its threads and
+// sent to 16 CTAs), so K4 and K5 keep three ring stages from 1024 to 4096 and K1 two at
+// 4160-8192, as at 4096 (CTA 0's Q and ring stages of 512 columns). A cluster the card
+// cannot place is the launch's error, raised by the wrapper; nothing retries at a smaller
+// size. The cluster primitives are cluster_sm90.cuh's. Measured: PERF.md
+// (kernels/check_flash_attn.py, chip_smoke.py phase 2).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -1046,16 +1047,15 @@ cluster_dq_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_consta
   cluster_sync();
 }
 
-// the plan the wrapper computed against this file's: the same, or refused. K1 in at most the
-// portable 8 CTAs and one pass at 32 keys a stage; K4 and K5 in up to the H100's 16, in one
-// pass at 32 rows a stage or two at 16 (the kernels' instances)
+// the plan the wrapper computed against this file's: the same, or refused. Each kernel in up
+// to the H100's 16 CTAs; K1 in one pass at 32 keys a stage, K4 and K5 in one pass at 32 rows
+// a stage or two at 16 (the kernels' instances)
 bool plan_ok(Kind kind, int D, int cluster, int stages, int tile, float scale) {
   if (!(D > 512 && D % BOX == 0 && scale > 0.f)) return false;
   const int nb = D / BOX;
-  const int most = kind == FWD ? MAX_CLUSTER : MAX_NONPORTABLE_CLUSTER;
   return plan_passes(kind, nb) <= MAX_PASSES && cluster == plan_cluster(kind, nb) &&
-         cluster >= 2 && cluster <= most && tile == plan_tile(kind, nb) && stages >= 2 &&
-         stages == plan_stages(kind, nb, cluster, tile);
+         cluster >= 2 && cluster <= MAX_NONPORTABLE_CLUSTER && tile == plan_tile(kind, nb) &&
+         stages >= 2 && stages == plan_stages(kind, nb, cluster, tile);
 }
 
 // K4's (K == DKV) or K5's instance for a plan of `passes` passes, at its ring tile (tile_of)

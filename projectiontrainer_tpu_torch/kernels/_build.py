@@ -39,8 +39,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-lineinfo")
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-# CTAs a thread-block cluster at most, the portable size (csrc/cluster_sm90.cuh); only K4
-# and K5 go past it (ops/flash_attention.py:MAX_CLUSTER)
+# CTAs a thread-block cluster at most, the portable size (csrc/cluster_sm90.cuh): K3's and
+# K8's limit; K1, K4 and K5 go past it, to 16 (ops/flash_attention.py:MAX_CLUSTER)
 MAX_CLUSTER = 8
 
 # C signatures of the entry points (see the ``extern "C"`` blocks of csrc/*.cu)
@@ -65,7 +65,7 @@ SIGNATURES = {
     # the three above; B, T, Hq, Hkv, D; strides (long long[]: (b, t, h) of q, k, v, then
     # out / dout, dk, dv / dout, dq); scale, causal, window; stream
     "flash_attn_wide_fwd_bf16": [_P] * 7 + [_I] * 5 + [_P, _F, _I, _I, _P],
-    # the cluster kernels (K1 at head dims 576-4096, K4 and K5 at 576-8192,
+    # the cluster kernels (K1, K4 and K5 at head dims 576-8192,
     # csrc/flash_attn_cluster.cu): the signatures of flash_attn_fwd_bf16,
     # flash_attn_bwd_dkv_bf16 and flash_attn_bwd_dq_bf16, the cluster size and ring stages
     # (and K4's and K5's ring tile) in place of the tiles

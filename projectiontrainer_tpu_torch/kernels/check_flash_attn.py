@@ -12,11 +12,11 @@ Needs an NVIDIA GPU and ``nvcc``. Prints one JSON line per step:
   of two passes too) fails the run, the others' are reported (``flash_attn_wide.cu``'s
   ``wide_dkv_kernel``, K4 past 8192, spills);
 - ``--wide``: only the head dims above 512 (``csrc/flash_attn_cluster.cu`` up to its reach,
-  4096 for K1 and 8192 for K4 and K5 (two passes past 4096), and past it
+  8192 for K1, K4 and K5 (K4 and K5 in two passes past 4096), and past it
   ``csrc/flash_attn_wide.cu``), checked and, with ``--time``, timed at ``WIDE_TIMED``;
   first the clusters the card holds at once (``cluster_fit``) for K4 and K5 in 9-16 CTAs
   (head dims 2304-4096), in 16 CTAs of two passes (4160-8192, at each stage count)
-  and K1 in 8. The script times whatever package ``projectiontrainer_tpu_torch``
+  and K1 in 8-16 (4096-8192). The script times whatever package ``projectiontrainer_tpu_torch``
   resolves to: run it by path with ``PYTHONPATH`` set to another checkout (one whose
   ``ops/flash_attention.py`` has ``cluster_fit``) to time that tree's kernels on these
   shapes (its ``package`` line says which; the fits asked of it are those within its
@@ -34,8 +34,11 @@ Needs an NVIDIA GPU and ``nvcc``. Prints one JSON line per step:
 - ``--time``: device times (``utils/timing.py:device_ms``: launches queued behind a
   spinning kernel, so the host's launch time is not in them) of kernel, plain version and
   the library call (``scaled_dot_product_attention`` and its autograd backward, a
-  yardstick the port never calls), in turns, at the shapes of PERF.md's table; and for
-  the forward the CUDA-event time of one launch at a time, which holds the host's share.
+  yardstick the port never calls; under GQA also the forward on k and v repeated to the
+  query heads, which SDPA's efficient backend takes), in turns, at the shapes of
+  PERF.md's table; above 512 K1's column blocks (``csrc/flash_attn_wide.cu``, the route
+  past the reach) on the same inputs beside the cluster kernel; and for the forward the
+  CUDA-event time of one launch at a time, which holds the host's share.
 """
 
 from __future__ import annotations
@@ -85,10 +88,10 @@ CASES = [
     (2, 150, 4, 1, 512, True, 37, "left", False),
     (2, 257, 4, 4, 512, False, None, "right", True),
     (1, 63, 2, 2, 512, False, None, None, False),
-    # above 512: K1, K4 and K5 on the cluster kernel up to 4096 (K4 and K5 in 9-16 CTAs past
-    # 2048), K4 and K5 in two passes on 16 CTAs from 4160 to 8192 (K1 past 4096 on the
-    # column blocks), what lies past 8192 on the column blocks (ops/flash_attention.py:
-    # forward_plan, dkv_plan, dq_plan)
+    # above 512: K1, K4 and K5 on the cluster kernel up to 8192 (K4 and K5 in 9-16 CTAs past
+    # 2048 and in two passes on 16 CTAs from 4160, K1 in 9-16 CTAs past 4096), what lies
+    # past 8192 on the column blocks (ops/flash_attention.py: forward_plan, dkv_plan,
+    # dq_plan)
     (2, 1024, 4, 1, 1024, True, 512, None, False),      # chip_smoke.py phase 2's shapes
     (4, 576, 4, 4, 640, False, None, None, False),
     (2, 150, 4, 1, 576, True, 37, "left", False),       # uneven slices: 192 | 128 | ...
@@ -103,17 +106,18 @@ CASES = [
     (2, 150, 4, 2, 2112, True, 37, "left", False),      # K4 and K5 in 9 CTAs, uneven slices
     (1, 512, 4, 1, 2112, True, None, None, False),      # chip_smoke.py phase 2's shapes
     (2, 200, 4, 2, 3072, True, 100, "right", True),     # 12 CTAs
-    (1, 512, 4, 1, 4096, True, None, None, False),      # 16 CTAs (K1: 8)
+    (1, 512, 4, 1, 4096, True, None, None, False),      # 16 CTAs (K1: 8, portable)
     (2, 150, 4, 2, 4096, True, 37, "left", False),
-    (1, 512, 4, 1, 4160, True, None, None, False),      # K4, K5: two passes (K1: column blocks)
+    (1, 512, 4, 1, 4160, True, None, None, False),      # K4, K5: two passes (K1: 9 CTAs, uneven)
     (2, 70, 2, 1, 4160, True, None, "right", True),
     (2, 150, 4, 2, 4160, True, 37, "left", False),
+    (2, 100, 4, 2, 4608, True, 37, "left", False),      # K1: 9 CTAs of 512 columns
     (2, 130, 4, 1, 5120, True, 64, "right", False),     # 16 rows a stage; runs of 3 | 2 blocks
     (2, 200, 4, 2, 6144, True, 100, "right", True),     # passes of 128 | 64
     (2, 150, 4, 2, 6144, True, None, "left", False),
     (2, 100, 4, 2, 5184, True, None, "right", False),   # passes of 128 | 64, 64 | 64
     (2, 129, 4, 4, 7232, False, None, "right", False),  # passes of 128 | 128, 128 | 64
-    (1, 512, 4, 1, 8192, True, None, None, False),      # the reach of K4 and K5
+    (1, 512, 4, 1, 8192, True, None, None, False),      # the reach (K1: 16 CTAs)
     (2, 150, 4, 2, 8192, True, 37, "left", False),
     (2, 129, 4, 4, 8192, False, None, "right", True),
     (2, 70, 2, 1, 8256, True, None, "right", False),    # past every reach: the column blocks
@@ -291,8 +295,24 @@ def sdpa(q, k, v, mask, scale, causal):
     raise RuntimeError("no scaled_dot_product_attention backend took these inputs")
 
 
+def column_blocks_fwd(q, k, v, mask, *, scale, causal, window):
+    """K1 on the column blocks (``csrc/flash_attn_wide.cu``, the route past the cluster
+    kernel's reach) at any width above 512, whatever the plan's route there: the yardstick
+    of the cluster kernel on the same inputs -> (out, lse)."""
+    b, t, hq, d = q.shape
+    bufs = _build.allocate(FA.fwd_buffers(q), q.device)
+    name = "flash_attn_wide_fwd_bf16"
+    err = getattr(_build.library(), name)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), FA._ptr(FA._mask_arg(mask, q)),
+        bufs["out"].data_ptr(), bufs["lse"].data_ptr(), None, b, t, hq, k.shape[2], d,
+        FA._strides(q, k, v, bufs["out"]), scale, int(causal), int(window or 0),
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(name, err)
+    return bufs["out"], bufs["lse"]
+
+
 def time_case(b, t, hq, hkv, d, causal, window, pad, sliced) -> None:
-    from projectiontrainer_tpu_torch.ops.attention import attention_probs
+    from projectiontrainer_tpu_torch.ops.attention import attention_probs, repeat_kv
 
     q, k, v, do, mask = inputs(b, t, hq, hkv, d, pad, sliced)
     kw = dict(scale=d ** -0.5, causal=causal, window=window)
@@ -306,37 +326,49 @@ def time_case(b, t, hq, hkv, d, causal, window, pad, sliced) -> None:
     leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
     lib_out = sdpa(*leaves, seen, kw["scale"], causal)[0]()
     dout = do.transpose(1, 2)
+    timed = [("fwd_plain", lambda: FA.flash_attention_reference(q, k, v, kv_mask=mask, **kw)),
+             ("fwd_kernel", lambda: FA._launch(q, k, v, kv_mask=mask, **kw)),
+             ("fwd_library", lib)]
+    row = {"case": [b, t, hq, hkv, d, causal, window, pad, sliced], "library": backend,
+           "routes": [plan(d).get("route", "wgmma")
+                      for plan in (FA.forward_plan, FA.dkv_plan, FA.dq_plan)]}
+    if hq != hkv:  # SDPA's efficient backend takes k and v repeated, not the GQA caches
+        kv = (repeat_kv(k, hq // hkv), repeat_kv(v, hq // hkv))
+        lib_rep, row["library_kv_repeated"] = sdpa(q, *kv, seen, kw["scale"], causal)
+        timed.append(("fwd_library_kv_repeated", lib_rep))
+    if row["routes"][0] == "cluster":  # the column blocks beside the cluster kernel
+        blocks = column_blocks_fwd(q, k, v, mask, **kw)
+        torch.cuda.synchronize()
+        row["column_blocks_err"] = float((blocks[0].float() - out.float()).abs().max())
+        timed.append(("fwd_column_blocks", lambda: column_blocks_fwd(q, k, v, mask, **kw)))
+    timed += [("dkv_kernel", lambda: FA.launch_bwd_dkv(*args, **kw)),
+              ("dq_kernel", lambda: FA.launch_bwd_dq(*args, **kw)),
+              ("bwd_library_dq_dk_dv",
+               lambda: torch.autograd.grad(lib_out, leaves, dout, retain_graph=True))]
     rows = {}
     for _ in range(2):  # in turns
-        for name, fn in (
-                ("fwd_plain", lambda: FA.flash_attention_reference(q, k, v, kv_mask=mask, **kw)),
-                ("fwd_kernel", lambda: FA._launch(q, k, v, kv_mask=mask, **kw)),
-                ("fwd_library", lib),
-                ("dkv_kernel", lambda: FA.launch_bwd_dkv(*args, **kw)),
-                ("dq_kernel", lambda: FA.launch_bwd_dq(*args, **kw)),
-                ("bwd_library_dq_dk_dv",
-                 lambda: torch.autograd.grad(lib_out, leaves, dout, retain_graph=True))):
+        for name, fn in timed:
             rows.setdefault(name, []).append(device_ms(fn))
     rows["fwd_kernel_one_at_a_time"] = one_at_a_time_ms(
         lambda: FA._launch(q, k, v, kv_mask=mask, **kw))
     rows["fwd_library_one_at_a_time"] = one_at_a_time_ms(lib)
-    emit({"case": [b, t, hq, hkv, d, causal, window, pad, sliced], "library": backend,
-          "routes": [plan(d).get("route", "wgmma")
-                     for plan in (FA.forward_plan, FA.dkv_plan, FA.dq_plan)], "ms": rows})
+    emit({**row, "ms": rows})
 
 
 def cluster_fits() -> dict:
     """The clusters of K4 and K5 in 9-16 CTAs (head dims 256 C), in 16 CTAs of two passes
     (4160, 6208, 7232: the first widths at four, three and two ring stages; 6144, 8192) and of
-    K1 in 8 (4096) that the card holds at once at their plans' shared memory
-    (``cluster_fit``; the widths within the package's reach), the shared memory beside
-    them, and whether each holds at least one (``ok``)."""
-    widths = [256 * c for c in range(9, 17)] + [4160, 6144, 6208, 7232, 8192]
-    fits = {kind: {d: FA.cluster_fit(d, kind) for d in widths if d <= FA.REACH[kind]}
-            for kind in ("dkv", "dq")}
-    fits["fwd"] = {4096: FA.cluster_fit(4096, "fwd")}
+    K1 in 8 (4096), 9 (4160, 4608), 10 (5120), 12 (6144) and 16 (8192) that the card holds
+    at once at their plans' shared memory (``cluster_fit``; the widths within the
+    package's reach), the shared memory beside them, and whether each holds at least one
+    (``ok``)."""
+    widths = {"dkv": [256 * c for c in range(9, 17)] + [4160, 6144, 6208, 7232, 8192],
+              "fwd": [4096, 4160, 4608, 5120, 6144, 8192]}
+    widths["dq"] = widths["dkv"]
+    fits = {kind: {d: FA.cluster_fit(d, kind) for d in by_kind if d <= FA.REACH[kind]}
+            for kind, by_kind in widths.items()}
     smem = {kind: {d: FA.cluster_plan(d, kind)["smem"] for d in by_d}
-            for kind, by_d in fits.items() if kind != "fwd"}
+            for kind, by_d in fits.items()}
     return {"cluster_fit": fits, "cluster_smem": smem,
             "ok": all(n >= 1 for by_d in fits.values() for n in by_d.values())}
 

@@ -24,15 +24,14 @@ card to the next of them, as the JAX package pads inside its kernel
 ``D ** -0.5`` and O, dQ, dK and dV are sliced back (q.k and P.V gain only zero terms).
 At 512 each kernel splits its accumulator's columns over its two warpgroups (and K4 over
 two CTAs a key tile), which both compute the scores. Above 512 two routes
-(``forward_plan``, ``dkv_plan``, ``dq_plan`` name them): K1 up to D = 4096 and K4 and K5
-up to 8192 run ``csrc/flash_attn_cluster.cu``, which cuts D over a thread-block cluster
-(K1 of up to 8 CTAs, K4 and K5 of up to 16: above 8 the H100's non-portable cluster
-sizes), each warpgroup computing its column slice's part of the scores (and of dP) on
-wgmma and the cluster summing the parts (``cluster_plan``; K4 and K5 past 4096 in two
-passes over the output columns, route "cluster passes", each forming the scores once);
-past that reach the column blocks of ``csrc/flash_attn_wide.cu`` (a CTA owns 128 output
-columns of a 64-row tile and computes the scores over the whole D again for its block:
-``wide_plan``).
+(``forward_plan``, ``dkv_plan``, ``dq_plan`` name them): K1, K4 and K5 up to D = 8192
+run ``csrc/flash_attn_cluster.cu``, which cuts D over a thread-block cluster of up to 16
+CTAs (above 8 the H100's non-portable cluster sizes), each warpgroup computing its
+column slice's part of the scores (and of dP) on wgmma and the cluster summing the parts
+(``cluster_plan``; K4 and K5 past 4096 in two passes over the output columns, route
+"cluster passes", each pass forming the scores once); past that reach the column blocks
+of ``csrc/flash_attn_wide.cu`` (a CTA owns 128 output columns of a 64-row tile and
+computes the scores over the whole D again for its block: ``wide_plan``).
 
 Each launch is a ``ptt`` operator (``kernels/_build.py:kernel_op``): the wrappers check
 the shapes and allocate every buffer the kernel writes (``fwd_buffers``,
@@ -87,15 +86,15 @@ WIDE_ROWS = 64      # rows a CTA of the wide kernels owns, and rows a tile of th
 # of the other operand (16 in K4's and K5's two passes, where 32 would spill registers),
 # CTAs of two consumer warpgroups, a warpgroup's slice of at most 256 columns of O (K1) or
 # 128 of dK and dV (K4) or of dQ (K5: at 256 its CTA's Q and dO beside one ring stage would
-# not fit an SM's shared memory) a pass; K1 in at most 8 CTAs (the portable cluster size)
-# and one pass, K4 and K5 in up to 16 (the H100's non-portable size, which the launch allows
-# above 8) and up to two passes over the output columns, so K1 reaches 4096 and K4 and K5
-# 8192; `kind` names the kernel
+# not fit an SM's shared memory) a pass; each kernel in up to 16 CTAs (the H100's
+# non-portable cluster size, which the launch allows above the portable 8), K1 in one pass,
+# K4 and K5 in up to two over the output columns, so all three reach 8192; `kind` names
+# the kernel
 CLUSTER_ROWS, CLUSTER_TILE = 64, 32
-MAX_CLUSTER = {"fwd": _build.MAX_CLUSTER, "dkv": 16, "dq": 16}
+MAX_CLUSTER = 16
 SLICE = {"fwd": 256, "dkv": 128, "dq": 128}
 MAX_PASSES = {"fwd": 1, "dkv": 2, "dq": 2}
-PASS_COLUMNS = {kind: 2 * MAX_CLUSTER[kind] * width for kind, width in SLICE.items()}  # 4096 each
+PASS_COLUMNS = {kind: 2 * MAX_CLUSTER * width for kind, width in SLICE.items()}
 REACH = {kind: MAX_PASSES[kind] * cols for kind, cols in PASS_COLUMNS.items()}
 SMEM_LIMIT = 232448  # bytes of shared memory a CTA can have on the H100
 MAX_STAGES = 4
@@ -160,13 +159,13 @@ def cluster_plan(d: int, kind: str) -> dict:
     columns in each of its ``passes`` passes over the output columns (``slices``: at most
     ``SLICE[kind]``, multiples of 64, 2 x ``cluster`` a pass, pass 0's first), the ring's
     rows (32) and ``stages`` (as many as fit, at most 4) and the CTA's shared memory
-    (``smem``). K1, K4 and K5 up to ``PASS_COLUMNS`` (4096) run one pass; K4 and K5 past it
-    run ceil(d / 4096) in 16 CTAs (route "cluster passes"), each warpgroup
-    contracting the scores over its slices of every pass in each, so each score is formed
-    ``passes`` times, on ring stages of 16 rows. The kernel computes the same and refuses
-    another plan."""
+    (``smem``). Up to ``PASS_COLUMNS`` (8192 for K1, 4096 for K4 and K5) one pass in
+    ceil(d / (2 ``SLICE``)) CTAs; K4 and K5 past 4096 run ceil(d / 4096) passes in 16 CTAs
+    (route "cluster passes"), each warpgroup contracting the scores over its slices of
+    every pass in each, so each score is formed ``passes`` times, on ring stages of 16
+    rows. The kernel computes the same and refuses another plan."""
     passes = -(-d // PASS_COLUMNS[kind])
-    cluster = MAX_CLUSTER[kind] if passes > 1 else -(-d // (2 * SLICE[kind]))
+    cluster = MAX_CLUSTER if passes > 1 else -(-d // (2 * SLICE[kind]))
     tile = CLUSTER_TILE if passes == 1 else CLUSTER_TILE // 2
     stages = next(s for s in range(MAX_STAGES, 1, -1)
                   if cluster_smem(d, cluster, s, kind, tile, passes) <= SMEM_LIMIT)
@@ -188,8 +187,8 @@ def cluster_fit(d: int, kind: str) -> int:
 
 
 def _wide_route(d: int, kind: str, rows: str, tile: str) -> dict:
-    """Above 512: the cluster kernel within its reach (in passes past 4096), the column
-    blocks past it."""
+    """Above 512: the cluster kernel within its reach (K4 and K5 in passes past 4096),
+    the column blocks past it."""
     plan = wide_plan(d, rows, tile)  # raises at a width no wide kernel takes
     if d <= REACH[kind]:
         return cluster_plan(d, kind)
@@ -200,9 +199,9 @@ def forward_plan(d: int) -> dict:
     """K1's tiles at head dim d: ``bq`` query rows a CTA (two warpgroups of 64) and
     ``bk`` keys a ring stage (64 at d = 256, where O alone is 128 registers a thread). At
     d = 512 the two warpgroups share 64 rows, each with half of O, and stages of 32 keys
-    (two of them and Q fill 192 KB). Above 512 and up to ``REACH["fwd"]`` the cluster
-    kernel (``cluster_plan``: 64 query rows a cluster, 32 keys a stage), past it the wide
-    kernel's column blocks (``wide_plan``, with ``route``)."""
+    (two of them and Q fill 192 KB). Above 512 and up to ``REACH["fwd"]`` (8192) the
+    cluster kernel (``cluster_plan``: ceil(d / 512) CTAs, 64 query rows a cluster, 32 keys
+    a stage), past it the wide kernel's column blocks (``wide_plan``, with ``route``)."""
     if d > max(HEAD_DIMS):
         return _wide_route(d, "fwd", "bq", "bk")
     if d not in HEAD_DIMS:

@@ -1,8 +1,19 @@
-"""The thread-block cluster schedules of K4 and K5 above head dim 512, of K3 above 512 and
-of K8 above 19,368 columns (``csrc/flash_attn_cluster.cu`` ``cluster_dkv_kernel`` and
-``cluster_dq_kernel``, ``csrc/decode_attention.cu`` route "cluster",
-``csrc/layernorm_bwd.cu`` ``layernorm_bwd_cluster_kernel``), emulated in torch fp32 on the
-CPU as the kernels cut the work, and held against the JAX package.
+"""The thread-block cluster schedules of K1, K4 and K5 above head dim 512, of K3 above 512
+and of K8 above 19,368 columns (``csrc/flash_attn_cluster.cu`` ``cluster_fwd_kernel``,
+``cluster_dkv_kernel`` and ``cluster_dq_kernel``, ``csrc/decode_attention.cu`` route
+"cluster", ``csrc/layernorm_bwd.cu`` ``layernorm_bwd_cluster_kernel``), emulated in torch
+fp32 on the CPU as the kernels cut the work, and held against the JAX package.
+
+K1: the plan's (``ops/flash_attention.py:forward_plan``) 64-row query tiles and the 32-key
+tiles each visits (``kv_tile_range``); each tile's S as the 2C warpgroups' partial
+products over their slices, summed in slice order; the online softmax in the exp2 domain
+(S scale log2(e), invalid pairs NEG_INF and their weights 0); each warpgroup's O slice +=
+P V; O divided by the running sum l of the weights its product applied, lse = m ln 2 +
+log(l) (the kernel rounds the weights to bf16 as wgmma's A operand and divides O by the
+sum of those roundings, lse's l staying the unrounded sum; here they stay fp32, as K4's P
+does, and the card tests hold the rounding). Against the JAX package's ``flash_attention`` (out) and ``_fwd``
+(lse) in interpret mode at D = 640 to 8192 (2 CTAs at 640, 5 of uneven slices at 2112, 8
+at 4096, 9 of uneven slices at 4160, 12 at 6144, 16 at 8192).
 
 K4: the plan's (``ops/flash_attention.py:dkv_plan``) 64-row key tiles and, for each query
 head of the KV head in turn, the 32-query tiles each visits (``q_tile_range``; past 4096 16
@@ -74,19 +85,24 @@ def _bf16(x):
     return x.to(torch.bfloat16).float()
 
 
-def _backward_inputs(q, k, v, do, *, scale, causal, window, kv_mask):
-    """The plain forward's lse [B, Hq, T] and delta = rowsum(dO O) [B, T, Hq] (the forward
-    kernel's, on the card), and the valid (query, key) pairs [B, T, T]."""
-    b, t = q.shape[:2]
-    out, lse = FA.flash_attention_reference(q, k, v, scale=scale, causal=causal,
-                                            window=window, kv_mask=kv_mask)
+def _valid_pairs(b, t, *, causal, window, kv_mask):
+    """The valid (query, key) pairs [B, T, T]."""
     i = torch.arange(t)
     valid = kv_mask.bool()[:, None, :] if kv_mask is not None else torch.ones(b, 1, t, dtype=bool)
     if causal:
         valid = valid & (i[None, :] <= i[:, None])
     if window:
         valid = valid & (i[:, None] - i[None, :] < window)
-    return lse, (do * out).sum(-1), valid.expand(b, t, t)
+    return valid.expand(b, t, t)
+
+
+def _backward_inputs(q, k, v, do, *, scale, causal, window, kv_mask):
+    """The plain forward's lse [B, Hq, T] and delta = rowsum(dO O) [B, T, Hq] (the forward
+    kernel's, on the card), and the valid (query, key) pairs [B, T, T]."""
+    out, lse = FA.flash_attention_reference(q, k, v, scale=scale, causal=causal,
+                                            window=window, kv_mask=kv_mask)
+    valid = _valid_pairs(*q.shape[:2], causal=causal, window=window, kv_mask=kv_mask)
+    return lse, (do * out).sum(-1), valid
 
 
 def _cluster_columns(plan):
@@ -207,8 +223,9 @@ DKV_CASES = [
 
 @functools.lru_cache(maxsize=None)
 def _case_grads(case):
-    """The case's numpy inputs (q, k, v, dO, mask) from its seed and the JAX package's
-    (dq, dk, dv): ``jax.vjp`` of its flash attention in interpret mode, once a case."""
+    """The case's numpy inputs (q, k, v, dO, mask) from its seed, the JAX package's
+    (dq, dk, dv) and its output: ``jax.vjp`` of its flash attention in interpret mode, once
+    a case."""
     b, t, hq, hkv, d, causal, window, ragged = case
     rng = np.random.default_rng(d + t)
     q, do = (rng.standard_normal((b, t, hq, d), dtype=np.float32) for _ in range(2))
@@ -222,12 +239,12 @@ def _case_grads(case):
     def attend(q_, k_, v_):
         return JFA.flash_attention(q_, k_, v_, kv_mask=jnp.asarray(mask), interpret=True, **kw)
 
-    _, vjp = jax.vjp(attend, *map(jnp.asarray, (q, k, v)))
-    return (q, k, v, do, mask), tuple(map(np.asarray, vjp(jnp.asarray(do))))
+    out, vjp = jax.vjp(attend, *map(jnp.asarray, (q, k, v)))
+    return (q, k, v, do, mask), tuple(map(np.asarray, vjp(jnp.asarray(do)))), np.asarray(out)
 
 
 def _emulated(fn, case):
-    (q, k, v, do, mask), grads = _case_grads(case)
+    (q, k, v, do, mask), grads, _ = _case_grads(case)
     d, causal, window = case[4:7]
     ours = fn(*map(torch.tensor, (q, k, v, do)), kv_mask=torch.tensor(mask),
               scale=d ** -0.5, causal=causal, window=window)
@@ -250,6 +267,72 @@ def test_cluster_dkv_matches_jax(case):
     (dk, dv), (_, jdk, jdv) = _emulated(cluster_dkv, case)
     np.testing.assert_allclose(dv.numpy(), jdv, **TOL)
     assert np.abs(dk.numpy() - jdk).max() <= REL * np.abs(jdk).max()
+
+
+def cluster_fwd(q, k, v, *, scale, causal, window, kv_mask):
+    """(out, lse) as the cluster kernel computes them, in fp32."""
+    b, t, hq, d = q.shape
+    n_rep = hq // k.shape[2]
+    plan = FA.forward_plan(d)
+    assert plan["route"] == "cluster" and plan["passes"] == 1
+    rows, keys = plan["bq"], plan["bk"]
+    _, (slices,) = _cluster_columns(plan)
+    valid = _valid_pairs(b, t, causal=causal, window=window, kv_mask=kv_mask)
+    qk_scale = scale / np.log(2.0)
+    out, lse = torch.zeros_like(q), torch.zeros(b, hq, t)
+    for bi in range(b):
+        for h in range(hq):
+            hk = h // n_rep
+            for q0 in range(0, t, rows):
+                qs = slice(q0, min(t, q0 + rows))
+                n = qs.stop - q0
+                m = torch.full((n,), NEG_INF)
+                l = torch.zeros(n)
+                o = [torch.zeros(n, sl.stop - sl.start) for sl in slices]
+                for kt in range(*FA.kv_tile_range(q0, rows, keys, t, causal, window)):
+                    ks = slice(kt * keys, min(t, kt * keys + keys))
+                    kk, vv = k[bi, ks, hk], v[bi, ks, hk]
+                    s = sum(q[bi, qs, h, sl] @ kk[:, sl].T for sl in slices)
+                    s = torch.where(valid[bi, qs, ks], s * qk_scale, NEG_INF)
+                    m_new = torch.maximum(m, s.max(-1).values)
+                    p = torch.where(s > 0.5 * NEG_INF, torch.exp2(s - m_new[:, None]), 0.0)
+                    corr = torch.exp2(m - m_new)
+                    l = l * corr + p.sum(-1)
+                    o = [a * corr[:, None] + p @ vv[:, sl] for a, sl in zip(o, slices)]
+                    m = m_new
+                for sl, a in zip(slices, o):  # the weights applied are the weights here
+                    out[bi, qs, h, sl] = a / l.clamp_min(1e-30)[:, None]
+                lse[bi, h, qs] = m * np.log(2.0) + torch.log(l.clamp_min(1e-30))
+    return out, lse
+
+
+# b, t, hq, hkv, d, causal, window, ragged key padding: cases of DQ_CASES (their JAX
+# forward comes with their gradients)
+FWD_CASES = [
+    (2, 70, 4, 2, 640, True, 40, True),      # 2 CTAs, two query tiles
+    (1, 40, 4, 2, 2112, True, 24, True),     # 5 CTAs, uneven slices (256 | 192)
+    (1, 40, 4, 2, 4096, True, 24, True),     # the widest portable cluster: 8 CTAs
+    (1, 40, 4, 2, 4160, True, 24, True),     # 9 CTAs, uneven slices
+    (1, 40, 2, 1, 6144, False, None, True),  # 12 CTAs
+    (1, 40, 4, 2, 8192, True, 24, True),     # the reach: 16 CTAs
+]
+
+
+@pytest.mark.parametrize("case", FWD_CASES)
+def test_cluster_fwd_matches_jax(case):
+    """out against the JAX package's flash attention, lse against its ``_fwd``, both in
+    interpret mode, on the query rows with a valid key (the others: out 0 in both, lse
+    only very negative)."""
+    (q, k, v, _, mask), _, theirs = _case_grads(case)
+    d, causal, window = case[4:7]
+    kw = dict(scale=d ** -0.5, causal=causal, window=window)
+    out, lse = cluster_fwd(*map(torch.tensor, (q, k, v)), kv_mask=torch.tensor(mask), **kw)
+    np.testing.assert_allclose(out.numpy(), theirs, **TOL)
+    _, jlse = JFA._fwd(*(jnp.asarray(x).swapaxes(1, 2) for x in (q, k, v)), jnp.asarray(mask),
+                       bq=JFA.DEFAULT_BQ, bk=JFA.DEFAULT_BK, interpret=True, **kw)
+    valid = _valid_pairs(*q.shape[:2], causal=causal, window=window, kv_mask=torch.tensor(mask))
+    live = valid.any(-1)[:, None, :].expand_as(lse).numpy()  # [B, Hq, T]
+    np.testing.assert_allclose(lse.numpy()[live], np.asarray(jlse)[:, :, 0][live], **TOL)
 
 
 # ---------------------------------------------------------------------------- K3

@@ -194,7 +194,7 @@ def _check_cluster_plan(plan, d, kind):
     passes = -(-d // FA.PASS_COLUMNS[kind])  # each score formed once a pass
     assert plan["route"] == ("cluster" if passes == 1 else "cluster passes")
     assert plan[rows] == 64 and plan["passes"] == passes <= FA.MAX_PASSES[kind]
-    assert 2 <= plan["cluster"] <= FA.MAX_CLUSTER[kind]
+    assert 2 <= plan["cluster"] <= FA.MAX_CLUSTER
     flat, wgs = plan["slices"], 2 * plan["cluster"]
     assert len(flat) == passes * wgs and flat == sum(FA.pass_slices(d, plan["cluster"],
                                                                     passes), [])
@@ -202,7 +202,7 @@ def _check_cluster_plan(plan, d, kind):
     # whole 64-column TMA boxes, covering d once, at most a warpgroup's width each a pass
     assert sum(flat) == d and all(x % 64 == 0 and 64 <= x <= width for x in flat)
     # the fewest CTAs that hold d in one pass; in two, the widest cluster
-    assert plan["cluster"] == (-(-d // (2 * width)) if passes == 1 else FA.MAX_CLUSTER[kind])
+    assert plan["cluster"] == (-(-d // (2 * width)) if passes == 1 else FA.MAX_CLUSTER)
     ctas = [sum(s[g] + s[g + 1] for s in slices) for g in range(0, 2 * plan["cluster"], 2)]
     assert max(ctas) - min(ctas) <= 64 and ctas[0] == max(ctas)  # CTA 0 the widest
     # a ring of 32 rows in one pass, of 16 in two; as many stages as fit, at most 4
@@ -231,18 +231,21 @@ def _check_cluster_plan(plan, d, kind):
      (9, [128] * 13 + [64, 128, 64, 128, 64], 3)),
     (3072, (6, [256] * 12, 2), (12, [128] * 24, 3), (12, [128] * 24, 3)),
     (4096, (8, [256] * 16, 2), (16, [128] * 32, 3), (16, [128] * 32, 3)),
-    # past 4096 K1 takes the column blocks; K4 and K5 two passes in 16 CTAs of 16 rows a
-    # ring stage: at 4160 one extra block, warpgroup 0 of CTA 0's first slice (four stages);
-    # at 6144 and 8192 passes of 128 | 64 and 128 | 128 columns a warpgroup
-    (4160, None, (16, [128] + [64] * 31 + [64] * 32, 4, 16),
+    # past 4096 K1 on 9-16 CTAs in one pass (4160: the 65 blocks over 18 warpgroups, the
+    # first of each CTA 256 columns, the second 192 past the first two CTAs; two stages as
+    # at 4096); K4 and K5 two passes in 16 CTAs of 16 rows a ring stage: at 4160 one extra
+    # block, warpgroup 0 of CTA 0's first slice (four stages); at 6144 and 8192 passes of
+    # 128 | 64 and 128 | 128 columns a warpgroup
+    (4160, (9, [256] * 4 + [256, 192] * 7, 2), (16, [128] + [64] * 31 + [64] * 32, 4, 16),
      (16, [128] + [64] * 31 + [64] * 32, 4, 16)),
-    (6144, None, (16, [128] * 32 + [64] * 32, 4, 16), (16, [128] * 32 + [64] * 32, 4, 16)),
-    (8192, None, (16, [128] * 64, 2, 16), (16, [128] * 64, 2, 16)),
+    (6144, (12, [256] * 24, 2), (16, [128] * 32 + [64] * 32, 4, 16),
+     (16, [128] * 32 + [64] * 32, 4, 16)),
+    (8192, (16, [256] * 32, 2), (16, [128] * 64, 2, 16), (16, [128] * 64, 2, 16)),
     (8256, None, None, None),  # past every reach: the column blocks
 ])
 def test_cluster_plans(d, fwd, dkv, dq):
     """K1, K4 and K5 above 512: the cluster route, its size, the column slices (uneven at
-    576, 640 and 2112: the first warpgroup of each CTA takes the extra blocks first; past
+    576, 640, 2112 and K1's 4160: the first warpgroup of each CTA takes the extra blocks first; past
     4096 K4's and K5's two passes, pass 0's slices before pass 1's) and the ring's stages (and its
     rows past 4096); the same formulas as csrc/flash_attn_cluster.cu:Layout, which refuses
     another plan. K5 cuts D as K4 does (128 columns a warpgroup) and keeps no query
@@ -260,27 +263,30 @@ def test_cluster_plans(d, fwd, dkv, dq):
 
 
 def test_cluster_plans_reach_and_past_it():
-    """Every multiple of 64 from 576 up to the reach (4096 for K1, 8192 for K4 and K5)
-    takes the cluster kernel: K1 in at most 8 CTAs, K4 and K5 in ceil(d / 256) <= 16 with at
-    least two ring stages up to 4096 and in 16 CTAs and two passes past it (stages of 16
-    rows); the next width past each reach, 4160 for K1 and 8256 for
-    K4 and K5, takes the column blocks; the CTA's shared memory at 1024 is what
+    """Every multiple of 64 from 576 up to the reach (8192 for K1, K4 and K5) takes the
+    cluster kernel: K1 in ceil(d / 512) <= 16 CTAs and one pass with at least two ring
+    stages, K4 and K5 in ceil(d / 256) <= 16 with at least two ring stages up to 4096 and
+    in 16 CTAs and two passes past it (stages of 16 rows); the next width past the reach,
+    8256, takes the column blocks; the CTA's shared memory at 1024 is what
     csrc/flash_attn_cluster.cu lays out: Q 64 KB, two stages of K and V (64 KB each), the
     partial pieces and their sum (24 KB), 13 barriers, 1 KB of alignment (K1); K and V 64
     KB, three stages of Q, dO and their statistics, 48 KB of partial pieces and sums (K4); Q
     and dO 64 KB, three stages of K and V, 48 KB of partial pieces and sums (K5); at 8192
     (K4) K and V 128 KB, two stages of 16 queries of Q and dO (32 KB each) and their
-    statistics, 24 KB of partial pieces and sums."""
-    assert FA.REACH == {"fwd": 4096, "dkv": 8192, "dq": 8192}
-    assert FA.MAX_CLUSTER == {"fwd": 8, "dkv": 16, "dq": 16}
+    statistics, 24 KB of partial pieces and sums; at 8192 (K1) Q 64 KB, two stages of K and
+    V (64 KB each), 24 KB of partial pieces and sums, as at 4096."""
+    assert FA.REACH == {"fwd": 8192, "dkv": 8192, "dq": 8192}
+    assert FA.MAX_CLUSTER == 16  # for K1, K4 and K5 alike
     for d in range(576, FA.REACH["fwd"] + 1, 64):
-        _check_cluster_plan(FA.forward_plan(d), d, "fwd")
+        plan = FA.forward_plan(d)
+        _check_cluster_plan(plan, d, "fwd")
+        assert plan["cluster"] == -(-d // 512) and plan["passes"] == 1 and plan["stages"] >= 2
     for d in range(576, FA.REACH["dkv"] + 1, 64):
         for plan, kind in ((FA.dkv_plan(d), "dkv"), (FA.dq_plan(d), "dq")):
             _check_cluster_plan(plan, d, kind)
             assert plan["cluster"] == min(-(-d // 256), 16) and plan["stages"] >= 2
             assert _ring(plan, kind) == (32 if d <= 4096 else 16)
-    assert FA.forward_plan(4160) == {"route": "column blocks", **FA.wide_plan(4160, "bq", "bk")}
+    assert FA.forward_plan(8256) == {"route": "column blocks", **FA.wide_plan(8256, "bq", "bk")}
     assert FA.dkv_plan(8256) == {"route": "column blocks", **FA.wide_plan(8256, "bk", "bq")}
     assert FA.dq_plan(8256) == {"route": "column blocks", **FA.wide_plan(8256, "bq", "bk")}
     assert FA.forward_plan(2112)["route"] == "cluster"
@@ -288,6 +294,8 @@ def test_cluster_plans_reach_and_past_it():
     assert FA.dkv_plan(1024)["smem"] == 65536 + 3 * (32768 + 256) + 6 * 8192 + 104 + 1024
     assert FA.dq_plan(1024)["smem"] == 65536 + 3 * 32768 + 6 * 8192 + 104 + 1024
     assert FA.dkv_plan(8192)["smem"] == 131072 + 2 * (32768 + 128) + 3 * 8192 + 104 + 1024
+    assert FA.forward_plan(8192)["smem"] == FA.forward_plan(4096)["smem"] == (
+        65536 + 2 * 65536 + 3 * 8192 + 104 + 1024)
 
 
 @pytest.mark.parametrize("d", [4160, 5120, 5184, 6144, 7232, 8192])

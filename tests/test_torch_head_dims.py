@@ -12,11 +12,12 @@ itself, and at 576, 640 and 1024 (the wide kernels' widths; decode pads 576 and 
 768); tolerance 1e-5 absolute and relative. Then the card's branch on meta tensors
 (which stand for the card in the budget's trace): a head dim outside the kernels' set
 goes through the pad (320 and 600 too), 512 and the multiples of 64 above it go
-straight to the kernels, 513 is padded to 576. The plans above 512: K1 on the cluster
-kernel up to 4096, K4 and K5 up to 8192 (two passes over the output columns past 4096),
-past that on the column blocks; K3 on a cluster at every width, more than one 256-column
-block a CTA past 2048. The plain backward (the CPU's K4 and K5) against the JAX package's
-at head dims past 4096, where the card runs the two passes."""
+straight to the kernels, 513 is padded to 576. The plans above 512: K1, K4 and K5 on the
+cluster kernel up to 8192 (K1 in 9-16 CTAs past 4096, K4 and K5 in two passes over the
+output columns), past that on the column blocks; K3 on a cluster at every width, more
+than one 256-column block a CTA past 2048. The plain forward and backward (the CPU's K1,
+K4 and K5) against the JAX package's at head dims past 4096, where the card runs K1's
+9-16 CTA clusters and K4's and K5's two passes."""
 
 import jax
 import jax.numpy as jnp
@@ -163,17 +164,19 @@ def test_card_branch_pads_on_meta_tensors():
 @pytest.mark.parametrize("d,blocks", [(576, 5), (640, 5), (1024, 8), (4096, 32), (4160, 33),
                                       (6144, 48), (8192, 64), (8256, 65)])
 def test_wide_plans(d, blocks):
-    """The plans above 512: K1's clusters up to 4096 and their column blocks past it
-    (4160: 64-row tiles over 128-column blocks, the last of 64, the scores over 64-column
-    chunks); K4's and K5's clusters up to 4096 (16 CTAs there), two passes over the output
-    columns on 16 CTAs from 4160 to 8192 (16 rows a ring stage),
-    the column blocks past 8192; the same tile ranges as the kernels'."""
+    """The plans above 512: K1's clusters up to 8192 (ceil(d / 512) CTAs: 9 at 4160, 12
+    at 6144, 16 at 8192; one pass) and their column blocks past it (8256: 64-row tiles over
+    128-column blocks, the last of 64, the scores over 64-column chunks); K4's and K5's
+    clusters up to 4096 (16 CTAs there), two passes over the output columns on 16 CTAs
+    from 4160 to 8192 (16 rows a ring stage), the column blocks past 8192; the same tile
+    ranges as the kernels'."""
     fwd, dkv, dq = FA.forward_plan(d), FA.dkv_plan(d), FA.dq_plan(d)
     column_blocks = {"col_block": 128, "col_blocks": blocks, "chunk": 64}
-    if d > FA.REACH["fwd"]:
+    if d > 8192:
         assert fwd == {"route": "column blocks", "bq": 64, "bk": 64, **column_blocks}
     else:
         assert fwd["route"] == "cluster" and sum(fwd["slices"]) == d
+        assert fwd["cluster"] == -(-d // 512) and fwd["passes"] == 1
         assert {k: fwd[k] for k in ("bq", "bk")} == {"bq": 64, "bk": 32}
     if d <= 4096:
         assert dkv["route"] == "cluster" and sum(dkv["slices"]) == d
@@ -197,12 +200,14 @@ def test_wide_plans(d, blocks):
             FA.forward_plan(bad)
 
 
-@pytest.mark.parametrize("d", [4160, 6144, 8192])
+@pytest.mark.parametrize("d", [4160, 4608, 5120, 6144, 8192])
 def test_plain_backward_past_4096_matches_pallas(d):
-    """The plain K4 and K5 (``flash_attention_bwd_reference``, what the CPU runs where the
-    card runs the two-pass cluster kernels) against the JAX package's backward (its Pallas
-    kernels in interpret mode) at head dims past 4096: T = 16, GQA 2/1, causal with a
-    window of 5, the second row's last 4 keys padded; fp32, 1e-4."""
+    """The plain K1, K4 and K5 (``flash_attention_reference`` and
+    ``flash_attention_bwd_reference``, what the CPU runs where the card runs K1 on 9-16
+    CTAs and K4 and K5 in two passes) against the JAX package's forward (out, and lse from
+    its ``_fwd``) and backward (its Pallas kernels in interpret mode) at head dims past
+    4096: T = 16, GQA 2/1, causal with a window of 5, the second row's last 4 keys padded
+    (every query row keeps a valid key); fp32, 1e-4."""
     rng = np.random.default_rng(30 + d // 64)
     b, t, hq, hkv = 2, 16, 2, 1
     q = rng.standard_normal((b, t, hq, d), dtype=np.float32)
@@ -221,6 +226,10 @@ def test_plain_backward_past_4096_matches_pallas(d):
 
     theirs, vjp = jax.vjp(attend, *map(jnp.asarray, (q, k, v)))
     np.testing.assert_allclose(out.numpy(), np.asarray(theirs), rtol=1e-4, atol=1e-4)
+    _, jlse = JFA._fwd(*(jnp.asarray(x).swapaxes(1, 2) for x in (q, k, v)), jnp.asarray(mask),
+                       scale=d ** -0.5, bq=JFA.DEFAULT_BQ, bk=JFA.DEFAULT_BK, interpret=True,
+                       **kw)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse)[:, :, 0], rtol=1e-4, atol=1e-4)
     for name, mine, g in zip("qkv", ours, vjp(jnp.asarray(do))):
         np.testing.assert_allclose(mine.numpy(), np.asarray(g), rtol=1e-4, atol=1e-4,
                                    err_msg=f"d{name}")

@@ -84,7 +84,9 @@ def _pad_mask(b, t, pad, n, card):
     (129, 576, 4, 2, True, None, "right", False),  # uneven slices: 192 + 128 | 128 + 128
     (300, 2048, 4, 2, True, 100, "left", True),    # 4 CTAs
     (150, 2112, 4, 2, True, 37, "left", False),    # 5 CTAs, uneven slices
-    (129, 4160, 2, 1, False, None, None, False),   # past K1's reach: the column blocks
+    (129, 4160, 2, 1, False, None, None, False),   # 9 CTAs, uneven slices
+    (150, 8192, 4, 2, True, 37, "left", False),    # K1's reach: 16 CTAs
+    (70, 8256, 2, 1, True, None, "right", False),  # past it: the column blocks
 ])
 def test_flash_kernel(card, t, d, hq, hkv, causal, window, pad, sliced):
     rng = np.random.default_rng(1)
@@ -109,7 +111,8 @@ def test_flash_kernel(card, t, d, hq, hkv, causal, window, pad, sliced):
 @pytest.mark.parametrize("t,d,hq,hkv,causal", [(150, 64, 4, 4, False), (1024, 72, 4, 4, False),
                                                (300, 128, 4, 2, True), (300, 256, 4, 1, True),
                                                (300, 1024, 4, 1, True), (200, 640, 4, 4, False),
-                                               (200, 576, 4, 2, True), (300, 2048, 4, 2, True)])
+                                               (200, 576, 4, 2, True), (300, 2048, 4, 2, True),
+                                               (129, 4160, 4, 1, True), (150, 8192, 4, 2, False)])
 def test_flash_forward_fp32_copy_and_reruns(card, t, d, hq, hkv, causal):
     """The fp32 copy of O that the forward writes for the backward's delta rounds to the
     bf16 O of the same launch, and a rerun gives the same bits (no sum of the kernel
@@ -361,9 +364,9 @@ def test_dkv_kernel_past_2048(card, t, d, hq, hkv, causal, window, route):
 
 def test_nonportable_clusters_are_placed(card):
     """K4 and K5 in clusters of 9-16 CTAs (head dims 2304-4096, 256 a CTA) and in 16 CTAs
-    of two passes (4160-8192, at each stage count of the plans) at their
-    plans' shared memory: the card holds at least one such cluster at once (the occupancy
-    query on the kernel allowed non-portable sizes); K1 stays within 8."""
+    of two passes (4160-8192, at each stage count of the plans), K1 in 9-16 (4160-8192, 512
+    a CTA) at their plans' shared memory: the card holds at least one such cluster at once
+    (the occupancy query on the kernel allowed non-portable sizes); K1 at 4096 in 8."""
     for c in range(9, 17):
         for kind in ("dkv", "dq"):
             assert FA.cluster_plan(256 * c, kind)["cluster"] == c
@@ -373,17 +376,22 @@ def test_nonportable_clusters_are_placed(card):
             assert FA.cluster_plan(d, kind)["cluster"] == 16
             assert FA.cluster_fit(d, kind) >= 1, (kind, d)
     assert FA.cluster_plan(4096, "fwd")["cluster"] == 8 and FA.cluster_fit(4096, "fwd") >= 1
+    for d, c in ((4160, 9), (4608, 9), (5120, 10), (6144, 12), (8192, 16)):
+        assert FA.cluster_plan(d, "fwd")["cluster"] == c
+        assert FA.cluster_fit(d, "fwd") >= 1, ("fwd", d)
 
 
 def test_cluster_launch_outside_the_plan_raises(card):
     """A cluster size or ring other than the plan's is refused by the kernel's entry point
-    (K4 at 17 CTAs, K1 at 16, K4 at 8192 with stages of 32 queries or 8 CTAs, K5 past its
-    reach) and raised by the wrapper's check: nothing is retried at another size."""
+    (K4 at 17 CTAs, K1 at 16 where its plan is 8, K1 at 17 past its reach, K4 at 8192 with
+    stages of 32 queries or 8 CTAs, K5 past its reach) and raised by the wrapper's check: nothing is retried at another size."""
     from projectiontrainer_tpu_torch.kernels import _build
 
     lib = _build.library()
     assert lib.flash_attn_cluster_fit(1, 4096, 17, 3, 32) == -1
     assert lib.flash_attn_cluster_fit(0, 4096, 16, 2, 32) == -1
+    assert lib.flash_attn_cluster_fit(0, 8256, 17, 2, 32) == -1
+    assert lib.flash_attn_cluster_fit(0, 8192, 16, 2, 32) >= 1
     assert lib.flash_attn_cluster_fit(1, 8192, 16, 2, 32) == -1
     assert lib.flash_attn_cluster_fit(2, 4160, 16, 4, 32) == -1
     assert lib.flash_attn_cluster_fit(1, 8192, 8, 2, 16) == -1
